@@ -7,7 +7,8 @@
 Phases (any failure exits non-zero; no exception is swallowed):
   1. build    every hand-written CUDA kernel from elasticsearch_tpu_torch/csrc
   2. kernels  each kernel against its plain PyTorch twin at main-path shapes
-              (a 32-query cohort at NB=4096, 16 slots, on the corpus), timed
+              (a 32-query cohort at NB=4096, 16 slots, on the corpus), timed;
+              the merge also at NB=1024 and 2048 and on a tie-heavy cohort
   3. rest     a port Node on CUDA indexes ~2,000 generated docs through
               _bulk, refreshes, force-merges and answers 20 match queries over
               HTTP; ids, order and totals equal the float64 oracle
@@ -106,13 +107,66 @@ def http(port: int, method: str, path: str, body=None, ndjson=False):
 
 
 # ---------------------------------------------------------------- phase 2
+def tie_heavy_keys(q, n_slots, length, dev, seed):
+    """[q, n_slots, length] int32 slots of keys drawn from 64 values,
+    ascending, each filled to a random length and padded with the
+    sentinel; every fifth slot from the fourth on is all sentinel."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    keys = torch.randint(0, 64, (q, n_slots, length), generator=g,
+                         device=dev, dtype=torch.int32).sort(dim=2).values
+    fill = torch.randint(0, length + 1, (q, n_slots, 1), generator=g,
+                         device=dev)
+    fill[:, 3::5] = 0
+    pos = torch.arange(length, device=dev)
+    return torch.where(pos < fill, keys, torch.full_like(keys, 0x7FFFFFFF))
+
+
+def merge_case(keys, n_slots, iters):
+    """The merge kernel on ``keys`` ([q, p] or [q, n_slots, L] int32,
+    each slot ascending) with the lane payload, held bit for bit against
+    its twin and against one ``torch.sort(stable=True)``, and timed."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops.merge import (merge_sorted_slots,
+                                                   merge_sorted_slots_plain)
+    q = keys.shape[0]
+    p = keys.numel() // q
+    flat = keys.reshape(q, p)
+    skeys = flat.view(q, n_slots, p // n_slots)
+    lane = torch.arange(p, dtype=torch.int32, device=keys.device) \
+        .repeat(q, 1).view(q, n_slots, p // n_slots)
+    mk, mv = merge_sorted_slots(skeys, lane)
+    pk, pv = merge_sorted_slots_plain(skeys, lane)
+    lk, lv = torch.sort(flat, dim=1, stable=True)
+    torch.cuda.synchronize()
+    check(torch.equal(mk, pk) and torch.equal(mv, pv),
+          f"merge kernel keys and payload bit-equal to the stable sort "
+          f"over [{q}, {p}]")
+    check(torch.equal(lk, pk) and torch.equal(lv.to(torch.int32), pv),
+          "torch.sort agrees with the twin")
+    # each (key, payload) pair read once and written once; a merge of
+    # n_slots runs needs at least log2(n_slots) comparisons per element
+    n_bytes = q * p * 16
+    b, by = bound_ms(n_bytes, (n_slots.bit_length() - 1) * q * p, "int32")
+    ms, host = cuda_ms(lambda: merge_sorted_slots(skeys, lane), iters)
+    return dict(
+        q=q, p=p,
+        max_abs_err=float((mk.long() - pk.long()).abs().max()
+                          + (mv.long() - pv.long()).abs().max()),
+        ms=ms, host_ms=host,
+        plain_ms=cuda_ms(lambda: merge_sorted_slots_plain(skeys, lane),
+                         iters)[0],
+        library_ms=cuda_ms(lambda: torch.sort(flat, dim=1, stable=True),
+                           iters)[0],
+        bound_ms=b, bound_by=by, bytes=n_bytes)
+
+
 def phase_kernels(node, seg, queries, iters):
     import torch
 
     from elasticsearch_tpu_torch.ops.bm25_contrib import (
         gather_bm25_contrib, gather_bm25_contrib_plain)
-    from elasticsearch_tpu_torch.ops.merge import (merge_sorted_slots,
-                                                   merge_sorted_slots_plain)
     from elasticsearch_tpu_torch.search.fastpath import (MAX_K, N_SLOTS,
                                                          NB_BUCKETS, Q_BATCH)
     fp = node.serving_lane()
@@ -176,33 +230,37 @@ def phase_kernels(node, seg, queries, iters):
     log(f"[kernels] contrib f64 max_abs_err={err64} rtol={rel64}; "
         f"f32 rtol={rel32}; {n_valid}/{p * q} real postings")
 
-    # ---- kernel 2: merge of the 16 docid-sorted slots, lane payload
-    skeys = keys_k.view(q, N_SLOTS, p // N_SLOTS)
-    lane = torch.arange(p, dtype=torch.int32, device=dev).repeat(q, 1) \
-        .view(q, N_SLOTS, p // N_SLOTS)
-    mk, mv = merge_sorted_slots(skeys, lane)
-    pk, pv = merge_sorted_slots_plain(skeys, lane)
-    lk, lv = torch.sort(keys_k, dim=1, stable=True)
-    torch.cuda.synchronize()
-    check(torch.equal(mk, pk) and torch.equal(mv, pv),
-          "merge kernel keys and payload bit-equal to the stable sort")
-    check(torch.equal(lk, pk) and torch.equal(lv.to(torch.int32), pv),
-          "torch.sort agrees with the twin")
-    # each (key, payload) pair read once and written once; a merge of
-    # 16 runs needs at least log2(16) = 4 comparisons per element
-    bytes2 = q * p * 16
-    b2, by2 = bound_ms(bytes2, 4 * q * p, "int32")
-    ms2, host2 = cuda_ms(lambda: merge_sorted_slots(skeys, lane), iters)
+    # ---- kernel 2: merge of the 16 docid-sorted slots, lane payload, at
+    # every bucket the lane launches (the corpus's keys, through kernel 1)
+    # and on a tie-heavy cohort; the row keeps NB = 4096
+    per_case = {}
+    smallest = [fp._v2_bucket(reg, qq) for qq in queries]
+    for b in NB_BUCKETS:
+        if b == bucket:
+            keys_b = keys_k
+        else:
+            fit = [qq for qq, sb in zip(queries, smallest)
+                   if sb is not None and sb <= b][:Q_BATCH]
+            check(fit, f"queries that fit bucket {b}")
+            sel_b, ws_b, mids_b = fp.assemble_cohort(reg, b, fit)
+            keys_b = gather_bm25_contrib(
+                dp.block_docids, dp.block_tfs,
+                torch.from_numpy(sel_b).to(dev),
+                torch.from_numpy(ws_b).to(dev), dp.doc_lens, masks,
+                torch.from_numpy(mids_b).to(dev), avg64, 1.2, 0.75)[0]
+        per_case[f"nb{b}"] = merge_case(keys_b, N_SLOTS, iters)
+    per_case["tie_heavy"] = merge_case(
+        tie_heavy_keys(q, N_SLOTS, p // N_SLOTS, dev, seed=q), N_SLOTS,
+        iters)
+    main = per_case[f"nb{bucket}"]
     out["merge_sorted_slots"] = dict(
-        max_abs_err=float((mk.long() - pk.long()).abs().max()
-                          + (mv.long() - pv.long()).abs().max()),
-        ms=ms2, host_ms=host2,
-        plain_ms=cuda_ms(lambda: merge_sorted_slots_plain(skeys, lane),
-                         iters)[0],
-        library_ms=cuda_ms(lambda: torch.sort(keys_k, dim=1, stable=True),
-                           iters)[0],
-        bound_ms=b2, bound_by=by2, bytes=bytes2)
-    log(f"[kernels] merge bit-equal over [{q}, {p}]")
+        main, max_abs_err=max(r["max_abs_err"] for r in per_case.values()),
+        per_bucket=per_case)
+    for case, r in per_case.items():
+        log(f"[kernels] merge {case} [{r['q']}, {r['p']}] bit-equal to "
+            f"the twin: kernel {r['ms']:.4f} ms, torch.sort "
+            f"{r['library_ms']:.4f} ms, twin {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms")
     for name, r in out.items():
         log(f"[kernels] {name}: kernel {r['ms']:.4f} ms (host "
             f"{r['host_ms']:.4f} ms per call), twin {r['plain_ms']:.4f} ms, "
@@ -238,12 +296,9 @@ def phase_kernels(node, seg, queries, iters):
                and not getattr(e, "is_user_annotation", False)]
     total_us = sum(dev_us(e) for e in kernels)
     mine = {"gather_bm25_contrib": "gather_contrib_kernel",
-            "merge_sorted_slots": ("chunk_stages", "global_stage",
-                                   "flip_odd_slots")}
-    share = {n: sum(dev_us(e) for e in kernels
-                    if any(k in e.key for k in ((m,) if isinstance(m, str)
-                                                else m))) / max(total_us, 1)
-             for n, m in mine.items()}
+            "merge_sorted_slots": "merge_path_round"}
+    share = {n: sum(dev_us(e) for e in kernels if m in e.key)
+             / max(total_us, 1) for n, m in mine.items()}
     log("[cohort] device time of one cohort launch by kernel "
         f"({reps} launches traced):")
     log(events.table(sort_by="self_cuda_time_total", row_limit=14))
@@ -504,7 +559,8 @@ def main(argv=None) -> int:
             launches_per_cohort=launches[name] / max(1, cohorts),
             max_abs_err=r["max_abs_err"], ms=r["ms"], kernel_ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            per_bucket=r.get("per_bucket")))
     print(json.dumps({"scale": scale}))
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(

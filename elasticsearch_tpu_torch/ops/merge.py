@@ -2,8 +2,8 @@
 
 Counterpart of elasticsearch_tpu/ops/merge.py `merge_sorted_slots` (its
 Pallas `_chunk_kernel` and XLA `_xla_stage` rounds). The CUDA kernel is
-``csrc/merge.cu``; this module holds its wrapper and its plain PyTorch
-twin.
+``csrc/merge.cu``, a merge-path merge of log2(n_slots) rounds; this module
+holds its wrapper and its plain PyTorch twin.
 
 Contract: keys [Q, n_slots, L] int32, each slot ascending (sentinel
 padding last), with an int32 payload of the same shape. Out: ([Q, P],
@@ -56,16 +56,23 @@ def merge_sorted_slots(keys: torch.Tensor, vals: torch.Tensor):
     from elasticsearch_tpu_torch.ops._build import library
     fn = library("merge").merge_sorted_slots_i32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     p = n_slots * slot_len
     mk = torch.empty((q, p), dtype=torch.int32, device=keys.device)
     mv = torch.empty((q, p), dtype=torch.int32, device=keys.device)
+    # from four slots on, the rounds alternate between a scratch pair and
+    # the output
+    tk = tv = None
+    if n_slots >= 4:
+        tk, tv = torch.empty_like(mk), torch.empty_like(mv)
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(keys.data_ptr(), vals.data_ptr(), mk.data_ptr(),
-                mv.data_ptr(), q, n_slots, slot_len, stream)
+                mv.data_ptr(), tk.data_ptr() if tk is not None else None,
+                tv.data_ptr() if tv is not None else None, q, n_slots,
+                slot_len, stream)
     if rc != 0:
         raise RuntimeError(f"merge_sorted_slots kernel launch failed: "
                            f"CUDA error {rc}")

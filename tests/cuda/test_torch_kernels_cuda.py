@@ -1,8 +1,9 @@
 """The port's two CUDA kernels against their plain PyTorch twins on the
 card, at shapes the serving path does not reach (a query row shorter than
-one shared-memory chunk, two slots, one slot, a single query) as well as
-one of its own, and the whole cohort launch on the card against the same
-launch on the CPU."""
+one merge tile, runs shorter than a thread's outputs, one slot, odd round
+counts, a single query), at the three shapes of its own (Q = 32, 16 slots,
+NB = 1024, 2048, 4096), on tie-heavy and all-sentinel keys, and the whole
+cohort launch on the card against the same launch on the CPU."""
 
 import numpy as np
 import pytest
@@ -21,27 +22,43 @@ pytestmark = pytest.mark.cuda
 K1, B = 1.2, 0.75
 
 
-def sorted_slots(q, n_slots, length, seed):
-    """Per-slot ascending docids with sentinel padding (one slot empty);
-    the lane index as payload, as on the serving path."""
+def sorted_slots(q, n_slots, length, seed, values=None):
+    """Per-slot ascending docids with sentinel padding (one slot empty),
+    drawn from ``values`` distinct keys (3 * length by default; 0 leaves
+    every slot all sentinel); the lane index as payload, as on the
+    serving path."""
     rng = np.random.default_rng(seed)
+    values = 3 * length if values is None else values
     keys = np.full((q, n_slots, length), _SENTINEL, np.int32)
     for qi in range(q):
         for s in range(n_slots):
-            if n_slots > 1 and s == 1:
+            if (n_slots > 1 and s == 1) or values == 0:
                 continue
             fill = int(rng.integers(0, length + 1))
-            keys[qi, s, :fill] = np.sort(rng.integers(0, 3 * length, fill))
+            keys[qi, s, :fill] = np.sort(rng.integers(0, values, fill))
     lane = np.broadcast_to(np.arange(n_slots * length, dtype=np.int32),
                            (q, n_slots * length)).reshape(keys.shape).copy()
     return torch.from_numpy(keys), torch.from_numpy(lane)
 
 
-@pytest.mark.parametrize("q,n_slots,length", [
-    (1, 2, 8), (3, 4, 256), (2, 16, 1024), (1, 1, 64), (2, 2, 1 << 14),
-    (2, 16, 1 << 15)])
-def test_merge_kernel_equals_twin(cuda_device, q, n_slots, length):
-    keys, lane = sorted_slots(q, n_slots, length, seed=q * n_slots + length)
+@pytest.mark.parametrize("q,n_slots,length,values", [
+    (1, 2, 8, None), (3, 4, 256, None), (2, 16, 1024, None),
+    (1, 1, 64, None), (2, 2, 1 << 14, None), (2, 16, 1 << 15, None),
+    # the serving lane's three buckets: NB = 1024, 2048, 4096
+    (32, 16, 1 << 13, None), (32, 16, 1 << 14, None),
+    (32, 16, 1 << 15, None),
+    # odd round counts, so the last round lands in the output, not the
+    # scratch
+    (2, 2, 1 << 12, None), (2, 8, 1 << 12, None), (3, 8, 1 << 9, None),
+    # a row shorter than one tile; runs of 1, 2 and 4, shorter than one
+    # thread's outputs
+    (3, 4, 8, None), (3, 8, 1, None), (2, 16, 2, None), (2, 8, 4, None),
+    # tie-heavy (64 values, with sentinel-only slots) and all sentinel
+    (32, 16, 1 << 13, 64), (4, 16, 1 << 12, 64), (3, 4, 8, 2),
+    (4, 16, 1 << 12, 0), (2, 8, 16, 0)])
+def test_merge_kernel_equals_twin(cuda_device, q, n_slots, length, values):
+    keys, lane = sorted_slots(q, n_slots, length, seed=q * n_slots + length,
+                              values=values)
     pk, pv = merge_sorted_slots_plain(keys, lane)
     before = merge_sorted_slots.launches
     mk, mv = merge_sorted_slots(keys.to(cuda_device), lane.to(cuda_device))

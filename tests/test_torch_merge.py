@@ -15,9 +15,11 @@ from elasticsearch_tpu_torch.ops.merge import (merge_sorted_slots,
                                                merge_sorted_slots_plain)
 
 
-def make_inputs(q, p, n_slots, seed, n_docs=100_000, empty_slots=()):
+def make_inputs(q, p, n_slots, seed, n_docs=100_000, empty_slots=(),
+                values=None):
     """Per-slot ascending docids with sentinel padding; the payload is
-    the lane index (int32), as on the serving path."""
+    the lane index (int32), as on the serving path. With ``values`` the
+    keys of a slot are drawn with repeats from that many values."""
     rng = np.random.default_rng(seed)
     length = p // n_slots
     keys = np.full((q, n_slots, length), _SENTINEL, np.int32)
@@ -27,7 +29,8 @@ def make_inputs(q, p, n_slots, seed, n_docs=100_000, empty_slots=()):
                 continue
             fill = int(rng.integers(0, length + 1))
             keys[qi, s, :fill] = np.sort(
-                rng.choice(n_docs, size=fill, replace=False))
+                rng.choice(n_docs, size=fill, replace=False)
+                if values is None else rng.integers(0, values, fill))
     lane = np.broadcast_to(np.arange(p, dtype=np.int32),
                            (q, p)).reshape(q, n_slots, length).copy()
     return keys, lane
@@ -77,6 +80,41 @@ def test_merge_matches_reference_shortcut(n_slots, p, chunk, empty):
     mk, mv = port_merge(keys, lane)
     np.testing.assert_array_equal(mk, np.asarray(jk))
     np.testing.assert_array_equal(mv, np.asarray(jv))
+
+
+# tie-heavy cohorts (every slot draws from a few values, some slots all
+# sentinel) and all-sentinel cohorts: (n_slots, p, chunk, values, empty)
+TIE_CASES = [
+    (16, 1 << 13, 1 << 11, 64, (2, 5, 11)),
+    (8, 1 << 12, 1 << 10, 2, (0,)),
+    (4, 1 << 11, 1 << 9, 64, ()),
+    (16, 1 << 12, 1 << 10, None, tuple(range(16))),
+    (2, 1 << 10, 1 << 9, None, (0, 1)),
+]
+
+
+@pytest.mark.parametrize("n_slots,p,chunk,values,empty", TIE_CASES)
+def test_merge_ties_and_sentinels_match_reference(n_slots, p, chunk, values,
+                                                  empty):
+    """The twin the kernel is held to on the card, on ties: keys and
+    payload equal to the reference's CPU shortcut (``lax.sort``, stable
+    here) and to the stable argsort; keys equal to the interpret-mode
+    network and the (key, payload) pairs equal as a multiset, since the
+    network does not order equal keys."""
+    keys, lane = make_inputs(2, p, n_slots, seed=3 * n_slots + p,
+                             empty_slots=empty, values=values)
+    mk, mv = port_merge(keys, lane)
+    jk, jv = jax_merge(jnp.asarray(keys), jnp.asarray(lane))  # lax.sort
+    np.testing.assert_array_equal(mk, np.asarray(jk))
+    np.testing.assert_array_equal(mv, np.asarray(jv))
+    flat = keys.reshape(2, p)
+    np.testing.assert_array_equal(mv, np.argsort(flat, axis=1, kind="stable"))
+    nk, nv = jax_merge(jnp.asarray(keys[:1]), jnp.asarray(lane[:1]),
+                       chunk=chunk, force_pallas=True)
+    nk, nv = np.asarray(nk), np.asarray(nv)
+    np.testing.assert_array_equal(mk[:1], nk)
+    assert sorted(zip(mk[0].tolist(), mv[0].tolist())) == \
+        sorted(zip(nk[0].tolist(), nv[0].tolist()))
 
 
 def test_merge_carries_float_payload():
