@@ -119,6 +119,78 @@ def make_queries(rng: np.random.Generator, df: np.ndarray,
     return queries
 
 
+# plan-path documents and query bodies: the shapes of the reference's
+# plan tests (tests/test_plan.py), on text fields `title` and `body` and
+# a keyword field `tag`; the reference's numeric `views` is left out
+# (numeric columns are a later slice)
+PLAN_MAPPINGS = {"properties": {"title": {"type": "text"},
+                                "body": {"type": "text"},
+                                "tag": {"type": "keyword"}}}
+PLAN_VOCAB = ["alpha", "beta", "gamma", "delta", "epsilon", "zeta", "eta",
+              "theta", "iota", "kappa", "wolf", "fox", "dog", "cat", "bird",
+              "fish", "tree", "rock", "lake", "hill"]
+PLAN_TAGS = ["red", "green", "blue", "yellow"]
+# the reference's plan test cases, in order; the ones holding a `range`
+# clause (a dense clause) are typed 400s in the port
+PLAN_CASES = [
+    {"match": {"title": "alpha wolf"}},
+    {"match": {"body": {"query": "alpha beta gamma", "operator": "and"}}},
+    {"match": {"body": {"query": "alpha beta gamma delta",
+                        "minimum_should_match": 2}}},
+    {"match": {"body": {"query": "alpha beta gamma delta",
+                        "minimum_should_match": "75%"}}},
+    {"term": {"tag": "red"}},
+    {"term": {"title": "fox"}},
+    {"terms": {"tag": ["red", "blue"]}},
+    {"multi_match": {"query": "wolf lake", "fields": ["title", "body"]}},
+    {"multi_match": {"query": "wolf lake", "fields": ["title", "body"],
+                     "type": "most_fields"}},
+    {"multi_match": {"query": "wolf lake", "fields": ["title", "body"],
+                     "tie_breaker": 0.3}},
+    {"dis_max": {"queries": [{"match": {"title": "alpha"}},
+                             {"match": {"body": "wolf fox"}}],
+                 "tie_breaker": 0.5}},
+    {"constant_score": {"filter": {"term": {"tag": "green"}}, "boost": 2.0}},
+    {"bool": {"must": [{"match": {"title": "alpha beta"}}],
+              "filter": [{"term": {"tag": "red"}}]}},
+    {"bool": {"must": [{"match": {"body": "wolf"}}],
+              "must_not": [{"term": {"tag": "blue"}}]}},
+    {"bool": {"should": [{"match": {"title": "alpha"}},
+                         {"match": {"body": "fox dog"}}],
+              "minimum_should_match": 1}},
+    {"bool": {"should": [{"match": {"title": "alpha"}},
+                         {"match": {"body": "fox"}},
+                         {"term": {"tag": "red"}}],
+              "minimum_should_match": 2}},
+    {"bool": {"must": [{"match": {"body": "lake hill rock"}}],
+              "filter": [{"range": {"views": {"gte": 20, "lt": 80}}}]}},
+    {"bool": {"must": [{"match": {"title": "wolf"}},
+                       {"match": {"body": "alpha"}}],
+              "filter": [{"term": {"tag": "red"}},
+                         {"range": {"views": {"gte": 10}}}],
+              "must_not": [{"term": {"tag": "yellow"}},
+                           {"range": {"views": {"gte": 95}}}]}},
+    {"bool": {"must": [{"match": {"title": "fox"}}],
+              "should": [{"match": {"body": "alpha"}},
+                         {"match": {"body": "beta"}}]}},
+    {"bool": {"filter": [{"match": {"body": {"query": "alpha beta",
+                                             "operator": "and"}}}]}},
+    {"match": {"title": {"query": "wolf fox", "boost": 2.5}}},
+    {"bool": {"must": [{"match": {"title": "wolf"}},
+                       {"range": {"views": {"gte": 5}}}]}},
+]
+
+
+def plan_doc(rng: np.random.Generator) -> Dict[str, str]:
+    """A document of the shape of the reference's plan test fixture
+    (its `views` left out)."""
+    return {"title": " ".join(rng.choice(PLAN_VOCAB,
+                                         int(rng.integers(1, 8)))),
+            "body": " ".join(rng.choice(PLAN_VOCAB,
+                                        int(rng.integers(2, 20)))),
+            "tag": str(rng.choice(PLAN_TAGS))}
+
+
 def segment_from_corpus(corpus: Dict[str, np.ndarray], field: str = "title",
                         name: str = "corpus0") -> Segment:
     """The corpus as one port Segment over a text field of the terms

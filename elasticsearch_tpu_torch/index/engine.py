@@ -1,18 +1,20 @@
-"""Per-index write path for the `_search` BM25 slice (counterpart of
+"""Per-index write path for the `_search` slices (counterpart of
 elasticsearch_tpu/index/engine.py): index, refresh and force-merge.
 
 Indexed documents buffer in a SegmentWriter until ``refresh`` turns them
 into an immutable Segment; ``force_merge(1)`` folds every segment into
-one, which the v2m serving lane needs. Re-indexing an id soft-deletes
-its older copy. This slice keeps the index in memory: the translog and
-on-disk segments are later slices.
+one, which the v2m serving lane needs (the plan path serves several).
+Re-indexing an id soft-deletes its older copy. Segments that a merge or
+an install retires are handed to ``on_retire`` (the node's device cache
+drops their device copies). This slice keeps the index in memory: the
+translog and on-disk segments are later slices.
 """
 
 from __future__ import annotations
 
 import threading
 import uuid
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 from elasticsearch_tpu_torch.index.mapper import DocumentMapper
 from elasticsearch_tpu_torch.index.segment import (Segment, SegmentWriter,
@@ -20,8 +22,13 @@ from elasticsearch_tpu_torch.index.segment import (Segment, SegmentWriter,
 
 
 class Engine:
-    def __init__(self, mapper: DocumentMapper):
+    def __init__(self, mapper: DocumentMapper, name: str = "",
+                 on_retire: Optional[Callable[[Iterable[str]], None]] = None):
         self.mapper = mapper
+        self._on_retire = on_retire
+        # segment names carry the index name: the node's device cache
+        # holds the segments of every index
+        self.name = name
         self._lock = threading.Lock()
         self._segments: List[Segment] = []
         self._writer = SegmentWriter()
@@ -35,7 +42,7 @@ class Engine:
 
     def _next_name(self) -> str:
         self._seg_counter += 1
-        return f"_{self._seg_counter}"
+        return f"{self.name}_{self._seg_counter}"
 
     def _exists(self, doc_id: str) -> bool:
         if doc_id in self._buffered:
@@ -99,10 +106,17 @@ class Engine:
             if len(self._segments) > 1 or any(
                     not s.live.all() for s in self._segments):
                 merged = merge_segments(self._next_name(), self._segments)
-                self._segments = [merged] if merged.n_docs else []
+                self._replace([merged] if merged.n_docs else [])
 
     def install_segments(self, segments: List[Segment]) -> None:
         """Replace the searchable segments with prebuilt ones (bulk
         loading of a corpus built outside the write path)."""
         with self._lock:
-            self._segments = list(segments)
+            self._replace(list(segments))
+
+    def _replace(self, segments: List[Segment]) -> None:
+        kept = {id(s) for s in segments}
+        retired = [s.name for s in self._segments if id(s) not in kept]
+        self._segments = segments
+        if retired and self._on_retire is not None:
+            self._on_retire(retired)

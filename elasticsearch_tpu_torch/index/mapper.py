@@ -1,11 +1,13 @@
-"""Document mapping for the `_search` BM25 slice (counterpart of
-elasticsearch_tpu/index/mapper.py), reduced to ``text`` fields: a
-document parses into per-field token lists.
+"""Document mapping for the `_search` slices (counterpart of
+elasticsearch_tpu/index/mapper.py), reduced to ``text`` and ``keyword``
+fields: a document parses into per-field token lists (text, analyzed)
+and per-field term lists (keyword, untokenized, as the reference's
+``KeywordFieldType``).
 
-Explicit mappings may declare only ``text`` fields with the standard
-analyzer; other field types belong to later slices and are refused.
-Dynamic mapping maps a string value to a ``text`` field and leaves
-every other value in ``_source`` only.
+Explicit mappings may declare ``text`` fields with the standard analyzer
+and ``keyword`` fields; other field types belong to later slices and are
+refused. Dynamic mapping maps a string value to a ``text`` field and
+leaves every other value in ``_source`` only.
 """
 
 from __future__ import annotations
@@ -29,13 +31,16 @@ class ParsedDocument:
     source: bytes
     # field -> analyzed tokens
     text_tokens: Dict[str, List[Token]] = field(default_factory=dict)
+    # field -> untokenized values, one term each (keyword fields)
+    keyword_terms: Dict[str, List[str]] = field(default_factory=dict)
 
 
 class DocumentMapper:
-    """Field map of one index: dotted path -> "text"."""
+    """Field map of one index: dotted path -> "text" | "keyword"."""
 
     def __init__(self, mappings: Optional[Dict[str, Any]] = None):
         self.fields: Dict[str, str] = {}
+        self.ignore_above: Dict[str, int] = {}   # keyword fields
         self.analyzer = StandardAnalyzer()
         if mappings:
             props = mappings.get("properties", {})
@@ -48,10 +53,15 @@ class DocumentMapper:
                 self._add_properties(f"{path}.", spec["properties"])
                 continue
             ftype = spec.get("type", "object")
+            if ftype == "keyword":
+                self.fields[path] = "keyword"
+                self.ignore_above[path] = int(
+                    spec.get("ignore_above", 2 ** 31 - 1))
+                continue
             if ftype != "text":
                 raise MapperParsingException(
                     f"field [{path}] has type [{ftype}]: this slice of the "
-                    f"port indexes text fields only")
+                    f"port indexes text and keyword fields only")
             for key in ("analyzer", "search_analyzer"):
                 if spec.get(key, "standard") not in SUPPORTED:
                     raise MapperParsingException(
@@ -85,6 +95,12 @@ class DocumentMapper:
                 if not any(isinstance(v, str) for v in values):
                     continue
                 self.fields[path] = "text"
+            if self.fields[path] == "keyword":
+                terms = [str(v) for v in values if v is not None
+                         and len(str(v)) <= self.ignore_above[path]]
+                if terms:
+                    parsed.keyword_terms.setdefault(path, []).extend(terms)
+                continue
             toks = parsed.text_tokens.setdefault(path, [])
             for v in values:
                 if v is None:

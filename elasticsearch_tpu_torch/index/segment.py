@@ -1,6 +1,6 @@
 """Immutable segments (counterpart of elasticsearch_tpu/index/segment.py),
-reduced to what the `_search` BM25 slice reads: text postings, doc
-lengths, ids, `_source` and the live mask.
+reduced to what the `_search` slices read: text and keyword postings,
+doc lengths, ids, `_source` and the live mask.
 
 - **Postings as padded blocks.** Each text field's postings are
   concatenated into blocks of ``BLOCK_SIZE`` (128): ``block_docids
@@ -8,7 +8,10 @@ lengths, ids, `_source` and the live mask.
   Padding carries ``tf = 0`` and ``docid = 0`` and scores exactly 0. A
   term's blocks are ``term_block_start/term_block_count``; a term's last
   block is padded rather than shared, so block gathers never mix terms.
-- **Deletes as masks**: ``live[n_docs] bool``.
+- **Keyword postings** have tf = 1 per distinct value and a field length
+  equal to the number of values, as the reference builds them.
+- **Deletes as masks**: ``live[n_docs] bool``, replaced (never mutated)
+  on delete, with ``live_version`` bumped so device caches can key on it.
 
 Docids are segment-local dense int32.
 """
@@ -79,6 +82,7 @@ class Segment:
         self.postings = postings
         self.stored = stored
         self.live = live if live is not None else np.ones(n_docs, dtype=bool)
+        self.live_version = 0  # bumps on delete; device caches key on it
         self._id_map: Optional[Dict[str, int]] = None
 
     @property
@@ -89,8 +93,10 @@ class Segment:
 
     def delete(self, docid: int) -> None:
         """Soft delete — flips the live mask (immutable arrays elsewhere)."""
-        self.live = self.live.copy()
-        self.live[docid] = False
+        live = self.live.copy()
+        live[docid] = False
+        self.live = live
+        self.live_version += 1
 
     def docid_for(self, doc_id: str) -> int:
         d = self.id_map.get(doc_id, -1)
@@ -119,7 +125,8 @@ class SegmentWriter:
     def build(self, name: str) -> Segment:
         docs = self._docs
         n = len(docs)
-        # text postings: tf = within-doc term count
+        # postings: text fields (tf = within-doc term count) and keyword
+        # fields (tf = 1 per distinct value, length = number of values)
         field_term_docs: Dict[str, Dict[str, List[Tuple[int, float]]]] = {}
         field_lengths: Dict[str, np.ndarray] = {}
         for docid, d in enumerate(docs):
@@ -132,6 +139,12 @@ class SegmentWriter:
                     per.setdefault(term, []).append((docid, float(tf)))
                 field_lengths.setdefault(
                     f, np.zeros(n, np.float32))[docid] = len(toks)
+            for f, terms in d.keyword_terms.items():
+                per = field_term_docs.setdefault(f, {})
+                for term in set(terms):
+                    per.setdefault(term, []).append((docid, 1.0))
+                field_lengths.setdefault(
+                    f, np.zeros(n, np.float32))[docid] = len(terms)
         postings = {
             f: _build_postings_field(f, term_docs, field_lengths[f], n)
             for f, term_docs in field_term_docs.items()
@@ -261,38 +274,23 @@ def segment_from_numpy(arrays: Dict[str, Any], name: str = "imported",
     elsewhere (a reference segment's arrays, a generated corpus) enters
     the port without importing the code that built it.
 
-    ``arrays`` holds one field's postings: ``terms`` (sorted list of
-    str), ``doc_freq``, ``term_block_start``, ``term_block_count``,
-    ``block_docids`` [TB, 128], ``block_tfs`` [TB, 128] and
-    ``field_lengths`` [n_docs]; optionally ``total_term_freq``, ``ids``
-    (list of str, default the docid as text), ``live`` [n_docs] bool,
-    ``field`` (the field name) and ``sources`` (list of bytes)."""
-    fname = field or arrays.get("field") or "body"
-    block_docids = np.ascontiguousarray(arrays["block_docids"], np.int32)
-    block_tfs = np.ascontiguousarray(arrays["block_tfs"], np.float32)
-    if block_docids.ndim != 2 or block_docids.shape[1] != BLOCK_SIZE \
-            or block_tfs.shape != block_docids.shape:
-        raise ValueError("block arrays must be [num_blocks, 128]")
-    lengths = np.asarray(arrays["field_lengths"], np.float32)
-    n = len(lengths)
-    doc_freq = np.asarray(arrays["doc_freq"], np.int32)
-    starts = np.asarray(arrays["term_block_start"], np.int64)
-    counts = np.asarray(arrays["term_block_count"], np.int64)
-    ttf = arrays.get("total_term_freq")
-    if ttf is None:     # each term's tf sum over its blocks
-        csum = np.concatenate([[0.0], np.cumsum(
-            block_tfs.sum(axis=1, dtype=np.float64))])
-        ttf = csum[starts + counts] - csum[starts]
-    pf = PostingsField(
-        field=fname, terms=list(arrays["terms"]), doc_freq=doc_freq,
-        total_term_freq=np.asarray(ttf, np.int64),
-        term_block_start=starts.astype(np.int32),
-        term_block_count=counts.astype(np.int32),
-        block_docids=block_docids, block_tfs=block_tfs,
-        field_lengths=lengths,
-        sum_total_term_freq=int(lengths.sum(dtype=np.float64)),
-        sum_doc_freq=int(doc_freq.sum()),
-        doc_count=int((lengths > 0).sum()))
+    ``arrays["fields"]`` maps each field name to that field's postings
+    arrays: ``terms`` (sorted list of str), ``doc_freq``,
+    ``term_block_start``, ``term_block_count``, ``block_docids``
+    [TB, 128], ``block_tfs`` [TB, 128], ``field_lengths`` [n_docs] and
+    optionally ``total_term_freq``. For a segment of one field those
+    arrays may sit in ``arrays`` itself, the field named by ``field=``
+    (or ``arrays["field"]``, default "body"). Optional for the segment:
+    ``ids`` (list of str, default the docid as text), ``live`` [n_docs]
+    bool and ``sources`` (list of bytes)."""
+    fields = arrays.get("fields")
+    if fields is None:
+        fields = {field or arrays.get("field") or "body": arrays}
+    postings = {f: _postings_from_numpy(f, a) for f, a in fields.items()}
+    sizes = {len(pf.field_lengths) for pf in postings.values()}
+    if len(sizes) != 1:
+        raise ValueError(f"fields disagree on the doc count: {sorted(sizes)}")
+    n = sizes.pop()
     ids = arrays.get("ids")
     ids = [str(i) for i in range(n)] if ids is None else list(ids)
     sources = arrays.get("sources")
@@ -303,5 +301,33 @@ def segment_from_numpy(arrays: Dict[str, Any], name: str = "imported",
         np.cumsum([len(s) for s in sources], out=offsets[1:])
         stored = StoredFields(offsets, b"".join(sources), ids)
     live = arrays.get("live")
-    return Segment(name, n, {fname: pf}, stored,
+    return Segment(name, n, postings, stored,
                    None if live is None else np.asarray(live, bool).copy())
+
+
+def _postings_from_numpy(fname: str, arrays: Dict[str, Any]) -> PostingsField:
+    block_docids = np.ascontiguousarray(arrays["block_docids"], np.int32)
+    block_tfs = np.ascontiguousarray(arrays["block_tfs"], np.float32)
+    if block_docids.ndim != 2 or block_docids.shape[1] != BLOCK_SIZE \
+            or block_tfs.shape != block_docids.shape:
+        raise ValueError("block arrays must be [num_blocks, 128]")
+    lengths = np.asarray(arrays["field_lengths"], np.float32)
+    doc_freq = np.asarray(arrays["doc_freq"], np.int32)
+    starts = np.asarray(arrays["term_block_start"], np.int64)
+    counts = np.asarray(arrays["term_block_count"], np.int64)
+    ttf = arrays.get("total_term_freq")
+    if ttf is None:     # each term's tf sum over its blocks
+        csum = np.concatenate([[0.0], np.cumsum(
+            block_tfs.sum(axis=1, dtype=np.float64))])
+        ttf = csum[starts + counts] - csum[starts]
+    ttf = np.asarray(ttf, np.int64)
+    return PostingsField(
+        field=fname, terms=list(arrays["terms"]), doc_freq=doc_freq,
+        total_term_freq=ttf,
+        term_block_start=starts.astype(np.int32),
+        term_block_count=counts.astype(np.int32),
+        block_docids=block_docids, block_tfs=block_tfs,
+        field_lengths=lengths,
+        sum_total_term_freq=int(ttf.sum()),
+        sum_doc_freq=int(doc_freq.sum()),
+        doc_count=int((lengths > 0).sum()))

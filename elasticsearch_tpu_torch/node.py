@@ -1,6 +1,7 @@
 """A single port node (counterpart of elasticsearch_tpu/node.py): the
-indices, the REST routes of the `_search` BM25 slice, the stdlib HTTP
-server and the v2m serving lane on one device.
+indices, the REST routes of the `_search` slices, the stdlib HTTP
+server, the device-resident segments, and the two serving paths on one
+device: the v2m lane and the plan path with its PlanBatcher.
 
     node = Node(device=None)              # CUDA unless device="cpu"
     port = node.start(0)                  # returns the bound port
@@ -19,9 +20,11 @@ from elasticsearch_tpu_torch.index.engine import Engine
 from elasticsearch_tpu_torch.index.mapper import DocumentMapper
 from elasticsearch_tpu_torch.rest.api import RestController
 from elasticsearch_tpu_torch.rest.http_server import HttpServer
+from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
 from elasticsearch_tpu_torch.search.fastpath import FastPathServer
+from elasticsearch_tpu_torch.search.service import SearchService
 
-VERSION = "8.0.0-torch-slice1"
+VERSION = "8.0.0-torch-slice3"
 
 
 @dataclass
@@ -41,7 +44,10 @@ class Node:
         self.device = resolve_device(device)
         self.indices: Dict[str, IndexService] = {}
         self._indices_lock = threading.Lock()
-        self.fastpath = FastPathServer(self.device)
+        # one device copy of each segment, shared by both paths
+        self.device_cache = DeviceSegmentCache(self.device)
+        self.fastpath = FastPathServer(self.device, self.device_cache)
+        self.search_service = SearchService(self.device_cache)
         self.rest_controller = RestController(self)
         self._http: Optional[HttpServer] = None
         self._fastpath_started = False
@@ -58,7 +64,8 @@ class Node:
         sim = (settings.get("index", settings).get("similarity", {})
                .get("default", {}))
         mapper = DocumentMapper(mappings)
-        svc = IndexService(name, mapper, Engine(mapper),
+        engine = Engine(mapper, name, on_retire=self.device_cache.evict)
+        svc = IndexService(name, mapper, engine,
                            k1=float(sim.get("k1", 1.2)),
                            b=float(sim.get("b", 0.75)))
         with self._indices_lock:

@@ -15,6 +15,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # padding docid: sorts after every real docid
 _SENTINEL = 0x7FFFFFFF
@@ -36,6 +37,44 @@ def bm25_contrib(sel_weights: torch.Tensor, tf: torch.Tensor,
     norm = k1 * ((1.0 - b) + b * dl / avg_len)
     return sel_weights[..., None] * torch.where(tf > 0.0, tf / (tf + norm),
                                                 0.0)
+
+
+def scan_run_bound(n_terms: int, floor: int = 32) -> int:
+    """``max_run`` for the doubling segmented scans: the smallest power
+    of two >= max(n_terms, floor). The scan's window equals this bound
+    (steps 1 .. bound/2 sum a run of exactly ``bound`` elements), and a
+    doc's run holds at most one entry per term entry of its query."""
+    r = floor
+    while r < n_terms:
+        r *= 2
+    return r
+
+
+def doubling_scan(keys: torch.Tensor, vals: torch.Tensor, max_run: int,
+                  reduce: str = "sum") -> torch.Tensor:
+    """Segmented inclusive scans over contiguous key-runs along the LAST
+    axis (Hillis-Steele with the key-equality carry): steps 1, 2, 4 ...
+    below ``max_run``, which must bound the longest run that is read.
+    ``reduce`` is "sum" or "max"; ``vals`` may carry extra leading axes
+    over which ``keys`` broadcasts.
+
+    Each run is reduced directly, element by element, so a float32 sum
+    keeps its rounding to the run's own few terms; a global prefix sum
+    minus a run-start prefix (the reference's ``_segsum``) carries the
+    rounding of everything before the run."""
+    x = vals
+    step = 1
+    while step < min(max_run, keys.shape[-1]):
+        prev_k = F.pad(keys[..., :-step], (step, 0), value=-1)
+        same = prev_k == keys
+        if reduce == "sum":
+            prev_x = F.pad(x[..., :-step], (step, 0))
+            x = x + torch.where(same, prev_x, 0.0)
+        else:
+            prev_x = F.pad(x[..., :-step], (step, 0), value=float("-inf"))
+            x = torch.maximum(x, torch.where(same, prev_x, float("-inf")))
+        step *= 2
+    return x
 
 
 def bm25_reference_scores(postings_per_term, idfs, doc_lens, avg_len,

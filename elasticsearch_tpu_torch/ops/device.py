@@ -8,13 +8,16 @@ Shape discipline:
 - the doc count pads to a multiple of ``DOC_PAD`` (padded docs are dead
   in the live mask and have doc_len = avg, so no NaN or 0-division);
 - one reserved all-zeros postings block sits at index ``num_blocks``:
-  query block lists pad with it (weight 0).
+  query block lists pad with it (weight 0) and bucket to powers of two
+  (``block_bucket``), so a selection's width takes O(log) values.
+
+Text and keyword postings upload alike (keyword postings are tf = 1).
 """
 
 from __future__ import annotations
 
 import threading
-from collections import Counter
+from collections import Counter, OrderedDict
 from typing import Dict
 
 import numpy as np
@@ -25,6 +28,9 @@ from elasticsearch_tpu_torch.index.segment import BLOCK_SIZE, Segment
 from elasticsearch_tpu_torch.ops.plan import check_packed_id_limit
 
 DOC_PAD = 1024
+MIN_BLOCK_BUCKET = 8
+# bound-plan cache entries per DeviceSegment (search/searcher.py)
+BOUND_PLANS_MAX = 128
 
 # device -> host copies per call site (see readback)
 READBACKS: Counter = Counter()
@@ -44,6 +50,14 @@ def readback(site: str, *tensors: torch.Tensor):
 
 def round_up(n: int, multiple: int) -> int:
     return ((n + multiple - 1) // multiple) * multiple
+
+
+def block_bucket(n: int) -> int:
+    """Round a selected-block count up to the next power-of-two bucket."""
+    b = MIN_BLOCK_BUCKET
+    while b < n:
+        b *= 2
+    return b
 
 
 class DevicePostings:
@@ -85,10 +99,33 @@ class DeviceSegment:
         # only < 2^24: enforce at build time, not as wraparound later
         check_packed_id_limit(self.n_docs_padded,
                               f"DeviceSegment[{segment.name}]")
-        live = np.zeros(self.n_docs_padded, bool)
-        live[: segment.n_docs] = segment.live
-        self.live = torch.from_numpy(live).to(self.device)
+        # bound plans of repeated queries (search/searcher.py), keyed by
+        # (query, k, live_version): LRU of at most BOUND_PLANS_MAX
+        self._bound_plans: "OrderedDict[tuple, object]" = OrderedDict()
+        self._bound_lock = threading.Lock()
+        self.update_live(segment.live)
         self.postings: Dict[str, DevicePostings] = {
             f: DevicePostings(pf, self.n_docs_padded, self.device)
             for f, pf in segment.postings.items()
         }
+
+    def bound_plan(self, key: tuple, make):
+        """The cached bound plan under ``key``, else ``make()`` cached."""
+        with self._bound_lock:
+            bp = self._bound_plans.get(key)
+            if bp is not None:
+                self._bound_plans.move_to_end(key)
+                return bp
+        bp = make()
+        with self._bound_lock:
+            self._bound_plans[key] = bp
+            while len(self._bound_plans) > BOUND_PLANS_MAX:
+                self._bound_plans.popitem(last=False)
+        return bp
+
+    def update_live(self, live_host: np.ndarray) -> None:
+        """Upload a new live mask (a delete replaces the segment's mask;
+        the postings stay resident)."""
+        live = np.zeros(self.n_docs_padded, bool)
+        live[: self.n_docs] = live_host
+        self.live = torch.from_numpy(live).to(self.device)

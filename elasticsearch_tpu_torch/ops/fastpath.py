@@ -13,9 +13,10 @@ global prefix); totals are exact distinct-match counts (relation "eq");
 the top-k keeps the lowest docids among ties at the kth value.
 
 The two hand-written kernels are the gather + contribution
-(ops/bm25_contrib.py) and the merge (ops/merge.py). The scan, run-last
-selection and top-k are plain PyTorch ops, as the reference leaves them
-to XLA outside any Pallas kernel.
+(ops/bm25_contrib.py) and the merge (ops/merge.py). The scan
+(ops/bm25.py), run-last selection and top-k (ops/topk.py) are plain
+PyTorch ops, as the reference leaves them to XLA outside any Pallas
+kernel.
 """
 
 from __future__ import annotations
@@ -23,31 +24,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from elasticsearch_tpu_torch.ops.bm25 import _SENTINEL
+from elasticsearch_tpu_torch.ops.bm25 import _SENTINEL, doubling_scan
 from elasticsearch_tpu_torch.ops.bm25_contrib import gather_bm25_contrib
 from elasticsearch_tpu_torch.ops.merge import merge_sorted_slots
 from elasticsearch_tpu_torch.ops.plan import check_packed_id_limit
+from elasticsearch_tpu_torch.ops.topk import stable_topk
 
 # mask-stack height: every cohort launch carries F dense bool rows
 # (row 0 = the live mask; rows 1.. = filter columns, a later slice);
 # each query picks its row by mask_ids
 F_SLOTS = 32
-
-# runs are <= 16 term instances per doc (N_SLOTS): 4 doubling steps
-# close every real run (sentinel runs are longer; never read)
-_MERGE_SCAN_STEPS = (1, 2, 4, 8)
-
-
-def _doubling_scan(keys: torch.Tensor, vals: torch.Tensor,
-                   steps=_MERGE_SCAN_STEPS) -> torch.Tensor:
-    """Segmented inclusive sums over contiguous key-runs along the LAST
-    axis (Hillis-Steele with the key-equality carry)."""
-    x = vals
-    for step in steps:
-        prev_x = F.pad(x[..., :-step], (step, 0))
-        prev_k = F.pad(keys[..., :-step], (step, 0), value=-1)
-        x = x + torch.where(prev_k == keys, prev_x, 0.0)
-    return x
 
 
 def _run_last_candidates(mk: torch.Tensor, x: torch.Tensor):
@@ -57,30 +43,6 @@ def _run_last_candidates(mk: torch.Tensor, x: torch.Tensor):
     real_last = (mk != nxt) & (x > 0.0) & (mk != _SENTINEL)
     totals = real_last.sum(dim=1, dtype=torch.int32)
     return torch.where(real_last, x, float("-inf")), totals
-
-
-def _stable_topk(cand: torch.Tensor, keys: torch.Tensor, k: int):
-    """Batched STABLE top-k of ``cand`` [Q, P] (key-ascending order):
-    among ties at the kth value the FIRST positions (lowest keys) win.
-    Returns (vals [Q, k], ids [Q, k]) ordered by value descending, then
-    position ascending; empty slots are (-inf, _SENTINEL)."""
-    kth = torch.topk(cand, k, dim=1).values[:, k - 1:k]
-    gt = cand > kth
-    eq = cand == kth
-    need = k - gt.sum(dim=1, keepdim=True)
-    eq_rank = torch.cumsum(eq.to(torch.int32), dim=1)
-    cand2 = torch.where(gt | (eq & (eq_rank <= need)), cand,
-                        float("-inf"))
-    # the k winners as a set, then canonical order: value desc, position asc
-    pos = torch.topk(cand2, k, dim=1).indices
-    pos = torch.sort(pos, dim=1).values
-    vals = torch.gather(cand2, 1, pos)
-    order = torch.sort(vals, dim=1, descending=True, stable=True).indices
-    vals = torch.gather(vals, 1, order)
-    pos = torch.gather(pos, 1, order)
-    ids = torch.gather(keys, 1, pos)
-    ids = torch.where(torch.isfinite(vals), ids, _SENTINEL)
-    return vals, ids
 
 
 def bm25_topk_total_merge_batch(
@@ -113,8 +75,10 @@ def bm25_topk_total_merge_batch(
     mk, midx = merge_sorted_slots(keys.reshape(q, n_slots, p // n_slots),
                                   lane)
     x = torch.gather(cons, 1, midx.long())
-    x = _doubling_scan(mk, x)
+    # runs are <= n_slots term instances per doc (sentinel runs are
+    # longer; never read)
+    x = doubling_scan(mk, x, n_slots)
     cand, totals = _run_last_candidates(mk, x)
-    vals, ids = _stable_topk(cand, mk, k)
+    vals, ids = stable_topk(cand, mk, k)
     return torch.cat([vals.to(torch.float32), ids.to(torch.float32),
                       totals.to(torch.float32)[:, None]], dim=1)

@@ -1,14 +1,55 @@
-"""Packed-readback id helpers (counterpart of the id packing in
-elasticsearch_tpu/ops/plan.py).
+"""Fused query-plan top-k (counterpart of elasticsearch_tpu/ops/plan.py),
+the plan path's device program, and the packed-readback helpers.
 
-Serving kernels return docids as float32 casts inside one packed float32
-array, so a cohort pays one device-to-host copy. A float32 holds every
-integer below 2^24 exactly; that is the ceiling on padded doc counts.
+A boolean query tree executes as ONE sorted segmented-reduction program
+over the query's postings, batched over a leading [Q] axis of queries
+(the reference vmaps a single-query body; here every tensor carries the
+query axis, and the single-query ``plan_topk`` is Q = 1):
+
+  1. gather the selected postings blocks of every clause, tagging each
+     posting with (group, subgroup): a group is one bool clause (a match,
+     a term filter, ...), a subgroup one term within it;
+  2. sort by (docid, group, subgroup): one int64 key
+     ``docid << 32 | group << 16 | subgroup`` through a stable
+     ``torch.sort``, the contributions gathered through the permutation
+     (the reference's three-key ``lax.sort``);
+  3. segmented reductions over the sorted runs give, per (doc, group),
+     the distinct subgroups matched (operator=and, minimum_should_match)
+     and the summed BM25 contribution; then per doc which groups are
+     present, must/filter/should/must_not satisfaction and the combined
+     score (sum or dis-max);
+  4. a stable top-k over the per-doc run totals gives (scores, docids)
+     and the exact count of matching docs.
+
+The segmented sums are the bounded DOUBLING scan of ops/bm25.py
+(``max_run = scan_run_bound(term entries)``: a doc's run holds at most
+one entry per term entry), where the reference subtracts a cummax'ed
+run-start prefix from a global float32 cumsum. It is the same function
+with tighter rounding: each run is summed from its own few terms, not
+from a prefix over the whole row. The rail is float32, as in the
+reference. Dense column clauses (``dense_mask``), ``search_after`` and
+``script_score`` belong to later slices.
 """
 
 from __future__ import annotations
 
+from typing import Any, NamedTuple, Optional
+
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+from elasticsearch_tpu_torch.ops.bm25 import (_SENTINEL, bm25_contrib,
+                                              doubling_scan, scan_run_bound)
+from elasticsearch_tpu_torch.ops.topk import stable_topk
+
+MUST = 0
+SHOULD = 1
+FILTER = 2
+MUST_NOT = 3
+
+# group and subgroup ids share the low 32 bits of the sort key
+GROUP_LIMIT = 1 << 16
 
 PACKED_ID_LIMIT = 1 << 24
 
@@ -22,8 +63,193 @@ def check_packed_id_limit(nd: int, where: str) -> None:
             f"readback ids would lose precision; shard the corpus further")
 
 
+class FieldStream(NamedTuple):
+    """One field's postings selection for a plan launch: the resident
+    corpus arrays (shared by the cohort) and, per query and selected
+    block, the owning (group, subgroup), the weight (idf · boost) and
+    whether the block scores constant-per-match (keyword semantics)
+    instead of BM25. Selections are [Q, NB] (numpy or tensors)."""
+
+    block_docids: torch.Tensor   # int32 [TB+1, B] (with the zero block)
+    block_tfs: torch.Tensor      # float32 [TB+1, B]
+    doc_lens: torch.Tensor       # float32 [ND]
+    avg_len: float               # shard-level average length (float32)
+    sel_blocks: Any              # int32 [Q, NB]
+    sel_group: Any               # int32 [Q, NB]
+    sel_sub: Any                 # int32 [Q, NB]
+    sel_weight: Any              # float32 [Q, NB]
+    sel_const: Any               # bool [Q, NB]
+
+
+def _up(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """One host array (or tensor) on ``device`` in ``dtype``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
+                                                        dtype=dtype)
+
+
+def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` along dim 0 for any-shaped int32/int64 ``idx``."""
+    out = table.index_select(0, idx.reshape(-1))
+    return out.view(*idx.shape, *table.shape[1:])
+
+
+def plan_topk_body(streams, group_kind, group_req, group_const, live,
+                   n_must, n_filter, msm, bonus, tie,
+                   k1: float, b: float, k: int, combine: str,
+                   max_run: int):
+    """The program on device tensors: per-query ``group_*`` [Q, G],
+    ``n_must``/``n_filter``/``msm`` int32 [Q, 1], ``bonus``/``tie``
+    float32 [Q, 1], streams with [Q, NB] selections on the device.
+    Returns (vals float32 [Q, k], ids int32 [Q, k], total int32 [Q])."""
+    keys, contribs = [], []
+    for st in streams:
+        sel = st.sel_blocks
+        q = sel.shape[0]
+        d = _gather_rows(st.block_docids, sel)              # [Q, NB, B]
+        tf = _gather_rows(st.block_tfs, sel)
+        dl = _gather_rows(st.doc_lens, d)
+        avg = torch.tensor(st.avg_len, dtype=torch.float32, device=d.device)
+        w = st.sel_weight
+        bm25 = bm25_contrib(w, tf, dl, avg, k1, b)
+        hit = tf > 0.0
+        c = torch.where(st.sel_const[..., None],
+                        torch.where(hit, w[..., None], 0.0), bm25)
+        valid = hit & _gather_rows(live, d)
+        dkey = torch.where(valid, d, _SENTINEL).long()
+        key = ((dkey << 32) | (st.sel_group.long()[..., None] << 16)
+               | st.sel_sub.long()[..., None])
+        keys.append(key.reshape(q, -1))
+        contribs.append(torch.where(valid, c, 0.0).reshape(q, -1))
+    key = torch.cat(keys, dim=1)
+    skey, perm = torch.sort(key, dim=1, stable=True)
+    c = torch.gather(torch.cat(contribs, dim=1), 1, perm)
+    dkey = (skey >> 32).to(torch.int32)       # docid, or the sentinel
+    dg = skey >> 16                           # (docid, group)
+
+    new_sub = skey != F.pad(skey[:, :-1], (1, 0), value=-1)
+    is_grp_last = dg != F.pad(dg[:, 1:], (0, 1), value=-1)
+    is_doc_last = dkey != F.pad(dkey[:, 1:], (0, 1), value=-1)
+
+    # per (doc, group): distinct subgroups matched + summed contribution
+    sub_cnt, grp_score = doubling_scan(
+        dg, torch.stack([new_sub.to(torch.float32), c]), max_run)
+
+    ng = group_kind.shape[1]
+    gc = ((skey >> 16) & (GROUP_LIMIT - 1)).clamp(max=ng - 1)
+    kind = torch.gather(group_kind, 1, gc)
+    req = torch.gather(group_req, 1, gc)
+    cval = torch.gather(group_const, 1, gc)
+    present = is_grp_last & (sub_cnt >= req.to(torch.float32))
+    gscore = torch.where(torch.isnan(cval), grp_score, cval)
+    scoring = present & ((kind == MUST) | (kind == SHOULD))
+
+    # per doc: summed score and the present groups of each kind
+    doc_score, doc_must, doc_filt, doc_should, doc_mnot = doubling_scan(
+        dkey, torch.stack([
+            torch.where(scoring, gscore, 0.0),
+            (present & (kind == MUST)).to(torch.float32),
+            (present & (kind == FILTER)).to(torch.float32),
+            (present & (kind == SHOULD)).to(torch.float32),
+            (present & (kind == MUST_NOT)).to(torch.float32)]), max_run)
+    if combine == "dismax":
+        doc_max = doubling_scan(
+            dkey, torch.where(scoring, gscore, float("-inf")), max_run,
+            reduce="max")
+        score = torch.where(torch.isfinite(doc_max),
+                            doc_max + tie * (doc_score - doc_max), 0.0)
+    else:
+        score = doc_score
+    score = score + bonus
+
+    passed = (is_doc_last & (dkey != _SENTINEL)
+              & (doc_must >= n_must.to(torch.float32))
+              & (doc_filt >= n_filter.to(torch.float32))
+              & (doc_should >= msm.to(torch.float32))
+              & (doc_mnot == 0.0))
+    cand = torch.where(passed, score, float("-inf"))
+    vals, ids = stable_topk(cand, dkey, k)
+    return vals, ids, passed.sum(dim=1, dtype=torch.int32)
+
+
+def pack_result(vals: torch.Tensor, ids: torch.Tensor,
+                total: torch.Tensor) -> torch.Tensor:
+    """(vals [Q, k], ids [Q, k], total [Q]) -> ONE float32 [Q, 2k+1]
+    buffer, so a cohort pays one device-to-host copy. Ints ride as float
+    casts: float32 holds every integer < 2^24 exactly (doc ids and
+    totals stay below it); the sentinel id is never read (callers mask
+    by finite values first)."""
+    return torch.cat([vals.to(torch.float32), ids.to(torch.float32),
+                      total.to(torch.float32)[:, None]], dim=1)
+
+
 def unpack_ids(buf: np.ndarray) -> np.ndarray:
     """Float-packed int lanes -> int32, sentinel-safe. The sentinel
     rides as 2^31 exactly, which float32 can represent but int32 cannot:
     widen to int64 first, then clip, then narrow."""
     return np.clip(buf.astype(np.int64), 0, 0x7FFFFFFF).astype(np.int32)
+
+
+def unpack_result(buf: np.ndarray, k: int):
+    """Host-side inverse of pack_result on one float32 [2k+1] row:
+    (vals [k], ids int32 [k], total)."""
+    return buf[:k], unpack_ids(buf[k:2 * k]), int(buf[2 * k])
+
+
+def plan_topk_batch(streams, group_kind, group_req, group_const, live,
+                    n_must, n_filter, msm, bonus, tie,
+                    k1: float = 1.2, b: float = 0.75, k: int = 10,
+                    combine: str = "sum",
+                    max_run: Optional[int] = None) -> torch.Tensor:
+    """Batched entry: every per-query array has a leading [Q] axis (host
+    arrays go up once, here, onto ``live``'s device); the corpus arrays
+    inside ``streams`` are shared. Returns PACKED [Q, 2k+1] rows
+    (pack_result): one readback serves the whole cohort. ``max_run``
+    bounds a doc's run (``scan_run_bound`` of the most term entries of
+    any query); by default the selection width, which is always safe."""
+    dev = live.device
+    sts = [st._replace(
+        sel_blocks=_up(st.sel_blocks, torch.int32, dev),
+        sel_group=_up(st.sel_group, torch.int32, dev),
+        sel_sub=_up(st.sel_sub, torch.int32, dev),
+        sel_weight=_up(st.sel_weight, torch.float32, dev),
+        sel_const=_up(st.sel_const, torch.bool, dev)) for st in streams]
+    if max_run is None:
+        max_run = scan_run_bound(sum(st.sel_blocks.shape[1] for st in sts))
+
+    def col(a, dtype):
+        return _up(a, dtype, dev).reshape(-1, 1)
+    return pack_result(*plan_topk_body(
+        sts, _up(group_kind, torch.int32, dev),
+        _up(group_req, torch.int32, dev),
+        _up(group_const, torch.float32, dev), live,
+        col(n_must, torch.int32), col(n_filter, torch.int32),
+        col(msm, torch.int32), col(bonus, torch.float32),
+        col(tie, torch.float32), float(k1), float(b), int(k), combine,
+        int(max_run)))
+
+
+def plan_topk(streams, group_kind, group_req, group_const, live,
+              n_must: int, n_filter: int, msm: int,
+              bonus: float = 0.0, tie: float = 0.0,
+              k1: float = 1.2, b: float = 0.75, k: int = 10,
+              combine: str = "sum", packed: bool = False,
+              max_run: Optional[int] = None):
+    """Single-query entry (Q = 1): streams carry [NB] selections and the
+    group arrays are [G]. Returns (vals [k], ids [k], total) tensors, or
+    ONE packed [2k+1] tensor with ``packed=True``."""
+    def row(a):
+        return a[None] if isinstance(a, torch.Tensor) else np.asarray(a)[None]
+    sts = [st._replace(sel_blocks=row(st.sel_blocks),
+                       sel_group=row(st.sel_group), sel_sub=row(st.sel_sub),
+                       sel_weight=row(st.sel_weight),
+                       sel_const=row(st.sel_const)) for st in streams]
+    out = plan_topk_batch(
+        sts, row(group_kind), row(group_req), row(group_const), live,
+        [n_must], [n_filter], [msm], [bonus], [tie], k1=k1, b=b, k=k,
+        combine=combine, max_run=max_run)[0]
+    if packed:
+        return out
+    return out[:k], out[k:2 * k].to(torch.int64).clamp(
+        max=_SENTINEL).to(torch.int32), out[2 * k].to(torch.int32)

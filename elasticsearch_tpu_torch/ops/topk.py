@@ -1,0 +1,44 @@
+"""Stable on-device top-k (counterpart of elasticsearch_tpu/ops/topk.py).
+
+``jax.lax.top_k`` returns, among equal values, the lowest index first;
+``torch.topk`` on CUDA promises no order among ties. Rows here are laid
+out in ascending docid order, so the lowest position is the lowest
+docid, Lucene's tie order. The v2m lane (ops/fastpath.py) and the plan
+path (ops/plan.py) share this one top-k.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from elasticsearch_tpu_torch.ops.bm25 import _SENTINEL
+
+
+def stable_topk(cand: torch.Tensor, keys: torch.Tensor, k: int):
+    """Batched STABLE top-k of ``cand`` [Q, P]: among ties at the kth
+    value the FIRST positions win. Returns (vals [Q, k], ids [Q, k]),
+    ``ids`` gathered from ``keys`` [Q, P], ordered by value descending,
+    then position ascending; empty slots are (-inf, _SENTINEL). A row
+    shorter than k is padded with (-inf, _SENTINEL) first."""
+    if k > cand.shape[1]:
+        pad = k - cand.shape[1]
+        cand = F.pad(cand, (0, pad), value=float("-inf"))
+        keys = F.pad(keys, (0, pad), value=_SENTINEL)
+    kth = torch.topk(cand, k, dim=1).values[:, k - 1:k]
+    gt = cand > kth
+    eq = cand == kth
+    need = k - gt.sum(dim=1, keepdim=True)
+    eq_rank = torch.cumsum(eq.to(torch.int32), dim=1)
+    cand2 = torch.where(gt | (eq & (eq_rank <= need)), cand,
+                        float("-inf"))
+    # the k winners as a set, then canonical order: value desc, position asc
+    pos = torch.topk(cand2, k, dim=1).indices
+    pos = torch.sort(pos, dim=1).values
+    vals = torch.gather(cand2, 1, pos)
+    order = torch.sort(vals, dim=1, descending=True, stable=True).indices
+    vals = torch.gather(vals, 1, order)
+    pos = torch.gather(pos, 1, order)
+    ids = torch.gather(keys, 1, pos)
+    ids = torch.where(torch.isfinite(vals), ids, _SENTINEL)
+    return vals, ids

@@ -6,11 +6,16 @@ elasticsearch_tpu/rest/api.py, reduced to the slice's routes):
     POST /{index}/_bulk
     POST /{index}/_refresh
     POST /{index}/_forcemerge
-    POST|GET /{index}/_search     {"query": {"match": {field: text}}, "size": k}
+    POST|GET /{index}/_search     {"query": ..., "size": k, "from": n, ...}
 
-`_search` is served by the v2m lane (search/fastpath.py): an exact top-k
-and an exact total (relation "eq"). What the slice does not serve is
-answered with a typed 400, never on another path.
+`_search` answers an exact top-k and an exact total (relation "eq").
+The v2m lane (search/fastpath.py) takes what it serves: one ``match`` on
+a text field, operator "or", an index of one segment, a slot layout
+that fits and ``size`` <= 1000. Everything else goes to the plan path
+(search/service.py): bool, term, terms, constant_score, multi_match,
+dis_max, ``post_filter``, ``from`` > 0, ``size`` up to 10000 and
+indices of several segments. What neither serves is answered with a
+typed 400, never on another device.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from typing import Any, Optional, Tuple
 
 from elasticsearch_tpu_torch.index.mapper import MapperParsingException
 from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
+from elasticsearch_tpu_torch.search.queries import ParsingException
+from elasticsearch_tpu_torch.search.service import IllegalArgumentException
 
 logger = logging.getLogger("elasticsearch_tpu_torch.rest")
 
@@ -62,7 +69,8 @@ class RestController:
             return _error(400, "unsupported_in_slice_exception",
                           f"{method} {path} is not a route of this slice of "
                           f"the port")
-        except (SliceUnsupported, MapperParsingException) as e:
+        except (SliceUnsupported, MapperParsingException, ParsingException,
+                IllegalArgumentException) as e:
             etype = getattr(e, "error_type", "mapper_parsing_exception")
             return _error(400, etype, str(e))
         except Exception as e:  # the boundary: report, keep serving
@@ -168,64 +176,70 @@ class RestController:
 
     # -------------------------------------------------------------- search
     @staticmethod
-    def _parse_match(body: dict) -> Tuple[str, str]:
+    def _v2m_match(svc, body: dict):
+        """(segment, field, text) when the body is what the v2m lane takes: one
+        ``match`` on a text field of the index's one segment, operator
+        "or" and no other option, ``from`` 0, no ``post_filter``, exact
+        totals and ``_source`` true or false; else None."""
+        if (set(body) - {"query", "size", "from", "_source",
+                         "track_total_hits"}
+                or body.get("from", 0) != 0
+                or body.get("track_total_hits", True) is not True
+                or not isinstance(body.get("_source", True), bool)):
+            return None
         query = body.get("query")
         if not isinstance(query, dict) or list(query) != ["match"]:
-            raise SliceUnsupported(
-                "this slice serves the match query only; the plan kernel "
-                "path that serves the rest of the DSL is the next slice")
+            return None
         match = query["match"]
         if not isinstance(match, dict) or len(match) != 1:
-            raise SliceUnsupported("[match] takes exactly one field")
+            return None
         (field, spec), = match.items()
         if isinstance(spec, dict):
-            extra = set(spec) - {"query", "operator"}
-            if extra or str(spec.get("operator", "or")).lower() != "or":
-                raise SliceUnsupported(
-                    f"match options {sorted(extra) or ['operator']} are a "
-                    f"later slice (only query and operator 'or')")
-            text = spec.get("query")
-        else:
-            text = spec
-        if not isinstance(text, (str, int, float)):
-            raise SliceUnsupported("[match] query text must be a string")
-        return field, str(text)
+            if (set(spec) - {"query", "operator"}
+                    or str(spec.get("operator", "or")).lower() != "or"):
+                return None
+            spec = spec.get("query")
+        if not isinstance(spec, (str, int, float)):
+            return None
+        segments = svc.engine.segments
+        if (svc.mapper.fields.get(field) != "text" or len(segments) != 1
+                or field not in segments[0].postings):
+            return None
+        return segments[0], field, str(spec)
 
     def _search(self, index: str, params: dict, body):
+        """The v2m lane when it serves the body (``FastPathServer.fits``),
+        else the plan path (search/service.py)."""
         svc, err = self._index_or_404(index)
         if err:
             return err
         t0 = time.time()
-        body = body or {}
-        size = int(body.get("size", params.get("size", 10)))
-        if int(body.get("from", params.get("from", 0))) != 0:
-            raise SliceUnsupported("[from] > 0 is a later slice")
-        want_source = body.get("_source", True) is not False
-        field, text = self._parse_match(body)
-        if svc.mapper.fields.get(field) != "text":
-            raise SliceUnsupported(f"field [{field}] is not a mapped text "
-                                   f"field of [{index}]")
-        segments = svc.engine.segments
-        hits, total = [], 0
-        if len(segments) > 1:
-            raise SliceUnsupported(
-                f"[{index}] has {len(segments)} segments and the v2m lane "
-                f"serves one: POST /{index}/_forcemerge first")
-        if segments and field in segments[0].postings:
-            seg = segments[0]
+        body = dict(body or {})
+        for key in ("size", "from"):
+            if key in params and key not in body:
+                body[key] = int(params[key])
+        size = int(body.get("size", 10))
+        route = self._v2m_match(svc, body)
+        if route is not None:
+            seg, field, text = route
             pf = seg.postings[field]
             term_ids = [pf.term_id(t.term)
                         for t in svc.mapper.analyzer.analyze(text)]
             fp = self.node.serving_lane()
             reg = fp.register(index, seg, field, svc.k1, svc.b)
-            scores, docids, total = fp.search(reg, term_ids, size)
-            for s, d in zip(scores.tolist(), docids.tolist()):
-                hit = {"_index": index, "_id": seg.stored.ids[d],
-                       "_score": s}
-                src = seg.stored.source(d)
-                if want_source and src:
-                    hit["_source"] = json.loads(src)
-                hits.append(hit)
+            if not fp.fits(reg, term_ids, size):
+                route = None
+        if route is None:
+            return 200, self.node.search_service.search(index, svc, body)
+        scores, docids, total = fp.search(reg, term_ids, size)
+        want_source = body.get("_source", True)
+        hits = []
+        for s, d in zip(scores.tolist(), docids.tolist()):
+            hit = {"_index": index, "_id": seg.stored.ids[d], "_score": s}
+            src = seg.stored.source(d)
+            if want_source and src:
+                hit["_source"] = json.loads(src)
+            hits.append(hit)
         return 200, {
             "took": int((time.time() - t0) * 1000),
             "timed_out": False,

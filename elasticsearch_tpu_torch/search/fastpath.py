@@ -11,11 +11,11 @@ device, new requests accumulate and drain as a wider cohort.
 
 Slot layout: a bucket of NB blocks has ``N_SLOTS`` slots of NB/N_SLOTS
 blocks; each term instance starts on a slot boundary, so every slot is a
-docid-ascending run and the merge kernel can combine them. A query that
-does not fit the layout, or needs more blocks than the largest bucket,
-is refused with ``SliceUnsupported`` (a typed 400): the v1, truncated and
-essential lanes that serve it in the reference are later slices. It is
-never answered on another device.
+docid-ascending run and the merge kernel can combine them. ``fits`` says
+whether a query fits the layout; the REST layer sends the rest to the
+plan path (search/service.py), where the reference's v1, truncated and
+essential lanes would take them. ``submit`` refuses a misfit with
+``SliceUnsupported``. Nothing is ever answered on another device.
 """
 
 from __future__ import annotations
@@ -30,11 +30,11 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.device import DeviceLike, resolve_device
-from elasticsearch_tpu_torch.ops.device import DeviceSegment
 from elasticsearch_tpu_torch.ops.device import readback as _readback
 from elasticsearch_tpu_torch.ops.fastpath import (
     F_SLOTS, bm25_topk_total_merge_batch)
 from elasticsearch_tpu_torch.ops.plan import unpack_ids as _unpack_ids
+from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
 
 logger = logging.getLogger("elasticsearch_tpu_torch.fastpath")
 
@@ -73,8 +73,11 @@ class _Pending:
 
 
 class FastPathServer:
-    def __init__(self, device: DeviceLike = None):
+    def __init__(self, device: DeviceLike, cache: DeviceSegmentCache):
+        """``cache``: the DeviceSegmentCache to take resident segments
+        from (the node shares its own with the plan path)."""
         self.device = resolve_device(device)
+        self.cache = cache
         self._queue: "queue.Queue[_Pending]" = queue.Queue()
         self._running = False
         self._drain_thread: Optional[threading.Thread] = None
@@ -132,7 +135,7 @@ class FastPathServer:
                     and reg["live"] is segment.live and reg["field"] == field
                     and reg["k1"] == k1 and reg["b"] == b):
                 return reg
-            dev = DeviceSegment(segment, self.device)
+            dev = self.cache.get(segment)
             dp = dev.postings[field]
             pf = dp.host
             df = dp.doc_freq.astype(np.float64)
@@ -172,6 +175,15 @@ class FastPathServer:
             if sum(-(-c // slot) for c in cnts) <= N_SLOTS:
                 return bucket
         return None
+
+    def fits(self, reg, term_ids: List[int], k: int) -> bool:
+        """True when this lane serves (term_ids, k): k <= MAX_K and the
+        known terms fit the slot layout (no known term: an empty answer,
+        served at once)."""
+        if not 0 <= k <= MAX_K:
+            return False
+        return (not any(t >= 0 for t in term_ids)
+                or self._v2_bucket(reg, term_ids) is not None)
 
     def submit(self, reg, term_ids: List[int], k: int) -> _Pending:
         """Queue one query (term ids into the registered field's term

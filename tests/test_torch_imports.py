@@ -71,13 +71,15 @@ def test_entry_points_without_cuda_raise(no_cuda):
     from elasticsearch_tpu_torch.index.segment import segment_from_numpy
     from elasticsearch_tpu_torch.node import Node
     from elasticsearch_tpu_torch.ops.device import DeviceSegment
+    from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
     from elasticsearch_tpu_torch.search.fastpath import FastPathServer
     seg = segment_from_numpy(dict(
         terms=["a"], doc_freq=[1], term_block_start=[0], term_block_count=[1],
         block_docids=np.zeros((1, 128), np.int32),
         block_tfs=np.eye(1, 128, dtype=np.float32),
         field_lengths=np.ones(1, np.float32)))
-    for make in (resolve_device, Node, FastPathServer,
+    for make in (resolve_device, Node, DeviceSegmentCache,
+                 lambda: FastPathServer(None, DeviceSegmentCache("cpu")),
                  lambda: DeviceSegment(seg), lambda: resolve_device("cuda:0")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

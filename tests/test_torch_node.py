@@ -1,9 +1,11 @@
 """The port's node over HTTP (``Node(device="cpu")``: PUT index, _bulk,
-_refresh, _forcemerge, match _search) against the reference node's REST
+_refresh, _forcemerge, _search) against the reference node's REST
 dispatch on the same documents: hits, their order and the totals are
-equal, scores agree within the reference's float32 error; the port's hits
-also equal a float64 oracle exactly. A reference segment carried
-across with ``segment_from_numpy`` serves the same answers."""
+equal, scores agree within the reference's float32 error. Match queries
+the v2m lane serves also equal a float64 oracle exactly; the rest (bool,
+term, multi_match, post_filter, from, size above 1000, an index of two
+segments) go to the plan path. A reference segment carried across with
+``segment_from_numpy`` serves the same answers."""
 
 import json
 import urllib.error
@@ -18,16 +20,26 @@ from elasticsearch_tpu.node import Node as JaxNode
 from elasticsearch_tpu_torch.index.segment import segment_from_numpy
 from elasticsearch_tpu_torch.node import Node
 
-MAPPINGS = {"properties": {"body": {"type": "text"}}}
+MAPPINGS = {"properties": {"body": {"type": "text"},
+                           "title": {"type": "text"},
+                           "tag": {"type": "keyword"}}}
 VOCAB = [f"w{i}" for i in range(120)]
+TAGS = ["red", "green", "blue", "yellow"]
 
 
 def make_docs(seed=0, n=400):
     rng = np.random.default_rng(seed)
     zipf = 1.0 / np.arange(1, len(VOCAB) + 1) ** 1.1
     zipf /= zipf.sum()
-    return [{"body": " ".join(rng.choice(VOCAB, int(rng.integers(2, 40)),
+    docs = [{"body": " ".join(rng.choice(VOCAB, int(rng.integers(2, 40)),
                                          p=zipf))} for _ in range(n)]
+    # title and tag from a stream of their own: the bodies stay as they were
+    extra = np.random.default_rng(seed + 100)
+    for d in docs:
+        d["title"] = " ".join(extra.choice(VOCAB[:30],
+                                           int(extra.integers(1, 6))))
+        d["tag"] = str(extra.choice(TAGS))
+    return docs
 
 
 def make_queries(seed=1, n=10):
@@ -83,10 +95,12 @@ def nodes(tmp_path_factory):
                      ndjson=True)
         assert st == 200 and not r["errors"]
         assert http(port, "POST", "/idx/_refresh")[0] == 200
-    st, r = http(port, "POST", "/idx/_search",
-                 {"query": {"match": {"body": "w1"}}})
-    assert st == 400 and r["error"]["type"] == \
-        "unsupported_in_slice_exception"       # two segments: not served
+    # two segments: the plan path answers, as the reference node does
+    for body in ({"query": {"match": {"body": "w1"}}, "size": 20},
+                 {"query": {"term": {"tag": "red"}}, "size": 50}):
+        st, r = http(port, "POST", "/idx/_search", body)
+        assert st == 200, r
+        assert_same_hits(r, jax_dispatch(jax_node, body), page_size(body))
     assert http(port, "POST", "/idx/_forcemerge?max_num_segments=1")[0] \
         == 200
     yield docs, jax_node, node, port
@@ -94,27 +108,45 @@ def nodes(tmp_path_factory):
     jax_node.close()
 
 
-def jax_search(jax_node, text, size):
+def jax_dispatch(jax_node, body):
+    """The reference node's answer to ``body`` asked for one hit more
+    than its page, as ``assert_same_hits`` takes it."""
     st, r = jax_node.rest_controller.dispatch(
         "POST", "/idx/_search", {},
-        {"query": {"match": {"body": text}}, "size": size,
-         "track_total_hits": True})
+        dict(body, track_total_hits=True, size=page_size(body) + 1))
     assert st == 200, r
     return r
 
 
-def assert_same_hits(got, ref, rtol=1e-4):
+def page_size(body):
+    return body.get("size", 10)
+
+
+def jax_search(jax_node, text, size):
+    return jax_dispatch(jax_node, {"query": {"match": {"body": text}},
+                                   "size": size})
+
+
+def assert_same_hits(got, ref, size, rtol=1e-4):
     """Equal totals, scores equal within ``rtol``, and equal ids in equal
     order, up to the order inside a group of scores that agree within
     ``rtol``. The reference node scores in float32 (its plan path lands
     up to ~4e-5 relative off the float64 oracle on these docs), so a true
     tie can come out of it apart, and two close scores swapped; the port
-    ranks in float64 and is held to the oracle exactly below. A group cut
-    by ``size`` may hold different members of the tie."""
+    ranks in float64 and is held to the oracle exactly below.
+
+    ``got`` is a page of ``size`` hits; ``ref`` answers the same request
+    with ``size + 1``. Its extra hit, the first past the page, says
+    whether the page cuts its last group: only when that hit ties the
+    group may the page hold other members of the tie than the
+    reference's."""
     assert got["hits"]["total"] == ref["hits"]["total"]
     assert got["hits"]["total"]["relation"] == "eq"
     gh, rh = got["hits"]["hits"], ref["hits"]["hits"]
-    assert len(gh) == len(rh)
+    assert len(rh) <= size + 1
+    assert len(gh) == min(size, len(rh))
+    past = [h["_score"] for h in rh[size:]]
+    rh = rh[:size]
     gs = np.array([h["_score"] for h in gh])
     rs = np.array([h["_score"] for h in rh])
     np.testing.assert_allclose(gs, rs, rtol=rtol, atol=0)
@@ -123,8 +155,9 @@ def assert_same_hits(got, ref, rtol=1e-4):
         j = i + 1
         while j < len(rh) and abs(rs[j] - rs[i]) <= rtol * rs[i]:
             j += 1
-        cut = j == len(rh) and ref["hits"]["total"]["value"] > len(rh)
-        if j - i == 1 or not cut:
+        cut = (j == len(rh) and past
+               and abs(past[0] - rs[i]) <= rtol * rs[i])
+        if not cut:
             assert {h["_id"] for h in gh[i:j]} == \
                 {h["_id"] for h in rh[i:j]}, (i, j)
         i = j
@@ -162,7 +195,7 @@ def test_search_matches_reference_node(nodes, qi):
     st, got = http(port, "POST", "/idx/_search",
                    {"query": {"match": {"body": text}}, "size": size})
     assert st == 200, got
-    assert_same_hits(got, jax_search(jax_node, text, size))
+    assert_same_hits(got, jax_search(jax_node, text, size), size)
     ids, scores, total = oracle_hits(docs, text, size)
     assert [h["_id"] for h in got["hits"]["hits"]] == ids
     assert got["hits"]["total"]["value"] == total
@@ -172,16 +205,53 @@ def test_search_matches_reference_node(nodes, qi):
         assert h["_source"] == docs[int(h["_id"])]
 
 
+PLAN_BODIES = [
+    {"query": {"term": {"body": "w1"}}},
+    {"query": {"match": {"body": "w1"}}, "size": 5000},
+    {"query": {"term": {"tag": "blue"}}, "size": 100},
+    {"query": {"terms": {"tag": ["red", "yellow"]}}, "size": 20},
+    {"query": {"bool": {"must": [{"match": {"body": "w3 w7"}}],
+                        "filter": [{"term": {"tag": "green"}}],
+                        "must_not": [{"match": {"title": "w2"}}]}},
+     "size": 30},
+    {"query": {"bool": {"should": [{"match": {"title": "w4 w5"}},
+                                   {"term": {"tag": "red"}}],
+                        "minimum_should_match": 1}}, "size": 25},
+    {"query": {"multi_match": {"query": "w2 w9",
+                               "fields": ["body", "title"]}}, "size": 40},
+    {"query": {"multi_match": {"query": "w2 w9", "type": "most_fields",
+                               "fields": ["body", "title"]}}, "size": 40},
+    {"query": {"match": {"body": {"query": "w3 w4",
+                                  "operator": "and"}}}, "from": 5,
+     "size": 10},
+    {"query": {"match": {"body": "w6 w8"}},
+     "post_filter": {"term": {"tag": "yellow"}}, "size": 50},
+]
+
+
+@pytest.mark.parametrize("bi", range(len(PLAN_BODIES)))
+def test_plan_path_matches_reference_node(nodes, bi):
+    docs, jax_node, node, port = nodes
+    body = PLAN_BODIES[bi]
+    st, got = http(port, "POST", "/idx/_search", body)
+    assert st == 200, got
+    assert got["hits"]["total"]["value"] > 0
+    assert_same_hits(got, jax_dispatch(jax_node, body), page_size(body))
+    for h in got["hits"]["hits"]:
+        assert h["_source"] == docs[int(h["_id"])]
+
+
 def test_slice_boundaries_are_typed(nodes):
     _, _, node, port = nodes
-    st, r = http(port, "POST", "/idx/_search",
-                 {"query": {"term": {"body": "w1"}}})
-    assert st == 400 and r["error"]["type"] == \
-        "unsupported_in_slice_exception"
-    st, r = http(port, "POST", "/idx/_search",
-                 {"query": {"match": {"body": "w1"}}, "size": 5000})
-    assert st == 400 and r["error"]["type"] == \
-        "unsupported_in_slice_exception"
+    for body in ({"query": {"range": {"views": {"gte": 3}}}},
+                 {"query": {"match": {"body": "w1"}},
+                  "track_total_hits": False},
+                 {"query": {"bool": {"must": [{"match": {"body": "w1"}}],
+                                     "filter": [{"range": {
+                                         "views": {"gte": 3}}}]}}}):
+        st, r = http(port, "POST", "/idx/_search", body)
+        assert st == 400 and r["error"]["type"] == \
+            "unsupported_in_slice_exception", (body, r)
     assert http(port, "POST", "/nope/_search",
                 {"query": {"match": {"body": "w1"}}})[0] == 404
     st, info = http(port, "GET", "/")
@@ -222,6 +292,6 @@ def test_segment_from_numpy_round_trips_reference_segment(nodes):
                 "POST", "/idx/_search", {},
                 {"query": {"match": {"body": text}}, "size": size})
             assert st == 200, got
-            assert_same_hits(got, jax_search(jax_node, text, size))
+            assert_same_hits(got, jax_search(jax_node, text, size), size)
     finally:
         other.close()
