@@ -8,10 +8,15 @@ Phases (any failure exits non-zero; no exception is swallowed):
   1. build    every hand-written CUDA kernel from elasticsearch_tpu_torch/csrc
   2. kernels  each kernel against its plain PyTorch twin at main-path shapes
               (a 32-query cohort at NB=4096, 16 slots, on the corpus), timed;
-              the merge also at NB=1024 and 2048 and on a tie-heavy cohort
+              the merge also at NB=1024 and 2048 and on a tie-heavy cohort.
+              One v1 cohort and one cohort of the v2 op (ported, serving
+              nothing) at that shape (half of each reading a filter row)
+              equal to the same launch on the CPU twins; each cohort (v2m,
+              v1, v2) timed and traced
   3. rest     a port Node on CUDA indexes ~2,000 generated docs through
               _bulk, refreshes, force-merges and answers 20 match queries over
-              HTTP on the v2m lane; ids, order and totals equal the float64
+              HTTP, then bool+filter bodies (one to eight filters, an unknown filter
+              term) on a fast lane; ids, order and totals equal the float64
               oracle. Then the plan path over HTTP on an index of two
               segments with a keyword field: the reference's plan test
               bodies (bool, term, terms, constant_score, multi_match,
@@ -20,19 +25,24 @@ Phases (any failure exits non-zero; no exception is swallowed):
               same segments; the bodies with a range clause are typed 400s
   4. scale    the seeded 2M-doc corpus installed as the index's one segment;
               concurrent size:1000 match queries over HTTP, each served by
-              the v2m lane when its slot layout fits and by the plan path
-              otherwise (no query is refused); totals exact against a
-              float64 oracle, recall@1000 = 1.0 on the v2m lane, and on the
-              plan path every oracle top-k doc that is missing ties the kth
-              score within float32 rounding (rtol 1e-5); the plan answers
-              equal the port's CPU execution; the launch counters of both
-              kernels grow during this phase. Then: the v2m-served queries
-              alone, and all of them again under torch.profiler with each
-              lane's cohort launches named (each lane's device seconds in
-              the mixed load); the plan-served queries all at once (the
-              cohorts they form, the lanes and memory in flight); and the
-              cohorts the PlanBatcher forms from them, traced one by one
-  5. report   the scale, plan-trace and kernels JSON lines,
+              the v2m lane when its slot layout fits, by v1 when it needs at
+              most the largest bucket, else by the plan path (no query is
+              refused); totals exact against a float64 oracle, recall@1000 =
+              1.0 on v2m and v1, and on the plan path every oracle top-k doc
+              that is missing ties the kth score within float32 rounding
+              (rtol 1e-5); the plan answers equal the port's CPU execution;
+              each lane's kernels launch during this phase. Then: the
+              v2m-served queries alone, and all of them again under
+              torch.profiler with each lane's cohort launches named (each
+              lane's device seconds, the card's idle share); the queries no
+              v2m cohort takes, asked of the plan path all at once (the
+              cohorts they form, the lanes and memory in flight, each answer
+              equal to the CPU execution), and the cohorts the PlanBatcher
+              forms from them, traced; the reference bench's bool+filters
+              mix (64 bodies with two filters each, 8 times over, each on
+              a fast lane unless its query needs more than the largest
+              bucket, exact against the filtered oracle)
+  5. report   the scale, lanes, filters, plan and kernels JSON lines,
               the card's name and power limit, and the last line
               {"ok": true, "device": {...}}
 
@@ -42,6 +52,7 @@ Needs one CUDA card, and the repository around it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -193,7 +204,8 @@ def phase_kernels(node, seg, queries, iters):
     cohort = cohort[:Q_BATCH]
     check(len(cohort) == Q_BATCH, f"{Q_BATCH} fitting queries "
           f"for the kernel cohort (got {len(cohort)})")
-    sel, ws, mids = fp.assemble_cohort(reg, bucket, cohort)
+    sel, ws = fp.assemble_cohort(reg, bucket, cohort)
+    mids = np.zeros(Q_BATCH, np.int32)
     dev = fp.device
     dp = reg["dp"]
     sel_t = torch.from_numpy(sel).to(dev)
@@ -259,12 +271,12 @@ def phase_kernels(node, seg, queries, iters):
             fit = [qq for qq, sb in zip(queries, smallest)
                    if sb is not None and sb <= b][:Q_BATCH]
             check(fit, f"queries that fit bucket {b}")
-            sel_b, ws_b, mids_b = fp.assemble_cohort(reg, b, fit)
+            sel_b, ws_b = fp.assemble_cohort(reg, b, fit)
             keys_b = gather_bm25_contrib(
                 dp.block_docids, dp.block_tfs,
                 torch.from_numpy(sel_b).to(dev),
                 torch.from_numpy(ws_b).to(dev), dp.doc_lens, masks,
-                torch.from_numpy(mids_b).to(dev), avg64, 1.2, 0.75)[0]
+                mids_t, avg64, 1.2, 0.75)[0]
         per_case[f"nb{b}"] = merge_case(keys_b, N_SLOTS, iters)
     per_case["tie_heavy"] = merge_case(
         tie_heavy_keys(q, N_SLOTS, p // N_SLOTS, dev, seed=q), N_SLOTS,
@@ -284,22 +296,26 @@ def phase_kernels(node, seg, queries, iters):
             f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms")
 
     # ---- one whole cohort launch, traced: device time by kernel
-    from torch.profiler import ProfilerActivity, profile
-
     from elasticsearch_tpu_torch.ops.fastpath import \
         bm25_topk_total_merge_batch
 
-    def cohort():
-        return bm25_topk_total_merge_batch(
-            dp.block_docids, dp.block_tfs, sel_t, ws64, dp.doc_lens, masks,
-            mids_t, dp.avg_len, N_SLOTS, 1.2, 0.75, MAX_K)
+    out["cohort"] = trace_cohort("v2m", lambda: bm25_topk_total_merge_batch(
+        dp.block_docids, dp.block_tfs, sel_t, ws64, dp.doc_lens, masks,
+        mids_t, dp.avg_len, N_SLOTS, 1.2, 0.75, MAX_K))
+    return out
 
-    cohort_ms, _ = cuda_ms(cohort, 5)
-    reps = 3
+
+def trace_cohort(lane, launch, reps=3):
+    """One cohort launch of ``lane``: device ms by CUDA events, and
+    traced with torch.profiler: device ms, each hand-written kernel's
+    share of it and the top operator rows (the table goes to stderr)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    ms, _ = cuda_ms(launch, 5)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            cohort()
+            launch()
         torch.cuda.synchronize()
     events = prof.key_averages()
     kernels = kernel_rows(events)
@@ -308,18 +324,116 @@ def phase_kernels(node, seg, queries, iters):
             "merge_sorted_slots": "merge_path_round"}
     share = {n: sum(self_dev(e) for e in kernels if m in e.key)
              / max(total_us, 1) for n, m in mine.items()}
-    log("[cohort] device time of one cohort launch by kernel "
+    ops = sorted((e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and self_dev(e) > 0), key=self_dev, reverse=True)
+    log(f"[cohort] {lane}: device time of one cohort launch by kernel "
         f"({reps} launches traced):")
     log(events.table(sort_by="self_cuda_time_total", row_limit=14))
-    out["cohort"] = dict(ms=cohort_ms, traced_device_ms=total_us / reps / 1e3,
-                         kernel_share=share)
-    log(f"[cohort] {cohort_ms:.3f} ms per cohort launch (events); traced "
-        f"{total_us / reps / 1e3:.3f} ms; shares {share}")
+    res = dict(ms=ms, traced_device_ms=total_us / reps / 1e3,
+               kernel_share=share,
+               top_ops={e.key: self_dev(e) / max(total_us, 1)
+                        for e in ops[:6]})
+    log(f"[cohort] {lane}: {ms:.3f} ms per cohort launch (events); traced "
+        f"{res['traced_device_ms']:.3f} ms; shares {share}")
+    return res
+
+
+def phase_lane_cohorts(node, seg, queries, filt_pool):
+    """One v1 cohort and one cohort of the v2 op at the main path's shape
+    (Q = 32, NB = 4096 blocks, on the corpus), each equal to the same
+    launch on the CPU, where the wrappers run the kernels' twins: ids,
+    order, totals and v2's certificate exact, scores within rtol 1e-6;
+    half of each cohort reads a filter row of the mask stack. Each timed
+    and traced. The v1 cohort holds the queries the router sends to v1
+    (slot misfits), topped up with others that fit the bucket; the v2
+    op, which no lane serves, takes 32 queries that fit the slots."""
+    import torch
+
+    from elasticsearch_tpu_torch.index.segment import BLOCK_SIZE
+    from elasticsearch_tpu_torch.ops.fastpath import (
+        MAX_T, bm25_candidates_rerank_batch, bm25_topk_total_batch)
+    from elasticsearch_tpu_torch.search.fastpath import (MAX_K,
+                                                         NB_BUCKETS,
+                                                         N_SLOTS, Q_BATCH)
+    fp = node.serving_lane()
+    reg = fp.register("bench", seg, "title", 1.2, 0.75)
+    bucket = NB_BUCKETS[-1]
+    routes = [fp.route(reg, q) for q in queries]
+    v1q = [q for q, r in zip(queries, routes) if r == ("v1", bucket)]
+    v1q += [q for q, r in zip(queries, routes)
+            if r is not None and r[0] == "v2m"][:Q_BATCH - len(v1q)]
+    v2q = [q for q, r in zip(queries, routes)
+           if r is not None and r[0] == "v2m"][:Q_BATCH]
+    check(len(v1q) == len(v2q) == Q_BATCH, "32 queries for each cohort")
+    filt = tuple(sorted(int(t) for t in filt_pool[:2]))
+    row = fp._resolve_mask_rows(reg, {filt})[filt]
+    mids = np.where(np.arange(Q_BATCH) % 2 == 1, row, 0).astype(np.int32)
+    dp = reg["dp"]
+    cpu = torch.device("cpu")
+    # the v2 op's flat postings are views of the resident block arrays
+    # (a term's blocks are consecutive and full but the last)
+    flat = (dp.block_docids.view(-1), dp.block_tfs.view(-1))
+    on = {fp.device: (dp.block_docids, dp.block_tfs, *flat, dp.doc_lens,
+                      reg["masks"]),
+          cpu: tuple(t.cpu() for t in (
+              dp.block_docids, dp.block_tfs, *flat, dp.doc_lens,
+              reg["masks"]))}
+    # v2's term-instance table: flat posting start and length, idf
+    ts = np.zeros((Q_BATCH, MAX_T), np.int32)
+    tl = np.zeros((Q_BATCH, MAX_T), np.int32)
+    ti = np.zeros((Q_BATCH, MAX_T), np.float64)
+    for qi, q in enumerate(v2q):
+        known = [t for t in q if t >= 0]
+        ts[qi, :len(known)] = reg["starts"][known] * BLOCK_SIZE
+        tl[qi, :len(known)] = dp.doc_freq[known]
+        ti[qi, :len(known)] = reg["idf"][known]
+
+    def v1(dev):
+        sel, ws = fp.assemble_cohort(reg, bucket, v1q, slotted=False)
+        bd, bt, _, _, dl, masks = on[dev]
+        sel, ws, m = (torch.from_numpy(a).to(dev) for a in (sel, ws, mids))
+        args = (bd, bt, sel, ws, dl, masks, m, dp.avg_len, 1.2, 0.75, MAX_K)
+        return lambda: bm25_topk_total_batch(*args)
+
+    def v2(dev):
+        sel, ws = fp.assemble_cohort(reg, bucket, v2q)
+        bd, bt, fd, ft, dl, masks = on[dev]
+        sel, ws, ts_, tl_, ti_, m = (torch.from_numpy(a).to(dev) for a in (
+            sel, ws, ts, tl, ti, mids))
+        args = (bd, bt, fd, ft, sel, ws.to(torch.float32), dl, masks, m,
+                ts_, tl_, ti_, dp.avg_len, N_SLOTS, 1.2, 0.75, MAX_K)
+        return lambda: bm25_candidates_rerank_batch(*args)
+
+    out = {}
+    for lane, make, exact in (("v1", v1, 2 * MAX_K + 1),
+                              ("v2", v2, 2 * MAX_K + 2)):
+        launch = make(fp.device)
+        got = launch().cpu().numpy()
+        want = make(cpu)().numpy()
+        check(np.array_equal(got[:, MAX_K:exact], want[:, MAX_K:exact]),
+              f"{lane} cohort on the card: ids, order, totals (and ok) "
+              f"equal to its CPU twin")
+        check(np.allclose(got[:, :MAX_K], want[:, :MAX_K], rtol=1e-6,
+                          atol=0, equal_nan=True),
+              f"{lane} cohort on the card: scores within rtol 1e-6 of "
+              f"its CPU twin")
+        out[lane] = dict(trace_cohort(lane, launch), q=Q_BATCH, nb=bucket,
+                         filtered_rows=int((mids > 0).sum()),
+                         totals_sum=int(got[:, 2 * MAX_K].sum()))
+        if lane == "v2":
+            out[lane]["certified_rows"] = int(got[:, 2 * MAX_K + 1].sum())
+    out["v1"]["misfits"] = sum(1 for r in routes if r == ("v1", bucket))
+    log(f"[lanes] {out}")
     return out
 
 
 # ---------------------------------------------------------------- phase 3
 def phase_rest_small(node, port, seed):
+    """A ~2,000-doc index over HTTP; the 20 match queries, then
+    bool+filter bodies of the fast grammar (one filter, two to eight, an unknown filter term), each
+    equal to the float64 oracle (with the filters applied) and served
+    by a fast lane."""
     from elasticsearch_tpu_torch.ops.bm25 import bm25_reference_scores
     rng = np.random.default_rng(seed)
     vocab = [f"w{i}" for i in range(400)]
@@ -356,19 +470,18 @@ def phase_rest_small(node, port, seed):
             post.setdefault(int(t), ([], []))
             post[int(t)][0].append(i)
             post[int(t)][1].append(float(c))
-    n_ok = 0
-    for qi in range(20):
-        terms = sorted({int(t) for t in rng.choice(
-            len(vocab), size=int(rng.integers(1, 5)), p=zipf)})
-        size = int(rng.choice([10, 50, 200]))
-        st, r = http(port, "POST", "/small/_search", {
-            "query": {"match": {"body": " ".join(vocab[t] for t in terms)}},
-            "size": size})
-        check(st == 200, f"small _search -> {st} {r}")
+
+    def ask(body, terms, filters, size, what):
+        st, r = http(port, "POST", "/small/_search", body)
+        check(st == 200, f"{what} -> {st} {r}")
         pl = [post.get(t, ([], [])) for t in terms]
         idfs = [np.log(1 + (n_docs - len(p[0]) + 0.5) / (len(p[0]) + 0.5))
                 for p in pl]
         scores = bm25_reference_scores(pl, idfs, lens, avg, 1.2, 0.75)
+        for f in filters:
+            keep = np.zeros(n_docs, bool)
+            keep[post.get(f, ([], []))[0]] = True
+            scores[~keep] = 0.0
         matched = np.nonzero(scores > 0)[0]
         top = matched[np.lexsort((matched, -scores[matched]))][:size]
         # the served order is (reported float32 score desc, docid asc)
@@ -376,15 +489,71 @@ def phase_rest_small(node, port, seed):
         got = [int(h["_id"]) for h in r["hits"]["hits"]]
         check(r["hits"]["total"] == {"value": len(matched),
                                      "relation": "eq"},
-              f"small query {qi} total {r['hits']['total']} vs "
-              f"{len(matched)}")
-        check(got == top.tolist(), f"small query {qi} ids/order")
+              f"{what}: total {r['hits']['total']} vs {len(matched)}")
+        check(got == top.tolist(), f"{what}: ids/order")
         got_s = np.array([h["_score"] for h in r["hits"]["hits"]])
         check(np.allclose(got_s, scores[top], rtol=1e-6, atol=0),
-              f"small query {qi} scores")
-        n_ok += 1
-    log(f"[rest-small] {n_docs} docs, {n_ok} queries equal to the oracle")
-    return n_ok
+              f"{what}: scores")
+        return len(matched)
+
+    fp = node.fastpath
+    queries = []
+    for _ in range(20):
+        queries.append((sorted({int(t) for t in rng.choice(
+            len(vocab), size=int(rng.integers(1, 5)), p=zipf)}),
+            int(rng.choice([10, 50, 200]))))
+    out = {}
+    d0 = fp.serving_stats()["dispatch"]
+    for qi, (terms, size) in enumerate(queries):
+        ask({"query": {"match": {"body": " ".join(
+            vocab[t] for t in terms)}}, "size": size}, terms, (), size,
+            f"small query {qi}")
+    out["match"] = dispatched_since(fp, d0)
+    check(sum(out["match"].values()) == len(queries),
+          f"every small query on a fast lane {out['match']}")
+
+    # bool + filter bodies of the fast grammar: the filters are the
+    # commonest terms of a doc with at least nine distinct terms, and the
+    # must clause holds another of its terms, so the doc matches
+    wide = [d for d in range(n_docs) if len(set(docs[d])) >= 9]
+    bodies = []
+    for i, nf in enumerate((1, 2, 3, 5, 8, 1)):
+        held = sorted({int(t) for t in docs[wide[i]]},
+                      key=lambda t: -len(post[t][0]))
+        filters = held[:nf]
+        terms = sorted(set(queries[i][0]) | {held[nf]})
+        names = [vocab[f] for f in filters]
+        if i == 5:          # an unknown filter term: nothing matches
+            names = names[:1] + ["nosuchterm"]
+            filters = filters[:1] + [-1]
+        flt = ({"match": {"body": names[0]}} if nf == 1 and i == 0 else
+               [{"match": {"body": n}} for n in names])
+        bodies.append(({"query": {"bool": {
+            "must": [{"match": {"body": " ".join(vocab[t]
+                                                 for t in terms)}}],
+            "filter": flt}}, "size": 100, "_source": False},
+            terms, filters))
+    d0 = fp.serving_stats()["dispatch"]
+    plan0 = node.search_service.plan_batcher.launches
+    totals = [ask(b, terms, filters, 100, f"small filter body {i}")
+              for i, (b, terms, filters) in enumerate(bodies)]
+    check(totals[-1] == 0 and all(t > 0 for t in totals[:-1]),
+          f"filter totals {totals}: the unknown filter term matches none")
+    out["filters"] = dispatched_since(fp, d0)
+    check(sum(out["filters"].values()) == len(bodies)
+          and node.search_service.plan_batcher.launches == plan0,
+          f"every filter body on a fast lane {out['filters']}")
+    out["filter_totals"] = totals
+    log(f"[rest-small] {n_docs} docs: 20 queries and "
+        f"{len(bodies)} filter bodies equal to the oracle: {out}")
+    return out
+
+
+def dispatched_since(fp, before):
+    """Queries each lane:bucket took since ``before`` (a dispatch map)."""
+    now = fp.serving_stats()["dispatch"]
+    return {k: v - before.get(k, 0) for k, v in now.items()
+            if v > before.get(k, 0)}
 
 
 def hits_match_cpu(r, res, segments, lo, what):
@@ -503,60 +672,146 @@ def p50_p99(lat_s):
     return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
 
 
+def lane_of(fp, reg, terms, k):
+    """The lane the REST layer sends a match query of ``terms`` to."""
+    return fp.route(reg, terms)[0] if fp.fits(reg, terms, k) else "plan"
+
+
+def match_body(terms, k):
+    from elasticsearch_tpu_torch.corpus import term_name
+    return {"query": {"match": {"title": " ".join(
+        term_name(t) for t in terms)}}, "size": k}
+
+
+def plan_body(terms, k):
+    """The same query outside the fast grammar (a match with a boost of
+    1, which scales no score): the plan path serves it."""
+    from elasticsearch_tpu_torch.corpus import term_name
+    return {"query": {"match": {"title": {
+        "query": " ".join(term_name(t) for t in terms), "boost": 1.0}}},
+        "size": k}
+
+
+def served_order(truth, scores):
+    """An oracle top k in the order the port serves it: (reported float32
+    score desc, docid asc)."""
+    return truth[np.lexsort((truth, -scores.astype(np.float32)))]
+
+
+def check_answer(r, oracle, lane, what, exact_order=False):
+    """An HTTP answer against the float64 oracle ``(truth, scores,
+    total)``: the total exact; a fast lane's hits the oracle's top k
+    (recall 1.0; in its served order when ``exact_order``); on the plan
+    path (float32 ranking) a missing oracle doc must tie the kth score
+    within rtol 1e-5. Returns the recall."""
+    truth, scores, total = oracle
+    got = [int(h["_id"]) for h in r["hits"]["hits"]]
+    check(r["hits"]["total"] == {"value": total, "relation": "eq"},
+          f"{what}: total {r['hits']['total']} vs {total}")
+    check(len(got) == len(truth), f"{what}: hit count")
+    hit = np.isin(truth, got)
+    if lane == "plan":
+        kth = scores[-1] if len(scores) else 0.0
+        check(bool(np.all(np.abs(scores[~hit] - kth) <= 1e-5 * kth)),
+              f"{what}: the missing oracle docs tie the kth score within "
+              f"rtol 1e-5")
+    else:
+        check(bool(hit.all()), f"{what} ({lane}): recall 1.0")
+        if exact_order:
+            check(got == served_order(truth, scores).tolist(),
+                  f"{what} ({lane}): ids and order")
+    return float(hit.mean()) if len(truth) else 1.0
+
+
+@contextlib.contextmanager
+def lane_launches(counters):
+    """Within the block each fast-path lane launch runs inside a named
+    profiler range (``<lane>_cohort``) and adds its kernels' launches to
+    the yielded {lane: {kernel: launches}}; every kernel counter starts
+    at 0. Only the drain thread launches these lanes."""
+    from torch.profiler import record_function
+
+    from elasticsearch_tpu_torch.search import fastpath
+    names = {"v2m": "bm25_topk_total_merge_batch",
+             "v1": "bm25_topk_total_batch"}
+    orig = {lane: getattr(fastpath, fn) for lane, fn in names.items()}
+    per_lane = {}
+
+    def wrap(lane, fn):
+        def wrapped(*a, **kw):
+            before = {n: c.launches for n, c in counters.items()}
+            with record_function(f"{lane}_cohort"):
+                out = fn(*a, **kw)
+            d = per_lane.setdefault(lane, dict.fromkeys(counters, 0))
+            for n, c in counters.items():
+                d[n] += c.launches - before[n]
+            return out
+        return wrapped
+
+    for c in counters.values():
+        c.launches = 0
+    for lane, fn in names.items():
+        setattr(fastpath, fn, wrap(lane, orig[lane]))
+    try:
+        yield per_lane
+    finally:
+        for lane, fn in names.items():
+            setattr(fastpath, fn, orig[lane])
+
+
 def phase_rest_scale(node, port, corpus, queries, clients, k):
-    from elasticsearch_tpu_torch.corpus import exact_topk, term_name
+    """The main path: every query over HTTP from ``clients`` threads,
+    each served by the lane the router picks (v2m when the slot layout
+    fits, v1 for a misfit within the largest bucket, the plan path
+    beyond it), each answer against the float64 oracle."""
+    from elasticsearch_tpu_torch.corpus import exact_topk
     svc = node.indices["bench"]
     seg = svc.engine.segments[0]
     fp = node.serving_lane()
     reg = fp.register("bench", seg, "title", svc.k1, svc.b)
-    # the lane each query takes: the REST layer's own predicate
-    lanes = ["v2m" if fp.fits(reg, q, k) else "plan" for q in queries]
-    bodies = [{"query": {"match": {"title": " ".join(
-        term_name(t) for t in q)}}, "size": k} for q in queries]
+    lanes = [lane_of(fp, reg, q, k) for q in queries]
+    bodies = [match_body(q, k) for q in queries]
+    d0 = fp.serving_stats()["dispatch"]
     results, lat, wall = drive(port, bodies, clients)
     misfits = sum(1 for st, r in results if st == 400)
     for i, (st, r) in enumerate(results):
         check(st == 200, f"scale query {i} ({lanes[i]}) -> {st} {r}")
+    disp = dispatched_since(fp, d0)
+    for lane in ("v2m", "v1"):
+        check(sum(v for key, v in disp.items()
+                  if key.startswith(lane + ":")) == lanes.count(lane),
+              f"the {lane} lane served its {lanes.count(lane)} queries "
+              f"({disp})")
     t_or = time.time()
-    recall = {"v2m": [], "plan": []}
+    oracles = [exact_topk(corpus, q, k) for q in queries]
+    recall = {"v2m": [], "v1": [], "plan": []}
     for i, (_, r) in enumerate(results):
-        truth, scores, total = exact_topk(corpus, queries[i], k)
-        got = [int(h["_id"]) for h in r["hits"]["hits"]]
-        check(r["hits"]["total"] == {"value": total, "relation": "eq"},
-              f"scale query {i} total {r['hits']['total']} vs {total}")
-        check(len(got) == len(truth), f"scale query {i} hit count")
-        hit = np.isin(truth, got)
-        recall[lanes[i]].append(float(hit.mean()) if len(truth) else 1.0)
-        if lanes[i] == "plan" and not hit.all():
-            # float32 ranking: a doc of the oracle's top k may be missing
-            # only where it ties the kth score within float32 rounding
-            kth = scores[-1]
-            check(bool(np.all(np.abs(scores[~hit] - kth) <= 1e-5 * kth)),
-                  f"scale query {i}: the missing oracle docs tie the kth "
-                  f"score within rtol 1e-5")
-    check(not recall["v2m"] or min(recall["v2m"]) == 1.0,
-          f"recall@{k} = 1.0 on every v2m-served query")
+        recall[lanes[i]].append(check_answer(r, oracles[i], lanes[i],
+                                             f"scale query {i}"))
+
     def pct(lane):
         sel = [lat[i] for i in range(len(queries))
                if lane in (None, lanes[i])]
         return p50_p99(sel) if sel else (None, None)
 
     res = dict(queries=len(queries), misfits=misfits,
-               served_v2m=lanes.count("v2m"), served_plan=lanes.count("plan"),
+               served_v2m=lanes.count("v2m"), served_v1=lanes.count("v1"),
+               served_plan=lanes.count("plan"), dispatch=disp,
                clients=clients, wall_s=wall, qps=len(queries) / wall,
                p50_ms=pct(None)[0], p99_ms=pct(None)[1],
-               p50_ms_v2m=pct("v2m")[0], p99_ms_v2m=pct("v2m")[1],
-               p50_ms_plan=pct("plan")[0], p99_ms_plan=pct("plan")[1],
-               recall_min_v2m=min(recall["v2m"], default=None),
-               recall_min_plan=min(recall["plan"], default=None),
+               **{f"p{q}_ms_{lane}": pct(lane)[j]
+                  for lane in ("v2m", "v1", "plan")
+                  for j, q in enumerate((50, 99))},
+               **{f"recall_min_{lane}": min(v, default=None)
+                  for lane, v in recall.items()},
                oracle_s=time.time() - t_or)
     log(f"[rest-scale] {res}")
     return res, lanes, bodies, results
 
 
-def phase_plan_cpu(node, lanes, bodies, results, k):
-    """The plan-served answers of the scale phase against the port's CPU
-    execution of the same queries on the same segment."""
+def phase_plan_cpu(node, bodies, results, k, what):
+    """Plan-path answers against the port's CPU execution of the same
+    queries on the same segment."""
     from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
     from elasticsearch_tpu_torch.search.queries import parse_query
     from elasticsearch_tpu_torch.search.searcher import ShardSearcher
@@ -565,17 +820,12 @@ def phase_plan_cpu(node, lanes, bodies, results, k):
     cpu = ShardSearcher(segments, svc.mapper, DeviceSegmentCache("cpu"),
                         svc.k1, svc.b)
     t0 = time.time()
-    n = 0
-    for i, lane in enumerate(lanes):
-        if lane != "plan":
-            continue
-        res = cpu.query_phase(parse_query(bodies[i]["query"]), k)
-        hits_match_cpu(results[i][1], res, segments, 0,
-                       f"scale plan query {i}")
-        n += 1
-    log(f"[plan-cpu] {n} plan-served answers equal to the CPU execution "
-        f"({time.time() - t0:.1f} s)")
-    return n
+    for i, (body, (_, r)) in enumerate(zip(bodies, results)):
+        res = cpu.query_phase(parse_query(body["query"]), k)
+        hits_match_cpu(r, res, segments, 0, f"{what} {i}")
+    log(f"[plan-cpu] {len(bodies)} {what} answers equal to the CPU "
+        f"execution ({time.time() - t0:.1f} s)")
+    return len(bodies)
 
 
 def dev_total(e):
@@ -608,18 +858,17 @@ def all_threads():
         return None
 
 
-def phase_scale_trace(node, port, lanes, bodies, clients):
-    """What the plan cohorts cost the v2m lane on the card they share.
-    (a) The scale phase's v2m-served queries alone, untraced: latency and
-    the CUDA-event seconds of their cohorts. (b) All the queries again
-    under torch.profiler, each v2m and each plan cohort launch inside a
-    named range, so the trace gives each lane's device seconds in the
-    mixed load."""
+def phase_scale_trace(node, port, lanes, bodies, clients, counters):
+    """What the lanes cost each other on the card they share. (a) The
+    scale phase's v2m-served queries alone, untraced: latency and the
+    CUDA-event seconds of their cohorts. (b) All the queries again under
+    torch.profiler, each cohort launch of each lane inside a named range,
+    so the trace gives each lane's device seconds in the mixed load, and
+    the card's idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from elasticsearch_tpu_torch.ops import plan as plan_ops
-    from elasticsearch_tpu_torch.search import fastpath
     fp = node.fastpath
     v2m = [b for b, lane in zip(bodies, lanes) if lane == "v2m"]
     c0, busy0 = fp.stats["cohorts"], fp.timing["device_busy_s"]
@@ -630,109 +879,103 @@ def phase_scale_trace(node, port, lanes, bodies, clients):
                  cohorts=fp.stats["cohorts"] - c0,
                  device_busy_s=fp.timing["device_busy_s"] - busy0)
 
-    orig = (fastpath.bm25_topk_total_merge_batch, plan_ops.plan_topk_batch)
+    orig = plan_ops.plan_topk_batch
 
-    def named(name, fn):
-        def wrapped(*a, **kw):
-            with record_function(name):
-                return fn(*a, **kw)
-        return wrapped
+    def plan_named(*a, **kw):
+        with record_function("plan_cohort"):
+            return orig(*a, **kw)
 
-    fastpath.bm25_topk_total_merge_batch = named("v2m_cohort", orig[0])
-    plan_ops.plan_topk_batch = named("plan_cohort", orig[1])
-    c0, busy0 = fp.stats["cohorts"], fp.timing["device_busy_s"]
+    plan_ops.plan_topk_batch = plan_named
+    s0, busy0 = dict(fp.stats), fp.timing["device_busy_s"]
     config = all_threads()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     experimental_config=config) as prof:
+        with lane_launches(counters), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                experimental_config=config) as prof:
             results, lat, wall = drive(port, bodies, clients)
             torch.cuda.synchronize()
     finally:
-        fastpath.bm25_topk_total_merge_batch, plan_ops.plan_topk_batch = orig
+        plan_ops.plan_topk_batch = orig
     check(all(st == 200 for st, _ in results), "traced run answered")
     events = prof.key_averages()
     total_us = sum(self_dev(e) for e in kernel_rows(events))
-    ranges = {n: [e for e in events if e.key == n
+    names = ("v2m", "v1", "plan")
+    ranges = {n: [e for e in events if e.key == f"{n}_cohort"
                   and e.device_type == torch.autograd.DeviceType.CPU]
-              for n in ("v2m_cohort", "plan_cohort")}
-    lane_lat = {lane: [t for t, ln in zip(lat, lanes) if ln == lane]
-                for lane in ("v2m", "plan")}
+              for n in names}
+    lane_lat = {n: [t for t, ln in zip(lat, lanes) if ln == n]
+                for n in names}
     mixed = dict(
         queries=len(bodies), wall_s=wall,
-        p50_ms_v2m=p50_p99(lane_lat["v2m"])[0],
-        p50_ms_plan=p50_p99(lane_lat["plan"])[0],
         device_s=total_us / 1e6, idle_share=1.0 - total_us / 1e6 / wall,
-        device_s_v2m=sum(dev_total(e) for e in ranges["v2m_cohort"]) / 1e6,
         device_s_handwritten=sum(
             self_dev(e) for e in kernel_rows(events)
             if "gather_contrib_kernel" in e.key
             or "merge_path_round" in e.key) / 1e6,
-        device_s_plan=sum(dev_total(e) for e in ranges["plan_cohort"])
-        / 1e6,
-        v2m_launches=sum(e.count for e in ranges["v2m_cohort"]),
-        plan_launches=sum(e.count for e in ranges["plan_cohort"]),
-        v2m_cohorts=fp.stats["cohorts"] - c0,
         v2m_device_busy_s=fp.timing["device_busy_s"] - busy0,
         all_threads=config is not None)
+    for n in names:
+        mixed[f"p50_ms_{n}"] = (p50_p99(lane_lat[n])[0] if lane_lat[n]
+                                else None)
+        mixed[f"device_s_{n}"] = sum(dev_total(e) for e in ranges[n]) / 1e6
+        mixed[f"{n}_launches"] = sum(e.count for e in ranges[n])
+    for n in ("v2m", "v1"):
+        mixed[f"{n}_cohorts"] = fp.stats[f"cohorts_{n}"] - s0[f"cohorts_{n}"]
     if config is not None:
-        check(mixed["v2m_launches"] == mixed["v2m_cohorts"]
-              and mixed["plan_launches"] > 0,
-              f"every cohort launch of both lanes named in the trace: "
+        check(all(mixed[f"{n}_launches"] == mixed[f"{n}_cohorts"]
+                  for n in ("v2m", "v1"))
+              and (mixed["plan_launches"] > 0) == ("plan" in lanes),
+              f"every cohort launch of each lane named in the trace: "
               f"{mixed}")
     out = dict(v2m_alone=alone, mixed_traced=mixed)
     log(f"[scale-trace] {out}")
     return out
 
 
-def phase_plan_burst(node, port, lanes, bodies, results):
-    """The scale phase's plan-served queries sent all at once: the
-    cohorts the PlanBatcher forms from them, the lanes in flight at once
-    against its admission limit, and the device memory they hold. Each
-    answer equals the one the scale phase checked."""
+def phase_plan_burst(node, port, bodies, k):
+    """The plan path under a burst: ``bodies`` (the scale phase's
+    queries that no v2m cohort takes, asked outside the fast grammar)
+    sent all at once; the cohorts the PlanBatcher forms from them, the
+    lanes in flight at once against its admission limit, and the device
+    memory they hold. Each answer equals the port's CPU execution."""
     import torch
 
     from elasticsearch_tpu_torch.search import batching
-    picked = [i for i, lane in enumerate(lanes) if lane == "plan"]
-    check(picked, "plan-served queries for the burst")
+    check(bodies, "queries for the plan burst")
     batcher = node.search_service.plan_batcher
     s0 = batcher.stats()
     batcher.peak_lanes_in_flight = 0
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    got, lat, wall = drive(port, [bodies[i] for i in picked], len(picked))
+    got, lat, wall = drive(port, bodies, len(bodies))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    for (st, r), i in zip(got, picked):
-        want = results[i][1]["hits"]
-        check(st == 200 and r["hits"]["total"] == want["total"]
-              and [h["_id"] for h in r["hits"]["hits"]]
-              == [h["_id"] for h in want["hits"]]
-              and np.allclose([h["_score"] for h in r["hits"]["hits"]],
-                              [h["_score"] for h in want["hits"]],
-                              rtol=1e-6, atol=0),
-              f"burst query {i}: ids, order and total equal to its "
-              f"scale-phase answer, scores within rtol 1e-6")
+    for i, (st, r) in enumerate(got):
+        check(st == 200, f"burst query {i} -> {st} {r}")
     s1 = batcher.stats()
+    check(s1["batched_queries"] - s0["batched_queries"] == len(bodies),
+          "every burst query went through the PlanBatcher")
+    equal = phase_plan_cpu(node, bodies, got, k, "plan burst query")
     hist = {q: n - s0["batch_hist"].get(q, 0)
             for q, n in s1["batch_hist"].items()
             if n > s0["batch_hist"].get(q, 0)}
     p50, p99 = p50_p99(lat)
-    out = dict(queries=len(picked), wall_s=wall, p50_ms=p50, p99_ms=p99,
+    out = dict(queries=len(bodies), wall_s=wall, p50_ms=p50, p99_ms=p99,
                cohorts=s1["launches"] - s0["launches"], q_bucket_hist=hist,
                peak_lanes_in_flight=s1["peak_lanes_in_flight"],
                max_lanes_in_flight=batching.MAX_LANES_IN_FLIGHT,
                admission_waits=s1["admission_waits"]
                - s0["admission_waits"],
-               peak_extra_bytes=peak - base, resident_bytes=base)
+               peak_extra_bytes=peak - base, resident_bytes=base,
+               equal_to_cpu=equal)
     log(f"[plan-burst] {out}")
     return out
 
 
-def phase_plan_trace(node, lanes, bodies, k, reps=3):
-    """The cohorts the PlanBatcher forms from the scale phase's
-    plan-served queries, each traced with torch.profiler: the largest
+def phase_plan_trace(node, bodies, k, reps=3):
+    """The cohorts the PlanBatcher forms from the plan ``bodies``, each
+    traced with torch.profiler: the largest
     group that shares a signature (one width tier), as one cohort when
     they arrive together (at most 32, the batch cap), and one member of it
     alone, the Q the scale phase's cohorts mostly reached. For each: device
@@ -749,8 +992,8 @@ def phase_plan_trace(node, lanes, bodies, k, reps=3):
     searcher = ShardSearcher(svc.engine.segments, svc.mapper,
                              node.device_cache, svc.k1, svc.b)
     ctx = searcher._contexts()[0]
-    picked = [bodies[i] for i, lane in enumerate(lanes) if lane == "plan"]
-    check(picked, "plan-served queries to trace")
+    picked = bodies
+    check(picked, "plan queries to trace")
     batcher = batching.PlanBatcher()
     groups = {}
     for b in picked:
@@ -808,6 +1051,87 @@ def phase_plan_trace(node, lanes, bodies, k, reps=3):
     return out
 
 
+def phase_filters(node, port, corpus, queries, k, clients, counters):
+    """The reference bench's bool+filters mix: 64 bodies from the first
+    64 queries, each with two match filters drawn from a pool of 8 terms
+    of df > N/20, sent once to warm the mask rows and then 8 times over
+    from ``clients`` threads. Every body whose query the fast path's
+    buckets hold is served by a fast lane; one that needs more blocks
+    than the largest bucket goes to the plan path (the reference's
+    impact-truncated lane bounces it too at size 1000). Totals are exact
+    and recall@k = 1.0 against the float64 oracle with both filters
+    applied (the plan path: misses only at float32 ties of the kth)."""
+    from elasticsearch_tpu_torch.corpus import (docs_with_all, exact_topk,
+                                                term_name)
+    fp = node.fastpath
+    svc = node.indices["bench"]
+    reg = fp.register("bench", svc.engine.segments[0], "title", svc.k1,
+                      svc.b)
+    dev = reg["dev"]
+    n_docs = len(corpus["lens"])
+    frng = np.random.default_rng(777)
+    eligible = np.nonzero(corpus["df"] > n_docs // 20)[0]
+    pool = frng.choice(eligible, size=min(8, len(eligible)), replace=False)
+    bodies, oracles, lanes = [], [], []
+    t0 = time.time()
+    for q in queries[:64]:
+        f1, f2 = (int(f) for f in frng.choice(pool, size=2, replace=False))
+        bodies.append({"query": {"bool": {
+            "must": [{"match": {"title": " ".join(
+                term_name(t) for t in q)}}],
+            "filter": [{"match": {"title": term_name(f1)}},
+                       {"match": {"title": term_name(f2)}}]}},
+            "size": k, "_source": False})
+        oracles.append(exact_topk(corpus, q, k,
+                                  keep=docs_with_all(corpus, (f1, f2))))
+        lanes.append(lane_of(fp, reg, q, k))
+    oracle_s = time.time() - t0
+    batcher = node.search_service.plan_batcher
+    plan0 = batcher.stats()["batched_queries"]
+    hits0, miss0 = dev.filter_mask_hits, dev.filter_mask_misses
+    s0, d0 = dict(fp.stats), fp.serving_stats()["dispatch"]
+    with lane_launches(counters) as per_lane:
+        warm, _, warm_wall = drive(port, bodies, clients)
+        sent = bodies * 8
+        results, lat, wall = drive(port, sent, clients)
+    recall = {"fast": [1.0], "plan": [1.0]}
+    for i, (st, r) in enumerate(warm + results):
+        j = i % len(bodies)
+        check(st == 200, f"filter body {i} -> {st} {r}")
+        recall["plan" if lanes[j] == "plan" else "fast"].append(
+            check_answer(r, oracles[j], lanes[j], f"filter body {j}"))
+    served = dispatched_since(fp, d0)
+    n_plan = lanes.count("plan")
+    check(sum(served.values()) == 9 * (len(bodies) - n_plan)
+          and batcher.stats()["batched_queries"] - plan0 == 9 * n_plan,
+          f"only the bodies beyond the largest bucket reached the plan "
+          f"path ({served}, {n_plan} bodies)")
+    cohorts = fp.stats["cohorts"] - s0["cohorts"]
+    p50, p99 = p50_p99(lat)
+    out = dict(bodies=len(bodies), requests=len(sent), clients=clients,
+               filter_pool=[int(t) for t in pool], wall_s=wall,
+               qps=len(sent) / wall, p50_ms=p50, p99_ms=p99,
+               warm_wall_s=warm_wall, lanes={n: lanes.count(n)
+                                             for n in set(lanes)},
+               plan_bodies=[j for j, n in enumerate(lanes) if n == "plan"],
+               plan_requests=9 * n_plan,
+               dispatch=served, cohorts=cohorts,
+               mean_cohort_width=(fp.stats["fast_queries"]
+                                  - s0["fast_queries"]) / max(1, cohorts),
+               mask_rows_in_use=len(reg["stack_map"]),
+               filter_mask_hits=dev.filter_mask_hits - hits0,
+               filter_mask_misses=dev.filter_mask_misses - miss0,
+               launches_per_lane=per_lane, oracle_s=oracle_s,
+               recall_min_fast=min(recall["fast"]),
+               recall_min_plan=min(recall["plan"]))
+    for lane, d in per_lane.items():
+        check(d["gather_bm25_contrib"] > 0 and (
+            lane == "v1" or d["merge_sorted_slots"] > 0),
+            f"{lane}: its kernels launched in the filters mix {d}")
+    log(f"[filters] {out}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--docs", type=int, default=2_000_000)
@@ -857,6 +1181,7 @@ def main(argv=None) -> int:
     seg = segment_from_corpus(corpus)
     log(f"[setup] corpus {args.docs} docs, {corpus['block_docids'].shape[0]}"
         f" blocks, {len(queries)} queries in {time.time() - t0:.1f} s")
+    filt_pool = np.nonzero(corpus["df"] > args.docs // 20)[0]
 
     node = Node(device="cuda")
     try:
@@ -867,36 +1192,41 @@ def main(argv=None) -> int:
         st, info = http(port, "GET", "/")
         check(st == 200, "GET /")
 
-        # ---- 2. kernels vs twins
+        # ---- 2. kernels vs twins; the v1 and v2 cohorts vs the CPU
         kern = phase_kernels(node, seg, queries, args.iters)
+        lane_cohorts = phase_lane_cohorts(node, seg, queries, filt_pool)
 
-        # ---- 3. REST, small: the v2m lane, then the plan path
-        for fn in counters.values():
-            fn.launches = 0
-        phase_rest_small(node, port, args.seed + 1)
-        small = {n: fn.launches for n, fn in counters.items()}
-        check(all(v > 0 for v in small.values()),
-              f"both kernels launched in the small REST phase: {small}")
+        # ---- 3. REST, small: each fast lane, filters, the plan path
+        with lane_launches(counters) as small:
+            rest_small = phase_rest_small(node, port, args.seed + 1)
+        check(all(d["gather_bm25_contrib"] > 0 for d in small.values())
+              and small["v2m"]["merge_sorted_slots"] > 0,
+              f"every lane launched its kernels in the small REST phase: "
+              f"{small}")
+        rest_small["launches_per_lane"] = small
         plan_small = phase_plan_small(node, port, args.seed + 2)
 
         # ---- 4. REST, at scale (the main path)
         fp = node.fastpath
         batcher = node.search_service.plan_batcher
-        c0, q0 = fp.stats["cohorts"], fp.stats["fast_queries"]
+        s0 = dict(fp.stats)
         p0 = batcher.stats()
         t_before = dict(fp.timing)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
-        scale, lanes, bodies, results = phase_rest_scale(
-            node, port, corpus, queries, args.clients, 1000)
+        with lane_launches(counters) as per_lane:
+            scale, lanes, bodies, results = phase_rest_scale(
+                node, port, corpus, queries, args.clients, 1000)
         launches = {n: fn.launches for n, fn in counters.items()}
+        scale["launches_per_lane"] = per_lane
         scale["peak_bytes"] = torch.cuda.max_memory_allocated()
-        cohorts = fp.stats["cohorts"] - c0
+        cohorts = fp.stats["cohorts"] - s0["cohorts"]
         scale["cohorts"] = cohorts
-        scale["mean_cohort_width"] = (fp.stats["fast_queries"] - q0) \
-            / max(1, cohorts)
+        scale["cohorts_per_lane"] = {
+            n: fp.stats[f"cohorts_{n}"] - s0[f"cohorts_{n}"]
+            for n in ("v2m", "v1")}
+        scale["mean_cohort_width"] = (fp.stats["fast_queries"]
+                                      - s0["fast_queries"]) / max(1, cohorts)
         p1 = batcher.stats()
         scale["plan_cohorts"] = p1["launches"] - p0["launches"]
         scale["plan_queries"] = p1["batched_queries"] - p0["batched_queries"]
@@ -904,7 +1234,7 @@ def main(argv=None) -> int:
               f"the plan-served queries went through the PlanBatcher "
               f"({scale['plan_queries']} vs {scale['served_plan']})")
         # where the drain thread's time went, and the device's idle
-        # share: 1 - the v2m cohorts' device seconds (CUDA events around
+        # share: 1 - the fast cohorts' device seconds (CUDA events around
         # each launch, so it is a lower bound on idle; plan cohorts are
         # not timed) / the phase's wall time
         scale["drain_s"] = {k: fp.timing[k] - t_before[k]
@@ -913,14 +1243,27 @@ def main(argv=None) -> int:
             1.0 - scale["drain_s"]["device_busy_s"] / scale["wall_s"]
         check(all(v > 0 for v in launches.values()),
               f"both kernels launched on the main path: {launches}")
-        log(f"[rest-scale] launches {launches} over {cohorts} cohorts, "
+        check(per_lane["v2m"]["gather_bm25_contrib"] > 0
+              and per_lane["v2m"]["merge_sorted_slots"] > 0
+              and (scale["served_v1"] == 0
+                   or per_lane["v1"]["gather_bm25_contrib"] > 0),
+              f"each lane launched its kernels: {per_lane}")
+        log(f"[rest-scale] launches {per_lane} over {cohorts} cohorts, "
             f"mean cohort width {scale['mean_cohort_width']:.2f}")
-        scale["plan_equal_to_cpu"] = phase_plan_cpu(node, lanes, bodies,
-                                                    results, 1000)
+        plan_served = [i for i, lane in enumerate(lanes) if lane == "plan"]
+        scale["plan_equal_to_cpu"] = phase_plan_cpu(
+            node, [bodies[i] for i in plan_served],
+            [results[i] for i in plan_served], 1000, "scale plan query")
         scale["trace"] = phase_scale_trace(node, port, lanes, bodies,
-                                           args.clients)
-        plan_burst = phase_plan_burst(node, port, lanes, bodies, results)
-        plan_trace = phase_plan_trace(node, lanes, bodies, 1000)
+                                           args.clients, counters)
+        # the plan path on the queries no v2m cohort takes (the misfits,
+        # as PR 3's plan path served them), asked outside the fast grammar
+        misfit_bodies = [plan_body(q, 1000) for q, lane in
+                         zip(queries, lanes) if lane != "v2m"]
+        plan_burst = phase_plan_burst(node, port, misfit_bodies, 1000)
+        plan_trace = phase_plan_trace(node, misfit_bodies, 1000)
+        filters = phase_filters(node, port, corpus, queries, 1000,
+                                args.clients, counters)
     finally:
         node.close()
 
@@ -940,12 +1283,16 @@ def main(argv=None) -> int:
         rows.append(dict(
             name=name, route="cuda", **meta[name],
             launches=launches[name],
+            launches_per_lane={lane: d[name] for lane, d in per_lane.items()},
             launches_per_cohort=launches[name] / max(1, cohorts),
             max_abs_err=r["max_abs_err"], ms=r["ms"], kernel_ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             per_bucket=r.get("per_bucket")))
     print(json.dumps({"scale": scale}))
+    print(json.dumps({"lanes": dict(lane_cohorts, v2m=kern["cohort"],
+                                    small=rest_small)}))
+    print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))
     print(json.dumps({"kernels": rows}))

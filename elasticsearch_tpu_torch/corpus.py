@@ -203,10 +203,9 @@ def segment_from_corpus(corpus: Dict[str, np.ndarray], field: str = "title",
         field_lengths=corpus["lens"]), name=name, field=field)
 
 
-def exact_topk(corpus: Dict[str, np.ndarray], terms: List[int], k: int,
-               k1: float = 1.2, b: float = 0.75):
-    """Dense float64 BM25 over every doc: (docids of the top k by
-    (score desc, docid asc), their float64 scores, total matches)."""
+def dense_scores(corpus: Dict[str, np.ndarray], terms: List[int],
+                 k1: float = 1.2, b: float = 0.75) -> np.ndarray:
+    """float64 BM25 of every doc [n_docs] for the query ``terms``."""
     lens = corpus["lens"]
     n = len(lens)
     avg = float(lens.sum(dtype=np.float64)) / float((lens > 0).sum())
@@ -220,6 +219,34 @@ def exact_topk(corpus: Dict[str, np.ndarray], terms: List[int], k: int,
         w = np.log(1.0 + (n - df[t] + 0.5) / (df[t] + 0.5))
         norm = k1 * (1.0 - b + b * lens[d].astype(np.float64) / avg)
         scores[d] += w * f / (f + norm)
+    return scores
+
+
+def docs_with_all(corpus: Dict[str, np.ndarray], terms) -> np.ndarray:
+    """bool [n_docs]: the docs that hold every term of ``terms``."""
+    keep = np.ones(len(corpus["lens"]), bool)
+    gs = corpus["group_start"]
+    for t in terms:
+        has = np.zeros_like(keep)
+        has[corpus["doc_ids"][int(gs[t]):int(gs[t + 1])]] = True
+        keep &= has
+    return keep
+
+
+def exact_topk(corpus: Dict[str, np.ndarray], terms: List[int], k: int,
+               k1: float = 1.2, b: float = 0.75, keep=None):
+    """Dense float64 BM25 over every doc (only the docs of ``keep``, a
+    bool mask, when given): (docids of the top k by (score desc, docid
+    asc), their float64 scores, total matches)."""
+    scores = dense_scores(corpus, terms, k1, b)
+    if keep is not None:
+        scores = np.where(keep, scores, 0.0)
     matched = np.nonzero(scores > 0)[0]
-    order = matched[np.lexsort((matched, -scores[matched]))][:k]
-    return order, scores[order], len(matched)
+    total = len(matched)
+    key = scores[matched]
+    if total > k:       # only the docs at or above the kth value
+        at = total - k
+        kth = np.partition(key, at)[at]
+        matched, key = matched[key >= kth], key[key >= kth]
+    order = matched[np.lexsort((matched, -key))][:k]
+    return order, scores[order], total

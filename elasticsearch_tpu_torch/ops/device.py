@@ -12,13 +12,17 @@ Shape discipline:
   (``block_bucket``), so a selection's width takes O(log) values.
 
 Text and keyword postings upload alike (keyword postings are tf = 1).
+
+Filter masks (the fast path's bool+filter bodies) are bool columns built
+on the host from the postings and uploaded once, in an LRU of
+``FILTER_MASK_CACHE_MAX`` entries per DeviceSegment.
 """
 
 from __future__ import annotations
 
 import threading
 from collections import Counter, OrderedDict
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +35,9 @@ DOC_PAD = 1024
 MIN_BLOCK_BUCKET = 8
 # bound-plan cache entries per DeviceSegment (search/searcher.py)
 BOUND_PLANS_MAX = 128
+# filter-mask cache entries per DeviceSegment; each is one bool column
+# of n_docs_padded bytes on the device and the same on the host
+FILTER_MASK_CACHE_MAX = 64
 
 # device -> host copies per call site (see readback)
 READBACKS: Counter = Counter()
@@ -58,6 +65,26 @@ def block_bucket(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def host_any_mask(pf, terms, nd: int) -> np.ndarray:
+    """Host-side any-of term-presence mask over ``nd`` docs: True where
+    a doc has a posting (tf > 0) of one of ``terms`` in ``pf``."""
+    mask = np.zeros(nd, bool)
+    rows = []
+    for t in terms:
+        tid = pf.term_id(t)
+        if tid >= 0:
+            s = int(pf.term_block_start[tid])
+            rows.append(np.arange(s, s + int(pf.term_block_count[tid]),
+                                  dtype=np.int64))
+    if rows:
+        rows = np.concatenate(rows)
+        d = pf.block_docids[rows].reshape(-1)
+        tf = pf.block_tfs[rows].reshape(-1)
+        ok = tf > 0.0
+        mask[d[ok][d[ok] < nd]] = True
+    return mask
 
 
 class DevicePostings:
@@ -103,6 +130,13 @@ class DeviceSegment:
         # (query, k, live_version): LRU of at most BOUND_PLANS_MAX
         self._bound_plans: "OrderedDict[tuple, object]" = OrderedDict()
         self._bound_lock = threading.Lock()
+        # filter masks: key -> (device bool [n_docs_padded], host copy)
+        self._filter_masks: "OrderedDict[tuple, Tuple[torch.Tensor, " \
+            "np.ndarray]]" = OrderedDict()
+        self._mask_lock = threading.Lock()
+        self.filter_mask_hits = 0
+        self.filter_mask_misses = 0
+        self.filter_mask_evictions = 0
         self.update_live(segment.live)
         self.postings: Dict[str, DevicePostings] = {
             f: DevicePostings(pf, self.n_docs_padded, self.device)
@@ -122,6 +156,51 @@ class DeviceSegment:
             while len(self._bound_plans) > BOUND_PLANS_MAX:
                 self._bound_plans.popitem(last=False)
         return bp
+
+    def _cached_mask(self, key: tuple, make):
+        """The (device, host) mask under ``key``, else ``make()`` -> host
+        mask, uploaded and cached (LRU of FILTER_MASK_CACHE_MAX)."""
+        with self._mask_lock:
+            hit = self._filter_masks.get(key)
+            if hit is not None:
+                self.filter_mask_hits += 1
+                self._filter_masks.move_to_end(key)
+                return hit
+            self.filter_mask_misses += 1
+        host = make()
+        entry = (torch.from_numpy(host).to(self.device), host)
+        with self._mask_lock:
+            self._filter_masks[key] = entry
+            while len(self._filter_masks) > FILTER_MASK_CACHE_MAX:
+                self._filter_masks.popitem(last=False)
+                self.filter_mask_evictions += 1
+        return entry
+
+    def filter_mask(self, field: str, terms):
+        """Any-of ``terms`` presence mask of ``field``: (device bool
+        [n_docs_padded], host copy), cached."""
+        key = (field, tuple(sorted(set(terms))))
+        dp = self.postings.get(field)
+        return self._cached_mask(key, lambda: (
+            host_any_mask(dp.host, key[1], self.n_docs_padded)
+            if dp is not None else np.zeros(self.n_docs_padded, bool)))
+
+    def composed_filter_mask(self, conversions):
+        """AND of the filter masks of a whole filter SET (``conversions``:
+        [(field, terms, negate)]), itself cached: (device, host)."""
+        key = ("composed", tuple(sorted(
+            (f, tuple(sorted(set(t))), bool(neg))
+            for f, t, neg in conversions)))
+
+        def make():
+            host = None
+            for fname, terms, negate in key[1]:
+                hm = self.filter_mask(fname, terms)[1]
+                hm = ~hm if negate else hm
+                host = hm.copy() if host is None else (host & hm)
+            return host
+
+        return self._cached_mask(key, make)
 
     def update_live(self, live_host: np.ndarray) -> None:
         """Upload a new live mask (a delete replaces the segment's mask;

@@ -1,22 +1,28 @@
-"""Serving kernel of the v2m cohort lane (counterpart of
-elasticsearch_tpu/ops/fastpath.py `bm25_topk_total_merge_batch`).
+"""Serving kernels of the fast-path lanes (counterpart of
+elasticsearch_tpu/ops/fastpath.py): ``bm25_topk_total_merge_batch``
+(v2m), ``bm25_topk_total_batch`` (v1) and
+``bm25_candidates_rerank_batch`` (v2, the reference's third lane; ported
+and tested, but the serving front does not route to it: on the card it
+is slower than v2m at the same shape, and it ranks on the float32 score).
 
 One call scores a whole cohort of Q queries and returns ONE packed
 float32 array, so the cohort pays one device-to-host copy:
 
     row = [values (k) | docids as float (k) | total as float (1)]
 
-Exactness: no block-max pruning (every selected posting goes through the
-merge); the per-doc sum is a DOUBLING segmented scan over the docid-
-sorted runs (each doc's <= 16 contributions summed directly, not a
-global prefix); totals are exact distinct-match counts (relation "eq");
-the top-k keeps the lowest docids among ties at the kth value.
+(v2 adds one more column, its certificate ``ok``).
+
+Exactness: no block-max pruning (every selected posting is scored); the
+per-doc sum is a DOUBLING segmented scan over the docid-sorted runs
+(each doc's <= 16 contributions summed directly, not a global prefix);
+totals are exact distinct-match counts (relation "eq"); the top-k keeps
+the lowest docids among ties at the kth value.
 
 The two hand-written kernels are the gather + contribution
-(ops/bm25_contrib.py) and the merge (ops/merge.py). The scan
-(ops/bm25.py), run-last selection and top-k (ops/topk.py) are plain
-PyTorch ops, as the reference leaves them to XLA outside any Pallas
-kernel.
+(ops/bm25_contrib.py, every lane) and the merge (ops/merge.py, v2m and
+v2). The sort, scan (ops/bm25.py), run-last selection, top-k
+(ops/topk.py) and v2's re-rank are plain PyTorch ops, as the reference
+leaves them to XLA outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -31,9 +37,21 @@ from elasticsearch_tpu_torch.ops.plan import check_packed_id_limit
 from elasticsearch_tpu_torch.ops.topk import stable_topk
 
 # mask-stack height: every cohort launch carries F dense bool rows
-# (row 0 = the live mask; rows 1.. = filter columns, a later slice);
-# each query picks its row by mask_ids
+# (row 0 = the live mask; rows 1.. = filter-set columns,
+# search/fastpath.py); each query picks its row by mask_ids
 F_SLOTS = 32
+# v1 runs: a query has <= 16 term instances (search/fastpath.py
+# MAX_TERMS), each <= 1 posting per doc, so 5 doubling steps close every
+# real run (the reference's _SCAN_STEPS)
+V1_MAX_RUN = 32
+# v2: candidates re-ranked per query; term-instance slots of the
+# re-rank's binary search; bound on the float32 phase-A pipeline's
+# relative error against float64 (about 5 operations a contribution plus
+# a <= 4-level scan of <= 16 positive terms stay under 32 * 2^-24;
+# 128 * 2^-24 adds margin)
+CAND_V2 = 4096
+MAX_T = 16
+_F32_SLACK = 128.0 * 2.0 ** -24
 
 
 def _run_last_candidates(mk: torch.Tensor, x: torch.Tensor):
@@ -80,5 +98,152 @@ def bm25_topk_total_merge_batch(
     x = doubling_scan(mk, x, n_slots)
     cand, totals = _run_last_candidates(mk, x)
     vals, ids = stable_topk(cand, mk, k)
+    return _pack(vals, ids, totals)
+
+
+def _pack(vals, ids, totals, *extra):
     return torch.cat([vals.to(torch.float32), ids.to(torch.float32),
-                      totals.to(torch.float32)[:, None]], dim=1)
+                      totals.to(torch.float32)[:, None],
+                      *(e.to(torch.float32)[:, None] for e in extra)],
+                     dim=1)
+
+
+def bm25_topk_total_batch(
+        block_docids,   # int32 [TB, B]
+        block_tfs,      # float32 [TB, B]
+        sel_blocks,     # int32 [Q, NB], term runs packed back to back
+        sel_weights,    # score_dtype [Q, NB]
+        doc_lens,       # float32 [ND]
+        masks,          # bool [F_SLOTS, ND]
+        mask_ids,       # int32 [Q]
+        avg_len: float, k1: float, b: float, k: int,
+        score_dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """The v1 lane: cohort launch -> packed float32 [Q, 2k+1]. Takes any
+    block selection (no slot layout), so it serves the queries the slot
+    layout refuses; one stable sort of the keys per row replaces the
+    merge. Ranking runs in ``score_dtype``."""
+    check_packed_id_limit(doc_lens.shape[0], "fastpath kernel")
+    if sel_weights.dtype != score_dtype:
+        sel_weights = sel_weights.to(score_dtype)
+    avg = float(torch.tensor(avg_len, dtype=score_dtype))
+    keys, cons = gather_bm25_contrib(block_docids, block_tfs, sel_blocks,
+                                     sel_weights, doc_lens, masks, mask_ids,
+                                     avg, k1, b)
+    # The reference keys a doc that is dead in the query's mask row to
+    # the sentinel; the kernel keeps its docid and contributes 0. After
+    # the stable sort a live doc's run holds the same contributions in
+    # the same order either way, and a scan step reads only its own run,
+    # so its sum is bit-identical; a dead doc's run sums to 0 and fails
+    # the x > 0 of the run-last selection, so totals and candidates agree
+    # too, and both orders are docid-ascending for the top-k's ties.
+    sk, perm = torch.sort(keys, dim=1, stable=True)
+    x = torch.gather(cons, 1, perm)
+    x = doubling_scan(sk, x, V1_MAX_RUN)
+    cand, totals = _run_last_candidates(sk, x)
+    vals, ids = stable_topk(cand, sk, k)
+    return _pack(vals, ids, totals)
+
+
+def bm25_candidates_rerank_batch(
+        block_docids,   # int32 [TB, B]
+        block_tfs,      # float32 [TB, B]
+        flat_docids,    # int32 [TB*B] (the block arrays, flat)
+        flat_tfs,       # float32 [TB*B]
+        sel_blocks,     # int32 [Q, NB] SLOTTED, as for v2m
+        sel_weights,    # float32 [Q, NB]
+        doc_lens,       # float32 [ND]
+        masks,          # bool [F_SLOTS, ND]
+        mask_ids,       # int32 [Q]
+        term_start,     # int32 [Q, MAX_T] flat posting offsets
+        term_len,       # int32 [Q, MAX_T] (0 pads)
+        term_idf,       # score_dtype [Q, MAX_T]
+        avg_len: float, n_slots: int, k1: float, b: float, k: int,
+        score_dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """The v2 lane: cohort launch -> packed float32 [Q, 2k+2], the last
+    column the certificate ``ok``. Phase A finds the CAND_V2 best
+    candidates in float32 through both kernels; phase B re-scores each
+    candidate exactly in ``score_dtype`` by binary search in each term's
+    postings and ranks by (reported float32 score desc, docid asc). A
+    row with ok = 0 is not certified (a tie mass wider than CAND_V2 at
+    the boundary): a caller would serve it on v1."""
+    check_packed_id_limit(doc_lens.shape[0], "fastpath kernel")
+    q, nb = sel_blocks.shape
+    p = nb * block_docids.shape[1]
+    nd = doc_lens.shape[0]
+    f32 = torch.float32
+    dev = sel_blocks.device
+
+    # ---- phase A: float32 contributions, merge, scan, top CAND_V2 + 1
+    keys, cons = gather_bm25_contrib(
+        block_docids, block_tfs, sel_blocks, sel_weights.to(f32), doc_lens,
+        masks, mask_ids, float(torch.tensor(avg_len, dtype=f32)), k1, b)
+    # the merge carries the lane index; the reference merges the float32
+    # contributions as the payload, but the kernel orders equal keys by
+    # payload, so a float payload would reorder them. Lane order is the
+    # stable sort, which is what the reference's CPU path runs.
+    lane = torch.arange(p, dtype=torch.int32, device=dev)
+    lane = lane.repeat(q, 1).view(q, n_slots, p // n_slots)
+    mk, midx = merge_sorted_slots(keys.reshape(q, n_slots, p // n_slots),
+                                  lane)
+    x = torch.gather(cons, 1, midx.long())
+    x = doubling_scan(mk, x, n_slots)
+    cand, totals = _run_last_candidates(mk, x)
+    _, cids, bound = stable_topk(cand, mk, CAND_V2, bound_slot=True)
+
+    # ---- phase B: exact re-rank of the candidates in score_dtype
+    dt = score_dtype
+    n_flat = flat_docids.shape[0]
+    # halvings that close any posting range (df <= ND)
+    n_steps = max(1, (nd - 1).bit_length()) + 1
+    safe = cids.clamp(0, nd - 1).long()                       # [Q, C]
+    dl = doc_lens[safe].to(dt)
+    avg_t = torch.full((), avg_len, dtype=dt, device=dev)
+    cnorm = k1 * ((1.0 - b) + b * dl / avg_t)
+    # every term instance's lower-bound search at once: [Q, MAX_T, C]
+    lo0 = term_start.long()[:, :, None]
+    end = lo0 + term_len.long()[:, :, None]
+    target = cids[:, None, :]
+    lo = lo0.expand(-1, -1, cids.shape[1])
+    hi = end.expand_as(lo)
+    for _ in range(n_steps):
+        mid = (lo + hi) // 2
+        go_right = flat_docids[mid.clamp(0, n_flat - 1)] < target
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(go_right, hi, mid)
+    at = lo.clamp(0, n_flat - 1)
+    found = (lo < end) & (term_len[:, :, None] > 0) \
+        & (flat_docids[at] == target)
+    ptf = torch.where(found, flat_tfs[at].to(dt), 0.0)
+    part = torch.where(ptf > 0.0, term_idf.to(dt)[:, :, None] * ptf
+                       / (ptf + cnorm[:, None, :]), 0.0)
+    # summed term by term, in the reference's order
+    score = torch.zeros_like(cnorm)
+    for t in range(term_start.shape[1]):
+        score = score + part[:, t]
+    live = masks[mask_ids.long()[:, None], safe]
+    valid = (cids != _SENTINEL) & live & (score > 0.0)
+    score = torch.where(valid, score, float("-inf"))
+    disp = score.to(f32)
+    fin = torch.isfinite(disp)
+    neg = torch.where(fin, -disp, float("inf"))
+    tie = torch.where(fin, cids, _SENTINEL)
+    # order by (neg, tie): a stable sort by the second key, then a
+    # stable sort by the first (lax.sort with num_keys=2 in the
+    # reference)
+    o1 = torch.sort(tie, dim=1, stable=True).indices
+    o2 = torch.sort(torch.gather(neg, 1, o1), dim=1, stable=True).indices
+    order = torch.gather(o1, 1, o2)[:, :k]
+    vals = torch.gather(disp, 1, order)
+    ids = torch.where(torch.isfinite(vals), torch.gather(cids, 1, order),
+                      _SENTINEL)
+    sdt = torch.gather(score, 1, order)
+    kth = torch.where(torch.isfinite(vals), sdt, float("inf")) \
+        .min(dim=1).values
+    kth = torch.where(torch.isfinite(vals[:, k - 1]), kth, float("-inf"))
+    # certificate: every excluded doc's true score <= bound * (1 + slack)
+    # < kth; trivially certified when fewer than CAND_V2 + 1 docs matched
+    bfin = torch.isfinite(bound)
+    bound_up = torch.where(bfin, bound.to(dt) * (1.0 + _F32_SLACK),
+                           float("-inf"))
+    ok = (bound_up < kth) | ~bfin
+    return _pack(vals, ids, totals, ok)

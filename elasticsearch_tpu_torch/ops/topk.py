@@ -3,8 +3,8 @@
 ``jax.lax.top_k`` returns, among equal values, the lowest index first;
 ``torch.topk`` on CUDA promises no order among ties. Rows here are laid
 out in ascending docid order, so the lowest position is the lowest
-docid, Lucene's tie order. The v2m lane (ops/fastpath.py) and the plan
-path (ops/plan.py) share this one top-k.
+docid, Lucene's tie order. The fast-path lanes (ops/fastpath.py) and
+the plan path (ops/plan.py) share this one top-k.
 """
 
 from __future__ import annotations
@@ -15,17 +15,22 @@ import torch.nn.functional as F
 from elasticsearch_tpu_torch.ops.bm25 import _SENTINEL
 
 
-def stable_topk(cand: torch.Tensor, keys: torch.Tensor, k: int):
+def stable_topk(cand: torch.Tensor, keys: torch.Tensor, k: int,
+                bound_slot: bool = False):
     """Batched STABLE top-k of ``cand`` [Q, P]: among ties at the kth
     value the FIRST positions win. Returns (vals [Q, k], ids [Q, k]),
     ``ids`` gathered from ``keys`` [Q, P], ordered by value descending,
     then position ascending; empty slots are (-inf, _SENTINEL). A row
-    shorter than k is padded with (-inf, _SENTINEL) first."""
-    if k > cand.shape[1]:
-        pad = k - cand.shape[1]
+    shorter than k (k + 1 with ``bound_slot``) is padded with (-inf,
+    _SENTINEL) first. With ``bound_slot`` also the (k+1)-th value [Q],
+    the exclusion bound of the v2 lane's certificate."""
+    width = k + 1 if bound_slot else k
+    if width > cand.shape[1]:
+        pad = width - cand.shape[1]
         cand = F.pad(cand, (0, pad), value=float("-inf"))
         keys = F.pad(keys, (0, pad), value=_SENTINEL)
-    kth = torch.topk(cand, k, dim=1).values[:, k - 1:k]
+    top = torch.topk(cand, width, dim=1).values
+    kth = top[:, k - 1:k]
     gt = cand > kth
     eq = cand == kth
     need = k - gt.sum(dim=1, keepdim=True)
@@ -41,4 +46,6 @@ def stable_topk(cand: torch.Tensor, keys: torch.Tensor, k: int):
     pos = torch.gather(pos, 1, order)
     ids = torch.gather(keys, 1, pos)
     ids = torch.where(torch.isfinite(vals), ids, _SENTINEL)
+    if bound_slot:
+        return vals, ids, top[:, k]
     return vals, ids

@@ -9,13 +9,23 @@ elasticsearch_tpu/rest/api.py, reduced to the slice's routes):
     POST|GET /{index}/_search     {"query": ..., "size": k, "from": n, ...}
 
 `_search` answers an exact top-k and an exact total (relation "eq").
-The v2m lane (search/fastpath.py) takes what it serves: one ``match`` on
-a text field, operator "or", an index of one segment, a slot layout
-that fits and ``size`` <= 1000. Everything else goes to the plan path
-(search/service.py): bool, term, terms, constant_score, multi_match,
-dis_max, ``post_filter``, ``from`` > 0, ``size`` up to 10000 and
-indices of several segments. What neither serves is answered with a
-typed 400, never on another device.
+The fast path (search/fastpath.py) takes the bodies of the C++ front's
+grammar on an index of one segment, when one of its lanes serves the
+query (``FastPathServer.fits``: at most 16 terms, a block need within
+the largest bucket, ``size`` <= 1000):
+
+    {"query": {"match": {FIELD: TEXT | {"query": TEXT, "operator": "or"}}}}
+    {"query": {"bool": {"must": MATCH | [MATCH],
+                        "filter"?: MATCH1 | [MATCH1, ...up to 8]}}}
+
+with only ``size``, ``from`` 0, ``_source`` true or false and
+``track_total_hits`` true beside the query; FIELD is a text field, and
+each MATCH1 is a match on the same field whose text is one token.
+Everything else goes to the plan path (search/service.py): other bool
+shapes, term, terms, constant_score, multi_match, dis_max,
+``post_filter``, ``from`` > 0, ``size`` up to 10000 and indices of
+several segments. What neither serves is answered with a typed 400,
+never on another device.
 """
 
 from __future__ import annotations
@@ -27,7 +37,8 @@ import time
 from typing import Any, Optional, Tuple
 
 from elasticsearch_tpu_torch.index.mapper import MapperParsingException
-from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
+from elasticsearch_tpu_torch.search.fastpath import (MAX_FILTERS,
+                                                     SliceUnsupported)
 from elasticsearch_tpu_torch.search.queries import ParsingException
 from elasticsearch_tpu_torch.search.service import IllegalArgumentException
 
@@ -176,11 +187,31 @@ class RestController:
 
     # -------------------------------------------------------------- search
     @staticmethod
-    def _v2m_match(svc, body: dict):
-        """(segment, field, text) when the body is what the v2m lane takes: one
-        ``match`` on a text field of the index's one segment, operator
-        "or" and no other option, ``from`` 0, no ``post_filter``, exact
-        totals and ``_source`` true or false; else None."""
+    def _match_text(clause, field: Optional[str] = None):
+        """(field, text) of a ``{"match": ...}`` clause the fast path
+        takes: one field (``field`` when given), a text, operator "or"
+        and no other option; else None."""
+        if not isinstance(clause, dict) or list(clause) != ["match"]:
+            return None
+        match = clause["match"]
+        if not isinstance(match, dict) or len(match) != 1:
+            return None
+        (f, spec), = match.items()
+        if isinstance(spec, dict):
+            if (set(spec) - {"query", "operator"}
+                    or str(spec.get("operator", "or")).lower() != "or"):
+                return None
+            spec = spec.get("query")
+        if not isinstance(spec, (str, int, float)) or field not in (None,
+                                                                    f):
+            return None
+        return f, str(spec)
+
+    @classmethod
+    def _fast_body(cls, svc, body: dict):
+        """(segment, field, text, filter texts) when the body is of the
+        fast path's grammar (module docstring) on a text field of the
+        index's one segment; else None."""
         if (set(body) - {"query", "size", "from", "_source",
                          "track_total_hits"}
                 or body.get("from", 0) != 0
@@ -188,28 +219,46 @@ class RestController:
                 or not isinstance(body.get("_source", True), bool)):
             return None
         query = body.get("query")
-        if not isinstance(query, dict) or list(query) != ["match"]:
+        if not isinstance(query, dict) or len(query) != 1:
             return None
-        match = query["match"]
-        if not isinstance(match, dict) or len(match) != 1:
-            return None
-        (field, spec), = match.items()
-        if isinstance(spec, dict):
-            if (set(spec) - {"query", "operator"}
-                    or str(spec.get("operator", "or")).lower() != "or"):
+        filters = []
+        if "bool" in query:
+            bq = query["bool"]
+            if (not isinstance(bq, dict) or "must" not in bq
+                    or set(bq) - {"must", "filter"}):
                 return None
-            spec = spec.get("query")
-        if not isinstance(spec, (str, int, float)):
-            return None
+            must = bq["must"]
+            if isinstance(must, list):
+                if len(must) != 1:
+                    return None
+                must = must[0]
+            m = cls._match_text(must)
+            if m is None:
+                return None
+            flt = bq.get("filter", [])
+            flt = [flt] if isinstance(flt, dict) else flt
+            if not isinstance(flt, list) or len(flt) > MAX_FILTERS:
+                return None
+            for clause in flt:
+                fm = cls._match_text(clause, m[0])
+                if fm is None:
+                    return None
+                filters.append(fm[1])
+        else:
+            m = cls._match_text(query)
+            if m is None:
+                return None
+        field, text = m
         segments = svc.engine.segments
         if (svc.mapper.fields.get(field) != "text" or len(segments) != 1
                 or field not in segments[0].postings):
             return None
-        return segments[0], field, str(spec)
+        return segments[0], field, text, filters
 
     def _search(self, index: str, params: dict, body):
-        """The v2m lane when it serves the body (``FastPathServer.fits``),
-        else the plan path (search/service.py)."""
+        """The fast path when it serves the body (``_fast_body`` and
+        ``FastPathServer.fits``), else the plan path
+        (search/service.py)."""
         svc, err = self._index_or_404(index)
         if err:
             return err
@@ -219,19 +268,28 @@ class RestController:
             if key in params and key not in body:
                 body[key] = int(params[key])
         size = int(body.get("size", 10))
-        route = self._v2m_match(svc, body)
+        route = self._fast_body(svc, body)
         if route is not None:
-            seg, field, text = route
+            seg, field, text, filter_texts = route
             pf = seg.postings[field]
-            term_ids = [pf.term_id(t.term)
-                        for t in svc.mapper.analyzer.analyze(text)]
+            analyze = svc.mapper.analyzer.analyze
+            term_ids = [pf.term_id(t.term) for t in analyze(text)]
+            filt = []
+            for ft in filter_texts:
+                toks = analyze(ft)
+                if len(toks) != 1:      # a filter of one token only
+                    route = None
+                    break
+                filt.append(pf.term_id(toks[0].term))
+        if route is not None:
             fp = self.node.serving_lane()
             reg = fp.register(index, seg, field, svc.k1, svc.b)
             if not fp.fits(reg, term_ids, size):
                 route = None
         if route is None:
             return 200, self.node.search_service.search(index, svc, body)
-        scores, docids, total = fp.search(reg, term_ids, size)
+        scores, docids, total = fp.search(reg, term_ids, size,
+                                          tuple(sorted(filt)))
         want_source = body.get("_source", True)
         hits = []
         for s, d in zip(scores.tolist(), docids.tolist()):

@@ -2,9 +2,11 @@
 _refresh, _forcemerge, _search) against the reference node's REST
 dispatch on the same documents: hits, their order and the totals are
 equal, scores agree within the reference's float32 error. Match queries
-the v2m lane serves also equal a float64 oracle exactly; the rest (bool,
-term, multi_match, post_filter, from, size above 1000, an index of two
-segments) go to the plan path. A reference segment carried across with
+the v2m lane serves also equal a float64 oracle exactly; bool+filter
+bodies of the fast path's grammar are served by a fast lane (v2m, and
+v1 with the router pointed at it); the rest (other bool shapes, term, multi_match,
+post_filter, from, size above 1000, an index of two segments) go to the
+plan path. A reference segment carried across with
 ``segment_from_numpy`` serves the same answers."""
 
 import json
@@ -19,6 +21,7 @@ from elasticsearch_tpu.index.segment import SegmentWriter as JaxWriter
 from elasticsearch_tpu.node import Node as JaxNode
 from elasticsearch_tpu_torch.index.segment import segment_from_numpy
 from elasticsearch_tpu_torch.node import Node
+from elasticsearch_tpu_torch.search.fastpath import NB_BUCKETS
 
 MAPPINGS = {"properties": {"body": {"type": "text"},
                            "title": {"type": "text"},
@@ -295,3 +298,84 @@ def test_segment_from_numpy_round_trips_reference_segment(nodes):
             assert_same_hits(got, jax_search(jax_node, text, size), size)
     finally:
         other.close()
+
+
+FILTER_BODIES = [
+    # the fast path's grammar: one filter, eight, an unknown filter
+    # term, a filter object without an array, a must object
+    ({"bool": {"must": [{"match": {"body": "w3 w7"}}],
+               "filter": [{"match": {"body": "w1"}}]}}, "fast"),
+    ({"bool": {"must": [{"match": {"body": "w9 w11 w2"}}],
+               "filter": [{"match": {"body": f"w{i}"}}
+                          for i in range(8)]}}, "fast"),
+    ({"bool": {"must": [{"match": {"body": "w3"}}],
+               "filter": [{"match": {"body": "w0"}},
+                          {"match": {"body": "nosuchterm"}}]}}, "fast"),
+    ({"bool": {"must": [{"match": {"body": "w5 w6"}}],
+               "filter": {"match": {"body": "w2"}}}}, "fast"),
+    ({"bool": {"must": {"match": {"body": {"query": "w4 w8"}}},
+               "filter": [{"match": {"body": {"query": "W0"}}},
+                          {"match": {"body": "w1"}}]}}, "fast"),
+    # just outside it: a should clause, a filter of two terms
+    ({"bool": {"must": [{"match": {"body": "w3 w7"}}],
+               "should": [{"match": {"body": "w2"}}],
+               "filter": [{"match": {"body": "w1"}}]}}, "plan"),
+    ({"bool": {"must": [{"match": {"body": "w3 w7"}}],
+               "filter": [{"match": {"body": "w1 w2"}}]}}, "plan"),
+]
+
+
+@pytest.fixture(scope="module")
+def lane_nodes(nodes):
+    """A CPU port node per fast lane, serving the fixture's one segment:
+    every query of this small index fits v2m, so the v1 node's router
+    sends what fits to v1 at its bucket instead."""
+    _, _, node, _ = nodes
+    seg, = node.indices["idx"].engine.segments
+    out = {}
+    for lane in ("v1", "v2m"):
+        n = Node(device="cpu")
+        n.create_index("idx", MAPPINGS)
+        n.indices["idx"].engine.install_segments([seg])
+        out[lane] = n
+    route = out["v1"].fastpath.route
+
+    def to_v1(reg, term_ids):
+        r = route(reg, term_ids)
+        return ("v1", NB_BUCKETS[-1]) if r and r[0] == "v2m" else r
+
+    out["v1"].fastpath.route = to_v1
+    yield out
+    for n in out.values():
+        n.close()
+
+
+@pytest.mark.parametrize("lane", ["v1", "v2m"])
+@pytest.mark.parametrize("bi", range(len(FILTER_BODIES)))
+def test_filter_bodies_match_reference_node(nodes, lane_nodes, lane, bi):
+    docs, jax_node, _, _ = nodes
+    node = lane_nodes[lane]
+    query, path = FILTER_BODIES[bi]
+    body = {"query": query, "size": 30}
+    d0 = node.fastpath.serving_stats()["dispatch"]
+    fast0 = sum(d0.values())
+    plan0 = node.search_service.plan_batcher.launches
+    st, got = node.rest_controller.dispatch("POST", "/idx/_search", {},
+                                            body)
+    assert st == 200, got
+    assert_same_hits(got, jax_dispatch(jax_node, body), page_size(body))
+    fast = sum(node.fastpath.serving_stats()["dispatch"].values()) - fast0
+    plan = node.search_service.plan_batcher.launches - plan0
+    if path == "fast":
+        assert (fast, plan) == (1, 0)
+        assert all(k.startswith(f"{lane}:") for k, v in
+                   node.fastpath.serving_stats()["dispatch"].items()
+                   if v > d0.get(k, 0))
+    else:
+        assert fast == 0 and plan >= 1
+    if bi == 2:         # an unknown filter term: nothing matches
+        assert got["hits"]["total"] == {"value": 0, "relation": "eq"}
+    else:
+        assert got["hits"]["total"]["value"] > 0
+    for h in got["hits"]["hits"]:
+        assert h["_source"] == docs[int(h["_id"])]
