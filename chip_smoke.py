@@ -12,7 +12,13 @@ Phases (any failure exits non-zero; no exception is swallowed):
               One v1 cohort and one cohort of the v2 op (ported, serving
               nothing) at that shape (half of each reading a filter row)
               equal to the same launch on the CPU twins; each cohort (v2m,
-              v1, v2) timed and traced
+              v1, v2) timed and traced. The θ-warm essential cohorts (Q = 32,
+              one per bucket of 256 and 1024 essential blocks, as the
+              binary-search op (ported, serving nothing) and as the dense
+              op; splits from θ taken by full-lane launches), each equal to
+              the same op on the plain contribution twin and, row by
+              certified row, to the v1 lane's answer; each timed and
+              traced beside the full lane the router gives the same queries
   3. rest     a port Node on CUDA indexes ~2,000 generated docs through
               _bulk, refreshes, force-merges and answers 20 match queries over
               HTTP, then bool+filter bodies (one to eight filters, an unknown filter
@@ -31,20 +37,27 @@ Phases (any failure exits non-zero; no exception is swallowed):
               1.0 on v2m and v1, and on the plan path every oracle top-k doc
               that is missing ties the kth score within float32 rounding
               (rtol 1e-5); the plan answers equal the port's CPU execution;
-              each lane's kernels launch during this phase. Then: the
-              v2m-served queries alone, and all of them again under
-              torch.profiler with each lane's cohort launches named (each
-              lane's device seconds, the card's idle share); the queries no
-              v2m cohort takes, asked of the plan path all at once (the
-              cohorts they form, the lanes and memory in flight, each answer
-              equal to the CPU execution), and the cohorts the PlanBatcher
-              forms from them, traced; the reference bench's bool+filters
-              mix (64 bodies with two filters each, 8 times over, each on
-              a fast lane unless its query needs more than the largest
-              bucket, exact against the filtered oracle)
-  5. report   the scale, lanes, filters, plan and kernels JSON lines,
-              the card's name and power limit, and the last line
-              {"ok": true, "device": {...}}
+              each lane's kernels launch during this phase. Then the θ-warm
+              pass: the same bodies again, each repeat the θ cache admits on
+              the essential lane, every answer held to the oracle (recall
+              1.0, exact "eq" totals). Then (at size 999, which no θ
+              licenses): the v2m-served queries alone, and all of them again
+              under torch.profiler with each lane's cohort launches named
+              (each lane's device seconds, the card's idle share); the
+              queries no v2m cohort takes, asked of the plan path all at once
+              (the cohorts they form, the lanes and memory in flight, each
+              answer equal to the CPU execution), and the cohorts the
+              PlanBatcher forms from them, traced; the reference bench's
+              bool+filters mix (64 bodies with two filters each, 8 times
+              over, each on a fast lane unless its query needs more than the
+              largest bucket, exact against the filtered oracle). The plan
+              path under track_total_hits: 10000 (phase 3's bodies, the
+              misfits, and an index of the corpus as time-ordered logs
+              around an incident, where pruning must engage): the hits of
+              the exact ask, which holds the oracle; the binds that pruned
+  5. report   the scale, lanes, theta_warm, prune, filters, plan and
+              kernels JSON lines, the card's name and power limit, and the
+              last line {"ok": true, "device": {...}}
 
 Needs one CUDA card, and the repository around it.
 """
@@ -53,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+from collections import Counter
 import json
 import subprocess
 import sys
@@ -428,6 +442,213 @@ def phase_lane_cohorts(node, seg, queries, filt_pool):
     return out
 
 
+def phase_registration(node, seg):
+    """The fast path's registration of the corpus, wall seconds: the
+    segment's upload to the card; the first registration, which builds
+    what the postings alone decide (each term's bound, the hot-term tf
+    table) once per resident postings; and a rebuild, as after a delete
+    (a new live mask), which keeps those and makes only the θ cache and
+    the mask stack."""
+    import torch
+    fp = node.serving_lane()
+    t0 = time.perf_counter()
+    node.device_cache.get(seg)
+    torch.cuda.synchronize()
+    upload = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reg = fp.register("bench", seg, "title", 1.2, 0.75)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    fp._regs.pop("bench")
+    t0 = time.perf_counter()
+    again = fp.register("bench", seg, "title", 1.2, 0.75)
+    torch.cuda.synchronize()
+    rebuild = time.perf_counter() - t0
+    check(again["dense_tf"] is reg["dense_tf"]
+          and again["maxc"] is reg["maxc"],
+          "a rebuilt registration keeps the postings' derived tables")
+    dense = reg["dense_tf"]
+    out = dict(upload_s=upload, first_s=first, rebuild_s=rebuild,
+               dense_rows=len(reg["dense_rows"]),
+               dense_dtype=None if dense is None else str(dense.dtype),
+               dense_bytes=0 if dense is None
+               else dense.numel() * dense.element_size())
+    log(f"[registration] {out}")
+    return out
+
+
+def phase_essential_cohorts(node, seg, queries):
+    """The θ-warm essential cohorts at Q = 32 on the corpus, one per
+    ESS_BUCKETS bucket, each launched as the binary-search op (ported,
+    serving nothing) and as the dense op (the lane's). θ and the totals
+    come from full-lane launches (the v1 op at the largest bucket on
+    every query that fits it, stored as the serving front stores them);
+    the splits are ``_essential_split``'s on a private copy of the
+    registration (the serving θ stays cold for phase 4); it admits only
+    splits with a hot-term row for every non-essential term, and counts
+    the others (``no_dense``). A cohort holds the queries whose split
+    lands in its bucket first, then smaller ones. Each launch equals the
+    same op with the plain contribution twin on the card (packed rows
+    bit-equal: ids, order, ok flags, float64-ranked values), and each
+    certified row equals the v1 answer of its query (ids and order
+    exact, values within one float32 ulp, rtol 2^-23: the float64 sums
+    take another association). Each timed and traced, beside the full
+    lanes the router gives the same queries (``full``: v2m at the
+    query's own bucket, or v1, grouped as ``_merge_up`` groups them), the
+    launches an essential cohort replaces."""
+    import torch
+
+    from elasticsearch_tpu_torch.index.segment import BLOCK_SIZE
+    from elasticsearch_tpu_torch.ops import fastpath as ops_fp
+    from elasticsearch_tpu_torch.ops.bm25_contrib import \
+        gather_bm25_contrib_plain
+    from elasticsearch_tpu_torch.search.fastpath import (ESS_BUCKETS, MAX_K,
+                                                         N_SLOTS, NB_BUCKETS,
+                                                         NE_SLOTS, Q_BATCH,
+                                                         SCORE_DTYPE,
+                                                         _Pending)
+    fp = node.serving_lane()
+    reg = fp.register("bench", seg, "title", 1.2, 0.75)
+    dp, dev = reg["dp"], fp.device
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    zero_mids = torch.zeros(Q_BATCH, dtype=torch.int32, device=dev)
+    args = (dp.block_docids, dp.block_tfs)
+    tail = (dp.doc_lens, reg["masks"], zero_mids)
+    full = [q for q in dict.fromkeys(tuple(q) for q in queries)
+            if fp.route(reg, list(q)) not in (None, ("empty", None))]
+    v1_rows = {}
+    for lo in range(0, len(full), Q_BATCH):
+        chunk = full[lo:lo + Q_BATCH]
+        sel, ws = fp.assemble_cohort(reg, NB_BUCKETS[-1], chunk,
+                                     slotted=False)
+        out = ops_fp.bm25_topk_total_batch(
+            *args, up(sel), up(ws), *tail, dp.avg_len, 1.2, 0.75, MAX_K,
+            score_dtype=SCORE_DTYPE).cpu().numpy()
+        v1_rows.update(zip(chunk, out))
+    private = dict(reg, theta={}, ess_bad=set())
+    for q, row in v1_rows.items():
+        vals = row[:MAX_K]
+        if np.isfinite(vals).all():
+            private["theta"][(q, (), MAX_K)] = (float(vals.min()),
+                                                int(row[2 * MAX_K]))
+    no_dense0 = fp.stats["ess_no_dense"]
+    splits = {}
+    for q in full:
+        known = [t for t in q if t >= 0]
+        s = fp._essential_split(private, _Pending(private, list(q), (),
+                                                  MAX_K, "v2m", None),
+                                int(reg["nb"][known].sum()))
+        if s is not None:
+            splits[q] = s
+    out = dict(
+        full_lane_queries=len(full), with_theta=len(private["theta"]),
+        admitted=len(splits),
+        no_dense=fp.stats["ess_no_dense"] - no_dense0,
+        admitted_per_bucket={b: sum(1 for s in splits.values() if s[0] == b)
+                             for b in ESS_BUCKETS},
+        mean_ess_blocks=float(np.mean([int(reg["nb"][s[1]].sum())
+                                       for s in splits.values()]))
+        if splits else None,
+        mean_full_blocks=float(np.mean([int(reg["nb"][list(q)].sum())
+                                        for q in splits])) if splits else None,
+        full_routes={f"{lane}:{b}": n for (lane, b), n in Counter(
+            fp.route(reg, list(q)) for q in splits).items()})
+    for bucket in ESS_BUCKETS:
+        fit = [q for q, s in splits.items() if s[0] <= bucket]
+        fit.sort(key=lambda q: splits[q][0] != bucket)
+        cohort = fit[:Q_BATCH]
+        check(cohort, f"admitted essential queries for bucket {bucket}")
+        sel, ws, nr, ni, nbound = fp.assemble_essential(
+            reg, bucket, [splits[q] for q in cohort])
+        # the binary-search op's inputs: each non-essential term's flat
+        # posting range (its postings fill the first df lanes of its
+        # blocks)
+        ns = np.zeros((Q_BATCH, NE_SLOTS), np.int32)
+        nl = np.zeros((Q_BATCH, NE_SLOTS), np.int32)
+        for qi, q in enumerate(cohort):
+            for i, t in enumerate(splits[q][2]):
+                ns[qi, i] = reg["starts"][t] * BLOCK_SIZE
+                nl[qi, i] = reg["df"][t]
+
+        def launcher(op, sel=sel, ws=ws, ns=ns, nl=nl, nr=nr, ni=ni,
+                     nbound=nbound):
+            sel_t, ws_t, nb_t, ni_t = up(sel), up(ws), up(nbound), up(ni)
+            if op == "binary":
+                ns_t, nl_t = up(ns), up(nl)
+                return lambda: ops_fp.bm25_essential_topk_batch(
+                    *args, dp.block_docids.view(-1), dp.block_tfs.view(-1),
+                    sel_t, ws_t, *tail, ns_t, nl_t, ni_t, nb_t, dp.avg_len,
+                    1.2, 0.75, MAX_K, score_dtype=SCORE_DTYPE)
+            nr_t = up(nr)
+            return lambda: ops_fp.bm25_essential_dense_topk_batch(
+                *args, reg["dense_tf"], sel_t, ws_t, *tail, nr_t, ni_t,
+                nb_t, dp.avg_len, 1.2, 0.75, MAX_K, score_dtype=SCORE_DTYPE)
+
+        for op in ("binary", "dense"):
+            launch = launcher(op)
+            got = launch().cpu().numpy()
+            kernel = ops_fp.gather_bm25_contrib
+            ops_fp.gather_bm25_contrib = gather_bm25_contrib_plain
+            try:
+                want = launch().cpu().numpy()
+            finally:
+                ops_fp.gather_bm25_contrib = kernel
+            what = f"essential {op} cohort at {bucket} blocks"
+            check(np.array_equal(got, want, equal_nan=True),
+                  f"{what}: packed rows bit-equal to the plain twin's")
+            n = len(cohort)
+            ok = got[:n, 2 * MAX_K] == 1.0
+            for i in np.nonzero(ok)[0]:
+                ref = v1_rows[cohort[i]]
+                check(np.array_equal(got[i, MAX_K:2 * MAX_K],
+                                     ref[MAX_K:2 * MAX_K])
+                      and np.allclose(got[i, :MAX_K], ref[:MAX_K],
+                                      rtol=2.0 ** -23, atol=0),
+                      f"{what}: certified row {i} equals the v1 answer")
+            out[f"{op}{bucket}"] = dict(
+                trace_cohort(f"ess {op} {bucket}", launch), q=n,
+                nb=bucket, certified=int(ok.sum()),
+                ess_blocks=[int(reg["nb"][splits[q][1]].sum())
+                            for q in cohort])
+        # the full-lane launches the router gives the same queries
+        groups: dict = {}
+        for q in cohort:
+            lane, b = fp.route(reg, list(q))
+            groups.setdefault(lane, {}).setdefault(b, []).append(q)
+        launches = []
+        for lane, by_b in groups.items():
+            for b, group in fp._merge_up(by_b).items():
+                gsel, gws = fp.assemble_cohort(reg, b, group,
+                                               slotted=lane == "v2m")
+                gsel_t, gws_t = up(gsel), up(gws)
+                if lane == "v2m":
+                    fn = (lambda s_=gsel_t, w_=gws_t:
+                          ops_fp.bm25_topk_total_merge_batch(
+                              *args, s_, w_, *tail, dp.avg_len, N_SLOTS,
+                              1.2, 0.75, MAX_K, score_dtype=SCORE_DTYPE))
+                else:
+                    fn = (lambda s_=gsel_t, w_=gws_t:
+                          ops_fp.bm25_topk_total_batch(
+                              *args, s_, w_, *tail, dp.avg_len, 1.2, 0.75,
+                              MAX_K, score_dtype=SCORE_DTYPE))
+                launches.append(dict(
+                    trace_cohort(f"full {lane} {b} (ess {bucket})", fn),
+                    lane=lane, nb=b, q=len(group)))
+        full_ms = sum(r["ms"] for r in launches)
+        full_traced = sum(r["traced_device_ms"] for r in launches)
+        out[f"full{bucket}"] = dict(ms=full_ms, traced_device_ms=full_traced,
+                                    launches=launches)
+        for op in ("binary", "dense"):
+            r = out[f"{op}{bucket}"]
+            r["traced_vs_full"] = (r["traced_device_ms"] / full_traced
+                                   if full_traced else None)
+    log(f"[ess] {out}")
+    return out
+
+
 # ---------------------------------------------------------------- phase 3
 def phase_rest_small(node, port, seed):
     """A ~2,000-doc index over HTTP; the 20 match queries, then
@@ -632,12 +853,12 @@ def phase_plan_small(node, port, seed):
                plan_launches=batcher.launches - launches0)
     check(out["plan_launches"] >= len(bodies), "plan launches")
     log(f"[plan-small] {out}: every answer equal to the CPU execution")
-    return out
+    return out, bodies
 
 
 # ---------------------------------------------------------------- phase 4
-def drive(port, bodies, clients):
-    """``bodies`` as _search requests to /bench from ``clients``
+def drive(port, bodies, clients, index="bench"):
+    """``bodies`` as _search requests to /``index`` from ``clients``
     threads: ([(status, response)], latency s of each, wall s)."""
     results = [None] * len(bodies)
     lat = [0.0] * len(bodies)
@@ -652,7 +873,7 @@ def drive(port, bodies, clients):
             if i >= len(bodies):
                 return
             t0 = time.perf_counter()
-            results[i] = http(port, "POST", "/bench/_search", bodies[i])
+            results[i] = http(port, "POST", f"/{index}/_search", bodies[i])
             lat[i] = time.perf_counter() - t0
 
     threads = [threading.Thread(target=client, daemon=True)
@@ -725,45 +946,58 @@ def check_answer(r, oracle, lane, what, exact_order=False):
 
 @contextlib.contextmanager
 def lane_launches(counters):
-    """Within the block each fast-path lane launch runs inside a named
-    profiler range (``<lane>_cohort``) and adds its kernels' launches to
-    the yielded {lane: {kernel: launches}}; every kernel counter starts
-    at 0. Only the drain thread launches these lanes."""
+    """Within the block each fast-path cohort launch
+    (``FastPathServer._launch_cohort``, any server) runs inside a named
+    profiler range ``<label>_cohort`` and adds its kernels' launches to
+    the yielded per_lane {label: {kernel: launches}}; ``taken`` maps each
+    launched query's term tuple to the labels of its launches, in order.
+    The label is the lane (v2m, v1, ess), or "refire" for a full-lane
+    cohort launched
+    inside an essential one (its uncertified rows); an essential
+    cohort's count excludes its refires'. Every kernel counter starts
+    at 0."""
     from torch.profiler import record_function
 
-    from elasticsearch_tpu_torch.search import fastpath
-    names = {"v2m": "bm25_topk_total_merge_batch",
-             "v1": "bm25_topk_total_batch"}
-    orig = {lane: getattr(fastpath, fn) for lane, fn in names.items()}
-    per_lane = {}
+    from elasticsearch_tpu_torch.search.fastpath import FastPathServer
+    orig = FastPathServer._launch_cohort
+    per_lane, taken = {}, {}
+    local = threading.local()
 
-    def wrap(lane, fn):
-        def wrapped(*a, **kw):
-            before = {n: c.launches for n, c in counters.items()}
-            with record_function(f"{lane}_cohort"):
-                out = fn(*a, **kw)
-            d = per_lane.setdefault(lane, dict.fromkeys(counters, 0))
+    def wrapped(self, lane, reg, bucket, items, rows):
+        stack = local.__dict__.setdefault("stack", [])
+        label = "refire" if stack and stack[-1][0] == "ess" else lane
+        for p in items:
+            taken.setdefault(tuple(p.term_ids), []).append(label)
+        before = {n: c.launches for n, c in counters.items()}
+        frame = (lane, dict.fromkeys(counters, 0))
+        stack.append(frame)
+        try:
+            with record_function(f"{label}_cohort"):
+                return orig(self, lane, reg, bucket, items, rows)
+        finally:
+            stack.pop()
+            d = per_lane.setdefault(label, dict.fromkeys(counters, 0))
             for n, c in counters.items():
-                d[n] += c.launches - before[n]
-            return out
-        return wrapped
+                total = c.launches - before[n]
+                d[n] += total - frame[1][n]
+                if stack:
+                    stack[-1][1][n] += total
 
     for c in counters.values():
         c.launches = 0
-    for lane, fn in names.items():
-        setattr(fastpath, fn, wrap(lane, orig[lane]))
+    FastPathServer._launch_cohort = wrapped
     try:
-        yield per_lane
+        yield per_lane, taken
     finally:
-        for lane, fn in names.items():
-            setattr(fastpath, fn, orig[lane])
+        FastPathServer._launch_cohort = orig
 
 
-def phase_rest_scale(node, port, corpus, queries, clients, k):
+def phase_rest_scale(node, port, corpus, queries, clients, k, taken):
     """The main path: every query over HTTP from ``clients`` threads,
     each served by the lane the router picks (v2m when the slot layout
     fits, v1 for a misfit within the largest bucket, the plan path
-    beyond it), each answer against the float64 oracle."""
+    beyond it), each answer against the float64 oracle. ``taken``: the
+    labels of each query's launches (``lane_launches``)."""
     from elasticsearch_tpu_torch.corpus import exact_topk
     svc = node.indices["bench"]
     seg = svc.engine.segments[0]
@@ -777,11 +1011,34 @@ def phase_rest_scale(node, port, corpus, queries, clients, k):
     for i, (st, r) in enumerate(results):
         check(st == 200, f"scale query {i} ({lanes[i]}) -> {st} {r}")
     disp = dispatched_since(fp, d0)
-    for lane in ("v2m", "v1"):
-        check(sum(v for key, v in disp.items()
-                  if key.startswith(lane + ":")) == lanes.count(lane),
-              f"the {lane} lane served its {lanes.count(lane)} queries "
-              f"({disp})")
+
+    def served(lane):
+        return sum(v for key, v in disp.items() if key.startswith(lane + ":"))
+
+    # each query on its routed lane; a query given twice in the mix may
+    # ride the essential lane the second time, once the first answer
+    # stored its θ (a refire then launches it on its routed lane again)
+    occurs: dict = {}
+    for q, lane in zip(queries, lanes):
+        occurs.setdefault(tuple(q), [lane, 0])[1] += 1
+    refired = {"v2m": 0, "v1": 0}
+    for q, (lane, n) in occurs.items():
+        got = taken.get(q, [])
+        ess, ref = got.count("ess"), got.count("refire")
+        if lane == "plan":
+            ok = not got
+        else:
+            ok = (got.count(lane) + ess == n and ess <= n - 1
+                  and ref <= ess and set(got) <= {lane, "ess", "refire"})
+        check(ok, f"scale query {list(q)}: routed {lane} x{n}, "
+              f"launched {got}")
+        if lane in refired:
+            refired[lane] += ref
+    check(all(served(lane) == sum(taken.get(q, []).count(lane)
+                                  for q in occurs) + refired[lane]
+              for lane in ("v2m", "v1"))
+          and served("ess") == sum(v.count("ess") for v in taken.values()),
+          f"the dispatch counts each lane's launches: {disp}")
     t_or = time.time()
     oracles = [exact_topk(corpus, q, k) for q in queries]
     recall = {"v2m": [], "v1": [], "plan": []}
@@ -796,7 +1053,9 @@ def phase_rest_scale(node, port, corpus, queries, clients, k):
 
     res = dict(queries=len(queries), misfits=misfits,
                served_v2m=lanes.count("v2m"), served_v1=lanes.count("v1"),
-               served_plan=lanes.count("plan"), dispatch=disp,
+               served_plan=lanes.count("plan"), served_ess=served("ess"),
+               distinct_queries=len({tuple(q) for q in queries}),
+               dispatch=disp,
                clients=clients, wall_s=wall, qps=len(queries) / wall,
                p50_ms=pct(None)[0], p99_ms=pct(None)[1],
                **{f"p{q}_ms_{lane}": pct(lane)[j]
@@ -806,7 +1065,200 @@ def phase_rest_scale(node, port, corpus, queries, clients, k):
                   for lane, v in recall.items()},
                oracle_s=time.time() - t_or)
     log(f"[rest-scale] {res}")
-    return res, lanes, bodies, results
+    return res, lanes, bodies, results, oracles
+
+
+def phase_theta_warm(node, port, queries, bodies, oracles, lanes, clients,
+                     counters):
+    """The θ-warm pass: the scale phase's bodies sent again from
+    ``clients`` threads, after the cold pass stored each full answer's θ.
+    A repeat the split admits rides the essential lane (its certificate
+    failing: a refire on v2m or v1); the rest ride their cold lanes.
+    Every answer against the float64 oracle: recall@1000 = 1.0 and the
+    exact total with relation "eq" on the fast lanes, the plan path's
+    tolerance on the plan path. Reports qps, p50/p99 overall and per
+    lane taken, the θ cache and essential-lane counters (with the splits
+    refused for want of a hot-term row), and each lane's kernel
+    launches."""
+    fp = node.fastpath
+    s0 = dict(fp.stats)
+    e0 = fp.engine_cache_stats()
+    busy0 = fp.timing["device_busy_s"]
+    d0 = fp.serving_stats()["dispatch"]
+    with lane_launches(counters) as (per_lane, taken):
+        results, lat, wall = drive(port, bodies, clients)
+    launches = {n: c.launches for n, c in counters.items()}
+    # the lane that answered each occurrence: an essential row that
+    # refired was answered by its refire
+    answers = {}
+    for q, labels in taken.items():
+        out = answers[q] = []
+        for label in labels:
+            if label == "refire":
+                out[out.index("ess")] = "refire"
+            else:
+                out.append(label)
+    took = [answers[tuple(q)].pop(0) if answers.get(tuple(q)) else "plan"
+            for q in queries]
+    recall = {}
+    for i, (st, r) in enumerate(results):
+        check(st == 200, f"warm query {i} ({took[i]}) -> {st} {r}")
+        recall.setdefault(took[i], []).append(check_answer(
+            r, oracles[i], "plan" if took[i] == "plan" else took[i],
+            f"warm query {i}"))
+        check(took[i] in (lanes[i], "ess", "refire"),
+              f"warm query {i}: lane {took[i]}, cold {lanes[i]}")
+    c1 = fp.stats
+    d = {k: c1[k] - s0[k] for k in c1}
+    e1 = fp.engine_cache_stats()
+    check(d["ess_queries"] > 0 and per_lane["ess"]["gather_bm25_contrib"]
+          > 0, f"the essential lane served and launched its kernel: {d}, "
+          f"{per_lane}")
+    check(launches["gather_bm25_contrib"] > 0, "the contribution kernel "
+          "launched in the warm pass")
+
+    def pct(lane):
+        sel = [lat[i] for i in range(len(queries))
+               if lane in (None, took[i])]
+        return p50_p99(sel) if sel else (None, None)
+
+    lanes_taken = sorted(set(took))
+    out = dict(
+        queries=len(queries), clients=clients, wall_s=wall,
+        qps=len(queries) / wall, p50_ms=pct(None)[0], p99_ms=pct(None)[1],
+        **{f"p{q}_ms_{lane}": pct(lane)[j] for lane in lanes_taken
+           for j, q in enumerate((50, 99))},
+        lanes={n: took.count(n) for n in lanes_taken},
+        dispatch=dispatched_since(fp, d0),
+        theta={k: e1[k] - e0[k] for k in ("hits", "misses", "stores")},
+        theta_entries=e1["entries"],
+        ess_queries=d["ess_queries"], ess_refires=d["ess_refires"],
+        cohorts_ess=d["cohorts_ess"], ess_no_dense=d["ess_no_dense"],
+        cohorts=d["cohorts"], cohorts_failed=d["cohorts_failed"],
+        mean_cohort_width=d["fast_queries"] / max(1, d["cohorts"]),
+        device_busy_s=fp.timing["device_busy_s"] - busy0,
+        launches=launches, launches_per_lane=per_lane,
+        **{f"recall_min_{lane}": min(v) for lane, v in recall.items()})
+    check(out["cohorts_failed"] == 0, "no warm cohort failed")
+    log(f"[theta-warm] {out}")
+    return out
+
+
+def logs_bodies(corpus, n_base, filt_pool, seed):
+    """The plan-path bodies of the incident index (``with_incident_terms``
+    over the corpus): each incident term alone at sizes 10 and 1000, and
+    at size 100 under a filter on a common term, each with its float64
+    oracle (the filter applied)."""
+    from elasticsearch_tpu_torch.corpus import (docs_with_all, exact_topk,
+                                                term_name)
+    rng = np.random.default_rng(seed)
+    bodies, oracles = [], []
+    for t in range(n_base, len(corpus["df"])):
+        for k in (10, 1000):
+            bodies.append(plan_body([t], k))
+            oracles.append(exact_topk(corpus, [t], k))
+        f = int(rng.choice(filt_pool))
+        bodies.append({"query": {"bool": {
+            "must": [plan_body([t], 100)["query"]],
+            "filter": [{"match": {"title": term_name(f)}}]}}, "size": 100})
+        oracles.append(exact_topk(corpus, [t], 100,
+                                  keep=docs_with_all(corpus, [f])))
+    return bodies, oracles
+
+
+def phase_plan_prune(node, port, clients, plan_bodies, misfit_bodies,
+                     logs_bodies, logs_oracles):
+    """The plan path under ``track_total_hits: 10000``, which licenses
+    block-max window pruning, each body also asked with
+    ``track_total_hits: true``: phase 3's bodies on its two-segment
+    index, the scale phase's misfits asked outside the fast grammar (on
+    the uniform corpus the bound pass finds no window to drop, so its
+    back-off engages), and the incident index's bodies, where the
+    incident window holds each incident term's best scores and the
+    binds must prune. The hits must equal the exact ask's (ids and order,
+    scores within rtol 1e-6), and the exact ask the float64 oracle on
+    the incident index (``check_answer``'s plan-path rule); the total is
+    at most the exact one and the threshold, "eq" only when it is the
+    exact one, and the exact one clamped to 10000 where no bind pruned.
+    The exact asks go from ``clients`` threads; the threshold asks one at
+    a time, so each body's binds that pruned are known (and the
+    segment's back-off, which a bound pass that prunes nothing arms for
+    the next binds, acts in body order). Counts the binds that reached
+    the bound pass and those that pruned, and lists the bodies that
+    pruned."""
+    from elasticsearch_tpu_torch.search import plan as plan_mod
+    orig = plan_mod._prune_fields
+    count = {"calls": 0, "pruned": 0}
+
+    def counted(*a, **kw):
+        out, pruned = orig(*a, **kw)
+        count["calls"] += 1
+        count["pruned"] += int(pruned)
+        return out, pruned
+
+    out = {}
+    plan_mod._prune_fields = counted
+    try:
+        for index, bodies, oracles in (
+                ("plan", plan_bodies, None),
+                ("bench", misfit_bodies, None),
+                ("logs", logs_bodies, logs_oracles)):
+            c0 = dict(count)
+            exact, _, _ = drive(port, bodies, clients, index)
+            thr, lat, pruned_bodies = [], [], []
+            t0 = time.perf_counter()
+            for i, b in enumerate(bodies):
+                before = count["pruned"]
+                t1 = time.perf_counter()
+                thr.append(http(port, "POST", f"/{index}/_search",
+                                dict(b, track_total_hits=10000)))
+                lat.append(time.perf_counter() - t1)
+                if count["pruned"] > before:
+                    pruned_bodies.append(i)
+            wall = time.perf_counter() - t0
+            pruned_here = count["pruned"] - c0["pruned"]
+            gte = 0
+            for i, ((st, e), (st2, t)) in enumerate(zip(exact, thr)):
+                what = f"prune {index} body {i}"
+                check(st == st2 == 200, f"{what} -> {st} {st2}")
+                if oracles is not None:
+                    check_answer(e, oracles[i], "plan", what)
+                check([h["_id"] for h in t["hits"]["hits"]]
+                      == [h["_id"] for h in e["hits"]["hits"]],
+                      f"{what}: ids and order equal to the exact ask")
+                check(np.allclose([h["_score"] for h in t["hits"]["hits"]],
+                                  [h["_score"] for h in e["hits"]["hits"]],
+                                  rtol=1e-6, atol=0),
+                      f"{what}: scores within rtol 1e-6")
+                exact_total = e["hits"]["total"]["value"]
+                check(e["hits"]["total"]["relation"] == "eq",
+                      f"{what}: the exact ask counts exactly")
+                tt = t["hits"]["total"]
+                check(tt["value"] <= min(exact_total, 10000)
+                      and (tt["relation"] == "gte"
+                           or tt["value"] == exact_total),
+                      f"{what}: total {tt} against {exact_total}")
+                if not pruned_here:
+                    check(tt == {
+                        "value": min(exact_total, 10000),
+                        "relation": "gte" if exact_total > 10000 else "eq"},
+                        f"{what}: total {tt}")
+                gte += tt["relation"] == "gte"
+            out[index] = dict(bodies=len(bodies), wall_s=wall,
+                              p50_ms=p50_p99(lat)[0], relation_gte=gte,
+                              prune_calls=count["calls"] - c0["calls"],
+                              binds_pruned=pruned_here,
+                              bodies_pruned=pruned_bodies)
+    finally:
+        plan_mod._prune_fields = orig
+    check(out["logs"]["binds_pruned"] > 0,
+          f"pruning engaged on the incident index: {out['logs']}")
+    for index in ("bench", "logs"):
+        dev = node.device_cache.get(node.indices[index].engine.segments[0])
+        out[f"{index}_backoff"] = dict(prune_fail=dev._prune_fail,
+                                       prune_skip=dev._prune_skip)
+    log(f"[plan-prune] {out}")
+    return out
 
 
 def phase_plan_cpu(node, bodies, results, k, what):
@@ -1090,7 +1542,7 @@ def phase_filters(node, port, corpus, queries, k, clients, counters):
     plan0 = batcher.stats()["batched_queries"]
     hits0, miss0 = dev.filter_mask_hits, dev.filter_mask_misses
     s0, d0 = dict(fp.stats), fp.serving_stats()["dispatch"]
-    with lane_launches(counters) as per_lane:
+    with lane_launches(counters) as (per_lane, _):
         warm, _, warm_wall = drive(port, bodies, clients)
         sent = bodies * 8
         results, lat, wall = drive(port, sent, clients)
@@ -1102,7 +1554,8 @@ def phase_filters(node, port, corpus, queries, k, clients, counters):
             check_answer(r, oracles[j], lanes[j], f"filter body {j}"))
     served = dispatched_since(fp, d0)
     n_plan = lanes.count("plan")
-    check(sum(served.values()) == 9 * (len(bodies) - n_plan)
+    refires = fp.stats["ess_refires"] - s0["ess_refires"]
+    check(sum(served.values()) - refires == 9 * (len(bodies) - n_plan)
           and batcher.stats()["batched_queries"] - plan0 == 9 * n_plan,
           f"only the bodies beyond the largest bucket reached the plan "
           f"path ({served}, {n_plan} bodies)")
@@ -1121,12 +1574,14 @@ def phase_filters(node, port, corpus, queries, k, clients, counters):
                mask_rows_in_use=len(reg["stack_map"]),
                filter_mask_hits=dev.filter_mask_hits - hits0,
                filter_mask_misses=dev.filter_mask_misses - miss0,
+               ess_queries=fp.stats["ess_queries"] - s0["ess_queries"],
+               ess_refires=refires,
                launches_per_lane=per_lane, oracle_s=oracle_s,
                recall_min_fast=min(recall["fast"]),
                recall_min_plan=min(recall["plan"]))
     for lane, d in per_lane.items():
         check(d["gather_bm25_contrib"] > 0 and (
-            lane == "v1" or d["merge_sorted_slots"] > 0),
+            lane != "v2m" or d["merge_sorted_slots"] > 0),
             f"{lane}: its kernels launched in the filters mix {d}")
     log(f"[filters] {out}")
     return out
@@ -1150,7 +1605,8 @@ def main(argv=None) -> int:
     try:
         from elasticsearch_tpu_torch.corpus import (build_corpus,
                                                     make_queries,
-                                                    segment_from_corpus)
+                                                    segment_from_corpus,
+                                                    with_incident_terms)
         from elasticsearch_tpu_torch.node import Node
         from elasticsearch_tpu_torch.ops import _build
         from elasticsearch_tpu_torch.ops.bm25_contrib import \
@@ -1193,18 +1649,21 @@ def main(argv=None) -> int:
         check(st == 200, "GET /")
 
         # ---- 2. kernels vs twins; the v1 and v2 cohorts vs the CPU
+        registration = phase_registration(node, seg)
         kern = phase_kernels(node, seg, queries, args.iters)
         lane_cohorts = phase_lane_cohorts(node, seg, queries, filt_pool)
+        ess_cohorts = phase_essential_cohorts(node, seg, queries)
 
         # ---- 3. REST, small: each fast lane, filters, the plan path
-        with lane_launches(counters) as small:
+        with lane_launches(counters) as (small, _):
             rest_small = phase_rest_small(node, port, args.seed + 1)
         check(all(d["gather_bm25_contrib"] > 0 for d in small.values())
               and small["v2m"]["merge_sorted_slots"] > 0,
               f"every lane launched its kernels in the small REST phase: "
               f"{small}")
         rest_small["launches_per_lane"] = small
-        plan_small = phase_plan_small(node, port, args.seed + 2)
+        plan_small, plan_small_bodies = phase_plan_small(node, port,
+                                                         args.seed + 2)
 
         # ---- 4. REST, at scale (the main path)
         fp = node.fastpath
@@ -1214,11 +1673,12 @@ def main(argv=None) -> int:
         t_before = dict(fp.timing)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with lane_launches(counters) as per_lane:
-            scale, lanes, bodies, results = phase_rest_scale(
-                node, port, corpus, queries, args.clients, 1000)
+        with lane_launches(counters) as (per_lane, taken):
+            scale, lanes, bodies, results, oracles = phase_rest_scale(
+                node, port, corpus, queries, args.clients, 1000, taken)
         launches = {n: fn.launches for n, fn in counters.items()}
         scale["launches_per_lane"] = per_lane
+        scale["registration"] = registration
         scale["peak_bytes"] = torch.cuda.max_memory_allocated()
         cohorts = fp.stats["cohorts"] - s0["cohorts"]
         scale["cohorts"] = cohorts
@@ -1254,8 +1714,14 @@ def main(argv=None) -> int:
         scale["plan_equal_to_cpu"] = phase_plan_cpu(
             node, [bodies[i] for i in plan_served],
             [results[i] for i in plan_served], 1000, "scale plan query")
-        scale["trace"] = phase_scale_trace(node, port, lanes, bodies,
-                                           args.clients, counters)
+        # the θ-warm pass: the same bodies again
+        theta_warm = phase_theta_warm(node, port, queries, bodies, oracles,
+                                      lanes, args.clients, counters)
+        # the trace asks size 999: θ licenses the essential lane only at
+        # k = 1000, so it measures the cold lanes (the same launches)
+        scale["trace"] = phase_scale_trace(
+            node, port, lanes, [match_body(q, 999) for q in queries],
+            args.clients, counters)
         # the plan path on the queries no v2m cohort takes (the misfits,
         # as PR 3's plan path served them), asked outside the fast grammar
         misfit_bodies = [plan_body(q, 1000) for q, lane in
@@ -1264,6 +1730,21 @@ def main(argv=None) -> int:
         plan_trace = phase_plan_trace(node, misfit_bodies, 1000)
         filters = phase_filters(node, port, corpus, queries, 1000,
                                 args.clients, counters)
+        # the corpus as time-ordered logs around an incident: a second
+        # index, where the plan path's pruning must engage
+        t0 = time.time()
+        logs = with_incident_terms(corpus,
+                                   np.random.default_rng(args.seed + 3))
+        node.create_index("logs", {"properties": {"title":
+                                                  {"type": "text"}}})
+        node.indices["logs"].engine.install_segments(
+            [segment_from_corpus(logs, name="logs0")])
+        bodies_logs, oracles_logs = logs_bodies(
+            logs, len(corpus["df"]), filt_pool, args.seed + 4)
+        log(f"[setup] incident index in {time.time() - t0:.1f} s")
+        prune = phase_plan_prune(node, port, args.clients,
+                                 plan_small_bodies, misfit_bodies,
+                                 bodies_logs, oracles_logs)
     finally:
         node.close()
 
@@ -1283,7 +1764,11 @@ def main(argv=None) -> int:
         rows.append(dict(
             name=name, route="cuda", **meta[name],
             launches=launches[name],
-            launches_per_lane={lane: d[name] for lane, d in per_lane.items()},
+            launches_per_lane=dict(
+                {lane: d[name] for lane, d in per_lane.items()},
+                **{(lane if lane in ("ess", "refire") else f"warm_{lane}"):
+                   d[name]
+                   for lane, d in theta_warm["launches_per_lane"].items()}),
             launches_per_cohort=launches[name] / max(1, cohorts),
             max_abs_err=r["max_abs_err"], ms=r["ms"], kernel_ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
@@ -1291,7 +1776,9 @@ def main(argv=None) -> int:
             per_bucket=r.get("per_bucket")))
     print(json.dumps({"scale": scale}))
     print(json.dumps({"lanes": dict(lane_cohorts, v2m=kern["cohort"],
-                                    small=rest_small)}))
+                                    ess=ess_cohorts, small=rest_small)}))
+    print(json.dumps({"theta_warm": theta_warm}))
+    print(json.dumps({"prune": prune}))
     print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))

@@ -86,6 +86,55 @@ def build_corpus(rng: np.random.Generator, n_docs: int = N_DOCS,
                 doc_ids=doc_ids, tf=tf, group_start=group_start)
 
 
+def with_incident_terms(corpus: Dict[str, np.ndarray],
+                        rng: np.random.Generator, n_terms: int = 8,
+                        span: int = 16) -> Dict[str, np.ndarray]:
+    """The corpus as time-ordered logs around an incident (docid order is
+    ingestion order): ``n_terms`` new terms, ids ``vocab ..
+    vocab + n_terms - 1``. Each doc of the incident window (the first
+    n_docs // ``span``) holds one of them 4-8 times; each later doc holds
+    one of them once, with probability 1/2; a doc's length grows by what
+    it gained. The docs of the window hold every incident term's best
+    scores, so block-max window pruning (search/plan.py) can drop the
+    windows after it. Returns a new corpus dict; ``corpus`` is kept."""
+    n = len(corpus["lens"])
+    vocab = len(corpus["df"])
+    term = rng.integers(0, n_terms, n)
+    tf = np.where(np.arange(n) < n // span, rng.integers(4, 9, n),
+                  rng.random(n) < 0.5).astype(np.float32)
+    docs = np.nonzero(tf > 0)[0]
+    docs = docs[np.argsort(term[docs], kind="stable")]   # by term, docid
+    t_new, f_new = term[docs], tf[docs]
+    df_new = np.bincount(t_new, minlength=n_terms)
+    nb_new = (df_new + BLOCK_SIZE - 1) // BLOCK_SIZE
+    tbs_new = np.zeros(n_terms + 1, np.int64)
+    np.cumsum(nb_new, out=tbs_new[1:])
+    gs_new = np.zeros(n_terms + 1, np.int64)
+    np.cumsum(df_new, out=gs_new[1:])
+    dest = (tbs_new[t_new] * BLOCK_SIZE
+            + np.arange(len(docs), dtype=np.int64) - gs_new[t_new])
+    bd = np.zeros(int(tbs_new[-1]) * BLOCK_SIZE, np.int32)
+    bt = np.zeros(int(tbs_new[-1]) * BLOCK_SIZE, np.float32)
+    bd[dest] = docs
+    bt[dest] = f_new
+    base_blocks = corpus["block_docids"].shape[0]
+    base_post = int(corpus["group_start"][-1])
+    return dict(
+        block_docids=np.concatenate(
+            [corpus["block_docids"], bd.reshape(-1, BLOCK_SIZE)]),
+        block_tfs=np.concatenate(
+            [corpus["block_tfs"], bt.reshape(-1, BLOCK_SIZE)]),
+        tbs=np.concatenate([corpus["tbs"], base_blocks + tbs_new[1:]]),
+        nb=np.concatenate([corpus["nb"], nb_new]),
+        df=np.concatenate([corpus["df"], df_new]),
+        lens=corpus["lens"] + tf,
+        doc_ids=np.concatenate([corpus["doc_ids"],
+                                docs.astype(np.int32)]),
+        tf=np.concatenate([corpus["tf"], f_new]),
+        group_start=np.concatenate([corpus["group_start"],
+                                    base_post + gs_new[1:]]))
+
+
 def term_name(t: int) -> str:
     return f"t{t:06d}"
 
@@ -194,7 +243,9 @@ def plan_doc(rng: np.random.Generator) -> Dict[str, str]:
 def segment_from_corpus(corpus: Dict[str, np.ndarray], field: str = "title",
                         name: str = "corpus0") -> Segment:
     """The corpus as one port Segment over a text field of the terms
-    ``t000000 ...`` (ids are the docids as text; no ``_source``)."""
+    ``t000000 ...`` (ids are the docids as text; no ``_source``); the
+    block-max metadata is computed from the blocks
+    (index/segment.py ``block_max_meta``)."""
     vocab = len(corpus["df"])
     return segment_from_numpy(dict(
         terms=[term_name(i) for i in range(vocab)],

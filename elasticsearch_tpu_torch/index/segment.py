@@ -8,6 +8,12 @@ doc lengths, ids, `_source` and the live mask.
   Padding carries ``tf = 0`` and ``docid = 0`` and scores exactly 0. A
   term's blocks are ``term_block_start/term_block_count``; a term's last
   block is padded rather than shared, so block gathers never mix terms.
+- **Block-max metadata**: ``block_max_tf [num_blocks]`` (the largest
+  tf of each block) and ``block_min_len [num_blocks]`` (the smallest
+  field length over each block's real postings, 0 for a block with
+  none) bound every contribution a block can make; the impact-ordered
+  selection, the θ-warm essential lanes and the plan path's window
+  pruning read them.
 - **Keyword postings** have tf = 1 per distinct value and a field length
   equal to the number of values, as the reference builds them.
 - **Deletes as masks**: ``live[n_docs] bool``, replaced (never mutated)
@@ -38,6 +44,8 @@ class PostingsField:
     term_block_count: np.ndarray          # int32 [num_terms]
     block_docids: np.ndarray              # int32 [num_blocks, BLOCK_SIZE]
     block_tfs: np.ndarray                 # float32 [num_blocks, BLOCK_SIZE]
+    block_max_tf: np.ndarray              # float32 [num_blocks]
+    block_min_len: np.ndarray             # float32 [num_blocks]
     field_lengths: np.ndarray             # float32 [n_docs] (0 where absent)
     sum_total_term_freq: int
     sum_doc_freq: int
@@ -206,14 +214,35 @@ def _build_postings_field(field: str, term_docs: Dict[str, Any],
     else:
         block_docids = np.zeros((0, BLOCK_SIZE), np.int32)
         block_tfs = np.zeros((0, BLOCK_SIZE), np.float32)
+    max_tf, min_len = block_max_meta(block_docids, block_tfs, field_lengths)
     return PostingsField(
         field=field, terms=terms, doc_freq=doc_freq, total_term_freq=ttf,
         term_block_start=tbs, term_block_count=tbc,
         block_docids=block_docids, block_tfs=block_tfs,
+        block_max_tf=max_tf, block_min_len=min_len,
         field_lengths=field_lengths,
         sum_total_term_freq=int(ttf.sum()),
         sum_doc_freq=int(doc_freq.sum()),
         doc_count=int((field_lengths > 0).sum()))
+
+
+def block_max_meta(block_docids: np.ndarray, block_tfs: np.ndarray,
+                   field_lengths: np.ndarray, chunk: int = 1 << 16):
+    """(block_max_tf, block_min_len), float32 [num_blocks] each: the
+    largest tf of each block, and the smallest field length over the
+    block's real postings (tf > 0), 0 for a block without any. Built in
+    chunks of blocks so a corpus of millions of docs needs no
+    [num_blocks, 128] temporary."""
+    nb = block_docids.shape[0]
+    max_tf = np.zeros(nb, np.float32)
+    min_len = np.zeros(nb, np.float32)
+    for lo in range(0, nb, chunk):
+        tf = block_tfs[lo:lo + chunk]
+        max_tf[lo:lo + chunk] = tf.max(axis=1)
+        lens = np.where(tf > 0, field_lengths[block_docids[lo:lo + chunk]],
+                        np.inf).min(axis=1)
+        min_len[lo:lo + chunk] = np.where(np.isfinite(lens), lens, 0.0)
+    return max_tf, min_len
 
 
 def merge_segments(name: str, segments: List[Segment]) -> Segment:
@@ -321,12 +350,22 @@ def _postings_from_numpy(fname: str, arrays: Dict[str, Any]) -> PostingsField:
             block_tfs.sum(axis=1, dtype=np.float64))])
         ttf = csum[starts + counts] - csum[starts]
     ttf = np.asarray(ttf, np.int64)
+    if arrays.get("block_max_tf") is not None \
+            and arrays.get("block_min_len") is not None:
+        max_tf = np.asarray(arrays["block_max_tf"], np.float32)
+        min_len = np.asarray(arrays["block_min_len"], np.float32)
+        if max_tf.shape != (block_docids.shape[0],) \
+                or min_len.shape != max_tf.shape:
+            raise ValueError("block_max_tf/block_min_len must be [num_blocks]")
+    else:
+        max_tf, min_len = block_max_meta(block_docids, block_tfs, lengths)
     return PostingsField(
         field=fname, terms=list(arrays["terms"]), doc_freq=doc_freq,
         total_term_freq=ttf,
         term_block_start=starts.astype(np.int32),
         term_block_count=counts.astype(np.int32),
         block_docids=block_docids, block_tfs=block_tfs,
+        block_max_tf=max_tf, block_min_len=min_len,
         field_lengths=lengths,
         sum_total_term_freq=int(ttf.sum()),
         sum_doc_freq=int(doc_freq.sum()),

@@ -1,8 +1,8 @@
 """A single port node (counterpart of elasticsearch_tpu/node.py): the
 indices, the REST routes of the `_search` slices, the stdlib HTTP
 server, the device-resident segments, and the two serving paths on one
-device: the fast path (its v2m and v1 lanes) and the plan path with
-its PlanBatcher.
+device: the fast path (its v2m, v1 and θ-warm essential lanes) and the
+plan path with its PlanBatcher.
 
     node = Node(device=None)              # CUDA unless device="cpu"
     port = node.start(0)                  # returns the bound port
@@ -25,7 +25,7 @@ from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
 from elasticsearch_tpu_torch.search.fastpath import FastPathServer
 from elasticsearch_tpu_torch.search.service import SearchService
 
-VERSION = "8.0.0-torch-slice4"
+VERSION = "8.0.0-torch-slice5"
 
 
 @dataclass

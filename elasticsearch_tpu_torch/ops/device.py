@@ -110,6 +110,31 @@ class DevicePostings:
         self.term_block_count = pf.term_block_count
         self.doc_freq = pf.doc_freq
         self.host = pf
+        self._derived: Dict[object, object] = {}
+        self._derived_lock = threading.Lock()
+
+    def derived(self, key, build):
+        """``build()``, computed once per ``key`` and kept for the life
+        of these postings: tables derived from the immutable postings
+        (block bounds, the fast path's term bounds and hot-term table)
+        outlive a live-mask change, which keeps this object."""
+        with self._derived_lock:
+            if key not in self._derived:
+                self._derived[key] = build()
+            return self._derived[key]
+
+    def block_bounds(self):
+        """Per-block (first, last) docids, int64 [TB] each: a block's
+        real postings are a docid-ascending prefix (tf = 0 pads sit at
+        the end with docid 0), so the masked max is the last docid. The
+        plan path's window pruning (search/plan.py) reads them."""
+        def build():
+            pf = self.host
+            lo = pf.block_docids[:, 0].astype(np.int64)
+            hi = np.where(pf.block_tfs > 0.0, pf.block_docids,
+                          0).max(axis=1).astype(np.int64)
+            return lo, hi
+        return self.derived("block_bounds", build)
 
 
 class DeviceSegment:
@@ -127,7 +152,8 @@ class DeviceSegment:
         check_packed_id_limit(self.n_docs_padded,
                               f"DeviceSegment[{segment.name}]")
         # bound plans of repeated queries (search/searcher.py), keyed by
-        # (query, k, live_version): LRU of at most BOUND_PLANS_MAX
+        # (query, k, allow_prune, live_version): LRU of at most
+        # BOUND_PLANS_MAX; a pruned bind is never served to an exact ask
         self._bound_plans: "OrderedDict[tuple, object]" = OrderedDict()
         self._bound_lock = threading.Lock()
         # filter masks: key -> (device bool [n_docs_padded], host copy)
@@ -137,6 +163,11 @@ class DeviceSegment:
         self.filter_mask_hits = 0
         self.filter_mask_misses = 0
         self.filter_mask_evictions = 0
+        # the plan path's pruning back-off (search/plan.py _prune_fields):
+        # binds left to skip, and bound passes in a row that pruned
+        # nothing
+        self._prune_skip = 0
+        self._prune_fail = 0
         self.update_live(segment.live)
         self.postings: Dict[str, DevicePostings] = {
             f: DevicePostings(pf, self.n_docs_padded, self.device)

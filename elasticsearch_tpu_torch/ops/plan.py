@@ -29,6 +29,16 @@ with tighter rounding: each run is summed from its own few terms, not
 from a prefix over the whole row. The rail is float32, as in the
 reference. Dense column clauses (``dense_mask``), ``search_after`` and
 ``script_score`` belong to later slices.
+
+The impact helpers at the end (``build_term_impacts``,
+``select_blocks_impact``, ``select_blocks_prefix``,
+``impact_safe_termination``) are host numpy, copied from the reference:
+per-block BM25 upper bounds from the segment's block-max metadata (the
+fast path's essential split reads each term's best one), and the
+budgeted impact-ordered block selection and post-launch safe-termination
+check of the reference's impact-truncated lane. The port does not serve
+that lane (its answers are partial sums, relation "gte"), so only the
+tests run the last three.
 """
 
 from __future__ import annotations
@@ -253,3 +263,118 @@ def plan_topk(streams, group_kind, group_req, group_const, live,
         return out
     return out[:k], out[k:2 * k].to(torch.int64).clamp(
         max=_SENTINEL).to(torch.int32), out[2 * k].to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Impact-ordered block selection (host numpy): the per-block BM25 upper
+# bound is the block-max saturation at the block's minimum length times
+# the term's idf; a term's blocks in descending bound order let a budget
+# keep the blocks that can contribute most, and the largest bound left
+# out bounds what any doc can still gain.
+# ---------------------------------------------------------------------------
+
+
+class TermImpacts(NamedTuple):
+    """Registration-time impact metadata for one postings field."""
+
+    ub: np.ndarray        # float64 [TB] per-block score upper bound
+    order: np.ndarray     # int32 [TB] impact-sorted block ids per term
+    ub_desc: np.ndarray   # float64 [TB] bounds in `order`'s layout
+
+
+def build_term_impacts(starts, counts, block_max_tf, block_min_len,
+                       idf, avg_len: float, k1: float,
+                       b: float) -> TermImpacts:
+    """Per-block BM25 upper bounds + per-term impact ordering.
+
+    The bound is the block-max saturation at the block's minimum length
+    times the term's idf: the most ANY doc in the block can contribute
+    (the θ-warm lanes' ``maxc`` is its per-term max). Empty blocks (max
+    tf 0) bound to 0."""
+    starts = np.asarray(starts, np.int64)
+    counts = np.asarray(counts, np.int64)
+    mtf = np.asarray(block_max_tf, np.float64)
+    mln = np.asarray(block_min_len, np.float64)
+    sat = np.where(mtf > 0,
+                   mtf / (mtf + k1 * (1.0 - b + b * mln / avg_len)), 0.0)
+    tb = mtf.shape[0]
+    # the term owning each block: the packed layout is contiguous and
+    # gap-free (index/segment.py builds starts as the exact cumsum of
+    # counts); a gap would silently shift every term's range
+    if int(counts.sum()) != tb:
+        raise ValueError(
+            f"packed block layout violated: sum(counts)="
+            f"{int(counts.sum())} != n_blocks={tb}")
+    term_of = np.repeat(np.arange(len(counts)), counts)
+    ub = sat * np.asarray(idf, np.float64)[term_of]
+    # impact order per term: one global stable sort of (term, -ub,
+    # block); ties keep block (docid) order
+    order = np.lexsort((np.arange(tb), -ub, term_of)).astype(np.int32)
+    return TermImpacts(ub=ub, order=order, ub_desc=ub[order])
+
+
+def select_blocks_impact(term_ids, budget: int, starts, counts,
+                         impacts: TermImpacts):
+    """Budgeted per-query block selection by descending impact.
+
+    Returns ``(per_term, miss_bound)``: ``per_term`` a list of int32
+    arrays (one per term id, ASCENDING block ids), ``miss_bound`` the sum
+    over terms of the largest bound among that term's EXCLUDED blocks (a
+    doc appears in at most one block per term, so no doc's true score
+    exceeds its observed score by more than ``miss_bound``; an unseen
+    doc is bounded by ``miss_bound`` itself). ``miss_bound`` is 0.0
+    exactly when the selection is complete."""
+    segs = [(int(starts[t]), int(counts[t])) for t in term_ids]
+    total = sum(c for _, c in segs)
+    if total <= budget:
+        return ([np.arange(s, s + c, dtype=np.int32) for s, c in segs],
+                0.0)
+    ud = impacts.ub_desc
+    cat = np.concatenate([ud[s:s + c] for s, c in segs])
+    # threshold = the budget-th largest bound; strictly greater blocks
+    # are all in, ties fill the remainder in term order
+    thr = np.partition(cat, total - budget)[total - budget]
+    n_gt = [int(np.searchsorted(-ud[s:s + c], -thr, side="left"))
+            for s, c in segs]
+    spare = budget - sum(n_gt)
+    per_term: list = []
+    miss = 0.0
+    for (s, c), j in zip(segs, n_gt):
+        while spare > 0 and j < c and ud[s + j] == thr:
+            j += 1
+            spare -= 1
+        take = impacts.order[s:s + j]
+        per_term.append(np.sort(take).astype(np.int32))
+        if j < c:
+            miss += float(ud[s + j])
+    return per_term, miss
+
+
+def select_blocks_prefix(term_ids, budget: int, starts, counts):
+    """Posting-order baseline: each term keeps the PREFIX of its block
+    list, lowest docids first, dropping tail blocks from the longest
+    term until the budget fits. Same return convention as
+    :func:`select_blocks_impact` minus the bound."""
+    cnts = [int(counts[t]) for t in term_ids]
+    while sum(cnts) > budget:
+        i = int(np.argmax(cnts))
+        over = sum(cnts) - budget
+        cnts[i] = max(0, cnts[i] - max(1, min(over, cnts[i] // 2)))
+    return [np.arange(int(starts[t]), int(starts[t]) + c, dtype=np.int32)
+            for t, c in zip(term_ids, cnts)]
+
+
+def impact_safe_termination(kth: float, next_best: float,
+                            miss_bound: float) -> bool:
+    """The block-max safe-termination check on a truncated launch's
+    readback: with every doc's possible gain bounded by ``miss_bound``,
+    the observed top-k SET is provably the true top-k when the best
+    excluded candidate (``next_best``: the (k+1)-th observed score, or
+    0.0 when fewer than k+1 docs matched) cannot close the gap to the
+    kth. Observed scores stay lower bounds (relation "gte")."""
+    if miss_bound <= 0.0:
+        return True
+    if not np.isfinite(kth):
+        return False          # fewer than k hits: unseen docs could fill
+    floor = max(float(next_best) if np.isfinite(next_best) else 0.0, 0.0)
+    return floor + miss_bound < kth

@@ -8,11 +8,13 @@ elasticsearch_tpu/rest/api.py, reduced to the slice's routes):
     POST /{index}/_forcemerge
     POST|GET /{index}/_search     {"query": ..., "size": k, "from": n, ...}
 
-`_search` answers an exact top-k and an exact total (relation "eq").
-The fast path (search/fastpath.py) takes the bodies of the C++ front's
-grammar on an index of one segment, when one of its lanes serves the
-query (``FastPathServer.fits``: at most 16 terms, a block need within
-the largest bucket, ``size`` <= 1000):
+`_search` answers an exact top-k and an exact total (relation "eq"),
+unless the body's ``track_total_hits`` is false or a threshold (the plan
+path may then prune and count a lower bound, relation "gte"). The fast
+path (search/fastpath.py) takes the bodies of the C++ front's grammar on
+an index of one segment, when one of its lanes serves the query
+(``FastPathServer.fits``: at most 16 terms, a block need within the
+largest bucket, ``size`` <= 1000):
 
     {"query": {"match": {FIELD: TEXT | {"query": TEXT, "operator": "or"}}}}
     {"query": {"bool": {"must": MATCH | [MATCH],

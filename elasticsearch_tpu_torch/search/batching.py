@@ -106,6 +106,10 @@ class PlanBatcher:
 
     @staticmethod
     def _signature(bp: BoundPlan, ctx, k: int, k1: float, b: float) -> tuple:
+        # a pruned and an unpruned bind of one query may share a
+        # signature and a cohort: each row launches its own selection and
+        # gets its own packed result, and the lower-bound flag stays on
+        # the caller's BoundPlan (search/searcher.py reads bp.pruned)
         return (
             ctx.segment.name, ctx.segment.live_version,
             tuple((id(st.block_docids), st.avg_len,

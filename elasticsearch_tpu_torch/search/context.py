@@ -61,10 +61,12 @@ class SegmentContext:
     """One segment's view for query execution (postings only)."""
 
     def __init__(self, segment: Segment, device: DeviceSegment,
-                 stats: ShardStats):
+                 stats: ShardStats, k1: float = 1.2, b: float = 0.75):
         self.segment = segment
         self.device = device
         self.stats = stats
+        self.k1 = k1
+        self.b = b
 
     @property
     def live(self):

@@ -1,6 +1,6 @@
 """The fast-path lanes of the serving front (counterpart of
-elasticsearch_tpu/search/fastpath.py `FastPathServer`: its v2m and v1
-lanes, lane routing and filter mask rows).
+elasticsearch_tpu/search/fastpath.py `FastPathServer`: its v2m, v1 and
+θ-warm essential lanes, lane routing and filter mask rows).
 
 Request threads put (term ids, filter set, k) on a queue; one drain
 thread takes them in COHORTS, routes each query to a lane, assembles the
@@ -10,17 +10,26 @@ each query's hits into (score desc, docid asc). Continuous batching
 comes from backpressure: while a cohort runs on the device, new
 requests accumulate and drain as a wider cohort.
 
-Lanes, picked per query from its block counts (``route``):
+Lanes, picked per query (``route``, then ``_route_cohort``); a query
+that needs more blocks than the largest bucket goes to the plan path:
+- ess: a repeat of a query whose exact answer at k = MAX_K left its kth
+  score θ (``_finish``): its high-df terms whose block-max bounds sum
+  below 0.9·θ are patched per candidate from the hot-term tf table
+  instead of sorted (``ops/fastpath.py bm25_essential_dense_topk_batch``).
+  The device certificate proves each answer exact; a row that fails it
+  is memoised and refires on v2m or v1. θ lives in the registration, so
+  a new segment or live mask drops it;
 - v2m: ``bm25_topk_total_merge_batch``, the merge of slotted runs,
   ranking in float64, for queries that fit the slot layout;
 - v1: ``bm25_topk_total_batch``, one full sort; it takes any selection,
   so the slot misfits ride it at the largest bucket.
-The reference's v2 lane (``ops/fastpath.py bm25_candidates_rerank_batch``)
-is ported as an op but serves nothing: on the card it is slower than v2m
-at the same shape and ranks on the float32 score.
-A query needing more blocks than the largest bucket is refused
-(``fits`` is False) and the REST layer sends it to the plan path, where
-the reference's impact-truncated lane would take it.
+Two of the reference's ops are ported but serve nothing: its v2 lane
+(``ops/fastpath.py bm25_candidates_rerank_batch``: on the card slower
+than v2m at the same shape, and it ranks on the float32 score) and the
+essential binary-search patch (``bm25_essential_topk_batch``: on the card
+slower than the full-lane launch the router gives the same queries), so
+a repeat whose non-essential terms lack a hot-term row stays on its full
+lane.
 
 Slot layout: a bucket of NB blocks has ``N_SLOTS`` slots of NB/N_SLOTS
 blocks; each term instance starts on a slot boundary, so every slot is a
@@ -30,7 +39,8 @@ Filters: a query may carry a filter SET (sorted term ids of single-term
 filters on its field). Each set gets a row of the registration's
 persistent mask stack [F_SLOTS, ND] (row 0 = the live mask), holding
 live AND the composed filter mask, so filtered and plain queries share
-one launch. Nothing is ever answered on another device.
+one launch. Nothing is ever answered on another device, and a launch
+that raises fails its cohort's requests: none is retried elsewhere.
 """
 
 from __future__ import annotations
@@ -45,9 +55,12 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.device import DeviceLike, resolve_device
+from elasticsearch_tpu_torch.index.segment import BLOCK_SIZE
 from elasticsearch_tpu_torch.ops.device import readback as _readback
 from elasticsearch_tpu_torch.ops.fastpath import (
-    F_SLOTS, bm25_topk_total_batch, bm25_topk_total_merge_batch)
+    CAND, F_SLOTS, NE_SLOTS, bm25_essential_dense_topk_batch,
+    bm25_topk_total_batch, bm25_topk_total_merge_batch)
+from elasticsearch_tpu_torch.ops.plan import build_term_impacts
 from elasticsearch_tpu_torch.ops.plan import unpack_ids as _unpack_ids
 from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
 
@@ -63,6 +76,19 @@ MAX_K = 1000
 # float64 ranking: at 2M docs the float32 representation itself is the
 # recall floor; reported scores stay float32
 SCORE_DTYPE = torch.float64
+# essential-union buckets of the θ-warm lanes, smallest first
+ESS_BUCKETS = (256, 1024)
+# a non-essential term's posting range must be shorter than this (the
+# reference's bound, set by its binary-search patch's 21 halvings)
+NE_MAX_LEN = 1 << 21
+# θ entries and failed-certificate memos kept per registration
+THETA_MAX = 100_000
+# the hot-term tf table: rows of df >= max(256, ND / 256), hottest first,
+# at most DENSE_MAX_ROWS of them and DENSE_MB of device memory; float16
+# holds every tf up to 2048 exactly
+DENSE_MAX_ROWS = 512
+DENSE_MB = 512
+DENSE_F16_MAX_TF = 2048
 
 
 class SliceUnsupported(Exception):
@@ -75,8 +101,8 @@ class SliceUnsupported(Exception):
 class _Pending:
     """One query waiting for its cohort."""
 
-    __slots__ = ("reg", "term_ids", "filt", "k", "lane", "bucket", "done",
-                 "result", "error")
+    __slots__ = ("reg", "term_ids", "filt", "k", "lane", "bucket", "ess",
+                 "done", "result", "error")
 
     def __init__(self, reg, term_ids, filt, k, lane, bucket):
         self.reg = reg
@@ -85,6 +111,7 @@ class _Pending:
         self.k = k
         self.lane = lane
         self.bucket = bucket
+        self.ess = None         # the essential split (_essential_split)
         self.done = threading.Event()
         self.result: Optional[Tuple[np.ndarray, np.ndarray, int]] = None
         self.error: Optional[BaseException] = None
@@ -103,7 +130,18 @@ class FastPathServer:
         self._regs: Dict[str, dict] = {}
         self._gen = 0
         self.stats = {"cohorts": 0, "fast_queries": 0, "cohorts_v2m": 0,
-                      "cohorts_v1": 0}
+                      "cohorts_v1": 0, "cohorts_ess": 0,
+                      "cohorts_failed": 0,
+                      # θ cache: admission lookups that found / missed a
+                      # θ, and θ stored by full-lane answers
+                      "theta_hits": 0, "theta_misses": 0,
+                      "theta_stores": 0,
+                      # essential rows launched, the uncertified ones
+                      # refired on a full lane, and the splits that
+                      # passed every other condition but kept a
+                      # non-essential term without a hot-term row
+                      "ess_queries": 0, "ess_refires": 0,
+                      "ess_no_dense": 0}
         # per lane:bucket dispatch counts, the cohort-width histogram
         # (powers of two) and the pad rows of the Q_BATCH-row launches
         self.dispatch: Dict[str, int] = {}
@@ -163,10 +201,15 @@ class FastPathServer:
             self.pad_rows += Q_BATCH - n
             self.used_rows += n
 
+    def _count(self, **deltas):
+        with self._stats_lock:
+            for key, d in deltas.items():
+                self.stats[key] += d
+
     def serving_stats(self) -> dict:
         """Routing telemetry: queries dispatched per lane:bucket, the
         cohort-width histogram, the share of launched rows that were
-        padding, and the counters."""
+        padding, the lanes' settings and the counters."""
         with self._stats_lock:
             padded = self.pad_rows + self.used_rows
             return {
@@ -176,15 +219,32 @@ class FastPathServer:
                 "padding_waste_pct": round(
                     100.0 * self.pad_rows / padded, 1) if padded else 0.0,
                 "nb_buckets": list(NB_BUCKETS),
+                "ess_buckets": list(ESS_BUCKETS),
                 "counters": dict(self.stats),
             }
+
+    def engine_cache_stats(self) -> dict:
+        """The θ cache: admission hits and misses, θ stored, and the
+        entries the current registrations hold (a registration's go with
+        it when its segment or live mask changes)."""
+        with self._reg_lock:
+            entries = sum(len(r["theta"]) for r in self._regs.values())
+        with self._stats_lock:
+            return {"hits": self.stats["theta_hits"],
+                    "misses": self.stats["theta_misses"],
+                    "stores": self.stats["theta_stores"],
+                    "entries": entries}
 
     # --------------------------------------------------------- registration
     def register(self, index: str, segment, field: str, k1: float,
                  b: float) -> dict:
         """The registration of ``index`` for its single ``segment``:
         built on first use and whenever the segment or its live mask
-        changes (both are replaced, never mutated, on change)."""
+        changes (both are replaced, never mutated, on change). What
+        depends on the postings alone (idf, each term's bound, the
+        hot-term table) is built once per resident postings
+        (``DevicePostings.derived``), so a delete rebuilds only the θ
+        cache and the mask stack."""
         with self._reg_lock:
             reg = self._regs.get(index)
             if (reg is not None and reg["segment"] is segment
@@ -193,11 +253,11 @@ class FastPathServer:
                 return reg
             dev = self.cache.get(segment)
             dp = dev.postings[field]
-            pf = dp.host
-            df = dp.doc_freq.astype(np.float64)
-            n = float(pf.doc_count)
-            idf = np.log1p((n - df + 0.5) / (df + 0.5))
-            starts = dp.term_block_start.astype(np.int64)
+            idf, maxc = dp.derived(("fastpath.term_bounds", float(k1),
+                                    float(b)),
+                                   lambda: _term_bounds(dp, k1, b))
+            dense_tf, dense_rows = dp.derived(
+                "fastpath.dense_hot", lambda: _dense_hot(dp, self.device))
             self._gen += 1
             reg = {
                 "index": index, "field": field, "segment": segment,
@@ -207,7 +267,16 @@ class FastPathServer:
                 # selection assembly is vectorised numpy
                 "idf": idf,
                 "nb": dp.term_block_count.astype(np.int64),
-                "starts": starts,
+                "starts": dp.term_block_start.astype(np.int64),
+                "df": dp.doc_freq.astype(np.int64),
+                "maxc": maxc,
+                "dense_tf": dense_tf,
+                "dense_rows": dense_rows,
+                # (term ids, filter set, k) -> (θ, exact total), and the
+                # keys whose certificate failed; both valid for this
+                # registration's immutable segment and live mask only
+                "theta": {},
+                "ess_bad": set(),
                 # the persistent mask stack: row 0 = live; rows 1.. hold
                 # filter-set columns (_resolve_mask_rows)
                 "masks": dev.live.repeat(F_SLOTS, 1),
@@ -216,7 +285,7 @@ class FastPathServer:
             }
             self._regs[index] = reg
             logger.info("fastpath registered index=%s field=%s terms=%d",
-                        index, field, len(pf.terms))
+                        index, field, len(dp.host.terms))
             return reg
 
     # -------------------------------------------------------------- routing
@@ -237,12 +306,13 @@ class FastPathServer:
         return None
 
     def route(self, reg, term_ids: List[int]):
-        """(lane, bucket) that serves ``term_ids``: ("empty", None) when
-        no term is known (an empty answer, no device work); v2m at the
-        smallest bucket whose slot layout fits; else v1 at the largest
-        bucket (its one launched shape); None when the blocks need more
-        than the largest bucket or the query has more than MAX_TERMS
-        known terms."""
+        """(lane, bucket) for ``term_ids``: ("empty", None) when no term
+        is known (an empty answer, no device work); v2m at the smallest
+        bucket whose slot layout fits; else v1 at the largest bucket (its
+        one launched shape); None when the blocks need more than the
+        largest bucket or the query has more than MAX_TERMS known terms
+        (the plan path serves it). A repeat may still ride the essential
+        lane: the drain thread decides that (``_essential_split``)."""
         known = [t for t in term_ids if t >= 0]
         if not known:
             return ("empty", None)
@@ -260,13 +330,74 @@ class FastPathServer:
         """True when a fast lane serves (term_ids, k)."""
         return 0 <= k <= MAX_K and self.route(reg, term_ids) is not None
 
+    # ------------------------------------------------------ essential split
+    def _essential_split(self, reg, p: _Pending, nb_full: int):
+        """(ess bucket, essential terms, non-essential terms, their
+        bound, θ, exact total) when a cached θ licenses the essential
+        lane for ``p``, else None. Term instances partition (a doubled
+        term keeps both slots). Conditions, as the reference's attached
+        branch: k == MAX_K; a θ stored and no failed certificate; at
+        least two known terms; non-essential terms in ascending bound
+        order while their bounds sum below 0.9·θ, each shorter than
+        NE_MAX_LEN postings, at most NE_SLOTS of them, one term left
+        essential; the essential terms' df summing to at most 0.9·CAND
+        (so the union fits the candidates and the certificate closes); a
+        block reduction of at least 1.25x; an ESS_BUCKETS bucket that
+        holds the essential blocks. And, the port's own condition, a
+        hot-term row for every non-essential term (the dense patch is the
+        only one that serves). Runs on the drain thread only."""
+        if p.k != MAX_K:
+            return None
+        key = (tuple(p.term_ids), p.filt, p.k)
+        hit = reg["theta"].get(key)
+        if hit is None:
+            self._count(theta_misses=1)
+            return None
+        self._count(theta_hits=1)
+        theta, total = hit
+        if key in reg["ess_bad"]:
+            return None
+        known = [t for t in p.term_ids if t >= 0]
+        if len(known) < 2:
+            return None
+        maxc, df = reg["maxc"], reg["df"]
+        inst = sorted(known, key=lambda t: float(maxc[t]))
+        theta_safe = 0.9 * float(theta)
+        ne: List[int] = []
+        ess: List[int] = []
+        bound = 0.0
+        for t in inst:
+            mc = float(maxc[t])
+            if (len(ne) < NE_SLOTS and len(inst) - len(ne) > 1
+                    and bound + mc < theta_safe
+                    and int(df[t]) < NE_MAX_LEN):
+                ne.append(t)
+                bound += mc
+            else:
+                ess.append(t)
+        if not ne:
+            return None
+        if int(df[ess].sum()) > int(0.9 * CAND):
+            return None
+        nb_ess = int(reg["nb"][ess].sum())
+        if nb_ess * 5 > nb_full * 4:
+            return None
+        bucket = next((bk for bk in ESS_BUCKETS if nb_ess <= bk), None)
+        if bucket is None:
+            return None
+        if any(t not in reg["dense_rows"] for t in ne):
+            self._count(ess_no_dense=1)
+            return None
+        return (bucket, ess, ne, bound, float(theta), int(total))
+
     # --------------------------------------------------------------- search
     def submit(self, reg, term_ids: List[int], k: int,
                filt: Tuple[int, ...] = ()) -> _Pending:
         """Queue one query: term ids into the registered field's term
         dictionary (-1 for unknown terms) and the sorted term ids of its
         single-term filters (-1: the filter matches nothing). Raises
-        SliceUnsupported for what no fast lane serves."""
+        SliceUnsupported for a size or filter count outside the grammar,
+        or a query no fast lane serves (``fits`` says which)."""
         if not 0 <= k <= MAX_K:
             raise SliceUnsupported(
                 f"size [{k}] is outside [0, {MAX_K}] served by the "
@@ -281,13 +412,12 @@ class FastPathServer:
             raise SliceUnsupported(
                 f"query of {len(known)} term(s) over {need} postings "
                 f"blocks needs more than the fast path's largest bucket "
-                f"({NB_BUCKETS[-1]} blocks, {MAX_TERMS} terms); the "
-                f"impact-truncated lane that serves it is a later slice "
-                f"of the port")
+                f"({NB_BUCKETS[-1]} blocks, {MAX_TERMS} terms); the plan "
+                f"path serves it")
         lane, bucket = routed
         p = _Pending(reg, list(term_ids), tuple(filt), k, lane, bucket)
         if lane == "empty":
-            p.result = (np.zeros(0, np.float32), np.zeros(0, np.int32), 0)
+            p.result = _empty_result()
             p.done.set()
             return p
         self._queue.put(p)
@@ -295,8 +425,8 @@ class FastPathServer:
 
     def search(self, reg, term_ids: List[int], k: int,
                filt: Tuple[int, ...] = (), timeout: float = 120.0):
-        """(scores float32 [n], docids int32 [n], total) ordered by
-        (score desc, docid asc); blocks until the cohort is back."""
+        """(scores float32 [n], docids int32 [n], exact total) ordered
+        by (score desc, docid asc), blocking until the cohort is back."""
         p = self.submit(reg, term_ids, k, filt)
         if not p.done.wait(timeout):
             raise TimeoutError(f"fast path gave no answer in {timeout}s")
@@ -338,34 +468,45 @@ class FastPathServer:
                 p.done.set()
 
     def _route_cohort(self, items: List[_Pending]):
-        """Launch one registration's drained queries: grouped by lane
-        and bucket, small groups folded into the next bucket up, each
-        group chunked by the cohort width and the mask-row budget."""
+        """Launch one registration's drained queries: a repeat that a
+        cached θ licenses rides the essential lane first; then grouped
+        by lane and bucket, small groups folded into the next bucket
+        up, each group chunked by the cohort width and the mask-row
+        budget. Essential cohorts launch first, then v2m and v1."""
         reg = items[0].reg
         by_lane: Dict[str, Dict[int, List[_Pending]]] = {}
         for p in items:
+            if p.lane in ("v2m", "v1"):
+                known = [t for t in p.term_ids if t >= 0]
+                ess = self._essential_split(reg, p,
+                                            int(reg["nb"][known].sum()))
+                if ess is not None:
+                    p.lane, p.bucket, p.ess = "ess", ess[0], ess
             by_lane.setdefault(p.lane, {}).setdefault(p.bucket,
                                                       []).append(p)
-        for lane in ("v2m", "v1"):
-            for bucket, group in self._merge_up(by_lane.get(lane,
-                                                            {})).items():
-                for chunk in self._chunk_by_slots(group):
-                    rows = self._resolve_mask_rows(
-                        reg, {p.filt for p in chunk})
-                    self._count_dispatch(lane, bucket, len(chunk))
-                    self._count_cohort(len(chunk))
-                    self._launch(lane, reg, bucket, chunk, rows)
+        for lane in ("ess", "v2m", "v1"):
+            self._launch_groups(reg, lane, by_lane.get(lane, {}))
+
+    def _launch_groups(self, reg, lane: str,
+                       groups: Dict[int, List[_Pending]]):
+        for bucket, group in self._merge_up(groups).items():
+            for chunk in self._chunk_by_slots(group):
+                rows = self._resolve_mask_rows(reg, {p.filt for p in chunk})
+                self._count_dispatch(lane, bucket, len(chunk))
+                self._count_cohort(len(chunk))
+                self._launch(lane, reg, bucket, chunk, rows)
 
     @staticmethod
     def _merge_up(groups: Dict[int, list]) -> Dict[int, list]:
         """Fold a group of fewer than Q_BATCH / 2 queries into the next
         bigger bucket that has a group (a query that fits a bucket fits
-        every bigger one); the largest bucket never carries."""
+        every bigger one); the largest bucket of ``groups`` never
+        carries."""
         merged: Dict[int, list] = {}
         carry: list = []
         for bucket in sorted(groups):
             cur = carry + groups[bucket]
-            if (len(cur) < Q_BATCH // 2 and bucket != NB_BUCKETS[-1]
+            if (len(cur) < Q_BATCH // 2
                     and any(b > bucket for b in groups)):
                 carry = cur
                 continue
@@ -451,6 +592,7 @@ class FastPathServer:
             self._launch_cohort(lane, reg, bucket, items, rows)
         except Exception as e:      # the drain thread must never die
             logger.exception("fastpath %s cohort failed", lane)
+            self._count(cohorts_failed=1)
             self._fail(items, e)
 
     def assemble_cohort(self, reg, bucket: int, queries: List[List[int]],
@@ -458,8 +600,8 @@ class FastPathServer:
         """Host-side block selection of one cohort, padded to
         ``Q_BATCH`` rows: sel int32 [Q, bucket] and ws float64 [Q,
         bucket], each term instance starting on a slot boundary when
-        ``slotted`` (v2m), back to back otherwise (v1). Unknown terms
-        (-1) skip."""
+        ``slotted`` (v2m), back to back otherwise (v1, and the essential
+        terms of the ess lane). Unknown terms (-1) skip."""
         dp = reg["dp"]
         slot = bucket // N_SLOTS
         sel = np.full((Q_BATCH, bucket), dp.zero_block, np.int32)
@@ -478,20 +620,47 @@ class FastPathServer:
                 pos += -(-cnt // slot) * slot if slotted else cnt
         return sel, ws
 
+    def assemble_essential(self, reg, bucket: int, splits):
+        """The essential lane's inputs from each query's split
+        (``_essential_split``): the essential terms' blocks back to back,
+        and per non-essential slot its hot-term row (-1: unused) and its
+        idf, and each row's summed bound. Returns (sel, ws, ne_row,
+        ne_idf, ne_bound)."""
+        sel, ws = self.assemble_cohort(reg, bucket, [s[1] for s in splits],
+                                       slotted=False)
+        ne_row = np.full((Q_BATCH, NE_SLOTS), -1, np.int32)
+        ne_idf = np.zeros((Q_BATCH, NE_SLOTS), np.float64)
+        ne_bound = np.zeros(Q_BATCH, np.float64)
+        rows = reg["dense_rows"]
+        for qi, (_b, _ess, ne, bound, _theta, _total) in enumerate(splits):
+            for i, t in enumerate(ne):
+                ne_row[qi, i] = rows[t]
+                ne_idf[qi, i] = reg["idf"][t]
+            ne_bound[qi] = bound
+        return sel, ws, ne_row, ne_idf, ne_bound
+
     def _launch_cohort(self, lane: str, reg, bucket: int,
                        items: List[_Pending], rows):
         dp = reg["dp"]
         t0 = time.perf_counter()
-        sel, ws = self.assemble_cohort(
-            reg, bucket, [p.term_ids for p in items], slotted=lane != "v1")
+        ess_in = None
+        if lane == "ess":
+            sel, ws, *ess_in = self.assemble_essential(
+                reg, bucket, [p.ess for p in items])
+        else:
+            sel, ws = self.assemble_cohort(
+                reg, bucket, [p.term_ids for p in items],
+                slotted=lane == "v2m")
         mask_ids = np.zeros(Q_BATCH, np.int32)
+        nomatch = []        # rows with an unknown filter term: no hits
         for qi, p in enumerate(items):
             if not p.filt:
                 continue
             row = rows.get(p.filt)
-            if row is None:     # an unknown filter term: no hits
+            if row is None:     # answered with no hits after the launch
                 sel[qi] = dp.zero_block
                 ws[qi] = 0.0
+                nomatch.append(qi)
             else:
                 mask_ids[qi] = row
         t1 = time.perf_counter()
@@ -506,21 +675,34 @@ class FastPathServer:
 
         args = (dp.block_docids, dp.block_tfs)
         tail = (dp.doc_lens, reg["masks"], up(mask_ids))
+        k1, b = reg["k1"], reg["b"]
         if lane == "v2m":
             packed = bm25_topk_total_merge_batch(
-                *args, up(sel), up(ws), *tail, dp.avg_len, N_SLOTS,
-                reg["k1"], reg["b"], MAX_K, score_dtype=SCORE_DTYPE)
+                *args, up(sel), up(ws), *tail, dp.avg_len, N_SLOTS, k1, b,
+                MAX_K, score_dtype=SCORE_DTYPE)
+        elif lane == "ess":
+            ne_row, ne_idf, ne_bound = ess_in
+            packed = bm25_essential_dense_topk_batch(
+                *args, reg["dense_tf"], up(sel), up(ws), *tail, up(ne_row),
+                up(ne_idf), up(ne_bound), dp.avg_len, k1, b, MAX_K,
+                score_dtype=SCORE_DTYPE)
         else:
             packed = bm25_topk_total_batch(
-                *args, up(sel), up(ws), *tail, dp.avg_len, reg["k1"],
-                reg["b"], MAX_K, score_dtype=SCORE_DTYPE)
+                *args, up(sel), up(ws), *tail, dp.avg_len, k1, b, MAX_K,
+                score_dtype=SCORE_DTYPE)
         if dev.type == "cuda":
             ev1.record()
         # ONE device->host copy per cohort, through the tracked funnel
         out = _readback(f"search.fastpath.{lane}_cohort", packed)
         t2 = time.perf_counter()
         busy = ev0.elapsed_time(ev1) / 1e3 if dev.type == "cuda" else 0.0
-        self._finish(items, out)
+        refire: List[_Pending] = []
+        if lane == "ess":
+            answered, refire = self._finish_essential(reg, items, out,
+                                                      nomatch)
+        else:
+            self._finish(items, out, store_theta=True)
+            answered = len(items)
         t3 = time.perf_counter()
         with self._stats_lock:
             self.timing["assemble_s"] += t1 - t0
@@ -529,26 +711,136 @@ class FastPathServer:
             self.timing["device_busy_s"] += busy
             self.stats["cohorts"] += 1
             self.stats[f"cohorts_{lane}"] += 1
-            self.stats["fast_queries"] += len(items)
+            self.stats["fast_queries"] += answered
+        if refire:
+            self._refire(reg, refire)
 
-    @staticmethod
-    def _finish(items: List[_Pending], out: np.ndarray):
+    def _finish(self, items: List[_Pending], out: np.ndarray,
+                store_theta: bool = False, totals=None):
         """Hand each query its hits from the packed rows ``out`` (one
         per item): the whole cohort in a few numpy calls, then the
         wake-ups (every call that lets go of the GIL hands it to a
-        request thread)."""
+        request thread). Each query keeps its first k hits of the
+        rail-dtype ranking, in the contract order on the reported
+        float32 score. ``totals`` replace the packed totals (the
+        essential lane's cached exact ones). With ``store_theta`` (a full
+        lane's exact answer), a query that fills k = MAX_K stores its kth score
+        θ and its total, licensing the essential lane for its repeats."""
         kk, n = MAX_K, len(items)
         vals = out[:n, :kk]
         ids = _unpack_ids(out[:n, kk:2 * kk])
-        # each query keeps its first k hits of the rail-dtype ranking...
         nhit = np.minimum([p.k for p in items], np.isfinite(vals).sum(1))
         vals = np.where(np.arange(kk) < nhit[:, None], vals, -np.inf)
-        # ...in the contract order on the reported float32 score
         order = np.lexsort((ids, -vals), axis=1)
         vals = np.take_along_axis(vals, order, 1)
         ids = np.take_along_axis(ids, order, 1)
+        if totals is None:
+            totals = out[:n, 2 * kk].astype(np.int64)
+        stores = 0
         for qi, p in enumerate(items):
-            p.result = (vals[qi, :nhit[qi]], ids[qi, :nhit[qi]],
-                        int(out[qi, 2 * kk]))
+            v = vals[qi, :nhit[qi]]
+            p.result = (v, ids[qi, :nhit[qi]], int(totals[qi]))
+            theta = p.reg["theta"]
+            if (store_theta and p.k == MAX_K and len(v) == MAX_K
+                    and len(theta) < THETA_MAX):
+                theta[(tuple(p.term_ids), p.filt, p.k)] = (
+                    float(v[-1]), int(totals[qi]))
+                stores += 1
+        if stores:
+            self._count(theta_stores=stores)
         for p in items:
             p.done.set()
+
+    def _finish_essential(self, reg, items: List[_Pending], out,
+                          nomatch: List[int]):
+        """Certified rows (ok = 1) answer with the cached exact total,
+        relation "eq"; rows with an unknown filter term answer no hits;
+        the rest are memoised in ``ess_bad`` and returned for a refire.
+        Returns (answered, refire)."""
+        kk = MAX_K
+        ok = out[:len(items), 2 * kk] == 1.0
+        nm = set(nomatch)
+        done = [qi for qi in range(len(items)) if qi in nm or ok[qi]]
+        refire = [p for qi, p in enumerate(items)
+                  if qi not in nm and not ok[qi]]
+        for p in refire:
+            if len(reg["ess_bad"]) < THETA_MAX:
+                reg["ess_bad"].add((tuple(p.term_ids), p.filt, p.k))
+        self._count(ess_queries=len(items), ess_refires=len(refire))
+        if done:
+            sub = out[done].copy()
+            totals = [0 if qi in nm else items[qi].ess[5] for qi in done]
+            sub[[i for i, qi in enumerate(done) if qi in nm], :kk] = -np.inf
+            self._finish([items[qi] for qi in done], sub, totals=totals)
+        return len(done), refire
+
+    def _refire(self, reg, items: List[_Pending]):
+        """Serve uncertified essential rows on the full lane ``route``
+        picks (v2m when the slot layout fits, else v1), at once."""
+        groups: Dict[str, Dict[int, List[_Pending]]] = {}
+        for p in items:
+            p.lane, p.bucket = self.route(reg, p.term_ids)
+            p.ess = None
+            groups.setdefault(p.lane, {}).setdefault(p.bucket, []).append(p)
+        for lane in ("v2m", "v1"):
+            self._launch_groups(reg, lane, groups.get(lane, {}))
+
+def _empty_result():
+    return (np.zeros(0, np.float32), np.zeros(0, np.int32), 0)
+
+
+def _term_bounds(dp, k1: float, b: float):
+    """(idf, maxc) float64 [T] of one field's terms: maxc is a term's
+    largest BM25 contribution, its best block's bound (ops/plan.py
+    ``build_term_impacts``), the essential split's per-term bound. Kept
+    in float64: a float32 maxc could round below the block bound the
+    certificate needs."""
+    pf = dp.host
+    df = dp.doc_freq.astype(np.float64)
+    n = float(pf.doc_count)
+    idf = np.log1p((n - df + 0.5) / (df + 0.5))
+    starts = dp.term_block_start.astype(np.int64)
+    nb = dp.term_block_count.astype(np.int64)
+    impacts = build_term_impacts(starts, nb, pf.block_max_tf,
+                                 pf.block_min_len, idf, float(dp.avg_len),
+                                 float(k1), float(b))
+    maxc = np.zeros(len(pf.terms), np.float64)
+    maxc[nb > 0] = impacts.ub_desc[starts[nb > 0]]
+    return idf, maxc
+
+
+def _dense_hot(dp, device):
+    """(dense [H, ND] tf table on ``device`` or None, {term id: row}) of
+    the hottest terms, the essential lane's patch: rows for the terms of
+    df >= max(256, ND / 256), hottest first, at most DENSE_MAX_ROWS and
+    DENSE_MB MB; float16 unless a candidate row holds a tf above 2048.
+    None only when no term is hot or the budget gives no row; a failed
+    build raises."""
+    nd = int(dp.doc_lens.shape[0])
+    df = dp.doc_freq.astype(np.int64)
+    hot = np.nonzero(df >= max(256, nd // 256))[0]
+    if len(hot) == 0:
+        return None, {}
+    hot = hot[np.argsort(-df[hot], kind="stable")][:DENSE_MAX_ROWS]
+    pf = dp.host
+    flat_d = pf.block_docids.reshape(-1)
+    flat_t = pf.block_tfs.reshape(-1)
+    # a term's postings fill the first df lanes of its blocks
+    starts = dp.term_block_start.astype(np.int64) * BLOCK_SIZE
+    # the dtype is decided over every candidate row: one tf above 2048
+    # would round in float16 and the certificate would not see it
+    max_tf = max(float(flat_t[starts[t]:starts[t] + df[t]].max())
+                 for t in hot)
+    dtype = np.float16 if max_tf <= DENSE_F16_MAX_TF else np.float32
+    h = int(min(len(hot), (DENSE_MB << 20) // (nd * np.dtype(dtype).itemsize)))
+    if h == 0:
+        return None, {}
+    dense = np.zeros((h, nd), dtype)
+    rows = {}
+    for row, t in enumerate(hot[:h]):
+        s, n = int(starts[t]), int(df[t])
+        dense[row, flat_d[s:s + n]] = flat_t[s:s + n]
+        rows[int(t)] = row
+    logger.info("fastpath dense hot-term table: %d rows x %d docs (%s, %.0f "
+                "MB)", h, nd, np.dtype(dtype).name, dense.nbytes / 2 ** 20)
+    return torch.from_numpy(dense).to(device), rows

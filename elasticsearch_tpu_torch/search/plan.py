@@ -11,13 +11,17 @@ dis_max / multi_match over plannable children. Compilation happens once
 per shard (terms analyzed, idf from shard-level stats); binding resolves
 term -> postings-block ids per segment.
 
+Block-max window pruning (``_prune_fields``) runs when the caller
+allows it (``track_total_hits`` other than true): postings blocks that
+provably cannot reach the top k leave the selection before the bucket
+is chosen; the hits stay exact and the total becomes a lower bound.
+
 Left for later slices, as the reference's: dense column factors (range,
 exists, ids, match_all) with the ``dense_mask`` column and the constant
 ``bonus`` they give; ``_convert_filters`` (large FILTER / MUST_NOT
-groups as cached dense masks); block-max pruning (``_prune_fields``,
-for ``track_total_hits`` thresholds); ``script_score``. Without the
-filter conversion every FILTER and MUST_NOT group is evaluated in the
-launch, with the same set semantics, so the hits do not change.
+groups as cached dense masks); ``script_score``. Without the filter
+conversion every FILTER and MUST_NOT group is evaluated in the launch,
+with the same set semantics, so the hits do not change.
 """
 
 from __future__ import annotations
@@ -30,12 +34,22 @@ import numpy as np
 
 from elasticsearch_tpu_torch.ops import bm25 as bm25_ops
 from elasticsearch_tpu_torch.ops import plan as plan_ops
-from elasticsearch_tpu_torch.ops.device import block_bucket, readback
+from elasticsearch_tpu_torch.ops.device import (block_bucket, host_any_mask,
+                                                readback)
 from elasticsearch_tpu_torch.search import queries as q
 from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
 
 NAN = float("nan")
 _NEVER = 1 << 30  # requirement no group can meet (pad groups)
+
+# Block-max window pruning (the reference's, after Lucene's block-max
+# WAND): the docid space splits into PRUNE_WINDOWS windows; a window
+# whose BM25 upper bound (from block_max_tf / block_min_len) cannot reach
+# the k-th best host-verified candidate score is dropped, and postings
+# blocks overlapping only dropped windows leave the selection. Only
+# selections of at least PRUNE_MIN_BLOCKS blocks pay the host bound pass.
+PRUNE_WINDOWS = 512
+PRUNE_MIN_BLOCKS = 384
 
 
 @dataclass
@@ -295,12 +309,17 @@ class BoundPlan:
     # entry of the plan (ops/bm25.py scan_run_bound)
     max_run: int
     empty: bool = False   # no query term exists in this segment
+    # blocks were pruned: the launch's match count is a lower bound
+    pruned: bool = False
 
 
-def bind_plan(plan: LogicalPlan, ctx) -> BoundPlan:
+def bind_plan(plan: LogicalPlan, ctx, k: int = 10,
+              allow_prune: bool = False) -> BoundPlan:
     """Resolve terms -> block ids against one segment (ctx:
-    SegmentContext). Selection widths bucket to powers of two
-    (ops/device.py block_bucket), so they take O(log) values."""
+    SegmentContext). With ``allow_prune`` the unpadded selections go
+    through the block-max window pruning for a top ``k`` first. Selection
+    widths bucket to powers of two (ops/device.py block_bucket), so they
+    take O(log) values."""
     ngroups = len(plan.groups)
     # group and subgroup ids share the low 32 bits of the launch's sort
     # key, 16 bits each (pad entries carry group = ngroups)
@@ -316,7 +335,9 @@ def bind_plan(plan: LogicalPlan, ctx) -> BoundPlan:
             by_field.setdefault(t.field, []).append(
                 (gi, t.sub, t.weight, t.const, t.term))
 
-    streams: List[plan_ops.FieldStream] = []
+    # per field, unpadded: (name, postings, block ids, group, subgroup,
+    # weight, const, entry index) per selected block
+    fields = []
     n_entries = 0
     for fname, entries in by_field.items():
         dp = ctx.device.postings.get(fname)
@@ -347,17 +368,35 @@ def bind_plan(plan: LogicalPlan, ctx) -> BoundPlan:
         rep = np.repeat(np.arange(len(starts)), counts_np)
         offs = (np.arange(tot, dtype=np.int64)
                 - np.repeat(np.cumsum(counts_np) - counts_np, counts_np))
+        fields.append((fname, dp,
+                       (np.asarray(starts, np.int64)[rep] + offs)
+                       .astype(np.int32),
+                       np.asarray(egrp, np.int32)[rep],
+                       np.asarray(esub, np.int32)[rep],
+                       np.asarray(ew, np.float32)[rep],
+                       np.asarray(econst, bool)[rep],
+                       rep.astype(np.int32)))
+
+    pruned = False
+    if allow_prune and fields:
+        fields, pruned = _prune_fields(plan, fields, ctx, k)
+
+    streams: List[plan_ops.FieldStream] = []
+    for fname, dp, sel_u, grp_u, sub_u, w_u, c_u, _ent in fields:
+        tot = len(sel_u)
+        if tot == 0:
+            continue
         n = block_bucket(tot)
         sel = np.full(n, dp.zero_block, np.int32)
-        sel[:tot] = np.asarray(starts, np.int64)[rep] + offs
+        sel[:tot] = sel_u
         grp = np.full(n, ngroups, np.int32)   # pads: clipped; tf=0: inert
-        grp[:tot] = np.asarray(egrp, np.int32)[rep]
+        grp[:tot] = grp_u
         sub_a = np.zeros(n, np.int32)
-        sub_a[:tot] = np.asarray(esub, np.int32)[rep]
+        sub_a[:tot] = sub_u
         w_a = np.zeros(n, np.float32)
-        w_a[:tot] = np.asarray(ew, np.float32)[rep]
+        w_a[:tot] = w_u
         c_a = np.zeros(n, bool)
-        c_a[:tot] = np.asarray(econst, bool)[rep]
+        c_a[:tot] = c_u
         streams.append(plan_ops.FieldStream(
             dp.block_docids, dp.block_tfs, dp.doc_lens,
             ctx.stats.field_stats(fname)[1], sel, grp, sub_a, w_a, c_a))
@@ -374,7 +413,210 @@ def bind_plan(plan: LogicalPlan, ctx) -> BoundPlan:
     # FILTER groups don't block (n_filter counts only real groups)
     return BoundPlan(streams, kind, req, const, plan.n_must, plan.n_filter,
                      plan.msm, plan.tie, plan.combine,
-                     bm25_ops.scan_run_bound(n_entries), empty=not streams)
+                     bm25_ops.scan_run_bound(n_entries), empty=not streams,
+                     pruned=pruned)
+
+
+# ---------------------------------------------------------------------------
+# block-max window pruning (host bound pass)
+# ---------------------------------------------------------------------------
+
+def _prune_backoff(dev) -> None:
+    """A bound pass that pruned nothing: skip the next 2^fails binds of
+    this segment (at most 256), so a corpus whose docid space shows no
+    block-max skew stops paying for it."""
+    dev._prune_fail += 1
+    dev._prune_skip = min(256, 2 ** min(dev._prune_fail, 8))
+
+
+def _prune_fields(plan: LogicalPlan, fields, ctx, k: int):
+    """Drop postings blocks that provably cannot affect the top k.
+    Returns (fields, pruned).
+
+    Why the hits stay exact:
+    - θ is the k-th largest single-entry contribution among >= k
+      distinct docs that verifiably PASS the whole query (live, and every
+      FILTER group checked on the host): each such doc's true score is at
+      least its partial contribution, so the true k-th best score is at
+      least θ.
+    - A docid window's bound sums per-term maxima of
+      w·max_tf/(max_tf + k1·(1−b+b·min_len/avg)): an upper bound on any
+      doc's score inside the window (the score rises with tf and falls
+      with length).
+    - Windows whose bound is below θ hold no top-k doc; blocks that
+      overlap only such windows drop from every group (scoring and
+      filter alike), so a surviving doc keeps ALL its postings and
+      scores exactly.
+    The launch's match count becomes a lower bound (``pruned``), which
+    is why callers allow this only under a ``track_total_hits`` other
+    than true. Declines (returns the fields unchanged) for a plan it
+    cannot bound: a MUST_NOT group (pruned away, its excluded docs could
+    return and the count overcount), several MUST groups, a
+    minimum_should_match above 1, a group of more than one required
+    subgroup, a FILTER group over several fields, more than 64 entries
+    in a field, no verifiable θ."""
+    total_blocks = sum(len(f[2]) for f in fields)
+    if total_blocks < PRUNE_MIN_BLOCKS:
+        return fields, False
+    dev = ctx.device
+    if dev._prune_skip > 0:
+        dev._prune_skip -= 1
+        return fields, False
+
+    # ---- eligibility, candidate groups, filters checked on the host
+    groups = plan.groups
+    must_ids = [gi for gi, g in enumerate(groups)
+                if g.kind == plan_ops.MUST]
+    cand_ids = set()
+    filters: List[int] = []
+    for gi, g in enumerate(groups):
+        if g.kind == plan_ops.MUST:
+            if len(must_ids) != 1 or plan.msm >= 1 or g.req > 1:
+                return fields, False
+            cand_ids.add(gi)
+        elif g.kind == plan_ops.SHOULD:
+            if not must_ids and plan.msm <= 1 and g.req <= 1:
+                cand_ids.add(gi)
+        elif g.kind == plan_ops.MUST_NOT:
+            return fields, False
+        else:   # FILTER, evaluated in the launch
+            if g.req > 1 or len({t.field for t in g.terms}) != 1:
+                return fields, False
+            filters.append(gi)
+    if must_ids:
+        cand_ids = set(must_ids)
+    if not cand_ids:
+        return fields, False
+
+    nd = ctx.segment.n_docs
+    if nd <= 0:
+        return fields, False
+    wsz = max(1, -(-nd // PRUNE_WINDOWS))
+    n_win = -(-nd // wsz)
+    k1, b = ctx.k1, ctx.b
+    ng = len(groups)
+    gconst = np.asarray([g.const_score for g in groups], np.float32)
+    gkind = np.asarray([g.kind for g in groups], np.int32)
+
+    # the docs that pass every filter: live, and each FILTER group's
+    # any-of presence (host_any_mask, as the reference's small filters)
+    vmask = np.asarray(ctx.segment.live[:nd], bool).copy()
+    for gi in filters:
+        g = groups[gi]
+        dp = ctx.device.postings.get(g.terms[0].field)
+        vmask &= (host_any_mask(dp.host, [t.term for t in g.terms], nd)
+                  if dp is not None else False)
+
+    # ---- per-(group, window) upper bounds + θ candidates
+    group_wb = np.zeros((ng, n_win), np.float64)
+    group_any = np.zeros((ng, n_win), bool)     # presence, const groups
+    theta = -np.inf
+    probe_j = -(-k // 128) + 4                  # blocks per candidate entry
+    per_field = []                              # (wlo, whi) per block
+    for fname, dp, sel_u, grp_u, sub_u, w_u, c_u, ent_u in fields:
+        pf = dp.host
+        avg = ctx.stats.field_stats(fname)[1]
+        lo_all, hi_all = dp.block_bounds()
+        wlo = lo_all[sel_u] // wsz
+        whi = np.maximum(hi_all[sel_u] // wsz, wlo)
+        per_field.append((wlo, whi))
+        mtf = pf.block_max_tf[sel_u].astype(np.float64)
+        mln = pf.block_min_len[sel_u].astype(np.float64)
+        norm = k1 * (1.0 - b + b * mln / avg)
+        sat = np.where(mtf > 0.0, mtf / (mtf + norm), 0.0)
+        is_sum_grp = np.isnan(gconst[grp_u])    # NaN: sum of contributions
+        ub = np.where(is_sum_grp, np.where(c_u, w_u, w_u * sat),
+                      (mtf > 0.0).astype(np.float64))
+
+        # per-entry window maxima (an entry's blocks cover disjoint docs)
+        n_ent = int(ent_u[-1]) + 1 if len(ent_u) else 0
+        if n_ent > 64:
+            return fields, False
+        lens = whi - wlo + 1
+        tot = int(lens.sum())
+        csum = np.cumsum(lens) - lens
+        widx = (np.repeat(wlo, lens)
+                + (np.arange(tot, dtype=np.int64) - np.repeat(csum, lens)))
+        eidx = np.repeat(ent_u.astype(np.int64), lens)
+        ewm = np.zeros(n_ent * n_win, np.float64)
+        np.maximum.at(ewm, eidx * n_win + widx, np.repeat(ub, lens))
+        ewm = ewm.reshape(n_ent, n_win)
+
+        # fold entries into group bounds: NaN-const groups SUM their
+        # entries' maxima (a duplicated term counts twice, as in the
+        # launch); const groups need presence only
+        for e0 in np.flatnonzero(np.diff(ent_u, prepend=-1)):
+            e = int(ent_u[e0])
+            gi = int(grp_u[e0])
+            if np.isnan(gconst[gi]):
+                group_wb[gi] += ewm[e]
+            group_any[gi] |= ewm[e] > 0.0
+
+            # θ probe: the top-J blocks of a candidate entry, exact
+            # partial contributions of docs that pass every filter
+            if gi not in cand_ids:
+                continue
+            blocks = sel_u[ent_u == e]
+            ub_e = ub[ent_u == e]
+            j = min(probe_j, len(blocks))
+            topb = (blocks[np.argpartition(ub_e, len(ub_e) - j)
+                           [len(ub_e) - j:]]
+                    if j < len(blocks) else blocks)
+            d = pf.block_docids[topb].reshape(-1)
+            tf = pf.block_tfs[topb].reshape(-1).astype(np.float64)
+            ok = (tf > 0.0) & (d < nd)
+            d, tf = d[ok], tf[ok]
+            ok = vmask[d]
+            d, tf = d[ok], tf[ok]
+            if len(d) < k:
+                continue
+            if not np.isnan(gconst[gi]):
+                cand = np.full(len(d), float(gconst[gi]))
+            elif bool(c_u[e0]):
+                cand = np.full(len(d), float(w_u[e0]))
+            else:
+                dnorm = k1 * (1.0 - b + b * pf.field_lengths[d]
+                              .astype(np.float64) / avg)
+                cand = float(w_u[e0]) * tf / (tf + dnorm)
+            th = np.partition(cand, len(cand) - k)[len(cand) - k]
+            theta = max(theta, th)
+
+    if not np.isfinite(theta) or theta <= 0.0:
+        _prune_backoff(dev)
+        return fields, False
+
+    # ---- group bounds -> per-window score bound
+    scoring = (gkind == plan_ops.MUST) | (gkind == plan_ops.SHOULD)
+    gb = np.where(np.isnan(gconst)[:, None], group_wb,
+                  np.nan_to_num(gconst)[:, None] * group_any)[scoring]
+    if plan.combine == "dismax":
+        mx = gb.max(axis=0) if len(gb) else np.zeros(n_win)
+        wb = mx + plan.tie * (gb.sum(axis=0) - mx)
+    else:
+        wb = gb.sum(axis=0) if len(gb) else np.zeros(n_win)
+
+    # the launch's float32 sums can exceed the float64 bound by rounding:
+    # keep a small margin
+    keep_w = wb >= theta * (1.0 - 1e-5)
+    if keep_w.all():
+        _prune_backoff(dev)
+        return fields, False
+    ck = np.concatenate([[0], np.cumsum(keep_w)])
+
+    out = []
+    pruned = False
+    for field, (wlo, whi) in zip(fields, per_field):
+        blk_keep = (ck[np.minimum(whi, n_win - 1) + 1] - ck[wlo]) > 0
+        if blk_keep.all():
+            out.append(field)
+            continue
+        pruned = True
+        out.append(field[:2] + tuple(a[blk_keep] for a in field[2:]))
+    if pruned:
+        dev._prune_fail = 0
+    else:
+        _prune_backoff(dev)
+    return out, pruned
 
 
 def empty_result(k: int):

@@ -42,6 +42,9 @@ class QueryResult:
     docs: List[DocAddress]
     total_hits: int
     max_score: Optional[float]
+    # block-max pruning ran on some segment: total_hits is a LOWER bound
+    # (the service reports hits.total.relation "gte")
+    total_lower_bound: bool = False
 
 
 class ShardSearcher:
@@ -58,15 +61,21 @@ class ShardSearcher:
         self.batcher = None
 
     def _contexts(self) -> List[SegmentContext]:
-        return [SegmentContext(seg, self.cache.get(seg), self.stats)
+        return [SegmentContext(seg, self.cache.get(seg), self.stats,
+                               self.k1, self.b)
                 for seg in self.segments]
 
     # ------------------------------------------------------------ query
     def query_phase(self, query, size: int, post_filter=None,
-                    cache_key: Optional[str] = None) -> QueryResult:
+                    cache_key: Optional[str] = None,
+                    track_total_hits=True) -> QueryResult:
         """Exact top-``size`` (at most MAX_TOPK) and exact total.
         ``cache_key`` (the request's query JSON) lets repeats reuse their
-        bound plans, which hold the uploaded selections' host arrays."""
+        bound plans, which hold the uploaded selections' host arrays.
+        A ``track_total_hits`` other than true (false or a threshold)
+        licenses block-max pruning, as Lucene only collects TOP_SCORES
+        under a total-hits threshold: the hits stay exact, and when a
+        segment pruned the total is a lower bound (``total_lower_bound``)."""
         k = min(max(size, 1), MAX_TOPK)
         plan = compile_plan(query, self, post_filter)
         if plan is None:
@@ -75,22 +84,28 @@ class ShardSearcher:
                 "below one bool level, a bool of must_not clauses only, "
                 "a negative boost or a multi_match type other than "
                 "best_fields/most_fields): a later slice of the port")
+        allow_prune = track_total_hits is not True
         bkey_base = None
         if cache_key is not None:
-            # the segment set pins shard-level stats (idf, avg length)
+            # the segment set pins shard-level stats (idf, avg length);
+            # k and allow_prune pin the pruning, so a pruned bind is
+            # never served to an exact ask; the live version pins the
+            # docs that verified its θ
             bkey_base = (tuple(s.name for s in self.segments), self.k1,
-                         self.b, cache_key, k)
+                         self.b, cache_key, k, allow_prune)
         per_segment = []
         total = 0
+        lower_bound = False
         for seg_idx, ctx in enumerate(self._contexts()):
             if ctx.segment.n_docs == 0:
                 continue
             if bkey_base is None:
-                bp = bind_plan(plan, ctx)
+                bp = bind_plan(plan, ctx, k, allow_prune)
             else:
                 bp = ctx.device.bound_plan(
                     bkey_base + (ctx.segment.live_version,),
-                    lambda ctx=ctx: bind_plan(plan, ctx))
+                    lambda ctx=ctx: bind_plan(plan, ctx, k, allow_prune))
+            lower_bound = lower_bound or bp.pruned
             if self.batcher is not None:
                 vals, ids, seg_total = self.batcher.execute(
                     bp, ctx, k, self.k1, self.b)
@@ -102,7 +117,7 @@ class ShardSearcher:
             if keep.any():
                 per_segment.append((seg_idx, vals[keep], ids[keep]))
         if not per_segment:
-            return QueryResult([], total, None)
+            return QueryResult([], total, None, lower_bound)
         all_vals = np.concatenate([v for _, v, _ in per_segment])
         all_segs = np.concatenate(
             [np.full(len(i), s, np.int32) for s, _, i in per_segment])
@@ -111,7 +126,7 @@ class ShardSearcher:
         order = np.lexsort((all_ids, all_segs, -all_vals))[:k]
         docs = [DocAddress(int(all_segs[i]), int(all_ids[i]),
                            float(all_vals[i])) for i in order]
-        return QueryResult(docs, total, docs[0].score)
+        return QueryResult(docs, total, docs[0].score, lower_bound)
 
     # ------------------------------------------------------------ fetch
     def fetch_phase(self, docs: List[DocAddress],

@@ -4,9 +4,15 @@ parse the body, run the query phase then the fetch phase on the index's
 one shard, shape the response.
 
 The body may carry ``query``, ``size``, ``from``, ``post_filter``,
-``track_total_hits: true`` and ``_source`` (true or false). Everything
-else (aggregations, sort, other ``track_total_hits`` values, source
-filtering, ...) is a later slice and answers a typed 400.
+``track_total_hits`` (true, false or a threshold) and ``_source`` (true
+or false). Everything else (aggregations, sort, source filtering, ...)
+is a later slice and answers a typed 400.
+
+``track_total_hits``: true (the default) counts exactly, relation "eq".
+false or an integer license block-max pruning (search/plan.py): the hits
+stay exact and the total is a lower bound, relation "gte", when a
+segment pruned; an integer also clamps the total to itself, "gte" when
+the count exceeds it; false omits ``hits.total``.
 """
 
 from __future__ import annotations
@@ -46,10 +52,12 @@ class SearchService:
             raise SliceUnsupported(
                 f"search body keys {extra} are a later slice of the port "
                 f"(this one takes {sorted(BODY_KEYS)})")
-        if body.get("track_total_hits", True) is not True:
-            raise SliceUnsupported(
-                "track_total_hits other than true licenses block-max "
-                "pruning, a later slice: this one counts totals exactly")
+        track_total = body.get("track_total_hits", True)
+        if not isinstance(track_total, int) or (
+                not isinstance(track_total, bool) and track_total < 0):
+            raise IllegalArgumentException(
+                f"[track_total_hits] must be true, false or a "
+                f"non-negative integer, got [{track_total}]")
         source = body.get("_source", True)
         if not isinstance(source, bool):
             raise SliceUnsupported("_source filtering is a later slice "
@@ -76,15 +84,24 @@ class SearchService:
         cache_key = json.dumps([body["query"], body.get("post_filter")],
                                sort_keys=True, default=str)
         result = searcher.query_phase(query, from_ + size, post_filter,
-                                      cache_key=cache_key)
+                                      cache_key=cache_key,
+                                      track_total_hits=track_total)
         hits = searcher.fetch_phase(result.docs[from_:from_ + size], source)
         for h in hits:
             h["_index"] = index
-        return {
+        total = result.total_hits
+        relation = "gte" if result.total_lower_bound else "eq"
+        if not isinstance(track_total, bool) and total > track_total:
+            total, relation = track_total, "gte"
+        response = {
             "took": int((time.time() - t0) * 1000),
             "timed_out": False,
             "_shards": {"total": 1, "successful": 1, "skipped": 0,
                         "failed": 0},
-            "hits": {"total": {"value": result.total_hits, "relation": "eq"},
+            "hits": {"total": {"value": total, "relation": relation},
                      "max_score": result.max_score, "hits": hits},
         }
+        if track_total is False:
+            # ES omits hits.total when tracking is disabled
+            del response["hits"]["total"]
+        return response

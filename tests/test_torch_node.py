@@ -247,14 +247,23 @@ def test_plan_path_matches_reference_node(nodes, bi):
 def test_slice_boundaries_are_typed(nodes):
     _, _, node, port = nodes
     for body in ({"query": {"range": {"views": {"gte": 3}}}},
-                 {"query": {"match": {"body": "w1"}},
-                  "track_total_hits": False},
                  {"query": {"bool": {"must": [{"match": {"body": "w1"}}],
                                      "filter": [{"range": {
                                          "views": {"gte": 3}}}]}}}):
         st, r = http(port, "POST", "/idx/_search", body)
         assert st == 400 and r["error"]["type"] == \
             "unsupported_in_slice_exception", (body, r)
+    # track_total_hits is served since block-max pruning is ported:
+    # false omits the total, a value of another type is refused
+    st, r = http(port, "POST", "/idx/_search",
+                 {"query": {"match": {"body": "w1"}},
+                  "track_total_hits": False})
+    assert st == 200 and "total" not in r["hits"], r
+    st, r = http(port, "POST", "/idx/_search",
+                 {"query": {"match": {"body": "w1"}},
+                  "track_total_hits": "all"})
+    assert st == 400 and r["error"]["type"] == \
+        "illegal_argument_exception", r
     assert http(port, "POST", "/nope/_search",
                 {"query": {"match": {"body": "w1"}}})[0] == 404
     st, info = http(port, "GET", "/")

@@ -195,7 +195,9 @@ def test_randomized_bool_trees(searchers):
 
 def test_rest_from_and_typed_400s(searchers):
     """Through the port's REST layer on an index of three segments:
-    ``from`` pages, and the dense and pruned cases are typed 400s."""
+    ``from`` pages, the dense cases are typed 400s, and
+    ``track_total_hits: false`` answers the exact hits without
+    ``hits.total``."""
     ref, port = searchers
     node = Node(device="cpu")
     try:
@@ -215,12 +217,16 @@ def test_rest_from_and_typed_400s(searchers):
             for h in got["hits"]["hits"]:
                 assert h["_source"]["title"]
         for bad in ({"query": CASES[-1]},
-                    {"query": CASES[0], "track_total_hits": False},
                     {"query": CASES[0], "aggs": {"t": {"terms": {
                         "field": "tag"}}}}):
             st, r = c.dispatch("POST", "/p/_search", {}, bad)
             assert st == 400 and r["error"]["type"] == \
                 "unsupported_in_slice_exception", (bad, r)
+        st, exact = c.dispatch("POST", "/p/_search", {}, {"query": CASES[0]})
+        st2, untracked = c.dispatch("POST", "/p/_search", {}, {
+            "query": CASES[0], "track_total_hits": False})
+        assert st == st2 == 200 and "total" not in untracked["hits"]
+        assert untracked["hits"]["hits"] == exact["hits"]["hits"]
     finally:
         node.close()
 
