@@ -4,8 +4,14 @@
     python3 chip_smoke.py                  # full size: 2M docs, 256 queries
     python3 chip_smoke.py --docs 200000    # a quicker rehearsal
 
+The node serves through its C++ front (``Node.start``):
+the scale bodies carry ``_source: false``, as the reference bench's do,
+so the front parses them, resolves their term ids and hands them to the
+fast path as arrays; the rest reaches the fallback workers.
+
 Phases (any failure exits non-zero; no exception is swallowed):
-  1. build    every hand-written CUDA kernel from elasticsearch_tpu_torch/csrc
+  1. build    every hand-written CUDA kernel from elasticsearch_tpu_torch/csrc,
+              and the C++ front from elasticsearch_tpu_torch/native/src
   2. kernels  each kernel against its plain PyTorch twin at main-path shapes
               (a 32-query cohort at NB=4096, 16 slots, on the corpus), timed;
               the merge also at NB=1024 and 2048 and on a tie-heavy cohort.
@@ -30,7 +36,10 @@ Phases (any failure exits non-zero; no exception is swallowed):
               above 1000, each equal to the port's own CPU execution on the
               same segments; the bodies with a range clause are typed 400s
   4. scale    the seeded 2M-doc corpus installed as the index's one segment;
-              concurrent size:1000 match queries over HTTP, each served by
+              (registered with the C++ front, timed) concurrent size:1000
+              match queries over HTTP from Python clients, each parsed by
+              the C++ front (its "fast" counter grows by every body; the
+              plan-path ones bounce) and served by
               the v2m lane when its slot layout fits, by v1 when it needs at
               most the largest bucket, else by the plan path (no query is
               refused); totals exact against a float64 oracle, recall@1000 =
@@ -40,17 +49,28 @@ Phases (any failure exits non-zero; no exception is swallowed):
               each lane's kernels launch during this phase. Then the θ-warm
               pass: the same bodies again, each repeat the θ cache admits on
               the essential lane, every answer held to the oracle (recall
-              1.0, exact "eq" totals). Then (at size 999, which no θ
-              licenses): the v2m-served queries alone, and all of them again
-              under torch.profiler with each lane's cohort launches named
-              (each lane's device seconds, the card's idle share); the
+              1.0, exact "eq" totals). Then 64 of the fast-lane bodies
+              with _source: true, which the C++ grammar refuses: through
+              the fallback workers and the fast path's Python queue, each
+              held to the oracle. Then throughput and latency from the
+              C++ load generator (es_loadgen, 64 connections, each stepping
+              through the bodies round-robin, as the reference bench
+              drives it): the 256 bodies once cold (θ emptied), then
+              θ-warm (two rounds to warm, then 12 rounds measured), every
+              request done with 2xx, every bounce a plan-path body the
+              plan path answered. Then (at size 999, which no θ licenses,
+              under the load generator): the v2m-served queries alone
+              (two rounds to warm, 12 measured), and all of them
+              again under torch.profiler with each lane's cohort launches
+              named (each lane's device seconds, the card's idle share); the
               queries no v2m cohort takes, asked of the plan path all at once
               (the cohorts they form, the lanes and memory in flight, each
               answer equal to the CPU execution), and the cohorts the
               PlanBatcher forms from them, traced; the reference bench's
               bool+filters mix (64 bodies with two filters each, 8 times
               over, each on a fast lane unless its query needs more than the
-              largest bucket, exact against the filtered oracle). The plan
+              largest bucket, exact against the filtered oracle; then the
+              8 rounds again from the load generator). The plan
               path under track_total_hits: 10000 (phase 3's bodies, the
               misfits, and an index of the corpus as time-ordered logs
               around an incident, where pruning must engage): the hits of
@@ -66,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import logging
 from collections import Counter
 import json
 import subprocess
@@ -446,11 +467,16 @@ def phase_registration(node, seg):
     """The fast path's registration of the corpus, wall seconds: the
     segment's upload to the card; the first registration, which builds
     what the postings alone decide (each term's bound, the hot-term tf
-    table) once per resident postings; and a rebuild, as after a delete
-    (a new live mask), which keeps those and makes only the θ cache and
-    the mask stack."""
+    table) once per resident postings; a rebuild, as after a delete (a
+    new live mask), which keeps those and makes only the θ cache and the
+    mask stack (both on a server of their own, so the node's drain does
+    not race them); then, with ``seg`` installed as the "bench" index's
+    one segment, the node's registration with the C++ front, whose term
+    dictionary and external ids are laid out and copied into C++."""
     import torch
-    fp = node.serving_lane()
+
+    from elasticsearch_tpu_torch.search.fastpath import FastPathServer
+    fp = FastPathServer(node.device, node.device_cache)
     t0 = time.perf_counter()
     node.device_cache.get(seg)
     torch.cuda.synchronize()
@@ -467,8 +493,23 @@ def phase_registration(node, seg):
     check(again["dense_tf"] is reg["dense_tf"]
           and again["maxc"] is reg["maxc"],
           "a rebuilt registration keeps the postings' derived tables")
+    served = node.fastpath
+    f0 = served.timing["front_register_s"]
+    n0 = served.stats["front_registrations"]
+    node.indices["bench"].engine.install_segments([seg])
+    t0 = time.perf_counter()
+    node.refresh_front()
+    front_s = time.perf_counter() - t0
+    front = served.front_registration()
+    check(front is not None and front["segment"] is seg
+          and served.stats["front_registrations"] == n0 + 1,
+          "the C++ front holds the bench index's registration")
     dense = reg["dense_tf"]
     out = dict(upload_s=upload, first_s=first, rebuild_s=rebuild,
+               front_register_s=served.timing["front_register_s"] - f0,
+               front_refresh_s=front_s,
+               front_terms=len(front["dp"].host.terms),
+               front_ids=seg.n_docs,
                dense_rows=len(reg["dense_rows"]),
                dense_dtype=None if dense is None else str(dense.dtype),
                dense_bytes=0 if dense is None
@@ -888,6 +929,151 @@ def drive(port, bodies, clients, index="bench"):
     return results, lat, wall
 
 
+def front_since(node, before):
+    """The C++ front's request counters (and the drain's bounces) since
+    ``before`` (``Node.http_stats``)."""
+    now = node.http_stats()
+    return {k: now[k] - before[k]
+            for k in ("requests", "fast", "fallback", "bounced",
+                      "bounced_stale", "front_registrations")}
+
+
+def loadgen_pass(node, port, bodies, lanes, conns, reps=1, warmup=0):
+    """``bodies`` (each of the C++ grammar; ``lanes``: the lane each is
+    routed to) sent ``reps`` times over from ``conns`` keep-alive
+    connections by the front's C++ load generator (off the GIL, in this
+    process), after ``warmup`` rounds that are not measured. Each
+    connection steps through the bodies round-robin from its own start,
+    so how often each body goes out depends on the timing. Every request
+    must be done and answered 2xx, parsed by the front, and bounced to
+    the plan path only if its body is a plan-path body: the plan path
+    must have answered exactly the bounces (those not parsed under a
+    stale registration, which REST sends to the fast path), each a
+    plan-path body. Reports qps over the wall seconds of the measured
+    window, p50/p99, the front's counters, the drain thread's stage
+    seconds and the card's idle share (1 - the fast cohorts'
+    CUDA-event seconds / wall)."""
+    from elasticsearch_tpu_torch.rest.native_http import loadgen
+
+    def run(total):
+        res = loadgen(port, "/bench/_search", bodies, conns, total)
+        check(res["done"] == total and res["non2xx"] == 0,
+              f"the load generator's {total} requests all done with 2xx: "
+              f"{res['done']} done, {res['non2xx']} not 2xx")
+        return res
+
+    if warmup:
+        run(len(bodies) * warmup)
+    fp = node.fastpath
+    service = node.search_service
+    plan_queries = {json.dumps(b["query"], sort_keys=True)
+                    for b, lane in zip(bodies, lanes) if lane == "plan"}
+    planned = []
+
+    def recorded(index, svc, body):
+        planned.append(json.dumps(body.get("query"), sort_keys=True))
+        return type(service).search(service, index, svc, body)
+
+    total = len(bodies) * reps
+    h0, t0, s0 = node.http_stats(), dict(fp.timing), dict(fp.stats)
+    d0 = fp.serving_stats()["dispatch"]
+    service.search = recorded
+    try:
+        res = run(total)
+    finally:
+        del service.search
+    front = front_since(node, h0)
+    check(front["fast"] == total,
+          f"the C++ front parsed all {total} bodies: {front}")
+    check(len(planned) == front["bounced"] - front["bounced_stale"]
+          and set(planned) <= plan_queries,
+          f"the plan path answered the bounces alone, each a plan-path "
+          f"body: {len(planned)} plan answers, "
+          f"{len(set(planned) - plan_queries)} of other bodies, {front}")
+    drain = {k: fp.timing[k] - t0[k] for k in fp.timing}
+    cohorts = fp.stats["cohorts"] - s0["cohorts"]
+    check(fp.stats["cohorts_failed"] == s0["cohorts_failed"],
+          "no cohort failed under the load generator")
+    p50, p99 = p50_p99(res["lat_s"])
+    return dict(requests=total, warmup_requests=len(bodies) * warmup,
+                conns=conns, wall_s=res["wall_s"],
+                qps=total / res["wall_s"], p50_ms=p50, p99_ms=p99,
+                plan_requests=len(planned),
+                front=front, dispatch=dispatched_since(fp, d0),
+                cohorts=cohorts,
+                mean_cohort_width=(fp.stats["fast_queries"]
+                                   - s0["fast_queries"]) / max(1, cohorts),
+                ess_queries=fp.stats["ess_queries"] - s0["ess_queries"],
+                drain_s=drain, device_busy_s=drain["device_busy_s"],
+                idle_share=1.0 - drain["device_busy_s"] / res["wall_s"])
+
+
+def phase_loadgen(node, port, bodies, lanes, conns):
+    """The scale phase's bodies under the C++ load generator: a cold
+    round (the θ cache emptied first, as on a fresh registration; a
+    second round would already be warm) and a θ-warm pass (two rounds
+    to warm, then 12 measured, as the reference bench measures). Answers
+    are held to the oracle in the passes driven by Python clients; these
+    measure."""
+    reg = node.fastpath.front_registration()
+    check(reg is not None and reg["index"] == "bench",
+          "the C++ front serves the bench index")
+    reg["theta"].clear()
+    reg["ess_bad"].clear()
+    out = dict(cold=loadgen_pass(node, port, bodies, lanes, conns),
+               warm=loadgen_pass(node, port, bodies, lanes, conns, reps=12,
+                                 warmup=2))
+    check(out["warm"]["ess_queries"] > 0,
+          "the warm load rode the essential lane")
+    log(f"[loadgen] {out}")
+    return out
+
+
+def phase_source_true(node, port, queries, oracles, lanes, clients):
+    """Bodies the C++ grammar refuses (``_source: true``) for the queries
+    a fast lane serves: each goes to the fallback workers, whose REST
+    layer puts it on the fast path's Python queue (the drain takes it
+    beside the front's arrays); every answer against the float64
+    oracle. Sent twice: as served, where ``submit`` wakes the drain from
+    its poll of the front, and with that wake taken out, where the drain
+    waits out its poll (``POLL_MS``) first."""
+    from elasticsearch_tpu_torch.rest.native_http import NativeHttpFront
+    out = source_true_pass(node, port, queries, oracles, lanes, clients)
+    wake = NativeHttpFront.wake
+    NativeHttpFront.wake = lambda self: None
+    try:
+        out["no_wake"] = source_true_pass(node, port, queries, oracles,
+                                          lanes, clients)
+    finally:
+        NativeHttpFront.wake = wake
+    log(f"[source-true] {out}")
+    return out
+
+
+def source_true_pass(node, port, queries, oracles, lanes, clients):
+    fp = node.fastpath
+    idx = [i for i, lane in enumerate(lanes) if lane != "plan"][:64]
+    bodies = [match_body(queries[i], 1000, source=True) for i in idx]
+    h0, r0 = node.http_stats(), fp.stats["ess_refires"]
+    d0 = fp.serving_stats()["dispatch"]
+    results, lat, wall = drive(port, bodies, clients)
+    front = front_since(node, h0)
+    check(front["fast"] == 0 and front["fallback"] == len(bodies),
+          f"every _source: true body went to the fallback: {front}")
+    # the dispatch is counted before a cohort launches, so before its
+    # answers; a refired essential row is dispatched twice
+    served = sum(dispatched_since(fp, d0).values())
+    check(served - (fp.stats["ess_refires"] - r0) == len(bodies),
+          f"every _source: true body was served on the fast path "
+          f"({served} dispatched)")
+    for j, (i, (st, r)) in enumerate(zip(idx, results)):
+        check(st == 200, f"_source body {j} -> {st} {r}")
+        check_answer(r, oracles[i], lanes[i], f"_source body {j}")
+    p50, p99 = p50_p99(lat)
+    return dict(bodies=len(bodies), clients=clients, wall_s=wall,
+                qps=len(bodies) / wall, p50_ms=p50, p99_ms=p99, front=front)
+
+
 def p50_p99(lat_s):
     ms = np.asarray(lat_s) * 1e3
     return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
@@ -898,10 +1084,13 @@ def lane_of(fp, reg, terms, k):
     return fp.route(reg, terms)[0] if fp.fits(reg, terms, k) else "plan"
 
 
-def match_body(terms, k):
+def match_body(terms, k, source=False):
+    """A match body of the reference bench's shape (``_source: false``,
+    bench.py:954), which the C++ front parses; ``source`` True sends it
+    to the fallback workers instead."""
     from elasticsearch_tpu_torch.corpus import term_name
     return {"query": {"match": {"title": " ".join(
-        term_name(t) for t in terms)}}, "size": k}
+        term_name(t) for t in terms)}}, "size": k, "_source": source}
 
 
 def plan_body(terms, k):
@@ -1006,10 +1195,17 @@ def phase_rest_scale(node, port, corpus, queries, clients, k, taken):
     lanes = [lane_of(fp, reg, q, k) for q in queries]
     bodies = [match_body(q, k) for q in queries]
     d0 = fp.serving_stats()["dispatch"]
+    h0 = node.http_stats()
     results, lat, wall = drive(port, bodies, clients)
+    front = front_since(node, h0)
     misfits = sum(1 for st, r in results if st == 400)
     for i, (st, r) in enumerate(results):
         check(st == 200, f"scale query {i} ({lanes[i]}) -> {st} {r}")
+    check(front["fast"] == len(bodies) and front["fallback"] == 0
+          and front["bounced"] - front["bounced_stale"]
+          == lanes.count("plan"),
+          f"the C++ front parsed every body and bounced the plan-path "
+          f"ones alone: {front}")
     disp = dispatched_since(fp, d0)
 
     def served(lane):
@@ -1055,7 +1251,7 @@ def phase_rest_scale(node, port, corpus, queries, clients, k, taken):
                served_v2m=lanes.count("v2m"), served_v1=lanes.count("v1"),
                served_plan=lanes.count("plan"), served_ess=served("ess"),
                distinct_queries=len({tuple(q) for q in queries}),
-               dispatch=disp,
+               dispatch=disp, front=front,
                clients=clients, wall_s=wall, qps=len(queries) / wall,
                p50_ms=pct(None)[0], p99_ms=pct(None)[1],
                **{f"p{q}_ms_{lane}": pct(lane)[j]
@@ -1311,9 +1507,11 @@ def all_threads():
 
 
 def phase_scale_trace(node, port, lanes, bodies, clients, counters):
-    """What the lanes cost each other on the card they share. (a) The
-    scale phase's v2m-served queries alone, untraced: latency and the
-    CUDA-event seconds of their cohorts. (b) All the queries again under
+    """What the lanes cost each other on the card they share, with the
+    load from the C++ load generator (``clients`` connections). (a) The
+    scale phase's v2m-served queries alone, untraced, two rounds to warm
+    and 12 measured: latency and the CUDA-event seconds of their
+    cohorts. (b) All the queries again under
     torch.profiler, each cohort launch of each lane inside a named range,
     so the trace gives each lane's device seconds in the mixed load, and
     the card's idle share."""
@@ -1321,15 +1519,11 @@ def phase_scale_trace(node, port, lanes, bodies, clients, counters):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from elasticsearch_tpu_torch.ops import plan as plan_ops
+    from elasticsearch_tpu_torch.rest.native_http import loadgen
     fp = node.fastpath
     v2m = [b for b, lane in zip(bodies, lanes) if lane == "v2m"]
-    c0, busy0 = fp.stats["cohorts"], fp.timing["device_busy_s"]
-    results, lat, wall = drive(port, v2m, clients)
-    check(all(st == 200 for st, _ in results), "v2m-only run answered")
-    p50, p99 = p50_p99(lat)
-    alone = dict(queries=len(v2m), wall_s=wall, p50_ms=p50, p99_ms=p99,
-                 cohorts=fp.stats["cohorts"] - c0,
-                 device_busy_s=fp.timing["device_busy_s"] - busy0)
+    alone = loadgen_pass(node, port, v2m, ["v2m"] * len(v2m), clients,
+                         reps=12, warmup=2)
 
     orig = plan_ops.plan_topk_batch
 
@@ -1344,21 +1538,25 @@ def phase_scale_trace(node, port, lanes, bodies, clients, counters):
         with lane_launches(counters), profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                 experimental_config=config) as prof:
-            results, lat, wall = drive(port, bodies, clients)
+            res = loadgen(port, "/bench/_search", bodies, clients,
+                          len(bodies))
             torch.cuda.synchronize()
     finally:
         plan_ops.plan_topk_batch = orig
-    check(all(st == 200 for st, _ in results), "traced run answered")
+    check(res["done"] == len(bodies) and res["non2xx"] == 0,
+          f"traced run answered: {res['done']} done, {res['non2xx']} "
+          f"not 2xx")
+    wall = res["wall_s"]
     events = prof.key_averages()
     total_us = sum(self_dev(e) for e in kernel_rows(events))
     names = ("v2m", "v1", "plan")
     ranges = {n: [e for e in events if e.key == f"{n}_cohort"
                   and e.device_type == torch.autograd.DeviceType.CPU]
               for n in names}
-    lane_lat = {n: [t for t, ln in zip(lat, lanes) if ln == n]
-                for n in names}
+    p50, p99 = p50_p99(res["lat_s"])
     mixed = dict(
-        queries=len(bodies), wall_s=wall,
+        queries=len(bodies), wall_s=wall, qps=len(bodies) / wall,
+        p50_ms=p50, p99_ms=p99,
         device_s=total_us / 1e6, idle_share=1.0 - total_us / 1e6 / wall,
         device_s_handwritten=sum(
             self_dev(e) for e in kernel_rows(events)
@@ -1367,8 +1565,6 @@ def phase_scale_trace(node, port, lanes, bodies, clients, counters):
         v2m_device_busy_s=fp.timing["device_busy_s"] - busy0,
         all_threads=config is not None)
     for n in names:
-        mixed[f"p50_ms_{n}"] = (p50_p99(lane_lat[n])[0] if lane_lat[n]
-                                else None)
         mixed[f"device_s_{n}"] = sum(dev_total(e) for e in ranges[n]) / 1e6
         mixed[f"{n}_launches"] = sum(e.count for e in ranges[n])
     for n in ("v2m", "v1"):
@@ -1561,6 +1757,8 @@ def phase_filters(node, port, corpus, queries, k, clients, counters):
           f"path ({served}, {n_plan} bodies)")
     cohorts = fp.stats["cohorts"] - s0["cohorts"]
     p50, p99 = p50_p99(lat)
+    # the same 8 rounds from the C++ load generator
+    load = loadgen_pass(node, port, bodies, lanes, clients, reps=8)
     out = dict(bodies=len(bodies), requests=len(sent), clients=clients,
                filter_pool=[int(t) for t in pool], wall_s=wall,
                qps=len(sent) / wall, p50_ms=p50, p99_ms=p99,
@@ -1577,6 +1775,7 @@ def phase_filters(node, port, corpus, queries, k, clients, counters):
                ess_queries=fp.stats["ess_queries"] - s0["ess_queries"],
                ess_refires=refires,
                launches_per_lane=per_lane, oracle_s=oracle_s,
+               loadgen=load,
                recall_min_fast=min(recall["fast"]),
                recall_min_plan=min(recall["plan"]))
     for lane, d in per_lane.items():
@@ -1612,10 +1811,16 @@ def main(argv=None) -> int:
         from elasticsearch_tpu_torch.ops.bm25_contrib import \
             gather_bm25_contrib
         from elasticsearch_tpu_torch.ops.merge import merge_sorted_slots
+        from elasticsearch_tpu_torch.rest import native_http
     except ImportError as e:
         log(f"chip_smoke: the elasticsearch_tpu_torch package is not "
             f"beside this script ({e})")
         return 2
+    # the fast path's registrations and bounces, with the phases' lines
+    logging.basicConfig(stream=sys.stderr, level=logging.WARNING,
+                        format="[%(name)s] %(message)s")
+    logging.getLogger("elasticsearch_tpu_torch.fastpath").setLevel(
+        logging.INFO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counters = {"gather_bm25_contrib": gather_bm25_contrib,
@@ -1627,6 +1832,11 @@ def main(argv=None) -> int:
     log(f"[build] kernels built and loaded in {time.time() - t0:.2f} s "
         f"into {_build.build_dir()}")
     log(_build.build_log())
+    t0 = time.time()
+    native_http.get_lib()
+    front_build_s = time.time() - t0
+    log(f"[build] the C++ front built and loaded in {front_build_s:.2f} s "
+        f"into {native_http.build_dir()}")
 
     # set-up: the seeded corpus and its query log
     t0 = time.time()
@@ -1643,13 +1853,15 @@ def main(argv=None) -> int:
     try:
         node.create_index("bench", {"properties": {"title":
                                                    {"type": "text"}}})
-        node.indices["bench"].engine.install_segments([seg])
+        # the C++ front and the drain start with nothing to register;
+        # the registration phase installs the corpus as bench's segment
         port = node.start(0)
         st, info = http(port, "GET", "/")
         check(st == 200, "GET /")
 
         # ---- 2. kernels vs twins; the v1 and v2 cohorts vs the CPU
         registration = phase_registration(node, seg)
+        registration["front_build_s"] = front_build_s
         kern = phase_kernels(node, seg, queries, args.iters)
         lane_cohorts = phase_lane_cohorts(node, seg, queries, filt_pool)
         ess_cohorts = phase_essential_cohorts(node, seg, queries)
@@ -1717,6 +1929,13 @@ def main(argv=None) -> int:
         # the θ-warm pass: the same bodies again
         theta_warm = phase_theta_warm(node, port, queries, bodies, oracles,
                                       lanes, args.clients, counters)
+        # the bodies the C++ grammar refuses, through the fallback
+        scale["source_true"] = phase_source_true(
+            node, port, queries, oracles, lanes, args.clients)
+        # throughput and latency from the C++ load generator: cold (θ
+        # emptied) and θ-warm
+        scale["loadgen"] = phase_loadgen(node, port, bodies, lanes,
+                                         args.clients)
         # the trace asks size 999: θ licenses the essential lane only at
         # k = 1000, so it measures the cold lanes (the same launches)
         scale["trace"] = phase_scale_trace(

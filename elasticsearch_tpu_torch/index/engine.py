@@ -5,8 +5,8 @@ Indexed documents buffer in a SegmentWriter until ``refresh`` turns them
 into an immutable Segment; ``force_merge(1)`` folds every segment into
 one, which the v2m serving lane needs (the plan path serves several).
 Re-indexing an id soft-deletes its older copy. Segments that a merge or
-an install retires are handed to ``on_retire`` (the node's device cache
-drops their device copies). This slice keeps the index in memory: the
+an install retires are marked ``retired`` and handed to ``on_retire``
+(the node drops their fast-path registrations and device copies). This slice keeps the index in memory: the
 translog and on-disk segments are later slices.
 """
 
@@ -116,7 +116,11 @@ class Engine:
 
     def _replace(self, segments: List[Segment]) -> None:
         kept = {id(s) for s in segments}
-        retired = [s.name for s in self._segments if id(s) not in kept]
+        retired = []
+        for s in self._segments:
+            if id(s) not in kept:
+                s.retired = True
+                retired.append(s.name)
         self._segments = segments
         if retired and self._on_retire is not None:
             self._on_retire(retired)

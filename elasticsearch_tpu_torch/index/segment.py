@@ -91,6 +91,8 @@ class Segment:
         self.stored = stored
         self.live = live if live is not None else np.ones(n_docs, dtype=bool)
         self.live_version = 0  # bumps on delete; device caches key on it
+        # set by the engine that replaced it (a merge or an install)
+        self.retired = False
         self._id_map: Optional[Dict[str, int]] = None
 
     @property

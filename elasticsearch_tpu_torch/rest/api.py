@@ -28,6 +28,15 @@ shapes, term, terms, constant_score, multi_match, dis_max,
 ``post_filter``, ``from`` > 0, ``size`` up to 10000 and indices of
 several segments. What neither serves is answered with a typed 400,
 never on another device.
+
+Behind the native front (rest/native_http.py) the hot bodies of its one
+registered index, with ``_source: false``, never reach this module: C++
+parses them and the fast path answers them. What reaches ``_search``
+from there is what the C++ grammar refuses (``_source: true``, say),
+which still takes the fast path here when it can, and what the drain
+bounced back (a registration gone stale since C++ parsed it, or more
+blocks than the largest bucket), which goes the same way: the fast
+path when it fits, else the plan path.
 """
 
 from __future__ import annotations

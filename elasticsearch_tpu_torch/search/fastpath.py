@@ -2,13 +2,32 @@
 elasticsearch_tpu/search/fastpath.py `FastPathServer`: its v2m, v1 and
 θ-warm essential lanes, lane routing and filter mask rows).
 
-Request threads put (term ids, filter set, k) on a queue; one drain
-thread takes them in COHORTS, routes each query to a lane, assembles the
-block selection on the host, launches ONE kernel per cohort of up to
-``Q_BATCH`` queries, reads the packed result back once, and re-sorts
-each query's hits into (score desc, docid asc). Continuous batching
-comes from backpressure: while a cohort runs on the device, new
-requests accumulate and drain as a wider cohort.
+Requests come from two sources: the C++ front (rest/native_http.py,
+``attach_front``) parses the hot bodies of its one registered index and
+hands them over as arrays of term ids, and request threads (the
+front's fallback workers, direct callers) put (term ids, filter set, k)
+on a Python queue (``submit``). One drain thread takes both in COHORTS,
+routes each query to a lane (array ops over the whole batch), assembles
+the block selection on the host (``np.repeat``/``cumsum`` over the term
+instances), launches ONE kernel per cohort of up to ``Q_BATCH``
+queries, reads the packed result back once, re-sorts each query's hits
+into (score desc, docid asc) and answers: through ``es_fast_respond``
+for the front's requests, through the waiting thread's event for the
+others. Continuous batching comes from backpressure: while a cohort
+runs on the device, new requests accumulate and drain as a wider
+cohort.
+
+Registration with the front (``register_front``): the node picks the
+index (node.py ``Node.refresh_front``), which the drain has it do about
+once a second and before each batch the front hands over; its term
+dictionary and external ids go to C++ under the registration's
+generation. A front request parsed under another generation is bounced
+to the fallback workers, which dispatch it through REST as any other
+body, as is one that needs more blocks than the largest bucket (the
+plan path serves it). Unlike the reference, a segment with deletes
+stays eligible (the lanes read the live mask from row 0 of the mask
+stack); a new live mask is a new registration and generation.
+``retire`` drops the registrations of retired segments.
 
 Lanes, picked per query (``route``, then ``_route_cohort``); a query
 that needs more blocks than the largest bucket goes to the plan path:
@@ -45,11 +64,12 @@ that raises fails its cohort's requests: none is retried elsewhere.
 
 from __future__ import annotations
 
+import ctypes
 import logging
 import queue
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,7 +90,8 @@ Q_BATCH = 32      # cohort width (one launch shape per bucket)
 # term instances a fast query may have (the C++ front's MAX_TERMS); also
 # the slot count: a bucket's slot width is bucket // N_SLOTS blocks
 MAX_TERMS = N_SLOTS = 16
-MAX_FILTERS = 8   # single-term filters a fast query may carry
+# single-term filters a fast query may carry (the C++ front's MAX_FILTERS)
+MAX_FILTERS = 8
 NB_BUCKETS = (1024, 2048, 4096)    # block buckets, smallest first
 MAX_K = 1000
 # float64 ranking: at 2M docs the float32 representation itself is the
@@ -83,6 +104,12 @@ ESS_BUCKETS = (256, 1024)
 NE_MAX_LEN = 1 << 21
 # θ entries and failed-certificate memos kept per registration
 THETA_MAX = 100_000
+# the longest the drain thread waits in the front's poll; a request put
+# on the Python queue wakes it at once (``submit``)
+POLL_MS = 50
+# seconds between the drain thread's registration checks while no request
+# comes from the front (each batch it hands over is checked first)
+REGISTRATION_CHECK_S = 1.0
 # the hot-term tf table: rows of df >= max(256, ND / 256), hottest first,
 # at most DENSE_MAX_ROWS of them and DENSE_MB of device memory; float16
 # holds every tf up to 2048 exactly
@@ -99,12 +126,15 @@ class SliceUnsupported(Exception):
 
 
 class _Pending:
-    """One query waiting for its cohort."""
+    """One query waiting for its cohort: a request of the C++ front
+    (``token`` set; answered through the front) or of a Python thread
+    (waiting on ``done``)."""
 
     __slots__ = ("reg", "term_ids", "filt", "k", "lane", "bucket", "ess",
-                 "done", "result", "error")
+                 "done", "result", "error", "token", "t0")
 
-    def __init__(self, reg, term_ids, filt, k, lane, bucket):
+    def __init__(self, reg, term_ids, filt, k, lane, bucket, token=None,
+                 t0=0.0):
         self.reg = reg
         self.term_ids = term_ids
         self.filt = filt
@@ -112,9 +142,41 @@ class _Pending:
         self.lane = lane
         self.bucket = bucket
         self.ess = None         # the essential split (_essential_split)
-        self.done = threading.Event()
+        self.token = token
+        self.t0 = t0            # when the drain took it (front requests)
+        self.done = threading.Event() if token is None else None
         self.result: Optional[Tuple[np.ndarray, np.ndarray, int]] = None
         self.error: Optional[BaseException] = None
+
+
+class PollBuffers:
+    """The arrays the front's ``es_fast_poll`` fills for the drain: for
+    up to ``max_n`` requests their tokens, registration generations,
+    sizes k, term counts, term ids [max_n, MAX_TERMS] (-1: a term the
+    dictionary lacks; entries past the count are 0), filter counts and
+    filter term ids [max_n, MAX_FILTERS]; ``args``, their pointers in the
+    call's order."""
+
+    def __init__(self, max_n: int):
+        self.max_n = max_n
+        self.tokens = np.zeros(max_n, np.uint64)
+        self.gens = np.zeros(max_n, np.int32)
+        self.ks = np.zeros(max_n, np.int32)
+        self.nterms = np.zeros(max_n, np.int32)
+        self.tids = np.zeros((max_n, MAX_TERMS), np.int32)
+        self.nfilt = np.zeros(max_n, np.int32)
+        self.ftids = np.zeros((max_n, MAX_FILTERS), np.int32)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        self.args = (
+            self.tokens.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            *(a.ctypes.data_as(i32p) for a in (
+                self.gens, self.ks, self.nterms, self.tids, self.nfilt,
+                self.ftids)))
+
+
+# lane codes of ``FastPathServer.route_rows``
+LANE_NONE, LANE_EMPTY, LANE_V2M, LANE_V1 = range(4)
+_LANES = {LANE_EMPTY: "empty", LANE_V2M: "v2m", LANE_V1: "v1"}
 
 
 class FastPathServer:
@@ -129,6 +191,17 @@ class FastPathServer:
         self._reg_lock = threading.Lock()
         self._regs: Dict[str, dict] = {}
         self._gen = 0
+        # the C++ front (attach_front), the callback that keeps its
+        # registration current, and the registration it holds.
+        # _front_lock orders a change of that registration against the
+        # drain's batches: the front serializes a response with the
+        # registration it holds, so none may change between a batch's
+        # generation check and its answers. Lock order: _front_lock, then
+        # _reg_lock.
+        self._front = None
+        self._refresh_front: Optional[Callable[[], None]] = None
+        self._front_lock = threading.Lock()
+        self._front_reg: Optional[dict] = None
         self.stats = {"cohorts": 0, "fast_queries": 0, "cohorts_v2m": 0,
                       "cohorts_v1": 0, "cohorts_ess": 0,
                       "cohorts_failed": 0,
@@ -141,7 +214,16 @@ class FastPathServer:
                       # passed every other condition but kept a
                       # non-essential term without a hot-term row
                       "ess_queries": 0, "ess_refires": 0,
-                      "ess_no_dense": 0}
+                      "ess_no_dense": 0,
+                      # front requests taken from C++, and those sent
+                      # back to the fallback workers: all of them, and
+                      # those parsed under another registration than the
+                      # front's (the rest need more blocks than the
+                      # largest bucket)
+                      "front_queries": 0, "bounced": 0, "bounced_stale": 0,
+                      # C++ registrations made (their seconds: the
+                      # timing's front_register_s)
+                      "front_registrations": 0}
         # per lane:bucket dispatch counts, the cohort-width histogram
         # (powers of two) and the pad rows of the Q_BATCH-row launches
         self.dispatch: Dict[str, int] = {}
@@ -153,8 +235,11 @@ class FastPathServer:
         # the unpack + re-sort of the readback; on CUDA also the device
         # seconds from a cohort's first upload to its last kernel (CUDA
         # events), so gaps inside one cohort's launches count as busy
+        # ``front_register_s``: the C++ registrations' seconds, the
+        # dictionary and id lists laid out and copied into C++
         self.timing = {"assemble_s": 0.0, "device_s": 0.0,
-                       "finish_s": 0.0, "device_busy_s": 0.0}
+                       "finish_s": 0.0, "device_busy_s": 0.0,
+                       "front_register_s": 0.0}
         self._stats_lock = threading.Lock()
 
     # ------------------------------------------------------------ lifecycle
@@ -167,6 +252,17 @@ class FastPathServer:
         self._drain_thread = threading.Thread(
             target=self._drain_loop, name="fastpath-drain", daemon=True)
         self._drain_thread.start()
+
+    def attach_front(self, front, refresh: Callable[[], None]):
+        """Drain the C++ ``front`` (rest/native_http.py NativeHttpFront)
+        too. ``refresh`` keeps the front's registration current (node.py
+        ``Node.refresh_front``: it picks the index and calls
+        ``register_front`` or ``unregister_front``); the drain calls it
+        about once a second and before each batch the front hands over.
+        The front stops this server before it frees itself."""
+        self._front = front
+        self._refresh_front = refresh
+        front.fastpath = self
 
     def stop(self, timeout: float = 5.0) -> bool:
         """Stop the drain thread; queued requests fail. True when the
@@ -184,6 +280,10 @@ class FastPathServer:
                 break
             p.error = RuntimeError("fast path stopped")
             p.done.set()
+        with self._front_lock:
+            self._front = None
+            self._refresh_front = None
+            self._front_reg = None
         return clean
 
     # --------------------------------------------------------- telemetry
@@ -222,6 +322,10 @@ class FastPathServer:
                 "ess_buckets": list(ESS_BUCKETS),
                 "counters": dict(self.stats),
             }
+
+    def front_registration(self) -> Optional[dict]:
+        """The registration the C++ front holds, or None."""
+        return self._front_reg
 
     def engine_cache_stats(self) -> dict:
         """The θ cache: admission hits and misses, θ stored, and the
@@ -272,6 +376,7 @@ class FastPathServer:
                 "maxc": maxc,
                 "dense_tf": dense_tf,
                 "dense_rows": dense_rows,
+                "dense_row_of": _row_of(dense_rows, len(dp.host.terms)),
                 # (term ids, filter set, k) -> (θ, exact total), and the
                 # keys whose certificate failed; both valid for this
                 # registration's immutable segment and live mask only
@@ -288,43 +393,115 @@ class FastPathServer:
                         index, field, len(dp.host.terms))
             return reg
 
+    def retire(self, names) -> None:
+        """Drop every registration whose segment is among the retired
+        segment ``names``; when the front holds one, unregister it there
+        (the next fast request on that index registers afresh, and the
+        next ``register_front`` registers it with the front again)."""
+        names = set(names)
+        with self._front_lock:
+            with self._reg_lock:
+                for index, reg in list(self._regs.items()):
+                    if reg["segment"].name in names:
+                        del self._regs[index]
+                front_reg = self._front_reg
+                if (front_reg is not None
+                        and front_reg["segment"].name in names):
+                    self._front_reg = None
+                    self._front.unregister()
+
+    def register_front(self, index: str, segment, field: str, k1: float,
+                       b: float) -> None:
+        """Make ``field`` of ``index``'s single ``segment`` the front's
+        fast index: its registration (``register``) goes to C++ under the
+        registration's generation, unless the front holds it already. A
+        segment its engine retired meanwhile (``Segment.retired``; its
+        ``retire`` waits for this call) is not registered."""
+        with self._front_lock:
+            front = self._front
+            if front is None or segment.retired:
+                return
+            reg = self.register(index, segment, field, k1, b)
+            if reg is self._front_reg:
+                return
+            t0 = time.perf_counter()
+            front.register(reg["gen"], index, field, reg["dp"].host.terms,
+                           segment.stored.ids, 10, MAX_K)
+            self._front_reg = reg
+            with self._stats_lock:
+                self.stats["front_registrations"] += 1
+                self.timing["front_register_s"] += time.perf_counter() - t0
+            logger.info("fastpath front registered index=%s gen=%d",
+                        index, reg["gen"])
+
+    def unregister_front(self) -> None:
+        """Leave the front no fast index: every body goes to its
+        fallback workers."""
+        with self._front_lock:
+            if self._front is not None and self._front_reg is not None:
+                self._front.unregister()
+                self._front_reg = None
+
     # -------------------------------------------------------------- routing
-    def _v2_bucket(self, reg, term_ids) -> Optional[int]:
-        """Smallest bucket whose slot layout fits: each term INSTANCE
-        starts on a slot boundary (slot = bucket // N_SLOTS blocks), so
-        the fit condition is sum(ceil(blocks_t / slot)) <= N_SLOTS."""
-        nbs = reg["nb"]
-        cnts = [int(nbs[t]) for t in term_ids if t >= 0]
-        if not cnts or len(cnts) > N_SLOTS:
-            return None
-        for bucket in NB_BUCKETS:
+    @staticmethod
+    def _block_counts(reg, tids: np.ndarray):
+        """(blocks per term instance [n, W], 0 for -1, and known terms
+        per row [n]) of term id rows ``tids`` [n, W] (-1: no term)."""
+        known = tids >= 0
+        cnt = np.zeros(tids.shape, np.int64)
+        cnt[known] = reg["nb"][tids[known]]
+        return cnt, known.sum(1)
+
+    @staticmethod
+    def _slot_buckets(cnt: np.ndarray, nknown: np.ndarray) -> np.ndarray:
+        """Per row, the smallest bucket whose slot layout fits, 0 for
+        none: each term INSTANCE starts on a slot boundary (slot =
+        bucket // N_SLOTS blocks), so the fit condition is
+        sum(ceil(blocks_t / slot)) <= N_SLOTS."""
+        out = np.zeros(len(cnt), np.int64)
+        ok = (nknown > 0) & (nknown <= N_SLOTS)
+        for bucket in NB_BUCKETS[::-1]:
             slot = bucket // N_SLOTS
             if slot == 0:
                 continue
-            if sum(-(-c // slot) for c in cnts) <= N_SLOTS:
-                return bucket
-        return None
+            out[ok & ((-(-cnt // slot)).sum(1) <= N_SLOTS)] = bucket
+        return out
 
-    def route(self, reg, term_ids: List[int]):
-        """(lane, bucket) for ``term_ids``: ("empty", None) when no term
-        is known (an empty answer, no device work); v2m at the smallest
-        bucket whose slot layout fits; else v1 at the largest bucket (its
-        one launched shape); None when the blocks need more than the
-        largest bucket or the query has more than MAX_TERMS known terms
-        (the plan path serves it). A repeat may still ride the essential
+    def _v2_bucket(self, reg, term_ids) -> Optional[int]:
+        """``_slot_buckets`` of one query, None for no fit."""
+        cnt, nknown = self._block_counts(reg, _term_rows([term_ids]))
+        return int(self._slot_buckets(cnt, nknown)[0]) or None
+
+    def route_rows(self, reg, tids: np.ndarray):
+        """(lane codes [n], buckets [n]) of a batch of queries, term id
+        rows ``tids`` [n, W] (-1: unknown term or padding), as array ops
+        over the batch: LANE_EMPTY when no term is known (an empty
+        answer, no device work); LANE_V2M at the smallest bucket whose
+        slot layout fits; else LANE_V1 at the largest bucket (its one
+        launched shape); LANE_NONE (bucket 0) when the blocks need more
+        than the largest bucket or a row has more than MAX_TERMS known
+        terms (the plan path serves it)."""
+        cnt, nknown = self._block_counts(reg, tids)
+        v2 = self._slot_buckets(cnt, nknown)
+        lane = np.where(v2 > 0, LANE_V2M, LANE_V1)
+        lane[(nknown > MAX_TERMS) | (cnt.sum(1) > NB_BUCKETS[-1])] = \
+            LANE_NONE
+        lane[nknown == 0] = LANE_EMPTY
+        bucket = np.where(lane == LANE_V2M, v2,
+                          np.where(lane == LANE_V1, NB_BUCKETS[-1], 0))
+        return lane, bucket
+
+    def route(self, reg, term_ids: Sequence[int]):
+        """(lane, bucket) for one query's ``term_ids`` (``route_rows``):
+        ("empty", None), ("v2m", bucket), ("v1", largest bucket), or
+        None (the plan path). A repeat may still ride the essential
         lane: the drain thread decides that (``_essential_split``)."""
-        known = [t for t in term_ids if t >= 0]
-        if not known:
+        lane, bucket = self.route_rows(reg, _term_rows([term_ids]))
+        if lane[0] == LANE_NONE:
+            return None
+        if lane[0] == LANE_EMPTY:
             return ("empty", None)
-        if len(known) > MAX_TERMS:
-            return None
-        need = int(reg["nb"][known].sum())
-        if need > NB_BUCKETS[-1]:
-            return None
-        b2 = self._v2_bucket(reg, known)
-        if b2 is not None:
-            return ("v2m", b2)
-        return ("v1", NB_BUCKETS[-1])
+        return (_LANES[int(lane[0])], int(bucket[0]))
 
     def fits(self, reg, term_ids: List[int], k: int) -> bool:
         """True when a fast lane serves (term_ids, k)."""
@@ -421,6 +598,9 @@ class FastPathServer:
             p.done.set()
             return p
         self._queue.put(p)
+        front = self._front
+        if front is not None:
+            front.wake()        # the drain may be waiting in the poll
         return p
 
     def search(self, reg, term_ids: List[int], k: int,
@@ -439,33 +619,132 @@ class FastPathServer:
         # drain deep: grouping by lane and bucket before chunking to
         # Q_BATCH fragments a shallow poll across the bucket ladder
         max_n = 8 * Q_BATCH
+        bufs = None
+        last_check = 0.0
         while self._running:
-            try:
-                first = self._queue.get(timeout=0.05)
-            except queue.Empty:
-                continue
-            batch = [first]
-            while len(batch) < max_n:
+            front = self._front
+            if front is None:
                 try:
-                    batch.append(self._queue.get_nowait())
+                    first = self._queue.get(timeout=0.05)
                 except queue.Empty:
-                    break
-            by_gen: Dict[int, List[_Pending]] = {}
-            for p in batch:
-                by_gen.setdefault(p.reg["gen"], []).append(p)
-            for items in by_gen.values():
-                try:
-                    self._route_cohort(items)
-                except Exception as e:  # the drain thread must never die
-                    logger.exception("fastpath routing failed")
-                    self._fail(items, e)
+                    continue
+                self._serve(self._take_queued([first], max_n))
+                continue
+            if bufs is None:
+                bufs = PollBuffers(max_n)
+            n = front.poll(bufs, POLL_MS)
+            now = time.monotonic()
+            if n or now - last_check > REGISTRATION_CHECK_S:
+                last_check = now
+                self._refresh_logged()
+            with self._front_lock:
+                batch = self._take_queued([], max_n)
+                if n:
+                    try:
+                        batch += self._from_front(bufs, n)
+                    except Exception as e:  # the drain must never die
+                        logger.exception("fastpath front batch failed")
+                        self._fail([_Pending(None, (), (), 0, None, None,
+                                             tok)
+                                    for tok in bufs.tokens[:n].tolist()],
+                                   e)
+                self._serve(batch)
 
-    @staticmethod
-    def _fail(items: List[_Pending], e: BaseException):
+    def _refresh_logged(self):
+        try:
+            self._refresh_front()
+        except Exception:   # the drain thread must never die
+            logger.exception("fastpath front registration failed")
+
+    def _take_queued(self, batch: List[_Pending], max_n: int):
+        while len(batch) < max_n:
+            try:
+                batch.append(self._queue.get_nowait())
+            except queue.Empty:
+                break
+        return batch
+
+    def _serve(self, batch: List[_Pending]):
+        by_gen: Dict[int, List[_Pending]] = {}
+        for p in batch:
+            by_gen.setdefault(p.reg["gen"], []).append(p)
+        for items in by_gen.values():
+            try:
+                self._route_cohort(items)
+            except Exception as e:  # the drain thread must never die
+                logger.exception("fastpath routing failed")
+                self._fail(items, e)
+
+    def _from_front(self, bufs, n: int) -> List[_Pending]:
+        """The ``n`` requests of ``bufs`` (``es_fast_poll``), routed as
+        one batch (``route_rows``). Those parsed under another
+        generation than the registration's, and those no lane serves,
+        are bounced to the fallback workers (REST dispatches them as any
+        other body); those with no known term are answered empty at once. Runs under
+        ``_front_lock``."""
+        front, reg = self._front, self._front_reg
+        t0 = time.perf_counter()
+        tokens = bufs.tokens[:n].tolist()
+        nterms = bufs.nterms[:n]
+        tids = np.where(np.arange(MAX_TERMS) < nterms[:, None],
+                        bufs.tids[:n], -1)
+        if reg is None:
+            stale = np.ones(n, bool)
+            lanes = buckets = np.full(n, LANE_NONE)
+        else:
+            stale = bufs.gens[:n] != reg["gen"]
+            lanes, buckets = self.route_rows(reg, tids)
+            lanes[stale] = LANE_NONE
+        if stale.any():
+            logger.info("fastpath: %d front request(s) parsed under "
+                        "generation(s) %s, the front's registration is %s: "
+                        "bounced", int(stale.sum()),
+                        sorted(set(bufs.gens[:n][stale].tolist())),
+                        None if reg is None else reg["gen"])
+        # counted before any answer can reach a client
+        self._count(front_queries=n,
+                    bounced=int((lanes == LANE_NONE).sum()),
+                    bounced_stale=int(stale.sum()))
+        rows, nts = tids.tolist(), nterms.tolist()
+        ks, nfilt = bufs.ks[:n].tolist(), bufs.nfilt[:n].tolist()
+        items = []
+        for i, (tok, lane) in enumerate(zip(tokens, lanes.tolist())):
+            if lane == LANE_NONE:
+                front.bounce(tok)
+            elif lane == LANE_EMPTY:
+                front.respond(tok, reg["index"].encode(), _NO_IDS,
+                              _NO_SCORES, 0,
+                              int((time.perf_counter() - t0) * 1e3))
+            else:
+                filt = (tuple(sorted(bufs.ftids[i, :nfilt[i]].tolist()))
+                        if nfilt[i] else ())
+                items.append(_Pending(reg, tuple(rows[i][:nts[i]]), filt,
+                                      ks[i], _LANES[lane], int(buckets[i]),
+                                      tok, t0))
+        return items
+
+    def _answered(self, p: _Pending):
+        """Hand ``p`` its result or error: through the front for a front
+        request, else by waking its thread."""
+        if p.token is None:
+            p.done.set()
+        elif p.error is not None:
+            self._front.respond_error(p.token, 500, {"error": {
+                "type": "exception",
+                "reason": f"{type(p.error).__name__}: {p.error}"},
+                "status": 500})
+        else:
+            v, d, total = p.result
+            self._front.respond(
+                p.token, p.reg["index"].encode(), np.ascontiguousarray(d),
+                np.ascontiguousarray(v, np.float32), total,
+                int((time.perf_counter() - p.t0) * 1e3))
+
+    def _fail(self, items: List[_Pending], e: BaseException):
         for p in items:
-            if not p.done.is_set():
+            if p.result is None and p.error is None:
                 p.error = e
-                p.done.set()
+                self._answered(p)
 
     def _route_cohort(self, items: List[_Pending]):
         """Launch one registration's drained queries: a repeat that a
@@ -595,29 +874,41 @@ class FastPathServer:
             self._count(cohorts_failed=1)
             self._fail(items, e)
 
-    def assemble_cohort(self, reg, bucket: int, queries: List[List[int]],
+    def assemble_cohort(self, reg, bucket: int, queries,
                         slotted: bool = True):
         """Host-side block selection of one cohort, padded to
         ``Q_BATCH`` rows: sel int32 [Q, bucket] and ws float64 [Q,
         bucket], each term instance starting on a slot boundary when
         ``slotted`` (v2m), back to back otherwise (v1, and the essential
-        terms of the ess lane). Unknown terms (-1) skip."""
+        terms of the ess lane). Unknown terms (-1) skip. ``queries``:
+        term id sequences, or their rows [n, W] padded with -1. Array
+        ops over every term instance of the cohort: an instance's first
+        column is the running sum of the spans before it in its row (its
+        block count, rounded up to whole slots when ``slotted``), and
+        its blocks are laid out by ``np.repeat``."""
         dp = reg["dp"]
-        slot = bucket // N_SLOTS
         sel = np.full((Q_BATCH, bucket), dp.zero_block, np.int32)
         ws = np.zeros((Q_BATCH, bucket), np.float64)
-        starts, nbs, idf = reg["starts"], reg["nb"], reg["idf"]
-        for qi, term_ids in enumerate(queries):
-            pos = 0
-            for t in term_ids:
-                if t < 0:
-                    continue
-                cnt = int(nbs[t])
-                s = int(starts[t])
-                sel[qi, pos:pos + cnt] = np.arange(s, s + cnt,
-                                                   dtype=np.int32)
-                ws[qi, pos:pos + cnt] = idf[t]
-                pos += -(-cnt // slot) * slot if slotted else cnt
+        tids = _term_rows(queries)
+        qi, ji = np.nonzero(tids >= 0)
+        if len(qi) == 0:
+            return sel, ws
+        t = tids[qi, ji]
+        cnt = reg["nb"][t]
+        if slotted:
+            slot = bucket // N_SLOTS
+            span = -(-cnt // slot) * slot
+        else:
+            span = cnt
+        before = np.cumsum(span) - span
+        first = np.flatnonzero(np.r_[True, qi[1:] != qi[:-1]])
+        col0 = before - np.repeat(before[first],
+                                  np.diff(np.r_[first, len(qi)]))
+        inst = np.repeat(np.arange(len(t)), cnt)
+        within = np.arange(len(inst)) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+        r, c = qi[inst], col0[inst] + within
+        sel[r, c] = reg["starts"][t][inst] + within
+        ws[r, c] = reg["idf"][t][inst]
         return sel, ws
 
     def assemble_essential(self, reg, bucket: int, splits):
@@ -631,12 +922,12 @@ class FastPathServer:
         ne_row = np.full((Q_BATCH, NE_SLOTS), -1, np.int32)
         ne_idf = np.zeros((Q_BATCH, NE_SLOTS), np.float64)
         ne_bound = np.zeros(Q_BATCH, np.float64)
-        rows = reg["dense_rows"]
-        for qi, (_b, _ess, ne, bound, _theta, _total) in enumerate(splits):
-            for i, t in enumerate(ne):
-                ne_row[qi, i] = rows[t]
-                ne_idf[qi, i] = reg["idf"][t]
-            ne_bound[qi] = bound
+        ne = _term_rows([s[2] for s in splits])
+        qi, ji = np.nonzero(ne >= 0)
+        t = ne[qi, ji]
+        ne_row[qi, ji] = reg["dense_row_of"][t]
+        ne_idf[qi, ji] = reg["idf"][t]
+        ne_bound[:len(splits)] = [s[3] for s in splits]
         return sel, ws, ne_row, ne_idf, ne_bound
 
     def _launch_cohort(self, lane: str, reg, bucket: int,
@@ -749,7 +1040,7 @@ class FastPathServer:
         if stores:
             self._count(theta_stores=stores)
         for p in items:
-            p.done.set()
+            self._answered(p)
 
     def _finish_essential(self, reg, items: List[_Pending], out,
                           nomatch: List[int]):
@@ -785,8 +1076,32 @@ class FastPathServer:
         for lane in ("v2m", "v1"):
             self._launch_groups(reg, lane, groups.get(lane, {}))
 
+
+_NO_IDS = np.zeros(0, np.int32)
+_NO_SCORES = np.zeros(0, np.float32)
+
+
 def _empty_result():
-    return (np.zeros(0, np.float32), np.zeros(0, np.int32), 0)
+    return (_NO_SCORES, _NO_IDS, 0)
+
+
+def _term_rows(queries) -> np.ndarray:
+    """Term id sequences as rows [n, W] padded with -1 (an array of
+    rows passes through)."""
+    if isinstance(queries, np.ndarray):
+        return queries
+    width = max(map(len, queries), default=0)
+    rows = np.full((len(queries), width), -1, np.int64)
+    for i, q in enumerate(queries):
+        rows[i, :len(q)] = q
+    return rows
+
+
+def _row_of(dense_rows: Dict[int, int], n_terms: int) -> np.ndarray:
+    """The hot-term table's row per term id, -1 for a term it lacks."""
+    row_of = np.full(n_terms, -1, np.int32)
+    row_of[list(dense_rows)] = list(dense_rows.values())
+    return row_of
 
 
 def _term_bounds(dp, k1: float, b: float):

@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of elasticsearch_tpu_torch
 loads neither ``jax`` nor any module of the reference package, no source
-file of the port (nor chip_smoke.py) imports them, and without CUDA an
-entry point that is not told ``device="cpu"`` raises."""
+file of the port (nor chip_smoke.py) imports them, no source of the port
+names the reference's native directory, its HTTP front maps the library
+built from its own sources (never the reference's libestpu_http.so), and
+without CUDA an entry point that is not told ``device="cpu"`` raises."""
 
 import ast
 import json
@@ -41,6 +43,8 @@ def test_importing_every_module_loads_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "elasticsearch_tpu_torch.search.fastpath" in res["modules"]
     assert "elasticsearch_tpu_torch.ops._build" in res["modules"]
+    assert ("elasticsearch_tpu_torch.rest.native_http"
+            in res["modules"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
 
@@ -59,6 +63,46 @@ def test_no_source_imports_jax_or_the_reference():
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if _forbidden(name)]
     assert bad == []
+
+
+def test_no_source_names_the_reference_native_dir():
+    """The port's front is built from its own sources only: no Python,
+    C++ or header file of the port points into the reference package's
+    native directory (its sources or its prebuilt libraries)."""
+    files = [f for f in sorted(PKG.rglob("*"))
+             if f.suffix in (".py", ".cpp", ".h", ".cu", ".cuh")]
+    assert {f.suffix for f in files} >= {".py", ".cpp", ".h", ".cu"}
+    bad = [str(f.relative_to(ROOT)) for f in files
+           if "elasticsearch_tpu/native" in f.read_text()
+           or "elasticsearch_tpu.native" in f.read_text()]
+    assert bad == []
+
+
+def test_front_loads_the_ports_own_library():
+    """A port node serving through its native front maps the library
+    built under elasticsearch_tpu_torch/_build/ and never the reference's
+    libestpu_http.so (checked in a fresh process)."""
+    code = (
+        "import json\n"
+        "from elasticsearch_tpu_torch.node import Node\n"
+        "from elasticsearch_tpu_torch.rest import native_http\n"
+        "node = Node(device='cpu')\n"
+        "node.start(0)\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "node.close()\n"
+        "print(json.dumps({'maps': [l.split()[-1] for l in "
+        "maps.splitlines() if 'estpu' in l], "
+        "'build': str(native_http.build_dir())}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    libs = set(res["maps"])
+    assert libs == {str(pathlib.Path(res["build"]) / "libestpu_http.so")}
+    assert str(PKG / "_build") in res["build"]
+    assert not any("elasticsearch_tpu/native" in m for m in libs)
 
 
 @pytest.fixture
