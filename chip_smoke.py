@@ -30,11 +30,12 @@ Phases (any failure exits non-zero; no exception is swallowed):
               HTTP, then bool+filter bodies (one to eight filters, an unknown filter
               term) on a fast lane; ids, order and totals equal the float64
               oracle. Then the plan path over HTTP on an index of two
-              segments with a keyword field: the reference's plan test
-              bodies (bool, term, terms, constant_score, multi_match,
-              dis_max, match options), a post_filter, a from > 0 and a size
-              above 1000, each equal to the port's own CPU execution on the
-              same segments; the bodies with a range clause are typed 400s
+              segments with a keyword and a long field: the reference's
+              plan test bodies (bool, term, terms, constant_score,
+              multi_match, dis_max, match options, range clauses as dense
+              factors), a post_filter, a from > 0 and a size above 1000,
+              each equal to the port's own CPU execution on the same
+              segments
   4. scale    the seeded 2M-doc corpus installed as the index's one segment;
               (registered with the C++ front, timed) concurrent size:1000
               match queries over HTTP from Python clients, each parsed by
@@ -75,9 +76,27 @@ Phases (any failure exits non-zero; no exception is swallowed):
               misfits, and an index of the corpus as time-ordered logs
               around an incident, where pruning must engage): the hits of
               the exact ask, which holds the oracle; the binds that pruned
-  5. report   the scale, lanes, theta_warm, prune, filters, plan and
-              kernels JSON lines, the card's name and power limit, and the
-              last line {"ok": true, "device": {...}}
+  5. dense    the logs index with access-log columns (corpus.py
+              logs_columns: @timestamp over 24 h in docid order, status,
+              bytes) and the dense mix over HTTP after Rally's http_logs
+              operations: 1-hour ranges, Kibana Discover's filtered
+              @timestamp desc sort (size 500), asc_sort_timestamp and 5
+              pages of desc_sort_with_after_timestamp, a term on status
+              under an incident match (a dense factor on the plan path),
+              64 match + range bodies, exists, a must_not-only bool,
+              boosting, dis_max with a range child, ids, match_all sorted
+              by bytes, min_score. No body refused; each answer held to a
+              float64 oracle under the reference's float32 column
+              semantics and at least 16 to the port's CPU execution at full
+              size; the contribution kernel launches on the dense path.
+              Then timed from Python clients (p50/p99 per kind, qps), the
+              dense executor's stages (score, mask, masked_topk, readback),
+              the plan path beside the dense executor on the match + range
+              bodies, the float32 gap (f32_gap) and the contribution kernel
+              against its twin at the dense shape (Q = 1)
+  6. report   the scale, lanes, theta_warm, prune, dense, filters, plan
+              and kernels JSON lines, the card's name and power limit, and
+              the last line {"ok": true, "device": {...}}
 
 Needs one CUDA card, and the repository around it.
 """
@@ -837,7 +856,8 @@ def hits_match_cpu(r, res, segments, lo, what):
 
 def phase_plan_small(node, port, seed):
     """The plan path over HTTP on a two-segment index (title, body text;
-    tag keyword), each answer held against the port's CPU execution."""
+    tag keyword; views long), each answer held against the port's CPU
+    execution."""
     from elasticsearch_tpu_torch.corpus import (PLAN_CASES, PLAN_MAPPINGS,
                                                 plan_doc)
     from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
@@ -863,8 +883,10 @@ def phase_plan_small(node, port, seed):
                         svc.k1, svc.b)
     batcher = node.search_service.plan_batcher
     launches0 = batcher.launches
-    bodies = [{"query": c, "size": 50} for c in PLAN_CASES
-              if "range" not in json.dumps(c)]
+    # the range cases put a dense factor into the plan launch, which
+    # launches alone (no PlanBatcher cohort)
+    bodies = [{"query": c, "size": 50} for c in PLAN_CASES]
+    n_dense = sum("range" in json.dumps(c) for c in PLAN_CASES)
     bodies += [
         {"query": {"match": {"body": "wolf fox"}},
          "post_filter": {"term": {"tag": "red"}}, "size": 100},
@@ -881,18 +903,10 @@ def phase_plan_small(node, port, seed):
                               None if pf is None else parse_query(pf))
         check(res.total_hits > 0, f"plan body {i} matches")
         hits_match_cpu(r, res, segments, lo, f"plan body {i}")
-    n_typed = 0
-    for c in PLAN_CASES:
-        if "range" in json.dumps(c):
-            st, r = http(port, "POST", "/plan/_search", {"query": c})
-            check(st == 400 and r["error"]["type"]
-                  == "unsupported_in_slice_exception",
-                  f"a range clause is a typed 400 ({st})")
-            n_typed += 1
     out = dict(docs=n_docs, segments=len(segments), bodies=len(bodies),
-               typed_400=n_typed,
+               dense_factor_bodies=n_dense,
                plan_launches=batcher.launches - launches0)
-    check(out["plan_launches"] >= len(bodies), "plan launches")
+    check(out["plan_launches"] >= len(bodies) - n_dense, "plan launches")
     log(f"[plan-small] {out}: every answer equal to the CPU execution")
     return out, bodies
 
@@ -1786,6 +1800,512 @@ def phase_filters(node, port, corpus, queries, k, clients, counters):
     return out
 
 
+# ---------------------------------------------------------------- phase 5
+F32_MAX = float(np.finfo(np.float32).max)
+
+
+def iso_ms(ms: int) -> str:
+    """Epoch milliseconds as an ISO-8601 UTC date with milliseconds."""
+    import datetime as dt
+    t = dt.datetime.fromtimestamp(int(ms) // 1000, tz=dt.timezone.utc)
+    return t.strftime("%Y-%m-%dT%H:%M:%S.") + f"{int(ms) % 1000:03d}Z"
+
+
+class LogsOracle:
+    """float64 numpy answers on the logs index under the reference's
+    float32 column semantics: a bound or a search_after value rounds to
+    float32 and compares with the float32 column; a field sort picks its
+    k winners by the float32 key (missing last, the lowest docid winning
+    a tie), and the page orders them by the float64 values (then docid).
+    Also the same answers on exact int64 milliseconds, for the gap."""
+
+    def __init__(self, corpus, cols):
+        self.corpus = corpus
+        self.n = len(corpus["lens"])
+        self.ts = cols["@timestamp"]["values"]
+        self.ts_ms = self.ts.astype(np.int64)
+        self.cols = {f: c["values"] for f, c in cols.items()}
+
+    def col32(self, field):
+        v = self.cols[field]
+        return np.nan_to_num(v).astype(np.float32), np.isnan(v)
+
+    def range_mask(self, field, gte=None, lt=None, lte=None, exact=False):
+        """Docs whose value passes the bounds (in the column's unit)."""
+        if exact:
+            v, miss = self.cols[field], np.isnan(self.cols[field])
+        else:
+            v, miss = self.col32(field)
+
+        def b(x):
+            return x if exact else np.float32(x)
+        m = ~miss
+        if gte is not None:
+            m &= v >= b(gte)
+        if lt is not None:
+            m &= v < b(lt)
+        if lte is not None:
+            m &= v <= b(lte)
+        return m
+
+    def sorted_page(self, mask, field, order, k, after=None, exact=False):
+        """(page docids, total) of a field-sorted ask: total counts
+        before the cursor; with ``exact`` every compare is float64."""
+        total = int(mask.sum())
+        v64 = self.cols[field]
+        miss = np.isnan(v64)
+        v = v64 if exact else self.col32(field)[0]
+        if after is not None:
+            a = after if exact else np.float32(after)
+            mask = mask & ~miss & ((v > a) if order == "asc" else (v < a))
+        cand = np.nonzero(mask)[0]
+        fill = F32_MAX if order == "asc" else -F32_MAX
+        key = np.where(miss[cand], fill, v[cand]).astype(np.float64)
+        key = -key if order == "asc" else key
+        win = cand[np.lexsort((cand, -key))[:k]]
+        # the page: by the float64 value (missing last), then docid
+        val = v64[win]
+        sgn = 1.0 if order == "asc" else -1.0
+        page = win[np.lexsort((win, sgn * np.nan_to_num(val),
+                               np.isnan(val)))]
+        return page, total
+
+    def bm25(self, text):
+        from elasticsearch_tpu_torch.corpus import dense_scores
+        terms = [int(t[1:]) for t in text.split()]
+        return dense_scores(self.corpus, terms)
+
+
+def oracle_topk(scores, mask, k):
+    """(truth, scores, total) of ``scores`` over ``mask``: the top k by
+    (score desc, docid asc), as check_answer takes them."""
+    docs = np.nonzero(mask)[0]
+    order = docs[np.lexsort((docs, -scores[docs]))][:k]
+    return order, scores[order], len(docs)
+
+
+def gap_score(scores, mask):
+    """A min_score that sits in a gap of the float64 scores (relative
+    gap > 1e-4), so float32 and float64 agree on every doc's side."""
+    v = np.unique(scores[mask])[::-1]
+    for i in range(len(v) // 20, len(v) - 1):
+        if v[i] - v[i + 1] > 1e-4 * v[i]:
+            return float((v[i] + v[i + 1]) / 2)
+    raise RuntimeError("no gap in the scores for a min_score")
+
+
+def dense_bodies(oracle, n_base, queries, seed):
+    """The dense mix on the logs index, after Rally's http_logs
+    operations and Kibana Discover: [(kind, body, expected)], where
+    ``expected`` is ("page", ids, total, score) for a constant-score or
+    field-sorted ask (ids in order) or ("topk", truth, scores, total)
+    for a BM25-scored one (check_answer's plan-path rule)."""
+    from elasticsearch_tpu_torch.corpus import LOGS_T0_MS, term_name
+    rng = np.random.default_rng(seed)
+    hour = 3_600_000
+    out = []
+    # range: a one-hour window of @timestamp, size 10 (constant 1.0:
+    # the lowest docids of the window)
+    for h in (1, 7, 13, 22):
+        lo, hi = LOGS_T0_MS + h * hour, LOGS_T0_MS + (h + 1) * hour
+        m = oracle.range_mask("@timestamp", gte=lo, lt=hi)
+        out.append(("range", {"query": {"range": {"@timestamp": {
+            "gte": iso_ms(lo), "lt": iso_ms(hi)}}}, "size": 10},
+            ("page", np.nonzero(m)[0][:10], int(m.sum()), 1.0)))
+    # Kibana Discover: a time filter, newest first, 500 rows
+    for h, span in ((3, hour // 4), (11, hour), (20, 2 * hour)):
+        lo = LOGS_T0_MS + h * hour
+        m = oracle.range_mask("@timestamp", gte=lo, lte=lo + span)
+        page, total = oracle.sorted_page(m, "@timestamp", "desc", 500)
+        out.append(("discover", {"query": {"bool": {"filter": [{"range": {
+            "@timestamp": {"gte": iso_ms(lo), "lte": iso_ms(lo + span)}}}]}},
+            "sort": [{"@timestamp": "desc"}], "size": 500},
+            ("page", page, total, 0.0)))
+    allm = np.ones(oracle.n, bool)
+    page, total = oracle.sorted_page(allm, "@timestamp", "asc", 10)
+    out.append(("asc_sort_timestamp", {"query": {"match_all": {}},
+                "sort": [{"@timestamp": "asc"}]},
+                ("page", page, total, 1.0)))
+    # an incident term: the commonest of the incident terms
+    nb = oracle.corpus["nb"]
+    inc = n_base + int(np.argmax(nb[n_base:]))
+    t_inc = term_name(inc)
+    s_inc = oracle.bm25(t_inc)
+    st32 = oracle.col32("status")[0]
+    out.append(("status_500", {"query": {"bool": {
+        "must": [{"match": {"title": t_inc}}],
+        "filter": [{"term": {"status": 500}}]}}, "size": 100},
+        ("topk",) + oracle_topk(s_inc, (s_inc > 0) & (st32 == 500), 100)))
+    # the scale phase's queries under a time filter (1-6 hours)
+    for q in queries[:64]:
+        h0 = int(rng.integers(0, 20))
+        lo = LOGS_T0_MS + h0 * hour
+        hi = lo + int(rng.integers(1, 7)) * hour
+        text = " ".join(term_name(t) for t in q)
+        s = oracle.bm25(text)
+        m = oracle.range_mask("@timestamp", gte=lo, lt=hi)
+        out.append(("match_range", {"query": {"bool": {
+            "must": [{"match": {"title": text}}],
+            "filter": [{"range": {"@timestamp": {
+                "gte": iso_ms(lo), "lt": iso_ms(hi)}}}]}}, "size": 100},
+            ("topk",) + oracle_topk(s, (s > 0) & m, 100)))
+    bm = oracle.range_mask("bytes")
+    out.append(("exists", {"query": {"exists": {"field": "bytes"}}},
+                ("page", np.nonzero(bm)[0][:10], int(bm.sum()), 1.0)))
+    nm = st32 != 200
+    out.append(("must_not_only", {"query": {"bool": {"must_not": [
+        {"term": {"status": 200}}]}}, "size": 20},
+        ("page", np.nonzero(nm)[0][:20], int(nm.sum()), 0.0)))
+    neg = st32 >= 500
+    out.append(("boosting", {"query": {"boosting": {
+        "positive": {"match": {"title": t_inc}},
+        "negative": {"range": {"status": {"gte": 500}}},
+        "negative_boost": 0.5}}, "size": 50},
+        ("topk",) + oracle_topk(np.where(neg, s_inc * 0.5, s_inc),
+                                s_inc > 0, 50)))
+    b32 = oracle.col32("bytes")[0]
+    big = (b32 >= 100000) & bm
+    s_q = oracle.bm25(" ".join(term_name(t) for t in queries[0]))
+    rng_s = big.astype(np.float64)
+    best = np.maximum(s_q, rng_s)
+    out.append(("dis_max", {"query": {"dis_max": {"queries": [
+        {"match": {"title": " ".join(term_name(t) for t in queries[0])}},
+        {"range": {"bytes": {"gte": 100000}}}], "tie_breaker": 0.2}},
+        "size": 50},
+        ("topk",) + oracle_topk(best + 0.2 * (s_q + rng_s - best),
+                                (s_q > 0) | big, 50)))
+    ids = sorted(int(i) for i in rng.choice(oracle.n, 40, replace=False))
+    out.append(("ids", {"query": {"ids": {"values": [str(i) for i in ids]
+                                          + ["not-an-id"]}},
+                        "size": 50},
+                ("page", np.asarray(ids), len(ids), 1.0)))
+    page, total = oracle.sorted_page(allm, "bytes", "asc", 100)
+    out.append(("sort_bytes", {"query": {"match_all": {}},
+                               "sort": [{"bytes": "asc"}], "size": 100},
+                ("page", page, total, 1.0)))
+    ms = gap_score(s_inc, s_inc > 0)
+    out.append(("min_score", {"query": {"match": {"title": t_inc}},
+                              "min_score": ms, "size": 100},
+                ("topk",) + oracle_topk(s_inc, s_inc >= ms, 100)))
+    return out
+
+
+def check_dense_answer(r, expected, what):
+    if expected[0] == "topk":
+        check_answer(r, expected[1:], "plan", what)
+        return
+    _, ids, total, score = expected
+    check(r["hits"]["total"] == {"value": total, "relation": "eq"},
+          f"{what}: total {r['hits']['total']} vs {total}")
+    got = [int(h["_id"]) for h in r["hits"]["hits"]]
+    check(got == [int(i) for i in ids], f"{what}: ids and order")
+    check(all(h["_score"] == score for h in r["hits"]["hits"]),
+          f"{what}: constant score {score}")
+
+
+def desc_pages(port, oracle, n_pages, size):
+    """Rally's desc_sort_timestamp, then ``n_pages`` of
+    desc_sort_with_after_timestamp, each continuing from the last sort
+    value of the page before; each page held to the oracle. Returns the
+    bodies, the answers and the expected pages."""
+    allm = np.ones(oracle.n, bool)
+    bodies, answers, expected = [], [], []
+    after = None
+    for i in range(n_pages + 1):
+        body = {"query": {"match_all": {}},
+                "sort": [{"@timestamp": "desc"}], "size": size}
+        if after is not None:
+            body["search_after"] = [after]
+        page, total = oracle.sorted_page(allm, "@timestamp", "desc", size,
+                                         after=after)
+        st, r = http(port, "POST", "/logs/_search", body)
+        check(st == 200, f"desc page {i} -> {st} {r}")
+        exp = ("page", page, total, 1.0)
+        check_dense_answer(r, exp, f"desc page {i}")
+        bodies.append(("desc_after" if i else "desc_sort_timestamp", body))
+        answers.append(r)
+        expected.append(exp)
+        after = r["hits"]["hits"][-1]["sort"][0]
+    return bodies, answers, expected
+
+
+def f32_gap(oracle, kind, body, served_ids):
+    """Docs that change membership (``member``) or page rank (``rank``)
+    between the float32 columns and exact int64 milliseconds, for a
+    range or @timestamp-sorted body; for a range also the docs whose
+    membership of the whole match set changes (``set``)."""
+    from elasticsearch_tpu_torch.index.mapper import DateFieldType
+    parse = DateFieldType("@timestamp").parse
+    q = body["query"]
+    if kind == "range":
+        r = q["range"]["@timestamp"]
+        lo, hi = parse(r["gte"]), parse(r["lt"])
+        m32 = oracle.range_mask("@timestamp", gte=lo, lt=hi)
+        m64 = oracle.range_mask("@timestamp", gte=lo, lt=hi, exact=True)
+        exact = np.nonzero(m64)[0][:body["size"]]
+        set_gap = int((m32 ^ m64).sum())
+    else:
+        if kind == "discover":
+            r = q["bool"]["filter"][0]["range"]["@timestamp"]
+            lo, hi = parse(r["gte"]), parse(r["lte"])
+            m64 = oracle.range_mask("@timestamp", gte=lo, lte=hi,
+                                    exact=True)
+            set_gap = int((oracle.range_mask("@timestamp", gte=lo, lte=hi)
+                           ^ m64).sum())
+        else:
+            m64 = np.ones(oracle.n, bool)
+            set_gap = 0
+        (field, order), = body["sort"][0].items()
+        after = body.get("search_after", [None])[0]
+        exact, _ = oracle.sorted_page(m64, field, order,
+                                      body.get("size", 10), after=after,
+                                      exact=True)
+    served = np.asarray(served_ids)
+    member = int(len(np.setdiff1d(exact, served)))
+    n = min(len(exact), len(served))
+    rank = int((exact[:n] != served[:n]).sum() + abs(len(exact) - n))
+    return dict(member=member, rank=rank, set=set_gap)
+
+
+def dense_breakdown(node, bodies, iters):
+    """Device ms of the dense executor's stages for each of ``bodies``
+    ([(kind, body)]) on the logs index, by CUDA events: ``score`` (the
+    query's execute: dense BM25 through the contribution kernel, masks,
+    columns), ``mask`` (live, search_after and the primary key column),
+    ``masked_topk``; ``readback``: host ms of the copies of the k keys,
+    docids and scores and the total and max; ``query_ms``: host ms of
+    the whole dense query phase (ends in its readback)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops.topk import masked_topk
+    from elasticsearch_tpu_torch.search.queries import parse_query
+    from elasticsearch_tpu_torch.search.searcher import (
+        ShardSearcher, _parse_sort, _primary_sort_key, _search_after_mask)
+    svc = node.indices["logs"]
+    searcher = ShardSearcher(svc.engine.segments, svc.mapper,
+                             node.device_cache, svc.k1, svc.b)
+    ctx = searcher._contexts()[0]
+    out = {}
+    for kind, body in bodies:
+        query = parse_query(body["query"])
+        k = body.get("size", 10)
+        spec = _parse_sort(body.get("sort"))
+        after = body.get("search_after")
+        score_ms = cuda_ms(lambda: query.execute(ctx), iters)[0]
+        scores, m0 = query.execute(ctx)
+
+        def mask_fn():
+            m = m0 & ctx.live
+            if after is not None:
+                m = m & _search_after_mask(ctx, svc.mapper, scores, spec,
+                                           after)
+            return m, _primary_sort_key(ctx, svc.mapper, scores, spec)
+        mask_ms = cuda_ms(mask_fn, iters)[0]
+        m, key = mask_fn()
+        topk_ms = cuda_ms(lambda: masked_topk(key, m, k), iters)[0]
+        vals, ids = masked_topk(key, m, k)
+        win = scores[ids.clamp(max=ctx.n_docs_padded - 1).long()]
+        tot = m.sum(dtype=torch.int64).reshape(1)
+        mx = torch.where(m, scores, float("-inf")).amax().reshape(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            for t in (vals, ids, win, tot, mx):
+                t.cpu()
+        rb_ms = (time.perf_counter() - t0) * 1e3 / iters
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            searcher.query_phase(query, k, sort=body.get("sort"),
+                                 search_after=after,
+                                 min_score=body.get("min_score"),
+                                 allow_plan=False)
+        q_ms = (time.perf_counter() - t0) * 1e3 / iters
+        out[kind] = dict(score=score_ms, mask=mask_ms, masked_topk=topk_ms,
+                         readback=rb_ms, query_ms=q_ms)
+    return out
+
+
+def plan_vs_dense(node, bodies, reps=3):
+    """The match + range bodies on the device through the plan path
+    (its dense_mask) and through the dense executor (``allow_plan``
+    False), each timed by the host around the whole query phase (both
+    end in a readback): mean and p50 ms of each; totals must agree, and
+    the count of bodies whose ids and order agree is reported."""
+    from elasticsearch_tpu_torch.search.queries import parse_query
+    from elasticsearch_tpu_torch.search.searcher import ShardSearcher
+    svc = node.indices["logs"]
+    searcher = ShardSearcher(svc.engine.segments, svc.mapper,
+                             node.device_cache, svc.k1, svc.b)
+    t_plan, t_dense, same_ids = [], [], 0
+    for _, body in bodies:
+        q = parse_query(body["query"])
+        k = body["size"]
+        p = d = None
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            p = searcher.query_phase(q, k)
+            t1 = time.perf_counter()
+            d = searcher.query_phase(q, k, allow_plan=False)
+            t2 = time.perf_counter()
+            t_plan.append(t1 - t0)
+            t_dense.append(t2 - t1)
+        check(p.total_hits == d.total_hits,
+              f"plan and dense totals agree ({p.total_hits} vs "
+              f"{d.total_hits})")
+        same_ids += [x.docid for x in p.docs] == [x.docid for x in d.docs]
+    return dict(bodies=len(bodies), reps=reps,
+                plan_mean_ms=float(np.mean(t_plan)) * 1e3,
+                plan_p50_ms=p50_p99(t_plan)[0],
+                dense_mean_ms=float(np.mean(t_dense)) * 1e3,
+                dense_p50_ms=p50_p99(t_dense)[0],
+                same_ids_and_order=same_ids)
+
+
+def contrib_dense_shape(node, n_base, iters):
+    """The contribution kernel against its twin at the dense scorer's
+    shape: Q = 1, the blocks of the commonest incident term (padded to
+    its bucket), the all-true mask row; timed with its bound."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops.bm25_contrib import (
+        gather_bm25_contrib, gather_bm25_contrib_plain)
+    svc = node.indices["logs"]
+    dev = node.device_cache.get(svc.engine.segments[0])
+    dp = dev.postings["title"]
+    counts = dp.term_block_count[n_base:]
+    tid = n_base + int(np.argmax(counts))
+    sel, ws = dp.select_blocks([tid], [1.7])
+    sel_t = torch.from_numpy(sel).to(dev.device)[None].contiguous()
+    ws_t = torch.from_numpy(ws).to(dev.device)[None].contiguous()
+    mids = torch.zeros(1, dtype=torch.int32, device=dev.device)
+    avg = float(np.float32(dp.avg_len))
+    args = (dp.block_docids, dp.block_tfs, sel_t, ws_t, dp.doc_lens,
+            dev.all_docs_row, mids, avg, 1.2, 0.75)
+    kk, ck = gather_bm25_contrib(*args)
+    kp, cp = gather_bm25_contrib_plain(*args)
+    torch.cuda.synchronize()
+    rel = float(((ck - cp).abs() / cp.abs().clamp_min(1e-30)).max())
+    check(torch.equal(kk, kp) and rel <= 2e-7,
+          f"contrib kernel at the dense shape: keys equal, rtol {rel}")
+    n_valid = int((kk != 0x7FFFFFFF).sum())
+    nb = sel.shape[0]
+    n_blocks = len(np.unique(sel))
+    n_bytes = (n_blocks * 128 * 8 + n_valid * 5 + nb * 8
+               + nb * 128 * (4 + 4))
+    b, by = bound_ms(n_bytes, 7 * n_valid, "float32")
+    return dict(term=int(tid), nb=int(nb), lanes=int(nb * 128),
+                valid_lanes=n_valid, max_abs_err=float((ck - cp).abs().max()),
+                rtol=rel, ms=cuda_ms(lambda: gather_bm25_contrib(*args),
+                                     iters)[0],
+                plain_ms=cuda_ms(lambda: gather_bm25_contrib_plain(*args),
+                                 iters)[0],
+                bound_ms=b, bound_by=by, bytes=n_bytes)
+
+
+def phase_dense(node, port, logs, cols, n_base, queries, clients, seed,
+                iters, counters):
+    """The dense mix over HTTP on the logs index (2M docs with the
+    ``logs_columns``): every body answered (no 400), each held to the
+    float64 oracle under float32 column semantics, and at least 16 to
+    the port's own CPU execution at full size; then timed from
+    ``clients`` Python clients; the dense executor's stage times, the
+    plan path beside the dense executor on the match + range bodies,
+    the float32 gap, and the contribution kernel at the dense shape."""
+    from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
+    from elasticsearch_tpu_torch.search.service import SearchService
+    oracle = LogsOracle(logs, cols)
+    t0 = time.time()
+    mix = dense_bodies(oracle, n_base, queries, seed)
+    log(f"[dense] {len(mix)} bodies and their oracles in "
+        f"{time.time() - t0:.1f} s")
+    for fn in counters.values():
+        fn.launches = 0
+    # the main run: the paged walk, then every other body from clients
+    pages, page_answers, page_expected = desc_pages(port, oracle, 5, 100)
+    kinds = [k for k, _, _ in mix]
+    bodies = [b for _, b, _ in mix]
+    results, _, _ = drive(port, bodies, clients, "logs")
+    launches = {n: fn.launches for n, fn in counters.items()}
+    check(launches["gather_bm25_contrib"] > 0,
+          f"the contribution kernel launched on the dense path: {launches}")
+    refused = 0
+    for i, ((st, r), (kind, body, exp)) in enumerate(zip(results, mix)):
+        refused += st != 200
+        check(st == 200, f"dense body {i} ({kind}) -> {st} {r}")
+        check_dense_answer(r, exp, f"dense body {i} ({kind})")
+    all_kinds = [k for k, _ in pages] + kinds
+    all_bodies = [b for _, b in pages] + bodies
+    all_answers = page_answers + [r for _, r in results]
+    # the port's own CPU execution of the same bodies on the same segment
+    svc = node.indices["logs"]
+    cpu = SearchService(DeviceSegmentCache("cpu"))
+    t0 = time.time()
+    n_cpu = 0
+    for i, (kind, body, r) in enumerate(zip(all_kinds, all_bodies,
+                                            all_answers)):
+        if kind == "match_range" and n_cpu >= 24:
+            continue
+        c = cpu.search("logs", svc, body)
+        what = f"dense body {i} ({kind}) vs the CPU"
+        check(c["hits"]["total"] == r["hits"]["total"], f"{what}: total")
+        check([h["_id"] for h in c["hits"]["hits"]]
+              == [h["_id"] for h in r["hits"]["hits"]],
+              f"{what}: ids and order")
+        check([h.get("sort") for h in c["hits"]["hits"]]
+              == [h.get("sort") for h in r["hits"]["hits"]],
+              f"{what}: sort values")
+        check(np.allclose([h["_score"] for h in c["hits"]["hits"]],
+                          [h["_score"] for h in r["hits"]["hits"]],
+                          rtol=1e-6, atol=0), f"{what}: scores rtol 1e-6")
+        n_cpu += 1
+    check(n_cpu >= 16, f"{n_cpu} bodies held to the CPU execution")
+    log(f"[dense] {n_cpu} answers equal to the CPU execution "
+        f"({time.time() - t0:.1f} s)")
+    # the float32 gap of every range and @timestamp-sorted body
+    gaps = {}
+    for kind, body, r in zip(all_kinds, all_bodies, all_answers):
+        if kind in ("range", "discover", "asc_sort_timestamp",
+                    "desc_sort_timestamp", "desc_after"):
+            g = f32_gap(oracle, kind, body,
+                        [int(h["_id"]) for h in r["hits"]["hits"]])
+            gaps.setdefault(kind, []).append(g)
+    # timed: three rounds of the whole mix from the clients
+    rounds = 3
+    t_bodies = all_bodies * rounds
+    res2, lat, wall = drive(port, t_bodies, clients, "logs")
+    for i, (st, r) in enumerate(res2):
+        j = i % len(all_bodies)
+        check(st == 200 and [h["_id"] for h in r["hits"]["hits"]]
+              == [h["_id"] for h in all_answers[j]["hits"]["hits"]],
+              f"timed dense body {j} equal to its first answer")
+    per_kind = {}
+    for i, t in enumerate(lat):
+        per_kind.setdefault(all_kinds[i % len(all_bodies)], []).append(t)
+    latency = {k: dict(n=len(v), p50_ms=p50_p99(v)[0], p99_ms=p50_p99(v)[1])
+               for k, v in per_kind.items()}
+    sample = {}
+    for kind, body in zip(all_kinds, all_bodies):
+        sample.setdefault(kind, body)
+    out = dict(
+        docs=oracle.n, bodies=len(all_bodies), refused=refused,
+        checked_oracle=len(all_bodies), checked_cpu=n_cpu,
+        launches=launches,
+        timed=dict(requests=len(t_bodies), wall_s=wall,
+                   qps=len(t_bodies) / wall, clients=clients,
+                   p50_ms=p50_p99(lat)[0], p99_ms=p50_p99(lat)[1],
+                   per_kind=latency),
+        f32_gap=gaps,
+        stages=dense_breakdown(node, [(k, sample[k]) for k in (
+            "range", "discover", "desc_after", "sort_bytes", "boosting",
+            "min_score")], iters),
+        plan_vs_dense=plan_vs_dense(
+            node, [(k, b) for k, b in zip(kinds, bodies)
+                   if k == "match_range"]),
+        contrib_dense_shape=contrib_dense_shape(node, n_base, iters))
+    log(f"[dense] {out}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--docs", type=int, default=2_000_000)
@@ -1802,7 +2322,9 @@ def main(argv=None) -> int:
             "False); nothing was run")
         return 2
     try:
-        from elasticsearch_tpu_torch.corpus import (build_corpus,
+        from elasticsearch_tpu_torch.corpus import (LOGS_MAPPINGS,
+                                                    build_corpus,
+                                                    logs_columns,
                                                     make_queries,
                                                     segment_from_corpus,
                                                     with_incident_terms)
@@ -1954,20 +2476,25 @@ def main(argv=None) -> int:
         t0 = time.time()
         logs = with_incident_terms(corpus,
                                    np.random.default_rng(args.seed + 3))
-        node.create_index("logs", {"properties": {"title":
-                                                  {"type": "text"}}})
+        cols = logs_columns(args.docs, np.random.default_rng(args.seed + 5))
+        node.create_index("logs", LOGS_MAPPINGS)
         node.indices["logs"].engine.install_segments(
-            [segment_from_corpus(logs, name="logs0")])
+            [segment_from_corpus(logs, name="logs0", numerics=cols)])
         bodies_logs, oracles_logs = logs_bodies(
             logs, len(corpus["df"]), filt_pool, args.seed + 4)
         log(f"[setup] incident index in {time.time() - t0:.1f} s")
         prune = phase_plan_prune(node, port, args.clients,
                                  plan_small_bodies, misfit_bodies,
                                  bodies_logs, oracles_logs)
+
+        # ---- 5. the dense executor on the logs index
+        dense = phase_dense(node, port, logs, cols, len(corpus["df"]),
+                            queries, args.clients, args.seed + 6,
+                            args.iters, counters)
     finally:
         node.close()
 
-    # ---- 5. report
+    # ---- 6. report
     meta = {
         "gather_bm25_contrib": dict(
             source="elasticsearch_tpu_torch/csrc/bm25_contrib.cu",
@@ -1992,12 +2519,16 @@ def main(argv=None) -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], kernel_ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            per_bucket=r.get("per_bucket")))
+            per_bucket=r.get("per_bucket"),
+            launches_dense=dense["launches"][name],
+            dense_shape=(dense["contrib_dense_shape"]
+                         if name == "gather_bm25_contrib" else None)))
     print(json.dumps({"scale": scale}))
     print(json.dumps({"lanes": dict(lane_cohorts, v2m=kern["cohort"],
                                     ess=ess_cohorts, small=rest_small)}))
     print(json.dumps({"theta_warm": theta_warm}))
     print(json.dumps({"prune": prune}))
+    print(json.dumps({"dense": dense}))
     print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))

@@ -9,6 +9,11 @@ burstiness 0.35 (each token repeats the previous token of its doc with
 that probability, giving tf a heavy tail). Queries have 1-8 terms drawn
 across three document-frequency bands; the commonest terms are dropped
 until a query's selection fits ``max_blocks``.
+
+``logs_columns`` gives the corpus read as time-ordered logs
+(``with_incident_terms``) the numeric columns of a web server's access
+log, the shape of Rally's ``http_logs`` track: ``@timestamp`` (a date),
+``status`` and ``bytes``.
 """
 
 from __future__ import annotations
@@ -135,6 +140,45 @@ def with_incident_terms(corpus: Dict[str, np.ndarray],
                                     base_post + gs_new[1:]]))
 
 
+# 2026-01-01T00:00:00Z in epoch milliseconds
+LOGS_T0_MS = 1_767_225_600_000
+DAY_MS = 86_400_000
+
+
+def logs_columns(n_docs: int, rng: np.random.Generator,
+                 span: int = 16) -> Dict[str, Dict[str, np.ndarray]]:
+    """Seeded access-log columns for ``n_docs`` docs in ingestion
+    (docid) order, as ``segment_from_numpy``'s ``numerics``:
+
+    - ``@timestamp`` (epoch ms, float64): 24 h from LOGS_T0_MS, docid
+      order is time order, each doc at its even share of the day plus a
+      seeded jitter below one share, so timestamps strictly increase;
+    - ``status``: 200 for about 90 % of docs, else 304, 404 or 500; in
+      the incident window (the first ``n_docs // span`` docs, as
+      ``with_incident_terms``) about 30 % are 500;
+    - ``bytes``: lognormal response sizes (median about 3 KB), missing
+      (NaN) on about 2 % of docs."""
+    share = DAY_MS // n_docs
+    ts = (LOGS_T0_MS + (np.arange(n_docs, dtype=np.int64) * DAY_MS)
+          // n_docs + rng.integers(0, max(share, 1), n_docs))
+    status = np.where(rng.random(n_docs) < 0.9, 200,
+                      rng.choice([304, 404, 500], n_docs))
+    incident = (np.arange(n_docs) < n_docs // span) \
+        & (rng.random(n_docs) < 0.3)
+    status = np.where(incident, 500, status)
+    size = np.round(rng.lognormal(8.0, 1.2, n_docs))
+    size[rng.random(n_docs) < 0.02] = np.nan
+    return {"@timestamp": {"values": ts.astype(np.float64)},
+            "status": {"values": status.astype(np.float64)},
+            "bytes": {"values": size}}
+
+
+LOGS_MAPPINGS = {"properties": {"title": {"type": "text"},
+                                "@timestamp": {"type": "date"},
+                                "status": {"type": "integer"},
+                                "bytes": {"type": "long"}}}
+
+
 def term_name(t: int) -> str:
     return f"t{t:06d}"
 
@@ -169,18 +213,18 @@ def make_queries(rng: np.random.Generator, df: np.ndarray,
 
 
 # plan-path documents and query bodies: the shapes of the reference's
-# plan tests (tests/test_plan.py), on text fields `title` and `body` and
-# a keyword field `tag`; the reference's numeric `views` is left out
-# (numeric columns are a later slice)
+# plan tests (tests/test_plan.py), on text fields `title` and `body`, a
+# keyword field `tag` and a numeric field `views`
 PLAN_MAPPINGS = {"properties": {"title": {"type": "text"},
                                 "body": {"type": "text"},
-                                "tag": {"type": "keyword"}}}
+                                "tag": {"type": "keyword"},
+                                "views": {"type": "long"}}}
 PLAN_VOCAB = ["alpha", "beta", "gamma", "delta", "epsilon", "zeta", "eta",
               "theta", "iota", "kappa", "wolf", "fox", "dog", "cat", "bird",
               "fish", "tree", "rock", "lake", "hill"]
 PLAN_TAGS = ["red", "green", "blue", "yellow"]
 # the reference's plan test cases, in order; the ones holding a `range`
-# clause (a dense clause) are typed 400s in the port
+# clause put a dense factor into the plan launch
 PLAN_CASES = [
     {"match": {"title": "alpha wolf"}},
     {"match": {"body": {"query": "alpha beta gamma", "operator": "and"}}},
@@ -231,27 +275,32 @@ PLAN_CASES = [
 
 
 def plan_doc(rng: np.random.Generator) -> Dict[str, str]:
-    """A document of the shape of the reference's plan test fixture
-    (its `views` left out)."""
+    """A document of the shape of the reference's plan test fixture."""
     return {"title": " ".join(rng.choice(PLAN_VOCAB,
                                          int(rng.integers(1, 8)))),
             "body": " ".join(rng.choice(PLAN_VOCAB,
                                         int(rng.integers(2, 20)))),
-            "tag": str(rng.choice(PLAN_TAGS))}
+            "tag": str(rng.choice(PLAN_TAGS)),
+            "views": int(rng.integers(0, 100))}
 
 
 def segment_from_corpus(corpus: Dict[str, np.ndarray], field: str = "title",
-                        name: str = "corpus0") -> Segment:
+                        name: str = "corpus0",
+                        numerics=None) -> Segment:
     """The corpus as one port Segment over a text field of the terms
-    ``t000000 ...`` (ids are the docids as text; no ``_source``); the
+    ``t000000 ...`` (ids are the docids as text; no ``_source``), with
+    the numeric columns ``numerics`` (``logs_columns``) when given; the
     block-max metadata is computed from the blocks
     (index/segment.py ``block_max_meta``)."""
     vocab = len(corpus["df"])
-    return segment_from_numpy(dict(
+    postings = dict(
         terms=[term_name(i) for i in range(vocab)],
-        doc_freq=corpus["df"], term_block_start=corpus["tbs"][:-1], term_block_count=corpus["nb"],
+        doc_freq=corpus["df"], term_block_start=corpus["tbs"][:-1],
+        term_block_count=corpus["nb"],
         block_docids=corpus["block_docids"], block_tfs=corpus["block_tfs"],
-        field_lengths=corpus["lens"]), name=name, field=field)
+        field_lengths=corpus["lens"])
+    return segment_from_numpy({"fields": {field: postings},
+                               "numerics": numerics}, name=name)
 
 
 def dense_scores(corpus: Dict[str, np.ndarray], terms: List[int],

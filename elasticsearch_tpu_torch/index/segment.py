@@ -1,6 +1,6 @@
 """Immutable segments (counterpart of elasticsearch_tpu/index/segment.py),
 reduced to what the `_search` slices read: text and keyword postings,
-doc lengths, ids, `_source` and the live mask.
+doc lengths, numeric doc values, ids, `_source` and the live mask.
 
 - **Postings as padded blocks.** Each text field's postings are
   concatenated into blocks of ``BLOCK_SIZE`` (128): ``block_docids
@@ -16,6 +16,10 @@ doc lengths, ids, `_source` and the live mask.
   pruning read them.
 - **Keyword postings** have tf = 1 per distinct value and a field length
   equal to the number of values, as the reference builds them.
+- **Numeric doc values** (numbers, booleans, dates as epoch millis):
+  ``values`` float64 [n_docs] (a doc's first value, NaN where missing),
+  ``missing`` bool [n_docs], and the ragged multi-values
+  ``offsets``/``all_values`` (each doc's values sorted).
 - **Deletes as masks**: ``live[n_docs] bool``, replaced (never mutated)
   on delete, with ``live_version`` bumped so device caches can key on it.
 
@@ -72,6 +76,16 @@ class PostingsField:
 
 
 @dataclass
+class NumericDocValues:
+    field: str
+    values: np.ndarray      # float64 [n_docs] (first value if multi)
+    missing: np.ndarray     # bool [n_docs]
+    # ragged multi-values
+    offsets: np.ndarray     # int64 [n_docs + 1]
+    all_values: np.ndarray  # float64 [total]
+
+
+@dataclass
 class StoredFields:
     offsets: np.ndarray     # int64 [n_docs + 1]
     data: bytes
@@ -84,10 +98,12 @@ class StoredFields:
 class Segment:
     def __init__(self, name: str, n_docs: int,
                  postings: Dict[str, PostingsField], stored: StoredFields,
-                 live: Optional[np.ndarray] = None):
+                 live: Optional[np.ndarray] = None,
+                 numerics: Optional[Dict[str, NumericDocValues]] = None):
         self.name = name
         self.n_docs = n_docs
         self.postings = postings
+        self.numerics = numerics or {}
         self.stored = stored
         self.live = live if live is not None else np.ones(n_docs, dtype=bool)
         self.live_version = 0  # bumps on delete; device caches key on it
@@ -159,6 +175,22 @@ class SegmentWriter:
             f: _build_postings_field(f, term_docs, field_lengths[f], n)
             for f, term_docs in field_term_docs.items()
         }
+        # numeric doc values
+        numerics = {}
+        for f in {f for d in docs for f in d.numeric_values}:
+            values = np.full(n, np.nan, np.float64)
+            missing = np.ones(n, bool)
+            offsets = np.zeros(n + 1, np.int64)
+            all_vals: List[float] = []
+            for docid, d in enumerate(docs):
+                vs = d.numeric_values.get(f, [])
+                if vs:
+                    values[docid] = vs[0]
+                    missing[docid] = False
+                    all_vals.extend(sorted(vs))
+                offsets[docid + 1] = len(all_vals)
+            numerics[f] = NumericDocValues(f, values, missing, offsets,
+                                           np.asarray(all_vals, np.float64))
         offsets = np.zeros(n + 1, np.int64)
         chunks = []
         ids = []
@@ -169,7 +201,7 @@ class SegmentWriter:
             offsets[docid + 1] = total
             ids.append(d.doc_id)
         stored = StoredFields(offsets, b"".join(chunks), ids)
-        return Segment(name, n, postings, stored)
+        return Segment(name, n, postings, stored, numerics=numerics)
 
 
 def _build_postings_field(field: str, term_docs: Dict[str, Any],
@@ -284,6 +316,9 @@ def merge_segments(name: str, segments: List[Segment]) -> Segment:
         postings[f] = _build_postings_field(f, term_docs, field_lengths,
                                             new_n)
 
+    numerics = {f: _merge_numerics(f, segments, maps, new_n)
+                for f in sorted({f for s in segments for f in s.numerics})}
+
     offsets = np.zeros(new_n + 1, np.int64)
     chunks: List[bytes] = []
     ids: List[str] = []
@@ -296,7 +331,39 @@ def merge_segments(name: str, segments: List[Segment]) -> Segment:
             offsets[int(m[old]) + 1] = total
             ids.append(seg.stored.ids[int(old)])
     stored = StoredFields(offsets, b"".join(chunks), ids)
-    return Segment(name, new_n, postings, stored)
+    return Segment(name, new_n, postings, stored, numerics=numerics)
+
+
+def _merge_numerics(f: str, segments: List[Segment], maps: List[np.ndarray],
+                    new_n: int) -> NumericDocValues:
+    """One numeric column of a merge: the live docs' first values,
+    missing flags and value lists, in new-docid order (new ids ascend
+    with segment order, so concatenating the segments' live slices in
+    order lays the values out by new docid)."""
+    values = np.full(new_n, np.nan, np.float64)
+    missing = np.ones(new_n, bool)
+    counts = np.zeros(new_n, np.int64)
+    chunks: List[np.ndarray] = []
+    for seg, m in zip(segments, maps):
+        nv = seg.numerics.get(f)
+        if nv is None:
+            continue
+        old = np.nonzero(seg.live)[0]
+        new = m[old]
+        lo, lens = nv.offsets[old], nv.offsets[old + 1] - nv.offsets[old]
+        has = lens > 0
+        values[new[has]] = nv.values[old[has]]
+        missing[new[has]] = False
+        counts[new] = lens
+        # every live doc's value list, in order: its run lo .. lo+len-1
+        run_start = np.cumsum(lens) - lens
+        chunks.append(nv.all_values[np.repeat(lo - run_start, lens)
+                                    + np.arange(int(lens.sum()))])
+    offsets = np.zeros(new_n + 1, np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    all_values = (np.concatenate(chunks) if chunks
+                  else np.zeros(0, np.float64))
+    return NumericDocValues(f, values, missing, offsets, all_values)
 
 
 def segment_from_numpy(arrays: Dict[str, Any], name: str = "imported",
@@ -313,12 +380,19 @@ def segment_from_numpy(arrays: Dict[str, Any], name: str = "imported",
     arrays may sit in ``arrays`` itself, the field named by ``field=``
     (or ``arrays["field"]``, default "body"). Optional for the segment:
     ``ids`` (list of str, default the docid as text), ``live`` [n_docs]
-    bool and ``sources`` (list of bytes)."""
+    bool, ``sources`` (list of bytes) and ``numerics``, which maps each
+    numeric field to its doc values: ``values`` float64 [n_docs] (a
+    doc's first value) and optionally ``missing`` bool [n_docs] (default
+    where ``values`` is NaN) and ``offsets`` [n_docs + 1] /
+    ``all_values`` (default one value per doc that has one)."""
     fields = arrays.get("fields")
     if fields is None:
         fields = {field or arrays.get("field") or "body": arrays}
     postings = {f: _postings_from_numpy(f, a) for f, a in fields.items()}
-    sizes = {len(pf.field_lengths) for pf in postings.values()}
+    numerics = {f: _numerics_from_numpy(f, a)
+                for f, a in (arrays.get("numerics") or {}).items()}
+    sizes = ({len(pf.field_lengths) for pf in postings.values()}
+             | {len(nv.values) for nv in numerics.values()})
     if len(sizes) != 1:
         raise ValueError(f"fields disagree on the doc count: {sorted(sizes)}")
     n = sizes.pop()
@@ -333,7 +407,27 @@ def segment_from_numpy(arrays: Dict[str, Any], name: str = "imported",
         stored = StoredFields(offsets, b"".join(sources), ids)
     live = arrays.get("live")
     return Segment(name, n, postings, stored,
-                   None if live is None else np.asarray(live, bool).copy())
+                   None if live is None else np.asarray(live, bool).copy(),
+                   numerics=numerics)
+
+
+def _numerics_from_numpy(fname: str, arrays: Dict[str, Any]) \
+        -> NumericDocValues:
+    values = np.asarray(arrays["values"], np.float64)
+    missing = arrays.get("missing")
+    missing = (np.isnan(values) if missing is None
+               else np.asarray(missing, bool))
+    if missing.shape != values.shape:
+        raise ValueError(f"numeric field [{fname}]: missing and values "
+                         f"differ in shape")
+    if arrays.get("offsets") is None:
+        offsets = np.zeros(len(values) + 1, np.int64)
+        np.cumsum(~missing, out=offsets[1:])
+        all_values = values[~missing]
+    else:
+        offsets = np.asarray(arrays["offsets"], np.int64)
+        all_values = np.asarray(arrays["all_values"], np.float64)
+    return NumericDocValues(fname, values, missing, offsets, all_values)
 
 
 def _postings_from_numpy(fname: str, arrays: Dict[str, Any]) -> PostingsField:

@@ -24,7 +24,7 @@ from typing import Any, Dict, Iterable
 
 from elasticsearch_tpu_torch.device import DeviceLike, resolve_device
 from elasticsearch_tpu_torch.index.engine import Engine
-from elasticsearch_tpu_torch.index.mapper import DocumentMapper
+from elasticsearch_tpu_torch.index.mapper import DocumentMapper, TextFieldType
 from elasticsearch_tpu_torch.rest.api import RestController
 from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
 from elasticsearch_tpu_torch.search.fastpath import FastPathServer
@@ -127,7 +127,7 @@ class Node:
             if len(segs) != 1:
                 continue
             text = [f for f in segs[0].postings
-                    if svc.mapper.fields.get(f) == "text"]
+                    if isinstance(svc.mapper.field_type(f), TextFieldType)]
             if len(text) != 1:
                 continue
             if best is None or segs[0].n_docs > best[1].n_docs:

@@ -39,6 +39,39 @@ def bm25_contrib(sel_weights: torch.Tensor, tf: torch.Tensor,
                                                 0.0)
 
 
+def match_mask(block_docids: torch.Tensor, block_tfs: torch.Tensor,
+               sel_blocks: torch.Tensor, n_docs: int) -> torch.Tensor:
+    """bool [n_docs]: docs appearing (tf > 0) in ANY selected block (the
+    term/terms filters' any-of mask). A scatter of True: lanes with tf =
+    0 write a dump slot past the end, so no lane needs a host-side
+    filter and the duplicates all write the same value."""
+    sel = sel_blocks.long()
+    d = block_docids[sel].reshape(-1).long()
+    hit = block_tfs[sel].reshape(-1) > 0.0
+    mask = torch.zeros(n_docs + 1, dtype=torch.bool, device=d.device)
+    mask[torch.where(hit, d, n_docs)] = True
+    return mask[:n_docs]
+
+
+def match_count(block_docids: torch.Tensor, block_tfs: torch.Tensor,
+                sel_blocks: torch.Tensor, clause_ids: torch.Tensor,
+                n_clauses: int, n_docs: int) -> torch.Tensor:
+    """int32 [n_docs]: the number of distinct clauses each doc matches
+    (bool must / minimum_should_match). Each selected block carries its
+    owning clause's id; presence is scattered into a [n_docs, n_clauses]
+    plane (tf = 0 lanes into a dump row past the end), then summed."""
+    sel = sel_blocks.long()
+    d = block_docids[sel].long()                         # [NB, B]
+    hit = block_tfs[sel] > 0.0
+    cid = clause_ids.long()[:, None].expand_as(d)
+    present = torch.zeros((n_docs + 1) * n_clauses, dtype=torch.bool,
+                          device=d.device)
+    present[(torch.where(hit, d, n_docs) * n_clauses + cid).reshape(-1)] = \
+        True
+    return present.view(n_docs + 1, n_clauses)[:n_docs].sum(
+        dim=1, dtype=torch.int32)
+
+
 def scan_run_bound(n_terms: int, floor: int = 32) -> int:
     """``max_run`` for the doubling segmented scans: the smallest power
     of two >= max(n_terms, floor). The scan's window equals this bound

@@ -13,6 +13,11 @@ Shape discipline:
 
 Text and keyword postings upload alike (keyword postings are tf = 1).
 
+Numeric doc values upload as float32 [n_docs_padded] columns with a bool
+missing mask (NaN -> 0, padding missing), as the reference's do: range
+bounds and sort keys compare in float32, so an epoch-millisecond date
+(~1.8e12) is exact only to its float32 spacing of 2^17 ms.
+
 Filter masks (the fast path's bool+filter bodies) are bool columns built
 on the host from the postings and uploaded once, in an LRU of
 ``FILTER_MASK_CACHE_MAX`` entries per DeviceSegment.
@@ -123,6 +128,25 @@ class DevicePostings:
                 self._derived[key] = build()
             return self._derived[key]
 
+    def select_blocks(self, term_ids, weights) -> Tuple[np.ndarray,
+                                                        np.ndarray]:
+        """Host-side: term ids + per-term weights -> (block ids, per-block
+        weights), padded with the zero block (weight 0) to a power-of-two
+        bucket. A term id < 0 (absent here) selects nothing."""
+        ids, ws = [], []
+        for tid, w in zip(term_ids, weights):
+            if tid < 0:
+                continue
+            start = int(self.term_block_start[tid])
+            count = int(self.term_block_count[tid])
+            ids.extend(range(start, start + count))
+            ws.extend([w] * count)
+        n = block_bucket(max(1, len(ids)))
+        pad = n - len(ids)
+        ids.extend([self.zero_block] * pad)
+        ws.extend([0.0] * pad)
+        return np.asarray(ids, np.int32), np.asarray(ws, np.float32)
+
     def block_bounds(self):
         """Per-block (first, last) docids, int64 [TB] each: a block's
         real postings are a docid-ascending prefix (tf = 0 pads sit at
@@ -173,6 +197,25 @@ class DeviceSegment:
             f: DevicePostings(pf, self.n_docs_padded, self.device)
             for f, pf in segment.postings.items()
         }
+        # numeric doc values as dense device columns (range filters,
+        # numeric terms, sorts)
+        self.numerics: Dict[str, torch.Tensor] = {}
+        self.numeric_missing: Dict[str, torch.Tensor] = {}
+        for f, nv in segment.numerics.items():
+            vals = np.zeros(self.n_docs_padded, np.float64)
+            vals[: len(nv.values)] = np.nan_to_num(nv.values, nan=0.0)
+            miss = np.ones(self.n_docs_padded, bool)
+            miss[: len(nv.missing)] = nv.missing
+            self.numerics[f] = torch.from_numpy(
+                vals.astype(np.float32)).to(self.device)
+            self.numeric_missing[f] = torch.from_numpy(miss).to(self.device)
+        real = np.zeros(self.n_docs_padded, bool)
+        real[: self.n_docs] = True
+        # the real (non-padding) docs, and the all-true [1, ND] mask row
+        # the dense scorer hands the contribution kernel
+        self.all_true = torch.from_numpy(real).to(self.device)
+        self.all_docs_row = torch.ones((1, self.n_docs_padded),
+                                       dtype=torch.bool, device=self.device)
 
     def bound_plan(self, key: tuple, make):
         """The cached bound plan under ``key``, else ``make()`` cached."""

@@ -51,6 +51,7 @@ import torch.nn.functional as F
 
 from elasticsearch_tpu_torch.ops.bm25 import (_SENTINEL, bm25_contrib,
                                               doubling_scan, scan_run_bound)
+from elasticsearch_tpu_torch.ops.bm25_contrib import gather_bm25_contrib
 from elasticsearch_tpu_torch.ops.topk import stable_topk
 
 MUST = 0
@@ -108,10 +109,12 @@ def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def plan_topk_body(streams, group_kind, group_req, group_const, live,
                    n_must, n_filter, msm, bonus, tie,
                    k1: float, b: float, k: int, combine: str,
-                   max_run: int):
+                   max_run: int, dense_mask=None, after_score=None):
     """The program on device tensors: per-query ``group_*`` [Q, G],
     ``n_must``/``n_filter``/``msm`` int32 [Q, 1], ``bonus``/``tie``
-    float32 [Q, 1], streams with [Q, NB] selections on the device.
+    float32 [Q, 1], streams with [Q, NB] selections on the device; the
+    optional ``dense_mask`` bool [ND] is shared by the cohort, the
+    optional ``after_score`` float32 [Q, 1] is each query's cursor.
     Returns (vals float32 [Q, k], ids int32 [Q, k], total int32 [Q])."""
     keys, contribs = [], []
     for st in streams:
@@ -178,6 +181,13 @@ def plan_topk_body(streams, group_kind, group_req, group_const, live,
               & (doc_filt >= n_filter.to(torch.float32))
               & (doc_should >= msm.to(torch.float32))
               & (doc_mnot == 0.0))
+    if dense_mask is not None:
+        passed = passed & dense_mask[
+            dkey.clamp(max=dense_mask.shape[0] - 1).long()]
+    if after_score is not None:
+        # search_after on _score: strictly after the cursor; ties are
+        # excluded, as in the dense executor
+        passed = passed & (score < after_score)
     cand = torch.where(passed, score, float("-inf"))
     vals, ids = stable_topk(cand, dkey, k)
     return vals, ids, passed.sum(dim=1, dtype=torch.int32)
@@ -211,10 +221,13 @@ def plan_topk_batch(streams, group_kind, group_req, group_const, live,
                     n_must, n_filter, msm, bonus, tie,
                     k1: float = 1.2, b: float = 0.75, k: int = 10,
                     combine: str = "sum",
-                    max_run: Optional[int] = None) -> torch.Tensor:
+                    max_run: Optional[int] = None, dense_mask=None,
+                    after_score=None) -> torch.Tensor:
     """Batched entry: every per-query array has a leading [Q] axis (host
     arrays go up once, here, onto ``live``'s device); the corpus arrays
-    inside ``streams`` are shared. Returns PACKED [Q, 2k+1] rows
+    inside ``streams`` are shared, as is the optional bool [ND]
+    ``dense_mask`` (one column for the whole cohort). ``after_score``
+    is None or one cursor per query. Returns PACKED [Q, 2k+1] rows
     (pack_result): one readback serves the whole cohort. ``max_run``
     bounds a doc's run (``scan_run_bound`` of the most term entries of
     any query); by default the selection width, which is always safe."""
@@ -237,7 +250,9 @@ def plan_topk_batch(streams, group_kind, group_req, group_const, live,
         col(n_must, torch.int32), col(n_filter, torch.int32),
         col(msm, torch.int32), col(bonus, torch.float32),
         col(tie, torch.float32), float(k1), float(b), int(k), combine,
-        int(max_run)))
+        int(max_run),
+        None if dense_mask is None else _up(dense_mask, torch.bool, dev),
+        None if after_score is None else col(after_score, torch.float32)))
 
 
 def plan_topk(streams, group_kind, group_req, group_const, live,
@@ -245,10 +260,12 @@ def plan_topk(streams, group_kind, group_req, group_const, live,
               bonus: float = 0.0, tie: float = 0.0,
               k1: float = 1.2, b: float = 0.75, k: int = 10,
               combine: str = "sum", packed: bool = False,
-              max_run: Optional[int] = None):
+              max_run: Optional[int] = None, dense_mask=None,
+              after_score: Optional[float] = None):
     """Single-query entry (Q = 1): streams carry [NB] selections and the
-    group arrays are [G]. Returns (vals [k], ids [k], total) tensors, or
-    ONE packed [2k+1] tensor with ``packed=True``."""
+    group arrays are [G]; ``dense_mask`` (bool [ND]) and ``after_score``
+    as in ``plan_topk_batch``. Returns (vals [k], ids [k], total)
+    tensors, or ONE packed [2k+1] tensor with ``packed=True``."""
     def row(a):
         return a[None] if isinstance(a, torch.Tensor) else np.asarray(a)[None]
     sts = [st._replace(sel_blocks=row(st.sel_blocks),
@@ -258,11 +275,61 @@ def plan_topk(streams, group_kind, group_req, group_const, live,
     out = plan_topk_batch(
         sts, row(group_kind), row(group_req), row(group_const), live,
         [n_must], [n_filter], [msm], [bonus], [tie], k1=k1, b=b, k=k,
-        combine=combine, max_run=max_run)[0]
+        combine=combine, max_run=max_run, dense_mask=dense_mask,
+        after_score=None if after_score is None else [after_score])[0]
     if packed:
         return out
     return out[:k], out[k:2 * k].to(torch.int64).clamp(
         max=_SENTINEL).to(torch.int32), out[2 * k].to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The dense executor's scorer
+# ---------------------------------------------------------------------------
+
+def _run_last_scatter_indices(dkey: torch.Tensor, is_last: torch.Tensor,
+                              nd: int) -> torch.Tensor:
+    """Scatter targets of a sorted run: each run-last lane writes its
+    docid; every other lane writes the dump slot ``nd`` past the end,
+    which the caller cuts off (the reference gives each such lane its own
+    out-of-bounds slot and drops them)."""
+    return torch.where(is_last & (dkey != _SENTINEL), dkey,
+                       nd).to(torch.int64)
+
+
+def bm25_dense_scores_sorted(block_docids, block_tfs, sel_blocks,
+                             sel_weights, doc_lens, avg_len: float,
+                             k1: float, b: float, max_run: int = 32,
+                             mask_row=None) -> torch.Tensor:
+    """Dense per-doc BM25 scores float32 [ND] of the selected blocks
+    (``sel_blocks`` int32 [NB], ``sel_weights`` float32 [NB], padded
+    with the zero block at weight 0): 0.0 where a doc matches nothing.
+
+    The gather and contribution run in the contribution kernel
+    (``gather_bm25_contrib``) as a cohort of one query whose mask row
+    ``mask_row`` (bool [1, ND], every doc: the dense scorer does not
+    mask by liveness) is all true, giving the reference's ``dkey``/``c``
+    before its sort; then a stable sort by docid, the doubling scan
+    (``max_run`` must bound the term instances of one doc: callers pass
+    ``scan_run_bound(n_terms)``) and one scatter of the run-last lanes.
+    ``avg_len`` is the shard's average field length (rounded to float32
+    here, as the reference's ``jnp.float32``)."""
+    nd = doc_lens.shape[0]
+    dev = doc_lens.device
+    if mask_row is None:
+        mask_row = torch.ones((1, nd), dtype=torch.bool, device=dev)
+    sel = _up(sel_blocks, torch.int32, dev).reshape(1, -1).contiguous()
+    w = _up(sel_weights, torch.float32, dev).reshape(1, -1).contiguous()
+    keys, contrib = gather_bm25_contrib(
+        block_docids, block_tfs, sel, w, doc_lens, mask_row,
+        torch.zeros(1, dtype=torch.int32, device=dev),
+        float(np.float32(avg_len)), k1, b)
+    dkey, perm = torch.sort(keys[0], stable=True)
+    x = doubling_scan(dkey, contrib[0][perm], max_run)
+    is_last = dkey != F.pad(dkey[1:], (0, 1), value=-1)
+    scores = torch.zeros(nd + 1, dtype=torch.float32, device=dev)
+    scores[_run_last_scatter_indices(dkey, is_last, nd)] = x
+    return scores[:nd]
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 ``jax.lax.top_k`` returns, among equal values, the lowest index first;
 ``torch.topk`` on CUDA promises no order among ties. Rows here are laid
 out in ascending docid order, so the lowest position is the lowest
-docid, Lucene's tie order. The fast-path lanes (ops/fastpath.py) and
-the plan path (ops/plan.py) share this one top-k.
+docid, Lucene's tie order. The fast-path lanes (ops/fastpath.py), the
+plan path (ops/plan.py) and the dense executor (``masked_topk``) share
+this one top-k.
 """
 
 from __future__ import annotations
@@ -49,3 +50,18 @@ def stable_topk(cand: torch.Tensor, keys: torch.Tensor, k: int,
     if bound_slot:
         return vals, ids, top[:, k]
     return vals, ids
+
+
+def masked_topk(scores: torch.Tensor, mask: torch.Tensor, k: int):
+    """Top-k of ``scores`` [ND] over the docs of ``mask`` [ND] only:
+    (vals float32 [k], docids int32 [k]), value descending, and among
+    equal values the LOWEST docid first (what ``lax.top_k`` gives). The
+    caller supplies the full mask (matched & live & not padding): a
+    filter-only query legitimately scores 0.0, so matching is not
+    inferred from the score. A value of -inf means fewer than k docs
+    passed; its docid is ``_SENTINEL``."""
+    cand = torch.where(mask, scores, float("-inf"))[None]
+    docids = torch.arange(scores.shape[0], dtype=torch.int32,
+                          device=scores.device)[None]
+    vals, ids = stable_topk(cand, docids, k)
+    return vals[0], ids[0]

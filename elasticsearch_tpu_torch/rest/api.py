@@ -26,8 +26,10 @@ each MATCH1 is a match on the same field whose text is one token.
 Everything else goes to the plan path (search/service.py): other bool
 shapes, term, terms, constant_score, multi_match, dis_max,
 ``post_filter``, ``from`` > 0, ``size`` up to 10000 and indices of
-several segments. What neither serves is answered with a typed 400,
-never on another device.
+several segments, and the dense executor behind it: range, exists, ids,
+match_all, boosting, term(s) on numbers, booleans and dates, ``sort``,
+``search_after`` and ``min_score``. What none serves is answered with a
+typed 400, never on another device.
 
 Behind the native front (rest/native_http.py) the hot bodies of its one
 registered index, with ``_source: false``, never reach this module: C++
@@ -47,7 +49,8 @@ import re
 import time
 from typing import Any, Optional, Tuple
 
-from elasticsearch_tpu_torch.index.mapper import MapperParsingException
+from elasticsearch_tpu_torch.index.mapper import (MapperParsingException,
+                                                  TextFieldType)
 from elasticsearch_tpu_torch.search.fastpath import (MAX_FILTERS,
                                                      SliceUnsupported)
 from elasticsearch_tpu_torch.search.queries import ParsingException
@@ -261,7 +264,8 @@ class RestController:
                 return None
         field, text = m
         segments = svc.engine.segments
-        if (svc.mapper.fields.get(field) != "text" or len(segments) != 1
+        if (not isinstance(svc.mapper.field_type(field), TextFieldType)
+                or len(segments) != 1
                 or field not in segments[0].postings):
             return None
         return segments[0], field, text, filters

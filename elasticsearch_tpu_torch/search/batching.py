@@ -27,7 +27,8 @@ import numpy as np
 
 from elasticsearch_tpu_torch.ops import plan as plan_ops
 from elasticsearch_tpu_torch.ops.device import readback
-from elasticsearch_tpu_torch.search.plan import BoundPlan, empty_result
+from elasticsearch_tpu_torch.search.plan import (BoundPlan, empty_result,
+                                                 execute_bound)
 
 _Q_BUCKETS = (1, 2, 4, 8, 16, 32)
 MAX_BATCH = _Q_BUCKETS[-1]
@@ -83,10 +84,10 @@ class PlanBatcher:
 
     A signature is (segment, live version, per-stream corpus identity,
     shard-level average length and width tier, group-table size,
-    combine, k, k1, b), so a cohort is homogeneous; Q pads to a power of
-    two (the padding rows repeat the first member). The reference keys
-    no average length: a cohort spanning a refresh would score a member
-    with the other's."""
+    combine, k, dense-mask identity, k1, b), so a cohort is homogeneous;
+    Q pads to a power of two (the padding rows repeat the first member).
+    The reference keys no average length: a cohort spanning a refresh
+    would score a member with the other's."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -105,6 +106,12 @@ class PlanBatcher:
         self._lat_ema = 0.0
 
     @staticmethod
+    def _eligible(bp: BoundPlan, after_score) -> bool:
+        """A plan with a per-query dense mask (its own [ND] column) or a
+        ``_score`` search_after cursor launches alone."""
+        return after_score is None and not bp.empty and bp.dense_mask is None
+
+    @staticmethod
     def _signature(bp: BoundPlan, ctx, k: int, k1: float, b: float) -> tuple:
         # a pruned and an unpruned bind of one query may share a
         # signature and a cohort: each row launches its own selection and
@@ -116,14 +123,19 @@ class PlanBatcher:
                    _nb_tier(int(st.sel_blocks.shape[0])))
                   for st in bp.streams),
             int(bp.group_kind.shape[0]), bp.combine, k,
+            id(bp.dense_mask) if bp.dense_mask is not None else None,
             round(k1, 6), round(b, 6),
         )
 
-    def execute(self, bp: BoundPlan, ctx, k: int, k1: float, b: float):
+    def execute(self, bp: BoundPlan, ctx, k: int, k1: float, b: float,
+                after_score: Optional[float] = None):
         """(vals [k], ids [k], total) of ``bp`` on ``ctx``'s segment,
-        launched in a cohort with whatever shares its signature."""
+        launched in a cohort with whatever shares its signature, or
+        alone when it may not batch (``_eligible``)."""
         if bp.empty:
             return empty_result(k)
+        if not self._eligible(bp, after_score):
+            return execute_bound(bp, ctx, k, k1, b, after_score)
         sig = self._signature(bp, ctx, k, k1, b)
         entry = _Entry(bp)
         with self._lock:
@@ -251,7 +263,7 @@ class PlanBatcher:
             np.stack([bp.group_req for bp in bps]),
             np.stack([bp.group_const for bp in bps]), ctx.live,
             [bp.n_must for bp in bps], [bp.n_filter for bp in bps],
-            [bp.msm for bp in bps], np.zeros(bucket, np.float32),
+            [bp.msm for bp in bps], [bp.bonus for bp in bps],
             [bp.tie for bp in bps], k1=k1, b=b, k=k, combine=proto.combine,
             max_run=max(bp.max_run for bp in bps))
         # ONE readback for the whole cohort (rows are packed buffers)

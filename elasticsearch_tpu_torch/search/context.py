@@ -14,6 +14,8 @@ import threading
 from collections import OrderedDict
 from typing import Dict, Iterable, List, Tuple
 
+import torch
+
 from elasticsearch_tpu_torch.device import DeviceLike, resolve_device
 from elasticsearch_tpu_torch.index.segment import Segment
 from elasticsearch_tpu_torch.ops.device import DeviceSegment
@@ -58,19 +60,39 @@ class ShardStats:
 
 
 class SegmentContext:
-    """One segment's view for query execution (postings only)."""
+    """One segment's view for query execution: its device state, the
+    index's mapper and the shard's statistics."""
 
-    def __init__(self, segment: Segment, device: DeviceSegment,
+    def __init__(self, segment: Segment, device: DeviceSegment, mapper,
                  stats: ShardStats, k1: float = 1.2, b: float = 0.75):
         self.segment = segment
         self.device = device
+        self.mapper = mapper
         self.stats = stats
         self.k1 = k1
         self.b = b
 
     @property
+    def n_docs_padded(self) -> int:
+        return self.device.n_docs_padded
+
+    @property
     def live(self):
         return self.device.live
+
+    def all_true(self) -> torch.Tensor:
+        """Mask of all real (non-padding) docs."""
+        return self.device.all_true
+
+    def numeric_column(self, field: str):
+        """(float32 column, bool missing) [n_docs_padded] of a numeric
+        field; a field without doc values here is all missing."""
+        col = self.device.numerics.get(field)
+        if col is None:
+            z = torch.zeros(self.n_docs_padded, dtype=torch.float32,
+                            device=self.device.device)
+            return z, torch.ones_like(z, dtype=torch.bool)
+        return col, self.device.numeric_missing[field]
 
 
 class DeviceSegmentCache:

@@ -1,37 +1,48 @@
 """Query-plan compiler (counterpart of elasticsearch_tpu/search/plan.py):
 QueryBuilder trees -> fused plan launches of ops/plan.py.
 
-A query is plannable when it decomposes into postings **groups**:
-clauses scored or filtered from a text or keyword field's postings
-(match, multi_match, term, terms, constant_score over those), each with
-its own presence requirement (operator=and / minimum_should_match inside
-the clause), composed by one level of bool occur semantics (must /
-filter / should / must_not + minimum_should_match), or a top-level
-dis_max / multi_match over plannable children. Compilation happens once
-per shard (terms analyzed, idf from shard-level stats); binding resolves
-term -> postings-block ids per segment.
+A query is plannable when it decomposes into:
+- postings **groups**: clauses scored or filtered from a text or keyword
+  field's postings (match, multi_match, term, terms, constant_score over
+  those), each with its own presence requirement (operator=and /
+  minimum_should_match inside the clause);
+- **dense factors**: pure column predicates (range, exists, ids,
+  match_all, term(s) on numbers, booleans and dates) in a bool's must,
+  filter or must_not, or a post_filter. At bind time each runs its dense
+  executor (search/queries.py) and the launch ANDs their masks
+  (``BoundPlan.dense_mask``, negated for must_not); a must factor adds
+  its constant score to every hit (``LogicalPlan.bonus``);
+composed by one level of bool occur semantics (must / filter / should /
+must_not + minimum_should_match), or a top-level dis_max / multi_match
+over plannable children. Everything else (a nested bool, a must_not-only
+bool, a dense should clause, a negative boost, ...) goes to the dense
+executor. Compilation happens once per shard (terms analyzed, idf from
+shard-level stats); binding resolves term -> postings-block ids per
+segment.
 
 Block-max window pruning (``_prune_fields``) runs when the caller
-allows it (``track_total_hits`` other than true): postings blocks that
-provably cannot reach the top k leave the selection before the bucket
-is chosen; the hits stay exact and the total becomes a lower bound.
+allows it (``track_total_hits`` other than true) and the plan has no
+dense factor: postings blocks that provably cannot reach the top k
+leave the selection before the bucket is chosen; the hits stay exact and
+the total becomes a lower bound.
 
-Left for later slices, as the reference's: dense column factors (range,
-exists, ids, match_all) with the ``dense_mask`` column and the constant
-``bonus`` they give; ``_convert_filters`` (large FILTER / MUST_NOT
-groups as cached dense masks); ``script_score``. Without the filter
-conversion every FILTER and MUST_NOT group is evaluated in the launch,
-with the same set semantics, so the hits do not change.
+Left for later slices, as the reference's: ``_convert_filters`` (large
+FILTER / MUST_NOT groups as cached dense masks) and ``script_score``.
+Without the filter conversion every FILTER and MUST_NOT group is
+evaluated in the launch, with the same set semantics, so the hits do
+not change.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field as dc_field
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from elasticsearch_tpu_torch.index.mapper import (KeywordFieldType,
+                                                  TextFieldType)
 from elasticsearch_tpu_torch.ops import bm25 as bm25_ops
 from elasticsearch_tpu_torch.ops import plan as plan_ops
 from elasticsearch_tpu_torch.ops.device import (block_bucket, host_any_mask,
@@ -72,9 +83,12 @@ class GroupPlan:
 @dataclass
 class LogicalPlan:
     groups: List[GroupPlan]
+    # dense factors: (clause, negate) -- must_not factors negate
+    dense: List[Tuple[Any, bool]]
     n_must: int                           # MUST groups
     n_filter: int                         # FILTER groups
     msm: int
+    bonus: float                          # summed must-factor scores
     combine: str = "sum"
     tie: float = 0.0
 
@@ -82,6 +96,27 @@ class LogicalPlan:
         """True iff every passing doc must match >= 1 group: the launch
         sees only docs present in the gathered postings."""
         return self.n_must >= 1 or self.n_filter >= 1 or self.msm >= 1
+
+
+# ---------------------------------------------------------------------------
+# clause classification
+# ---------------------------------------------------------------------------
+
+def _is_postings_field(mapper, field: str) -> bool:
+    ft = mapper.field_type(field)
+    return ft is None or isinstance(ft, (TextFieldType, KeywordFieldType))
+
+
+def _is_dense_clause(node, mapper) -> bool:
+    """Clauses whose do_execute builds masks from dense columns only (no
+    postings scatter): range/exists/ids/match_all, and term(s) on a
+    number, boolean or date."""
+    if isinstance(node, (q.RangeQuery, q.ExistsQuery, q.IdsQuery,
+                         q.MatchAllQuery)):
+        return True
+    if isinstance(node, (q.TermQuery, q.TermsQuery)):
+        return not _is_postings_field(mapper, node.field)
+    return False
 
 
 def _idf(searcher, field: str, term: str) -> float:
@@ -96,6 +131,8 @@ def _idf(searcher, field: str, term: str) -> float:
 
 def _group_for_match(node: "q.MatchQuery", searcher, kind: int,
                      scale: float) -> Optional[GroupPlan]:
+    if not _is_postings_field(searcher.mapper, node.field):
+        return None
     terms = q._analyze_terms(searcher, node.field, node.query)
     if not terms:
         return None
@@ -120,8 +157,10 @@ def _group_for_match(node: "q.MatchQuery", searcher, kind: int,
 
 def _group_for_term(node: "q.TermQuery", searcher, kind: int,
                     scale: float) -> Optional[GroupPlan]:
+    if not _is_postings_field(searcher.mapper, node.field):
+        return None
     term = str(node.value)
-    if searcher.mapper.fields.get(node.field) == "text":
+    if isinstance(searcher.mapper.field_type(node.field), TextFieldType):
         g = GroupPlan(kind, 1, NAN)
         g.terms.append(TermEntry(node.field, term,
                                  0, _idf(searcher, node.field, term) * scale,
@@ -137,6 +176,8 @@ def _group_for_term(node: "q.TermQuery", searcher, kind: int,
 
 def _group_for_terms(node: "q.TermsQuery", searcher, kind: int,
                      scale: float) -> Optional[GroupPlan]:
+    if not _is_postings_field(searcher.mapper, node.field):
+        return None
     g = GroupPlan(kind, 1, 1.0 * scale)   # constant_score(1.0) any-of
     for v in node.values:
         g.terms.append(TermEntry(node.field, str(v), 0, 0.0, False))
@@ -178,16 +219,21 @@ def compile_plan(query, searcher,
         return None
     if post_filter is not None:
         g = _group_for_clause(post_filter, searcher, plan_ops.FILTER, 1.0)
-        if g is None:
+        if g is not None:
+            g.const_score = NAN
+            plan.groups.append(g)
+            plan.n_filter += 1
+        elif _is_dense_clause(post_filter, searcher.mapper):
+            plan.dense.append((post_filter, False))
+        else:
             return None
-        g.const_score = NAN
-        plan.groups.append(g)
-        plan.n_filter += 1
     if not plan.postings_required():
         return None
     # negative boosts would feed negative contributions into the
-    # reference's cumsum/cummax segmented sums; it sends them to its
-    # dense executor, which is a later slice here
+    # reference's cumsum/cummax segmented sums: the dense executor
+    # takes them
+    if plan.bonus < 0:
+        return None
     for g in plan.groups:
         if any(t.weight < 0 for t in g.terms):
             return None
@@ -207,47 +253,66 @@ def _compile_tree(query, searcher) -> Optional[LogicalPlan]:
     # the top-level boost is in the group scale via _group_for_clause
     g = _group_for_clause(query, searcher, plan_ops.MUST, 1.0)
     if g is not None:
-        return LogicalPlan([g], 1, 0, 0)
+        return LogicalPlan([g], [], 1, 0, 0, 0.0)
     return None
 
 
 def _compile_bool(node: "q.BoolQuery", searcher,
                   boost: float) -> Optional[LogicalPlan]:
     groups: List[GroupPlan] = []
+    dense: List[Tuple[Any, bool]] = []
+    bonus = 0.0
     n_must = n_filter = 0
+    n_required_any = 0   # must + filter clauses of any kind (msm default)
     for clause in node.must:
         g = _group_for_clause(clause, searcher, plan_ops.MUST, boost)
-        if g is None:
+        if g is not None:
+            groups.append(g)
+            n_must += 1
+        elif _is_dense_clause(clause, searcher.mapper):
+            dense.append((clause, False))
+            # a required constant-score clause adds its score to every
+            # hit (a dense mask scores 1.0 * boost in the dense path)
+            bonus += clause.boost * boost
+        else:
             return None
-        groups.append(g)
-        n_must += 1
+        n_required_any += 1
     for clause in node.filter:
         g = _group_for_clause(clause, searcher, plan_ops.FILTER, 1.0)
-        if g is None:
+        if g is not None:
+            g.const_score = NAN   # filters never score
+            groups.append(g)
+            n_filter += 1
+        elif _is_dense_clause(clause, searcher.mapper):
+            dense.append((clause, False))
+        else:
             return None
-        g.const_score = NAN   # filters never score
-        groups.append(g)
-        n_filter += 1
+        n_required_any += 1
     for clause in node.must_not:
         g = _group_for_clause(clause, searcher, plan_ops.MUST_NOT, 1.0)
-        if g is None:
+        if g is not None:
+            g.const_score = NAN
+            groups.append(g)
+        elif _is_dense_clause(clause, searcher.mapper):
+            dense.append((clause, True))
+        else:
             return None
-        g.const_score = NAN
-        groups.append(g)
     for clause in node.should:
+        # a dense should clause (a conditional +1) goes to the dense
+        # executor, which keeps its exact semantics
         g = _group_for_clause(clause, searcher, plan_ops.SHOULD, boost)
         if g is None:
             return None
         groups.append(g)
 
     if node.minimum_should_match is None:
-        msm = 1 if (node.should and n_must + n_filter == 0) else 0
+        msm = 1 if (node.should and n_required_any == 0) else 0
     else:
         msm = q.parse_minimum_should_match(
             node.minimum_should_match, len(node.should))
     if node.should and msm > len(node.should):
         msm = len(node.should)
-    return LogicalPlan(groups, n_must, n_filter, msm)
+    return LogicalPlan(groups, dense, n_must, n_filter, msm, bonus)
 
 
 def _compile_multi_match(node: "q.MultiMatchQuery", searcher,
@@ -255,7 +320,7 @@ def _compile_multi_match(node: "q.MultiMatchQuery", searcher,
     fields = node.fields
     if not fields or fields == ["*"]:
         fields = [name for name, ft in searcher.mapper.fields.items()
-                  if ft == "text"]
+                  if isinstance(ft, TextFieldType)]
     if not fields:
         return None
     groups = []
@@ -266,11 +331,11 @@ def _compile_multi_match(node: "q.MultiMatchQuery", searcher,
             return None
         groups.append(g)
     if node.type == "most_fields":
-        return LogicalPlan(groups, 0, 0, 1, combine="sum")
+        return LogicalPlan(groups, [], 0, 0, 1, 0.0, combine="sum")
     if node.type == "best_fields":
-        return LogicalPlan(groups, 0, 0, 1, combine="dismax",
+        return LogicalPlan(groups, [], 0, 0, 1, 0.0, combine="dismax",
                            tie=node.tie_breaker)
-    return None   # cross_fields / phrase types: later slices
+    return None   # other types: the dense executor
 
 
 def _compile_dismax(node: "q.DisMaxQuery", searcher,
@@ -283,7 +348,7 @@ def _compile_dismax(node: "q.DisMaxQuery", searcher,
         groups.append(g)
     if not groups:
         return None
-    return LogicalPlan(groups, 0, 0, 1, combine="dismax",
+    return LogicalPlan(groups, [], 0, 0, 1, 0.0, combine="dismax",
                        tie=node.tie_breaker)
 
 
@@ -300,9 +365,12 @@ class BoundPlan:
     group_kind: np.ndarray
     group_req: np.ndarray
     group_const: np.ndarray
+    # AND of the dense factors' masks (bool [ND] on the device), or None
+    dense_mask: Optional[Any]
     n_must: int
     n_filter: int
     msm: int
+    bonus: float
     tie: float
     combine: str
     # bound on a doc's run in the sorted postings: one entry per term
@@ -329,6 +397,13 @@ def bind_plan(plan: LogicalPlan, ctx, k: int = 10,
         raise SliceUnsupported(
             f"a plan holds fewer than {plan_ops.GROUP_LIMIT} clauses and "
             f"fewer than {plan_ops.GROUP_LIMIT} distinct terms per clause")
+    # the dense factors' masks, each from its dense executor
+    dense_mask = None
+    for clause, negate in plan.dense:
+        _, m = clause.do_execute(ctx)
+        m = (~m) if negate else m
+        dense_mask = m if dense_mask is None else (dense_mask & m)
+
     by_field: Dict[str, List[Tuple[int, int, float, bool, str]]] = {}
     for gi, g in enumerate(plan.groups):
         for t in g.terms:
@@ -411,8 +486,9 @@ def bind_plan(plan: LogicalPlan, ctx, k: int = 10,
         const[gi] = g.const_score
     # pad groups: FILTER with unreachable req — never present, and absent
     # FILTER groups don't block (n_filter counts only real groups)
-    return BoundPlan(streams, kind, req, const, plan.n_must, plan.n_filter,
-                     plan.msm, plan.tie, plan.combine,
+    return BoundPlan(streams, kind, req, const, dense_mask, plan.n_must,
+                     plan.n_filter, plan.msm, plan.bonus, plan.tie,
+                     plan.combine,
                      bm25_ops.scan_run_bound(n_entries), empty=not streams,
                      pruned=pruned)
 
@@ -456,7 +532,7 @@ def _prune_fields(plan: LogicalPlan, fields, ctx, k: int):
     subgroup, a FILTER group over several fields, more than 64 entries
     in a field, no verifiable θ."""
     total_blocks = sum(len(f[2]) for f in fields)
-    if total_blocks < PRUNE_MIN_BLOCKS:
+    if total_blocks < PRUNE_MIN_BLOCKS or plan.dense or plan.bonus < 0:
         return fields, False
     dev = ctx.device
     if dev._prune_skip > 0:
@@ -624,14 +700,17 @@ def empty_result(k: int):
             np.full(k, plan_ops._SENTINEL, np.int32), 0)
 
 
-def execute_bound(bp: BoundPlan, ctx, k: int, k1: float, b: float):
+def execute_bound(bp: BoundPlan, ctx, k: int, k1: float, b: float,
+                  after_score: Optional[float] = None):
     """One launch for one segment -> host (vals [k], ids [k], total),
     through ONE packed readback."""
     if bp.empty:
         return empty_result(k)
     packed = plan_ops.plan_topk(
         bp.streams, bp.group_kind, bp.group_req, bp.group_const,
-        ctx.live, bp.n_must, bp.n_filter, bp.msm, tie=bp.tie, k1=k1, b=b,
-        k=k, combine=bp.combine, packed=True, max_run=bp.max_run)
+        ctx.live, bp.n_must, bp.n_filter, bp.msm, bonus=bp.bonus,
+        tie=bp.tie, k1=k1, b=b, k=k, combine=bp.combine, packed=True,
+        max_run=bp.max_run, dense_mask=bp.dense_mask,
+        after_score=after_score)
     return plan_ops.unpack_result(
         readback("search.searcher.plan_topk", packed), k)

@@ -1,19 +1,48 @@
-"""Query DSL (counterpart of elasticsearch_tpu/search/queries.py), the
-subset the plan path compiles: match, multi_match, term, terms, bool,
-constant_score and dis_max over text and keyword fields.
+"""Query DSL (counterpart of elasticsearch_tpu/search/queries.py): JSON
+query tree -> builders that execute per segment on the device.
 
-Builders here are parse trees only. The plan compiler (search/plan.py)
-turns a tree into one fused launch of ops/plan.py; the reference's dense
-executor (``do_execute``, a dense [ND] score/mask pair per clause) is not
-ported. Any other query name, dense clauses (range, exists, ids,
-match_all) included, raises ``SliceUnsupported``: a typed 400.
+Each builder's ``execute(ctx)`` returns ``(scores, mask)`` tensors on the
+segment's device:
+
+- ``scores`` float32 [ND_padded]: relevance (0 where unmatched or
+  filter-only, as ES scores a filter-only bool 0.0);
+- ``mask`` bool [ND_padded]: which docs matched.
+
+This is the reference's dense executor: a bool query is mask algebra and
+score addition over dense columns, operator-and and minimum_should_match
+are clause counts (ops/bm25.py ``match_count``), BM25 text scoring is
+ops/plan.py ``bm25_dense_scores_sorted`` (whose gather and contribution
+run in the contribution kernel). The plan compiler (search/plan.py)
+turns the trees it can into one fused launch instead and reads the same
+builders as parse trees.
+
+Served: match_all, match_none, match, multi_match, term, terms, range,
+exists, ids, bool, constant_score, dis_max and boosting, over text,
+keyword, numeric, boolean and date fields (a multi_match of a type other
+than most_fields scores as best_fields, as the reference's dense path
+does). term/terms/range/exists on numbers, booleans and dates compare
+the float32 doc-value column (ops/device.py) with the bound rounded to
+float32, as the reference's weakly typed jnp compare does. Range-typed,
+geo, ``ip`` and ``constant_keyword`` fields are refused by the mapper (a
+later slice), so their branches are too. Every other query type the
+reference knows raises ``SliceUnsupported`` (a typed 400); a name it
+does not know is a ``ParsingException``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
+import torch
+
+from elasticsearch_tpu_torch.index.mapper import (KeywordFieldType,
+                                                  TextFieldType)
+from elasticsearch_tpu_torch.ops import bm25 as bm25_ops
+from elasticsearch_tpu_torch.ops.plan import bm25_dense_scores_sorted
 from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
+
+Result = Tuple[torch.Tensor, torch.Tensor]   # (scores f32, mask bool)
 
 
 class ParsingException(ValueError):
@@ -46,16 +75,98 @@ def parse_minimum_should_match(value, n_clauses: int) -> int:
     return max(0, min(n, n_clauses))
 
 
+def _f32(v: float) -> float:
+    """``v`` rounded to float32: a bound or key compared with a float32
+    doc-value column, as the reference's jnp compare rounds it."""
+    return float(np.float32(float(v)))
+
+
+def _nothing(ctx) -> Result:
+    z = torch.zeros(ctx.n_docs_padded, dtype=torch.float32,
+                    device=ctx.device.device)
+    return z, z.to(torch.bool)
+
+
+def _constant(mask: torch.Tensor) -> Result:
+    return mask.to(torch.float32), mask
+
+
 class QueryBuilder:
+    name = "?"
 
     def __init__(self):
         self.boost = 1.0
+
+    def execute(self, ctx) -> Result:
+        scores, mask = self.do_execute(ctx)
+        if self.boost != 1.0:
+            scores = scores * self.boost
+        return scores, mask
+
+    def do_execute(self, ctx) -> Result:
+        raise NotImplementedError
+
+    def can_match(self, ctx) -> bool:
+        """False when no doc of the segment can match (the searcher
+        skips the segment)."""
+        return True
+
+
+class MatchAllQuery(QueryBuilder):
+    name = "match_all"
+
+    def do_execute(self, ctx):
+        return _constant(ctx.all_true())
+
+
+class MatchNoneQuery(QueryBuilder):
+    name = "match_none"
+
+    def do_execute(self, ctx):
+        return _nothing(ctx)
+
+    def can_match(self, ctx):
+        return False
+
+
+def _analyze_terms(ctx, field: str, text: str) -> List[str]:
+    """A text field's analyzed terms; on any other field the literal
+    value is the one term. ``ctx`` carries the index's ``mapper``."""
+    if isinstance(ctx.mapper.field_type(field), TextFieldType):
+        return [t.term for t in ctx.mapper.analyzer.analyze(text)]
+    return [str(text)]
+
+
+def _bm25_terms(ctx, field: str, terms: List[str]) -> Result:
+    """BM25 over the field's postings for the given terms (duplicates
+    count twice), dense over the segment."""
+    dp = ctx.device.postings.get(field)
+    if dp is None:
+        return _nothing(ctx)
+    doc_count, avg_len = ctx.stats.field_stats(field)
+    tids, weights = [], []
+    for t in terms:
+        df = ctx.stats.doc_freq(field, t)
+        tids.append(dp.host.term_id(t))
+        weights.append(bm25_ops.idf(df, doc_count) if df > 0 else 0.0)
+    sel, ws = dp.select_blocks(tids, weights)
+    scores = bm25_dense_scores_sorted(
+        dp.block_docids, dp.block_tfs, sel, ws, dp.doc_lens, avg_len,
+        ctx.k1, ctx.b, max_run=bm25_ops.scan_run_bound(len(tids)),
+        mask_row=ctx.device.all_docs_row)
+    return scores, scores > 0.0
+
+
+def _selection(dp, ctx, term_ids) -> torch.Tensor:
+    sel, _ = dp.select_blocks(term_ids, [1.0] * len(term_ids))
+    return torch.from_numpy(sel).to(ctx.device.device)
 
 
 class MatchQuery(QueryBuilder):
     """Analyzed full-text query; multi-term OR/AND with
     minimum_should_match."""
 
+    name = "match"
 
     def __init__(self, field: str, query: str, operator: str = "or",
                  minimum_should_match: Optional[Any] = None):
@@ -65,10 +176,45 @@ class MatchQuery(QueryBuilder):
         self.operator = operator.lower()
         self.minimum_should_match = minimum_should_match
 
+    def do_execute(self, ctx):
+        terms = _analyze_terms(ctx, self.field, self.query)
+        if not terms:
+            return _nothing(ctx)
+        scores, mask = _bm25_terms(ctx, self.field, terms)
+        required = None
+        if self.operator == "and":
+            required = len(terms)
+        elif self.minimum_should_match:
+            required = parse_minimum_should_match(
+                self.minimum_should_match, len(terms))
+        if required is not None and required > 1:
+            dp = ctx.device.postings.get(self.field)
+            if dp is None:
+                return scores, mask
+            uniq = sorted(set(terms))
+            sels, cids = [], []
+            for ci, t in enumerate(uniq):
+                s, _ = dp.select_blocks([dp.host.term_id(t)], [1.0])
+                sels.append(s)
+                cids.append(np.full(len(s), ci, np.int32))
+            dev = ctx.device.device
+            counts = bm25_ops.match_count(
+                dp.block_docids, dp.block_tfs,
+                torch.from_numpy(np.concatenate(sels)).to(dev),
+                torch.from_numpy(np.concatenate(cids)).to(dev),
+                len(uniq), ctx.n_docs_padded)
+            need = (len(uniq) if self.operator == "and"
+                    else min(required, len(uniq)))
+            mask = mask & (counts >= need)
+            scores = torch.where(mask, scores, 0.0)
+        return scores, mask
+
 
 class MultiMatchQuery(QueryBuilder):
-    """best_fields (dis-max over per-field match) and most_fields (sum)."""
+    """most_fields (sum of per-field match) and, for every other type,
+    best_fields (dis-max over them), as the reference's dense path."""
 
+    name = "multi_match"
 
     def __init__(self, fields: List[str], query: str,
                  type_: str = "best_fields", tie_breaker: float = 0.0):
@@ -78,32 +224,160 @@ class MultiMatchQuery(QueryBuilder):
         self.type = type_
         self.tie_breaker = tie_breaker
 
+    def do_execute(self, ctx):
+        fields = self.fields
+        if not fields or fields == ["*"]:
+            fields = [name for name, ft in ctx.mapper.fields.items()
+                      if isinstance(ft, TextFieldType)]
+        if not fields:
+            return _nothing(ctx)
+        results = [MatchQuery(f, self.query).execute(ctx) for f in fields]
+        any_mask = results[0][1]
+        total = results[0][0]
+        for s, m in results[1:]:
+            any_mask = any_mask | m
+            total = total + s
+        if self.type == "most_fields":
+            return total, any_mask
+        best = torch.stack([s for s, _ in results]).amax(dim=0)
+        if self.tie_breaker > 0.0:
+            best = best + self.tie_breaker * (total - best)
+        return best, any_mask
+
 
 class TermQuery(QueryBuilder):
     """Exact term: BM25 on a text field; on a keyword field BM25 with
-    tf = 1 and no norms, idf/(1+k1), a constant per match."""
+    tf = 1 and no norms, idf/(1+k1), a constant per match; on a number,
+    boolean or date a constant-score point match."""
 
+    name = "term"
 
     def __init__(self, field: str, value: Any):
         super().__init__()
         self.field = field
         self.value = value
 
+    def do_execute(self, ctx):
+        ft = ctx.mapper.field_type(self.field)
+        if ft is None or isinstance(ft, (TextFieldType, KeywordFieldType)):
+            dp = ctx.device.postings.get(self.field)
+            if dp is None:
+                return _nothing(ctx)
+            term = str(self.value)
+            if isinstance(ft, TextFieldType):
+                # unanalyzed exact term, BM25-scored
+                return _bm25_terms(ctx, self.field, [term])
+            mask = bm25_ops.match_mask(
+                dp.block_docids, dp.block_tfs,
+                _selection(dp, ctx, [dp.host.term_id(term)]),
+                ctx.n_docs_padded)
+            doc_count, _ = ctx.stats.field_stats(self.field)
+            df = ctx.stats.doc_freq(self.field, term)
+            w = bm25_ops.idf(df, doc_count) if df else 0.0
+            const = w * 1.0 / (1.0 + ctx.k1)   # tf=1, no norms
+            return mask.to(torch.float32) * const, mask
+        # numeric/date/boolean: point match, constant score
+        col, miss = ctx.numeric_column(self.field)
+        mask = (~miss) & (col == _f32(ft.parse(self.value))) \
+            & ctx.all_true()
+        return _constant(mask)
+
 
 class TermsQuery(QueryBuilder):
     """Any of the values, constant score 1.0."""
 
+    name = "terms"
 
     def __init__(self, field: str, values: List[Any]):
         super().__init__()
         self.field = field
         self.values = values
 
+    def do_execute(self, ctx):
+        ft = ctx.mapper.field_type(self.field)
+        if ft is None or isinstance(ft, (TextFieldType, KeywordFieldType)):
+            dp = ctx.device.postings.get(self.field)
+            if dp is None:
+                return _nothing(ctx)
+            tids = [dp.host.term_id(str(v)) for v in self.values]
+            return _constant(bm25_ops.match_mask(
+                dp.block_docids, dp.block_tfs, _selection(dp, ctx, tids),
+                ctx.n_docs_padded))
+        col, miss = ctx.numeric_column(self.field)
+        mask = torch.zeros_like(miss)
+        for v in self.values:
+            mask = mask | (col == _f32(ft.parse(v)))
+        return _constant(mask & (~miss) & ctx.all_true())
+
+
+class RangeQuery(QueryBuilder):
+    """Bounds on a number, boolean or date column (missing docs never
+    match); an unmapped field matches nothing."""
+
+    name = "range"
+
+    def __init__(self, field: str, gte=None, gt=None, lte=None, lt=None):
+        super().__init__()
+        self.field = field
+        self.gte, self.gt, self.lte, self.lt = gte, gt, lte, lt
+
+    def do_execute(self, ctx):
+        ft = ctx.mapper.field_type(self.field)
+        if ft is None:
+            return _nothing(ctx)
+        col, miss = ctx.numeric_column(self.field)
+        mask = (~miss) & ctx.all_true()
+        if self.gte is not None:
+            mask = mask & (col >= _f32(ft.parse(self.gte)))
+        if self.gt is not None:
+            mask = mask & (col > _f32(ft.parse(self.gt)))
+        if self.lte is not None:
+            mask = mask & (col <= _f32(ft.parse(self.lte)))
+        if self.lt is not None:
+            mask = mask & (col < _f32(ft.parse(self.lt)))
+        return _constant(mask)
+
+
+class ExistsQuery(QueryBuilder):
+    name = "exists"
+
+    def __init__(self, field: str):
+        super().__init__()
+        self.field = field
+
+    def do_execute(self, ctx):
+        dev = ctx.device
+        if self.field in dev.postings:
+            mask = dev.postings[self.field].doc_lens > 0
+        elif self.field in dev.numerics:
+            mask = ~dev.numeric_missing[self.field]
+        else:
+            return _nothing(ctx)
+        return _constant(mask & ctx.all_true())
+
+
+class IdsQuery(QueryBuilder):
+    name = "ids"
+
+    def __init__(self, values: List[str]):
+        super().__init__()
+        self.values = values
+
+    def do_execute(self, ctx):
+        m = np.zeros(ctx.n_docs_padded, bool)
+        for doc_id in self.values:
+            docid = ctx.segment.docid_for(str(doc_id))
+            if docid >= 0:
+                m[docid] = True
+        return _constant(torch.from_numpy(m).to(ctx.device.device))
+
 
 class BoolQuery(QueryBuilder):
     """must (scoring, required), filter (required, not scoring), should
-    (scoring, optional unless no must/filter), must_not (excluded)."""
+    (scoring, optional unless no must/filter), must_not (excluded),
+    composed as mask algebra over dense columns."""
 
+    name = "bool"
 
     def __init__(self, must=None, filter=None, should=None, must_not=None,
                  minimum_should_match: Optional[Any] = None):
@@ -114,28 +388,108 @@ class BoolQuery(QueryBuilder):
         self.must_not = must_not or []
         self.minimum_should_match = minimum_should_match
 
+    def do_execute(self, ctx):
+        scores = torch.zeros(ctx.n_docs_padded, dtype=torch.float32,
+                             device=ctx.device.device)
+        mask = ctx.all_true()
+        for q in self.must:
+            s, m = q.execute(ctx)
+            scores = scores + s
+            mask = mask & m
+        for q in self.filter:
+            _, m = q.execute(ctx)
+            mask = mask & m
+        for q in self.must_not:
+            _, m = q.execute(ctx)
+            mask = mask & (~m)
+        if self.should:
+            should_results = [q.execute(ctx) for q in self.should]
+            for s, _ in should_results:
+                scores = scores + s
+            if self.minimum_should_match is None:
+                msm = 1 if not (self.must or self.filter) else 0
+            else:
+                msm = parse_minimum_should_match(
+                    self.minimum_should_match, len(self.should))
+            if msm > 0:
+                count = torch.zeros(ctx.n_docs_padded, dtype=torch.int32,
+                                    device=ctx.device.device)
+                for _, m in should_results:
+                    count = count + m.to(torch.int32)
+                mask = mask & (count >= msm)
+        # after every clause: the boost multiplies in execute()
+        scores = torch.where(mask, scores, 0.0)
+        return scores, mask
+
 
 class ConstantScoreQuery(QueryBuilder):
+    name = "constant_score"
 
     def __init__(self, filter_query: QueryBuilder):
         super().__init__()
         self.filter_query = filter_query
 
+    def do_execute(self, ctx):
+        _, mask = self.filter_query.execute(ctx)
+        return _constant(mask)
+
 
 class DisMaxQuery(QueryBuilder):
+    name = "dis_max"
 
     def __init__(self, queries: List[QueryBuilder], tie_breaker: float = 0.0):
         super().__init__()
         self.queries = queries
         self.tie_breaker = tie_breaker
 
+    def do_execute(self, ctx):
+        results = [q.execute(ctx) for q in self.queries]
+        mask = results[0][1]
+        total = results[0][0]
+        for s, m in results[1:]:
+            mask = mask | m
+            total = total + s
+        best = torch.stack([s for s, _ in results]).amax(dim=0)
+        if self.tie_breaker > 0.0:
+            best = best + self.tie_breaker * (total - best)
+        return torch.where(mask, best, 0.0), mask
 
-def _analyze_terms(ctx, field: str, text: str) -> List[str]:
-    """A text field's analyzed terms; on any other field the literal
-    value is the one term. ``ctx`` carries the index's ``mapper``."""
-    if ctx.mapper.fields.get(field) == "text":
-        return [t.term for t in ctx.mapper.analyzer.analyze(text)]
-    return [str(text)]
+
+class BoostingQuery(QueryBuilder):
+    """Demote (not exclude) the positive query's docs that match the
+    negative one."""
+
+    name = "boosting"
+
+    def __init__(self, positive: QueryBuilder, negative: QueryBuilder,
+                 negative_boost: float):
+        super().__init__()
+        self.positive = positive
+        self.negative = negative
+        self.negative_boost = negative_boost
+
+    def do_execute(self, ctx):
+        s, mask = self.positive.execute(ctx)
+        _, neg = self.negative.execute(ctx)
+        return torch.where(neg, s * self.negative_boost, s), mask
+
+
+# ---------------------------------------------------------------------------
+# parsing
+# ---------------------------------------------------------------------------
+
+# the reference's other query types: each a later slice of the port
+_LATER_SLICE = {
+    "script_score", "knn", "function_score", "rank_feature",
+    "geo_distance", "geo_bounding_box", "geo_polygon", "geo_shape",
+    "match_phrase", "match_phrase_prefix", "match_bool_prefix", "prefix",
+    "wildcard", "regexp", "fuzzy", "more_like_this", "pinned",
+    "distance_feature", "query_string", "simple_query_string", "nested",
+    "text_expansion", "weighted_tokens", "intervals", "span_term",
+    "span_or", "span_near", "span_multi", "span_first", "span_not",
+    "span_containing", "span_within", "field_masking_span",
+    "span_field_masking", "terms_set", "script", "wrapper", "has_child",
+    "has_parent", "parent_id", "percolate"}
 
 
 def parse_query(body: Dict[str, Any]) -> QueryBuilder:
@@ -146,9 +500,11 @@ def parse_query(body: Dict[str, Any]) -> QueryBuilder:
     (qtype, spec), = body.items()
     parser = _PARSERS.get(qtype)
     if parser is None:
-        raise SliceUnsupported(
-            f"query [{qtype}] is a later slice of the port: this slice "
-            f"serves {', '.join(sorted(_PARSERS))}")
+        if qtype in _LATER_SLICE:
+            raise SliceUnsupported(
+                f"query [{qtype}] is a later slice of the port: this slice "
+                f"serves {', '.join(sorted(_PARSERS))}")
+        raise ParsingException(f"unknown query [{qtype}]")
     return parser(spec)
 
 
@@ -195,6 +551,18 @@ def _parse_terms(spec):
     return _with_boost(TermsQuery(field, list(values)), spec)
 
 
+def _parse_range(spec):
+    if not isinstance(spec, dict) or len(spec) != 1:
+        raise ParsingException("[range] query malformed")
+    (field, params), = spec.items()
+    # `from`/`to` legacy aliases
+    gte = params.get("gte", params.get("from"))
+    lte = params.get("lte", params.get("to"))
+    return _with_boost(
+        RangeQuery(field, gte=gte, gt=params.get("gt"),
+                   lte=lte, lt=params.get("lt")), params)
+
+
 def _parse_bool(spec):
     def parse_clauses(key):
         v = spec.get(key, [])
@@ -219,12 +587,20 @@ def _parse_dis_max(spec):
 
 
 _PARSERS = {
+    "match_all": lambda spec: _with_boost(MatchAllQuery(), spec),
+    "match_none": lambda spec: MatchNoneQuery(),
     "match": _parse_match,
     "multi_match": _parse_multi_match,
     "term": _parse_term,
     "terms": _parse_terms,
+    "range": _parse_range,
+    "exists": lambda spec: ExistsQuery(spec["field"]),
+    "ids": lambda spec: IdsQuery(list(spec.get("values", []))),
     "bool": _parse_bool,
     "constant_score": lambda spec: _with_boost(
         ConstantScoreQuery(parse_query(spec["filter"])), spec),
     "dis_max": _parse_dis_max,
+    "boosting": lambda spec: BoostingQuery(
+        parse_query(spec["positive"]), parse_query(spec["negative"]),
+        float(spec.get("negative_boost", 0.5))),
 }

@@ -1,12 +1,15 @@
-"""`_search` on the plan path (counterpart of the single-node part of
-elasticsearch_tpu/search/service.py `SearchService.search`, reduced):
-parse the body, run the query phase then the fetch phase on the index's
-one shard, shape the response.
+"""`_search` on the plan path and the dense executor (counterpart of
+the single-node part of elasticsearch_tpu/search/service.py
+`SearchService.search`, reduced): parse the body, run the query phase
+then the fetch phase on the index's one shard, shape the response.
 
-The body may carry ``query``, ``size``, ``from``, ``post_filter``,
+The body may carry ``query`` (default ``match_all``), ``size``,
+``from``, ``post_filter``, ``min_score``, ``sort``, ``search_after``,
 ``track_total_hits`` (true, false or a threshold) and ``_source`` (true
-or false). Everything else (aggregations, sort, source filtering, ...)
-is a later slice and answers a typed 400.
+or false). Everything else (aggregations, source filtering, ...) is a
+later slice and answers a typed 400. Under a ``sort`` each hit carries
+its ``sort`` values, the page is ordered by them (missing last), and
+``max_score`` is null, as the reference gives them.
 
 ``track_total_hits``: true (the default) counts exactly, relation "eq".
 false or an integer license block-max pruning (search/plan.py): the hits
@@ -17,6 +20,7 @@ the count exceeds it; false omits ``hits.total``.
 
 from __future__ import annotations
 
+import functools
 import json
 import time
 from typing import Any, Dict
@@ -24,12 +28,15 @@ from typing import Any, Dict
 from elasticsearch_tpu_torch.search.batching import PlanBatcher
 from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
 from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
-from elasticsearch_tpu_torch.search.queries import parse_query
-from elasticsearch_tpu_torch.search.searcher import MAX_TOPK, ShardSearcher
+from elasticsearch_tpu_torch.search.queries import (MatchAllQuery,
+                                                    parse_query)
+from elasticsearch_tpu_torch.search.searcher import (MAX_TOPK, ShardSearcher,
+                                                     _host_sort_cmp,
+                                                     _parse_sort)
 
 DEFAULT_SIZE = 10
 BODY_KEYS = {"query", "size", "from", "post_filter", "track_total_hits",
-             "_source"}
+             "_source", "sort", "search_after", "min_score"}
 
 
 class IllegalArgumentException(ValueError):
@@ -62,9 +69,6 @@ class SearchService:
         if not isinstance(source, bool):
             raise SliceUnsupported("_source filtering is a later slice "
                                    "(this one takes true or false)")
-        if "query" not in body:
-            raise SliceUnsupported("a search without a query (match_all) "
-                                   "is a dense clause: a later slice")
         size = int(body.get("size", DEFAULT_SIZE))
         from_ = int(body.get("from", 0))
         if size < 0 or from_ < 0:
@@ -74,19 +78,34 @@ class SearchService:
             raise IllegalArgumentException(
                 f"Result window is too large, from + size must be less "
                 f"than or equal to: [{MAX_TOPK}]")
-        query = parse_query(body["query"])
+        query = (parse_query(body["query"]) if body.get("query")
+                 else MatchAllQuery())
         post_filter = (parse_query(body["post_filter"])
                        if body.get("post_filter") else None)
+        sort = body.get("sort")
+        search_after = body.get("search_after")
+        if search_after is not None and not isinstance(search_after, list):
+            raise IllegalArgumentException(
+                "[search_after] must be an array of sort values")
         searcher = ShardSearcher(svc.engine.segments, svc.mapper, self.cache,
                                  svc.k1, svc.b)
         searcher.batcher = self.plan_batcher
         # repeats of the same query JSON reuse their bound plans
-        cache_key = json.dumps([body["query"], body.get("post_filter")],
+        cache_key = json.dumps([body.get("query"), body.get("post_filter")],
                                sort_keys=True, default=str)
-        result = searcher.query_phase(query, from_ + size, post_filter,
-                                      cache_key=cache_key,
-                                      track_total_hits=track_total)
-        hits = searcher.fetch_phase(result.docs[from_:from_ + size], source)
+        result = searcher.query_phase(
+            query, from_ + size, post_filter,
+            min_score=body.get("min_score"), sort=sort,
+            search_after=search_after, track_total_hits=track_total,
+            cache_key=cache_key)
+        docs = result.docs
+        sort_spec = _parse_sort(sort)
+        if sort_spec is not None and any(d.sort_values for d in docs):
+            # the page orders by the real sort values (float64 doc
+            # values, missing last), not the float32 device keys
+            docs = sorted(docs, key=functools.cmp_to_key(
+                lambda a, b: _host_sort_cmp(a, b, sort_spec)))
+        hits = searcher.fetch_phase(docs[from_:from_ + size], source)
         for h in hits:
             h["_index"] = index
         total = result.total_hits

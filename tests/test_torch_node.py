@@ -245,11 +245,20 @@ def test_plan_path_matches_reference_node(nodes, bi):
 
 
 def test_slice_boundaries_are_typed(nodes):
-    _, _, node, port = nodes
+    _, jax_node, node, port = nodes
+    # range clauses are served since the dense executor is ported (on
+    # the unmapped `views` they match nothing, as in the reference)
     for body in ({"query": {"range": {"views": {"gte": 3}}}},
                  {"query": {"bool": {"must": [{"match": {"body": "w1"}}],
                                      "filter": [{"range": {
                                          "views": {"gte": 3}}}]}}}):
+        st, r = http(port, "POST", "/idx/_search", body)
+        assert st == 200, (body, r)
+        assert_same_hits(r, jax_dispatch(jax_node, body), page_size(body))
+    # later slices: positional queries and keyword sorts
+    for body in ({"query": {"match_phrase": {"body": "w1 w2"}}},
+                 {"query": {"match": {"body": "w1"}},
+                  "sort": [{"tag": "asc"}]}):
         st, r = http(port, "POST", "/idx/_search", body)
         assert st == 400 and r["error"]["type"] == \
             "unsupported_in_slice_exception", (body, r)

@@ -2,12 +2,12 @@
 
 Searcher level: every body of the reference's plan test cases goes
 through the reference ``ShardSearcher`` (JAX) and the port's
-(``device="cpu"``) over the same postings: the reference's three-segment
-fixture (seed 7), its segments carried into the port with
-``segment_from_numpy``. Cases holding a ``range`` clause (a dense clause
-over a numeric column, a later slice of the port) are answered with a
-typed ``SliceUnsupported``. ``post_filter``, ``from`` and a k larger
-than the postings are covered too.
+(``device="cpu"``) over the same postings and numeric columns: the
+reference's three-segment fixture (seed 7), its segments carried into
+the port with ``segment_from_numpy``. Cases holding a ``range`` clause
+put a dense factor (``dense_mask``, and a ``bonus`` for a must factor)
+into the plan launch on both sides. ``post_filter``, ``from`` and a k
+larger than the postings are covered too.
 
 Ops level: ``plan_topk`` / ``plan_topk_batch`` against the reference's
 on seeded streams: both combine modes, pad groups, k larger than the
@@ -38,7 +38,7 @@ from elasticsearch_tpu_torch.index.segment import segment_from_numpy
 from elasticsearch_tpu_torch.node import Node
 from elasticsearch_tpu_torch.ops import plan as plan_ops
 from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
-from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
+from elasticsearch_tpu_torch.search.plan import compile_plan
 from elasticsearch_tpu_torch.search.queries import parse_query
 from elasticsearch_tpu_torch.search.searcher import ShardSearcher
 from test_plan import CASES
@@ -46,19 +46,16 @@ from test_torch_node import assert_same_hits
 
 RTOL = 1e-4
 
-MAPPINGS = {"properties": dict(PLAN_MAPPINGS["properties"],
-                               views={"type": "long"})}
-# the port maps what it indexes; `views` stays in _source only (numeric
-# columns are a later slice)
-PORT_MAPPINGS = PLAN_MAPPINGS
+MAPPINGS = PLAN_MAPPINGS
 FIELDS = ("title", "body", "tag")
 VOCAB, TAGS = PLAN_VOCAB, PLAN_TAGS
-# cases with a range clause: dense, a later slice of the port
+# cases with a range clause: a dense factor in the plan launch
 DENSE = {i for i, c in enumerate(CASES) if "range" in str(c)}
 
 
 def carry(seg):
-    """A reference segment's postings, ids and sources as a port Segment."""
+    """A reference segment's postings, numeric columns, ids and sources
+    as a port Segment."""
     fields = {}
     for f in FIELDS:
         pf = seg.postings[f]
@@ -67,8 +64,12 @@ def carry(seg):
             "term_block_count", "block_docids", "block_tfs",
             "field_lengths")}
         fields[f]["terms"] = list(pf.terms)
+    numerics = {f: {a: np.asarray(getattr(nv, a)) for a in (
+        "values", "missing", "offsets", "all_values")}
+        for f, nv in seg.numerics.items()}
     return segment_from_numpy(
-        {"fields": fields, "ids": list(seg.stored.ids),
+        {"fields": fields, "numerics": numerics,
+         "ids": list(seg.stored.ids),
          "sources": [seg.stored.source(d) for d in range(seg.n_docs)]},
         name=seg.name)
 
@@ -97,7 +98,7 @@ def searchers():
         segments.append(w.build(f"s{seg_i}"))
     ref = JaxSearcher(segments, svc, JaxSegmentCache())
     port_segments = [carry(s) for s in segments]
-    port = ShardSearcher(port_segments, DocumentMapper(PORT_MAPPINGS),
+    port = ShardSearcher(port_segments, DocumentMapper(MAPPINGS),
                          DeviceSegmentCache("cpu"))
     return ref, port
 
@@ -129,9 +130,8 @@ def both(searchers, body, size, post_filter=None):
 def test_plan_cases_match_reference(searchers, ci, size):
     body = CASES[ci]
     if ci in DENSE:
-        with pytest.raises(SliceUnsupported):
-            both(searchers, body, size)
-        return
+        # the dense factor rides the plan launch on both sides
+        assert compile_plan(parse_query(body), searchers[1]).dense
     got, ref = both(searchers, body, size)
     assert got["hits"]["total"]["value"] > 0, body
     assert_same_hits(got, ref, size, rtol=RTOL)
@@ -195,17 +195,17 @@ def test_randomized_bool_trees(searchers):
 
 def test_rest_from_and_typed_400s(searchers):
     """Through the port's REST layer on an index of three segments:
-    ``from`` pages, the dense cases are typed 400s, and
+    ``from`` pages (a dense case too), later slices are typed 400s, and
     ``track_total_hits: false`` answers the exact hits without
     ``hits.total``."""
     ref, port = searchers
     node = Node(device="cpu")
     try:
-        node.create_index("p", PORT_MAPPINGS)
+        node.create_index("p", MAPPINGS)
         node.indices["p"].engine.install_segments(port.segments)
         c = node.rest_controller
         for body, lo, size in [(CASES[0], 5, 10), (CASES[12], 3, 4),
-                               (CASES[9], 20, 30)]:
+                               (CASES[9], 20, 30), (CASES[-1], 2, 5)]:
             st, got = c.dispatch("POST", "/p/_search", {},
                                  {"query": body, "from": lo, "size": size})
             assert st == 200, got
@@ -216,7 +216,7 @@ def test_rest_from_and_typed_400s(searchers):
                              rtol=RTOL)
             for h in got["hits"]["hits"]:
                 assert h["_source"]["title"]
-        for bad in ({"query": CASES[-1]},
+        for bad in ({"query": {"match_phrase": {"title": "alpha wolf"}}},
                     {"query": CASES[0], "aggs": {"t": {"terms": {
                         "field": "tag"}}}}):
             st, r = c.dispatch("POST", "/p/_search", {}, bad)

@@ -116,8 +116,13 @@ def test_merge_segments_match():
 
 
 def test_mapper_refuses_other_field_types():
-    with pytest.raises(MapperParsingException):
-        DocumentMapper({"properties": {"n": {"type": "long"}}})
+    """Types of later slices are refused with their name; numbers,
+    booleans and dates are this slice's (tests/test_torch_dense.py)."""
+    for ftype in ("ip", "geo_point", "integer_range", "constant_keyword"):
+        with pytest.raises(MapperParsingException, match="later slice"):
+            DocumentMapper({"properties": {"n": {"type": ftype}}})
+    with pytest.raises(MapperParsingException, match="No handler"):
+        DocumentMapper({"properties": {"n": {"type": "made_up"}}})
     with pytest.raises(MapperParsingException):
         DocumentMapper({"properties": {"t": {"type": "text",
                                              "analyzer": "english"}}})
