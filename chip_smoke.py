@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's main path on one GPU and check it.
 
     python3 chip_smoke.py                  # full size: 2M docs, 256 queries
-    python3 chip_smoke.py --docs 200000    # a quicker rehearsal
+    python3 chip_smoke.py --docs 200000 --knn-docs 1000000
+                                           # a quicker rehearsal
 
 The node serves through its C++ front (``Node.start``):
 the scale bodies carry ``_source: false``, as the reference bench's do,
@@ -94,9 +95,30 @@ Phases (any failure exits non-zero; no exception is swallowed):
               the plan path beside the dense executor on the match + range
               bodies, the float32 gap (f32_gap) and the contribution kernel
               against its twin at the dense shape (Q = 1)
-  6. report   the scale, lanes, theta_warm, prune, dense, filters, plan
-              and kernels JSON lines, the card's name and power limit, and
-              the last line {"ok": true, "device": {...}}
+  6. knn      config 4: an index of 8M seeded 768-d unit vectors
+              (cosine) installed through segment_from_numpy, its bfloat16
+              slab built on the card; 16 pure kNN bodies (k 1000,
+              num_candidates 3000, size 1000, _source: false) over HTTP
+              through the KnnBatcher, each held to a float64 brute-force
+              oracle (a missing oracle doc ties the 1000th score within
+              rtol 1e-5; every score the exact float32 formula, rtol
+              1e-6; order score desc then docid; total min(k, docs));
+              one in-process cohort of 16 callers equal to the same
+              queries launched alone; the nomination's device ms at
+              Q = 1, 8, 32 by stage against its byte and tensor-core
+              bounds; the host re-rank; the C++ load generator at 8
+              connections over the bodies x 4. Config 5: the scale
+              corpus with 256-d vectors as the index "hybrid": 32
+              rank.rrf bodies (match + knn, k 1000, num_candidates 1500,
+              size 1000), each the fusion of the port's own answers to
+              its branches asked apart (the branches held to their
+              oracles); merged-hybrid, filtered-knn, _source: true and
+              exists bodies equal to the port's CPU execution, the
+              contribution kernel launching on the merged ones; the rrf
+              bodies from the load generator
+  7. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
+              filters, plan and kernels JSON lines, the card's name and
+              power limit, and the last line {"ok": true, "device": {...}}
 
 Needs one CUDA card, and the repository around it.
 """
@@ -2306,6 +2328,432 @@ def phase_dense(node, port, logs, cols, n_base, queries, clients, seed,
     return out
 
 
+# ---------------------------------------------------------------- phase 6
+# the tensor-core rate for the kNN product's bound (bf16 in, float32
+# accumulation: H100 SXM data sheet, dense)
+BF16_TC_OPS_PER_S = 989e12
+
+
+def host_free_gib() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2 ** 20
+    return float("nan")
+
+
+def knn_oracle(vecs, qs, k, chunk=1 << 19):
+    """The float64 brute-force oracle on the card: for each query [Q, D]
+    the top ``k`` docs of ``vecs`` [N, D] by the cosine ES score
+    (1 + cos) / 2 in float64, as (ids [Q, k] by score desc then docid
+    asc, float64 scores [Q, k]). The slab goes up in row chunks."""
+    import torch
+    q = torch.from_numpy(qs).cuda().double()
+    q = q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    best_s = torch.full((len(qs), 0), float("-inf"), dtype=torch.float64,
+                        device="cuda")
+    best_i = torch.zeros((len(qs), 0), dtype=torch.int64, device="cuda")
+    for lo in range(0, len(vecs), chunk):
+        v = torch.from_numpy(vecs[lo:lo + chunk]).cuda().double()
+        n = torch.linalg.vector_norm(v, dim=1)
+        cos = (q @ v.T) / torch.where(n > 0, n, 1.0)[None, :]
+        s = torch.cat([best_s, (1.0 + cos) / 2.0], dim=1)
+        ids = torch.cat([best_i, torch.arange(lo, lo + v.shape[0],
+                                              device="cuda").expand(
+            len(qs), -1)], dim=1)
+        best_s, pos = torch.topk(s, min(k, s.shape[1]), dim=1)
+        best_i = torch.gather(ids, 1, pos)
+    best_s, best_i = best_s.cpu().numpy(), best_i.cpu().numpy()
+    order = [np.lexsort((best_i[r], -best_s[r])) for r in range(len(qs))]
+    return (np.stack([best_i[r][o] for r, o in enumerate(order)]),
+            np.stack([best_s[r][o] for r, o in enumerate(order)]))
+
+
+def exact_f32_cosine(vecs, ids, q):
+    """The ES cosine score in float32 of the rows ``ids`` for ``q``,
+    written out here: (1 + v.q / (|v| |q|)) / 2."""
+    v = vecs[ids].astype(np.float32)
+    q = np.asarray(q, np.float32)
+    nrm = np.linalg.norm(v, axis=1) * np.linalg.norm(q)
+    return ((np.float32(1.0) + (v @ q) / np.where(nrm > 0, nrm, 1.0))
+            / np.float32(2.0)).astype(np.float32)
+
+
+def check_knn_answer(r, vecs, q, oracle_ids, oracle_s, k, total, what):
+    """A kNN answer: the total; every oracle top-k doc that is missing
+    ties the oracle's kth score within rtol 1e-5; every score equals
+    the exact float32 formula for its vector (rtol 1e-6); order by
+    score desc, then lowest docid. Returns the recall."""
+    hits = r["hits"]["hits"]
+    check(r["hits"]["total"] == {"value": total, "relation": "eq"},
+          f"{what}: total {r['hits']['total']} vs {total}")
+    got = np.array([int(h["_id"]) for h in hits], np.int64)
+    scores = np.array([h["_score"] for h in hits], np.float64)
+    check(len(got) == min(k, len(oracle_ids)), f"{what}: {len(got)} hits")
+    hit = np.isin(oracle_ids, got)
+    kth = oracle_s[-1]
+    check(bool(np.all(np.abs(oracle_s[~hit] - kth) <= 1e-5 * kth)),
+          f"{what}: {int((~hit).sum())} oracle docs missing, not all "
+          f"tied with the kth score")
+    check(np.allclose(scores, exact_f32_cosine(vecs, got, q), rtol=1e-6,
+                      atol=0), f"{what}: scores are the exact float32 "
+                               f"formula")
+    check(all((-scores[i], got[i]) < (-scores[i + 1], got[i + 1])
+              for i in range(len(got) - 1)),
+          f"{what}: ordered by score desc, then docid")
+    return float(hit.mean())
+
+
+def one_cohort(batcher, ctx, field, qs, cut):
+    """Each caller's (scores, ids) for ``qs`` asked at once from one
+    thread each, while the batcher's launch slots are held until every
+    caller has queued: the leader then pops them all as one cohort."""
+    out = [None] * len(qs)
+
+    def call(i):
+        out[i] = batcher.topk(ctx, field, qs[i], cut)
+
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(qs))]
+    held = 0
+    while batcher._launch_slots.acquire(blocking=False):
+        held += 1
+    try:
+        for t in threads:
+            t.start()
+        while True:
+            with batcher._lock:
+                if sum(map(len, batcher._pending.values())) == len(qs):
+                    break
+            time.sleep(0.001)
+    finally:
+        for _ in range(held):
+            batcher._launch_slots.release()
+    for t in threads:
+        t.join(timeout=300)
+    check(not any(t.is_alive() for t in threads), "cohort callers finished")
+    return out
+
+
+def nominate_breakdown(dv, live, qs, cut, iters):
+    """Device ms of ``knn_nominate_batch`` at Q = 1, 8 and 32 on the
+    slab ``dv`` (cosine): the whole op, and its stages (the product,
+    the transform and mask, ``stable_topk``), a bare ``torch.topk`` of
+    the same scores beside them, and the host ms of the packed readback;
+    the byte and tensor-core bounds of the op's work."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import vector as vec_ops
+    from elasticsearch_tpu_torch.ops.device import readback
+    from elasticsearch_tpu_torch.ops.topk import stable_topk
+    nd, d = dv.vectors.shape
+    out = {}
+    for q in (1, 8, 32):
+        qt = torch.from_numpy(qs[np.arange(q) % len(qs)]).cuda()
+        qn = qt / torch.linalg.vector_norm(qt, dim=1, keepdim=True)
+        raw = vec_ops.dot_scores(qn, dv.vectors)
+        keep = (dv.has_value & live)[None, :]
+        scores = torch.where(keep, (1.0 + raw) / 2.0, float("-inf"))
+        docids = torch.arange(nd, dtype=torch.int32,
+                              device="cuda")[None].expand(q, nd)
+        top_s, top_i = stable_topk(scores, docids, cut)
+        t_read = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            readback("chip_smoke.knn_breakdown", torch.cat(
+                [top_s, top_i.to(torch.float32)], dim=1))
+            t_read.append((time.perf_counter() - t0) * 1e3)
+        row = dict(
+            op_ms=cuda_ms(lambda: vec_ops.knn_nominate_batch(
+                qt, dv.vectors, dv.sq_norms, dv.has_value, live, "cosine",
+                cut), iters)[0],
+            product_ms=cuda_ms(lambda: vec_ops.dot_scores(qn, dv.vectors),
+                               iters)[0],
+            transform_mask_ms=cuda_ms(lambda: torch.where(
+                keep, (1.0 + raw) / 2.0, float("-inf")), iters)[0],
+            stable_topk_ms=cuda_ms(lambda: stable_topk(scores, docids, cut),
+                                   iters)[0],
+            torch_topk_ms=cuda_ms(lambda: torch.topk(scores, cut, dim=1),
+                                  iters)[0],
+            readback_host_ms=float(np.median(t_read)))
+        n_bytes = (nd * d * dv.vectors.element_size() + nd * (4 + 1 + 1)
+                   + q * d * 4 + q * cut * 8)
+        n_ops = 2.0 * q * nd * d
+        row["byte_bound_ms"] = n_bytes / HBM_BYTES_PER_S * 1e3
+        row["tensor_core_bound_ms"] = n_ops / BF16_TC_OPS_PER_S * 1e3
+        row["bound_ms"] = max(row["byte_bound_ms"],
+                              row["tensor_core_bound_ms"])
+        row["bound_by"] = ("bytes" if row["byte_bound_ms"]
+                           >= row["tensor_core_bound_ms"] else "operations")
+        row["op_over_bound"] = row["op_ms"] / row["bound_ms"]
+        out[f"q{q}"] = row
+        del raw, scores, top_s, top_i
+    return out
+
+
+def phase_knn(node, port, n_docs, dims, n_queries, seed, iters):
+    """Config 4: pure kNN at full width on the index ``knn`` (cosine,
+    ``dims``, ``n_docs`` seeded unit vectors installed through
+    ``segment_from_numpy``). The 16 bodies over HTTP, each held to the
+    float64 oracle; one in-process cohort of 16 callers equal to the
+    same queries launched alone; the nomination's stage times against
+    its bounds; the host re-rank; the load generator at 8 connections
+    over the bodies x 4."""
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import (knn_query_vectors,
+                                                unit_vectors)
+    from elasticsearch_tpu_torch.index.segment import segment_from_numpy
+    from elasticsearch_tpu_torch.ops import vector as vec_ops
+    from elasticsearch_tpu_torch.rest.native_http import loadgen
+    from elasticsearch_tpu_torch.search.batching import (KnnBatcher,
+                                                         _KnnEntry)
+    out = dict(docs=n_docs, dims=dims, queries=n_queries,
+               host_free_gib_before=host_free_gib())
+    t0 = time.time()
+    vecs = unit_vectors(n_docs, dims, seed, device="cuda")
+    out["generate_s"] = time.time() - t0
+    out["host_bytes"] = int(vecs.nbytes)
+    qs = knn_query_vectors(vecs, n_queries, np.random.default_rng(seed + 1))
+    node.create_index("knn", {"properties": {"vec": {
+        "type": "dense_vector", "dims": dims, "similarity": "cosine"}}})
+    svc = node.indices["knn"]
+    svc.engine.install_segments([segment_from_numpy(
+        {"vectors": {"vec": {"vectors": vecs}}}, name="knn0")])
+    seg = svc.engine.segments[0]
+    check(seg.vectors["vec"].vectors is vecs,
+          "the segment keeps the generated array as its host copy")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.time()
+    dev = node.device_cache.get(seg)
+    torch.cuda.synchronize()
+    out["slab_upload_s"] = time.time() - t0
+    dv = dev.vectors["vec"]
+    out["slab_bytes"] = dv.vectors.numel() * dv.vectors.element_size()
+    out["device_bytes_added"] = torch.cuda.memory_allocated() - mem0
+    out["slab_dtype"] = str(dv.vectors.dtype)
+    out["matmul_route"] = vec_ops.matmul_route(dv.vectors)
+    out["host_free_gib_after_upload"] = host_free_gib()
+    log(f"[knn] {n_docs} x {dims} generated in {out['generate_s']:.1f} s, "
+        f"slab up in {out['slab_upload_s']:.1f} s "
+        f"({out['slab_bytes'] / 1e9:.2f} GB, route {out['matmul_route']})")
+    t0 = time.time()
+    o_ids, o_s = knn_oracle(vecs, qs, 1000)
+    out["oracle_s"] = time.time() - t0
+    bodies = [{"knn": {"field": "vec", "query_vector": [float(x) for x in q],
+                       "k": 1000, "num_candidates": 3000},
+               "size": 1000, "_source": False} for q in qs]
+    batcher = node.search_service.knn_batcher
+    b0 = batcher.stats()
+    h0 = node.http_stats()
+    results, lat, wall = drive(port, bodies, len(bodies), "knn")
+    front = front_since(node, h0)
+    check(front["fallback"] == len(bodies) and front["fast"] == 0,
+          f"every kNN body went to the fallback workers: {front}")
+    recalls = []
+    for i, (st, r) in enumerate(results):
+        check(st == 200, f"knn body {i} -> {st} {r}")
+        recalls.append(check_knn_answer(r, vecs, qs[i], o_ids[i], o_s[i],
+                                        1000, min(1000, n_docs),
+                                        f"knn body {i}"))
+    b1 = batcher.stats()
+    check(b1["knn_batched_queries"] - b0["knn_batched_queries"]
+          == len(bodies), "every kNN body went through the KnnBatcher")
+    out["recall_at_1000"] = float(np.mean(recalls))
+    out["recall_min"] = float(np.min(recalls))
+    out["http"] = dict(wall_s=wall, p50_ms=p50_p99(lat)[0],
+                       p99_ms=p50_p99(lat)[1],
+                       launches=b1["knn_launches"] - b0["knn_launches"])
+    # one cohort of all the callers at full size, against solo launches
+    ctx = node.search_service._searcher(svc)._contexts()[0]
+    cut = 3000          # max(k, num_candidates): the service's cut
+    solo_b = KnnBatcher()
+    t0 = time.time()
+    solo = [solo_b.topk(ctx, "vec", q, cut) for q in qs]
+    solo_s = time.time() - t0
+    cohort_b = KnnBatcher()
+    t0 = time.time()
+    rows = one_cohort(cohort_b, ctx, "vec", qs, cut)
+    cohort_s = time.time() - t0
+    check(cohort_b.launches == 1 and cohort_b.batched_queries
+          == len(qs) >= 16, f"one cohort of {len(qs)}: "
+                            f"{cohort_b.stats()}")
+    for i, ((s, d), (s0, d0)) in enumerate(zip(rows, solo)):
+        check(np.array_equal(d, d0) and np.array_equal(s, s0),
+              f"cohort row {i} equals its query launched alone")
+    out["cohort"] = dict(q=len(qs), launches=cohort_b.launches,
+                         wall_s=cohort_s, solo_wall_s=solo_s)
+    # the host half: the exact re-rank of one nominated row
+    entries = [_KnnEntry(q, cut) for q in qs]
+    cohort_b._run(entries, dv, dev.live, 4096)
+    t_rr = []
+    for e in entries:
+        t0 = time.perf_counter()
+        KnnBatcher._finish(e, ctx, "vec")
+        t_rr.append((time.perf_counter() - t0) * 1e3)
+    out["rerank_host_ms"] = dict(p50=float(np.median(t_rr)),
+                                 max=float(np.max(t_rr)), candidates=4096)
+    out["nominate"] = nominate_breakdown(dv, dev.live, qs, 4096, iters)
+    # throughput: the C++ load generator, 8 connections, the bodies x 4
+    b0 = batcher.stats()
+    res = loadgen(port, "/knn/_search", bodies, 8, len(bodies) * 4)
+    check(res["done"] == len(bodies) * 4 and res["non2xx"] == 0,
+          f"the load generator's kNN requests all done with 2xx: {res}")
+    b1 = batcher.stats()
+    launches = b1["knn_launches"] - b0["knn_launches"]
+    out["loadgen"] = dict(
+        conns=8, requests=res["done"], wall_s=res["wall_s"],
+        qps=res["done"] / res["wall_s"], p50_ms=p50_p99(res["lat_s"])[0],
+        p99_ms=p50_p99(res["lat_s"])[1], knn_launches=launches,
+        knn_avg_batch=(b1["knn_batched_queries"]
+                       - b0["knn_batched_queries"]) / max(1, launches))
+    out["host_free_gib_after"] = host_free_gib()
+    log(f"[knn] {out}")
+    return out
+
+
+def rrf_fusion(branches, k_const, size, index):
+    """(ids, scores, total) of the rank.rrf fusion of ``branches`` (hit
+    lists, best first), ties by (index, id)."""
+    scores = {}
+    for hits in branches:
+        for rank, h in enumerate(hits):
+            scores[h["_id"]] = scores.get(h["_id"], 0.0) + 1.0 / (
+                k_const + rank + 1)
+    order = sorted(scores, key=lambda i: (-scores[i], (index, i)))[:size]
+    return order, [scores[i] for i in order], len(scores)
+
+
+def phase_hybrid(node, port, corpus, queries, oracles, dims, seed, conns,
+                 counters):
+    """Config 5 on the index ``hybrid``: the scale corpus's segment with
+    a ``vec`` field of ``dims``-d seeded unit vectors. 32 rank.rrf
+    bodies (match + knn k 1000 / num_candidates 1500, size 1000), each
+    equal to the fusion of the port's own answers to its two branches
+    asked apart, the branches held to their oracles; 8 merged-hybrid
+    bodies, 4 filtered knn bodies, 2 with ``_source: true`` and an
+    ``exists`` on ``vec``, each equal to the port's CPU execution; the
+    contribution kernel launches on the merged bodies; then the rrf
+    bodies from the load generator."""
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import (segment_from_corpus,
+                                                term_name, unit_vectors)
+    from elasticsearch_tpu_torch.rest.native_http import loadgen
+    from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
+    from elasticsearch_tpu_torch.search.service import SearchService
+    n = len(corpus["lens"])
+    t0 = time.time()
+    vecs = unit_vectors(n, dims, seed, device="cuda")
+    node.create_index("hybrid", {"properties": {
+        "title": {"type": "text"},
+        "vec": {"type": "dense_vector", "dims": dims,
+                "similarity": "cosine"}}})
+    svc = node.indices["hybrid"]
+    svc.engine.install_segments([segment_from_corpus(
+        corpus, name="hybrid0", vectors={"vec": {"vectors": vecs}})])
+    node.device_cache.get(svc.engine.segments[0])
+    torch.cuda.synchronize()
+    out = dict(docs=n, dims=dims, setup_s=time.time() - t0)
+    vrng = np.random.default_rng(7)
+    qv = vrng.standard_normal((32, dims))
+    qv = np.round(qv / np.linalg.norm(qv, axis=1, keepdims=True), 4)
+    text = [" ".join(term_name(t) for t in q) for q in queries[:32]]
+    rbodies = [{"query": {"match": {"title": t}},
+                "knn": {"field": "vec", "query_vector": v.tolist(),
+                        "k": 1000, "num_candidates": 1500},
+                "rank": {"rrf": {}}, "size": 1000, "_source": False}
+               for t, v in zip(text, qv)]
+    results, lat, wall = drive(port, rbodies, 16, "hybrid")
+    q32 = qv.astype(np.float32)
+    o_ids, o_s = knn_oracle(vecs, q32, 1000)
+    service = node.search_service
+    recalls = []
+    for i, ((st, r), body) in enumerate(zip(results, rbodies)):
+        check(st == 200, f"rrf body {i} -> {st} {r}")
+        bm25 = service.search("hybrid", svc, {
+            "query": body["query"], "size": 1000, "_source": False})
+        knn = service.search("hybrid", svc, {
+            "knn": body["knn"], "size": 1000, "_source": False})
+        check_answer(bm25, oracles[i], "plan", f"rrf body {i} BM25 branch")
+        recalls.append(check_knn_answer(
+            knn, vecs, q32[i], o_ids[i], o_s[i], 1000, 1000,
+            f"rrf body {i} kNN branch"))
+        ids, scores, total = rrf_fusion(
+            [bm25["hits"]["hits"], knn["hits"]["hits"]], 60, 1000,
+            "hybrid")
+        check([h["_id"] for h in r["hits"]["hits"]] == ids
+              and [h["_score"] for h in r["hits"]["hits"]] == scores
+              and r["hits"]["total"]["value"] == total,
+              f"rrf body {i}: the fusion of its branches asked apart")
+    out["rrf"] = dict(bodies=len(rbodies), knn_branch_recall=float(
+        np.mean(recalls)), python_clients=dict(
+        clients=16, wall_s=wall, p50_ms=p50_p99(lat)[0],
+        p99_ms=p50_p99(lat)[1]))
+    # the dense executor's bodies, against the CPU execution
+    common = [t for t in np.argsort(-corpus["df"])[:4]]
+    mixed = []
+    for i in range(8):
+        mixed.append(("merged", {
+            "query": {"match": {"title": text[i]}},
+            "knn": {"field": "vec", "query_vector": qv[i].tolist(),
+                    "k": 100, "num_candidates": 300},
+            "size": 100, "_source": False}))
+    for i in range(4):
+        mixed.append(("filtered", {
+            "knn": {"field": "vec", "query_vector": qv[8 + i].tolist(),
+                    "k": 50, "filter": {"term": {
+                        "title": term_name(int(common[i]))}}},
+            "size": 50, "_source": False}))
+    for i in range(2):
+        mixed.append(("source", {
+            "knn": {"field": "vec", "query_vector": qv[12 + i].tolist(),
+                    "k": 20}, "size": 20, "_source": True}))
+    mixed.append(("exists", {"query": {"exists": {"field": "vec"}},
+                             "size": 10}))
+    for fn in counters.values():
+        fn.launches = 0
+    res2, _, _ = drive(port, [b for _, b in mixed], 8, "hybrid")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(launches["gather_bm25_contrib"] > 0,
+          f"the contribution kernel launched on the merged bodies: "
+          f"{launches}")
+    cpu = SearchService(DeviceSegmentCache("cpu"))
+    t0 = time.time()
+    for (kind, body), (st, r) in zip(mixed, res2):
+        what = f"hybrid {kind} body vs the CPU"
+        check(st == 200, f"{what}: {st} {r}")
+        c = cpu.search("hybrid", svc, body)
+        check(c["hits"]["total"] == r["hits"]["total"], f"{what}: total")
+        check([h["_id"] for h in c["hits"]["hits"]]
+              == [h["_id"] for h in r["hits"]["hits"]]
+              and len(r["hits"]["hits"]) > 0, f"{what}: ids and order")
+        check(np.allclose([h["_score"] for h in c["hits"]["hits"]],
+                          [h["_score"] for h in r["hits"]["hits"]],
+                          rtol=1e-6, atol=0), f"{what}: scores rtol 1e-6")
+    out["dense_bodies"] = dict(
+        bodies=len(mixed), kinds={k: sum(1 for m, _ in mixed if m == k)
+                                  for k in ("merged", "filtered", "source",
+                                            "exists")},
+        launches=launches, cpu_s=time.time() - t0)
+    # throughput of the rrf bodies: the load generator, 4 rounds
+    b0 = service.knn_batcher.stats()
+    res = loadgen(port, "/hybrid/_search", rbodies, conns, len(rbodies) * 4)
+    check(res["done"] == len(rbodies) * 4 and res["non2xx"] == 0,
+          f"the load generator's rrf requests all done with 2xx: {res}")
+    b1 = service.knn_batcher.stats()
+    kl = b1["knn_launches"] - b0["knn_launches"]
+    out["rrf"]["loadgen"] = dict(
+        conns=conns, requests=res["done"], wall_s=res["wall_s"],
+        qps=res["done"] / res["wall_s"], p50_ms=p50_p99(res["lat_s"])[0],
+        p99_ms=p50_p99(res["lat_s"])[1], knn_launches=kl,
+        knn_avg_batch=(b1["knn_batched_queries"]
+                       - b0["knn_batched_queries"]) / max(1, kl))
+    log(f"[hybrid] {out}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--docs", type=int, default=2_000_000)
@@ -2314,6 +2762,12 @@ def main(argv=None) -> int:
     ap.add_argument("--clients", type=int, default=64)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    # config 4 (pure kNN) and config 5 (hybrid) of the reference's
+    # BASELINE: 8M x 768 cosine, and the scale corpus with 256-d vectors
+    ap.add_argument("--knn-docs", type=int, default=8_000_000)
+    ap.add_argument("--knn-dims", type=int, default=768)
+    ap.add_argument("--knn-queries", type=int, default=16)
+    ap.add_argument("--hybrid-dims", type=int, default=256)
     args = ap.parse_args(argv)
 
     import torch
@@ -2491,10 +2945,17 @@ def main(argv=None) -> int:
         dense = phase_dense(node, port, logs, cols, len(corpus["df"]),
                             queries, args.clients, args.seed + 6,
                             args.iters, counters)
+
+        # ---- 6. kNN: pure kNN (config 4) and hybrid rank.rrf (config 5)
+        knn = phase_knn(node, port, args.knn_docs, args.knn_dims,
+                        args.knn_queries, args.seed + 7, args.iters)
+        hybrid = phase_hybrid(node, port, corpus, queries, oracles,
+                              args.hybrid_dims, args.seed + 8,
+                              min(args.clients, 64), counters)
     finally:
         node.close()
 
-    # ---- 6. report
+    # ---- 7. report
     meta = {
         "gather_bm25_contrib": dict(
             source="elasticsearch_tpu_torch/csrc/bm25_contrib.cu",
@@ -2521,6 +2982,7 @@ def main(argv=None) -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             per_bucket=r.get("per_bucket"),
             launches_dense=dense["launches"][name],
+            launches_knn=hybrid["dense_bodies"]["launches"][name],
             dense_shape=(dense["contrib_dense_shape"]
                          if name == "gather_bm25_contrib" else None)))
     print(json.dumps({"scale": scale}))
@@ -2529,6 +2991,8 @@ def main(argv=None) -> int:
     print(json.dumps({"theta_warm": theta_warm}))
     print(json.dumps({"prune": prune}))
     print(json.dumps({"dense": dense}))
+    print(json.dumps({"knn": knn}))
+    print(json.dumps({"hybrid": hybrid}))
     print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))

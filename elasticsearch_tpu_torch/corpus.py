@@ -14,6 +14,11 @@ until a query's selection fits ``max_blocks``.
 (``with_incident_terms``) the numeric columns of a web server's access
 log, the shape of Rally's ``http_logs`` track: ``@timestamp`` (a date),
 ``status`` and ``bytes``.
+
+``unit_vectors`` and ``knn_query_vectors`` make the dense_vector data of
+the kNN configurations (the reference bench's recipe): seeded unit
+vectors, generated in row chunks on a torch device, and queries that are
+a random doc plus 0.25 of Gaussian noise, normalized.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 from typing import Dict, List
 
 import numpy as np
+import torch
 
 from elasticsearch_tpu_torch.index.segment import (BLOCK_SIZE, Segment,
                                                    segment_from_numpy)
@@ -179,6 +185,41 @@ LOGS_MAPPINGS = {"properties": {"title": {"type": "text"},
                                 "bytes": {"type": "long"}}}
 
 
+def unit_vectors(n: int, dims: int, seed: int, device="cpu",
+                 chunk: int = 1 << 18) -> np.ndarray:
+    """float32 [n, dims] host array of seeded unit vectors (Gaussian
+    rows, each divided by its norm), drawn in row chunks of ``chunk`` by
+    a ``torch.Generator`` on ``device`` and copied into the host array as
+    they come, so only the result is ever whole. The stream depends on
+    the device type: the same seed gives other vectors on CUDA than on
+    the CPU."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = np.empty((n, dims), np.float32)
+    host = torch.from_numpy(out)
+    for lo in range(0, n, chunk):
+        rows = torch.randn((min(chunk, n - lo), dims), generator=gen,
+                           device=device)
+        rows /= torch.linalg.vector_norm(rows, dim=1, keepdim=True)
+        host[lo:lo + rows.shape[0]].copy_(rows)
+    return out
+
+
+def knn_query_vectors(vectors: np.ndarray, n: int,
+                      rng: np.random.Generator,
+                      noise: float = 0.25) -> np.ndarray:
+    """float32 [n, dims]: each a random row of ``vectors`` plus ``noise``
+    times a standard Gaussian, normalized (the reference bench's kNN
+    queries)."""
+    dims = vectors.shape[1]
+    out = np.empty((n, dims), np.float32)
+    for i in range(n):
+        q = vectors[rng.integers(len(vectors))] + noise * \
+            rng.standard_normal(dims).astype(np.float32)
+        out[i] = q / np.linalg.norm(q)
+    return out
+
+
 def term_name(t: int) -> str:
     return f"t{t:06d}"
 
@@ -285,11 +326,12 @@ def plan_doc(rng: np.random.Generator) -> Dict[str, str]:
 
 
 def segment_from_corpus(corpus: Dict[str, np.ndarray], field: str = "title",
-                        name: str = "corpus0",
-                        numerics=None) -> Segment:
+                        name: str = "corpus0", numerics=None,
+                        vectors=None) -> Segment:
     """The corpus as one port Segment over a text field of the terms
     ``t000000 ...`` (ids are the docids as text; no ``_source``), with
-    the numeric columns ``numerics`` (``logs_columns``) when given; the
+    the numeric columns ``numerics`` (``logs_columns``) and the vector
+    fields ``vectors`` (``segment_from_numpy``'s form) when given; the
     block-max metadata is computed from the blocks
     (index/segment.py ``block_max_meta``)."""
     vocab = len(corpus["df"])
@@ -300,7 +342,8 @@ def segment_from_corpus(corpus: Dict[str, np.ndarray], field: str = "title",
         block_docids=corpus["block_docids"], block_tfs=corpus["block_tfs"],
         field_lengths=corpus["lens"])
     return segment_from_numpy({"fields": {field: postings},
-                               "numerics": numerics}, name=name)
+                               "numerics": numerics, "vectors": vectors},
+                              name=name)
 
 
 def dense_scores(corpus: Dict[str, np.ndarray], terms: List[int],

@@ -1,17 +1,20 @@
 """Document mapping for the `_search` slices (counterpart of
 elasticsearch_tpu/index/mapper.py): a document parses into per-field
-token lists (text, analyzed), term lists (keyword, untokenized) and
-numeric doc values (numbers, booleans and dates, as float64).
+token lists (text, analyzed), term lists (keyword, untokenized),
+numeric doc values (numbers, booleans and dates, as float64) and dense
+vectors (float32).
 
 Field types, with the reference's class names and ``parse``: ``text``
 (the standard analyzer only), ``keyword``, ``long``, ``integer``,
 ``short``, ``byte``, ``double``, ``float``, ``half_float``, ``boolean``
-(1.0 / 0.0) and ``date`` (epoch milliseconds, from
-``strict_date_optional_time||epoch_millis``). An explicit mapping may
-give a field multi-fields (``"fields"``): every value indexes into the
-field and into each of them. Other field types (ranges, ``ip``,
-``geo_*``, ``constant_keyword``, ``dense_vector``, ``nested``, ...)
-belong to later slices and are refused with a ``MapperParsingException``.
+(1.0 / 0.0), ``date`` (epoch milliseconds, from
+``strict_date_optional_time||epoch_millis``) and ``dense_vector`` (a
+float32 [dims] row of the segment's vector slab; its JSON array is one
+value). An explicit mapping may give a field multi-fields
+(``"fields"``): every value indexes into the field and into each of
+them. Other field types (ranges, ``ip``, ``geo_*``,
+``constant_keyword``, ``nested``, ...) belong to later slices and are
+refused with a ``MapperParsingException``.
 
 Dynamic mapping follows the reference's ``_infer_type``: a bool maps to
 ``boolean``, an int to ``long``, a float to ``float``, a date-shaped
@@ -44,7 +47,8 @@ class MapperParsingException(ValueError):
 
 class MappedFieldType:
     """A field's type: how values parse, and which columnar form they
-    feed ("postings" text, "term" keyword, "numeric" doc values)."""
+    feed ("postings" text, "term" keyword, "numeric" doc values,
+    "vector" slab rows)."""
 
     type_name = "?"
     docvalue_kind = "none"
@@ -197,17 +201,46 @@ class DateFieldType(MappedFieldType):
             f"failed to parse date field [{value}] for field [{self.name}]")
 
 
+class DenseVectorFieldType(MappedFieldType):
+    """At most 2048 float dims (the reference's DenseVectorFieldMapper
+    limit); a doc's vector is a row of the [n_docs, dims] device slab
+    (bfloat16 by default, search/context.py)."""
+
+    type_name = "dense_vector"
+    docvalue_kind = "vector"
+    MAX_DIMS = 2048
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        self.dims = int(self.params.get("dims", 0))
+        if not (0 < self.dims <= self.MAX_DIMS):
+            raise MapperParsingException(
+                f"The number of dimensions for field [{name}] should be in "
+                f"the range [1, {self.MAX_DIMS}] but was [{self.dims}]")
+        self.similarity = self.params.get("similarity", "cosine")
+
+    def parse(self, value):
+        arr = np.asarray(value, dtype=np.float32)
+        if arr.ndim != 1 or arr.shape[0] != self.dims:
+            raise MapperParsingException(
+                f"The [dims] of field [{self.name}] is [{self.dims}], "
+                f"doesn't match the number of dimensions in the provided "
+                f"value [{arr.shape}]")
+        return arr
+
+
 FIELD_TYPES = {cls.type_name: cls for cls in (
     TextFieldType, KeywordFieldType, LongFieldType, IntegerFieldType,
     ShortFieldType, ByteFieldType, DoubleFieldType, FloatFieldType,
-    HalfFloatFieldType, BooleanFieldType, DateFieldType)}
+    HalfFloatFieldType, BooleanFieldType, DateFieldType,
+    DenseVectorFieldType)}
 
 # the reference's other field types (and nested objects): each a later
 # slice of the port
 LATER_SLICE_TYPES = {
     "integer_range", "float_range", "long_range", "double_range",
     "date_range", "ip_range", "ip", "geo_point", "geo_shape",
-    "constant_keyword", "dense_vector", "rank_feature", "rank_features",
+    "constant_keyword", "rank_feature", "rank_features",
     "flattened", "join", "percolator", "completion", "search_as_you_type",
     "token_count", "annotated_text", "wildcard", "murmur3", "nested"}
 
@@ -222,6 +255,10 @@ class ParsedDocument:
     keyword_terms: Dict[str, List[str]] = field(default_factory=dict)
     # field -> numeric values (numbers, booleans, dates as epoch millis)
     numeric_values: Dict[str, List[float]] = field(default_factory=dict)
+    # field -> float32 [dims] (dense_vector fields)
+    vectors: Dict[str, np.ndarray] = field(default_factory=dict)
+    # field -> similarity name (cosine | dot_product | l2_norm)
+    vector_similarity: Dict[str, str] = field(default_factory=dict)
 
 
 # ---------------------------------------------------------------------------
@@ -309,13 +346,17 @@ class DocumentMapper:
             if isinstance(value, dict):
                 self._parse_object(f"{path}.", value, parsed)
                 continue
-            values = value if isinstance(value, list) else [value]
+            ft = self.fields.get(path)
+            if ft is not None and ft.docvalue_kind == "vector":
+                # a dense_vector's JSON array is ONE value
+                values = [value]
+            else:
+                values = value if isinstance(value, list) else [value]
             # arrays of objects flatten
             if values and isinstance(values[0], dict):
                 for v in values:
                     self._parse_object(f"{path}.", v, parsed)
                 continue
-            ft = self.fields.get(path)
             if ft is None:
                 sample = next((v for v in values if v is not None), None)
                 if sample is None:
@@ -358,6 +399,9 @@ class DocumentMapper:
                             for t in self.analyzer.analyze(typed))
             elif ft.docvalue_kind == "term":
                 parsed.keyword_terms.setdefault(ft.name, []).append(typed)
+            elif ft.docvalue_kind == "vector":
+                parsed.vectors[ft.name] = typed
+                parsed.vector_similarity[ft.name] = ft.similarity
             else:
                 parsed.numeric_values.setdefault(ft.name, []).append(
                     float(typed))

@@ -1,6 +1,7 @@
 """Immutable segments (counterpart of elasticsearch_tpu/index/segment.py),
 reduced to what the `_search` slices read: text and keyword postings,
-doc lengths, numeric doc values, ids, `_source` and the live mask.
+doc lengths, numeric doc values, dense vectors, ids, `_source` and the
+live mask.
 
 - **Postings as padded blocks.** Each text field's postings are
   concatenated into blocks of ``BLOCK_SIZE`` (128): ``block_docids
@@ -20,6 +21,10 @@ doc lengths, numeric doc values, ids, `_source` and the live mask.
   ``values`` float64 [n_docs] (a doc's first value, NaN where missing),
   ``missing`` bool [n_docs], and the ragged multi-values
   ``offsets``/``all_values`` (each doc's values sorted).
+- **Dense vectors**: ``vectors`` float32 [n_docs, dims] (zero rows where
+  a doc has none), ``has_value`` bool [n_docs], the field's ``dims`` and
+  ``similarity``. This float32 host copy is what the kNN path's exact
+  re-rank reads; the device holds the slab (ops/device.py).
 - **Deletes as masks**: ``live[n_docs] bool``, replaced (never mutated)
   on delete, with ``live_version`` bumped so device caches can key on it.
 
@@ -86,6 +91,28 @@ class NumericDocValues:
 
 
 @dataclass
+class VectorValues:
+    field: str
+    vectors: np.ndarray     # float32 [n_docs, dims]
+    has_value: np.ndarray   # bool [n_docs]
+    dims: int
+    similarity: str = "cosine"
+    # (live version, count) of the last live_count
+    _live_count: Optional[Tuple[int, int]] = dc_field(
+        default=None, repr=False, compare=False)
+
+    def live_count(self, live: np.ndarray, version: int) -> int:
+        """Docs with a vector among the ``live`` ones, counted once per
+        live ``version`` (a full pass over n_docs otherwise)."""
+        cached = self._live_count
+        if cached is None or cached[0] != version:
+            cached = (version, int(np.count_nonzero(
+                self.has_value & live[: len(self.has_value)])))
+            self._live_count = cached
+        return cached[1]
+
+
+@dataclass
 class StoredFields:
     offsets: np.ndarray     # int64 [n_docs + 1]
     data: bytes
@@ -99,11 +126,13 @@ class Segment:
     def __init__(self, name: str, n_docs: int,
                  postings: Dict[str, PostingsField], stored: StoredFields,
                  live: Optional[np.ndarray] = None,
-                 numerics: Optional[Dict[str, NumericDocValues]] = None):
+                 numerics: Optional[Dict[str, NumericDocValues]] = None,
+                 vectors: Optional[Dict[str, VectorValues]] = None):
         self.name = name
         self.n_docs = n_docs
         self.postings = postings
         self.numerics = numerics or {}
+        self.vectors = vectors or {}
         self.stored = stored
         self.live = live if live is not None else np.ones(n_docs, dtype=bool)
         self.live_version = 0  # bumps on delete; device caches key on it
@@ -191,6 +220,19 @@ class SegmentWriter:
                 offsets[docid + 1] = len(all_vals)
             numerics[f] = NumericDocValues(f, values, missing, offsets,
                                            np.asarray(all_vals, np.float64))
+        vectors = {}
+        for f in sorted({f for d in docs for f in d.vectors}):
+            dims = next(d.vectors[f].shape[0] for d in docs if f in d.vectors)
+            sim = next((d.vector_similarity.get(f, "cosine") for d in docs
+                        if f in d.vectors), "cosine")
+            arr = np.zeros((n, dims), np.float32)
+            has = np.zeros(n, bool)
+            for docid, d in enumerate(docs):
+                v = d.vectors.get(f)
+                if v is not None:
+                    arr[docid] = v
+                    has[docid] = True
+            vectors[f] = VectorValues(f, arr, has, dims, sim)
         offsets = np.zeros(n + 1, np.int64)
         chunks = []
         ids = []
@@ -201,7 +243,8 @@ class SegmentWriter:
             offsets[docid + 1] = total
             ids.append(d.doc_id)
         stored = StoredFields(offsets, b"".join(chunks), ids)
-        return Segment(name, n, postings, stored, numerics=numerics)
+        return Segment(name, n, postings, stored, numerics=numerics,
+                       vectors=vectors)
 
 
 def _build_postings_field(field: str, term_docs: Dict[str, Any],
@@ -319,6 +362,20 @@ def merge_segments(name: str, segments: List[Segment]) -> Segment:
     numerics = {f: _merge_numerics(f, segments, maps, new_n)
                 for f in sorted({f for s in segments for f in s.numerics})}
 
+    vectors: Dict[str, VectorValues] = {}
+    for f in sorted({f for s in segments for f in s.vectors}):
+        first = next(s.vectors[f] for s in segments if f in s.vectors)
+        arr = np.zeros((new_n, first.dims), np.float32)
+        has = np.zeros(new_n, bool)
+        for seg, m in zip(segments, maps):
+            vv = seg.vectors.get(f)
+            if vv is None:
+                continue
+            keep = seg.live
+            arr[m[keep]] = vv.vectors[keep]
+            has[m[keep]] = vv.has_value[keep]
+        vectors[f] = VectorValues(f, arr, has, first.dims, first.similarity)
+
     offsets = np.zeros(new_n + 1, np.int64)
     chunks: List[bytes] = []
     ids: List[str] = []
@@ -331,7 +388,8 @@ def merge_segments(name: str, segments: List[Segment]) -> Segment:
             offsets[int(m[old]) + 1] = total
             ids.append(seg.stored.ids[int(old)])
     stored = StoredFields(offsets, b"".join(chunks), ids)
-    return Segment(name, new_n, postings, stored, numerics=numerics)
+    return Segment(name, new_n, postings, stored, numerics=numerics,
+                   vectors=vectors)
 
 
 def _merge_numerics(f: str, segments: List[Segment], maps: List[np.ndarray],
@@ -384,15 +442,25 @@ def segment_from_numpy(arrays: Dict[str, Any], name: str = "imported",
     numeric field to its doc values: ``values`` float64 [n_docs] (a
     doc's first value) and optionally ``missing`` bool [n_docs] (default
     where ``values`` is NaN) and ``offsets`` [n_docs + 1] /
-    ``all_values`` (default one value per doc that has one)."""
+    ``all_values`` (default one value per doc that has one); and
+    ``vectors``, which maps each dense_vector field to ``vectors``
+    float32 [n_docs, dims] (kept as given, not copied, when already
+    float32 and contiguous: it is the host copy the exact re-rank
+    reads), and optionally ``has_value`` bool [n_docs] (default all) and
+    ``similarity`` (default "cosine"). A segment of vectors alone needs
+    no postings."""
     fields = arrays.get("fields")
     if fields is None:
-        fields = {field or arrays.get("field") or "body": arrays}
+        fields = ({field or arrays.get("field") or "body": arrays}
+                  if "block_docids" in arrays else {})
     postings = {f: _postings_from_numpy(f, a) for f, a in fields.items()}
     numerics = {f: _numerics_from_numpy(f, a)
                 for f, a in (arrays.get("numerics") or {}).items()}
+    vectors = {f: _vectors_from_numpy(f, a)
+               for f, a in (arrays.get("vectors") or {}).items()}
     sizes = ({len(pf.field_lengths) for pf in postings.values()}
-             | {len(nv.values) for nv in numerics.values()})
+             | {len(nv.values) for nv in numerics.values()}
+             | {len(vv.has_value) for vv in vectors.values()})
     if len(sizes) != 1:
         raise ValueError(f"fields disagree on the doc count: {sorted(sizes)}")
     n = sizes.pop()
@@ -408,7 +476,22 @@ def segment_from_numpy(arrays: Dict[str, Any], name: str = "imported",
     live = arrays.get("live")
     return Segment(name, n, postings, stored,
                    None if live is None else np.asarray(live, bool).copy(),
-                   numerics=numerics)
+                   numerics=numerics, vectors=vectors)
+
+
+def _vectors_from_numpy(fname: str, arrays: Dict[str, Any]) -> VectorValues:
+    vecs = np.ascontiguousarray(arrays["vectors"], np.float32)
+    if vecs.ndim != 2:
+        raise ValueError(f"vector field [{fname}]: vectors must be "
+                         f"[n_docs, dims]")
+    has = arrays.get("has_value")
+    has = (np.ones(len(vecs), bool) if has is None
+           else np.asarray(has, bool))
+    if has.shape != (len(vecs),):
+        raise ValueError(f"vector field [{fname}]: has_value must be "
+                         f"[n_docs]")
+    return VectorValues(fname, vecs, has, int(vecs.shape[1]),
+                        arrays.get("similarity", "cosine"))
 
 
 def _numerics_from_numpy(fname: str, arrays: Dict[str, Any]) \

@@ -21,6 +21,10 @@ bounds and sort keys compare in float32, so an epoch-millisecond date
 Filter masks (the fast path's bool+filter bodies) are bool columns built
 on the host from the postings and uploaded once, in an LRU of
 ``FILTER_MASK_CACHE_MAX`` entries per DeviceSegment.
+
+Dense vectors upload as one [n_docs_padded, dims] slab per field
+(``DeviceVectors``, bfloat16 by default; padding rows are zero and have
+no value), built in row chunks by ops/vector.py ``prepare_vectors``.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 from elasticsearch_tpu_torch.device import DeviceLike, resolve_device
 from elasticsearch_tpu_torch.index.segment import BLOCK_SIZE, Segment
 from elasticsearch_tpu_torch.ops.plan import check_packed_id_limit
+from elasticsearch_tpu_torch.ops.vector import prepare_vectors
 
 DOC_PAD = 1024
 MIN_BLOCK_BUCKET = 8
@@ -161,11 +166,36 @@ class DevicePostings:
         return self.derived("block_bounds", build)
 
 
+class DeviceVectors:
+    """One dense_vector field on the device: ``vectors`` [n_docs_padded,
+    dims] (``dtype``; pre-normalized for cosine), ``norms`` and
+    ``sq_norms`` float32 [n_docs_padded] (the host norms and their
+    float32 squares), ``has_value`` bool [n_docs_padded], ``similarity``
+    and ``dims``."""
+
+    def __init__(self, vv, n_docs_padded: int, dtype: torch.dtype,
+                 device: torch.device):
+        self.vectors, norms = prepare_vectors(
+            vv.vectors, vv.similarity, dtype, device, n_docs_padded)
+        pad = n_docs_padded - len(norms)
+        norms = np.concatenate([norms, np.zeros(pad, np.float32)])
+        self.norms = torch.from_numpy(norms).to(device)
+        self.sq_norms = torch.from_numpy(
+            (norms * norms).astype(np.float32)).to(device)
+        self.has_value = torch.from_numpy(np.concatenate(
+            [np.asarray(vv.has_value, bool), np.zeros(pad, bool)])).to(device)
+        self.similarity = vv.similarity
+        self.dims = vv.dims
+
+
 class DeviceSegment:
     """A segment resident in device memory, built once per (segment,
-    device); a refresh swaps whole DeviceSegments."""
+    device); a refresh swaps whole DeviceSegments. Vector slabs take
+    ``vector_dtype`` (the reference's default, bfloat16: an 8M x 768
+    float32 slab would not leave room for the rest)."""
 
-    def __init__(self, segment: Segment, device: DeviceLike = None):
+    def __init__(self, segment: Segment, device: DeviceLike = None,
+                 vector_dtype: torch.dtype = torch.bfloat16):
         self.device = resolve_device(device)
         self.segment = segment
         self.name = segment.name
@@ -209,6 +239,11 @@ class DeviceSegment:
             self.numerics[f] = torch.from_numpy(
                 vals.astype(np.float32)).to(self.device)
             self.numeric_missing[f] = torch.from_numpy(miss).to(self.device)
+        self.vectors: Dict[str, DeviceVectors] = {
+            f: DeviceVectors(vv, self.n_docs_padded, vector_dtype,
+                             self.device)
+            for f, vv in segment.vectors.items()
+        }
         real = np.zeros(self.n_docs_padded, bool)
         real[: self.n_docs] = True
         # the real (non-padding) docs, and the all-true [1, ND] mask row

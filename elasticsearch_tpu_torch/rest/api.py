@@ -28,8 +28,11 @@ shapes, term, terms, constant_score, multi_match, dis_max,
 ``post_filter``, ``from`` > 0, ``size`` up to 10000 and indices of
 several segments, and the dense executor behind it: range, exists, ids,
 match_all, boosting, term(s) on numbers, booleans and dates, ``sort``,
-``search_after`` and ``min_score``. What none serves is answered with a
-typed 400, never on another device.
+``search_after`` and ``min_score``. Top-level ``knn`` and ``rank.rrf``
+(hybrid retrieval over ``dense_vector`` fields, which ``PUT /{index}``
+maps and ``_bulk`` indexes) go to the search service too: the fast
+grammar and the C++ front refuse both keys. What none serves is answered
+with a typed 400, never on another device.
 
 Behind the native front (rest/native_http.py) the hot bodies of its one
 registered index, with ``_source: false``, never reach this module: C++

@@ -1,5 +1,5 @@
-"""Continuous batching of plan-path launches (counterpart of
-elasticsearch_tpu/search/batching.py `PlanBatcher`).
+"""Continuous batching of plan-path and kNN launches (counterpart of
+elasticsearch_tpu/search/batching.py `PlanBatcher` and `KnnBatcher`).
 
 Concurrent requests whose bound plans share a launch shape coalesce into
 one batched launch (ops/plan.py plan_topk_batch) and one device-to-host
@@ -21,11 +21,13 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from elasticsearch_tpu_torch.ops import plan as plan_ops
+from elasticsearch_tpu_torch.ops import vector as vec_ops
 from elasticsearch_tpu_torch.ops.device import readback
 from elasticsearch_tpu_torch.search.plan import (BoundPlan, empty_result,
                                                  execute_bound)
@@ -291,4 +293,170 @@ class PlanBatcher:
                                in sorted(self.batch_hist.items())},
                 "peak_lanes_in_flight": self.peak_lanes_in_flight,
                 "admission_waits": self.admission_waits,
+            }
+
+
+# ---------------------------------------------------------------------------
+# kNN branch batching
+# ---------------------------------------------------------------------------
+
+_CUT_BUCKETS = (128, 256, 512, 1024, 2048, 4096)
+# a cohort's [Q, ND] float32 score matrix stays within about 1 GiB beside
+# the slab (an 8M x 768 bfloat16 slab holds 12.3 GB): Q <= 2^28 / ND
+KNN_SCORE_ELEMS = 1 << 28
+# queries a leader takes into one cohort (launched in Q chunks that fit
+# KNN_SCORE_ELEMS)
+KNN_MAX_BATCH = 64
+
+
+def _cut_bucket(n: int) -> int:
+    for b in _CUT_BUCKETS:
+        if n <= b:
+            return b
+    return _CUT_BUCKETS[-1]
+
+
+class _KnnEntry:
+    __slots__ = ("qvec", "cut", "event", "result", "error")
+
+    def __init__(self, qvec: np.ndarray, cut: int):
+        self.qvec = qvec
+        self.cut = cut
+        self.event = threading.Event()
+        self.result = None
+        self.error: Optional[BaseException] = None
+
+
+class KnnBatcher:
+    """Continuous batching of kNN branch launches, the vector analogue
+    of :class:`PlanBatcher`: concurrent kNN queries against the same
+    slab coalesce into ONE ``ops.vector.knn_nominate_batch`` launch
+    ([Q, D] product and batched top-k) and share one packed readback
+    (scores and docids as float casts in one float32 buffer). The same
+    leader/follower protocol and adaptive flush window as PlanBatcher.
+
+    A signature is (segment name, live version, field, similarity,
+    bucketed cut, dims): a cohort shares one slab and one live mask
+    (the reference keys on the ids of the tensors, which a freed tensor
+    can hand on)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._launch_slots = threading.BoundedSemaphore(MAX_CONCURRENT)
+        self._pending: Dict[tuple, List[_KnnEntry]] = {}
+        self.launches = 0
+        self.batched_queries = 0
+        self._lat_ema = 0.0
+
+    def topk(self, ctx, field: str, qvec: np.ndarray,
+             cut: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-``cut`` (scores, docids) of one query vector against the
+        ``field`` slab of ``ctx``'s segment (SegmentContext), deletes
+        honoured through its live mask. On a quantized slab the
+        nominations are re-scored in exact float32 from the segment's
+        host vectors. The cut caps at the slab's padded row count."""
+        dv = ctx.device.vectors[field]
+        nd = int(dv.vectors.shape[0])
+        bucket_cut = min(_cut_bucket(cut), nd)
+        sig = (ctx.segment.name, ctx.segment.live_version, field,
+               dv.similarity, bucket_cut, int(qvec.shape[0]))
+        entry = _KnnEntry(np.asarray(qvec, np.float32), cut)
+        with self._lock:
+            q = self._pending.setdefault(sig, [])
+            q.append(entry)
+            leader = len(q) == 1
+        if not leader:
+            entry.event.wait()
+            if entry.error is not None:
+                raise entry.error
+            return self._finish(entry, ctx, field)
+        window = (min(0.75 * self._lat_ema, 1.5)
+                  if self._lat_ema > 0.03 else ADAPTIVE_FLUSH_S)
+        if window > 0.0:
+            deadline = time.monotonic() + window
+            step = min(0.02, max(window / 4.0, 0.0005))
+            while time.monotonic() < deadline:
+                with self._lock:
+                    mine = len(self._pending.get(sig, ()))
+                    busy = (mine > 1 or len(self._pending) > 1
+                            or any(len(qq) > 1
+                                   for qq in self._pending.values()))
+                if mine >= KNN_MAX_BATCH or not busy:
+                    break
+                time.sleep(step)
+        with self._launch_slots:
+            with self._lock:
+                batch = self._pending.pop(sig, [])
+            if not batch:
+                batch = [entry]
+            try:
+                for start in range(0, len(batch), KNN_MAX_BATCH):
+                    self._run(batch[start:start + KNN_MAX_BATCH], dv,
+                              ctx.device.live, bucket_cut)
+            except BaseException as exc:
+                for e in batch:
+                    if not e.event.is_set():
+                        e.error = exc
+                        e.event.set()
+                raise
+        if entry.error is not None:
+            raise entry.error
+        return self._finish(entry, ctx, field)
+
+    def _run(self, batch: List[_KnnEntry], dv, live, cut: int):
+        nd = int(dv.vectors.shape[0])
+        cap = max(1, KNN_SCORE_ELEMS // max(nd, 1))
+        allowed = max((b for b in _Q_BUCKETS if b <= cap), default=1)
+        dev = dv.vectors.device
+        for start in range(0, len(batch), allowed):
+            chunk = batch[start:start + allowed]
+            qn = len(chunk)
+            bucket = min(_q_bucket(qn), allowed)
+            qs = np.stack([e.qvec for e in chunk]
+                          + [chunk[0].qvec] * (bucket - qn))
+            t0 = time.monotonic()
+            top_s, top_i = vec_ops.knn_nominate_batch(
+                torch.from_numpy(qs).to(dev), dv.vectors, dv.sq_norms,
+                dv.has_value, live, dv.similarity, cut)
+            # ONE packed readback: ids as float casts (exact < 2^24)
+            rows = readback("search.batching.knn_cohort", torch.cat(
+                [top_s, top_i.to(torch.float32)], dim=1))
+            dt = time.monotonic() - t0
+            with self._lock:
+                if dt < 5.0:
+                    self._lat_ema = (dt if self._lat_ema == 0.0
+                                     else 0.8 * self._lat_ema + 0.2 * dt)
+                self.launches += 1
+                self.batched_queries += qn
+            for i, e in enumerate(chunk):
+                e.result = (rows[i, :cut].copy(),
+                            plan_ops.unpack_ids(rows[i, cut:]))
+                e.event.set()
+
+    @staticmethod
+    def _finish(entry: _KnnEntry, ctx,
+                field: str) -> Tuple[np.ndarray, np.ndarray]:
+        """The entry's row: the nominated docs that passed, re-scored in
+        exact float32 from the host vectors when the slab is quantized,
+        ordered by (score desc, docid asc), cut to the entry's cut."""
+        scores, ids = entry.result
+        ok = np.isfinite(scores)
+        scores, ids = scores[ok], ids[ok]
+        dv = ctx.device.vectors[field]
+        vv = ctx.segment.vectors.get(field)
+        if dv.vectors.dtype != torch.float32 and vv is not None:
+            valid = ids < vv.vectors.shape[0]
+            ids = ids[valid]
+            scores = vec_ops.exact_rerank_scores(
+                vv.vectors[ids], entry.qvec, dv.similarity)
+        order = np.lexsort((ids, -scores))[: entry.cut]
+        return scores[order], ids[order]
+
+    def stats(self) -> Dict[str, float]:
+        with self._lock:
+            return {
+                "knn_launches": self.launches,
+                "knn_batched_queries": self.batched_queries,
+                "knn_avg_batch": (self.batched_queries / self.launches
+                                  if self.launches else 0.0),
             }

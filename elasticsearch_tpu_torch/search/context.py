@@ -102,10 +102,13 @@ class DeviceSegmentCache:
     by segment name and holds the ``live_version`` it was built or last
     updated at: a delete re-uploads the live mask only. A new segment
     object under a known name replaces the entry; segments a merge
-    retires leave through ``evict``."""
+    retires leave through ``evict``. Vector slabs upload as
+    ``vector_dtype`` (bfloat16 by default, as the reference's)."""
 
-    def __init__(self, device: DeviceLike = None):
+    def __init__(self, device: DeviceLike = None,
+                 vector_dtype: torch.dtype = torch.bfloat16):
         self.device = resolve_device(device)
+        self.vector_dtype = vector_dtype
         self._cache: "OrderedDict[str, Tuple[int, DeviceSegment]]" = \
             OrderedDict()
         self._lock = threading.Lock()
@@ -120,7 +123,7 @@ class DeviceSegmentCache:
                     self._cache[segment.name] = (segment.live_version, dev)
                 self._cache.move_to_end(segment.name)
                 return dev
-            dev = DeviceSegment(segment, self.device)
+            dev = DeviceSegment(segment, self.device, self.vector_dtype)
             self._cache[segment.name] = (segment.live_version, dev)
             return dev
 

@@ -17,12 +17,13 @@ turns the trees it can into one fused launch instead and reads the same
 builders as parse trees.
 
 Served: match_all, match_none, match, multi_match, term, terms, range,
-exists, ids, bool, constant_score, dis_max and boosting, over text,
-keyword, numeric, boolean and date fields (a multi_match of a type other
-than most_fields scores as best_fields, as the reference's dense path
-does). term/terms/range/exists on numbers, booleans and dates compare
-the float32 doc-value column (ops/device.py) with the bound rounded to
-float32, as the reference's weakly typed jnp compare does. Range-typed,
+exists, ids, bool, constant_score, dis_max, boosting and knn, over text,
+keyword, numeric, boolean, date and dense_vector fields (a multi_match
+of a type other than most_fields scores as best_fields, as the
+reference's dense path does). term/terms/range/exists on numbers,
+booleans and dates compare the float32 doc-value column (ops/device.py)
+with the bound rounded to float32, as the reference's weakly typed jnp
+compare does. knn scores the field's slab (ops/vector.py). Range-typed,
 geo, ``ip`` and ``constant_keyword`` fields are refused by the mapper (a
 later slice), so their branches are too. Every other query type the
 reference knows raises ``SliceUnsupported`` (a typed 400); a name it
@@ -39,7 +40,10 @@ import torch
 from elasticsearch_tpu_torch.index.mapper import (KeywordFieldType,
                                                   TextFieldType)
 from elasticsearch_tpu_torch.ops import bm25 as bm25_ops
+from elasticsearch_tpu_torch.ops import vector as vec_ops
+from elasticsearch_tpu_torch.ops.device import readback
 from elasticsearch_tpu_torch.ops.plan import bm25_dense_scores_sorted
+from elasticsearch_tpu_torch.ops.topk import stable_topk
 from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
 
 Result = Tuple[torch.Tensor, torch.Tensor]   # (scores f32, mask bool)
@@ -351,6 +355,8 @@ class ExistsQuery(QueryBuilder):
             mask = dev.postings[self.field].doc_lens > 0
         elif self.field in dev.numerics:
             mask = ~dev.numeric_missing[self.field]
+        elif self.field in dev.vectors:
+            mask = dev.vectors[self.field].has_value
         else:
             return _nothing(ctx)
         return _constant(mask & ctx.all_true())
@@ -474,13 +480,89 @@ class BoostingQuery(QueryBuilder):
         return torch.where(neg, s * self.negative_boost, s), mask
 
 
+class KnnQuery(QueryBuilder):
+    """Brute-force kNN over a dense_vector field, with the modern ES
+    score transforms: cosine -> (1 + cos) / 2, dot_product ->
+    (1 + dot) / 2, l2_norm -> 1 / (1 + d^2). Matches the docs with a
+    vector (and the ``filter``), cut per segment to the ``k`` (else
+    ``num_candidates``) best, every doc tied with the cut's score kept.
+    On a quantized (bfloat16) slab the device scores only nominate: the
+    top ``num_candidates`` (default 3 k) are re-scored in exact float32
+    from the segment's host vectors before the cut."""
+
+    name = "knn"
+
+    def __init__(self, field: str, query_vector: List[float],
+                 num_candidates: Optional[int] = None,
+                 filter_query: Optional[QueryBuilder] = None,
+                 k: Optional[int] = None):
+        super().__init__()
+        self.field = field
+        self.query_vector = np.asarray(query_vector, np.float32)
+        self.num_candidates = num_candidates
+        self.filter_query = filter_query
+        self.k = k
+
+    def do_execute(self, ctx):
+        dv = ctx.device.vectors.get(self.field)
+        if dv is None:
+            return _nothing(ctx)
+        if self.query_vector.shape != (dv.dims,):
+            raise ParsingException(
+                f"the query vector has a different number of dimensions "
+                f"[{self.query_vector.size}] than the document vectors "
+                f"[{dv.dims}]")
+        q = torch.from_numpy(self.query_vector).to(ctx.device.device)[None]
+        scores = vec_ops.similarity_scores(q, dv.vectors, dv.sq_norms,
+                                           dv.similarity)[0]
+        mask = dv.has_value & ctx.all_true()
+        if self.filter_query is not None:
+            _, fm = self.filter_query.execute(ctx)
+            mask = mask & fm
+        scores = torch.where(mask, scores, 0.0)
+        scores = self._exact_rerank(ctx, dv, scores)
+        nd = ctx.n_docs_padded
+        cut = self.k or self.num_candidates
+        if cut is not None and cut < nd:
+            # the k nearest per segment: the kth value of the ascending
+            # order with -inf for the unmatched, every tie kept
+            kth = torch.kthvalue(torch.where(mask, scores, float("-inf")),
+                                 nd - int(cut) + 1).values
+            mask = mask & (scores >= kth)
+            scores = torch.where(mask, scores, 0.0)
+        return scores, mask
+
+    def _exact_rerank(self, ctx, dv, scores):
+        """On a quantized slab, the top ``num_candidates`` by device
+        score (ties to the lowest docid) get their exact float32 scores
+        from the segment's host vectors, scattered back."""
+        if dv.vectors.dtype == torch.float32:
+            return scores
+        vv = ctx.segment.vectors.get(self.field)
+        if vv is None:
+            return scores
+        nc = int(self.num_candidates or 3 * (self.k or 1000))
+        nc = min(nc, ctx.n_docs_padded)
+        docids = torch.arange(scores.shape[0], dtype=torch.int32,
+                              device=scores.device)
+        _, ids = stable_topk(scores[None], docids[None], nc)
+        ids_h = readback("search.queries.knn_rerank_ids", ids[0])
+        ids_h = ids_h[ids_h < vv.vectors.shape[0]]
+        exact = vec_ops.exact_rerank_scores(
+            vv.vectors[ids_h], self.query_vector, dv.similarity)
+        dev = scores.device
+        return scores.index_put(
+            (torch.from_numpy(ids_h.astype(np.int64)).to(dev),),
+            torch.from_numpy(exact).to(dev))
+
+
 # ---------------------------------------------------------------------------
 # parsing
 # ---------------------------------------------------------------------------
 
 # the reference's other query types: each a later slice of the port
 _LATER_SLICE = {
-    "script_score", "knn", "function_score", "rank_feature",
+    "script_score", "function_score", "rank_feature",
     "geo_distance", "geo_bounding_box", "geo_polygon", "geo_shape",
     "match_phrase", "match_phrase_prefix", "match_bool_prefix", "prefix",
     "wildcard", "regexp", "fuzzy", "more_like_this", "pinned",
@@ -577,6 +659,17 @@ def _parse_bool(spec):
     return _with_boost(q, spec)
 
 
+def _parse_knn(spec):
+    if not isinstance(spec, dict) or "field" not in spec \
+            or "query_vector" not in spec:
+        raise ParsingException("[knn] requires [field] and [query_vector]")
+    filt = spec.get("filter")
+    return KnnQuery(spec["field"], spec["query_vector"],
+                    num_candidates=spec.get("num_candidates"),
+                    filter_query=parse_query(filt) if filt else None,
+                    k=spec.get("k"))
+
+
 def _parse_dis_max(spec):
     queries = [parse_query(q) for q in spec.get("queries", [])]
     if not queries:
@@ -603,4 +696,5 @@ _PARSERS = {
     "boosting": lambda spec: BoostingQuery(
         parse_query(spec["positive"]), parse_query(spec["negative"]),
         float(spec.get("negative_boost", 0.5))),
+    "knn": _parse_knn,
 }

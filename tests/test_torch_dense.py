@@ -349,7 +349,8 @@ def test_explicit_multi_fields_index_every_subfield():
 
 
 def test_later_slice_types_are_refused():
-    for ftype in ("ip", "geo_point", "date_range", "dense_vector",
+    # dense_vector is mapped since the kNN slice (tests/test_torch_knn.py)
+    for ftype in ("ip", "geo_point", "date_range", "rank_features",
                   "nested", "constant_keyword"):
         with pytest.raises(MapperParsingException, match="later slice"):
             DocumentMapper({"properties": {"x": {"type": ftype}}})
