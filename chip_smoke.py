@@ -115,10 +115,23 @@ Phases (any failure exits non-zero; no exception is swallowed):
               oracles); merged-hybrid, filtered-knn, _source: true and
               exists bodies equal to the port's CPU execution, the
               contribution kernel launching on the merged ones; the rrf
-              bodies from the load generator
-  7. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
-              filters, plan and kernels JSON lines, the card's name and
-              power limit, and the last line {"ok": true, "device": {...}}
+              bodies from the load generator. The index also carries the
+              reference bench's "feat" column (corpus.py bench_feat)
+  7. script   config 3 on the index "hybrid": 32 script_score bodies of
+              the reference bench's row (match + doc['feat'].value * 0.5
+              + _score, size 1000) ride the plan launch, each equal to
+              the port's CPU execution and within the recall rule of a
+              float64 oracle; 16 cosineSimilarity + 1.0 + _score bodies
+              on the dense executor held to a float64 oracle over the
+              slab's bfloat16 values; function_score, min_score and
+              rescore bodies equal to the CPU; a statement script is a
+              400 at 2M docs and equals the CPU on phase 3's index; the
+              bench bodies from the load generator; one plan cohort at
+              Q = 1, 8, 32 timed with and without the script
+  8. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
+              script, filters, plan and kernels JSON lines, the card's
+              name and power limit, and the last line {"ok": true,
+              "device": {...}}
 
 Needs one CUDA card, and the repository around it.
 """
@@ -2626,7 +2639,7 @@ def rrf_fusion(branches, k_const, size, index):
 
 
 def phase_hybrid(node, port, corpus, queries, oracles, dims, seed, conns,
-                 counters):
+                 counters, feat, cpu):
     """Config 5 on the index ``hybrid``: the scale corpus's segment with
     a ``vec`` field of ``dims``-d seeded unit vectors. 32 rank.rrf
     bodies (match + knn k 1000 / num_candidates 1500, size 1000), each
@@ -2635,24 +2648,25 @@ def phase_hybrid(node, port, corpus, queries, oracles, dims, seed, conns,
     bodies, 4 filtered knn bodies, 2 with ``_source: true`` and an
     ``exists`` on ``vec``, each equal to the port's CPU execution; the
     contribution kernel launches on the merged bodies; then the rrf
-    bodies from the load generator."""
+    bodies from the load generator. The segment also holds the numeric
+    column ``feat`` (a ``double``), phase 7's. ``cpu``: a SearchService
+    on the CPU, the port's CPU execution."""
     import torch
 
     from elasticsearch_tpu_torch.corpus import (segment_from_corpus,
                                                 term_name, unit_vectors)
     from elasticsearch_tpu_torch.rest.native_http import loadgen
-    from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
-    from elasticsearch_tpu_torch.search.service import SearchService
     n = len(corpus["lens"])
     t0 = time.time()
     vecs = unit_vectors(n, dims, seed, device="cuda")
     node.create_index("hybrid", {"properties": {
-        "title": {"type": "text"},
+        "title": {"type": "text"}, "feat": {"type": "double"},
         "vec": {"type": "dense_vector", "dims": dims,
                 "similarity": "cosine"}}})
     svc = node.indices["hybrid"]
     svc.engine.install_segments([segment_from_corpus(
-        corpus, name="hybrid0", vectors={"vec": {"vectors": vecs}})])
+        corpus, name="hybrid0", numerics={"feat": {"values": feat}},
+        vectors={"vec": {"vectors": vecs}})])
     node.device_cache.get(svc.engine.segments[0])
     torch.cuda.synchronize()
     out = dict(docs=n, dims=dims, setup_s=time.time() - t0)
@@ -2719,7 +2733,6 @@ def phase_hybrid(node, port, corpus, queries, oracles, dims, seed, conns,
     check(launches["gather_bm25_contrib"] > 0,
           f"the contribution kernel launched on the merged bodies: "
           f"{launches}")
-    cpu = SearchService(DeviceSegmentCache("cpu"))
     t0 = time.time()
     for (kind, body), (st, r) in zip(mixed, res2):
         what = f"hybrid {kind} body vs the CPU"
@@ -2754,6 +2767,345 @@ def phase_hybrid(node, port, corpus, queries, oracles, dims, seed, conns,
     return out
 
 
+# ---------------------------------------------------------------- phase 7
+SCRIPT_BENCH = "doc['feat'].value * 0.5 + _score"
+SCRIPT_VECTOR = "cosineSimilarity(params.qv, 'vec') + 1.0 + _score"
+# a served score of a vector body against the float64 oracle over the
+# slab's bfloat16 values: float32 BM25 (up to ~40, ulp 3.8e-6 summed over
+# at most 8 terms) plus a float32 sum of 256 bfloat16 products
+SCRIPT_VECTOR_ATOL = 1e-4
+
+
+def script_body(text, source, size, params=None, **extra):
+    script = {"source": source}
+    if params is not None:
+        script["params"] = params
+    return {"query": {"script_score": {
+        "query": {"match": {"title": text}}, "script": script, **extra}},
+        "size": size, "_source": False}
+
+
+def equal_to_cpu(r, c, what):
+    """An HTTP answer against the port's CPU execution of the same body:
+    ids, order and totals exact, scores rtol 1e-6."""
+    check(c["hits"]["total"] == r["hits"]["total"], f"{what}: total "
+          f"{r['hits']['total']} vs CPU {c['hits']['total']}")
+    check([h["_id"] for h in c["hits"]["hits"]]
+          == [h["_id"] for h in r["hits"]["hits"]], f"{what}: ids and order")
+    check(np.allclose([h["_score"] for h in c["hits"]["hits"]],
+                      [h["_score"] for h in r["hits"]["hits"]],
+                      rtol=1e-6, atol=0), f"{what}: scores rtol 1e-6")
+
+
+def script_oracle(bm25, feat32, k):
+    """Config 3's float64 oracle: BM25 + 0.5 x the float32 feat column
+    over the matched docs: (top-k docids by (score desc, docid asc),
+    their scores, total)."""
+    matched = np.nonzero(bm25 > 0)[0]
+    score = bm25[matched] + 0.5 * feat32[matched].astype(np.float64)
+    order = np.lexsort((matched, -score))[:k]
+    return matched[order], score[order], len(matched)
+
+
+def vector_oracle(slab, qvec, bm25, k):
+    """The feature-vector body's float64 oracle over the slab's own
+    bfloat16 values: cosine of the query normalized in float32 and cast
+    to bfloat16 (as ops/vector.py cosine_scores casts it) against each
+    slab row, + 1 + the float64 BM25, over the matched docs."""
+    import torch
+    q = torch.from_numpy(qvec.astype(np.float32)).cuda()
+    qb = (q / torch.linalg.vector_norm(q)).to(torch.bfloat16).double()
+    n = len(bm25)
+    cos = torch.empty(n, dtype=torch.float64, device="cuda")
+    for lo in range(0, n, 1 << 19):
+        hi = min(n, lo + (1 << 19))
+        cos[lo:hi] = slab[lo:hi].double() @ qb
+    cos = cos.cpu().numpy()
+    matched = np.nonzero(bm25 > 0)[0]
+    score = cos[matched] + 1.0 + bm25[matched]
+    order = np.lexsort((matched, -score))[:k]
+    return matched[order], score[order], len(matched), cos
+
+
+def check_vector_answer(r, oracle, bm25, cos, what):
+    """Every served score within SCRIPT_VECTOR_ATOL of the oracle's score
+    of that doc; every missing oracle doc within it of the kth score;
+    the total exact."""
+    truth, scores, total = oracle[:3]
+    got = np.array([int(h["_id"]) for h in r["hits"]["hits"]], np.int64)
+    check(r["hits"]["total"] == {"value": total, "relation": "eq"},
+          f"{what}: total {r['hits']['total']} vs {total}")
+    check(len(got) == len(truth), f"{what}: hit count")
+    want = cos[got] + 1.0 + bm25[got]
+    served = np.array([h["_score"] for h in r["hits"]["hits"]])
+    err = float(np.abs(served - want).max()) if len(got) else 0.0
+    check(err <= SCRIPT_VECTOR_ATOL,
+          f"{what}: served scores within {SCRIPT_VECTOR_ATOL} of the "
+          f"oracle ({err})")
+    miss = ~np.isin(truth, got)
+    kth = scores[-1] if len(scores) else 0.0
+    check(bool(np.all(np.abs(scores[miss] - kth) <= SCRIPT_VECTOR_ATOL)),
+          f"{what}: every missing oracle doc within {SCRIPT_VECTOR_ATOL} "
+          f"of the kth score")
+    return float((~miss).mean()) if len(truth) else 1.0, err
+
+
+# plan launches timed in one cuda_ms window (see script_cohort_ms)
+LAUNCHES_QUEUED = 3
+
+
+def script_cohort_ms(node, bodies, reps=3):
+    """Device ms (CUDA events) of one plan cohort of the first Q bench
+    bodies at Q = 1, 8, 32 (every member padded to the widest member's
+    selection, ``nb_width`` blocks, as a cohort pads), launched with the
+    script and without it (the same bound selections, uploaded once),
+    the difference (the transform's cost) and a byte bound of the
+    transform: per lane a docid read, the feat value gathered, the score
+    read and written (16 B), plus the feat column read once, at
+    3.35 TB/s. The events time LAUNCHES_QUEUED launches queued behind a
+    sleep (``*_host_ms``: the host's time to queue one); beside them the
+    kernels' summed device time under torch.profiler over ``reps``
+    launches (``*_kernel_ms``) and the kernel launches in one
+    (``*_kernels``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from elasticsearch_tpu_torch.ops import plan as plan_ops
+    from elasticsearch_tpu_torch.search.batching import PlanBatcher
+    from elasticsearch_tpu_torch.search.plan import bind_plan, compile_plan
+    from elasticsearch_tpu_torch.search.queries import parse_query
+    from elasticsearch_tpu_torch.search.searcher import ShardSearcher
+    svc = node.indices["hybrid"]
+    searcher = ShardSearcher(svc.engine.segments, svc.mapper,
+                             node.device_cache, svc.k1, svc.b)
+    ctx = searcher._contexts()[0]
+    bps = []
+    for b in bodies:
+        plan = compile_plan(parse_query(b["query"]), searcher)
+        check(plan is not None and plan.script is not None,
+              "the bench body compiles into a scripted plan")
+        bps.append(bind_plan(plan, ctx, 1000))
+
+    def up(a):
+        if isinstance(a, torch.Tensor):
+            return a
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(a))).cuda()
+
+    out = {}
+    for q in (1, 8, 32):
+        args, kw = PlanBatcher.cohort_args(bps[:q], ctx.live)
+        streams = [st._replace(**{f: up(getattr(st, f)) for f in (
+            "sel_blocks", "sel_group", "sel_sub", "sel_weight",
+            "sel_const")}) for st in args[0]]
+        args = (streams,) + tuple(up(a) for a in args[1:])
+        lanes = q * sum(int(st.sel_blocks.shape[1]) * 128 for st in streams)
+        row = {}
+        for name, fn in (("script", kw["script_fn"]), ("plain", None)):
+            def launch(fn=fn):
+                plan_ops.plan_topk_batch(
+                    *args, k1=svc.k1, b=svc.b, k=1000,
+                    combine=kw["combine"], max_run=kw["max_run"],
+                    script_fn=fn)
+            # a plan launch is a few hundred kernel launches and the
+            # card queues about a thousand: more launches than
+            # LAUNCHES_QUEUED cannot be queued behind cuda_ms's sleep
+            row[f"{name}_ms"], row[f"{name}_host_ms"] = cuda_ms(
+                launch, LAUNCHES_QUEUED)
+            # the kernels' own time, free of the host's launch gaps
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    launch()
+                torch.cuda.synchronize()
+            kernels = kernel_rows(prof.key_averages())
+            row[f"{name}_kernel_ms"] = sum(
+                self_dev(e) for e in kernels) / reps / 1e3
+            row[f"{name}_kernels"] = sum(e.count for e in kernels) / reps
+        nd = int(ctx.live.shape[0])
+        row.update(lanes=lanes,
+                   nb_width=max(int(st.sel_blocks.shape[1])
+                                for st in streams),
+                   transform_ms=row["script_ms"] - row["plain_ms"],
+                   transform_kernel_ms=(row["script_kernel_ms"]
+                                        - row["plain_kernel_ms"]),
+                   transform_bound_ms=(lanes * 16 + nd * 4)
+                   / HBM_BYTES_PER_S * 1e3)
+        out[str(q)] = row
+    return out
+
+
+def phase_script(node, port, corpus, queries, feat, seed, conns, counters,
+                 cpu):
+    """BASELINE config 3 ("script_score re-rank (BM25 base +
+    feature-vector scoring function)") on phase 6's index "hybrid" (the
+    scale corpus's postings, the 256-d ``vec`` slab and the reference
+    bench's ``feat`` column); ``cpu`` is a SearchService on the CPU, the
+    port's CPU execution. (a) the bench's row over HTTP; (b) the
+    feature-vector form; (c) function_score, min_score and rescore
+    bodies; (d) a Painless statement script: a 400 over 2M docs, equal
+    to the CPU on phase 3's index; (e) the bench bodies from the load
+    generator; (f) one plan cohort timed with and without the script.
+    Returns the phase's JSON; the contribution kernel's launches of
+    (a)-(d) are counted in ``launches``."""
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import dense_scores, term_name
+    from elasticsearch_tpu_torch.ops.device import READBACKS
+    from elasticsearch_tpu_torch.rest.native_http import loadgen
+    svc = node.indices["hybrid"]
+    service = node.search_service
+    batcher = service.plan_batcher
+    texts = [" ".join(term_name(t) for t in q) for q in queries[:32]]
+    bm25 = [dense_scores(corpus, q) for q in queries[:32]]
+    feat32 = feat.astype(np.float32)
+    # the executors that served the HTTP bodies (the CPU executions read
+    # back through the same funnel, so only the served calls count)
+    sites = ("search.searcher.dense_topk", "search.script.statement_score",
+             "search.searcher.rescore")
+    tiers = Counter()
+
+    def served(call):
+        r0 = {k: READBACKS[k] for k in sites}
+        b0 = batcher.stats()["batched_queries"]
+        res = call()
+        for k in sites:
+            tiers[k] += READBACKS[k] - r0[k]
+        tiers["plan"] += batcher.stats()["batched_queries"] - b0
+        return res
+
+    for fn in counters.values():
+        fn.launches = 0
+    out = dict(docs=len(feat))
+
+    # (a) the bench's row: the plan launch with the script in it
+    bench = [script_body(t, SCRIPT_BENCH, 1000) for t in texts]
+    p0 = batcher.stats()
+    res, lat, wall = served(lambda: drive(port, bench, 16, "hybrid"))
+    p1 = batcher.stats()
+    recalls = []
+    for i, ((st, r), body) in enumerate(zip(res, bench)):
+        what = f"script bench body {i}"
+        check(st == 200, f"{what} -> {st} {r}")
+        equal_to_cpu(r, cpu.search("hybrid", svc, body), what)
+        recalls.append(check_answer(
+            r, script_oracle(bm25[i], feat32, 1000), "plan", what))
+    check(p1["batched_queries"] - p0["batched_queries"] == len(bench),
+          "every bench body rode the plan launch")
+    out["bench"] = dict(
+        bodies=len(bench), recall=float(np.mean(recalls)),
+        plan_cohorts=p1["launches"] - p0["launches"],
+        python_clients=dict(clients=16, wall_s=wall,
+                            p50_ms=p50_p99(lat)[0], p99_ms=p50_p99(lat)[1]))
+
+    # (b) the feature-vector form, on the dense executor
+    slab = node.device_cache.get(svc.engine.segments[0]).vectors["vec"]
+    vrng = np.random.default_rng(seed)
+    qv = vrng.standard_normal((16, slab.dims))
+    qv = (qv / np.linalg.norm(qv, axis=1, keepdims=True)).astype(np.float32)
+    vbodies = [script_body(texts[i], SCRIPT_VECTOR, 1000,
+                           {"qv": qv[i].tolist()}) for i in range(16)]
+    d0 = tiers["search.searcher.dense_topk"]
+    res, lat, wall = served(lambda: drive(port, vbodies, 8, "hybrid"))
+    check(tiers["search.searcher.dense_topk"] - d0 == len(vbodies),
+          "every vector body took the dense executor")
+    vrec, verr = [], []
+    for i, ((st, r), body) in enumerate(zip(res, vbodies)):
+        what = f"script vector body {i}"
+        check(st == 200, f"{what} -> {st} {r}")
+        orc = vector_oracle(slab.vectors[:len(feat)], qv[i], bm25[i], 1000)
+        rec, err = check_vector_answer(r, orc, bm25[i], orc[3], what)
+        vrec.append(rec)
+        verr.append(err)
+    out["vector"] = dict(bodies=len(vbodies), recall=float(np.mean(vrec)),
+                         max_abs_err=float(max(verr)),
+                         atol=SCRIPT_VECTOR_ATOL,
+                         python_clients=dict(clients=8, wall_s=wall,
+                                             p50_ms=p50_p99(lat)[0]))
+
+    # (c) function_score, min_score and rescore, against the CPU
+    mixed = []
+    for i in range(8):
+        mixed.append(("function_score", {"query": {"function_score": {
+            "query": {"match": {"title": texts[i]}},
+            "functions": [{"script_score": {"script": {
+                "source": "doc['feat'].value"}}, "weight": 2.0},
+                {"weight": 0.5}],
+            "score_mode": "sum",
+            "boost_mode": "multiply" if i % 2 else "sum"}},
+            "size": 100, "_source": False}))
+    for i in range(4):
+        mixed.append(("min_score", script_body(
+            texts[8 + i], "doc['feat'].value * 10 + _score", 100,
+            min_score=10.0)))
+    rescorer = {"script_score": {"query": {"match_all": {}},
+                                 "script": {"source": "doc['feat'].value * 5"}}}
+    modes = [("total", 1.0, 1.0), ("multiply", 1.0, 1.0), ("avg", 1.0, 1.0),
+             ("max", 1.0, 1.0), ("min", 1.0, 1.0), ("total", 0.7, 1.2),
+             ("multiply", 2.0, 0.5), ("max", 0.5, 3.0)]
+    for i, (mode, qw, rqw) in enumerate(modes):
+        mixed.append(("rescore", {
+            "query": {"match": {"title": texts[12 + i]}}, "size": 10,
+            "_source": False,
+            "rescore": {"window_size": 100, "query": {
+                "rescore_query": rescorer, "score_mode": mode,
+                "query_weight": qw, "rescore_query_weight": rqw}}}))
+    res, _, _ = served(lambda: drive(port, [b for _, b in mixed], 8,
+                                     "hybrid"))
+    for (kind, body), (st, r) in zip(mixed, res):
+        what = f"script {kind} body"
+        check(st == 200, f"{what} -> {st} {r}")
+        check(len(r["hits"]["hits"]) > 0, f"{what}: hits")
+        equal_to_cpu(r, cpu.search("hybrid", svc, body), what)
+    out["mixed"] = {k: sum(1 for m, _ in mixed if m == k)
+                    for k in ("function_score", "min_score", "rescore")}
+
+    # (d) a statement script: over the interpreter's budget at 2M docs,
+    # equal to the CPU on phase 3's index of 2400 docs
+    stmt = ("double s = _score; if (doc['{f}'].value > {x}) {{ s += 1; }} "
+            "return s;")
+    st, r = served(lambda: http(port, "POST", "/hybrid/_search", script_body(
+        texts[20], stmt.format(f="feat", x=0.5), 10)))
+    check(st == 400 and r["error"]["type"] == "script_exception"
+          and "interpreter budget" in r["error"]["reason"],
+          f"a statement script over 2M docs -> 400 script_exception "
+          f"({st} {r})")
+    small = {"query": {"script_score": {
+        "query": {"match": {"body": "wolf fox"}},
+        "script": {"source": stmt.format(f="views", x=50)}}}, "size": 50}
+    st, r = served(lambda: http(port, "POST", "/plan/_search", small))
+    check(st == 200, f"the statement script on the small index -> {st} {r}")
+    equal_to_cpu(r, cpu.search("plan", node.indices["plan"], small),
+                 "the statement script on the small index")
+    out["launches"] = {name: fn.launches for name, fn in counters.items()}
+    check(out["launches"]["gather_bm25_contrib"] > 0,
+          f"the contribution kernel launched in the script phase: "
+          f"{out['launches']}")
+    out["tiers"] = dict(
+        plan=tiers["plan"], dense=tiers["search.searcher.dense_topk"],
+        statement=tiers["search.script.statement_score"],
+        rescore_readbacks=tiers["search.searcher.rescore"])
+
+    # (e) the bench bodies from the load generator: a warm round, then 4
+    f0 = node.http_stats()
+    loadgen(port, "/hybrid/_search", bench, conns, len(bench))
+    lg = loadgen(port, "/hybrid/_search", bench, conns, len(bench) * 4)
+    check(lg["done"] == len(bench) * 4 and lg["non2xx"] == 0,
+          f"the load generator's script requests all done with 2xx: {lg}")
+    out["loadgen"] = dict(
+        conns=conns, requests=lg["done"], wall_s=lg["wall_s"],
+        qps=lg["done"] / lg["wall_s"], p50_ms=p50_p99(lg["lat_s"])[0],
+        p99_ms=p50_p99(lg["lat_s"])[1], front=front_since(node, f0))
+    check(out["loadgen"]["front"]["fallback"] == len(bench) * 5,
+          f"the script bodies reached the fallback workers: "
+          f"{out['loadgen']['front']}")
+
+    # (f) the script's cost in the plan launch
+    torch.cuda.synchronize()
+    out["cohort"] = script_cohort_ms(node, bench)
+    log(f"[script] {out}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--docs", type=int, default=2_000_000)
@@ -2777,6 +3129,7 @@ def main(argv=None) -> int:
         return 2
     try:
         from elasticsearch_tpu_torch.corpus import (LOGS_MAPPINGS,
+                                                    bench_feat,
                                                     build_corpus,
                                                     logs_columns,
                                                     make_queries,
@@ -2788,6 +3141,9 @@ def main(argv=None) -> int:
             gather_bm25_contrib
         from elasticsearch_tpu_torch.ops.merge import merge_sorted_slots
         from elasticsearch_tpu_torch.rest import native_http
+        from elasticsearch_tpu_torch.search.context import \
+            DeviceSegmentCache
+        from elasticsearch_tpu_torch.search.service import SearchService
     except ImportError as e:
         log(f"chip_smoke: the elasticsearch_tpu_torch package is not "
             f"beside this script ({e})")
@@ -2949,13 +3305,20 @@ def main(argv=None) -> int:
         # ---- 6. kNN: pure kNN (config 4) and hybrid rank.rrf (config 5)
         knn = phase_knn(node, port, args.knn_docs, args.knn_dims,
                         args.knn_queries, args.seed + 7, args.iters)
+        cpu = SearchService(DeviceSegmentCache("cpu"))
+        feat = bench_feat(args.docs)
         hybrid = phase_hybrid(node, port, corpus, queries, oracles,
                               args.hybrid_dims, args.seed + 8,
-                              min(args.clients, 64), counters)
+                              min(args.clients, 64), counters, feat, cpu)
+
+        # ---- 7. script scoring (config 3) on the hybrid index
+        script = phase_script(node, port, corpus, queries, feat,
+                              args.seed + 9, min(args.clients, 64),
+                              counters, cpu)
     finally:
         node.close()
 
-    # ---- 7. report
+    # ---- 8. report
     meta = {
         "gather_bm25_contrib": dict(
             source="elasticsearch_tpu_torch/csrc/bm25_contrib.cu",
@@ -2983,6 +3346,7 @@ def main(argv=None) -> int:
             per_bucket=r.get("per_bucket"),
             launches_dense=dense["launches"][name],
             launches_knn=hybrid["dense_bodies"]["launches"][name],
+            launches_script=script["launches"][name],
             dense_shape=(dense["contrib_dense_shape"]
                          if name == "gather_bm25_contrib" else None)))
     print(json.dumps({"scale": scale}))
@@ -2993,6 +3357,7 @@ def main(argv=None) -> int:
     print(json.dumps({"dense": dense}))
     print(json.dumps({"knn": knn}))
     print(json.dumps({"hybrid": hybrid}))
+    print(json.dumps({"script": script}))
     print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))

@@ -220,6 +220,17 @@ def knn_query_vectors(vectors: np.ndarray, n: int,
     return out
 
 
+def bench_feat(n: int, seed: int = 99) -> np.ndarray:
+    """float64 [n]: the reference bench's ``feat`` doc values (its
+    script_score row's column), drawn as it draws them: one
+    ``default_rng(seed)`` whose first draw of ``n`` uniforms makes the
+    category column (not needed here), and whose second is ``feat``,
+    uniform in [0, 1)."""
+    rng = np.random.default_rng(seed)
+    rng.random(n)
+    return rng.random(n)
+
+
 def term_name(t: int) -> str:
     return f"t{t:06d}"
 

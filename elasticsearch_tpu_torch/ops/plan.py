@@ -27,8 +27,14 @@ one entry per term entry), where the reference subtracts a cummax'ed
 run-start prefix from a global float32 cumsum. It is the same function
 with tighter rounding: each run is summed from its own few terms, not
 from a prefix over the whole row. The rail is float32, as in the
-reference. Dense column clauses (``dense_mask``), ``search_after`` and
-``script_score`` belong to later slices.
+reference. Dense column clauses AND in a cohort-shared ``dense_mask``;
+a ``_score`` search_after cursor keeps the docs strictly below it; an
+expression ``script_score`` transforms the combined score
+(``script_fn``) before both and before the top-k, as in the
+reference's ``plan_topk_body``. A NaN script score never ranks: it is
+counted in the total and not returned, as the reference treats the NaN
+its float32 arithmetic computes on the CPU (a negative NaN, which its
+top-k orders below -inf).
 
 The impact helpers at the end (``build_term_impacts``,
 ``select_blocks_impact``, ``select_blocks_prefix``,
@@ -109,13 +115,17 @@ def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def plan_topk_body(streams, group_kind, group_req, group_const, live,
                    n_must, n_filter, msm, bonus, tie,
                    k1: float, b: float, k: int, combine: str,
-                   max_run: int, dense_mask=None, after_score=None):
+                   max_run: int, dense_mask=None, after_score=None,
+                   script_fn=None):
     """The program on device tensors: per-query ``group_*`` [Q, G],
     ``n_must``/``n_filter``/``msm`` int32 [Q, 1], ``bonus``/``tie``
     float32 [Q, 1], streams with [Q, NB] selections on the device; the
     optional ``dense_mask`` bool [ND] is shared by the cohort, the
-    optional ``after_score`` float32 [Q, 1] is each query's cursor.
-    Returns (vals float32 [Q, k], ids int32 [Q, k], total int32 [Q])."""
+    optional ``after_score`` float32 [Q, 1] is each query's cursor, the
+    optional ``script_fn(score [Q, L], docids [Q, L]) -> float32 [Q, L]``
+    (docids clamped into the segment) is the cohort's script_score
+    transform. Returns (vals float32 [Q, k], ids int32 [Q, k], total
+    int32 [Q])."""
     keys, contribs = [], []
     for st in streams:
         sel = st.sel_blocks
@@ -123,7 +133,10 @@ def plan_topk_body(streams, group_kind, group_req, group_const, live,
         d = _gather_rows(st.block_docids, sel)              # [Q, NB, B]
         tf = _gather_rows(st.block_tfs, sel)
         dl = _gather_rows(st.doc_lens, d)
-        avg = torch.tensor(st.avg_len, dtype=torch.float32, device=d.device)
+        # filled on the device: torch.tensor would copy from the host and
+        # wait for the stream
+        avg = torch.full((), st.avg_len, dtype=torch.float32,
+                         device=d.device)
         w = st.sel_weight
         bm25 = bm25_contrib(w, tf, dl, avg, k1, b)
         hit = tf > 0.0
@@ -175,6 +188,9 @@ def plan_topk_body(streams, group_kind, group_req, group_const, live,
     else:
         score = doc_score
     score = score + bonus
+    nd = live.shape[0]
+    if script_fn is not None:
+        score = script_fn(score, dkey.clamp(max=nd - 1))
 
     passed = (is_doc_last & (dkey != _SENTINEL)
               & (doc_must >= n_must.to(torch.float32))
@@ -182,13 +198,14 @@ def plan_topk_body(streams, group_kind, group_req, group_const, live,
               & (doc_should >= msm.to(torch.float32))
               & (doc_mnot == 0.0))
     if dense_mask is not None:
-        passed = passed & dense_mask[
-            dkey.clamp(max=dense_mask.shape[0] - 1).long()]
+        passed = passed & dense_mask[dkey.clamp(max=nd - 1).long()]
     if after_score is not None:
         # search_after on _score: strictly after the cursor; ties are
         # excluded, as in the dense executor
         passed = passed & (score < after_score)
     cand = torch.where(passed, score, float("-inf"))
+    if script_fn is not None:
+        cand = torch.where(torch.isnan(cand), float("-inf"), cand)
     vals, ids = stable_topk(cand, dkey, k)
     return vals, ids, passed.sum(dim=1, dtype=torch.int32)
 
@@ -222,12 +239,13 @@ def plan_topk_batch(streams, group_kind, group_req, group_const, live,
                     k1: float = 1.2, b: float = 0.75, k: int = 10,
                     combine: str = "sum",
                     max_run: Optional[int] = None, dense_mask=None,
-                    after_score=None) -> torch.Tensor:
+                    after_score=None, script_fn=None) -> torch.Tensor:
     """Batched entry: every per-query array has a leading [Q] axis (host
     arrays go up once, here, onto ``live``'s device); the corpus arrays
     inside ``streams`` are shared, as is the optional bool [ND]
-    ``dense_mask`` (one column for the whole cohort). ``after_score``
-    is None or one cursor per query. Returns PACKED [Q, 2k+1] rows
+    ``dense_mask`` (one column for the whole cohort) and ``script_fn``
+    (one script for the whole cohort). ``after_score`` is None or one
+    cursor per query. Returns PACKED [Q, 2k+1] rows
     (pack_result): one readback serves the whole cohort. ``max_run``
     bounds a doc's run (``scan_run_bound`` of the most term entries of
     any query); by default the selection width, which is always safe."""
@@ -252,7 +270,8 @@ def plan_topk_batch(streams, group_kind, group_req, group_const, live,
         col(tie, torch.float32), float(k1), float(b), int(k), combine,
         int(max_run),
         None if dense_mask is None else _up(dense_mask, torch.bool, dev),
-        None if after_score is None else col(after_score, torch.float32)))
+        None if after_score is None else col(after_score, torch.float32),
+        script_fn))
 
 
 def plan_topk(streams, group_kind, group_req, group_const, live,
@@ -261,11 +280,12 @@ def plan_topk(streams, group_kind, group_req, group_const, live,
               k1: float = 1.2, b: float = 0.75, k: int = 10,
               combine: str = "sum", packed: bool = False,
               max_run: Optional[int] = None, dense_mask=None,
-              after_score: Optional[float] = None):
+              after_score: Optional[float] = None, script_fn=None):
     """Single-query entry (Q = 1): streams carry [NB] selections and the
-    group arrays are [G]; ``dense_mask`` (bool [ND]) and ``after_score``
-    as in ``plan_topk_batch``. Returns (vals [k], ids [k], total)
-    tensors, or ONE packed [2k+1] tensor with ``packed=True``."""
+    group arrays are [G]; ``dense_mask`` (bool [ND]), ``after_score``
+    and ``script_fn`` as in ``plan_topk_batch``. Returns (vals [k],
+    ids [k], total) tensors, or ONE packed [2k+1] tensor with
+    ``packed=True``."""
     def row(a):
         return a[None] if isinstance(a, torch.Tensor) else np.asarray(a)[None]
     sts = [st._replace(sel_blocks=row(st.sel_blocks),
@@ -276,7 +296,8 @@ def plan_topk(streams, group_kind, group_req, group_const, live,
         sts, row(group_kind), row(group_req), row(group_const), live,
         [n_must], [n_filter], [msm], [bonus], [tie], k1=k1, b=b, k=k,
         combine=combine, max_run=max_run, dense_mask=dense_mask,
-        after_score=None if after_score is None else [after_score])[0]
+        after_score=None if after_score is None else [after_score],
+        script_fn=script_fn)[0]
     if packed:
         return out
     return out[:k], out[k:2 * k].to(torch.int64).clamp(

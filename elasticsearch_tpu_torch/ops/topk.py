@@ -21,7 +21,8 @@ def stable_topk(cand: torch.Tensor, keys: torch.Tensor, k: int,
     """Batched STABLE top-k of ``cand`` [Q, P]: among ties at the kth
     value the FIRST positions win. Returns (vals [Q, k], ids [Q, k]),
     ``ids`` gathered from ``keys`` [Q, P], ordered by value descending,
-    then position ascending; empty slots are (-inf, _SENTINEL). A row
+    then position ascending; empty slots are (-inf, _SENTINEL) (a +inf
+    value keeps its id, as ``lax.top_k``'s callers keep it). A row
     shorter than k (k + 1 with ``bound_slot``) is padded with (-inf,
     _SENTINEL) first. With ``bound_slot`` also the (k+1)-th value [Q],
     the exclusion bound of the v2 lane's certificate."""
@@ -46,7 +47,7 @@ def stable_topk(cand: torch.Tensor, keys: torch.Tensor, k: int,
     vals = torch.gather(vals, 1, order)
     pos = torch.gather(pos, 1, order)
     ids = torch.gather(keys, 1, pos)
-    ids = torch.where(torch.isfinite(vals), ids, _SENTINEL)
+    ids = torch.where(vals > float("-inf"), ids, _SENTINEL)
     if bound_slot:
         return vals, ids, top[:, k]
     return vals, ids
@@ -59,8 +60,12 @@ def masked_topk(scores: torch.Tensor, mask: torch.Tensor, k: int):
     caller supplies the full mask (matched & live & not padding): a
     filter-only query legitimately scores 0.0, so matching is not
     inferred from the score. A value of -inf means fewer than k docs
-    passed; its docid is ``_SENTINEL``."""
-    cand = torch.where(mask, scores, float("-inf"))[None]
+    passed; its docid is ``_SENTINEL``. A NaN score (a script's) ranks
+    as -inf: never returned, as the reference's top-k orders the
+    negative NaN its float32 arithmetic computes on the CPU below
+    -inf."""
+    cand = torch.where(mask & ~torch.isnan(scores), scores,
+                       float("-inf"))[None]
     docids = torch.arange(scores.shape[0], dtype=torch.int32,
                           device=scores.device)[None]
     vals, ids = stable_topk(cand, docids, k)

@@ -28,7 +28,13 @@ shapes, term, terms, constant_score, multi_match, dis_max,
 ``post_filter``, ``from`` > 0, ``size`` up to 10000 and indices of
 several segments, and the dense executor behind it: range, exists, ids,
 match_all, boosting, term(s) on numbers, booleans and dates, ``sort``,
-``search_after`` and ``min_score``. Top-level ``knn`` and ``rank.rrf``
+``search_after`` and ``min_score``; ``script_score`` (its expression
+scripts ride the plan launch; vector functions, statement scripts and
+``min_score`` take the dense executor), ``function_score`` and
+``rescore``. A script that fails to compile or run answers 400
+``script_exception``; a stored-script reference (``{"id": ...}``),
+``script_fields`` and the ``_scripts`` routes are a later slice (a
+typed 400). Top-level ``knn`` and ``rank.rrf``
 (hybrid retrieval over ``dense_vector`` fields, which ``PUT /{index}``
 maps and ``_bulk`` indexes) go to the search service too: the fast
 grammar and the C++ front refuse both keys. What none serves is answered
@@ -52,6 +58,7 @@ import re
 import time
 from typing import Any, Optional, Tuple
 
+from elasticsearch_tpu_torch.common.errors import ScriptException
 from elasticsearch_tpu_torch.index.mapper import (MapperParsingException,
                                                   TextFieldType)
 from elasticsearch_tpu_torch.search.fastpath import (MAX_FILTERS,
@@ -98,7 +105,7 @@ class RestController:
                           f"{method} {path} is not a route of this slice of "
                           f"the port")
         except (SliceUnsupported, MapperParsingException, ParsingException,
-                IllegalArgumentException) as e:
+                IllegalArgumentException, ScriptException) as e:
             etype = getattr(e, "error_type", "mapper_parsing_exception")
             return _error(400, etype, str(e))
         except Exception as e:  # the boundary: report, keep serving

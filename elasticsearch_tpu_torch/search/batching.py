@@ -86,7 +86,9 @@ class PlanBatcher:
 
     A signature is (segment, live version, per-stream corpus identity,
     shard-level average length and width tier, group-table size,
-    combine, k, dense-mask identity, k1, b), so a cohort is homogeneous;
+    combine, k, dense-mask identity, script spec, k1, b), so a cohort is
+    homogeneous (one script per cohort, keyed by its source and params,
+    not by a closure's id, which a freed object hands on);
     Q pads to a power of two (the padding rows repeat the first member).
     The reference keys no average length: a cohort spanning a refresh
     would score a member with the other's."""
@@ -126,7 +128,7 @@ class PlanBatcher:
                   for st in bp.streams),
             int(bp.group_kind.shape[0]), bp.combine, k,
             id(bp.dense_mask) if bp.dense_mask is not None else None,
-            round(k1, 6), round(b, 6),
+            bp.script, round(k1, 6), round(b, 6),
         )
 
     def execute(self, bp: BoundPlan, ctx, k: int, k1: float, b: float,
@@ -233,41 +235,49 @@ class PlanBatcher:
         out[:a.shape[0]] = a
         return out
 
-    def _run(self, batch: List[_Entry], ctx, k: int, k1: float, b: float):
-        qn = len(batch)
-        bucket = _q_bucket(qn)
-        bps = [e.bp for e in batch] + [batch[0].bp] * (bucket - qn)
+    @classmethod
+    def cohort_args(cls, bps: List[BoundPlan], live):
+        """(positional, keyword) arguments of ``plan_topk_batch`` for the
+        bound plans ``bps`` (one row each) on the segment whose live
+        mask is ``live``: host arrays, every member's selection padded
+        to the WIDEST member's width with the reserved zero block at
+        weight 0 (all-zero tfs, so the pads never count for presence or
+        score); the script is the first member's."""
         proto = bps[0]
         ngpad = int(proto.group_kind.shape[0])
         streams = []
         for si, st in enumerate(proto.streams):
-            # every member pads to the WIDEST member's width with the
-            # reserved zero block at weight 0: all-zero tfs, so the pads
-            # never count for presence or score
             width = max(int(bp.streams[si].sel_blocks.shape[0])
                         for bp in bps)
             zero_block = int(st.block_docids.shape[0]) - 1
+
+            def stack(name, fill):
+                return np.stack([cls._pad1(getattr(bp.streams[si], name),
+                                           width, fill) for bp in bps])
             streams.append(st._replace(
-                sel_blocks=np.stack([self._pad1(bp.streams[si].sel_blocks,
-                                                width, zero_block)
-                                     for bp in bps]),
-                sel_group=np.stack([self._pad1(bp.streams[si].sel_group,
-                                               width, ngpad) for bp in bps]),
-                sel_sub=np.stack([self._pad1(bp.streams[si].sel_sub, width,
-                                             0) for bp in bps]),
-                sel_weight=np.stack([self._pad1(bp.streams[si].sel_weight,
-                                                width, 0.0) for bp in bps]),
-                sel_const=np.stack([self._pad1(bp.streams[si].sel_const,
-                                               width, False) for bp in bps])))
+                sel_blocks=stack("sel_blocks", zero_block),
+                sel_group=stack("sel_group", ngpad),
+                sel_sub=stack("sel_sub", 0),
+                sel_weight=stack("sel_weight", 0.0),
+                sel_const=stack("sel_const", False)))
+        args = (streams, np.stack([bp.group_kind for bp in bps]),
+                np.stack([bp.group_req for bp in bps]),
+                np.stack([bp.group_const for bp in bps]), live,
+                [bp.n_must for bp in bps], [bp.n_filter for bp in bps],
+                [bp.msm for bp in bps], [bp.bonus for bp in bps],
+                [bp.tie for bp in bps])
+        return args, dict(combine=proto.combine,
+                          max_run=max(bp.max_run for bp in bps),
+                          script_fn=proto.script_fn)
+
+    def _run(self, batch: List[_Entry], ctx, k: int, k1: float, b: float):
+        qn = len(batch)
+        bucket = _q_bucket(qn)
+        # the padding rows repeat the first member
+        bps = [e.bp for e in batch] + [batch[0].bp] * (bucket - qn)
+        args, kw = self.cohort_args(bps, ctx.live)
         t0 = time.monotonic()
-        packed = plan_ops.plan_topk_batch(
-            streams, np.stack([bp.group_kind for bp in bps]),
-            np.stack([bp.group_req for bp in bps]),
-            np.stack([bp.group_const for bp in bps]), ctx.live,
-            [bp.n_must for bp in bps], [bp.n_filter for bp in bps],
-            [bp.msm for bp in bps], [bp.bonus for bp in bps],
-            [bp.tie for bp in bps], k1=k1, b=b, k=k, combine=proto.combine,
-            max_run=max(bp.max_run for bp in bps))
+        packed = plan_ops.plan_topk_batch(*args, k1=k1, b=b, k=k, **kw)
         # ONE readback for the whole cohort (rows are packed buffers)
         rows = readback("search.batching.plan_cohort", packed)
         dt = time.monotonic() - t0

@@ -14,32 +14,44 @@ A query is plannable when it decomposes into:
   its constant score to every hit (``LogicalPlan.bonus``);
 composed by one level of bool occur semantics (must / filter / should /
 must_not + minimum_should_match), or a top-level dis_max / multi_match
-over plannable children. Everything else (a nested bool, a must_not-only
-bool, a dense should clause, a negative boost, ...) goes to the dense
-executor. Compilation happens once per shard (terms analyzed, idf from
-shard-level stats); binding resolves term -> postings-block ids per
-segment.
+over plannable children;
+- a top-level **script_score** over such a query whose script is of
+  the expression tier (search/script.py), with scalar params, no
+  ``min_score`` and no boost, and evaluates over dummy columns
+  (``_plan_script_spec``): the launch applies it to each doc's combined
+  score before the filters' verdict, the cursor and the top-k
+  (``BoundPlan.script_fn``, a closure over the segment's float32
+  numeric columns, ``_bind_script``), so BASELINE config 3 rides the
+  batched launch. A vector function, a statement script or a
+  ``min_score`` takes the dense executor.
+Everything else (a nested bool, a must_not-only bool, a dense should
+clause, a negative boost, ...) goes to the dense executor. Compilation
+happens once per shard (terms analyzed, idf from shard-level stats);
+binding resolves term -> postings-block ids per segment.
 
 Block-max window pruning (``_prune_fields``) runs when the caller
 allows it (``track_total_hits`` other than true) and the plan has no
-dense factor: postings blocks that provably cannot reach the top k
-leave the selection before the bucket is chosen; the hits stay exact and
-the total becomes a lower bound.
+dense factor and no script: postings blocks that provably cannot reach
+the top k leave the selection before the bucket is chosen; the hits
+stay exact and the total becomes a lower bound. Its bounds are BM25
+bounds, which say nothing of a script's score, so a scripted plan is
+never pruned (the reference prunes it, and can lose a hit a script
+lifts: ROADMAP, Queue 3).
 
-Left for later slices, as the reference's: ``_convert_filters`` (large
-FILTER / MUST_NOT groups as cached dense masks) and ``script_score``.
-Without the filter conversion every FILTER and MUST_NOT group is
-evaluated in the launch, with the same set semantics, so the hits do
-not change.
+Left for a later slice, as the reference's: ``_convert_filters`` (large
+FILTER / MUST_NOT groups as cached dense masks). Without it every
+FILTER and MUST_NOT group is evaluated in the launch, with the same set
+semantics, so the hits do not change.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field as dc_field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from elasticsearch_tpu_torch.index.mapper import (KeywordFieldType,
                                                   TextFieldType)
@@ -49,6 +61,10 @@ from elasticsearch_tpu_torch.ops.device import (block_bucket, host_any_mask,
                                                 readback)
 from elasticsearch_tpu_torch.search import queries as q
 from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
+from elasticsearch_tpu_torch.search.script import (ScriptContext,
+                                                   ScriptException,
+                                                   _DocColumn,
+                                                   compile_script)
 
 NAN = float("nan")
 _NEVER = 1 << 30  # requirement no group can meet (pad groups)
@@ -91,6 +107,9 @@ class LogicalPlan:
     bonus: float                          # summed must-factor scores
     combine: str = "sum"
     tie: float = 0.0
+    # an expression script_score's (source, sorted params) applied to
+    # the combined score in the launch, or None
+    script: Optional[Tuple[str, tuple]] = None
 
     def postings_required(self) -> bool:
         """True iff every passing doc must match >= 1 group: the launch
@@ -209,14 +228,47 @@ def _group_for_clause(node, searcher, kind: int,
 # top-level compilation
 # ---------------------------------------------------------------------------
 
+def _plan_script_spec(node: "q.ScriptScoreQuery") \
+        -> Optional[Tuple[str, tuple]]:
+    """(source, sorted params) when the script can ride the launch: the
+    expression tier only (a statement script interprets per doc on the
+    host), scalar params, no ``min_score``, no boost, and an evaluation
+    over dummy columns that succeeds (it fails on a vector function,
+    which needs the segment's slab)."""
+    if node.min_score is not None or node.boost != 1.0:
+        return None
+    if not all(isinstance(v, (int, float, str, bool))
+               for v in node.params.values()):
+        return None
+    compiled = compile_script(node.source)
+    if not compiled.vectorized:
+        return None
+
+    def dummy_cols(field):
+        return _DocColumn(torch.zeros(2), torch.zeros(2, dtype=torch.bool))
+    try:
+        compiled(ScriptContext(dummy_cols, dict(node.params),
+                               score=torch.zeros(2)))
+    except ScriptException:
+        return None
+    return node.source, tuple(sorted(node.params.items()))
+
+
 def compile_plan(query, searcher,
                  post_filter=None) -> Optional[LogicalPlan]:
     """Compile a query (+ optional post_filter folded in as a filter:
     valid when no aggregations run) into a LogicalPlan, or None when the
     tree needs what this slice does not have."""
+    script = None
+    if isinstance(query, q.ScriptScoreQuery):
+        script = _plan_script_spec(query)
+        if script is None:
+            return None
+        query = query.query
     plan = _compile_tree(query, searcher)
     if plan is None:
         return None
+    plan.script = script
     if post_filter is not None:
         g = _group_for_clause(post_filter, searcher, plan_ops.FILTER, 1.0)
         if g is not None:
@@ -379,6 +431,10 @@ class BoundPlan:
     empty: bool = False   # no query term exists in this segment
     # blocks were pruned: the launch's match count is a lower bound
     pruned: bool = False
+    # the plan's script spec (the batcher's signature keys it) and its
+    # closure over this segment's columns (ops/plan.py script_fn)
+    script: Optional[Tuple[str, tuple]] = None
+    script_fn: Optional[Callable] = None
 
 
 def bind_plan(plan: LogicalPlan, ctx, k: int = 10,
@@ -490,7 +546,36 @@ def bind_plan(plan: LogicalPlan, ctx, k: int = 10,
                      plan.n_filter, plan.msm, plan.bonus, plan.tie,
                      plan.combine,
                      bm25_ops.scan_run_bound(n_entries), empty=not streams,
-                     pruned=pruned)
+                     pruned=pruned, script=plan.script,
+                     script_fn=(None if plan.script is None
+                                else _bind_script(ctx.device, plan.script)))
+
+
+def _bind_script(dev, spec: Tuple[str, tuple]) -> Callable:
+    """The launch's closure of script ``spec`` over the DeviceSegment
+    ``dev``'s float32 numeric columns:
+    ``fn(score [Q, L], docids [Q, L]) -> float32 [Q, L]`` gathers each
+    column at the docids. A field without doc values in this segment is
+    a ScriptException, as the reference's. A result that reads neither a
+    column nor ``_score`` (``Math.log(10)``) is a CPU number or 0-d
+    tensor: it is moved to the score's device and broadcast."""
+    compiled = compile_script(spec[0])
+    params = dict(spec[1])
+
+    def fn(score, docids):
+        idx = docids.long()
+
+        def doc_columns(field):
+            col = dev.numerics.get(field)
+            if col is None:
+                raise ScriptException(f"unknown numeric field [{field}]")
+            return _DocColumn(col[idx], dev.numeric_missing[field][idx])
+        out = compiled(ScriptContext(doc_columns, params, score=score))
+        if isinstance(out, torch.Tensor):
+            return out.to(device=score.device,
+                          dtype=torch.float32).broadcast_to(score.shape)
+        return torch.full_like(score, float(np.float32(out)))
+    return fn
 
 
 # ---------------------------------------------------------------------------
@@ -526,13 +611,15 @@ def _prune_fields(plan: LogicalPlan, fields, ctx, k: int):
     The launch's match count becomes a lower bound (``pruned``), which
     is why callers allow this only under a ``track_total_hits`` other
     than true. Declines (returns the fields unchanged) for a plan it
-    cannot bound: a MUST_NOT group (pruned away, its excluded docs could
-    return and the count overcount), several MUST groups, a
+    cannot bound: a dense factor, a script (its score is not the BM25
+    sum the bounds bound), a MUST_NOT group (pruned away, its excluded
+    docs could return and the count overcount), several MUST groups, a
     minimum_should_match above 1, a group of more than one required
     subgroup, a FILTER group over several fields, more than 64 entries
     in a field, no verifiable θ."""
     total_blocks = sum(len(f[2]) for f in fields)
-    if total_blocks < PRUNE_MIN_BLOCKS or plan.dense or plan.bonus < 0:
+    if (total_blocks < PRUNE_MIN_BLOCKS or plan.dense or plan.bonus < 0
+            or plan.script is not None):
         return fields, False
     dev = ctx.device
     if dev._prune_skip > 0:
@@ -711,6 +798,6 @@ def execute_bound(bp: BoundPlan, ctx, k: int, k1: float, b: float,
         ctx.live, bp.n_must, bp.n_filter, bp.msm, bonus=bp.bonus,
         tie=bp.tie, k1=k1, b=b, k=k, combine=bp.combine, packed=True,
         max_run=bp.max_run, dense_mask=bp.dense_mask,
-        after_score=after_score)
+        after_score=after_score, script_fn=bp.script_fn)
     return plan_ops.unpack_result(
         readback("search.searcher.plan_topk", packed), k)

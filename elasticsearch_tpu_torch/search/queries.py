@@ -17,17 +17,25 @@ turns the trees it can into one fused launch instead and reads the same
 builders as parse trees.
 
 Served: match_all, match_none, match, multi_match, term, terms, range,
-exists, ids, bool, constant_score, dis_max, boosting and knn, over text,
-keyword, numeric, boolean, date and dense_vector fields (a multi_match
-of a type other than most_fields scores as best_fields, as the
-reference's dense path does). term/terms/range/exists on numbers,
-booleans and dates compare the float32 doc-value column (ops/device.py)
-with the bound rounded to float32, as the reference's weakly typed jnp
-compare does. knn scores the field's slab (ops/vector.py). Range-typed,
-geo, ``ip`` and ``constant_keyword`` fields are refused by the mapper (a
-later slice), so their branches are too. Every other query type the
-reference knows raises ``SliceUnsupported`` (a typed 400); a name it
-does not know is a ``ParsingException``.
+exists, ids, bool, constant_score, dis_max, boosting, knn, script_score
+and function_score, over text, keyword, numeric, boolean, date and
+dense_vector fields (a multi_match of a type other than most_fields
+scores as best_fields, as the reference's dense path does).
+term/terms/range/exists on numbers, booleans and dates compare the
+float32 doc-value column (ops/device.py) with the bound rounded to
+float32, as the reference's weakly typed jnp compare does. knn scores
+the field's slab (ops/vector.py). script_score and function_score run
+their script once over the segment's columns (search/script.py), with
+cosineSimilarity, dotProduct and l2norm over the slab
+(``_make_vector_fns``); an expression script_score over a plannable
+query rides the plan launch instead (search/plan.py). function_score
+takes script_score and weight functions, score_mode multiply or sum and
+boost_mode multiply, sum or replace. A stored-script reference
+(``{"id": ...}``) is a later slice. Range-typed, geo, ``ip`` and
+``constant_keyword`` fields are refused by the mapper (a later slice),
+so their branches are too. Every other query type the reference knows
+raises ``SliceUnsupported`` (a typed 400); a name it does not know is a
+``ParsingException``.
 """
 
 from __future__ import annotations
@@ -45,6 +53,8 @@ from elasticsearch_tpu_torch.ops.device import readback
 from elasticsearch_tpu_torch.ops.plan import bm25_dense_scores_sorted
 from elasticsearch_tpu_torch.ops.topk import stable_topk
 from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
+from elasticsearch_tpu_torch.search.script import (ScriptContext, _DocColumn,
+                                                   as_column, compile_script)
 
 Result = Tuple[torch.Tensor, torch.Tensor]   # (scores f32, mask bool)
 
@@ -556,13 +566,147 @@ class KnnQuery(QueryBuilder):
             torch.from_numpy(exact).to(dev))
 
 
+def _make_vector_fns(ctx):
+    """cosineSimilarity / dotProduct / l2norm for scripts (the parity
+    surface of ScoreScriptUtils.java:112-170), each one product over the
+    segment's slab, scored as stored (no exact re-rank): cosine on a
+    cosine slab is ``cosine_scores``; dotProduct multiplies the slab's
+    norms back in; l2norm rebuilds the vectors from them."""
+
+    def _get(field):
+        dv = ctx.device.vectors.get(field)
+        if dv is None:
+            raise ParsingException(f"unknown vector field [{field}]")
+        return dv
+
+    def _query(query_vector):
+        return torch.from_numpy(np.asarray(query_vector, np.float32)).to(
+            ctx.device.device)[None]
+
+    def cosine(query_vector, field):
+        dv = _get(field)
+        q = _query(query_vector)
+        if dv.similarity == "cosine":
+            return vec_ops.cosine_scores(q, dv.vectors)[0]
+        qn = torch.linalg.vector_norm(q)
+        raw = vec_ops.dot_scores(q, dv.vectors)[0]
+        return raw / torch.where(dv.norms > 0, dv.norms * qn, 1.0)
+
+    def dot(query_vector, field):
+        dv = _get(field)
+        raw = vec_ops.dot_scores(_query(query_vector), dv.vectors)[0]
+        if dv.similarity == "cosine":   # the slab is normalized: undo
+            raw = raw * dv.norms
+        return raw
+
+    def l2norm(query_vector, field):
+        dv = _get(field)
+        vecs = dv.vectors
+        if dv.similarity == "cosine":   # float32 rows, as stored x norm
+            vecs = vecs.to(torch.float32) * dv.norms[:, None]
+        return torch.sqrt(torch.clamp(
+            -vec_ops.l2_scores(_query(query_vector), vecs, dv.sq_norms)[0],
+            min=0.0))
+
+    return {"cosineSimilarity": cosine, "dotProduct": dot, "l2norm": l2norm}
+
+
+def _script_context(ctx, params, score, mask=None) -> ScriptContext:
+    """A segment's score-script context: its numeric columns (all
+    missing for a field it lacks) and its vector functions."""
+    def doc_columns(field):
+        return _DocColumn(*ctx.numeric_column(field))
+    return ScriptContext(doc_columns, params, score=score,
+                         vector_fns=_make_vector_fns(ctx), mask=mask)
+
+
+class ScriptScoreQuery(QueryBuilder):
+    """The subquery filters, the script replaces the score (ref:
+    ScriptScoreQuery.java:51,91-109), run once over the segment's
+    columns; ``min_score`` drops the docs the script scores below it."""
+
+    name = "script_score"
+
+    def __init__(self, query: QueryBuilder, source: str,
+                 params: Optional[Dict[str, Any]] = None,
+                 min_score: Optional[float] = None):
+        super().__init__()
+        self.query = query
+        self.source = source
+        self.params = params or {}
+        self.min_score = min_score
+        self._compiled = compile_script(source)
+
+    def do_execute(self, ctx):
+        base, mask = self.query.execute(ctx)
+        scores = as_column(
+            self._compiled(_script_context(ctx, self.params, base, mask)),
+            ctx.n_docs_padded, base.device)
+        scores = torch.where(mask, scores, 0.0)
+        if self.min_score is not None:
+            mask = mask & (scores >= float(self.min_score))
+            scores = torch.where(mask, scores, 0.0)
+        return scores, mask
+
+
+_FUNCTION_KEYS = {"script_score", "weight"}
+_SCORE_MODES = ("multiply", "sum")
+_BOOST_MODES = ("multiply", "sum", "replace")
+
+
+class FunctionScoreQuery(QueryBuilder):
+    """function_score with script_score and weight functions: the
+    functions combine by ``score_mode`` (multiply or sum), then with the
+    query's score by ``boost_mode`` (multiply, sum or replace)."""
+
+    name = "function_score"
+
+    def __init__(self, query: QueryBuilder, functions: List[Dict[str, Any]],
+                 boost_mode: str = "multiply", score_mode: str = "multiply"):
+        super().__init__()
+        self.query = query
+        self.functions = functions
+        self.boost_mode = boost_mode
+        self.score_mode = score_mode
+
+    def do_execute(self, ctx):
+        base, mask = self.query.execute(ctx)
+        nd = ctx.n_docs_padded
+        fn_scores = []
+        for fn in self.functions:
+            weight = float(fn.get("weight", 1.0))
+            if "script_score" in fn:
+                source, params = resolve_script_source(
+                    fn["script_score"]["script"])
+                val = as_column(compile_script(source)(
+                    _script_context(ctx, params, base)), nd, base.device)
+                fn_scores.append(val * weight)
+            else:
+                fn_scores.append(torch.full((nd,), weight,
+                                            dtype=torch.float32,
+                                            device=base.device))
+        scores = base
+        if fn_scores:
+            combined = fn_scores[0]
+            for f in fn_scores[1:]:
+                combined = (combined * f if self.score_mode == "multiply"
+                            else combined + f)
+            if self.boost_mode == "multiply":
+                scores = base * combined
+            elif self.boost_mode == "sum":
+                scores = base + combined
+            else:
+                scores = combined
+        return torch.where(mask, scores, 0.0), mask
+
+
 # ---------------------------------------------------------------------------
 # parsing
 # ---------------------------------------------------------------------------
 
 # the reference's other query types: each a later slice of the port
 _LATER_SLICE = {
-    "script_score", "function_score", "rank_feature",
+    "rank_feature",
     "geo_distance", "geo_bounding_box", "geo_polygon", "geo_shape",
     "match_phrase", "match_phrase_prefix", "match_bool_prefix", "prefix",
     "wildcard", "regexp", "fuzzy", "more_like_this", "pinned",
@@ -670,6 +814,63 @@ def _parse_knn(spec):
                     k=spec.get("k"))
 
 
+def resolve_script_source(script):
+    """(source, params) of an inline script; a stored-script reference
+    (``{"id": ...}``) is a later slice of the port."""
+    if not isinstance(script, dict):
+        return str(script), {}
+    if "id" in script and "source" not in script:
+        raise SliceUnsupported(
+            f"stored script [{script['id']}]: stored scripts are a later "
+            f"slice of the port (send the script's source inline)")
+    if "source" not in script:
+        raise ParsingException(
+            "script must specify either [source] or [id]")
+    return script["source"], script.get("params", {})
+
+
+def _parse_script_score(spec):
+    if not isinstance(spec, dict) or "query" not in spec \
+            or "script" not in spec:
+        raise ParsingException("[script_score] requires [query] and "
+                               "[script]")
+    source, params = resolve_script_source(spec["script"])
+    q = ScriptScoreQuery(parse_query(spec["query"]), source, params,
+                         min_score=spec.get("min_score"))
+    return _with_boost(q, spec)
+
+
+def _parse_function_score(spec):
+    served = {"query", "functions", "script_score", "boost_mode",
+              "score_mode", "boost"}
+    extra = sorted(set(spec) - served)
+    if extra:
+        raise SliceUnsupported(f"function_score options {extra} are a "
+                               f"later slice of the port")
+    inner = parse_query(spec.get("query", {"match_all": {}}))
+    functions = spec.get("functions", [])
+    if not functions and "script_score" in spec:
+        functions = [{"script_score": spec["script_score"]}]
+    for fn in functions:
+        other = sorted(set(fn) - _FUNCTION_KEYS)
+        if other:
+            raise SliceUnsupported(
+                f"function_score functions {other} are a later slice of "
+                f"the port (this one takes script_score and weight)")
+        if "script_score" in fn:
+            source, _ = resolve_script_source(fn["script_score"]["script"])
+            compile_script(source)
+    score_mode = spec.get("score_mode", "multiply")
+    boost_mode = spec.get("boost_mode", "multiply")
+    if score_mode not in _SCORE_MODES or boost_mode not in _BOOST_MODES:
+        raise SliceUnsupported(
+            f"function_score score_mode [{score_mode}] / boost_mode "
+            f"[{boost_mode}]: this slice takes score_mode "
+            f"{list(_SCORE_MODES)} and boost_mode {list(_BOOST_MODES)}")
+    return _with_boost(FunctionScoreQuery(inner, functions, boost_mode,
+                                          score_mode), spec)
+
+
 def _parse_dis_max(spec):
     queries = [parse_query(q) for q in spec.get("queries", [])]
     if not queries:
@@ -697,4 +898,6 @@ _PARSERS = {
         parse_query(spec["positive"]), parse_query(spec["negative"]),
         float(spec.get("negative_boost", 0.5))),
     "knn": _parse_knn,
+    "script_score": _parse_script_score,
+    "function_score": _parse_function_score,
 }

@@ -24,6 +24,10 @@ boolean and date fields, whose keys are the float32 doc-value columns
 (ops/device.py: a date is exact to its float32 spacing only); the
 sort values a hit carries are the float64 doc values. Keyword sorts and
 ``_geo_distance`` are later slices.
+
+After the query phase the rescorer (``rescore``, the reference's
+QueryRescorer) may re-score the top ``window_size`` docs with a second
+query run on the dense executor.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from elasticsearch_tpu_torch.search.context import (DeviceSegmentCache,
 from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
 from elasticsearch_tpu_torch.search.plan import (bind_plan, compile_plan,
                                                  execute_bound)
+from elasticsearch_tpu_torch.search.queries import parse_query
 
 MAX_TOPK = 10000
 _F32_MAX = float(np.finfo(np.float32).max)
@@ -246,6 +251,45 @@ class ShardSearcher:
                 lambda a, b: _host_sort_cmp(a, b, sort_spec)))
         return QueryResult(docs, total, max_score)
 
+    # ---------------------------------------------------------- rescore
+    def rescore(self, docs: List[DocAddress],
+                rescore_specs: List[Dict[str, Any]]) -> List[DocAddress]:
+        """Query rescorer (ref: rescore/QueryRescorer.java): re-scores
+        the top ``window_size`` docs with a second query, in order of
+        the specs. The rescore query runs once per segment on the dense
+        executor; only the window's docs of that segment come back (one
+        readback). A matched doc scores ``query_weight`` x its score
+        combined by ``score_mode`` (total, multiply, avg, max, min,
+        validated by the caller) with ``rescore_query_weight`` x the
+        rescore score; an unmatched doc keeps ``query_weight`` x its
+        score. The window re-sorts by (-score, segment, docid)."""
+        for spec in rescore_specs:
+            window = int(spec.get("window_size", 10))
+            qspec = spec.get("query", {})
+            rq = parse_query(qspec["rescore_query"])
+            qw = float(qspec.get("query_weight", 1.0))
+            rqw = float(qspec.get("rescore_query_weight", 1.0))
+            mode = qspec.get("score_mode", "total")
+            head, tail = docs[:window], docs[window:]
+            contexts = self._contexts()
+            for seg_idx in sorted({d.segment_idx for d in head}):
+                mine = [d for d in head if d.segment_idx == seg_idx]
+                ctx = contexts[seg_idx]
+                scores, mask = rq.execute(ctx)
+                ids = torch.tensor([d.docid for d in mine],
+                                   dtype=torch.int64, device=scores.device)
+                s_h, m_h = readback("search.searcher.rescore", scores[ids],
+                                    mask[ids])
+                for d, s, m in zip(mine, s_h, m_h):
+                    new = qw * d.score
+                    if m:
+                        new = _RESCORE_COMBINE[mode](new, rqw * float(s))
+                    d.score = new
+                    d.sort_key = new
+            head.sort(key=lambda d: (-d.score, d.segment_idx, d.docid))
+            docs = head + tail
+        return docs
+
     # ------------------------------------------------------------ fetch
     def fetch_phase(self, docs: List[DocAddress],
                     source: bool = True) -> List[Dict[str, Any]]:
@@ -266,6 +310,17 @@ class ShardSearcher:
                     hit["_source"] = json.loads(src)
             hits.append(hit)
         return hits
+
+
+# a rescored doc's new score from (query_weight x score, rescore_weight x
+# rescore score), per score_mode
+_RESCORE_COMBINE = {
+    "total": lambda base, rs: base + rs,
+    "multiply": lambda base, rs: base * rs,
+    "avg": lambda base, rs: (base + rs) / 2.0,
+    "max": max,
+    "min": min,
+}
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,11 @@ then the fetch phase on the index's one shard, shape the response.
 The body may carry ``query`` (default ``match_all``), ``size``,
 ``from``, ``post_filter``, ``min_score``, ``sort``, ``search_after``,
 ``track_total_hits`` (true, false or a threshold), ``_source`` (true
-or false), ``knn`` and ``rank``. Everything else (aggregations, source
-filtering, ...) is a later slice and answers a typed 400.
+or false), ``knn``, ``rank`` and ``rescore`` (one QueryRescorer or a
+list: the query phase collects the largest ``window_size`` docs, the
+rescorers re-score them in order, then ``from``/``size`` cut the page;
+not with ``sort``). Everything else (aggregations, source filtering,
+``script_fields``, ...) is a later slice and answers a typed 400.
 
 Hybrid retrieval: top-level ``knn`` sections (one or a list). With
 ``rank: {"rrf": {...}}`` the query and each knn section run as separate
@@ -53,11 +56,13 @@ from elasticsearch_tpu_torch.search.searcher import (MAX_TOPK, ShardSearcher,
 
 DEFAULT_SIZE = 10
 BODY_KEYS = {"query", "size", "from", "post_filter", "track_total_hits",
-             "_source", "sort", "search_after", "min_score", "knn", "rank"}
+             "_source", "sort", "search_after", "min_score", "knn", "rank",
+             "rescore"}
 # a body with any of these (truthy) asks more than the k nearest ids and
 # scores, so its kNN takes the dense executor, not the cohort launch
 _NOT_PURE_KNN = ("sort", "post_filter", "min_score", "search_after",
-                 "track_total_hits")
+                 "track_total_hits", "rescore")
+_RESCORE_MODES = ("total", "multiply", "avg", "max", "min")
 
 
 class IllegalArgumentException(ValueError):
@@ -79,6 +84,27 @@ def _knn_clauses(knn) -> List[Dict[str, Any]]:
             clause["k"] = int(spec["k"])
         out.append({"knn": clause})
     return out
+
+
+def _rescore_specs(body: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """The body's rescorers as a list (none: empty), each with a
+    ``query.rescore_query`` and a known ``score_mode``."""
+    spec = body.get("rescore")
+    if spec is None:
+        return []
+    if body.get("sort") is not None:
+        raise IllegalArgumentException(
+            "Cannot use [sort] option in conjunction with [rescore].")
+    specs = [spec] if isinstance(spec, dict) else spec
+    for r in specs:
+        q = r.get("query") if isinstance(r, dict) else None
+        if not isinstance(q, dict) or "rescore_query" not in q:
+            raise IllegalArgumentException(
+                "[rescore] requires [query.rescore_query]")
+        mode = q.get("score_mode", "total")
+        if mode not in _RESCORE_MODES:
+            raise IllegalArgumentException(f"illegal score_mode [{mode}]")
+    return specs
 
 
 def _merge_knn_into_query(body: Dict[str, Any]) -> Dict[str, Any]:
@@ -168,15 +194,21 @@ class SearchService:
         if search_after is not None and not isinstance(search_after, list):
             raise IllegalArgumentException(
                 "[search_after] must be an array of sort values")
+        rescore = _rescore_specs(body)
+        # a rescorer's window may exceed the page
+        query_k = max([from_ + size] + [int(r.get("window_size", 10))
+                                        for r in rescore])
         # repeats of the same query JSON reuse their bound plans
         cache_key = json.dumps([body.get("query"), body.get("post_filter")],
                                sort_keys=True, default=str)
         result = searcher.query_phase(
-            query, from_ + size, post_filter,
+            query, query_k, post_filter,
             min_score=body.get("min_score"), sort=sort,
             search_after=search_after, track_total_hits=track_total,
             cache_key=cache_key)
         docs = result.docs
+        if rescore:
+            docs = searcher.rescore(docs, rescore)
         sort_spec = _parse_sort(sort)
         if sort_spec is not None and any(d.sort_values for d in docs):
             # the page orders by the real sort values (float64 doc

@@ -45,6 +45,9 @@ def test_importing_every_module_loads_no_jax():
     assert "elasticsearch_tpu_torch.ops._build" in res["modules"]
     assert ("elasticsearch_tpu_torch.rest.native_http"
             in res["modules"])
+    for name in ("common.errors", "script.painless", "script.interp",
+                 "search.script"):
+        assert f"elasticsearch_tpu_torch.{name}" in res["modules"]
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
 

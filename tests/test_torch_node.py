@@ -156,10 +156,10 @@ def assert_same_hits(got, ref, size, rtol=1e-4):
     i = 0
     while i < len(rh):
         j = i + 1
-        while j < len(rh) and abs(rs[j] - rs[i]) <= rtol * rs[i]:
+        while j < len(rh) and abs(rs[j] - rs[i]) <= rtol * abs(rs[i]):
             j += 1
         cut = (j == len(rh) and past
-               and abs(past[0] - rs[i]) <= rtol * rs[i])
+               and abs(past[0] - rs[i]) <= rtol * abs(rs[i]))
         if not cut:
             assert {h["_id"] for h in gh[i:j]} == \
                 {h["_id"] for h in rh[i:j]}, (i, j)
