@@ -128,10 +128,31 @@ Phases (any failure exits non-zero; no exception is swallowed):
               400 at 2M docs and equals the CPU on phase 3's index; the
               bench bodies from the load generator; one plan cohort at
               Q = 1, 8, 32 timed with and without the script
-  8. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
-              script, filters, plan and kernels JSON lines, the card's
-              name and power limit, and the last line {"ok": true,
-              "device": {...}}
+  8. aggs     the reference bench's match+terms-agg row on "hybrid" (its
+              segment carries the bench's skewed 500-term ``cat`` keyword
+              column, corpus.py bench_cat): 32 bodies (match, size 0,
+              terms on cat) over HTTP, each equal to a float64 oracle
+              (exact per-category counts of the matched docs) and to the
+              port's CPU execution; then a Kibana-style mix on "logs":
+              a 30-minute date_histogram with avg/sum/max of bytes (the
+              device scatter), stats under a 1-hour range (one fused
+              launch), a histogram of bytes, numeric terms on status,
+              percentiles and cardinality, filters 4xx/5xx, range on
+              bytes, a calendar_interval hour histogram, a histogram
+              with a terms sub-agg and extended_stats (the host), a
+              post_filter body and a global body, each held to its
+              float64 oracle under the reference's float32 column
+              semantics (counts, keys, min and max exact; sums rtol
+              1e-4) and to the CPU execution. Each collector of
+              ops/aggs.py and the contribution kernel launch in the
+              phase. Then each collector's device ms at 2M docs against
+              its byte bound, the agg mask's readback and re-upload,
+              the host bucket-id arithmetic, and the bench bodies from
+              the load generator (64 connections, a warm round, then 4)
+  9. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
+              script, aggs, filters, plan and kernels JSON lines, the
+              card's name and power limit, and the last line {"ok":
+              true, "device": {...}}
 
 Needs one CUDA card, and the repository around it.
 """
@@ -2649,11 +2670,13 @@ def phase_hybrid(node, port, corpus, queries, oracles, dims, seed, conns,
     ``exists`` on ``vec``, each equal to the port's CPU execution; the
     contribution kernel launches on the merged bodies; then the rrf
     bodies from the load generator. The segment also holds the numeric
-    column ``feat`` (a ``double``), phase 7's. ``cpu``: a SearchService
-    on the CPU, the port's CPU execution."""
+    column ``feat`` (a ``double``), phase 7's, and the keyword doc values
+    ``cat`` (``corpus.py bench_cat``, no postings), phase 8's. ``cpu``: a
+    SearchService on the CPU, the port's CPU execution."""
     import torch
 
-    from elasticsearch_tpu_torch.corpus import (segment_from_corpus,
+    from elasticsearch_tpu_torch.corpus import (bench_cat,
+                                                segment_from_corpus,
                                                 term_name, unit_vectors)
     from elasticsearch_tpu_torch.rest.native_http import loadgen
     n = len(corpus["lens"])
@@ -2661,12 +2684,14 @@ def phase_hybrid(node, port, corpus, queries, oracles, dims, seed, conns,
     vecs = unit_vectors(n, dims, seed, device="cuda")
     node.create_index("hybrid", {"properties": {
         "title": {"type": "text"}, "feat": {"type": "double"},
+        "cat": {"type": "keyword"},
         "vec": {"type": "dense_vector", "dims": dims,
                 "similarity": "cosine"}}})
     svc = node.indices["hybrid"]
     svc.engine.install_segments([segment_from_corpus(
         corpus, name="hybrid0", numerics={"feat": {"values": feat}},
-        vectors={"vec": {"vectors": vecs}})])
+        vectors={"vec": {"vectors": vecs}},
+        keywords={"cat": dict(zip(("ords", "terms"), bench_cat(n)))})])
     node.device_cache.get(svc.engine.segments[0])
     torch.cuda.synchronize()
     out = dict(docs=n, dims=dims, setup_s=time.time() - t0)
@@ -3106,6 +3131,435 @@ def phase_script(node, port, corpus, queries, feat, seed, conns, counters,
     return out
 
 
+# ---------------------------------------------------------------- phase 8
+HOUR_MS = 3_600_000
+# the card's float32 sums (atomic adds in no fixed order) against the
+# float64 oracle over the float32 column values, and against the CPU
+AGG_RTOL = 1e-4
+AGG_COLLECTORS = ("terms_counts_per_term", "masked_metric_stats",
+                  "bucket_counts", "bucket_metric_columns")
+
+
+def agg_equal(got, want, what, path="aggregations"):
+    """An aggregations tree against its expected tree: keys, order and
+    every int and string exactly; a float exactly when it is a key, a
+    bound, a min or a max (a column's own value), else within
+    AGG_RTOL."""
+    if isinstance(want, dict):
+        check(isinstance(got, dict) and sorted(got) == sorted(want),
+              f"{what}: {path} keys {sorted(got) if isinstance(got, dict) else got}"
+              f" vs {sorted(want)}")
+        for k in want:
+            agg_equal(got[k], want[k], what, f"{path}.{k}")
+    elif isinstance(want, list):
+        check(isinstance(got, list) and len(got) == len(want),
+              f"{what}: {path} length")
+        for i, (g, w) in enumerate(zip(got, want)):
+            agg_equal(g, w, what, f"{path}[{i}]")
+    elif isinstance(want, float) and not isinstance(got, bool):
+        last = path.rsplit(".", 1)[-1]
+        if last in ("key", "from", "to", "min", "max"):
+            check(got == want, f"{what}: {path} {got!r} vs {want!r}")
+        else:
+            check(isinstance(got, (int, float)) and np.isclose(
+                got, want, rtol=AGG_RTOL, atol=0),
+                f"{what}: {path} {got!r} vs {want!r} (rtol {AGG_RTOL})")
+    else:
+        check(got == want and type(got) is type(want),
+              f"{what}: {path} {got!r} vs {want!r}")
+
+
+def o_metric(kind, vals):
+    """The oracle's simple metric of float64 ``vals`` (the float32
+    column's values): the reference's response shape."""
+    n = len(vals)
+    if kind == "value_count":
+        return {"value": n}
+    if n == 0:
+        return ({"count": 0, "min": None, "max": None, "avg": None,
+                 "sum": 0.0} if kind == "stats" else {"value": None})
+    s = float(vals.sum())
+    out = {"sum": s, "avg": s / n, "min": float(vals.min()),
+           "max": float(vals.max()), "count": n}
+    if kind == "stats":
+        return out
+    return {"value": out[kind]}
+
+
+def o_histogram(values, sel, interval, date=False, subs=None):
+    """The oracle's histogram over float64 ``values`` where ``sel``:
+    floor(v / interval) steps, gaps filled; ``subs`` {name: (kind,
+    float32 column as float64, present mask)} per bucket."""
+    steps = np.floor(values[sel] / interval).astype(np.int64)
+    lo, hi = int(steps.min()), int(steps.max())
+    counts = np.bincount(steps - lo, minlength=hi - lo + 1)
+    docs = np.nonzero(sel)[0]
+    out = []
+    for i, c in enumerate(counts):
+        key = (lo + i) * interval
+        b = {"key": key}
+        if date:
+            b["key_as_string"] = iso_ms(int(key))[:-4] + "000Z"
+        b["doc_count"] = int(c)
+        for name, (kind, col, present) in (subs or {}).items():
+            d = docs[steps - lo == i]
+            d = d[present[d]]
+            b[name] = o_metric(kind, col[d])
+        out.append(b)
+    return {"buckets": out}
+
+
+def o_numeric_terms(vals, size=10):
+    u, c = np.unique(vals, return_counts=True)
+    order = np.lexsort((u, -c))
+    top = order[:size]
+    return {"doc_count_error_upper_bound": 0,
+            "sum_other_doc_count": int(c[order[size:]].sum()),
+            "buckets": [{"key": int(u[i]) if float(u[i]).is_integer()
+                         else float(u[i]), "doc_count": int(c[i])}
+                        for i in top]}
+
+
+def logs_agg_mix(oracle, text):
+    """The Kibana-style bodies on the logs index and their float64
+    oracle answers (the reference's float32 column semantics: a range
+    bound rounds to float32; a device metric sums the float32 column's
+    values): [(kind, body, expected aggregations, expected hits or
+    None)]."""
+    from elasticsearch_tpu_torch.corpus import LOGS_T0_MS
+    t0 = LOGS_T0_MS
+    ts = oracle.cols["@timestamp"]
+    status = oracle.cols["status"]
+    b64 = oracle.cols["bytes"]
+    has_b = ~np.isnan(b64)
+    b32 = np.nan_to_num(b64).astype(np.float32).astype(np.float64)
+
+    def rng(lo_h, hi_h):
+        q = {"range": {"@timestamp": {"gte": iso_ms(t0 + lo_h * HOUR_MS),
+                                      "lt": iso_ms(t0 + hi_h * HOUR_MS)}}}
+        return q, oracle.range_mask("@timestamp", t0 + lo_h * HOUR_MS,
+                                    t0 + hi_h * HOUR_MS)
+
+    out = []
+    q, m = rng(2, 14)
+    out.append(("date_histogram_30m", {"query": q, "size": 0, "aggs": {
+        "h": {"date_histogram": {"field": "@timestamp",
+                                 "fixed_interval": "30m"},
+              "aggs": {"avg_b": {"avg": {"field": "bytes"}},
+                       "sum_b": {"sum": {"field": "bytes"}},
+                       "max_b": {"max": {"field": "bytes"}}}}}},
+        {"h": o_histogram(ts, m, 1_800_000.0, True, {
+            "avg_b": ("avg", b32, has_b), "sum_b": ("sum", b32, has_b),
+            "max_b": ("max", b32, has_b)})}, None))
+    q, m = rng(5, 6)
+    out.append(("stats_1h", {"query": q, "size": 0, "aggs": {
+        "st": {"stats": {"field": "bytes"}}}},
+        {"st": o_metric("stats", b32[m & has_b])}, None))
+    out.append(("histogram_bytes", {"size": 0, "aggs": {
+        "h": {"histogram": {"field": "bytes", "interval": 1000}}}},
+        {"h": o_histogram(b64, has_b, 1000.0)}, None))
+    q, m = rng(0, 12)
+    out.append(("terms_status", {"query": q, "size": 0, "aggs": {
+        "st": {"terms": {"field": "status"}}}},
+        {"st": o_numeric_terms(status[m])}, None))
+    # ten minutes (a float32 bound rounds to 131 s at these epochs): a
+    # digest of this budget holds every value, so it is exact
+    q, m = rng(3, 3 + 1 / 6)
+    vals = b64[m & has_b]
+    check(0 < len(vals) <= 20000, f"the percentiles window holds "
+          f"{len(vals)} values")
+    out.append(("percentiles_cardinality", {"query": q, "size": 0, "aggs": {
+        "pc": {"percentiles": {"field": "bytes", "percents": [50, 95, 99],
+                               "tdigest": {"compression": 20000}}},
+        "cb": {"cardinality": {"field": "bytes"}},
+        "cs": {"cardinality": {"field": "status"}}}},
+        {"pc": {"values": {str(float(p)): float(np.percentile(vals, p))
+                           for p in (50, 95, 99)}},
+         "cb": {"value": len(np.unique(vals))},
+         "cs": {"value": len(np.unique(status[m]))}}, None))
+    q, m = rng(6, 18)
+    out.append(("filters", {"query": q, "size": 0, "aggs": {
+        "err": {"filters": {"filters": {
+            "4xx": {"range": {"status": {"gte": 400, "lt": 500}}},
+            "5xx": {"range": {"status": {"gte": 500}}}}}}}},
+        {"err": {"buckets": {
+            "4xx": {"doc_count": int((m & (status >= 400)
+                                      & (status < 500)).sum())},
+            "5xx": {"doc_count": int((m & (status >= 500)).sum())}}}},
+        None))
+    ranges = [(None, 1000.0), (1000.0, 10000.0), (10000.0, None)]
+    rb = []
+    for frm, to in ranges:
+        sel = has_b.copy()
+        if frm is not None:
+            sel &= b64 >= frm
+        if to is not None:
+            sel &= b64 < to
+        b = {"key": f"{frm if frm is not None else '*'}-"
+                    f"{to if to is not None else '*'}"}
+        if frm is not None:
+            b["from"] = frm
+        if to is not None:
+            b["to"] = to
+        b["doc_count"] = int(sel.sum())
+        b["avg_b"] = o_metric("avg", b32[sel])
+        rb.append(b)
+    out.append(("range_bytes", {"size": 0, "aggs": {"r": {"range": {
+        "field": "bytes", "ranges": [{k: v for k, v in (("from", f),
+                                                         ("to", t))
+                                      if v is not None}
+                                     for f, t in ranges]},
+        "aggs": {"avg_b": {"avg": {"field": "bytes"}}}}}},
+        {"r": {"buckets": rb}}, None))
+    q, m = rng(0, 24)
+    out.append(("calendar_hour", {"query": q, "size": 0, "aggs": {
+        "h": {"date_histogram": {"field": "@timestamp",
+                                 "calendar_interval": "hour"}}}},
+        {"h": o_histogram(ts, m, float(HOUR_MS), True)}, None))
+    q, m = rng(0, 6)
+    hist = o_histogram(ts, m, float(HOUR_MS), True)
+    steps = np.floor(ts / HOUR_MS).astype(np.int64)
+    for b in hist["buckets"]:
+        b["st"] = o_numeric_terms(
+            status[m & (steps == int(b["key"] // HOUR_MS))])
+    out.append(("date_histogram_host", {"query": q, "size": 0, "aggs": {
+        "h": {"date_histogram": {"field": "@timestamp",
+                                 "fixed_interval": "1h"},
+              "aggs": {"st": {"terms": {"field": "status"}}}}}},
+        {"h": hist}, None))
+    q, m = rng(1, 3)
+    v = b64[m & has_b]
+    var = float(v.var())
+    out.append(("extended_stats", {"query": q, "size": 0, "aggs": {
+        "es": {"extended_stats": {"field": "bytes"}}}},
+        {"es": {"count": len(v), "min": float(v.min()),
+                "max": float(v.max()), "avg": float(v.mean()),
+                "sum": float(v.sum()),
+                "sum_of_squares": float((v ** 2).sum()),
+                "variance": var, "std_deviation": float(np.sqrt(var))}},
+        None))
+    q, m = rng(4, 8)
+    hit = m & (status == 500)
+    out.append(("post_filter", {"query": q, "size": 10,
+                                "_source": False,
+                                "post_filter": {"term": {"status": 500}},
+                                "aggs": {"st": {"terms": {
+                                    "field": "status"}}}},
+                {"st": o_numeric_terms(status[m])},
+                (np.nonzero(hit)[0][:10], int(hit.sum()))))
+    matched = oracle.bm25(text) > 0
+    out.append(("global", {"query": {"match": {"title": text}}, "size": 0,
+                           "aggs": {"g": {"global": {}, "aggs": {
+                               "avg_b": {"avg": {"field": "bytes"}}}}}},
+                {"g": {"doc_count": oracle.n,
+                       "avg_b": o_metric("avg", b32[has_b])}},
+                (np.zeros(0, np.int64), int(matched.sum()))))
+    return out
+
+
+def profiled_ms(fn, reps):
+    """(the kernels' summed device ms per call under torch.profiler,
+    kernel launches per call, host ms per call with its readback)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = kernel_rows(prof.key_averages())
+    host = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+    return (sum(self_dev(e) for e in kernels) / reps / 1e3,
+            sum(e.count for e in kernels) / reps, float(np.median(host)))
+
+
+def collector_timings(node, bench_mask, logs_mask, reps=10):
+    """Each collector's device ms at 2M docs against its byte bound
+    (each input read once, each output written once, at 3.35 TB/s), the
+    agg mask's readback and re-upload, and the host bucket-id
+    arithmetic of a 30-minute date_histogram over the whole column."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import aggs as agg_ops
+    from elasticsearch_tpu_torch.ops.device import readback
+    from elasticsearch_tpu_torch.search.aggregations import _upload
+    hyb = node.device_cache.get(node.indices["hybrid"].engine.segments[0])
+    logs = node.device_cache.get(node.indices["logs"].engine.segments[0])
+    perm, starts = hyb.keyword_ord_major("cat")
+    tmask = _upload(hyb, bench_mask)
+    lmask = _upload(logs, logs_mask)
+    ts = logs.segment.numerics["@timestamp"].values
+    steps = np.floor(np.nan_to_num(ts) / 1_800_000.0).astype(np.int64)
+    lo = int(steps.min())
+    nb = int(steps.max()) - lo + 1
+    ids = _upload(logs, np.clip(steps - lo, 0, nb - 1).astype(np.int32))
+    vals, miss = logs.numerics["bytes"], logs.numeric_missing["bytes"]
+    nd, nh = logs.n_docs_padded, hyb.n_docs_padded
+    n_terms = len(starts) - 1
+    cases = {
+        "terms_counts_per_term": (
+            lambda: agg_ops.terms_counts_per_term(perm, starts, tmask),
+            4 * len(perm) + nh + 8 * (n_terms + 1) + 4 * n_terms,
+            len(perm)),
+        "masked_metric_stats": (
+            lambda: agg_ops.masked_metric_stats(vals, miss, lmask),
+            6 * nd + 40, 4 * nd),
+        "bucket_counts": (
+            lambda: agg_ops.bucket_counts(ids, lmask, nb),
+            5 * nd + 4 * nb, nd),
+        "bucket_metric_columns": (
+            lambda: agg_ops.bucket_metric_columns(ids, lmask, vals, miss,
+                                                  nb),
+            10 * nd + 20 * nb, 5 * nd),
+    }
+    out = {}
+    for name, (fn, n_bytes, n_ops) in cases.items():
+        dev_ms, kernels, host_ms = profiled_ms(fn, reps)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
+        out[name] = dict(device_ms=dev_ms, kernels=kernels,
+                         host_ms=host_ms, bound_ms=b_ms, bound_by=b_by,
+                         bytes=n_bytes, over_bound=dev_ms / b_ms)
+    up, back, arith = [], [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = readback("search.searcher.agg_mask", lmask[: logs.n_docs])
+        t1 = time.perf_counter()
+        _upload(logs, m)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        s = np.floor(np.nan_to_num(ts) / 1_800_000.0).astype(np.int64)
+        np.clip(s - lo, 0, nb - 1).astype(np.int32)
+        t3 = time.perf_counter()
+        back.append((t1 - t0) * 1e3)
+        up.append((t2 - t1) * 1e3)
+        arith.append((t3 - t2) * 1e3)
+    out["mask"] = dict(bytes=logs.n_docs, readback_ms=float(np.median(back)),
+                       upload_ms=float(np.median(up)))
+    out["bucket_ids_host_ms"] = float(np.median(arith))
+    return out
+
+
+def phase_aggs(node, port, corpus, queries, logs, cols, conns, counters,
+               cpu):
+    """Aggregations on one H100. (a) The reference bench's
+    match+terms-agg row (``bench.py:1149-1154``) on the "hybrid" index,
+    whose segment holds the bench's skewed 500-term ``cat`` keyword
+    column (``corpus.py bench_cat``, installed through
+    ``segment_from_numpy``): 32 bodies (match, size 0, terms on cat)
+    from 16 Python clients, each equal to a float64 oracle (the exact
+    per-category counts of the docs holding a query term) and to the
+    port's CPU execution. (b) A Kibana-style mix on "logs" (phase 5's
+    index), each body held to its float64 oracle and to the CPU. The
+    launches of each collector of ops/aggs.py and of the contribution
+    kernel in (a) and (b) are counted and must all be > 0. (c) The
+    collectors' device ms at 2M docs against their byte bounds, the agg
+    mask's round trip and the host bucket-id arithmetic. (d) The bench
+    bodies from the C++ load generator (a warm round, then 4)."""
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import (LOGS_T0_MS, bench_cat,
+                                                dense_scores, term_name)
+    from elasticsearch_tpu_torch.ops import aggs as agg_ops
+    from elasticsearch_tpu_torch.rest.native_http import loadgen
+    hybrid = node.indices["hybrid"]
+    svc_logs = node.indices["logs"]
+    n = len(corpus["lens"])
+    cat, _terms = bench_cat(n)
+    texts = [" ".join(term_name(t) for t in q) for q in queries[:32]]
+    bench = [{"query": {"match": {"title": t}}, "size": 0,
+              "aggs": {"cats": {"terms": {"field": "cat"}}}} for t in texts]
+    oracle = LogsOracle(logs, cols)
+    t0 = time.time()
+    matched = [dense_scores(corpus, q) > 0 for q in queries[:32]]
+    mix = logs_agg_mix(oracle, texts[0])
+    log(f"[aggs] oracles in {time.time() - t0:.1f} s")
+    fns = {name: getattr(agg_ops, name) for name in AGG_COLLECTORS}
+    for fn in list(counters.values()) + list(fns.values()):
+        fn.launches = 0
+    # the main run: the bench bodies, then the logs mix, over HTTP
+    res, lat, wall = drive(port, bench, 16, "hybrid")
+    mres, mlat, mwall = drive(port, [b for _, b, _, _ in mix], 8, "logs")
+    launches = {name: fn.launches for name, fn in
+                list(counters.items()) + list(fns.items())}
+    check(all(launches[name] > 0 for name in AGG_COLLECTORS)
+          and launches["gather_bm25_contrib"] > 0,
+          f"every collector and the contribution kernel launched in the "
+          f"aggs phase: {launches}")
+    t0 = time.time()
+    for i, ((st, r), body, m) in enumerate(zip(res, bench, matched)):
+        what = f"terms-agg bench body {i}"
+        check(st == 200, f"{what} -> {st} {r}")
+        counts = np.bincount(cat[m], minlength=500)
+        order = np.lexsort((np.arange(500), -counts))
+        top = [int(o) for o in order[:10] if counts[o] > 0]
+        want = {"cats": {
+            "doc_count_error_upper_bound": 0,
+            "sum_other_doc_count": int(counts.sum()
+                                       - counts[top].sum()),
+            "buckets": [{"key": f"c{o:03d}", "doc_count": int(counts[o])}
+                        for o in top]}}
+        check(r["hits"]["total"] == {"value": int(m.sum()),
+                                     "relation": "eq"}, f"{what}: total")
+        check(r["aggregations"]["cats"]["buckets"][0]["doc_count"] > 0,
+              f"{what}: the bench's check")
+        agg_equal(r["aggregations"], want, what)
+        c = cpu.search("hybrid", hybrid, body)
+        check(c["hits"]["total"] == r["hits"]["total"], f"{what}: CPU total")
+        agg_equal(r["aggregations"], c["aggregations"], f"{what} vs the CPU")
+    kinds = {}
+    for (kind, body, want, hits), (st, r) in zip(mix, mres):
+        what = f"logs aggs body {kind}"
+        check(st == 200, f"{what} -> {st} {r}")
+        agg_equal(r["aggregations"], want, what)
+        if hits is not None:
+            ids, total = hits
+            check(r["hits"]["total"]["value"] == total, f"{what}: total")
+            check([int(h["_id"]) for h in r["hits"]["hits"]]
+                  == [int(i) for i in ids], f"{what}: hits")
+        c = cpu.search("logs", svc_logs, body)
+        check(c["hits"]["total"] == r["hits"]["total"]
+              and [h["_id"] for h in c["hits"]["hits"]]
+              == [h["_id"] for h in r["hits"]["hits"]],
+              f"{what}: hits vs the CPU")
+        agg_equal(r["aggregations"], c["aggregations"], f"{what} vs the CPU")
+        kinds[kind] = dict(
+            latency_ms=mlat[len(kinds)] * 1e3,
+            buckets=sum(len(v.get("buckets", ())) for v in
+                        r["aggregations"].values() if isinstance(v, dict)))
+    log(f"[aggs] {len(bench) + len(mix)} answers held to the oracle and the "
+        f"CPU in {time.time() - t0:.1f} s")
+    out = dict(docs=n, launches=launches,
+               bench=dict(bodies=len(bench), wall_s=wall,
+                          python_clients=16, p50_ms=p50_p99(lat)[0],
+                          p99_ms=p50_p99(lat)[1]),
+               logs=dict(bodies=len(mix), wall_s=mwall, python_clients=8,
+                         kinds=kinds))
+    # (c) the collectors alone
+    torch.cuda.synchronize()
+    q_mask = oracle.range_mask("@timestamp", LOGS_T0_MS + 2 * HOUR_MS,
+                               LOGS_T0_MS + 14 * HOUR_MS)
+    out["collectors"] = collector_timings(node, matched[0], q_mask)
+    # (d) the bench bodies from the load generator: a warm round, then 4
+    f0 = node.http_stats()
+    loadgen(port, "/hybrid/_search", bench, conns, len(bench))
+    lg = loadgen(port, "/hybrid/_search", bench, conns, len(bench) * 4)
+    check(lg["done"] == len(bench) * 4 and lg["non2xx"] == 0,
+          f"the load generator's terms-agg requests all done with 2xx: {lg}")
+    out["loadgen"] = dict(
+        conns=conns, requests=lg["done"], wall_s=lg["wall_s"],
+        qps=lg["done"] / lg["wall_s"], p50_ms=p50_p99(lg["lat_s"])[0],
+        p99_ms=p50_p99(lg["lat_s"])[1], front=front_since(node, f0))
+    log(f"[aggs] {out}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--docs", type=int, default=2_000_000)
@@ -3315,10 +3769,14 @@ def main(argv=None) -> int:
         script = phase_script(node, port, corpus, queries, feat,
                               args.seed + 9, min(args.clients, 64),
                               counters, cpu)
+
+        # ---- 8. aggregations: the bench's terms-agg row, a Kibana mix
+        aggs = phase_aggs(node, port, corpus, queries, logs, cols,
+                          min(args.clients, 64), counters, cpu)
     finally:
         node.close()
 
-    # ---- 8. report
+    # ---- 9. report
     meta = {
         "gather_bm25_contrib": dict(
             source="elasticsearch_tpu_torch/csrc/bm25_contrib.cu",
@@ -3347,6 +3805,7 @@ def main(argv=None) -> int:
             launches_dense=dense["launches"][name],
             launches_knn=hybrid["dense_bodies"]["launches"][name],
             launches_script=script["launches"][name],
+            launches_aggs=aggs["launches"][name],
             dense_shape=(dense["contrib_dense_shape"]
                          if name == "gather_bm25_contrib" else None)))
     print(json.dumps({"scale": scale}))
@@ -3358,6 +3817,7 @@ def main(argv=None) -> int:
     print(json.dumps({"knn": knn}))
     print(json.dumps({"hybrid": hybrid}))
     print(json.dumps({"script": script}))
+    print(json.dumps({"aggs": aggs}))
     print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))

@@ -220,12 +220,24 @@ def knn_query_vectors(vectors: np.ndarray, n: int,
     return out
 
 
+def bench_cat(n: int, seed: int = 99, n_cats: int = 500):
+    """The reference bench's skewed ``cat`` keyword column (its
+    match+terms-agg row's field), drawn as it draws it: the first draw
+    of ``n`` uniforms of ``default_rng(seed)``, squared and scaled, so
+    low ords are the most frequent. (int32 ords [n], the terms
+    ``c000`` ... in ord order), ``segment_from_numpy``'s ``keywords``
+    entry's ``ords`` and ``terms``."""
+    rng = np.random.default_rng(seed)
+    ords = np.minimum(rng.random(n) ** 2 * n_cats,
+                      n_cats - 1).astype(np.int32)
+    return ords, [f"c{i:03d}" for i in range(n_cats)]
+
+
 def bench_feat(n: int, seed: int = 99) -> np.ndarray:
     """float64 [n]: the reference bench's ``feat`` doc values (its
-    script_score row's column), drawn as it draws them: one
-    ``default_rng(seed)`` whose first draw of ``n`` uniforms makes the
-    category column (not needed here), and whose second is ``feat``,
-    uniform in [0, 1)."""
+    script_score row's column), drawn as it draws them: the second draw
+    of ``n`` uniforms of ``default_rng(seed)``, whose first makes the
+    ``cat`` column (``bench_cat``), uniform in [0, 1)."""
     rng = np.random.default_rng(seed)
     rng.random(n)
     return rng.random(n)
@@ -338,11 +350,12 @@ def plan_doc(rng: np.random.Generator) -> Dict[str, str]:
 
 def segment_from_corpus(corpus: Dict[str, np.ndarray], field: str = "title",
                         name: str = "corpus0", numerics=None,
-                        vectors=None) -> Segment:
+                        vectors=None, keywords=None) -> Segment:
     """The corpus as one port Segment over a text field of the terms
     ``t000000 ...`` (ids are the docids as text; no ``_source``), with
-    the numeric columns ``numerics`` (``logs_columns``) and the vector
-    fields ``vectors`` (``segment_from_numpy``'s form) when given; the
+    the numeric columns ``numerics`` (``logs_columns``), the vector
+    fields ``vectors`` and the keyword columns ``keywords``
+    (``segment_from_numpy``'s forms) when given; the
     block-max metadata is computed from the blocks
     (index/segment.py ``block_max_meta``)."""
     vocab = len(corpus["df"])
@@ -353,8 +366,8 @@ def segment_from_corpus(corpus: Dict[str, np.ndarray], field: str = "title",
         block_docids=corpus["block_docids"], block_tfs=corpus["block_tfs"],
         field_lengths=corpus["lens"])
     return segment_from_numpy({"fields": {field: postings},
-                               "numerics": numerics, "vectors": vectors},
-                              name=name)
+                               "numerics": numerics, "vectors": vectors,
+                               "keywords": keywords}, name=name)
 
 
 def dense_scores(corpus: Dict[str, np.ndarray], terms: List[int],

@@ -21,6 +21,12 @@ live mask.
   ``values`` float64 [n_docs] (a doc's first value, NaN where missing),
   ``missing`` bool [n_docs], and the ragged multi-values
   ``offsets``/``all_values`` (each doc's values sorted).
+- **Keyword doc values** (sorted-set ordinals, Lucene's
+  SortedSetDocValues): ``terms`` (the sorted distinct values), ``ords``
+  int32 [n_docs] (a doc's first ord, -1 where missing) and the ragged
+  ``offsets``/``all_ords`` (each doc's distinct ords ascending), for
+  every keyword field and dynamic ``.keyword`` subfield; the terms
+  aggregation reads them.
 - **Dense vectors**: ``vectors`` float32 [n_docs, dims] (zero rows where
   a doc has none), ``has_value`` bool [n_docs], the field's ``dims`` and
   ``similarity``. This float32 host copy is what the kNN path's exact
@@ -91,6 +97,21 @@ class NumericDocValues:
 
 
 @dataclass
+class KeywordDocValues:
+    """Sorted-set ordinals (analogue of Lucene SortedSetDocValues)."""
+
+    field: str
+    terms: List[str]        # sorted unique terms
+    ords: np.ndarray        # int32 [n_docs] first ord, -1 = missing
+    offsets: np.ndarray     # int64 [n_docs + 1] into all_ords
+    all_ords: np.ndarray    # int32 [total]
+
+    def get(self, docid: int) -> List[str]:
+        return [self.terms[o] for o in
+                self.all_ords[self.offsets[docid]: self.offsets[docid + 1]]]
+
+
+@dataclass
 class VectorValues:
     field: str
     vectors: np.ndarray     # float32 [n_docs, dims]
@@ -127,11 +148,13 @@ class Segment:
                  postings: Dict[str, PostingsField], stored: StoredFields,
                  live: Optional[np.ndarray] = None,
                  numerics: Optional[Dict[str, NumericDocValues]] = None,
-                 vectors: Optional[Dict[str, VectorValues]] = None):
+                 vectors: Optional[Dict[str, VectorValues]] = None,
+                 keywords: Optional[Dict[str, KeywordDocValues]] = None):
         self.name = name
         self.n_docs = n_docs
         self.postings = postings
         self.numerics = numerics or {}
+        self.keywords = keywords or {}
         self.vectors = vectors or {}
         self.stored = stored
         self.live = live if live is not None else np.ones(n_docs, dtype=bool)
@@ -220,6 +243,23 @@ class SegmentWriter:
                 offsets[docid + 1] = len(all_vals)
             numerics[f] = NumericDocValues(f, values, missing, offsets,
                                            np.asarray(all_vals, np.float64))
+        # keyword ordinals: each doc's distinct values, ascending
+        keywords = {}
+        for f in {f for d in docs for f in d.keyword_terms}:
+            uniq = sorted({t for d in docs
+                           for t in d.keyword_terms.get(f, [])})
+            tindex = {t: i for i, t in enumerate(uniq)}
+            ords = np.full(n, -1, np.int32)
+            offsets = np.zeros(n + 1, np.int64)
+            all_ords: List[int] = []
+            for docid, d in enumerate(docs):
+                terms = sorted(set(d.keyword_terms.get(f, [])))
+                if terms:
+                    ords[docid] = tindex[terms[0]]
+                    all_ords.extend(tindex[t] for t in terms)
+                offsets[docid + 1] = len(all_ords)
+            keywords[f] = KeywordDocValues(f, uniq, ords, offsets,
+                                           np.asarray(all_ords, np.int32))
         vectors = {}
         for f in sorted({f for d in docs for f in d.vectors}):
             dims = next(d.vectors[f].shape[0] for d in docs if f in d.vectors)
@@ -244,7 +284,7 @@ class SegmentWriter:
             ids.append(d.doc_id)
         stored = StoredFields(offsets, b"".join(chunks), ids)
         return Segment(name, n, postings, stored, numerics=numerics,
-                       vectors=vectors)
+                       vectors=vectors, keywords=keywords)
 
 
 def _build_postings_field(field: str, term_docs: Dict[str, Any],
@@ -361,6 +401,8 @@ def merge_segments(name: str, segments: List[Segment]) -> Segment:
 
     numerics = {f: _merge_numerics(f, segments, maps, new_n)
                 for f in sorted({f for s in segments for f in s.numerics})}
+    keywords = {f: _merge_keywords(f, segments, maps, new_n)
+                for f in sorted({f for s in segments for f in s.keywords})}
 
     vectors: Dict[str, VectorValues] = {}
     for f in sorted({f for s in segments for f in s.vectors}):
@@ -389,7 +431,7 @@ def merge_segments(name: str, segments: List[Segment]) -> Segment:
             ids.append(seg.stored.ids[int(old)])
     stored = StoredFields(offsets, b"".join(chunks), ids)
     return Segment(name, new_n, postings, stored, numerics=numerics,
-                   vectors=vectors)
+                   vectors=vectors, keywords=keywords)
 
 
 def _merge_numerics(f: str, segments: List[Segment], maps: List[np.ndarray],
@@ -424,6 +466,45 @@ def _merge_numerics(f: str, segments: List[Segment], maps: List[np.ndarray],
     return NumericDocValues(f, values, missing, offsets, all_values)
 
 
+def _merge_keywords(f: str, segments: List[Segment], maps: List[np.ndarray],
+                    new_n: int) -> KeywordDocValues:
+    """One keyword column of a merge: the term dictionary of the values
+    the live docs hold, and each live doc's ords remapped into it in
+    new-docid order. Both dictionaries are sorted, so the remap keeps
+    each doc's ords ascending."""
+    # per segment: (column, live old docids, their new ids, their value
+    # counts, the positions of their values in all_ords)
+    parts = []
+    used = set()
+    for seg, m in zip(segments, maps):
+        kv = seg.keywords.get(f)
+        if kv is None:
+            continue
+        old = np.nonzero(seg.live)[0]
+        lens = kv.offsets[old + 1] - kv.offsets[old]
+        run_start = np.cumsum(lens) - lens
+        pos = (np.repeat(kv.offsets[old] - run_start, lens)
+               + np.arange(int(lens.sum())))
+        used.update(kv.terms[int(o)] for o in np.unique(kv.all_ords[pos]))
+        parts.append((kv, old, m[old], lens, pos))
+    uniq = sorted(used)
+    tindex = {t: i for i, t in enumerate(uniq)}
+    ords = np.full(new_n, -1, np.int32)
+    counts = np.zeros(new_n, np.int64)
+    chunks: List[np.ndarray] = []
+    for kv, old, new, lens, pos in parts:
+        remap = np.asarray([tindex.get(t, -1) for t in kv.terms], np.int32)
+        has = lens > 0
+        ords[new[has]] = remap[kv.ords[old[has]]]
+        counts[new] = lens
+        chunks.append(remap[kv.all_ords[pos]])
+    offsets = np.zeros(new_n + 1, np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    all_ords = (np.concatenate(chunks).astype(np.int32) if chunks
+                else np.zeros(0, np.int32))
+    return KeywordDocValues(f, uniq, ords, offsets, all_ords)
+
+
 def segment_from_numpy(arrays: Dict[str, Any], name: str = "imported",
                        field: Optional[str] = None) -> Segment:
     """Build a Segment from plain numpy arrays — how an index built
@@ -447,8 +528,12 @@ def segment_from_numpy(arrays: Dict[str, Any], name: str = "imported",
     float32 [n_docs, dims] (kept as given, not copied, when already
     float32 and contiguous: it is the host copy the exact re-rank
     reads), and optionally ``has_value`` bool [n_docs] (default all) and
-    ``similarity`` (default "cosine"). A segment of vectors alone needs
-    no postings."""
+    ``similarity`` (default "cosine"); and ``keywords``, which maps each
+    keyword field to its doc values: ``terms`` (the sorted distinct
+    values), ``ords`` int32 [n_docs] (a doc's first ord, -1 where it has
+    none) and optionally ``offsets`` [n_docs + 1] / ``all_ords`` (each
+    doc's distinct ords ascending; default one value per doc that has
+    one). A segment of vectors alone needs no postings."""
     fields = arrays.get("fields")
     if fields is None:
         fields = ({field or arrays.get("field") or "body": arrays}
@@ -458,9 +543,12 @@ def segment_from_numpy(arrays: Dict[str, Any], name: str = "imported",
                 for f, a in (arrays.get("numerics") or {}).items()}
     vectors = {f: _vectors_from_numpy(f, a)
                for f, a in (arrays.get("vectors") or {}).items()}
+    keywords = {f: _keywords_from_numpy(f, a)
+                for f, a in (arrays.get("keywords") or {}).items()}
     sizes = ({len(pf.field_lengths) for pf in postings.values()}
              | {len(nv.values) for nv in numerics.values()}
-             | {len(vv.has_value) for vv in vectors.values()})
+             | {len(vv.has_value) for vv in vectors.values()}
+             | {len(kv.ords) for kv in keywords.values()})
     if len(sizes) != 1:
         raise ValueError(f"fields disagree on the doc count: {sorted(sizes)}")
     n = sizes.pop()
@@ -476,7 +564,29 @@ def segment_from_numpy(arrays: Dict[str, Any], name: str = "imported",
     live = arrays.get("live")
     return Segment(name, n, postings, stored,
                    None if live is None else np.asarray(live, bool).copy(),
-                   numerics=numerics, vectors=vectors)
+                   numerics=numerics, vectors=vectors, keywords=keywords)
+
+
+def _keywords_from_numpy(fname: str, arrays: Dict[str, Any]) \
+        -> KeywordDocValues:
+    terms = list(arrays["terms"])
+    ords = np.asarray(arrays["ords"], np.int32)
+    if ords.ndim != 1 or (len(ords) and (ords.min() < -1
+                                         or ords.max() >= len(terms))):
+        raise ValueError(f"keyword field [{fname}]: ords must be [n_docs] "
+                         f"in [-1, {len(terms)})")
+    if arrays.get("offsets") is None:
+        offsets = np.zeros(len(ords) + 1, np.int64)
+        np.cumsum(ords >= 0, out=offsets[1:])
+        all_ords = ords[ords >= 0]
+    else:
+        offsets = np.asarray(arrays["offsets"], np.int64)
+        all_ords = np.asarray(arrays["all_ords"], np.int32)
+        if offsets.shape != (len(ords) + 1,) \
+                or offsets[-1] != len(all_ords):
+            raise ValueError(f"keyword field [{fname}]: offsets must be "
+                             f"[n_docs + 1] ending at len(all_ords)")
+    return KeywordDocValues(fname, terms, ords, offsets, all_ords)
 
 
 def _vectors_from_numpy(fname: str, arrays: Dict[str, Any]) -> VectorValues:

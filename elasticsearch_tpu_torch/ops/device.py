@@ -22,6 +22,10 @@ Filter masks (the fast path's bool+filter bodies) are bool columns built
 on the host from the postings and uploaded once, in an LRU of
 ``FILTER_MASK_CACHE_MAX`` entries per DeviceSegment.
 
+Keyword doc values stay on the host; the terms aggregation's collector
+reads a per-field ord-major docid permutation (``keyword_ord_major``),
+built on first use and kept for the life of the immutable segment.
+
 Dense vectors upload as one [n_docs_padded, dims] slab per field
 (``DeviceVectors``, bfloat16 by default; padding rows are zero and have
 no value), built in row chunks by ops/vector.py ``prepare_vectors``.
@@ -31,7 +35,7 @@ from __future__ import annotations
 
 import threading
 from collections import Counter, OrderedDict
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -251,6 +255,35 @@ class DeviceSegment:
         self.all_true = torch.from_numpy(real).to(self.device)
         self.all_docs_row = torch.ones((1, self.n_docs_padded),
                                        dtype=torch.bool, device=self.device)
+        # keyword field -> (ord-major docids, term starts) or None
+        self._kw_ord_major: Dict[str, Optional[Tuple[torch.Tensor,
+                                                     np.ndarray]]] = {}
+        self._kw_lock = threading.Lock()
+
+    def keyword_ord_major(self, field: str):
+        """(device docid permutation int32 [total], host term_starts
+        int64 [n_terms + 1]): every keyword value position of ``field``
+        sorted by ord (stably, so docids ascend within a term), the
+        layout the terms collector reduces over (ops/aggs.py). Built once
+        per immutable segment; None when the field has no values."""
+        with self._kw_lock:
+            if field in self._kw_ord_major:
+                return self._kw_ord_major[field]
+            kv = self.segment.keywords.get(field)
+            entry = None
+            if kv is not None and len(kv.all_ords):
+                order = np.argsort(kv.all_ords, kind="stable")
+                pos_doc = np.searchsorted(kv.offsets,
+                                          np.arange(len(kv.all_ords)),
+                                          side="right") - 1
+                term_starts = np.searchsorted(
+                    kv.all_ords[order],
+                    np.arange(len(kv.terms) + 1)).astype(np.int64)
+                entry = (torch.from_numpy(
+                    pos_doc[order].astype(np.int32)).to(self.device),
+                    term_starts)
+            self._kw_ord_major[field] = entry
+            return entry
 
     def bound_plan(self, key: tuple, make):
         """The cached bound plan under ``key``, else ``make()`` cached."""

@@ -58,13 +58,13 @@ import re
 import time
 from typing import Any, Optional, Tuple
 
-from elasticsearch_tpu_torch.common.errors import ScriptException
+from elasticsearch_tpu_torch.common.errors import (IllegalArgumentException,
+                                                  ScriptException)
 from elasticsearch_tpu_torch.index.mapper import (MapperParsingException,
                                                   TextFieldType)
 from elasticsearch_tpu_torch.search.fastpath import (MAX_FILTERS,
                                                      SliceUnsupported)
 from elasticsearch_tpu_torch.search.queries import ParsingException
-from elasticsearch_tpu_torch.search.service import IllegalArgumentException
 
 logger = logging.getLogger("elasticsearch_tpu_torch.rest")
 

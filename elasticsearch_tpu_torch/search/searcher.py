@@ -25,6 +25,12 @@ boolean and date fields, whose keys are the float32 doc-value columns
 sort values a hit carries are the float64 doc values. Keyword sorts and
 ``_geo_distance`` are later slices.
 
+With ``collect_masks`` (a body with aggregations) the plan path is
+skipped and the dense executor also hands each segment's match mask to
+the host (``QueryResult.agg_masks``): after the live mask and
+``min_score``, before ``post_filter``, as the reference's aggregations
+see it.
+
 After the query phase the rescorer (``rescore``, the reference's
 QueryRescorer) may re-score the top ``window_size`` docs with a second
 query run on the dense executor.
@@ -76,6 +82,9 @@ class QueryResult:
     # block-max pruning ran on some segment: total_hits is a LOWER bound
     # (the service reports hits.total.relation "gte")
     total_lower_bound: bool = False
+    # with collect_masks: (segment, host match mask bool [n_docs]) per
+    # segment, for the aggregation phase
+    agg_masks: Optional[List[Tuple[Segment, np.ndarray]]] = None
 
 
 @dataclass
@@ -108,7 +117,8 @@ class ShardSearcher:
                     sort: Optional[Any] = None,
                     search_after: Optional[List[Any]] = None,
                     track_total_hits=True, allow_plan: bool = True,
-                    cache_key: Optional[str] = None) -> QueryResult:
+                    cache_key: Optional[str] = None,
+                    collect_masks: bool = False) -> QueryResult:
         """Exact top-``size`` (at most MAX_TOPK) and exact total.
         ``cache_key`` (the request's query JSON) lets repeats reuse their
         bound plans, which hold the uploaded selections' host arrays.
@@ -117,7 +127,8 @@ class ShardSearcher:
         collects TOP_SCORES under a total-hits threshold: the hits stay
         exact, and when a segment pruned the total is a lower bound
         (``total_lower_bound``). ``allow_plan=False`` asks the dense
-        executor for a query the plan path would take."""
+        executor for a query the plan path would take, as
+        ``collect_masks`` does (which also fills ``agg_masks``)."""
         k = min(max(size, 1), MAX_TOPK)
         sort_spec = _parse_sort(sort)
         plan_after: Optional[float] = None
@@ -128,7 +139,8 @@ class ShardSearcher:
             # sums differ in the last bits)
             plan_after = float(search_after[0])
         plannable = (allow_plan and sort_spec is None and min_score is None
-                     and (search_after is None or plan_after is not None))
+                     and (search_after is None or plan_after is not None)
+                     and not collect_masks)
         if plannable:
             plan = compile_plan(query, self, post_filter)
             if plan is not None:
@@ -136,7 +148,7 @@ class ShardSearcher:
                                               plan_after, cache_key)
         return self._dense_query_phase(query, k, post_filter, min_score,
                                        sort_spec, search_after,
-                                       track_total_hits)
+                                       track_total_hits, collect_masks)
 
     def _plan_query_phase(self, plan, k: int, track_total_hits,
                           after_score: Optional[float],
@@ -190,21 +202,31 @@ class ShardSearcher:
         return QueryResult(docs, total, docs[0].score, lower_bound)
 
     def _dense_query_phase(self, query, k: int, post_filter, min_score,
-                           sort_spec, search_after,
-                           track_total_hits) -> QueryResult:
+                           sort_spec, search_after, track_total_hits,
+                           collect_masks: bool = False) -> QueryResult:
         """The dense executor: per segment, dense (scores, mask) columns,
         the collector chain as mask algebra, the primary key's stable
-        top-k, one readback of (keys, docids, scores, total, max)."""
+        top-k, one readback of (keys, docids, scores, total, max); with
+        ``collect_masks`` also each segment's aggregation mask, read
+        back on its own."""
         per_segment = []
         total = 0
         max_score = None
+        agg_masks = [] if collect_masks else None
         for seg_idx, ctx in enumerate(self._contexts()):
             if ctx.segment.n_docs == 0 or not query.can_match(ctx):
+                if collect_masks:
+                    agg_masks.append((ctx.segment,
+                                      np.zeros(ctx.segment.n_docs, bool)))
                 continue
             scores, mask = query.execute(ctx)
             mask = mask & ctx.live
             if min_score is not None:
                 mask = mask & (scores >= float(min_score))
+            if collect_masks:
+                agg_masks.append((ctx.segment, readback(
+                    "search.searcher.agg_mask",
+                    mask[: ctx.segment.n_docs])))
             if post_filter is not None:
                 _, pf_mask = post_filter.execute(ctx)
                 mask = mask & pf_mask
@@ -230,7 +252,7 @@ class ShardSearcher:
             per_segment.append((seg_idx, vals[keep], ids[keep], win[keep]))
 
         if not per_segment:
-            return QueryResult([], total, None)
+            return QueryResult([], total, None, agg_masks=agg_masks)
         all_keys = np.concatenate([v for _, v, _, _ in per_segment])
         all_segs = np.concatenate(
             [np.full(len(i), s, np.int32) for s, _, i, _ in per_segment])
@@ -249,7 +271,7 @@ class ShardSearcher:
         if sort_spec is not None and len(sort_spec) > 1:
             docs.sort(key=functools.cmp_to_key(
                 lambda a, b: _host_sort_cmp(a, b, sort_spec)))
-        return QueryResult(docs, total, max_score)
+        return QueryResult(docs, total, max_score, agg_masks=agg_masks)
 
     # ---------------------------------------------------------- rescore
     def rescore(self, docs: List[DocAddress],

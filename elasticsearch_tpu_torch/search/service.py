@@ -6,20 +6,23 @@ then the fetch phase on the index's one shard, shape the response.
 The body may carry ``query`` (default ``match_all``), ``size``,
 ``from``, ``post_filter``, ``min_score``, ``sort``, ``search_after``,
 ``track_total_hits`` (true, false or a threshold), ``_source`` (true
-or false), ``knn``, ``rank`` and ``rescore`` (one QueryRescorer or a
+or false), ``knn``, ``rank``, ``rescore`` (one QueryRescorer or a
 list: the query phase collects the largest ``window_size`` docs, the
 rescorers re-score them in order, then ``from``/``size`` cut the page;
-not with ``sort``). Everything else (aggregations, source filtering,
-``script_fields``, ...) is a later slice and answers a typed 400.
+not with ``sort``) and ``aggs``/``aggregations`` (search/aggregations.py
+over the dense executor's match masks; the response carries
+``aggregations``, on an empty index too). Everything else (source
+filtering, ``script_fields``, ...) is a later slice and answers a typed
+400.
 
 Hybrid retrieval: top-level ``knn`` sections (one or a list). With
 ``rank: {"rrf": {...}}`` the query and each knn section run as separate
 branches, fused by reciprocal rank (score = the sum over branches of
-1 / (rank_constant + rank)). Without it, a pure kNN body (one section,
-no query, ``_source: false``, nothing else that shapes the response)
-rides the KnnBatcher's cohort launch; any other body merges its knn
-sections into the query as ``bool.should`` clauses (the score sum) and
-runs on the dense executor. A kNN branch served by the batcher needs an
+1 / (rank_constant + rank)); aggregations ride the query branch alone.
+Without it, a pure kNN body (one section, no query, ``_source: false``,
+nothing else that shapes the response) rides the KnnBatcher's cohort
+launch; any other body merges its knn sections into the query as
+``bool.should`` clauses (the score sum) and runs on the dense executor. A kNN branch served by the batcher needs an
 index of one segment, no ``filter`` and a candidate cut within its
 largest bucket (4096); otherwise the dense executor serves it.
 
@@ -44,6 +47,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from elasticsearch_tpu_torch.common.errors import IllegalArgumentException
+from elasticsearch_tpu_torch.search.aggregations import compute_aggs
 from elasticsearch_tpu_torch.search.batching import (_CUT_BUCKETS,
                                                      KnnBatcher, PlanBatcher)
 from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
@@ -57,16 +62,12 @@ from elasticsearch_tpu_torch.search.searcher import (MAX_TOPK, ShardSearcher,
 DEFAULT_SIZE = 10
 BODY_KEYS = {"query", "size", "from", "post_filter", "track_total_hits",
              "_source", "sort", "search_after", "min_score", "knn", "rank",
-             "rescore"}
+             "rescore", "aggs", "aggregations"}
 # a body with any of these (truthy) asks more than the k nearest ids and
 # scores, so its kNN takes the dense executor, not the cohort launch
 _NOT_PURE_KNN = ("sort", "post_filter", "min_score", "search_after",
-                 "track_total_hits", "rescore")
+                 "track_total_hits", "rescore", "aggs", "aggregations")
 _RESCORE_MODES = ("total", "multiply", "avg", "max", "min")
-
-
-class IllegalArgumentException(ValueError):
-    error_type = "illegal_argument_exception"
 
 
 def _knn_clauses(knn) -> List[Dict[str, Any]]:
@@ -195,6 +196,7 @@ class SearchService:
             raise IllegalArgumentException(
                 "[search_after] must be an array of sort values")
         rescore = _rescore_specs(body)
+        aggs_spec = body.get("aggs", body.get("aggregations"))
         # a rescorer's window may exceed the page
         query_k = max([from_ + size] + [int(r.get("window_size", 10))
                                         for r in rescore])
@@ -205,7 +207,7 @@ class SearchService:
             query, query_k, post_filter,
             min_score=body.get("min_score"), sort=sort,
             search_after=search_after, track_total_hits=track_total,
-            cache_key=cache_key)
+            cache_key=cache_key, collect_masks=bool(aggs_spec))
         docs = result.docs
         if rescore:
             docs = searcher.rescore(docs, rescore)
@@ -232,6 +234,12 @@ class SearchService:
         if track_total is False:
             # ES omits hits.total when tracking is disabled
             del response["hits"]["total"]
+        if aggs_spec:
+            response["aggregations"] = compute_aggs(
+                aggs_spec,
+                [(seg, mask, searcher.mapper)
+                 for seg, mask in result.agg_masks],
+                searcher.mapper, searcher.cache)
         return response
 
     # ---------------------------------------------------------------- kNN
@@ -343,19 +351,31 @@ class SearchService:
         scores: Dict[Tuple[str, str], float] = {}
         best_hit: Dict[Tuple[str, str], Dict[str, Any]] = {}
         truncated = False
+        aggregations = None
+        wants_aggs = "aggs" in body or "aggregations" in body
         wants_source = passthrough.get("_source", True) is not False
-        for br in branches:
+        for bi, br in enumerate(branches):
             # a pure knn branch rides the cohort launch when the fusion
             # needs only its ids and scores
             hits = None
             if (set(br["query"]) == {"knn"} and not wants_source
                     and not any(passthrough.get(x) for x in
-                                ("post_filter", "min_score"))):
+                                ("post_filter", "min_score"))
+                    and not (bi == 0 and wants_aggs)):
                 hits = self._knn_branch_hits(index, searcher,
                                              br["query"]["knn"], window)
             if hits is None:
                 sub = {**passthrough, **br, "size": window}
-                hits = self._execute(index, searcher, sub)["hits"]["hits"]
+                if bi == 0:
+                    # the aggregations compute once, over the first
+                    # (query) branch
+                    for agg_key in ("aggs", "aggregations"):
+                        if agg_key in body:
+                            sub[agg_key] = body[agg_key]
+                r = self._execute(index, searcher, sub)
+                if bi == 0 and "aggregations" in r:
+                    aggregations = r["aggregations"]
+                hits = r["hits"]["hits"]
             if len(hits) >= window:
                 truncated = True
             for rank_i, h in enumerate(hits):
@@ -369,7 +389,7 @@ class SearchService:
             h = dict(best_hit[key])
             h["_score"] = scores[key]
             hits.append(h)
-        return {
+        out = {
             "timed_out": False,
             "_shards": {"total": 1, "successful": 1, "skipped": 0,
                         "failed": 0},
@@ -378,3 +398,6 @@ class SearchService:
                      "max_score": hits[0]["_score"] if hits else None,
                      "hits": hits},
         }
+        if aggregations is not None:
+            out["aggregations"] = aggregations
+        return out

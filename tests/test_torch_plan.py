@@ -217,8 +217,8 @@ def test_rest_from_and_typed_400s(searchers):
             for h in got["hits"]["hits"]:
                 assert h["_source"]["title"]
         for bad in ({"query": {"match_phrase": {"title": "alpha wolf"}}},
-                    {"query": CASES[0], "aggs": {"t": {"terms": {
-                        "field": "tag"}}}}):
+                    {"query": CASES[0], "aggs": {"t": {"top_hits": {
+                        "size": 3}}}}):
             st, r = c.dispatch("POST", "/p/_search", {}, bad)
             assert st == 400 and r["error"]["type"] == \
                 "unsupported_in_slice_exception", (bad, r)
