@@ -149,10 +149,34 @@ Phases (any failure exits non-zero; no exception is swallowed):
               its byte bound, the agg mask's readback and re-upload,
               the host bucket-id arithmetic, and the bench bodies from
               the load generator (64 connections, a warm round, then 4)
-  9. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
-              script, aggs, filters, plan and kernels JSON lines, the
-              card's name and power limit, and the last line {"ok":
-              true, "device": {...}}
+  9. accounting  the main node runs under an explicit hbm breaker limit
+              (0.75 of the card, printed; the reference's 4 GiB default
+              would refuse config 4's slab), and after every phase the
+              breaker holds exactly the resident segments' bytes. Every
+              DeviceSegment built on the card in the run added its
+              hbm_bytes() to the allocator's requested bytes, and to
+              memory_allocated() within the allocator's rounding (512 B
+              a tensor, plus at most 1 MiB for a large tensor handed an
+              unsplit cached block); so does each lazy build (a filter
+              mask, an ord-major permutation). A second node holds four 2M-doc
+              indices under a limit of 2.5 segments: 32 plan bodies equal
+              the CPU execution, with the admissions and evictions of an
+              LRU of two, and a segment evicted while the fast path
+              holds its registration returns its memory; a node whose
+              limit is below one segment answers 429 with bytes_wanted
+              the segment's bytes and still serves an index that fits.
+              Over fast-path, plan, dense, kNN and aggs bodies:
+              /_kernels calls equal both kernels' .launches, the flight
+              recorder holds one event per tracked call and per funnel
+              readback, and profile: true answers the same hits with
+              the kernels it launched and device + host == total
+              nanos. Printed: the host us of a tracked call against
+              the bare call at the v2m cohort's shape, of one flight
+              event, and the drain's launch-to-readback ms a cohort
+ 10. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
+              script, aggs, accounting, filters, plan and kernels JSON
+              lines, the card's name and power limit, and the last line
+              {"ok": true, "device": {...}}
 
 Needs one CUDA card, and the repository around it.
 """
@@ -3468,6 +3492,7 @@ def phase_aggs(node, port, corpus, queries, logs, cols, conns, counters,
                                                 dense_scores, term_name)
     from elasticsearch_tpu_torch.ops import aggs as agg_ops
     from elasticsearch_tpu_torch.rest.native_http import loadgen
+    from elasticsearch_tpu_torch.telemetry.engine import TRACKER
     hybrid = node.indices["hybrid"]
     svc_logs = node.indices["logs"]
     n = len(corpus["lens"])
@@ -3480,14 +3505,19 @@ def phase_aggs(node, port, corpus, queries, logs, cols, conns, counters,
     matched = [dense_scores(corpus, q) > 0 for q in queries[:32]]
     mix = logs_agg_mix(oracle, texts[0])
     log(f"[aggs] oracles in {time.time() - t0:.1f} s")
-    fns = {name: getattr(agg_ops, name) for name in AGG_COLLECTORS}
-    for fn in list(counters.values()) + list(fns.values()):
+    # the collectors are PyTorch ops, not kernels: the tracker counts
+    # their calls
+    fns = {name: getattr(agg_ops, name).kernel_name
+           for name in AGG_COLLECTORS}
+    calls0 = {name: TRACKER.calls(k) for name, k in fns.items()}
+    for fn in counters.values():
         fn.launches = 0
     # the main run: the bench bodies, then the logs mix, over HTTP
     res, lat, wall = drive(port, bench, 16, "hybrid")
     mres, mlat, mwall = drive(port, [b for _, b, _, _ in mix], 8, "logs")
-    launches = {name: fn.launches for name, fn in
-                list(counters.items()) + list(fns.items())}
+    launches = {name: fn.launches for name, fn in counters.items()}
+    launches.update({name: TRACKER.calls(k) - calls0[name]
+                     for name, k in fns.items()})
     check(all(launches[name] > 0 for name in AGG_COLLECTORS)
           and launches["gather_bm25_contrib"] > 0,
           f"every collector and the contribution kernel launched in the "
@@ -3560,6 +3590,583 @@ def phase_aggs(node, port, corpus, queries, logs, cols, conns, counters,
     return out
 
 
+# ---------------------------------------------------------------- phase 9
+# PyTorch's caching allocator rounds a block up to a multiple of 512 B,
+# and does not split a cached large block (over 1 MiB) whose remainder
+# would be 1 MiB or less: memory_allocated() counts each tensor's block,
+# up to 512 B (a small tensor) or 512 B + 1 MiB (a large one) above its
+# bytes. Its requested_bytes count the tensors' own bytes.
+ALLOC_ROUND_B = 512
+LARGE_BLOCK_B = 1 << 20
+
+
+def alloc_slack(sizes) -> int:
+    """The most memory_allocated() may count above tensors of ``sizes``
+    bytes."""
+    return sum(ALLOC_ROUND_B + (LARGE_BLOCK_B if n > LARGE_BLOCK_B else 0)
+               for n in sizes)
+
+
+def held_sizes(dev):
+    """The bytes of each tensor a DeviceSegment holds on the card."""
+    from elasticsearch_tpu_torch.ops.device import _tensors
+    sizes = [int(t.nbytes) for _c, t in dev._fixed_tensors()]
+    sizes += [int(m.nbytes) for m, _h in dev._filter_masks.values()]
+    sizes += [int(e[0].nbytes) for e in dev._kw_ord_major.values()
+              if e is not None]
+    sizes += [b for b in dev._bound_bytes.values() if b]
+    sizes += [int(t.nbytes) for dp in dev.postings.values()
+              for v in dp._derived.values() for t in _tensors(v)]
+    return sizes
+
+
+def device_bytes():
+    """(memory_allocated(), requested bytes) once the card and the
+    collector settled."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    return (torch.cuda.memory_allocated(),
+            torch.cuda.memory_stats()["requested_bytes.all.current"])
+
+
+def bytes_agree(row, what):
+    """A build's requested bytes are its accounted bytes, and its
+    allocated bytes within the allocator's rounding of them."""
+    check(row["requested"] == row["hbm_bytes"]
+          and 0 <= row["allocated"] - row["hbm_bytes"] <= row["slack"],
+          f"{what}: requested == hbm_bytes and allocated within the "
+          f"allocator's rounding: {row}")
+
+
+def measure_builds(device_type: str = "cuda"):
+    """Make the device cache build DeviceSegments that measure
+    ``torch.cuda.memory_allocated()`` across their own build on
+    ``device_type`` (synchronized, after ``gc.collect()``); returns the
+    list each build appends (name, allocated, hbm_bytes, tensors) to."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops.device import DeviceSegment
+    from elasticsearch_tpu_torch.search import context
+    builds = []
+
+    class MeasuredSegment(DeviceSegment):
+        def __init__(self, segment, device=None,
+                     vector_dtype=torch.bfloat16):
+            cuda = torch.device(device or "cuda").type == device_type
+            if cuda:
+                a0, r0 = device_bytes()
+            super().__init__(segment, device, vector_dtype)
+            if cuda:
+                a1, r1 = device_bytes()
+                builds.append(dict(
+                    name=self.name, allocated=a1 - a0, requested=r1 - r0,
+                    hbm_bytes=self.hbm_bytes(),
+                    slack=alloc_slack(held_sizes(self))))
+
+    context.DeviceSegment = MeasuredSegment
+    return builds
+
+
+def hbm_agrees(node, phase, out):
+    """After a phase: the hbm breaker holds what the resident segments
+    hold (``engine.hbm.total_bytes``); ``memory_allocated()`` is printed
+    beside it (the gap is what no segment owns: the fast path's tables
+    and mask stacks, cohort buffers)."""
+    import torch
+    torch.cuda.synchronize()
+    br = node.breaker_service.get_breaker("hbm")
+    hbm = node.device_cache.hbm_stats()
+    row = dict(phase=phase, breaker_used=br.used,
+               total_bytes=hbm["total_bytes"], segments=hbm["segments"],
+               memory_allocated=torch.cuda.memory_allocated())
+    out.append(row)
+    log(f"[accounting] after {phase}: {row}")
+    check(br.used == hbm["total_bytes"],
+          f"after {phase}: breaker.used {br.used} == engine.hbm.total_bytes "
+          f"{hbm['total_bytes']}")
+
+
+def lazy_build(node, dev, build, what):
+    """One lazy build on a resident segment: the bytes it adds to the
+    card (requested; allocated within the allocator's rounding) equal
+    the bytes its segment's classes gain and the breaker's charge
+    gains; returns the row."""
+    br = node.breaker_service.get_breaker("hbm")
+    h0, u0, n0 = dev.hbm_bytes(), br.used, held_sizes(dev)
+    a0, r0 = device_bytes()
+    build()
+    a1, r1 = device_bytes()
+    new = list(held_sizes(dev))
+    for n in n0:
+        new.remove(n)
+    row = dict(what=what, allocated=a1 - a0, requested=r1 - r0,
+               hbm_bytes=dev.hbm_bytes() - h0, breaker=br.used - u0,
+               slack=alloc_slack(new))
+    check(row["hbm_bytes"] > 0 and row["breaker"] == row["hbm_bytes"],
+          f"lazy build {what}: the breaker charged the bytes: {row}")
+    bytes_agree(row, f"lazy build {what}")
+    return row
+
+
+def lru_prediction(order, capacity):
+    """(admissions, evictions) of an LRU of ``capacity`` over ``order``."""
+    from collections import OrderedDict
+    lru = OrderedDict()
+    adm = ev = 0
+    for name in order:
+        if name in lru:
+            lru.move_to_end(name)
+            continue
+        adm += 1
+        if len(lru) == capacity:
+            lru.popitem(last=False)
+            ev += 1
+        lru[name] = True
+    return adm, ev
+
+
+def front_pin_check(node, queries, k, evicted):
+    """The C++ front's registration must not pin an evicted segment: the
+    started node registers its front index, plan bodies on indices that
+    are not resident evict it, and its memory returns to the card with
+    the front unregistered; the drain's refresh does not admit it
+    again."""
+    cache, fp = node.device_cache, node.fastpath
+    node.start(0)
+    check(cache.wait_evictions_heard(timeout=60),
+          "the eviction listeners heard every eviction")
+    front = fp.front_registration()
+    check(front is not None, "the front registered an index")
+    f_name = front["segment"].name
+    stack_bytes = int(front["masks"].nbytes)
+    del front
+    resident = list(cache._devices())
+    others = [f"ev{i}" for i in range(4) if f"ev{i}" not in resident]
+    check(f_name in resident, f"{f_name} is resident: {resident}")
+    before = {name: d.hbm_bytes() for name, d in cache._devices().items()}
+    evicted.clear()
+    a0, r0 = device_bytes()
+    # the front's index is the most recently used: admit others until
+    # it goes
+    for name in others:
+        st, _ = node.rest_controller.dispatch(
+            "POST", f"/{name}/_search", {}, plan_body(queries[3], k))
+        check(st == 200, f"plan body on {name}")
+        if cache.resident(f_name) is None:
+            break
+    check(cache.wait_evictions_heard(timeout=60),
+          "the eviction listeners heard every eviction")
+    a1, r1 = device_bytes()
+    after = {name: d.hbm_bytes() for name, d in cache._devices().items()}
+    check(f_name in evicted and f_name not in after
+          and fp.front_registration() is None,
+          f"the front's {f_name} was evicted and unregistered: {evicted}")
+    gone = sum(before[name] for name in evicted)
+    came = sum(after[name] for name in after if name not in before)
+    drop = dict(front=f_name, evicted=list(evicted), evicted_bytes=gone,
+                admitted_bytes=came, mask_stack_bytes=stack_bytes,
+                requested_delta=r1 - r0, allocated_delta=a1 - a0)
+    check(abs((r1 - r0) - (came - gone - stack_bytes))
+          <= ALLOC_ROUND_B * 64,
+          f"the front's evicted segment returns its memory: {drop}")
+    adm0 = cache.churn_counters()[0]
+    node.refresh_front()
+    check(cache.churn_counters()[0] == adm0
+          and fp.front_registration() is None,
+          "the drain's refresh does not admit the evicted front index")
+    log(f"[accounting] the front's eviction frees: {drop}")
+    return drop
+
+
+def eviction_check(corpus, queries, k=100):
+    """A second node holding four indices of one segment each (the
+    phase-4 corpus, with the bench's ``cat`` column) under an hbm limit
+    of 2.5 segments: 32 plan bodies in a fixed order of indices equal
+    the CPU execution, and the segment admissions and breaker evictions
+    are those of an LRU of two; lazy builds on a resident segment add
+    the bytes they charge; a segment evicted while the fast path holds
+    a registration of it returns its memory; a third node whose limit
+    is below one segment answers 429 and still serves an index that
+    fits."""
+    import gc
+
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import (bench_cat,
+                                                segment_from_corpus,
+                                                term_name)
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops.device import DeviceSegment
+    from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
+    from elasticsearch_tpu_torch.search.queries import parse_query
+    from elasticsearch_tpu_torch.search.searcher import ShardSearcher
+    n = len(corpus["lens"])
+    cat = dict(zip(("ords", "terms"), bench_cat(n)))
+    segs = [segment_from_corpus(corpus, name=f"ev{i}",
+                                keywords={"cat": cat}) for i in range(4)]
+    one_dev = DeviceSegment(segs[0], "cuda")
+    one = one_dev.hbm_bytes()
+    del one_dev
+    gc.collect()
+    limit = int(2.5 * one)
+    out = dict(segment_bytes=one, limit=limit)
+    node = Node(device="cuda",
+                settings={"indices.breaker.hbm.limit": limit})
+    try:
+        for i, seg in enumerate(segs):
+            node.create_index(f"ev{i}", {"properties": {
+                "title": {"type": "text"}, "cat": {"type": "keyword"}}})
+            node.indices[f"ev{i}"].engine.install_segments([seg])
+        cache = node.device_cache
+        br = node.breaker_service.get_breaker("hbm")
+        evicted = []
+        cache.add_evict_listener(evicted.extend)
+        pattern = [0, 1, 0, 2, 3, 1, 0, 3, 3, 2, 1, 1, 0, 2, 2, 3]
+        order = [f"ev{pattern[i % len(pattern)]}" for i in range(32)]
+        bodies = [plan_body(queries[i], k) for i in range(32)]
+        adm0, ev0 = cache.churn_counters()
+        results = []
+        t0 = time.time()
+        for name, body in zip(order, bodies):
+            results.append(node.rest_controller.dispatch(
+                "POST", f"/{name}/_search", {}, body))
+            check(br.used <= limit and br.used == cache.hbm_stats()[
+                "total_bytes"], f"the breaker holds the residents: {br.used}")
+        out["plan_s"] = time.time() - t0
+        adm, ev = cache.churn_counters()
+        check(cache.wait_evictions_heard(timeout=60),
+              "the eviction listeners heard every eviction")
+        want = lru_prediction(order, 2)
+        out.update(admissions=adm - adm0, breaker_evictions=ev - ev0,
+                   predicted=dict(admissions=want[0], evictions=want[1]))
+        check((adm - adm0, ev - ev0) == want,
+              f"admissions and evictions {(adm - adm0, ev - ev0)} are the "
+              f"LRU's {want}")
+        check(len(evicted) == want[1], "every eviction reached the listener")
+        cpu = ShardSearcher([segs[0]], node.indices["ev0"].mapper,
+                            DeviceSegmentCache("cpu"))
+        t0 = time.time()
+        for i, (body, (st, r)) in enumerate(zip(bodies, results)):
+            check(st == 200, f"eviction plan body {i} -> {st} {r}")
+            res = cpu.query_phase(parse_query(body["query"]), k)
+            hits_match_cpu(r, res, [segs[0]], 0,
+                           f"eviction plan body {i} ({order[i]})")
+        log(f"[accounting] 32 plan bodies over 4 indices under 2.5 "
+            f"segments equal to the CPU ({time.time() - t0:.1f} s)")
+        # lazy builds on the most recently used resident
+        dev = cache.resident(order[-1])
+        t = int(queries[0][0])
+        out["lazy_builds"] = [
+            lazy_build(node, dev, lambda: dev.filter_mask(
+                "title", (term_name(t),)), "filter_mask"),
+            lazy_build(node, dev, lambda: dev.keyword_ord_major("cat"),
+                       "keyword_ord_major")]
+        del dev
+        # a registration of the fast path must not pin an evicted segment
+        resident = [name for name in cache._devices()]
+        a_name = next(f"ev{i}" for i in range(4)
+                      if f"ev{i}" not in resident)
+        others = [f"ev{i}" for i in range(4) if f"ev{i}" != a_name][:2]
+        fast = match_body(queries[1], 10)
+        st, r = node.rest_controller.dispatch("POST", f"/{a_name}/_search",
+                                              {}, fast)
+        check(st == 200 and a_name in node.fastpath._regs,
+              f"the fast path registered {a_name}: {st}")
+        reg = node.fastpath._regs[a_name]
+        stack_bytes = int(reg["masks"].nbytes)
+        del reg
+        before = {name: d.hbm_bytes()
+                  for name, d in cache._devices().items()}
+        evicted.clear()
+        a0, r0 = device_bytes()
+        for name in others:
+            st, _ = node.rest_controller.dispatch(
+                "POST", f"/{name}/_search", {}, plan_body(queries[2], k))
+            check(st == 200, f"plan body on {name}")
+        check(cache.wait_evictions_heard(timeout=60),
+              "the eviction listeners heard every eviction")
+        a1, r1 = device_bytes()
+        after = {name: d.hbm_bytes()
+                 for name, d in cache._devices().items()}
+        check(a_name in evicted and a_name not in after,
+              f"{a_name} was evicted: {evicted}")
+        gone = sum(before[name] for name in evicted)
+        came = sum(after[name] for name in after if name not in before)
+        drop = dict(evicted=list(evicted), evicted_bytes=gone,
+                    admitted_bytes=came, mask_stack_bytes=stack_bytes,
+                    requested_delta=r1 - r0, allocated_delta=a1 - a0)
+        out["pin_check"] = drop
+        check(abs((r1 - r0) - (came - gone - stack_bytes))
+              <= ALLOC_ROUND_B * 64,
+              f"an evicted segment's memory (its registration's included) "
+              f"returns to the card: {drop}")
+        log(f"[accounting] eviction frees: {drop}")
+        out["front_pin_check"] = front_pin_check(node, queries, k, evicted)
+    finally:
+        node.close()
+    del node, cache
+    # a limit below one segment: 429, and an index that fits still serves
+    node = Node(device="cuda",
+                settings={"indices.breaker.hbm.limit": one // 2})
+    try:
+        node.create_index("big", {"properties": {"title": {"type": "text"}}})
+        node.indices["big"].engine.install_segments([segs[0]])
+        node.create_index("small", {"properties": {"title":
+                                                   {"type": "text"}}})
+        lines = "".join(json.dumps({"index": {"_id": str(i)}}) + "\n"
+                        + json.dumps({"title": f"t{i:06d} small doc"})
+                        + "\n" for i in range(50))
+        st, r = node.rest_controller.dispatch("POST", "/small/_bulk",
+                                              {"refresh": "true"}, lines)
+        check(st == 200 and not r["errors"], "bulk into small")
+        a0, r0 = device_bytes()
+        st, r = node.rest_controller.dispatch(
+            "POST", "/big/_search", {}, plan_body(queries[0], k))
+        a1, r1 = device_bytes()
+        err = r.get("error", {})
+        check(st == 429 and err.get("type") == "circuit_breaking_exception"
+              and err.get("bytes_wanted") == one
+              and err.get("bytes_limit") == one // 2,
+              f"a limit below one segment answers 429 with bytes_wanted "
+              f"{one}: {st} {r}")
+        check(r1 - r0 <= ALLOC_ROUND_B * 64,
+              f"the refused segment left nothing on the card "
+              f"({r1 - r0} B requested, {a1 - a0} B allocated)")
+        st, r = node.rest_controller.dispatch(
+            "POST", "/small/_search", {}, {"query": {"match": {
+                "title": "small"}}})
+        check(st == 200 and r["hits"]["total"]["value"] == 50,
+              f"an index that fits still serves: {st}")
+        out["trip"] = dict(status=429, bytes_wanted=one,
+                           bytes_limit=one // 2, trips=node.breaker_service
+                           .get_breaker("hbm").trip_count,
+                           requested_after=r1 - r0,
+                           allocated_after=a1 - a0)
+    finally:
+        node.close()
+    return out
+
+
+def same_hits(a, b, what, rtol=1e-5):
+    """Two answers to one body: equal totals, scores within ``rtol``, and
+    equal ids up to the order of scores that tie within ``rtol`` (one of
+    them ranked in float64 on a fast lane, the other in float32)."""
+    check(a["hits"]["total"] == b["hits"]["total"], f"{what}: totals")
+    ha, hb = a["hits"]["hits"], b["hits"]["hits"]
+    check(len(ha) == len(hb), f"{what}: hit count")
+    sa = np.array([h["_score"] for h in ha], np.float64)
+    sb = np.array([h["_score"] for h in hb], np.float64)
+    check(np.allclose(sa, sb, rtol=rtol, atol=0), f"{what}: scores")
+    if len(sa):
+        kth = sa[-1]
+        firm = np.abs(sa - kth) > rtol * abs(kth)
+        check({h["_id"] for h, f in zip(ha, firm) if f}
+              == {h["_id"] for h, f in zip(hb, firm) if f},
+              f"{what}: the ids above the kth score's ties")
+
+
+def profile_tree_ok(shard, kernels, what):
+    q = shard["searches"][0]["query"][0]
+    bd = q["breakdown"]
+    check(bd["device_time_in_nanos"] + bd["host_time_in_nanos"]
+          == q["time_in_nanos"] > 0,
+          f"{what}: device + host nanos == time_in_nanos")
+    listed = {k["kernel"] for k in shard.get("device", {}).get("kernels",
+                                                              [])}
+    check(kernels <= listed, f"{what}: the profile lists {sorted(kernels)}"
+                             f" (got {sorted(listed)})")
+    return sorted(listed)
+
+
+def tracked_call_costs(node, seg, queries, reps=5, n=64):
+    """Host µs of one tracked call against the bare call at the v2m
+    cohort's shape (the contribution kernel and the merge), with and
+    without the node's flight recorder ambient; host µs of one flight
+    recorder event."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops.bm25_contrib import gather_bm25_contrib
+    from elasticsearch_tpu_torch.ops.merge import merge_sorted_slots
+    from elasticsearch_tpu_torch.search.fastpath import (N_SLOTS,
+                                                         NB_BUCKETS, Q_BATCH)
+    from elasticsearch_tpu_torch.telemetry import flightrecorder
+    fp = node.fastpath
+    reg = fp.register("bench", seg, "title", 1.2, 0.75)
+    cohort = [q for q in queries
+              if fp._v2_bucket(reg, q) is not None][:Q_BATCH]
+    sel, ws = fp.assemble_cohort(reg, NB_BUCKETS[-1], cohort)
+    dp = reg["dp"]
+    dev = fp.device
+    args = (dp.block_docids, dp.block_tfs, torch.from_numpy(sel).to(dev),
+            torch.from_numpy(ws).to(dev), dp.doc_lens, reg["masks"],
+            torch.zeros(Q_BATCH, dtype=torch.int32, device=dev),
+            float(dp.avg_len), 1.2, 0.75)
+    keys, _ = gather_bm25_contrib.__wrapped__(*args)
+    q, p = keys.shape
+    lane = torch.arange(p, dtype=torch.int32, device=dev).repeat(q, 1)
+    margs = (keys.reshape(q, N_SLOTS, p // N_SLOTS),
+             lane.view(q, N_SLOTS, p // N_SLOTS))
+
+    def host_us(fn, a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(*a)
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return host / n * 1e6
+
+    out = {}
+    for name, fn, a in (("gather_bm25_contrib", gather_bm25_contrib, args),
+                        ("merge_sorted_slots", merge_sorted_slots, margs)):
+        runs = {"bare": [], "tracked": [], "tracked_flight": []}
+        for _ in range(reps):
+            runs["bare"].append(host_us(fn.__wrapped__, a))
+            runs["tracked"].append(host_us(fn, a))
+            with flightrecorder.activate(node.flight):
+                runs["tracked_flight"].append(host_us(fn, a))
+            runs["bare"].append(host_us(fn.__wrapped__, a))
+        out[name] = {k: float(np.median(v)) for k, v in runs.items()}
+        out[name]["shape"] = [list(t.shape) for t in a
+                              if isinstance(t, torch.Tensor)]
+    fr = flightrecorder.FlightRecorder(node="cost")
+    m = 20000
+    t0 = time.perf_counter()
+    for _ in range(m):
+        fr.record_launch("k", "sel[32x4096]int32", dispatch_ns=1000,
+                         cohort=32, capacity=32)
+    out["flight_event_us"] = (time.perf_counter() - t0) / m * 1e6
+    return out
+
+
+def phase_accounting(node, port, corpus, queries, knn_dims, builds,
+                     counters, hbm_log):
+    """Device accounting and launch attribution on one H100 (module
+    docstring, phase 9)."""
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import bench_cat, term_name
+    from elasticsearch_tpu_torch.ops.device import READBACKS
+    from elasticsearch_tpu_torch.telemetry.engine import TRACKER
+    out = {}
+    # (a, b) eviction, pins and the 429 on nodes of their own; then every
+    # segment built on the card in the run: its allocated bytes are its
+    # hbm_bytes, within the allocator's rounding per tensor
+    out["eviction"] = eviction_check(corpus, queries)
+    hbm_agrees(node, "eviction nodes", hbm_log)
+    out["builds"] = builds
+    check(builds, "segments were built on the card")
+    for b in builds:
+        bytes_agree(b, f"the build of {b['name']}")
+    log(f"[accounting] {len(builds)} segment builds measured: {builds}")
+    # (c) attribution over the fast-path, plan, dense, kNN and aggs bodies
+    rng = np.random.default_rng(11)
+    qv = rng.standard_normal((4, knn_dims))
+    qv = np.round(qv / np.linalg.norm(qv, axis=1, keepdims=True), 4)
+
+    def names(q):
+        return " ".join(term_name(t) for t in q)
+    kinds = {
+        "fast": ("bench", [match_body(q, 100) for q in queries[:8]]),
+        "plan": ("bench", [plan_body(q, 100) for q in queries[8:16]]),
+        "dense": ("logs", [{"query": {"match": {"title": names(q)}},
+                            "sort": [{"bytes": "desc"}], "size": 20}
+                           for q in queries[16:24]]),
+        "knn": ("knn", [{"knn": {"field": "vec",
+                                 "query_vector": v.tolist(), "k": 100,
+                                 "num_candidates": 300},
+                         "size": 100, "_source": False} for v in qv]),
+        "aggs": ("hybrid", [{"query": {"match": {"title": names(q)}},
+                             "size": 0, "aggs": {"cats": {"terms": {
+                                 "field": "cat"}}}}
+                            for q in queries[24:28]]),
+    }
+    fp = node.fastpath
+    _, k0 = http(port, "GET", "/_kernels")
+    for c in counters.values():
+        c.launches = 0
+    fr0 = node.flight.aggregates()
+    calls0 = TRACKER.totals()["calls"]
+    rb0 = sum(READBACKS.values())
+    s0, t_dev0 = fp.stats["cohorts"], fp.timing["device_s"]
+    answers = {}
+    for kind, (index, bodies) in kinds.items():
+        res, _lat, _wall = drive(port, bodies, 4, index)
+        for i, (st, r) in enumerate(res):
+            check(st == 200, f"attribution {kind} body {i} -> {st} {r}")
+        answers[kind] = res
+    _, k1 = http(port, "GET", "/_kernels")
+    fr1 = node.flight.aggregates()
+    launches = {name: c.launches for name, c in counters.items()}
+    calls = {name: k1["kernels"].get(name, {}).get("calls", 0)
+             - k0["kernels"].get(name, {}).get("calls", 0)
+             for name in counters}
+    check(calls == launches and all(v > 0 for v in launches.values()),
+          f"/_kernels calls equal the launches counted at the kernels' "
+          f"launch sites: {calls} vs {launches}")
+    tracked = TRACKER.totals()["calls"] - calls0
+    reads = sum(READBACKS.values()) - rb0
+    ring = dict(launch_events=fr1["launches"] - fr0["launches"],
+                tracked_calls=tracked,
+                readback_events=fr1["readbacks"] - fr0["readbacks"],
+                funnel_readbacks=reads,
+                ring_events_new=len([
+                    e for e in node.flight.events(limit=1 << 20)
+                    if e["seq"] > fr0["ring"]["recorded_total"]]),
+                capacity=fr1["ring"]["capacity"])
+    check(ring["launch_events"] == tracked > 0
+          and ring["readback_events"] == reads > 0
+          and ring["ring_events_new"] == min(
+              ring["capacity"], ring["launch_events"]
+              + ring["readback_events"]),
+          f"one flight event per tracked call and per funnel readback: "
+          f"{ring}")
+    cohorts = fp.stats["cohorts"] - s0
+    out["attribution"] = dict(
+        launches=launches, kernels_calls=calls, ring=ring,
+        fast_cohorts=cohorts,
+        drain_launch_to_readback_ms=((fp.timing["device_s"] - t_dev0)
+                                     / max(1, cohorts) * 1e3))
+    log(f"[accounting] attribution: {out['attribution']}")
+    # profile: true on one body of each kind
+    expect = {"fast": {"plan_topk_batch"}, "plan": {"plan_topk_batch"},
+              "dense": {"bm25_dense_scores_sorted", "gather_bm25_contrib",
+                        "masked_topk"},
+              "knn": {"knn_nominate_batch"},
+              "aggs": {"terms_counts", "bm25_dense_scores_sorted",
+                       "gather_bm25_contrib"}}
+    prof = {}
+    for kind, (index, bodies) in kinds.items():
+        body = bodies[0]
+        _, plain = answers[kind][0]
+        st, r = http(port, "POST", f"/{index}/_search",
+                     {**body, "profile": True})
+        check(st == 200, f"profiled {kind} body -> {st} {r}")
+        shard = r.pop("profile")["shards"][0]
+        what = f"profile: true on the {kind} body"
+        if kind in ("fast", "plan"):
+            # the profiled fast body takes the plan path (float32), and
+            # a plan body's cohort differs from the plain one's
+            same_hits(r, plain, what, rtol=1e-5 if kind == "fast" else 1e-6)
+        elif kind == "aggs":
+            check(r["hits"] == plain["hits"], f"{what}: hits")
+            agg_equal(r["aggregations"], plain["aggregations"], what)
+        else:
+            check(r["hits"] == plain["hits"], f"{what}: the same hits")
+        prof[kind] = profile_tree_ok(shard, expect[kind], what)
+    out["profile_kernels"] = prof
+    # what it costs
+    seg = node.indices["bench"].engine.segments[0]
+    out["costs"] = tracked_call_costs(node, seg, queries)
+    log(f"[accounting] costs: {out['costs']}")
+    hbm_agrees(node, "accounting", hbm_log)
+    out["hbm_after_phases"] = hbm_log
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--docs", type=int, default=2_000_000)
@@ -3611,6 +4218,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     counters = {"gather_bm25_contrib": gather_bm25_contrib,
                 "merge_sorted_slots": merge_sorted_slots}
+    # every DeviceSegment built on the card measures itself (phase 9)
+    builds = measure_builds()
 
     # ---- 1. build
     t0 = time.time()
@@ -3635,7 +4244,14 @@ def main(argv=None) -> int:
         f" blocks, {len(queries)} queries in {time.time() - t0:.1f} s")
     filt_pool = np.nonzero(corpus["df"] > args.docs // 20)[0]
 
-    node = Node(device="cuda")
+    # the hbm breaker's limit, sized so every phase fits (the reference's
+    # default, the host total of 4 GiB, would refuse config 4's slab)
+    hbm_limit = int(0.75 * torch.cuda.mem_get_info()[1])
+    log(f"[accounting] indices.breaker.hbm.limit = {hbm_limit} B "
+        f"(0.75 of the card's {torch.cuda.mem_get_info()[1]} B)")
+    node = Node(device="cuda",
+                settings={"indices.breaker.hbm.limit": hbm_limit})
+    hbm_log = []
     try:
         node.create_index("bench", {"properties": {"title":
                                                    {"type": "text"}}})
@@ -3651,6 +4267,7 @@ def main(argv=None) -> int:
         kern = phase_kernels(node, seg, queries, args.iters)
         lane_cohorts = phase_lane_cohorts(node, seg, queries, filt_pool)
         ess_cohorts = phase_essential_cohorts(node, seg, queries)
+        hbm_agrees(node, "kernels", hbm_log)
 
         # ---- 3. REST, small: each fast lane, filters, the plan path
         with lane_launches(counters) as (small, _):
@@ -3662,6 +4279,7 @@ def main(argv=None) -> int:
         rest_small["launches_per_lane"] = small
         plan_small, plan_small_bodies = phase_plan_small(node, port,
                                                          args.seed + 2)
+        hbm_agrees(node, "rest small", hbm_log)
 
         # ---- 4. REST, at scale (the main path)
         fp = node.fastpath
@@ -3750,11 +4368,13 @@ def main(argv=None) -> int:
         prune = phase_plan_prune(node, port, args.clients,
                                  plan_small_bodies, misfit_bodies,
                                  bodies_logs, oracles_logs)
+        hbm_agrees(node, "scale", hbm_log)
 
         # ---- 5. the dense executor on the logs index
         dense = phase_dense(node, port, logs, cols, len(corpus["df"]),
                             queries, args.clients, args.seed + 6,
                             args.iters, counters)
+        hbm_agrees(node, "dense", hbm_log)
 
         # ---- 6. kNN: pure kNN (config 4) and hybrid rank.rrf (config 5)
         knn = phase_knn(node, port, args.knn_docs, args.knn_dims,
@@ -3764,19 +4384,28 @@ def main(argv=None) -> int:
         hybrid = phase_hybrid(node, port, corpus, queries, oracles,
                               args.hybrid_dims, args.seed + 8,
                               min(args.clients, 64), counters, feat, cpu)
+        hbm_agrees(node, "knn", hbm_log)
 
         # ---- 7. script scoring (config 3) on the hybrid index
         script = phase_script(node, port, corpus, queries, feat,
                               args.seed + 9, min(args.clients, 64),
                               counters, cpu)
+        hbm_agrees(node, "script", hbm_log)
 
         # ---- 8. aggregations: the bench's terms-agg row, a Kibana mix
         aggs = phase_aggs(node, port, corpus, queries, logs, cols,
                           min(args.clients, 64), counters, cpu)
+        hbm_agrees(node, "aggs", hbm_log)
+
+        # ---- 9. device accounting and launch attribution
+        accounting = phase_accounting(node, port, corpus, queries,
+                                      args.knn_dims, builds, counters,
+                                      hbm_log)
+        accounting["hbm_limit"] = hbm_limit
     finally:
         node.close()
 
-    # ---- 9. report
+    # ---- 10. report
     meta = {
         "gather_bm25_contrib": dict(
             source="elasticsearch_tpu_torch/csrc/bm25_contrib.cu",
@@ -3806,6 +4435,7 @@ def main(argv=None) -> int:
             launches_knn=hybrid["dense_bodies"]["launches"][name],
             launches_script=script["launches"][name],
             launches_aggs=aggs["launches"][name],
+            launches_accounting=accounting["attribution"]["launches"][name],
             dense_shape=(dense["contrib_dense_shape"]
                          if name == "gather_bm25_contrib" else None)))
     print(json.dumps({"scale": scale}))
@@ -3818,6 +4448,7 @@ def main(argv=None) -> int:
     print(json.dumps({"hybrid": hybrid}))
     print(json.dumps({"script": script}))
     print(json.dumps({"aggs": aggs}))
+    print(json.dumps({"accounting": accounting}))
     print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))

@@ -18,3 +18,26 @@ class ScriptException(ValueError):
 
     status = 400
     error_type = "script_exception"
+
+
+class SettingsException(ValueError):
+    """A setting whose value does not parse (a 400)."""
+
+    status = 400
+    error_type = "settings_exception"
+
+
+class CircuitBreakingException(Exception):
+    """An admission a breaker refuses: a 429 with the bytes it would
+    have held (``bytes_wanted``) and the breaker's limit
+    (``bytes_limit``), as the reference's (common/breaker/
+    CircuitBreaker.java). It never moves the work elsewhere."""
+
+    status = 429
+    error_type = "circuit_breaking_exception"
+
+    def __init__(self, message: str, bytes_wanted: int = 0,
+                 bytes_limit: int = 0):
+        super().__init__(message)
+        self.bytes_wanted = bytes_wanted
+        self.bytes_limit = bytes_limit

@@ -41,6 +41,13 @@ class MapperParsingException(ValueError):
     """A mapping or document this slice cannot take."""
 
 
+class StrictDynamicMappingException(MapperParsingException):
+    """A document with a field that a ``dynamic: strict`` mapping does
+    not map."""
+
+    error_type = "strict_dynamic_mapping_exception"
+
+
 # ---------------------------------------------------------------------------
 # Field types
 # ---------------------------------------------------------------------------
@@ -283,13 +290,20 @@ def _field_type(path: str, conf: Dict[str, Any]) -> MappedFieldType:
 
 
 class DocumentMapper:
-    """Field map of one index: dotted path -> MappedFieldType."""
+    """Field map of one index: dotted path -> MappedFieldType. The
+    mapping's ``dynamic`` decides what an unmapped field does: ``true``
+    (the default) maps it from its first value, ``false`` leaves it
+    unindexed (it stays in ``_source``), ``strict`` refuses the
+    document. A field's ``copy_to`` indexes its values into the target
+    fields too."""
 
     def __init__(self, mappings: Optional[Dict[str, Any]] = None):
         self.fields: Dict[str, MappedFieldType] = {}
         self.analyzer = StandardAnalyzer()
+        self.dynamic = "true"
         if mappings:
             self._add_properties("", mappings.get("properties", {}))
+            self.dynamic = str(mappings.get("dynamic", "true")).lower()
 
     def field_type(self, name: str) -> Optional[MappedFieldType]:
         return self.fields.get(name)
@@ -358,6 +372,12 @@ class DocumentMapper:
                     self._parse_object(f"{path}.", v, parsed)
                 continue
             if ft is None:
+                if self.dynamic == "strict":
+                    raise StrictDynamicMappingException(
+                        f"mapping set to strict, dynamic introduction of "
+                        f"[{path}] within [_doc] is not allowed")
+                if self.dynamic == "false":
+                    continue
                 sample = next((v for v in values if v is not None), None)
                 if sample is None:
                     continue
@@ -376,6 +396,13 @@ class DocumentMapper:
                 sft = self.fields.get(f"{ft.name}.{subname}")
                 if sft is not None:
                     self._index_values(sft, values, parsed)
+            copy_to = ft.params.get("copy_to")
+            if copy_to:
+                for target in ([copy_to] if isinstance(copy_to, str)
+                               else copy_to):
+                    tft = self.fields.get(target)
+                    if tft is not None and tft is not ft:
+                        self._index_values(tft, values, parsed)
             # dynamic text fields also index into their .keyword subfield
             kw_ft = self.fields.get(f"{ft.name}.keyword")
             if (kw_ft is not None and isinstance(ft, TextFieldType)

@@ -5,9 +5,21 @@ fast path (its v2m, v1 and θ-warm essential lanes) and the plan path
 with its PlanBatcher.
 
     node = Node(device=None)              # CUDA unless device="cpu"
+    node = Node(settings={"indices.breaker.hbm.limit": "40gb"})
     port = node.start(0)                  # returns the bound port
     ...
     node.close()
+
+``settings`` (flat dotted keys, nested objects, or both) sets the
+circuit breakers: ``indices.breaker.{total,request,fielddata,hbm}.limit``
+(utils/breaker.py ``build_breaker_service``). The ``hbm`` child accounts
+the device memory of the resident segments (search/context.py
+``DeviceSegmentCache``); its default is the reference's, the host total
+of 4 GiB, which a deployment holding more on the card must raise. The
+node's flight recorder (telemetry/flightrecorder.py) is ambient on every
+thread that serves: each REST dispatch (the HTTP front's fallback workers
+included, and the batchers' leaders inside them) and the fast path's
+drain thread.
 
 ``start`` serves through the C++ front (rest/native_http.py, built with
 ``g++`` at first use), which parses the hot ``_search`` bodies of the
@@ -20,17 +32,30 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable
+from typing import Any, Dict, Iterable, Optional
 
+from elasticsearch_tpu_torch.common.errors import CircuitBreakingException
 from elasticsearch_tpu_torch.device import DeviceLike, resolve_device
+from elasticsearch_tpu_torch.utils.breaker import (CircuitBreaker,
+                                                   build_breaker_service)
 from elasticsearch_tpu_torch.index.engine import Engine
 from elasticsearch_tpu_torch.index.mapper import DocumentMapper, TextFieldType
 from elasticsearch_tpu_torch.rest.api import RestController
 from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
-from elasticsearch_tpu_torch.search.fastpath import FastPathServer
+from elasticsearch_tpu_torch.search.fastpath import (FastPathServer,
+                                                     SliceUnsupported)
 from elasticsearch_tpu_torch.search.service import SearchService
+from elasticsearch_tpu_torch.telemetry.flightrecorder import FlightRecorder
 
-VERSION = "8.0.0-torch-slice6"
+VERSION = "8.0.0-torch-slice11"
+
+
+def _flatten(prefix: str, obj: Any, out: Dict[str, Any]) -> None:
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            _flatten(f"{prefix}.{k}" if prefix else str(k), v, out)
+    else:
+        out[prefix] = obj
 
 
 @dataclass
@@ -46,27 +71,53 @@ class Node:
     """Keeps its indices in memory: this slice has no translog and writes
     no segment files."""
 
-    def __init__(self, device: DeviceLike = None):
+    def __init__(self, device: DeviceLike = None,
+                 settings: Optional[Dict[str, Any]] = None):
         self.device = resolve_device(device)
+        self.node_id = "node-0"
+        self.settings: Dict[str, Any] = {}
+        _flatten("", settings or {}, self.settings)
+        self.breaker_service = build_breaker_service(self.settings.get)
+        self.flight = FlightRecorder(node=self.node_id)
         self.indices: Dict[str, IndexService] = {}
         self._indices_lock = threading.Lock()
         # one device copy of each segment, shared by both paths
         self.device_cache = DeviceSegmentCache(self.device)
-        self.fastpath = FastPathServer(self.device, self.device_cache)
+        self.device_cache.set_breaker(
+            self.breaker_service.get_breaker(CircuitBreaker.HBM))
+        self.fastpath = FastPathServer(self.device, self.device_cache,
+                                       flight=self.flight)
         self.search_service = SearchService(self.device_cache)
         self.rest_controller = RestController(self)
         self._http = None     # the NativeHttpFront, once started
         self._fastpath_started = False
+        # the segment the front's registration could not admit (it alone
+        # passes the hbm limit): not tried again until it changes
+        self._front_refused = None
 
     def info(self) -> Dict[str, Any]:
-        return {"name": "node-0", "cluster_name": "elasticsearch",
+        return {"name": self.node_id, "cluster_name": "elasticsearch",
                 "version": {"number": VERSION,
                             "build_flavor": "pytorch-cuda-port",
                             "device": str(self.device)},
                 "tagline": "You Know, for Search"}
 
     def create_index(self, name: str, mappings=None, settings=None):
+        """An index of one shard: ``number_of_shards`` (as
+        ``index.number_of_shards``, ``number_of_shards`` or nested under
+        ``index``) other than 1 is a typed 400 until the port keeps
+        several shards an index."""
         settings = settings or {}
+        nested = settings.get("index", {})
+        shards = settings.get("index.number_of_shards",
+                              settings.get("number_of_shards",
+                                           nested.get("number_of_shards", 1)
+                                           if isinstance(nested, dict)
+                                           else 1))
+        if str(shards).strip() != "1":
+            raise SliceUnsupported(
+                f"[number_of_shards] {shards}: an index of several shards is "
+                f"a later slice of the port (this one keeps one shard)")
         sim = (settings.get("index", settings).get("similarity", {})
                .get("default", {}))
         mapper = DocumentMapper(mappings)
@@ -86,6 +137,10 @@ class Node:
         names = list(names)
         self.fastpath.retire(names)
         self.device_cache.evict(names)
+
+    @property
+    def fastpath_running(self) -> bool:
+        return self._fastpath_started
 
     def serving_lane(self) -> FastPathServer:
         """The fast path, started on first use (dispatch works without
@@ -119,8 +174,9 @@ class Node:
         """Point the C++ front at the index it should serve fast: of the
         indices with one segment and exactly one text field in it, the
         one with the most documents (the first on a tie); none when
-        there is none. The fast path's drain calls it about once a
-        second and before each batch the front hands over."""
+        there is none, or when that segment alone passes the hbm limit.
+        The fast path's drain calls it about once a second and before
+        each batch the front hands over."""
         best = None
         for name, svc in list(self.indices.items()):
             segs = svc.engine.segments
@@ -136,7 +192,14 @@ class Node:
             self.fastpath.unregister_front()
             return
         svc, seg, field = best
-        self.fastpath.register_front(svc.name, seg, field, svc.k1, svc.b)
+        if seg is self._front_refused:
+            return
+        try:
+            self.fastpath.register_front(svc.name, seg, field, svc.k1, svc.b)
+        except CircuitBreakingException:
+            # the fallback workers serve the index, and answer its 429
+            self._front_refused = seg
+            self.fastpath.unregister_front()
 
     def http_stats(self) -> Dict[str, int]:
         """The C++ front's counters (requests, fast, fallback, open

@@ -32,6 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# sources compiled and libraries loaded by this process
+_counts = {"builds": 0, "loads": 0}
 
 
 def _nvcc() -> str:
@@ -94,9 +96,19 @@ def build_all() -> Dict[str, ctypes.CDLL]:
                 raise RuntimeError("CUDA kernel build failed:\n"
                                    + "\n".join(failed))
             (out / "build_seconds").write_text(f"{time.time() - t0:.3f}\n")
+            _counts["builds"] += len(pending)
         for src, so in todo:
             _libs[src.stem] = ctypes.CDLL(str(so))
+        _counts["loads"] += len(todo)
         return _libs
+
+
+def stats() -> Dict[str, object]:
+    """The build directory of the current sources, and the sources this
+    process compiled (``builds``) and the libraries it loaded
+    (``loads``): a load without a build found the libraries built."""
+    with _lock:
+        return {"path": str(build_dir()), **_counts}
 
 
 def library(name: str) -> ctypes.CDLL:

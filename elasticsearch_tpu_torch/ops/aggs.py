@@ -21,8 +21,9 @@ atomic adds in no fixed order, so sums, averages and sums of squares may
 differ from run to run in the last bits; counts, min and max are exact.
 
 Every readback goes through the funnel (ops/device.py ``readback``)
-under the reference's site names, and each collector counts its calls in
-``launches``, on whatever device its tensors live.
+under the reference's site names. Each collector is a ``tracked_kernel``
+(telemetry/engine.py) under the reference's kernel name:
+``TRACKER.calls`` counts its calls, on whatever device its tensors live.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.ops.device import readback
+from elasticsearch_tpu_torch.telemetry.engine import tracked_kernel
 
 # buckets beyond this cap stay on the host unique path (a scatter this
 # wide stops paying for the launch)
@@ -38,6 +40,7 @@ AGG_BUCKET_CAP = 8192
 _F32_BIG = float(np.finfo(np.float32).max)
 
 
+@tracked_kernel("terms_counts")
 def terms_counts_per_term(perm_docs: torch.Tensor, term_starts: np.ndarray,
                           mask: torch.Tensor) -> np.ndarray:
     """Per-term masked doc counts, int64 [n_terms] on the host:
@@ -51,13 +54,11 @@ def terms_counts_per_term(perm_docs: torch.Tensor, term_starts: np.ndarray,
     torch.cumsum(hits, 0, dtype=torch.int32, out=cum[1:])
     starts = torch.from_numpy(term_starts).to(mask.device)
     counts = cum[starts[1:]] - cum[starts[:-1]]
-    terms_counts_per_term.launches += 1
     return readback("ops.aggs.terms_counts", counts).astype(np.int64)
 
 
-terms_counts_per_term.launches = 0
 
-
+@tracked_kernel("agg_metric_stats")
 def masked_metric_stats(values: torch.Tensor, missing: torch.Tensor,
                         mask: torch.Tensor):
     """(count, sum, min, max, sum_sq) over the masked present values of
@@ -72,14 +73,11 @@ def masked_metric_stats(values: torch.Tensor, missing: torch.Tensor,
         torch.where(sel, values, _F32_BIG).amin().to(torch.float64),
         torch.where(sel, values, -_F32_BIG).amax().to(torch.float64),
         (v * v).sum().to(torch.float64)])
-    masked_metric_stats.launches += 1
     n, s, mn, mx, ss = readback("ops.aggs.metric_stats", stats).tolist()
     if n == 0:
         return 0, 0.0, None, None, 0.0
     return int(n), s, mn, mx, ss
 
-
-masked_metric_stats.launches = 0
 
 
 def pow2_buckets(nb: int) -> int:
@@ -99,6 +97,7 @@ def _check_cap(nb: int) -> None:
         raise ValueError(f"bucket count {nb} past AGG_BUCKET_CAP")
 
 
+@tracked_kernel("agg_bucket_counts", static_argnames=("nb",))
 def bucket_counts(bucket_ids: torch.Tensor, mask: torch.Tensor,
                   nb: int) -> np.ndarray:
     """Host int64 counts [nb] from one int32 scatter-add into ``nb + 1``
@@ -108,14 +107,12 @@ def bucket_counts(bucket_ids: torch.Tensor, mask: torch.Tensor,
     ids = torch.where(mask, bucket_ids, nb)
     counts = torch.zeros(nb + 1, dtype=torch.int32, device=mask.device)
     counts.index_add_(0, ids, torch.ones_like(ids))
-    bucket_counts.launches += 1
     return readback("ops.aggs.bucket_counts",
                     counts[:nb]).astype(np.int64)
 
 
-bucket_counts.launches = 0
 
-
+@tracked_kernel("agg_bucket_metrics", static_argnames=("nb",))
 def bucket_metric_columns(bucket_ids: torch.Tensor, mask: torch.Tensor,
                           values: torch.Tensor, missing: torch.Tensor,
                           nb: int):
@@ -142,9 +139,6 @@ def bucket_metric_columns(bucket_ids: torch.Tensor, mask: torch.Tensor,
     out = torch.stack([cnt[:nb].to(torch.float64), s[:nb].to(torch.float64),
                        mn[:nb].to(torch.float64), mx[:nb].to(torch.float64),
                        ss[:nb].to(torch.float64)])
-    bucket_metric_columns.launches += 1
     cnt, s, mn, mx, ss = readback("ops.aggs.bucket_metrics", out)
     return cnt.astype(np.int64), s, mn, mx, ss
 
-
-bucket_metric_columns.launches = 0

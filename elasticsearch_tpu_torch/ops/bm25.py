@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from elasticsearch_tpu_torch.telemetry.engine import tracked_kernel
+
 # padding docid: sorts after every real docid
 _SENTINEL = 0x7FFFFFFF
 
@@ -39,6 +41,7 @@ def bm25_contrib(sel_weights: torch.Tensor, tf: torch.Tensor,
                                                 0.0)
 
 
+@tracked_kernel("match_mask", static_argnames=("n_docs",))
 def match_mask(block_docids: torch.Tensor, block_tfs: torch.Tensor,
                sel_blocks: torch.Tensor, n_docs: int) -> torch.Tensor:
     """bool [n_docs]: docs appearing (tf > 0) in ANY selected block (the
@@ -53,6 +56,8 @@ def match_mask(block_docids: torch.Tensor, block_tfs: torch.Tensor,
     return mask[:n_docs]
 
 
+@tracked_kernel("match_count",
+                static_argnames=("n_clauses", "n_docs"))
 def match_count(block_docids: torch.Tensor, block_tfs: torch.Tensor,
                 sel_blocks: torch.Tensor, clause_ids: torch.Tensor,
                 n_clauses: int, n_docs: int) -> torch.Tensor:

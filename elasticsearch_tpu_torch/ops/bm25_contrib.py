@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from elasticsearch_tpu_torch.ops.bm25 import _SENTINEL, bm25_contrib
+from elasticsearch_tpu_torch.telemetry.engine import tracked_kernel
 
 _B = 128  # index/segment.py BLOCK_SIZE
 
@@ -81,6 +82,7 @@ def gather_bm25_contrib_plain(block_docids, block_tfs, sel_blocks,
     return keys.reshape(q, -1), contrib.reshape(q, -1)
 
 
+@tracked_kernel("gather_bm25_contrib")
 def gather_bm25_contrib(block_docids, block_tfs, sel_blocks, sel_weights,
                         doc_lens, masks, mask_ids, avg: float, k1: float,
                         b: float):

@@ -29,6 +29,16 @@ built on first use and kept for the life of the immutable segment.
 Dense vectors upload as one [n_docs_padded, dims] slab per field
 (``DeviceVectors``, bfloat16 by default; padding rows are zero and have
 no value), built in row chunks by ops/vector.py ``prepare_vectors``.
+
+Accounting: every device tensor a DeviceSegment holds belongs to exactly
+one of ``HBM_SLAB_CLASSES`` (``hbm_bytes_by_class``), and what it builds
+lazily (filter masks, the ord-major permutations, device tables derived
+from the postings, the dense-factor masks of cached bound plans) is
+charged through ``hbm_sink`` (search/context.py ``DeviceSegmentCache``)
+when it is built and released when it leaves, so the node's ``hbm``
+breaker holds what the card holds. The reference charges only filter
+masks that way: its breaker falls behind its own byte count once an
+ord-major permutation is built.
 """
 
 from __future__ import annotations
@@ -44,6 +54,8 @@ from elasticsearch_tpu_torch.device import DeviceLike, resolve_device
 from elasticsearch_tpu_torch.index.segment import BLOCK_SIZE, Segment
 from elasticsearch_tpu_torch.ops.plan import check_packed_id_limit
 from elasticsearch_tpu_torch.ops.vector import prepare_vectors
+from elasticsearch_tpu_torch.search import profile as _prof
+from elasticsearch_tpu_torch.telemetry import flightrecorder as _flight
 
 DOC_PAD = 1024
 MIN_BLOCK_BUCKET = 8
@@ -53,20 +65,58 @@ BOUND_PLANS_MAX = 128
 # of n_docs_padded bytes on the device and the same on the host
 FILTER_MASK_CACHE_MAX = 64
 
+# HBM slab classes: the accounting buckets of `GET /_nodes/stats`'s
+# engine section (the reference's). Every device tensor of a
+# DeviceSegment belongs to exactly one, so
+# `sum(hbm_bytes_by_class().values()) == hbm_bytes()` by construction.
+HBM_SLAB_CLASSES = ("postings", "norms", "live_mask", "vectors",
+                    "doc_values", "ordinals", "filter_masks")
+
 # device -> host copies per call site (see readback)
 READBACKS: Counter = Counter()
 _readback_lock = threading.Lock()
 
 
-def readback(site: str, *tensors: torch.Tensor):
+def readback(site: str, *tensors: torch.Tensor, profile: bool = True):
     """THE device-to-host funnel of the serving path: every transfer of
-    a kernel's output to host memory goes through here and counts under
-    its stable dotted ``site`` label in ``READBACKS``. Returns the numpy
-    array for one input, a tuple for several."""
+    a kernel's output to host memory goes through here, counts under its
+    stable dotted ``site`` label in ``READBACKS``, lands in the ambient
+    flight recorder (site, bytes, duration) and, with ``profile``, in an
+    active ``profile: true`` recorder's readback counters. A batcher's
+    cohort-wide readback passes ``profile=False``: its bytes ride each
+    entry's attribution record instead of the leader's request. Returns
+    the numpy array for one input, a tuple for several."""
+    fr = _flight.current()
+    prof_on = profile and _prof.recording()
+    t_prof = _prof.now_ns() if prof_on else 0
+    t_fr = fr.clock() if fr is not None else 0.0
     out = tuple(t.cpu().numpy() for t in tensors)
     with _readback_lock:
         READBACKS[site] += 1
+    if fr is not None:
+        fr.record_readback(site, sum(int(a.nbytes) for a in out),
+                           duration_ns=int((fr.clock() - t_fr) * 1e9))
+    if prof_on:
+        _prof.record_readback(t_prof, *out)
     return out[0] if len(out) == 1 else out
+
+
+def _tensors(obj):
+    """The torch tensors in ``obj`` (a tensor, or tuples, lists and dict
+    values of them; anything else holds none)."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (tuple, list)):
+        for v in obj:
+            yield from _tensors(v)
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensors(v)
+
+
+def tensor_bytes(obj) -> int:
+    """Bytes of the tensors in ``obj`` (see ``_tensors``)."""
+    return sum(int(t.nbytes) for t in _tensors(obj))
 
 
 def round_up(n: int, multiple: int) -> int:
@@ -104,7 +154,8 @@ def host_any_mask(pf, terms, nd: int) -> np.ndarray:
 class DevicePostings:
     """One field's postings on the device, with the reserved zero block."""
 
-    def __init__(self, pf, n_docs_padded: int, device: torch.device):
+    def __init__(self, pf, n_docs_padded: int, device: torch.device,
+                 account=None):
         tb = pf.block_docids.shape[0]
         docids = np.concatenate(
             [pf.block_docids, np.zeros((1, BLOCK_SIZE), np.int32)], axis=0)
@@ -126,15 +177,25 @@ class DevicePostings:
         self.host = pf
         self._derived: Dict[object, object] = {}
         self._derived_lock = threading.Lock()
+        # the owning DeviceSegment's ``_account`` (None: unaccounted)
+        self._account = account
+        self.derived_bytes = 0     # device bytes of the derived tables
 
     def derived(self, key, build):
         """``build()``, computed once per ``key`` and kept for the life
         of these postings: tables derived from the immutable postings
         (block bounds, the fast path's term bounds and hot-term table)
-        outlive a live-mask change, which keeps this object."""
+        outlive a live-mask change, which keeps this object. Device
+        tensors in the result are charged when it is built (a refused
+        charge raises and keeps nothing)."""
         with self._derived_lock:
             if key not in self._derived:
-                self._derived[key] = build()
+                value = build()
+                nbytes = tensor_bytes(value)
+                if nbytes and self._account is not None:
+                    self._account(nbytes, f"derived[{key}]")
+                self.derived_bytes += nbytes
+                self._derived[key] = value
             return self._derived[key]
 
     def select_blocks(self, term_ids, weights) -> Tuple[np.ndarray,
@@ -213,14 +274,24 @@ class DeviceSegment:
         # (query, k, allow_prune, live_version): LRU of at most
         # BOUND_PLANS_MAX; a pruned bind is never served to an exact ask
         self._bound_plans: "OrderedDict[tuple, object]" = OrderedDict()
+        # key -> the device bytes a cached bound plan holds of its own
+        self._bound_bytes: Dict[tuple, int] = {}
         self._bound_lock = threading.Lock()
-        # filter masks: key -> (device bool [n_docs_padded], host copy)
+        self.bound_plan_hits = 0
+        self.bound_plan_misses = 0
+        self.bound_plan_evictions = 0
+        # filter masks: key -> (device bool [n_docs_padded], host copy);
+        # re-entrant: a composed mask builds its parts under it
         self._filter_masks: "OrderedDict[tuple, Tuple[torch.Tensor, " \
             "np.ndarray]]" = OrderedDict()
-        self._mask_lock = threading.Lock()
+        self._mask_lock = threading.RLock()
         self.filter_mask_hits = 0
         self.filter_mask_misses = 0
         self.filter_mask_evictions = 0
+        # the accounting sink (search/context.py DeviceSegmentCache): it
+        # charges the lazy builds to the node's hbm breaker; None for a
+        # DeviceSegment outside a cache
+        self.hbm_sink = None
         # the plan path's pruning back-off (search/plan.py _prune_fields):
         # binds left to skip, and bound passes in a row that pruned
         # nothing
@@ -228,7 +299,8 @@ class DeviceSegment:
         self._prune_fail = 0
         self.update_live(segment.live)
         self.postings: Dict[str, DevicePostings] = {
-            f: DevicePostings(pf, self.n_docs_padded, self.device)
+            f: DevicePostings(pf, self.n_docs_padded, self.device,
+                              self._account)
             for f, pf in segment.postings.items()
         }
         # numeric doc values as dense device columns (range filters,
@@ -279,29 +351,54 @@ class DeviceSegment:
                 term_starts = np.searchsorted(
                     kv.all_ords[order],
                     np.arange(len(kv.terms) + 1)).astype(np.int64)
-                entry = (torch.from_numpy(
-                    pos_doc[order].astype(np.int32)).to(self.device),
-                    term_starts)
+                perm = pos_doc[order].astype(np.int32)
+                # charged before the upload: a refusal keeps nothing
+                self._account(int(perm.nbytes), f"ordinals[{field}]")
+                entry = (torch.from_numpy(perm).to(self.device),
+                         term_starts)
             self._kw_ord_major[field] = entry
             return entry
 
     def bound_plan(self, key: tuple, make):
-        """The cached bound plan under ``key``, else ``make()`` cached."""
+        """The cached bound plan under ``key``, else ``make()`` cached
+        (an LRU of BOUND_PLANS_MAX). A plan's dense-factor mask that no
+        other structure of the segment holds is charged while it is
+        cached."""
         with self._bound_lock:
             bp = self._bound_plans.get(key)
             if bp is not None:
+                self.bound_plan_hits += 1
                 self._bound_plans.move_to_end(key)
                 return bp
+            self.bound_plan_misses += 1
         bp = make()
+        mask = getattr(bp, "dense_mask", None)
+        nbytes = 0
+        if isinstance(mask, torch.Tensor) and \
+                mask.data_ptr() not in self._held_ptrs():
+            nbytes = int(mask.nbytes)
+        released = 0
         with self._bound_lock:
+            if key in self._bound_plans:     # a racer cached it first
+                return self._bound_plans[key]
+            if nbytes:
+                self._account(nbytes, "bound_plan")
             self._bound_plans[key] = bp
+            self._bound_bytes[key] = nbytes
             while len(self._bound_plans) > BOUND_PLANS_MAX:
-                self._bound_plans.popitem(last=False)
+                old, _ = self._bound_plans.popitem(last=False)
+                released += self._bound_bytes.pop(old)
+                self.bound_plan_evictions += 1
+        if released:
+            self._account(-released, "bound_plan")
         return bp
 
     def _cached_mask(self, key: tuple, make):
         """The (device, host) mask under ``key``, else ``make()`` -> host
-        mask, uploaded and cached (LRU of FILTER_MASK_CACHE_MAX)."""
+        mask, charged, uploaded and cached (LRU of
+        FILTER_MASK_CACHE_MAX). The charge comes before the upload: a
+        refused one (CircuitBreakingException) leaves nothing on the
+        device and nothing cached."""
         with self._mask_lock:
             hit = self._filter_masks.get(key)
             if hit is not None:
@@ -309,14 +406,15 @@ class DeviceSegment:
                 self._filter_masks.move_to_end(key)
                 return hit
             self.filter_mask_misses += 1
-        host = make()
-        entry = (torch.from_numpy(host).to(self.device), host)
-        with self._mask_lock:
+            host = make()
+            self._account(int(host.nbytes), "filter_mask")
+            entry = (torch.from_numpy(host).to(self.device), host)
             self._filter_masks[key] = entry
             while len(self._filter_masks) > FILTER_MASK_CACHE_MAX:
-                self._filter_masks.popitem(last=False)
+                _k, (evicted, _h) = self._filter_masks.popitem(last=False)
                 self.filter_mask_evictions += 1
-        return entry
+                self._account(-int(evicted.nbytes), "filter_mask")
+            return entry
 
     def filter_mask(self, field: str, terms):
         """Any-of ``terms`` presence mask of ``field``: (device bool
@@ -345,8 +443,91 @@ class DeviceSegment:
         return self._cached_mask(key, make)
 
     def update_live(self, live_host: np.ndarray) -> None:
-        """Upload a new live mask (a delete replaces the segment's mask;
-        the postings stay resident)."""
+        """Upload a new live mask (a delete replaces the segment's mask,
+        of the same size; the postings stay resident)."""
         live = np.zeros(self.n_docs_padded, bool)
         live[: self.n_docs] = live_host
         self.live = torch.from_numpy(live).to(self.device)
+
+    # ------------------------------------------------------- accounting
+    def _account(self, delta: int, label: str) -> None:
+        """Charge (``delta`` > 0) or release device bytes through the
+        owning cache's hbm breaker; a refused charge raises
+        CircuitBreakingException. No-op for a standalone segment."""
+        sink = self.hbm_sink
+        if sink is not None and delta:
+            sink.account_filter_mask(self, delta, label)
+
+    def _fixed_tensors(self):
+        """(class, tensor) of every tensor built with the segment."""
+        yield "live_mask", self.live
+        yield "live_mask", self.all_true
+        yield "live_mask", self.all_docs_row
+        for dp in self.postings.values():
+            yield "postings", dp.block_docids
+            yield "postings", dp.block_tfs
+            yield "norms", dp.doc_lens
+        for dv in self.vectors.values():
+            for t in (dv.vectors, dv.norms, dv.sq_norms, dv.has_value):
+                yield "vectors", t
+        for f, col in self.numerics.items():
+            yield "doc_values", col
+            yield "doc_values", self.numeric_missing[f]
+
+    def _held_ptrs(self) -> set:
+        """Data pointers of the tensors the segment holds outside its
+        bound plans (a dense-factor mask that is one of them is not the
+        plan's own)."""
+        ptrs = {t.data_ptr() for _c, t in self._fixed_tensors()}
+        with self._mask_lock:
+            ptrs.update(m.data_ptr() for m, _h in
+                        self._filter_masks.values())
+        return ptrs
+
+    def hbm_bytes_by_class(self) -> Dict[str, int]:
+        """Device-resident bytes per slab class (HBM_SLAB_CLASSES):
+        ``postings`` the block arrays and the device tables derived from
+        them; ``norms`` the per-doc field lengths; ``live_mask`` the
+        live mask and the real-doc masks beside it; ``vectors`` the
+        slabs with their norms and value masks; ``doc_values`` the
+        numeric columns and their missing masks; ``ordinals`` the lazy
+        keyword ord-major permutations; ``filter_masks`` the cached
+        filter columns and the cached bound plans' own dense-factor
+        masks (so eviction visibly returns bytes)."""
+        out = dict.fromkeys(HBM_SLAB_CLASSES, 0)
+        for cls, t in self._fixed_tensors():
+            out[cls] += int(t.nbytes)
+        for dp in self.postings.values():
+            out["postings"] += dp.derived_bytes
+        with self._kw_lock:
+            out["ordinals"] = sum(int(e[0].nbytes) for e in
+                                  self._kw_ord_major.values()
+                                  if e is not None)
+        with self._mask_lock:
+            out["filter_masks"] = sum(int(m.nbytes) for m, _h in
+                                      self._filter_masks.values())
+        with self._bound_lock:
+            out["filter_masks"] += sum(self._bound_bytes.values())
+        return out
+
+    def hbm_bytes(self) -> int:
+        """Total device-resident bytes: BY CONSTRUCTION the sum of
+        ``hbm_bytes_by_class()``."""
+        return sum(self.hbm_bytes_by_class().values())
+
+    def cache_stats(self) -> Dict[str, Dict[str, int]]:
+        """Per-segment device-cache counters (the reference's filter-mask
+        and bound-plan caches)."""
+        with self._mask_lock:
+            fm = {"hits": self.filter_mask_hits,
+                  "misses": self.filter_mask_misses,
+                  "evictions": self.filter_mask_evictions,
+                  "entries": len(self._filter_masks),
+                  "bytes": sum(int(m.nbytes) for m, _h in
+                               self._filter_masks.values())}
+        with self._bound_lock:
+            bp = {"hits": self.bound_plan_hits,
+                  "misses": self.bound_plan_misses,
+                  "evictions": self.bound_plan_evictions,
+                  "entries": len(self._bound_plans)}
+        return {"filter_mask": fm, "bound_plan": bp}

@@ -37,6 +37,7 @@ from elasticsearch_tpu_torch.ops.bm25_contrib import gather_bm25_contrib
 from elasticsearch_tpu_torch.ops.merge import merge_sorted_slots
 from elasticsearch_tpu_torch.ops.plan import check_packed_id_limit
 from elasticsearch_tpu_torch.ops.topk import stable_topk
+from elasticsearch_tpu_torch.telemetry.engine import tracked_kernel
 
 # mask-stack height: every cohort launch carries F dense bool rows
 # (row 0 = the live mask; rows 1.. = filter-set columns,
@@ -65,6 +66,8 @@ def _run_last_candidates(mk: torch.Tensor, x: torch.Tensor):
     return torch.where(real_last, x, float("-inf")), totals
 
 
+@tracked_kernel("bm25_topk_total_merge_batch",
+                static_argnames=("n_slots", "k", "score_dtype"))
 def bm25_topk_total_merge_batch(
         block_docids,   # int32 [TB, B]
         block_tfs,      # float32 [TB, B]
@@ -110,6 +113,8 @@ def _pack(vals, ids, totals, *extra):
                      dim=1)
 
 
+@tracked_kernel("bm25_topk_total_batch",
+                static_argnames=("k", "score_dtype"))
 def bm25_topk_total_batch(
         block_docids,   # int32 [TB, B]
         block_tfs,      # float32 [TB, B]
@@ -285,6 +290,8 @@ def _patch(ess, ptf, ne_idf, cnorm):
     return patched
 
 
+@tracked_kernel("bm25_essential_topk_batch",
+                static_argnames=("k", "score_dtype"))
 def bm25_essential_topk_batch(
         block_docids,   # int32 [TB, B]
         block_tfs,      # float32 [TB, B]
@@ -316,6 +323,8 @@ def bm25_essential_topk_batch(
     return _essential_epilogue(patched, cand_ids, overflow, k)
 
 
+@tracked_kernel("bm25_essential_dense_topk_batch",
+                static_argnames=("k", "score_dtype"))
 def bm25_essential_dense_topk_batch(
         block_docids,   # int32 [TB, B]
         block_tfs,      # float32 [TB, B]
@@ -350,6 +359,8 @@ def bm25_essential_dense_topk_batch(
     return _essential_epilogue(patched, cand_ids, overflow, k)
 
 
+@tracked_kernel("bm25_candidates_rerank_batch",
+                static_argnames=("n_slots", "k", "score_dtype"))
 def bm25_candidates_rerank_batch(
         block_docids,   # int32 [TB, B]
         block_tfs,      # float32 [TB, B]

@@ -18,6 +18,8 @@ import ctypes
 
 import torch
 
+from elasticsearch_tpu_torch.telemetry.engine import tracked_kernel
+
 
 def merge_sorted_slots_plain(keys: torch.Tensor, vals: torch.Tensor):
     """The plain PyTorch twin: stable sort by key, payload carried."""
@@ -31,6 +33,7 @@ def _is_pow2(n: int) -> bool:
     return n > 0 and (n & (n - 1)) == 0
 
 
+@tracked_kernel("merge_sorted_slots")
 def merge_sorted_slots(keys: torch.Tensor, vals: torch.Tensor):
     """Merge [Q, n_slots, L] per-slot ascending runs -> ([Q, P], [Q, P])
     ascending by (key, payload). ``n_slots`` and ``L`` are powers of two;

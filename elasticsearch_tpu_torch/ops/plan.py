@@ -59,6 +59,7 @@ from elasticsearch_tpu_torch.ops.bm25 import (_SENTINEL, bm25_contrib,
                                               doubling_scan, scan_run_bound)
 from elasticsearch_tpu_torch.ops.bm25_contrib import gather_bm25_contrib
 from elasticsearch_tpu_torch.ops.topk import stable_topk
+from elasticsearch_tpu_torch.telemetry.engine import tracked_kernel
 
 MUST = 0
 SHOULD = 1
@@ -234,6 +235,8 @@ def unpack_result(buf: np.ndarray, k: int):
     return buf[:k], unpack_ids(buf[k:2 * k]), int(buf[2 * k])
 
 
+@tracked_kernel("plan_topk_batch",
+                static_argnames=("k", "combine", "max_run"))
 def plan_topk_batch(streams, group_kind, group_req, group_const, live,
                     n_must, n_filter, msm, bonus, tie,
                     k1: float = 1.2, b: float = 0.75, k: int = 10,
@@ -274,6 +277,8 @@ def plan_topk_batch(streams, group_kind, group_req, group_const, live,
         script_fn))
 
 
+@tracked_kernel("plan_topk",
+                static_argnames=("k", "combine", "packed", "max_run"))
 def plan_topk(streams, group_kind, group_req, group_const, live,
               n_must: int, n_filter: int, msm: int,
               bonus: float = 0.0, tie: float = 0.0,
@@ -318,6 +323,7 @@ def _run_last_scatter_indices(dkey: torch.Tensor, is_last: torch.Tensor,
                        nd).to(torch.int64)
 
 
+@tracked_kernel("bm25_dense_scores_sorted", static_argnames=("max_run",))
 def bm25_dense_scores_sorted(block_docids, block_tfs, sel_blocks,
                              sel_weights, doc_lens, avg_len: float,
                              k1: float, b: float, max_run: int = 32,

@@ -14,8 +14,10 @@ import torch
 import torch.nn.functional as F
 
 from elasticsearch_tpu_torch.ops.bm25 import _SENTINEL
+from elasticsearch_tpu_torch.telemetry.engine import tracked_kernel
 
 
+@tracked_kernel("stable_topk", static_argnames=("k", "bound_slot"))
 def stable_topk(cand: torch.Tensor, keys: torch.Tensor, k: int,
                 bound_slot: bool = False):
     """Batched STABLE top-k of ``cand`` [Q, P]: among ties at the kth
@@ -53,6 +55,7 @@ def stable_topk(cand: torch.Tensor, keys: torch.Tensor, k: int,
     return vals, ids
 
 
+@tracked_kernel("masked_topk", static_argnames=("k",))
 def masked_topk(scores: torch.Tensor, mask: torch.Tensor, k: int):
     """Top-k of ``scores`` [ND] over the docs of ``mask`` [ND] only:
     (vals float32 [k], docids int32 [k]), value descending, and among

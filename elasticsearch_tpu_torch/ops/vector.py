@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.ops.topk import stable_topk
+from elasticsearch_tpu_torch.telemetry.engine import tracked_kernel
 
 # slab rows per chunk: of the host norms and the upload when the slab is
 # built, and of the float32 upcast when the product is upcast
@@ -114,12 +115,14 @@ def _product_f32(q: torch.Tensor, slab: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@tracked_kernel("dot_scores")
 def dot_scores(queries: torch.Tensor, vectors: torch.Tensor) -> torch.Tensor:
     """queries [Q, D] float32, vectors [ND, D] (bfloat16 or float32) ->
     [Q, ND] float32."""
     return _product_f32(queries.to(vectors.dtype), vectors)
 
 
+@tracked_kernel("cosine_scores")
 def cosine_scores(queries: torch.Tensor,
                   unit_vectors: torch.Tensor) -> torch.Tensor:
     """Cosine against the pre-normalized slab: the queries are
@@ -129,6 +132,7 @@ def cosine_scores(queries: torch.Tensor,
     return dot_scores(q, unit_vectors)
 
 
+@tracked_kernel("l2_scores")
 def l2_scores(queries: torch.Tensor, vectors: torch.Tensor,
               doc_sq_norms: torch.Tensor) -> torch.Tensor:
     """Negated squared L2 distance (higher = closer) through the
@@ -139,6 +143,7 @@ def l2_scores(queries: torch.Tensor, vectors: torch.Tensor,
     return -(q_sq - 2.0 * dots + doc_sq_norms[None, :])
 
 
+@tracked_kernel("similarity_scores", static_argnames=("similarity",))
 def similarity_scores(queries: torch.Tensor, vectors: torch.Tensor,
                       sq_norms: torch.Tensor, similarity: str) \
         -> torch.Tensor:
@@ -169,6 +174,8 @@ def exact_rerank_scores(cand: np.ndarray, q32: np.ndarray,
     return (1.0 / (1.0 + d2)).astype(np.float32)
 
 
+@tracked_kernel("knn_nominate_batch",
+                static_argnames=("similarity", "cut"))
 def knn_nominate_batch(queries: torch.Tensor, vectors: torch.Tensor,
                        sq_norms: torch.Tensor, has_value: torch.Tensor,
                        live: torch.Tensor, similarity: str,

@@ -7,6 +7,16 @@ elasticsearch_tpu/rest/api.py, reduced to the slice's routes):
     POST /{index}/_refresh
     POST /{index}/_forcemerge
     POST|GET /{index}/_search     {"query": ..., "size": k, "from": n, ...}
+    GET  /_kernels                the launch tracker's table
+    GET  /_nodes/stats            breakers, engine, flight recorder
+    GET  /_flight_recorder        the launch/readback ring, filtered
+
+`_search` takes the URL parameters ``q``, ``from``, ``size``,
+``request_cache`` and ``allow_partial_search_results`` (merged into the
+body as the reference merges them); any other is a typed 400. A device
+admission the ``hbm`` breaker refuses answers 429
+``circuit_breaking_exception`` with ``bytes_wanted`` and
+``bytes_limit``.
 
 `_search` answers an exact top-k and an exact total (relation "eq"),
 unless the body's ``track_total_hits`` is false or a threshold (the plan
@@ -58,17 +68,61 @@ import re
 import time
 from typing import Any, Optional, Tuple
 
-from elasticsearch_tpu_torch.common.errors import (IllegalArgumentException,
-                                                  ScriptException)
+from elasticsearch_tpu_torch.common.errors import (CircuitBreakingException,
+                                                  IllegalArgumentException,
+                                                  ScriptException,
+                                                  SettingsException)
 from elasticsearch_tpu_torch.index.mapper import (MapperParsingException,
                                                   TextFieldType)
 from elasticsearch_tpu_torch.search.fastpath import (MAX_FILTERS,
                                                      SliceUnsupported)
 from elasticsearch_tpu_torch.search.queries import ParsingException
+from elasticsearch_tpu_torch.telemetry import engine as _engine
+from elasticsearch_tpu_torch.telemetry import flightrecorder as _flight
 
 logger = logging.getLogger("elasticsearch_tpu_torch.rest")
 
 _INDEX_NAME = re.compile(r"^[a-z0-9][a-z0-9_.\-]*$")
+
+
+# the `_search` URL parameters this slice serves (``_merge_search_params``)
+_SEARCH_PARAMS = ("q", "from", "size", "request_cache",
+                  "allow_partial_search_results")
+
+
+def _merge_search_params(body, params: dict) -> dict:
+    """The body with the URL parameters of `_search` merged in, as the
+    reference's ``_merge_search_params``: ``q`` becomes a ``match``
+    (``field:value``) or a ``multi_match`` over every field when the
+    body has no query; URL ``from``/``size`` override the body's;
+    ``request_cache`` and ``allow_partial_search_results`` must be
+    ``true`` or ``false`` and then go into the body (where the body keys
+    the slice serves decide). Any other parameter (``scroll``,
+    ``timeout``, ...) is a later slice: a typed 400."""
+    extra = sorted(set(params) - set(_SEARCH_PARAMS))
+    if extra:
+        raise SliceUnsupported(
+            f"_search URL parameters {extra} are a later slice of the port "
+            f"(this one takes {list(_SEARCH_PARAMS)})")
+    body = dict(body or {})
+    if "q" in params and "query" not in body:
+        q = params["q"]
+        if ":" in q:
+            field, _, value = q.partition(":")
+            body["query"] = {"match": {field: value}}
+        else:
+            body["query"] = {"multi_match": {"query": q, "fields": ["*"]}}
+    for key in ("from", "size"):
+        if key in params:
+            body[key] = int(params[key])
+    for key in ("request_cache", "allow_partial_search_results"):
+        if key in params:
+            if params[key] not in ("true", "false"):
+                raise IllegalArgumentException(
+                    f"Failed to parse value [{params[key]}] as only [true] "
+                    f"or [false] are allowed.")
+            body[key] = params[key] == "true"
+    return body
 
 
 def _error(status: int, etype: str, reason: str, **extra):
@@ -85,32 +139,108 @@ class RestController:
         params = params or {}
         parts = [p for p in path.split("/") if p]
         try:
-            if not parts:
-                if method in ("GET", "HEAD"):
-                    return 200, self.node.info()
-            elif len(parts) == 1 and not parts[0].startswith("_"):
-                if method == "PUT":
-                    return self._create_index(parts[0], body)
-            elif len(parts) == 2 and not parts[0].startswith("_"):
-                index, action = parts
-                if action == "_bulk" and method in ("POST", "PUT"):
-                    return self._bulk(index, params, body)
-                if action == "_refresh" and method in ("POST", "GET"):
-                    return self._refresh(index)
-                if action == "_forcemerge" and method == "POST":
-                    return self._forcemerge(index, params)
-                if action == "_search" and method in ("POST", "GET"):
-                    return self._search(index, params, body)
-            return _error(400, "unsupported_in_slice_exception",
-                          f"{method} {path} is not a route of this slice of "
-                          f"the port")
+            # every launch and readback under this request lands in the
+            # node's flight recorder
+            with _flight.activate(self.node.flight):
+                return self._route(method, path, parts, params, body)
+        except CircuitBreakingException as e:
+            return _error(429, e.error_type, str(e),
+                          bytes_wanted=e.bytes_wanted,
+                          bytes_limit=e.bytes_limit)
         except (SliceUnsupported, MapperParsingException, ParsingException,
-                IllegalArgumentException, ScriptException) as e:
+                IllegalArgumentException, ScriptException,
+                SettingsException) as e:
             etype = getattr(e, "error_type", "mapper_parsing_exception")
             return _error(400, etype, str(e))
         except Exception as e:  # the boundary: report, keep serving
             logger.exception("request failed: %s %s", method, path)
             return _error(500, "exception", f"{type(e).__name__}: {e}")
+
+    def _route(self, method: str, path: str, parts, params: dict, body):
+        if not parts:
+            if method in ("GET", "HEAD"):
+                return 200, self.node.info()
+        elif method == "GET" and parts == ["_kernels"]:
+            return self._kernels()
+        elif method == "GET" and parts == ["_nodes", "stats"]:
+            return self._nodes_stats()
+        elif method == "GET" and parts == ["_flight_recorder"]:
+            return self._flight_recorder(params)
+        elif len(parts) == 1 and not parts[0].startswith("_"):
+            if method == "PUT":
+                return self._create_index(parts[0], body)
+        elif len(parts) == 2 and not parts[0].startswith("_"):
+            index, action = parts
+            if action == "_bulk" and method in ("POST", "PUT"):
+                return self._bulk(index, params, body)
+            if action == "_refresh" and method in ("POST", "GET"):
+                return self._refresh(index)
+            if action == "_forcemerge" and method == "POST":
+                return self._forcemerge(index, params)
+            if action == "_search" and method in ("POST", "GET"):
+                return self._search(index, params, body)
+        return _error(400, "unsupported_in_slice_exception",
+                      f"{method} {path} is not a route of this slice of "
+                      f"the port")
+
+    # ----------------------------------------------------- observability
+    def _kernels(self):
+        """GET /_kernels: the launch tracker's table (telemetry/engine.py:
+        per kernel, calls, shapes seen, first calls and their ms, the
+        last new key's trigger), its totals, the kernel build directory
+        (``persistent_cache``), and the fast path's dispatch counts when
+        it runs."""
+        out = {"kernels": _engine.TRACKER.to_dict(),
+               "totals": _engine.TRACKER.totals(),
+               "persistent_cache": _engine.TRACKER.persistent_stats()}
+        if self.node.fastpath_running:
+            out["serving"] = self.node.fastpath.serving_stats()
+        return 200, out
+
+    def _engine_section(self):
+        cache = self.node.device_cache
+        out = {"compile": _engine.TRACKER.totals(), **cache.engine_stats()}
+        if self.node.fastpath_running:
+            out["caches"]["theta"] = self.node.fastpath.engine_cache_stats()
+        return out
+
+    def _nodes_stats(self):
+        """GET /_nodes/stats: this node's ``breakers``, its ``engine``
+        section (the launch tracker's totals; the device bytes by slab
+        class, with the peak, admissions and breaker evictions; the
+        device caches' counters, and the fast path's θ cache when it
+        runs) and ``telemetry.flight_recorder`` (the ring's aggregates).
+        The reference's other sections (indices, thread_pool, tasks,
+        recoveries, the metrics registry) come with the port's host-side
+        services."""
+        return 200, {
+            "cluster_name": "elasticsearch",
+            "nodes": {self.node.node_id: {
+                "name": self.node.node_id,
+                "breakers": self.node.breaker_service.stats(),
+                "engine": self._engine_section(),
+                "telemetry": {
+                    "flight_recorder": self.node.flight.aggregates()},
+            }},
+        }
+
+    def _flight_recorder(self, params: dict):
+        """GET /_flight_recorder: the node's flight ring, newest first
+        (kernel launches with their shape, cohort fill, queue wait and
+        dispatch nanos; readbacks with their site and bytes). Filters:
+        ``kind=launch|readback``, ``kernel=``, ``site=``, ``trace_id=``,
+        ``since_ns=``; ``size``/``from`` page. ``aggregates`` rides
+        along."""
+        fl = self.node.flight
+        events = fl.events(
+            kind=params.get("kind"), kernel=params.get("kernel"),
+            site=params.get("site"), trace_id=params.get("trace_id"),
+            since_ns=(int(params["since_ns"])
+                      if params.get("since_ns") else None),
+            limit=int(params.get("size", 256)),
+            offset=int(params.get("from", 0)))
+        return 200, {"node": self.node.node_id, "events": events,
+                     "aggregates": fl.aggregates()}
 
     # ------------------------------------------------------------- indices
     def _index_or_404(self, index: str):
@@ -288,10 +418,7 @@ class RestController:
         if err:
             return err
         t0 = time.time()
-        body = dict(body or {})
-        for key in ("size", "from"):
-            if key in params and key not in body:
-                body[key] = int(params[key])
+        body = _merge_search_params(body, params)
         size = int(body.get("size", 10))
         route = self._fast_body(svc, body)
         if route is not None:

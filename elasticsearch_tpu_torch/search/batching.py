@@ -15,6 +15,13 @@ with the launch latency, plus an explicit wait (a fraction of the
 measured round trip when the device is slow, else a short flush window)
 taken only when other requests are pending: a query that arrives alone
 runs alone with no added wait.
+
+Attribution: a leader launches under the flight recorder's cohort
+annotation (``annotate_launch``: the cohort, its Q bucket and the queue
+wait of its oldest member), and the cohort's one packed readback goes
+through the funnel with ``profile=False``. An entry whose request runs
+``profile: true`` gets its own device record (kernel, buckets, cohort,
+batcher wait, padding, readback bytes) when its cohort is back.
 """
 
 from __future__ import annotations
@@ -29,8 +36,10 @@ import torch
 from elasticsearch_tpu_torch.ops import plan as plan_ops
 from elasticsearch_tpu_torch.ops import vector as vec_ops
 from elasticsearch_tpu_torch.ops.device import readback
+from elasticsearch_tpu_torch.search import profile as _prof
 from elasticsearch_tpu_torch.search.plan import (BoundPlan, empty_result,
                                                  execute_bound)
+from elasticsearch_tpu_torch.telemetry import flightrecorder as _flight
 
 _Q_BUCKETS = (1, 2, 4, 8, 16, 32)
 MAX_BATCH = _Q_BUCKETS[-1]
@@ -72,13 +81,69 @@ def _nb_tier(n: int) -> int:
 
 
 class _Entry:
-    __slots__ = ("bp", "event", "result", "error")
+    __slots__ = ("bp", "event", "result", "error", "profiled", "t_enq",
+                 "t_fr", "meta")
 
     def __init__(self, bp: BoundPlan):
         self.bp = bp
         self.event = threading.Event()
         self.result = None
         self.error: Optional[BaseException] = None
+        _stamp(self)
+
+
+def _stamp(entry) -> None:
+    """An entry's enqueue stamps: on the profile clock when its request
+    is profiled (``meta`` is then filled by the launch), and on the
+    ambient flight recorder's clock (the cohort's queue wait)."""
+    entry.profiled = _prof.recording()
+    entry.t_enq = _prof.now_ns() if entry.profiled else 0
+    fr = _flight.current()
+    entry.t_fr = fr.clock() if fr is not None else 0.0
+    entry.meta = None
+
+
+def _queue_wait_ns(entries) -> int:
+    """The oldest entry's wait, on the ambient flight recorder's clock."""
+    fr = _flight.current()
+    enq = [e.t_fr for e in entries if e.t_fr]
+    return (int(max(0.0, fr.clock() - min(enq)) * 1e9)
+            if fr is not None and enq else 0)
+
+
+def execute_solo(bp: BoundPlan, ctx, k: int, k1: float, b: float,
+                 after_score: Optional[float] = None):
+    """``execute_bound``: one plan launched alone, with a cohort-of-one
+    attribution record when the request is profiled."""
+    rec_on = _prof.recording()
+    t_l = _prof.now_ns() if rec_on else 0
+    out = execute_bound(bp, ctx, k, k1, b, after_score)
+    if rec_on and not bp.empty:
+        _prof.record_device({
+            "kernel": "plan_topk", "cohort": 1, "q_bucket": 1,
+            "nb_bucket": max((int(st.sel_blocks.shape[0])
+                              for st in bp.streams), default=0),
+            "padding_waste_pct": 0.0, "batch_wait_ms": 0.0,
+            "launch_ms": round((_prof.now_ns() - t_l) / 1e6, 3)})
+    return out
+
+
+def _record_attribution(entry) -> None:
+    """Fold the cohort meta ``_run`` stamped on a profiled entry into its
+    request's recorder, with the batcher wait: the time from enqueue to
+    the cohort's return, less the launch. The request's readback
+    counters get its own row's bytes and the cohort readback's ms."""
+    meta = entry.meta
+    if meta is None:
+        return
+    total_ms = max(0.0, (_prof.now_ns() - entry.t_enq) / 1e6)
+    rec = dict(meta)
+    readback_ms = rec.pop("readback_ms")
+    rec["batch_wait_ms"] = round(
+        max(0.0, total_ms - float(rec.get("launch_ms", 0.0))), 3)
+    _prof.record_device(rec)
+    _prof.add("readback_bytes", rec["readback_bytes"])
+    _prof.add("readback_ms", readback_ms)
 
 
 class PlanBatcher:
@@ -139,7 +204,7 @@ class PlanBatcher:
         if bp.empty:
             return empty_result(k)
         if not self._eligible(bp, after_score):
-            return execute_bound(bp, ctx, k, k1, b, after_score)
+            return execute_solo(bp, ctx, k, k1, b, after_score)
         sig = self._signature(bp, ctx, k, k1, b)
         entry = _Entry(bp)
         with self._lock:
@@ -150,6 +215,8 @@ class PlanBatcher:
             entry.event.wait()
             if entry.error is not None:
                 raise entry.error
+            if entry.profiled:
+                _record_attribution(entry)
             return entry.result
         # leader: while other work is pending, hold the pop until this
         # signature fills a cohort or the window closes
@@ -186,6 +253,8 @@ class PlanBatcher:
                         e.error = exc
                         e.event.set()
                 raise
+        if entry.profiled:
+            _record_attribution(entry)
         return entry.result
 
     @staticmethod
@@ -276,10 +345,17 @@ class PlanBatcher:
         # the padding rows repeat the first member
         bps = [e.bp for e in batch] + [batch[0].bp] * (bucket - qn)
         args, kw = self.cohort_args(bps, ctx.live)
+        any_prof = any(e.profiled for e in batch)
+        t0p = _prof.now_ns() if any_prof else 0
         t0 = time.monotonic()
-        packed = plan_ops.plan_topk_batch(*args, k1=k1, b=b, k=k, **kw)
-        # ONE readback for the whole cohort (rows are packed buffers)
-        rows = readback("search.batching.plan_cohort", packed)
+        with _flight.annotate_launch(qn, bucket, _queue_wait_ns(batch)):
+            packed = plan_ops.plan_topk_batch(*args, k1=k1, b=b, k=k, **kw)
+        # ONE readback for the whole cohort (rows are packed buffers);
+        # its bytes ride each profiled entry's record
+        t_rb = _prof.now_ns() if any_prof else 0
+        rows = readback("search.batching.plan_cohort", packed,
+                        profile=False)
+        rb_ms = round((_prof.now_ns() - t_rb) / 1e6, 3) if any_prof else 0.0
         dt = time.monotonic() - t0
         with self._lock:
             if dt < 5.0:   # first launches (lazy set-up) are outliers
@@ -288,6 +364,29 @@ class PlanBatcher:
             self.launches += 1
             self.batched_queries += qn
             self.batch_hist[bucket] = self.batch_hist.get(bucket, 0) + 1
+        if any_prof:
+            launch_ms = round((_prof.now_ns() - t0p) / 1e6, 3)
+            widths = [int(st.sel_blocks.shape[1]) for st in args[0]]
+            row_slots = sum(widths)
+            for e in batch:
+                if not e.profiled:
+                    continue
+                # this plan's own slots of its tier-padded row (the Q
+                # bucket's pad rows show as q_bucket against cohort)
+                own = sum(int(st.sel_blocks.shape[0])
+                          for st in e.bp.streams)
+                e.meta = {
+                    "kernel": "plan_topk_batch", "cohort": qn,
+                    "q_bucket": bucket,
+                    "nb_bucket": max(widths) if widths else 0,
+                    "nb_selected": own,
+                    "padding_waste_pct": round(
+                        100.0 * (1.0 - own / row_slots), 1)
+                    if row_slots else 0.0,
+                    "launch_ms": launch_ms,
+                    "readback_bytes": int(rows[0].nbytes),
+                    "readback_ms": rb_ms,
+                }
         for i, e in enumerate(batch):
             e.result = plan_ops.unpack_result(rows[i], k)
             e.event.set()
@@ -327,7 +426,8 @@ def _cut_bucket(n: int) -> int:
 
 
 class _KnnEntry:
-    __slots__ = ("qvec", "cut", "event", "result", "error")
+    __slots__ = ("qvec", "cut", "event", "result", "error", "profiled",
+                 "t_enq", "t_fr", "meta")
 
     def __init__(self, qvec: np.ndarray, cut: int):
         self.qvec = qvec
@@ -335,6 +435,7 @@ class _KnnEntry:
         self.event = threading.Event()
         self.result = None
         self.error: Optional[BaseException] = None
+        _stamp(self)
 
 
 class KnnBatcher:
@@ -379,6 +480,8 @@ class KnnBatcher:
             entry.event.wait()
             if entry.error is not None:
                 raise entry.error
+            if entry.profiled:
+                _record_attribution(entry)
             return self._finish(entry, ctx, field)
         window = (min(0.75 * self._lat_ema, 1.5)
                   if self._lat_ema > 0.03 else ADAPTIVE_FLUSH_S)
@@ -411,6 +514,8 @@ class KnnBatcher:
                 raise
         if entry.error is not None:
             raise entry.error
+        if entry.profiled:
+            _record_attribution(entry)
         return self._finish(entry, ctx, field)
 
     def _run(self, batch: List[_KnnEntry], dv, live, cut: int):
@@ -424,13 +529,20 @@ class KnnBatcher:
             bucket = min(_q_bucket(qn), allowed)
             qs = np.stack([e.qvec for e in chunk]
                           + [chunk[0].qvec] * (bucket - qn))
+            any_prof = any(e.profiled for e in chunk)
+            t0p = _prof.now_ns() if any_prof else 0
             t0 = time.monotonic()
-            top_s, top_i = vec_ops.knn_nominate_batch(
-                torch.from_numpy(qs).to(dev), dv.vectors, dv.sq_norms,
-                dv.has_value, live, dv.similarity, cut)
+            with _flight.annotate_launch(qn, bucket, _queue_wait_ns(chunk)):
+                top_s, top_i = vec_ops.knn_nominate_batch(
+                    torch.from_numpy(qs).to(dev), dv.vectors, dv.sq_norms,
+                    dv.has_value, live, dv.similarity, cut)
             # ONE packed readback: ids as float casts (exact < 2^24)
-            rows = readback("search.batching.knn_cohort", torch.cat(
-                [top_s, top_i.to(torch.float32)], dim=1))
+            packed = torch.cat([top_s, top_i.to(torch.float32)], dim=1)
+            t_rb = _prof.now_ns() if any_prof else 0
+            rows = readback("search.batching.knn_cohort", packed,
+                            profile=False)
+            rb_ms = (round((_prof.now_ns() - t_rb) / 1e6, 3) if any_prof
+                     else 0.0)
             dt = time.monotonic() - t0
             with self._lock:
                 if dt < 5.0:
@@ -438,6 +550,21 @@ class KnnBatcher:
                                      else 0.8 * self._lat_ema + 0.2 * dt)
                 self.launches += 1
                 self.batched_queries += qn
+            if any_prof:
+                launch_ms = round((_prof.now_ns() - t0p) / 1e6, 3)
+                for e in chunk:
+                    if e.profiled:
+                        # the bucketed cut columns this entry did not need
+                        e.meta = {
+                            "kernel": "knn_nominate_batch", "cohort": qn,
+                            "q_bucket": bucket, "nb_bucket": cut,
+                            "padding_waste_pct": round(
+                                100.0 * (1.0 - min(e.cut, cut) / cut), 1)
+                            if cut else 0.0,
+                            "launch_ms": launch_ms,
+                            "readback_bytes": int(rows[0].nbytes),
+                            "readback_ms": rb_ms,
+                        }
             for i, e in enumerate(chunk):
                 e.result = (rows[i, :cut].copy(),
                             plan_ops.unpack_ids(rows[i, cut:]))

@@ -83,6 +83,7 @@ from elasticsearch_tpu_torch.ops.fastpath import (
 from elasticsearch_tpu_torch.ops.plan import build_term_impacts
 from elasticsearch_tpu_torch.ops.plan import unpack_ids as _unpack_ids
 from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
+from elasticsearch_tpu_torch.telemetry import flightrecorder as _flight
 
 logger = logging.getLogger("elasticsearch_tpu_torch.fastpath")
 
@@ -180,16 +181,21 @@ _LANES = {LANE_EMPTY: "empty", LANE_V2M: "v2m", LANE_V1: "v1"}
 
 
 class FastPathServer:
-    def __init__(self, device: DeviceLike, cache: DeviceSegmentCache):
+    def __init__(self, device: DeviceLike, cache: DeviceSegmentCache,
+                 flight=None):
         """``cache``: the DeviceSegmentCache to take resident segments
-        from (the node shares its own with the plan path)."""
+        from (the node shares its own with the plan path); ``flight``:
+        the node's flight recorder, ambient on the drain thread."""
         self.device = resolve_device(device)
         self.cache = cache
+        self.flight = flight
         self._queue: "queue.Queue[_Pending]" = queue.Queue()
         self._running = False
         self._drain_thread: Optional[threading.Thread] = None
-        self._reg_lock = threading.Lock()
+        self._reg_lock = threading.RLock()
         self._regs: Dict[str, dict] = {}
+        # runs on the cache's listener thread (never under our locks)
+        cache.add_evict_listener(self._drop_evicted)
         self._gen = 0
         # the C++ front (attach_front), the callback that keeps its
         # registration current, and the registration it holds.
@@ -202,6 +208,9 @@ class FastPathServer:
         self._refresh_front: Optional[Callable[[], None]] = None
         self._front_lock = threading.Lock()
         self._front_reg: Optional[dict] = None
+        # the segment of the front's registration the cache evicted: not
+        # registered again until a request re-admits it
+        self._front_evicted = None
         self.stats = {"cohorts": 0, "fast_queries": 0, "cohorts_v2m": 0,
                       "cohorts_v1": 0, "cohorts_ess": 0,
                       "cohorts_failed": 0,
@@ -398,7 +407,18 @@ class FastPathServer:
         segment ``names``; when the front holds one, unregister it there
         (the next fast request on that index registers afresh, and the
         next ``register_front`` registers it with the front again)."""
-        names = set(names)
+        self._drop(set(names), evicted=False)
+
+    def _drop_evicted(self, names) -> None:
+        """Segments the device cache evicted under its hbm breaker (the
+        cache's listener thread calls this): drop the registrations that
+        hold them, the front's too, so none pins an evicted segment's
+        memory. The front's index is not registered again until a
+        request through the fallback re-admits it (``register_front``):
+        the drain's refresh alone would re-admit it every second."""
+        self._drop(set(names), evicted=True)
+
+    def _drop(self, names, evicted: bool) -> None:
         with self._front_lock:
             with self._reg_lock:
                 for index, reg in list(self._regs.items()):
@@ -409,6 +429,8 @@ class FastPathServer:
                         and front_reg["segment"].name in names):
                     self._front_reg = None
                     self._front.unregister()
+                    if evicted:
+                        self._front_evicted = front_reg["segment"]
 
     def register_front(self, index: str, segment, field: str, k1: float,
                        b: float) -> None:
@@ -416,11 +438,17 @@ class FastPathServer:
         fast index: its registration (``register``) goes to C++ under the
         registration's generation, unless the front holds it already. A
         segment its engine retired meanwhile (``Segment.retired``; its
-        ``retire`` waits for this call) is not registered."""
+        ``retire`` waits for this call) is not registered, nor one the
+        device cache evicted from the front until it is resident again."""
         with self._front_lock:
             front = self._front
             if front is None or segment.retired:
                 return
+            if segment is self._front_evicted:
+                dev = self.cache.resident(segment.name)
+                if dev is None or dev.segment is not segment:
+                    return
+                self._front_evicted = None
             reg = self.register(index, segment, field, k1, b)
             if reg is self._front_reg:
                 return
@@ -616,6 +644,10 @@ class FastPathServer:
 
     # --------------------------------------------------------------- drain
     def _drain_loop(self):
+        with _flight.activate(self.flight):
+            self._drain()
+
+    def _drain(self):
         # drain deep: grouping by lane and bucket before chunking to
         # Q_BATCH fragments a shallow poll across the bucket ladder
         max_n = 8 * Q_BATCH
@@ -629,6 +661,9 @@ class FastPathServer:
                 except queue.Empty:
                     continue
                 self._serve(self._take_queued([first], max_n))
+                # an idle drain must not pin the last registration (and
+                # through it a segment the device cache evicts)
+                del first
                 continue
             if bufs is None:
                 bufs = PollBuffers(max_n)

@@ -50,12 +50,13 @@ from elasticsearch_tpu_torch.index.mapper import KeywordFieldType
 from elasticsearch_tpu_torch.index.segment import Segment
 from elasticsearch_tpu_torch.ops.device import readback
 from elasticsearch_tpu_torch.ops.topk import masked_topk
+from elasticsearch_tpu_torch.search import profile as _prof
+from elasticsearch_tpu_torch.search.batching import execute_solo
 from elasticsearch_tpu_torch.search.context import (DeviceSegmentCache,
                                                     SegmentContext,
                                                     ShardStats)
 from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
-from elasticsearch_tpu_torch.search.plan import (bind_plan, compile_plan,
-                                                 execute_bound)
+from elasticsearch_tpu_torch.search.plan import bind_plan, compile_plan
 from elasticsearch_tpu_torch.search.queries import parse_query
 
 MAX_TOPK = 10000
@@ -142,7 +143,8 @@ class ShardSearcher:
                      and (search_after is None or plan_after is not None)
                      and not collect_masks)
         if plannable:
-            plan = compile_plan(query, self, post_filter)
+            with _prof.span("compile"):
+                plan = compile_plan(query, self, post_filter)
             if plan is not None:
                 return self._plan_query_phase(plan, k, track_total_hits,
                                               plan_after, cache_key)
@@ -155,6 +157,7 @@ class ShardSearcher:
                           cache_key: Optional[str]) -> QueryResult:
         """Bind and launch a compiled LogicalPlan per segment; merge by
         (-score, segment, docid)."""
+        _prof.note("collector", "FusedPlanTopDocsCollector")
         allow_prune = track_total_hits is not True and after_score is None
         bkey_base = None
         if cache_key is not None:
@@ -170,19 +173,23 @@ class ShardSearcher:
         for seg_idx, ctx in enumerate(self._contexts()):
             if ctx.segment.n_docs == 0:
                 continue
+
+            def bind(ctx=ctx):
+                with _prof.span("bind"):
+                    return bind_plan(plan, ctx, k, allow_prune)
             if bkey_base is None:
-                bp = bind_plan(plan, ctx, k, allow_prune)
+                bp = bind()
             else:
                 bp = ctx.device.bound_plan(
-                    bkey_base + (ctx.segment.live_version,),
-                    lambda ctx=ctx: bind_plan(plan, ctx, k, allow_prune))
+                    bkey_base + (ctx.segment.live_version,), bind)
             lower_bound = lower_bound or bp.pruned
-            if self.batcher is not None:
-                vals, ids, seg_total = self.batcher.execute(
-                    bp, ctx, k, self.k1, self.b, after_score)
-            else:
-                vals, ids, seg_total = execute_bound(
-                    bp, ctx, k, self.k1, self.b, after_score)
+            with _prof.span("launch"):
+                if self.batcher is not None:
+                    vals, ids, seg_total = self.batcher.execute(
+                        bp, ctx, k, self.k1, self.b, after_score)
+                else:
+                    vals, ids, seg_total = execute_solo(
+                        bp, ctx, k, self.k1, self.b, after_score)
             if track_total_hits:
                 total += int(seg_total)
             keep = vals > -np.inf
@@ -190,15 +197,16 @@ class ShardSearcher:
                 per_segment.append((seg_idx, vals[keep], ids[keep]))
         if not per_segment:
             return QueryResult([], total, None, lower_bound)
-        all_vals = np.concatenate([v for _, v, _ in per_segment])
-        all_segs = np.concatenate(
-            [np.full(len(i), s, np.int32) for s, _, i in per_segment])
-        all_ids = np.concatenate([i for _, _, i in per_segment])
-        # one segment's rows are already (-score, docid)-ordered
-        order = np.lexsort((all_ids, all_segs, -all_vals))[:k]
-        docs = [DocAddress(int(all_segs[i]), int(all_ids[i]),
-                           float(all_vals[i]), (),
-                           sort_key=float(all_vals[i])) for i in order]
+        with _prof.span("merge"):
+            all_vals = np.concatenate([v for _, v, _ in per_segment])
+            all_segs = np.concatenate(
+                [np.full(len(i), s, np.int32) for s, _, i in per_segment])
+            all_ids = np.concatenate([i for _, _, i in per_segment])
+            # one segment's rows are already (-score, docid)-ordered
+            order = np.lexsort((all_ids, all_segs, -all_vals))[:k]
+            docs = [DocAddress(int(all_segs[i]), int(all_ids[i]),
+                               float(all_vals[i]), (),
+                               sort_key=float(all_vals[i])) for i in order]
         return QueryResult(docs, total, docs[0].score, lower_bound)
 
     def _dense_query_phase(self, query, k: int, post_filter, min_score,
@@ -219,7 +227,9 @@ class ShardSearcher:
                     agg_masks.append((ctx.segment,
                                       np.zeros(ctx.segment.n_docs, bool)))
                 continue
-            scores, mask = query.execute(ctx)
+            _prof.note("collector", "DenseColumnTopDocsCollector")
+            with _prof.span("score"):
+                scores, mask = query.execute(ctx)
             mask = mask & ctx.live
             if min_score is not None:
                 mask = mask & (scores >= float(min_score))
@@ -237,12 +247,16 @@ class ShardSearcher:
             if search_after is not None:
                 mask = mask & _search_after_mask(ctx, self.mapper, scores,
                                                  sort_spec, search_after)
-            vals, ids = masked_topk(key, mask, min(k, ctx.n_docs_padded))
-            # the winners' scores gathered here, so only k of them cross
-            win = scores[ids.clamp(max=ctx.n_docs_padded - 1).long()]
-            vals, ids, win, seg_total, seg_max = readback(
-                "search.searcher.dense_topk", vals, ids, win,
-                seg_total.reshape(1), seg_max.reshape(1))
+            with _prof.span("topk"):
+                vals, ids = masked_topk(key, mask,
+                                        min(k, ctx.n_docs_padded))
+                # the winners' scores gathered here, so only k of them
+                # cross
+                win = scores[ids.clamp(max=ctx.n_docs_padded - 1).long()]
+            with _prof.span("readback"):
+                vals, ids, win, seg_total, seg_max = readback(
+                    "search.searcher.dense_topk", vals, ids, win,
+                    seg_total.reshape(1), seg_max.reshape(1))
             if track_total_hits:
                 total += int(seg_total[0])
             if _needs_max_score(sort_spec) and np.isfinite(seg_max[0]):
@@ -253,6 +267,13 @@ class ShardSearcher:
 
         if not per_segment:
             return QueryResult([], total, None, agg_masks=agg_masks)
+        with _prof.span("merge"):
+            docs = self._merge_dense(per_segment, k, sort_spec)
+        return QueryResult(docs, total, max_score, agg_masks=agg_masks)
+
+    def _merge_dense(self, per_segment, k: int, sort_spec):
+        """The per-segment winners merged by (-key, segment, docid), with
+        their sort values; a multi-key sort re-sorts them on the host."""
         all_keys = np.concatenate([v for _, v, _, _ in per_segment])
         all_segs = np.concatenate(
             [np.full(len(i), s, np.int32) for s, _, i, _ in per_segment])
@@ -271,7 +292,7 @@ class ShardSearcher:
         if sort_spec is not None and len(sort_spec) > 1:
             docs.sort(key=functools.cmp_to_key(
                 lambda a, b: _host_sort_cmp(a, b, sort_spec)))
-        return QueryResult(docs, total, max_score, agg_masks=agg_masks)
+        return docs
 
     # ---------------------------------------------------------- rescore
     def rescore(self, docs: List[DocAddress],

@@ -30,6 +30,14 @@ Under a ``sort`` each hit carries its ``sort`` values, the page is
 ordered by them (missing last), and ``max_score`` is null, as the
 reference gives them.
 
+``profile: true`` answers what the same body answers without it, plus
+``profile.shards``: one shard's tree (search/profile.py
+``shard_profile_tree``: the query's stages split into device and host
+nanos, the collector, the ``aggs.collect`` scope, the kernels the
+request launched and its cohorts' attribution records, its readback
+bytes and the HBM admissions and evictions of its window) and its fetch
+time, and ``profile.coordinator`` with the phases' nanos.
+
 ``track_total_hits``: true (the default) counts exactly, relation "eq".
 false or an integer license block-max pruning (search/plan.py): the hits
 stay exact and the total is a lower bound, relation "gte", when a
@@ -48,6 +56,7 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.common.errors import IllegalArgumentException
+from elasticsearch_tpu_torch.search import profile as _prof
 from elasticsearch_tpu_torch.search.aggregations import compute_aggs
 from elasticsearch_tpu_torch.search.batching import (_CUT_BUCKETS,
                                                      KnnBatcher, PlanBatcher)
@@ -62,7 +71,7 @@ from elasticsearch_tpu_torch.search.searcher import (MAX_TOPK, ShardSearcher,
 DEFAULT_SIZE = 10
 BODY_KEYS = {"query", "size", "from", "post_filter", "track_total_hits",
              "_source", "sort", "search_after", "min_score", "knn", "rank",
-             "rescore", "aggs", "aggregations"}
+             "rescore", "aggs", "aggregations", "profile"}
 # a body with any of these (truthy) asks more than the k nearest ids and
 # scores, so its kNN takes the dense executor, not the cohort launch
 _NOT_PURE_KNN = ("sort", "post_filter", "min_score", "search_after",
@@ -145,16 +154,56 @@ class SearchService:
         if rank_spec is not None and not isinstance(rank_spec, dict):
             raise IllegalArgumentException("[rank] must be an object")
         searcher = self._searcher(svc)
-        if rank_spec and rank_spec.get("rrf") is not None:
-            response = self._rrf_search(index, searcher, body)
-        elif body.get("knn") is not None:
-            response = self._pure_knn_search(index, searcher, body)
-            if response is None:
-                response = self._execute(index, searcher,
-                                         _merge_knn_into_query(body))
+        if not body.get("profile"):
+            response = self._search(index, searcher, body)
         else:
-            response = self._execute(index, searcher, body)
+            response = self._profiled(index, searcher, body)
         return {"took": int((time.time() - t0) * 1000), **response}
+
+    def _search(self, index: str, searcher: ShardSearcher,
+                body: Dict[str, Any]) -> Dict[str, Any]:
+        rank_spec = body.get("rank")
+        if rank_spec and rank_spec.get("rrf") is not None:
+            return self._rrf_search(index, searcher, body)
+        if body.get("knn") is not None:
+            response = self._pure_knn_search(index, searcher, body)
+            if response is not None:
+                return response
+            return self._execute(index, searcher,
+                                 _merge_knn_into_query(body))
+        return self._execute(index, searcher, body)
+
+    def _profiled(self, index: str, searcher: ShardSearcher,
+                  body: Dict[str, Any]) -> Dict[str, Any]:
+        """``_search`` under a profile recorder (search/profile.py): the
+        response with ``profile`` (the module docstring)."""
+        churn0 = self.cache.churn_counters()
+        t0 = time.monotonic_ns()
+        with _prof.profiling() as rec:
+            response = self._search(index, searcher, body)
+        total_ns = time.monotonic_ns() - t0
+        fetch_ns = rec.pop("fetch", 0)
+        aggs_ns = rec.get("aggs.collect")
+        adm, ev = self.cache.churn_counters()
+        if adm - churn0[0] or ev - churn0[1]:
+            # HBM churn in this request's window (node-wide: a
+            # concurrent request's uploads can land in it)
+            counters = rec.setdefault("_counters", {})
+            counters["hbm_admissions"] = adm - churn0[0]
+            counters["hbm_evictions"] = ev - churn0[1]
+        entry = _prof.shard_profile_tree(f"[{index}][0]", body, rec,
+                                         total_ns - fetch_ns)
+        entry["fetch"] = {"type": "fetch", "description": "",
+                          "time_in_nanos": fetch_ns,
+                          "breakdown": {"load_stored_fields": fetch_ns}}
+        coord: Dict[str, Any] = {"phases": {
+            "query_ns": entry["searches"][0]["query"][0]["time_in_nanos"],
+            "fetch_ns": fetch_ns}}
+        if aggs_ns is not None:
+            coord["phases"]["aggs_ns"] = aggs_ns
+            coord["reduce_batches"] = 1
+        response["profile"] = {"shards": [entry], "coordinator": coord}
+        return response
 
     def _searcher(self, svc) -> ShardSearcher:
         searcher = ShardSearcher(svc.engine.segments, svc.mapper, self.cache,
@@ -186,10 +235,11 @@ class SearchService:
             raise IllegalArgumentException(
                 f"Result window is too large, from + size must be less "
                 f"than or equal to: [{MAX_TOPK}]")
-        query = (parse_query(body["query"]) if body.get("query")
-                 else MatchAllQuery())
-        post_filter = (parse_query(body["post_filter"])
-                       if body.get("post_filter") else None)
+        with _prof.span("rewrite"):
+            query = (parse_query(body["query"]) if body.get("query")
+                     else MatchAllQuery())
+            post_filter = (parse_query(body["post_filter"])
+                           if body.get("post_filter") else None)
         sort = body.get("sort")
         search_after = body.get("search_after")
         if search_after is not None and not isinstance(search_after, list):
@@ -217,7 +267,8 @@ class SearchService:
             # values, missing last), not the float32 device keys
             docs = sorted(docs, key=functools.cmp_to_key(
                 lambda a, b: _host_sort_cmp(a, b, sort_spec)))
-        hits = searcher.fetch_phase(docs[from_:from_ + size], source)
+        with _prof.span("fetch"):
+            hits = searcher.fetch_phase(docs[from_:from_ + size], source)
         for h in hits:
             h["_index"] = index
         total = result.total_hits
@@ -235,11 +286,12 @@ class SearchService:
             # ES omits hits.total when tracking is disabled
             del response["hits"]["total"]
         if aggs_spec:
-            response["aggregations"] = compute_aggs(
-                aggs_spec,
-                [(seg, mask, searcher.mapper)
-                 for seg, mask in result.agg_masks],
-                searcher.mapper, searcher.cache)
+            with _prof.span("aggs.collect"):
+                response["aggregations"] = compute_aggs(
+                    aggs_spec,
+                    [(seg, mask, searcher.mapper)
+                     for seg, mask in result.agg_masks],
+                    searcher.mapper, searcher.cache)
         return response
 
     # ---------------------------------------------------------------- kNN
@@ -312,7 +364,9 @@ class SearchService:
                                ctx.n_docs_padded))
         if cut > _CUT_BUCKETS[-1]:
             return None
-        scores, ids = self.knn_batcher.topk(ctx, field, qvec, cut)
+        _prof.note("collector", "KnnBatchTopDocsCollector")
+        with _prof.span("launch"):
+            scores, ids = self.knn_batcher.topk(ctx, field, qvec, cut)
         seg = ctx.segment
         hits = []
         for s, i in zip(scores[:window], ids[:window]):

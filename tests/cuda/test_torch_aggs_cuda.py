@@ -16,6 +16,7 @@ from elasticsearch_tpu_torch.index.segment import segment_from_numpy
 from elasticsearch_tpu_torch.node import Node
 from elasticsearch_tpu_torch.ops import aggs as agg_ops
 from elasticsearch_tpu_torch.ops.device import DeviceSegment
+from elasticsearch_tpu_torch.telemetry.engine import TRACKER
 
 pytestmark = pytest.mark.cuda
 
@@ -122,9 +123,10 @@ def test_an_aggs_body_through_a_cuda_node(cuda_device):
                      "h": {"histogram": {"field": "price", "interval": 5},
                            "aggs": {"s": {"sum": {"field": "price"}}}}}}
     answers = []
-    before = {f: getattr(agg_ops, f).launches for f in (
+    kernels = [getattr(agg_ops, f).kernel_name for f in (
         "terms_counts_per_term", "masked_metric_stats", "bucket_counts",
-        "bucket_metric_columns")}
+        "bucket_metric_columns")]
+    before = {name: TRACKER.calls(name) for name in kernels}
     for dev in (cuda_device, "cpu"):
         node = Node(device=dev)
         try:
@@ -141,7 +143,7 @@ def test_an_aggs_body_through_a_cuda_node(cuda_device):
             node.close()
         if dev is cuda_device:
             for f, b in before.items():
-                assert getattr(agg_ops, f).launches > b, f
+                assert TRACKER.calls(f) > b, f
     gpu, cpu = answers
     assert gpu["hits"]["total"] == cpu["hits"]["total"]
     ga, ca = gpu["aggregations"], cpu["aggregations"]

@@ -47,6 +47,7 @@ from elasticsearch_tpu_torch.node import Node
 from elasticsearch_tpu_torch.ops import aggs as agg_ops
 from elasticsearch_tpu_torch.ops.device import READBACKS, DeviceSegment
 from elasticsearch_tpu_torch.search import aggregations as port_aggregations
+from elasticsearch_tpu_torch.telemetry.engine import TRACKER
 from test_torch_dense import assert_same_page, build_both, iso
 
 RTOL = 1e-5
@@ -301,10 +302,10 @@ def test_terms_counts_match_reference(seed):
     mask[:n_docs] = rng.random(n_docs) < 0.3
     perm, starts = ord_major(all_ords, offsets, n_terms)
     r0 = READBACKS["ops.aggs.terms_counts"]
-    l0 = agg_ops.terms_counts_per_term.launches
+    l0 = TRACKER.calls("terms_counts")
     got = agg_ops.terms_counts_per_term(torch.from_numpy(perm), starts,
                                         torch.from_numpy(mask))
-    assert agg_ops.terms_counts_per_term.launches == l0 + 1
+    assert TRACKER.calls("terms_counts") == l0 + 1
     assert READBACKS["ops.aggs.terms_counts"] == r0 + 1
     ref = jax_aggs.terms_counts_per_term(jnp.asarray(perm), starts,
                                          jnp.asarray(mask))
@@ -764,13 +765,15 @@ def test_device_route_launches_each_collector(nodes, monkeypatch, name):
     fn = getattr(agg_ops, name)
     site = COLLECTOR_SITES[name]
     body = {"size": 0, "aggs": COLLECTOR_BODIES[name]}
-    l0, r0 = fn.launches, READBACKS[site]
+    l0, r0 = TRACKER.calls(fn.kernel_name), READBACKS[site]
     st, _ = c.dispatch("POST", "/logs/_search", {}, body)
-    assert st == 200 and fn.launches == l0 and READBACKS[site] == r0
+    assert st == 200 and TRACKER.calls(fn.kernel_name) == l0 \
+        and READBACKS[site] == r0
     monkeypatch.setattr(port_aggregations, "DEVICE_AGG_MIN_DOCS", 0)
     st, _ = c.dispatch("POST", "/logs/_search", {}, body)
     assert st == 200
-    assert fn.launches == l0 + 2 and READBACKS[site] == r0 + 2
+    assert TRACKER.calls(fn.kernel_name) == l0 + 2 \
+        and READBACKS[site] == r0 + 2
 
 
 @pytest.mark.parametrize("name", sorted(COLLECTOR_BODIES))
