@@ -173,10 +173,44 @@ Phases (any failure exits non-zero; no exception is swallowed):
               nanos. Printed: the host us of a tracked call against
               the bare call at the v2m cohort's shape, of one flight
               event, and the drain's launch-to-readback ms a cohort
- 10. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
-              script, aggs, accounting, filters, plan and kernels JSON
-              lines, the card's name and power limit, and the last line
-              {"ok": true, "device": {...}}
+ 10. fulltext an index "fulltext" of the 2M-doc corpus with its token
+              streams (the corpus's token sequence as a [2M, 200] int32
+              rectangle on the host; corpus.py corpus_streams), its
+              _source and a rank_features field ml.tokens (256 keys
+              drawn Zipf(1.07), 24 a doc, weights in (0, 4]: 256 float32
+              doc-value columns on the card; corpus.py
+              rank_feature_columns); the host and device bytes printed.
+              About 93 seeded bodies (size 100) over HTTP from Python
+              clients: match_phrase (2-4 consecutive terms of random
+              docs, slop 0; 3-4 terms, slop 1-2), match_phrase_prefix,
+              match_bool_prefix, prefix, wildcard, regexp, fuzzy
+              (fuzziness 1 and AUTO), intervals (ordered match with
+              max_gaps, all_of ordered, any_of) and span_near,
+              query_string and simple_query_string, more_like_this
+              (like-text and a like-doc), pinned, text_expansion with 32
+              weighted tokens, rank_feature (saturation, log, sigmoid),
+              and bools of a phrase with a term or range filter. None
+              refused; the phrase, interval, multi-term, fuzzy, pinned,
+              feature and bool bodies held to a float64 oracle over the
+              streams, postings and columns (totals exact; constant
+              scores in docid order; served scores within rtol 1e-5 and
+              every missing oracle doc tied with the kth score); every
+              body equal to the port's CPU execution (text_expansion's
+              float32 sums by the tie-aware rule); the contribution
+              kernel launched once per dense BM25 scoring of the mix
+              (the tracker's calls of the dense scorer; /_kernels
+              agrees) and the merge not at all. Then each body once
+              more with profile: true, its hits unchanged. Printed: qps
+              and p50/p99, each body's query ms and its score stage's
+              host work from the profile (the term dictionary scans,
+              block selections, position checks with their candidates,
+              score column uploads), and the device ms of the
+              conjunction filter and of the feature plane's weighted sum
+              against their bounds
+ 11. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
+              script, aggs, accounting, fulltext, filters, plan and
+              kernels JSON lines, the card's name and power limit, and
+              the last line {"ok": true, "device": {...}}
 
 Needs one CUDA card, and the repository around it.
 """
@@ -185,9 +219,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import fnmatch
 import logging
 from collections import Counter
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -4167,6 +4203,644 @@ def phase_accounting(node, port, corpus, queries, knn_dims, builds,
     return out
 
 
+# ---------------------------------------------------------------- phase 10
+FULLTEXT_MAPPINGS = {"properties": {
+    "title": {"type": "text"}, "views": {"type": "long"},
+    "ml": {"properties": {"tokens": {"type": "rank_features"}}}}}
+FT_RTOL = 1e-5
+FT_SIZE = 100
+
+
+class FulltextOracle:
+    """float64 answers of the full-text mix from numpy over the corpus's
+    token streams and postings (``corpus.py``), under the port's
+    semantics as the reference defines them (search/phrase.py,
+    search/intervals.py): each a float64 score column [n_docs] that is
+    > 0 exactly where a doc matches (a constant 1.0 for the multi-term
+    bodies), or (column, pinned ids)."""
+
+    def __init__(self, corpus, streams, feats, views, k1=1.2, b=0.75):
+        from elasticsearch_tpu_torch.corpus import term_name
+        self.corpus, self.feats, self.views = corpus, feats, views
+        self.tokens, self.lengths = streams["tokens"], streams["lengths"]
+        lens = corpus["lens"].astype(np.float64)
+        self.n = len(lens)
+        self.N = int((lens > 0).sum())
+        self.norm = k1 * (1.0 - b + b * lens / (lens.sum() / self.N))
+        self.k1 = k1
+        self.df = corpus["df"]
+        self.names = [term_name(t) for t in range(len(self.df))]
+        self.chars = np.frombuffer("".join(self.names).encode(),
+                                   np.uint8).reshape(len(self.names), -1)
+
+    def idf(self, df):
+        return np.log(1.0 + (self.N - df + 0.5) / (df + 0.5))
+
+    def postings(self, t):
+        lo, hi = int(self.corpus["group_start"][t]), \
+            int(self.corpus["group_start"][t + 1])
+        return (self.corpus["doc_ids"][lo:hi],
+                self.corpus["tf"][lo:hi].astype(np.float64))
+
+    def has(self, terms):
+        m = np.zeros(self.n, bool)
+        for t in terms:
+            m[self.postings(t)[0]] = True
+        return m
+
+    def has_all(self, terms):
+        m = np.ones(self.n, bool)
+        for t in set(terms):
+            m &= self.has([t])
+        return m
+
+    def bm25(self, terms, weights=None):
+        s = np.zeros(self.n, np.float64)
+        for i, t in enumerate(terms):
+            d, tf = self.postings(t)
+            w = self.idf(self.df[t]) if weights is None else weights[i]
+            s[d] += w * tf / (tf + self.norm[d])
+        return s
+
+    def tf_score(self, cand, freqs, w):
+        s = np.zeros(self.n, np.float64)
+        f = freqs.astype(np.float64)
+        ok = f > 0
+        c = cand[ok]
+        s[c] = w * f[ok] / (f[ok] + self.norm[c])
+        return s
+
+    def window(self, cand, width):
+        """The candidates' rows, -1 beyond their lengths, padded to at
+        least ``width`` columns."""
+        rows = self.tokens[cand]
+        if rows.shape[1] < width:
+            rows = np.pad(rows, ((0, 0), (0, width - rows.shape[1])),
+                          constant_values=-1)
+        return rows
+
+    def exact_freqs(self, cand, slots):
+        """Occurrences per candidate of consecutive slots, each slot a
+        set of term ids (a lookup table per slot; the -1 pad reads its
+        last entry, False)."""
+        rows = self.window(cand, len(slots))
+        n_pos = rows.shape[1] - len(slots) + 1
+        hit = np.ones((len(cand), n_pos), bool)
+        for j, ids in enumerate(slots):
+            lut = np.zeros(len(self.df) + 1, bool)
+            lut[list(ids)] = True
+            hit &= lut[rows[:, j:j + n_pos]]
+        return hit.sum(axis=1)
+
+    def sloppy_freqs(self, cand, tids, slop):
+        """The greedy alignment: for each position of the first term,
+        each later term j takes the nearest unused position within
+        ``slop`` of p0 + j (the lower one on a tie); vectorized over
+        every (candidate, first-term position) pair."""
+        rows = self.tokens[cand]
+        lens = self.lengths[cand].astype(np.int64)
+        ci, p0 = np.nonzero(rows == tids[0])
+        keep = p0 < lens[ci]
+        ci, p0 = ci[keep], p0[keep].astype(np.int64)
+        used = [p0]
+        ok = np.ones(len(ci), bool)
+        order = [0] + [d for k in range(1, slop + 1) for d in (-k, k)]
+        for j in range(1, len(tids)):
+            best = np.full(len(ci), -1, np.int64)
+            for dlt in order:
+                q = p0 + j + dlt
+                inb = (q >= 0) & (q < lens[ci])
+                qq = np.where(inb, q, 0)
+                cond = (best < 0) & inb & (rows[ci, qq] == tids[j])
+                for u in used:
+                    cond &= q != u
+                best = np.where(cond, q, best)
+            ok &= best >= 0
+            used.append(best)
+        return np.bincount(ci[ok], minlength=len(cand))
+
+    def phrase(self, tids, slop=0):
+        cand = np.nonzero(self.has_all(tids))[0]
+        freqs = (self.exact_freqs(cand, [{t} for t in tids]) if slop == 0
+                 else self.sloppy_freqs(cand, tids, slop))
+        return self.tf_score(cand, freqs, float(sum(
+            self.idf(self.df[t]) for t in set(tids)))), len(cand)
+
+    @staticmethod
+    def where(answer, keep):
+        """An answer (column, candidates) cut to the docs of ``keep``."""
+        return answer[0] * keep, answer[1]
+
+    def expand_prefix(self, prefix, cap):
+        return [t for t, nm in enumerate(self.names)
+                if nm.startswith(prefix)][:cap]
+
+    def phrase_prefix(self, fixed, prefix):
+        exp = self.expand_prefix(prefix, 50)
+        cand = np.nonzero(self.has_all(fixed))[0]
+        freqs = self.exact_freqs(cand, [{t} for t in fixed] + [set(exp)])
+        w = sum(self.idf(self.df[t]) for t in set(fixed))
+        w += self.idf(max(min(self.N, int(self.df[exp].sum())), 1))
+        return self.tf_score(cand, freqs, float(w)), len(cand)
+
+    def bool_prefix(self, fixed, prefix):
+        s = self.bm25(fixed)
+        return s + self.has(self.expand_prefix(prefix, 50)), 0
+
+    def constant(self, terms):
+        return self.has(terms[:1024]).astype(np.float64), 0
+
+    def osa(self, value):
+        """Optimal string alignment distances of ``value`` to every
+        vocabulary name (all of its length), by the full DP."""
+        a = np.frombuffer(value.encode(), np.uint8)
+        b = self.chars
+        la, lb = len(a), b.shape[1]
+        d = np.zeros((la + 1, lb + 1, len(b)), np.int32)
+        d[:, 0] = np.arange(la + 1)[:, None]
+        d[0, :] = np.arange(lb + 1)[:, None]
+        for i in range(1, la + 1):
+            for j in range(1, lb + 1):
+                cost = (b[:, j - 1] != a[i - 1]).astype(np.int32)
+                v = np.minimum(np.minimum(d[i - 1, j] + 1, d[i, j - 1] + 1),
+                               d[i - 1, j - 1] + cost)
+                if i > 1 and j > 1:
+                    tr = (a[i - 1] == b[:, j - 2]) & (a[i - 2] == b[:, j - 1])
+                    v = np.where(tr, np.minimum(v, d[i - 2, j - 2] + 1), v)
+                d[i, j] = v
+        return d[la, lb]
+
+    def fuzzy(self, value, k):
+        dist = self.osa(value)
+        cands = sorted((int(dist[t]), self.names[t]) for t in
+                       np.nonzero(dist <= k)[0])[:50]
+        terms = [int(nm[1:]) for _, nm in cands]
+        w = [self.idf(self.df[t]) * (1.0 - dd / len(value))
+             if self.df[t] > 0 else 0.0 for (dd, _), t in zip(cands, terms)]
+        return self.bm25(terms, w), 0
+
+    def ordered_pair(self, t0, t1, gaps):
+        """Minimal ordered intervals (t0 then t1) with at most ``gaps``
+        positions between: each t1 whose nearest earlier t0 comes after
+        the nearest earlier t1 (search/intervals.py match_intervals and
+        all_of_intervals, ordered)."""
+        cand = np.nonzero(self.has([t0, t1]))[0]
+        rows = self.tokens[cand]
+        idx = np.arange(rows.shape[1])[None, :]
+        last0 = np.maximum.accumulate(np.where(rows == t0, idx, -1), axis=1)
+        last1 = np.maximum.accumulate(np.where(rows == t1, idx, -1), axis=1)
+        prev0 = np.pad(last0[:, :-1], ((0, 0), (1, 0)), constant_values=-1)
+        prev1 = np.pad(last1[:, :-1], ((0, 0), (1, 0)), constant_values=-1)
+        ok = (rows == t1) & (prev0 > prev1) & (idx - prev0 - 1 <= gaps)
+        w = float(self.idf(self.df[t0]) + self.idf(self.df[t1]))
+        return self.tf_score(cand, ok.sum(axis=1), w), len(cand)
+
+    def any_pair(self, t0, t1):
+        cand = np.nonzero(self.has([t0, t1]))[0]
+        rows = self.tokens[cand]
+        freqs = ((rows == t0) | (rows == t1)).sum(axis=1)
+        w = float(self.idf(self.df[t0]) + self.idf(self.df[t1]))
+        return self.tf_score(cand, freqs, w), len(cand)
+
+    def expansion(self, tokens):
+        s = np.zeros(self.n, np.float64)
+        present = np.zeros(self.n, bool)
+        for tok, w in tokens.items():
+            v = self.feats.get(f"ml.tokens.{tok}")
+            if v is None:
+                continue
+            has = ~np.isnan(v)
+            s[has] += float(np.float32(w)) * v[has].astype(np.float32)
+            present |= has
+        return np.where(present, s, 0.0), 0
+
+    def rank_feature(self, key, fn):
+        v = self.feats[f"ml.tokens.{key}"]
+        has = ~np.isnan(v)
+        x = np.where(has, v.astype(np.float32).astype(np.float64), 0.0)
+        if "log" in fn:
+            # the column's float32 arithmetic rounds log's argument
+            s = np.log((np.float32(fn["log"]["scaling_factor"])
+                        + x.astype(np.float32)).astype(np.float64))
+        elif "sigmoid" in fn:
+            p, e = fn["sigmoid"]["pivot"], fn["sigmoid"]["exponent"]
+            s = x ** e / (x ** e + p ** e)
+        else:
+            s = x / (x + x[has].mean())
+        return np.where(has, s, 0.0), 0
+
+
+def ft_topk(scores, k):
+    """(top-k docids by (score desc, docid asc), their scores, total) of
+    an oracle column."""
+    matched = np.nonzero(scores > 0)[0]
+    order = np.lexsort((matched, -scores[matched]))[:k]
+    return matched[order], scores[matched[order]], len(matched)
+
+
+def check_ft_answer(r, scores, what, constant=False, pinned=()):
+    """A full-text answer against its oracle column: the total exact
+    ("eq"); pinned ids first in order; a constant-score body's ids the
+    oracle's in docid order; a scored body's served scores within rtol
+    1e-5 of the oracle's and every missing oracle doc tied with the kth
+    score within rtol 1e-5."""
+    got = [int(h["_id"]) for h in r["hits"]["hits"]]
+    pins = [p for p in pinned]
+    organic = np.where(np.isin(np.arange(len(scores)), pins), 0.0, scores)
+    truth, tscore, total = ft_topk(organic, FT_SIZE - len(pins))
+    total += len(pins)
+    check(r["hits"]["total"] == {"value": total, "relation": "eq"},
+          f"{what}: total {r['hits']['total']} vs the oracle's {total}")
+    check(got[:len(pins)] == pins, f"{what}: the pinned ids first")
+    got = got[len(pins):]
+    served = np.array([h["_score"] for h in r["hits"]["hits"]][len(pins):],
+                      np.float64)
+    check(len(got) == len(truth), f"{what}: {len(got)} hits vs "
+                                  f"{len(truth)}")
+    if constant:
+        check(got == truth.tolist(), f"{what}: ids and order")
+        check(bool(np.all(served == 1.0)), f"{what}: constant score 1.0")
+        return
+    want = scores[got]
+    check(bool(np.all(np.abs(served - want) <= FT_RTOL * want)),
+          f"{what}: served scores within rtol 1e-5 of the float64 oracle")
+    hit = np.isin(truth, got)
+    kth = tscore[-1] if len(tscore) else 0.0
+    check(bool(np.all(np.abs(tscore[~hit] - kth) <= FT_RTOL * kth)),
+          f"{what}: every missing oracle doc ties the kth score")
+
+
+def fulltext_mix(oracle, corpus, n_keys, seed):
+    """The ~96 bodies of phase 10 from ``seed``: (kind, query, oracle
+    thunk or None, pinned ids)."""
+    from elasticsearch_tpu_torch.corpus import term_name
+    rng = np.random.default_rng(seed)
+    toks, lens, df, n = (oracle.tokens, oracle.lengths, corpus["df"],
+                         oracle.n)
+    # the query log's bands (corpus.py make_queries) at 2M docs
+    rare = np.nonzero((df > n // 10000) & (df <= n // 100))[0]
+    mid = np.nonzero((df > n // 100) & (df <= n // 20))[0]
+
+    def run(n_terms):
+        while True:
+            d = int(rng.integers(n))
+            if lens[d] >= n_terms:
+                s = int(rng.integers(0, lens[d] - n_terms + 1))
+                return [int(t) for t in toks[d, s:s + n_terms]]
+
+    def text(tids):
+        return " ".join(term_name(t) for t in tids)
+
+    def near_pair(gap):
+        """Two distinct terms of the rare band within ``gap + 1``
+        positions of each other in one doc, in stream order."""
+        in_rare = np.zeros(len(df), bool)
+        in_rare[rare] = True
+        while True:
+            d = int(rng.integers(n))
+            row = toks[d, :lens[d]]
+            pos = np.nonzero(in_rare[row])[0]
+            for i in range(len(pos) - 1):
+                a, b = int(row[pos[i]]), int(row[pos[i + 1]])
+                if a != b and pos[i + 1] - pos[i] <= gap + 1:
+                    return a, b
+
+    mix = []
+
+    def add(kind, query, thunk=None, pinned=()):
+        mix.append((kind, query, thunk, list(pinned)))
+    for i in range(16):
+        tids = run(2 + i % 3)
+        add("phrase", {"match_phrase": {"title": text(tids)}},
+            lambda t=tids: oracle.phrase(t))
+    for i in range(8):
+        tids, slop = run(3 + i % 2), 1 + i % 2
+        add("phrase", {"match_phrase": {"title": {"query": text(tids),
+                                                  "slop": slop}}},
+            lambda t=tids, s=slop: oracle.phrase(t, s))
+    for i in range(6):
+        tids = run(2 + i % 2)
+        fixed, pre = tids[:-1], term_name(tids[-1])[:5 + i % 2]
+        add("phrase_prefix", {"match_phrase_prefix": {
+            "title": f"{text(fixed)} {pre}"}},
+            lambda f=fixed, p=pre: oracle.phrase_prefix(f, p))
+    for i in range(6):
+        tids = run(2 + i % 2)
+        fixed, pre = tids[:-1], term_name(tids[-1])[:5 + i % 2]
+        add("bool_prefix", {"match_bool_prefix": {
+            "title": f"{text(fixed)} {pre}"}},
+            lambda f=fixed, p=pre: oracle.bool_prefix(f, p))
+    # patterns around the names of random docs' tokens, so expansions
+    # meet the Zipf skew: t0123 (100 terms), t01?4* (1000), t012[0-4][0-9]5
+    # (50)
+    for _ in range(6):
+        pre = term_name(run(1)[0])[:5]
+        add("multi_term", {"prefix": {"title": pre}},
+            lambda p=pre: oracle.constant(oracle.expand_prefix(p, 1024)))
+    for _ in range(6):
+        nm = term_name(run(1)[0])
+        pat = f"{nm[:3]}?{nm[4]}*"
+        add("multi_term", {"wildcard": {"title": pat}},
+            lambda p=pat: oracle.constant([
+                t for t, nm in enumerate(oracle.names)
+                if fnmatch.fnmatchcase(nm, p)]))
+    for _ in range(6):
+        nm = term_name(run(1)[0])
+        pat = f"{nm[:4]}[0-4][0-9]{nm[6]}"
+        add("multi_term", {"regexp": {"title": pat}},
+            lambda p=pat: oracle.constant([
+                t for t, nm in enumerate(oracle.names)
+                if re.fullmatch(p, nm)]))
+    for i in range(6):
+        band = rare if i % 2 else mid
+        value = term_name(int(rng.choice(band)))
+        fz = 1 if i < 3 else "AUTO"
+        add("fuzzy", {"fuzzy": {"title": {"value": value,
+                                          "fuzziness": fz}}},
+            lambda v=value, k=(1 if i < 3 else 2): oracle.fuzzy(v, k))
+    for i in range(2):
+        g = 1 + i
+        t0, t1 = near_pair(g)
+        add("intervals", {"intervals": {"title": {"match": {
+            "query": text([t0, t1]), "ordered": True, "max_gaps": g}}}},
+            lambda a=t0, b=t1, gg=g: oracle.ordered_pair(a, b, gg))
+        t0, t1 = near_pair(g)
+        add("intervals", {"intervals": {"title": {"all_of": {
+            "ordered": True, "max_gaps": g, "intervals": [
+                {"match": {"query": term_name(t0)}},
+                {"match": {"query": term_name(t1)}}]}}}},
+            lambda a=t0, b=t1, gg=g: oracle.ordered_pair(a, b, gg))
+        t0, t1 = (int(x) for x in rng.choice(rare, 2, replace=False))
+        add("intervals", {"intervals": {"title": {"any_of": {"intervals": [
+            {"match": {"query": term_name(t0)}},
+            {"match": {"query": term_name(t1)}}]}}}},
+            lambda a=t0, b=t1: oracle.any_pair(a, b))
+        t0, t1 = near_pair(g)
+        add("intervals", {"span_near": {"clauses": [
+            {"span_term": {"title": term_name(t0)}},
+            {"span_term": {"title": term_name(t1)}}],
+            "slop": g, "in_order": True}},
+            lambda a=t0, b=t1, gg=g: oracle.ordered_pair(a, b, gg))
+    a, b, c = (term_name(int(t)) for t in rng.choice(mid, 3, replace=False))
+    add("query_string", {"query_string": {
+        "query": f"title:{a} AND (title:{b} OR title:{c})"}})
+    add("query_string", {"query_string": {"query": f'"{text(run(2))}"',
+                                          "default_field": "title"}})
+    add("query_string", {"query_string": {"query": f"title:{b[:5]}*"}})
+    add("query_string", {"query_string": {
+        "query": f"{a} {c} -{b}", "fields": ["title"]}})
+    add("query_string", {"simple_query_string": {
+        "query": f'"{text(run(2))}" | {c}', "fields": ["title"]}})
+    add("query_string", {"simple_query_string": {
+        "query": f"{a} +{b}", "fields": ["title"],
+        "default_operator": "and"}})
+    add("query_string", {"simple_query_string": {
+        "query": f"{c[:5]}* -{a}", "fields": ["title"]}})
+    like_doc = int(rng.integers(n))
+    add("more_like_this", {"more_like_this": {
+        "fields": ["title"], "like": text(run(12)), "min_term_freq": 1,
+        "min_doc_freq": 5, "max_query_terms": 12}})
+    add("more_like_this", {"more_like_this": {
+        "fields": ["title"], "like": [{"_id": str(like_doc)}],
+        "min_term_freq": 1, "max_query_terms": 10}})
+    for _ in range(2):
+        tids = run(2)
+        pins = [int(x) for x in rng.choice(n, 3, replace=False)]
+        add("pinned", {"pinned": {"ids": [str(p) for p in pins],
+                                  "organic": {"match_phrase": {
+                                      "title": text(tids)}}}},
+            lambda t=tids: oracle.phrase(t), pinned=pins)
+    for _ in range(4):
+        keys = rng.choice(n_keys, 32, replace=False)
+        tokens = {f"k{int(k):03d}": round(float(w), 4) for k, w in
+                  zip(keys, rng.uniform(0.1, 2.0, 32))}
+        add("features", {"text_expansion": {"ml.tokens": {
+            "tokens": tokens}}}, lambda t=tokens: oracle.expansion(t))
+    for fn in ({}, {"log": {"scaling_factor": 1.0}},
+               {"sigmoid": {"pivot": 2.0, "exponent": 0.7}}) * 2:
+        key = f"k{int(rng.integers(n_keys)):03d}"
+        add("features", {"rank_feature": dict(fn, field=f"ml.tokens.{key}")},
+            lambda k=key, f=fn: oracle.rank_feature(k, f))
+    for _ in range(2):
+        tids = run(2)
+        term = int(rng.choice(mid))
+        add("phrase_bool", {"bool": {
+            "must": [{"match_phrase": {"title": text(tids)}}],
+            "filter": [{"term": {"title": term_name(term)}}]}},
+            lambda t=tids, f=term: oracle.where(oracle.phrase(t),
+                                                oracle.has([f])))
+        tids = run(2)
+        add("phrase_bool", {"bool": {
+            "must": [{"match_phrase": {"title": text(tids)}}],
+            "filter": [{"range": {"views": {"gte": 25, "lt": 75}}}]}},
+            lambda t=tids: oracle.where(oracle.phrase(t), (
+                oracle.views >= 25) & (oracle.views < 75)))
+    return mix
+
+
+def phase_fulltext(node, port, corpus, seed, conns, counters, cpu):
+    """Full-text query breadth on one H100 (module docstring, phase
+    10)."""
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import (corpus_streams,
+                                                rank_feature_columns,
+                                                segment_from_corpus,
+                                                stream_sources)
+    from elasticsearch_tpu_torch.ops import bm25 as bm25_ops
+    from elasticsearch_tpu_torch.ops.features import feature_plane_sum
+    from elasticsearch_tpu_torch.telemetry.engine import TRACKER
+    n = len(corpus["lens"])
+    n_keys = 256
+    out = {"torch": torch.__version__}
+    # set-up: the corpus's token streams and a rank_features field
+    free = host_free_gib()
+    # streams 800 B a doc, sources about 400, each feature column 17 B a
+    # doc on the host and 5 B in the CPU execution's copy
+    need = n * (800 + 400 + n_keys * 22) / 2 ** 30 * 1.25
+    log(f"[fulltext] host free {free:.1f} GiB before the streams and "
+        f"feature columns (about {need:.1f} GiB wanted)")
+    check(free > need, f"host memory for phase 10: {free:.1f} GiB free, "
+                       f"{need:.1f} wanted")
+    t0 = time.time()
+    streams = corpus_streams(corpus)
+    feats = rank_feature_columns(n, np.random.default_rng(seed))
+    views = np.random.default_rng(seed + 1).integers(0, 100, n).astype(
+        np.float64)
+    numerics = dict(feats, views={"values": views})
+    seg = segment_from_corpus(corpus, name="fulltext0", numerics=numerics,
+                              streams=streams,
+                              sources=stream_sources(streams))
+    node.create_index("fulltext", FULLTEXT_MAPPINGS)
+    svc = node.indices["fulltext"]
+    svc.engine.install_segments([seg])
+    dev = node.device_cache.get(seg)
+    torch.cuda.synchronize()
+    ts = seg.streams["title"]
+    fcols = [f for f in seg.numerics if f.startswith("ml.tokens.")]
+    out["bytes"] = dict(
+        streams_host=int(ts.tokens.nbytes + ts.lengths.nbytes),
+        streams_shape=list(ts.tokens.shape),
+        features_host=int(sum(
+            seg.numerics[f].values.nbytes + seg.numerics[f].missing.nbytes
+            + seg.numerics[f].offsets.nbytes
+            + seg.numerics[f].all_values.nbytes for f in fcols)),
+        feature_columns=len(fcols),
+        features_device=int(sum(dev.numerics[f].nbytes
+                                + dev.numeric_missing[f].nbytes
+                                for f in fcols)),
+        segment_hbm=dev.hbm_bytes(),
+        hbm_by_class=dev.hbm_bytes_by_class(),
+        setup_s=time.time() - t0)
+    check(out["bytes"]["features_device"]
+          <= out["bytes"]["hbm_by_class"]["doc_values"],
+          "the feature columns are charged as doc_values")
+    log(f"[fulltext] {out['bytes']}")
+    oracle = FulltextOracle(corpus, streams,
+                            {f: seg.numerics[f].values for f in fcols},
+                            views)
+    mix = fulltext_mix(oracle, corpus, n_keys, seed + 2)
+    bodies = [{"query": qb, "size": FT_SIZE, "_source": False}
+              for _, qb, _, _ in mix]
+    out["bodies"] = dict(Counter(kind for kind, _, _, _ in mix))
+    # (a) the mix over HTTP, the kernels' counts set to 0 just before
+    _, k0 = http(port, "GET", "/_kernels")
+    scorings0 = TRACKER.calls("bm25_dense_scores_sorted")
+    for c in counters.values():
+        c.launches = 0
+    res, lat, wall = drive(port, bodies, min(conns, 16), "fulltext")
+    launches = {name: c.launches for name, c in counters.items()}
+    dense_scorings = TRACKER.calls("bm25_dense_scores_sorted") - scorings0
+    _, k1 = http(port, "GET", "/_kernels")
+    calls = {name: k1["kernels"].get(name, {}).get("calls", 0)
+             - k0["kernels"].get(name, {}).get("calls", 0)
+             for name in counters}
+    refused = [(i, st, r) for i, (st, r) in enumerate(res) if st != 200]
+    check(not refused, f"no body of the mix is refused: {refused[:3]}")
+    p50, p99 = p50_p99(lat)
+    out["launches"] = launches
+    out["kernels_calls"] = calls
+    out["dense_scorings"] = dense_scorings
+    # every dense BM25 scoring of the mix is one launch of the
+    # contribution kernel; the plan path and the position checks launch
+    # none, nor the merge
+    check(calls == launches
+          and launches["gather_bm25_contrib"] == dense_scorings > 0
+          and launches["merge_sorted_slots"] == 0,
+          f"the contribution kernel launched once per dense BM25 scoring "
+          f"({dense_scorings}), the merge not at all, and /_kernels "
+          f"agrees: {launches} vs {calls}")
+    out["load"] = dict(requests=len(bodies), wall_s=wall,
+                       qps=len(bodies) / wall, p50_ms=p50, p99_ms=p99,
+                       clients=min(conns, 16))
+    log(f"[fulltext] {out['load']}; launches {launches}")
+    # (b) each answer against the float64 oracle
+    t0 = time.time()
+    cands = {}
+    for i, ((kind, qb, thunk, pins), (_, r)) in enumerate(zip(mix, res)):
+        what = f"fulltext body {i} ({kind}: {json.dumps(qb)[:120]})"
+        check(r["hits"]["total"]["value"] > 0 or kind in (
+            "phrase", "phrase_bool", "phrase_prefix", "intervals"),
+            f"{what}: matches docs")
+        if thunk is None:
+            continue
+        scores, n_cand = thunk()
+        cands[i] = n_cand
+        check_ft_answer(r, scores, what, constant=kind == "multi_term",
+                        pinned=pins)
+    out["oracle_s"] = time.time() - t0
+    # (c) each answer equal to the port's CPU execution
+    t0 = time.time()
+    for i, ((kind, qb, _, _), (_, r)) in enumerate(zip(mix, res)):
+        c = cpu.search("fulltext", svc, bodies[i])
+        what = f"fulltext body {i} ({kind})"
+        if "text_expansion" in qb:   # float32 sums in another order
+            same_hits(r, c, what, rtol=1e-5)
+        else:
+            equal_to_cpu(r, c, what)
+    out["cpu_s"] = time.time() - t0
+    # (d) where each body's time goes: the mix once more, one body at a
+    # time, with profile: true; the score stage's host work from the
+    # profile's children (search/queries.py)
+    per_body = []
+    for i, ((kind, qb, _, _), (_, r)) in enumerate(zip(mix, res)):
+        st, p = http(port, "POST", "/fulltext/_search",
+                     dict(bodies[i], profile=True))
+        what = f"fulltext body {i} ({kind}) with profile: true"
+        check(st == 200 and p["hits"]["total"] == r["hits"]["total"]
+              and [h["_id"] for h in p["hits"]["hits"]]
+              == [h["_id"] for h in r["hits"]["hits"]],
+              f"{what}: the same hits")
+        shard = p["profile"]["shards"][0]
+        q = shard["searches"][0]["query"][0]
+        work = next((ch["breakdown"] for ch in
+                     shard["searches"][0].get("children", [])
+                     if ch["type"] == "score"), {})
+        per_body.append(dict(
+            body=i, kind=kind, query_ms=q["time_in_nanos"] / 1e6,
+            rewrite_ms=q["breakdown"].get("rewrite", 0) / 1e6,
+            score_ms=q["breakdown"].get("score", 0) / 1e6,
+            **{f"{k}_ms": work.get(k, 0) / 1e6
+               for k in ("expand", "select", "verify", "upload")},
+            candidates=shard.get("device", {}).get("verify_candidates", 0),
+            oracle_candidates=cands.get(i),
+            kernels={k["kernel"]: k["calls"]
+                     for k in shard.get("device", {}).get("kernels", [])}))
+    out["per_body"] = per_body
+    by_kind = {}
+    for b in per_body:
+        agg = by_kind.setdefault(b["kind"], dict(
+            bodies=0, query_ms=0.0, rewrite_ms=0.0, score_ms=0.0,
+            expand_ms=0.0, select_ms=0.0, verify_ms=0.0, upload_ms=0.0,
+            candidates=0))
+        agg["bodies"] += 1
+        for k in agg:
+            if k != "bodies":
+                agg[k] += b[k]
+    out["by_kind"] = by_kind
+    log(f"[fulltext] where the time goes, by kind: {by_kind}")
+    # (e) the device ms of the conjunction filter and the feature sum
+    ctx = node.search_service._searcher(svc)._contexts()[0]
+    dp = ctx.device.postings["title"]
+    two = sorted((cands[i], i) for i, (kind, qb, _, _) in enumerate(mix)
+                 if kind == "phrase"
+                 and isinstance(qb["match_phrase"]["title"], str)
+                 and len(qb["match_phrase"]["title"].split()) == 2)
+    phrase_text = mix[two[len(two) // 2][1]][1]["match_phrase"]["title"]
+    tids = sorted({dp.host.term_id(t) for t in phrase_text.split()})
+    sels, cids = [], []
+    for ci, tid in enumerate(tids):
+        s, _ = dp.select_blocks([tid], [1.0])
+        sels.append(s)
+        cids.append(np.full(len(s), ci, np.int32))
+    sel = torch.from_numpy(np.concatenate(sels)).to(dp.block_docids.device)
+    cid = torch.from_numpy(np.concatenate(cids)).to(dp.block_docids.device)
+    nd = ctx.n_docs_padded
+    ms, host_ms = cuda_ms(lambda: bm25_ops.conjunction_mask(
+        dp.block_docids, dp.block_tfs, sel, cid, len(tids), nd), 20)
+    n_sel = int(sel.numel())
+    bnd, by = bound_ms(n_sel * 128 * 8 + n_sel * 8 + nd, 0, "int32")
+    out["conjunction_mask"] = dict(ms=ms, host_ms=host_ms, blocks=n_sel,
+                                   n_docs=nd, bound_ms=bnd, bound_by=by)
+    tokens = next(qb for kind, qb, _, _ in mix
+                  if "text_expansion" in qb)["text_expansion"]["ml.tokens"][
+                      "tokens"]
+    names = [f"ml.tokens.{t}" for t in tokens]
+    plane = torch.stack([ctx.device.numerics[f] for f in names])
+    miss = torch.stack([ctx.device.numeric_missing[f] for f in names])
+    w = torch.tensor(list(tokens.values()), dtype=torch.float32,
+                     device=plane.device)
+    ms, host_ms = cuda_ms(lambda: feature_plane_sum(plane, miss, w), 20)
+    t = len(names)
+    bnd, by = bound_ms(t * nd * 5 + t * 4 + nd * 5, 2 * t * nd, "float32")
+    out["feature_plane_sum"] = dict(ms=ms, host_ms=host_ms, tokens=t,
+                                    n_docs=nd, bound_ms=bnd, bound_by=by)
+    log(f"[fulltext] conjunction_mask {out['conjunction_mask']}; "
+        f"feature_plane_sum {out['feature_plane_sum']}")
+    del plane, miss
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--docs", type=int, default=2_000_000)
@@ -4402,10 +5076,15 @@ def main(argv=None) -> int:
                                       args.knn_dims, builds, counters,
                                       hbm_log)
         accounting["hbm_limit"] = hbm_limit
+
+        # ---- 10. full text: positions, multi-term, features
+        fulltext = phase_fulltext(node, port, corpus, args.seed + 12,
+                                  min(args.clients, 64), counters, cpu)
+        hbm_agrees(node, "fulltext", hbm_log)
     finally:
         node.close()
 
-    # ---- 10. report
+    # ---- 11. report
     meta = {
         "gather_bm25_contrib": dict(
             source="elasticsearch_tpu_torch/csrc/bm25_contrib.cu",
@@ -4436,6 +5115,7 @@ def main(argv=None) -> int:
             launches_script=script["launches"][name],
             launches_aggs=aggs["launches"][name],
             launches_accounting=accounting["attribution"]["launches"][name],
+            launches_fulltext=fulltext["launches"][name],
             dense_shape=(dense["contrib_dense_shape"]
                          if name == "gather_bm25_contrib" else None)))
     print(json.dumps({"scale": scale}))
@@ -4449,6 +5129,7 @@ def main(argv=None) -> int:
     print(json.dumps({"script": script}))
     print(json.dumps({"aggs": aggs}))
     print(json.dumps({"accounting": accounting}))
+    print(json.dumps({"fulltext": fulltext}))
     print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))

@@ -44,7 +44,10 @@ def build_corpus(rng: np.random.Generator, n_docs: int = N_DOCS,
     """Postings in block layout: ``block_docids``/``block_tfs``
     [TB, 128] (no reserved zero block), ``tbs`` [vocab + 1] block starts,
     ``nb``, ``df``, ``lens`` float32 [n_docs], and the flat
-    ``doc_ids``/``tf`` grouped by term with ``group_start``."""
+    ``doc_ids``/``tf`` grouped by term with ``group_start``, and
+    ``stream``: int32 [sum of lens], every doc's term ids in position
+    order, doc after doc (``corpus_streams`` lays it out as token
+    streams)."""
     lens = np.clip(rng.lognormal(np.log(avg_len), 0.4, n_docs),
                    5, 200).astype(np.int32)
     total = int(lens.sum())
@@ -65,6 +68,7 @@ def build_corpus(rng: np.random.Generator, n_docs: int = N_DOCS,
         np.maximum.accumulate(src, out=src)
         terms = terms[src]
         del copy, doc_start, src
+    stream = terms.astype(np.int32)
     keys = terms * n_docs + doc_of
     del terms, doc_of
     uniq, tf = np.unique(keys, return_counts=True)
@@ -94,7 +98,77 @@ def build_corpus(rng: np.random.Generator, n_docs: int = N_DOCS,
     return dict(block_docids=block_docids.reshape(total_blocks, BLOCK_SIZE),
                 block_tfs=block_tfs.reshape(total_blocks, BLOCK_SIZE),
                 tbs=tbs, nb=nb, df=df, lens=lens.astype(np.float32),
-                doc_ids=doc_ids, tf=tf, group_start=group_start)
+                doc_ids=doc_ids, tf=tf, group_start=group_start,
+                stream=stream)
+
+
+def corpus_streams(corpus: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The corpus's token streams (``build_corpus``'s ``stream``), as
+    ``segment_from_numpy``'s ``streams`` entry: ``tokens`` int32
+    [n_docs, longest doc] (-1 pad) and ``lengths`` int32 [n_docs].
+    Filled in row chunks, so no temporary grows with the corpus."""
+    lens = corpus["lens"].astype(np.int64)
+    n = len(lens)
+    width = int(lens.max()) if n else 0
+    tokens = np.full((n, width), -1, np.int32)
+    starts = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=starts[1:])
+    stream = corpus["stream"]
+    chunk = 1 << 16
+    for lo in range(0, n, chunk):
+        hi = min(n, lo + chunk)
+        ln = lens[lo:hi]
+        rows = np.repeat(np.arange(lo, hi), ln)
+        cols = np.arange(int(ln.sum())) - np.repeat(starts[lo:hi]
+                                                    - starts[lo], ln)
+        tokens[rows, cols] = stream[starts[lo]:starts[hi]]
+    return {"tokens": tokens, "lengths": lens.astype(np.int32)}
+
+
+def stream_sources(streams: Dict[str, np.ndarray], field: str = "title",
+                   chunk: int = 1 << 16) -> List[bytes]:
+    """Each doc's ``_source``, ``{"<field>": "<its terms, spaced>"}``,
+    from ``corpus_streams``' rows (no holes), built a chunk of rows at a
+    time from a table of the term names."""
+    tokens, lengths = streams["tokens"], streams["lengths"].astype(np.int64)
+    vocab = int(tokens.max()) + 1 if tokens.size else 0
+    width = len(term_name(max(vocab - 1, 0))) + 1
+    names = np.frombuffer("".join(term_name(t) + " " for t in range(vocab))
+                          .encode(), np.uint8).reshape(vocab, width)
+    pre, suf = f'{{"{field}":"'.encode(), b'"}'
+    out: List[bytes] = []
+    for lo in range(0, len(lengths), chunk):
+        rows, ln = tokens[lo:lo + chunk], lengths[lo:lo + chunk]
+        flat = names[rows[rows >= 0]].tobytes()
+        ends = np.cumsum(ln * width)
+        starts = ends - ln * width
+        out.extend(pre + flat[a:max(a, b - 1)] + suf
+                   for a, b in zip(starts.tolist(), ends.tolist()))
+    return out
+
+
+def rank_feature_columns(n_docs: int, rng: np.random.Generator,
+                         field: str = "ml.tokens", n_keys: int = 256,
+                         per_doc: int = 24, zipf: float = ZIPF,
+                         chunk: int = 1 << 16):
+    """A seeded ``rank_features`` field as ``segment_from_numpy``'s
+    ``numerics``: ``n_keys`` keys ``{field}.k000`` ..., each doc holding
+    ``per_doc`` distinct keys drawn by Zipf(``zipf``) weight (without
+    replacement: the Gumbel top-k of the log weights) with a weight in
+    (0, 4]; a key a doc lacks is missing (NaN). Learned-sparse
+    expansions (ELSER) give each document a few dozen weighted
+    tokens."""
+    logw = -zipf * np.log(np.arange(1, n_keys + 1, dtype=np.float64))
+    values = np.full((n_keys, n_docs), np.nan, np.float64)
+    for lo in range(0, n_docs, chunk):
+        hi = min(n_docs, lo + chunk)
+        g = logw[None, :] - np.log(-np.log(rng.random((hi - lo, n_keys))))
+        keys = np.argpartition(-g, per_doc - 1, axis=1)[:, :per_doc]
+        w = 4.0 * (1.0 - rng.random((hi - lo, per_doc)))   # (0, 4]
+        rows = np.repeat(np.arange(lo, hi), per_doc)
+        values[keys.reshape(-1), rows] = w.reshape(-1)
+    return {f"{field}.k{k:03d}": {"values": values[k]}
+            for k in range(n_keys)}
 
 
 def with_incident_terms(corpus: Dict[str, np.ndarray],
@@ -350,11 +424,14 @@ def plan_doc(rng: np.random.Generator) -> Dict[str, str]:
 
 def segment_from_corpus(corpus: Dict[str, np.ndarray], field: str = "title",
                         name: str = "corpus0", numerics=None,
-                        vectors=None, keywords=None) -> Segment:
+                        vectors=None, keywords=None,
+                        streams=None, sources=None) -> Segment:
     """The corpus as one port Segment over a text field of the terms
     ``t000000 ...`` (ids are the docids as text; no ``_source``), with
     the numeric columns ``numerics`` (``logs_columns``), the vector
-    fields ``vectors`` and the keyword columns ``keywords``
+    fields ``vectors``, the keyword columns ``keywords`` and the text
+    field's token streams ``streams`` (``corpus_streams``) and the
+    docs' ``sources`` (``stream_sources``)
     (``segment_from_numpy``'s forms) when given; the
     block-max metadata is computed from the blocks
     (index/segment.py ``block_max_meta``)."""
@@ -367,7 +444,9 @@ def segment_from_corpus(corpus: Dict[str, np.ndarray], field: str = "title",
         field_lengths=corpus["lens"])
     return segment_from_numpy({"fields": {field: postings},
                                "numerics": numerics, "vectors": vectors,
-                               "keywords": keywords}, name=name)
+                               "keywords": keywords,
+                               "streams": streams and {field: streams},
+                               "sources": sources}, name=name)
 
 
 def dense_scores(corpus: Dict[str, np.ndarray], terms: List[int],

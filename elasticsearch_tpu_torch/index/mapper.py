@@ -12,9 +12,12 @@ Field types, with the reference's class names and ``parse``: ``text``
 float32 [dims] row of the segment's vector slab; its JSON array is one
 value). An explicit mapping may give a field multi-fields
 (``"fields"``): every value indexes into the field and into each of
-them. Other field types (ranges, ``ip``, ``geo_*``,
-``constant_keyword``, ``nested``, ...) belong to later slices and are
-refused with a ``MapperParsingException``.
+them. ``rank_feature`` is a positive float doc value (its
+``positive_score_impact`` read by the rank_feature query);
+``rank_features`` is an object of feature -> positive float, each key
+its own numeric column ``{field}.{key}`` (the text_expansion query
+reads them). The other field types, ``LATER_SLICE_TYPES``, belong to
+later slices and are refused with a ``MapperParsingException``.
 
 Dynamic mapping follows the reference's ``_infer_type``: a bool maps to
 ``boolean``, an int to ``long``, a float to ``float``, a date-shaped
@@ -236,20 +239,64 @@ class DenseVectorFieldType(MappedFieldType):
         return arr
 
 
+class RankFeatureFieldType(MappedFieldType):
+    """A positive float feature (the reference's RankFeatureFieldType):
+    a numeric doc value the rank_feature query scores; a value <= 0 is
+    refused."""
+
+    type_name = "rank_feature"
+    docvalue_kind = "numeric"
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        self.positive_score_impact = bool(
+            self.params.get("positive_score_impact", True))
+
+    def parse(self, value):
+        v = float(value)
+        if v <= 0:
+            raise MapperParsingException(
+                f"[rank_feature] fields do not support negative or zero "
+                f"values, got [{v}] for field [{self.name}]")
+        return v
+
+
+class RankFeaturesFieldType(MappedFieldType):
+    """A sparse map of feature -> positive float (the reference's
+    RankFeaturesFieldType): each key lands in its own numeric column
+    ``{field}.{key}``."""
+
+    type_name = "rank_features"
+    docvalue_kind = "rank_features"
+
+    def parse(self, value):
+        if not isinstance(value, dict):
+            raise MapperParsingException(
+                f"[rank_features] field [{self.name}] expects an object")
+        out = {}
+        for k, v in value.items():
+            if float(v) <= 0:
+                raise MapperParsingException(
+                    f"[rank_features] fields do not support negative or "
+                    f"zero values, got [{v}] for feature [{k}]")
+            out[str(k)] = float(v)
+        return out
+
+
 FIELD_TYPES = {cls.type_name: cls for cls in (
     TextFieldType, KeywordFieldType, LongFieldType, IntegerFieldType,
     ShortFieldType, ByteFieldType, DoubleFieldType, FloatFieldType,
     HalfFloatFieldType, BooleanFieldType, DateFieldType,
-    DenseVectorFieldType)}
+    DenseVectorFieldType, RankFeatureFieldType, RankFeaturesFieldType)}
 
-# the reference's other field types (and nested objects): each a later
-# slice of the port
+# the reference's field types this port does not map yet (and nested
+# objects); every type of the reference is in FIELD_TYPES or here
 LATER_SLICE_TYPES = {
     "integer_range", "float_range", "long_range", "double_range",
     "date_range", "ip_range", "ip", "geo_point", "geo_shape",
-    "constant_keyword", "rank_feature", "rank_features",
-    "flattened", "join", "percolator", "completion", "search_as_you_type",
-    "token_count", "annotated_text", "wildcard", "murmur3", "nested"}
+    "constant_keyword", "flattened", "join", "percolator", "completion",
+    "search_as_you_type", "token_count", "annotated_text", "wildcard",
+    "murmur3", "nested"}
 
 
 @dataclass
@@ -357,10 +404,15 @@ class DocumentMapper:
                       parsed: ParsedDocument):
         for key, value in obj.items():
             path = f"{prefix}{key}"
+            ft = self.fields.get(path)
+            if ft is not None and ft.docvalue_kind == "rank_features":
+                # an object-valued field type: its object is ONE value
+                self._index_values(ft, value if isinstance(value, list)
+                                   else [value], parsed)
+                continue
             if isinstance(value, dict):
                 self._parse_object(f"{path}.", value, parsed)
                 continue
-            ft = self.fields.get(path)
             if ft is not None and ft.docvalue_kind == "vector":
                 # a dense_vector's JSON array is ONE value
                 values = [value]
@@ -429,6 +481,10 @@ class DocumentMapper:
             elif ft.docvalue_kind == "vector":
                 parsed.vectors[ft.name] = typed
                 parsed.vector_similarity[ft.name] = ft.similarity
+            elif ft.docvalue_kind == "rank_features":
+                for feat, v in typed.items():
+                    parsed.numeric_values.setdefault(
+                        f"{ft.name}.{feat}", []).append(v)
             else:
                 parsed.numeric_values.setdefault(ft.name, []).append(
                     float(typed))

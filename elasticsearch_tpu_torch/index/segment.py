@@ -31,6 +31,11 @@ live mask.
   a doc has none), ``has_value`` bool [n_docs], the field's ``dims`` and
   ``similarity``. This float32 host copy is what the kNN path's exact
   re-rank reads; the device holds the slab (ops/device.py).
+- **Token streams** (``TokenStreams``, text fields only): each doc's
+  term ids by position, ``tokens [n_docs, max_len] int32`` (-1 pad and
+  holes, at most ``MAX_STREAM_LEN`` positions) and ``lengths [n_docs]``;
+  the positional queries verify their candidates on them. They stay on
+  the host: nothing uploads them and no breaker charges them.
 - **Deletes as masks**: ``live[n_docs] bool``, replaced (never mutated)
   on delete, with ``live_version`` bumped so device caches can key on it.
 
@@ -84,6 +89,25 @@ class PostingsField:
     @property
     def avg_field_length(self) -> float:
         return self.sum_total_term_freq / max(1, self.doc_count)
+
+
+@dataclass
+class TokenStreams:
+    """Per-doc positional token-id streams of one text field:
+    ``tokens[n_docs, max_len]`` int32 term ids (into the field's
+    ``PostingsField.terms``), -1 padded, each token at its position
+    (a position gap stays a -1 hole). A stream longer than
+    ``MAX_STREAM_LEN`` is cut there (the positions only: postings and
+    norms see the whole stream). Positional queries check candidates
+    with shifted equality over these rows (search/phrase.py,
+    search/intervals.py)."""
+
+    field: str
+    tokens: np.ndarray    # int32 [n_docs, max_len], -1 pad
+    lengths: np.ndarray   # int32 [n_docs] indexed (maybe cut) length
+
+
+MAX_STREAM_LEN = 512
 
 
 @dataclass
@@ -149,10 +173,12 @@ class Segment:
                  live: Optional[np.ndarray] = None,
                  numerics: Optional[Dict[str, NumericDocValues]] = None,
                  vectors: Optional[Dict[str, VectorValues]] = None,
-                 keywords: Optional[Dict[str, KeywordDocValues]] = None):
+                 keywords: Optional[Dict[str, KeywordDocValues]] = None,
+                 streams: Optional[Dict[str, TokenStreams]] = None):
         self.name = name
         self.n_docs = n_docs
         self.postings = postings
+        self.streams = streams or {}
         self.numerics = numerics or {}
         self.keywords = keywords or {}
         self.vectors = vectors or {}
@@ -227,6 +253,8 @@ class SegmentWriter:
             f: _build_postings_field(f, term_docs, field_lengths[f], n)
             for f, term_docs in field_term_docs.items()
         }
+        streams = {f: _build_streams(f, docs, postings[f].term_index)
+                   for f in sorted({f for d in docs for f in d.text_tokens})}
         # numeric doc values
         numerics = {}
         for f in {f for d in docs for f in d.numeric_values}:
@@ -284,7 +312,29 @@ class SegmentWriter:
             ids.append(d.doc_id)
         stored = StoredFields(offsets, b"".join(chunks), ids)
         return Segment(name, n, postings, stored, numerics=numerics,
-                       vectors=vectors, keywords=keywords)
+                       vectors=vectors, keywords=keywords, streams=streams)
+
+
+def _build_streams(f: str, docs, tindex: Dict[str, int]) -> TokenStreams:
+    """One text field's token streams: each token at its position, up to
+    ``MAX_STREAM_LEN``; on a shared position the first token written
+    keeps the slot."""
+    n = len(docs)
+    max_len = min(MAX_STREAM_LEN,
+                  max((ts[-1].position + 1 for d in docs
+                       if (ts := d.text_tokens.get(f))), default=0))
+    toks = np.full((n, max_len), -1, np.int32)
+    lengths = np.zeros(n, np.int32)
+    for docid, d in enumerate(docs):
+        length = 0
+        for t in d.text_tokens.get(f) or ():
+            if t.position >= max_len:
+                break
+            if toks[docid, t.position] < 0:
+                toks[docid, t.position] = tindex[t.term]
+            length = max(length, t.position + 1)
+        lengths[docid] = length
+    return TokenStreams(f, toks, lengths)
 
 
 def _build_postings_field(field: str, term_docs: Dict[str, Any],
@@ -418,6 +468,10 @@ def merge_segments(name: str, segments: List[Segment]) -> Segment:
             has[m[keep]] = vv.has_value[keep]
         vectors[f] = VectorValues(f, arr, has, first.dims, first.similarity)
 
+    streams = {f: _merge_streams(f, segments, maps, new_n, postings[f])
+               for f in sorted({f for s in segments for f in s.streams})
+               if f in postings}
+
     offsets = np.zeros(new_n + 1, np.int64)
     chunks: List[bytes] = []
     ids: List[str] = []
@@ -431,7 +485,33 @@ def merge_segments(name: str, segments: List[Segment]) -> Segment:
             ids.append(seg.stored.ids[int(old)])
     stored = StoredFields(offsets, b"".join(chunks), ids)
     return Segment(name, new_n, postings, stored, numerics=numerics,
-                   vectors=vectors, keywords=keywords)
+                   vectors=vectors, keywords=keywords, streams=streams)
+
+
+def _merge_streams(f: str, segments: List[Segment], maps: List[np.ndarray],
+                   new_n: int, pf_new: PostingsField) -> TokenStreams:
+    """One field's token streams of a merge: the live docs' rows in
+    new-docid order, each old term id remapped to the merged
+    dictionary's (a term only deleted docs held maps to -1, and so does
+    the -1 pad, through the remap's extra last slot)."""
+    max_len = max(s.streams[f].tokens.shape[1]
+                  for s in segments if f in s.streams)
+    toks = np.full((new_n, max_len), -1, np.int32)
+    lengths = np.zeros(new_n, np.int32)
+    new_index = pf_new.term_index
+    for seg, m in zip(segments, maps):
+        ts = seg.streams.get(f)
+        if ts is None:
+            continue
+        old_terms = seg.postings[f].terms
+        remap = np.fromiter((new_index.get(t, -1) for t in old_terms),
+                            np.int32, count=len(old_terms))
+        remap = np.concatenate([remap, np.asarray([-1], np.int32)])
+        live_ids = np.nonzero(seg.live)[0]
+        width = ts.tokens.shape[1]
+        toks[m[live_ids], :width] = remap[ts.tokens[live_ids]]
+        lengths[m[live_ids]] = ts.lengths[live_ids]
+    return TokenStreams(f, toks, lengths)
 
 
 def _merge_numerics(f: str, segments: List[Segment], maps: List[np.ndarray],
@@ -533,7 +613,12 @@ def segment_from_numpy(arrays: Dict[str, Any], name: str = "imported",
     values), ``ords`` int32 [n_docs] (a doc's first ord, -1 where it has
     none) and optionally ``offsets`` [n_docs + 1] / ``all_ords`` (each
     doc's distinct ords ascending; default one value per doc that has
-    one). A segment of vectors alone needs no postings."""
+    one); and ``streams``, which maps each text field with postings to
+    its token streams: ``tokens`` int32 [n_docs, max_len] of term ids
+    into that field's ``terms`` (-1 pad, at most ``MAX_STREAM_LEN``
+    wide; kept as given when already int32 and contiguous) and
+    ``lengths`` int32 [n_docs] (each row's last token position + 1). A
+    segment of vectors alone needs no postings."""
     fields = arrays.get("fields")
     if fields is None:
         fields = ({field or arrays.get("field") or "body": arrays}
@@ -545,10 +630,13 @@ def segment_from_numpy(arrays: Dict[str, Any], name: str = "imported",
                for f, a in (arrays.get("vectors") or {}).items()}
     keywords = {f: _keywords_from_numpy(f, a)
                 for f, a in (arrays.get("keywords") or {}).items()}
+    streams = {f: _streams_from_numpy(f, a, postings.get(f))
+               for f, a in (arrays.get("streams") or {}).items()}
     sizes = ({len(pf.field_lengths) for pf in postings.values()}
              | {len(nv.values) for nv in numerics.values()}
              | {len(vv.has_value) for vv in vectors.values()}
-             | {len(kv.ords) for kv in keywords.values()})
+             | {len(kv.ords) for kv in keywords.values()}
+             | {len(ts.lengths) for ts in streams.values()})
     if len(sizes) != 1:
         raise ValueError(f"fields disagree on the doc count: {sorted(sizes)}")
     n = sizes.pop()
@@ -564,7 +652,26 @@ def segment_from_numpy(arrays: Dict[str, Any], name: str = "imported",
     live = arrays.get("live")
     return Segment(name, n, postings, stored,
                    None if live is None else np.asarray(live, bool).copy(),
-                   numerics=numerics, vectors=vectors, keywords=keywords)
+                   numerics=numerics, vectors=vectors, keywords=keywords,
+                   streams=streams)
+
+
+def _streams_from_numpy(fname: str, arrays: Dict[str, Any],
+                        pf: Optional[PostingsField]) -> TokenStreams:
+    if pf is None:
+        raise ValueError(f"streams of [{fname}]: the field has no postings")
+    tokens = np.ascontiguousarray(arrays["tokens"], np.int32)
+    if tokens.ndim != 2 or tokens.shape[1] > MAX_STREAM_LEN:
+        raise ValueError(f"streams of [{fname}]: tokens must be [n_docs, "
+                         f"max_len] with max_len <= {MAX_STREAM_LEN}")
+    if len(tokens) and tokens.shape[1] and (
+            tokens.min() < -1 or tokens.max() >= len(pf.terms)):
+        raise ValueError(f"streams of [{fname}]: term ids must be in "
+                         f"[-1, {len(pf.terms)})")
+    lengths = np.asarray(arrays["lengths"], np.int32)
+    if lengths.shape != (len(tokens),):
+        raise ValueError(f"streams of [{fname}]: lengths must be [n_docs]")
+    return TokenStreams(fname, tokens, lengths)
 
 
 def _keywords_from_numpy(fname: str, arrays: Dict[str, Any]) \

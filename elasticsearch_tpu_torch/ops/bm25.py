@@ -47,12 +47,14 @@ def match_mask(block_docids: torch.Tensor, block_tfs: torch.Tensor,
     """bool [n_docs]: docs appearing (tf > 0) in ANY selected block (the
     term/terms filters' any-of mask). A scatter of True: lanes with tf =
     0 write a dump slot past the end, so no lane needs a host-side
-    filter and the duplicates all write the same value."""
+    filter and the duplicates all write the same value. (``index_fill_``
+    takes True as a kernel argument: an indexed assignment of a Python
+    value would copy it from the host and wait for the stream.)"""
     sel = sel_blocks.long()
     d = block_docids[sel].reshape(-1).long()
     hit = block_tfs[sel].reshape(-1) > 0.0
     mask = torch.zeros(n_docs + 1, dtype=torch.bool, device=d.device)
-    mask[torch.where(hit, d, n_docs)] = True
+    mask.index_fill_(0, torch.where(hit, d, n_docs), True)
     return mask[:n_docs]
 
 
@@ -65,14 +67,32 @@ def match_count(block_docids: torch.Tensor, block_tfs: torch.Tensor,
     (bool must / minimum_should_match). Each selected block carries its
     owning clause's id; presence is scattered into a [n_docs, n_clauses]
     plane (tf = 0 lanes into a dump row past the end), then summed."""
+    return _clause_counts(block_docids, block_tfs, sel_blocks, clause_ids,
+                          n_clauses, n_docs)
+
+
+@tracked_kernel("conjunction_mask",
+                static_argnames=("n_clauses", "n_docs"))
+def conjunction_mask(block_docids: torch.Tensor, block_tfs: torch.Tensor,
+                     sel_blocks: torch.Tensor, clause_ids: torch.Tensor,
+                     n_clauses: int, n_docs: int) -> torch.Tensor:
+    """bool [n_docs]: the docs that hold every one of ``n_clauses``
+    terms (the positional queries' candidate filter, the reference's
+    ``_conjunction_mask``): ``match_count`` >= n_clauses."""
+    return _clause_counts(block_docids, block_tfs, sel_blocks, clause_ids,
+                          n_clauses, n_docs) >= n_clauses
+
+
+def _clause_counts(block_docids, block_tfs, sel_blocks, clause_ids,
+                   n_clauses: int, n_docs: int) -> torch.Tensor:
     sel = sel_blocks.long()
     d = block_docids[sel].long()                         # [NB, B]
     hit = block_tfs[sel] > 0.0
     cid = clause_ids.long()[:, None].expand_as(d)
     present = torch.zeros((n_docs + 1) * n_clauses, dtype=torch.bool,
                           device=d.device)
-    present[(torch.where(hit, d, n_docs) * n_clauses + cid).reshape(-1)] = \
-        True
+    present.index_fill_(
+        0, (torch.where(hit, d, n_docs) * n_clauses + cid).reshape(-1), True)
     return present.view(n_docs + 1, n_clauses)[:n_docs].sum(
         dim=1, dtype=torch.int32)
 

@@ -273,6 +273,10 @@ KERNEL_ATTRIBUTION: Dict[str, str] = {
     # ops/bm25.py: the dense executor's match columns
     "match_mask": "score",
     "match_count": "score",
+    # the positional queries' candidate filter
+    "conjunction_mask": "score",
+    # ops/features.py: text_expansion's weighted sum of feature columns
+    "feature_plane_sum": "score",
     # ops/topk.py (stable_topk has no reference counterpart: it runs
     # inside the other entries, as lax.top_k does in the reference's)
     "masked_topk": "topk",
@@ -345,8 +349,11 @@ def shard_profile_tree(shard_id: str, body: Optional[Dict[str, Any]],
             flat[k] = v
 
     device_ns = sum(flat.get(k, 0) for k in DEVICE_STAGES)
+    # a child of a timed stage (``score.verify``) is inside that stage's
+    # time already
     host_ns = sum(flat.get(k, 0) for k in HOST_STAGES) \
-        + sum(sum(c.values()) for c in children.values())
+        + sum(sum(c.values()) for p, c in children.items()
+              if p not in flat)
     total_ns = max(int(total_ns), device_ns + host_ns)
 
     breakdown: Dict[str, Any] = dict(flat)

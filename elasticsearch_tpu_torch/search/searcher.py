@@ -31,6 +31,10 @@ the host (``QueryResult.agg_masks``): after the live mask and
 ``min_score``, before ``post_filter``, as the reference's aggregations
 see it.
 
+Before either executor the query is rewritten against the shard
+(``QueryBuilder.rewrite``: more_like_this resolves its like-docs and
+terms there), under the profile's ``rewrite`` stage.
+
 After the query phase the rescorer (``rescore``, the reference's
 QueryRescorer) may re-score the top ``window_size`` docs with a second
 query run on the dense executor.
@@ -129,9 +133,15 @@ class ShardSearcher:
         exact, and when a segment pruned the total is a lower bound
         (``total_lower_bound``). ``allow_plan=False`` asks the dense
         executor for a query the plan path would take, as
-        ``collect_masks`` does (which also fills ``agg_masks``)."""
+        ``collect_masks`` does (which also fills ``agg_masks``). The
+        query and post_filter are rewritten against this shard first
+        (``QueryBuilder.rewrite``)."""
         k = min(max(size, 1), MAX_TOPK)
         sort_spec = _parse_sort(sort)
+        with _prof.span("rewrite"):
+            query = query.rewrite(self)
+            if post_filter is not None:
+                post_filter = post_filter.rewrite(self)
         plan_after: Optional[float] = None
         if search_after is not None and sort_spec is None \
                 and len(search_after) == 1:
@@ -309,7 +319,7 @@ class ShardSearcher:
         for spec in rescore_specs:
             window = int(spec.get("window_size", 10))
             qspec = spec.get("query", {})
-            rq = parse_query(qspec["rescore_query"])
+            rq = parse_query(qspec["rescore_query"]).rewrite(self)
             qw = float(qspec.get("query_weight", 1.0))
             rqw = float(qspec.get("rescore_query_weight", 1.0))
             mode = qspec.get("score_mode", "total")

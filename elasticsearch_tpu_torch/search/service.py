@@ -60,7 +60,8 @@ from elasticsearch_tpu_torch.search import profile as _prof
 from elasticsearch_tpu_torch.search.aggregations import compute_aggs
 from elasticsearch_tpu_torch.search.batching import (_CUT_BUCKETS,
                                                      KnnBatcher, PlanBatcher)
-from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
+from elasticsearch_tpu_torch.search.context import (DeviceSegmentCache,
+                                                    ShardStats)
 from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
 from elasticsearch_tpu_torch.search.queries import (MatchAllQuery,
                                                     parse_query)
@@ -130,6 +131,18 @@ def _merge_knn_into_query(body: Dict[str, Any]) -> Dict[str, Any]:
         body["query"] = {"bool": {
             "should": ([q] if q is not None else []) + clauses}}
     return body
+
+
+class _CoordinatorRewriteContext:
+    """A searcher-shaped view over every shard of the index, for the
+    coordinator's rewrite (the reference's): ``segments`` spans all
+    shards, so a like-doc resolves wherever it lives, and ``stats`` are
+    index-wide."""
+
+    def __init__(self, shard_searchers: List[ShardSearcher]):
+        self.segments = [seg for s in shard_searchers for seg in s.segments]
+        self.mapper = shard_searchers[0].mapper
+        self.stats = ShardStats(self.segments)
 
 
 class SearchService:
@@ -238,6 +251,9 @@ class SearchService:
         with _prof.span("rewrite"):
             query = (parse_query(body["query"]) if body.get("query")
                      else MatchAllQuery())
+            # the coordinator's rewrite: doc-resolving queries (a
+            # more_like_this like-doc) see every shard's segments
+            query = query.rewrite(_CoordinatorRewriteContext([searcher]))
             post_filter = (parse_query(body["post_filter"])
                            if body.get("post_filter") else None)
         sort = body.get("sort")

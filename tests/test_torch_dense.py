@@ -226,7 +226,7 @@ def test_parse_errors():
     with pytest.raises(ParsingException):
         parse_query({"made_up_query": {}})
     with pytest.raises(SliceUnsupported):
-        parse_query({"match_phrase": {"a": "b c"}})
+        parse_query({"nested": {"path": "a", "query": {"match_all": {}}}})
 
 
 # ---------------------------------------------------------------------------
@@ -247,9 +247,14 @@ def test_numeric_field_types_parse_as_the_reference():
             try:
                 want = jcls(name).parse(v)
             except Exception as e:   # noqa: BLE001 -- the type must match
-                with pytest.raises(MapperParsingException):
+                with pytest.raises(Exception) as got:
                     cls(name).parse(v)
-                assert type(e).__name__ == "MapperParsingException"
+                assert type(got.value).__name__ == type(e).__name__
+                # rank_feature parses with float(), as the reference's: a
+                # value that is no number raises float()'s ValueError
+                assert type(e).__name__ == "MapperParsingException" or (
+                    name == "rank_feature" and type(e) is ValueError), \
+                    (name, v, e)
                 continue
             assert cls(name).parse(v) == want, (name, v)
 
@@ -350,7 +355,7 @@ def test_explicit_multi_fields_index_every_subfield():
 
 def test_later_slice_types_are_refused():
     # dense_vector is mapped since the kNN slice (tests/test_torch_knn.py)
-    for ftype in ("ip", "geo_point", "date_range", "rank_features",
+    for ftype in ("ip", "geo_point", "date_range", "flattened",
                   "nested", "constant_keyword"):
         with pytest.raises(MapperParsingException, match="later slice"):
             DocumentMapper({"properties": {"x": {"type": ftype}}})

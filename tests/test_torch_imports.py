@@ -48,7 +48,8 @@ def test_importing_every_module_loads_no_jax():
     for name in ("common.errors", "script.painless", "script.interp",
                  "search.script", "common.settings", "utils.breaker",
                  "search.profile", "telemetry.context",
-                 "telemetry.flightrecorder", "telemetry.engine"):
+                 "telemetry.flightrecorder", "telemetry.engine",
+                 "search.phrase", "search.intervals", "ops.features"):
         assert f"elasticsearch_tpu_torch.{name}" in res["modules"]
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 

@@ -255,8 +255,9 @@ def test_slice_boundaries_are_typed(nodes):
         st, r = http(port, "POST", "/idx/_search", body)
         assert st == 200, (body, r)
         assert_same_hits(r, jax_dispatch(jax_node, body), page_size(body))
-    # later slices: positional queries and keyword sorts
-    for body in ({"query": {"match_phrase": {"body": "w1 w2"}}},
+    # later slices: nested queries and keyword sorts
+    for body in ({"query": {"nested": {"path": "items",
+                                       "query": {"match_all": {}}}}},
                  {"query": {"match": {"body": "w1"}},
                   "sort": [{"tag": "asc"}]}):
         st, r = http(port, "POST", "/idx/_search", body)

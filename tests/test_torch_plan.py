@@ -216,7 +216,8 @@ def test_rest_from_and_typed_400s(searchers):
                              rtol=RTOL)
             for h in got["hits"]["hits"]:
                 assert h["_source"]["title"]
-        for bad in ({"query": {"match_phrase": {"title": "alpha wolf"}}},
+        for bad in ({"query": {"geo_distance": {"distance": "1km",
+                                                "loc": [0, 0]}}},
                     {"query": CASES[0], "aggs": {"t": {"top_hits": {
                         "size": 3}}}}):
             st, r = c.dispatch("POST", "/p/_search", {}, bad)
