@@ -207,10 +207,37 @@ Phases (any failure exits non-zero; no exception is swallowed):
               score column uploads), and the device ms of the
               conjunction filter and of the feature plane's weighted sum
               against their bounds
- 11. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
-              script, aggs, accounting, fulltext, filters, plan and
-              kernels JSON lines, the card's name and power limit, and
-              the last line {"ok": true, "device": {...}}
+ 11. fetch    fetch, sort and filter conversion: an index "kw" of the
+              corpus with the bench's 500-term ``cat`` keyword (its doc
+              values and postings; every 13th doc without one) and a
+              bulked second segment of 2,000 docs (a term of its own,
+              "zz-only"; c250-c259; none). Keyword sorts asc and desc,
+              alone, with ``_doc`` and under match queries, and cursors
+              on a term of one segment only, a term of no segment, a
+              common term and a missing value, each held to a numpy
+              oracle (ids, order, sort values, totals: lexicographic
+              terms, missing last, ties by (segment, docid)); walks of
+              10 search_after pages of 100 equal to one page of 1000;
+              collapse on cat (the first hit per key of the uncollapsed
+              answer); on "fulltext" 12 bodies of _source filters,
+              fields, docvalue_fields and highlight (unified, plain,
+              fvh) at size 100, each equal to the CPU execution, with
+              their query and fetch ms from profile: true; on "logs"
+              script_fields (an expression over bytes and status held
+              to a float64 oracle under float32 columns, rtol 1e-6; a
+              statement script answers 400) and terminate_after; then
+              filter conversion: plan bodies with a FILTER, a MUST_NOT
+              or a should + FILTER on a high-df term of "bench" and a
+              popular cat of "kw", run with conversion on and off, the
+              hits, order and totals equal, equal under
+              track_total_hits 10000, "bench"'s held to the float64
+              oracle; the mask cache's hits and misses, each mix's qps
+              and p50/p99 from 16 clients, and the cohorts the batcher
+              forms with their lanes and device ms, on and off
+ 12. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
+              script, aggs, accounting, fulltext, fetch, filters, plan
+              and kernels JSON lines, the card's name and power limit,
+              and the last line {"ok": true, "device": {...}}
 
 Needs one CUDA card, and the repository around it.
 """
@@ -2213,9 +2240,8 @@ def dense_breakdown(node, bodies, iters):
         def mask_fn():
             m = m0 & ctx.live
             if after is not None:
-                m = m & _search_after_mask(ctx, svc.mapper, scores, spec,
-                                           after)
-            return m, _primary_sort_key(ctx, svc.mapper, scores, spec)
+                m = m & _search_after_mask(ctx, scores, spec, after)
+            return m, _primary_sort_key(ctx, scores, spec)
         mask_ms = cuda_ms(mask_fn, iters)[0]
         m, key = mask_fn()
         topk_ms = cuda_ms(lambda: masked_topk(key, m, k), iters)[0]
@@ -4841,6 +4867,502 @@ def phase_fulltext(node, port, corpus, seed, conns, counters, cpu):
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+KW_EXTRA = 2000        # docs of "kw"'s bulked second segment
+KW_BIG = 1 << 30       # the oracle's rank of a missing value
+FETCH_SIZE = 100
+
+
+def kw_extra_docs(vocab, seed):
+    """The second segment of "kw": ``KW_EXTRA`` docs (ids x0 ...) with
+    titles of 3-8 of the first 200 corpus terms and a ``cat``: about 30 %
+    "zz-only" (a term of this segment only), 20 % none, the rest one of
+    c250 ... c259."""
+    from elasticsearch_tpu_torch.corpus import term_name
+    rng = np.random.default_rng(seed)
+    docs = []
+    for _ in range(KW_EXTRA):
+        d = {"title": " ".join(term_name(int(t)) for t in rng.integers(
+            0, min(vocab, 200), int(rng.integers(3, 9))))}
+        r = rng.random()
+        if r < 0.3:
+            d["cat"] = "zz-only"
+        elif r >= 0.5:
+            d["cat"] = f"c{250 + int(rng.integers(0, 10)):03d}"
+        docs.append(d)
+    return docs
+
+
+class KeywordOracle:
+    """numpy answers of keyword sorts over "kw"'s two segments: each
+    doc's term rank in the union of the segments' terms (KW_BIG where it
+    has none), segment and docid."""
+
+    def __init__(self, ords0, terms0, extra):
+        self.terms = sorted(set(terms0) | {d["cat"] for d in extra
+                                           if "cat" in d})
+        rank = {t: i for i, t in enumerate(self.terms)}
+        r_of = np.array([rank[t] for t in terms0], np.int64)
+        r0 = np.where(ords0 >= 0, r_of[np.maximum(ords0, 0)], KW_BIG)
+        r1 = np.array([rank.get(d.get("cat"), KW_BIG) for d in extra],
+                      np.int64)
+        self.ranks = np.concatenate([r0, r1])
+        self.segs = np.concatenate([np.zeros(len(r0), np.int64),
+                                    np.ones(len(r1), np.int64)])
+        self.docids = np.concatenate([np.arange(len(r0)),
+                                      np.arange(len(r1))])
+        self.ids = np.array([str(i) for i in range(len(r0))]
+                            + [f"x{i}" for i in range(len(r1))])
+
+    def key(self, order):
+        """The sort key: ascending rank, or descending, missing last."""
+        if order == "asc":
+            return self.ranks
+        return np.where(self.ranks == KW_BIG, KW_BIG, -self.ranks)
+
+    def cursor_key(self, term, order):
+        """A cursor term's key (an absent term sits between its
+        neighbours)."""
+        import bisect
+        if term is None:
+            return KW_BIG
+        i = bisect.bisect_left(self.terms, term)
+        fr = i if i < len(self.terms) and self.terms[i] == term else i - 0.5
+        return fr if order == "asc" else -fr
+
+    def page(self, order, size, mask=None, doc_key=False, after=None):
+        """(ids, sort values, total) of a sort on ``cat`` (then ``_doc``
+        with ``doc_key``): ties by (segment, docid), or by (docid,
+        segment) under ``_doc``; ``after`` a search_after cursor."""
+        key = self.key(order)
+        sel = np.ones(len(key), bool) if mask is None else mask.copy()
+        total = int(sel.sum())
+        if after is not None:
+            ck = self.cursor_key(after[0], order)
+            if doc_key and len(after) > 1:
+                sel &= (key > ck) | ((key == ck) & (self.docids > after[1]))
+            else:
+                sel &= key > ck
+        idx = np.nonzero(sel)[0]
+        if doc_key:
+            o = np.lexsort((self.segs[idx], self.docids[idx], key[idx]))
+        else:
+            o = np.lexsort((self.docids[idx], self.segs[idx], key[idx]))
+        idx = idx[o][:size]
+        vals = [[None if self.ranks[i] == KW_BIG else self.terms[
+            self.ranks[i]]] + ([int(self.docids[i])] if doc_key else [])
+            for i in idx]
+        return self.ids[idx].tolist(), vals, total
+
+
+def check_kw_page(r, want, what):
+    ids, vals, total = want
+    check(r["hits"]["total"] == {"value": total, "relation": "eq"},
+          f"{what}: total {r['hits']['total']} vs the oracle's {total}")
+    check([h["_id"] for h in r["hits"]["hits"]] == ids,
+          f"{what}: ids and order")
+    check([h["sort"] for h in r["hits"]["hits"]] == vals,
+          f"{what}: sort values")
+
+
+def same_fetch(r, c, what):
+    """An HTTP answer against the port's CPU execution: equal_to_cpu, and
+    each hit's _source, fields and highlight equal."""
+    equal_to_cpu(r, c, what)
+    for a, b in zip(r["hits"]["hits"], c["hits"]["hits"]):
+        for key in ("_source", "fields", "highlight", "sort"):
+            check(a.get(key) == b.get(key), f"{what}: hit {a['_id']} {key}")
+    check(r.get("terminated_early") == c.get("terminated_early"),
+          f"{what}: terminated_early")
+
+
+def profiled_split(port, index, body):
+    """{query_ms, fetch_ms, device_ms, host_ms, stages: the query's
+    stages in ms} of ``body`` from its profile: true answer."""
+    st, p = http(port, "POST", f"/{index}/_search", dict(body, profile=True))
+    check(st == 200, f"profile: true on {index}: {p}")
+    sh = p["profile"]["shards"][0]
+    q = sh["searches"][0]["query"][0]
+    br = q["breakdown"]
+    return dict(query_ms=q["time_in_nanos"] / 1e6,
+                fetch_ms=sh["fetch"]["time_in_nanos"] / 1e6,
+                device_ms=br.get("device_time_in_nanos", 0) / 1e6,
+                host_ms=br.get("host_time_in_nanos", 0) / 1e6,
+                stages={k: v / 1e6 for k, v in br.items()
+                        if isinstance(v, (int, float)) and v
+                        and not k.endswith("_in_nanos")})
+
+
+def mix_load(port, bodies, index, conns, what):
+    """Every body of one mix from ``conns`` Python clients: the results
+    (each a 200) and qps, p50 and p99."""
+    res, lat, wall = drive(port, bodies, conns, index)
+    bad = [(i, st, r) for i, (st, r) in enumerate(res) if st != 200]
+    check(not bad, f"{what}: no body refused: {bad[:2]}")
+    p50, p99 = p50_p99(lat)
+    return res, dict(requests=len(bodies), qps=len(bodies) / wall,
+                     p50_ms=p50, p99_ms=p99, clients=conns)
+
+
+def conversion_cohorts(node, index, bodies, k, reps=3):
+    """The cohorts the PlanBatcher forms from ``bodies`` on ``index``'s
+    first segment (grouped by its signature, at most 32 a launch), with
+    conversion on and off: per cohort its Q, lanes, the launch's ms by
+    CUDA events (``cuda_ms``, 3 launches a window: a plan launch is
+    hundreds of kernels, and the host's gaps count when it cannot queue
+    them ahead) and its kernels' summed device ms under torch.profiler,
+    with the kernels a launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from elasticsearch_tpu_torch.ops import plan as plan_ops
+    from elasticsearch_tpu_torch.search import batching
+    from elasticsearch_tpu_torch.search import plan as tplan
+    from elasticsearch_tpu_torch.search.plan import (bind_plan,
+                                                     compile_plan,
+                                                     launch_mask)
+    from elasticsearch_tpu_torch.search.queries import parse_query
+    from elasticsearch_tpu_torch.search.searcher import ShardSearcher
+    svc = node.indices[index]
+    searcher = ShardSearcher(svc.engine.segments, svc.mapper,
+                             node.device_cache, svc.k1, svc.b)
+    ctx = searcher._contexts()[0]
+    out = {}
+    saved = tplan.FILTER_CACHE_MIN_BLOCKS
+    try:
+        for mode, threshold in (("on", saved), ("off", 1 << 40)):
+            tplan.FILTER_CACHE_MIN_BLOCKS = threshold
+            groups = {}
+            for b in bodies:
+                bp = bind_plan(compile_plan(parse_query(b["query"]),
+                                            searcher), ctx, k)
+                groups.setdefault(batching.PlanBatcher._signature(
+                    bp, ctx, k, svc.k1, svc.b), []).append(bp)
+            rows = []
+            for bps in groups.values():
+                for lo in range(0, len(bps), batching.MAX_BATCH):
+                    chunk = bps[lo:lo + batching.MAX_BATCH]
+                    q = batching._q_bucket(len(chunk))
+                    pad = chunk + [chunk[0]] * (q - len(chunk))
+                    args, kw = batching.PlanBatcher.cohort_args(pad,
+                                                                ctx.live)
+                    kw["dense_mask"] = launch_mask(chunk[0], ctx)
+
+                    def launch(args=args, kw=kw):
+                        plan_ops.plan_topk_batch(*args, k1=svc.k1, b=svc.b,
+                                                 k=k, **kw)
+                    ms, _host = cuda_ms(launch, 3)
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        for _ in range(reps):
+                            launch()
+                        torch.cuda.synchronize()
+                    kernels = kernel_rows(prof.key_averages())
+                    rows.append(dict(
+                        cohort=len(chunk), q_bucket=q,
+                        lanes=batching.PlanBatcher._lanes(
+                            [batching._Entry(bp) for bp in chunk]),
+                        converted=chunk[0].n_converted, ms=ms,
+                        kernel_ms=sum(self_dev(e) for e in kernels)
+                        / reps / 1e3,
+                        kernels=sum(e.count for e in kernels) / reps))
+            out[mode] = dict(
+                cohorts=rows,
+                lanes_per_launch=float(np.mean([r["lanes"] for r in rows])),
+                kernel_ms_per_cohort=float(np.mean([r["kernel_ms"]
+                                                    for r in rows])),
+                kernel_ms_total=float(sum(r["kernel_ms"] for r in rows)),
+                ms_total=float(sum(r["ms"] for r in rows)))
+    finally:
+        tplan.FILTER_CACHE_MIN_BLOCKS = saved
+    return out
+
+
+def phase_fetch(node, port, corpus, queries, cols, seed, conns, counters,
+                cpu):
+    """The fetch and sort features and filter conversion on one H100
+    (module docstring, phase 11)."""
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import (bench_cat, dense_scores,
+                                                keyword_postings,
+                                                segment_from_corpus,
+                                                term_name)
+    from elasticsearch_tpu_torch.search import plan as tplan
+    n = len(corpus["lens"])
+    vocab = len(corpus["df"])
+    rng = np.random.default_rng(seed)
+    out = {}
+    conns = min(conns, 16)
+    # ---- set-up: "kw", the corpus with the bench's cat column (and its
+    # postings, some docs without a value) and a bulked second segment
+    t0 = time.time()
+    ords, terms = bench_cat(n)
+    ords = ords.copy()
+    ords[::13] = -1
+    node.create_index("kw", {"properties": {"title": {"type": "text"},
+                                            "cat": {"type": "keyword"}}})
+    kw = node.indices["kw"]
+    kw.engine.install_segments([segment_from_corpus(
+        corpus, name="kw0", keywords={"cat": {"ords": ords,
+                                              "terms": terms}},
+        fields={"cat": keyword_postings(ords, terms)})])
+    extra = kw_extra_docs(vocab, seed + 1)
+    bulk = "".join(json.dumps({"index": {"_id": f"x{i}"}}) + "\n"
+                   + json.dumps(d) + "\n" for i, d in enumerate(extra))
+    st, r = http(port, "POST", "/kw/_bulk", bulk, ndjson=True)
+    check(st == 200 and not r["errors"], f"kw bulk: {str(r)[:200]}")
+    check(http(port, "POST", "/kw/_refresh")[0] == 200, "kw _refresh")
+    segs = kw.engine.segments
+    check(len(segs) == 2, f"kw holds two segments: {len(segs)}")
+    devs = [node.device_cache.get(s) for s in segs]
+    torch.cuda.synchronize()
+    ord0 = devs[0].hbm_bytes_by_class()["ordinals"]
+    t1 = time.perf_counter()
+    col = devs[0].keyword_ord_column("cat")
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t1) * 1e3
+    out["sort_column"] = dict(
+        build_ms=build_ms, bytes=int(col[0].nbytes + col[1].nbytes),
+        charged=devs[0].hbm_bytes_by_class()["ordinals"] - ord0,
+        n_docs=n)
+    check(out["sort_column"]["charged"] == out["sort_column"]["bytes"],
+          f"the sort column is charged under ordinals: {out['sort_column']}")
+    out["setup_s"] = time.time() - t0
+    log(f"[fetch] kw set up: {out['sort_column']}")
+    orc = KeywordOracle(ords, terms, extra)
+
+    def match_mask(t):
+        m0 = np.zeros(n, bool)
+        lo, hi = int(corpus["group_start"][t]), \
+            int(corpus["group_start"][t + 1])
+        m0[corpus["doc_ids"][lo:hi]] = True
+        m1 = np.array([term_name(t) in d["title"].split() for d in extra])
+        return np.concatenate([m0, m1])
+
+    # ---- (a) keyword sorts against numpy, the kernels' counts from 0
+    for c in counters.values():
+        c.launches = 0
+    terms_q = [int(t) for t in rng.integers(0, min(vocab, 200), 4)]
+    sort_cases = []
+    for order in ("asc", "desc"):
+        sort_cases.append(({"sort": [{"cat": order}]}, order, None, False,
+                           None))
+        sort_cases.append(({"sort": [{"cat": order}, "_doc"]}, order, None,
+                           True, None))
+        for t in terms_q[:2]:
+            sort_cases.append(({"query": {"match": {"title": term_name(t)}},
+                                "sort": [{"cat": order}]}, order,
+                               match_mask(t), False, None))
+        for cur in (["zz-only"], ["c2505"], ["c100"], [None]):
+            sort_cases.append(({"sort": [{"cat": order}],
+                                "search_after": cur}, order, None, False,
+                               cur))
+    kw_bodies = [dict(b, size=FETCH_SIZE, _source=False)
+                 for b, *_ in sort_cases]
+    res, out["kw_sort_load"] = mix_load(port, kw_bodies, "kw", conns,
+                                        "keyword sorts")
+    for (body, order, mask, doc_key, after), (_, r) in zip(sort_cases, res):
+        check_kw_page(r, orc.page(order, FETCH_SIZE, mask, doc_key, after),
+                      f"keyword sort {json.dumps(body)[:120]}")
+    out["kw_sort_split"] = [profiled_split(port, "kw", b) for b in kw_bodies]
+    log(f"[fetch] keyword sorts, query vs fetch ms: {out['kw_sort_split']}")
+    # a walk of 10 pages of 100 against one page of 1000
+    walks = {}
+    for order in ("asc", "desc"):
+        sort = [{"cat": order}, "_doc"]
+        st, whole = http(port, "POST", "/kw/_search",
+                         {"sort": sort, "size": 1000, "_source": False})
+        walked, after = [], None
+        for _ in range(10):
+            body = {"sort": sort, "size": 100, "_source": False}
+            if after is not None:
+                body["search_after"] = after
+            st, r = http(port, "POST", "/kw/_search", body)
+            check(st == 200, f"walk page: {r}")
+            walked += r["hits"]["hits"]
+            after = r["hits"]["hits"][-1]["sort"]
+        check([h["_id"] for h in walked]
+              == [h["_id"] for h in whole["hits"]["hits"]],
+              f"the {order} walk of 10 pages equals one page of 1000")
+        check_kw_page(whole, orc.page(order, 1000, doc_key=True),
+                      f"one {order} page of 1000")
+        walks[order] = dict(pages=10, docs=len(walked),
+                            zz_only=sum(h["sort"][0] == "zz-only"
+                                        for h in walked))
+    out["walks"] = walks
+    # ---- (b) collapse on cat: the first hit of each key
+    collapse = []
+    for t in terms_q:
+        body = {"query": {"match": {"title": term_name(t)}},
+                "collapse": {"field": "cat"}, "size": 10, "_source": False}
+        st, r = http(port, "POST", "/kw/_search", body)
+        st2, full = http(port, "POST", "/kw/_search",
+                         {"query": body["query"], "size": 50,
+                          "_source": False, "docvalue_fields": ["cat"]})
+        check(st == st2 == 200, f"collapse body: {r}")
+        seen, want = set(), []
+        for h in full["hits"]["hits"]:
+            key = (h.get("fields", {}).get("cat") or [None])[0]
+            if key not in seen:
+                seen.add(key)
+                want.append((h["_id"], key))
+        got = [(h["_id"], h["fields"]["cat"][0]) for h in r["hits"]["hits"]]
+        check(got == want[:10], f"collapse on cat: first hit per key "
+                                f"({got[:3]} vs {want[:3]})")
+        same_fetch(r, cpu.search("kw", kw, body), "collapse vs CPU")
+        collapse.append(len(got))
+    out["collapse_groups"] = collapse
+    # ---- (c) _source filtering, fields, docvalue_fields, highlight on
+    # "fulltext", each equal to the CPU execution
+    ft = node.indices["fulltext"]
+    fetch_bodies = []
+    for i, q in enumerate(queries[:12]):
+        text = " ".join(term_name(t) for t in q[:2])
+        htype = ("unified", "plain", "fvh")[i % 3]
+        fetch_bodies.append({
+            "query": {"match": {"title": text}}, "size": FETCH_SIZE,
+            "_source": [{"includes": ["title"]}, ["title"], False,
+                        "ti*"][i % 4],
+            "fields": ["views", "title"], "docvalue_fields": ["views"],
+            "highlight": {"fields": {"title": {
+                "type": htype, "fragment_size": 80,
+                "number_of_fragments": 3}}}})
+    res, out["fetch_load"] = mix_load(port, fetch_bodies, "fulltext", conns,
+                                      "fetch bodies")
+    fetch_split = []
+    for i, (body, (_, r)) in enumerate(zip(fetch_bodies, res)):
+        same_fetch(r, cpu.search("fulltext", ft, body), f"fetch body {i}")
+        check(all("highlight" in h for h in r["hits"]["hits"]),
+              f"fetch body {i}: every hit highlighted")
+        fetch_split.append(dict(
+            type=body["highlight"]["fields"]["title"]["type"],
+            **profiled_split(port, "fulltext", body)))
+    out["fetch_split"] = fetch_split
+    log(f"[fetch] highlight bodies, query vs fetch ms: {fetch_split}")
+    # ---- (d) script_fields and terminate_after on "logs"
+    logs = node.indices["logs"]
+    b32 = np.nan_to_num(cols["bytes"]["values"], nan=0.0).astype(np.float32)
+    s32 = cols["status"]["values"].astype(np.float32)
+    script = "doc['bytes'].value / 1024 + doc['status'].value * 0.5"
+    sbody = {"query": {"match_all": {}}, "sort": [{"@timestamp": "asc"}],
+             "size": FETCH_SIZE, "_source": False,
+             "script_fields": {"v": {"script": script}}}
+    st, r = http(port, "POST", "/logs/_search", sbody)
+    check(st == 200, f"script_fields: {r}")
+    ids = np.array([int(h["_id"]) for h in r["hits"]["hits"]])
+    got = np.array([h["fields"]["v"][0] for h in r["hits"]["hits"]])
+    want = (b32[ids].astype(np.float64) / np.float32(1024)
+            + s32[ids].astype(np.float64) * np.float32(0.5))
+    check(ids.tolist() == list(range(FETCH_SIZE)),
+          "script_fields: the first docs by @timestamp")
+    check(np.allclose(got, want, rtol=1e-6, atol=0),
+          "script_fields: the float64 oracle under float32 columns")
+    same_fetch(r, cpu.search("logs", logs, sbody), "script_fields vs CPU")
+    st, r = http(port, "POST", "/logs/_search", dict(sbody, script_fields={
+        "s": {"script": "double t = 0; for (int i = 0; i < 2; ++i) "
+                        "{ t += doc['bytes'].value; } return t;"}}))
+    check(st == 400 and r["error"]["type"] == "script_exception",
+          f"a statement script field answers 400 script_exception: {r}")
+    term_cases = [({"query": {"match_all": {}}, "terminate_after": 1000,
+                    "sort": [{"@timestamp": "asc"}], "size": 10}, 1000),
+                  ({"query": {"match": {"title": term_name(terms_q[0])}},
+                    "terminate_after": 50, "size": 10}, 50)]
+    for body, ta in term_cases:
+        body = dict(body, _source=False)
+        st, r = http(port, "POST", "/logs/_search", body)
+        check(st == 200 and r["terminated_early"] is True
+              and r["hits"]["total"] == {"value": ta, "relation": "gte"},
+              f"terminate_after {ta}: {str(r)[:200]}")
+        same_fetch(r, cpu.search("logs", logs, body), "terminate_after")
+    out["script_terminate"] = dict(script=script, checked=FETCH_SIZE)
+    # ---- (e) filter conversion on "bench" (against the float64 oracle)
+    # and on "kw" (a popular cat), on and off
+    df = corpus["df"]
+    hi = [int(t) for t in np.argsort(-df)[:4]]
+    conv_bench = []
+    for i, q in enumerate(queries[:12]):
+        must = {"match": {"title": " ".join(term_name(t) for t in q[:3])}}
+        f = {"term": {"title": term_name(hi[i % 4])}}
+        shape = i % 3
+        if shape == 0:
+            qb = {"bool": {"must": [must], "filter": [f]}}
+        elif shape == 1:
+            qb = {"bool": {"must": [must], "must_not": [f]}}
+        else:
+            qb = {"bool": {"should": [must], "filter": [f],
+                           "minimum_should_match": 1}}
+        conv_bench.append((qb, list(q[:3]), hi[i % 4], shape))
+    conv_kw = []
+    for i, t in enumerate(terms_q):
+        f = {"terms": {"cat": ["c000", "c001"][:1 + i % 2]}}
+        must = {"match": {"title": term_name(t)}}
+        conv_kw.append({"bool": {"must": [must], "filter": [f]}}
+                       if i % 2 == 0 else
+                       {"bool": {"must": [must], "must_not": [f]}})
+    mixes = {"bench": [{"query": qb, "size": FETCH_SIZE, "_source": False}
+                       for qb, *_ in conv_bench],
+             "kw": [{"query": qb, "size": FETCH_SIZE, "_source": False}
+                    for qb in conv_kw]}
+    answers = {}
+    cache0 = node.device_cache.cache_stats()["filter_mask"]
+    saved = tplan.FILTER_CACHE_MIN_BLOCKS
+    try:
+        for mode, threshold in (("on", saved), ("off", 1 << 40)):
+            tplan.FILTER_CACHE_MIN_BLOCKS = threshold
+            for index, bodies in mixes.items():
+                res, load = mix_load(port, bodies, index, conns,
+                                     f"conversion {mode} on {index}")
+                pr = [http(port, "POST", f"/{index}/_search",
+                           dict(b, track_total_hits=10000))
+                      for b in bodies]
+                load["split"] = [profiled_split(port, index, b)
+                                 for b in bodies]
+                answers[(mode, index)] = (res, pr, load)
+    finally:
+        tplan.FILTER_CACHE_MIN_BLOCKS = saved
+    cache1 = node.device_cache.cache_stats()["filter_mask"]
+    # the phase's launches: its HTTP traffic from (a) to here
+    out["launches"] = {name: c.launches for name, c in counters.items()}
+    check(out["launches"]["gather_bm25_contrib"] > 0
+          and out["launches"]["merge_sorted_slots"] == 0,
+          f"phase 11 launched the contribution kernel and not the merge: "
+          f"{out['launches']}")
+    for index, bodies in mixes.items():
+        (on, pon, _), (off, poff, _) = (answers[("on", index)],
+                                        answers[("off", index)])
+        for i in range(len(bodies)):
+            what = f"conversion body {i} on {index}"
+            equal_to_cpu(on[i][1], off[i][1], f"{what}: on vs off")
+            # under a threshold the total is a lower bound; the hits are
+            # the exact ask's
+            for pruned, how in ((pon[i][1], "on"), (poff[i][1], "off")):
+                check([(h["_id"], h["_score"])
+                       for h in pruned["hits"]["hits"]]
+                      == [(h["_id"], h["_score"])
+                          for h in on[i][1]["hits"]["hits"]],
+                      f"{what}: track_total_hits 10000 ({how}) answers "
+                      f"the exact hits")
+            if index == "kw":
+                equal_to_cpu(on[i][1], cpu.search("kw", kw, bodies[i]),
+                             f"{what}: vs CPU")
+    for i, (qb, qterms, f, shape) in enumerate(conv_bench):
+        keep = match_mask(f)[:n]
+        scores = dense_scores(corpus, qterms) * (~keep if shape == 1
+                                                 else keep)
+        check_ft_answer(answers[("on", "bench")][0][i][1], scores,
+                        f"conversion body {i} on bench vs the oracle")
+    out["conversion"] = dict(
+        load={f"{mode}_{index}": answers[(mode, index)][2]
+              for mode, index in answers},
+        mask_cache={k: cache1[k] - cache0[k]
+                    for k in ("hits", "misses", "evictions")},
+        cohorts={index: conversion_cohorts(node, index, bodies, FETCH_SIZE)
+                 for index, bodies in mixes.items()})
+    log(f"[fetch] conversion {out['conversion']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--docs", type=int, default=2_000_000)
@@ -5081,10 +5603,16 @@ def main(argv=None) -> int:
         fulltext = phase_fulltext(node, port, corpus, args.seed + 12,
                                   min(args.clients, 64), counters, cpu)
         hbm_agrees(node, "fulltext", hbm_log)
+
+        # ---- 11. fetch and sort features, filter conversion
+        fetch = phase_fetch(node, port, corpus, queries, cols,
+                            args.seed + 13, args.clients, counters, cpu)
+        hbm_agrees(node, "fetch", hbm_log)
+        fetch["hbm"] = hbm_log[-1]
     finally:
         node.close()
 
-    # ---- 11. report
+    # ---- 12. report
     meta = {
         "gather_bm25_contrib": dict(
             source="elasticsearch_tpu_torch/csrc/bm25_contrib.cu",
@@ -5116,6 +5644,7 @@ def main(argv=None) -> int:
             launches_aggs=aggs["launches"][name],
             launches_accounting=accounting["attribution"]["launches"][name],
             launches_fulltext=fulltext["launches"][name],
+            launches_fetch=fetch["launches"][name],
             dense_shape=(dense["contrib_dense_shape"]
                          if name == "gather_bm25_contrib" else None)))
     print(json.dumps({"scale": scale}))
@@ -5130,6 +5659,7 @@ def main(argv=None) -> int:
     print(json.dumps({"aggs": aggs}))
     print(json.dumps({"accounting": accounting}))
     print(json.dumps({"fulltext": fulltext}))
+    print(json.dumps({"fetch": fetch}))
     print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))

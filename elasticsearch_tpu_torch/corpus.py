@@ -23,7 +23,7 @@ a random doc plus 0.25 of Gaussian noise, normalized.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -422,17 +422,45 @@ def plan_doc(rng: np.random.Generator) -> Dict[str, str]:
             "views": int(rng.integers(0, 100))}
 
 
+def keyword_postings(ords: np.ndarray, terms: List[str]) -> Dict[str, Any]:
+    """The postings of a single-valued keyword column (int32 ``ords``
+    [n_docs], -1 where a doc has none; the sorted ``terms``), as the
+    SegmentWriter builds a keyword field's: tf 1, field length 1 where a
+    doc has a value; ``segment_from_numpy``'s ``fields`` entry. The term
+    and filter queries on the field (and the plan path's filter
+    conversion) read them."""
+    n_terms = len(terms)
+    docs = np.nonzero(ords >= 0)[0]
+    o = ords[docs]
+    order = np.argsort(o, kind="stable")
+    docs, o = docs[order], o[order].astype(np.int64)
+    df = np.bincount(o, minlength=n_terms).astype(np.int64)
+    nb = -(-df // 128)
+    tbs = np.concatenate([[0], np.cumsum(nb)])
+    block_docids = np.zeros((int(tbs[-1]), 128), np.int32)
+    block_tfs = np.zeros((int(tbs[-1]), 128), np.float32)
+    j = np.arange(len(docs)) - np.repeat(np.cumsum(df) - df, df)
+    block_docids[tbs[o] + j // 128, j % 128] = docs
+    block_tfs[tbs[o] + j // 128, j % 128] = 1.0
+    return dict(terms=list(terms), doc_freq=df, term_block_start=tbs[:-1],
+                term_block_count=nb, block_docids=block_docids,
+                block_tfs=block_tfs,
+                field_lengths=(ords >= 0).astype(np.float32))
+
+
 def segment_from_corpus(corpus: Dict[str, np.ndarray], field: str = "title",
                         name: str = "corpus0", numerics=None,
                         vectors=None, keywords=None,
-                        streams=None, sources=None) -> Segment:
+                        streams=None, sources=None,
+                        fields=None) -> Segment:
     """The corpus as one port Segment over a text field of the terms
     ``t000000 ...`` (ids are the docids as text; no ``_source``), with
     the numeric columns ``numerics`` (``logs_columns``), the vector
     fields ``vectors``, the keyword columns ``keywords`` and the text
-    field's token streams ``streams`` (``corpus_streams``) and the
-    docs' ``sources`` (``stream_sources``)
-    (``segment_from_numpy``'s forms) when given; the
+    field's token streams ``streams`` (``corpus_streams``), the docs'
+    ``sources`` (``stream_sources``) and more postings ``fields``
+    (``keyword_postings``) (``segment_from_numpy``'s forms) when given;
+    the
     block-max metadata is computed from the blocks
     (index/segment.py ``block_max_meta``)."""
     vocab = len(corpus["df"])
@@ -442,7 +470,7 @@ def segment_from_corpus(corpus: Dict[str, np.ndarray], field: str = "title",
         term_block_count=corpus["nb"],
         block_docids=corpus["block_docids"], block_tfs=corpus["block_tfs"],
         field_lengths=corpus["lens"])
-    return segment_from_numpy({"fields": {field: postings},
+    return segment_from_numpy({"fields": {field: postings, **(fields or {})},
                                "numerics": numerics, "vectors": vectors,
                                "keywords": keywords,
                                "streams": streams and {field: streams},

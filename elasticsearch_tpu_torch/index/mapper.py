@@ -16,8 +16,11 @@ them. ``rank_feature`` is a positive float doc value (its
 ``positive_score_impact`` read by the rank_feature query);
 ``rank_features`` is an object of feature -> positive float, each key
 its own numeric column ``{field}.{key}`` (the text_expansion query
-reads them). The other field types, ``LATER_SLICE_TYPES``, belong to
-later slices and are refused with a ``MapperParsingException``.
+reads them). ``completion`` holds suggestion inputs (a string, a list,
+or ``{"input", "weight", "contexts"}``) for the completion suggester's
+prefix index (index/segment.py ``CompletionValues``). The other field
+types, ``LATER_SLICE_TYPES``, belong to later slices and are refused
+with a ``MapperParsingException``.
 
 Dynamic mapping follows the reference's ``_infer_type``: a bool maps to
 ``boolean``, an int to ``long``, a float to ``float``, a date-shaped
@@ -283,18 +286,56 @@ class RankFeaturesFieldType(MappedFieldType):
         return out
 
 
+class CompletionFieldType(MappedFieldType):
+    """Suggestion inputs with optional weights and category contexts,
+    served by the weighted prefix index (index/segment.py
+    CompletionValues). A value is a string, a list of strings, or
+    ``{"input": [...], "weight": N, "contexts": {name: [values]}}``."""
+
+    type_name = "completion"
+    docvalue_kind = "completion"
+
+    def parse(self, value):
+        """A list of (input, weight, frozenset of "name=value")."""
+        entries = []
+        specs = value if isinstance(value, list) and any(
+            isinstance(v, dict) for v in value) else [value]
+        for spec in specs:
+            if isinstance(spec, str):
+                entries.append((spec, 1.0, frozenset()))
+                continue
+            if isinstance(spec, list):
+                entries.extend((str(v), 1.0, frozenset()) for v in spec)
+                continue
+            if not isinstance(spec, dict):
+                raise MapperParsingException(
+                    f"failed to parse completion field [{self.name}]")
+            inputs = spec.get("input", [])
+            if isinstance(inputs, str):
+                inputs = [inputs]
+            weight = float(spec.get("weight", 1.0))
+            ctx = set()
+            for cname, cvals in (spec.get("contexts") or {}).items():
+                if isinstance(cvals, str):
+                    cvals = [cvals]
+                ctx.update(f"{cname}={v}" for v in cvals)
+            entries.extend((str(i), weight, frozenset(ctx)) for i in inputs)
+        return entries
+
+
 FIELD_TYPES = {cls.type_name: cls for cls in (
     TextFieldType, KeywordFieldType, LongFieldType, IntegerFieldType,
     ShortFieldType, ByteFieldType, DoubleFieldType, FloatFieldType,
     HalfFloatFieldType, BooleanFieldType, DateFieldType,
-    DenseVectorFieldType, RankFeatureFieldType, RankFeaturesFieldType)}
+    DenseVectorFieldType, RankFeatureFieldType, RankFeaturesFieldType,
+    CompletionFieldType)}
 
 # the reference's field types this port does not map yet (and nested
 # objects); every type of the reference is in FIELD_TYPES or here
 LATER_SLICE_TYPES = {
     "integer_range", "float_range", "long_range", "double_range",
     "date_range", "ip_range", "ip", "geo_point", "geo_shape",
-    "constant_keyword", "flattened", "join", "percolator", "completion",
+    "constant_keyword", "flattened", "join", "percolator",
     "search_as_you_type", "token_count", "annotated_text", "wildcard",
     "murmur3", "nested"}
 
@@ -313,6 +354,8 @@ class ParsedDocument:
     vectors: Dict[str, np.ndarray] = field(default_factory=dict)
     # field -> similarity name (cosine | dot_product | l2_norm)
     vector_similarity: Dict[str, str] = field(default_factory=dict)
+    # field -> (input, weight, contexts) entries (completion fields)
+    completion_entries: Dict[str, List[Any]] = field(default_factory=dict)
 
 
 # ---------------------------------------------------------------------------
@@ -405,7 +448,8 @@ class DocumentMapper:
         for key, value in obj.items():
             path = f"{prefix}{key}"
             ft = self.fields.get(path)
-            if ft is not None and ft.docvalue_kind == "rank_features":
+            if ft is not None and ft.docvalue_kind in ("rank_features",
+                                                       "completion"):
                 # an object-valued field type: its object is ONE value
                 self._index_values(ft, value if isinstance(value, list)
                                    else [value], parsed)
@@ -481,6 +525,9 @@ class DocumentMapper:
             elif ft.docvalue_kind == "vector":
                 parsed.vectors[ft.name] = typed
                 parsed.vector_similarity[ft.name] = ft.similarity
+            elif ft.docvalue_kind == "completion":
+                parsed.completion_entries.setdefault(ft.name, []).extend(
+                    typed)
             elif ft.docvalue_kind == "rank_features":
                 for feat, v in typed.items():
                     parsed.numeric_values.setdefault(

@@ -36,6 +36,10 @@ live mask.
   holes, at most ``MAX_STREAM_LEN`` positions) and ``lengths [n_docs]``;
   the positional queries verify their candidates on them. They stay on
   the host: nothing uploads them and no breaker charges them.
+- **Completions** (``CompletionValues``, ``completion`` fields): the
+  suggestion inputs sorted, with their weights, docs and category
+  contexts, and a max-weight segment tree over them: the completion
+  suggester's weighted prefix index. Host only.
 - **Deletes as masks**: ``live[n_docs] bool``, replaced (never mutated)
   on delete, with ``live_version`` bumped so device caches can key on it.
 
@@ -44,6 +48,8 @@ Docids are segment-local dense int32.
 
 from __future__ import annotations
 
+import bisect
+import heapq
 from dataclasses import dataclass, field as dc_field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -119,6 +125,10 @@ class NumericDocValues:
     offsets: np.ndarray     # int64 [n_docs + 1]
     all_values: np.ndarray  # float64 [total]
 
+    def get(self, docid: int) -> List[float]:
+        return [float(v) for v in
+                self.all_values[self.offsets[docid]: self.offsets[docid + 1]]]
+
 
 @dataclass
 class KeywordDocValues:
@@ -167,6 +177,111 @@ class StoredFields:
         return self.data[self.offsets[docid]: self.offsets[docid + 1]]
 
 
+class CompletionValues:
+    """Weighted prefix index of a ``completion`` field (the reference's
+    FST replacement): the inputs SORTED (a prefix is one bisect range)
+    and an implicit segment tree of the max weight over that order, so
+    the top k of a prefix pop in O(log n) each by splitting ranges at
+    their argmax."""
+
+    def __init__(self, field: str, inputs: List[str],
+                 weights: np.ndarray, doc_of: np.ndarray,
+                 contexts: Optional[List[frozenset]] = None):
+        order = sorted(range(len(inputs)), key=lambda i: inputs[i])
+        self.field = field
+        self.inputs = [inputs[i] for i in order]
+        self.weights = np.asarray(weights, np.float64)[order]
+        self.doc_of = np.asarray(doc_of, np.int32)[order]
+        self.contexts = ([contexts[i] for i in order]
+                         if contexts is not None else None)
+        n = len(self.inputs)
+        # tree[1] is the root's max; leaves at [size, size + n)
+        self._size = 1
+        while self._size < max(1, n):
+            self._size *= 2
+        tree = np.full(2 * self._size, -np.inf, np.float64)
+        if n:
+            tree[self._size:self._size + n] = self.weights
+        for i in range(self._size - 1, 0, -1):
+            tree[i] = max(tree[2 * i], tree[2 * i + 1])
+        self._tree = tree
+
+    def __len__(self):
+        return len(self.inputs)
+
+    def _range_argmax(self, lo: int, hi: int) -> int:
+        """Index of the max weight in [lo, hi): a tree descent."""
+        best_v, best_i = -np.inf, -1
+        nodes: List[tuple] = [(1, 0, self._size)]
+        while nodes:
+            node, nlo, nhi = nodes.pop()
+            if nhi <= lo or hi <= nlo or self._tree[node] <= best_v:
+                continue
+            if nhi - nlo == 1:
+                best_v, best_i = self._tree[node], nlo
+                continue
+            mid = (nlo + nhi) // 2
+            # the larger child last, so it pops first and prunes more
+            kids = [(2 * node, nlo, mid), (2 * node + 1, mid, nhi)]
+            kids.sort(key=lambda kd: self._tree[kd[0]])
+            nodes.extend(kids)
+        return best_i
+
+    def top_k(self, prefix: str, k: int,
+              context_filter: Optional[frozenset] = None,
+              live: Optional[np.ndarray] = None) -> List[int]:
+        """Indices of the k heaviest entries under ``prefix`` (weight
+        desc, input asc), of live docs and, with ``context_filter``,
+        carrying every context in it. A heap of ranges split at their
+        argmax; past a budget of skipped entries, an exact linear pass
+        over the prefix range."""
+        lo = bisect.bisect_left(self.inputs, prefix)
+        hi = bisect.bisect_left(self.inputs, prefix + "\U0010FFFF\U0010FFFF")
+        if lo >= hi:
+            return []
+
+        def ok(i):
+            if live is not None and not live[self.doc_of[i]]:
+                return False
+            if context_filter:
+                ctx = self.contexts[i] if self.contexts else frozenset()
+                return context_filter <= ctx
+            return True
+
+        out: List[int] = []
+        first = self._range_argmax(lo, hi)
+        heap = [(-self.weights[first], self.inputs[first], first, lo, hi)]
+        budget = max(10 * k, 4096)
+        while heap and len(out) < k and budget > 0:
+            _negw, _text, i, rlo, rhi = heapq.heappop(heap)
+            if ok(i):
+                out.append(i)
+            else:
+                budget -= 1
+            for slo, shi in ((rlo, i), (i + 1, rhi)):
+                if slo < shi:
+                    j = self._range_argmax(slo, shi)
+                    if j >= 0:
+                        heapq.heappush(heap, (-self.weights[j],
+                                              self.inputs[j], j, slo, shi))
+        if budget <= 0 and len(out) < k:
+            cand = [i for i in range(lo, hi) if ok(i)]
+            cand.sort(key=lambda i: (-self.weights[i], self.inputs[i]))
+            out = cand[:k]
+        return out
+
+
+def _completions_of(field: str, entries) -> CompletionValues:
+    """``field``'s CompletionValues from its (input, weight, docid,
+    contexts) entries; no contexts are kept when no entry has one."""
+    ctxs = [cx for _i, _w, _d, cx in entries]
+    return CompletionValues(
+        field, [i for i, _w, _d, _c in entries],
+        np.asarray([w for _i, w, _d, _c in entries], np.float64),
+        np.asarray([d for _i, _w, d, _c in entries], np.int64),
+        ctxs if any(ctxs) else None)
+
+
 class Segment:
     def __init__(self, name: str, n_docs: int,
                  postings: Dict[str, PostingsField], stored: StoredFields,
@@ -174,7 +289,8 @@ class Segment:
                  numerics: Optional[Dict[str, NumericDocValues]] = None,
                  vectors: Optional[Dict[str, VectorValues]] = None,
                  keywords: Optional[Dict[str, KeywordDocValues]] = None,
-                 streams: Optional[Dict[str, TokenStreams]] = None):
+                 streams: Optional[Dict[str, TokenStreams]] = None,
+                 completions: Optional[Dict[str, CompletionValues]] = None):
         self.name = name
         self.n_docs = n_docs
         self.postings = postings
@@ -182,6 +298,7 @@ class Segment:
         self.numerics = numerics or {}
         self.keywords = keywords or {}
         self.vectors = vectors or {}
+        self.completions = completions or {}
         self.stored = stored
         self.live = live if live is not None else np.ones(n_docs, dtype=bool)
         self.live_version = 0  # bumps on delete; device caches key on it
@@ -311,8 +428,15 @@ class SegmentWriter:
             offsets[docid + 1] = total
             ids.append(d.doc_id)
         stored = StoredFields(offsets, b"".join(chunks), ids)
+        completions = {
+            f: _completions_of(f, [(i, w, docid, cx)
+                                   for docid, d in enumerate(docs)
+                                   for i, w, cx in
+                                   d.completion_entries.get(f, [])])
+            for f in sorted({f for d in docs for f in d.completion_entries})}
         return Segment(name, n, postings, stored, numerics=numerics,
-                       vectors=vectors, keywords=keywords, streams=streams)
+                       vectors=vectors, keywords=keywords, streams=streams,
+                       completions=completions)
 
 
 def _build_streams(f: str, docs, tindex: Dict[str, int]) -> TokenStreams:
@@ -484,8 +608,25 @@ def merge_segments(name: str, segments: List[Segment]) -> Segment:
             offsets[int(m[old]) + 1] = total
             ids.append(seg.stored.ids[int(old)])
     stored = StoredFields(offsets, b"".join(chunks), ids)
+    # completions: the live docs' entries, remapped
+    completions = {}
+    for f in sorted({f for s in segments for f in s.completions}):
+        entries = []
+        for seg, m in zip(segments, maps):
+            cv = seg.completions.get(f)
+            if cv is None:
+                continue
+            for i in range(len(cv)):
+                old = int(cv.doc_of[i])
+                if seg.live[old]:
+                    entries.append((cv.inputs[i], float(cv.weights[i]),
+                                    int(m[old]),
+                                    cv.contexts[i] if cv.contexts is not None
+                                    else frozenset()))
+        completions[f] = _completions_of(f, entries)
     return Segment(name, new_n, postings, stored, numerics=numerics,
-                   vectors=vectors, keywords=keywords, streams=streams)
+                   vectors=vectors, keywords=keywords, streams=streams,
+                   completions=completions)
 
 
 def _merge_streams(f: str, segments: List[Segment], maps: List[np.ndarray],
@@ -617,8 +758,12 @@ def segment_from_numpy(arrays: Dict[str, Any], name: str = "imported",
     its token streams: ``tokens`` int32 [n_docs, max_len] of term ids
     into that field's ``terms`` (-1 pad, at most ``MAX_STREAM_LEN``
     wide; kept as given when already int32 and contiguous) and
-    ``lengths`` int32 [n_docs] (each row's last token position + 1). A
-    segment of vectors alone needs no postings."""
+    ``lengths`` int32 [n_docs] (each row's last token position + 1); and
+    ``completions``, which maps each completion field to ``inputs``
+    (list of str), ``weights`` [n_entries], ``doc_of`` [n_entries] (each
+    entry's docid) and optionally ``contexts`` (a frozenset of
+    "name=value" per entry). A segment of vectors alone needs no
+    postings."""
     fields = arrays.get("fields")
     if fields is None:
         fields = ({field or arrays.get("field") or "body": arrays}
@@ -650,10 +795,14 @@ def segment_from_numpy(arrays: Dict[str, Any], name: str = "imported",
         np.cumsum([len(s) for s in sources], out=offsets[1:])
         stored = StoredFields(offsets, b"".join(sources), ids)
     live = arrays.get("live")
+    completions = {
+        f: CompletionValues(f, list(a["inputs"]), a["weights"], a["doc_of"],
+                            a.get("contexts"))
+        for f, a in (arrays.get("completions") or {}).items()}
     return Segment(name, n, postings, stored,
                    None if live is None else np.asarray(live, bool).copy(),
                    numerics=numerics, vectors=vectors, keywords=keywords,
-                   streams=streams)
+                   streams=streams, completions=completions)
 
 
 def _streams_from_numpy(fname: str, arrays: Dict[str, Any],

@@ -18,13 +18,16 @@ missing mask (NaN -> 0, padding missing), as the reference's do: range
 bounds and sort keys compare in float32, so an epoch-millisecond date
 (~1.8e12) is exact only to its float32 spacing of 2^17 ms.
 
-Filter masks (the fast path's bool+filter bodies) are bool columns built
-on the host from the postings and uploaded once, in an LRU of
-``FILTER_MASK_CACHE_MAX`` entries per DeviceSegment.
+Filter masks (the fast path's bool+filter bodies, and the plan path's
+converted FILTER / MUST_NOT groups composed into one mask per filter
+set) are bool columns built on the host from the postings and uploaded
+once, in an LRU of ``FILTER_MASK_CACHE_MAX`` entries per DeviceSegment.
 
 Keyword doc values stay on the host; the terms aggregation's collector
 reads a per-field ord-major docid permutation (``keyword_ord_major``),
-built on first use and kept for the life of the immutable segment.
+and keyword sorts a float32 first-ordinal column with its missing mask
+(``keyword_ord_column``), each built on first use and kept for the life
+of the immutable segment.
 
 Dense vectors upload as one [n_docs_padded, dims] slab per field
 (``DeviceVectors``, bfloat16 by default; padding rows are zero and have
@@ -330,6 +333,9 @@ class DeviceSegment:
         # keyword field -> (ord-major docids, term starts) or None
         self._kw_ord_major: Dict[str, Optional[Tuple[torch.Tensor,
                                                      np.ndarray]]] = {}
+        # keyword field -> (float32 first-ord column, bool missing) or None
+        self._kw_sort: Dict[str, Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]]] = {}
         self._kw_lock = threading.Lock()
 
     def keyword_ord_major(self, field: str):
@@ -357,6 +363,30 @@ class DeviceSegment:
                 entry = (torch.from_numpy(perm).to(self.device),
                          term_starts)
             self._kw_ord_major[field] = entry
+            return entry
+
+    def keyword_ord_column(self, field: str):
+        """(float32 [n_docs_padded] first-ordinal column, bool missing)
+        of keyword ``field``, the keyword sorts' key (the reference's
+        ``SegmentContext.keyword_ord_column``): segment-local ordinals,
+        lexicographic within the segment, exact below 2^24 terms. Built
+        once per immutable segment and charged under ``ordinals`` before
+        the upload; None when the segment has no such keyword field."""
+        with self._kw_lock:
+            if field in self._kw_sort:
+                return self._kw_sort[field]
+            kv = self.segment.keywords.get(field)
+            entry = None
+            if kv is not None:
+                col = np.zeros(self.n_docs_padded, np.float32)
+                miss = np.ones(self.n_docs_padded, bool)
+                col[: self.n_docs] = np.maximum(kv.ords, 0)
+                miss[: self.n_docs] = kv.ords < 0
+                self._account(int(col.nbytes + miss.nbytes),
+                              f"ordinals[{field}]")
+                entry = (torch.from_numpy(col).to(self.device),
+                         torch.from_numpy(miss).to(self.device))
+            self._kw_sort[field] = entry
             return entry
 
     def bound_plan(self, key: tuple, make):
@@ -425,12 +455,18 @@ class DeviceSegment:
             host_any_mask(dp.host, key[1], self.n_docs_padded)
             if dp is not None else np.zeros(self.n_docs_padded, bool)))
 
+    @staticmethod
+    def composition_key(conversions) -> tuple:
+        """The canonical key of a filter set [(field, terms, negate)]:
+        sorted, each term list sorted and deduplicated, so two asks of
+        one set share one cached mask (and one plan cohort)."""
+        return tuple(sorted((f, tuple(sorted(set(t))), bool(neg))
+                            for f, t, neg in conversions))
+
     def composed_filter_mask(self, conversions):
         """AND of the filter masks of a whole filter SET (``conversions``:
         [(field, terms, negate)]), itself cached: (device, host)."""
-        key = ("composed", tuple(sorted(
-            (f, tuple(sorted(set(t))), bool(neg))
-            for f, t, neg in conversions)))
+        key = ("composed", self.composition_key(conversions))
 
         def make():
             host = None
@@ -491,8 +527,9 @@ class DeviceSegment:
         live mask and the real-doc masks beside it; ``vectors`` the
         slabs with their norms and value masks; ``doc_values`` the
         numeric columns and their missing masks; ``ordinals`` the lazy
-        keyword ord-major permutations; ``filter_masks`` the cached
-        filter columns and the cached bound plans' own dense-factor
+        keyword ord-major permutations and sort columns;
+        ``filter_masks`` the cached filter columns (single and composed)
+        and the cached bound plans' own dense-factor
         masks (so eviction visibly returns bytes)."""
         out = dict.fromkeys(HBM_SLAB_CLASSES, 0)
         for cls, t in self._fixed_tensors():
@@ -503,6 +540,9 @@ class DeviceSegment:
             out["ordinals"] = sum(int(e[0].nbytes) for e in
                                   self._kw_ord_major.values()
                                   if e is not None)
+            out["ordinals"] += sum(int(e[0].nbytes + e[1].nbytes)
+                                   for e in self._kw_sort.values()
+                                   if e is not None)
         with self._mask_lock:
             out["filter_masks"] = sum(int(m.nbytes) for m, _h in
                                       self._filter_masks.values())

@@ -38,7 +38,7 @@ from elasticsearch_tpu_torch.ops import vector as vec_ops
 from elasticsearch_tpu_torch.ops.device import readback
 from elasticsearch_tpu_torch.search import profile as _prof
 from elasticsearch_tpu_torch.search.plan import (BoundPlan, empty_result,
-                                                 execute_bound)
+                                                 execute_bound, launch_mask)
 from elasticsearch_tpu_torch.telemetry import flightrecorder as _flight
 
 _Q_BUCKETS = (1, 2, 4, 8, 16, 32)
@@ -151,9 +151,10 @@ class PlanBatcher:
 
     A signature is (segment, live version, per-stream corpus identity,
     shard-level average length and width tier, group-table size,
-    combine, k, dense-mask identity, script spec, k1, b), so a cohort is
-    homogeneous (one script per cohort, keyed by its source and params,
-    not by a closure's id, which a freed object hands on);
+    combine, k, converted-filter composition, script spec, k1, b), so a
+    cohort is homogeneous: one script per cohort, keyed by its source and
+    params, and one composed filter mask, keyed by its (field, terms,
+    negate) set, never by an object's id, which a freed object hands on;
     Q pads to a power of two (the padding rows repeat the first member).
     The reference keys no average length: a cohort spanning a refresh
     would score a member with the other's."""
@@ -177,7 +178,8 @@ class PlanBatcher:
     @staticmethod
     def _eligible(bp: BoundPlan, after_score) -> bool:
         """A plan with a per-query dense mask (its own [ND] column) or a
-        ``_score`` search_after cursor launches alone."""
+        ``_score`` search_after cursor launches alone; a plan whose only
+        mask is the segment's cached composed filter mask batches."""
         return after_score is None and not bp.empty and bp.dense_mask is None
 
     @staticmethod
@@ -192,8 +194,7 @@ class PlanBatcher:
                    _nb_tier(int(st.sel_blocks.shape[0])))
                   for st in bp.streams),
             int(bp.group_kind.shape[0]), bp.combine, k,
-            id(bp.dense_mask) if bp.dense_mask is not None else None,
-            bp.script, round(k1, 6), round(b, 6),
+            bp.shared_mask, bp.script, round(k1, 6), round(b, 6),
         )
 
     def execute(self, bp: BoundPlan, ctx, k: int, k1: float, b: float,
@@ -345,6 +346,8 @@ class PlanBatcher:
         # the padding rows repeat the first member
         bps = [e.bp for e in batch] + [batch[0].bp] * (bucket - qn)
         args, kw = self.cohort_args(bps, ctx.live)
+        # the cohort's one composed filter mask, held for the launch
+        kw["dense_mask"] = launch_mask(batch[0].bp, ctx)
         any_prof = any(e.profiled for e in batch)
         t0p = _prof.now_ns() if any_prof else 0
         t0 = time.monotonic()

@@ -97,6 +97,13 @@ class SegmentContext:
             return z, torch.ones_like(z, dtype=torch.bool)
         return col, self.device.numeric_missing[field]
 
+    def keyword_ord_column(self, field: str):
+        """(float32 first-ordinal column, bool missing) [n_docs_padded]
+        of a keyword field, or None (ops/device.py
+        ``DeviceSegment.keyword_ord_column``): ordinals are
+        segment-local, so they order docs within this segment only."""
+        return self.device.keyword_ord_column(field)
+
 
 class DeviceSegmentCache:
     """The node's device-resident segments, least recently used first.

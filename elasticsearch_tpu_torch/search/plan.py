@@ -38,10 +38,30 @@ bounds, which say nothing of a script's score, so a scripted plan is
 never pruned (the reference prunes it, and can lose a hit a script
 lifts: ROADMAP, Queue 3).
 
-Left for a later slice, as the reference's: ``_convert_filters`` (large
-FILTER / MUST_NOT groups as cached dense masks). Without it every
-FILTER and MUST_NOT group is evaluated in the launch, with the same set
-semantics, so the hits do not change.
+Filter conversion (``_convert_filters``, the reference's): a FILTER or
+MUST_NOT group of any-of presence (one required subgroup) over one field
+whose terms hold at least ``FILTER_CACHE_MIN_BLOCKS`` postings blocks in
+the segment becomes a dense mask instead of entering the launch's sort
+(the largest first). The converted groups' masks AND into one composed
+mask, cached on the DeviceSegment and charged to the hbm breaker under
+``filter_masks`` (ops/device.py ``composed_filter_mask``). At least one
+postings group that enumerates docs stays in the launch: a FILTER group
+converts only while a MUST group, a SHOULD group under
+minimum_should_match, or another FILTER group remains. The BoundPlan
+keeps the composition's key (``shared_mask``), not the mask: the launch
+fetches the mask from the segment's cache, so a cohort holds it for its
+launch even if the cache's LRU drops it meanwhile, and a cached
+BoundPlan never holds an uncharged mask. The PlanBatcher keys a cohort
+on that key (field, terms, negate per converted group), never on an
+object's id. A plan that also has dense factors ANDs the composed mask
+into its own per-query mask, which launches alone, as the reference's.
+Pruning then validates θ against the composed host mask
+(``host_masks``).
+
+The port's declines are the reference's, plus one: a scripted plan is
+never pruned (above). Each decline leaves the hits exact: an unpruned
+launch, or the dense executor (a dense should clause, a nested bool, a
+negative boost).
 """
 
 from __future__ import annotations
@@ -77,6 +97,12 @@ _NEVER = 1 << 30  # requirement no group can meet (pad groups)
 # selections of at least PRUNE_MIN_BLOCKS blocks pay the host bound pass.
 PRUNE_WINDOWS = 512
 PRUNE_MIN_BLOCKS = 384
+
+# FILTER / MUST_NOT groups at least this many postings blocks wide run as
+# cached dense masks instead of entering the launch's sort (the
+# reference's, after Lucene's LRUQueryCache): smaller ones are cheaper to
+# sort than to cache.
+FILTER_CACHE_MIN_BLOCKS = 8
 
 
 @dataclass
@@ -435,6 +461,75 @@ class BoundPlan:
     # closure over this segment's columns (ops/plan.py script_fn)
     script: Optional[Tuple[str, tuple]] = None
     script_fn: Optional[Callable] = None
+    # the converted groups' composition key (``composed_filter_mask``'s
+    # ``conversions``, sorted) when the launch ANDs the cached composed
+    # mask and nothing else; it is fetched at launch (``launch_mask``)
+    shared_mask: Optional[tuple] = None
+    # host copies of the masks the launch ANDs in, as (mask, negate):
+    # pruning validates its θ candidates against them
+    host_masks: List[Tuple[np.ndarray, bool]] = dc_field(
+        default_factory=list)
+    # groups converted to masks (the profile's and the smoke's count)
+    n_converted: int = 0
+
+
+def launch_mask(bp: BoundPlan, ctx):
+    """The bool [ND] column a launch of ``bp`` ANDs in: the plan's own
+    dense mask, else the segment's cached composed filter mask (fetched
+    now, rebuilt and charged again if the LRU dropped it), else None."""
+    if bp.shared_mask is not None:
+        return ctx.device.composed_filter_mask(bp.shared_mask)[0]
+    return bp.dense_mask
+
+
+def _group_field_blocks(g: GroupPlan, ctx) -> Optional[Tuple[str, int]]:
+    """(field, total postings blocks in this segment) of a single-field
+    group, else None."""
+    fields = {t.field for t in g.terms}
+    if len(fields) != 1:
+        return None
+    fname = next(iter(fields))
+    dp = ctx.device.postings.get(fname)
+    if dp is None:
+        return fname, 0
+    n = 0
+    for t in g.terms:
+        tid = dp.host.term_id(t.term)
+        if tid >= 0:
+            n += int(dp.term_block_count[tid])
+    return fname, n
+
+
+def _convert_filters(plan: LogicalPlan, ctx):
+    """Split the plan's groups into launch groups and mask conversions:
+    FILTER / MUST_NOT groups of any-of presence (req <= 1) over one field
+    with at least FILTER_CACHE_MIN_BLOCKS blocks here, the largest first,
+    keeping one enumerating postings group in the launch. Returns
+    (launch groups, [(field, terms, negate)], launch FILTER count)."""
+    must_enum = plan.n_must >= 1
+    should_enum = plan.msm >= 1 and any(
+        g.kind == plan_ops.SHOULD for g in plan.groups)
+    sized = []
+    for gi, g in enumerate(plan.groups):
+        if g.kind not in (plan_ops.FILTER, plan_ops.MUST_NOT) or g.req > 1:
+            continue
+        fb = _group_field_blocks(g, ctx)
+        if fb is not None and fb[1] >= FILTER_CACHE_MIN_BLOCKS:
+            sized.append((fb[1], gi, g, fb[0]))
+    sized.sort(key=lambda e: -e[0])   # the largest convert first
+    n_filters_left = plan.n_filter
+    converted: List[Tuple[str, List[str], bool]] = []
+    convert_ids = set()
+    for _, gi, g, fname in sized:
+        if g.kind == plan_ops.MUST_NOT:
+            convert_ids.add(gi)
+            converted.append((fname, [t.term for t in g.terms], True))
+        elif must_enum or should_enum or n_filters_left > 1:
+            convert_ids.add(gi)
+            converted.append((fname, [t.term for t in g.terms], False))
+            n_filters_left -= 1
+    kernel = [g for gi, g in enumerate(plan.groups) if gi not in convert_ids]
+    return kernel, converted, n_filters_left
 
 
 def bind_plan(plan: LogicalPlan, ctx, k: int = 10,
@@ -444,24 +539,37 @@ def bind_plan(plan: LogicalPlan, ctx, k: int = 10,
     through the block-max window pruning for a top ``k`` first. Selection
     widths bucket to powers of two (ops/device.py block_bucket), so they
     take O(log) values."""
-    ngroups = len(plan.groups)
+    groups, converted, n_filter = _convert_filters(plan, ctx)
+    ngroups = len(groups)
     # group and subgroup ids share the low 32 bits of the launch's sort
     # key, 16 bits each (pad entries carry group = ngroups)
     if ngroups >= plan_ops.GROUP_LIMIT or any(
-            t.sub >= plan_ops.GROUP_LIMIT for g in plan.groups
+            t.sub >= plan_ops.GROUP_LIMIT for g in groups
             for t in g.terms):
         raise SliceUnsupported(
             f"a plan holds fewer than {plan_ops.GROUP_LIMIT} clauses and "
             f"fewer than {plan_ops.GROUP_LIMIT} distinct terms per clause")
-    # the dense factors' masks, each from its dense executor
+    # the converted groups' composed mask (cached, charged), then the
+    # dense factors' masks, each from its dense executor
     dense_mask = None
+    shared_mask = None
+    host_masks: List[Tuple[np.ndarray, bool]] = []
+    if converted:
+        shared_mask = ctx.device.composition_key(converted)
+        composed, comp_host = ctx.device.composed_filter_mask(shared_mask)
+        host_masks.append((comp_host, False))
+        if plan.dense:
+            dense_mask = composed
     for clause, negate in plan.dense:
         _, m = clause.do_execute(ctx)
         m = (~m) if negate else m
         dense_mask = m if dense_mask is None else (dense_mask & m)
+    if plan.dense:
+        # the plan's own per-query mask holds the composition
+        shared_mask = None
 
     by_field: Dict[str, List[Tuple[int, int, float, bool, str]]] = {}
-    for gi, g in enumerate(plan.groups):
+    for gi, g in enumerate(groups):
         for t in g.terms:
             by_field.setdefault(t.field, []).append(
                 (gi, t.sub, t.weight, t.const, t.term))
@@ -510,7 +618,8 @@ def bind_plan(plan: LogicalPlan, ctx, k: int = 10,
 
     pruned = False
     if allow_prune and fields:
-        fields, pruned = _prune_fields(plan, fields, ctx, k)
+        fields, pruned = _prune_fields(plan, groups, fields, ctx, k,
+                                       host_masks)
 
     streams: List[plan_ops.FieldStream] = []
     for fname, dp, sel_u, grp_u, sub_u, w_u, c_u, _ent in fields:
@@ -536,19 +645,22 @@ def bind_plan(plan: LogicalPlan, ctx, k: int = 10,
     kind = np.full(gpad, plan_ops.FILTER, np.int32)
     req = np.full(gpad, _NEVER, np.int32)
     const = np.full(gpad, NAN, np.float32)
-    for gi, g in enumerate(plan.groups):
+    for gi, g in enumerate(groups):
         kind[gi] = g.kind
         req[gi] = g.req
         const[gi] = g.const_score
     # pad groups: FILTER with unreachable req — never present, and absent
     # FILTER groups don't block (n_filter counts only real groups)
     return BoundPlan(streams, kind, req, const, dense_mask, plan.n_must,
-                     plan.n_filter, plan.msm, plan.bonus, plan.tie,
+                     n_filter, plan.msm, plan.bonus, plan.tie,
                      plan.combine,
                      bm25_ops.scan_run_bound(n_entries), empty=not streams,
                      pruned=pruned, script=plan.script,
                      script_fn=(None if plan.script is None
-                                else _bind_script(ctx.device, plan.script)))
+                                else _bind_script(ctx.device, plan.script)),
+                     shared_mask=shared_mask, host_masks=host_masks,
+                     n_converted=len(converted))
+
 
 
 def _bind_script(dev, spec: Tuple[str, tuple]) -> Callable:
@@ -590,14 +702,16 @@ def _prune_backoff(dev) -> None:
     dev._prune_skip = min(256, 2 ** min(dev._prune_fail, 8))
 
 
-def _prune_fields(plan: LogicalPlan, fields, ctx, k: int):
+def _prune_fields(plan: LogicalPlan, groups: List[GroupPlan], fields,
+                  ctx, k: int, host_masks: List[Tuple[np.ndarray, bool]]):
     """Drop postings blocks that provably cannot affect the top k.
     Returns (fields, pruned).
 
     Why the hits stay exact:
     - θ is the k-th largest single-entry contribution among >= k
       distinct docs that verifiably PASS the whole query (live, and every
-      FILTER group checked on the host): each such doc's true score is at
+      FILTER group and converted mask checked on the host): each such
+      doc's true score is at
       least its partial contribution, so the true k-th best score is at
       least θ.
     - A docid window's bound sums per-term maxima of
@@ -627,7 +741,7 @@ def _prune_fields(plan: LogicalPlan, fields, ctx, k: int):
         return fields, False
 
     # ---- eligibility, candidate groups, filters checked on the host
-    groups = plan.groups
+    # (``groups`` are the launch's: converted ones are in host_masks)
     must_ids = [gi for gi, g in enumerate(groups)
                 if g.kind == plan_ops.MUST]
     cand_ids = set()
@@ -661,9 +775,12 @@ def _prune_fields(plan: LogicalPlan, fields, ctx, k: int):
     gconst = np.asarray([g.const_score for g in groups], np.float32)
     gkind = np.asarray([g.kind for g in groups], np.int32)
 
-    # the docs that pass every filter: live, and each FILTER group's
-    # any-of presence (host_any_mask, as the reference's small filters)
+    # the docs that pass every filter: live, the converted masks, and
+    # each launch FILTER group's any-of presence (host_any_mask, as the
+    # reference's small filters)
     vmask = np.asarray(ctx.segment.live[:nd], bool).copy()
+    for hm, negate in host_masks:
+        vmask &= ~hm[:nd] if negate else hm[:nd]
     for gi in filters:
         g = groups[gi]
         dp = ctx.device.postings.get(g.terms[0].field)
@@ -797,7 +914,7 @@ def execute_bound(bp: BoundPlan, ctx, k: int, k1: float, b: float,
         bp.streams, bp.group_kind, bp.group_req, bp.group_const,
         ctx.live, bp.n_must, bp.n_filter, bp.msm, bonus=bp.bonus,
         tie=bp.tie, k1=k1, b=b, k=k, combine=bp.combine, packed=True,
-        max_run=bp.max_run, dense_mask=bp.dense_mask,
+        max_run=bp.max_run, dense_mask=launch_mask(bp, ctx),
         after_score=after_score, script_fn=bp.script_fn)
     return plan_ops.unpack_result(
         readback("search.searcher.plan_topk", packed), k)

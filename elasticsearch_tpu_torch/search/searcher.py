@@ -19,11 +19,30 @@ them:
 Per-segment rows merge host-side by (-key, segment, docid), Lucene's
 tie order; a multi-key sort re-sorts the winners by their full sort
 values on the host (exact unless more than k docs tie on the primary
-key, as in the reference). Sorts: ``_score``, ``_doc`` and number,
-boolean and date fields, whose keys are the float32 doc-value columns
-(ops/device.py: a date is exact to its float32 spacing only); the
-sort values a hit carries are the float64 doc values. Keyword sorts and
-``_geo_distance`` are later slices.
+key, as in the reference). Sorts: ``_score``, ``_doc``, number, boolean
+and date fields, whose keys are the float32 doc-value columns
+(ops/device.py: a date is exact to its float32 spacing only), and
+keyword fields, whose key is the segment-local first ordinal as a
+float32 column (``DeviceSegment.keyword_ord_column``: exact below 2^24
+terms in a segment). The sort values a hit carries are the float64 doc
+values and the keyword's first term. Keyword ordinals order docs within
+a segment only, so a keyword primary sort keeps every segment's winners,
+re-sorts them on the host by term (``_host_sort_cmp``) and only then
+cuts to k; a keyword ``search_after`` cursor carries the term, which
+each segment re-ranks in its own term list (``_keyword_after_masks``).
+A missing value sorts last in either order. ``_geo_distance`` is a later
+slice.
+
+The fetch phase (``fetch_phase``) builds each hit of the page:
+``_source`` filtered by includes and excludes with wildcards
+(``_filter_source``), ``docvalue_fields`` and ``fields`` (doc values
+first, then ``_source``), ``script_fields`` (an expression evaluated as
+a column per segment on the device, the page's docs gathered there and
+read back once) and ``highlight`` (``_highlight``: the unified, plain
+and fvh highlighters over the stored ``_source``, host code once per
+page; the query terms come from ``_collect_terms``, which visits the
+match family, term(s), bool, constant_score, dis_max, script_score,
+boosting and function_score only, as the reference's).
 
 With ``collect_masks`` (a body with aggregations) the plan path is
 skipped and the dense executor also hands each segment's match mask to
@@ -50,10 +69,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from elasticsearch_tpu_torch.index.mapper import KeywordFieldType
+import bisect
+import fnmatch
+
 from elasticsearch_tpu_torch.index.segment import Segment
 from elasticsearch_tpu_torch.ops.device import readback
 from elasticsearch_tpu_torch.ops.topk import masked_topk
+from elasticsearch_tpu_torch.search import plan as plan_mod
 from elasticsearch_tpu_torch.search import profile as _prof
 from elasticsearch_tpu_torch.search.batching import execute_solo
 from elasticsearch_tpu_torch.search.context import (DeviceSegmentCache,
@@ -61,7 +83,11 @@ from elasticsearch_tpu_torch.search.context import (DeviceSegmentCache,
                                                     ShardStats)
 from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
 from elasticsearch_tpu_torch.search.plan import bind_plan, compile_plan
-from elasticsearch_tpu_torch.search.queries import parse_query
+from elasticsearch_tpu_torch.search import queries as q
+from elasticsearch_tpu_torch.search.queries import (parse_query,
+                                                    resolve_script_source)
+from elasticsearch_tpu_torch.search.script import (ScriptContext, _DocColumn,
+                                                   as_column, compile_script)
 
 MAX_TOPK = 10000
 _F32_MAX = float(np.finfo(np.float32).max)
@@ -174,9 +200,11 @@ class ShardSearcher:
             # the segment set pins shard-level stats (idf, avg length);
             # k and allow_prune pin the pruning, so a pruned bind is
             # never served to an exact ask; the live version pins the
-            # docs that verified its θ (and an ids factor's mask)
+            # docs that verified its θ (and an ids factor's mask); the
+            # conversion threshold pins which groups became masks
             bkey_base = (tuple(s.name for s in self.segments), self.k1,
-                         self.b, cache_key, k, allow_prune)
+                         self.b, cache_key, k, allow_prune,
+                         plan_mod.FILTER_CACHE_MIN_BLOCKS)
         per_segment = []
         total = 0
         lower_bound = False
@@ -253,10 +281,10 @@ class ShardSearcher:
             # the totals and the max score count before search_after
             seg_total = mask.sum(dtype=torch.int64)
             seg_max = torch.where(mask, scores, float("-inf")).amax()
-            key = _primary_sort_key(ctx, self.mapper, scores, sort_spec)
+            key = _primary_sort_key(ctx, scores, sort_spec)
             if search_after is not None:
-                mask = mask & _search_after_mask(ctx, self.mapper, scores,
-                                                 sort_spec, search_after)
+                mask = mask & _search_after_mask(ctx, scores, sort_spec,
+                                                 search_after)
             with _prof.span("topk"):
                 vals, ids = masked_topk(key, mask,
                                         min(k, ctx.n_docs_padded))
@@ -283,13 +311,17 @@ class ShardSearcher:
 
     def _merge_dense(self, per_segment, k: int, sort_spec):
         """The per-segment winners merged by (-key, segment, docid), with
-        their sort values; a multi-key sort re-sorts them on the host."""
+        their sort values; a multi-key sort re-sorts them on the host. A
+        keyword primary sort's keys are segment-local ordinals, so every
+        winner is kept, re-sorted on the host by term, then cut to k."""
         all_keys = np.concatenate([v for _, v, _, _ in per_segment])
         all_segs = np.concatenate(
             [np.full(len(i), s, np.int32) for s, _, i, _ in per_segment])
         all_ids = np.concatenate([i for _, _, i, _ in per_segment])
         all_scores = np.concatenate([sc for _, _, _, sc in per_segment])
-        order = np.lexsort((all_ids, all_segs, -all_keys))[:k]
+        string_primary = _primary_is_keyword(self.segments, sort_spec)
+        order = (np.arange(len(all_keys)) if string_primary
+                 else np.lexsort((all_ids, all_segs, -all_keys))[:k])
         docs = []
         for idx in order:
             seg_idx, docid = int(all_segs[idx]), int(all_ids[idx])
@@ -298,10 +330,12 @@ class ShardSearcher:
                               sort_spec)
             docs.append(DocAddress(seg_idx, docid, score, sv,
                                    sort_key=float(all_keys[idx])))
-        # multi-key: re-sort the winners by the full key on the host
-        if sort_spec is not None and len(sort_spec) > 1:
+        # multi-key or keyword: re-sort the winners by the full key on
+        # the host
+        if sort_spec is not None and (len(sort_spec) > 1 or string_primary):
             docs.sort(key=functools.cmp_to_key(
                 lambda a, b: _host_sort_cmp(a, b, sort_spec)))
+            docs = docs[:k]
         return docs
 
     # ---------------------------------------------------------- rescore
@@ -344,25 +378,195 @@ class ShardSearcher:
         return docs
 
     # ------------------------------------------------------------ fetch
-    def fetch_phase(self, docs: List[DocAddress],
-                    source: bool = True) -> List[Dict[str, Any]]:
-        """``_id``, ``_score``, the sort values under a sort and, with
-        ``source``, the stored ``_source`` of each doc (segments built
-        without sources have none to show)."""
+    def fetch_phase(self, docs: List[DocAddress], source_filter: Any = True,
+                    docvalue_fields: Optional[List[str]] = None,
+                    highlight: Optional[Dict[str, Any]] = None,
+                    highlight_query=None,
+                    script_fields: Optional[Dict[str, Any]] = None,
+                    fields: Optional[List[Any]] = None
+                    ) -> List[Dict[str, Any]]:
+        """Each hit of the page: ``_id``, ``_score``, the sort values
+        under a sort, the ``_source`` as ``source_filter`` (true, false,
+        a field, a list or ``{includes, excludes}``) keeps it (a segment
+        built without sources has none to show), then ``fields`` from
+        ``docvalue_fields``, ``fields`` and ``script_fields``, and
+        ``highlight`` for ``highlight_query``'s terms."""
+        script_vals = (self._script_field_values(script_fields, docs)
+                       if script_fields else None)
         hits = []
-        for d in docs:
+        for pos, d in enumerate(docs):
             seg = self.segments[d.segment_idx]
             hit: Dict[str, Any] = {
                 "_id": seg.stored.ids[d.docid],
                 "_score": d.score if d.score == d.score else None}
             if d.sort_values:
                 hit["sort"] = list(d.sort_values)
-            if source:
-                src = seg.stored.source(d.docid)
-                if src:
-                    hit["_source"] = json.loads(src)
+            parsed: List[Any] = []
+
+            def get_source(seg=seg, d=d, parsed=parsed):
+                if not parsed:
+                    src = seg.stored.source(d.docid)
+                    parsed.append(json.loads(src) if src else {})
+                return parsed[0]
+
+            if source_filter is not False and seg.stored.source(d.docid):
+                hit["_source"] = _filter_source(get_source(), source_filter)
+            if docvalue_fields:
+                out = {}
+                for f in docvalue_fields:
+                    vs = _doc_values(seg, f, d.docid)
+                    if vs:
+                        out[f] = vs
+                hit["fields"] = out
+            if fields:
+                # the fields retrieval API: doc values, else _source
+                out = hit.setdefault("fields", {})
+                for f in fields:
+                    fname = f if isinstance(f, str) else f.get("field")
+                    vs = _doc_values(seg, fname, d.docid)
+                    if not vs:
+                        v = _get_path(get_source(), fname)
+                        if v is not None:
+                            vs = v if isinstance(v, list) else [v]
+                    if vs:
+                        out[fname] = vs
+            if script_vals:
+                out = hit.setdefault("fields", {})
+                for fname, vals in script_vals.items():
+                    out[fname] = [float(vals[pos])]
+            if highlight:
+                hit["highlight"] = self._highlight(get_source(), highlight,
+                                                   highlight_query)
             hits.append(hit)
         return hits
+
+    def _script_field_values(self, script_fields: Dict[str, Any],
+                             docs: List[DocAddress]) -> Dict[str, np.ndarray]:
+        """Each script field's value at each doc of the page: the script
+        evaluates ONCE per segment as a float32 column on the device (the
+        reference's columnar ScriptFieldsPhase), the page's docs of that
+        segment are gathered there, and every field's gathered values
+        come back in one readback. A statement script has no scored
+        context here and raises a ScriptException, as the reference's."""
+        contexts = self._contexts()
+        seg_pos: Dict[int, List[int]] = {}
+        for pos, d in enumerate(docs):
+            seg_pos.setdefault(d.segment_idx, []).append(pos)
+        names = list(script_fields)
+        parts = []
+        order = []
+        for fname in names:
+            spec = script_fields[fname]
+            source, params = resolve_script_source(
+                spec.get("script", spec) if isinstance(spec, dict) else spec)
+            compiled = compile_script(source)
+            for seg_idx, ctx in enumerate(contexts):
+                def doc_columns(field, ctx=ctx):
+                    return _DocColumn(*ctx.numeric_column(field))
+                col = as_column(compiled(ScriptContext(doc_columns, params)),
+                                ctx.n_docs_padded, ctx.device.device)
+                pos = seg_pos.get(seg_idx)
+                if pos:
+                    ids = torch.tensor([docs[i].docid for i in pos],
+                                       dtype=torch.int64, device=col.device)
+                    parts.append(col[ids])
+                    order.append((fname, pos))
+        out = {fname: np.zeros(len(docs), np.float32) for fname in names}
+        if parts:
+            vals = readback("search.searcher.script_fields",
+                            torch.cat(parts))
+            at = 0
+            for fname, pos in order:
+                out[fname][pos] = vals[at:at + len(pos)]
+                at += len(pos)
+        return out
+
+    def _highlight(self, source: Dict[str, Any], spec: Dict[str, Any],
+                   query) -> Dict[str, List[str]]:
+        """The unified highlighter's analogue (the reference's): passages
+        snapped to sentence ends, scored by (distinct matched terms,
+        matches, earliest); ``type: plain`` or ``number_of_fragments: 0``
+        wraps the whole value; ``type: fvh`` centres fragments on match
+        runs, trims them at ``boundary_chars`` within
+        ``boundary_max_scan`` and merges the spans of ``matched_fields``.
+        Per-field options (else the top level's): ``fragment_size``
+        (100), ``number_of_fragments`` (5), ``no_match_size`` (0),
+        ``order`` ("score" or "none"), ``pre_tags``/``post_tags``. Every
+        field analyzes with the standard analyzer, the port's only one."""
+        query_terms = _collect_terms(query, self.mapper) if query else {}
+        analyzer = self.mapper.analyzer
+        out: Dict[str, List[str]] = {}
+        for fname, fspec in (spec.get("fields", {}) or {}).items():
+            fspec = fspec or {}
+
+            def opt(name, default, fspec=fspec):
+                return fspec.get(name, spec.get(name, default))
+            pre = opt("pre_tags", ["<em>"])[0]
+            post = opt("post_tags", ["</em>"])[0]
+            frag_size = int(opt("fragment_size", 100))
+            n_frags = int(opt("number_of_fragments", 5))
+            no_match = int(opt("no_match_size", 0))
+            order = str(opt("order", "score"))
+            value = _get_path(source, fname)
+            if not isinstance(value, str):
+                continue
+            htype = str(opt("type", "unified"))
+            if htype == "fvh":
+                matched = opt("matched_fields", None) or [fname]
+                if isinstance(matched, str):
+                    matched = [matched]
+                if fname not in matched:
+                    matched = [fname] + list(matched)
+                spans = []
+                for m in matched:
+                    mterms = query_terms.get(m, set())
+                    if mterms:
+                        spans.extend((t.start_offset, t.end_offset, t.term)
+                                     for t in analyzer.analyze(value)
+                                     if t.term in mterms)
+                spans.sort()
+                spans = spans[:int(opt("phrase_limit", 256))]
+            else:
+                terms = query_terms.get(fname, set())
+                spans = [(t.start_offset, t.end_offset, t.term)
+                         for t in analyzer.analyze(value)
+                         if t.term in terms] if terms else []
+            if not spans:
+                if no_match > 0 and value:
+                    out[fname] = [value[:_snap_end(value, no_match)]]
+                continue
+            if n_frags == 0 or htype == "plain":
+                out[fname] = [_wrap_spans(
+                    value, [(st, en) for st, en, _t in spans], pre, post)]
+                continue
+            if htype == "fvh":
+                passages = _fvh_fragments(
+                    value, spans, frag_size,
+                    str(opt("boundary_chars", ".,!? \t\n")),
+                    int(opt("boundary_max_scan", 20)))
+            else:
+                passages = _build_passages(value, frag_size)
+            scored = []
+            for pi, (ps, pe) in enumerate(passages):
+                inside = [sp for sp in spans if sp[0] >= ps and sp[1] <= pe]
+                if not inside:
+                    continue
+                distinct = len({t for _s, _e, t in inside})
+                scored.append(((distinct, len(inside), -ps), pi, inside))
+            scored.sort(key=lambda r: r[0], reverse=True)
+            chosen = scored[:n_frags]
+            if order != "score":
+                chosen.sort(key=lambda r: r[1])
+            frags = []
+            for _score, pi, inside in chosen:
+                ps, pe = passages[pi]
+                frags.append(_wrap_spans(
+                    value[ps:pe],
+                    [(st - ps, en - ps) for st, en, _t in inside],
+                    pre, post).strip())
+            if frags:
+                out[fname] = frags
+        return out
 
 
 # a rescored doc's new score from (query_weight x score, rescore_weight x
@@ -408,14 +612,23 @@ def _needs_max_score(sort_spec) -> bool:
     return sort_spec is None
 
 
-def _numeric_sort_column(ctx, mapper, field: str):
-    if isinstance(mapper.field_type(field), KeywordFieldType):
-        raise SliceUnsupported(f"a sort on the keyword field [{field}] is "
-                               f"a later slice of the port")
-    return ctx.numeric_column(field)
+def _is_keyword_sort(seg: Segment, field: str) -> bool:
+    """The reference's rule: a field sorts by keyword ordinals in a
+    segment that holds keyword doc values and no numeric ones for it."""
+    return (seg.numerics.get(field) is None
+            and seg.keywords.get(field) is not None)
 
 
-def _primary_sort_key(ctx, mapper, scores, sort_spec) -> torch.Tensor:
+def _primary_is_keyword(segments: List[Segment], sort_spec) -> bool:
+    if sort_spec is None:
+        return False
+    f = sort_spec[0].field
+    if f in ("_score", "_doc"):
+        return False
+    return any(_is_keyword_sort(seg, f) for seg in segments)
+
+
+def _primary_sort_key(ctx, scores, sort_spec) -> torch.Tensor:
     """Device key column for the top-k (max-selected): negated for
     ascending; a missing value sorts last either way."""
     if sort_spec is None or sort_spec[0].field == "_score":
@@ -429,7 +642,11 @@ def _primary_sort_key(ctx, mapper, scores, sort_spec) -> torch.Tensor:
         key = -torch.arange(ctx.n_docs_padded, dtype=torch.float32,
                             device=scores.device)
         return key if sk.order == "asc" else -key
-    col, miss = _numeric_sort_column(ctx, mapper, sk.field)
+    if _is_keyword_sort(ctx.segment, sk.field):
+        # segment-local ordinals: lexicographic within the segment
+        col, miss = ctx.keyword_ord_column(sk.field)
+    else:
+        col, miss = ctx.numeric_column(sk.field)
     missing_val = _F32_MAX if sk.order == "asc" else -_F32_MAX
     key = torch.where(miss, missing_val, col)
     return -key if sk.order == "asc" else key
@@ -450,8 +667,39 @@ def _sort_values(seg: Segment, docid: int, score: float,
             v = None
             if nv is not None and not nv.missing[docid]:
                 v = float(nv.values[docid])
+            elif nv is None:
+                kv = seg.keywords.get(sk.field)
+                if kv is not None:
+                    lo, hi = kv.offsets[docid], kv.offsets[docid + 1]
+                    if hi > lo:
+                        v = kv.terms[kv.all_ords[lo]]
             out.append(v)
     return tuple(out)
+
+
+def _keyword_after_masks(ctx, field: str, term, order: str):
+    """(strictly after, tied) masks of a keyword cursor value in THIS
+    segment's ordinal space: the cursor term is re-ranked in the
+    segment's own sorted term list (``bisect``), so a term absent here
+    ties with no doc. A None term means the cursor doc had no value:
+    missing sorts last, so only the missing docs tie."""
+    real = ctx.all_true()
+    kv = ctx.segment.keywords.get(field)
+    none = torch.zeros_like(real)
+    if kv is None:
+        # the segment lacks the field: every doc is missing
+        return (none, real) if term is None else (real, none)
+    col, miss = ctx.keyword_ord_column(field)
+    if term is None:
+        return none, real & miss
+    r_left = bisect.bisect_left(kv.terms, term)
+    r_right = bisect.bisect_right(kv.terms, term)
+    if order == "asc":
+        strictly = (real & ~miss & (col >= r_right)) | (real & miss)
+    else:
+        strictly = (real & ~miss & (col < r_left)) | (real & miss)
+    tied = (real & ~miss & (col == r_left)) if r_left < r_right else none
+    return strictly, tied
 
 
 def _host_sort_cmp(a: DocAddress, b: DocAddress, sort_spec) -> int:
@@ -471,7 +719,7 @@ def _host_sort_cmp(a: DocAddress, b: DocAddress, sort_spec) -> int:
     return -1 if a.docid < b.docid else (1 if a.docid > b.docid else 0)
 
 
-def _search_after_mask(ctx, mapper, scores, sort_spec,
+def _search_after_mask(ctx, scores, sort_spec,
                        after: List[Any]) -> torch.Tensor:
     """Docs strictly after the cursor in sort order. With a single
     non-unique sort key, docs tied with the cursor are excluded, as in
@@ -482,9 +730,13 @@ def _search_after_mask(ctx, mapper, scores, sort_spec,
         after_val = float(np.float32(float(after[0])))
         strictly = scores < after_val
         tied = scores == after_val
+    elif _is_keyword_sort(ctx.segment, sort_spec[0].field):
+        # the cursor carries the term
+        strictly, tied = _keyword_after_masks(
+            ctx, sort_spec[0].field, after[0], sort_spec[0].order)
     else:
         sk = sort_spec[0]
-        col, miss = _numeric_sort_column(ctx, mapper, sk.field)
+        col, miss = ctx.numeric_column(sk.field)
         after_val = float(np.float32(float(after[0])))
         if sk.order == "asc":
             strictly = (~miss) & (col > after_val)
@@ -496,3 +748,196 @@ def _search_after_mask(ctx, mapper, scores, sort_spec,
         docids = torch.arange(ctx.n_docs_padded, device=scores.device)
         return strictly | (tied & (docids > int(after[-1])))
     return strictly
+
+
+# ---------------------------------------------------------------------------
+# fetch helpers
+# ---------------------------------------------------------------------------
+
+def _filter_source(source: Dict[str, Any], source_filter):
+    """``_source``: true, false, a field, a list of fields or
+    ``{includes, excludes}`` (``include``/``exclude`` too), with
+    ``fnmatch`` wildcards; a pattern also keeps everything under it."""
+    if source_filter is True:
+        return source
+    if source_filter is False:
+        return None
+    includes: List[str] = []
+    excludes: List[str] = []
+    if isinstance(source_filter, str):
+        includes = [source_filter]
+    elif isinstance(source_filter, list):
+        includes = source_filter
+    elif isinstance(source_filter, dict):
+        includes = source_filter.get("includes",
+                                     source_filter.get("include", []))
+        excludes = source_filter.get("excludes",
+                                     source_filter.get("exclude", []))
+        if isinstance(includes, str):
+            includes = [includes]
+        if isinstance(excludes, str):
+            excludes = [excludes]
+
+    def match(path: str, patterns: List[str]) -> bool:
+        return any(fnmatch.fnmatch(path, p) or path.startswith(p + ".")
+                   for p in patterns)
+
+    def walk(obj, prefix=""):
+        """Keep every leaf not excluded and, with includes, included;
+        an object emptied by the filter goes."""
+        if not isinstance(obj, dict):
+            return obj
+        out = {}
+        for k, v in obj.items():
+            path = f"{prefix}{k}"
+            if excludes and match(path, excludes):
+                continue
+            if isinstance(v, dict):
+                sub = walk(v, f"{path}.")
+                if sub:
+                    out[k] = sub
+            elif not includes or match(path, includes):
+                out[k] = v
+        return out
+    return walk(source)
+
+
+def _get_path(source: Dict[str, Any], path: str):
+    node = source
+    for part in path.split("."):
+        if not isinstance(node, dict) or part not in node:
+            return None
+        node = node[part]
+    return node
+
+
+def _doc_values(seg: Segment, field: str, docid: int) -> List[Any]:
+    """A doc's doc values of ``field``: the numeric ones (float64), else
+    the keyword ones (terms ascending); [] without."""
+    nv = seg.numerics.get(field)
+    vs = nv.get(docid) if nv is not None else []
+    if not vs:
+        kv = seg.keywords.get(field)
+        if kv is not None:
+            vs = kv.get(docid)
+    return vs
+
+
+def _collect_terms(query, mapper) -> Dict[str, set]:
+    """The query's terms per field, for highlighting: the match family
+    (match, multi_match), term(s), and through bool (must, should,
+    filter), constant_score, dis_max, script_score, boosting (positive)
+    and function_score; any other query (a phrase, a multi-term query,
+    ...) contributes none, as in the reference."""
+    out: Dict[str, set] = {}
+
+    def visit(node):
+        if node is None:
+            return
+        if isinstance(node, q.MatchQuery):
+            out.setdefault(node.field, set()).update(
+                t.term for t in mapper.analyzer.analyze(str(node.query)))
+        elif isinstance(node, q.MultiMatchQuery):
+            for f in node.fields:
+                visit(q.MatchQuery(f, node.query))
+        elif isinstance(node, q.TermQuery):
+            out.setdefault(node.field, set()).add(str(node.value))
+        elif isinstance(node, q.TermsQuery):
+            out.setdefault(node.field, set()).update(
+                str(v) for v in node.values)
+        elif isinstance(node, q.BoolQuery):
+            for clause in node.must + node.should + node.filter:
+                visit(clause)
+        elif isinstance(node, q.ConstantScoreQuery):
+            visit(node.filter_query)
+        elif isinstance(node, q.DisMaxQuery):
+            for sub in node.queries:
+                visit(sub)
+        elif isinstance(node, q.ScriptScoreQuery):
+            visit(node.query)
+        elif isinstance(node, q.BoostingQuery):
+            visit(node.positive)
+        elif isinstance(node, q.FunctionScoreQuery):
+            visit(node.query)
+
+    visit(query)
+    return out
+
+
+def _fvh_fragments(text: str, spans, frag_size: int,
+                   boundary_chars: str, boundary_max_scan: int):
+    """FVH fragments: each centres on a match run and trims to the
+    nearest boundary char within ``boundary_max_scan``."""
+    bset = set(boundary_chars)
+    n = len(text)
+
+    def snap(pos: int, forward: bool) -> int:
+        pos = max(0, min(n, pos))
+        rng = (range(pos, min(n, pos + boundary_max_scan)) if forward
+               else range(pos, max(0, pos - boundary_max_scan), -1))
+        for i in rng:
+            if 0 <= i < n and text[i] in bset:
+                return i + 1    # cut just past the boundary char
+        return pos
+
+    frags = []
+    covered_to = -1
+    for s, _e, _t in sorted(spans):
+        if s <= covered_to:
+            continue
+        lo = snap(s - frag_size // 2, forward=False) \
+            if s > frag_size // 2 else 0
+        hi = snap(lo + frag_size, forward=True)
+        frags.append((lo, min(hi, n)))
+        covered_to = hi
+    return frags
+
+
+def _wrap_spans(text: str, spans, pre: str, post: str) -> str:
+    """Wrap (start, end) character spans of ``text`` in pre/post tags;
+    of overlapping spans the first wins."""
+    parts = []
+    last = 0
+    for s, e in sorted(spans):
+        if s < last:
+            continue
+        parts.append(text[last:s])
+        parts.append(pre + text[s:e] + post)
+        last = e
+    parts.append(text[last:])
+    return "".join(parts)
+
+
+_SENTENCE_ENDS = ".!?\n"
+
+
+def _snap_end(text: str, at: int) -> int:
+    """An end offset near ``at`` snapped forward to a sentence end (within
+    40 chars), else a space (within 20), else ``at``."""
+    n = len(text)
+    if at >= n:
+        return n
+    for i in range(at, min(n, at + 40)):
+        if text[i] in _SENTENCE_ENDS:
+            return i + 1
+    for i in range(at, min(n, at + 20)):
+        if text[i].isspace():
+            return i
+    return at
+
+
+def _build_passages(text: str, frag_size: int):
+    """Sentence-snapped passages of about ``frag_size`` chars covering
+    the text."""
+    passages = []
+    start = 0
+    n = len(text)
+    while start < n:
+        end = _snap_end(text, start + max(frag_size, 1))
+        if end <= start:
+            end = min(n, start + max(frag_size, 1))
+        passages.append((start, end))
+        start = end
+        while start < n and text[start].isspace():
+            start += 1
+    return passages

@@ -4,16 +4,31 @@ the single-node part of elasticsearch_tpu/search/service.py
 then the fetch phase on the index's one shard, shape the response.
 
 The body may carry ``query`` (default ``match_all``), ``size``,
-``from``, ``post_filter``, ``min_score``, ``sort``, ``search_after``,
-``track_total_hits`` (true, false or a threshold), ``_source`` (true
-or false), ``knn``, ``rank``, ``rescore`` (one QueryRescorer or a
-list: the query phase collects the largest ``window_size`` docs, the
-rescorers re-score them in order, then ``from``/``size`` cut the page;
-not with ``sort``) and ``aggs``/``aggregations`` (search/aggregations.py
-over the dense executor's match masks; the response carries
-``aggregations``, on an empty index too). Everything else (source
-filtering, ``script_fields``, ...) is a later slice and answers a typed
-400.
+``from``, ``post_filter``, ``min_score``, ``sort`` (keyword fields
+too), ``search_after``, ``track_total_hits`` (true, false or a
+threshold), ``_source`` (true, false, a field, a list or ``{includes,
+excludes}``), ``docvalue_fields``, ``fields``, ``script_fields``,
+``highlight`` (search/searcher.py ``fetch_phase``), ``knn``, ``rank``,
+``rescore`` (one QueryRescorer or a list: the query phase collects the
+largest ``window_size`` docs, the rescorers re-score them in order,
+then ``from``/``size`` cut the page; not with ``sort``),
+``aggs``/``aggregations`` (search/aggregations.py over the dense
+executor's match masks; the response carries ``aggregations``, on an
+empty index too), ``collapse``, ``terminate_after`` and ``suggest``
+(search/suggest.py, host only). Everything else (``version``,
+``seq_no_primary_term``, ``stored_fields``, ``explain``, ``pit``,
+``slice``, ``timeout``, ...) is a later slice and answers a typed 400.
+
+``collapse: {"field": f}`` keeps the first hit of each value of ``f``
+(its first doc value; a text field's dynamic ``.keyword``; docs without
+one form one null group) and stamps the value into the hit's
+``fields``. The query phase collects ``max(from + size, 5 (from +
+size))`` docs first, so a page can hold fewer groups than asked when the
+first groups fill that window, as the reference's.
+
+``terminate_after: n`` keeps the shard's first n docs of the query
+phase; when the shard matched more, the total is n, relation "gte",
+and the response says ``terminated_early``.
 
 Hybrid retrieval: top-level ``knn`` sections (one or a list). With
 ``rank: {"rrf": {...}}`` the query and each knn section run as separate
@@ -65,18 +80,24 @@ from elasticsearch_tpu_torch.search.context import (DeviceSegmentCache,
 from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
 from elasticsearch_tpu_torch.search.queries import (MatchAllQuery,
                                                     parse_query)
-from elasticsearch_tpu_torch.search.searcher import (MAX_TOPK, ShardSearcher,
+from elasticsearch_tpu_torch.search.searcher import (MAX_TOPK, DocAddress,
+                                                     ShardSearcher,
                                                      _host_sort_cmp,
                                                      _parse_sort)
+from elasticsearch_tpu_torch.search.suggest import compute_suggest
 
 DEFAULT_SIZE = 10
 BODY_KEYS = {"query", "size", "from", "post_filter", "track_total_hits",
              "_source", "sort", "search_after", "min_score", "knn", "rank",
-             "rescore", "aggs", "aggregations", "profile"}
+             "rescore", "aggs", "aggregations", "profile", "highlight",
+             "docvalue_fields", "fields", "script_fields", "collapse",
+             "terminate_after", "suggest"}
 # a body with any of these (truthy) asks more than the k nearest ids and
 # scores, so its kNN takes the dense executor, not the cohort launch
 _NOT_PURE_KNN = ("sort", "post_filter", "min_score", "search_after",
-                 "track_total_hits", "rescore", "aggs", "aggregations")
+                 "track_total_hits", "rescore", "aggs", "aggregations",
+                 "highlight", "fields", "suggest", "collapse",
+                 "docvalue_fields", "script_fields", "terminate_after")
 _RESCORE_MODES = ("total", "multiply", "avg", "max", "min")
 
 
@@ -116,6 +137,24 @@ def _rescore_specs(body: Dict[str, Any]) -> List[Dict[str, Any]]:
         if mode not in _RESCORE_MODES:
             raise IllegalArgumentException(f"illegal score_mode [{mode}]")
     return specs
+
+
+def _doc_field_value(searcher: ShardSearcher, d: DocAddress, field: str):
+    """A doc's first doc value of ``field`` (a collapse key), None when
+    it has none: the keyword values first (a text field's dynamic
+    ``.keyword`` when the field has none), then the numeric one."""
+    seg = searcher.segments[d.segment_idx]
+    kv = seg.keywords.get(field)
+    if kv is None:
+        kv = seg.keywords.get(f"{field}.keyword")
+    if kv is not None:
+        vs = kv.get(d.docid)
+        if vs:
+            return vs[0]
+    nv = seg.numerics.get(field)
+    if nv is not None and not nv.missing[d.docid]:
+        return float(nv.values[d.docid])
+    return None
 
 
 def _merge_knn_into_query(body: Dict[str, Any]) -> Dict[str, Any]:
@@ -235,10 +274,6 @@ class SearchService:
             raise IllegalArgumentException(
                 f"[track_total_hits] must be true, false or a "
                 f"non-negative integer, got [{track_total}]")
-        source = body.get("_source", True)
-        if not isinstance(source, bool):
-            raise SliceUnsupported("_source filtering is a later slice "
-                                   "(this one takes true or false)")
         size = int(body.get("size", DEFAULT_SIZE))
         from_ = int(body.get("from", 0))
         if size < 0 or from_ < 0:
@@ -263,9 +298,14 @@ class SearchService:
                 "[search_after] must be an array of sort values")
         rescore = _rescore_specs(body)
         aggs_spec = body.get("aggs", body.get("aggregations"))
+        collapse_field = (body.get("collapse") or {}).get("field")
+        terminate_after = body.get("terminate_after")
         # a rescorer's window may exceed the page
         query_k = max([from_ + size] + [int(r.get("window_size", 10))
                                         for r in rescore])
+        if collapse_field:
+            # over-collect so that enough groups survive the collapse
+            query_k = max(query_k, (from_ + size) * 5)
         # repeats of the same query JSON reuse their bound plans
         cache_key = json.dumps([body.get("query"), body.get("post_filter")],
                                sort_keys=True, default=str)
@@ -275,6 +315,9 @@ class SearchService:
             search_after=search_after, track_total_hits=track_total,
             cache_key=cache_key, collect_masks=bool(aggs_spec))
         docs = result.docs
+        if terminate_after:
+            # the shard stops collecting after terminate_after docs
+            docs = docs[:int(terminate_after)]
         if rescore:
             docs = searcher.rescore(docs, rescore)
         sort_spec = _parse_sort(sort)
@@ -283,14 +326,39 @@ class SearchService:
             # values, missing last), not the float32 device keys
             docs = sorted(docs, key=functools.cmp_to_key(
                 lambda a, b: _host_sort_cmp(a, b, sort_spec)))
+        if collapse_field:
+            # the first hit of each key; docs without one share a group
+            seen = set()
+            kept = []
+            for d in docs:
+                key = _doc_field_value(searcher, d, collapse_field)
+                if key not in seen:
+                    seen.add(key)
+                    kept.append(d)
+            docs = kept
+        page = docs[from_:from_ + size]
         with _prof.span("fetch"):
-            hits = searcher.fetch_phase(docs[from_:from_ + size], source)
-        for h in hits:
+            hits = searcher.fetch_phase(
+                page, source_filter=body.get("_source", True),
+                docvalue_fields=[f if isinstance(f, str) else f.get("field")
+                                 for f in body.get("docvalue_fields", [])],
+                highlight=body.get("highlight"), highlight_query=query,
+                script_fields=body.get("script_fields"),
+                fields=body.get("fields"))
+        for d, h in zip(page, hits):
             h["_index"] = index
+            if collapse_field:
+                h.setdefault("fields", {})[collapse_field] = [
+                    _doc_field_value(searcher, d, collapse_field)]
         total = result.total_hits
         relation = "gte" if result.total_lower_bound else "eq"
         if not isinstance(track_total, bool) and total > track_total:
             total, relation = track_total, "gte"
+        terminated_early = None
+        if terminate_after:
+            terminated_early = result.total_hits > int(terminate_after)
+            if terminated_early:
+                total, relation = int(terminate_after), "gte"
         response = {
             "timed_out": False,
             "_shards": {"total": 1, "successful": 1, "skipped": 0,
@@ -301,6 +369,8 @@ class SearchService:
         if track_total is False:
             # ES omits hits.total when tracking is disabled
             del response["hits"]["total"]
+        if terminated_early is not None:
+            response["terminated_early"] = terminated_early
         if aggs_spec:
             with _prof.span("aggs.collect"):
                 response["aggregations"] = compute_aggs(
@@ -308,6 +378,9 @@ class SearchService:
                     [(seg, mask, searcher.mapper)
                      for seg, mask in result.agg_masks],
                     searcher.mapper, searcher.cache)
+        if body.get("suggest"):
+            response["suggest"] = compute_suggest(body["suggest"],
+                                                  [(index, searcher)])
         return response
 
     # ---------------------------------------------------------------- kNN
@@ -416,8 +489,9 @@ class SearchService:
             raise IllegalArgumentException(
                 "rrf requires at least one of [query, knn]")
         passthrough = {k: v for k, v in body.items()
-                       if k in ("_source", "post_filter", "min_score",
-                                "track_total_hits")}
+                       if k in ("_source", "fields", "post_filter",
+                                "min_score", "track_total_hits",
+                                "highlight")}
         scores: Dict[Tuple[str, str], float] = {}
         best_hit: Dict[Tuple[str, str], Dict[str, Any]] = {}
         truncated = False
@@ -430,7 +504,8 @@ class SearchService:
             hits = None
             if (set(br["query"]) == {"knn"} and not wants_source
                     and not any(passthrough.get(x) for x in
-                                ("post_filter", "min_score"))
+                                ("highlight", "post_filter", "min_score",
+                                 "fields"))
                     and not (bi == 0 and wants_aggs)):
                 hits = self._knn_branch_hits(index, searcher,
                                              br["query"]["knn"], window)

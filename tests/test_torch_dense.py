@@ -706,8 +706,9 @@ def test_dense_plans_launch_alone(searchers):
         {"match": {"msg": "error"}}), port), ctx, 20)
     assert batcher._eligible(plain, None)
     assert not batcher._eligible(plain, 3.5)
+    # a signature keys the converted-filter composition, never an id
     sig = batcher._signature(bp, ctx, 20, 1.2, 0.75)
-    assert id(bp.dense_mask) in sig
+    assert id(bp.dense_mask) not in sig and bp.shared_mask in sig
 
 
 # ---------------------------------------------------------------------------
@@ -987,10 +988,14 @@ def test_rest_sort_paging_as_the_reference_service(rest_nodes):
     st, r = c.dispatch("POST", "/test/_search", {}, {
         "query": {"match_all": {}}, "from": 9990, "size": 20})
     assert st == 400 and r["error"]["type"] == "illegal_argument_exception"
-    st, r = c.dispatch("POST", "/logs/_search", {}, {
-        "query": {"match_all": {}}, "sort": [{"level": "asc"}]})
-    assert st == 400 and r["error"]["type"] == \
-        "unsupported_in_slice_exception"
+    # a keyword sort is served (it was a later slice before the fetch
+    # and sort slice), as the reference's
+    body = {"query": {"match_all": {}}, "sort": [{"level": "asc"}]}
+    st, r = c.dispatch("POST", "/logs/_search", {}, body)
+    jst, jr = rest_nodes[0].rest_controller.dispatch(
+        "POST", "/logs/_search", {}, body)
+    assert st == jst == 200, r
+    assert_same_page(r, jr)
 
 
 def test_dense_path_needs_a_device(monkeypatch):

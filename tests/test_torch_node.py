@@ -255,14 +255,21 @@ def test_slice_boundaries_are_typed(nodes):
         st, r = http(port, "POST", "/idx/_search", body)
         assert st == 200, (body, r)
         assert_same_hits(r, jax_dispatch(jax_node, body), page_size(body))
-    # later slices: nested queries and keyword sorts
+    # later slices: nested queries and _geo_distance sorts (keyword
+    # sorts are served since the fetch and sort slice)
     for body in ({"query": {"nested": {"path": "items",
                                        "query": {"match_all": {}}}}},
                  {"query": {"match": {"body": "w1"}},
-                  "sort": [{"tag": "asc"}]}):
+                  "sort": [{"_geo_distance": {"loc": [0, 0]}}]}):
         st, r = http(port, "POST", "/idx/_search", body)
         assert st == 400 and r["error"]["type"] == \
             "unsupported_in_slice_exception", (body, r)
+    body = {"query": {"match": {"body": "w1"}}, "sort": [{"tag": "asc"}]}
+    st, r = http(port, "POST", "/idx/_search", body)
+    ref = jax_dispatch(jax_node, body)["hits"]["hits"][:page_size(body)]
+    assert st == 200, r
+    assert [(h["_id"], h["sort"]) for h in r["hits"]["hits"]] == \
+        [(h["_id"], h["sort"]) for h in ref]
     # track_total_hits is served since block-max pruning is ported:
     # false omits the total, a value of another type is refused
     st, r = http(port, "POST", "/idx/_search",

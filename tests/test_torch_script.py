@@ -907,7 +907,7 @@ def test_refusals_match_reference_node(rescore_nodes, body, etype):
                                  "script": {"id": "my-script"}}}},
      "/idx/_search"),
     ({"query": {"match_all": {}}, "script_fields": {
-        "x": {"script": {"source": "doc['rank'].value * 2"}}}},
+        "x": {"script": {"id": "my-script"}}}},
      "/idx/_search"),
     ({"script": {"lang": "painless", "source": "_score"}},
      "/_scripts/my-script"),
