@@ -234,10 +234,45 @@ Phases (any failure exits non-zero; no exception is swallowed):
               oracle; the mask cache's hits and misses, each mix's qps
               and p50/p99 from 16 clients, and the cohorts the batcher
               forms with their lanes and device ms, on and off
- 12. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
-              script, aggs, accounting, fulltext, fetch, filters, plan
-              and kernels JSON lines, the card's name and power limit,
-              and the last line {"ok": true, "device": {...}}
+ 12. fields   the remaining field types: "geopoint" (Rally's geopoint
+              track: 60,844,404 points clustered like populated places,
+              corpus.py geo_points, in 4 segments of a location
+              geo_point) with geo_distance at 1, 50 and 1000 km, the
+              distanceRange bool, boxes (one across the dateline),
+              polygons of 5 and 64 vertices and _geo_distance sorts of
+              10 and 100 with a 3-page search_after walk; "geonames"
+              (the corpus as places: location, population,
+              country_code, an area envelope) with match + geo filter
+              bodies (the contribution kernel) and geo_shape under each
+              relation; "logs_ip" (phase 5's logs with clientip as ip,
+              Zipf over /16 networks, and a session date_range) with a
+              term, CIDR /24 and /16, an ip range and each range
+              relation; "qa" (100,000 questions with 0-5 nested
+              answers, Rally's nested track) with a nested bool of a
+              term and a range, a score_mode over a match and
+              inner_hits, and its join twin "qa_join" with has_child
+              under each score_mode and min_children, has_parent with
+              score and parent_id; "alerts" (10,000 stored queries of
+              the phase 4 query log: match, bool with a range filter,
+              range) percolating one document, ten documents and a
+              document by index/id. Every body over HTTP (16 clients a
+              mix); held to a float64/numpy oracle under the float32
+              column semantics (geo docs within 1e-4 of a radius
+              exempt, counted; the ip column's float32 neighbours
+              counted) and to the port's CPU execution (all but the
+              64-vertex polygon; geo docs within 1e-6 of a radius or
+              of the page's last key exempt, at most 16 a body,
+              counted); the contribution kernel launched once
+              per dense BM25 scoring, the merge not at all, the breaker
+              equal to the segments' bytes after. Printed: each body's
+              profiled query, rewrite, join, top-k and verify ms; the
+              geo masks' device ms at 60.8M points against their bounds
+              and the polygon's launches; percolate ms per stored query
+ 13. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
+              script, aggs, accounting, fulltext, fetch, fields,
+              filters, plan and kernels JSON lines, the card's name and
+              power limit, and the last line {"ok": true, "device":
+              {...}}
 
 Needs one CUDA card, and the repository around it.
 """
@@ -248,6 +283,7 @@ import argparse
 import contextlib
 import fnmatch
 import logging
+import os
 from collections import Counter
 import json
 import re
@@ -2460,6 +2496,12 @@ def host_free_gib() -> float:
             if line.startswith("MemAvailable:"):
                 return int(line.split()[1]) / 2 ** 20
     return float("nan")
+
+
+def host_rss_bytes() -> int:
+    """This process's resident host memory (bytes)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
 
 
 def knn_oracle(vecs, qs, k, chunk=1 << 19):
@@ -5363,6 +5405,1022 @@ def phase_fetch(node, port, corpus, queries, cols, seed, conns, counters,
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+FIELDS_SIZE = 100
+GEO_POINTS = 60_844_404   # Rally geopoint's documents
+GEO_SEGMENTS = 4          # a segment's padded docids stay below 2^24
+QA_QUESTIONS = 100_000    # the nested questions (PERF.md section 4: the cut)
+ALERTS = 10_000           # the percolator index's stored queries
+GEO_BAND = 1e-4           # the geo boundary rule against float64 (relative)
+GEO_ABS_M = 1.0           # ... and its floor in meters (float32 sort keys)
+GEO_CPU_REL = 1e-6        # CUDA's float32 distances against the CPU's
+GEO_CPU_CAP = 16          # ... and the most docs one answer may differ by
+
+
+def geo_oracle_distance(lat, lon, origin, radius):
+    """(bool mask, band mask) [n] of a geo_distance body against the
+    float64 haversine of the float32 columns: the band holds the docs
+    within GEO_BAND (relative) of the radius, which float32 arithmetic
+    may put on either side. Only points within the radius's latitude
+    band are computed."""
+    from elasticsearch_tpu_torch.common import geo
+    olat, olon = origin
+    dlat = np.degrees(radius * (1 + 2 * GEO_BAND)
+                      / geo.EARTH_RADIUS_METERS) + 1e-3
+    cand = np.nonzero(np.abs(lat - olat) <= dlat)[0]
+    d = geo.haversine_meters(lat[cand], lon[cand], olat, olon)
+    mask = np.zeros(len(lat), bool)
+    band = np.zeros(len(lat), bool)
+    mask[cand[d <= radius]] = True
+    band[cand[np.abs(d - radius) <= GEO_BAND * radius]] = True
+    return mask, band
+
+
+def geo_oracle_bbox(lat32, lon32, top, left, bottom, right):
+    """The box mask, float32 columns against float32 bounds (exact)."""
+    f = np.float32
+    ok = (lat32 <= f(top)) & (lat32 >= f(bottom))
+    if left <= right:
+        return ok & (lon32 >= f(left)) & (lon32 <= f(right))
+    return ok & ((lon32 >= f(left)) | (lon32 <= f(right)))
+
+
+def geo_oracle_polygon(lat32, lon32, plats, plons):
+    """The even-odd polygon mask with the reference's float32 arithmetic
+    (numpy float32 ops, each rounded as the card's), over the points of
+    the polygon's box (widened by 0.01 degree) only."""
+    n = len(plats)
+    box = ((lat32 >= min(plats) - 0.01) & (lat32 <= max(plats) + 0.01)
+           & (lon32 >= min(plons) - 0.01) & (lon32 <= max(plons) + 0.01))
+    idx = np.nonzero(box)[0]
+    la, lo = lat32[idx], lon32[idx]
+    inside = np.zeros(len(idx), bool)
+    j = n - 1
+    for i in range(n):
+        yi, xi, yj, xj = plats[i], plons[i], plats[j], plons[j]
+        crosses = (np.float32(yi) > la) != (np.float32(yj) > la)
+        denom = yj - yi
+        denom = np.float32(denom if denom != 0 else 1e-300)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            x_int = (np.float32(xj - xi) * (la - np.float32(yi)) / denom
+                     + np.float32(xi))
+        inside = np.where(crosses & (lo < x_int), ~inside, inside)
+        j = i
+    mask = np.zeros(len(lat32), bool)
+    mask[idx[inside]] = True
+    return mask
+
+
+def check_constant_page(r, mask, band, what, size=FIELDS_SIZE,
+                        ids_of=None):
+    """A constant-score answer against its oracle mask: the hits are
+    the first matched docs in docid order (``ids_of[docid]`` their ids,
+    default the docid as text), the total exact. The docs of ``band``
+    (the geo boundary rule) may fall either way: the total lies between
+    the sure docs and the sure docs plus the band, every served doc is
+    in the mask or the band, and every sure doc up to the page's last
+    is served. Returns the band's count."""
+    pos = ({i: d for d, i in enumerate(ids_of)} if ids_of is not None
+           else None)
+    served = [int(h["_id"]) if pos is None else pos[h["_id"]]
+              for h in r["hits"]["hits"]]
+    total = r["hits"]["total"]["value"]
+    sure = np.nonzero(mask & ~band)[0]
+    n_band = int(band.sum())
+    check(len(sure) <= total <= len(sure) + n_band,
+          f"{what}: total {total} vs the oracle's {len(sure)} (+{n_band} "
+          f"in the band)")
+    check(all(h["_score"] == 1.0 for h in r["hits"]["hits"]),
+          f"{what}: constant score 1.0")
+    check(served == sorted(served) and len(served) == min(size, total),
+          f"{what}: {len(served)} hits in docid order")
+    check(bool(np.all((mask | band)[served])),
+          f"{what}: every hit in the oracle or its band")
+    limit = served[-1] if len(served) == size else len(mask)
+    check(set(sure[sure <= limit].tolist()) <= set(served),
+          f"{what}: no oracle doc outside the band is missed")
+    return n_band
+
+
+def check_scored_page(r, scores, what, size=FIELDS_SIZE, ids_of=None):
+    """A scored answer against a float64 oracle column (0: no match):
+    total exact, served scores within rtol 1e-5, every oracle doc that
+    is missing tied with the kth score."""
+    matched = np.nonzero(scores > 0)[0]
+    order = matched[np.lexsort((matched, -scores[matched]))][:size]
+    check(r["hits"]["total"] == {"value": len(matched), "relation": "eq"},
+          f"{what}: total {r['hits']['total']} vs the oracle's "
+          f"{len(matched)}")
+    pos = ({i: d for d, i in enumerate(ids_of)} if ids_of is not None
+           else None)
+    got = [int(h["_id"]) if pos is None else pos.get(h["_id"], -1)
+           for h in r["hits"]["hits"]]
+    check(len(got) == len(order) and -1 not in got
+          and bool(np.all(scores[got] > 0)),
+          f"{what}: {len(got)} hits, each an oracle match")
+    served = np.array([h["_score"] for h in r["hits"]["hits"]], np.float64)
+    want = scores[got]
+    check(bool(np.all(np.abs(served - want) <= FT_RTOL * want)),
+          f"{what}: served scores within rtol 1e-5 of the float64 oracle")
+    kth = scores[order[-1]] if len(order) else 0.0
+    miss = np.setdiff1d(order, got)
+    check(bool(np.all(np.abs(scores[miss] - kth) <= FT_RTOL * kth)),
+          f"{what}: every missing oracle doc ties the kth score")
+
+
+def geo_cpu_distance(lat32, lon32, origin, ids):
+    """float64 [len(ids)]: the port's float32 distances (m) of the docs
+    ``ids`` on the CPU, the arithmetic the CPU execution ranks by."""
+    import torch
+
+    from elasticsearch_tpu_torch.common import geo
+    ids = np.asarray(ids, np.int64)
+    return geo.haversine_meters(torch.from_numpy(lat32[ids]),
+                                torch.from_numpy(lon32[ids]), *origin,
+                                xp=torch).double().numpy()
+
+
+def geo_cpu_band(lat32, lon32, origin, radius):
+    """bool [n]: the docs whose float32 distance on the CPU lies within
+    GEO_CPU_REL (relative) of ``radius``, which CUDA's transcendentals
+    (an ulp off the CPU's) may put on the other side. Only points
+    within the radius's latitude band are computed."""
+    from elasticsearch_tpu_torch.common import geo
+    dlat = np.degrees(radius * (1 + 2 * GEO_BAND)
+                      / geo.EARTH_RADIUS_METERS) + 1e-3
+    cand = np.nonzero(np.abs(lat32 - np.float32(origin[0])) <= dlat)[0]
+    d = geo_cpu_distance(lat32, lon32, origin, cand)
+    band = np.zeros(len(lat32), bool)
+    band[cand[np.abs(d - radius) <= GEO_CPU_REL * radius]] = True
+    return band
+
+
+def same_geo(r, c, what, band=None, dist=None):
+    """A geopoint answer against the port's CPU execution; returns the
+    docs the two differ by (at most GEO_CPU_CAP). Unsorted: ``band``
+    (bool [n], ``geo_cpu_band``) holds the docs either side may count,
+    so the totals differ by at most its count, and up to the shorter
+    page's last doc the ids differ only by band docs. Sorted: the
+    float64 sort values of every doc both serve equal, and a doc served
+    by one side alone has its CPU float32 key (``dist(ids)``) within
+    GEO_CPU_REL of the CPU page's last key."""
+    g = [int(h["_id"]) for h in r["hits"]["hits"]]
+    p = [int(h["_id"]) for h in c["hits"]["hits"]]
+    if r["hits"]["hits"] and "sort" in r["hits"]["hits"][0]:
+        gv = {int(h["_id"]): h["sort"][0] for h in r["hits"]["hits"]}
+        pv = {int(h["_id"]): h["sort"][0] for h in c["hits"]["hits"]}
+        check(all(gv[i] == pv[i] for i in set(gv) & set(pv)),
+              f"{what}: sort values vs CPU")
+        diff = sorted(set(g) ^ set(p))
+        keys = dist(diff + [p[-1]])
+        last = keys[-1]
+        check(bool(np.all(np.abs(keys[:-1] - last) <= GEO_CPU_REL * last)),
+              f"{what}: ids vs CPU but at the page's last key")
+        differ = len(diff)
+    else:
+        n_band = int(band.sum())
+        dt = abs(r["hits"]["total"]["value"] - c["hits"]["total"]["value"])
+        check(dt <= n_band, f"{what}: totals vs CPU within the "
+                            f"{GEO_CPU_REL} band ({n_band} docs)")
+        limit = min(g[-1] if g else -1, p[-1] if p else -1)
+        diff = {i for i in set(g) ^ set(p) if i <= limit}
+        check(all(band[i] for i in diff),
+              f"{what}: ids vs CPU but the band")
+        differ = max(dt, len(diff))
+    check(differ <= GEO_CPU_CAP,
+          f"{what}: {differ} docs differ from the CPU (cap {GEO_CPU_CAP})")
+    return differ
+
+
+def profile_stages(port, index, body):
+    """{query_ms, rewrite_ms, join_ms, topk_ms, score_ms, verify_ms} of
+    ``body`` from its profile: true answer (ms)."""
+    st, p = http(port, "POST", f"/{index}/_search", dict(body, profile=True))
+    check(st == 200, f"profile: true on {index}: {str(p)[:200]}")
+    q = p["profile"]["shards"][0]["searches"][0]
+    br = q["query"][0]["breakdown"]
+    kids = {c["type"]: c["breakdown"] for c in q.get("children", [])}
+    return dict(query_ms=q["query"][0]["time_in_nanos"] / 1e6,
+                rewrite_ms=q["rewrite_time"] / 1e6,
+                join_ms=kids.get("rewrite", {}).get("join", 0) / 1e6,
+                topk_ms=br.get("topk", 0) / 1e6,
+                score_ms=br.get("score", 0) / 1e6,
+                verify_ms=kids.get("score", {}).get("verify", 0) / 1e6)
+
+
+def geo_polygon_points(center, radius, n):
+    t = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    r = radius * (1 + 0.3 * np.cos(5 * t))
+    return [{"lat": float(center[0] + r[i] * np.sin(t[i])),
+             "lon": float(center[1] + 1.5 * r[i] * np.cos(t[i]))}
+            for i in range(n)]
+
+
+def op_counter():
+    """A TorchDispatchMode counting, in ``.n``, the PyTorch operator
+    calls made inside it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+    return OpCount()
+
+
+def geo_mask_timings(node, index, lat32, bodies):
+    """Device ms of each geo mask over the index's segments (CUDA events,
+    the masks of every segment a call), the byte and operation bounds,
+    the stable top-k over a constant-score mask of every point, and the
+    kernel launches a polygon costs (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from elasticsearch_tpu_torch.ops.topk import masked_topk
+    from elasticsearch_tpu_torch.search.queries import parse_query
+    from elasticsearch_tpu_torch.search.searcher import ShardSearcher
+    svc = node.indices[index]
+    ctxs = ShardSearcher(svc.engine.segments, svc.mapper,
+                         node.device_cache)._contexts()
+    n = len(lat32)
+    out = {}
+    for name, body, ops_pt in bodies:
+        q = parse_query(body)
+
+        def run(q=q):
+            for ctx in ctxs:
+                q.do_execute(ctx)
+        ms, host_ms = cuda_ms(run, 5)
+        bound, by = bound_ms(11.0 * n, ops_pt * n, "float32")
+        row = dict(ms=ms, host_ms=host_ms, bound_ms=bound, bound_by=by,
+                   bytes_per_point=11)
+        if name.startswith("polygon"):
+            # the PyTorch ops a segment's mask issues, each at least one
+            # kernel launch, and the kernels torch.profiler saw
+            with op_counter() as ops:
+                q.do_execute(ctxs[0])
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                q.do_execute(ctxs[0])
+                torch.cuda.synchronize()
+            row["ops_per_segment"] = ops.n
+            row["kernels_per_segment"] = sum(
+                e.count for e in kernel_rows(prof.key_averages()))
+        out[name] = row
+    # the stable top-k over a constant-score mask of every point (the
+    # dense executor's masked_topk, k = 100, per segment)
+    masks = [ctx.live & ctx.all_true() for ctx in ctxs]
+    ones = [m.to(torch.float32) for m in masks]
+
+    def topk():
+        for s, m in zip(ones, masks):
+            masked_topk(s, m, FIELDS_SIZE)
+    ms, host_ms = cuda_ms(topk, 5)
+    bound, by = bound_ms(5.0 * n, 3.0 * n, "float32")
+    out["masked_topk_constant"] = dict(ms=ms, host_ms=host_ms,
+                                       bound_ms=bound, bound_by=by)
+    log(f"[fields] geo masks at {n} points: {out}")
+    return out
+
+
+def qa_oracle_nested_bool(ans, n_q, user, lo, hi):
+    """The nested bool (term answers.user, range answers.date [lo, hi)):
+    the flattened device filter (the user among the doc's users, the
+    doc's first date in range in float32) and, per answer, the
+    correlated check in float64."""
+    f = np.float32
+    first = np.full(n_q, np.nan)
+    starts = np.concatenate([[0], np.cumsum(ans["n_ans"])])[:-1]
+    has = ans["n_ans"] > 0
+    first[has] = ans["date"][starts[has]]
+    f32 = first.astype(np.float32)
+    dev = has & (f32 >= f(lo)) & (f32 < f(hi))
+    one = (ans["user"] == user) & (ans["date"] >= lo) & (ans["date"] < hi)
+    corr = np.zeros(n_q, bool)
+    corr[ans["doc"][one]] = True
+    return dev & corr
+
+
+def qa_text_bm25(ans, n_q, words, k1=1.2, b=0.75):
+    """float64 BM25 [n_q] of the flattened answers.text field for the
+    query ``words`` (word ids), and the docs that match."""
+    toks = ans["text"]
+    tok_doc = np.repeat(ans["doc"], 6).reshape(-1, 6)
+    valid = toks >= 0
+    lens = np.bincount(tok_doc[valid], minlength=n_q).astype(np.float64)
+    n_docs = int((lens > 0).sum())
+    avg = lens.sum() / max(n_docs, 1)
+    scores = np.zeros(n_q)
+    for w in words:
+        hit = (toks == w)
+        tf = np.bincount(tok_doc[hit], minlength=n_q).astype(np.float64)
+        df = int((tf > 0).sum())
+        if df == 0:
+            continue
+        idf = np.log(1.0 + (n_docs - df + 0.5) / (df + 0.5))
+        norm = k1 * (1.0 - b + b * lens / avg)
+        scores += np.where(tf > 0, idf * tf / (tf + norm), 0.0)
+    return scores
+
+
+def child_bm25(ans, words, k1=1.2, b=0.75):
+    """float64 BM25 [A] of each answer's own ``text`` (the join twin's
+    child docs; only the children hold the field)."""
+    toks = ans["text"]
+    lens = ans["text_len"].astype(np.float64)
+    avg = lens.sum() / len(lens)
+    n = len(lens)
+    scores = np.zeros(n)
+    for w in words:
+        tf = (toks == w).sum(axis=1).astype(np.float64)
+        df = int((tf > 0).sum())
+        if df == 0:
+            continue
+        idf = np.log(1.0 + (n - df + 0.5) / (df + 0.5))
+        scores += np.where(tf > 0, idf * tf / (tf + k1 * (1 - b + b * lens
+                                                          / avg)), 0.0)
+    return scores
+
+
+def percolate_oracle(rules, docs):
+    """For each stored rule (kind, terms, lo, hi), the slots of ``docs``
+    ((set of terms, views)) it matches."""
+    out = []
+    for kind, terms, lo, hi in rules:
+        slots = []
+        for s, (dterms, views) in enumerate(docs):
+            in_range = lo <= views < hi
+            text = bool(terms & dterms)
+            ok = (text if kind == "match" else
+                  text and in_range if kind == "bool" else in_range)
+            if ok:
+                slots.append(s)
+        out.append(slots)
+    return out
+
+
+def phase_fields(node, port, corpus, queries, logs, cols, n_points, n_qa,
+                 n_alerts, seed, conns, counters, cpu):
+    """The remaining field types and their queries on one H100 (module
+    docstring, phase 12)."""
+    import ipaddress
+
+    import torch
+
+    from elasticsearch_tpu_torch.common import geo
+    from elasticsearch_tpu_torch.corpus import (
+        COUNTRY_CODES, QA_T0_MS, QA_USERS, QA_WORDS, dense_scores, envelope_columns,
+        geo_columns, geo_points, ip_column, keyword_postings, multi_keyword,
+        multi_numeric, postings_from_pairs, qa_answer_objects, qa_answers,
+        qa_user, qa_word, segment_from_corpus, term_name)
+    from elasticsearch_tpu_torch.index.segment import segment_from_numpy
+    from elasticsearch_tpu_torch.telemetry.engine import TRACKER
+    t_phase = time.time()
+    rng = np.random.default_rng(seed)
+    n = len(corpus["lens"])
+    vocab = len(corpus["df"])
+    conns = min(conns, 16)
+    cpu.indices = node.indices
+    out = {"sizes": {}}
+
+    # ---- (a) geopoint: n_points points in GEO_SEGMENTS segments
+    t0 = time.time()
+    lat, lon, _city = geo_points(n_points, rng)
+    del _city
+    node.create_index("geopoint", {"properties": {
+        "location": {"type": "geo_point"}}})
+    per = -(-n_points // GEO_SEGMENTS)
+    segs = []
+    rss0, t_ids = host_rss_bytes(), 0.0
+    for i in range(GEO_SEGMENTS):
+        lo_, hi_ = i * per, min(n_points, (i + 1) * per)
+        t_ids -= time.time()
+        ids = [str(d) for d in range(lo_, hi_)]
+        t_ids += time.time()
+        segs.append(segment_from_numpy(
+            {"numerics": geo_columns("location", lat[lo_:hi_],
+                                     lon[lo_:hi_]),
+             "ids": ids}, name=f"geopoint{i}"))
+        del ids
+    ids_rss = host_rss_bytes() - rss0
+    node.indices["geopoint"].engine.install_segments(segs)
+    for s in segs:
+        node.device_cache.get(s)
+    torch.cuda.synchronize()
+    lat32 = lat.astype(np.float32)
+    lon32 = lon.astype(np.float32)
+    lat64, lon64 = lat32.astype(np.float64), lon32.astype(np.float64)
+    out["sizes"]["geopoint"] = dict(
+        points=n_points, segments=GEO_SEGMENTS, ids_s=t_ids,
+        host_rss_added=ids_rss, host_free_gib=host_free_gib(),
+        device_bytes=sum(node.device_cache.resident(s.name).hbm_bytes()
+                         for s in segs), setup_s=time.time() - t0)
+    log(f"[fields] geopoint: {out['sizes']['geopoint']}")
+
+    # ---- (b) geonames: the corpus as places
+    t0 = time.time()
+    g_lat, g_lon, g_city = geo_points(n, rng)
+    half = rng.uniform(0.005, 0.05, n)
+    pop = np.round(rng.lognormal(7.0, 2.0, n))
+    cc = np.where(g_city < 0, len(COUNTRY_CODES) - 1,
+                  g_city % (len(COUNTRY_CODES) - 1)).astype(np.int32)
+    cc_terms = sorted(COUNTRY_CODES)
+    cc_rank = np.argsort(np.argsort(COUNTRY_CODES))
+    cc = cc_rank[cc].astype(np.int32)
+    node.create_index("geonames", {"properties": {
+        "title": {"type": "text"}, "location": {"type": "geo_point"},
+        "population": {"type": "long"},
+        "country_code": {"type": "keyword"},
+        "area": {"type": "geo_shape"}}})
+    gseg = segment_from_corpus(
+        corpus, name="geonames0",
+        numerics={**geo_columns("location", g_lat, g_lon),
+                  **envelope_columns("area", g_lat, g_lon, half),
+                  "population": {"values": pop}},
+        keywords={"country_code": {"ords": cc, "terms": cc_terms}},
+        fields={"country_code": keyword_postings(cc, cc_terms)})
+    node.indices["geonames"].engine.install_segments([gseg])
+    g_lat32, g_lon32 = g_lat.astype(np.float32), g_lon.astype(np.float32)
+    box32 = {k: gseg.numerics[f"area.{k}"].values.astype(np.float32)
+             for k in ("min_lat", "min_lon", "max_lat", "max_lon")}
+    out["sizes"]["geonames"] = dict(docs=n, setup_s=time.time() - t0)
+
+    # ---- (c) logs_ip: the logs with clientip and a date_range
+    t0 = time.time()
+    ip, _nets = ip_column(n, rng)
+    ts = cols["@timestamp"]["values"]
+    s_lo = ts - rng.integers(0, 30 * 60_000, n)
+    s_hi = ts + rng.integers(0, 2 * 3_600_000, n)
+    node.create_index("logs_ip", {"properties": {
+        "title": {"type": "text"}, "@timestamp": {"type": "date"},
+        "clientip": {"type": "ip"}, "session": {"type": "date_range"}}})
+    node.indices["logs_ip"].engine.install_segments([segment_from_corpus(
+        logs, name="logs_ip0",
+        numerics={"@timestamp": cols["@timestamp"],
+                  "clientip": {"values": ip},
+                  "session.lo": {"values": s_lo.astype(np.float64)},
+                  "session.hi": {"values": s_hi.astype(np.float64)}})])
+    ip32 = ip.astype(np.float32)
+    slo32, shi32 = s_lo.astype(np.float32), s_hi.astype(np.float32)
+    out["sizes"]["logs_ip"] = dict(docs=n, setup_s=time.time() - t0)
+
+    # ---- (d) qa (nested answers) and its join twin qa_join
+    t0 = time.time()
+    from elasticsearch_tpu_torch.corpus import build_corpus
+    qc = build_corpus(rng, n_docs=n_qa, vocab=20_000)
+    ans = qa_answers(n_qa, rng)
+    objs = qa_answer_objects(ans)
+    users = [qa_user(u) for u in range(QA_USERS)]
+    words = [qa_word(w) for w in range(QA_WORDS)]
+    tok_valid = ans["text"] >= 0
+    tok_doc = np.repeat(ans["doc"], 6).reshape(-1, 6)[tok_valid]
+    tok_word = ans["text"][tok_valid]
+    tok_ans = np.repeat(np.arange(len(ans["doc"])), 6).reshape(-1, 6)[
+        tok_valid]
+    starts = np.concatenate([[0], np.cumsum(ans["n_ans"])])
+    streams = qc["stream"]
+    qlens = qc["lens"].astype(np.int64)
+    qstart = np.concatenate([[0], np.cumsum(qlens)])
+    titles = [" ".join(term_name(int(t)) for t in
+                       streams[qstart[i]:qstart[i + 1]])
+              for i in range(n_qa)]
+    sources = []
+    for i in range(n_qa):
+        d = {"title": titles[i]}
+        if ans["n_ans"][i]:
+            d["answers"] = objs[starts[i]:starts[i + 1]]
+        sources.append(json.dumps(d, separators=(",", ":")).encode())
+    node.create_index("qa", {"properties": {
+        "title": {"type": "text"},
+        "answers": {"type": "nested", "properties": {
+            "user": {"type": "keyword"}, "date": {"type": "date"},
+            "score": {"type": "integer"}, "text": {"type": "text"}}}}})
+    node.indices["qa"].engine.install_segments([segment_from_corpus(
+        qc, name="qa0",
+        numerics={"answers.date": multi_numeric(ans["doc"], ans["date"],
+                                                n_qa),
+                  "answers.score": multi_numeric(
+                      ans["doc"], ans["score"].astype(np.float64), n_qa)},
+        keywords={"answers.user": multi_keyword(ans["doc"], ans["user"],
+                                                n_qa, users)},
+        fields={"answers.user": postings_from_pairs(
+                    ans["doc"], ans["user"], n_qa, users, keyword=True),
+                "answers.text": postings_from_pairs(
+                    tok_doc, tok_word, n_qa, words)},
+        sources=sources)])
+    # the join twin: the questions (docids 0 .. n_qa - 1) then their
+    # answers as child docs
+    n_ch = len(ans["doc"])
+    nj = n_qa + n_ch
+    ch = np.arange(n_qa, nj)
+    pids = [f"q{i}" for i in range(n_qa)]
+    pid_terms = sorted(pids)
+    pid_rank = np.empty(n_qa, np.int64)
+    pid_rank[np.array([int(p[1:]) for p in pid_terms])] = np.arange(n_qa)
+    rel_ords = np.concatenate([np.ones(n_qa, np.int32),
+                               np.zeros(n_ch, np.int32)])
+    parent_ords = np.concatenate([np.full(n_qa, -1, np.int32),
+                                  pid_rank[ans["doc"]].astype(np.int32)])
+    title_pf = postings_from_pairs(
+        np.repeat(np.arange(n_qa), qlens), streams.astype(np.int64), nj,
+        [term_name(t) for t in range(20_000)])
+    child_id = [f"a{int(d)}_{int(k)}" for d, k in zip(
+        ans["doc"], np.arange(n_ch) - starts[ans["doc"]])]
+    jsources = [json.dumps({"title": titles[i], "qa": "question"},
+                           separators=(",", ":")).encode()
+                for i in range(n_qa)]
+    jsources += [json.dumps(dict(o, qa={"name": "answer",
+                                        "parent": f"q{int(d)}"}),
+                            separators=(",", ":")).encode()
+                 for o, d in zip(objs, ans["doc"])]
+    node.create_index("qa_join", {"properties": {
+        "title": {"type": "text"}, "text": {"type": "text"},
+        "user": {"type": "keyword"}, "score": {"type": "integer"},
+        "qa": {"type": "join", "relations": {"question": "answer"}}}})
+    node.indices["qa_join"].engine.install_segments([segment_from_numpy({
+        "fields": {"title": title_pf,
+                   "text": postings_from_pairs(tok_ans + n_qa, tok_word,
+                                               nj, words)},
+        "numerics": {"score": {"values": np.concatenate([
+            np.full(n_qa, np.nan), ans["score"].astype(np.float64)])}},
+        "keywords": {"qa": {"terms": ["answer", "question"],
+                            "ords": rel_ords},
+                     "qa#parent": {"terms": pid_terms,
+                                   "ords": parent_ords}},
+        "ids": pids + child_id,
+        "sources": jsources}, name="qa_join0")])
+    out["sizes"]["qa"] = dict(questions=n_qa, answers=n_ch,
+                              setup_s=time.time() - t0)
+    del titles, jsources
+
+    # ---- (e) alerts: n_alerts stored queries over _bulk; inbox
+    t0 = time.time()
+    amap = {"properties": {"query": {"type": "percolator"},
+                           "title": {"type": "text"},
+                           "views": {"type": "long"}}}
+    for name in ("alerts", "inbox"):
+        node.create_index(name, amap)
+    rules, lines = [], []
+    for i in range(n_alerts):
+        qterms = queries[i % len(queries)]
+        q = qterms[: 1 + i % min(3, len(qterms))]
+        text = " ".join(term_name(t) for t in q)
+        lo_v = int(rng.integers(0, 900))
+        hi_v = lo_v + int(rng.integers(10, 400))
+        kind = ("match", "bool", "range")[i % 3]
+        if kind == "match":
+            stored = {"match": {"title": text}}
+        elif kind == "bool":
+            stored = {"bool": {"must": [{"match": {"title": text}}],
+                               "filter": [{"range": {"views": {
+                                   "gte": lo_v, "lt": hi_v}}}]}}
+        else:
+            stored = {"range": {"views": {"gte": lo_v, "lt": hi_v}}}
+        rules.append((kind, {term_name(t) for t in q}, lo_v, hi_v))
+        lines.append(json.dumps({"index": {"_id": f"rule{i}"}}) + "\n"
+                     + json.dumps({"query": stored}) + "\n")
+    st, r = http(port, "POST", "/alerts/_bulk", "".join(lines), ndjson=True)
+    check(st == 200 and not r["errors"], f"alerts bulk: {str(r)[:200]}")
+    check(http(port, "POST", "/alerts/_refresh")[0] == 200, "alerts refresh")
+
+    def corpus_doc(d):
+        lo_, hi_ = int(corpus_starts[d]), int(corpus_starts[d + 1])
+        toks = [term_name(int(t)) for t in corpus["stream"][lo_:hi_]]
+        return {"title": " ".join(toks), "views": int(d % 1000)}, \
+            (set(toks), int(d % 1000))
+    corpus_starts = np.concatenate(
+        [[0], np.cumsum(corpus["lens"].astype(np.int64))])
+    picks = [int(d) for d in rng.integers(0, n, 12)]
+    pdocs = [corpus_doc(d) for d in picks]
+    st, r = http(port, "POST", "/inbox/_bulk",
+                 json.dumps({"index": {"_id": "d1"}}) + "\n"
+                 + json.dumps(pdocs[11][0]) + "\n", ndjson=True)
+    check(st == 200 and not r["errors"], "inbox bulk")
+    check(http(port, "POST", "/inbox/_refresh")[0] == 200, "inbox refresh")
+    out["sizes"]["alerts"] = dict(stored_queries=n_alerts,
+                                  setup_s=time.time() - t0)
+    # every segment resident before the mixes: their first request does
+    # not upload one
+    t0 = time.time()
+    for index in ("geonames", "logs_ip", "qa", "qa_join", "alerts",
+                  "inbox"):
+        for seg in node.indices[index].engine.segments:
+            node.device_cache.get(seg)
+    torch.cuda.synchronize()
+    out["sizes"]["upload_s"] = time.time() - t0
+    log(f"[fields] set up: {out['sizes']}")
+
+    # ---- the bodies, family by family: (index, family, body, check)
+    cases = []
+    # geopoint: origins at three dense cities
+    dens = np.argsort(-np.bincount(np.clip(
+        ((lat64 + 90) // 1).astype(np.int64) * 360
+        + ((lon64 + 180) // 1).astype(np.int64), 0, 180 * 360 - 1),
+        minlength=180 * 360))[:3]
+    centres = [(float(c // 360 - 90 + 0.5), float(c % 360 - 180 + 0.5))
+               for c in dens]
+    (c0, c1, c2) = centres
+
+    def dist(origin, km):
+        return {"geo_distance": {"distance": f"{km}km", "location": {
+            "lat": origin[0], "lon": origin[1]}}}
+    for km in (1, 50, 1000):
+        cases.append(("geopoint", f"geo_distance_{km}km",
+                      {"query": dist(c0, km)},
+                      ("distance", c0, km * 1000.0)))
+    cases.append(("geopoint", "distance_range",
+                  {"query": {"bool": {"must": [dist(c1, 200)],
+                                      "must_not": [dist(c1, 50)]}}},
+                  ("ring", c1, 200e3, 50e3)))
+    box = (c0[0] + 2.0, c0[1] - 3.0, c0[0] - 2.0, c0[1] + 3.0)
+    cases.append(("geopoint", "bbox", {"query": {"geo_bounding_box": {
+        "location": {"top": box[0], "left": box[1], "bottom": box[2],
+                     "right": box[3]}}}}, ("bbox", box)))
+    dl = (20.0, 170.0, -20.0, -170.0)
+    cases.append(("geopoint", "bbox_dateline", {"query": {
+        "geo_bounding_box": {"location": {
+            "top_left": {"lat": dl[0], "lon": dl[1]},
+            "bottom_right": {"lat": dl[2], "lon": dl[3]}}}}},
+        ("bbox", dl)))
+    for nv in (5, 64):
+        pts = geo_polygon_points(c2, 1.5, nv)
+        cases.append(("geopoint", f"polygon_{nv}", {"query": {
+            "geo_polygon": {"location": {"points": pts}}}},
+            ("polygon", [p["lat"] for p in pts], [p["lon"] for p in pts])))
+    for size in (10, 100):
+        cases.append(("geopoint", f"sort_{size}", {
+            "query": {"match_all": {}}, "size": size,
+            "sort": [{"_geo_distance": {"location": {
+                "lat": c1[0], "lon": c1[1]}, "unit": "km"}}]},
+            ("sort", c1, size)))
+    # geonames: match + geo filters (the contribution kernel), geo_shape
+    gq = [q for q in queries if 2 <= len(q) <= 4][:4]
+    gbox = (c0[0] + 8.0, c0[1] - 12.0, c0[0] - 8.0, c0[1] + 12.0)
+    for i, q in enumerate(gq):
+        text = " ".join(term_name(t) for t in q)
+        if i % 2 == 0:
+            filt = {"geo_bounding_box": {"location": {
+                "top": gbox[0], "left": gbox[1], "bottom": gbox[2],
+                "right": gbox[3]}}}
+            ok = geo_oracle_bbox(g_lat32, g_lon32, *gbox)
+        else:
+            pts = geo_polygon_points(c0, 10.0, 12)
+            filt = {"geo_polygon": {"location": {"points": pts}}}
+            ok = geo_oracle_polygon(g_lat32, g_lon32,
+                                    [p["lat"] for p in pts],
+                                    [p["lon"] for p in pts])
+        cases.append(("geonames", f"match_geo_{i}", {"query": {"bool": {
+            "must": [{"match": {"title": text}}], "filter": [filt]}}},
+            ("scored", dense_scores(corpus, q) * ok)))
+    sq = (c0[0] - 5.0, c0[1] - 5.0, c0[0] + 5.0, c0[1] + 5.0)
+    shape = {"type": "envelope", "coordinates": [[sq[1], sq[2]],
+                                                 [sq[3], sq[0]]]}
+    f = np.float32
+    ov = ~((box32["max_lat"] < f(sq[0])) | (box32["min_lat"] > f(sq[2]))
+           | (box32["max_lon"] < f(sq[1])) | (box32["min_lon"] > f(sq[3])))
+    rel_masks = {
+        "intersects": ov, "disjoint": ~ov,
+        "within": ((box32["min_lat"] >= f(sq[0]))
+                   & (box32["max_lat"] <= f(sq[2]))
+                   & (box32["min_lon"] >= f(sq[1]))
+                   & (box32["max_lon"] <= f(sq[3])))}
+    pt = (float(g_lat[7]), float(g_lon[7]))
+    rel_masks["contains"] = ((box32["min_lat"] <= f(pt[0]))
+                             & (box32["max_lat"] >= f(pt[0]))
+                             & (box32["min_lon"] <= f(pt[1]))
+                             & (box32["max_lon"] >= f(pt[1])))
+    for rel, m in rel_masks.items():
+        qshape = (shape if rel != "contains" else
+                  {"type": "point", "coordinates": [pt[1], pt[0]]})
+        cases.append(("geonames", f"geo_shape_{rel}", {"query": {
+            "geo_shape": {"area": {"shape": qshape, "relation": rel}}}},
+            ("mask", m)))
+    # logs_ip: single ip, CIDR /24 and /16, ip range, date_range relations
+    common = ip[int(np.argmax(np.bincount(np.searchsorted(
+        np.unique(ip), ip))))]
+    ipa = ipaddress.ip_address
+    net16 = int(common) >> 16 << 16
+    net24 = int(common) >> 8 << 8
+    for name, body, m, exact in (
+            ("ip_term", {"term": {"clientip": str(ipa(int(common)))}},
+             ip32 == f(common), ip == common),
+            ("ip_cidr24", {"term": {"clientip": f"{ipa(net24)}/24"}},
+             (ip32 >= f(net24)) & (ip32 <= f(net24 + 255)),
+             (ip >= net24) & (ip <= net24 + 255)),
+            ("ip_cidr16", {"term": {"clientip": f"{ipa(net16)}/16"}},
+             (ip32 >= f(net16)) & (ip32 <= f(net16 + 65535)),
+             (ip >= net16) & (ip <= net16 + 65535)),
+            ("ip_range", {"range": {"clientip": {
+                "gte": str(ipa(net16)), "lt": str(ipa(net16 + 4096))}}},
+             (ip32 >= f(net16)) & (ip32 < f(net16 + 4096)),
+             (ip >= net16) & (ip < net16 + 4096))):
+        # the float32 column's gap: docs matched for a neighbouring
+        # address the column cannot tell apart
+        cases.append(("logs_ip", name, {"query": body},
+                      ("mask", m, int(np.sum(m & ~exact)))))
+    t_q0 = float(ts[n // 3])
+    t_q1 = t_q0 + 3_600_000.0
+    for rel in ("intersects", "within", "contains"):
+        ql, qh = f(t_q0), f(t_q1)
+        if rel == "within":
+            m = (slo32 >= ql) & (shi32 <= qh)
+        elif rel == "contains":
+            ql = qh = f(t_q0 + 600_000.0)
+            m = (slo32 <= ql) & (shi32 >= qh)
+        else:
+            m = (slo32 <= qh) & (shi32 >= ql)
+        body = {"range": {"session": {
+            "gte": int(t_q0 if rel != "contains" else t_q0 + 600_000),
+            "lte": int(t_q1 if rel != "contains" else t_q0 + 600_000),
+            "relation": rel}}}
+        cases.append(("logs_ip", f"date_range_{rel}", {"query": body},
+                      ("mask", m, 0)))
+    # qa: nested bool (term + range), score_mode over a match, inner_hits
+    top_users = np.argsort(-np.bincount(ans["user"],
+                                        minlength=QA_USERS))[:3]
+    d_lo = QA_T0_MS + 200 * 86_400_000.0
+    d_hi = d_lo + 400 * 86_400_000.0
+    for u in top_users[:2]:
+        body = {"nested": {"path": "answers", "query": {"bool": {"must": [
+            {"term": {"answers.user": qa_user(int(u))}},
+            {"range": {"answers.date": {"gte": int(d_lo),
+                                        "lt": int(d_hi)}}}]}}}}
+        cases.append(("qa", "nested_bool", {"query": body},
+                      ("qa_bool", int(u), d_lo, d_hi)))
+    qwords = [int(w) for w in np.argsort(-np.bincount(
+        tok_word, minlength=QA_WORDS))[[3, 40]]]
+    cases.append(("qa", "nested_score_mode", {"query": {"nested": {
+        "path": "answers", "score_mode": "avg", "query": {"match": {
+            "answers.text": " ".join(qa_word(w) for w in qwords)}}}}},
+        ("qa_text", qwords)))
+    cases.append(("qa", "nested_inner_hits", {"query": {"nested": {
+        "path": "answers", "query": {"term": {
+            "answers.user": qa_user(int(top_users[2]))}},
+        "inner_hits": {"size": 3}}}}, ("cpu",)))
+    # qa_join: has_child per score_mode and min_children, has_parent
+    # with score, parent_id
+    cw = [int(w) for w in np.argsort(-np.bincount(
+        tok_word, minlength=QA_WORDS))[[5, 60]]]
+    for mode in ("none", "max", "sum", "avg", "min"):
+        cases.append(("qa_join", f"has_child_{mode}", {"query": {
+            "has_child": {"type": "answer", "score_mode": mode, "query": {
+                "match": {"text": " ".join(qa_word(w) for w in cw)}}}}},
+            ("has_child", cw, mode, 1)))
+    cases.append(("qa_join", "has_child_min_children", {"query": {
+        "has_child": {"type": "answer", "score_mode": "sum",
+                      "min_children": 2, "query": {"match": {
+                          "text": qa_word(cw[0])}}}}},
+        ("has_child", cw[:1], "sum", 2)))
+    pq = [int(t) for t in np.argsort(-qc["df"])[[20, 300]]]
+    cases.append(("qa_join", "has_parent", {"query": {"has_parent": {
+        "parent_type": "question", "score": True, "query": {"match": {
+            "title": " ".join(term_name(t) for t in pq)}}}}},
+        ("has_parent", pq)))
+    cases.append(("qa_join", "parent_id", {"query": {"parent_id": {
+        "type": "answer", "id": "q17"}}}, ("parent_id", 17)))
+    # alerts: one document, ten documents, a document by index/id
+    slots_docs = {"one": [pdocs[0]], "ten": pdocs[1:11],
+                  "ref": [pdocs[11]]}
+    for case, docs in slots_docs.items():
+        spec = ({"field": "query", "index": "inbox", "id": "d1"}
+                if case == "ref" else
+                {"field": "query", "documents": [d for d, _ in docs]})
+        cases.append(("alerts", f"percolate_{case}", {
+            "query": {"percolate": spec}, "size": 10000},
+            ("percolate", [k for _, k in docs])))
+    bodies = [dict(b, size=b.get("size", FIELDS_SIZE), _source=False)
+              if idx != "qa" else dict(b, size=b.get("size", FIELDS_SIZE))
+              for idx, _fam, b, _chk in cases]
+
+    # ---- the counted window: every body over HTTP, index by index from
+    # `conns` clients, the kernels' counts set to 0 just before
+    _, k0 = http(port, "GET", "/_kernels")
+    scorings0 = TRACKER.calls("bm25_dense_scores_sorted")
+    for c in counters.values():
+        c.launches = 0
+    results = [None] * len(cases)
+    loads = {}
+    for index in ("geopoint", "geonames", "logs_ip", "qa", "qa_join",
+                  "alerts"):
+        pos = [i for i, c in enumerate(cases) if c[0] == index]
+        if index == "alerts":
+            # the percolations one at a time, each latency its own
+            res, took, wall = drive(port, [bodies[i] for i in pos], 1,
+                                    index)
+            check(all(st == 200 for st, _ in res), "percolate answered")
+            loads[index] = dict(requests=len(pos), qps=len(pos) / wall,
+                                latency_ms=[t * 1e3 for t in took],
+                                clients=1)
+        else:
+            res, loads[index] = mix_load(port, [bodies[i] for i in pos],
+                                         index, conns, f"{index} mix")
+        for i, rr in zip(pos, res):
+            results[i] = rr[1]
+    launches = {name: c.launches for name, c in counters.items()}
+    dense_scorings = TRACKER.calls("bm25_dense_scores_sorted") - scorings0
+    _, k1 = http(port, "GET", "/_kernels")
+    calls = {name: k1["kernels"].get(name, {}).get("calls", 0)
+             - k0["kernels"].get(name, {}).get("calls", 0)
+             for name in counters}
+    out["launches"] = launches
+    out["kernels_calls"] = calls
+    out["dense_scorings"] = dense_scorings
+    out["load"] = loads
+    check(calls == launches
+          and launches["gather_bm25_contrib"] == dense_scorings > 0
+          and launches["merge_sorted_slots"] == 0,
+          f"phase 12: the contribution kernel launched once per dense BM25 "
+          f"scoring ({dense_scorings}), the merge not at all, and "
+          f"/_kernels agrees: {launches} vs {calls}")
+    log(f"[fields] launches {launches}, dense scorings {dense_scorings}, "
+        f"load {loads}")
+
+    # ---- every answer against its oracle and the CPU execution
+    t0 = time.time()
+    held = Counter()
+    bands = {}
+    cpu_exempt = {}
+    no_band = np.zeros(len(lat32), bool)
+    # held to the oracle alone: the 64-vertex polygon (on the CPU 64 x 11
+    # elementwise passes over every point) and the percolations of ten
+    # documents and of a document by reference (10,000 stored queries
+    # each; the one-document percolation is held to the CPU)
+    cpu_skip = {"polygon_64", "percolate_ten", "percolate_ref"}
+    spent = Counter()
+    for (index, fam, body, chk), qbody, r in zip(cases, bodies, results):
+        what = f"{index} {fam} {json.dumps(body)[:100]}"
+        kind = chk[0]
+        cpu_band = no_band
+        if kind == "distance":
+            m, band = geo_oracle_distance(lat64, lon64, chk[1], chk[2])
+            bands[fam] = check_constant_page(r, m, band, what)
+            cpu_band = geo_cpu_band(lat32, lon32, chk[1], chk[2])
+        elif kind == "ring":
+            m1, b1 = geo_oracle_distance(lat64, lon64, chk[1], chk[2])
+            m2, b2 = geo_oracle_distance(lat64, lon64, chk[1], chk[3])
+            bands[fam] = check_constant_page(r, m1 & ~m2, b1 | b2, what)
+            cpu_band = (geo_cpu_band(lat32, lon32, chk[1], chk[2])
+                        | geo_cpu_band(lat32, lon32, chk[1], chk[3]))
+        elif kind == "bbox":
+            check_constant_page(r, geo_oracle_bbox(lat32, lon32, *chk[1]),
+                                no_band, what)
+        elif kind == "polygon":
+            check_constant_page(r, geo_oracle_polygon(lat32, lon32, chk[1],
+                                                      chk[2]), no_band, what)
+        elif kind == "sort":
+            (olat, olon), size = chk[1], chk[2]
+            pages = [r]
+            after = r["hits"]["hits"][-1]["sort"]
+            for _ in range(2):
+                st, rp = http(port, "POST", "/geopoint/_search",
+                              dict(qbody, search_after=after))
+                check(st == 200, f"{what}: a search_after page")
+                pages.append(rp)
+                after = rp["hits"]["hits"][-1]["sort"]
+            # the sort values are float64 distances of the stored
+            # (unrounded) points
+            near = np.nonzero(np.abs(lat - olat) <= 3.0)[0]
+            d64 = geo.haversine_meters(lat[near], lon[near], olat, olon)
+            by_id = dict(zip(near.tolist(), (d64 / 1000.0).tolist()))
+            # the cursor is the last hit's float64 distance, compared
+            # with the float32 device keys (the reference's), so a doc
+            # whose float32 key lies above its float64 value comes back
+            # on the next page: counted, not refused
+            seen = set()
+            repeats = 0
+            for pg in pages:
+                ids_ = [int(h["_id"]) for h in pg["hits"]["hits"]]
+                vals = np.array([h["sort"][0] for h in pg["hits"]["hits"]])
+                repeats += len(seen & set(ids_))
+                check(len(ids_) == size, f"{what}: pages of {size}")
+                check(bool(np.allclose(vals, [by_id.get(i, np.nan)
+                                              for i in ids_],
+                                       rtol=1e-12, atol=0)),
+                      f"{what}: sort values are the float64 km")
+                tol = (GEO_ABS_M + GEO_BAND * vals * 1000.0) / 1000.0
+                check(bool(np.all(np.diff(vals) >= -tol[1:])),
+                      f"{what}: sort values ascend")
+                seen |= set(ids_)
+            last = max(by_id[i] for i in seen)
+            tol = (GEO_ABS_M + GEO_BAND * last * 1000.0) / 1000.0
+            sure = {i for i, v in by_id.items() if v < last - tol}
+            check(sure <= seen, f"{what}: every doc nearer than the walk's "
+                                f"last is on a page")
+            out.setdefault("walk_repeats", {})[fam] = repeats
+        elif kind == "scored":
+            check_scored_page(r, chk[1], what)
+        elif kind == "mask":
+            check_constant_page(r, chk[1], np.zeros(len(chk[1]), bool),
+                                what)
+            if len(chk) > 2:
+                out.setdefault("f32_gap", {})[fam] = chk[2]
+        elif kind == "qa_bool":
+            m = qa_oracle_nested_bool(ans, n_qa, chk[1], chk[2], chk[3])
+            # the inner bool's score: the keyword term's idf/(1+k1) plus
+            # the range's 1.0, on every hit
+            df_u = int(np.sum(np.bincount(ans["doc"][ans["user"] == chk[1]],
+                                          minlength=n_qa) > 0))
+            n_users = int(np.sum(ans["n_ans"] > 0))
+            s = np.log(1 + (n_users - df_u + 0.5) / (df_u + 0.5)) / 2.2 + 1
+            check_scored_page(r, np.where(m, s, 0.0), what)
+        elif kind == "qa_text":
+            check_scored_page(r, qa_text_bm25(ans, n_qa, chk[1]), what)
+        elif kind == "has_child":
+            cs = child_bm25(ans, chk[1])
+            hit = cs > 0
+            cnt = np.bincount(ans["doc"][hit], minlength=n_qa)
+            mode = chk[2]
+            if mode == "none":
+                ps = (cnt >= chk[3]).astype(np.float64)
+            elif mode == "sum" or mode == "avg":
+                ps = np.bincount(ans["doc"][hit], cs[hit], minlength=n_qa)
+                if mode == "avg":
+                    ps = np.where(cnt > 0, ps / np.maximum(cnt, 1), 0.0)
+            else:
+                ps = np.full(n_qa, -np.inf if mode == "max" else np.inf)
+                (np.maximum if mode == "max" else np.minimum).at(
+                    ps, ans["doc"][hit], cs[hit])
+                ps = np.where(cnt > 0, ps, 0.0)
+            ps = np.where(cnt >= chk[3], ps, 0.0)
+            check_scored_page(r, ps, what, ids_of=pids)
+        elif kind == "has_parent":
+            psc = dense_scores(qc, chk[1])
+            check_scored_page(r, psc[ans["doc"]], what, ids_of=child_id)
+        elif kind == "parent_id":
+            m = ans["doc"] == chk[1]
+            check_constant_page(r, m, np.zeros(len(m), bool), what,
+                                ids_of=child_id)
+        elif kind == "percolate":
+            want = percolate_oracle(rules, chk[1])
+            hit_ids = [f"rule{i}" for i, s in enumerate(want) if s]
+            check([h["_id"] for h in r["hits"]["hits"]] == hit_ids
+                  and r["hits"]["total"]["value"] == len(hit_ids),
+                  f"{what}: the matching stored queries in docid order")
+            check([h["fields"]["_percolator_document_slot"]
+                   for h in r["hits"]["hits"]]
+                  == [s for s in want if s], f"{what}: the slots")
+        held[index] += 1
+        spent[index] -= time.time()
+        if fam in cpu_skip:
+            spent[index] += time.time()
+            continue
+        c = cpu.search(index, node.indices[index], qbody)
+        if index == "geopoint":
+            origin = chk[1] if kind == "sort" else None
+            cpu_exempt[fam] = (int(cpu_band.sum()), same_geo(
+                r, c, what, cpu_band,
+                lambda ids: geo_cpu_distance(lat32, lon32, origin, ids)))
+        else:
+            same_fetch(r, c, what)
+            for a, b in zip(r["hits"]["hits"], c["hits"]["hits"]):
+                check(a.get("inner_hits") == b.get("inner_hits"),
+                      f"{what}: inner_hits vs CPU")
+        if fam == "nested_inner_hits":
+            for h in r["hits"]["hits"]:
+                src = h["_source"]["answers"]
+                for ih in h["inner_hits"]["answers"]["hits"]["hits"]:
+                    check(src[ih["_nested"]["offset"]] == ih["_source"],
+                          f"{what}: an inner hit's offset indexes _source")
+        spent[index] += time.time()
+    out["checked"] = dict(held)
+    out["geo_band_docs"] = bands
+    out["geo_cpu_band_differ"] = cpu_exempt
+    out["oracle_cpu_s"] = dict(spent, total=time.time() - t0)
+    log(f"[fields] held to the oracles and the CPU in "
+        f"{out['oracle_cpu_s']} s: {dict(held)}, band docs {bands}, "
+        f"vs CPU (band docs, docs that differ) {cpu_exempt}")
+
+    # ---- profiles, device timings
+    prof = {}
+    index_of = {fam: index for index, fam, _b, _c in cases}
+    for (index, fam, _b, _c), qbody in zip(cases, bodies):
+        if index != "alerts":   # a percolation's time is its latency
+            prof[fam] = profile_stages(port, index, qbody)
+    out["profile"] = prof
+    out["percolate_ms_per_stored_query"] = [
+        ms / n_alerts for ms in loads["alerts"]["latency_ms"]]
+    out["join_rewrite_host_ms"] = {f: p["join_ms"] for f, p in prof.items()
+                                   if f.startswith(("has_", "parent_id"))}
+    out["topk_share"] = {f: p["topk_ms"] / max(p["query_ms"], 1e-9)
+                         for f, p in prof.items()
+                         if index_of[f] == "geopoint"}
+    out["geo_masks"] = geo_mask_timings(node, "geopoint", lat32, [
+        ("distance", {"geo_distance": {"distance": "50km", "location": {
+            "lat": c0[0], "lon": c0[1]}}}, 30.0),
+        ("bbox", {"geo_bounding_box": {"location": {
+            "top": box[0], "left": box[1], "bottom": box[2],
+            "right": box[3]}}}, 6.0),
+        ("polygon_5", {"geo_polygon": {"location": {
+            "points": geo_polygon_points(c2, 1.5, 5)}}}, 5 * 10.0),
+        ("polygon_64", {"geo_polygon": {"location": {
+            "points": geo_polygon_points(c2, 1.5, 64)}}}, 64 * 10.0)])
+    out["wall_s"] = time.time() - t_phase
+    log(f"[fields] profile {prof}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--docs", type=int, default=2_000_000)
@@ -5609,10 +6667,18 @@ def main(argv=None) -> int:
                             args.seed + 13, args.clients, counters, cpu)
         hbm_agrees(node, "fetch", hbm_log)
         fetch["hbm"] = hbm_log[-1]
+
+        # ---- 12. the remaining field types and their queries
+        fields = phase_fields(node, port, corpus, queries, logs, cols,
+                              GEO_POINTS, QA_QUESTIONS, ALERTS,
+                              args.seed + 14, args.clients,
+                              counters, cpu)
+        hbm_agrees(node, "fields", hbm_log)
+        fields["hbm"] = hbm_log[-1]
     finally:
         node.close()
 
-    # ---- 12. report
+    # ---- 13. report
     meta = {
         "gather_bm25_contrib": dict(
             source="elasticsearch_tpu_torch/csrc/bm25_contrib.cu",
@@ -5645,6 +6711,7 @@ def main(argv=None) -> int:
             launches_accounting=accounting["attribution"]["launches"][name],
             launches_fulltext=fulltext["launches"][name],
             launches_fetch=fetch["launches"][name],
+            launches_fields=fields["launches"][name],
             dense_shape=(dense["contrib_dense_shape"]
                          if name == "gather_bm25_contrib" else None)))
     print(json.dumps({"scale": scale}))
@@ -5660,6 +6727,7 @@ def main(argv=None) -> int:
     print(json.dumps({"accounting": accounting}))
     print(json.dumps({"fulltext": fulltext}))
     print(json.dumps({"fetch": fetch}))
+    print(json.dumps({"fields": fields}))
     print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))

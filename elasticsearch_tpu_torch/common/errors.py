@@ -41,3 +41,19 @@ class CircuitBreakingException(Exception):
         super().__init__(message)
         self.bytes_wanted = bytes_wanted
         self.bytes_limit = bytes_limit
+
+
+class ParsingException(ValueError):
+    """A malformed request body, query or value (a 400, as in the
+    reference)."""
+
+    error_type = "parsing_exception"
+
+
+class QueryShardException(ValueError):
+    """A query the shard cannot run against its mapping (a nested path
+    that is not mapped as nested, a join query without a join field): a
+    400, as in the reference."""
+
+    status = 400
+    error_type = "query_shard_exception"

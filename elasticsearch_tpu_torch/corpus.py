@@ -524,3 +524,189 @@ def exact_topk(corpus: Dict[str, np.ndarray], terms: List[int], k: int,
         matched, key = matched[key >= kth], key[key >= kth]
     order = matched[np.lexsort((matched, -key))][:k]
     return order, scores[order], total
+
+
+# ---------------------------------------------------------------------------
+# the field-type deployments (chip_smoke phase 12)
+# ---------------------------------------------------------------------------
+
+# Rally's geopoint track: the geonames points of allCountries.txt
+GEOPOINT_DOCS = 60_844_404
+GEO_CITIES = 4000
+
+
+def geo_points(n: int, rng: np.random.Generator,
+               n_cities: int = GEO_CITIES):
+    """float64 (lat, lon, city) [n]: points clustered like populated
+    places. City centres spread over the inhabited latitudes, city sizes
+    Zipf(1.1); each point lies Gaussian around its city with a spread
+    from 0.02 degrees (a small town) to 0.5 (the largest city), and 5 %
+    anywhere (a rural tail, city -1)."""
+    c_lat = np.degrees(np.arcsin(rng.uniform(-0.8, 0.95, n_cities)))
+    c_lon = rng.uniform(-180.0, 180.0, n_cities)
+    w = 1.0 / np.arange(1, n_cities + 1) ** 1.1
+    w /= w.sum()
+    spread_of = 0.02 + 0.48 * np.sqrt(w / w[0])
+    city = np.searchsorted(np.cumsum(w), rng.random(n) * (1 - 1e-12))
+    spread = spread_of[city]
+    lat = c_lat[city] + rng.standard_normal(n) * spread
+    lon = c_lon[city] + rng.standard_normal(n) * spread
+    del spread
+    rural = rng.random(n) < 0.05
+    k = int(rural.sum())
+    lat[rural] = np.degrees(np.arcsin(rng.uniform(-0.8, 0.95, k)))
+    lon[rural] = rng.uniform(-180.0, 180.0, k)
+    city[rural] = -1
+    np.clip(lat, -89.9, 89.9, out=lat)
+    lon = (lon + 180.0) % 360.0 - 180.0
+    return lat, lon, city
+
+
+def geo_columns(field: str, lat: np.ndarray, lon: np.ndarray):
+    """A geo_point field's two columns, ``segment_from_numpy``'s
+    ``numerics`` entries (``{field}.lat``, ``{field}.lon``)."""
+    return {f"{field}.lat": {"values": lat}, f"{field}.lon": {"values": lon}}
+
+
+def envelope_columns(field: str, lat: np.ndarray, lon: np.ndarray,
+                     half: np.ndarray):
+    """A geo_shape field of envelopes ``half`` degrees around each point:
+    its four bounding-box columns (``{field}.min_lat`` ... ``.max_lon``)
+    as the mapper derives them."""
+    return {f"{field}.min_lat": {"values": lat - half},
+            f"{field}.min_lon": {"values": lon - half},
+            f"{field}.max_lat": {"values": lat + half},
+            f"{field}.max_lon": {"values": lon + half}}
+
+
+COUNTRY_CODES = [a + b for a in "ABCDEFGHIKLMNPRSTUVZ"
+                 for b in "ABCDEFGHILMNORSTUZ"][:250]
+
+
+def ip_column(n: int, rng: np.random.Generator, n_nets: int = 5000):
+    """float64 [n] client addresses as ``ip`` numbers (``int(ip)``),
+    drawn Zipf(1.07) over ``n_nets`` /16 networks as http_logs' clients
+    cluster, each host uniform within its network; and the networks
+    (int64 [n_nets], each the /16 prefix as a number)."""
+    first = rng.integers(1, 224, n_nets)
+    first = np.where(first == 127, 128, first)
+    nets = first * 256 + rng.integers(0, 256, n_nets)
+    w = 1.0 / np.arange(1, n_nets + 1) ** ZIPF
+    pick = np.searchsorted(np.cumsum(w / w.sum()), rng.random(n)
+                           * (1 - 1e-12))
+    ip = (nets[pick] << 16) + rng.integers(0, 1 << 16, n)
+    return ip.astype(np.float64), nets.astype(np.int64)
+
+
+def postings_from_pairs(doc_of: np.ndarray, term_of: np.ndarray,
+                        n_docs: int, terms: List[str],
+                        keyword: bool = False) -> Dict[str, Any]:
+    """A field's postings from its (doc, term id) occurrences, as the
+    SegmentWriter builds them: a text field's tf is the count and its
+    length the number of tokens; a keyword field's tf is 1 per distinct
+    value and its length the number of values.
+    ``segment_from_numpy``'s ``fields`` entry."""
+    doc_of = np.asarray(doc_of, np.int64)
+    term_of = np.asarray(term_of, np.int64)
+    uniq, tf = np.unique(term_of * n_docs + doc_of, return_counts=True)
+    t, d = uniq // n_docs, uniq % n_docs
+    if keyword:
+        tf = np.ones_like(tf)
+    df = np.bincount(t, minlength=len(terms)).astype(np.int64)
+    nb = -(-df // BLOCK_SIZE)
+    tbs = np.concatenate([[0], np.cumsum(nb)])
+    block_docids = np.zeros((int(tbs[-1]), BLOCK_SIZE), np.int32)
+    block_tfs = np.zeros((int(tbs[-1]), BLOCK_SIZE), np.float32)
+    j = np.arange(len(d)) - np.repeat(np.cumsum(df) - df, df)
+    block_docids[tbs[t] + j // BLOCK_SIZE, j % BLOCK_SIZE] = d
+    block_tfs[tbs[t] + j // BLOCK_SIZE, j % BLOCK_SIZE] = tf
+    return dict(terms=list(terms), doc_freq=df, term_block_start=tbs[:-1],
+                term_block_count=nb, block_docids=block_docids,
+                block_tfs=block_tfs,
+                field_lengths=np.bincount(doc_of, minlength=n_docs)
+                .astype(np.float32))
+
+
+def multi_numeric(doc_of: np.ndarray, values: np.ndarray,
+                  n_docs: int) -> Dict[str, Any]:
+    """A multi-valued numeric column from (doc, value) pairs in document
+    order, as the SegmentWriter builds it: each doc's first value, its
+    values sorted; ``segment_from_numpy``'s ``numerics`` entry."""
+    doc_of = np.asarray(doc_of, np.int64)
+    counts = np.bincount(doc_of, minlength=n_docs)
+    offsets = np.zeros(n_docs + 1, np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    first = np.full(n_docs, np.nan)
+    has = counts > 0
+    first[has] = values[offsets[:-1][has]]
+    order = np.lexsort((values, doc_of))
+    return {"values": first, "offsets": offsets,
+            "all_values": np.asarray(values, np.float64)[order]}
+
+
+def multi_keyword(doc_of: np.ndarray, term_of: np.ndarray, n_docs: int,
+                  terms: List[str]) -> Dict[str, Any]:
+    """A multi-valued keyword column from (doc, term id) pairs over the
+    sorted ``terms``: each doc's distinct ords ascending, its first ord
+    the smallest; ``segment_from_numpy``'s ``keywords`` entry."""
+    uniq = np.unique(np.asarray(doc_of, np.int64) * len(terms)
+                     + np.asarray(term_of, np.int64))
+    d, t = uniq // len(terms), (uniq % len(terms)).astype(np.int32)
+    counts = np.bincount(d, minlength=n_docs)
+    offsets = np.zeros(n_docs + 1, np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    ords = np.full(n_docs, -1, np.int32)
+    has = counts > 0
+    ords[has] = t[offsets[:-1][has]]
+    return {"terms": list(terms), "ords": ords, "offsets": offsets,
+            "all_ords": t}
+
+
+QA_USERS = 5000
+QA_WORDS = 2000
+QA_T0_MS = 1_577_836_800_000     # 2020-01-01T00:00:00Z
+
+
+def qa_answers(n_questions: int, rng: np.random.Generator):
+    """Rally's nested track shape (StackOverflow questions with their
+    answers): 0-5 answers a question, each with a ``user`` drawn
+    Zipf(1.07) over ``QA_USERS``, a ``date`` (epoch ms over four years),
+    a ``score`` in [-5, 50) and a ``text`` of 2-6 words drawn Zipf over
+    ``QA_WORDS``. Arrays over the answers in question order:
+    ``doc`` int64, ``user`` int64, ``date`` float64, ``score`` int64,
+    ``text`` int32 [A, 6] (-1 pad), ``text_len`` int64; ``n_ans`` [n]."""
+    n_ans = rng.integers(0, 6, n_questions)
+    doc = np.repeat(np.arange(n_questions), n_ans)
+    a = len(doc)
+    wu = 1.0 / np.arange(1, QA_USERS + 1) ** ZIPF
+    user = np.searchsorted(np.cumsum(wu / wu.sum()),
+                           rng.random(a) * (1 - 1e-12))
+    date = (QA_T0_MS + rng.integers(0, 4 * 365 * DAY_MS, a)).astype(
+        np.float64)
+    score = rng.integers(-5, 50, a)
+    ww = 1.0 / np.arange(1, QA_WORDS + 1) ** ZIPF
+    text_len = rng.integers(2, 7, a)
+    text = np.searchsorted(np.cumsum(ww / ww.sum()),
+                           rng.random((a, 6)) * (1 - 1e-12)).astype(np.int32)
+    text[np.arange(6)[None, :] >= text_len[:, None]] = -1
+    return dict(doc=doc, user=user, date=date, score=score, text=text,
+                text_len=text_len, n_ans=n_ans)
+
+
+def qa_user(u: int) -> str:
+    return f"user{u:05d}"
+
+
+def qa_word(w: int) -> str:
+    return f"w{w:04d}"
+
+
+def qa_answer_objects(ans) -> List[Dict[str, Any]]:
+    """Each answer as its ``_source`` object."""
+    out = []
+    for u, dt, s, row, ln in zip(ans["user"], ans["date"], ans["score"],
+                                 ans["text"], ans["text_len"]):
+        out.append({"user": qa_user(int(u)), "date": int(dt),
+                    "score": int(s),
+                    "text": " ".join(qa_word(int(w)) for w in row[:ln])})
+    return out

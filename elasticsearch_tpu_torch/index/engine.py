@@ -12,6 +12,7 @@ translog and on-disk segments are later slices.
 
 from __future__ import annotations
 
+import json
 import threading
 import uuid
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
@@ -63,6 +64,20 @@ class Engine:
             self._delete_locked(doc_id)
             self._buffered[doc_id] = self._writer.add(parsed)
         return doc_id, ("updated" if existed else "created")
+
+    def get_source(self, doc_id: str) -> Optional[Dict[str, Any]]:
+        """The live document ``doc_id``'s ``_source`` (buffered or in a
+        segment), None when there is none: what percolate reads for a
+        document given by index and id."""
+        with self._lock:
+            pos = self._buffered.get(doc_id)
+            if pos is not None:
+                return json.loads(self._writer.docs[pos].source)
+            for seg in self._segments:
+                d = seg.docid_for(doc_id)
+                if d >= 0:
+                    return json.loads(seg.stored.source(d))
+        return None
 
     def delete(self, doc_id: str) -> bool:
         with self._lock:

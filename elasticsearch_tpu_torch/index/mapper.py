@@ -18,9 +18,28 @@ them. ``rank_feature`` is a positive float doc value (its
 its own numeric column ``{field}.{key}`` (the text_expansion query
 reads them). ``completion`` holds suggestion inputs (a string, a list,
 or ``{"input", "weight", "contexts"}``) for the completion suggester's
-prefix index (index/segment.py ``CompletionValues``). The other field
-types, ``LATER_SLICE_TYPES``, belong to later slices and are refused
-with a ``MapperParsingException``.
+prefix index (index/segment.py ``CompletionValues``).
+
+The other field types of the reference, each into ordinary numeric and
+keyword columns: ``ip`` (the address as a number: ``float(int(ip))``,
+so a float32 column on the device), the six range types
+(``integer_range`` ... ``ip_range``: ``{f}.lo`` / ``{f}.hi``, an open
+bound moved one float64 ``nextafter`` inward), ``geo_point``
+(``{f}.lat`` / ``{f}.lon``; the five point forms of common/geo.py),
+``geo_shape`` (its bounding box in ``{f}.min_lat`` ... ``{f}.max_lon``),
+``join`` (the relation name as a keyword term of ``{f}``, a child's
+parent id under ``{f}#parent``), ``percolator`` (a stored query,
+validated and kept in ``_source``), ``constant_keyword`` (the first
+value pins the constant; nothing is indexed), ``wildcard`` (a
+keyword), ``flattened`` (every leaf a term of ``{f}`` and of
+``{f}.{path}``), ``token_count`` (the analyzed token count),
+``murmur3`` (the value's 32-bit murmur3 hash), ``annotated_text``
+(``[anchor](value&value)`` markup: the plain text analyzed, each value a
+verbatim token at the anchor's first position) and
+``search_as_you_type`` (a text field with ``._2gram``/``._3gram``
+shingle subfields and an ``._index_prefix`` keyword of edge n-grams).
+A ``nested`` object indexes flattened (``nested_paths``): the nested
+query verifies each candidate against its ``_source`` objects.
 
 Dynamic mapping follows the reference's ``_infer_type``: a bool maps to
 ``boolean``, an int to ``long``, a float to ``float``, a date-shaped
@@ -31,10 +50,13 @@ subfield (``ignore_above`` 256).
 from __future__ import annotations
 
 import datetime as _dt
+import ipaddress
 import json
 import re
+import struct
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
+from urllib.parse import unquote
 
 import numpy as np
 
@@ -74,6 +96,9 @@ class MappedFieldType:
     def parse(self, value: Any) -> Any:
         """JSON value -> internal typed value."""
         raise NotImplementedError
+
+    def to_mapping(self) -> Dict[str, Any]:
+        return {"type": self.type_name, **self.params}
 
 
 class TextFieldType(MappedFieldType):
@@ -214,6 +239,22 @@ class DateFieldType(MappedFieldType):
             f"failed to parse date field [{value}] for field [{self.name}]")
 
 
+class IpFieldType(MappedFieldType):
+    """An IPv4 or IPv6 address as the number ``float(int(ip))``, as the
+    reference keeps it: the device column is float32, so addresses
+    above 2^24 share a column value with their float32 neighbours."""
+
+    type_name = "ip"
+    docvalue_kind = "numeric"
+
+    def parse(self, value):
+        try:
+            return float(int(ipaddress.ip_address(str(value))))
+        except ValueError:
+            raise MapperParsingException(
+                f"'{value}' is not an IP string literal.")
+
+
 class DenseVectorFieldType(MappedFieldType):
     """At most 2048 float dims (the reference's DenseVectorFieldMapper
     limit); a doc's vector is a row of the [n_docs, dims] device slab
@@ -286,6 +327,338 @@ class RankFeaturesFieldType(MappedFieldType):
         return out
 
 
+class JoinFieldType(MappedFieldType):
+    """Parent/child relations within one index: the relation name is a
+    keyword term of the field, a child's parent id a term of
+    ``{field}#parent`` (parents and children share the index's one
+    shard)."""
+
+    type_name = "join"
+    docvalue_kind = "join"
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        rels = self.params.get("relations", {})
+        self.relations = {p: (c if isinstance(c, list) else [c])
+                          for p, c in rels.items()}
+
+    def parent_of(self, child: str) -> Optional[str]:
+        for parent, children in self.relations.items():
+            if child in children:
+                return parent
+        return None
+
+    def children_of(self, parent: str) -> List[str]:
+        return self.relations.get(parent, [])
+
+    def to_mapping(self):
+        return {"type": "join", "relations": {
+            p: (c[0] if len(c) == 1 else c)
+            for p, c in self.relations.items()}}
+
+
+class GeoPointFieldType(MappedFieldType):
+    """A latitude/longitude point in the numeric columns ``{field}.lat``
+    and ``{field}.lon``: every geo predicate is elementwise math over
+    them (common/geo.py)."""
+
+    type_name = "geo_point"
+    docvalue_kind = "geo"
+
+    def parse(self, value):
+        from elasticsearch_tpu_torch.common.geo import parse_geo_point
+        return parse_geo_point(value)
+
+
+class GeoShapeFieldType(MappedFieldType):
+    """A GeoJSON geometry kept as its bounding box in the four numeric
+    columns ``{field}.min_lat`` / ``.min_lon`` / ``.max_lat`` /
+    ``.max_lon``: the geo_shape query relates boxes."""
+
+    type_name = "geo_shape"
+    docvalue_kind = "geoshape"
+
+    def parse(self, value):
+        from elasticsearch_tpu_torch.common.geo import shape_bbox
+        if isinstance(value, str):
+            raise MapperParsingException(
+                f"geo_shape [{self.name}]: WKT input not supported, use "
+                f"GeoJSON")
+        return shape_bbox(value)
+
+
+class _RangeFieldType(MappedFieldType):
+    """A [lo, hi] interval in the numeric columns ``{field}.lo`` and
+    ``{field}.hi``; ``gt``/``lt`` move the bound one float64
+    ``nextafter`` inward (the float32 column rounds that step away)."""
+
+    docvalue_kind = "range"
+    value_type: type = None   # set per subclass
+
+    def parse(self, value):
+        if not isinstance(value, dict):
+            raise MapperParsingException(
+                f"error parsing field [{self.name}]: expected an object "
+                f"with gt/gte/lt/lte bounds")
+        vt = self.value_type(self.name)
+        lo, hi = -np.inf, np.inf
+        for k, v in value.items():
+            if k in ("gte", "from"):
+                lo = float(vt.parse(v))
+            elif k == "gt":
+                lo = np.nextafter(float(vt.parse(v)), np.inf)
+            elif k in ("lte", "to"):
+                hi = float(vt.parse(v))
+            elif k == "lt":
+                hi = np.nextafter(float(vt.parse(v)), -np.inf)
+            else:
+                raise MapperParsingException(
+                    f"error parsing field [{self.name}]: unknown bound [{k}]")
+        return (lo, hi)
+
+
+class IntegerRangeFieldType(_RangeFieldType):
+    type_name = "integer_range"
+    value_type = IntegerFieldType
+
+
+class LongRangeFieldType(_RangeFieldType):
+    type_name = "long_range"
+    value_type = LongFieldType
+
+
+class FloatRangeFieldType(_RangeFieldType):
+    type_name = "float_range"
+    value_type = FloatFieldType
+
+
+class DoubleRangeFieldType(_RangeFieldType):
+    type_name = "double_range"
+    value_type = DoubleFieldType
+
+
+class DateRangeFieldType(_RangeFieldType):
+    type_name = "date_range"
+    value_type = DateFieldType
+
+
+class IpRangeFieldType(_RangeFieldType):
+    type_name = "ip_range"
+    value_type = IpFieldType
+
+
+class WildcardFieldType(KeywordFieldType):
+    """A keyword; the wildcard and regexp queries scan its term
+    dictionary."""
+
+    type_name = "wildcard"
+
+
+class ConstantKeywordFieldType(MappedFieldType):
+    """One value for every doc of the index: the mapping's ``value``, or
+    the first value a document supplies; any other value is refused.
+    Nothing is indexed: term and exists answer from the constant."""
+
+    type_name = "constant_keyword"
+    docvalue_kind = "constant"
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        self.value = self.params.get("value")
+
+    def parse(self, value):
+        if self.value is None:
+            # the first supplied value pins the constant
+            self.value = str(value)
+            self.params["value"] = self.value
+            return None
+        if str(value) != self.value:
+            raise MapperParsingException(
+                f"[constant_keyword] field [{self.name}] only accepts values "
+                f"that are equal to the value defined in the mappings "
+                f"[{self.value}], but got [{value}]")
+        return None
+
+
+class FlattenedFieldType(MappedFieldType):
+    """A whole JSON object as keyword terms: the root field matches any
+    leaf value, ``{field}.{path}`` that key's values."""
+
+    type_name = "flattened"
+    docvalue_kind = "flattened"
+
+    def parse(self, value):
+        if not isinstance(value, dict):
+            raise MapperParsingException(
+                f"[flattened] field [{self.name}] expects an object")
+        leaves: List[Tuple[str, str]] = []
+
+        def walk(obj, prefix=""):
+            for k, v in obj.items():
+                p = f"{prefix}{k}"
+                if isinstance(v, dict):
+                    walk(v, f"{p}.")
+                elif isinstance(v, list):
+                    for item in v:
+                        if isinstance(item, dict):
+                            walk(item, f"{p}.")
+                        else:
+                            leaves.append((p, str(item)))
+                else:
+                    leaves.append((p, str(v)))
+
+        walk(value)
+        return leaves
+
+
+class TokenCountFieldType(MappedFieldType):
+    """The number of analyzed tokens of the value, a numeric column."""
+
+    type_name = "token_count"
+    docvalue_kind = "token_count"
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        if self.params.get("analyzer", "standard") not in SUPPORTED:
+            raise MapperParsingException(
+                f"field [{name}] asks for analyzer "
+                f"[{self.params['analyzer']}]: this slice has the standard "
+                f"analyzer only")
+
+    def parse(self, value):
+        return str(value)
+
+
+def murmur3_hash(key: str) -> int:
+    """32-bit murmur3 (x86, seed 0) over the UTF-16LE bytes of ``key``,
+    as a signed int (the reference's Murmur3HashFunction)."""
+    data = key.encode("utf-16-le")
+    c1, c2 = 0xCC9E2D51, 0x1B873593
+    h = 0
+    rounded = len(data) & ~0x3
+    for i in range(0, rounded, 4):
+        (k,) = struct.unpack_from("<i", data, i)
+        k = (k * c1) & 0xFFFFFFFF
+        k = ((k << 15) | (k >> 17)) & 0xFFFFFFFF
+        k = (k * c2) & 0xFFFFFFFF
+        h ^= k
+        h = ((h << 13) | (h >> 19)) & 0xFFFFFFFF
+        h = (h * 5 + 0xE6546B64) & 0xFFFFFFFF
+    k = 0
+    tail = len(data) & 0x3
+    if tail >= 3:
+        k ^= data[rounded + 2] << 16
+    if tail >= 2:
+        k ^= data[rounded + 1] << 8
+    if tail >= 1:
+        k ^= data[rounded]
+        k = (k * c1) & 0xFFFFFFFF
+        k = ((k << 15) | (k >> 17)) & 0xFFFFFFFF
+        k = (k * c2) & 0xFFFFFFFF
+        h ^= k
+    h ^= len(data)
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & 0xFFFFFFFF
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & 0xFFFFFFFF
+    h ^= h >> 16
+    return h - 0x100000000 if h >= 0x80000000 else h
+
+
+class Murmur3FieldType(MappedFieldType):
+    """The murmur3 hash of the value, a numeric column."""
+
+    type_name = "murmur3"
+    docvalue_kind = "numeric"
+
+    def parse(self, value):
+        return float(murmur3_hash(str(value)))
+
+
+_ANNOTATION_RE = re.compile(r"\[([^\]\[]*)\]\(([^\)\(]*)\)")
+
+
+def parse_annotated_text(text_plus_markup: str):
+    """``"[John Smith](John%20Smith&Person)"`` -> (plain text, [(start,
+    end, [values])]): url-decoded values separated by ``&``; a
+    ``key=value`` pair is refused."""
+    plain: List[str] = []
+    plain_len = 0
+    annotations = []
+    last = 0
+    for m in _ANNOTATION_RE.finditer(text_plus_markup):
+        if m.start() > last:
+            seg = text_plus_markup[last:m.start()]
+            plain.append(seg)
+            plain_len += len(seg)
+        start, anchor = plain_len, m.group(1)
+        plain.append(anchor)
+        plain_len += len(anchor)
+        last = m.end()
+        values = []
+        for pair in m.group(2).split("&"):
+            if "=" in pair:
+                raise MapperParsingException(
+                    "key=value pairs are not supported in annotations")
+            if pair:
+                values.append(unquote(pair))
+        if values:
+            annotations.append((start, plain_len, values))
+    plain.append(text_plus_markup[last:])
+    return "".join(plain), annotations
+
+
+class AnnotatedTextFieldType(TextFieldType):
+    """Text whose markup adds each annotation value as a verbatim token
+    at the anchor's first position (``parse_annotated_text``)."""
+
+    type_name = "annotated_text"
+
+
+class SearchAsYouTypeFieldType(TextFieldType):
+    """A text field with shingle subfields ``._2gram`` / ``._3gram`` (up
+    to ``max_shingle_size``) and an ``._index_prefix`` keyword of each
+    token's prefixes, for match_bool_prefix."""
+
+    type_name = "search_as_you_type"
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        self.max_shingle_size = int(self.params.get("max_shingle_size", 3))
+
+
+class ShingleSubFieldType(TextFieldType):
+    """A search_as_you_type ``._{n}gram`` subfield: queries analyze with
+    the standard analyzer, then shingle to width n. Not mappable and
+    left out of ``to_mapping``."""
+
+    type_name = "text"
+
+    def __init__(self, name, shingle_size: int, params=None):
+        super().__init__(name, params)
+        self.shingle_size = shingle_size
+
+
+class PercolatorFieldType(MappedFieldType):
+    """A stored query (percolate's reverse search): validated when the
+    document is indexed, kept in ``_source``."""
+
+    type_name = "percolator"
+    docvalue_kind = "stored_query"
+
+    def parse(self, value):
+        if not isinstance(value, dict):
+            raise MapperParsingException(
+                f"percolator field [{self.name}] expects a query object")
+        from elasticsearch_tpu_torch.search.queries import parse_query
+        try:
+            parse_query(value)
+        except Exception as e:
+            raise MapperParsingException(
+                f"percolator field [{self.name}]: invalid query: {e}")
+        return value
+
+
 class CompletionFieldType(MappedFieldType):
     """Suggestion inputs with optional weights and category contexts,
     served by the weighted prefix index (index/segment.py
@@ -326,18 +699,14 @@ class CompletionFieldType(MappedFieldType):
 FIELD_TYPES = {cls.type_name: cls for cls in (
     TextFieldType, KeywordFieldType, LongFieldType, IntegerFieldType,
     ShortFieldType, ByteFieldType, DoubleFieldType, FloatFieldType,
-    HalfFloatFieldType, BooleanFieldType, DateFieldType,
+    HalfFloatFieldType, BooleanFieldType, DateFieldType, IpFieldType,
     DenseVectorFieldType, RankFeatureFieldType, RankFeaturesFieldType,
-    CompletionFieldType)}
-
-# the reference's field types this port does not map yet (and nested
-# objects); every type of the reference is in FIELD_TYPES or here
-LATER_SLICE_TYPES = {
-    "integer_range", "float_range", "long_range", "double_range",
-    "date_range", "ip_range", "ip", "geo_point", "geo_shape",
-    "constant_keyword", "flattened", "join", "percolator",
-    "search_as_you_type", "token_count", "annotated_text", "wildcard",
-    "murmur3", "nested"}
+    CompletionFieldType, JoinFieldType, PercolatorFieldType,
+    GeoPointFieldType, GeoShapeFieldType, IntegerRangeFieldType,
+    LongRangeFieldType, FloatRangeFieldType, DoubleRangeFieldType,
+    DateRangeFieldType, IpRangeFieldType, WildcardFieldType,
+    ConstantKeywordFieldType, TokenCountFieldType, Murmur3FieldType,
+    SearchAsYouTypeFieldType, FlattenedFieldType, AnnotatedTextFieldType)}
 
 
 @dataclass
@@ -369,10 +738,6 @@ def _field_type(path: str, conf: Dict[str, Any]) -> MappedFieldType:
     type_name = conf.get("type", "object")
     cls = FIELD_TYPES.get(type_name)
     if cls is None:
-        if type_name in LATER_SLICE_TYPES:
-            raise MapperParsingException(
-                f"field [{path}] has type [{type_name}]: a later slice of "
-                f"the port (this one maps {', '.join(sorted(FIELD_TYPES))})")
         raise MapperParsingException(
             f"No handler for type [{type_name}] declared on field [{path}]")
     return cls(path, {k: v for k, v in conf.items()
@@ -385,12 +750,13 @@ class DocumentMapper:
     (the default) maps it from its first value, ``false`` leaves it
     unindexed (it stays in ``_source``), ``strict`` refuses the
     document. A field's ``copy_to`` indexes its values into the target
-    fields too."""
+    fields too. ``nested_paths`` holds the paths mapped ``nested``."""
 
     def __init__(self, mappings: Optional[Dict[str, Any]] = None):
         self.fields: Dict[str, MappedFieldType] = {}
         self.analyzer = StandardAnalyzer()
         self.dynamic = "true"
+        self.nested_paths: set = set()
         if mappings:
             self._add_properties("", mappings.get("properties", {}))
             self.dynamic = str(mappings.get("dynamic", "true")).lower()
@@ -401,7 +767,12 @@ class DocumentMapper:
     def _add_properties(self, prefix: str, props: Dict[str, Any]):
         for name, conf in props.items():
             path = f"{prefix}{name}"
-            if conf.get("type", "object") == "object":
+            type_name = conf.get("type", "object")
+            if type_name in ("object", "nested"):
+                # a nested object indexes flattened; the nested query
+                # restores the per-object correlation from _source
+                if type_name == "nested":
+                    self.nested_paths.add(path)
                 self._add_properties(f"{path}.", conf.get("properties", {}))
                 continue
             ft = _field_type(path, conf)
@@ -414,6 +785,41 @@ class DocumentMapper:
                 sft = _field_type(f"{path}.{subname}", subconf)
                 self.fields[sft.name] = sft
                 ft.subfields.append(subname)
+            if isinstance(ft, SearchAsYouTypeFieldType):
+                for n in range(2, ft.max_shingle_size + 1):
+                    sub = f"{path}._{n}gram"
+                    self.fields[sub] = ShingleSubFieldType(sub, n)
+                pre = f"{path}._index_prefix"
+                self.fields[pre] = KeywordFieldType(pre)
+
+    def to_mapping(self) -> Dict[str, Any]:
+        """The mapping as the reference re-emits it: each field's type
+        and parameters, multi-fields under their parent's ``fields``,
+        the search_as_you_type subfields left out, and each nested path
+        with its ``type``."""
+        props: Dict[str, Any] = {}
+        sub_paths = {f"{p}.{s}" for p, ft in self.fields.items()
+                     for s in ft.subfields}
+        for path, ft in sorted(self.fields.items()):
+            if (isinstance(ft, ShingleSubFieldType)
+                    or path.endswith("._index_prefix") or path in sub_paths):
+                continue
+            node = props
+            parts = path.split(".")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {}).setdefault("properties", {})
+            out = ft.to_mapping()
+            if ft.subfields:
+                out["fields"] = {s: self.fields[f"{path}.{s}"].to_mapping()
+                                 for s in ft.subfields}
+            node[parts[-1]] = out
+        for npath in sorted(self.nested_paths):
+            node = props
+            parts = npath.split(".")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {}).setdefault("properties", {})
+            node.setdefault(parts[-1], {})["type"] = "nested"
+        return {"properties": props}
 
     def _infer_type(self, path: str, value: Any) -> Optional[MappedFieldType]:
         """The dynamic mapping of a new field from its first value."""
@@ -443,16 +849,70 @@ class DocumentMapper:
         self._parse_object("", source, parsed)
         return parsed
 
+    def join_parent_routing(self, source: Dict[str, Any]) -> Optional[str]:
+        """The parent id when ``source`` is a join child (the routing key
+        the reference derives for it), else None."""
+        for path, ft in self.fields.items():
+            if not isinstance(ft, JoinFieldType):
+                continue
+            cur: Any = source
+            for part in path.split("."):
+                if not isinstance(cur, dict) or part not in cur:
+                    cur = None
+                    break
+                cur = cur[part]
+            if isinstance(cur, dict) and cur.get("parent") is not None:
+                return str(cur["parent"])
+        return None
+
+    def _parse_join(self, path: str, ft: "JoinFieldType", value,
+                    parsed: ParsedDocument):
+        """``"rel"``, ``{"name": rel}`` or ``{"name": rel, "parent": id}``:
+        the relation a term of the field, the parent id one of
+        ``{field}#parent``; an unknown relation, or a child without its
+        parent, is refused."""
+        if isinstance(value, str):
+            rel, parent = value, None
+        elif isinstance(value, dict):
+            rel, parent = value.get("name"), value.get("parent")
+        else:
+            raise MapperParsingException(f"failed to parse join field [{path}]")
+        known = set(ft.relations) | {c for cs in ft.relations.values()
+                                     for c in cs}
+        if rel not in known:
+            raise MapperParsingException(
+                f"unknown join name [{rel}] for field [{path}]")
+        if parent is None and ft.parent_of(rel) is not None:
+            raise MapperParsingException(
+                f"[parent] is missing for join field [{path}]")
+        parsed.keyword_terms.setdefault(path, []).append(rel)
+        if parent is not None:
+            parsed.keyword_terms.setdefault(f"{path}#parent", []).append(
+                str(parent))
+
     def _parse_object(self, prefix: str, obj: Dict[str, Any],
                       parsed: ParsedDocument):
         for key, value in obj.items():
             path = f"{prefix}{key}"
             ft = self.fields.get(path)
-            if ft is not None and ft.docvalue_kind in ("rank_features",
-                                                       "completion"):
+            if isinstance(ft, JoinFieldType):
+                self._parse_join(path, ft, value, parsed)
+                continue
+            if isinstance(ft, PercolatorFieldType):
+                ft.parse(value)     # validated; the query stays in _source
+                continue
+            if ft is not None and ft.docvalue_kind in (
+                    "geo", "geoshape", "range", "rank_features",
+                    "flattened", "completion"):
                 # an object-valued field type: its object is ONE value
-                self._index_values(ft, value if isinstance(value, list)
-                                   else [value], parsed)
+                if ft.docvalue_kind == "geo":
+                    from elasticsearch_tpu_torch.common.geo import \
+                        is_point_value
+                    values = [value] if is_point_value(value) else list(value)
+                else:
+                    values = (list(value) if isinstance(value, (list, tuple))
+                              else [value])
+                self._index_values(ft, values, parsed)
                 continue
             if isinstance(value, dict):
                 self._parse_object(f"{path}.", value, parsed)
@@ -505,33 +965,101 @@ class DocumentMapper:
                     and "keyword" not in ft.subfields):
                 self._index_values(kw_ft, values, parsed)
 
+    def _index_shingles(self, ft: "SearchAsYouTypeFieldType",
+                        toks: List[Token], parsed: ParsedDocument):
+        """The ``._{n}gram`` shingle subfields (a 100-position gap
+        between values) and the ``._index_prefix`` keyword: every
+        token's prefixes of up to 20 characters."""
+        terms = [t.term for t in toks]
+        for n in range(2, ft.max_shingle_size + 1):
+            out = parsed.text_tokens.setdefault(f"{ft.name}._{n}gram", [])
+            base = out[-1].position + 100 if out else 0
+            for i in range(len(terms) - n + 1):
+                out.append(Token(" ".join(terms[i:i + n]), base + i, -1, -1))
+        prefixes = parsed.keyword_terms.setdefault(
+            f"{ft.name}._index_prefix", [])
+        for term in terms:
+            for plen in range(1, min(len(term), 20) + 1):
+                prefixes.append(term[:plen])
+
+    def _index_text(self, ft: TextFieldType, text: str,
+                    parsed: ParsedDocument):
+        """A text value's tokens after the field's earlier values (a
+        position gap of 100); an annotated_text value's annotations as
+        verbatim tokens at their anchor's first position, the value's
+        tokens re-sorted by position (stable: the text token first)."""
+        annotations = []
+        if isinstance(ft, AnnotatedTextFieldType):
+            text, annotations = parse_annotated_text(text)
+        toks = parsed.text_tokens.setdefault(ft.name, [])
+        base = toks[-1].position + 100 if toks else 0
+        new_toks = [Token(t.term, base + t.position, t.start_offset,
+                          t.end_offset) for t in self.analyzer.analyze(text)]
+        toks.extend(new_toks)
+        if annotations:
+            n_ann = 0
+            for start, end, values in annotations:
+                anchor = [t for t in new_toks if t.start_offset >= start
+                          and t.end_offset <= end]
+                pos = (anchor[0].position if anchor
+                       else (new_toks[-1].position + 1 if new_toks
+                             else base))
+                toks.extend(Token(v, pos, start, end) for v in values)
+                n_ann += len(values)
+            tail = sorted(toks[len(toks) - len(new_toks) - n_ann:],
+                          key=lambda t: t.position)
+            toks[len(toks) - len(tail):] = tail
+        if isinstance(ft, SearchAsYouTypeFieldType):
+            self._index_shingles(ft, new_toks, parsed)
+
     def _index_values(self, ft: MappedFieldType, values: List[Any],
                       parsed: ParsedDocument):
+        kind = ft.docvalue_kind
         for value in values:
             if value is None:
                 continue
             typed = ft.parse(value)
             if typed is None:
                 continue
-            if ft.docvalue_kind == "postings":
-                toks = parsed.text_tokens.setdefault(ft.name, [])
-                # position gap of 100 between the values of one field
-                base = toks[-1].position + 100 if toks else 0
-                toks.extend(Token(t.term, base + t.position, t.start_offset,
-                                  t.end_offset)
-                            for t in self.analyzer.analyze(typed))
-            elif ft.docvalue_kind == "term":
+            if kind == "postings":
+                self._index_text(ft, typed, parsed)
+            elif kind == "term":
                 parsed.keyword_terms.setdefault(ft.name, []).append(typed)
-            elif ft.docvalue_kind == "vector":
+            elif kind == "vector":
                 parsed.vectors[ft.name] = typed
                 parsed.vector_similarity[ft.name] = ft.similarity
-            elif ft.docvalue_kind == "completion":
+            elif kind == "completion":
                 parsed.completion_entries.setdefault(ft.name, []).extend(
                     typed)
-            elif ft.docvalue_kind == "rank_features":
+            elif kind == "rank_features":
                 for feat, v in typed.items():
                     parsed.numeric_values.setdefault(
                         f"{ft.name}.{feat}", []).append(v)
+            elif kind == "range":
+                lo, hi = typed
+                parsed.numeric_values.setdefault(f"{ft.name}.lo",
+                                                 []).append(lo)
+                parsed.numeric_values.setdefault(f"{ft.name}.hi",
+                                                 []).append(hi)
+            elif kind == "flattened":
+                for path, term in typed:
+                    parsed.keyword_terms.setdefault(ft.name, []).append(term)
+                    parsed.keyword_terms.setdefault(
+                        f"{ft.name}.{path}", []).append(term)
+            elif kind == "token_count":
+                parsed.numeric_values.setdefault(ft.name, []).append(
+                    float(len(self.analyzer.analyze(typed))))
+            elif kind == "geo":
+                lat, lon = typed
+                parsed.numeric_values.setdefault(f"{ft.name}.lat",
+                                                 []).append(lat)
+                parsed.numeric_values.setdefault(f"{ft.name}.lon",
+                                                 []).append(lon)
+            elif kind == "geoshape":
+                for suffix, v in zip(("min_lat", "min_lon", "max_lat",
+                                      "max_lon"), typed):
+                    parsed.numeric_values.setdefault(
+                        f"{ft.name}.{suffix}", []).append(v)
             else:
                 parsed.numeric_values.setdefault(ft.name, []).append(
                     float(typed))

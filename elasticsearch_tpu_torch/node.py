@@ -87,7 +87,7 @@ class Node:
             self.breaker_service.get_breaker(CircuitBreaker.HBM))
         self.fastpath = FastPathServer(self.device, self.device_cache,
                                        flight=self.flight)
-        self.search_service = SearchService(self.device_cache)
+        self.search_service = SearchService(self.device_cache, self.indices)
         self.rest_controller = RestController(self)
         self._http = None     # the NativeHttpFront, once started
         self._fastpath_started = False

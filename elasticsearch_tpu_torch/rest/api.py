@@ -70,6 +70,7 @@ from typing import Any, Optional, Tuple
 
 from elasticsearch_tpu_torch.common.errors import (CircuitBreakingException,
                                                   IllegalArgumentException,
+                                                  QueryShardException,
                                                   ScriptException,
                                                   SettingsException)
 from elasticsearch_tpu_torch.index.mapper import (MapperParsingException,
@@ -148,8 +149,8 @@ class RestController:
                           bytes_wanted=e.bytes_wanted,
                           bytes_limit=e.bytes_limit)
         except (SliceUnsupported, MapperParsingException, ParsingException,
-                IllegalArgumentException, ScriptException,
-                SettingsException) as e:
+                IllegalArgumentException, QueryShardException,
+                ScriptException, SettingsException) as e:
             etype = getattr(e, "error_type", "mapper_parsing_exception")
             return _error(400, etype, str(e))
         except Exception as e:  # the boundary: report, keep serving
@@ -287,6 +288,8 @@ class RestController:
                               "a later slice")
             doc_id = meta.get("_id")
             doc_id = None if doc_id is None else str(doc_id)
+            # an item's ``routing`` (a join child's parent id) needs no
+            # use: the index's one shard holds every document
             try:
                 if op in ("index", "create"):
                     source = json.loads(lines[i])

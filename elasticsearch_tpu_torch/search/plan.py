@@ -73,7 +73,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from elasticsearch_tpu_torch.index.mapper import (KeywordFieldType,
+from elasticsearch_tpu_torch.index.mapper import (ConstantKeywordFieldType,
+                                                  KeywordFieldType,
                                                   TextFieldType)
 from elasticsearch_tpu_torch.ops import bm25 as bm25_ops
 from elasticsearch_tpu_torch.ops import plan as plan_ops
@@ -148,14 +149,20 @@ class LogicalPlan:
 # ---------------------------------------------------------------------------
 
 def _is_postings_field(mapper, field: str) -> bool:
+    """Text, keyword (wildcard too), flattened and unmapped fields: their
+    clauses are postings groups. A constant_keyword is a dense factor,
+    as the reference plans it."""
     ft = mapper.field_type(field)
-    return ft is None or isinstance(ft, (TextFieldType, KeywordFieldType))
+    if isinstance(ft, ConstantKeywordFieldType):
+        return False
+    return (ft is None or isinstance(ft, (TextFieldType, KeywordFieldType))
+            or ft.docvalue_kind == "flattened")
 
 
 def _is_dense_clause(node, mapper) -> bool:
     """Clauses whose do_execute builds masks from dense columns only (no
     postings scatter): range/exists/ids/match_all, and term(s) on a
-    number, boolean or date."""
+    number, boolean, date, ip, constant_keyword, range or join field."""
     if isinstance(node, (q.RangeQuery, q.ExistsQuery, q.IdsQuery,
                          q.MatchAllQuery)):
         return True

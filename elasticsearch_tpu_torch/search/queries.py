@@ -19,17 +19,19 @@ builders as parse trees.
 Served (the keys of ``_PARSERS``, which tests/test_torch_fulltext.py
 holds equal to this list): bool, boosting, constant_score, dis_max,
 distance_feature, exists, field_masking_span, function_score, fuzzy,
-ids, intervals, knn, match, match_all, match_bool_prefix, match_none,
-match_phrase, match_phrase_prefix, more_like_this, multi_match, pinned,
-prefix, query_string, range, rank_feature, regexp, script,
-script_score, simple_query_string, span_containing,
-span_field_masking, span_first, span_multi, span_near, span_not,
-span_or, span_term, span_within, term, terms, terms_set,
-text_expansion, weighted_tokens, wildcard, wrapper.
+geo_bounding_box, geo_distance, geo_polygon, geo_shape, has_child,
+has_parent, ids, intervals, knn, match, match_all, match_bool_prefix,
+match_none, match_phrase, match_phrase_prefix, more_like_this,
+multi_match, nested, parent_id, percolate, pinned, prefix,
+query_string, range, rank_feature, regexp, script, script_score,
+simple_query_string, span_containing, span_field_masking, span_first,
+span_multi, span_near, span_not, span_or, span_term, span_within,
+term, terms, terms_set, text_expansion, weighted_tokens, wildcard,
+wrapper.
 
-Over text, keyword, numeric, boolean, date, dense_vector and
-rank_feature(s) fields (a multi_match of a type other than most_fields
-scores as best_fields, as the reference's dense path does).
+Over every field type of index/mapper.py (a multi_match of a type
+other than most_fields scores as best_fields, as the reference's dense
+path does).
 term/terms/range/exists on numbers, booleans and dates compare the
 float32 doc-value column (ops/device.py) with the bound rounded to
 float32, as the reference's weakly typed jnp compare does. knn scores
@@ -61,10 +63,18 @@ Under ``profile: true`` their host work is timed as children of the
 checks; their candidates in the ``verify_candidates`` counter) and
 ``upload`` (a host-computed score column sent to the device).
 
-The other query types the reference knows (``_LATER_SLICE``: geo,
-nested, the join family and percolate) raise ``SliceUnsupported`` (a
-typed 400), as does a distance_feature with a geo_point origin; a name
-the reference does not know is a ``ParsingException``.
+The field-type queries: term, range and exists answer on range fields
+(containment, the ``relation``), ip (a CIDR block as a range),
+constant_keyword (the constant), flattened and join (their terms) as
+the reference's do. The geo queries (geo_distance, geo_bounding_box,
+geo_polygon, geo_shape) are elementwise float32 masks over the
+lat/lon or bounding-box columns (common/geo.py). nested filters on
+the flattened index and verifies each candidate's ``_source`` objects
+on the host (``_source_matches``); has_child, has_parent and parent_id
+(search/join.py) and percolate (search/percolate.py) rewrite or run
+against the shard in ``rewrite``. A distance_feature on a geo_point is
+a 400 (the reference fails on it). A name the reference does not know
+is a ``ParsingException``.
 """
 
 from __future__ import annotations
@@ -72,6 +82,7 @@ from __future__ import annotations
 import base64
 import bisect
 import fnmatch
+import ipaddress
 import json
 import re
 from typing import Any, Dict, List, Optional, Tuple
@@ -79,9 +90,17 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from elasticsearch_tpu_torch.index.mapper import (KeywordFieldType,
+from elasticsearch_tpu_torch.common import geo
+from elasticsearch_tpu_torch.common.errors import (IllegalArgumentException,
+                                                   ParsingException,
+                                                   QueryShardException)
+from elasticsearch_tpu_torch.index.mapper import (ConstantKeywordFieldType,
+                                                  IpFieldType,
+                                                  KeywordFieldType,
                                                   RankFeatureFieldType,
-                                                  TextFieldType)
+                                                  ShingleSubFieldType,
+                                                  TextFieldType,
+                                                  _RangeFieldType)
 from elasticsearch_tpu_torch.ops import bm25 as bm25_ops
 from elasticsearch_tpu_torch.ops import vector as vec_ops
 from elasticsearch_tpu_torch.ops.device import readback
@@ -97,12 +116,6 @@ from elasticsearch_tpu_torch.search.script import (ScriptContext, _DocColumn,
                                                    as_column, compile_script)
 
 Result = Tuple[torch.Tensor, torch.Tensor]   # (scores f32, mask bool)
-
-
-class ParsingException(ValueError):
-    """A malformed query body (a 400, as in the reference)."""
-
-    error_type = "parsing_exception"
 
 
 def parse_minimum_should_match(value, n_clauses: int) -> int:
@@ -192,10 +205,17 @@ class MatchNoneQuery(QueryBuilder):
 
 
 def _analyze_terms(ctx, field: str, text: str) -> List[str]:
-    """A text field's analyzed terms; on any other field the literal
-    value is the one term. ``ctx`` carries the index's ``mapper``."""
-    if isinstance(ctx.mapper.field_type(field), TextFieldType):
-        return _analyze(ctx.mapper, text)
+    """A text field's analyzed terms (a search_as_you_type shingle
+    subfield's shingles of them); on any other field the literal value
+    is the one term. ``ctx`` carries the index's ``mapper``."""
+    ft = ctx.mapper.field_type(field)
+    if isinstance(ft, TextFieldType):
+        terms = _analyze(ctx.mapper, text)
+        if isinstance(ft, ShingleSubFieldType):
+            n = ft.shingle_size
+            return [" ".join(terms[i:i + n])
+                    for i in range(len(terms) - n + 1)]
+        return terms
     return [str(text)]
 
 
@@ -327,9 +347,13 @@ class MultiMatchQuery(QueryBuilder):
 
 
 class TermQuery(QueryBuilder):
-    """Exact term: BM25 on a text field; on a keyword field BM25 with
-    tf = 1 and no norms, idf/(1+k1), a constant per match; on a number,
-    boolean or date a constant-score point match."""
+    """Exact term: BM25 on a text field; on a keyword field (a join's
+    relation names and a flattened field's leaves too) BM25 with tf = 1
+    and no norms, idf/(1+k1), a constant per match; on a number,
+    boolean, date or ip a constant-score point match; on an ip a CIDR
+    block matches its whole address range; on a range field the
+    intervals that contain the value; on a constant_keyword every doc
+    when the value is the constant."""
 
     name = "term"
 
@@ -340,7 +364,19 @@ class TermQuery(QueryBuilder):
 
     def do_execute(self, ctx):
         ft = ctx.mapper.field_type(self.field)
-        if ft is None or isinstance(ft, (TextFieldType, KeywordFieldType)):
+        if isinstance(ft, ConstantKeywordFieldType):
+            if ft.value is not None and str(self.value) == ft.value:
+                return _constant(ctx.all_true())
+            return _nothing(ctx)
+        if isinstance(ft, _RangeFieldType):
+            # the intervals that contain the value
+            v = _f32(ft.value_type(ft.name).parse(self.value))
+            lo, miss = ctx.numeric_column(f"{self.field}.lo")
+            hi, _ = ctx.numeric_column(f"{self.field}.hi")
+            return _constant((~miss) & (lo <= v) & (hi >= v)
+                             & ctx.all_true())
+        if (ft is None or isinstance(ft, (TextFieldType, KeywordFieldType))
+                or ft.docvalue_kind in ("flattened", "join")):
             dp = ctx.device.postings.get(self.field)
             if dp is None:
                 return _nothing(ctx)
@@ -357,8 +393,20 @@ class TermQuery(QueryBuilder):
             w = bm25_ops.idf(df, doc_count) if df else 0.0
             const = w * 1.0 / (1.0 + ctx.k1)   # tf=1, no norms
             return mask.to(torch.float32) * const, mask
-        # numeric/date/boolean: point match, constant score
         col, miss = ctx.numeric_column(self.field)
+        if isinstance(ft, IpFieldType) and "/" in str(self.value):
+            # a CIDR block: its first to its last address
+            try:
+                net = ipaddress.ip_network(str(self.value), strict=False)
+            except ValueError:
+                raise IllegalArgumentException(
+                    f"'{self.value}' is not an IP string literal or CIDR "
+                    f"block")
+            lo = _f32(int(net.network_address))
+            hi = _f32(int(net.broadcast_address))
+            return _constant((~miss) & (col >= lo) & (col <= hi)
+                             & ctx.all_true())
+        # numeric/date/boolean/ip: point match, constant score
         mask = (~miss) & (col == _f32(ft.parse(self.value))) \
             & ctx.all_true()
         return _constant(mask)
@@ -392,20 +440,26 @@ class TermsQuery(QueryBuilder):
 
 
 class RangeQuery(QueryBuilder):
-    """Bounds on a number, boolean or date column (missing docs never
-    match); an unmapped field matches nothing."""
+    """Bounds on a number, boolean, date or ip column (missing docs never
+    match); on a range field, the ``relation`` (intersects, within or
+    contains) of each doc's interval to the query's. An unmapped field
+    matches nothing."""
 
     name = "range"
 
-    def __init__(self, field: str, gte=None, gt=None, lte=None, lt=None):
+    def __init__(self, field: str, gte=None, gt=None, lte=None, lt=None,
+                 relation: str = "intersects"):
         super().__init__()
         self.field = field
         self.gte, self.gt, self.lte, self.lt = gte, gt, lte, lt
+        self.relation = str(relation).lower()
 
     def do_execute(self, ctx):
         ft = ctx.mapper.field_type(self.field)
         if ft is None:
             return _nothing(ctx)
+        if isinstance(ft, _RangeFieldType):
+            return self._on_range_field(ctx, ft)
         col, miss = ctx.numeric_column(self.field)
         mask = (~miss) & ctx.all_true()
         if self.gte is not None:
@@ -418,6 +472,34 @@ class RangeQuery(QueryBuilder):
             mask = mask & (col < _f32(ft.parse(self.lt)))
         return _constant(mask)
 
+    def _on_range_field(self, ctx, ft) -> Result:
+        """The query interval [q_lo, q_hi] (an open bound one float64
+        ``nextafter`` inward, as the mapper stores one) against each
+        doc's [lo, hi], compared in float32."""
+        vt = ft.value_type(ft.name)
+        q_lo, q_hi = -np.inf, np.inf
+        if self.gte is not None:
+            q_lo = float(vt.parse(self.gte))
+        if self.gt is not None:
+            q_lo = np.nextafter(float(vt.parse(self.gt)), np.inf)
+        if self.lte is not None:
+            q_hi = float(vt.parse(self.lte))
+        if self.lt is not None:
+            q_hi = np.nextafter(float(vt.parse(self.lt)), -np.inf)
+        q_lo, q_hi = _f32(q_lo), _f32(q_hi)
+        lo, miss = ctx.numeric_column(f"{self.field}.lo")
+        hi, _ = ctx.numeric_column(f"{self.field}.hi")
+        if self.relation == "within":
+            mask = (lo >= q_lo) & (hi <= q_hi)
+        elif self.relation == "contains":
+            mask = (lo <= q_lo) & (hi >= q_hi)
+        elif self.relation == "intersects":
+            mask = (lo <= q_hi) & (hi >= q_lo)
+        else:
+            raise ParsingException(
+                f"[range] unknown relation [{self.relation}]")
+        return _constant(mask & (~miss) & ctx.all_true())
+
 
 class ExistsQuery(QueryBuilder):
     name = "exists"
@@ -428,7 +510,16 @@ class ExistsQuery(QueryBuilder):
 
     def do_execute(self, ctx):
         dev = ctx.device
-        if self.field in dev.postings:
+        ft = ctx.mapper.field_type(self.field)
+        if isinstance(ft, ConstantKeywordFieldType):
+            # every doc of the index has the constant
+            mask = ctx.all_true()
+        elif isinstance(ft, _RangeFieldType) or (
+                ft is not None and ft.docvalue_kind == "geo"):
+            sub = "lo" if isinstance(ft, _RangeFieldType) else "lat"
+            _, miss = ctx.numeric_column(f"{self.field}.{sub}")
+            mask = ~miss
+        elif self.field in dev.postings:
             mask = dev.postings[self.field].doc_lens > 0
         elif self.field in dev.numerics:
             mask = ~dev.numeric_missing[self.field]
@@ -1348,23 +1439,28 @@ class DistanceFeatureQuery(QueryBuilder):
     """A score that decays with the distance of a numeric or date
     column from ``origin``: pivot / (pivot + |value - origin|), in
     float32 over the doc-value column; docs without a value do not
-    match. A geo_point origin is a later slice."""
+    match. A geo_point origin, or a geo_point field, is refused with a
+    400: the reference's query reads the field as one numeric column
+    and fails on a geo field with a 500 (ROADMAP Queue 3)."""
 
     name = "distance_feature"
 
     def __init__(self, field: str, origin, pivot):
         super().__init__()
         if isinstance(origin, (dict, list, tuple)):
-            raise SliceUnsupported(
-                f"distance_feature on a geo_point origin [{origin}] is a "
-                f"later slice of the port (numeric and date fields are "
-                f"served)")
+            raise IllegalArgumentException(
+                f"[distance_feature] on a geo_point origin [{origin}] is "
+                f"not supported (numeric and date fields are)")
         self.field = field
         self.origin = origin
         self.pivot = pivot
 
     def do_execute(self, ctx):
         ft = ctx.mapper.field_type(self.field)
+        if ft is not None and ft.docvalue_kind == "geo":
+            raise IllegalArgumentException(
+                f"[distance_feature] on the geo_point field [{self.field}] "
+                f"is not supported (numeric and date fields are)")
         origin = float(ft.parse(self.origin)) if ft else float(self.origin)
         pivot = _f32(_parse_duration_or_number(self.pivot, ft))
         col, miss = ctx.numeric_column(self.field)
@@ -1921,18 +2017,323 @@ class TextExpansionQuery(QueryBuilder):
         return torch.where(mask, scores, 0.0), mask
 
 
+
+# ---------------------------------------------------------------------------
+# geo queries: elementwise masks over the {field}.lat / .lon columns
+# ---------------------------------------------------------------------------
+
+class GeoDistanceQuery(QueryBuilder):
+    """Docs within ``distance`` of ``origin``: the haversine distance in
+    float32 over the lat/lon columns (common/geo.py), constant score."""
+
+    name = "geo_distance"
+
+    def __init__(self, field: str, origin, distance):
+        super().__init__()
+        self.field = field
+        self.lat, self.lon = geo.parse_geo_point(origin)
+        self.meters = geo.parse_distance(distance)
+
+    def do_execute(self, ctx):
+        lat, lat_miss = ctx.numeric_column(f"{self.field}.lat")
+        lon, _ = ctx.numeric_column(f"{self.field}.lon")
+        dist = geo.haversine_meters(lat, lon, self.lat, self.lon, xp=torch)
+        return _constant((~lat_miss) & (dist <= _f32(self.meters))
+                         & ctx.all_true())
+
+
+class GeoBoundingBoxQuery(QueryBuilder):
+    """Points inside a box; a box with left > right crosses the
+    antimeridian."""
+
+    name = "geo_bounding_box"
+
+    def __init__(self, field: str, top: float, left: float, bottom: float,
+                 right: float):
+        super().__init__()
+        self.field = field
+        self.top, self.left, self.bottom, self.right = top, left, bottom, right
+
+    def do_execute(self, ctx):
+        lat, lat_miss = ctx.numeric_column(f"{self.field}.lat")
+        lon, _ = ctx.numeric_column(f"{self.field}.lon")
+        mask = geo.bbox_contains(lat, lon, _f32(self.top), _f32(self.left),
+                                 _f32(self.bottom), _f32(self.right),
+                                 xp=torch)
+        return _constant(mask & (~lat_miss) & ctx.all_true())
+
+
+class GeoPolygonQuery(QueryBuilder):
+    """Points inside a polygon by the even-odd rule: a few elementwise
+    passes over every point per edge."""
+
+    name = "geo_polygon"
+
+    def __init__(self, field: str, points):
+        super().__init__()
+        self.field = field
+        pts = [geo.parse_geo_point(p) for p in points]
+        if len(pts) < 3:
+            raise ParsingException(
+                "too few points defined for geo_polygon query")
+        self.poly_lats = [p[0] for p in pts]
+        self.poly_lons = [p[1] for p in pts]
+
+    def do_execute(self, ctx):
+        lat, lat_miss = ctx.numeric_column(f"{self.field}.lat")
+        lon, _ = ctx.numeric_column(f"{self.field}.lon")
+        mask = geo.points_in_polygon(lat, lon, self.poly_lats,
+                                     self.poly_lons, xp=torch)
+        return _constant(mask & (~lat_miss) & ctx.all_true())
+
+
+class GeoShapeQuery(QueryBuilder):
+    """The relation (intersects, disjoint, within, contains) of each
+    doc's shape to the query shape, at bounding-box precision over the
+    four box columns: exact for points and envelopes, a polygon's
+    interior relation that of its box."""
+
+    name = "geo_shape"
+
+    def __init__(self, field: str, shape: Dict[str, Any],
+                 relation: str = "intersects"):
+        super().__init__()
+        self.field = field
+        self.relation = str(relation).lower()
+        if self.relation not in ("intersects", "disjoint", "within",
+                                 "contains"):
+            raise ParsingException(f"invalid geo_shape relation [{relation}]")
+        (self.q_minlat, self.q_minlon,
+         self.q_maxlat, self.q_maxlon) = (
+            _f32(v) for v in geo.shape_bbox(shape))
+
+    def do_execute(self, ctx):
+        minlat, miss = ctx.numeric_column(f"{self.field}.min_lat")
+        minlon, _ = ctx.numeric_column(f"{self.field}.min_lon")
+        maxlat, _ = ctx.numeric_column(f"{self.field}.max_lat")
+        maxlon, _ = ctx.numeric_column(f"{self.field}.max_lon")
+        overlaps = ~((maxlat < self.q_minlat) | (minlat > self.q_maxlat)
+                     | (maxlon < self.q_minlon) | (minlon > self.q_maxlon))
+        if self.relation == "intersects":
+            mask = overlaps
+        elif self.relation == "disjoint":
+            mask = ~overlaps
+        elif self.relation == "within":
+            mask = ((minlat >= self.q_minlat) & (maxlat <= self.q_maxlat)
+                    & (minlon >= self.q_minlon) & (maxlon <= self.q_maxlon))
+        else:   # contains
+            mask = ((minlat <= self.q_minlat) & (maxlat >= self.q_maxlat)
+                    & (minlon <= self.q_minlon) & (maxlon >= self.q_maxlon))
+        return _constant(mask & (~miss) & ctx.all_true())
+
+
+# ---------------------------------------------------------------------------
+# nested: flattened on the device, verified per object on the host
+# ---------------------------------------------------------------------------
+
+def _walk_source_path(node: Any, parts: List[str]) -> List[Any]:
+    """A dotted-path walk that flat-maps lists at every step."""
+    cur = [node]
+    for part in parts:
+        nxt: List[Any] = []
+        for n in cur:
+            for item in (n if isinstance(n, list) else [n]):
+                if isinstance(item, dict) and part in item:
+                    nxt.append(item[part])
+        cur = nxt
+    out: List[Any] = []
+    for n in cur:
+        out.extend(n if isinstance(n, list) else [n])
+    return out
+
+
+def _nested_objects(src: Dict[str, Any], path: str) -> List[Dict[str, Any]]:
+    return [o for o in _walk_source_path(src, path.split("."))
+            if isinstance(o, dict)]
+
+
+def _obj_values(obj: Dict[str, Any], field: str, path: str) -> List[Any]:
+    rel = field[len(path) + 1:] if field.startswith(path + ".") else field
+    return [v for v in _walk_source_path(obj, rel.split("."))
+            if v is not None]
+
+
+def _as_clause_list(spec_val) -> List[Dict[str, Any]]:
+    """A bool occurrence: one clause object or a list of them."""
+    if spec_val is None:
+        return []
+    return spec_val if isinstance(spec_val, list) else [spec_val]
+
+
+def _coerce_pair(ctx, field: str, have, want):
+    """Both sides through the field type, so the verifier compares what
+    the index compared (a long "7" with 5, a date string with millis)."""
+    ft = ctx.mapper.fields.get(field) if ctx is not None else None
+    if ft is not None:
+        try:
+            return ft.parse(have), ft.parse(want)
+        except Exception:
+            pass
+    return have, want
+
+
+def _source_matches(q: Dict[str, Any], obj: Dict[str, Any],
+                    path: str, ctx=None) -> bool:
+    """Whether ONE nested object of ``_source`` satisfies the inner query
+    ``q``: bool, term, terms, range, match, match_all and exists are
+    verified (values through the field type, match terms through the
+    analyzer); any other inner query is True, keeping its flattened
+    (device) answer."""
+    (kind, spec), = ((k, v) for k, v in q.items() if k != "boost")
+    if kind == "bool":
+        for clause in ("must", "filter"):
+            for c in _as_clause_list(spec.get(clause)):
+                if not _source_matches(c, obj, path, ctx):
+                    return False
+        for c in _as_clause_list(spec.get("must_not")):
+            if _source_matches(c, obj, path, ctx):
+                return False
+        should = _as_clause_list(spec.get("should"))
+        if should and not (spec.get("must") or spec.get("filter")):
+            return any(_source_matches(c, obj, path, ctx) for c in should)
+        return True
+    if kind == "match_all":
+        return True
+    if kind == "term":
+        (field, body), = spec.items()
+        want = body.get("value") if isinstance(body, dict) else body
+        for h in _obj_values(obj, field, path):
+            ch, cw = _coerce_pair(ctx, field, h, want)
+            if ch == cw or str(h) == str(want):
+                return True
+        return False
+    if kind == "terms":
+        (field, wants), = ((k, v) for k, v in spec.items() if k != "boost")
+        for h in _obj_values(obj, field, path):
+            for w in wants:
+                ch, cw = _coerce_pair(ctx, field, h, w)
+                if ch == cw or str(h) == str(w):
+                    return True
+        return False
+    if kind == "range":
+        (field, body), = spec.items()
+        haves = _obj_values(obj, field, path)
+        if not haves:
+            return False
+        for have in haves:
+            ok = True
+            for op, cmp in (("gt", lambda a, b: a > b),
+                            ("gte", lambda a, b: a >= b),
+                            ("lt", lambda a, b: a < b),
+                            ("lte", lambda a, b: a <= b)):
+                if op not in body:
+                    continue
+                ch, cw = _coerce_pair(ctx, field, have, body[op])
+                try:
+                    if not cmp(ch, cw):
+                        ok = False
+                        break
+                except TypeError:
+                    ok = False
+                    break
+            if ok:
+                return True
+        return False
+    if kind == "match":
+        (field, body), = spec.items()
+        text = body.get("query") if isinstance(body, dict) else body
+        haves = _obj_values(obj, field, path)
+        if not haves:
+            return False
+        if ctx is not None:
+            want_tokens = set(_analyze_terms(ctx, field, str(text)))
+            return any(want_tokens & set(_analyze_terms(ctx, field, str(h)))
+                       for h in haves)
+        want_tokens = set(str(text).lower().split())
+        return any(want_tokens & set(str(h).lower().split()) for h in haves)
+    if kind == "exists":
+        return bool(_obj_values(obj, spec.get("field", ""), path))
+    return True     # another inner query: its flattened answer stands
+
+
+class NestedQuery(QueryBuilder):
+    """A nested path's query. Nested objects index flattened, so the
+    inner query's device mask is a candidate set: each candidate's
+    ``_source`` objects at ``path`` are parsed on the host and one of
+    them must satisfy the inner query (``_source_matches``). The score
+    is the inner query's (``score_mode`` none scores 0); ``inner_hits``
+    lists the matched objects with their offsets in the ``_source``
+    array (``add_hit_fields``)."""
+
+    name = "nested"
+
+    def __init__(self, path: str, query_dict: Dict[str, Any],
+                 score_mode: str = "avg", ignore_unmapped: bool = False,
+                 inner_hits: Optional[Dict[str, Any]] = None):
+        super().__init__()
+        self.path = path
+        self.raw = query_dict
+        self.inner = parse_query(query_dict)
+        self.score_mode = score_mode
+        self.ignore_unmapped = ignore_unmapped
+        self.inner_hits = inner_hits
+        # _id -> [(offset, object)] of the matched objects, for
+        # inner_hits (a query parses per request)
+        self._matched_objects: Dict[str, List] = {}
+
+    def do_execute(self, ctx):
+        if self.path not in ctx.mapper.nested_paths:
+            if self.ignore_unmapped:
+                return _nothing(ctx)
+            raise QueryShardException(
+                f"[nested] failed to find nested object under path "
+                f"[{self.path}]")
+        scores, mask = self.inner.execute(ctx)
+        seg = ctx.segment
+        with _prof.span("score.verify"):
+            keep = readback("search.queries.nested_candidates",
+                            mask[: seg.n_docs]).copy()
+            cand = np.nonzero(keep)[0]
+            _prof.add("verify_candidates", len(cand))
+            for d in cand:
+                src = json.loads(seg.stored.source(int(d)))
+                matched = [(i, o) for i, o in
+                           enumerate(_nested_objects(src, self.path))
+                           if _source_matches(self.raw, o, self.path, ctx)]
+                if not matched:
+                    keep[d] = False
+                elif self.inner_hits is not None:
+                    self._matched_objects[seg.stored.ids[int(d)]] = matched
+        with _prof.span("score.upload"):
+            full = np.zeros(ctx.n_docs_padded, bool)
+            full[: seg.n_docs] = keep
+            keep_t = torch.from_numpy(full).to(ctx.device.device)
+        if self.score_mode == "none":
+            return torch.zeros_like(scores), keep_t
+        return torch.where(keep_t, scores, 0.0), keep_t
+
+    def add_hit_fields(self, hit: Dict[str, Any]) -> None:
+        """``inner_hits``: the hit's matched nested objects (at most
+        ``size``, default 3), each with its ``_nested`` offset."""
+        if self.inner_hits is None:
+            return
+        matched = self._matched_objects.get(hit.get("_id"))
+        if matched is None:
+            return
+        name = self.inner_hits.get("name", self.path)
+        size = int(self.inner_hits.get("size", 3))
+        inner = [{"_index": hit.get("_index"), "_id": hit.get("_id"),
+                  "_nested": {"field": self.path, "offset": off},
+                  "_score": None, "_source": obj}
+                 for off, obj in matched[:size]]
+        hit.setdefault("inner_hits", {})[name] = {"hits": {
+            "total": {"value": len(matched), "relation": "eq"},
+            "max_score": None, "hits": inner}}
+
+
 # ---------------------------------------------------------------------------
 # parsing
 # ---------------------------------------------------------------------------
-
-# the reference's query types this port does not serve yet: each a typed
-# 400 (geo_* and nested wait for their field types, the join family for
-# search/join.py and percolate for search/percolate.py); every other
-# type the reference knows is in _PARSERS
-_LATER_SLICE = {
-    "geo_distance", "geo_bounding_box", "geo_polygon", "geo_shape",
-    "nested", "has_child", "has_parent", "parent_id", "percolate"}
-
 
 def parse_query(body: Dict[str, Any]) -> QueryBuilder:
     if not isinstance(body, dict) or len(body) != 1:
@@ -1942,10 +2343,6 @@ def parse_query(body: Dict[str, Any]) -> QueryBuilder:
     (qtype, spec), = body.items()
     parser = _PARSERS.get(qtype)
     if parser is None:
-        if qtype in _LATER_SLICE:
-            raise SliceUnsupported(
-                f"query [{qtype}] is a later slice of the port: this slice "
-                f"serves {', '.join(sorted(_PARSERS))}")
         raise ParsingException(f"unknown query [{qtype}]")
     return parser(spec)
 
@@ -2002,7 +2399,8 @@ def _parse_range(spec):
     lte = params.get("lte", params.get("to"))
     return _with_boost(
         RangeQuery(field, gte=gte, gt=params.get("gt"),
-                   lte=lte, lt=params.get("lt")), params)
+                   lte=lte, lt=params.get("lt"),
+                   relation=params.get("relation", "intersects")), params)
 
 
 def _parse_bool(spec):
@@ -2346,6 +2744,99 @@ def _parse_text_expansion(spec):
     return _with_boost(q, spec)
 
 
+def _parse_geo_distance(spec):
+    opts = {k: v for k, v in spec.items()
+            if k in ("distance", "distance_type", "validation_method",
+                     "ignore_unmapped", "boost", "_name")}
+    fields = {k: v for k, v in spec.items() if k not in opts}
+    if len(fields) != 1:
+        raise ParsingException(
+            "[geo_distance] requires exactly one point field")
+    (field, origin), = fields.items()
+    return _with_boost(GeoDistanceQuery(field, origin, spec["distance"]),
+                       spec)
+
+
+def _parse_geo_bounding_box(spec):
+    fields = {k: v for k, v in spec.items()
+              if k not in ("validation_method", "ignore_unmapped", "boost",
+                           "_name", "type")}
+    if len(fields) != 1:
+        raise ParsingException("[geo_bounding_box] requires one point field")
+    (field, box), = fields.items()
+    if "top_left" in box:
+        top, left = geo.parse_geo_point(box["top_left"])
+        bottom, right = geo.parse_geo_point(box["bottom_right"])
+    elif "wkt" in box:
+        raise ParsingException("[geo_bounding_box] WKT envelope unsupported")
+    else:
+        top, left = float(box["top"]), float(box["left"])
+        bottom, right = float(box["bottom"]), float(box["right"])
+    return _with_boost(GeoBoundingBoxQuery(field, top, left, bottom, right),
+                       spec)
+
+
+def _parse_geo_polygon(spec):
+    fields = {k: v for k, v in spec.items()
+              if k not in ("validation_method", "ignore_unmapped", "boost",
+                           "_name")}
+    if len(fields) != 1:
+        raise ParsingException("[geo_polygon] requires one point field")
+    (field, body), = fields.items()
+    return _with_boost(GeoPolygonQuery(field, body["points"]), spec)
+
+
+def _parse_geo_shape(spec):
+    fields = {k: v for k, v in spec.items()
+              if k not in ("ignore_unmapped", "boost", "_name")}
+    if len(fields) != 1:
+        raise ParsingException("[geo_shape] requires one shape field")
+    (field, body), = fields.items()
+    if "indexed_shape" in body:
+        raise ParsingException("[geo_shape] indexed_shape is unsupported")
+    return _with_boost(
+        GeoShapeQuery(field, body["shape"],
+                      relation=body.get("relation", "intersects")), spec)
+
+
+def _parse_nested(spec):
+    return _with_boost(NestedQuery(
+        spec["path"], spec.get("query", {"match_all": {}}),
+        score_mode=spec.get("score_mode", "avg"),
+        ignore_unmapped=bool(spec.get("ignore_unmapped", False)),
+        inner_hits=spec.get("inner_hits")), spec)
+
+
+def _parse_has_child(spec):
+    from elasticsearch_tpu_torch.search.join import HasChildQuery
+    return _with_boost(HasChildQuery(
+        spec["type"], parse_query(spec["query"]),
+        score_mode=spec.get("score_mode", "none"),
+        min_children=spec.get("min_children", 1),
+        max_children=spec.get("max_children"),
+        ignore_unmapped=bool(spec.get("ignore_unmapped"))), spec)
+
+
+def _parse_has_parent(spec):
+    from elasticsearch_tpu_torch.search.join import HasParentQuery
+    return _with_boost(HasParentQuery(
+        spec["parent_type"], parse_query(spec["query"]),
+        score=bool(spec.get("score")),
+        ignore_unmapped=bool(spec.get("ignore_unmapped"))), spec)
+
+
+def _parse_parent_id(spec):
+    from elasticsearch_tpu_torch.search.join import ParentIdQuery
+    return _with_boost(ParentIdQuery(
+        spec["type"], spec["id"],
+        ignore_unmapped=bool(spec.get("ignore_unmapped"))), spec)
+
+
+def _parse_percolate(spec):
+    from elasticsearch_tpu_torch.search.percolate import parse_percolate
+    return parse_percolate(spec)
+
+
 def _parse_dis_max(spec):
     queries = [parse_query(q) for q in spec.get("queries", [])]
     if not queries:
@@ -2399,4 +2890,13 @@ _PARSERS = {
     "rank_feature": _parse_rank_feature,
     "text_expansion": _parse_text_expansion,
     "weighted_tokens": _parse_text_expansion,
+    "geo_distance": _parse_geo_distance,
+    "geo_bounding_box": _parse_geo_bounding_box,
+    "geo_polygon": _parse_geo_polygon,
+    "geo_shape": _parse_geo_shape,
+    "nested": _parse_nested,
+    "has_child": _parse_has_child,
+    "has_parent": _parse_has_parent,
+    "parent_id": _parse_parent_id,
+    "percolate": _parse_percolate,
 }

@@ -30,8 +30,12 @@ a segment only, so a keyword primary sort keeps every segment's winners,
 re-sorts them on the host by term (``_host_sort_cmp``) and only then
 cuts to k; a keyword ``search_after`` cursor carries the term, which
 each segment re-ranks in its own term list (``_keyword_after_masks``).
-A missing value sorts last in either order. ``_geo_distance`` is a later
-slice.
+A missing value sorts last in either order. A ``_geo_distance`` sort
+(one geo_point field and its origin, ``unit`` and ``order``) keys on
+the haversine distance in meters, float32 over the lat/lon columns
+(common/geo.py); its sort values are the float64 host distances in the
+unit, and its ``search_after`` cursor, given in the unit, compares in
+meters against the float32 column, as the reference's.
 
 The fetch phase (``fetch_phase``) builds each hit of the page:
 ``_source`` filtered by includes and excludes with wildcards
@@ -72,6 +76,8 @@ import torch
 import bisect
 import fnmatch
 
+from elasticsearch_tpu_torch.common import geo
+from elasticsearch_tpu_torch.common.errors import ParsingException
 from elasticsearch_tpu_torch.index.segment import Segment
 from elasticsearch_tpu_torch.ops.device import readback
 from elasticsearch_tpu_torch.ops.topk import masked_topk
@@ -81,7 +87,6 @@ from elasticsearch_tpu_torch.search.batching import execute_solo
 from elasticsearch_tpu_torch.search.context import (DeviceSegmentCache,
                                                     SegmentContext,
                                                     ShardStats)
-from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
 from elasticsearch_tpu_torch.search.plan import bind_plan, compile_plan
 from elasticsearch_tpu_torch.search import queries as q
 from elasticsearch_tpu_torch.search.queries import (parse_query,
@@ -120,8 +125,13 @@ class QueryResult:
 
 @dataclass
 class SortKey:
-    field: str           # "_score" | "_doc" | field name
+    field: str           # "_score" | "_doc" | "_geo_distance" | field name
     order: str           # "asc" | "desc"
+    # a _geo_distance key's point field, origin and unit
+    geo_field: str = ""
+    geo_lat: float = 0.0
+    geo_lon: float = 0.0
+    geo_unit: str = "m"
 
 
 class ShardSearcher:
@@ -598,14 +608,40 @@ def _parse_sort(sort) -> Optional[List[SortKey]]:
             (field_name, spec), = entry.items()
             if isinstance(spec, str):
                 order = spec
+                spec = {}
             else:
                 order = spec.get("order",
                                  "desc" if field_name == "_score" else "asc")
-        if field_name == "_geo_distance":
-            raise SliceUnsupported("a _geo_distance sort is a later slice "
-                                   "of the port")
+            if field_name == "_geo_distance":
+                keys.append(_geo_sort_key(spec))
+                continue
         keys.append(SortKey(field_name, order))
     return keys
+
+
+def _geo_sort_key(spec: Dict[str, Any]) -> SortKey:
+    """A ``_geo_distance`` sort entry: exactly one point field with its
+    origin, beside ``order`` (asc by default), ``unit`` (m), ``mode``,
+    ``distance_type`` and ``ignore_unmapped``."""
+    entries = [(k, v) for k, v in spec.items()
+               if k not in ("order", "unit", "mode", "distance_type",
+                            "ignore_unmapped")]
+    if len(entries) != 1:
+        raise ParsingException("[_geo_distance] sort requires exactly one "
+                               "point field with an origin")
+    geo_field, origin = entries[0]
+    lat, lon = geo.parse_geo_point(origin)
+    return SortKey("_geo_distance", spec.get("order", "asc"),
+                   geo_field=geo_field, geo_lat=lat, geo_lon=lon,
+                   geo_unit=spec.get("unit", "m"))
+
+
+def _geo_column(ctx, sk: SortKey):
+    """(float32 meters [n_docs_padded], missing) of a _geo_distance key."""
+    lat, miss = ctx.numeric_column(f"{sk.geo_field}.lat")
+    lon, _ = ctx.numeric_column(f"{sk.geo_field}.lon")
+    return geo.haversine_meters(lat, lon, sk.geo_lat, sk.geo_lon,
+                                xp=torch), miss
 
 
 def _needs_max_score(sort_spec) -> bool:
@@ -642,7 +678,9 @@ def _primary_sort_key(ctx, scores, sort_spec) -> torch.Tensor:
         key = -torch.arange(ctx.n_docs_padded, dtype=torch.float32,
                             device=scores.device)
         return key if sk.order == "asc" else -key
-    if _is_keyword_sort(ctx.segment, sk.field):
+    if sk.field == "_geo_distance":
+        col, miss = _geo_column(ctx, sk)
+    elif _is_keyword_sort(ctx.segment, sk.field):
         # segment-local ordinals: lexicographic within the segment
         col, miss = ctx.keyword_ord_column(sk.field)
     else:
@@ -662,6 +700,16 @@ def _sort_values(seg: Segment, docid: int, score: float,
             out.append(score)
         elif sk.field == "_doc":
             out.append(docid)
+        elif sk.field == "_geo_distance":
+            # the float64 host distance, in the sort's unit
+            nlat = seg.numerics.get(f"{sk.geo_field}.lat")
+            nlon = seg.numerics.get(f"{sk.geo_field}.lon")
+            v = None
+            if nlat is not None and not nlat.missing[docid]:
+                v = geo.meters_to_unit(float(geo.haversine_meters(
+                    float(nlat.values[docid]), float(nlon.values[docid]),
+                    sk.geo_lat, sk.geo_lon)), sk.geo_unit)
+            out.append(v)
         else:
             nv = seg.numerics.get(sk.field)
             v = None
@@ -736,8 +784,14 @@ def _search_after_mask(ctx, scores, sort_spec,
             ctx, sort_spec[0].field, after[0], sort_spec[0].order)
     else:
         sk = sort_spec[0]
-        col, miss = ctx.numeric_column(sk.field)
-        after_val = float(np.float32(float(after[0])))
+        if sk.field == "_geo_distance":
+            # the cursor travels in the sort's unit; compare in meters
+            col, miss = _geo_column(ctx, sk)
+            after_val = float(np.float32(
+                float(after[0]) / geo.meters_to_unit(1.0, sk.geo_unit)))
+        else:
+            col, miss = ctx.numeric_column(sk.field)
+            after_val = float(np.float32(float(after[0])))
         if sk.order == "asc":
             strictly = (~miss) & (col > after_val)
         else:

@@ -45,6 +45,16 @@ Under a ``sort`` each hit carries its ``sort`` values, the page is
 ordered by them (missing last), and ``max_score`` is null, as the
 reference gives them.
 
+Query-computed hit decorations (the reference's ``add_hit_fields``
+walk): after the fetch phase every builder of the query and the
+post_filter that has ``add_hit_fields`` (nested's ``inner_hits``,
+percolate's ``_percolator_document_slot``) decorates each hit of the
+page, and every builder with ``release`` (percolate's candidate
+segment) releases what it holds on the device when the request ends,
+answered or not. A ``percolate`` document given by ``index`` and ``id``
+is read from that index (search/percolate.py
+``resolve_percolate_refs``) before the query parses.
+
 ``profile: true`` answers what the same body answers without it, plus
 ``profile.shards``: one shard's tree (search/profile.py
 ``shard_profile_tree``: the query's stages split into device and host
@@ -78,7 +88,9 @@ from elasticsearch_tpu_torch.search.batching import (_CUT_BUCKETS,
 from elasticsearch_tpu_torch.search.context import (DeviceSegmentCache,
                                                     ShardStats)
 from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
+from elasticsearch_tpu_torch.search.percolate import resolve_percolate_refs
 from elasticsearch_tpu_torch.search.queries import (MatchAllQuery,
+                                                    QueryBuilder,
                                                     parse_query)
 from elasticsearch_tpu_torch.search.searcher import (MAX_TOPK, DocAddress,
                                                      ShardSearcher,
@@ -157,6 +169,22 @@ def _doc_field_value(searcher: ShardSearcher, d: DocAddress, field: str):
     return None
 
 
+def _query_nodes(query, out=None, seen=None) -> List[QueryBuilder]:
+    """Every builder of a parsed query tree (its attributes that are
+    builders, or lists and tuples of them), each once."""
+    if out is None:
+        out, seen = [], set()
+    if id(query) in seen:
+        return out
+    seen.add(id(query))
+    out.append(query)
+    for v in vars(query).values():
+        for item in (v if isinstance(v, (list, tuple)) else [v]):
+            if isinstance(item, QueryBuilder):
+                _query_nodes(item, out, seen)
+    return out
+
+
 def _merge_knn_into_query(body: Dict[str, Any]) -> Dict[str, Any]:
     """Top-level knn sections without rrf combine with the query by
     score sum (the modern ES hybrid default): a bool should of all
@@ -189,8 +217,11 @@ class SearchService:
     search and every batched kNN branch of the node launches through
     them."""
 
-    def __init__(self, cache: DeviceSegmentCache):
+    def __init__(self, cache: DeviceSegmentCache, indices=None):
         self.cache = cache
+        # the node's indices by name: a percolate document by index/id
+        # is read from them
+        self.indices = indices
         self.plan_batcher = PlanBatcher()
         self.knn_batcher = KnnBatcher()
 
@@ -205,6 +236,10 @@ class SearchService:
         rank_spec = body.get("rank")
         if rank_spec is not None and not isinstance(rank_spec, dict):
             raise IllegalArgumentException("[rank] must be an object")
+        body = dict(body)
+        for key in ("query", "post_filter"):
+            if body.get(key):
+                body[key] = resolve_percolate_refs(body[key], self.indices)
         searcher = self._searcher(svc)
         if not body.get("profile"):
             response = self._search(index, searcher, body)
@@ -291,6 +326,20 @@ class SearchService:
             query = query.rewrite(_CoordinatorRewriteContext([searcher]))
             post_filter = (parse_query(body["post_filter"])
                            if body.get("post_filter") else None)
+        nodes = _query_nodes(query) + (_query_nodes(post_filter)
+                                       if post_filter is not None else [])
+        try:
+            return self._execute_query(index, searcher, body, query,
+                                       post_filter, nodes, track_total,
+                                       size, from_)
+        finally:
+            for node in nodes:
+                if hasattr(node, "release"):
+                    node.release()
+
+    def _execute_query(self, index: str, searcher: ShardSearcher,
+                       body: Dict[str, Any], query, post_filter, nodes,
+                       track_total, size: int, from_: int):
         sort = body.get("sort")
         search_after = body.get("search_after")
         if search_after is not None and not isinstance(search_after, list):
@@ -350,6 +399,11 @@ class SearchService:
             if collapse_field:
                 h.setdefault("fields", {})[collapse_field] = [
                     _doc_field_value(searcher, d, collapse_field)]
+        # query-computed decorations: inner_hits, percolator slots
+        for node in nodes:
+            if hasattr(node, "add_hit_fields"):
+                for h in hits:
+                    node.add_hit_fields(h)
         total = result.total_hits
         relation = "gte" if result.total_lower_bound else "eq"
         if not isinstance(track_total, bool) and total > track_total:

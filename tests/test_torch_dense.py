@@ -219,19 +219,32 @@ def test_reference_query_assertions_hold_on_the_port(qctx):
 
 
 def test_parse_errors():
-    """As the reference's test_parse_errors; a query type the reference
-    has and this slice does not is a typed SliceUnsupported."""
+    """As the reference's test_parse_errors; every query type of the
+    reference parses (nested since the field-type slice), and an option
+    of a later slice is a typed SliceUnsupported."""
     with pytest.raises(ParsingException):
         parse_query({"match": {"a": 1}, "term": {"b": 2}})
     with pytest.raises(ParsingException):
         parse_query({"made_up_query": {}})
+    assert parse_query({"nested": {"path": "a", "query": {
+        "match_all": {}}}}).name == "nested"
     with pytest.raises(SliceUnsupported):
-        parse_query({"nested": {"path": "a", "query": {"match_all": {}}}})
+        parse_query({"script_score": {"query": {"match_all": {}},
+                                      "script": {"id": "stored"}}})
 
 
 # ---------------------------------------------------------------------------
 # the mapper
 # ---------------------------------------------------------------------------
+
+# types whose parse takes an object or a point (the field-type slice):
+# a scalar raises the reference's own exception (a geo ParsingException,
+# a join's NotImplementedError: the mapper parses a join itself)
+OBJECT_TYPES = {"geo_point", "geo_shape", "join", "integer_range",
+                "long_range", "float_range", "double_range", "date_range",
+                "ip_range", "flattened", "percolator", "rank_features",
+                "completion"}
+
 
 def test_numeric_field_types_parse_as_the_reference():
     from elasticsearch_tpu.index.mapper import FIELD_TYPES as JAX_TYPES
@@ -251,10 +264,12 @@ def test_numeric_field_types_parse_as_the_reference():
                     cls(name).parse(v)
                 assert type(got.value).__name__ == type(e).__name__
                 # rank_feature parses with float(), as the reference's: a
-                # value that is no number raises float()'s ValueError
+                # value that is no number raises float()'s ValueError;
+                # the object-valued types of the field-type slice raise
+                # what the reference's raise (the type above)
                 assert type(e).__name__ == "MapperParsingException" or (
-                    name == "rank_feature" and type(e) is ValueError), \
-                    (name, v, e)
+                    name == "rank_feature" and type(e) is ValueError) or \
+                    name in OBJECT_TYPES, (name, v, e)
                 continue
             assert cls(name).parse(v) == want, (name, v)
 
@@ -354,11 +369,17 @@ def test_explicit_multi_fields_index_every_subfield():
 
 
 def test_later_slice_types_are_refused():
-    # dense_vector is mapped since the kNN slice (tests/test_torch_knn.py)
+    """The types a later slice once refused map since the field-type
+    slice (tests/test_torch_field_types.py); a name the reference does
+    not know is still refused."""
     for ftype in ("ip", "geo_point", "date_range", "flattened",
-                  "nested", "constant_keyword"):
-        with pytest.raises(MapperParsingException, match="later slice"):
-            DocumentMapper({"properties": {"x": {"type": ftype}}})
+                  "constant_keyword"):
+        m = DocumentMapper({"properties": {"x": {"type": ftype}}})
+        assert m.field_type("x").type_name == ftype
+    m = DocumentMapper({"properties": {"x": {"type": "nested"}}})
+    assert m.nested_paths == {"x"}
+    with pytest.raises(MapperParsingException, match="No handler"):
+        DocumentMapper({"properties": {"x": {"type": "geo_hash"}}})
 
 
 # ---------------------------------------------------------------------------

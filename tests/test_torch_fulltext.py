@@ -47,7 +47,6 @@ from elasticsearch_tpu.search import intervals as jax_intervals
 from elasticsearch_tpu.search import phrase as jax_phrase
 from elasticsearch_tpu.search import queries as jax_queries
 from elasticsearch_tpu_torch.index.mapper import (FIELD_TYPES,
-                                                  LATER_SLICE_TYPES,
                                                   DocumentMapper)
 from elasticsearch_tpu_torch.index.segment import (MAX_STREAM_LEN,
                                                    SegmentWriter,
@@ -57,7 +56,6 @@ from elasticsearch_tpu_torch.node import Node
 from elasticsearch_tpu_torch.ops import bm25 as bm25_ops
 from elasticsearch_tpu_torch.ops.features import feature_plane_sum
 from elasticsearch_tpu_torch.search import intervals, phrase, queries
-from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
 from elasticsearch_tpu_torch.search.queries import (MoreLikeThisQuery,
                                                     ParsingException,
                                                     parse_query)
@@ -908,37 +906,49 @@ def test_seeded_bodies_under_sorts_and_post_filter(nodes, bi):
         assert_parity(nodes, "rand", dict(extra, query=R_BODIES[bi]))
 
 
+# the field-type queries, held against the reference in
+# test_torch_geo.py, test_torch_nested.py and test_torch_join_percolate.py
+FIELD_TYPE_QUERIES = {"geo_distance", "geo_bounding_box", "geo_polygon",
+                      "geo_shape", "nested", "has_child", "has_parent",
+                      "parent_id", "percolate"}
+
+
 def test_every_new_type_is_served_and_typed_400s_stay(nodes):
-    """Each new type parses and answers 200 (no SliceUnsupported); the
-    types of later slices, ``slice`` and a geo origin stay typed 400s."""
-    _, node = nodes
+    """Each new type parses and answers 200 (no SliceUnsupported), the
+    field-type queries too (an unmapped point field matches nothing, an
+    unmapped nested path is the reference's query_shard_exception);
+    ``slice`` stays a typed 400, and distance_feature on a geo origin is
+    a 400 illegal_argument_exception (the reference fails on it with a
+    500). Every query type of the reference parses in the port."""
+    jax_node, node = nodes
     served = {next(iter(b)) for b in R_BODIES} | {
         "span_term", "span_or", "span_not", "span_containing", "span_within",
         "span_multi", "field_masking_span", "span_field_masking"}
-    assert served >= set(queries._PARSERS) - {
+    assert served | FIELD_TYPE_QUERIES >= set(queries._PARSERS) - {
         "match_all", "match_none", "match", "multi_match", "term", "terms",
         "range", "exists", "ids", "constant_score", "dis_max", "boosting",
         "knn", "script_score", "bool"}
     c = node.rest_controller
-    for body in ({"query": {"geo_distance": {"distance": "1km",
-                                             "loc": [0, 0]}}},
-                 {"query": {"nested": {"path": "x",
-                                       "query": {"match_all": {}}}}},
-                 {"query": {"match_all": {}}, "slice": {"id": 0, "max": 2}},
-                 {"query": {"distance_feature": {
-                     "field": "loc", "origin": {"lat": 1, "lon": 2},
-                     "pivot": "1km"}}},
-                 {"query": {"distance_feature": {
-                     "field": "loc", "origin": [2, 1], "pivot": "1km"}}}):
+    geo_body = {"query": {"geo_distance": {"distance": "1km",
+                                           "loc": [0, 0]}}}
+    got, ref = both(nodes, "rand", geo_body)
+    assert got["hits"]["total"]["value"] == 0
+    assert_same_page(got, ref)
+    for body, etype in (
+            ({"query": {"nested": {"path": "x",
+                                   "query": {"match_all": {}}}}},
+             "query_shard_exception"),
+            ({"query": {"match_all": {}}, "slice": {"id": 0, "max": 2}},
+             "unsupported_in_slice_exception"),
+            ({"query": {"distance_feature": {
+                "field": "loc", "origin": {"lat": 1, "lon": 2},
+                "pivot": "1km"}}}, "illegal_argument_exception"),
+            ({"query": {"distance_feature": {
+                "field": "loc", "origin": [2, 1], "pivot": "1km"}}},
+             "illegal_argument_exception")):
         st, r = c.dispatch("POST", "/rand/_search", {}, body)
-        assert st == 400 and r["error"]["type"] == \
-            "unsupported_in_slice_exception", (body, r)
-    for qtype in sorted(queries._LATER_SLICE):
-        with pytest.raises(SliceUnsupported):
-            parse_query({qtype: {}})
-    assert set(queries._LATER_SLICE) & set(queries._PARSERS) == set()
-    assert set(jax_queries._PARSERS) == \
-        set(queries._PARSERS) | queries._LATER_SLICE
+        assert st == 400 and r["error"]["type"] == etype, (body, r)
+    assert set(jax_queries._PARSERS) == set(queries._PARSERS)
 
 
 def test_docstring_lists_exactly_the_parsers():
@@ -949,10 +959,13 @@ def test_docstring_lists_exactly_the_parsers():
 
 
 def test_mapper_types_cover_the_reference():
+    """Every field type of the reference maps in the port, and so does a
+    nested object."""
     from elasticsearch_tpu.index.mapper import FIELD_TYPES as JAX_TYPES
-    assert set(FIELD_TYPES) & LATER_SLICE_TYPES == set()
-    assert set(FIELD_TYPES) | LATER_SLICE_TYPES == set(JAX_TYPES) | {
-        "nested"}
+    assert set(FIELD_TYPES) == set(JAX_TYPES)
+    m = DocumentMapper({"properties": {"n": {"type": "nested", "properties": {
+        "k": {"type": "keyword"}}}}})
+    assert m.nested_paths == {"n"} and "n.k" in m.fields
 
 
 # ---------------------------------------------------------------------------

@@ -53,22 +53,28 @@ VOCAB, TAGS = PLAN_VOCAB, PLAN_TAGS
 DENSE = {i for i, c in enumerate(CASES) if "range" in str(c)}
 
 
-def carry(seg):
-    """A reference segment's postings, numeric columns, ids and sources
-    as a port Segment."""
-    fields = {}
-    for f in FIELDS:
+def carry(seg, fields=FIELDS):
+    """A reference segment's postings (of ``fields``), numeric and
+    keyword columns, ids and sources as a port Segment (the keyword
+    columns carry a join's ``{field}#parent`` and a flattened field's
+    keyed terms too)."""
+    postings = {}
+    for f in fields:
         pf = seg.postings[f]
-        fields[f] = {a: np.asarray(getattr(pf, a)) for a in (
+        postings[f] = {a: np.asarray(getattr(pf, a)) for a in (
             "doc_freq", "total_term_freq", "term_block_start",
             "term_block_count", "block_docids", "block_tfs",
             "field_lengths")}
-        fields[f]["terms"] = list(pf.terms)
+        postings[f]["terms"] = list(pf.terms)
     numerics = {f: {a: np.asarray(getattr(nv, a)) for a in (
         "values", "missing", "offsets", "all_values")}
         for f, nv in seg.numerics.items()}
+    keywords = {f: {"terms": list(kv.terms),
+                    **{a: np.asarray(getattr(kv, a)) for a in (
+                        "ords", "offsets", "all_ords")}}
+                for f, kv in seg.keywords.items()}
     return segment_from_numpy(
-        {"fields": fields, "numerics": numerics,
+        {"fields": postings, "numerics": numerics, "keywords": keywords,
          "ids": list(seg.stored.ids),
          "sources": [seg.stored.source(d) for d in range(seg.n_docs)]},
         name=seg.name)
@@ -216,8 +222,7 @@ def test_rest_from_and_typed_400s(searchers):
                              rtol=RTOL)
             for h in got["hits"]["hits"]:
                 assert h["_source"]["title"]
-        for bad in ({"query": {"geo_distance": {"distance": "1km",
-                                                "loc": [0, 0]}}},
+        for bad in ({"query": CASES[0], "slice": {"id": 0, "max": 2}},
                     {"query": CASES[0], "aggs": {"t": {"top_hits": {
                         "size": 3}}}}):
             st, r = c.dispatch("POST", "/p/_search", {}, bad)
