@@ -235,8 +235,9 @@ Phases (any failure exits non-zero; no exception is swallowed):
               and p50/p99 from 16 clients, and the cohorts the batcher
               forms with their lanes and device ms, on and off
  12. fields   the remaining field types: "geopoint" (Rally's geopoint
-              track: 60,844,404 points clustered like populated places,
-              corpus.py geo_points, in 4 segments of a location
+              track, cut to a quarter: 15,211,101 points clustered like
+              populated places, corpus.py geo_points, in 4 segments of a
+              location
               geo_point) with geo_distance at 1, 50 and 1000 km, the
               distanceRange bool, boxes (one across the dateline),
               polygons of 5 and 64 vertices and _geo_distance sorts of
@@ -254,25 +255,54 @@ Phases (any failure exits non-zero; no exception is swallowed):
               under each score_mode and min_children, has_parent with
               score and parent_id; "alerts" (10,000 stored queries of
               the phase 4 query log: match, bool with a range filter,
-              range) percolating one document, ten documents and a
-              document by index/id. Every body over HTTP (16 clients a
+              range) percolating one document, and "alerts_small" (its
+              first 100) ten documents and a document by index/id.
+              Every body over HTTP (16 clients a
               mix); held to a float64/numpy oracle under the float32
               column semantics (geo docs within 1e-4 of a radius
               exempt, counted; the ip column's float32 neighbours
-              counted) and to the port's CPU execution (all but the
-              64-vertex polygon; geo docs within 1e-6 of a radius or
-              of the page's last key exempt, at most 16 a body,
-              counted); the contribution kernel launched once
+              counted) and to the port's CPU execution (one body of
+              each geopoint family, the other bodies but the one-
+              document and by-reference percolations; geo docs within
+              1e-6 of a radius or of the page's last key exempt, at
+              most 16 a body, counted); the contribution kernel
+              launched once
               per dense BM25 scoring, the merge not at all, the breaker
               equal to the segments' bytes after. Printed: each body's
               profiled query, rewrite, join, top-k and verify ms; the
-              geo masks' device ms at 60.8M points against their bounds
+              geo masks' device ms at 15.2M points against their bounds
               and the polygon's launches; percolate ms per stored query
- 13. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
-              script, aggs, accounting, fulltext, fetch, fields,
-              filters, plan and kernels JSON lines, the card's name and
-              power limit, and the last line {"ok": true, "device":
-              {...}}
+ 13. shards   "bench5": the phase 4 corpus with the bench's 500-term
+              cat keyword, in 5 shards (Rally geonames' default) routed
+              by the port's shard_for (murmur3 of _id), equal to a
+              numpy murmur3, one segment a shard; "route5" takes 2,000
+              docs through _bulk, each shard holding numpy's count.
+              Over HTTP, every body reaching the fallback workers (the
+              front's fast count +0): phase 4's first 64 match bodies
+              at size 1000 (8 alone, then from 64 clients and the load
+              generator), 32 of the bool+filters mix, 32 match + terms
+              agg on cat, a cat sort with a 10-page search_after walk,
+              collapse on cat, track_total_hits 10000, profile: true,
+              16 dfs_query_then_fetch bodies before and after their
+              default twins, and /bench,bench5 of 16 bodies. Held to
+              float64 oracles (each shard's own statistics by default,
+              the whole corpus's under dfs; the dfs answers also to the
+              one-shard bench's), numpy (sort, walk by the cursor rule,
+              collapse, agg counts) and, 4 bodies a kind, the port's
+              CPU execution; _shards {5, 5, 0} (6 for the two indices)
+              on every answer; the contribution kernel launched once per
+              dense BM25 scoring, the merge not at all; the breaker
+              equal to the segments' bytes. Printed: each shard's query
+              ms and the coordinator's merge and fetch ms from the
+              profile, launches a dense body, qps and p50/p99 beside
+              the one-shard bench through the same fallback workers
+ 14. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
+              script, aggs, accounting, fulltext, fetch, fields, shards,
+              filters, plan and kernels JSON lines (each kernel's
+              launches per phase, launches_shards for phase 13), the
+              phases' wall seconds ({"phase_seconds": ...}), the card's
+              name and power limit, and the last line {"ok": true,
+              "device": {...}}
 
 Needs one CUDA card, and the repository around it.
 """
@@ -1091,8 +1121,9 @@ def phase_plan_small(node, port, seed):
 
 
 # ---------------------------------------------------------------- phase 4
-def drive(port, bodies, clients, index="bench"):
-    """``bodies`` as _search requests to /``index`` from ``clients``
+def drive(port, bodies, clients, index="bench", query="", method="POST"):
+    """``bodies`` as _search requests to /``index`` (an index expression;
+    ``query`` the URL's query string, "?..." or empty) from ``clients``
     threads: ([(status, response)], latency s of each, wall s)."""
     results = [None] * len(bodies)
     lat = [0.0] * len(bodies)
@@ -1107,7 +1138,8 @@ def drive(port, bodies, clients, index="bench"):
             if i >= len(bodies):
                 return
             t0 = time.perf_counter()
-            results[i] = http(port, "POST", f"/{index}/_search", bodies[i])
+            results[i] = http(port, method, f"/{index}/_search{query}",
+                              bodies[i])
             lat[i] = time.perf_counter() - t0
 
     threads = [threading.Thread(target=client, daemon=True)
@@ -1163,9 +1195,9 @@ def loadgen_pass(node, port, bodies, lanes, conns, reps=1, warmup=0):
                     for b, lane in zip(bodies, lanes) if lane == "plan"}
     planned = []
 
-    def recorded(index, svc, body):
+    def recorded(expression, body, search_type=None):
         planned.append(json.dumps(body.get("query"), sort_keys=True))
-        return type(service).search(service, index, svc, body)
+        return type(service).search(service, expression, body, search_type)
 
     total = len(bodies) * reps
     h0, t0, s0 = node.http_stats(), dict(fp.timing), dict(fp.stats)
@@ -2416,14 +2448,17 @@ def phase_dense(node, port, logs, cols, n_base, queries, clients, seed,
     all_answers = page_answers + [r for _, r in results]
     # the port's own CPU execution of the same bodies on the same segment
     svc = node.indices["logs"]
-    cpu = SearchService(DeviceSegmentCache("cpu"))
+    cpu = SearchService(DeviceSegmentCache("cpu"), node.indices)
     t0 = time.time()
     n_cpu = 0
+    per_kind = Counter()
     for i, (kind, body, r) in enumerate(zip(all_kinds, all_bodies,
                                             all_answers)):
-        if kind == "match_range" and n_cpu >= 24:
+        # the first two bodies of each kind (PERF.md section 4: the cut)
+        per_kind[kind] += 1
+        if per_kind[kind] > 2:
             continue
-        c = cpu.search("logs", svc, body)
+        c = cpu.search("logs", body)
         what = f"dense body {i} ({kind}) vs the CPU"
         check(c["hits"]["total"] == r["hits"]["total"], f"{what}: total")
         check([h["_id"] for h in c["hits"]["hits"]]
@@ -2728,7 +2763,7 @@ def phase_knn(node, port, n_docs, dims, n_queries, seed, iters):
                        p99_ms=p50_p99(lat)[1],
                        launches=b1["knn_launches"] - b0["knn_launches"])
     # one cohort of all the callers at full size, against solo launches
-    ctx = node.search_service._searcher(svc)._contexts()[0]
+    ctx = node.search_service._shard_searchers(svc)[0]._contexts()[0]
     cut = 3000          # max(k, num_candidates): the service's cut
     solo_b = KnnBatcher()
     t0 = time.time()
@@ -2839,9 +2874,9 @@ def phase_hybrid(node, port, corpus, queries, oracles, dims, seed, conns,
     recalls = []
     for i, ((st, r), body) in enumerate(zip(results, rbodies)):
         check(st == 200, f"rrf body {i} -> {st} {r}")
-        bm25 = service.search("hybrid", svc, {
+        bm25 = service.search("hybrid", {
             "query": body["query"], "size": 1000, "_source": False})
-        knn = service.search("hybrid", svc, {
+        knn = service.search("hybrid", {
             "knn": body["knn"], "size": 1000, "_source": False})
         check_answer(bm25, oracles[i], "plan", f"rrf body {i} BM25 branch")
         recalls.append(check_knn_answer(
@@ -2887,10 +2922,16 @@ def phase_hybrid(node, port, corpus, queries, oracles, dims, seed, conns,
           f"the contribution kernel launched on the merged bodies: "
           f"{launches}")
     t0 = time.time()
+    seen_kinds = Counter()
     for (kind, body), (st, r) in zip(mixed, res2):
         what = f"hybrid {kind} body vs the CPU"
         check(st == 200, f"{what}: {st} {r}")
-        c = cpu.search("hybrid", svc, body)
+        # the first two bodies of each kind against the CPU (PERF.md
+        # section 4: the cut)
+        seen_kinds[kind] += 1
+        if seen_kinds[kind] > 2:
+            continue
+        c = cpu.search("hybrid", body)
         check(c["hits"]["total"] == r["hits"]["total"], f"{what}: total")
         check([h["_id"] for h in c["hits"]["hits"]]
               == [h["_id"] for h in r["hits"]["hits"]]
@@ -2902,7 +2943,8 @@ def phase_hybrid(node, port, corpus, queries, oracles, dims, seed, conns,
         bodies=len(mixed), kinds={k: sum(1 for m, _ in mixed if m == k)
                                   for k in ("merged", "filtered", "source",
                                             "exists")},
-        launches=launches, cpu_s=time.time() - t0)
+        launches=launches, cpu_s=time.time() - t0,
+        cpu_bodies=sum(min(2, n) for n in seen_kinds.values()))
     # throughput of the rrf bodies: the load generator, 4 rounds
     b0 = service.knn_batcher.stats()
     res = loadgen(port, "/hybrid/_search", rbodies, conns, len(rbodies) * 4)
@@ -2927,6 +2969,11 @@ SCRIPT_VECTOR = "cosineSimilarity(params.qv, 'vec') + 1.0 + _score"
 # slab's bfloat16 values: float32 BM25 (up to ~40, ulp 3.8e-6 summed over
 # at most 8 terms) plus a float32 sum of 256 bfloat16 products
 SCRIPT_VECTOR_ATOL = 1e-4
+
+
+# the script bench bodies held to the CPU execution (all 32 to their
+# float64 oracle; PERF.md section 4: the cut)
+SCRIPT_CPU_BODIES = 8
 
 
 def script_body(text, source, size, params=None, **extra):
@@ -3139,7 +3186,8 @@ def phase_script(node, port, corpus, queries, feat, seed, conns, counters,
     for i, ((st, r), body) in enumerate(zip(res, bench)):
         what = f"script bench body {i}"
         check(st == 200, f"{what} -> {st} {r}")
-        equal_to_cpu(r, cpu.search("hybrid", svc, body), what)
+        if i < SCRIPT_CPU_BODIES:
+            equal_to_cpu(r, cpu.search("hybrid", body), what)
         recalls.append(check_answer(
             r, script_oracle(bm25[i], feat32, 1000), "plan", what))
     check(p1["batched_queries"] - p0["batched_queries"] == len(bench),
@@ -3208,7 +3256,7 @@ def phase_script(node, port, corpus, queries, feat, seed, conns, counters,
         what = f"script {kind} body"
         check(st == 200, f"{what} -> {st} {r}")
         check(len(r["hits"]["hits"]) > 0, f"{what}: hits")
-        equal_to_cpu(r, cpu.search("hybrid", svc, body), what)
+        equal_to_cpu(r, cpu.search("hybrid", body), what)
     out["mixed"] = {k: sum(1 for m, _ in mixed if m == k)
                     for k in ("function_score", "min_score", "rescore")}
 
@@ -3227,7 +3275,7 @@ def phase_script(node, port, corpus, queries, feat, seed, conns, counters,
         "script": {"source": stmt.format(f="views", x=50)}}}, "size": 50}
     st, r = served(lambda: http(port, "POST", "/plan/_search", small))
     check(st == 200, f"the statement script on the small index -> {st} {r}")
-    equal_to_cpu(r, cpu.search("plan", node.indices["plan"], small),
+    equal_to_cpu(r, cpu.search("plan", small),
                  "the statement script on the small index")
     out["launches"] = {name: fn.launches for name, fn in counters.items()}
     check(out["launches"]["gather_bm25_contrib"] > 0,
@@ -3644,7 +3692,7 @@ def phase_aggs(node, port, corpus, queries, logs, cols, conns, counters,
         check(r["aggregations"]["cats"]["buckets"][0]["doc_count"] > 0,
               f"{what}: the bench's check")
         agg_equal(r["aggregations"], want, what)
-        c = cpu.search("hybrid", hybrid, body)
+        c = cpu.search("hybrid", body)
         check(c["hits"]["total"] == r["hits"]["total"], f"{what}: CPU total")
         agg_equal(r["aggregations"], c["aggregations"], f"{what} vs the CPU")
     kinds = {}
@@ -3657,7 +3705,7 @@ def phase_aggs(node, port, corpus, queries, logs, cols, conns, counters,
             check(r["hits"]["total"]["value"] == total, f"{what}: total")
             check([int(h["_id"]) for h in r["hits"]["hits"]]
                   == [int(i) for i in ids], f"{what}: hits")
-        c = cpu.search("logs", svc_logs, body)
+        c = cpu.search("logs", body)
         check(c["hits"]["total"] == r["hits"]["total"]
               and [h["_id"] for h in c["hits"]["hits"]]
               == [h["_id"] for h in r["hits"]["hits"]],
@@ -3929,8 +3977,9 @@ def eviction_check(corpus, queries, k=100):
         evicted = []
         cache.add_evict_listener(evicted.extend)
         pattern = [0, 1, 0, 2, 3, 1, 0, 3, 3, 2, 1, 1, 0, 2, 2, 3]
-        order = [f"ev{pattern[i % len(pattern)]}" for i in range(32)]
-        bodies = [plan_body(queries[i], k) for i in range(32)]
+        # one cycle of the pattern (PERF.md section 4: the cut)
+        order = [f"ev{p}" for p in pattern]
+        bodies = [plan_body(queries[i], k) for i in range(len(order))]
         adm0, ev0 = cache.churn_counters()
         results = []
         t0 = time.time()
@@ -4817,21 +4866,33 @@ def phase_fulltext(node, port, corpus, seed, conns, counters, cpu):
         check_ft_answer(r, scores, what, constant=kind == "multi_term",
                         pinned=pins)
     out["oracle_s"] = time.time() - t0
-    # (c) each answer equal to the port's CPU execution
+    # (c) the first body of each kind and query type equal to the port's
+    # CPU execution (PERF.md section 4: the cut; every body is held to
+    # the oracle)
     t0 = time.time()
+    firsts = {}
+    for i, (kind, qb, _, _) in enumerate(mix):
+        firsts.setdefault((kind, next(iter(qb))), i)
     for i, ((kind, qb, _, _), (_, r)) in enumerate(zip(mix, res)):
-        c = cpu.search("fulltext", svc, bodies[i])
+        if firsts[(kind, next(iter(qb)))] != i:
+            continue
+        c = cpu.search("fulltext", bodies[i])
         what = f"fulltext body {i} ({kind})"
         if "text_expansion" in qb:   # float32 sums in another order
             same_hits(r, c, what, rtol=1e-5)
         else:
             equal_to_cpu(r, c, what)
     out["cpu_s"] = time.time() - t0
-    # (d) where each body's time goes: the mix once more, one body at a
-    # time, with profile: true; the score stage's host work from the
-    # profile's children (search/queries.py)
+    out["cpu_bodies"] = len(firsts)
+    log(f"[fulltext] oracle {out['oracle_s']:.1f} s, CPU "
+        f"{out['cpu_s']:.1f} s ({len(firsts)} bodies)")
+    # (d) where each body's time goes: the first body of each kind and
+    # query type once more, alone, with profile: true; the score stage's
+    # host work from the profile's children (search/queries.py)
     per_body = []
     for i, ((kind, qb, _, _), (_, r)) in enumerate(zip(mix, res)):
+        if firsts[(kind, next(iter(qb)))] != i:
+            continue
         st, p = http(port, "POST", "/fulltext/_search",
                      dict(bodies[i], profile=True))
         what = f"fulltext body {i} ({kind}) with profile: true"
@@ -4868,7 +4929,7 @@ def phase_fulltext(node, port, corpus, seed, conns, counters, cpu):
     out["by_kind"] = by_kind
     log(f"[fulltext] where the time goes, by kind: {by_kind}")
     # (e) the device ms of the conjunction filter and the feature sum
-    ctx = node.search_service._searcher(svc)._contexts()[0]
+    ctx = node.search_service._shard_searchers(svc)[0]._contexts()[0]
     dp = ctx.device.postings["title"]
     two = sorted((cands[i], i) for i, (kind, qb, _, _) in enumerate(mix)
                  if kind == "phrase"
@@ -5027,7 +5088,8 @@ def profiled_split(port, index, body):
     q = sh["searches"][0]["query"][0]
     br = q["breakdown"]
     return dict(query_ms=q["time_in_nanos"] / 1e6,
-                fetch_ms=sh["fetch"]["time_in_nanos"] / 1e6,
+                # a shard with no hit on the page fetches nothing
+                fetch_ms=sh.get("fetch", {}).get("time_in_nanos", 0) / 1e6,
                 device_ms=br.get("device_time_in_nanos", 0) / 1e6,
                 host_ms=br.get("host_time_in_nanos", 0) / 1e6,
                 stages={k: v / 1e6 for k, v in br.items()
@@ -5252,7 +5314,7 @@ def phase_fetch(node, port, corpus, queries, cols, seed, conns, counters,
         got = [(h["_id"], h["fields"]["cat"][0]) for h in r["hits"]["hits"]]
         check(got == want[:10], f"collapse on cat: first hit per key "
                                 f"({got[:3]} vs {want[:3]})")
-        same_fetch(r, cpu.search("kw", kw, body), "collapse vs CPU")
+        same_fetch(r, cpu.search("kw", body), "collapse vs CPU")
         collapse.append(len(got))
     out["collapse_groups"] = collapse
     # ---- (c) _source filtering, fields, docvalue_fields, highlight on
@@ -5274,7 +5336,7 @@ def phase_fetch(node, port, corpus, queries, cols, seed, conns, counters,
                                       "fetch bodies")
     fetch_split = []
     for i, (body, (_, r)) in enumerate(zip(fetch_bodies, res)):
-        same_fetch(r, cpu.search("fulltext", ft, body), f"fetch body {i}")
+        same_fetch(r, cpu.search("fulltext", body), f"fetch body {i}")
         check(all("highlight" in h for h in r["hits"]["hits"]),
               f"fetch body {i}: every hit highlighted")
         fetch_split.append(dict(
@@ -5300,7 +5362,7 @@ def phase_fetch(node, port, corpus, queries, cols, seed, conns, counters,
           "script_fields: the first docs by @timestamp")
     check(np.allclose(got, want, rtol=1e-6, atol=0),
           "script_fields: the float64 oracle under float32 columns")
-    same_fetch(r, cpu.search("logs", logs, sbody), "script_fields vs CPU")
+    same_fetch(r, cpu.search("logs", sbody), "script_fields vs CPU")
     st, r = http(port, "POST", "/logs/_search", dict(sbody, script_fields={
         "s": {"script": "double t = 0; for (int i = 0; i < 2; ++i) "
                         "{ t += doc['bytes'].value; } return t;"}}))
@@ -5316,7 +5378,7 @@ def phase_fetch(node, port, corpus, queries, cols, seed, conns, counters,
         check(st == 200 and r["terminated_early"] is True
               and r["hits"]["total"] == {"value": ta, "relation": "gte"},
               f"terminate_after {ta}: {str(r)[:200]}")
-        same_fetch(r, cpu.search("logs", logs, body), "terminate_after")
+        same_fetch(r, cpu.search("logs", body), "terminate_after")
     out["script_terminate"] = dict(script=script, checked=FETCH_SIZE)
     # ---- (e) filter conversion on "bench" (against the float64 oracle)
     # and on "kw" (a popular cat), on and off
@@ -5386,7 +5448,7 @@ def phase_fetch(node, port, corpus, queries, cols, seed, conns, counters,
                       f"{what}: track_total_hits 10000 ({how}) answers "
                       f"the exact hits")
             if index == "kw":
-                equal_to_cpu(on[i][1], cpu.search("kw", kw, bodies[i]),
+                equal_to_cpu(on[i][1], cpu.search("kw", bodies[i]),
                              f"{what}: vs CPU")
     for i, (qb, qterms, f, shape) in enumerate(conv_bench):
         keep = match_mask(f)[:n]
@@ -5407,10 +5469,16 @@ def phase_fetch(node, port, corpus, queries, cols, seed, conns, counters,
 
 # ---------------------------------------------------------------- phase 12
 FIELDS_SIZE = 100
-GEO_POINTS = 60_844_404   # Rally geopoint's documents
+# a quarter of Rally geopoint's 60,844,404 documents (PERF.md section 4:
+# the cut)
+GEO_POINTS = 15_211_101
 GEO_SEGMENTS = 4          # a segment's padded docids stay below 2^24
 QA_QUESTIONS = 100_000    # the nested questions (PERF.md section 4: the cut)
 ALERTS = 10_000           # the percolator index's stored queries
+# the stored queries of "alerts_small" (the first ones of "alerts"),
+# which the percolations of ten documents and of a document by reference
+# read (PERF.md section 4: the cut)
+ALERTS_SMALL = 100
 GEO_BAND = 1e-4           # the geo boundary rule against float64 (relative)
 GEO_ABS_M = 1.0           # ... and its floor in meters (float32 sort keys)
 GEO_CPU_REL = 1e-6        # CUDA's float32 distances against the CPU's
@@ -5960,7 +6028,7 @@ def phase_fields(node, port, corpus, queries, logs, cols, n_points, n_qa,
     amap = {"properties": {"query": {"type": "percolator"},
                            "title": {"type": "text"},
                            "views": {"type": "long"}}}
-    for name in ("alerts", "inbox"):
+    for name in ("alerts", "alerts_small", "inbox"):
         node.create_index(name, amap)
     rules, lines = [], []
     for i in range(n_alerts):
@@ -5981,9 +6049,13 @@ def phase_fields(node, port, corpus, queries, logs, cols, n_points, n_qa,
         rules.append((kind, {term_name(t) for t in q}, lo_v, hi_v))
         lines.append(json.dumps({"index": {"_id": f"rule{i}"}}) + "\n"
                      + json.dumps({"query": stored}) + "\n")
-    st, r = http(port, "POST", "/alerts/_bulk", "".join(lines), ndjson=True)
-    check(st == 200 and not r["errors"], f"alerts bulk: {str(r)[:200]}")
-    check(http(port, "POST", "/alerts/_refresh")[0] == 200, "alerts refresh")
+    n_small = min(ALERTS_SMALL, n_alerts)
+    for name, part in (("alerts", lines), ("alerts_small", lines[:n_small])):
+        st, r = http(port, "POST", f"/{name}/_bulk", "".join(part),
+                     ndjson=True)
+        check(st == 200 and not r["errors"], f"{name} bulk: {str(r)[:200]}")
+        check(http(port, "POST", f"/{name}/_refresh")[0] == 200,
+              f"{name} refresh")
 
     def corpus_doc(d):
         lo_, hi_ = int(corpus_starts[d]), int(corpus_starts[d + 1])
@@ -6000,12 +6072,13 @@ def phase_fields(node, port, corpus, queries, logs, cols, n_points, n_qa,
     check(st == 200 and not r["errors"], "inbox bulk")
     check(http(port, "POST", "/inbox/_refresh")[0] == 200, "inbox refresh")
     out["sizes"]["alerts"] = dict(stored_queries=n_alerts,
+                                  small_stored_queries=n_small,
                                   setup_s=time.time() - t0)
     # every segment resident before the mixes: their first request does
     # not upload one
     t0 = time.time()
     for index in ("geonames", "logs_ip", "qa", "qa_join", "alerts",
-                  "inbox"):
+                  "alerts_small", "inbox"):
         for seg in node.indices[index].engine.segments:
             node.device_cache.get(seg)
     torch.cuda.synchronize()
@@ -6180,16 +6253,19 @@ def phase_fields(node, port, corpus, queries, logs, cols, n_points, n_qa,
         ("has_parent", pq)))
     cases.append(("qa_join", "parent_id", {"query": {"parent_id": {
         "type": "answer", "id": "q17"}}}, ("parent_id", 17)))
-    # alerts: one document, ten documents, a document by index/id
-    slots_docs = {"one": [pdocs[0]], "ten": pdocs[1:11],
-                  "ref": [pdocs[11]]}
-    for case, docs in slots_docs.items():
+    # alerts: one document against every stored query; ten documents
+    # and a document by index/id against the first ALERTS_SMALL
+    slots_docs = {"one": ("alerts", [pdocs[0]]),
+                  "ten": ("alerts_small", pdocs[1:11]),
+                  "ref": ("alerts_small", [pdocs[11]])}
+    for case, (index, docs) in slots_docs.items():
         spec = ({"field": "query", "index": "inbox", "id": "d1"}
                 if case == "ref" else
                 {"field": "query", "documents": [d for d, _ in docs]})
-        cases.append(("alerts", f"percolate_{case}", {
+        cases.append((index, f"percolate_{case}", {
             "query": {"percolate": spec}, "size": 10000},
-            ("percolate", [k for _, k in docs])))
+            ("percolate", [k for _, k in docs],
+             n_alerts if index == "alerts" else n_small)))
     bodies = [dict(b, size=b.get("size", FIELDS_SIZE), _source=False)
               if idx != "qa" else dict(b, size=b.get("size", FIELDS_SIZE))
               for idx, _fam, b, _chk in cases]
@@ -6203,9 +6279,9 @@ def phase_fields(node, port, corpus, queries, logs, cols, n_points, n_qa,
     results = [None] * len(cases)
     loads = {}
     for index in ("geopoint", "geonames", "logs_ip", "qa", "qa_join",
-                  "alerts"):
+                  "alerts", "alerts_small"):
         pos = [i for i, c in enumerate(cases) if c[0] == index]
-        if index == "alerts":
+        if index.startswith("alerts"):
             # the percolations one at a time, each latency its own
             res, took, wall = drive(port, [bodies[i] for i in pos], 1,
                                     index)
@@ -6244,10 +6320,14 @@ def phase_fields(node, port, corpus, queries, logs, cols, n_points, n_qa,
     cpu_exempt = {}
     no_band = np.zeros(len(lat32), bool)
     # held to the oracle alone: the 64-vertex polygon (on the CPU 64 x 11
-    # elementwise passes over every point) and the percolations of ten
-    # documents and of a document by reference (10,000 stored queries
-    # each; the one-document percolation is held to the CPU)
-    cpu_skip = {"polygon_64", "percolate_ten", "percolate_ref"}
+    # elementwise passes over every point), four geopoint bodies (each
+    # family's other sizes: one body a family is held to the CPU, each a
+    # pass over 15.2M points there), and the percolations of one document
+    # (10,000 stored queries) and of a document by reference (the ten
+    # documents' percolation over the small index is held to the CPU)
+    cpu_skip = {"polygon_64", "geo_distance_1km", "geo_distance_1000km",
+                "bbox_dateline", "sort_100", "percolate_one",
+                "percolate_ref"}
     spent = Counter()
     for (index, fam, body, chk), qbody, r in zip(cases, bodies, results):
         what = f"{index} {fam} {json.dumps(body)[:100]}"
@@ -6353,7 +6433,7 @@ def phase_fields(node, port, corpus, queries, logs, cols, n_points, n_qa,
             check_constant_page(r, m, np.zeros(len(m), bool), what,
                                 ids_of=child_id)
         elif kind == "percolate":
-            want = percolate_oracle(rules, chk[1])
+            want = percolate_oracle(rules[:chk[2]], chk[1])
             hit_ids = [f"rule{i}" for i, s in enumerate(want) if s]
             check([h["_id"] for h in r["hits"]["hits"]] == hit_ids
                   and r["hits"]["total"]["value"] == len(hit_ids),
@@ -6366,7 +6446,7 @@ def phase_fields(node, port, corpus, queries, logs, cols, n_points, n_qa,
         if fam in cpu_skip:
             spent[index] += time.time()
             continue
-        c = cpu.search(index, node.indices[index], qbody)
+        c = cpu.search(index, qbody)
         if index == "geopoint":
             origin = chk[1] if kind == "sort" else None
             cpu_exempt[fam] = (int(cpu_band.sum()), same_geo(
@@ -6396,11 +6476,13 @@ def phase_fields(node, port, corpus, queries, logs, cols, n_points, n_qa,
     prof = {}
     index_of = {fam: index for index, fam, _b, _c in cases}
     for (index, fam, _b, _c), qbody in zip(cases, bodies):
-        if index != "alerts":   # a percolation's time is its latency
-            prof[fam] = profile_stages(port, index, qbody)
+        if not index.startswith("alerts"):   # a percolation's time is
+            prof[fam] = profile_stages(port, index, qbody)   # its latency
     out["profile"] = prof
     out["percolate_ms_per_stored_query"] = [
-        ms / n_alerts for ms in loads["alerts"]["latency_ms"]]
+        ms / n for index, n in (("alerts", n_alerts),
+                                ("alerts_small", n_small))
+        for ms in loads[index]["latency_ms"]]
     out["join_rewrite_host_ms"] = {f: p["join_ms"] for f, p in prof.items()
                                    if f.startswith(("has_", "parent_id"))}
     out["topk_share"] = {f: p["topk_ms"] / max(p["query_ms"], 1e-9)
@@ -6421,13 +6503,495 @@ def phase_fields(node, port, corpus, queries, logs, cols, n_points, n_qa,
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+SHARDS = 5          # Rally geonames' number_of_shards default
+SHARD_K = 1000
+# the depth of phase 13 (PERF.md section 4: the cuts): phase 4's first
+# SHARD_MATCH queries, SHARD_FILTERS of its bool+filters mix, SHARD_DFS
+# dfs bodies, SHARD_SAMPLE bodies a kind held to the CPU execution
+SHARD_MATCH = 64
+SHARD_FILTERS = 32
+SHARD_DFS = 16
+SHARD_SAMPLE = 4
+DFS = "?search_type=dfs_query_then_fetch"
+
+
+def routing_oracle(n, shards):
+    """``abs(murmur3(str(d))) % shards`` for every docid d below ``n``,
+    in numpy: the reference's routing formula (murmur3 x86 32, seed 0,
+    over the UTF-16LE bytes of the id; a decimal digit is its code unit
+    and a zero byte), vectorized over the ids of one length at a time."""
+    m32 = np.uint64(0xFFFFFFFF)
+
+    def rotl(x, r):
+        return ((x << np.uint64(r)) | (x >> np.uint64(32 - r))) & m32
+
+    def mix_k(k):
+        k = (k * np.uint64(0xCC9E2D51)) & m32
+        k = rotl(k, 15)
+        return (k * np.uint64(0x1B873593)) & m32
+
+    d = np.arange(n, dtype=np.int64)
+    width = np.ones(n, np.int64)
+    for p in range(1, 19):
+        width += d >= 10 ** p
+    out = np.empty(n, np.int64)
+    for w in np.unique(width):
+        sel = np.nonzero(width == w)[0]
+        units = np.stack([(d[sel] // 10 ** (w - 1 - j)) % 10 + 48
+                          for j in range(w)], axis=1).astype(np.uint64)
+        h = np.zeros(len(sel), np.uint64)
+        for b in range(w // 2):
+            h ^= mix_k(units[:, 2 * b] | (units[:, 2 * b + 1]
+                                          << np.uint64(16)))
+            h = rotl(h, 13)
+            h = (h * np.uint64(5) + np.uint64(0xE6546B64)) & m32
+        if w % 2:
+            h ^= mix_k(units[:, w - 1])
+        h ^= np.uint64(2 * w)
+        h ^= h >> np.uint64(16)
+        h = (h * np.uint64(0x85EBCA6B)) & m32
+        h ^= h >> np.uint64(13)
+        h = (h * np.uint64(0xC2B2AE35)) & m32
+        h ^= h >> np.uint64(16)
+        signed = h.astype(np.int64) - (h >= np.uint64(1 << 31)).astype(
+            np.int64) * (1 << 32)
+        out[sel] = np.abs(signed) % shards
+    return out
+
+
+class ShardOracle:
+    """float64 answers over "bench5": each shard scores with its own
+    statistics (doc count, df, average length), as the default search
+    type does; ``dfs`` answers are the whole corpus's (phase 4's
+    oracles)."""
+
+    def __init__(self, corpus, subs, docs_of):
+        self.corpus = corpus
+        self.subs = subs
+        self.docs_of = docs_of
+        self.n = len(corpus["lens"])
+
+    def scores(self, terms):
+        from elasticsearch_tpu_torch.corpus import dense_scores
+        out = np.zeros(self.n, np.float64)
+        for sub, docs in zip(self.subs, self.docs_of):
+            out[docs] = dense_scores(sub, terms)
+        return out
+
+    def topk(self, terms, k, keep=None):
+        from elasticsearch_tpu_torch.corpus import topk_of_scores
+        s = self.scores(terms)
+        if keep is not None:
+            s = np.where(keep, s, 0.0)
+        return topk_of_scores(s, k)
+
+
+def check_shards(r, what, total=SHARDS):
+    check(r.get("_shards") == {"total": total, "successful": total,
+                               "skipped": 0, "failed": 0},
+          f"{what}: _shards {r.get('_shards')} (every shard answered)")
+
+
+def check_pairs(r, cands, k, total, what):
+    """A multi-index answer against its float64 oracle ``cands`` ([(score,
+    index, id)] of every index's top k): the total exact, and every
+    oracle pair it lacks ties the kth score within rtol 1e-5."""
+    check(r["hits"]["total"] == {"value": total, "relation": "eq"},
+          f"{what}: total {r['hits']['total']} vs {total}")
+    cands = sorted(cands, key=lambda c: -c[0])[:k]
+    got = {(h["_index"], h["_id"]) for h in r["hits"]["hits"]}
+    check(len(got) == len(cands), f"{what}: hit count")
+    kth = cands[-1][0] if cands else 0.0
+    check(all(abs(sc - kth) <= 1e-5 * kth
+              for sc, i, d in cands if (i, d) not in got),
+          f"{what}: the missing oracle pairs tie the kth score within "
+          f"rtol 1e-5")
+
+
+def phase_shards(node, port, corpus, queries, oracles, filt_pool, seed,
+                 conns, counters, cpu, hbm_log):
+    """An index of 5 shards on one H100 (module docstring, phase 13)."""
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import (bench_cat, docs_with_all,
+                                                segment_from_corpus,
+                                                shard_corpus, term_name)
+    from elasticsearch_tpu_torch.rest.native_http import loadgen
+    from elasticsearch_tpu_torch.telemetry.engine import TRACKER
+    n = len(corpus["lens"])
+    out = {}
+    # ---- routing: the port's shard_for against numpy, then the shards
+    t0 = time.time()
+    svc = node.create_index("bench5", {"properties": {
+        "title": {"type": "text"}, "cat": {"type": "keyword"},
+        "rank": {"type": "long"}}},
+        {"index": {"number_of_shards": SHARDS}})
+    t1 = time.time()
+    assign = np.fromiter((svc.shard_for(str(d)) for d in range(n)),
+                         np.int64, n)
+    route_s = time.time() - t1
+    want = routing_oracle(n, SHARDS)
+    counts = np.bincount(assign, minlength=SHARDS)
+    check(np.array_equal(assign, want)
+          and counts.tolist() == np.bincount(want, minlength=SHARDS)
+          .tolist(), f"bench5: the port's routing equals numpy's "
+          f"murmur3 ({counts.tolist()})")
+    ords, terms = bench_cat(n)
+    subs, docs_of = [], []
+    for sh in range(SHARDS):
+        docs = np.nonzero(assign == sh)[0]
+        sub = shard_corpus(corpus, docs)
+        svc.shards[sh].install_segments([segment_from_corpus(
+            sub, name=f"bench5[{sh}]_0",
+            keywords={"cat": {"ords": ords[docs], "terms": terms}},
+            numerics={"rank": {"values": docs.astype(np.float64)}},
+            ids=sub["ids"])])
+        sub.pop("ids")
+        subs.append(sub)
+        docs_of.append(docs)
+    check([len(e.segments) for e in svc.shards] == [1] * SHARDS
+          and [e.segments[0].n_docs for e in svc.shards] == counts.tolist(),
+          "bench5: one segment a shard, each of its routed docs")
+    # _bulk routes as shard_for: 2,000 docs through HTTP into "route5"
+    node.create_index("route5", {"properties": {"title": {"type": "text"}}},
+                      {"index": {"number_of_shards": SHARDS}})
+    bulk = "".join(json.dumps({"index": {"_id": str(i)}}) + "\n"
+                   + json.dumps({"title": term_name(i % 97)}) + "\n"
+                   for i in range(2000))
+    st, r = http(port, "POST", "/route5/_bulk", bulk, ndjson=True)
+    check(st == 200 and not r["errors"], f"route5 bulk: {str(r)[:200]}")
+    st, r = http(port, "POST", "/route5/_refresh")
+    check(st == 200 and r["_shards"]["total"] == SHARDS,
+          f"route5 _refresh counts the shards: {r}")
+    got = [sum(s.n_docs for s in e.segments)
+           for e in node.indices["route5"].shards]
+    check(got == np.bincount(routing_oracle(2000, SHARDS),
+                             minlength=SHARDS).tolist(),
+          f"route5: each shard holds the docs numpy routes to it: {got}")
+    orc = ShardOracle(corpus, subs, docs_of)
+    out["setup"] = dict(docs=n, shards=SHARDS, shard_docs=counts.tolist(),
+                        routing_s=route_s, setup_s=time.time() - t0,
+                        route5_shard_docs=got)
+    log(f"[shards] set up: {out['setup']}")
+
+    # ---- the bodies
+    texts = [" ".join(term_name(t) for t in q) for q in queries]
+    match = [match_body(q, SHARD_K) for q in queries[:SHARD_MATCH]]
+    frng = np.random.default_rng(777)
+    pool = frng.choice(filt_pool, size=min(8, len(filt_pool)), replace=False)
+    filt_terms, filters = [], []
+    for i, q in enumerate(queries[:SHARD_FILTERS]):
+        f1, f2 = (int(x) for x in frng.choice(pool, size=2, replace=False))
+        filt_terms.append((f1, f2))
+        filters.append({"query": {"bool": {
+            "must": [{"match": {"title": texts[i]}}],
+            "filter": [{"match": {"title": term_name(f1)}},
+                       {"match": {"title": term_name(f2)}}]}},
+            "size": SHARD_K, "_source": False})
+    aggs = [{"query": {"match": {"title": t}}, "size": 0,
+             "aggs": {"cats": {"terms": {"field": "cat"}}}}
+            for t in texts[:32]]
+    sort = [{"cat": "asc"}, "_doc"]
+    collapse = [{"query": {"match": {"title": t}}, "sort": [{"rank": "asc"}],
+                 "collapse": {"field": "cat"}, "size": 10, "_source": False}
+                for t in texts[:16]]
+    tth = [dict(match_body(q, 100), track_total_hits=10000)
+           for q in queries[:16]]
+    tth_true = [match_body(q, 100) for q in queries[:16]]
+    dfs = match[:SHARD_DFS]
+
+    # ---- the counted window: every bench5 body over HTTP, the kernels'
+    # counts set to 0 just before
+    batcher = node.search_service.plan_batcher
+    p0 = batcher.stats()
+    front0 = node.http_stats()
+    _, k0 = http(port, "GET", "/_kernels")
+    scorings0 = TRACKER.calls("bm25_dense_scores_sorted")
+    for c in counters.values():
+        c.launches = 0
+    res = {}
+    load = {}
+    # one request at a time first, once the shards are resident: a
+    # body's latency without contention
+    for b in match[:5]:
+        t1 = time.perf_counter()
+        check(http(port, "POST", "/bench5/_search", b)[0] == 200,
+              "bench5 match alone")
+        load.setdefault("alone_ms", []).append(
+            (time.perf_counter() - t1) * 1e3)
+    load["threads"] = threading.active_count()
+    res["match"], load["match"] = mix_load(port, match, "bench5", conns,
+                                           "bench5 match")
+    res["filters"], load["filters"] = mix_load(port, filters, "bench5",
+                                               conns, "bench5 filters")
+    res["aggs"], load["aggs"] = mix_load(port, aggs, "bench5", 16,
+                                         "bench5 aggs")
+    st, whole = http(port, "POST", "/bench5/_search",
+                     {"sort": sort, "size": 1000, "_source": False})
+    check(st == 200, f"bench5 sort page: {whole}")
+    walked, after, pages = [], None, []
+    for _ in range(10):
+        body = {"sort": sort, "size": 100, "_source": False}
+        if after is not None:
+            body["search_after"] = after
+        st, r = http(port, "POST", "/bench5/_search", body)
+        check(st == 200, f"bench5 walk page: {r}")
+        pages.append(r)
+        walked += r["hits"]["hits"]
+        after = r["hits"]["hits"][-1]["sort"]
+    res["collapse"], load["collapse"] = mix_load(port, collapse, "bench5",
+                                                 16, "bench5 collapse")
+    res["tth"], load["tth"] = mix_load(port, tth, "bench5", 16,
+                                       "bench5 track_total_hits 10000")
+    res["tth_true"], _ = mix_load(port, tth_true, "bench5", 16,
+                                  "bench5 track_total_hits true")
+    st, prof = http(port, "POST", "/bench5/_search",
+                    dict(match[0], profile=True))
+    check(st == 200, f"bench5 profile: {prof}")
+    # dfs before and after its default twins
+    res["dfs"], load["dfs"] = drive(port, dfs, conns, "bench5", DFS)[0], None
+    res["dfs_twins"], _ = mix_load(port, dfs, "bench5", conns,
+                                   "bench5 default twins")
+    res["dfs_after"], t_dfs, w_dfs = drive(port, dfs, conns, "bench5", DFS)
+    p50, p99 = p50_p99(t_dfs)
+    load["dfs"] = dict(requests=len(dfs), qps=len(dfs) / w_dfs, p50_ms=p50,
+                       p99_ms=p99, clients=conns)
+    multi, t_multi, w_multi = drive(port, match[:16], 16, "bench,bench5",
+                                    method="GET")
+    res["multi"] = multi
+    p50, p99 = p50_p99(t_multi)
+    load["multi"] = dict(requests=16, qps=16 / w_multi, p50_ms=p50,
+                         p99_ms=p99, clients=16)
+    # the load generator on bench5's match bodies: 1 round
+    lg = loadgen(port, "/bench5/_search", match, conns, len(match))
+    check(lg["done"] == len(match) and lg["non2xx"] == 0,
+          f"bench5 load generator: {lg['done']} done, {lg['non2xx']} non-2xx")
+    p1 = batcher.stats()
+    out["plan_batcher"] = dict(
+        launches=p1["launches"] - p0["launches"],
+        batched_queries=p1["batched_queries"] - p0["batched_queries"],
+        lat_ema_s=batcher._lat_ema)
+    launches = {name: c.launches for name, c in counters.items()}
+    dense_scorings = TRACKER.calls("bm25_dense_scores_sorted") - scorings0
+    _, k1 = http(port, "GET", "/_kernels")
+    front = front_since(node, front0)
+    calls = {name: k1["kernels"].get(name, {}).get("calls", 0)
+             - k0["kernels"].get(name, {}).get("calls", 0)
+             for name in counters}
+    sent = sum(len(v) for v in res.values()) + 5 + 1 + 10 + 1 + lg["done"]
+    out["front"] = front
+    check(front["fast"] == 0 and front["fallback"] >= sent,
+          f"bench5: the front sent every request to the fallback workers "
+          f"({sent} sent): {front}")
+    out["launches"] = launches
+    out["kernels_calls"] = calls
+    out["dense_scorings"] = dense_scorings
+    dense_bodies = len(aggs) + len(collapse)
+    out["launches_per_dense_body"] = (launches["gather_bm25_contrib"]
+                                      / dense_bodies)
+    check(calls == launches
+          and launches["gather_bm25_contrib"] == dense_scorings > 0
+          and launches["merge_sorted_slots"] == 0,
+          f"phase 13: the contribution kernel launched once per dense BM25 "
+          f"scoring ({dense_scorings}), the merge not at all, and "
+          f"/_kernels agrees: {launches} vs {calls}")
+    p50, p99 = p50_p99(lg["lat_s"])
+    load["loadgen_bench5"] = dict(requests=lg["done"],
+                                  qps=lg["done"] / lg["wall_s"],
+                                  p50_ms=p50, p99_ms=p99, conns=conns)
+    # beside it, the one-shard "bench" through the same fallback workers
+    # (_source: true bodies, which the C++ grammar refuses)
+    src = [match_body(q, SHARD_K, source=True)
+           for q in queries[:SHARD_MATCH]]
+    lg1 = loadgen(port, "/bench/_search", src, conns, len(src))
+    check(lg1["done"] == len(src) and lg1["non2xx"] == 0,
+          f"bench load generator: {lg1['done']} done")
+    p50, p99 = p50_p99(lg1["lat_s"])
+    load["loadgen_bench"] = dict(requests=lg1["done"],
+                                 qps=lg1["done"] / lg1["wall_s"],
+                                 p50_ms=p50, p99_ms=p99, conns=conns)
+    out["load"] = load
+    log(f"[shards] launches {launches}, dense scorings {dense_scorings}, "
+        f"load {load}")
+
+    # ---- every answer against its oracle
+    t0 = time.time()
+    for kind, rs in res.items():
+        for i, (st, r) in enumerate(rs):
+            check(st == 200, f"bench5 {kind} body {i} -> {st} {str(r)[:200]}")
+            check_shards(r, f"bench5 {kind} body {i}",
+                         SHARDS + 1 if kind == "multi" else SHARDS)
+    for i, (_, r) in enumerate(res["match"]):
+        check_answer(r, orc.topk(queries[i], SHARD_K), "plan",
+                     f"bench5 match body {i}")
+    for i, (_, r) in enumerate(res["filters"]):
+        keep = docs_with_all(corpus, list(filt_terms[i]))
+        check_answer(r, orc.topk(queries[i], SHARD_K, keep), "plan",
+                     f"bench5 filters body {i}")
+    cat_terms = np.array(terms)
+    for i, (_, r) in enumerate(res["aggs"]):
+        m = orc.scores(queries[i]) > 0
+        cnt = np.bincount(ords[m], minlength=len(terms))
+        order = np.lexsort((np.arange(len(terms)), -cnt))
+        top = [int(o) for o in order[:10] if cnt[o] > 0]
+        agg_equal(r["aggregations"], {"cats": {
+            "doc_count_error_upper_bound": 0,
+            "sum_other_doc_count": int(cnt.sum() - cnt[top].sum()),
+            "buckets": [{"key": str(cat_terms[o]), "doc_count": int(cnt[o])}
+                        for o in top]}}, f"bench5 aggs body {i}")
+        check(r["hits"]["total"] == {"value": int(m.sum()),
+                                     "relation": "eq"},
+              f"bench5 aggs body {i}: total")
+    # the sort: cat ascending, then _doc (the shard-local docid), then
+    # shard order; a cursor (term, docid) keeps, on every shard, the docs
+    # after it in that shard's order, so a doc of a later shard that ties
+    # the cursor on both keys is skipped (the reference's rule; counted)
+    local = np.empty(n, np.int64)
+    for docs in docs_of:
+        local[docs] = np.arange(len(docs))
+    merged = np.lexsort((assign, local, ords))
+    by_sort = merged[:1000]
+    check([int(h["_id"]) for h in whole["hits"]["hits"]] == by_sort.tolist()
+          and [h["sort"] for h in whole["hits"]["hits"]]
+          == [[str(cat_terms[ords[d]]), int(local[d])] for d in by_sort],
+          "bench5: a cat sort over 5 shards equals numpy's")
+    rank_in = np.empty(n, np.int64)
+    rank_in[merged] = np.arange(n)
+    want_walk, cur = [], None
+    for _ in range(10):
+        if cur is None:
+            nxt = merged[:100]
+        else:
+            c, d = cur
+            after_cur = (ords > c) | ((ords == c) & (local > d))
+            cand = np.nonzero(after_cur)[0]
+            nxt = cand[np.argsort(rank_in[cand], kind="stable")[:100]]
+        want_walk += nxt.tolist()
+        cur = (int(ords[nxt[-1]]), int(local[nxt[-1]]))
+    check([int(h["_id"]) for h in walked] == want_walk,
+          "bench5: each of the 10 walked pages equals numpy's cursor rule")
+    out["walk"] = dict(pages=10, docs=len(walked), skipped_ties=len(
+        set(by_sort.tolist()[:len(walked)]) - set(want_walk)))
+    for i, (_, r) in enumerate(res["collapse"]):
+        # each shard's first 50 matched docs by rank, merged by rank,
+        # then the first doc of each cat
+        m = np.nonzero(orc.scores(queries[i]) > 0)[0]
+        m = np.sort(np.concatenate([m[assign[m] == sh][:50]
+                                    for sh in range(SHARDS)]))
+        seen, want_c = set(), []
+        for d in m:
+            if ords[d] not in seen:
+                seen.add(ords[d])
+                want_c.append(int(d))
+        check([int(h["_id"]) for h in r["hits"]["hits"]] == want_c[:10]
+              and [h["fields"]["cat"] for h in r["hits"]["hits"]]
+              == [[str(cat_terms[ords[d]])] for d in want_c[:10]],
+              f"bench5 collapse body {i}: ids and keys as numpy's")
+    for i, ((_, r), (_, t)) in enumerate(zip(res["tth"], res["tth_true"])):
+        exact = oracles[i][2]
+        check([h["_id"] for h in r["hits"]["hits"]]
+              == [h["_id"] for h in t["hits"]["hits"]],
+              f"bench5 track_total_hits body {i}: the hits of the true ask")
+        tot = r["hits"]["total"]
+        check(tot["value"] <= min(exact, 10000)
+              and (tot["relation"] == "gte" or tot["value"] == exact),
+              f"bench5 track_total_hits body {i}: {tot} vs exact {exact}")
+        check(t["hits"]["total"] == {"value": exact, "relation": "eq"},
+              f"bench5 track_total_hits true body {i}: exact")
+    entries = prof["profile"]["shards"]
+    check([e["id"] for e in entries]
+          == [f"[bench5][{i}]" for i in range(SHARDS)],
+          f"bench5 profile: one entry a shard: {[e['id'] for e in entries]}")
+    same_hits(prof, res["match"][0][1], "bench5 profile vs plain", 1e-6)
+    phases = prof["profile"]["coordinator"]["phases"]
+    out["profile"] = dict(
+        shard_query_ms=[e["searches"][0]["query"][0]["time_in_nanos"] / 1e6
+                        for e in entries],
+        shard_fetch_ms=[e.get("fetch", {}).get("time_in_nanos", 0) / 1e6
+                        for e in entries],
+        query_ms=phases["query_ns"] / 1e6,
+        merge_ms=phases.get("merge_ns", 0) / 1e6,
+        fetch_ms=phases["fetch_ns"] / 1e6)
+    # dfs: the whole corpus's statistics, the one-shard bench's answers,
+    # the same whichever side of its default twin it was sent
+    for i in range(len(dfs)):
+        _, r = res["dfs"][i]
+        _, again = res["dfs_after"][i]
+        _, twin = res["dfs_twins"][i]
+        check_answer(r, oracles[i], "plan", f"bench5 dfs body {i}")
+        same_hits(r, again, f"bench5 dfs body {i} after its default twin",
+                  1e-6)
+        same_hits(twin, res["match"][i][1],
+                  f"bench5 default twin {i} between dfs asks", 1e-6)
+    bench_dfs = drive(port, [plan_body(q, SHARD_K)
+                             for q in queries[:SHARD_DFS]], conns, "bench")[0]
+    for i, (st, b) in enumerate(bench_dfs):
+        check(st == 200, f"bench plan body {i}")
+        same_hits(res["dfs"][i][1], b, f"bench5 dfs body {i} vs bench")
+    for i, (_, r) in enumerate(res["multi"]):
+        truth, sc, total = oracles[i]
+        t5, s5, total5 = orc.topk(queries[i], SHARD_K)
+        cands = ([(float(x), "bench", str(d)) for d, x in zip(truth, sc)]
+                 + [(float(x), "bench5", str(d)) for d, x in zip(t5, s5)])
+        check_pairs(r, cands, SHARD_K, total + total5,
+                    f"bench,bench5 body {i}")
+    out["oracle_s"] = time.time() - t0
+
+    # ---- a sample of each kind against the port's CPU execution
+    t0 = time.time()
+    sample = dict(match=("bench5", match, None), filters=("bench5", filters,
+                                                          None),
+                  aggs=("bench5", aggs, None),
+                  collapse=("bench5", collapse, None),
+                  tth=("bench5", tth, None),
+                  dfs=("bench5", dfs, "dfs_query_then_fetch"),
+                  multi=("bench,bench5", match, None))
+    for kind, (index, bodies, stype) in sample.items():
+        for i in range(min(SHARD_SAMPLE, len(bodies))):
+            c = cpu.search(index, bodies[i], stype)
+            r = res[kind][i][1]
+            what = f"bench5 {kind} body {i} vs CPU"
+            equal_to_cpu(r, c, what)
+            if kind == "aggs":
+                agg_equal(r["aggregations"], c["aggregations"], what)
+    c = cpu.search("bench5", {"sort": sort, "size": 1000, "_source": False})
+    equal_to_cpu(whole, c, "bench5 sort page vs CPU")
+    out["cpu_s"] = time.time() - t0
+    hbm_agrees(node, "shards", hbm_log)
+    out["hbm"] = hbm_log[-1]
+    torch.cuda.synchronize()
+    log(f"[shards] profile {out['profile']}, oracles {out['oracle_s']:.1f} "
+        f"s, CPU {out['cpu_s']:.1f} s")
+    return out
+
+
+class PhaseClock:
+    """The wall seconds of each phase, one lap a phase
+    (``{"phase_seconds": ...}``)."""
+
+    def __init__(self):
+        self.start = self.last = time.time()
+        self.seconds = {}
+
+    def lap(self, name):
+        now = time.time()
+        self.seconds[name] = now - self.last
+        self.last = now
+        log(f"[phase] {name} took {self.seconds[name]:.1f} s "
+            f"({now - self.start:.1f} s in all)")
+
+    def report(self):
+        return dict(self.seconds, total=time.time() - self.start)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--docs", type=int, default=2_000_000)
     ap.add_argument("--vocab", type=int, default=100_000)
     ap.add_argument("--queries", type=int, default=256)
     ap.add_argument("--clients", type=int, default=64)
-    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     # config 4 (pure kNN) and config 5 (hybrid) of the reference's
     # BASELINE: 8M x 768 cosine, and the scale corpus with 256-d vectors
@@ -6474,6 +7038,7 @@ def main(argv=None) -> int:
                 "merge_sorted_slots": merge_sorted_slots}
     # every DeviceSegment built on the card measures itself (phase 9)
     builds = measure_builds()
+    clock = PhaseClock()
 
     # ---- 1. build
     t0 = time.time()
@@ -6486,6 +7051,7 @@ def main(argv=None) -> int:
     front_build_s = time.time() - t0
     log(f"[build] the C++ front built and loaded in {front_build_s:.2f} s "
         f"into {native_http.build_dir()}")
+    clock.lap("1_build")
 
     # set-up: the seeded corpus and its query log
     t0 = time.time()
@@ -6497,6 +7063,7 @@ def main(argv=None) -> int:
     log(f"[setup] corpus {args.docs} docs, {corpus['block_docids'].shape[0]}"
         f" blocks, {len(queries)} queries in {time.time() - t0:.1f} s")
     filt_pool = np.nonzero(corpus["df"] > args.docs // 20)[0]
+    clock.lap("setup")
 
     # the hbm breaker's limit, sized so every phase fits (the reference's
     # default, the host total of 4 GiB, would refuse config 4's slab)
@@ -6522,6 +7089,7 @@ def main(argv=None) -> int:
         lane_cohorts = phase_lane_cohorts(node, seg, queries, filt_pool)
         ess_cohorts = phase_essential_cohorts(node, seg, queries)
         hbm_agrees(node, "kernels", hbm_log)
+        clock.lap("2_kernels")
 
         # ---- 3. REST, small: each fast lane, filters, the plan path
         with lane_launches(counters) as (small, _):
@@ -6534,6 +7102,7 @@ def main(argv=None) -> int:
         plan_small, plan_small_bodies = phase_plan_small(node, port,
                                                          args.seed + 2)
         hbm_agrees(node, "rest small", hbm_log)
+        clock.lap("3_rest_small")
 
         # ---- 4. REST, at scale (the main path)
         fp = node.fastpath
@@ -6623,50 +7192,59 @@ def main(argv=None) -> int:
                                  plan_small_bodies, misfit_bodies,
                                  bodies_logs, oracles_logs)
         hbm_agrees(node, "scale", hbm_log)
+        clock.lap("4_scale")
 
         # ---- 5. the dense executor on the logs index
         dense = phase_dense(node, port, logs, cols, len(corpus["df"]),
                             queries, args.clients, args.seed + 6,
                             args.iters, counters)
         hbm_agrees(node, "dense", hbm_log)
+        clock.lap("5_dense")
 
         # ---- 6. kNN: pure kNN (config 4) and hybrid rank.rrf (config 5)
         knn = phase_knn(node, port, args.knn_docs, args.knn_dims,
                         args.knn_queries, args.seed + 7, args.iters)
-        cpu = SearchService(DeviceSegmentCache("cpu"))
+        clock.lap("6_knn")
+        cpu = SearchService(DeviceSegmentCache("cpu"), node.indices)
         feat = bench_feat(args.docs)
         hybrid = phase_hybrid(node, port, corpus, queries, oracles,
                               args.hybrid_dims, args.seed + 8,
                               min(args.clients, 64), counters, feat, cpu)
         hbm_agrees(node, "knn", hbm_log)
+        clock.lap("6_hybrid")
 
         # ---- 7. script scoring (config 3) on the hybrid index
         script = phase_script(node, port, corpus, queries, feat,
                               args.seed + 9, min(args.clients, 64),
                               counters, cpu)
         hbm_agrees(node, "script", hbm_log)
+        clock.lap("7_script")
 
         # ---- 8. aggregations: the bench's terms-agg row, a Kibana mix
         aggs = phase_aggs(node, port, corpus, queries, logs, cols,
                           min(args.clients, 64), counters, cpu)
         hbm_agrees(node, "aggs", hbm_log)
+        clock.lap("8_aggs")
 
         # ---- 9. device accounting and launch attribution
         accounting = phase_accounting(node, port, corpus, queries,
                                       args.knn_dims, builds, counters,
                                       hbm_log)
         accounting["hbm_limit"] = hbm_limit
+        clock.lap("9_accounting")
 
         # ---- 10. full text: positions, multi-term, features
         fulltext = phase_fulltext(node, port, corpus, args.seed + 12,
                                   min(args.clients, 64), counters, cpu)
         hbm_agrees(node, "fulltext", hbm_log)
+        clock.lap("10_fulltext")
 
         # ---- 11. fetch and sort features, filter conversion
         fetch = phase_fetch(node, port, corpus, queries, cols,
                             args.seed + 13, args.clients, counters, cpu)
         hbm_agrees(node, "fetch", hbm_log)
         fetch["hbm"] = hbm_log[-1]
+        clock.lap("11_fetch")
 
         # ---- 12. the remaining field types and their queries
         fields = phase_fields(node, port, corpus, queries, logs, cols,
@@ -6675,10 +7253,17 @@ def main(argv=None) -> int:
                               counters, cpu)
         hbm_agrees(node, "fields", hbm_log)
         fields["hbm"] = hbm_log[-1]
+        clock.lap("12_fields")
+
+        # ---- 13. an index of 5 shards: routing, the shard loop, dfs
+        shards = phase_shards(node, port, corpus, queries, oracles,
+                              filt_pool, args.seed + 15, args.clients,
+                              counters, cpu, hbm_log)
+        clock.lap("13_shards")
     finally:
         node.close()
 
-    # ---- 13. report
+    # ---- 14. report
     meta = {
         "gather_bm25_contrib": dict(
             source="elasticsearch_tpu_torch/csrc/bm25_contrib.cu",
@@ -6712,6 +7297,7 @@ def main(argv=None) -> int:
             launches_fulltext=fulltext["launches"][name],
             launches_fetch=fetch["launches"][name],
             launches_fields=fields["launches"][name],
+            launches_shards=shards["launches"][name],
             dense_shape=(dense["contrib_dense_shape"]
                          if name == "gather_bm25_contrib" else None)))
     print(json.dumps({"scale": scale}))
@@ -6728,10 +7314,12 @@ def main(argv=None) -> int:
     print(json.dumps({"fulltext": fulltext}))
     print(json.dumps({"fetch": fetch}))
     print(json.dumps({"fields": fields}))
+    print(json.dumps({"shards": shards}))
     print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))
     print(json.dumps({"kernels": rows}))
+    print(json.dumps({"phase_seconds": clock.report()}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -57,3 +57,61 @@ class QueryShardException(ValueError):
 
     status = 400
     error_type = "query_shard_exception"
+
+
+class IndexNotFoundException(Exception):
+    """A concrete index name that names no index (a 404)."""
+
+    status = 404
+    error_type = "index_not_found_exception"
+
+    def __init__(self, index: str):
+        super().__init__(f"no such index [{index}]")
+        self.index = index
+
+
+# the failure types that are the client's fault: a search whose failed
+# shards all failed with one of them answers 400, not 503
+_CLIENT_ERROR_TYPES = {
+    "parsing_exception", "illegal_argument_exception",
+    "query_shard_exception", "mapper_parsing_exception",
+    "script_exception", "search_context_missing_exception",
+}
+
+
+class SearchPhaseExecutionException(Exception):
+    """A search phase that could not complete within the partial-results
+    contract: some shards failed and the request set
+    ``allow_partial_search_results`` false. It carries the per-shard
+    failures (``failed_shards``), as the reference's; its status is 503,
+    or 400 when every failure is the client's fault."""
+
+    error_type = "search_phase_execution_exception"
+
+    def __init__(self, phase_name: str, message: str, shard_failures):
+        super().__init__(message)
+        self.phase_name = phase_name
+        self.shard_failures = list(shard_failures)
+        types = {(f.get("reason") or {}).get("type")
+                 for f in self.shard_failures}
+        self.status = (400 if self.shard_failures
+                       and types <= _CLIENT_ERROR_TYPES else 503)
+
+
+def snake_case(name: str) -> str:
+    """CamelCase -> snake_case (idempotent on snake input)."""
+    out = []
+    for i, ch in enumerate(name):
+        if ch.isupper() and i > 0:
+            out.append("_")
+        out.append(ch.lower())
+    return "".join(out)
+
+
+def error_type_of(exc: BaseException) -> str:
+    """The wire ``type`` of an exception: its ``error_type`` when it has
+    one, else its class name in snake case (the reference's
+    ``error_type_of``)."""
+    etype = getattr(exc, "error_type", None)
+    return etype if isinstance(etype, str) else snake_case(
+        type(exc).__name__)

@@ -15,6 +15,9 @@ until a query's selection fits ``max_blocks``.
 log, the shape of Rally's ``http_logs`` track: ``@timestamp`` (a date),
 ``status`` and ``bytes``.
 
+``shard_corpus`` cuts the corpus into one shard's documents, with the
+shard's own statistics (chip_smoke's 5-shard "bench5").
+
 ``unit_vectors`` and ``knn_query_vectors`` make the dense_vector data of
 the kNN configurations (the reference bench's recipe): seeded unit
 vectors, generated in row chunks on a torch device, and queries that are
@@ -77,8 +80,16 @@ def build_corpus(rng: np.random.Generator, n_docs: int = N_DOCS,
     doc_ids = (uniq % n_docs).astype(np.int32)
     del uniq
     tf = tf.astype(np.float32)
-    n_postings = len(doc_ids)
+    corpus = _block_layout(term_of, doc_ids, tf, vocab)
+    corpus.update(lens=lens.astype(np.float32), stream=stream)
+    return corpus
 
+
+def _block_layout(term_of: np.ndarray, doc_ids: np.ndarray, tf: np.ndarray,
+                  vocab: int) -> Dict[str, np.ndarray]:
+    """Postings grouped by term (docids ascending within a term) in the
+    corpus's block layout."""
+    n_postings = len(doc_ids)
     df = np.bincount(term_of, minlength=vocab)
     nb = (df + BLOCK_SIZE - 1) // BLOCK_SIZE
     tbs = np.zeros(vocab + 1, np.int64)
@@ -97,9 +108,27 @@ def build_corpus(rng: np.random.Generator, n_docs: int = N_DOCS,
     del dest
     return dict(block_docids=block_docids.reshape(total_blocks, BLOCK_SIZE),
                 block_tfs=block_tfs.reshape(total_blocks, BLOCK_SIZE),
-                tbs=tbs, nb=nb, df=df, lens=lens.astype(np.float32),
-                doc_ids=doc_ids, tf=tf, group_start=group_start,
-                stream=stream)
+                tbs=tbs, nb=nb, df=df, doc_ids=doc_ids, tf=tf,
+                group_start=group_start)
+
+
+def shard_corpus(corpus: Dict[str, np.ndarray],
+                 docs: np.ndarray) -> Dict[str, np.ndarray]:
+    """The corpus of the docs ``docs`` alone (ascending docids of
+    ``corpus``), renumbered 0.. in their order, in the same layout
+    (without ``stream``): one shard's documents, with the shard's own
+    statistics. Its ``ids`` are the docs' ids in ``corpus`` as text."""
+    docs = np.asarray(docs, np.int64)
+    new_of = np.full(len(corpus["lens"]), -1, np.int64)
+    new_of[docs] = np.arange(len(docs))
+    vocab = len(corpus["df"])
+    term_of = np.repeat(np.arange(vocab, dtype=np.int32), corpus["df"])
+    keep = new_of[corpus["doc_ids"]] >= 0
+    sub = _block_layout(term_of[keep],
+                        new_of[corpus["doc_ids"][keep]].astype(np.int32),
+                        corpus["tf"][keep], vocab)
+    sub.update(lens=corpus["lens"][docs], ids=[str(d) for d in docs])
+    return sub
 
 
 def corpus_streams(corpus: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -452,15 +481,15 @@ def segment_from_corpus(corpus: Dict[str, np.ndarray], field: str = "title",
                         name: str = "corpus0", numerics=None,
                         vectors=None, keywords=None,
                         streams=None, sources=None,
-                        fields=None) -> Segment:
+                        fields=None, ids=None) -> Segment:
     """The corpus as one port Segment over a text field of the terms
     ``t000000 ...`` (ids are the docids as text; no ``_source``), with
     the numeric columns ``numerics`` (``logs_columns``), the vector
     fields ``vectors``, the keyword columns ``keywords`` and the text
     field's token streams ``streams`` (``corpus_streams``), the docs'
-    ``sources`` (``stream_sources``) and more postings ``fields``
-    (``keyword_postings``) (``segment_from_numpy``'s forms) when given;
-    the
+    ``sources`` (``stream_sources``), more postings ``fields``
+    (``keyword_postings``) and the docs' ``ids`` (a shard's,
+    ``shard_corpus``) (``segment_from_numpy``'s forms) when given; the
     block-max metadata is computed from the blocks
     (index/segment.py ``block_max_meta``)."""
     vocab = len(corpus["df"])
@@ -474,7 +503,8 @@ def segment_from_corpus(corpus: Dict[str, np.ndarray], field: str = "title",
                                "numerics": numerics, "vectors": vectors,
                                "keywords": keywords,
                                "streams": streams and {field: streams},
-                               "sources": sources}, name=name)
+                               "sources": sources,
+                               "ids": ids}, name=name)
 
 
 def dense_scores(corpus: Dict[str, np.ndarray], terms: List[int],
@@ -515,6 +545,12 @@ def exact_topk(corpus: Dict[str, np.ndarray], terms: List[int], k: int,
     scores = dense_scores(corpus, terms, k1, b)
     if keep is not None:
         scores = np.where(keep, scores, 0.0)
+    return topk_of_scores(scores, k)
+
+
+def topk_of_scores(scores: np.ndarray, k: int):
+    """(docids of the top k of the docs scoring above 0 by (score desc,
+    docid asc), their scores, the count of docs above 0)."""
     matched = np.nonzero(scores > 0)[0]
     total = len(matched)
     key = scores[matched]

@@ -1,4 +1,4 @@
-"""Per-index write path for the `_search` slices (counterpart of
+"""Per-shard write path for the `_search` slices (counterpart of
 elasticsearch_tpu/index/engine.py): index, refresh and force-merge.
 
 Indexed documents buffer in a SegmentWriter until ``refresh`` turns them
@@ -27,8 +27,9 @@ class Engine:
                  on_retire: Optional[Callable[[Iterable[str]], None]] = None):
         self.mapper = mapper
         self._on_retire = on_retire
-        # segment names carry the index name: the node's device cache
-        # holds the segments of every index
+        # segment names carry the index and shard (``{index}[{shard}]``,
+        # index/service.py): the node's device cache holds the segments
+        # of every shard of every index
         self.name = name
         self._lock = threading.Lock()
         self._segments: List[Segment] = []
@@ -40,6 +41,11 @@ class Engine:
     def segments(self) -> List[Segment]:
         with self._lock:
             return list(self._segments)
+
+    @staticmethod
+    def new_id() -> str:
+        """An id for a document indexed without one."""
+        return uuid.uuid4().hex[:20]
 
     def _next_name(self) -> str:
         self._seg_counter += 1
@@ -54,7 +60,7 @@ class Engine:
               op_type: str = "index") -> Tuple[str, str]:
         """Index one document; returns (id, "created" | "updated").
         ``op_type="create"`` refuses an id that exists (ValueError)."""
-        doc_id = doc_id if doc_id is not None else uuid.uuid4().hex[:20]
+        doc_id = doc_id if doc_id is not None else self.new_id()
         parsed = self.mapper.parse(doc_id, source)
         with self._lock:
             existed = self._exists(doc_id)

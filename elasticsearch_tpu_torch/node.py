@@ -1,8 +1,10 @@
 """A single port node (counterpart of elasticsearch_tpu/node.py): the
-indices, the REST routes of the `_search` slices, the HTTP front, the
-device-resident segments, and the two serving paths on one device: the
-fast path (its v2m, v1 and θ-warm essential lanes) and the plan path
-with its PlanBatcher.
+indices (index/service.py: each of 1 to 1024 shards), the REST routes of
+the `_search` slices, the HTTP front, the device-resident segments, and
+the two serving paths on one device: the fast path (its v2m, v1 and
+θ-warm essential lanes, for an index of one shard) and the search
+service's per-shard loop over the plan path with its PlanBatcher and
+the dense executor.
 
     node = Node(device=None)              # CUDA unless device="cpu"
     node = Node(settings={"indices.breaker.hbm.limit": "40gb"})
@@ -31,40 +33,24 @@ them to the fast path as arrays; every other request reaches
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Optional
 
 from elasticsearch_tpu_torch.common.errors import CircuitBreakingException
+from elasticsearch_tpu_torch.common.settings import (flat_settings,
+                                                     parse_int_setting)
 from elasticsearch_tpu_torch.device import DeviceLike, resolve_device
 from elasticsearch_tpu_torch.utils.breaker import (CircuitBreaker,
                                                    build_breaker_service)
-from elasticsearch_tpu_torch.index.engine import Engine
 from elasticsearch_tpu_torch.index.mapper import DocumentMapper, TextFieldType
+from elasticsearch_tpu_torch.index.service import (MAX_SHARDS, IndexService,
+                                                   IndicesService)
 from elasticsearch_tpu_torch.rest.api import RestController
 from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
-from elasticsearch_tpu_torch.search.fastpath import (FastPathServer,
-                                                     SliceUnsupported)
+from elasticsearch_tpu_torch.search.fastpath import FastPathServer
 from elasticsearch_tpu_torch.search.service import SearchService
 from elasticsearch_tpu_torch.telemetry.flightrecorder import FlightRecorder
 
 VERSION = "8.0.0-torch-slice11"
-
-
-def _flatten(prefix: str, obj: Any, out: Dict[str, Any]) -> None:
-    if isinstance(obj, dict):
-        for k, v in obj.items():
-            _flatten(f"{prefix}.{k}" if prefix else str(k), v, out)
-    else:
-        out[prefix] = obj
-
-
-@dataclass
-class IndexService:
-    name: str
-    mapper: DocumentMapper
-    engine: Engine
-    k1: float = 1.2
-    b: float = 0.75
 
 
 class Node:
@@ -75,11 +61,10 @@ class Node:
                  settings: Optional[Dict[str, Any]] = None):
         self.device = resolve_device(device)
         self.node_id = "node-0"
-        self.settings: Dict[str, Any] = {}
-        _flatten("", settings or {}, self.settings)
+        self.settings: Dict[str, Any] = flat_settings(settings)
         self.breaker_service = build_breaker_service(self.settings.get)
         self.flight = FlightRecorder(node=self.node_id)
-        self.indices: Dict[str, IndexService] = {}
+        self.indices = IndicesService()
         self._indices_lock = threading.Lock()
         # one device copy of each segment, shared by both paths
         self.device_cache = DeviceSegmentCache(self.device)
@@ -103,28 +88,22 @@ class Node:
                 "tagline": "You Know, for Search"}
 
     def create_index(self, name: str, mappings=None, settings=None):
-        """An index of one shard: ``number_of_shards`` (as
-        ``index.number_of_shards``, ``number_of_shards`` or nested under
-        ``index``) other than 1 is a typed 400 until the port keeps
-        several shards an index."""
+        """An index of ``index.number_of_shards`` shards (dotted or
+        nested under ``index``; 1 by default, 1 to 1024, final), as the
+        reference reads it: a value that does not parse or lies out of
+        bounds is a SettingsException (400). A bare ``number_of_shards``
+        outside ``index`` is not that setting and leaves one shard, as
+        in the reference."""
         settings = settings or {}
-        nested = settings.get("index", {})
-        shards = settings.get("index.number_of_shards",
-                              settings.get("number_of_shards",
-                                           nested.get("number_of_shards", 1)
-                                           if isinstance(nested, dict)
-                                           else 1))
-        if str(shards).strip() != "1":
-            raise SliceUnsupported(
-                f"[number_of_shards] {shards}: an index of several shards is "
-                f"a later slice of the port (this one keeps one shard)")
+        num_shards = parse_int_setting(flat_settings(settings),
+                                       "index.number_of_shards", 1, 1,
+                                       MAX_SHARDS)
         sim = (settings.get("index", settings).get("similarity", {})
                .get("default", {}))
-        mapper = DocumentMapper(mappings)
-        engine = Engine(mapper, name, on_retire=self._retire)
-        svc = IndexService(name, mapper, engine,
+        svc = IndexService(name, DocumentMapper(mappings), num_shards,
                            k1=float(sim.get("k1", 1.2)),
-                           b=float(sim.get("b", 0.75)))
+                           b=float(sim.get("b", 0.75)),
+                           on_retire=self._retire)
         with self._indices_lock:
             if name in self.indices:
                 raise ValueError(f"index [{name}] already exists")
@@ -172,13 +151,18 @@ class Node:
 
     def refresh_front(self) -> None:
         """Point the C++ front at the index it should serve fast: of the
-        indices with one segment and exactly one text field in it, the
-        one with the most documents (the first on a tie); none when
-        there is none, or when that segment alone passes the hbm limit.
+        indices of one shard with one segment and exactly one text field
+        in it, the one with the most documents (the first on a tie);
+        none when there is none, or when that segment alone passes the
+        hbm limit. An index of several shards is never registered (the
+        reference registers ``len(idx.shards) == 1`` only): the search
+        service serves it.
         The fast path's drain calls it about once a second and before
         each batch the front hands over."""
         best = None
         for name, svc in list(self.indices.items()):
+            if svc.num_shards != 1:
+                continue
             segs = svc.engine.segments
             if len(segs) != 1:
                 continue

@@ -2,27 +2,41 @@
 elasticsearch_tpu/rest/api.py, reduced to the slice's routes):
 
     GET  /
-    PUT  /{index}
-    POST /{index}/_bulk
-    POST /{index}/_refresh
+    PUT  /{index}                 {"settings": {"index": {"number_of_shards": N}}}
+    POST /{index}/_bulk           items routed by ``routing`` (or ?routing=)
+    POST /{index}/_refresh        ({index} may be an index expression)
     POST /{index}/_forcemerge
     POST|GET /{index}/_search     {"query": ..., "size": k, "from": n, ...}
+    POST|GET /_search             every index
     GET  /_kernels                the launch tracker's table
     GET  /_nodes/stats            breakers, engine, flight recorder
     GET  /_flight_recorder        the launch/readback ring, filtered
 
+``{index}`` of `_search`, `_refresh` and `_forcemerge` is an index
+expression (a comma list of names and ``*``/``?`` patterns, or
+``_all``; index/service.py ``IndicesService.resolve``): an unknown
+concrete name answers 404 ``index_not_found_exception``. A `_bulk` item
+routes to the shard of ``abs(murmur3(routing or _id)) % N``
+(index/service.py ``shard_for``), its ``routing`` taken from the action
+line, else the URL's ``routing``; `_refresh` and `_forcemerge` act on
+every shard and count them in ``_shards``.
+
 `_search` takes the URL parameters ``q``, ``from``, ``size``,
-``request_cache`` and ``allow_partial_search_results`` (merged into the
-body as the reference merges them); any other is a typed 400. A device
-admission the ``hbm`` breaker refuses answers 429
-``circuit_breaking_exception`` with ``bytes_wanted`` and
-``bytes_limit``.
+``request_cache``, ``allow_partial_search_results`` (merged into the
+body as the reference merges them) and ``search_type``
+(``query_then_fetch`` or ``dfs_query_then_fetch``, else a 400); any
+other is a typed 400. A device admission the ``hbm`` breaker refuses
+answers 429 ``circuit_breaking_exception`` with ``bytes_wanted`` and
+``bytes_limit``; a search whose failed shards the body does not allow
+(``allow_partial_search_results: false``) answers 503
+``search_phase_execution_exception`` with ``failed_shards``.
 
 `_search` answers an exact top-k and an exact total (relation "eq"),
 unless the body's ``track_total_hits`` is false or a threshold (the plan
 path may then prune and count a lower bound, relation "gte"). The fast
 path (search/fastpath.py) takes the bodies of the C++ front's grammar on
-an index of one segment, when one of its lanes serves the query
+an index of one shard and one segment, when one of its lanes serves the
+query
 (``FastPathServer.fits``: at most 16 terms, a block need within the
 largest bucket, ``size`` <= 1000):
 
@@ -68,16 +82,16 @@ import re
 import time
 from typing import Any, Optional, Tuple
 
-from elasticsearch_tpu_torch.common.errors import (CircuitBreakingException,
-                                                  IllegalArgumentException,
-                                                  QueryShardException,
-                                                  ScriptException,
-                                                  SettingsException)
+from elasticsearch_tpu_torch.common.errors import (
+    CircuitBreakingException, IllegalArgumentException,
+    IndexNotFoundException, QueryShardException, ScriptException,
+    SearchPhaseExecutionException, SettingsException)
 from elasticsearch_tpu_torch.index.mapper import (MapperParsingException,
                                                   TextFieldType)
 from elasticsearch_tpu_torch.search.fastpath import (MAX_FILTERS,
                                                      SliceUnsupported)
 from elasticsearch_tpu_torch.search.queries import ParsingException
+from elasticsearch_tpu_torch.search.service import SEARCH_TYPES
 from elasticsearch_tpu_torch.telemetry import engine as _engine
 from elasticsearch_tpu_torch.telemetry import flightrecorder as _flight
 
@@ -88,7 +102,7 @@ _INDEX_NAME = re.compile(r"^[a-z0-9][a-z0-9_.\-]*$")
 
 # the `_search` URL parameters this slice serves (``_merge_search_params``)
 _SEARCH_PARAMS = ("q", "from", "size", "request_cache",
-                  "allow_partial_search_results")
+                  "allow_partial_search_results", "search_type")
 
 
 def _merge_search_params(body, params: dict) -> dict:
@@ -98,8 +112,9 @@ def _merge_search_params(body, params: dict) -> dict:
     body has no query; URL ``from``/``size`` override the body's;
     ``request_cache`` and ``allow_partial_search_results`` must be
     ``true`` or ``false`` and then go into the body (where the body keys
-    the slice serves decide). Any other parameter (``scroll``,
-    ``timeout``, ...) is a later slice: a typed 400."""
+    the slice serves decide); ``search_type`` is the caller's. Any
+    other parameter (``scroll``, ``timeout``, ...) is a later slice: a
+    typed 400."""
     extra = sorted(set(params) - set(_SEARCH_PARAMS))
     if extra:
         raise SliceUnsupported(
@@ -148,6 +163,12 @@ class RestController:
             return _error(429, e.error_type, str(e),
                           bytes_wanted=e.bytes_wanted,
                           bytes_limit=e.bytes_limit)
+        except IndexNotFoundException as e:
+            return _error(404, e.error_type, str(e), index=e.index)
+        except SearchPhaseExecutionException as e:
+            return _error(e.status, e.error_type, str(e),
+                          phase=e.phase_name, grouped=True,
+                          failed_shards=e.shard_failures)
         except (SliceUnsupported, MapperParsingException, ParsingException,
                 IllegalArgumentException, QueryShardException,
                 ScriptException, SettingsException) as e:
@@ -167,10 +188,13 @@ class RestController:
             return self._nodes_stats()
         elif method == "GET" and parts == ["_flight_recorder"]:
             return self._flight_recorder(params)
+        elif parts == ["_search"] and method in ("POST", "GET"):
+            return self._search("_all", params, body)
         elif len(parts) == 1 and not parts[0].startswith("_"):
             if method == "PUT":
                 return self._create_index(parts[0], body)
-        elif len(parts) == 2 and not parts[0].startswith("_"):
+        elif len(parts) == 2 and (not parts[0].startswith("_")
+                                  or parts[0] == "_all"):
             index, action = parts
             if action == "_bulk" and method in ("POST", "PUT"):
                 return self._bulk(index, params, body)
@@ -288,19 +312,19 @@ class RestController:
                               "a later slice")
             doc_id = meta.get("_id")
             doc_id = None if doc_id is None else str(doc_id)
-            # an item's ``routing`` (a join child's parent id) needs no
-            # use: the index's one shard holds every document
+            routing = meta.get("routing", params.get("routing"))
+            routing = None if routing is None else str(routing)
             try:
                 if op in ("index", "create"):
                     source = json.loads(lines[i])
                     i += 1
-                    doc_id, result = svc.engine.index(doc_id, source,
-                                                      op_type=op)
+                    doc_id, result = svc.index_doc(doc_id, source, routing,
+                                                   op_type=op)
                     status = 201 if result == "created" else 200
                     items.append({op: {"_index": index, "_id": doc_id,
                                        "result": result, "status": status}})
                 elif op == "delete":
-                    found = svc.engine.delete(doc_id)
+                    found = svc.delete_doc(doc_id, routing)
                     items.append({op: {
                         "_index": index, "_id": doc_id,
                         "result": "deleted" if found else "not_found",
@@ -320,27 +344,33 @@ class RestController:
                                              "reason": str(e)}}})
         if str(params.get("refresh", "false")).lower() in ("true", "",
                                                             "wait_for"):
-            svc.engine.refresh()
+            svc.refresh()
         return 200, {"took": int((time.time() - t0) * 1000),
                      "errors": errors, "items": items}
 
-    def _refresh(self, index: str):
-        svc, err = self._index_or_404(index)
-        if err:
-            return err
-        svc.engine.refresh()
-        return 200, {"_shards": {"total": 1, "successful": 1, "failed": 0}}
+    def _shards_of(self, expression: str):
+        """The indices an expression selects, and the ``_shards`` of an
+        action on every shard of them."""
+        svcs = [self.node.indices[n]
+                for n in self.node.indices.resolve(expression)]
+        n = sum(svc.num_shards for svc in svcs)
+        return svcs, {"_shards": {"total": n, "successful": n, "failed": 0}}
 
-    def _forcemerge(self, index: str, params: dict):
-        svc, err = self._index_or_404(index)
-        if err:
-            return err
+    def _refresh(self, expression: str):
+        svcs, out = self._shards_of(expression)
+        for svc in svcs:
+            svc.refresh()
+        return 200, out
+
+    def _forcemerge(self, expression: str, params: dict):
         n = int(params.get("max_num_segments", 1))
         if n != 1:
             raise SliceUnsupported("this slice force-merges to one segment "
                                    "only (max_num_segments=1)")
-        svc.engine.force_merge(1)
-        return 200, {"_shards": {"total": 1, "successful": 1, "failed": 0}}
+        svcs, out = self._shards_of(expression)
+        for svc in svcs:
+            svc.force_merge(1)
+        return 200, out
 
     # -------------------------------------------------------------- search
     @staticmethod
@@ -368,8 +398,9 @@ class RestController:
     def _fast_body(cls, svc, body: dict):
         """(segment, field, text, filter texts) when the body is of the
         fast path's grammar (module docstring) on a text field of the
-        index's one segment; else None."""
-        if (set(body) - {"query", "size", "from", "_source",
+        index's one segment (an index of one shard); else None."""
+        if (svc.num_shards != 1
+                or set(body) - {"query", "size", "from", "_source",
                          "track_total_hits"}
                 or body.get("from", 0) != 0
                 or body.get("track_total_hits", True) is not True
@@ -413,17 +444,21 @@ class RestController:
             return None
         return segments[0], field, text, filters
 
-    def _search(self, index: str, params: dict, body):
-        """The fast path when it serves the body (``_fast_body`` and
-        ``FastPathServer.fits``), else the plan path
-        (search/service.py)."""
-        svc, err = self._index_or_404(index)
-        if err:
-            return err
+    def _search(self, expression: str, params: dict, body):
+        """The fast path when the expression names one index of one
+        shard and it serves the body (``_fast_body`` and
+        ``FastPathServer.fits``), else the search service over every
+        shard the expression selects (search/service.py)."""
+        names = self.node.indices.resolve(expression)
         t0 = time.time()
         body = _merge_search_params(body, params)
+        search_type = params.get("search_type")
         size = int(body.get("size", 10))
-        route = self._fast_body(svc, body)
+        index = names[0] if len(names) == 1 else None
+        svc = self.node.indices[index] if index is not None else None
+        route = (self._fast_body(svc, body)
+                 if svc is not None and search_type in SEARCH_TYPES
+                 else None)
         if route is not None:
             seg, field, text, filter_texts = route
             pf = seg.postings[field]
@@ -442,7 +477,8 @@ class RestController:
             if not fp.fits(reg, term_ids, size):
                 route = None
         if route is None:
-            return 200, self.node.search_service.search(index, svc, body)
+            return 200, self.node.search_service.search(expression, body,
+                                                        search_type)
         scores, docids, total = fp.search(reg, term_ids, size,
                                           tuple(sorted(filt)))
         want_source = body.get("_source", True)

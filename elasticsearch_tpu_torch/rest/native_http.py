@@ -12,7 +12,11 @@ elasticsearch_tpu/rest/native_http.py): ctypes bindings for the port's
   threads below through ``RestController.dispatch`` (query parameters,
   JSON bodies, NDJSON for ``_bulk``), and so does every request the fast
   path bounces back (a stale registration, or more blocks than its
-  largest bucket).
+  largest bucket). The registered index is always one of one shard
+  (node.py ``refresh_front``), and C++ matches its path exactly, so a
+  request for a multi-shard index, an index expression (``a,b``,
+  ``a*``) or one with a query string (``?search_type=...``) is counted
+  ``fallback``, never ``fast``.
 
 The library is built from the port's own sources with ``g++`` at first
 use into ``_build/<hash>/`` (the hash covers the sources and the flags),

@@ -1,8 +1,10 @@
 """Parent/child join queries (counterpart of
 elasticsearch_tpu/search/join.py): has_child, has_parent, parent_id.
 
-The join runs on the shard (parents and children share the index's one
-shard): in ``rewrite`` the inner query executes over every segment, the
+The join runs within a shard (a child routes by its parent's id, so
+parents and children share a shard: index/service.py ``index_doc``):
+in ``rewrite`` the inner query executes over every segment of the
+shard, the
 matched docs of the wanted relation are read back, joined on the host
 through the ``{field}#parent`` keyword doc values, and the query becomes
 an id -> score lookup (``_IdScoreQuery``, ``_ParentRefScoreQuery``),

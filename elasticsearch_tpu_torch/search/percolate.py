@@ -13,8 +13,11 @@ request ends (search/service.py). Each stored query then runs on the
 candidate segment's dense executor, one query phase per stored query,
 in a loop on the host as the reference's (percolate reads only which
 slots matched, which the dense executor answers as the plan path
-would). ``resolve_percolate_refs`` replaces a document given by
-``index`` and ``id`` with its ``_source`` before the query parses.
+would). On an index of several shards the candidate segment is built
+once, at the first shard's rewrite, and every shard runs its stored
+queries against it. ``resolve_percolate_refs`` replaces a document given
+by ``index`` and ``id`` (and ``routing``) with its ``_source``, read
+from the shard it routes to, before the query parses.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.common.errors import (IllegalArgumentException,
+                                                   IndexNotFoundException,
                                                    QueryShardException)
 from elasticsearch_tpu_torch.index.segment import SegmentWriter
 from elasticsearch_tpu_torch.search.queries import QueryBuilder, parse_query
@@ -125,8 +129,9 @@ class PercolateQuery(QueryBuilder):
 
 def resolve_percolate_refs(query_spec: Any, indices) -> Any:
     """``query_spec`` with every ``{"percolate": {..., "index": i, "id":
-    d}}`` given the document's ``_source`` (``indices``: index name ->
-    the node's IndexService)."""
+    d, "routing"?: r}}`` given the document's ``_source``, read from the
+    shard its id (or routing) routes to (``indices``: the node's
+    IndicesService; an unknown index is a 404)."""
     if isinstance(query_spec, list):
         return [resolve_percolate_refs(x, indices) for x in query_spec]
     if not isinstance(query_spec, dict):
@@ -136,8 +141,11 @@ def resolve_percolate_refs(query_spec: Any, indices) -> Any:
         if (k == "percolate" and isinstance(v, dict) and "index" in v
                 and "id" in v):
             svc = (indices or {}).get(v["index"])
-            source = (None if svc is None
-                      else svc.engine.get_source(str(v["id"])))
+            if svc is None:
+                raise IndexNotFoundException(v["index"])
+            routing = v.get("routing")
+            source = svc.get_doc(str(v["id"]),
+                                 None if routing is None else str(routing))
             if source is None:
                 raise IllegalArgumentException(
                     f"percolate document [{v['index']}/{v['id']}] not found")

@@ -146,6 +146,9 @@ class ShardSearcher:
         self.b = b
         # set by SearchService: continuous batching of plan launches
         self.batcher = None
+        # set on a dfs_query_then_fetch copy whose ``stats`` span every
+        # shard of the request: the key of those statistics
+        self.dfs_key = None
 
     def _contexts(self) -> List[SegmentContext]:
         return [SegmentContext(seg, self.cache.get(seg), self.mapper,
@@ -207,13 +210,15 @@ class ShardSearcher:
         allow_prune = track_total_hits is not True and after_score is None
         bkey_base = None
         if cache_key is not None:
-            # the segment set pins shard-level stats (idf, avg length);
+            # the segment set pins shard-level stats (idf, avg length),
+            # and dfs_key the request-wide stats of a dfs search, so a
+            # default and a dfs search of one body never share a bind;
             # k and allow_prune pin the pruning, so a pruned bind is
             # never served to an exact ask; the live version pins the
             # docs that verified its θ (and an ids factor's mask); the
             # conversion threshold pins which groups became masks
-            bkey_base = (tuple(s.name for s in self.segments), self.k1,
-                         self.b, cache_key, k, allow_prune,
+            bkey_base = (tuple(s.name for s in self.segments), self.dfs_key,
+                         self.k1, self.b, cache_key, k, allow_prune,
                          plan_mod.FILTER_CACHE_MIN_BLOCKS)
         per_segment = []
         total = 0

@@ -1,7 +1,29 @@
 """`_search` on the plan path and the dense executor (counterpart of
-the single-node part of elasticsearch_tpu/search/service.py
-`SearchService.search`, reduced): parse the body, run the query phase
-then the fetch phase on the index's one shard, shape the response.
+the single-node elasticsearch_tpu/search/service.py
+`SearchService.search`, reduced): resolve the index expression, run
+the query phase on every shard of every index it selects, merge, run
+the fetch phase on the page's shards, shape the response.
+
+``search(expression, body, search_type)``: the expression is a comma
+list of index names and wildcard patterns, or ``_all``, ``*`` or empty
+(index/service.py ``IndicesService.resolve``: an unknown concrete name
+is a 404). Each shard is a ShardSearcher with its own statistics, and
+the query phases run in turn, each through the node's PlanBatcher (one
+cohort a shard), behind the reference's per-shard failure barrier: a
+shard that raises becomes a ``_shards.failures`` entry and the others
+answer, unless every shard failed (its error answers) or
+``allow_partial_search_results`` is false (a 503
+``search_phase_execution_exception``, 400 when every failure is the
+client's). The shards' docs merge by (-score, shard, segment, docid),
+or under a sort by the docs' real sort values then shard order (a
+keyword's device key is a shard-local ordinal and never crosses
+shards). Totals, ``relation``, the ``track_total_hits`` threshold and
+``terminated_early`` sum over the shards; ``_shards`` counts them.
+``search_type=dfs_query_then_fetch`` scores every shard with one set
+of statistics over all of the request's shards (a per-request copy of
+each searcher; its bound plans are keyed apart from the default's), as
+the reference's dfs phase; any other value than it and
+``query_then_fetch`` is a 400.
 
 The body may carry ``query`` (default ``match_all``), ``size``,
 ``from``, ``post_filter``, ``min_score``, ``sort`` (keyword fields
@@ -26,9 +48,10 @@ one form one null group) and stamps the value into the hit's
 size))`` docs first, so a page can hold fewer groups than asked when the
 first groups fill that window, as the reference's.
 
-``terminate_after: n`` keeps the shard's first n docs of the query
-phase; when the shard matched more, the total is n, relation "gte",
-and the response says ``terminated_early``.
+``terminate_after: n`` keeps each shard's first n docs of the query
+phase; when a shard matched more, the total is the sum of the shards'
+counts each clamped to n, relation "gte", and the response says
+``terminated_early``.
 
 Hybrid retrieval: top-level ``knn`` sections (one or a list). With
 ``rank: {"rrf": {...}}`` the query and each knn section run as separate
@@ -36,10 +59,12 @@ branches, fused by reciprocal rank (score = the sum over branches of
 1 / (rank_constant + rank)); aggregations ride the query branch alone.
 Without it, a pure kNN body (one section, no query, ``_source: false``,
 nothing else that shapes the response) rides the KnnBatcher's cohort
-launch; any other body merges its knn sections into the query as
-``bool.should`` clauses (the score sum) and runs on the dense executor. A kNN branch served by the batcher needs an
-index of one segment, no ``filter`` and a candidate cut within its
-largest bucket (4096); otherwise the dense executor serves it.
+launch, one launch a shard, merged by the exact float32 score; any
+other body merges its knn sections into the query as ``bool.should``
+clauses (the score sum) and runs on the dense executor. A kNN branch
+served by the batcher needs shards of one segment each, no ``filter``
+and a candidate cut within its largest bucket (4096); otherwise the
+dense executor serves it.
 
 Under a ``sort`` each hit carries its ``sort`` values, the page is
 ordered by them (missing last), and ``max_score`` is null, as the
@@ -56,12 +81,18 @@ is read from that index (search/percolate.py
 ``resolve_percolate_refs``) before the query parses.
 
 ``profile: true`` answers what the same body answers without it, plus
-``profile.shards``: one shard's tree (search/profile.py
-``shard_profile_tree``: the query's stages split into device and host
-nanos, the collector, the ``aggs.collect`` scope, the kernels the
-request launched and its cohorts' attribution records, its readback
-bytes and the HBM admissions and evictions of its window) and its fetch
-time, and ``profile.coordinator`` with the phases' nanos.
+``profile.shards``: one tree a shard, named ``[index][n]`` with n the
+shard's place in the request (search/profile.py
+``shard_profile_tree``: its query phase's stages split into device and
+host nanos, the collector, the kernels it launched and its cohorts'
+attribution records, its readback bytes and the HBM admissions and
+evictions of its window) with its fetch time; the aggregations reduce
+once over every shard, so their ``aggs.collect`` scope stands in the
+first shard's tree; and ``profile.coordinator`` with the phases' nanos
+(``query_ns`` the sum of the shards', ``merge_ns`` the merge of their
+docs and the collapse, ``fetch_ns``). A ``rank.rrf`` body runs its
+branches as searches of their own and answers one tree for the whole
+fusion.
 
 ``track_total_hits``: true (the default) counts exactly, relation "eq".
 false or an integer license block-max pruning (search/plan.py): the hits
@@ -72,6 +103,8 @@ the count exceeds it; false omits ``hits.total``.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import functools
 import json
 import time
@@ -80,7 +113,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from elasticsearch_tpu_torch.common.errors import IllegalArgumentException
+from elasticsearch_tpu_torch.common.errors import (
+    IllegalArgumentException, SearchPhaseExecutionException, error_type_of)
+from elasticsearch_tpu_torch.index.service import IndicesService
 from elasticsearch_tpu_torch.search import profile as _prof
 from elasticsearch_tpu_torch.search.aggregations import compute_aggs
 from elasticsearch_tpu_torch.search.batching import (_CUT_BUCKETS,
@@ -93,17 +128,20 @@ from elasticsearch_tpu_torch.search.queries import (MatchAllQuery,
                                                     QueryBuilder,
                                                     parse_query)
 from elasticsearch_tpu_torch.search.searcher import (MAX_TOPK, DocAddress,
+                                                     QueryResult,
                                                      ShardSearcher,
                                                      _host_sort_cmp,
                                                      _parse_sort)
 from elasticsearch_tpu_torch.search.suggest import compute_suggest
 
 DEFAULT_SIZE = 10
+# the ``search_type`` URL parameter's values (None: the default)
+SEARCH_TYPES = (None, "query_then_fetch", "dfs_query_then_fetch")
 BODY_KEYS = {"query", "size", "from", "post_filter", "track_total_hits",
              "_source", "sort", "search_after", "min_score", "knn", "rank",
              "rescore", "aggs", "aggregations", "profile", "highlight",
              "docvalue_fields", "fields", "script_fields", "collapse",
-             "terminate_after", "suggest"}
+             "terminate_after", "suggest", "allow_partial_search_results"}
 # a body with any of these (truthy) asks more than the k nearest ids and
 # scores, so its kNN takes the dense executor, not the cohort launch
 _NOT_PURE_KNN = ("sort", "post_filter", "min_score", "search_after",
@@ -201,10 +239,10 @@ def _merge_knn_into_query(body: Dict[str, Any]) -> Dict[str, Any]:
 
 
 class _CoordinatorRewriteContext:
-    """A searcher-shaped view over every shard of the index, for the
+    """A searcher-shaped view over every shard of the request, for the
     coordinator's rewrite (the reference's): ``segments`` spans all
     shards, so a like-doc resolves wherever it lives, and ``stats`` are
-    index-wide."""
+    request-wide."""
 
     def __init__(self, shard_searchers: List[ShardSearcher]):
         self.segments = [seg for s in shard_searchers for seg in s.segments]
@@ -212,97 +250,210 @@ class _CoordinatorRewriteContext:
         self.stats = ShardStats(self.segments)
 
 
+def _dfs_searchers(searchers: List[Tuple[str, ShardSearcher]]
+                   ) -> List[Tuple[str, ShardSearcher]]:
+    """The dfs phase: one ShardStats over every shard's segments, set on
+    shallow copies of the searchers (never in place), each stamped with
+    the key of those statistics (``dfs_key``), which its bound plans'
+    cache key carries."""
+    segments = [seg for _, s in searchers for seg in s.segments]
+    stats = ShardStats(segments)
+    key = ("dfs",) + tuple(seg.name for seg in segments)
+    out = []
+    for name, s in searchers:
+        s2 = copy.copy(s)
+        s2.stats = stats
+        s2.dfs_key = key
+        out.append((name, s2))
+    return out
+
+
+def _allow_partial(body: Dict[str, Any]) -> bool:
+    value = body.get("allow_partial_search_results", True)
+    if isinstance(value, bool):
+        return value
+    if str(value).lower() in ("true", "false"):
+        return str(value).lower() == "true"
+    raise IllegalArgumentException(
+        f"Failed to parse value [{value}] as only [true] or [false] are "
+        f"allowed.")
+
+
+def _fold_rec(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
+    """Add a profile recorder's stages and records into another's."""
+    for key, value in src.items():
+        if key == "_kernels":
+            kernels = dst.setdefault("_kernels", {})
+            for k, slot in value.items():
+                have = kernels.setdefault(k, [0, 0.0])
+                have[0] += slot[0]
+                have[1] += slot[1]
+        elif key == "_device":
+            dst.setdefault("_device", []).extend(value)
+        elif key == "_notes":
+            for k, v in value.items():
+                dst.setdefault("_notes", {}).setdefault(k, v)
+        elif key == "_counters":
+            counters = dst.setdefault("_counters", {})
+            for k, v in value.items():
+                counters[k] = counters.get(k, 0) + v
+        else:
+            dst[key] = dst.get(key, 0) + value
+
+
+class _ShardProfiles:
+    """The ``profile: true`` recorders of one request: one a shard, over
+    that shard's query phase (search/profile.py), each with the HBM
+    admissions and evictions of its window, and the per-shard fetch
+    nanos. The aggregations reduce once over every shard, so their
+    ``aggs.collect`` scope and launches join the first shard's entry."""
+
+    def __init__(self, cache: DeviceSegmentCache, body: Dict[str, Any]):
+        self.cache = cache
+        self.body = body
+        self.shards: List[Tuple[str, Dict[str, Any], int]] = []
+        self.fetch_ns: Dict[int, int] = {}
+        self.merge_ns: Optional[int] = None
+        self.aggs: Optional[Tuple[Dict[str, Any], int]] = None
+
+    @contextlib.contextmanager
+    def shard(self, shard_id: str):
+        churn0 = self.cache.churn_counters()
+        t0 = time.monotonic_ns()
+        rec: Dict[str, Any] = {}
+        try:
+            with _prof.profiling() as rec:
+                yield
+        finally:
+            total_ns = time.monotonic_ns() - t0
+            adm, ev = self.cache.churn_counters()
+            if adm - churn0[0] or ev - churn0[1]:
+                # node-wide: a concurrent request's uploads can land in
+                # this window
+                counters = rec.setdefault("_counters", {})
+                counters["hbm_admissions"] = adm - churn0[0]
+                counters["hbm_evictions"] = ev - churn0[1]
+            self.shards.append((shard_id, rec, total_ns))
+
+    def section(self) -> Dict[str, Any]:
+        """The response's ``profile``: ``shards`` and ``coordinator``."""
+        entries = []
+        for si, (shard_id, rec, total_ns) in enumerate(self.shards):
+            if si == 0 and self.aggs is not None:
+                agg_rec, agg_ns = self.aggs
+                _fold_rec(rec, agg_rec)
+                rec["aggs.collect"] = agg_ns
+            entry = _prof.shard_profile_tree(shard_id, self.body, rec,
+                                             total_ns)
+            if si in self.fetch_ns:
+                ns = self.fetch_ns[si]
+                entry["fetch"] = {"type": "fetch", "description": "",
+                                  "time_in_nanos": ns,
+                                  "breakdown": {"load_stored_fields": ns}}
+            entries.append(entry)
+        coord: Dict[str, Any] = {"phases": {
+            "query_ns": sum(e["searches"][0]["query"][0]["time_in_nanos"]
+                            for e in entries),
+            "fetch_ns": sum(self.fetch_ns.values())}}
+        if self.merge_ns is not None:
+            # the coordinator's merge of the shards' docs and collapse
+            coord["phases"]["merge_ns"] = self.merge_ns
+        if self.aggs is not None:
+            coord["phases"]["aggs_ns"] = self.aggs[1]
+            coord["reduce_batches"] = 1
+        return {"shards": entries, "coordinator": coord}
+
+
 class SearchService:
     """Owns the node's PlanBatcher and KnnBatcher: every plan-path
     search and every batched kNN branch of the node launches through
-    them."""
+    them. ``indices`` (index/service.py IndicesService) holds the
+    indices a search expression resolves over."""
 
-    def __init__(self, cache: DeviceSegmentCache, indices=None):
+    def __init__(self, cache: DeviceSegmentCache,
+                 indices: Optional[IndicesService] = None):
         self.cache = cache
-        # the node's indices by name: a percolate document by index/id
-        # is read from them
-        self.indices = indices
+        self.indices = indices if indices is not None else IndicesService()
         self.plan_batcher = PlanBatcher()
         self.knn_batcher = KnnBatcher()
 
-    def search(self, index: str, svc, body: Dict[str, Any]) -> Dict[str, Any]:
-        """``svc``: the index's IndexService (mapper, engine, k1, b)."""
+    def search(self, expression: str, body: Dict[str, Any],
+               search_type: Optional[str] = None) -> Dict[str, Any]:
+        """``_search`` over every shard of the indices ``expression``
+        selects (``IndicesService.resolve``), as ``search_type``
+        (``query_then_fetch``, the default, or ``dfs_query_then_fetch``)
+        asks."""
         t0 = time.time()
         extra = sorted(set(body) - BODY_KEYS)
         if extra:
             raise SliceUnsupported(
                 f"search body keys {extra} are a later slice of the port "
                 f"(this one takes {sorted(BODY_KEYS)})")
+        if search_type not in SEARCH_TYPES:
+            raise IllegalArgumentException(
+                f"No search type for [{search_type}]")
         rank_spec = body.get("rank")
         if rank_spec is not None and not isinstance(rank_spec, dict):
             raise IllegalArgumentException("[rank] must be an object")
+        names = self.indices.resolve(expression)
         body = dict(body)
         for key in ("query", "post_filter"):
             if body.get(key):
                 body[key] = resolve_percolate_refs(body[key], self.indices)
-        searcher = self._searcher(svc)
-        if not body.get("profile"):
-            response = self._search(index, searcher, body)
-        else:
-            response = self._profiled(index, searcher, body)
+        searchers = [(name, s) for name in names
+                     for s in self._shard_searchers(self.indices[name])]
+        if search_type == "dfs_query_then_fetch" and len(searchers) > 1:
+            searchers = _dfs_searchers(searchers)
+        profiles = (_ShardProfiles(self.cache, body) if body.get("profile")
+                    else None)
+        response = self._search(searchers, body, profiles)
         return {"took": int((time.time() - t0) * 1000), **response}
 
-    def _search(self, index: str, searcher: ShardSearcher,
-                body: Dict[str, Any]) -> Dict[str, Any]:
+    def _search(self, searchers, body: Dict[str, Any],
+                profiles: Optional[_ShardProfiles]) -> Dict[str, Any]:
         rank_spec = body.get("rank")
         if rank_spec and rank_spec.get("rrf") is not None:
-            return self._rrf_search(index, searcher, body)
+            if profiles is None:
+                return self._rrf_search(searchers, body)
+            return self._rrf_profiled(searchers, body)
         if body.get("knn") is not None:
-            response = self._pure_knn_search(index, searcher, body)
+            response = self._pure_knn_search(searchers, body, profiles)
             if response is not None:
+                if profiles is not None:
+                    response["profile"] = profiles.section()
                 return response
-            return self._execute(index, searcher,
-                                 _merge_knn_into_query(body))
-        return self._execute(index, searcher, body)
+            body = _merge_knn_into_query(body)
+        return self._execute(searchers, body, profiles)
 
-    def _profiled(self, index: str, searcher: ShardSearcher,
-                  body: Dict[str, Any]) -> Dict[str, Any]:
-        """``_search`` under a profile recorder (search/profile.py): the
-        response with ``profile`` (the module docstring)."""
-        churn0 = self.cache.churn_counters()
-        t0 = time.monotonic_ns()
-        with _prof.profiling() as rec:
-            response = self._search(index, searcher, body)
-        total_ns = time.monotonic_ns() - t0
-        fetch_ns = rec.pop("fetch", 0)
-        aggs_ns = rec.get("aggs.collect")
-        adm, ev = self.cache.churn_counters()
-        if adm - churn0[0] or ev - churn0[1]:
-            # HBM churn in this request's window (node-wide: a
-            # concurrent request's uploads can land in it)
-            counters = rec.setdefault("_counters", {})
-            counters["hbm_admissions"] = adm - churn0[0]
-            counters["hbm_evictions"] = ev - churn0[1]
-        entry = _prof.shard_profile_tree(f"[{index}][0]", body, rec,
-                                         total_ns - fetch_ns)
-        entry["fetch"] = {"type": "fetch", "description": "",
-                          "time_in_nanos": fetch_ns,
-                          "breakdown": {"load_stored_fields": fetch_ns}}
-        coord: Dict[str, Any] = {"phases": {
-            "query_ns": entry["searches"][0]["query"][0]["time_in_nanos"],
-            "fetch_ns": fetch_ns}}
-        if aggs_ns is not None:
-            coord["phases"]["aggs_ns"] = aggs_ns
-            coord["reduce_batches"] = 1
-        response["profile"] = {"shards": [entry], "coordinator": coord}
+    def _rrf_profiled(self, searchers, body: Dict[str, Any]
+                      ) -> Dict[str, Any]:
+        """``rank.rrf`` under ``profile: true``: its branches run as
+        searches of their own, so one recorder spans the whole fusion
+        and answers one entry, named after the first shard."""
+        name = f"[{searchers[0][0]}][0]" if searchers else "[][0]"
+        profiles = _ShardProfiles(self.cache, body)
+        with profiles.shard(name):
+            response = self._rrf_search(searchers, body)
+        response["profile"] = profiles.section()
         return response
 
-    def _searcher(self, svc) -> ShardSearcher:
-        searcher = ShardSearcher(svc.engine.segments, svc.mapper, self.cache,
-                                 svc.k1, svc.b)
-        searcher.batcher = self.plan_batcher
-        return searcher
+    def _shard_searchers(self, svc) -> List[ShardSearcher]:
+        """One searcher a shard, each with the shard's own statistics."""
+        out = []
+        for engine in svc.shards:
+            searcher = ShardSearcher(engine.segments, svc.mapper, self.cache,
+                                     svc.k1, svc.b)
+            searcher.batcher = self.plan_batcher
+            out.append(searcher)
+        return out
 
-    def _execute(self, index: str, searcher: ShardSearcher,
-                 body: Dict[str, Any]) -> Dict[str, Any]:
-        """The query and fetch phases of one body on the index's shard:
-        the response without ``took``. ``knn`` has been merged into the
-        query or served by the caller; ``rank`` is the caller's."""
+    def _execute(self, searchers, body: Dict[str, Any],
+                 profiles: Optional[_ShardProfiles] = None
+                 ) -> Dict[str, Any]:
+        """The query phase on every shard, the merge, the fetch phase on
+        the page's shards: the response without ``took``. ``knn`` has
+        been merged into the query or served by the caller; ``rank`` is
+        the caller's."""
         track_total = body.get("track_total_hits", True)
         if not isinstance(track_total, int) or (
                 not isinstance(track_total, bool) and track_total < 0):
@@ -318,28 +469,88 @@ class SearchService:
             raise IllegalArgumentException(
                 f"Result window is too large, from + size must be less "
                 f"than or equal to: [{MAX_TOPK}]")
-        with _prof.span("rewrite"):
-            query = (parse_query(body["query"]) if body.get("query")
-                     else MatchAllQuery())
+        query = (parse_query(body["query"]) if body.get("query")
+                 else MatchAllQuery())
+        if searchers:
             # the coordinator's rewrite: doc-resolving queries (a
             # more_like_this like-doc) see every shard's segments
-            query = query.rewrite(_CoordinatorRewriteContext([searcher]))
-            post_filter = (parse_query(body["post_filter"])
-                           if body.get("post_filter") else None)
+            query = query.rewrite(_CoordinatorRewriteContext(
+                [s for _, s in searchers]))
+        post_filter = (parse_query(body["post_filter"])
+                       if body.get("post_filter") else None)
         nodes = _query_nodes(query) + (_query_nodes(post_filter)
                                        if post_filter is not None else [])
         try:
-            return self._execute_query(index, searcher, body, query,
-                                       post_filter, nodes, track_total,
-                                       size, from_)
+            return self._execute_query(searchers, body, query, post_filter,
+                                       nodes, track_total, size, from_,
+                                       profiles)
         finally:
             for node in nodes:
                 if hasattr(node, "release"):
                     node.release()
 
-    def _execute_query(self, index: str, searcher: ShardSearcher,
-                       body: Dict[str, Any], query, post_filter, nodes,
-                       track_total, size: int, from_: int):
+    def _query_shards(self, searchers, body: Dict[str, Any], query,
+                      post_filter, track_total, query_k: int,
+                      profiles: Optional[_ShardProfiles]):
+        """The query phase on each shard in turn, behind the per-shard
+        failure barrier (the reference's): a shard that raises becomes a
+        ``_shards.failures`` entry and an empty result, unless every
+        shard failed (the first failure is raised) or the body set
+        ``allow_partial_search_results`` false (a
+        SearchPhaseExecutionException). Returns the (index, searcher,
+        QueryResult) of every shard and the failures."""
+        rescore = _rescore_specs(body)
+        terminate_after = body.get("terminate_after")
+        # repeats of the same query JSON reuse their bound plans
+        cache_key = json.dumps([body.get("query"), body.get("post_filter")],
+                               sort_keys=True, default=str)
+        results = []
+        failures: List[Dict[str, Any]] = []
+        first_failure: Optional[BaseException] = None
+        shard_ords: Dict[str, int] = {}
+        for shard_idx, (index, searcher) in enumerate(searchers):
+            shard_ord = shard_ords.get(index, 0)
+            shard_ords[index] = shard_ord + 1
+            scope = (profiles.shard(f"[{index}][{shard_idx}]")
+                     if profiles is not None else contextlib.nullcontext())
+            try:
+                with scope:
+                    result = searcher.query_phase(
+                        query, query_k, post_filter,
+                        min_score=body.get("min_score"),
+                        sort=body.get("sort"),
+                        search_after=body.get("search_after"),
+                        track_total_hits=track_total, cache_key=cache_key,
+                        collect_masks=bool(body.get(
+                            "aggs", body.get("aggregations"))))
+                    if terminate_after:
+                        # the shard stops collecting after
+                        # terminate_after docs
+                        result.docs = result.docs[:int(terminate_after)]
+                    if rescore:
+                        result.docs = searcher.rescore(result.docs, rescore)
+            except Exception as e:  # the per-shard failure barrier
+                if first_failure is None:
+                    first_failure = e
+                failures.append({
+                    "shard": shard_ord, "index": index, "node": None,
+                    "reason": {"type": error_type_of(e), "reason": str(e),
+                               "phase": "query"}})
+                result = QueryResult([], 0, None)
+            results.append((index, searcher, result))
+        if failures:
+            if len(failures) == len(results):
+                raise first_failure
+            if not _allow_partial(body):
+                raise SearchPhaseExecutionException(
+                    "query", f"{len(failures)} of {len(results)} shards "
+                    f"failed and [allow_partial_search_results] is false",
+                    failures)
+        return results, failures
+
+    def _execute_query(self, searchers, body: Dict[str, Any], query,
+                       post_filter, nodes, track_total, size: int,
+                       from_: int, profiles: Optional[_ShardProfiles]):
         sort = body.get("sort")
         search_after = body.get("search_after")
         if search_after is not None and not isinstance(search_after, list):
@@ -355,95 +566,128 @@ class SearchService:
         if collapse_field:
             # over-collect so that enough groups survive the collapse
             query_k = max(query_k, (from_ + size) * 5)
-        # repeats of the same query JSON reuse their bound plans
-        cache_key = json.dumps([body.get("query"), body.get("post_filter")],
-                               sort_keys=True, default=str)
-        result = searcher.query_phase(
-            query, query_k, post_filter,
-            min_score=body.get("min_score"), sort=sort,
-            search_after=search_after, track_total_hits=track_total,
-            cache_key=cache_key, collect_masks=bool(aggs_spec))
-        docs = result.docs
-        if terminate_after:
-            # the shard stops collecting after terminate_after docs
-            docs = docs[:int(terminate_after)]
-        if rescore:
-            docs = searcher.rescore(docs, rescore)
-        sort_spec = _parse_sort(sort)
-        if sort_spec is not None and any(d.sort_values for d in docs):
-            # the page orders by the real sort values (float64 doc
-            # values, missing last), not the float32 device keys
-            docs = sorted(docs, key=functools.cmp_to_key(
-                lambda a, b: _host_sort_cmp(a, b, sort_spec)))
+        results, failures = self._query_shards(
+            searchers, body, query, post_filter, track_total, query_k,
+            profiles)
+        t0 = time.monotonic_ns()
+        merged = _merge_shards(results, sort)
         if collapse_field:
             # the first hit of each key; docs without one share a group
             seen = set()
             kept = []
-            for d in docs:
-                key = _doc_field_value(searcher, d, collapse_field)
+            for entry in merged:
+                key = _doc_field_value(entry[3], entry[2], collapse_field)
                 if key not in seen:
                     seen.add(key)
-                    kept.append(d)
-            docs = kept
-        page = docs[from_:from_ + size]
-        with _prof.span("fetch"):
-            hits = searcher.fetch_phase(
-                page, source_filter=body.get("_source", True),
-                docvalue_fields=[f if isinstance(f, str) else f.get("field")
-                                 for f in body.get("docvalue_fields", [])],
-                highlight=body.get("highlight"), highlight_query=query,
-                script_fields=body.get("script_fields"),
-                fields=body.get("fields"))
-        for d, h in zip(page, hits):
-            h["_index"] = index
-            if collapse_field:
-                h.setdefault("fields", {})[collapse_field] = [
-                    _doc_field_value(searcher, d, collapse_field)]
+                    kept.append(entry)
+            merged = kept
+        page = merged[from_:from_ + size]
+        if profiles is not None:
+            profiles.merge_ns = time.monotonic_ns() - t0
+        hits = self._fetch(page, body, query, collapse_field, profiles)
         # query-computed decorations: inner_hits, percolator slots
         for node in nodes:
             if hasattr(node, "add_hit_fields"):
                 for h in hits:
                     node.add_hit_fields(h)
-        total = result.total_hits
-        relation = "gte" if result.total_lower_bound else "eq"
+        total = sum(r.total_hits for _, _, r in results)
+        scores = [r.max_score for _, _, r in results
+                  if r.max_score is not None]
+        relation = ("gte" if any(r.total_lower_bound for _, _, r in results)
+                    else "eq")
         if not isinstance(track_total, bool) and total > track_total:
             total, relation = track_total, "gte"
         terminated_early = None
         if terminate_after:
-            terminated_early = result.total_hits > int(terminate_after)
+            # each shard reports at most terminate_after docs
+            ta = int(terminate_after)
+            terminated_early = any(r.total_hits > ta for _, _, r in results)
             if terminated_early:
-                total, relation = int(terminate_after), "gte"
+                total = sum(min(r.total_hits, ta) for _, _, r in results)
+                relation = "gte"
+        shards = {"total": len(searchers),
+                  "successful": len(searchers) - len(failures),
+                  "skipped": 0, "failed": len(failures)}
+        if failures:
+            shards["failures"] = failures
         response = {
             "timed_out": False,
-            "_shards": {"total": 1, "successful": 1, "skipped": 0,
-                        "failed": 0},
+            "_shards": shards,
             "hits": {"total": {"value": total, "relation": relation},
-                     "max_score": result.max_score, "hits": hits},
+                     "max_score": max(scores) if scores else None,
+                     "hits": hits},
         }
         if track_total is False:
             # ES omits hits.total when tracking is disabled
             del response["hits"]["total"]
         if terminated_early is not None:
             response["terminated_early"] = terminated_early
-        if aggs_spec:
-            with _prof.span("aggs.collect"):
-                response["aggregations"] = compute_aggs(
-                    aggs_spec,
-                    [(seg, mask, searcher.mapper)
-                     for seg, mask in result.agg_masks],
-                    searcher.mapper, searcher.cache)
+        if aggs_spec and searchers:
+            response["aggregations"] = self._aggregate(aggs_spec, results,
+                                                       profiles)
         if body.get("suggest"):
-            response["suggest"] = compute_suggest(body["suggest"],
-                                                  [(index, searcher)])
+            response["suggest"] = compute_suggest(body["suggest"], searchers)
+        if profiles is not None:
+            response["profile"] = profiles.section()
         return response
 
+    def _fetch(self, page, body: Dict[str, Any], query, collapse_field,
+               profiles: Optional[_ShardProfiles]) -> List[Dict[str, Any]]:
+        """The fetch phase of the page: each shard fetches its own hits
+        in one call, and the hits come back in page order."""
+        by_shard: Dict[int, List[Tuple[int, DocAddress]]] = {}
+        shard_of: Dict[int, Tuple[str, ShardSearcher]] = {}
+        for pos, (_, shard_idx, d, searcher, index) in enumerate(page):
+            by_shard.setdefault(shard_idx, []).append((pos, d))
+            shard_of[shard_idx] = (index, searcher)
+        docvalue_fields = [f if isinstance(f, str) else f.get("field")
+                           for f in body.get("docvalue_fields", [])]
+        hits: Dict[int, Dict[str, Any]] = {}
+        for shard_idx, entries in by_shard.items():
+            index, searcher = shard_of[shard_idx]
+            docs = [d for _, d in entries]
+            t0 = time.monotonic_ns()
+            fetched = searcher.fetch_phase(
+                docs, source_filter=body.get("_source", True),
+                docvalue_fields=docvalue_fields,
+                highlight=body.get("highlight"), highlight_query=query,
+                script_fields=body.get("script_fields"),
+                fields=body.get("fields"))
+            if profiles is not None:
+                profiles.fetch_ns[shard_idx] = time.monotonic_ns() - t0
+            for (pos, d), h in zip(entries, fetched):
+                h["_index"] = index
+                if collapse_field:
+                    h.setdefault("fields", {})[collapse_field] = [
+                        _doc_field_value(searcher, d, collapse_field)]
+                hits[pos] = h
+        return [hits[i] for i in sorted(hits)]
+
+    def _aggregate(self, aggs_spec, results,
+                   profiles: Optional[_ShardProfiles]) -> Dict[str, Any]:
+        """The aggregations over every shard's segments and match masks,
+        each segment with its own index's mapper, in one pass (the
+        reference's single-node reduce)."""
+        ctx = [(seg, mask, searcher.mapper)
+               for _, searcher, result in results
+               for seg, mask in (result.agg_masks or [])]
+        first = results[0][1]
+        if profiles is None:
+            return compute_aggs(aggs_spec, ctx, first.mapper, first.cache)
+        t0 = time.monotonic_ns()
+        with _prof.profiling() as rec:
+            out = compute_aggs(aggs_spec, ctx, first.mapper, first.cache)
+        profiles.aggs = (rec, time.monotonic_ns() - t0)
+        return out
+
     # ---------------------------------------------------------------- kNN
-    def _pure_knn_search(self, index: str, searcher: ShardSearcher,
-                         body: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+    def _pure_knn_search(self, searchers, body: Dict[str, Any],
+                         profiles: Optional[_ShardProfiles]
+                         ) -> Optional[Dict[str, Any]]:
         """A pure top-level kNN body (one section, no query, ids and
-        scores only) through the batched cohort launch: the response
-        without ``took``, or None, and the caller takes the dense
-        executor, which serves everything."""
+        scores only) through the batched cohort launch, shard by shard:
+        the response without ``took``, or None, and the caller takes the
+        dense executor, which serves everything."""
         if body.get("query") is not None \
                 or body.get("_source", True) is not False:
             return None
@@ -456,71 +700,94 @@ class SearchService:
             return None
         spec = clauses[0]["knn"]
         size = int(body.get("size", DEFAULT_SIZE))
-        # the candidate cut mirrors KnnQuery: k, else num_candidates
+        # the candidate cut mirrors KnnQuery: k, else num_candidates, a
+        # shard; several shards fill the page from their cuts together
         cut = spec.get("k") or spec.get("num_candidates")
-        window = min(int(cut), size) if cut else size
-        hits = self._knn_branch_hits(index, searcher, spec, window)
+        window = (min(int(cut), size) if cut and len(searchers) == 1
+                  else size)
+        hits = self._knn_branch_hits(searchers, spec, window, profiles)
         if hits is None:
             return None
-        seg = searcher.segments[0]
-        vv = seg.vectors.get(spec.get("field"))
-        # the version before the mask: a delete between the two reads
-        # is counted again at the next request, never kept
-        version = seg.live_version
-        n_match = 0 if vv is None else vv.live_count(seg.live, version)
-        total = min(int(cut), n_match) if cut else n_match
+        total = 0
+        for _, searcher in searchers:
+            seg = searcher.segments[0]
+            vv = seg.vectors.get(spec.get("field"))
+            # the version before the mask: a delete between the two
+            # reads is counted again at the next request, never kept
+            version = seg.live_version
+            n_match = 0 if vv is None else vv.live_count(seg.live, version)
+            total += min(int(cut), n_match) if cut else n_match
         return {
             "timed_out": False,
-            "_shards": {"total": 1, "successful": 1, "skipped": 0,
+            "_shards": {"total": len(searchers),
+                        "successful": len(searchers), "skipped": 0,
                         "failed": 0},
             "hits": {"total": {"value": total, "relation": "eq"},
                      "max_score": (hits[0]["_score"] if hits else None),
                      "hits": hits},
         }
 
-    def _knn_branch_hits(self, index: str, searcher: ShardSearcher,
-                         spec: Dict[str, Any],
-                         window: int) -> Optional[List[Dict[str, Any]]]:
-        """A kNN branch (a knn clause) through the KnnBatcher: concurrent
-        requests share one product and top-k launch. Its hit dicts
-        (``_index``, ``_id``, ``_score``), or None when the branch does
-        not batch (a filter, several segments, no such vector field, a
-        cut beyond the largest bucket): the dense executor serves it."""
-        if spec.get("filter") is not None or len(searcher.segments) != 1:
+    def _knn_branch_hits(self, searchers, spec: Dict[str, Any], window: int,
+                         profiles: Optional[_ShardProfiles] = None
+                         ) -> Optional[List[Dict[str, Any]]]:
+        """A kNN branch (a knn clause) through the KnnBatcher, one
+        launch a shard: concurrent requests share each shard's product
+        and top-k launch. Its hit dicts (``_index``, ``_id``,
+        ``_score``), or None when the branch does not batch (a filter, a
+        shard of several segments, no such vector field, a cut beyond
+        the largest bucket): the dense executor serves it. One shard
+        answers its first ``window`` nominations; several each keep
+        their ``k`` (else ``num_candidates``) best within the window, as
+        the dense executor's KnnQuery does, merged by (-exact float32
+        score, shard, docid) and cut to the window."""
+        if spec.get("filter") is not None or not searchers or any(
+                len(s.segments) != 1 for _, s in searchers):
             return None
-        ctx = searcher._contexts()[0]
         field = spec.get("field")
-        dv = ctx.device.vectors.get(field) if field else None
-        if dv is None or dv.similarity not in ("cosine", "dot_product",
-                                               "l2_norm"):
-            return None
         qvec = np.asarray(spec.get("query_vector", ()), np.float32)
-        if qvec.shape != (dv.dims,):
-            return None
         k = spec.get("k")
         nc = spec.get("num_candidates")
-        cut = min(int(k or nc or window), window)
-        if dv.vectors.dtype != torch.float32:
-            # quantized slab: nominate the full num_candidates before
-            # the exact re-rank, then trim to the window
-            cut = max(cut, min(int(nc or 3 * (k or 1000)),
-                               ctx.n_docs_padded))
-        if cut > _CUT_BUCKETS[-1]:
-            return None
-        _prof.note("collector", "KnnBatchTopDocsCollector")
-        with _prof.span("launch"):
-            scores, ids = self.knn_batcher.topk(ctx, field, qvec, cut)
-        seg = ctx.segment
-        hits = []
-        for s, i in zip(scores[:window], ids[:window]):
-            if i < 0 or i >= seg.n_docs or not np.isfinite(s):
-                continue
-            hits.append({"_index": index, "_id": seg.stored.ids[int(i)],
-                         "_score": float(s)})
-        return hits
+        launches = []
+        # every shard passes the gate before any launches
+        for index, searcher in searchers:
+            ctx = searcher._contexts()[0]
+            dv = ctx.device.vectors.get(field) if field else None
+            if dv is None or dv.similarity not in ("cosine", "dot_product",
+                                                   "l2_norm"):
+                return None
+            if qvec.shape != (dv.dims,):
+                return None
+            cut = min(int(k or nc or window), window)
+            if dv.vectors.dtype != torch.float32:
+                # quantized slab: nominate the full num_candidates
+                # before the exact re-rank, then trim to the window
+                cut = max(cut, min(int(nc or 3 * (k or 1000)),
+                                   ctx.n_docs_padded))
+            if cut > _CUT_BUCKETS[-1]:
+                return None
+            launches.append((index, ctx, cut))
+        keep = window if len(searchers) == 1 else min(window,
+                                                      int(k or nc or window))
+        rows = []
+        for shard_idx, (index, ctx, cut) in enumerate(launches):
+            scope = (profiles.shard(f"[{index}][{shard_idx}]")
+                     if profiles is not None else contextlib.nullcontext())
+            with scope:
+                _prof.note("collector", "KnnBatchTopDocsCollector")
+                with _prof.span("launch"):
+                    scores, ids = self.knn_batcher.topk(ctx, field, qvec,
+                                                        cut)
+            seg = ctx.segment
+            for s, i in zip(scores[:keep], ids[:keep]):
+                if i < 0 or i >= seg.n_docs or not np.isfinite(s):
+                    continue
+                rows.append((-float(s), shard_idx, int(i), index, seg))
+        if len(launches) > 1:
+            rows.sort(key=lambda r: r[:3])
+        return [{"_index": index, "_id": seg.stored.ids[i], "_score": -ns}
+                for ns, _, i, index, seg in rows[:window]]
 
-    def _rrf_search(self, index: str, searcher: ShardSearcher,
-                    body: Dict[str, Any]) -> Dict[str, Any]:
+    def _rrf_search(self, searchers, body: Dict[str, Any]) -> Dict[str, Any]:
         """Reciprocal rank fusion over the query and knn branches (the
         modern ``rank.rrf`` API: score(d) = the sum over branches of
         1 / (rank_constant + rank of d)), each branch asked for
@@ -561,8 +828,8 @@ class SearchService:
                                 ("highlight", "post_filter", "min_score",
                                  "fields"))
                     and not (bi == 0 and wants_aggs)):
-                hits = self._knn_branch_hits(index, searcher,
-                                             br["query"]["knn"], window)
+                hits = self._knn_branch_hits(searchers, br["query"]["knn"],
+                                             window)
             if hits is None:
                 sub = {**passthrough, **br, "size": window}
                 if bi == 0:
@@ -571,7 +838,7 @@ class SearchService:
                     for agg_key in ("aggs", "aggregations"):
                         if agg_key in body:
                             sub[agg_key] = body[agg_key]
-                r = self._execute(index, searcher, sub)
+                r = self._execute(searchers, sub)
                 if bi == 0 and "aggregations" in r:
                     aggregations = r["aggregations"]
                 hits = r["hits"]["hits"]
@@ -590,7 +857,8 @@ class SearchService:
             hits.append(h)
         out = {
             "timed_out": False,
-            "_shards": {"total": 1, "successful": 1, "skipped": 0,
+            "_shards": {"total": len(searchers),
+                        "successful": len(searchers), "skipped": 0,
                         "failed": 0},
             "hits": {"total": {"value": len(scores),
                                "relation": "gte" if truncated else "eq"},
@@ -600,3 +868,25 @@ class SearchService:
         if aggregations is not None:
             out["aggregations"] = aggregations
         return out
+
+
+def _merge_shards(results, sort) -> List[Tuple[float, int, DocAddress,
+                                               ShardSearcher, str]]:
+    """Every shard's docs as (key, shard, doc, searcher, index), in the
+    page's order: under a sort by the docs' real sort values
+    (``_host_sort_cmp``: float64 doc values, keyword terms, missing
+    last), then shard order, since a keyword's device key is a
+    shard-local ordinal; else by (-score, shard, segment, docid)."""
+    merged = [(d.sort_key, shard_idx, d, searcher, index)
+              for shard_idx, (index, searcher, result) in enumerate(results)
+              for d in result.docs]
+    sort_spec = _parse_sort(sort)
+    if sort_spec is not None and any(e[2].sort_values for e in merged):
+        def cmp(a, b):
+            c = _host_sort_cmp(a[2], b[2], sort_spec)
+            return c if c else (a[1] > b[1]) - (a[1] < b[1])
+        merged.sort(key=functools.cmp_to_key(cmp))
+    elif len(results) > 1:
+        merged.sort(key=lambda e: (-e[0], e[1], e[2].segment_idx,
+                                   e[2].docid))
+    return merged

@@ -645,7 +645,7 @@ def _plan_path(node, body) -> bool:
     does): its float32 prefix sums may order a tie apart."""
     if body.get("sort"):
         return False
-    searcher = node.search_service._searcher(node.indices["all"])
+    searcher = node.search_service._shard_searchers(node.indices["all"])[0]
     query = parse_query(body["query"]).rewrite(searcher)
     return compile_plan(query, searcher) is not None
 

@@ -575,7 +575,7 @@ def test_rewrite_does_not_mutate_query_tree(nodes):
     """test_search_features.py:465 on the port's searcher, and the
     rewritten tree executes as the reference's."""
     _, node = nodes
-    searcher = node.search_service._searcher(node.indices["idx"])
+    searcher = node.search_service._shard_searchers(node.indices["idx"])[0]
     body = {"bool": {"must": [{"more_like_this": {
         "fields": ["title"], "like": [{"_index": "idx", "_id": "0"}],
         "min_term_freq": 1, "min_doc_freq": 1}}]}}
@@ -611,7 +611,7 @@ def test_every_compound_rewrites_its_children(nodes, wrap):
     mlt = {"more_like_this": {"fields": ["title"], "like": "quick brown",
                               "min_term_freq": 1, "min_doc_freq": 1}}
     _, node = nodes
-    searcher = node.search_service._searcher(node.indices["idx"])
+    searcher = node.search_service._shard_searchers(node.indices["idx"])[0]
     q = parse_query(wrap(mlt))
     assert q.rewrite(searcher) is not q
     assert_parity(nodes, "idx", {"query": wrap(mlt)})
@@ -1114,7 +1114,7 @@ def test_plan_or_dense_as_the_reference(nodes, bi):
     from elasticsearch_tpu_torch.search.plan import compile_plan
     jax_node, node = nodes
     jsearcher = jax_node.indices_service.get("rand").shard_searchers()[0]
-    searcher = node.search_service._searcher(node.indices["rand"])
+    searcher = node.search_service._shard_searchers(node.indices["rand"])[0]
     jq = jax_queries.parse_query(R_BODIES[bi]).rewrite(jsearcher)
     q = parse_query(R_BODIES[bi]).rewrite(searcher)
     want = jax_compile(jq, jsearcher) is not None

@@ -563,10 +563,10 @@ def rrf_branches(jax_node, node, index, body):
             jsearchers = [(index, s) for s in
                           jsvc.indices_service.get(index).shard_searchers()]
             psvc = node.search_service
+            psearchers = [(index, s) for s in
+                          psvc._shard_searchers(node.indices[index])]
             pair = (jsvc._knn_branch_hits(jsearchers, clause["knn"], window),
-                    psvc._knn_branch_hits(
-                        index, psvc._searcher(node.indices[index]),
-                        clause["knn"], window))
+                    psvc._knn_branch_hits(psearchers, clause["knn"], window))
             assert (pair[0] is None) == (pair[1] is None)
         if pair is None or pair[0] is None:
             pair = ask({"query": clause, "_source": source})

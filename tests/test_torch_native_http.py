@@ -354,8 +354,7 @@ def test_stale_generation_is_bounced_to_the_plan_path(monkeypatch):
         assert st == 200
         assert fp.stats["bounced"] == bounced + 1
         assert r["hits"]["hits"][0]["_id"] == "n1"
-        want = node.search_service.search(
-            "books", node.indices["books"], dict(body))
+        want = node.search_service.search("books", dict(body))
         assert r["hits"]["total"] == want["hits"]["total"]
         assert [h["_id"] for h in r["hits"]["hits"]] == \
             [h["_id"] for h in want["hits"]["hits"]]
@@ -383,8 +382,7 @@ def test_oversize_query_is_bounced_to_the_plan_path(monkeypatch):
         assert fp.stats["bounced"] == b0 + 1
         assert node.search_service.plan_batcher.stats()[
             "batched_queries"] == plan0 + 1
-        want = node.search_service.search("books", node.indices["books"],
-                                          dict(body))
+        want = node.search_service.search("books", dict(body))
         assert r["hits"]["total"] == want["hits"]["total"]
         assert [h["_id"] for h in r["hits"]["hits"]] == \
             [h["_id"] for h in want["hits"]["hits"]]

@@ -2,9 +2,9 @@
 reference answers them or refused with a typed 400, through both nodes'
 ``rest_controller.dispatch`` on the same documents: the `_search` URL
 parameters (``q``, ``from``, ``size``, ``request_cache``,
-``allow_partial_search_results``; ``scroll``, ``timeout`` and the rest
-are a later slice), the mapping's ``dynamic`` setting, ``copy_to`` and
-``number_of_shards`` other than 1."""
+``allow_partial_search_results``, ``search_type``; ``scroll``,
+``timeout`` and the rest are a later slice), the mapping's ``dynamic``
+setting, ``copy_to`` and ``number_of_shards``."""
 
 import json
 
@@ -95,7 +95,9 @@ def test_boolean_url_parameters_refuse_other_values(nodes, key):
 
 def test_a_valid_boolean_parameter_meets_the_body_keys(nodes):
     """``request_cache=true`` goes into the body, which the slice refuses
-    as it refuses the body key (the reference serves both)."""
+    as it refuses the body key (the reference serves both);
+    ``allow_partial_search_results`` goes into the body too, which both
+    serve (the shard loop's failure barrier reads it)."""
     _, (st, got) = both(nodes, "POST", "/p/_search",
                         {"request_cache": "true"}, None)
     _, (bst, bgot) = both(nodes, "POST", "/p/_search", {},
@@ -103,15 +105,15 @@ def test_a_valid_boolean_parameter_meets_the_body_keys(nodes):
     assert st == bst == 400
     assert got["error"]["type"] == bgot["error"]["type"] \
         == "unsupported_in_slice_exception"
-    (jst, _), (st, got) = both(nodes, "POST", "/p/_search",
-                               {"allow_partial_search_results": "false"},
-                               None)
-    assert jst == 200 and st == 400
-    assert got["error"]["type"] == "unsupported_in_slice_exception"
+    (jst, ref), (st, got) = both(nodes, "POST", "/p/_search",
+                                 {"allow_partial_search_results": "false"},
+                                 None)
+    assert jst == st == 200
+    assert_same_hits(ref, got)
 
 
 @pytest.mark.parametrize("params", [{"scroll": "1m"}, {"timeout": "1s"},
-                                    {"search_type": "dfs_query_then_fetch"},
+                                    {"preference": "_local"},
                                     {"q": "t:red", "typed_keys": "true"}])
 def test_other_url_parameters_are_a_typed_400(nodes, params):
     (jst, ref), (st, got) = both(nodes, "POST", "/p/_search", params, None)
@@ -236,16 +238,36 @@ def test_copy_to_indexes_into_the_target_as_the_reference(tmp_path):
 @pytest.mark.parametrize("settings", [
     {"index.number_of_shards": 3}, {"number_of_shards": 3},
     {"index": {"number_of_shards": 3}}, {"index": {"number_of_shards": "2"}}])
-def test_several_shards_are_a_typed_400(settings):
+def test_several_shards_are_a_typed_400(settings, tmp_path):
+    """Once a typed 400, each of these settings now creates the index
+    the reference creates: as many shards (a bare ``number_of_shards``
+    outside ``index`` is not the setting, so one shard, as in the
+    reference), and a search over them answers the same."""
+    jax_node = JaxNode(data_path=str(tmp_path))
     node = Node(device="cpu")
     try:
-        st, r = node.rest_controller.dispatch(
-            "PUT", "/s", {}, {"settings": settings})
-        assert st == 400
-        assert r["error"]["type"] == "unsupported_in_slice_exception"
-        assert "s" not in node.indices
+        for c in (jax_node.rest_controller, node.rest_controller):
+            st, r = c.dispatch("PUT", "/s", {}, {
+                "settings": settings,
+                "mappings": {"properties": {"t": {"type": "text"},
+                                            "n": {"type": "long"}}}})
+            assert st == 200, r
+            st, r = c.dispatch("POST", "/s/_bulk", {"refresh": "true"},
+                               _bulk(DOCS))
+            assert st == 200 and not r["errors"], r
+        assert len(node.indices["s"].shards) == len(
+            jax_node.indices_service.get("s").shards)
+        (jst, ref), (st, got) = both((jax_node, node), "POST", "/s/_search",
+                                     {}, {"query": {"match": {"t": "red"}},
+                                          "sort": [{"n": "asc"}]})
+        assert jst == st == 200
+        assert got["_shards"] == ref["_shards"]
+        assert_same_hits(ref, got)
+        assert [h["sort"] for h in got["hits"]["hits"]] == [
+            h["sort"] for h in ref["hits"]["hits"]]
     finally:
         node.close()
+        jax_node.close()
 
 
 @pytest.mark.parametrize("settings", [
