@@ -253,7 +253,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
               term and a range, a score_mode over a match and
               inner_hits, and its join twin "qa_join" with has_child
               under each score_mode and min_children, has_parent with
-              score and parent_id; "alerts" (10,000 stored queries of
+              score and parent_id; "alerts" (1,000 stored queries of
               the phase 4 query log: match, bool with a range filter,
               range) percolating one document, and "alerts_small" (its
               first 100) ten documents and a document by index/id.
@@ -274,17 +274,17 @@ Phases (any failure exits non-zero; no exception is swallowed):
               and the polygon's launches; percolate ms per stored query
  13. shards   "bench5": the phase 4 corpus with the bench's 500-term
               cat keyword, in 5 shards (Rally geonames' default) routed
-              by the port's shard_for (murmur3 of _id), equal to a
-              numpy murmur3, one segment a shard; "route5" takes 2,000
+              by a numpy murmur3 of _id, which the port's shard_for
+              equals on 200,000 ids, one segment a shard; "route5" takes 2,000
               docs through _bulk, each shard holding numpy's count.
               Over HTTP, every body reaching the fallback workers (the
-              front's fast count +0): phase 4's first 64 match bodies
-              at size 1000 (8 alone, then from 64 clients and the load
-              generator), 32 of the bool+filters mix, 32 match + terms
+              front's fast count +0): phase 4's first 32 match bodies
+              at size 1000 (5 alone, then from 64 clients and the load
+              generator), 16 of the bool+filters mix, 32 match + terms
               agg on cat, a cat sort with a 10-page search_after walk,
               collapse on cat, track_total_hits 10000, profile: true,
-              16 dfs_query_then_fetch bodies before and after their
-              default twins, and /bench,bench5 of 16 bodies. Held to
+              8 dfs_query_then_fetch bodies before and after their
+              default twins, and /bench,bench5 of 8 bodies. Held to
               float64 oracles (each shard's own statistics by default,
               the whole corpus's under dfs; the dfs answers also to the
               one-shard bench's), numpy (sort, walk by the cursor rule,
@@ -296,11 +296,51 @@ Phases (any failure exits non-zero; no exception is swallowed):
               ms and the coordinator's merge and fetch ms from the
               profile, launches a dense body, qps and p50/p99 beside
               the one-shard bench through the same fallback workers
- 14. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
+ 14. deferred the 35 aggregation types earlier slices deferred, on
+              the resident indices, over HTTP through the fallback
+              workers, each body once with profile: true: TSVB time
+              series on "logs" (moving_fn, moving_avg, serial_diff,
+              bucket_script, bucket_selector, normalize,
+              cumulative_cardinality, moving_percentiles; one under a
+              match), auto_date_histogram, variable_width_histogram,
+              top_metrics under terms, t_test, matrix_stats, boxplot,
+              median_absolute_deviation, adjacency_matrix, sampler and
+              diversified_sampler under a match, scripted_metric under
+              a filter of 20,000 docs; rare_terms and string_stats on
+              "hybrid"'s cat under a match; significant_terms on
+              "bench5"; composite over cat x a date_histogram of rank on
+              "bench5" and cat x a histogram of feat on "hybrid", each
+              walked page by page (1,000 a page) through after_key;
+              Kibana Maps on "geopoint" (a geotile_grid at precision 7
+              with geo_centroid, a geohash_grid, geo_bounds and
+              geo_distance rings under a viewport's
+              geo_bounding_box), a world geohash_grid at precision 3
+              with geo_bounds and geo_centroid over 15.2M points, world
+              rings; ip_range on "logs_ip" under a match; nested,
+              top_hits under terms and multi_terms on "qa"; children and
+              parent on "qa_join"; significant_text and top_hits on
+              "fulltext"; then a 32-body dashboard mix of these from 8
+              Python clients. Held to numpy/scipy oracles under the
+              float32 column semantics (composite pages concatenated
+              against one grouped pass, significant, rare and multi
+              terms, adjacency, sampler, ring and grid counts exact, a
+              point within 1e-9 of a grid cell's edge exempt and
+              counted; geo_bounds exact, centroids, t_test, matrix_stats,
+              string_stats, the scripted mean within rtol 1e-6), to the
+              port's CPU execution (the first body of each type), 200
+              with _shards.failed 0 everywhere; the contribution kernel
+              launched once per dense BM25 scoring (/_kernels agrees),
+              the merge not at all, the breaker equal to the segments'
+              bytes. Printed: each body's query and aggregation ms from
+              its profile, the composite walks' ms a page, the grids'
+              seconds at 15.2M points, scripted_metric's us a doc, the
+              mix's qps and p50/p99
+ 15. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
               script, aggs, accounting, fulltext, fetch, fields, shards,
-              filters, plan and kernels JSON lines (each kernel's
-              launches per phase, launches_shards for phase 13), the
-              phases' wall seconds ({"phase_seconds": ...}), the card's
+              aggs_deferred, filters, plan and kernels JSON lines (each
+              kernel's launches per phase, launches_aggs_deferred for
+              phase 14), the phases' wall seconds
+              ({"phase_seconds": ...}), the card's
               name and power limit, and the last line {"ok": true,
               "device": {...}}
 
@@ -1122,9 +1162,10 @@ def phase_plan_small(node, port, seed):
 
 # ---------------------------------------------------------------- phase 4
 def drive(port, bodies, clients, index="bench", query="", method="POST"):
-    """``bodies`` as _search requests to /``index`` (an index expression;
-    ``query`` the URL's query string, "?..." or empty) from ``clients``
-    threads: ([(status, response)], latency s of each, wall s)."""
+    """``bodies`` as _search requests to /``index`` (an index expression,
+    or a list of one a body; ``query`` the URL's query string, "?..." or
+    empty) from ``clients`` threads: ([(status, response)], latency s of
+    each, wall s)."""
     results = [None] * len(bodies)
     lat = [0.0] * len(bodies)
     nxt = [0]
@@ -1138,7 +1179,8 @@ def drive(port, bodies, clients, index="bench", query="", method="POST"):
             if i >= len(bodies):
                 return
             t0 = time.perf_counter()
-            results[i] = http(port, method, f"/{index}/_search{query}",
+            idx = index[i] if isinstance(index, list) else index
+            results[i] = http(port, method, f"/{idx}/_search{query}",
                               bodies[i])
             lat[i] = time.perf_counter() - t0
 
@@ -4755,6 +4797,21 @@ def fulltext_mix(oracle, corpus, n_keys, seed):
     return mix
 
 
+def first_thirds(mix):
+    """The first third (at least two) of each kind and query type's
+    bodies of the mix, in the mix's order (PERF.md section 4: the
+    cut)."""
+    groups = Counter((kind, next(iter(qb))) for kind, qb, _, _ in mix)
+    seen = Counter()
+    out = []
+    for entry in mix:
+        g = (entry[0], next(iter(entry[1])))
+        if seen[g] < max(2, -(-groups[g] // 3)):
+            out.append(entry)
+        seen[g] += 1
+    return out
+
+
 def phase_fulltext(node, port, corpus, seed, conns, counters, cpu):
     """Full-text query breadth on one H100 (module docstring, phase
     10)."""
@@ -4816,7 +4873,7 @@ def phase_fulltext(node, port, corpus, seed, conns, counters, cpu):
     oracle = FulltextOracle(corpus, streams,
                             {f: seg.numerics[f].values for f in fcols},
                             views)
-    mix = fulltext_mix(oracle, corpus, n_keys, seed + 2)
+    mix = first_thirds(fulltext_mix(oracle, corpus, n_keys, seed + 2))
     bodies = [{"query": qb, "size": FT_SIZE, "_source": False}
               for _, qb, _, _ in mix]
     out["bodies"] = dict(Counter(kind for kind, _, _, _ in mix))
@@ -5474,7 +5531,7 @@ FIELDS_SIZE = 100
 GEO_POINTS = 15_211_101
 GEO_SEGMENTS = 4          # a segment's padded docids stay below 2^24
 QA_QUESTIONS = 100_000    # the nested questions (PERF.md section 4: the cut)
-ALERTS = 10_000           # the percolator index's stored queries
+ALERTS = 1_000            # the percolator index's stored queries (the cut)
 # the stored queries of "alerts_small" (the first ones of "alerts"),
 # which the percolations of ten documents and of a document by reference
 # read (PERF.md section 4: the cut)
@@ -6323,7 +6380,7 @@ def phase_fields(node, port, corpus, queries, logs, cols, n_points, n_qa,
     # elementwise passes over every point), four geopoint bodies (each
     # family's other sizes: one body a family is held to the CPU, each a
     # pass over 15.2M points there), and the percolations of one document
-    # (10,000 stored queries) and of a document by reference (the ten
+    # (1,000 stored queries) and of a document by reference (the ten
     # documents' percolation over the small index is held to the CPU)
     cpu_skip = {"polygon_64", "geo_distance_1km", "geo_distance_1000km",
                 "bbox_dateline", "sort_100", "percolate_one",
@@ -6505,13 +6562,16 @@ def phase_fields(node, port, corpus, queries, logs, cols, n_points, n_qa,
 
 # ---------------------------------------------------------------- phase 13
 SHARDS = 5          # Rally geonames' number_of_shards default
+ROUTE_SAMPLE = 200_000      # the ids whose shard_for is checked
 SHARD_K = 1000
 # the depth of phase 13 (PERF.md section 4: the cuts): phase 4's first
 # SHARD_MATCH queries, SHARD_FILTERS of its bool+filters mix, SHARD_DFS
-# dfs bodies, SHARD_SAMPLE bodies a kind held to the CPU execution
-SHARD_MATCH = 64
-SHARD_FILTERS = 32
-SHARD_DFS = 16
+# dfs bodies, SHARD_MULTI multi-index bodies, SHARD_SAMPLE bodies a kind
+# held to the CPU execution
+SHARD_MATCH = 32
+SHARD_FILTERS = 16
+SHARD_DFS = 8
+SHARD_MULTI = 8
 SHARD_SAMPLE = 4
 DFS = "?search_type=dfs_query_then_fetch"
 
@@ -6627,16 +6687,19 @@ def phase_shards(node, port, corpus, queries, oracles, filt_pool, seed,
         "title": {"type": "text"}, "cat": {"type": "keyword"},
         "rank": {"type": "long"}}},
         {"index": {"number_of_shards": SHARDS}})
+    # the port's shard_for on an even sample of the ids (PERF.md
+    # section 4: the cut), the shards filled by numpy's murmur3
+    assign = routing_oracle(n, SHARDS)
+    sample = np.unique(np.linspace(0, n - 1, min(n, ROUTE_SAMPLE))
+                       .astype(np.int64))
     t1 = time.time()
-    assign = np.fromiter((svc.shard_for(str(d)) for d in range(n)),
-                         np.int64, n)
+    got = np.fromiter((svc.shard_for(str(d)) for d in sample), np.int64,
+                      len(sample))
     route_s = time.time() - t1
-    want = routing_oracle(n, SHARDS)
     counts = np.bincount(assign, minlength=SHARDS)
-    check(np.array_equal(assign, want)
-          and counts.tolist() == np.bincount(want, minlength=SHARDS)
-          .tolist(), f"bench5: the port's routing equals numpy's "
-          f"murmur3 ({counts.tolist()})")
+    check(np.array_equal(got, assign[sample]),
+          f"bench5: the port's routing equals numpy's murmur3 on "
+          f"{len(sample)} ids ({counts.tolist()})")
     ords, terms = bench_cat(n)
     subs, docs_of = [], []
     for sh in range(SHARDS):
@@ -6671,7 +6734,8 @@ def phase_shards(node, port, corpus, queries, oracles, filt_pool, seed,
           f"route5: each shard holds the docs numpy routes to it: {got}")
     orc = ShardOracle(corpus, subs, docs_of)
     out["setup"] = dict(docs=n, shards=SHARDS, shard_docs=counts.tolist(),
-                        routing_s=route_s, setup_s=time.time() - t0,
+                        routing_s=route_s, routed_ids=len(sample),
+                        setup_s=time.time() - t0,
                         route5_shard_docs=got)
     log(f"[shards] set up: {out['setup']}")
 
@@ -6757,12 +6821,12 @@ def phase_shards(node, port, corpus, queries, oracles, filt_pool, seed,
     p50, p99 = p50_p99(t_dfs)
     load["dfs"] = dict(requests=len(dfs), qps=len(dfs) / w_dfs, p50_ms=p50,
                        p99_ms=p99, clients=conns)
-    multi, t_multi, w_multi = drive(port, match[:16], 16, "bench,bench5",
-                                    method="GET")
+    multi, t_multi, w_multi = drive(port, match[:SHARD_MULTI], 16,
+                                    "bench,bench5", method="GET")
     res["multi"] = multi
     p50, p99 = p50_p99(t_multi)
-    load["multi"] = dict(requests=16, qps=16 / w_multi, p50_ms=p50,
-                         p99_ms=p99, clients=16)
+    load["multi"] = dict(requests=SHARD_MULTI, qps=SHARD_MULTI / w_multi,
+                         p50_ms=p50, p99_ms=p99, clients=16)
     # the load generator on bench5's match bodies: 1 round
     lg = loadgen(port, "/bench5/_search", match, conns, len(match))
     check(lg["done"] == len(match) and lg["non2xx"] == 0,
@@ -6963,6 +7027,639 @@ def phase_shards(node, port, corpus, queries, oracles, filt_pool, seed,
     torch.cuda.synchronize()
     log(f"[shards] profile {out['profile']}, oracles {out['oracle_s']:.1f} "
         f"s, CPU {out['cpu_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------- phase 14
+# the 35 aggregation types earlier slices of the port deferred
+DEFERRED_TYPES = (
+    "adjacency_matrix", "auto_date_histogram", "boxplot", "bucket_script",
+    "bucket_selector", "children", "composite", "cumulative_cardinality",
+    "diversified_sampler", "geo_bounds", "geo_centroid", "geo_distance",
+    "geohash_grid", "geotile_grid", "ip_range", "matrix_stats",
+    "median_absolute_deviation", "moving_avg", "moving_fn",
+    "moving_percentiles", "multi_terms", "nested", "normalize", "parent",
+    "rare_terms", "sampler", "scripted_metric", "serial_diff",
+    "significant_terms", "significant_text", "string_stats", "t_test",
+    "top_hits", "top_metrics", "variable_width_histogram")
+DEFERRED_RTOL = 1e-6
+COMPOSITE_PAGE = 1000
+SCRIPTED_DOCS = 20_000      # the scripted_metric body's bounded filter
+# Kibana Maps' viewport (Europe) and its tile precision
+VIEWPORT = {"top_left": {"lat": 60.0, "lon": -10.0},
+            "bottom_right": {"lat": 35.0, "lon": 30.0}}
+PARIS = {"lat": 48.8566, "lon": 2.3522}
+
+
+def agg_types(aggs):
+    """Every aggregation type named anywhere in an aggs tree."""
+    out = set()
+    for node in (aggs or {}).values():
+        for k, v in node.items():
+            if k in ("aggs", "aggregations"):
+                out |= agg_types(v)
+            elif k != "meta":
+                out.add(k)
+    return out
+
+
+def deferred_bodies(texts, logs_terms, t0_ms, scripted_to):
+    """(name, index, body) of phase 14: each deferred type at least
+    once, at the sizes Kibana sends, a ``match`` where the type is
+    scored."""
+    m = [{"match": {"title": t}} for t in texts]
+    inc = {"match": {"title": logs_terms}}
+    day = {"field": "@timestamp", "fixed_interval": "30m"}
+    rank_min = {"date_histogram": {"field": "rank", "fixed_interval": "4m"}}
+    return [
+        # TSVB: a time series with its parent pipelines
+        ("tsvb", "logs", {"size": 0, "query": {"range": {"@timestamp": {
+            "gte": t0_ms, "lt": t0_ms + 12 * HOUR_MS}}},
+            "aggs": {"h": {"date_histogram": day, "aggs": {
+                "b": {"sum": {"field": "bytes"}},
+                "mx": {"max": {"field": "bytes"}},
+                "card": {"cardinality": {"field": "status"}},
+                "pc": {"percentiles": {"field": "bytes",
+                                       "percents": [50, 95]}},
+                "mf": {"moving_fn": {
+                    "buckets_path": "b", "window": 5,
+                    "script": "MovingFunctions.unweightedAvg(values)"}},
+                "ma": {"moving_avg": {"buckets_path": "b", "window": 5}},
+                "sd": {"serial_diff": {"buckets_path": "mx", "lag": 1}},
+                "mp": {"moving_percentiles": {"buckets_path": "pc",
+                                              "window": 4}},
+                "nz": {"normalize": {"buckets_path": "b",
+                                     "method": "percent_of_sum"}},
+                "cc": {"cumulative_cardinality": {"buckets_path": "card"}},
+                "avg_b": {"bucket_script": {
+                    "buckets_path": {"b": "b", "n": "_count"},
+                    "script": "params.b / params.n"}},
+                "busy": {"bucket_selector": {
+                    "buckets_path": {"n": "_count"},
+                    "script": "params.n > 100"}}}}}}),
+        ("tsvb_match", "logs", {"size": 0, "query": inc, "aggs": {
+            "h": {"date_histogram": {"field": "@timestamp",
+                                     "fixed_interval": "1h"}, "aggs": {
+                "b": {"max": {"field": "bytes"}},
+                "d": {"serial_diff": {"buckets_path": "b", "lag": 2}},
+                "r": {"bucket_script": {
+                    "buckets_path": {"b": "b"},
+                    "script": "params.b * 8 / 1024"}}}}}}),
+        ("auto_date", "logs", {"size": 0, "aggs": {"a": {
+            "auto_date_histogram": {"field": "@timestamp", "buckets": 30},
+            "aggs": {"b": {"avg": {"field": "bytes"}}}}}}),
+        ("vwh", "logs", {"size": 0, "query": m[1], "aggs": {"v": {
+            "variable_width_histogram": {"field": "bytes",
+                                         "buckets": 10}}}}),
+        ("latest", "logs", {"size": 0, "aggs": {"s": {
+            "terms": {"field": "status"}, "aggs": {"t": {"top_metrics": {
+                "metrics": [{"field": "bytes"}],
+                "sort": {"@timestamp": "desc"}, "size": 3}}}}}}),
+        ("stats", "logs", {"size": 0, "query": m[2], "aggs": {
+            "tt": {"t_test": {
+                "a": {"field": "bytes", "filter": {"term": {"status": 200}}},
+                "b": {"field": "bytes", "filter": {"term": {"status": 500}}},
+                "type": "heteroscedastic"}},
+            "ms": {"matrix_stats": {"fields": ["bytes", "status"]}},
+            "bx": {"boxplot": {"field": "bytes"}},
+            "mad": {"median_absolute_deviation": {"field": "bytes"}}}}),
+        ("adjacency", "logs", {"size": 0, "aggs": {"adj": {
+            "adjacency_matrix": {"filters": {
+                "err": {"term": {"status": 500}},
+                "incident": inc,
+                "big": {"range": {"bytes": {"gte": 10000}}}}}}}}),
+        ("samplers", "logs", {"size": 0, "query": m[3], "aggs": {
+            "s": {"sampler": {"shard_size": 1000},
+                  "aggs": {"st": {"terms": {"field": "status"}}}},
+            "d": {"diversified_sampler": {"field": "status",
+                                          "shard_size": 200,
+                                          "max_docs_per_value": 50},
+                  "aggs": {"b": {"stats": {"field": "bytes"}}}}}}),
+        ("scripted", "logs", {"size": 0, "query": {"range": {
+            "@timestamp": {"lt": scripted_to}}}, "aggs": {"sm": {
+                "scripted_metric": {
+                    "init_script": "state.n = 0; state.b = 0.0",
+                    "map_script": "if (!doc['bytes'].empty) "
+                                  "{ state.n += 1; "
+                                  "state.b += doc['bytes'].value }",
+                    "combine_script": "return state",
+                    "reduce_script": "double b = 0; long n = 0; "
+                                     "for (def s : states) { b += s.b; "
+                                     "n += s.n } return n == 0 ? 0 "
+                                     ": b / n"}}}}),
+        # hybrid: the bench's skewed cat
+        ("rare", "hybrid", {"size": 0, "query": m[4], "aggs": {
+            "r": {"rare_terms": {"field": "cat", "max_doc_count": 3}},
+            "ss": {"string_stats": {"field": "cat"}}}}),
+        # bench5: 5 shards
+        ("significant", "bench5", {"size": 0, "query": m[0], "aggs": {
+            "s": {"significant_terms": {"field": "cat",
+                                        "min_doc_count": 3}}}}),
+        ("composite_bench5", "bench5", {"size": 0, "aggs": {"c": {
+            "composite": {"size": COMPOSITE_PAGE, "sources": [
+                {"cat": {"terms": {"field": "cat"}}},
+                {"t": rank_min}]}}}}),
+        ("composite_hybrid", "hybrid", {"size": 0, "aggs": {"c": {
+            "composite": {"size": COMPOSITE_PAGE, "sources": [
+                {"cat": {"terms": {"field": "cat"}}},
+                {"f": {"histogram": {"field": "feat",
+                                     "interval": 0.2}}}]}}}}),
+        # geopoint: Kibana Maps
+        ("maps", "geopoint", {"size": 0, "query": {"geo_bounding_box": {
+            "location": VIEWPORT}}, "aggs": {
+                "grid": {"geotile_grid": {"field": "location",
+                                          "precision": 7, "size": 10000},
+                         "aggs": {"c": {"geo_centroid": {
+                             "field": "location"}}}},
+                "hash": {"geohash_grid": {"field": "location",
+                                          "precision": 5, "size": 100}},
+                "b": {"geo_bounds": {"field": "location"}},
+                "rings": {"geo_distance": {
+                    "field": "location", "unit": "km", "origin": PARIS,
+                    "ranges": [{"to": 100}, {"from": 100, "to": 500},
+                               {"from": 500}]}}}}),
+        ("world", "geopoint", {"size": 0, "aggs": {
+            "grid": {"geohash_grid": {"field": "location", "precision": 3,
+                                      "size": 10000}},
+            "b": {"geo_bounds": {"field": "location"}},
+            "c": {"geo_centroid": {"field": "location"}}}}),
+        ("rings", "geopoint", {"size": 0, "aggs": {"rings": {
+            "geo_distance": {"field": "location", "unit": "km",
+                             "origin": PARIS,
+                             "ranges": [{"to": 100},
+                                        {"from": 100, "to": 500},
+                                        {"from": 500, "to": 2000},
+                                        {"from": 2000}]}}}}),
+        # logs_ip
+        ("ip", "logs_ip", {"size": 0, "query": m[5], "aggs": {"ip": {
+            "ip_range": {"field": "clientip", "ranges": [
+                {"to": "10.0.0.0"}, {"mask": "10.0.0.0/8"},
+                {"from": "11.0.0.0", "to": "172.16.0.0"},
+                {"mask": "192.168.0.0/16"}, {"from": "192.169.0.0"}]}}}}),
+        # qa: nested answers; its join twin
+        ("nested", "qa", {"size": 0, "aggs": {"n": {
+            "nested": {"path": "answers"}, "aggs": {
+                "u": {"terms": {"field": "answers.user", "size": 10}},
+                "s": {"stats": {"field": "answers.score"}}}}}}),
+        ("qa_latest", "qa", {"size": 0, "aggs": {"u": {
+            "terms": {"field": "answers.user", "size": 5}, "aggs": {
+                "top": {"top_hits": {"size": 1, "sort": [
+                    {"answers.date": {"order": "desc"}}]}}}}}}),
+        ("lens", "qa", {"size": 0, "aggs": {"mt": {"multi_terms": {
+            "terms": [{"field": "answers.user"},
+                      {"field": "answers.score"}], "size": 10}}}}),
+        ("children", "qa_join", {"size": 0, "aggs": {"a": {
+            "children": {"type": "answer"},
+            "aggs": {"s": {"stats": {"field": "score"}}}}}}),
+        ("parent", "qa_join", {"size": 0, "query": {"range": {
+            "score": {"gte": 40}}}, "aggs": {"q": {
+                "parent": {"type": "answer"}}}}),
+        # fulltext: the _source the text and hits aggs read
+        ("sig_text", "fulltext", {"size": 0, "query": m[6], "aggs": {
+            "st": {"significant_text": {"field": "title",
+                                        "min_doc_count": 2}}}}),
+        ("hits", "fulltext", {"size": 0, "query": m[7], "aggs": {
+            "top": {"top_hits": {"size": 5, "sort": [{"views": "desc"}]}},
+            "first": {"top_hits": {"size": 3}}}}),
+    ]
+
+
+def composite_walk(port, index, body, what):
+    """Every page of a composite body through ``after_key``: (buckets
+    in order, pages, ms a page)."""
+    walked, after, pages, took = [], None, 0, []
+    for _ in range(1000):
+        b = json.loads(json.dumps(body))
+        if after is not None:
+            b["aggs"]["c"]["composite"]["after"] = after
+        t0 = time.perf_counter()
+        st, r = http(port, "POST", f"/{index}/_search", b)
+        took.append((time.perf_counter() - t0) * 1e3)
+        check(st == 200 and r["_shards"]["failed"] == 0,
+              f"{what} page {pages}: {str(r)[:200]}")
+        c = r["aggregations"]["c"]
+        if not c["buckets"]:
+            check("after_key" not in c, f"{what}: an empty page's after_key")
+            break
+        walked += c["buckets"]
+        after = c["after_key"]
+        pages += 1
+    return walked, pages, took
+
+
+def o_composite(cat_terms, cat_ords, key2):
+    """The composite's buckets from one grouped pass: (cat, second key)
+    ascending, doc counts."""
+    u2, inv2 = np.unique(key2, return_inverse=True)
+    code = cat_ords.astype(np.int64) * len(u2) + inv2.reshape(-1)
+    uc, cnt = np.unique(code, return_counts=True)
+    return [(cat_terms[int(c // len(u2))], float(u2[int(c % len(u2))]),
+             int(n)) for c, n in zip(uc, cnt)]
+
+
+def tile_xy(lat, lon, zoom):
+    """Web-mercator tile of float64 points by asinh (the reference
+    takes log(tan + sec)); and whether each point lies within 1e-9 of a
+    tile edge (in tile units), where the two may disagree."""
+    n = 1 << zoom
+    fx = (lon + 180.0) / 360.0 * n
+    la = np.radians(np.clip(lat, -85.05112878, 85.05112878))
+    fy = (1.0 - np.arcsinh(np.tan(la)) / np.pi) / 2.0 * n
+    edge = (np.abs(fx - np.round(fx)) < 1e-9) \
+        | (np.abs(fy - np.round(fy)) < 1e-9)
+    x = np.clip(np.floor(fx), 0, n - 1).astype(np.int64)
+    y = np.clip(np.floor(fy), 0, n - 1).astype(np.int64)
+    return x, y, edge
+
+
+def geohash_keys(lat, lon, precision):
+    """float64 points' geohash cells by bisection of each axis into
+    2^bits equal steps, spelled in base32; and whether each point lies
+    within 1e-9 of a cell edge (in steps)."""
+    nbits = 5 * precision
+    lon_bits, lat_bits = (nbits + 1) // 2, nbits // 2
+    fx = (lon + 180.0) / 360.0 * (1 << lon_bits)
+    fy = (lat + 90.0) / 180.0 * (1 << lat_bits)
+    edge = (np.abs(fx - np.round(fx)) < 1e-9) \
+        | (np.abs(fy - np.round(fy)) < 1e-9)
+    qx = np.clip(np.floor(fx), 0, (1 << lon_bits) - 1).astype(np.int64)
+    qy = np.clip(np.floor(fy), 0, (1 << lat_bits) - 1).astype(np.int64)
+    code = np.zeros(len(lat), np.int64)
+    for i in range(nbits):       # lon takes the even bits
+        src = (qx >> (lon_bits - 1 - i // 2)) if i % 2 == 0 \
+            else (qy >> (lat_bits - 1 - i // 2))
+        code = (code << 1) | (src & 1)
+    return code, edge
+
+
+def b32(code, precision):
+    alphabet = "0123456789bcdefghjkmnpqrstuvwxyz"
+    return "".join(alphabet[(int(code) >> (5 * (precision - 1 - i))) & 31]
+                   for i in range(precision))
+
+
+def check_grid(got_buckets, codes, edge, spell, size, what):
+    """Grid bucket counts against the oracle's cells (integer codes,
+    ``spell`` giving a code's key): exact, but a point within 1e-9 of a
+    cell edge may fall on either side (counted and exempt); the
+    ``size`` best cells by count, then key. Returns the exempt count."""
+    u, c = np.unique(codes[~edge], return_counts=True)
+    want = {spell(k): v for k, v in zip(u.tolist(), c.tolist())}
+    n_edge = int(edge.sum())
+    got = {b["key"]: b["doc_count"] for b in got_buckets}
+    bad = [k for k in got if not 0 <= got[k] - want.get(k, 0) <= n_edge]
+    check(not bad, f"{what}: counts equal numpy's ({n_edge} edge points "
+                   f"exempt): {bad[:5]}")
+    rest = [v for k, v in want.items() if k not in got]
+    check(len(got) == min(size, len(got) + len(rest))
+          and (not rest or max(rest) <= min(got.values()) + n_edge)
+          and (rest or sum(got.values()) == len(codes)),
+          f"{what}: the {len(got)} best cells of {len(got) + len(rest)}")
+    keys = [b["key"] for b in got_buckets]
+    counts = [b["doc_count"] for b in got_buckets]
+    check(all(a > b or (a == b and ka < kb) for a, b, ka, kb in zip(
+        counts, counts[1:], keys, keys[1:])),
+        f"{what}: ordered by count, then key")
+    return n_edge
+
+
+def haversine_m(lat, lon, lat0, lon0):
+    """Great-circle meters from (lat0, lon0), float64 numpy."""
+    p1, l1 = np.radians(lat), np.radians(lon)
+    p2, l2 = np.radians(lat0), np.radians(lon0)
+    h = np.sin((p2 - p1) / 2) ** 2 + np.cos(p1) * np.cos(p2) \
+        * np.sin((l2 - l1) / 2) ** 2
+    return 2 * 6371008.7714 * np.arcsin(np.sqrt(np.clip(h, 0, 1)))
+
+
+def near(got, want, what, rtol=DEFERRED_RTOL):
+    check(got is not None and np.isclose(got, want, rtol=rtol, atol=0),
+          f"{what}: {got!r} vs {want!r} (rtol {rtol})")
+
+
+def jlh(fg, bg, fg_total, bg_total):
+    fr, br = fg / fg_total, bg / bg_total
+    return (fr - br) * (fr / br)
+
+
+def phase_aggs_deferred(node, port, corpus, queries, logs, cols, feat,
+                        conns, counters, cpu, hbm_log):
+    """The 35 deferred aggregation types on one H100 (module docstring,
+    phase 14)."""
+    import scipy.stats
+
+    from elasticsearch_tpu_torch.corpus import (DAY_MS, LOGS_T0_MS,
+                                                bench_cat, dense_scores,
+                                                term_name)
+    from elasticsearch_tpu_torch.telemetry.engine import TRACKER
+    t_phase = time.time()
+    n = len(corpus["lens"])
+    out = {}
+    texts = [" ".join(term_name(t) for t in q) for q in queries[:8]]
+    vocab = len(corpus["df"])
+    inc_terms = " ".join(term_name(vocab + i) for i in range(2))
+    # the scripted_metric's bounded filter: the first docs of the day
+    n_scripted = min(SCRIPTED_DOCS, n // 10)
+    scripted_to = LOGS_T0_MS + n_scripted * (DAY_MS // n)
+    cases = deferred_bodies(texts, inc_terms, LOGS_T0_MS, scripted_to)
+    covered = set().union(*(agg_types(b["aggs"]) for _, _, b in cases))
+    check(set(DEFERRED_TYPES) <= covered,
+          f"phase 14 sends every deferred type: missing "
+          f"{sorted(set(DEFERRED_TYPES) - covered)}")
+    shard_total = {"bench5": SHARDS}
+
+    # ---- the counted window: each body once with profile: true, the
+    # composite walks, the dashboard mix; the kernels' counts set to 0
+    # just before
+    _, k0 = http(port, "GET", "/_kernels")
+    scorings0 = TRACKER.calls("bm25_dense_scores_sorted")
+    for c in counters.values():
+        c.launches = 0
+    res, took = {}, {}
+    for name, index, body in cases:
+        t0 = time.perf_counter()
+        st, r = http(port, "POST", f"/{index}/_search",
+                     dict(body, profile=True))
+        took[name] = (time.perf_counter() - t0) * 1e3
+        check(st == 200, f"phase 14 {name} -> {st} {str(r)[:300]}")
+        check(r["_shards"]["failed"] == 0
+              and r["_shards"]["total"] == shard_total.get(index, 1),
+              f"phase 14 {name}: _shards {r['_shards']}")
+        res[name] = r
+    walks = {}
+    for name in ("composite_bench5", "composite_hybrid"):
+        index, body = next((i, b) for nm, i, b in cases if nm == name)
+        walks[name] = composite_walk(port, index, body, name)
+    mix_names = ("maps", "tsvb", "latest", "significant", "lens",
+                 "composite_bench5", "nested", "tsvb_match")
+    mix = [(i, b) for nm, i, b in cases if nm in mix_names] * 4
+    mres, mlat, mwall = drive(port, [b for _, b in mix], min(conns, 8),
+                              [i for i, _ in mix])
+    check(all(st == 200 and r["_shards"]["failed"] == 0 for st, r in mres),
+          "phase 14 dashboard mix: every answer 200 with no failed shard")
+    launches = {name: c.launches for name, c in counters.items()}
+    dense_scorings = TRACKER.calls("bm25_dense_scores_sorted") - scorings0
+    _, k1 = http(port, "GET", "/_kernels")
+    calls = {name: k1["kernels"].get(name, {}).get("calls", 0)
+             - k0["kernels"].get(name, {}).get("calls", 0)
+             for name in counters}
+    out["launches"] = launches
+    out["kernels_calls"] = calls
+    out["dense_scorings"] = dense_scorings
+    check(calls == launches
+          and launches["gather_bm25_contrib"] == dense_scorings > 0
+          and launches["merge_sorted_slots"] == 0,
+          f"phase 14: the contribution kernel launched once per dense BM25 "
+          f"scoring ({dense_scorings}), the merge not at all, and "
+          f"/_kernels agrees: {launches} vs {calls}")
+    p50, p99 = p50_p99(mlat)
+    out["mix"] = dict(bodies=len(mix), clients=min(conns, 8),
+                      qps=len(mix) / mwall, p50_ms=p50, p99_ms=p99)
+    # each body's query and aggregation ms from its profile (the profile
+    # folds the aggregation into the first shard's query entry)
+    out["bodies"] = {}
+    for name, _index, body in cases:
+        ph = res[name]["profile"]["coordinator"]["phases"]
+        out["bodies"][name] = dict(
+            types=sorted(agg_types(body["aggs"])), http_ms=took[name],
+            query_ms=(ph["query_ns"] - ph["aggs_ns"]) / 1e6,
+            aggs_ms=ph["aggs_ns"] / 1e6)
+    out["window_s"] = time.time() - t_phase
+    log(f"[deferred] launches {launches}, dense scorings {dense_scorings}, "
+        f"mix {out['mix']}, window {out['window_s']:.1f} s, walks "
+        f"{ {k: (w[1], sum(w[2]) / 1e3) for k, w in walks.items()} }")
+    log("[deferred] bodies (http, query, aggs ms): " + ", ".join(
+        f"{k} {v['http_ms']:.0f}/{v['query_ms']:.0f}/{v['aggs_ms']:.0f}"
+        for k, v in out["bodies"].items()))
+
+    # ---- the oracles
+    t0 = time.time()
+    a = {name: r["aggregations"] for name, r in res.items()}
+    # composites: every page, concatenated, against one grouped pass
+    cat_ords, cat_terms = bench_cat(n)
+    for name, key2, index in (
+            ("composite_bench5",
+             np.floor(np.arange(n, dtype=np.float64) / 240000.0) * 240000.0,
+             "bench5"),
+            ("composite_hybrid", np.floor(feat / 0.2) * 0.2, "hybrid")):
+        walked, pages, ms = walks[name]
+        want = o_composite(cat_terms, cat_ords, key2)
+        got = [(b["key"]["cat"], b["key"][list(b["key"])[1]],
+                b["doc_count"]) for b in walked]
+        check(got == want, f"{name}: {pages} pages, concatenated, equal "
+                           f"one grouped pass ({len(got)} vs {len(want)})")
+        check(a[name]["c"]["buckets"] == walked[:COMPOSITE_PAGE],
+              f"{name}: the first page as walked")
+        out.setdefault("composite", {})[index] = dict(
+            pages=pages, buckets=len(walked), ms_a_page=float(np.mean(ms)),
+            page_ms=ms)
+    # significant_terms on bench5: foreground and background counts
+    fg_mask = dense_scores(corpus, queries[0]) > 0
+    fg = np.bincount(cat_ords[fg_mask], minlength=len(cat_terms))
+    bg = np.bincount(cat_ords, minlength=len(cat_terms))
+    sig = a["significant"]["s"]
+    check(sig["doc_count"] == int(fg_mask.sum()) and sig["bg_count"] == n,
+          "significant_terms: foreground and background totals")
+    for b in sig["buckets"]:
+        o = cat_terms.index(b["key"])
+        check(b["doc_count"] == int(fg[o]) and b["bg_count"] == int(bg[o]),
+              f"significant_terms {b['key']}: counts")
+        near(b["score"], jlh(fg[o], bg[o], fg_mask.sum(), n),
+             f"significant_terms {b['key']}: JLH")
+    # rare_terms and string_stats on hybrid under a match
+    hm = dense_scores(corpus, queries[4]) > 0
+    hc = np.bincount(cat_ords[hm], minlength=len(cat_terms))
+    want_rare = sorted((int(hc[o]), cat_terms[o]) for o in range(len(hc))
+                       if 0 < hc[o] <= 3)
+    check([(b["doc_count"], b["key"]) for b in a["rare"]["r"]["buckets"]]
+          == want_rare, "rare_terms: counts and order")
+    ss = a["rare"]["ss"]
+    lens_ = np.array([len(cat_terms[o]) for o in cat_ords[hm]])
+    chars = Counter()
+    for o in np.nonzero(hc)[0]:
+        for ch in cat_terms[o]:
+            chars[ch] += int(hc[o])
+    p = np.array(list(chars.values()), np.float64) / sum(chars.values())
+    check(ss["count"] == int(hm.sum()) and ss["min_length"] == lens_.min()
+          and ss["max_length"] == lens_.max(), "string_stats: counts")
+    near(ss["avg_length"], lens_.mean(), "string_stats: avg_length")
+    near(ss["entropy"], float(-(p * np.log2(p)).sum()), "string_stats: entropy")
+    # logs: t_test, matrix_stats, adjacency and the samplers
+    by = cols["bytes"]["values"]
+    status = cols["status"]["values"]
+    m2 = dense_scores(logs, queries[2]) > 0
+    xa = by[m2 & (status == 200) & ~np.isnan(by)]
+    xb = by[m2 & (status == 500) & ~np.isnan(by)]
+    near(a["stats"]["tt"]["value"],
+         float(scipy.stats.ttest_ind(xa, xb, equal_var=False).pvalue),
+         "t_test")
+    both = m2 & ~np.isnan(by)
+    mat = np.stack([by[both], status[both]])
+    cov = np.cov(mat)           # the sample (n - 1) covariance
+    ms = a["stats"]["ms"]
+    check(ms["doc_count"] == int(both.sum()), "matrix_stats: doc_count")
+    for i, f in enumerate(("bytes", "status")):
+        fs = next(x for x in ms["fields"] if x["name"] == f)
+        d = mat[i] - mat[i].mean()
+        sd = np.sqrt(cov[i, i])
+        near(fs["mean"], mat[i].mean(), f"matrix_stats {f} mean")
+        near(fs["variance"], cov[i, i], f"matrix_stats {f} variance")
+        # the moments over the sample standard deviation
+        near(fs["skewness"], float(np.mean(d ** 3) / sd ** 3),
+             f"matrix_stats {f} skewness")
+        near(fs["kurtosis"], float(np.mean(d ** 4) / sd ** 4),
+             f"matrix_stats {f} kurtosis")
+        near(fs["correlation"]["bytes" if i else "status"],
+             float(np.corrcoef(mat)[0, 1]), f"matrix_stats {f} correlation")
+    inc_mask = dense_scores(logs, [vocab, vocab + 1]) > 0
+    big = ~np.isnan(by) & (by.astype(np.float32) >= np.float32(10000))
+    masks = {"err": status == 500, "incident": inc_mask, "big": big}
+    want_adj = []
+    names = sorted(masks)
+    for i, x in enumerate(names):
+        want_adj.append((x, int(masks[x].sum())))
+        for y in names[i + 1:]:
+            want_adj.append((f"{x}&{y}", int((masks[x] & masks[y]).sum())))
+    check([(b["key"], b["doc_count"]) for b in a["adjacency"]["adj"]["buckets"]]
+          == [kv for kv in want_adj if kv[1]], "adjacency_matrix: counts")
+    m3 = np.nonzero(dense_scores(logs, queries[3]) > 0)[0]
+    first = m3[:1000]
+    got_s = {b["key"]: b["doc_count"]
+             for b in a["samplers"]["s"]["st"]["buckets"]}
+    u, c = np.unique(status[first], return_counts=True)
+    check(a["samplers"]["s"]["doc_count"] == len(first)
+          and got_s == {int(k): int(v) for k, v in zip(u, c)},
+          "sampler: the first 1000 matched docs by docid")
+    # scripted_metric: the bounded filter's count and its mean bytes
+    ts32 = cols["@timestamp"]["values"].astype(np.float32)
+    sm_docs = ts32 < np.float32(scripted_to)
+    sv = by[sm_docs & ~np.isnan(by)]
+    near(a["scripted"]["sm"]["value"], float(sv.mean()),
+         "scripted_metric: mean bytes")
+    sm_ms = out["bodies"]["scripted"]["aggs_ms"]
+    out["scripted_metric"] = dict(docs=int(sm_docs.sum()), aggs_ms=sm_ms,
+                                  us_per_doc=sm_ms * 1e3 / sm_docs.sum())
+    # geopoint: bounds, centroid, the grids, the rings
+    segs = node.indices["geopoint"].engine.segments
+    lat = np.concatenate([s.numerics["location.lat"].values for s in segs])
+    lon = np.concatenate([s.numerics["location.lon"].values for s in segs])
+    wb = a["world"]["b"]["bounds"]
+    check(wb == {"top_left": {"lat": float(lat.max()),
+                              "lon": float(lon.min())},
+                 "bottom_right": {"lat": float(lat.min()),
+                                  "lon": float(lon.max())}},
+          f"geo_bounds: exact {wb}")
+    wc = a["world"]["c"]
+    check(wc["count"] == len(lat), "geo_centroid: count")
+    near(wc["location"]["lat"], lat.mean(), "geo_centroid lat")
+    near(wc["location"]["lon"], lon.mean(), "geo_centroid lon")
+    t1 = time.time()
+    code, edge = geohash_keys(lat, lon, 3)
+    n_edge = check_grid(a["world"]["grid"]["buckets"], code, edge,
+                        lambda c: b32(c, 3), 10000,
+                        "geohash_grid precision 3")
+    lat32, lon32 = lat.astype(np.float32), lon.astype(np.float32)
+    inbox = (lat32 <= np.float32(60.0)) & (lat32 >= np.float32(35.0)) \
+        & (lon32 >= np.float32(-10.0)) & (lon32 <= np.float32(30.0))
+    vlat, vlon = lat[inbox], lon[inbox]
+    x, y, e7 = tile_xy(vlat, vlon, 7)
+    tcode = x * 128 + y
+    n_edge += check_grid(a["maps"]["grid"]["buckets"], tcode, e7,
+                         lambda c: f"7/{c // 128}/{c % 128}", 10000,
+                         "geotile_grid precision 7 in the viewport")
+    vb = a["maps"]["b"]["bounds"]
+    check(vb == {"top_left": {"lat": float(vlat.max()),
+                              "lon": float(vlon.min())},
+                 "bottom_right": {"lat": float(vlat.min()),
+                                  "lon": float(vlon.max())}},
+          "geo_bounds of the viewport")
+    for b in a["maps"]["grid"]["buckets"][:50]:
+        _z, bx, by_ = (int(v) for v in b["key"].split("/"))
+        sel = tcode == bx * 128 + by_
+        if not e7[sel].any():
+            check(b["c"]["count"] == int(sel.sum()),
+                  f"{b['key']} centroid count")
+            near(b["c"]["location"]["lat"], vlat[sel].mean(),
+                 f"{b['key']} centroid lat")
+            near(b["c"]["location"]["lon"], vlon[sel].mean(),
+                 f"{b['key']} centroid lon")
+    out["grid"] = dict(points=len(lat), viewport_points=int(inbox.sum()),
+                       edge_exempt=n_edge, oracle_s=time.time() - t1,
+                       world_aggs_s=out["bodies"]["world"]["aggs_ms"] / 1e3,
+                       maps_aggs_s=out["bodies"]["maps"]["aggs_ms"] / 1e3,
+                       maps_buckets=len(a["maps"]["grid"]["buckets"]),
+                       world_buckets=len(a["world"]["grid"]["buckets"]))
+    for key, sub, edges in (
+            ("rings", (lat, lon), ((None, 100), (100, 500), (500, 2000),
+                                  (2000, None))),
+            ("maps", (vlat, vlon), ((None, 100), (100, 500),
+                                    (500, None)))):
+        dist = haversine_m(*sub, PARIS["lat"], PARIS["lon"])
+        for b, (lo, hi) in zip(a[key]["rings"]["buckets"], edges):
+            sel = np.ones(len(dist), bool)
+            if lo is not None:
+                sel &= dist >= lo * 1000.0
+            if hi is not None:
+                sel &= dist < hi * 1000.0
+            check(b["doc_count"] == int(sel.sum()),
+                  f"geo_distance ring {b['key']} ({key}): {b['doc_count']} "
+                  f"vs {int(sel.sum())}")
+    hcode, hedge = geohash_keys(vlat, vlon, 5)
+    n_edge += check_grid(a["maps"]["hash"]["buckets"], hcode, hedge,
+                         lambda c: b32(c, 5), 100,
+                         "geohash_grid precision 5 in the viewport")
+    del lat, lon, lat32, lon32, vlat, vlon, dist, code
+    # qa: multi_terms over the first values; nested objects
+    qseg = node.indices["qa"].engine.segments[0]
+    ukv = qseg.keywords["answers.user"]
+    snv = qseg.numerics["answers.score"]
+    okq = (ukv.ords >= 0) & ~snv.missing
+    pair = ukv.ords[okq].astype(np.int64) * 1000 + snv.values[okq].astype(
+        np.int64)
+    up, cp = np.unique(pair, return_counts=True)
+    top = np.lexsort((up, -cp))[:10]
+    want_mt = [([ukv.terms[int(up[i] // 1000)], float(up[i] % 1000)],
+                int(cp[i])) for i in top]
+    check([(b["key"], b["doc_count"]) for b in a["lens"]["mt"]["buckets"]]
+          == want_mt, "multi_terms: counts and order")
+    # the objects of a doc: the most values any answers.* column holds
+    nobj = int(np.maximum.reduce([
+        np.diff(col.offsets) for cols_ in (qseg.numerics, qseg.keywords)
+        for f, col in cols_.items() if f.startswith("answers.")]).sum())
+    check(a["nested"]["n"]["doc_count"] == nobj,
+          f"nested: {a['nested']['n']['doc_count']} objects vs {nobj}")
+    jseg = node.indices["qa_join"].engine.segments[0]
+    rel = jseg.keywords["qa"]
+    is_answer = rel.ords == rel.terms.index("answer")
+    check(a["children"]["a"]["doc_count"] == int(is_answer.sum()),
+          "children: every answer of every question")
+    sc = jseg.numerics["score"]
+    hi = is_answer & ~sc.missing \
+        & (sc.values.astype(np.float32) >= np.float32(40))
+    parents = np.unique(jseg.keywords["qa#parent"].ords[hi])
+    check(a["parent"]["q"]["doc_count"] == int((parents >= 0).sum()),
+          "parent: the questions of the answers scored 40 and up")
+    out["oracle_s"] = time.time() - t0
+    log(f"[deferred] the oracles held in {out['oracle_s']:.1f} s")
+
+    # ---- the first body of each type against the port's CPU execution
+    t0 = time.time()
+    seen = set()
+    for name, index, body in cases:
+        types = agg_types(body["aggs"])
+        if types <= seen:
+            continue
+        seen |= types
+        c = cpu.search(index, body)
+        check(c["hits"]["total"] == res[name]["hits"]["total"],
+              f"phase 14 {name}: total vs the CPU")
+        agg_equal(res[name]["aggregations"], c["aggregations"],
+                  f"phase 14 {name} vs the CPU")
+    out["cpu_s"] = time.time() - t0
+    hbm_agrees(node, "aggs_deferred", hbm_log)
+    out["hbm"] = hbm_log[-1]
+    out["phase_s"] = time.time() - t_phase
+    log(f"[deferred] {json.dumps(out)[:2000]}")
     return out
 
 
@@ -7260,10 +7957,16 @@ def main(argv=None) -> int:
                               filt_pool, args.seed + 15, args.clients,
                               counters, cpu, hbm_log)
         clock.lap("13_shards")
+
+        # ---- 14. the deferred aggregation types
+        deferred = phase_aggs_deferred(node, port, corpus, queries, logs,
+                                       cols, feat, args.clients, counters,
+                                       cpu, hbm_log)
+        clock.lap("14_aggs_deferred")
     finally:
         node.close()
 
-    # ---- 14. report
+    # ---- 15. report
     meta = {
         "gather_bm25_contrib": dict(
             source="elasticsearch_tpu_torch/csrc/bm25_contrib.cu",
@@ -7298,6 +8001,7 @@ def main(argv=None) -> int:
             launches_fetch=fetch["launches"][name],
             launches_fields=fields["launches"][name],
             launches_shards=shards["launches"][name],
+            launches_aggs_deferred=deferred["launches"][name],
             dense_shape=(dense["contrib_dense_shape"]
                          if name == "gather_bm25_contrib" else None)))
     print(json.dumps({"scale": scale}))
@@ -7315,6 +8019,7 @@ def main(argv=None) -> int:
     print(json.dumps({"fetch": fetch}))
     print(json.dumps({"fields": fields}))
     print(json.dumps({"shards": shards}))
+    print(json.dumps({"aggs_deferred": deferred}))
     print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))

@@ -12,7 +12,9 @@ runs them with ``xp=jax.numpy``, where a Python origin becomes a weakly
 typed float32 array, so the origin's radians and cosine are float32 as
 well (``_f32_scalar``), and a Python bound or polygon vertex meets a
 float32 column rounded to float32. The geohash and geotile cells of the
-geo aggregations wait with them.
+grid aggregations are host numpy over the point columns, as integer
+codes (``geohash_codes``, ``geotile_codes``) spelled as keys only for
+the distinct cells.
 """
 
 from __future__ import annotations
@@ -132,6 +134,68 @@ def geohash_decode(hash_: str) -> Tuple[float, float]:
                     lat_hi = mid
             even = not even
     return (lat_lo + lat_hi) / 2, (lon_lo + lon_hi) / 2
+
+
+# ---------------------------------------------------------------------------
+# grid cells of the geo aggregations (host numpy over the point columns)
+# ---------------------------------------------------------------------------
+
+def geohash_codes(lats: np.ndarray, lons: np.ndarray,
+                  precision: int) -> np.ndarray:
+    """int64 [n]: each point's geohash as its interleaved bits (lon
+    first, 5 bits a character), the reference's quantization."""
+    nbits = precision * 5
+    lon_bits = (nbits + 1) // 2
+    lat_bits = nbits // 2
+    qlon = np.clip(((lons + 180.0) / 360.0 * (1 << lon_bits)).astype(np.int64),
+                   0, (1 << lon_bits) - 1)
+    qlat = np.clip(((lats + 90.0) / 180.0 * (1 << lat_bits)).astype(np.int64),
+                   0, (1 << lat_bits) - 1)
+    inter = np.zeros(len(lats), np.int64)
+    for i in range(nbits):
+        if i % 2 == 0:  # even global bit = lon
+            src = (qlon >> (lon_bits - 1 - i // 2)) & 1
+        else:
+            src = (qlat >> (lat_bits - 1 - i // 2)) & 1
+        inter = (inter << 1) | src
+    return inter
+
+
+def geohash_strings(codes: np.ndarray, precision: int) -> np.ndarray:
+    """``U{precision}`` [n]: the base32 spelling of ``geohash_codes``."""
+    shifts = (precision - 1 - np.arange(precision)) * 5
+    idx = (np.asarray(codes, np.int64)[:, None] >> shifts[None, :]) & 31
+    chars = np.ascontiguousarray(np.array(list(_BASE32))[idx])
+    return chars.view(f"U{precision}").reshape(-1)
+
+
+def geohash_cells(lats: np.ndarray, lons: np.ndarray,
+                  precision: int) -> np.ndarray:
+    """Each point's geohash cell, ``U{precision}`` [n]."""
+    return geohash_strings(geohash_codes(lats, lons, precision), precision)
+
+
+def geotile_codes(lats: np.ndarray, lons: np.ndarray,
+                  zoom: int) -> np.ndarray:
+    """int64 [n]: each point's web-mercator tile at ``zoom`` as
+    ``x * 2^zoom + y``."""
+    n = 1 << zoom
+    x = np.clip(((lons + 180.0) / 360.0 * n).astype(np.int64), 0, n - 1)
+    lat_r = np.radians(np.clip(lats, -85.05112878, 85.05112878))
+    y = np.clip(((1.0 - np.log(np.tan(lat_r) + 1.0 / np.cos(lat_r)) / np.pi)
+                 / 2.0 * n).astype(np.int64), 0, n - 1)
+    return x * n + y
+
+
+def geotile_strings(codes: np.ndarray, zoom: int) -> np.ndarray:
+    """The ``"z/x/y"`` keys of ``geotile_codes``."""
+    n = 1 << zoom
+    return np.array([f"{zoom}/{int(c) // n}/{int(c) % n}" for c in codes])
+
+
+def geotile_cells(lats: np.ndarray, lons: np.ndarray, zoom: int) -> np.ndarray:
+    """Each point's web-mercator tile key ``"z/x/y"``."""
+    return geotile_strings(geotile_codes(lats, lons, zoom), zoom)
 
 
 # ---------------------------------------------------------------------------

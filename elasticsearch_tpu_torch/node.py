@@ -50,7 +50,7 @@ from elasticsearch_tpu_torch.search.fastpath import FastPathServer
 from elasticsearch_tpu_torch.search.service import SearchService
 from elasticsearch_tpu_torch.telemetry.flightrecorder import FlightRecorder
 
-VERSION = "8.0.0-torch-slice11"
+VERSION = "8.0.0-torch-slice16"
 
 
 class Node:

@@ -23,7 +23,9 @@ every shard and count them in ``_shards``.
 
 `_search` takes the URL parameters ``q``, ``from``, ``size``,
 ``request_cache``, ``allow_partial_search_results`` (merged into the
-body as the reference merges them) and ``search_type``
+body as the reference merges them; the port keeps no request cache, so
+``request_cache: false`` is served and ``true`` is a typed 400) and
+``search_type``
 (``query_then_fetch`` or ``dfs_query_then_fetch``, else a 400); any
 other is a typed 400. A device admission the ``hbm`` breaker refuses
 answers 429 ``circuit_breaking_exception`` with ``bytes_wanted`` and
@@ -55,10 +57,11 @@ match_all, boosting, term(s) on numbers, booleans and dates, ``sort``,
 ``search_after`` and ``min_score``; ``script_score`` (its expression
 scripts ride the plan launch; vector functions, statement scripts and
 ``min_score`` take the dense executor), ``function_score`` and
-``rescore``. A script that fails to compile or run answers 400
-``script_exception``; a stored-script reference (``{"id": ...}``),
-``script_fields`` and the ``_scripts`` routes are a later slice (a
-typed 400). Top-level ``knn`` and ``rank.rrf``
+``rescore``; ``script_fields`` and the ``aggs`` tree (every
+aggregation type of the reference) are computed over the matched docs.
+A script that fails to compile or run answers 400 ``script_exception``;
+a stored-script reference (``{"id": ...}``) and the ``_scripts`` routes
+are a later slice (a typed 400). Top-level ``knn`` and ``rank.rrf``
 (hybrid retrieval over ``dense_vector`` fields, which ``PUT /{index}``
 maps and ``_bulk`` indexes) go to the search service too: the fast
 grammar and the C++ front refuse both keys. What none serves is answered
@@ -281,7 +284,8 @@ class RestController:
                           f"Invalid index name [{index}]", index=index)
         if index in self.node.indices:
             return _error(400, "resource_already_exists_exception",
-                          f"index [{index}] already exists", index=index)
+                          f"resource [index [{index}]] already exists",
+                          resource=f"index [{index}]")
         body = body or {}
         self.node.create_index(index, body.get("mappings"),
                                body.get("settings"))

@@ -342,7 +342,12 @@ class _ShardProfiles:
             if si == 0 and self.aggs is not None:
                 agg_rec, agg_ns = self.aggs
                 _fold_rec(rec, agg_rec)
-                rec["aggs.collect"] = agg_ns
+                # the named host stages of the aggregation (aggs.group,
+                # aggs.script, ...) beside the rest of its time, so the
+                # stages sum to it once
+                named = sum(v for k, v in agg_rec.items()
+                            if k.startswith("aggs.") and k != "aggs.collect")
+                rec["aggs.collect"] = max(0, agg_ns - named)
             entry = _prof.shard_profile_tree(shard_id, self.body, rec,
                                              total_ns)
             if si in self.fetch_ns:
@@ -384,6 +389,10 @@ class SearchService:
         (``query_then_fetch``, the default, or ``dfs_query_then_fetch``)
         asks."""
         t0 = time.time()
+        if body.get("request_cache") is False:
+            # the port keeps no request cache: a body asking for none
+            # asks what it does (``true`` waits with the cache)
+            body = {k: v for k, v in body.items() if k != "request_cache"}
         extra = sorted(set(body) - BODY_KEYS)
         if extra:
             raise SliceUnsupported(
@@ -468,7 +477,8 @@ class SearchService:
         if from_ + size > MAX_TOPK:
             raise IllegalArgumentException(
                 f"Result window is too large, from + size must be less "
-                f"than or equal to: [{MAX_TOPK}]")
+                f"than or equal to: [{MAX_TOPK}]. Use the scroll API or "
+                f"search_after")
         query = (parse_query(body["query"]) if body.get("query")
                  else MatchAllQuery())
         if searchers:

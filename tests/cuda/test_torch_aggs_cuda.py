@@ -161,3 +161,194 @@ def test_an_aggs_body_through_a_cuda_node(cuda_device):
         [(b["key"], b["doc_count"]) for b in ca["h"]["buckets"]]
     for g, c in zip(ga["h"]["buckets"], ca["h"]["buckets"]):
         assert g["s"]["value"] == pytest.approx(c["s"]["value"], rel=RTOL)
+
+
+# ---------------------------------------------------------------------------
+# the 35 aggregation types earlier slices deferred: a CUDA node against a
+# CPU node over the same seeded documents
+# ---------------------------------------------------------------------------
+
+SMALL_MAPPINGS = {"properties": {
+    "title": {"type": "text"}, "cat": {"type": "keyword"},
+    "tags": {"type": "keyword"}, "price": {"type": "double"},
+    "qty": {"type": "long"}, "ts": {"type": "date"},
+    "loc": {"type": "geo_point"}, "ip": {"type": "ip"},
+    "items": {"type": "nested", "properties": {
+        "sku": {"type": "keyword"}, "n": {"type": "integer"}}},
+    "rel": {"type": "join", "relations": {"question": "answer"}}}}
+WORDS = ["red", "green", "blue", "fast", "slow", "error", "cache", "api"]
+
+
+def small_bulk(n=800, seed=41):
+    """Seeded documents over every field type the deferred aggregations
+    read; the first 100 are questions, the rest answers routed to one."""
+    import json
+    rng = np.random.default_rng(seed)
+    lines = []
+    for i in range(n):
+        d = {"title": " ".join(rng.choice(WORDS, int(rng.integers(1, 5)))),
+             "cat": f"c{int(rng.integers(0, 12)):02d}",
+             "price": float(np.round(rng.random() * 100, 2)),
+             "ts": 1767225600000 + i * 600_000,
+             "loc": {"lat": float(np.round(rng.uniform(-60, 70), 5)),
+                     "lon": float(np.round(rng.uniform(-180, 180), 5))},
+             "ip": f"10.{int(rng.integers(0, 3))}.{int(rng.integers(0, 256))}"
+                   f".{int(rng.integers(0, 256))}"}
+        if rng.random() < 0.8:
+            d["qty"] = int(rng.integers(1, 50))
+        if rng.random() < 0.7:
+            d["tags"] = [str(t) for t in rng.choice(WORDS, 2)]
+        if rng.random() < 0.6:
+            d["items"] = [{"sku": f"s{int(rng.integers(0, 5))}",
+                           "n": int(rng.integers(1, 9))}
+                          for _ in range(int(rng.integers(1, 4)))]
+        meta = {"_id": str(i)}
+        if i < 100:
+            d["rel"] = "question"
+        else:
+            parent = str(int(rng.integers(0, 100)))
+            d["rel"] = {"name": "answer", "parent": parent}
+            meta["routing"] = parent
+        lines.append(json.dumps({"index": meta}) + "\n" + json.dumps(d)
+                     + "\n")
+    return "".join(lines)
+
+
+CAT = {"field": "cat"}
+DAILY = {"date_histogram": {"field": "ts", "fixed_interval": "12h"}}
+DEFERRED_BODIES = {
+    "adjacency_matrix": {"a": {"adjacency_matrix": {"filters": {
+        "cheap": {"range": {"price": {"lt": 30}}},
+        "red": {"match": {"title": "red"}}, "c01": {"term": {"cat": "c01"}}}}}},
+    "auto_date_histogram": {"a": {"auto_date_histogram": {
+        "field": "ts", "buckets": 8}, "aggs": {"p": {"avg": {"field": "price"}}}}},
+    "boxplot": {"b": {"boxplot": {"field": "price"}}},
+    "bucket_script": {"d": dict(DAILY, aggs={
+        "p": {"sum": {"field": "price"}},
+        "s": {"bucket_script": {"buckets_path": {"p": "p", "n": "_count"},
+                                "script": "params.p / params.n"}}})},
+    "bucket_selector": {"c": {"terms": CAT, "aggs": {
+        "p": {"sum": {"field": "price"}},
+        "s": {"bucket_selector": {"buckets_path": {"p": "p"},
+                                  "script": "params.p > 3000"}}}}},
+    "children": {"c": {"children": {"type": "answer"},
+                       "aggs": {"cats": {"terms": CAT}}}},
+    "composite": {"c": {"composite": {"size": 20, "sources": [
+        {"cat": {"terms": {"field": "cat", "order": "desc"}}},
+        {"q": {"histogram": {"field": "qty", "interval": 10,
+                             "missing_bucket": True}}}],
+        "after": {"cat": "c09", "q": None}},
+        "aggs": {"p": {"max": {"field": "price"}}}}},
+    "cumulative_cardinality": {"d": dict(DAILY, aggs={
+        "u": {"cardinality": CAT},
+        "cc": {"cumulative_cardinality": {"buckets_path": "u"}}})},
+    "diversified_sampler": {"s": {"diversified_sampler": {
+        "field": "cat", "shard_size": 40, "max_docs_per_value": 2},
+        "aggs": {"p": {"avg": {"field": "price"}}}}},
+    "geo_bounds": {"g": {"geo_bounds": {"field": "loc"}}},
+    "geo_centroid": {"g": {"geo_centroid": {"field": "loc"}}},
+    "geo_distance": {"g": {"geo_distance": {
+        "field": "loc", "origin": "48.8566,2.3522", "unit": "km",
+        "ranges": [{"to": 2000}, {"from": 2000, "to": 8000},
+                   {"from": 8000}]}}},
+    "geohash_grid": {"g": {"geohash_grid": {"field": "loc", "precision": 2},
+                           "aggs": {"c": {"geo_centroid": {
+                               "field": "loc"}}}}},
+    "geotile_grid": {"g": {"geotile_grid": {"field": "loc", "precision": 3,
+                                            "size": 30},
+                           "aggs": {"p": {"avg": {"field": "price"}}}}},
+    "ip_range": {"i": {"ip_range": {"field": "ip", "ranges": [
+        {"to": "10.1.0.0"}, {"mask": "10.1.0.0/16"},
+        {"from": "10.2.0.0"}]}}},
+    "matrix_stats": {"m": {"matrix_stats": {"fields": ["price", "qty"]}}},
+    "median_absolute_deviation": {"m": {"median_absolute_deviation": {
+        "field": "price"}}},
+    "moving_avg": {"d": dict(DAILY, aggs={
+        "p": {"sum": {"field": "price"}},
+        "m": {"moving_avg": {"buckets_path": "p", "window": 3}}})},
+    "moving_fn": {"d": dict(DAILY, aggs={
+        "p": {"sum": {"field": "price"}},
+        "m": {"moving_fn": {"buckets_path": "p", "window": 3,
+                            "script": "MovingFunctions.max(values)"}}})},
+    "moving_percentiles": {"d": dict(DAILY, aggs={
+        "p": {"percentiles": {"field": "price", "percents": [50]}},
+        "m": {"moving_percentiles": {"buckets_path": "p", "window": 3}}})},
+    "multi_terms": {"m": {"multi_terms": {"terms": [CAT, {"field": "tags"}],
+                                          "size": 8}}},
+    "nested": {"n": {"nested": {"path": "items"}, "aggs": {
+        "s": {"terms": {"field": "items.sku"}}}}},
+    "normalize": {"d": dict(DAILY, aggs={
+        "p": {"sum": {"field": "price"}},
+        "z": {"normalize": {"buckets_path": "p", "method": "z-score"}}})},
+    "parent": {"p": {"parent": {"type": "answer"}}},
+    "rare_terms": {"r": {"rare_terms": {"field": "tags",
+                                        "max_doc_count": 100}}},
+    "sampler": {"s": {"sampler": {"shard_size": 50},
+                      "aggs": {"c": {"terms": CAT}}}},
+    "scripted_metric": {"s": {"scripted_metric": {
+        "init_script": "state.s = 0.0",
+        "map_script": "state.s += doc['price'].value",
+        "combine_script": "return state.s",
+        "reduce_script": "double t = 0; for (def x : states) { t += x } "
+                         "return t"}}},
+    "serial_diff": {"d": dict(DAILY, aggs={
+        "p": {"sum": {"field": "price"}},
+        "s": {"serial_diff": {"buckets_path": "p", "lag": 2}}})},
+    "significant_terms": {"s": {"significant_terms": {"field": "tags",
+                                                      "min_doc_count": 2}}},
+    "significant_text": {"s": {"significant_text": {"field": "title",
+                                                    "min_doc_count": 2}}},
+    "string_stats": {"s": {"string_stats": {"field": "tags",
+                                            "show_distribution": True}}},
+    "t_test": {"t": {"t_test": {
+        "a": {"field": "price", "filter": {"term": {"cat": "c01"}}},
+        "b": {"field": "price", "filter": {"term": {"cat": "c02"}}}}}},
+    "top_hits": {"c": {"terms": {"field": "cat", "size": 3}, "aggs": {
+        "t": {"top_hits": {"size": 2, "sort": [{"price": "desc"}]}}}}},
+    "top_metrics": {"t": {"top_metrics": {"metrics": [{"field": "qty"}],
+                                          "sort": {"ts": "desc"},
+                                          "size": 3}}},
+    "variable_width_histogram": {"v": {"variable_width_histogram": {
+        "field": "price", "buckets": 6}}},
+}
+
+
+@pytest.fixture(scope="module")
+def small_nodes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels of csrc/ run only on "
+                    "the card")
+    nodes = [Node(device=torch.device("cuda", torch.cuda.current_device())),
+             Node(device="cpu")]
+    bulk = small_bulk()
+    for node in nodes:
+        c = node.rest_controller
+        st, r = c.dispatch("PUT", "/small", {}, {
+            "mappings": SMALL_MAPPINGS,
+            "settings": {"index": {"number_of_shards": 2}}})
+        assert st == 200, r
+        st, r = c.dispatch("POST", "/small/_bulk", {"refresh": "true"}, bulk)
+        assert st == 200 and not r["errors"], r
+    yield nodes
+    for node in nodes:
+        node.close()
+
+
+@pytest.mark.parametrize("agg_type", sorted(DEFERRED_BODIES))
+def test_each_deferred_type_on_the_card_equals_the_cpu(small_nodes,
+                                                       agg_type):
+    """Each type on a CUDA node (its query masks on the card) equals a
+    CPU node over the same documents, under match_all and a match:
+    every key, count and value exactly (the aggregations are host
+    numpy over the same masks)."""
+    assert len(DEFERRED_BODIES) == 35
+    for query in ({"match_all": {}}, {"match": {"title": "red cache"}}):
+        body = {"size": 0, "query": query,
+                "aggs": DEFERRED_BODIES[agg_type]}
+        answers = [n.rest_controller.dispatch("POST", "/small/_search", {},
+                                              body) for n in small_nodes]
+        (st_g, gpu), (st_c, cpu) = answers
+        assert st_g == st_c == 200, (gpu, cpu)
+        assert gpu["_shards"]["failed"] == 0
+        assert gpu["hits"]["total"] == cpu["hits"]["total"]
+        assert gpu["aggregations"] == cpu["aggregations"]

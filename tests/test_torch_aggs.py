@@ -18,8 +18,10 @@
   ``DEVICE_AGG_MIN_DOCS`` at its default (every collector on the host)
   and at 0 in both packages (the device collectors on CPU tensors and
   on the reference's CPU jax).
-- Every deferred agg type answers a typed 400; a collector that raises
-  fails the request (a 500), never answers from the host.
+- Each of the 35 types earlier slices deferred answers as the
+  reference does, at top level and nested (tests/test_torch_aggs_deferred.py
+  holds them in depth); a collector that raises fails the request (a
+  500), never answers from the host.
 
 Tolerance: keys, order, ``doc_count``, ``sum_other_doc_count``, ``min``
 and ``max`` exact, and every value exact where both packages answer on
@@ -715,21 +717,81 @@ def test_rrf_aggs_ride_the_query_branch(nodes, gate):
     assert got["aggregations"] == alone["aggregations"]
 
 
-@pytest.mark.parametrize("agg_type",
-                         sorted(port_aggregations.DEFERRED_AGGS))
-def test_deferred_types_answer_a_typed_400(nodes, agg_type):
-    """Each type the reference knows and this slice defers is a 400
-    ``unsupported_in_slice_exception``, nested or not, before any agg
-    of the tree is computed."""
-    _, node = nodes
-    for aggs in ({"x": {agg_type: {}}},
+# the 35 types the port's earlier slices deferred, each with a body over
+# the shop documents
+FORMERLY_DEFERRED = {
+    "adjacency_matrix": {"filters": {
+        "a": {"term": {"category": "fruit"}},
+        "b": {"range": {"price": {"gte": 2}}}}},
+    "auto_date_histogram": {"field": "sold_at", "buckets": 2},
+    "boxplot": {"field": "price"},
+    "bucket_script": {"buckets_path": {"n": "_count"},
+                      "script": "params.n * 2"},
+    "bucket_selector": {"buckets_path": {"n": "_count"},
+                        "script": "params.n > 1"},
+    "children": {"type": "answer"},
+    "composite": {"size": 3, "sources": [
+        {"c": {"terms": {"field": "category"}}},
+        {"q": {"histogram": {"field": "qty", "interval": 5,
+                             "missing_bucket": True}}}]},
+    "cumulative_cardinality": {"buckets_path": "_count"},
+    "diversified_sampler": {"field": "category", "shard_size": 3},
+    "geo_bounds": {"field": "price"},
+    "geo_centroid": {"field": "price"},
+    "geo_distance": {"field": "price", "origin": "0,0",
+                     "ranges": [{"to": 10}]},
+    "geohash_grid": {"field": "price"},
+    "geotile_grid": {"field": "price"},
+    "ip_range": {"field": "price", "ranges": [{"to": "0.0.0.3"},
+                                              {"from": "0.0.0.3"}]},
+    "matrix_stats": {"fields": ["price", "qty"]},
+    "median_absolute_deviation": {"field": "price"},
+    "moving_avg": {"buckets_path": "_count", "window": 2},
+    "moving_fn": {"buckets_path": "_count", "window": 2,
+                  "script": "MovingFunctions.min(values)"},
+    "moving_percentiles": {"buckets_path": "p", "window": 2},
+    "multi_terms": {"terms": [{"field": "category"}, {"field": "qty"}]},
+    "nested": {"path": "items"},
+    "normalize": {"buckets_path": "_count", "method": "rescale_0_1"},
+    "parent": {"type": "answer"},
+    "rare_terms": {"field": "category", "max_doc_count": 2},
+    "sampler": {"shard_size": 2},
+    "scripted_metric": {"map_script": "state.n = 1"},
+    "serial_diff": {"buckets_path": "_count", "lag": 1},
+    "significant_terms": {"field": "category", "min_doc_count": 1},
+    "significant_text": {"field": "name", "min_doc_count": 1},
+    "string_stats": {"field": "category"},
+    "t_test": {"a": {"field": "price"}, "b": {"field": "qty"}},
+    "top_hits": {"size": 2, "sort": [{"price": "desc"}]},
+    "top_metrics": {"metrics": {"field": "qty"}, "sort": {"price": "asc"}},
+    "variable_width_histogram": {"field": "price", "buckets": 2},
+}
+
+
+@pytest.mark.parametrize("agg_type", sorted(FORMERLY_DEFERRED))
+def test_each_formerly_deferred_type_equals_the_reference(nodes, agg_type):
+    """Each type an earlier slice answered with a typed 400 answers as
+    the reference does, at top level and nested under histogram ->
+    terms: the same status, and the same aggregations or error."""
+    jax_node, node = nodes
+    body = FORMERLY_DEFERRED[agg_type]
+    for aggs in ({"x": {agg_type: body}},
                  {"h": {"histogram": {"field": "price", "interval": 5},
                         "aggs": {"lv": {"terms": {"field": "category"},
-                                        "aggs": {"x": {agg_type: {}}}}}}}):
-        st, r = node.rest_controller.dispatch("POST", "/shop/_search", {},
-                                              {"size": 0, "aggs": aggs})
-        assert st == 400, r
-        assert r["error"]["type"] == "unsupported_in_slice_exception"
+                                        "aggs": {"x": {agg_type: body}}}}}}):
+        req = {"size": 0, "aggs": aggs}
+        st, got = node.rest_controller.dispatch("POST", "/shop/_search", {},
+                                                req)
+        st2, ref = jax_node.rest_controller.dispatch(
+            "POST", "/shop/_search", {}, dict(req, request_cache=False))
+        assert st == st2, (got, ref)
+        if st == 200:
+            assert_same_aggs(got["aggregations"], ref["aggregations"], 0.0)
+        else:
+            assert got["error"]["type"] == ref["error"]["type"] \
+                != "unsupported_in_slice_exception", (got, ref)
+            if st == 400:
+                assert got["error"]["reason"] == ref["error"]["reason"]
 
 
 def test_unknown_type_is_a_parsing_exception(nodes):

@@ -166,6 +166,28 @@ def test_geohash_roundtrip():
         assert abs(dlat - lat) < 1e-5 and abs(dlon - lon) < 1e-5
 
 
+@pytest.mark.parametrize("kind,precision", [
+    ("geohash", p) for p in (1, 3, 5, 7, 12)] + [
+    ("geotile", z) for z in (0, 4, 7, 14, 20, 29)])
+def test_grid_cells_equal_the_reference(kind, precision):
+    """The grid aggregations' cells (the integer codes spelled as keys)
+    equal the reference's strings, dtype and all, on seeded points, the
+    poles, the antimeridian and the cell edges of the precision."""
+    rng = np.random.default_rng(precision)
+    lat = rng.uniform(-90, 90, 3000)
+    lon = rng.uniform(-180, 180, 3000)
+    n = 1 << (precision if kind == "geotile" else (5 * precision + 1) // 2)
+    edges = np.arange(-180.0, 180.0, 360.0 / min(n, 512))
+    lat = np.concatenate([lat, [90.0, -90.0, 0.0, 85.06, -85.06],
+                          np.zeros(len(edges))])
+    lon = np.concatenate([lon, [180.0, -180.0, 0.0, 179.999999, -180.0],
+                          edges])
+    port = getattr(geo, f"{kind}_cells")(lat, lon, precision)
+    ref = getattr(jgeo, f"{kind}_cells")(lat, lon, precision)
+    assert port.dtype == ref.dtype
+    assert port.tolist() == ref.tolist()
+
+
 def test_haversine_known_distance():
     d = geo.haversine_meters(51.5074, -0.1278, 48.8566, 2.3522)
     assert d == jgeo.haversine_meters(51.5074, -0.1278, 48.8566, 2.3522)

@@ -223,11 +223,16 @@ def test_rest_from_and_typed_400s(searchers):
             for h in got["hits"]["hits"]:
                 assert h["_source"]["title"]
         for bad in ({"query": CASES[0], "slice": {"id": 0, "max": 2}},
-                    {"query": CASES[0], "aggs": {"t": {"top_hits": {
-                        "size": 3}}}}):
+                    {"query": CASES[0], "stored_fields": ["title"]}):
             st, r = c.dispatch("POST", "/p/_search", {}, bad)
             assert st == 400 and r["error"]["type"] == \
                 "unsupported_in_slice_exception", (bad, r)
+        # top_hits, once a later slice here, is served
+        st, r = c.dispatch("POST", "/p/_search", {}, {
+            "query": CASES[0], "size": 0,
+            "aggs": {"t": {"top_hits": {"size": 3}}}})
+        assert st == 200 and len(r["aggregations"]["t"]["hits"]["hits"]) \
+            == min(3, r["hits"]["total"]["value"]), r
         st, exact = c.dispatch("POST", "/p/_search", {}, {"query": CASES[0]})
         st2, untracked = c.dispatch("POST", "/p/_search", {}, {
             "query": CASES[0], "track_total_hits": False})

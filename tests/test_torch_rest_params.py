@@ -4,7 +4,8 @@ reference answers them or refused with a typed 400, through both nodes'
 parameters (``q``, ``from``, ``size``, ``request_cache``,
 ``allow_partial_search_results``, ``search_type``; ``scroll``,
 ``timeout`` and the rest are a later slice), the mapping's ``dynamic``
-setting, ``copy_to`` and ``number_of_shards``."""
+setting, ``copy_to`` and ``number_of_shards``; the result window's
+reason and a ``PUT`` of an index that exists."""
 
 import json
 
@@ -122,6 +123,41 @@ def test_other_url_parameters_are_a_typed_400(nodes, params):
     assert got["error"]["type"] == "unsupported_in_slice_exception"
     if "scroll" in params:
         assert "_scroll_id" in ref
+
+
+def test_a_request_cache_false_body_is_served(nodes):
+    """The port keeps no request cache: a body asking for none is
+    answered as the reference answers it."""
+    body = {"query": {"match": {"t": "red"}}, "request_cache": False}
+    (jst, ref), (st, got) = both(nodes, "POST", "/p/_search", {}, body)
+    assert jst == st == 200
+    assert_same_hits(ref, got)
+
+
+@pytest.mark.parametrize("params,body", [
+    ({}, {"from": 9995, "size": 10}),
+    ({"from": "10000", "size": "1"}, None),
+    ({}, {"size": 10001}),
+])
+def test_result_window_answers_the_reference_reason(nodes, params, body):
+    (jst, ref), (st, got) = both(nodes, "POST", "/p/_search", params, body)
+    assert jst == st == 400
+    assert got["error"]["type"] == ref["error"]["type"] \
+        == "illegal_argument_exception"
+    assert got["error"]["reason"] == ref["error"]["reason"]
+    assert got["error"]["reason"].endswith(
+        "[10000]. Use the scroll API or search_after")
+
+
+def test_put_of_an_existing_index_answers_as_the_reference(nodes):
+    (jst, ref), (st, got) = both(nodes, "PUT", "/p", {},
+                                 {"settings": ONE_SHARD})
+    assert jst == st == 400
+    for k in ("type", "reason", "resource"):
+        assert got["error"][k] == ref["error"][k], (got, ref)
+    assert got["error"]["type"] == "resource_already_exists_exception"
+    assert got["error"]["resource"] == "index [p]"
+    assert got["error"]["root_cause"] == ref["error"]["root_cause"]
 
 
 # ---------------------------------------------------------------------------
