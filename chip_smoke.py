@@ -335,11 +335,41 @@ Phases (any failure exits non-zero; no exception is swallowed):
               its profile, the composite walks' ms a page, the grids'
               seconds at 15.2M points, scripted_metric's us a doc, the
               mix's qps and p50/p99
- 15. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
+ 15. mesh     parallel/ on one H100. (a) Phase 13's 32 match and 16
+              bool+filter bodies to "bench5" again over HTTP: the node's
+              device list is the one card, so every body falls back to
+              the per-shard loop (``fallback.not_enough_devices`` grows
+              by exactly the bodies, no ``dispatch.*``, no
+              ``fallback.error``) and answers what phase 13 answered.
+              (b) The mesh programs over a grid of 5 x cuda:0: a
+              search service with that device list serves the 48
+              bodies on bench5's shards (the node's resident segments:
+              no second copy), each answer equal to the loop's bit for
+              bit (ids, order, float32 scores, totals); a query through
+              MeshSearchBackend.execute profiled (its kernels' device
+              ms, its host ms from compile to readback, one wait for
+              the card); the gather and merge's ms; sharded_dfs_stats
+              over build_sharded_index's stack of bench5's title field
+              equal to the dfs phase's pooled doc freqs for the 8 dfs
+              bodies' terms; _mesh_knn_nominate and
+              _mesh_knn_step over config 4's 8M x 768 bfloat16 slab as
+              five row ranges (views) for 8 queries at k 1000 and 3000
+              candidates, each equal to the per-shard nomination, exact
+              re-rank, cut and merge over the same views (ids, order,
+              totals exact, scores rtol 1e-6). (c) The replica fan-out
+              over 2 x cuda:0: a PlanBatcher cohort of 32 and a
+              fast-path v1 cohort of 32 on "bench" byte-equal to their
+              unsplit launches, the split v1 cohort launching the
+              contribution kernel twice, /_kernels agreeing. (d)
+              ``fallback.error`` 0 over the whole run. Printed: the
+              device and host ms a mesh query and its waits for the
+              card, the gather and merge ms
+ 16. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
               script, aggs, accounting, fulltext, fetch, fields, shards,
-              aggs_deferred, filters, plan and kernels JSON lines (each
-              kernel's launches per phase, launches_aggs_deferred for
-              phase 14), the phases' wall seconds
+              aggs_deferred, mesh, filters, plan and kernels JSON lines
+              (each kernel's launches per phase, launches_aggs_deferred
+              for phase 14, launches_mesh for 15), the phases' wall
+              seconds
               ({"phase_seconds": ...}), the card's
               name and power limit, and the last line {"ok": true,
               "device": {...}}
@@ -7027,6 +7057,11 @@ def phase_shards(node, port, corpus, queries, oracles, filt_pool, seed,
     torch.cuda.synchronize()
     log(f"[shards] profile {out['profile']}, oracles {out['oracle_s']:.1f} "
         f"s, CPU {out['cpu_s']:.1f} s")
+    # phase 15 sends the match and filter bodies again (main pops this)
+    out["_carry"] = dict(
+        match=match, filters=filters,
+        match_answers=[r for _, r in res["match"]],
+        filter_answers=[r for _, r in res["filters"]])
     return out
 
 
@@ -7663,6 +7698,392 @@ def phase_aggs_deferred(node, port, corpus, queries, logs, cols, feat,
     return out
 
 
+# ---------------------------------------------------------------- phase 15
+MESH_KNN_QUERIES = 8
+MESH_KNN_K = 1000
+MESH_KNN_NC = 3000
+MESH_TIMED = 4            # bodies whose mesh launch is profiled
+MESH_REPS = 3             # profiled calls a body
+# the host calls that wait for the card
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+
+
+def sync_profiled(fn, reps):
+    """``fn()`` (a launch and its readback) under torch.profiler, once
+    warm, then ``reps`` times: (the kernels' summed device ms a call,
+    kernels a call, host ms a call, host calls that wait for the card a
+    call: the slope between a window of ``reps`` calls and one of
+    ``2 * reps``, so the profiler's own waits do not count). A launch
+    the host cannot queue ahead of the card has no device time of its
+    own worth timing by events: the kernels' sums say what the card
+    did, the host ms what it took."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+
+    def window(call, n):
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                call()
+            host = (time.perf_counter() - t0) * 1e3 / max(1, n)
+        events = prof.key_averages()
+        return (events, host,
+                sum(e.count for e in events if e.key in SYNC_CALLS))
+
+    fn()
+    torch.cuda.synchronize()
+    events, host, syncs = window(fn, reps)
+    _, _, syncs2 = window(fn, 2 * reps)
+    kernels = kernel_rows(events)
+    return (sum(self_dev(e) for e in kernels) / reps / 1e3,
+            sum(e.count for e in kernels) / reps, host,
+            (syncs2 - syncs) / reps)
+
+
+def hits_equal(a, b, what):
+    """Two answers bit for bit: ids, order, float32 scores, totals and
+    max_score equal."""
+    check([(h["_id"], h["_score"]) for h in a["hits"]["hits"]]
+          == [(h["_id"], h["_score"]) for h in b["hits"]["hits"]]
+          and a["hits"]["total"] == b["hits"]["total"]
+          and a["hits"]["max_score"] == b["hits"]["max_score"],
+          f"{what}: ids, order, scores, totals and max_score equal")
+
+
+def knn_views_loop(views, live, hosts, q, nd, k, nc, cut):
+    """The per-shard dense kNN loop over row-range views (KnnQuery's
+    steps a shard: the slab scores, the top-``nc`` nomination, the host
+    exact re-rank patched in, the cut to ``cut`` with its ties, the live
+    mask, the shard's top k) and the coordinator's merge by (score,
+    shard, docid): ([(score, shard, docid)], total)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import vector as vec_ops
+    from elasticsearch_tpu_torch.ops.topk import stable_topk
+    rows, total = [], 0
+    for s, (v, sqn, hv) in enumerate(views):
+        dev = v.device
+        qt = torch.from_numpy(q).to(dev)[None]
+        scores = torch.where(hv, vec_ops.similarity_scores(
+            qt, v, sqn, "cosine")[0], 0.0)
+        ids = torch.arange(nd, dtype=torch.int32, device=dev)
+        _, top = stable_topk(scores[None], ids[None], nc)
+        cand = top[0].cpu().numpy()
+        cand = cand[cand < hosts[s].shape[0]]
+        exact = vec_ops.exact_rerank_scores(hosts[s][cand], q, "cosine")
+        scores = scores.index_put(
+            (torch.from_numpy(cand.astype(np.int64)).to(dev),),
+            torch.from_numpy(exact).to(dev))
+        kth = torch.kthvalue(torch.where(hv, scores, float("-inf")),
+                             nd - cut + 1).values
+        mask = hv & (scores >= kth) & live[s]
+        total += int(mask.sum())
+        vals, top = stable_topk(
+            torch.where(mask, scores, float("-inf"))[None], ids[None], k)
+        rows += [(x, s, d) for x, d in zip(vals[0].tolist(),
+                                           top[0].tolist())
+                 if x > float("-inf")]
+    rows.sort(key=lambda r: (-r[0], r[1], r[2]))
+    return rows[:k], total
+
+
+def phase_mesh(node, port, corpus, queries, carry, seed, iters, counters,
+               hbm_log):
+    """The mesh on one H100 (module docstring, phase 15): (a) the node's
+    fallback, (b) the mesh programs over a grid of 5 x cuda:0, (c) the
+    replica fan-out over 2 x cuda:0."""
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import knn_query_vectors, term_name
+    from elasticsearch_tpu_torch.ops import plan as plan_ops
+    from elasticsearch_tpu_torch.ops import vector as vec_ops
+    from elasticsearch_tpu_torch.ops.device import readback
+    from elasticsearch_tpu_torch.parallel import mesh_executor as mx
+    from elasticsearch_tpu_torch.parallel import sharded
+    from elasticsearch_tpu_torch.search import fastpath as srv
+    from elasticsearch_tpu_torch.search.batching import PlanBatcher, _Entry
+    from elasticsearch_tpu_torch.search.plan import bind_plan, compile_plan
+    from elasticsearch_tpu_torch.search.queries import parse_query
+    from elasticsearch_tpu_torch.search.service import (SearchService,
+                                                        _dfs_searchers)
+    from elasticsearch_tpu_torch.telemetry.engine import TRACKER
+    t_phase = time.time()
+    dev = node.device
+    out = {}
+    bodies = carry["match"] + carry["filters"]
+    answers = carry["match_answers"] + carry["filter_answers"]
+    for c in counters.values():
+        c.launches = 0
+    _, k0 = http(port, "GET", "/_kernels")
+
+    # ---- (a) the node's own mesh: one card, five shards, the loop
+    be_node = node.search_service.mesh_executor
+    c0 = dict(be_node.counters)
+    check(be_node.available_devices() == torch.cuda.device_count(),
+          "the node's device list is every visible card")
+    res, lat, wall = drive(port, bodies, 16, "bench5")
+    c1 = dict(be_node.counters)
+    delta = {k: c1.get(k, 0) - c0.get(k, 0) for k in set(c0) | set(c1)}
+    check(delta.get("fallback.not_enough_devices") == len(bodies)
+          and not any(v for k, v in delta.items()
+                      if k.startswith("dispatch."))
+          and c1.get("fallback.error", 0) == 0,
+          f"phase 15 (a): every bench5 body fell back for want of devices "
+          f"({len(bodies)}), none dispatched, no error: {delta}")
+    for i, ((st, r), old) in enumerate(zip(res, answers)):
+        check(st == 200, f"mesh (a) body {i} -> {st}")
+        hits_equal(r, old, f"mesh (a) body {i} against phase 13's answer")
+    p50, p99 = p50_p99(lat)
+    out["fallback"] = dict(bodies=len(bodies), counters=delta,
+                           qps=len(bodies) / wall, p50_ms=p50, p99_ms=p99)
+    log(f"[mesh] (a) {out['fallback']}")
+
+    # ---- (b) the programs over a grid of 5 x cuda:0
+    grid = SearchService(node.device_cache, node.indices,
+                         devices=[dev] * SHARDS)
+    be = grid.mesh_executor
+    searchers = grid._shard_searchers(node.indices["bench5"])
+    t0 = time.time()
+    mcorpus = be.corpus_for(searchers)
+    torch.cuda.synchronize()
+    out["corpus_s"] = time.time() - t0
+    check(all(c.device is node.device_cache.resident(c.segment.name)
+              for c in mcorpus.contexts) and be.residency() == {},
+          "phase 15 (b): the grid's shards read the node's resident "
+          "segments, no second copy")
+    got = [grid.search("bench5", dict(b)) for b in bodies]
+    check(be.mesh_searches == len(bodies)
+          and be.counters == {"dispatch.shard": len(bodies)},
+          f"phase 15 (b): every body on the 5-device mesh: {be.counters}")
+    for i, (r, old) in enumerate(zip(got, answers)):
+        hits_equal(r, old, f"mesh (b) body {i} against the per-shard loop")
+    # a mesh query through MeshSearchBackend.execute (each shard's
+    # compile and bind, the uploads, the launch and its one readback),
+    # profiled: the kernels' device ms, the host's ms, and the host calls
+    # that wait for the card (the readback's alone: the uploads wait for
+    # nothing and no shard waits for another)
+    launch_ms, host_ms, kernels, syncs = [], [], [], []
+    for body in bodies[:MESH_TIMED]:
+        q = parse_query(body["query"])
+        ms, n_k, hms, n_sync = sync_profiled(
+            lambda: be.execute(searchers, q, SHARD_K), MESH_REPS)
+        launch_ms.append(ms)
+        host_ms.append(hms)
+        kernels.append(n_k)
+        syncs.append(n_sync)
+    check(max(syncs) <= 1,
+          f"phase 15 (b): a mesh query waits for the card once, at its "
+          f"readback ({syncs} a query)")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vals = [torch.sort(torch.rand(SHARD_K, device=dev, generator=g),
+                       descending=True).values for _ in range(SHARDS)]
+    gids = [torch.arange(SHARD_K, device=dev, dtype=torch.int64)
+            + s * mcorpus.n_docs_padded for s in range(SHARDS)]
+    tots = [torch.full((1,), 7, dtype=torch.int32, device=dev)
+            for _ in range(SHARDS)]
+    merge_ms, _ = cuda_ms(lambda: plan_ops.mesh_merge(
+        vals, gids, tots, dev, SHARD_K), iters)
+    out["plan_topk_mesh"] = dict(
+        bodies=len(bodies), kernel_ms=launch_ms, host_ms=host_ms,
+        kernels=kernels, syncs=syncs,
+        mean_kernel_ms=float(np.mean(launch_ms)),
+        mean_host_ms=float(np.mean(host_ms)),
+        gather_merge_ms=merge_ms, shards=SHARDS,
+        n_docs_padded=mcorpus.n_docs_padded)
+    # the dfs phase's statistics on the mesh (the reference's builder,
+    # bench5's title field stacked on the grid) against the pooled ones
+    mesh5 = sharded.make_mesh(n_shards=SHARDS, devices=[dev] * SHARDS)
+    t0 = time.time()
+    sidx, pfs = sharded.build_sharded_index(
+        mesh5, [s.segments[0] for s in searchers], "title")
+    torch.cuda.synchronize()
+    out["sharded_build_s"] = time.time() - t0
+    pooled = _dfs_searchers([("bench5", s) for s in searchers])[0][1].stats
+    terms_checked = 0
+    for qterms in queries[:SHARD_DFS]:
+        for t in qterms:
+            name = term_name(t)
+            per = []
+            for pf in pfs:
+                tid = pf.term_id(name)
+                st_ = int(pf.term_block_start[tid]) if tid >= 0 else 0
+                per.append(list(range(st_, st_ + (
+                    int(pf.term_block_count[tid]) if tid >= 0 else 0))))
+            nb = max(1, max(len(p) for p in per))
+            sel = np.array([p + [sidx.zero_blocks[s]] * (nb - len(p))
+                            for s, p in enumerate(per)], np.int64)
+            df = int(sharded.sharded_dfs_stats(sidx, sel).sum())
+            want = pooled.doc_freq("title", name)
+            check(df == want == int(corpus["df"][t]),
+                  f"phase 15 (b): sharded_dfs_stats of {name} equals the "
+                  f"dfs phase's pooled doc freq ({df} vs {want})")
+            terms_checked += 1
+    out["dfs_terms_checked"] = terms_checked
+    # the mesh kNN programs over config 4's slab as five row ranges
+    kseg = node.indices["knn"].engine.segments[0]
+    t0 = time.time()
+    kdev = node.device_cache.get(kseg)
+    torch.cuda.synchronize()
+    out["knn_slab_get_s"] = time.time() - t0
+    dv = kdev.vectors["vec"]
+    host = kseg.vectors["vec"].vectors
+    rows = kseg.n_docs // SHARDS
+    views = [(dv.vectors[s * rows:(s + 1) * rows],
+              dv.sq_norms[s * rows:(s + 1) * rows],
+              dv.has_value[s * rows:(s + 1) * rows]) for s in range(SHARDS)]
+    check(all(v.data_ptr() == dv.vectors.data_ptr() + s * rows
+              * dv.vectors.shape[1] * dv.vectors.element_size()
+              for s, (v, _, _) in enumerate(views)),
+          "the five row ranges are views of the slab")
+    live = [kdev.live[s * rows:(s + 1) * rows] for s in range(SHARDS)]
+    hosts = [host[s * rows:(s + 1) * rows] for s in range(SHARDS)]
+    qs = knn_query_vectors(host, MESH_KNN_QUERIES,
+                           np.random.default_rng(seed + 1))
+    knn_ms = {"nominate": [], "step": [], "step_host": [],
+              "step_syncs": []}
+    for i, q in enumerate(qs):
+        # the query on the card first: a host copy inside a timed call
+        # would wait for the stream
+        qt = torch.from_numpy(q).to(dev)
+        nominate = lambda: mx._mesh_knn_nominate(   # noqa: E731
+            [v for v, _, _ in views], [s for _, s, _ in views],
+            [h for _, _, h in views], qt, dev, "cosine", MESH_KNN_NC)
+        ids = nominate().cpu().numpy()
+        patches = []
+        for s in range(SHARDS):
+            cand = ids[s][ids[s] < rows]
+            exact = vec_ops.exact_rerank_scores(hosts[s][cand], q,
+                                                "cosine")
+            patches.append((torch.from_numpy(cand.astype(np.int64)).to(dev),
+                            torch.from_numpy(exact).to(dev)))
+        step = lambda: mx._mesh_knn_step(   # noqa: E731
+            [v for v, _, _ in views], [s for _, s, _ in views],
+            [h for _, _, h in views], live, qt, patches, dev, rows,
+            "cosine", 1.0, MESH_KNN_K, MESH_KNN_K)
+        packed = step().cpu().numpy()
+        want, total = knn_views_loop(views, live, hosts, q, rows,
+                                     MESH_KNN_K, MESH_KNN_NC, MESH_KNN_K)
+        k = MESH_KNN_K
+        gids = packed[k:2 * k].astype(np.int64)
+        check(int(packed[2 * k]) == total
+              and [(int(x) // rows, int(x) % rows) for x in gids]
+              == [(s, d) for _, s, d in want]
+              and np.allclose(packed[:k], [x for x, _, _ in want],
+                              rtol=1e-6, atol=0),
+              f"phase 15 (b): mesh kNN query {i} equals the per-shard "
+              f"loop over the views (ids, order, total {total})")
+        if i < 2:
+            knn_ms["nominate"].append(cuda_ms(nominate, 3, 1)[0])
+            ms, _, hms, n_sync = sync_profiled(
+                lambda: readback("chip_smoke.mesh_knn", step()), 2)
+            knn_ms["step"].append(ms)
+            knn_ms["step_host"].append(hms)
+            knn_ms["step_syncs"].append(n_sync)
+    out["knn"] = dict(queries=len(qs), rows_a_shard=rows, k=MESH_KNN_K,
+                      num_candidates=MESH_KNN_NC, device_ms=knn_ms)
+    log(f"[mesh] (b) {out['plan_topk_mesh']}, knn {out['knn']}")
+
+    # ---- (c) the replica fan-out over 2 x cuda:0
+    be2 = mx.MeshSearchBackend([dev] * 2)
+    bseg = node.indices["bench"].engine.segments[0]
+    fp = srv.FastPathServer(dev, node.device_cache, mesh_backend=be2)
+    bsvc = node.indices["bench"]
+    reg = fp.register("bench", bseg, "title", bsvc.k1, bsvc.b)
+    check(reg["rmesh"] is not None and reg["rmesh"].devices.size == 2,
+          "phase 15 (c): the v1 registration binds a 2-device replica mesh")
+    pf = reg["dp"].host
+    fits = []
+    for qterms in queries:
+        tids = [pf.term_id(term_name(t)) for t in qterms]
+        if fp.route(reg, tids) is not None:
+            fits.append((qterms, tids))
+        if len(fits) == srv.Q_BATCH:
+            break
+    bsearcher = node.search_service._shard_searchers(node.indices["bench"])[0]
+    ctx = bsearcher._contexts()[0]
+    bps = [bind_plan(compile_plan(parse_query(plan_body(qt, SHARD_K)["query"])
+                                  .rewrite(bsearcher), bsearcher), ctx,
+                     SHARD_K) for qt, _ in fits]
+    whole = PlanBatcher()
+    e1 = [_Entry(bp) for bp in bps]
+    t0 = time.perf_counter()
+    whole._run(e1, ctx, SHARD_K, bsearcher.k1, bsearcher.b)
+    whole_s = time.perf_counter() - t0
+    split = PlanBatcher()
+    split.mesh = be2
+    e2 = [_Entry(bp) for bp in bps]
+    t0 = time.perf_counter()
+    split._run(e2, ctx, SHARD_K, bsearcher.k1, bsearcher.b)
+    split_s = time.perf_counter() - t0
+    check(split.mesh_cohorts == 1 and whole.mesh_cohorts == 0
+          and all(a.result[0].tobytes() == c.result[0].tobytes()
+                  and a.result[1].tobytes() == c.result[1].tobytes()
+                  and a.result[2] == c.result[2] for a, c in zip(e1, e2)),
+          f"phase 15 (c): the PlanBatcher cohort of {len(bps)} split over "
+          f"2 devices equals the unsplit launch byte for byte")
+
+    def v1_cohort(rmesh):
+        reg["rmesh"] = rmesh
+        items = [srv._Pending(reg, tids, (), SHARD_K, "v1",
+                              srv.NB_BUCKETS[-1]) for _, tids in fits]
+        n0 = counters["gather_bm25_contrib"].launches
+        c0_ = TRACKER.calls("gather_bm25_contrib")
+        t1 = time.perf_counter()
+        fp._launch_cohort("v1", reg, srv.NB_BUCKETS[-1], items, {})
+        torch.cuda.synchronize()
+        return ([p.result for p in items], time.perf_counter() - t1,
+                counters["gather_bm25_contrib"].launches - n0,
+                TRACKER.calls("gather_bm25_contrib") - c0_)
+
+    rmesh = be2.replica_mesh_for(srv.Q_BATCH)
+    v_whole, vw_s, n_whole, c_whole = v1_cohort(None)
+    v_split, vs_s, n_split, c_split = v1_cohort(rmesh)
+    check((n_whole, n_split) == (1, 2) and (c_whole, c_split) == (1, 2)
+          and fp.stats["mesh_cohorts"] == 1
+          and be2.counters == {"dispatch.replica": 2 * len(fits)}
+          and all(a[0].tobytes() == c[0].tobytes()
+                  and a[1].tobytes() == c[1].tobytes() and a[2] == c[2]
+                  for a, c in zip(v_whole, v_split)),
+          f"phase 15 (c): the v1 cohort of {len(fits)} split over 2 devices "
+          f"equals the unsplit launch byte for byte and launches the "
+          f"contribution kernel once a replica device ({n_whole}, "
+          f"{n_split}; tracker {c_whole}, {c_split})")
+    out["replica"] = dict(
+        plan_cohort=len(bps), plan_whole_s=whole_s, plan_split_s=split_s,
+        v1_cohort=len(fits), v1_whole_s=vw_s, v1_split_s=vs_s,
+        v1_contrib_launches=dict(whole=n_whole, split=n_split),
+        replica_corpus_bytes=be2.stats()["replica_corpus_bytes"])
+
+    # ---- (d) the phase's launches, /_kernels, fallback.error
+    launches = {name: c.launches for name, c in counters.items()}
+    _, k1_ = http(port, "GET", "/_kernels")
+    calls = {name: k1_["kernels"].get(name, {}).get("calls", 0)
+             - k0["kernels"].get(name, {}).get("calls", 0)
+             for name in counters}
+    check(calls == launches and launches["gather_bm25_contrib"] == 3
+          and launches["merge_sorted_slots"] == 0,
+          f"phase 15: the contribution kernel launched 3 times (1 + 2), the "
+          f"merge not at all, and /_kernels agrees: {launches} vs {calls}")
+    check(k1_["mesh"]["counters"].get("fallback.error", 0) == 0,
+          f"phase 15: no mesh error in the run: {k1_['mesh']['counters']}")
+    out["launches"] = launches
+    out["node_mesh"] = k1_["mesh"]
+    # drop the second copies and the registration: the accounting of the
+    # node's own resident segments stands
+    fp.retire([bseg.name])
+    be.clear()
+    be2.clear()
+    del mcorpus, sidx, views, live, e1, e2, bps, reg
+    hbm_agrees(node, "mesh", hbm_log)
+    out["hbm"] = hbm_log[-1]
+    out["phase_s"] = time.time() - t_phase
+    log(f"[mesh] {json.dumps(out)[:2000]}")
+    return out
+
+
 class PhaseClock:
     """The wall seconds of each phase, one lap a phase
     (``{"phase_seconds": ...}``)."""
@@ -7688,7 +8109,7 @@ def main(argv=None) -> int:
     ap.add_argument("--vocab", type=int, default=100_000)
     ap.add_argument("--queries", type=int, default=256)
     ap.add_argument("--clients", type=int, default=64)
-    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--iters", type=int, default=6)
     ap.add_argument("--seed", type=int, default=0)
     # config 4 (pure kNN) and config 5 (hybrid) of the reference's
     # BASELINE: 8M x 768 cosine, and the scale corpus with 256-d vectors
@@ -7956,6 +8377,7 @@ def main(argv=None) -> int:
         shards = phase_shards(node, port, corpus, queries, oracles,
                               filt_pool, args.seed + 15, args.clients,
                               counters, cpu, hbm_log)
+        carry = shards.pop("_carry")
         clock.lap("13_shards")
 
         # ---- 14. the deferred aggregation types
@@ -7963,6 +8385,13 @@ def main(argv=None) -> int:
                                        cols, feat, args.clients, counters,
                                        cpu, hbm_log)
         clock.lap("14_aggs_deferred")
+
+        # ---- 15. the mesh: its fallback on one card, its programs on a
+        # grid of the card repeated, the replica fan-out
+        mesh = phase_mesh(node, port, corpus, queries, carry,
+                          args.seed + 16, args.iters, counters, hbm_log)
+        del carry
+        clock.lap("15_mesh")
     finally:
         node.close()
 
@@ -8002,6 +8431,7 @@ def main(argv=None) -> int:
             launches_fields=fields["launches"][name],
             launches_shards=shards["launches"][name],
             launches_aggs_deferred=deferred["launches"][name],
+            launches_mesh=mesh["launches"][name],
             dense_shape=(dense["contrib_dense_shape"]
                          if name == "gather_bm25_contrib" else None)))
     print(json.dumps({"scale": scale}))
@@ -8020,6 +8450,7 @@ def main(argv=None) -> int:
     print(json.dumps({"fields": fields}))
     print(json.dumps({"shards": shards}))
     print(json.dumps({"aggs_deferred": deferred}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))

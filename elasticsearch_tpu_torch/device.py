@@ -29,3 +29,21 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def resolve_devices(devices=None, device: DeviceLike = None) -> list:
+    """A node's device list, the grid the mesh (parallel/) lays its
+    shards and replicas over: ``devices`` as given (each through
+    ``resolve_device``; the CPU tests give ``["cpu"] * 8``), else every
+    visible CUDA card ``cuda:0 .. n-1`` when ``device`` is CUDA, else
+    the one ``device``. Raises where CUDA is asked for and missing."""
+    if devices is not None:
+        out = [resolve_device(d) for d in devices]
+        if not out:
+            raise ValueError("a device list holds at least one device")
+        return out
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]

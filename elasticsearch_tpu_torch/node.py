@@ -8,6 +8,7 @@ the dense executor.
 
     node = Node(device=None)              # CUDA unless device="cpu"
     node = Node(settings={"indices.breaker.hbm.limit": "40gb"})
+    node = Node(device="cpu", devices=["cpu"] * 8)   # the mesh's grid
     port = node.start(0)                  # returns the bound port
     ...
     node.close()
@@ -22,6 +23,14 @@ node's flight recorder (telemetry/flightrecorder.py) is ambient on every
 thread that serves: each REST dispatch (the HTTP front's fallback workers
 included, and the batchers' leaders inside them) and the fast path's
 drain thread.
+
+``devices`` is the node's device list, the grid of the mesh
+(parallel/): every visible CUDA card by default, the one device on the
+CPU. An index of N shards runs on the mesh when the list holds at least
+N devices, else through the per-shard loop; with two or more devices
+the plan cohorts and the fast path's v1 cohorts also split their rows
+over the list. The mesh's copies on a card other than ``device`` are
+charged to the same ``hbm`` breaker as the node's own.
 
 ``start`` serves through the C++ front (rest/native_http.py, built with
 ``g++`` at first use), which parses the hot ``_search`` bodies of the
@@ -38,7 +47,8 @@ from typing import Any, Dict, Iterable, Optional
 from elasticsearch_tpu_torch.common.errors import CircuitBreakingException
 from elasticsearch_tpu_torch.common.settings import (flat_settings,
                                                      parse_int_setting)
-from elasticsearch_tpu_torch.device import DeviceLike, resolve_device
+from elasticsearch_tpu_torch.device import (DeviceLike, resolve_device,
+                                            resolve_devices)
 from elasticsearch_tpu_torch.utils.breaker import (CircuitBreaker,
                                                    build_breaker_service)
 from elasticsearch_tpu_torch.index.mapper import DocumentMapper, TextFieldType
@@ -50,7 +60,7 @@ from elasticsearch_tpu_torch.search.fastpath import FastPathServer
 from elasticsearch_tpu_torch.search.service import SearchService
 from elasticsearch_tpu_torch.telemetry.flightrecorder import FlightRecorder
 
-VERSION = "8.0.0-torch-slice16"
+VERSION = "8.0.0-torch-slice17"
 
 
 class Node:
@@ -58,8 +68,12 @@ class Node:
     no segment files."""
 
     def __init__(self, device: DeviceLike = None,
-                 settings: Optional[Dict[str, Any]] = None):
+                 settings: Optional[Dict[str, Any]] = None, devices=None):
         self.device = resolve_device(device)
+        # the device list the mesh lays shards over (device.py
+        # ``resolve_devices``): every visible card on CUDA, else the one
+        # device, unless the caller gives it (the CPU tests: ["cpu"] * 8)
+        self.devices = resolve_devices(devices, self.device)
         self.node_id = "node-0"
         self.settings: Dict[str, Any] = flat_settings(settings)
         self.breaker_service = build_breaker_service(self.settings.get)
@@ -70,9 +84,13 @@ class Node:
         self.device_cache = DeviceSegmentCache(self.device)
         self.device_cache.set_breaker(
             self.breaker_service.get_breaker(CircuitBreaker.HBM))
-        self.fastpath = FastPathServer(self.device, self.device_cache,
-                                       flight=self.flight)
-        self.search_service = SearchService(self.device_cache, self.indices)
+        self.search_service = SearchService(self.device_cache, self.indices,
+                                            self.devices)
+        # v1 cohorts split their rows over the device list (below two
+        # devices a registration binds no replica mesh)
+        self.fastpath = FastPathServer(
+            self.device, self.device_cache, flight=self.flight,
+            mesh_backend=self.search_service.mesh_executor)
         self.rest_controller = RestController(self)
         self._http = None     # the NativeHttpFront, once started
         self._fastpath_started = False
@@ -116,6 +134,7 @@ class Node:
         names = list(names)
         self.fastpath.retire(names)
         self.device_cache.evict(names)
+        self.search_service.mesh_executor.evict(names)
 
     @property
     def fastpath_running(self) -> bool:

@@ -135,6 +135,37 @@ def doubling_scan(keys: torch.Tensor, vals: torch.Tensor, max_run: int,
     return x
 
 
+@tracked_kernel("segmented_topk", static_argnames=("k", "max_run"))
+def segmented_topk(keys: torch.Tensor, contribs: torch.Tensor, k: int,
+                   sentinel: int, max_run: int = 32):
+    """Top-k of per-key contribution sums without a dense accumulator:
+    a stable sort of the (key, contribution) pairs [N] by key, each
+    key-run summed by the DOUBLING scan (``doubling_scan``: runs are
+    contiguous after the sort), then a stable top-k over the run totals
+    at the run-last positions (the lowest key first among equal
+    totals, as ``lax.top_k`` over the sorted positions gives).
+
+    The doubling scan, not a global prefix sum, is a precision
+    contract: a float32 prefix over 500K postings carries an absolute
+    error of about prefix * 2^-24, which reorders top-k boundary docs,
+    while summing each run's <= ``max_run`` elements directly keeps full
+    float32 accuracy. ``max_run`` must bound the longest real run
+    (sentinel runs are longer and never read). Keys equal to
+    ``sentinel`` (padding) never win. Returns (values [k], keys [k]);
+    empty slots are (-inf, sentinel)."""
+    from elasticsearch_tpu_torch.ops.topk import stable_topk
+    sorted_k, perm = torch.sort(keys, stable=True)
+    x = doubling_scan(sorted_k, contribs[perm], max_run)
+    nxt = F.pad(sorted_k[1:], (0, 1), value=-1)
+    is_last = sorted_k != nxt
+    cand = torch.where(is_last & (x > 0.0) & (sorted_k != sentinel), x,
+                       float("-inf"))
+    vals, ids = stable_topk(cand[None], sorted_k[None], k)
+    vals, ids = vals[0], ids[0].to(keys.dtype)
+    return vals, torch.where(torch.isfinite(vals), ids,
+                             torch.full_like(ids, sentinel))
+
+
 def bm25_reference_scores(postings_per_term, idfs, doc_lens, avg_len,
                           k1: float, b: float) -> np.ndarray:
     """Pure-numpy scalar BM25 in float64: ``postings_per_term`` is a list

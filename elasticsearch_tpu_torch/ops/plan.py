@@ -309,6 +309,96 @@ def plan_topk(streams, group_kind, group_req, group_const, live,
         max=_SENTINEL).to(torch.int32), out[2 * k].to(torch.int32)
 
 
+class ShardLaunch(NamedTuple):
+    """One shard's plan launch on the mesh (parallel/mesh_executor.py
+    ``bind_mesh``): its streams with [NB] selections, its [G] group
+    arrays, live mask and optional composed filter mask, all on the
+    shard's device, and its launch scalars."""
+
+    streams: tuple
+    group_kind: torch.Tensor     # int32 [G]
+    group_req: torch.Tensor      # int32 [G]
+    group_const: torch.Tensor    # float32 [G]
+    live: torch.Tensor           # bool [ND]
+    n_must: int
+    n_filter: int
+    msm: int
+    bonus: float
+    tie: float
+    max_run: int
+    dense_mask: Optional[torch.Tensor] = None
+
+
+@tracked_kernel("plan_topk_mesh", static_argnames=("nd", "k", "combine"))
+def plan_topk_mesh(shards, dst: torch.device, nd: int, k1: float, b: float,
+                   k: int, combine: str) -> torch.Tensor:
+    """A multi-shard query over a mesh of devices, the reference's one
+    SPMD program issued by one host: ``plan_topk_body`` runs once per
+    shard on that shard's device (``shards[s]``: a ShardLaunch, or None
+    for a shard where no query term exists), with no host sync between
+    them, so distinct cards run concurrently. Each shard's ids become
+    global ids ``s * nd + local`` (int64, the sentinel kept); every
+    shard's [k] values and ids are copied onto ``dst`` (the grid's first
+    device; peer to peer where the cards allow it, nothing where it is
+    the shard's own), re-taken to the top k there and the totals summed
+    (the reference's all_gather, re-top-k and psum). Ties keep the lower
+    flat position, shard first, then rank, as ``lax.top_k`` over the
+    gathered [S * k] does, which equals the per-shard loop's (score,
+    shard, docid) order. Returns ONE packed [2k+1] tensor on ``dst``
+    (``pack_result``): one readback for the whole query. The caller
+    keeps ``S * nd`` below ``PACKED_ID_LIMIT``, which the packed float32
+    ids need."""
+    outs = []
+    for s, sl in enumerate(shards):
+        if sl is None:
+            continue
+        dev = sl.live.device
+
+        def scalar(v, dtype):
+            return torch.full((1, 1), v, dtype=dtype, device=dev)
+        sts = [st._replace(sel_blocks=st.sel_blocks[None],
+                           sel_group=st.sel_group[None],
+                           sel_sub=st.sel_sub[None],
+                           sel_weight=st.sel_weight[None],
+                           sel_const=st.sel_const[None])
+               for st in sl.streams]
+        vals, ids, total = plan_topk_body(
+            sts, sl.group_kind[None], sl.group_req[None],
+            sl.group_const[None], sl.live, scalar(sl.n_must, torch.int32),
+            scalar(sl.n_filter, torch.int32), scalar(sl.msm, torch.int32),
+            scalar(sl.bonus, torch.float32), scalar(sl.tie, torch.float32),
+            k1, b, k, combine, sl.max_run, dense_mask=sl.dense_mask)
+        gids = torch.where(ids == _SENTINEL, _SENTINEL,
+                           ids.long() + s * nd)
+        outs.append((vals[0], gids[0], total))
+    return mesh_merge([o[0] for o in outs], [o[1] for o in outs],
+                      [o[2] for o in outs], dst, k)
+
+
+@tracked_kernel("mesh_merge", static_argnames=("k",))
+def mesh_merge(vals, gids, totals, dst: torch.device,
+               k: int) -> torch.Tensor:
+    """The mesh's coordinator merge (the reference's all_gather,
+    re-top-k and psum): each shard's values float32 [k], global ids
+    int64 [k] and total int32 [1] (lists in shard order, on the shards'
+    devices) copied onto ``dst`` without a host sync (peer to peer where
+    the cards allow it, nothing where a shard lives on ``dst``), the
+    stable top k of the gathered [S * k] (ties to the lower flat
+    position: shard, then rank) and the summed totals. Returns ONE
+    packed [2k+1] tensor on ``dst`` (``pack_result``)."""
+    if not vals:
+        return pack_result(
+            torch.full((1, k), float("-inf"), device=dst),
+            torch.full((1, k), _SENTINEL, dtype=torch.int64, device=dst),
+            torch.zeros(1, dtype=torch.int32, device=dst))[0]
+    av = torch.cat([v.to(dst, non_blocking=True) for v in vals])
+    ag = torch.cat([g.to(dst, non_blocking=True) for g in gids])
+    total = torch.stack([t.to(dst, non_blocking=True).reshape(())
+                         for t in totals]).sum(dtype=torch.int32)
+    tv, tg = stable_topk(av[None], ag[None], k)
+    return pack_result(tv, tg, total.reshape(1))[0]
+
+
 # ---------------------------------------------------------------------------
 # The dense executor's scorer
 # ---------------------------------------------------------------------------

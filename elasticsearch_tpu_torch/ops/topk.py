@@ -73,3 +73,17 @@ def masked_topk(scores: torch.Tensor, mask: torch.Tensor, k: int):
                           device=scores.device)[None]
     vals, ids = stable_topk(cand, docids, k)
     return vals[0], ids[0]
+
+
+@tracked_kernel("merge_topk", static_argnames=("k",))
+def merge_topk(values_a: torch.Tensor, ids_a: torch.Tensor,
+               values_b: torch.Tensor, ids_b: torch.Tensor, k: int):
+    """Merge two top-k lists [ka], [kb] into one [k]: score descending,
+    then id ascending (Lucene's tie order), as two stable sorts, by id
+    and then by the negated score (the reference's two argsorts)."""
+    v = torch.cat([values_a, values_b])
+    i = torch.cat([ids_a, ids_b])
+    order_id = torch.sort(i, stable=True).indices
+    v2, i2 = v[order_id], i[order_id]
+    order_s = torch.sort(-v2, stable=True).indices
+    return v2[order_s][:k], i2[order_s][:k]

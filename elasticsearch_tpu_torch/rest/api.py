@@ -216,13 +216,17 @@ class RestController:
         """GET /_kernels: the launch tracker's table (telemetry/engine.py:
         per kernel, calls, shapes seen, first calls and their ms, the
         last new key's trigger), its totals, the kernel build directory
-        (``persistent_cache``), and the fast path's dispatch counts when
-        it runs."""
+        (``persistent_cache``), the fast path's dispatch counts when
+        it runs, and the mesh's ``mesh`` section
+        (parallel/mesh_executor.py ``MeshSearchBackend.stats``)."""
         out = {"kernels": _engine.TRACKER.to_dict(),
                "totals": _engine.TRACKER.totals(),
                "persistent_cache": _engine.TRACKER.persistent_stats()}
         if self.node.fastpath_running:
             out["serving"] = self.node.fastpath.serving_stats()
+        # the mesh: dispatches per axis, fallback reasons, and the bytes
+        # of its own copies a device
+        out["mesh"] = self.node.search_service.mesh_executor.stats()
         return 200, out
 
     def _engine_section(self):
@@ -233,7 +237,8 @@ class RestController:
         return out
 
     def _nodes_stats(self):
-        """GET /_nodes/stats: this node's ``breakers``, its ``engine``
+        """GET /_nodes/stats: this node's ``breakers``, its ``mesh``
+        stats (as in ``GET /_kernels``), its ``engine``
         section (the launch tracker's totals; the device bytes by slab
         class, with the peak, admissions and breaker evictions; the
         device caches' counters, and the fast path's θ cache when it
@@ -247,6 +252,7 @@ class RestController:
                 "name": self.node.node_id,
                 "breakers": self.node.breaker_service.stats(),
                 "engine": self._engine_section(),
+                "mesh": self.node.search_service.mesh_executor.stats(),
                 "telemetry": {
                     "flight_recorder": self.node.flight.aggregates()},
             }},

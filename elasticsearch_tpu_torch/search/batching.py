@@ -16,6 +16,13 @@ measured round trip when the device is slow, else a short flush window)
 taken only when other requests are pending: a query that arrives alone
 runs alone with no added wait.
 
+The replica fan-out (``PlanBatcher.mesh``, the search service's
+parallel/mesh_executor.py MeshSearchBackend): on two or more devices a
+cohort with no mask and no script splits its rows evenly over them,
+the corpus replicated onto each (a copy only onto another card), each
+slice launched with the unsplit launch's widths and ``max_run``, so
+every row is the unsplit launch's byte for byte.
+
 Attribution: a leader launches under the flight recorder's cohort
 annotation (``annotate_launch``: the cohort, its Q bucket and the queue
 wait of its oldest member), and the cohort's one packed readback goes
@@ -174,6 +181,12 @@ class PlanBatcher:
         # wait a fraction of it so cohorts grow; on a fast one the
         # adaptive flush window does (only when other work is pending)
         self._lat_ema = 0.0
+        # the replica fan-out (a MeshSearchBackend, set by the search
+        # service): a cohort without a mask or a script splits its rows
+        # over the backend's devices when it has two or more
+        # (``_launch_split``), and counts here
+        self.mesh = None
+        self.mesh_cohorts = 0
 
     @staticmethod
     def _eligible(bp: BoundPlan, after_score) -> bool:
@@ -348,11 +361,19 @@ class PlanBatcher:
         args, kw = self.cohort_args(bps, ctx.live)
         # the cohort's one composed filter mask, held for the launch
         kw["dense_mask"] = launch_mask(batch[0].bp, ctx)
+        rmesh = None
+        if (self.mesh is not None and kw["dense_mask"] is None
+                and kw["script_fn"] is None):
+            rmesh = self.mesh.replica_mesh_for(bucket)
         any_prof = any(e.profiled for e in batch)
         t0p = _prof.now_ns() if any_prof else 0
         t0 = time.monotonic()
         with _flight.annotate_launch(qn, bucket, _queue_wait_ns(batch)):
-            packed = plan_ops.plan_topk_batch(*args, k1=k1, b=b, k=k, **kw)
+            if rmesh is None:
+                packed = plan_ops.plan_topk_batch(*args, k1=k1, b=b, k=k,
+                                                  **kw)
+            else:
+                packed = self._launch_split(rmesh, args, kw, k1, b, k)
         # ONE readback for the whole cohort (rows are packed buffers);
         # its bytes ride each profiled entry's record
         t_rb = _prof.now_ns() if any_prof else 0
@@ -367,6 +388,10 @@ class PlanBatcher:
             self.launches += 1
             self.batched_queries += qn
             self.batch_hist[bucket] = self.batch_hist.get(bucket, 0) + 1
+            if rmesh is not None:
+                self.mesh_cohorts += 1
+        if rmesh is not None:
+            self.mesh._dispatch("replica", qn)
         if any_prof:
             launch_ms = round((_prof.now_ns() - t0p) / 1e6, 3)
             widths = [int(st.sel_blocks.shape[1]) for st in args[0]]
@@ -381,6 +406,8 @@ class PlanBatcher:
                 e.meta = {
                     "kernel": "plan_topk_batch", "cohort": qn,
                     "q_bucket": bucket,
+                    **({"mesh_shape": {"replica": rmesh.devices.size}}
+                       if rmesh is not None else {}),
                     "nb_bucket": max(widths) if widths else 0,
                     "nb_selected": own,
                     "padding_waste_pct": round(
@@ -394,6 +421,41 @@ class PlanBatcher:
             e.result = plan_ops.unpack_result(rows[i], k)
             e.event.set()
 
+    def _launch_split(self, rmesh, args, kw, k1: float, b: float,
+                      k: int) -> torch.Tensor:
+        """The cohort's launch with its rows split over the replica
+        devices of ``rmesh``: the corpus arrays replicated onto each
+        (cached, no copy onto their own device), each slice of rows
+        launched there with the unsplit launch's widths and ``max_run``,
+        so every row is the unsplit launch's, and the packed slices
+        gathered onto the first device. Every slice's inputs go up
+        before any launch: an upload waits for its device's stream."""
+        mb = self.mesh
+        streams, gk, gr, gc, live, nm, nf, ms, bo, ti = args
+
+        def rows(a):
+            return mb.shard_rows(rmesh, np.asarray(a))
+        sts = [st._replace(
+            block_docids=mb.replicated(rmesh, st.block_docids),
+            block_tfs=mb.replicated(rmesh, st.block_tfs),
+            doc_lens=mb.replicated(rmesh, st.doc_lens),
+            sel_blocks=rows(st.sel_blocks), sel_group=rows(st.sel_group),
+            sel_sub=rows(st.sel_sub), sel_weight=rows(st.sel_weight),
+            sel_const=rows(st.sel_const)) for st in streams]
+        lv = mb.replicated(rmesh, live)
+        per_row = [rows(a) for a in (gk, gr, gc, nm, nf, ms, bo, ti)]
+        outs = []
+        for r in range(rmesh.devices.size):
+            outs.append(plan_ops.plan_topk_batch(
+                [st._replace(**{f: getattr(st, f)[r] for f in (
+                    "block_docids", "block_tfs", "doc_lens", "sel_blocks",
+                    "sel_group", "sel_sub", "sel_weight", "sel_const")})
+                 for st in sts],
+                *(a[r] for a in per_row[:3]), lv[r],
+                *(a[r] for a in per_row[3:]), k1=k1, b=b, k=k, **kw))
+        dst = rmesh.devices.flat[0]
+        return torch.cat([o.to(dst, non_blocking=True) for o in outs])
+
     def stats(self) -> Dict[str, object]:
         with self._lock:
             return {
@@ -405,6 +467,7 @@ class PlanBatcher:
                                in sorted(self.batch_hist.items())},
                 "peak_lanes_in_flight": self.peak_lanes_in_flight,
                 "admission_waits": self.admission_waits,
+                "mesh_cohorts": self.mesh_cohorts,
             }
 
 

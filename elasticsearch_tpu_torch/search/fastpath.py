@@ -50,6 +50,13 @@ slower than the full-lane launch the router gives the same queries), so
 a repeat whose non-essential terms lack a hot-term row stays on its full
 lane.
 
+With a ``mesh_backend`` of two or more devices (parallel/
+mesh_executor.py; node.py gives the node's) a registration binds a
+replica mesh, and its v1 cohorts split their Q_BATCH rows over it: the
+postings, lengths and mask stack replicated, one launch a replica
+device (the contribution kernel on each), the packed rows gathered onto
+the node's device, each row the unsplit launch's.
+
 Slot layout: a bucket of NB blocks has ``N_SLOTS`` slots of NB/N_SLOTS
 blocks; each term instance starts on a slot boundary, so every slot is a
 docid-ascending run and the merge kernel can combine them.
@@ -182,13 +189,18 @@ _LANES = {LANE_EMPTY: "empty", LANE_V2M: "v2m", LANE_V1: "v1"}
 
 class FastPathServer:
     def __init__(self, device: DeviceLike, cache: DeviceSegmentCache,
-                 flight=None):
+                 flight=None, mesh_backend=None):
         """``cache``: the DeviceSegmentCache to take resident segments
         from (the node shares its own with the plan path); ``flight``:
-        the node's flight recorder, ambient on the drain thread."""
+        the node's flight recorder, ambient on the drain thread;
+        ``mesh_backend``: a parallel/mesh_executor.py MeshSearchBackend
+        whose replica devices the v1 lane's cohorts split their rows
+        over (node.py gives the node's; bound to a registration when it
+        is made, None below two devices)."""
         self.device = resolve_device(device)
         self.cache = cache
         self.flight = flight
+        self.mesh_backend = mesh_backend
         self._queue: "queue.Queue[_Pending]" = queue.Queue()
         self._running = False
         self._drain_thread: Optional[threading.Thread] = None
@@ -230,6 +242,8 @@ class FastPathServer:
                       # front's (the rest need more blocks than the
                       # largest bucket)
                       "front_queries": 0, "bounced": 0, "bounced_stale": 0,
+                      # v1 cohorts split over the replica devices
+                      "mesh_cohorts": 0,
                       # C++ registrations made (their seconds: the
                       # timing's front_register_s)
                       "front_registrations": 0}
@@ -396,6 +410,12 @@ class FastPathServer:
                 "masks": dev.live.repeat(F_SLOTS, 1),
                 "stack_map": {},
                 "stack_next": 1,
+                # bumped when a row of the stack is written in place: a
+                # replica's copy of the stack is keyed on it
+                "masks_version": 0,
+                # the replica mesh of this registration's v1 cohorts
+                "rmesh": (self.mesh_backend.replica_mesh_for(Q_BATCH)
+                          if self.mesh_backend is not None else None),
             }
             self._regs[index] = reg
             logger.info("fastpath registered index=%s field=%s terms=%d",
@@ -896,6 +916,7 @@ class FastPathServer:
                     if old_r == row:
                         del smap[old_f]
                 torch.logical_and(reg["dev"].live, mask, out=st[row])
+                reg["masks_version"] += 1
                 smap[filt] = row
             out[filt] = row
         return out
@@ -1012,6 +1033,11 @@ class FastPathServer:
                 *args, reg["dense_tf"], up(sel), up(ws), *tail, up(ne_row),
                 up(ne_idf), up(ne_bound), dp.avg_len, k1, b, MAX_K,
                 score_dtype=SCORE_DTYPE)
+        elif self._mesh_active(reg):
+            outs = [bm25_topk_total_batch(
+                *ins, dp.avg_len, k1, b, MAX_K, score_dtype=SCORE_DTYPE)
+                for ins in self._v1_inputs(reg, sel, ws, mask_ids)]
+            packed = torch.cat([o.to(dev, non_blocking=True) for o in outs])
         else:
             packed = bm25_topk_total_batch(
                 *args, up(sel), up(ws), *tail, dp.avg_len, k1, b, MAX_K,
@@ -1030,6 +1056,7 @@ class FastPathServer:
             self._finish(items, out, store_theta=True)
             answered = len(items)
         t3 = time.perf_counter()
+        split = lane == "v1" and self._mesh_active(reg)
         with self._stats_lock:
             self.timing["assemble_s"] += t1 - t0
             self.timing["device_s"] += t2 - t1
@@ -1038,8 +1065,37 @@ class FastPathServer:
             self.stats["cohorts"] += 1
             self.stats[f"cohorts_{lane}"] += 1
             self.stats["fast_queries"] += answered
+            if split:
+                self.stats["mesh_cohorts"] += 1
+        if split:
+            self.mesh_backend._dispatch("replica", len(items))
         if refire:
             self._refire(reg, refire)
+
+    def _mesh_active(self, reg) -> bool:
+        """The one gate of replica-split v1 cohorts: a replica mesh bound
+        at registration and the backend still enabled (the
+        ESTPU_MESH_SERVING=0 switch reaches a registered index at
+        once)."""
+        return (reg.get("rmesh") is not None
+                and self.mesh_backend is not None
+                and self.mesh_backend.enabled())
+
+    def _v1_inputs(self, reg, sel: np.ndarray, ws: np.ndarray,
+                   mask_ids: np.ndarray):
+        """The v1 launch's inputs split over the registration's replica
+        mesh, one tuple a replica device: the corpus arrays and the mask
+        stack replicated (cached by identity, the stack by its version
+        too: its rows are written in place), the cohort's rows (all
+        Q_BATCH of them, pads included) split evenly. Every slice goes
+        up before any launch."""
+        dp, rmesh, mb = reg["dp"], reg["rmesh"], self.mesh_backend
+        bd, bt, dl = (mb.replicated(rmesh, t) for t in (
+            dp.block_docids, dp.block_tfs, dp.doc_lens))
+        masks = mb.replicated(rmesh, reg["masks"],
+                              version=reg["masks_version"])
+        s_, w_, m_ = (mb.shard_rows(rmesh, a) for a in (sel, ws, mask_ids))
+        return list(zip(bd, bt, s_, w_, dl, masks, m_))
 
     def _finish(self, items: List[_Pending], out: np.ndarray,
                 store_theta: bool = False, totals=None):

@@ -269,6 +269,9 @@ KERNEL_ATTRIBUTION: Dict[str, str] = {
     # ops/plan.py: the plan path's launch and the dense BM25 scorer
     "plan_topk": "launch",
     "plan_topk_batch": "launch",
+    # the mesh's program (ops/plan.py), one launch a shard and the merge
+    "plan_topk_mesh": "launch",
+    "mesh_merge": "merge",
     "bm25_dense_scores_sorted": "launch",
     # ops/bm25.py: the dense executor's match columns
     "match_mask": "score",
@@ -281,6 +284,9 @@ KERNEL_ATTRIBUTION: Dict[str, str] = {
     # inside the other entries, as lax.top_k does in the reference's)
     "masked_topk": "topk",
     "stable_topk": "topk",
+    "merge_topk": "merge",
+    # ops/bm25.py: the RRF fusion's segmented sum (parallel/sharded.py)
+    "segmented_topk": "topk",
     # ops/aggs.py, under the reference's names
     "terms_counts": "aggs.collect",
     "agg_metric_stats": "aggs.collect",
@@ -298,6 +304,9 @@ KERNEL_ATTRIBUTION: Dict[str, str] = {
     "l2_scores": "score",
     "similarity_scores": "score",
     "knn_nominate_batch": "launch",
+    # parallel/mesh_executor.py: the mesh kNN programs
+    "mesh_knn_nominate": "launch",
+    "mesh_knn_step": "launch",
     # the hand-written CUDA kernels (csrc/): the contribution kernel
     # (the reference's bm25_contrib_pallas) and the merge (inside the
     # reference's merge batch)

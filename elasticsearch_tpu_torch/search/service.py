@@ -19,6 +19,18 @@ or under a sort by the docs' real sort values then shard order (a
 keyword's device key is a shard-local ordinal and never crosses
 shards). Totals, ``relation``, the ``track_total_hits`` threshold and
 ``terminated_early`` sum over the shards; ``_shards`` counts them.
+Before the loop, the mesh step (parallel/mesh_executor.py, the
+reference's): a body of several shards of one index with no
+post_filter, sort, min_score, search_after, aggs, rescore, collapse or
+terminate_after goes to ``MeshSearchBackend.execute``, which runs one
+launch a shard on the node's device list and merges on the device, bit
+for bit the loop's answer, when there are as many devices as shards
+(else a typed ``fallback.<reason>`` and the loop serves; on one card a
+multi-shard body always falls back). A pure kNN body keeps the cohort
+launch on any device count (``fallback.knn_cohort``): it counts each
+shard's k nearest live docs, where the mesh answers the dense loop's
+KnnQuery, which cuts to k first; any other kNN body meets the mesh
+merged into its query, as in the reference.
 ``search_type=dfs_query_then_fetch`` scores every shard with one set
 of statistics over all of the request's shards (a per-request copy of
 each searcher; its bound plans are keyed apart from the default's), as
@@ -107,6 +119,7 @@ import contextlib
 import copy
 import functools
 import json
+import logging
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -116,6 +129,7 @@ import torch
 from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentException, SearchPhaseExecutionException, error_type_of)
 from elasticsearch_tpu_torch.index.service import IndicesService
+from elasticsearch_tpu_torch.parallel.mesh_executor import MeshSearchBackend
 from elasticsearch_tpu_torch.search import profile as _prof
 from elasticsearch_tpu_torch.search.aggregations import compute_aggs
 from elasticsearch_tpu_torch.search.batching import (_CUT_BUCKETS,
@@ -133,6 +147,8 @@ from elasticsearch_tpu_torch.search.searcher import (MAX_TOPK, DocAddress,
                                                      _host_sort_cmp,
                                                      _parse_sort)
 from elasticsearch_tpu_torch.search.suggest import compute_suggest
+
+logger = logging.getLogger("elasticsearch_tpu_torch.search")
 
 DEFAULT_SIZE = 10
 # the ``search_type`` URL parameter's values (None: the default)
@@ -376,11 +392,20 @@ class SearchService:
     indices a search expression resolves over."""
 
     def __init__(self, cache: DeviceSegmentCache,
-                 indices: Optional[IndicesService] = None):
+                 indices: Optional[IndicesService] = None, devices=None):
         self.cache = cache
         self.indices = indices if indices is not None else IndicesService()
         self.plan_batcher = PlanBatcher()
         self.knn_batcher = KnnBatcher()
+        # the mesh (parallel/mesh_executor.py) over the node's device
+        # list (the cache's one device by default): an eligible body of
+        # several shards runs one launch a shard on its device and merges
+        # there; anything else, and any shard count above the devices,
+        # takes the per-shard loop. Its replica helpers split a cohort's
+        # rows over the devices when there are two or more
+        self.mesh_executor = MeshSearchBackend(
+            devices if devices is not None else [cache.device], cache)
+        self.plan_batcher.mesh = self.mesh_executor
 
     def search(self, expression: str, body: Dict[str, Any],
                search_type: Optional[str] = None) -> Dict[str, Any]:
@@ -426,8 +451,13 @@ class SearchService:
                 return self._rrf_search(searchers, body)
             return self._rrf_profiled(searchers, body)
         if body.get("knn") is not None:
+            # a pure kNN body takes the cohort launch whatever the device
+            # count (each shard's k nearest LIVE docs); any other meets
+            # the mesh merged into its query, as the dense loop's KnnQuery
             response = self._pure_knn_search(searchers, body, profiles)
             if response is not None:
+                if _mesh_shaped(searchers):
+                    self.mesh_executor._fallback("knn_cohort")
                 if profiles is not None:
                     response["profile"] = profiles.section()
                 return response
@@ -459,10 +489,11 @@ class SearchService:
     def _execute(self, searchers, body: Dict[str, Any],
                  profiles: Optional[_ShardProfiles] = None
                  ) -> Dict[str, Any]:
-        """The query phase on every shard, the merge, the fetch phase on
-        the page's shards: the response without ``took``. ``knn`` has
-        been merged into the query or served by the caller; ``rank`` is
-        the caller's."""
+        """The query phase on every shard (on the mesh when it takes the
+        body: ``_mesh_query``), the merge, the fetch phase on the page's
+        shards: the response without ``took``. ``knn`` has been merged
+        into the query or served by the caller; ``rank`` is the
+        caller's."""
         track_total = body.get("track_total_hits", True)
         if not isinstance(track_total, int) or (
                 not isinstance(track_total, bool) and track_total < 0):
@@ -558,6 +589,51 @@ class SearchService:
                     failures)
         return results, failures
 
+    def _mesh_query(self, searchers, body: Dict[str, Any], query,
+                    post_filter, k: int,
+                    profiles: Optional[_ShardProfiles]):
+        """The mesh step before the shard loop (the reference's): a body
+        of several shards of one index with nothing the mesh cannot
+        serve (no post_filter, sort, min_score, search_after, aggs,
+        rescore, collapse or terminate_after) goes to
+        ``MeshSearchBackend.execute``. Returns (merged docs in the
+        loop's ``_merge_shards`` form, total) or None, and the loop
+        serves. A profiled body that the mesh serves gets one entry,
+        ``[index][_mesh]``. A mesh that raises counts
+        ``fallback.error``, logs a warning and leaves the body to the
+        loop, as the reference's; chip_smoke.py fails a run that counts
+        one, so a device fault cannot hide behind the loop."""
+        if (not _mesh_shaped(searchers) or post_filter is not None
+                or any(body.get(key) is not None for key in (
+                    "sort", "min_score", "search_after", "rescore",
+                    "collapse", "terminate_after"))
+                or body.get("aggs", body.get("aggregations"))):
+            return None
+        index = searchers[0][0]
+        t0 = time.monotonic_ns()
+        scope = (_prof.profiling() if profiles is not None
+                 else contextlib.nullcontext({}))
+        try:
+            with scope as rec:
+                served = self.mesh_executor.execute(
+                    [s for _, s in searchers], query, k)
+        except Exception:  # the mesh is an optimization: the loop serves
+            logger.warning("mesh serving failed; the per-shard loop "
+                           "answers", exc_info=True)
+            self.mesh_executor._fallback("error")
+            return None
+        if served is None:
+            return None
+        if profiles is not None:
+            profiles.shards.append((f"[{index}][_mesh]", rec,
+                                    time.monotonic_ns() - t0))
+        docs, total = served
+        merged = [(score, shard_idx,
+                   DocAddress(seg_idx, docid, score, (), sort_key=score),
+                   searchers[shard_idx][1], index)
+                  for shard_idx, seg_idx, docid, score in docs]
+        return merged, total
+
     def _execute_query(self, searchers, body: Dict[str, Any], query,
                        post_filter, nodes, track_total, size: int,
                        from_: int, profiles: Optional[_ShardProfiles]):
@@ -576,11 +652,17 @@ class SearchService:
         if collapse_field:
             # over-collect so that enough groups survive the collapse
             query_k = max(query_k, (from_ + size) * 5)
-        results, failures = self._query_shards(
-            searchers, body, query, post_filter, track_total, query_k,
-            profiles)
+        served = self._mesh_query(searchers, body, query, post_filter,
+                                  from_ + size, profiles)
+        if served is None:
+            results, failures = self._query_shards(
+                searchers, body, query, post_filter, track_total, query_k,
+                profiles)
+        else:
+            results, failures = [], []
         t0 = time.monotonic_ns()
-        merged = _merge_shards(results, sort)
+        merged = (_merge_shards(results, sort) if served is None
+                  else served[0])
         if collapse_field:
             # the first hit of each key; docs without one share a group
             seen = set()
@@ -600,11 +682,17 @@ class SearchService:
             if hasattr(node, "add_hit_fields"):
                 for h in hits:
                     node.add_hit_fields(h)
-        total = sum(r.total_hits for _, _, r in results)
-        scores = [r.max_score for _, _, r in results
-                  if r.max_score is not None]
-        relation = ("gte" if any(r.total_lower_bound for _, _, r in results)
-                    else "eq")
+        if served is None:
+            total = sum(r.total_hits for _, _, r in results)
+            scores = [r.max_score for _, _, r in results
+                      if r.max_score is not None]
+            relation = ("gte" if any(r.total_lower_bound
+                                     for _, _, r in results) else "eq")
+        else:
+            # merged on the device: its total is exact
+            total = served[1] if track_total else 0
+            scores = [merged[0][0]] if merged else []
+            relation = "eq"
         if not isinstance(track_total, bool) and total > track_total:
             total, relation = track_total, "gte"
         terminated_early = None
@@ -878,6 +966,11 @@ class SearchService:
         if aggregations is not None:
             out["aggregations"] = aggregations
         return out
+
+
+def _mesh_shaped(searchers) -> bool:
+    """Several shards of one index: what the mesh step looks at."""
+    return len(searchers) > 1 and len({n for n, _ in searchers}) == 1
 
 
 def _merge_shards(results, sort) -> List[Tuple[float, int, DocAddress,

@@ -18,6 +18,8 @@ from elasticsearch_tpu_torch.search import profile
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "elasticsearch_tpu_torch"
 OPS = PKG / "ops"
+# the mesh's own tracked programs (parallel/mesh_executor.py)
+PARALLEL = PKG / "parallel"
 
 # public ops functions that launch nothing: host numpy and arithmetic
 HOST = {"pow2_buckets", "idf", "scan_run_bound", "bm25_reference_scores",
@@ -35,17 +37,18 @@ INNER = {"bm25_contrib", "doubling_scan", "gather_bm25_contrib_plain",
 FUNNEL = {"readback"}
 
 
-def _ops_functions():
+def _ops_functions(where=OPS, public_only=True):
     """{(module, name): tracked kernel name or None} of the public
-    module-level functions of the public ops modules."""
+    module-level functions of the public ops modules (of ``where``;
+    with ``public_only`` False its private functions too)."""
     out = {}
-    for f in sorted(OPS.glob("*.py")):
+    for f in sorted(where.glob("*.py")):
         if f.name.startswith("_"):
             continue
         tree = ast.parse(f.read_text(), str(f))
         for node in tree.body:
-            if not isinstance(node, ast.FunctionDef) or \
-                    node.name.startswith("_"):
+            if not isinstance(node, ast.FunctionDef) or (
+                    public_only and node.name.startswith("_")):
                 continue
             name = None
             for dec in node.decorator_list:
@@ -82,7 +85,10 @@ def test_host_functions_launch_nothing():
 
 def test_tracked_kernels_have_attribution_rows_and_real_stages():
     funcs = _ops_functions()
-    names = [k for k in funcs.values() if k is not None]
+    mesh = {(f"parallel.{m}", n): k for (m, n), k in
+            _ops_functions(PARALLEL, public_only=False).items()}
+    names = [k for k in list(funcs.values()) + list(mesh.values())
+             if k is not None]
     assert len(names) == len(set(names)), "a kernel name is tracked twice"
     assert set(names) == set(profile.KERNEL_ATTRIBUTION)
     for name, stage in profile.KERNEL_ATTRIBUTION.items():

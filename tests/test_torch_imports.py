@@ -50,7 +50,8 @@ def test_importing_every_module_loads_no_jax():
                  "search.profile", "telemetry.context",
                  "telemetry.flightrecorder", "telemetry.engine",
                  "search.phrase", "search.intervals", "ops.features",
-                 "search.suggest"):
+                 "search.suggest", "parallel.sharded",
+                 "parallel.mesh_executor"):
         assert f"elasticsearch_tpu_torch.{name}" in res["modules"]
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
