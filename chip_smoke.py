@@ -58,11 +58,11 @@ Phases (any failure exits non-zero; no exception is swallowed):
               C++ load generator (es_loadgen, 64 connections, each stepping
               through the bodies round-robin, as the reference bench
               drives it): the 256 bodies once cold (θ emptied), then
-              θ-warm (two rounds to warm, then 12 rounds measured), every
+              θ-warm (two rounds to warm, then 6 rounds measured), every
               request done with 2xx, every bounce a plan-path body the
               plan path answered. Then (at size 999, which no θ licenses,
               under the load generator): the v2m-served queries alone
-              (two rounds to warm, 12 measured), and all of them
+              (two rounds to warm, 6 measured), and all of them
               again under torch.profiler with each lane's cohort launches
               named (each lane's device seconds, the card's idle share); the
               queries no v2m cohort takes, asked of the plan path all at once
@@ -95,7 +95,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
               the plan path beside the dense executor on the match + range
               bodies, the float32 gap (f32_gap) and the contribution kernel
               against its twin at the dense shape (Q = 1)
-  6. knn      config 4: an index of 8M seeded 768-d unit vectors
+  6. knn      config 4: an index of 4M seeded 768-d unit vectors
               (cosine) installed through segment_from_numpy, its bfloat16
               slab built on the card; 16 pure kNN bodies (k 1000,
               num_candidates 3000, size 1000, _source: false) over HTTP
@@ -113,9 +113,9 @@ Phases (any failure exits non-zero; no exception is swallowed):
               size 1000), each the fusion of the port's own answers to
               its branches asked apart (the branches held to their
               oracles); merged-hybrid, filtered-knn, _source: true and
-              exists bodies equal to the port's CPU execution, the
-              contribution kernel launching on the merged ones; the rrf
-              bodies from the load generator. The index also carries the
+              exists bodies, the first of each kind equal to the port's
+              CPU execution, the contribution kernel launching on the
+              merged ones; the rrf bodies from the load generator. The index also carries the
               reference bench's "feat" column (corpus.py bench_feat)
   7. script   config 3 on the index "hybrid": 32 script_score bodies of
               the reference bench's row (match + doc['feat'].value * 0.5
@@ -159,7 +159,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
               a tensor, plus at most 1 MiB for a large tensor handed an
               unsplit cached block); so does each lazy build (a filter
               mask, an ord-major permutation). A second node holds four 2M-doc
-              indices under a limit of 2.5 segments: 32 plan bodies equal
+              indices under a limit of 2.5 segments: 8 plan bodies equal
               the CPU execution, with the admissions and evictions of an
               LRU of two, and a segment evicted while the fast path
               holds its registration returns its memory; a node whose
@@ -235,7 +235,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
               and p50/p99 from 16 clients, and the cohorts the batcher
               forms with their lanes and device ms, on and off
  12. fields   the remaining field types: "geopoint" (Rally's geopoint
-              track, cut to a quarter: 15,211,101 points clustered like
+              track, cut to an eighth: 7,605,551 points clustered like
               populated places, corpus.py geo_points, in 4 segments of a
               location
               geo_point) with geo_distance at 1, 50 and 1000 km, the
@@ -248,7 +248,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
               relation; "logs_ip" (phase 5's logs with clientip as ip,
               Zipf over /16 networks, and a session date_range) with a
               term, CIDR /24 and /16, an ip range and each range
-              relation; "qa" (100,000 questions with 0-5 nested
+              relation; "qa" (50,000 questions with 0-5 nested
               answers, Rally's nested track) with a nested bool of a
               term and a range, a score_mode over a match and
               inner_hits, and its join twin "qa_join" with has_child
@@ -270,7 +270,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
               per dense BM25 scoring, the merge not at all, the breaker
               equal to the segments' bytes after. Printed: each body's
               profiled query, rewrite, join, top-k and verify ms; the
-              geo masks' device ms at 15.2M points against their bounds
+              geo masks' device ms at 7.6M points against their bounds
               and the polygon's launches; percolate ms per stored query
  13. shards   "bench5": the phase 4 corpus with the bench's 500-term
               cat keyword, in 5 shards (Rally geonames' default) routed
@@ -278,9 +278,9 @@ Phases (any failure exits non-zero; no exception is swallowed):
               equals on 200,000 ids, one segment a shard; "route5" takes 2,000
               docs through _bulk, each shard holding numpy's count.
               Over HTTP, every body reaching the fallback workers (the
-              front's fast count +0): phase 4's first 32 match bodies
+              front's fast count +0): phase 4's first 16 match bodies
               at size 1000 (5 alone, then from 64 clients and the load
-              generator), 16 of the bool+filters mix, 32 match + terms
+              generator), 8 of the bool+filters mix, 32 match + terms
               agg on cat, a cat sort with a 10-page search_after walk,
               collapse on cat, track_total_hits 10000, profile: true,
               8 dfs_query_then_fetch bodies before and after their
@@ -288,7 +288,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
               float64 oracles (each shard's own statistics by default,
               the whole corpus's under dfs; the dfs answers also to the
               one-shard bench's), numpy (sort, walk by the cursor rule,
-              collapse, agg counts) and, 4 bodies a kind, the port's
+              collapse, agg counts) and, 2 bodies a kind, the port's
               CPU execution; _shards {5, 5, 0} (6 for the two indices)
               on every answer; the contribution kernel launched once per
               dense BM25 scoring, the merge not at all; the breaker
@@ -315,11 +315,11 @@ Phases (any failure exits non-zero; no exception is swallowed):
               with geo_centroid, a geohash_grid, geo_bounds and
               geo_distance rings under a viewport's
               geo_bounding_box), a world geohash_grid at precision 3
-              with geo_bounds and geo_centroid over 15.2M points, world
+              with geo_bounds and geo_centroid over 7.6M points, world
               rings; ip_range on "logs_ip" under a match; nested,
               top_hits under terms and multi_terms on "qa"; children and
               parent on "qa_join"; significant_text and top_hits on
-              "fulltext"; then a 32-body dashboard mix of these from 8
+              "fulltext"; then a 16-body dashboard mix of these from 8
               Python clients. Held to numpy/scipy oracles under the
               float32 column semantics (composite pages concatenated
               against one grouped pass, significant, rare and multi
@@ -333,16 +333,16 @@ Phases (any failure exits non-zero; no exception is swallowed):
               the merge not at all, the breaker equal to the segments'
               bytes. Printed: each body's query and aggregation ms from
               its profile, the composite walks' ms a page, the grids'
-              seconds at 15.2M points, scripted_metric's us a doc, the
+              seconds at 7.6M points, scripted_metric's us a doc, the
               mix's qps and p50/p99
- 15. mesh     parallel/ on one H100. (a) Phase 13's 32 match and 16
+ 15. mesh     parallel/ on one H100. (a) Phase 13's 16 match and 8
               bool+filter bodies to "bench5" again over HTTP: the node's
               device list is the one card, so every body falls back to
               the per-shard loop (``fallback.not_enough_devices`` grows
               by exactly the bodies, no ``dispatch.*``, no
               ``fallback.error``) and answers what phase 13 answered.
               (b) The mesh programs over a grid of 5 x cuda:0: a
-              search service with that device list serves the 48
+              search service with that device list serves the 24
               bodies on bench5's shards (the node's resident segments:
               no second copy), each answer equal to the loop's bit for
               bit (ids, order, float32 scores, totals); a query through
@@ -352,8 +352,8 @@ Phases (any failure exits non-zero; no exception is swallowed):
               over build_sharded_index's stack of bench5's title field
               equal to the dfs phase's pooled doc freqs for the 8 dfs
               bodies' terms; _mesh_knn_nominate and
-              _mesh_knn_step over config 4's 8M x 768 bfloat16 slab as
-              five row ranges (views) for 8 queries at k 1000 and 3000
+              _mesh_knn_step over config 4's 4M x 768 bfloat16 slab as
+              five row ranges (views) for 4 queries at k 1000 and 3000
               candidates, each equal to the per-shard nomination, exact
               re-rank, cut and merge over the same views (ids, order,
               totals exact, scores rtol 1e-6). (c) The replica fan-out
@@ -364,11 +364,36 @@ Phases (any failure exits non-zero; no exception is swallowed):
               ``fallback.error`` 0 over the whole run. Printed: the
               device and host ms a mesh query and its waits for the
               card, the gather and merge ms
- 16. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
+ 16. durability  documents, versions and the translog, on a node of
+              its own on a temporary data path (removed at the end;
+              its bytes on disk printed). (a) "docs": 100,000 docs
+              (corpus.py's text, seed 0, a keyword, a long) in 20
+              _bulk requests of 5,000 over HTTP, then 5,000 single-doc
+              requests (updates by doc and by script, deletes, new
+              docs, a _create conflict, a CAS that succeeds and one
+              that conflicts): before _refresh every search answers as
+              before the requests (the NRT rule); after it the dense
+              (min_score) and plan bodies against a float64 oracle over
+              every copy the segments hold (totals exact, scores rtol
+              1e-5, the recall rule); after _forcemerge the fast bodies
+              on v2m (both kernels launch); every acknowledged write
+              read back through _mget with its _version and _seq_no.
+              (b) _flush, 10,000 ops by _bulk that only the translog
+              holds, close, a new Node on the path: the translog
+              replays them, every acknowledged write reads back, and
+              every page equals its answer before the restart. (c)
+              "bench", the 2M-doc corpus, installed, flushed, closed
+              and reopened: phase 4's first 64 match bodies answer
+              bit-equal before and after. Printed: the bulk rate, the
+              replay's ops/s, the seconds to recover split into
+              segment load, version map and upload to the card, the
+              bytes on disk, each part's launches
+ 17. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
               script, aggs, accounting, fulltext, fetch, fields, shards,
-              aggs_deferred, mesh, filters, plan and kernels JSON lines
-              (each kernel's launches per phase, launches_aggs_deferred
-              for phase 14, launches_mesh for 15), the phases' wall
+              aggs_deferred, mesh, durability, filters, plan and
+              kernels JSON lines (each kernel's launches per phase,
+              launches_aggs_deferred for phase 14, launches_mesh for
+              15, launches_durability for 16), the phases' wall
               seconds
               ({"phase_seconds": ...}), the card's
               name and power limit, and the last line {"ok": true,
@@ -1309,7 +1334,7 @@ def phase_loadgen(node, port, bodies, lanes, conns):
     """The scale phase's bodies under the C++ load generator: a cold
     round (the θ cache emptied first, as on a fresh registration; a
     second round would already be warm) and a θ-warm pass (two rounds
-    to warm, then 12 measured, as the reference bench measures). Answers
+    to warm, then 6 measured; the reference bench measures 12). Answers
     are held to the oracle in the passes driven by Python clients; these
     measure."""
     reg = node.fastpath.front_registration()
@@ -1318,7 +1343,7 @@ def phase_loadgen(node, port, bodies, lanes, conns):
     reg["theta"].clear()
     reg["ess_bad"].clear()
     out = dict(cold=loadgen_pass(node, port, bodies, lanes, conns),
-               warm=loadgen_pass(node, port, bodies, lanes, conns, reps=12,
+               warm=loadgen_pass(node, port, bodies, lanes, conns, reps=6,
                                  warmup=2))
     check(out["warm"]["ess_queries"] > 0,
           "the warm load rode the essential lane")
@@ -1807,7 +1832,7 @@ def phase_scale_trace(node, port, lanes, bodies, clients, counters):
     """What the lanes cost each other on the card they share, with the
     load from the C++ load generator (``clients`` connections). (a) The
     scale phase's v2m-served queries alone, untraced, two rounds to warm
-    and 12 measured: latency and the CUDA-event seconds of their
+    and 6 measured: latency and the CUDA-event seconds of their
     cohorts. (b) All the queries again under
     torch.profiler, each cohort launch of each lane inside a named range,
     so the trace gives each lane's device seconds in the mixed load, and
@@ -1820,7 +1845,7 @@ def phase_scale_trace(node, port, lanes, bodies, clients, counters):
     fp = node.fastpath
     v2m = [b for b, lane in zip(bodies, lanes) if lane == "v2m"]
     alone = loadgen_pass(node, port, v2m, ["v2m"] * len(v2m), clients,
-                         reps=12, warmup=2)
+                         reps=6, warmup=2)
 
     orig = plan_ops.plan_topk_batch
 
@@ -2998,10 +3023,10 @@ def phase_hybrid(node, port, corpus, queries, oracles, dims, seed, conns,
     for (kind, body), (st, r) in zip(mixed, res2):
         what = f"hybrid {kind} body vs the CPU"
         check(st == 200, f"{what}: {st} {r}")
-        # the first two bodies of each kind against the CPU (PERF.md
-        # section 4: the cut)
+        # the first body of each kind against the CPU (PERF.md section
+        # 4: the cut)
         seen_kinds[kind] += 1
-        if seen_kinds[kind] > 2:
+        if seen_kinds[kind] > 1:
             continue
         c = cpu.search("hybrid", body)
         check(c["hits"]["total"] == r["hits"]["total"], f"{what}: total")
@@ -3016,7 +3041,7 @@ def phase_hybrid(node, port, corpus, queries, oracles, dims, seed, conns,
                                   for k in ("merged", "filtered", "source",
                                             "exists")},
         launches=launches, cpu_s=time.time() - t0,
-        cpu_bodies=sum(min(2, n) for n in seen_kinds.values()))
+        cpu_bodies=sum(min(1, n) for n in seen_kinds.values()))
     # throughput of the rrf bodies: the load generator, 4 rounds
     b0 = service.knn_batcher.stats()
     res = loadgen(port, "/hybrid/_search", rbodies, conns, len(rbodies) * 4)
@@ -4008,7 +4033,7 @@ def front_pin_check(node, queries, k, evicted):
 def eviction_check(corpus, queries, k=100):
     """A second node holding four indices of one segment each (the
     phase-4 corpus, with the bench's ``cat`` column) under an hbm limit
-    of 2.5 segments: 32 plan bodies in a fixed order of indices equal
+    of 2.5 segments: 8 plan bodies in a fixed order of indices equal
     the CPU execution, and the segment admissions and breaker evictions
     are those of an LRU of two; lazy builds on a resident segment add
     the bytes they charge; a segment evicted while the fast path holds
@@ -4048,8 +4073,9 @@ def eviction_check(corpus, queries, k=100):
         br = node.breaker_service.get_breaker("hbm")
         evicted = []
         cache.add_evict_listener(evicted.extend)
-        pattern = [0, 1, 0, 2, 3, 1, 0, 3, 3, 2, 1, 1, 0, 2, 2, 3]
-        # one cycle of the pattern (PERF.md section 4: the cut)
+        pattern = [0, 1, 0, 2, 3, 1, 0, 3]
+        # half a cycle of the pattern, every index in it (PERF.md
+        # section 4: the cut)
         order = [f"ev{p}" for p in pattern]
         bodies = [plan_body(queries[i], k) for i in range(len(order))]
         adm0, ev0 = cache.churn_counters()
@@ -4079,8 +4105,8 @@ def eviction_check(corpus, queries, k=100):
             res = cpu.query_phase(parse_query(body["query"]), k)
             hits_match_cpu(r, res, [segs[0]], 0,
                            f"eviction plan body {i} ({order[i]})")
-        log(f"[accounting] 32 plan bodies over 4 indices under 2.5 "
-            f"segments equal to the CPU ({time.time() - t0:.1f} s)")
+        log(f"[accounting] {len(order)} plan bodies over 4 indices under "
+            f"2.5 segments equal to the CPU ({time.time() - t0:.1f} s)")
         # lazy builds on the most recently used resident
         dev = cache.resident(order[-1])
         t = int(queries[0][0])
@@ -5558,9 +5584,9 @@ def phase_fetch(node, port, corpus, queries, cols, seed, conns, counters,
 FIELDS_SIZE = 100
 # a quarter of Rally geopoint's 60,844,404 documents (PERF.md section 4:
 # the cut)
-GEO_POINTS = 15_211_101
+GEO_POINTS = 7_605_551
 GEO_SEGMENTS = 4          # a segment's padded docids stay below 2^24
-QA_QUESTIONS = 100_000    # the nested questions (PERF.md section 4: the cut)
+QA_QUESTIONS = 50_000     # the nested questions (PERF.md section 4: the cut)
 ALERTS = 1_000            # the percolator index's stored queries (the cut)
 # the stored queries of "alerts_small" (the first ones of "alerts"),
 # which the percolations of ten documents and of a document by reference
@@ -6598,11 +6624,11 @@ SHARD_K = 1000
 # SHARD_MATCH queries, SHARD_FILTERS of its bool+filters mix, SHARD_DFS
 # dfs bodies, SHARD_MULTI multi-index bodies, SHARD_SAMPLE bodies a kind
 # held to the CPU execution
-SHARD_MATCH = 32
-SHARD_FILTERS = 16
+SHARD_MATCH = 16
+SHARD_FILTERS = 8
 SHARD_DFS = 8
 SHARD_MULTI = 8
-SHARD_SAMPLE = 4
+SHARD_SAMPLE = 2
 DFS = "?search_type=dfs_query_then_fetch"
 
 
@@ -7427,7 +7453,8 @@ def phase_aggs_deferred(node, port, corpus, queries, logs, cols, feat,
         walks[name] = composite_walk(port, index, body, name)
     mix_names = ("maps", "tsvb", "latest", "significant", "lens",
                  "composite_bench5", "nested", "tsvb_match")
-    mix = [(i, b) for nm, i, b in cases if nm in mix_names] * 4
+    # two rounds of the dashboard (PERF.md section 4: the cut)
+    mix = [(i, b) for nm, i, b in cases if nm in mix_names] * 2
     mres, mlat, mwall = drive(port, [b for _, b in mix], min(conns, 8),
                               [i for i, _ in mix])
     check(all(st == 200 and r["_shards"]["failed"] == 0 for st, r in mres),
@@ -7649,11 +7676,13 @@ def phase_aggs_deferred(node, port, corpus, queries, logs, cols, feat,
     ukv = qseg.keywords["answers.user"]
     snv = qseg.numerics["answers.score"]
     okq = (ukv.ords >= 0) & ~snv.missing
-    pair = ukv.ords[okq].astype(np.int64) * 1000 + snv.values[okq].astype(
-        np.int64)
+    # (user ord, score) as one code; scores lie in [-5, 50), offset by
+    # 500 so the code orders and decodes them, negative ones too
+    pair = ukv.ords[okq].astype(np.int64) * 1000 + (
+        snv.values[okq].astype(np.int64) + 500)
     up, cp = np.unique(pair, return_counts=True)
     top = np.lexsort((up, -cp))[:10]
-    want_mt = [([ukv.terms[int(up[i] // 1000)], float(up[i] % 1000)],
+    want_mt = [([ukv.terms[int(up[i] // 1000)], float(up[i] % 1000 - 500)],
                 int(cp[i])) for i in top]
     check([(b["key"], b["doc_count"]) for b in a["lens"]["mt"]["buckets"]]
           == want_mt, "multi_terms: counts and order")
@@ -7699,10 +7728,10 @@ def phase_aggs_deferred(node, port, corpus, queries, logs, cols, feat,
 
 
 # ---------------------------------------------------------------- phase 15
-MESH_KNN_QUERIES = 8
+MESH_KNN_QUERIES = 4
 MESH_KNN_K = 1000
 MESH_KNN_NC = 3000
-MESH_TIMED = 4            # bodies whose mesh launch is profiled
+MESH_TIMED = 2            # bodies whose mesh launch is profiled
 MESH_REPS = 3             # profiled calls a body
 # the host calls that wait for the card
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -8084,6 +8113,519 @@ def phase_mesh(node, port, corpus, queries, carry, seed, iters, counters,
     return out
 
 
+# ---------------------------------------------------------------- phase 16
+DUR_DOCS = 100_000        # phase 16 (a): the docs written through _bulk
+DUR_BULK = 5_000          # Rally's default bulk_size
+DUR_OPS = 5_000           # single-doc requests after the bulk
+DUR_TRANSLOG_OPS = 10_000  # (b): the ops only the translog holds
+DUR_QUERIES = 8
+DUR_K = 100
+DUR_BENCH_BODIES = 64     # (c): phase 4's first match bodies
+DUR_CLIENTS = 8
+
+
+class CopyOracle:
+    """float64 BM25 over the copies a shard's segments hold (each
+    document version written, live or deleted): the statistics count
+    every copy, as the shard's do until a merge drops the deleted ones;
+    only the live copies score."""
+
+    def __init__(self, copies, k1=1.2, b=0.75):
+        ids = [i for i, _t, _live in copies]
+        toks = [t for _i, t, _live in copies]
+        self.ids = np.asarray([int(i) for i in ids], np.int64)
+        self.live = np.asarray([live for _i, _t, live in copies], bool)
+        lens = np.asarray([len(t) for t in toks], np.int64)
+        copy_of = np.repeat(np.arange(len(toks), dtype=np.int64), lens)
+        flat = np.concatenate(toks).astype(np.int64)
+        keys = flat * len(toks) + copy_of
+        uniq, tf = np.unique(keys, return_counts=True)
+        self.term_of = uniq // len(toks)
+        self.copy_of = uniq % len(toks)
+        self.tf = tf.astype(np.float64)
+        self.starts = np.searchsorted(self.term_of,
+                                      np.arange(int(flat.max()) + 2))
+        self.lens = lens.astype(np.float64)
+        self.avg = float(lens.sum()) / len(lens)
+        self.n, self.k1, self.b = len(lens), k1, b
+
+    def scores(self, terms):
+        out = np.zeros(self.n, np.float64)
+        for t in terms:
+            lo, hi = self.starts[t], self.starts[t + 1]
+            c, f = self.copy_of[lo:hi], self.tf[lo:hi]
+            df = hi - lo
+            w = np.log(1.0 + (self.n - df + 0.5) / (df + 0.5))
+            norm = self.k1 * (1.0 - self.b + self.b * self.lens[c] / self.avg)
+            out[c] += w * f / (f + norm)
+        return np.where(self.live, out, 0.0)
+
+    def topk(self, terms, k):
+        """(ids of the top k live copies, their scores, the live
+        matches, {id: score} of every live match)."""
+        s = self.scores(terms)
+        matched = np.nonzero(s > 0)[0]
+        order = matched[np.lexsort((self.ids[matched], -s[matched]))][:k]
+        return (self.ids[order], s[order], len(matched),
+                dict(zip(self.ids[matched].tolist(), s[matched].tolist())))
+
+
+def check_scored(r, oracle, terms, k, what):
+    """The page against the oracle: the total exact, each served score
+    within rtol 1e-5 of its doc's float64 score, every oracle doc above
+    the kth score's ties served (check_answer's plan rule)."""
+    truth, scores, total, by_id = oracle.topk(terms, k)
+    check_answer(r, (truth, scores, total), "plan", what)
+    for h in r["hits"]["hits"]:
+        want = by_id.get(int(h["_id"]))
+        check(want is not None and abs(h["_score"] - want) <= 1e-5 * want,
+              f"{what}: doc {h['_id']} scored {h['_score']} vs {want}")
+
+
+def ask_many(port, requests, clients):
+    """(status, body) of each (method, path, body) request, sent by
+    ``clients`` threads over one kept-alive connection each; answers in
+    request order."""
+    import http.client
+    from concurrent.futures import ThreadPoolExecutor
+    local = threading.local()
+    conns = []
+
+    def one(q):
+        method, path, body = q
+        conn = getattr(local, "conn", None)
+        if conn is None:
+            conn = local.conn = http.client.HTTPConnection(
+                "127.0.0.1", port, timeout=300)
+            conns.append(conn)
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data, headers=(
+            {"Content-Type": "application/json"} if data else {}))
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+
+    try:
+        with ThreadPoolExecutor(clients) as pool:
+            return list(pool.map(one, requests))
+    finally:
+        for conn in conns:
+            conn.close()
+
+
+def launches_since(counters, before):
+    return {n: c.launches - before[n] for n, c in counters.items()}
+
+
+def tracker_calls(names):
+    """The launch tracker's calls of each kernel (``GET /_kernels``)."""
+    from elasticsearch_tpu_torch.telemetry.engine import TRACKER
+    table = TRACKER.to_dict()
+    return {n: table.get(n, {}).get("calls", 0) for n in names}
+
+
+def tree_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def same_pages(a, b, what):
+    """Two answers bit-equal: totals, ids, order and float32 scores (the
+    C++ front prints a float32 score's shortest text, the fallback its
+    float64 value: both parse to the same float32)."""
+    def page(r):
+        return [(h["_id"], np.float32(h["_score"]).tobytes())
+                for h in r["hits"]["hits"]]
+    check(a["hits"]["total"] == b["hits"]["total"] and page(a) == page(b),
+          f"{what}: the same answer ({str(a)[:300]} vs {str(b)[:300]})")
+
+
+def phase_durability(corpus_seg, queries, seed, counters, hbm_log):
+    """Documents, versions and the translog on one H100 (module
+    docstring, phase 16), on a node of its own on a temporary data
+    path."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import build_corpus, term_name
+    from elasticsearch_tpu_torch.node import Node
+    t_phase = time.time()
+    out = {}
+    steps = {}
+    t_step = [time.time()]
+
+    def lap(name):
+        """The seconds since the last lap, as ``steps_s[name]``."""
+        now = time.time()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+    path = tempfile.mkdtemp(prefix="estpu-durability-")
+    settings = {"indices.breaker.hbm.limit":
+                int(0.5 * torch.cuda.mem_get_info()[1])}
+    rng = np.random.default_rng(seed)
+    for c in counters.values():
+        c.launches = 0
+    calls0 = tracker_calls(counters)
+
+    def open_node(upload=None):
+        """(node, port, seconds to open it, seconds to upload index
+        ``upload``'s segment to the card): opening recovers every index
+        under the path; the upload is timed before ``start``, whose
+        front registration would make it."""
+        t0 = time.time()
+        n = Node(device="cuda", settings=settings, data_path=path)
+        opened = time.time() - t0
+        upload_s = None
+        if upload is not None:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            n.device_cache.get(n.indices[upload].engine.segments[0])
+            torch.cuda.synchronize()
+            upload_s = time.time() - t0
+        return n, n.start(0), opened, upload_s
+
+    # the documents: corpus.py's text (seed 0), a keyword, a long
+    dc = build_corpus(np.random.default_rng(0), n_docs=DUR_DOCS)
+    ends = np.cumsum(dc["lens"].astype(np.int64))
+    toks = np.split(dc["stream"], ends[:-1])
+
+    names = [term_name(t) for t in range(int(dc["stream"].max()) + 1)]
+
+    def text(t):
+        return " ".join([names[x] for x in t.tolist()])
+
+    tags = ["alpha", "beta", "gamma"]
+    docs = {str(i): {"body": text(toks[i]), "tag": tags[i % 3], "n": i}
+            for i in range(DUR_DOCS)}
+    tok_of = {str(i): toks[i] for i in range(DUR_DOCS)}
+    node, port, _, _ = open_node()
+    lap("a_setup")
+    try:
+        # ---- (a) "docs": _bulk at Rally's bulk_size, then single ops
+        before = {n: c.launches for n, c in counters.items()}
+        st, _ = http(port, "PUT", "/docs", {"mappings": {"properties": {
+            "body": {"type": "text"}, "tag": {"type": "keyword"},
+            "n": {"type": "long"}}}})
+        check(st == 200, "phase 16: PUT /docs")
+        acks = {}
+        ids = list(docs)
+        t0 = time.time()
+        for lo in range(0, DUR_DOCS, DUR_BULK):
+            lines = "".join(
+                json.dumps({"index": {"_id": i}}) + "\n"
+                + json.dumps(docs[i]) + "\n" for i in ids[lo:lo + DUR_BULK])
+            st, r = http(port, "POST", "/docs/_bulk", lines, ndjson=True)
+            check(st == 200 and not r["errors"],
+                  f"phase 16 (a): bulk at {lo}: {str(r)[:300]}")
+            for it in r["items"]:
+                it = it["index"]
+                acks[it["_id"]] = (it["_version"], it["_seq_no"])
+        bulk_s = time.time() - t0
+        t0 = time.time()
+        st, _ = http(port, "POST", "/docs/_refresh")
+        refresh_s = time.time() - t0
+        check(st == 200, "phase 16 (a): _refresh")
+        qrng = np.random.default_rng(seed + 1)
+        qterms = [sorted(set(int(t) for t in qrng.integers(
+            5, 3000, int(qrng.integers(1, 4))))) for _ in range(DUR_QUERIES)]
+        dense = [{"query": {"match": {"body": " ".join(
+            term_name(t) for t in q)}}, "min_score": 1e-12, "size": DUR_K}
+            for q in qterms]
+        plan = [{"query": {"match": {"body": {"query": " ".join(
+            term_name(t) for t in q), "boost": 1.0}}}, "size": DUR_K}
+            for q in qterms]
+        first = ask_many(port, [("POST", "/docs/_search", b)
+                                for b in dense + plan], DUR_CLIENTS)
+        lap("a_bulk_refresh_search")
+        copies = [(i, tok_of[i], True) for i in ids]
+        oracle = CopyOracle(copies)
+        lap("a_oracle")
+        for j, (st, r) in enumerate(first):
+            check(st == 200, f"phase 16 (a): search {j}: {str(r)[:200]}")
+            check_scored(r, oracle, qterms[j % DUR_QUERIES], DUR_K,
+                         f"phase 16 (a) after the bulk, body {j}")
+        # 5,000 single-doc requests through the REST routes, 8 clients,
+        # one request an id: updates by doc (half with a new body),
+        # scripted updates, deletes, new docs; then, one at a time, a
+        # _create conflict, a CAS that succeeds and one that conflicts,
+        # and a search before _refresh
+        perm = rng.permutation(DUR_DOCS)
+        n_doc, n_script, n_del = 2000, 1000, 1000
+        n_new = DUR_OPS - n_doc - n_script - n_del - 4
+        reqs, kinds = [], []
+        for j, d in enumerate(perm[:n_doc]):
+            i = str(int(d))
+            upd = {"tag": tags[(int(d) + 1) % 3]}
+            if j % 2:
+                src = str(int(perm[-1 - j]))
+                upd["body"] = docs[src]["body"]
+                tok_of[i] = tok_of[src]
+            docs[i] = dict(docs[i], **upd)
+            reqs.append(("POST", f"/docs/_update/{i}", {"doc": upd}))
+            kinds.append(("update", i))
+        for d in perm[n_doc:n_doc + n_script]:
+            i = str(int(d))
+            docs[i] = dict(docs[i], n=docs[i]["n"] + 7)
+            reqs.append(("POST", f"/docs/_update/{i}", {"script": {
+                "source": "ctx._source.n += params.d",
+                "params": {"d": 7}}}))
+            kinds.append(("update", i))
+        for d in perm[n_doc + n_script:n_doc + n_script + n_del]:
+            i = str(int(d))
+            reqs.append(("DELETE", f"/docs/_doc/{i}", None))
+            kinds.append(("delete", i))
+        for j in range(n_new):
+            i = str(DUR_DOCS + j)
+            src = str(int(perm[j]))
+            docs[i] = {"body": docs[src]["body"], "tag": "new",
+                       "n": DUR_DOCS + j}
+            tok_of[i] = tok_of[src]
+            reqs.append(("PUT", f"/docs/_doc/{i}", docs[i]))
+            kinds.append(("create", i))
+        lap("a_checks_and_requests_built")
+        t0 = time.time()
+        answers = ask_many(port, reqs, DUR_CLIENTS)
+        ops_s = time.time() - t0
+        deleted = set()
+        for (kind, i), (st, r) in zip(kinds, answers):
+            want = {"update": (200, "updated"), "delete": (200, "deleted"),
+                    "create": (201, "created")}[kind]
+            check((st, r.get("result")) == want,
+                  f"phase 16 (a): {kind} {i}: {st} {str(r)[:200]}")
+            acks[i] = (r["_version"], r["_seq_no"])
+            if kind == "delete":
+                deleted.add(i)
+                docs.pop(i)
+        live_id = str(int(perm[-1]))
+        st, r = http(port, "PUT", f"/docs/_create/{live_id}", {"n": 0})
+        check(st == 409 and r["error"]["type"]
+              == "version_conflict_engine_exception",
+              f"phase 16 (a): _create on a live id is a 409: {st} {r}")
+        st, g = http(port, "GET", f"/docs/_doc/{live_id}")
+        check(st == 200 and g["_seq_no"] == acks[live_id][1],
+              f"phase 16 (a): GET {live_id} answers its seq_no: {g}")
+        cas = dict(docs[live_id], n=-1)
+        q = f"if_seq_no={g['_seq_no']}&if_primary_term={g['_primary_term']}"
+        st, r = http(port, "PUT", f"/docs/_doc/{live_id}?{q}", cas)
+        check(st == 200 and r["_version"] == g["_version"] + 1,
+              f"phase 16 (a): the CAS at the current seq_no succeeds: {r}")
+        docs[live_id] = cas
+        acks[live_id] = (r["_version"], r["_seq_no"])
+        st, r = http(port, "PUT", f"/docs/_doc/{live_id}?{q}", cas)
+        check(st == 409, f"phase 16 (a): the stale CAS is a 409: {st} {r}")
+        # the NRT rule: before _refresh every search answers as before
+        # the 5,000 requests (old copies kept, new ones unseen)
+        nrt = ask_many(port, [("POST", "/docs/_search", b)
+                              for b in dense + plan], DUR_CLIENTS)
+        for j, ((_, a), (_, b)) in enumerate(zip(first, nrt)):
+            same_pages(a, b, f"phase 16 (a): NRT, body {j} before _refresh")
+        lap("a_single_ops_and_nrt")
+        st, _ = http(port, "POST", "/docs/_refresh")
+        check(st == 200, "phase 16 (a): the second _refresh")
+        lap("a_second_refresh")
+        # the segments: the bulk's copies (the updated and deleted ones
+        # dead) and the new copies
+        touched = {i for _k, i in kinds} | {live_id}
+        copies = [(i, toks[int(i)], i not in touched) for i in ids]
+        copies += [(i, tok_of[i], True) for _k, i in kinds
+                   if i not in deleted and i != live_id]
+        copies.append((live_id, tok_of[live_id], True))
+        oracle = CopyOracle(copies)
+        c_dense = {n: c.launches for n, c in counters.items()}
+        second = ask_many(port, [("POST", "/docs/_search", b)
+                                 for b in dense + plan], DUR_CLIENTS)
+        dense_launches = launches_since(counters, c_dense)
+        for j, (st, r) in enumerate(second):
+            check(st == 200, f"phase 16 (a): search {j}: {str(r)[:200]}")
+            check_scored(r, oracle, qterms[j % DUR_QUERIES], DUR_K,
+                         f"phase 16 (a) after the ops, body {j}")
+        check(dense_launches["gather_bm25_contrib"] >= len(dense),
+              f"phase 16 (a): the dense bodies launched the contribution "
+              f"kernel: {dense_launches}")
+        # _forcemerge: one segment of the live docs, served by v2m
+        lap("a_oracle_and_checks_after_refresh")
+        st, _ = http(port, "POST", "/docs/_forcemerge")
+        check(st == 200, "phase 16 (a): _forcemerge")
+        lap("a_forcemerge")
+        oracle = CopyOracle([(i, tok_of[i], True) for i in sorted(
+            docs, key=int)])
+        fast = [{"query": {"match": {"body": " ".join(
+            term_name(t) for t in q)}}, "size": DUR_K, "_source": False}
+            for q in qterms]
+        fp = node.fastpath
+        d0 = dict(fp.serving_stats()["dispatch"])
+        c_fast = {n: c.launches for n, c in counters.items()}
+        third = ask_many(port, [("POST", "/docs/_search", b) for b in fast],
+                         DUR_CLIENTS)
+        fast_launches = launches_since(counters, c_fast)
+        d1 = fp.serving_stats()["dispatch"]
+        v2m = sum(v - d0.get(k, 0) for k, v in d1.items()
+                  if k.startswith("v2m"))
+        for j, (st, r) in enumerate(third):
+            check(st == 200, f"phase 16 (a): fast body {j}: {str(r)[:200]}")
+            check_scored(r, oracle, qterms[j], DUR_K,
+                         f"phase 16 (a) after _forcemerge, body {j}")
+        check(v2m == len(fast) and fast_launches["merge_sorted_slots"] > 0
+              and fast_launches["gather_bm25_contrib"] > 0,
+              f"phase 16 (a): every merged-index body on v2m ({v2m}), "
+              f"both kernels launched: {fast_launches}")
+
+        def read_back(port, what):
+            """Every acknowledged write through _mget: a live doc's
+            source, _version and _seq_no as acknowledged; a deleted one
+            not found."""
+            every = sorted(acks, key=int)
+            for lo in range(0, len(every), 10_000):
+                chunk = every[lo:lo + 10_000]
+                st, r = http(port, "POST", "/docs/_mget", {"ids": chunk})
+                check(st == 200, f"{what}: _mget at {lo}")
+                for i, d in zip(chunk, r["docs"]):
+                    if i in docs:
+                        check(d["found"] and (d["_version"], d["_seq_no"])
+                              == acks[i] and d["_source"] == docs[i],
+                              f"{what}: doc {i}: {str(d)[:200]} vs "
+                              f"{acks[i]}")
+                    else:
+                        check(not d["found"], f"{what}: doc {i} deleted")
+            return len(every)
+
+        lap("a_fast_checks")
+        out["docs"] = dict(
+            docs=DUR_DOCS, bulk_requests=DUR_DOCS // DUR_BULK,
+            bulk_s=bulk_s, bulk_docs_per_s=DUR_DOCS / bulk_s,
+            refresh_s=refresh_s, single_requests=DUR_OPS,
+            single_s=ops_s, single_per_s=len(reqs) / ops_s,
+            read_back=read_back(port, "phase 16 (a)"),
+            launches=launches_since(counters, before),
+            launches_dense=dense_launches, launches_fast=fast_launches)
+        lap("a_read_back")
+        log(f"[durability] (a) {out['docs']}")
+
+        # ---- (b) restart from the translog
+        before = {n: c.launches for n, c in counters.items()}
+        st, _ = http(port, "POST", "/docs/_flush")
+        check(st == 200, "phase 16 (b): _flush")
+        # every fifth op a delete, the others updates by doc
+        ops = []
+        tl_ids = [str(i) for i in rng.permutation(
+            sorted(docs, key=int))[:DUR_TRANSLOG_OPS]]
+        for j, i in enumerate(tl_ids):
+            if j % 5 == 4:
+                ops.append(json.dumps({"delete": {"_id": i}}) + "\n")
+            else:
+                upd = {"n": docs[i]["n"] + 1, "tag": "tl"}
+                ops.append(json.dumps({"update": {"_id": i}}) + "\n"
+                           + json.dumps({"doc": upd}) + "\n")
+                docs[i] = dict(docs[i], **upd)
+        t0 = time.time()
+        for lo in range(0, len(ops), DUR_BULK):
+            st, r = http(port, "POST", "/docs/_bulk",
+                         "".join(ops[lo:lo + DUR_BULK]), ndjson=True)
+            check(st == 200 and not r["errors"],
+                  f"phase 16 (b): bulk at {lo}: {str(r)[:300]}")
+            for it in r["items"]:
+                (op, it), = it.items()
+                if op == "delete":
+                    check(it["result"] == "deleted", f"(b) delete {it}")
+                    docs.pop(it["_id"])
+                else:
+                    acks[it["_id"]] = (it["_version"], it["_seq_no"])
+        tl_s = time.time() - t0
+        st, _ = http(port, "POST", "/docs/_refresh")
+        pre = ask_many(port, [("POST", "/docs/_search", b)
+                              for b in dense + plan + fast], DUR_CLIENTS)
+        lap("b_flush_ops_refresh_search")
+        node.close()
+        node, port, opened, _ = open_node()
+        lap("b_close_open")
+        rec = node.indices["docs"].stats()["recovery"][0]
+        check(rec["replay_ops"] == DUR_TRANSLOG_OPS,
+              f"phase 16 (b): the translog replayed {rec['replay_ops']} "
+              f"ops ({DUR_TRANSLOG_OPS} sent after the flush)")
+        read_back(port, "phase 16 (b) after the restart")
+        st, _ = http(port, "POST", "/docs/_refresh")
+        post = ask_many(port, [("POST", "/docs/_search", b)
+                               for b in dense + plan + fast], DUR_CLIENTS)
+        for j, ((_, a), (_, b)) in enumerate(zip(pre, post)):
+            same_pages(a, b, f"phase 16 (b): body {j} across the restart")
+        # committed, so (c)'s restart replays nothing of docs
+        st, _ = http(port, "POST", "/docs/_flush")
+        check(st == 200, "phase 16 (b): _flush after the restart")
+        out["restart"] = dict(
+            translog_ops=DUR_TRANSLOG_OPS, translog_bulk_s=tl_s,
+            open_s=opened, recovery=rec,
+            replay_ops_per_s=rec["replay_ops"] / max(rec["replay_s"], 1e-9),
+            bytes_on_disk=tree_bytes(path),
+            launches=launches_since(counters, before))
+        lap("b_read_back_refresh_search")
+        log(f"[durability] (b) {out['restart']}")
+
+        # ---- (c) "bench": the 2M-doc corpus flushed and restarted
+        before = {n: c.launches for n, c in counters.items()}
+        node.create_index("bench", {"properties": {"title":
+                                                   {"type": "text"}}})
+        node.indices["bench"].engine.install_segments([corpus_seg])
+        bodies = [match_body(q, 1000) for q in queries[:DUR_BENCH_BODIES]]
+
+        def ask_front(port, what):
+            """The bodies through the C++ front, which serves bench (the
+            largest index of one segment: docs holds two)."""
+            node.refresh_front()
+            f0 = node.http_stats()["fast"]
+            res = ask_many(port, [("POST", "/bench/_search", b)
+                                  for b in bodies], DUR_CLIENTS)
+            check(node.http_stats()["fast"] - f0 == len(bodies),
+                  f"{what}: the front served every bench body")
+            for j, (st, r) in enumerate(res):
+                check(st == 200, f"{what}: body {j}: {str(r)[:200]}")
+            return res
+
+        lap("c_install")
+        pre = ask_front(port, "phase 16 (c) before the restart")
+        lap("c_bodies")
+        t0 = time.time()
+        st, _ = http(port, "POST", "/bench/_flush")
+        flush_s = time.time() - t0
+        check(st == 200, "phase 16 (c): _flush")
+        bench_bytes = tree_bytes(node.indices["bench"].path)
+        lap("c_flush")
+        node.close()
+        node, port, opened, upload_s = open_node(upload="bench")
+        lap("c_close_open")
+        rec = node.indices["bench"].stats()["recovery"][0]
+        seg = node.indices["bench"].engine.segments[0]
+        post = ask_front(port, "phase 16 (c) after the restart")
+        for j, ((_, a), (_, b)) in enumerate(zip(pre, post)):
+            same_pages(a, b, f"phase 16 (c): bench body {j} across the "
+                       f"restart")
+        out["bench"] = dict(
+            docs=seg.n_docs, bodies=len(bodies), flush_s=flush_s,
+            bytes_on_disk=bench_bytes, open_s=opened,
+            segment_load_s=rec["segment_load_s"],
+            version_map_s=rec["version_map_s"], upload_s=upload_s,
+            recover_s=(rec["segment_load_s"] + rec["version_map_s"]
+                       + upload_s),
+            launches=launches_since(counters, before))
+        lap("c_upload_bodies")
+        log(f"[durability] (c) {out['bench']}")
+        hbm_agrees(node, "durability", hbm_log)
+    finally:
+        node.close()
+        shutil.rmtree(path, ignore_errors=True)
+    launches = {n: c.launches for n, c in counters.items()}
+    calls = {n: v - calls0[n] for n, v in tracker_calls(counters).items()}
+    check(all(v > 0 for v in launches.values()) and calls == launches,
+          f"phase 16: both kernels launched, the tracker agreeing: "
+          f"{launches} vs {calls}")
+    lap("close")
+    out["launches"] = launches
+    out["steps_s"] = steps
+    out["phase_s"] = time.time() - t_phase
+    log(f"[durability] {json.dumps(out)[:2000]}")
+    return out
+
+
 class PhaseClock:
     """The wall seconds of each phase, one lap a phase
     (``{"phase_seconds": ...}``)."""
@@ -8109,11 +8651,12 @@ def main(argv=None) -> int:
     ap.add_argument("--vocab", type=int, default=100_000)
     ap.add_argument("--queries", type=int, default=256)
     ap.add_argument("--clients", type=int, default=64)
-    ap.add_argument("--iters", type=int, default=6)
+    ap.add_argument("--iters", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     # config 4 (pure kNN) and config 5 (hybrid) of the reference's
-    # BASELINE: 8M x 768 cosine, and the scale corpus with 256-d vectors
-    ap.add_argument("--knn-docs", type=int, default=8_000_000)
+    # BASELINE (8M x 768 cosine, cut to 4M: PERF.md section 4), and the
+    # scale corpus with 256-d vectors
+    ap.add_argument("--knn-docs", type=int, default=4_000_000)
     ap.add_argument("--knn-dims", type=int, default=768)
     ap.add_argument("--knn-queries", type=int, default=16)
     ap.add_argument("--hybrid-dims", type=int, default=256)
@@ -8395,7 +8938,12 @@ def main(argv=None) -> int:
     finally:
         node.close()
 
-    # ---- 15. report
+    # ---- 16. durability, on a node of its own on a temporary data path
+    durability = phase_durability(seg, queries, args.seed + 17, counters,
+                                  hbm_log)
+    clock.lap("16_durability")
+
+    # ---- 17. report
     meta = {
         "gather_bm25_contrib": dict(
             source="elasticsearch_tpu_torch/csrc/bm25_contrib.cu",
@@ -8432,6 +8980,7 @@ def main(argv=None) -> int:
             launches_shards=shards["launches"][name],
             launches_aggs_deferred=deferred["launches"][name],
             launches_mesh=mesh["launches"][name],
+            launches_durability=durability["launches"][name],
             dense_shape=(dense["contrib_dense_shape"]
                          if name == "gather_bm25_contrib" else None)))
     print(json.dumps({"scale": scale}))
@@ -8451,6 +9000,7 @@ def main(argv=None) -> int:
     print(json.dumps({"shards": shards}))
     print(json.dumps({"aggs_deferred": deferred}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"durability": durability}))
     print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))

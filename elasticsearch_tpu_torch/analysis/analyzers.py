@@ -7,7 +7,7 @@ from __future__ import annotations
 from typing import List
 
 from elasticsearch_tpu_torch.analysis.tokenizers import (StandardTokenizer,
-                                                         Token)
+                                                         TermRun, Token)
 
 # names a text field may carry for its (search) analyzer in this slice
 SUPPORTED = ("standard", "default")
@@ -18,9 +18,21 @@ class StandardAnalyzer:
         self.tokenizer = StandardTokenizer()
 
     def analyze(self, text: str) -> List[Token]:
+        if text.isascii():
+            # lowercasing ASCII keeps every offset: tokenize the
+            # lowercased text once
+            return self.tokenizer.tokenize(text.lower())
         out = []
         for t in self.tokenizer.tokenize(text):
             low = t.term.lower()
             out.append(t if low == t.term else
                        Token(low, t.position, t.start_offset, t.end_offset))
         return out
+
+    def index_terms(self, text: str):
+        """``analyze`` as the indexer takes it: an ASCII value as a
+        TermRun (its terms, the Tokens made on demand), any other as
+        its Tokens."""
+        if text.isascii():
+            return TermRun(text.lower())
+        return self.analyze(text)

@@ -115,3 +115,90 @@ def error_type_of(exc: BaseException) -> str:
     etype = getattr(exc, "error_type", None)
     return etype if isinstance(etype, str) else snake_case(
         type(exc).__name__)
+
+
+# -------------------------------------------------------------- the write path
+# (the reference's types, statuses, messages and ``to_xcontent`` bodies)
+
+
+class WriteException(Exception):
+    """A write-path failure with the reference's wire form: ``status``,
+    ``error_type`` and ``to_xcontent()`` (type, reason, then the
+    exception's metadata)."""
+
+    status = 500
+    error_type = "exception"
+
+    def __init__(self, message: str = "", **metadata):
+        super().__init__(message)
+        self.message = message
+        self.metadata = metadata
+
+    def to_xcontent(self) -> dict:
+        return {"type": self.error_type, "reason": self.message,
+                **self.metadata}
+
+
+class VersionConflictEngineException(WriteException):
+    """An optimistic-concurrency failure: ``op_type=create`` on a live
+    id, or an ``if_seq_no``/``if_primary_term`` that does not match the
+    document's (a 409)."""
+
+    status = 409
+    error_type = "version_conflict_engine_exception"
+
+    def __init__(self, doc_id: str, message: str):
+        super().__init__(f"[{doc_id}]: version conflict, {message}")
+
+
+class DocumentMissingException(WriteException):
+    """An update or ``_source`` read of a document that does not exist
+    (a 404)."""
+
+    status = 404
+    error_type = "document_missing_exception"
+
+    def __init__(self, index: str, doc_id: str):
+        super().__init__(f"[{doc_id}]: document missing", index=index)
+
+
+class EngineClosedException(WriteException):
+    """A write to a shard engine that was closed."""
+
+    error_type = "engine_closed_exception"
+
+
+class TranslogCorruptedException(WriteException):
+    """A translog operation whose CRC32 does not match its payload (a
+    torn tail is truncated instead)."""
+
+    error_type = "translog_corrupted_exception"
+
+
+class EsRejectedExecutionException(WriteException):
+    """An operation the node sheds under load: the retryable 429 of the
+    indexing pressure (index/pressure.py), with the bytes it would have
+    held and the limit."""
+
+    status = 429
+    error_type = "es_rejected_execution_exception"
+
+
+class InvalidIndexNameException(WriteException):
+    """An index name that breaks Elasticsearch's naming rule, or that
+    would not name a directory of its own under the data path (a 400)."""
+
+    status = 400
+    error_type = "invalid_index_name_exception"
+
+    def __init__(self, name: str):
+        super().__init__(f"Invalid index name [{name}]", index=name)
+
+
+class ResourceAlreadyExistsException(WriteException):
+    status = 400
+    error_type = "resource_already_exists_exception"
+
+    def __init__(self, resource: str):
+        super().__init__(f"resource [{resource}] already exists",
+                         resource=resource)

@@ -183,16 +183,19 @@ def rank_feature_columns(n_docs: int, rng: np.random.Generator,
     """A seeded ``rank_features`` field as ``segment_from_numpy``'s
     ``numerics``: ``n_keys`` keys ``{field}.k000`` ..., each doc holding
     ``per_doc`` distinct keys drawn by Zipf(``zipf``) weight (without
-    replacement: the Gumbel top-k of the log weights) with a weight in
-    (0, 4]; a key a doc lacks is missing (NaN). Learned-sparse
-    expansions (ELSER) give each document a few dozen weighted
-    tokens."""
-    logw = -zipf * np.log(np.arange(1, n_keys + 1, dtype=np.float64))
+    replacement: the first ``per_doc`` finishers of an exponential race,
+    each key's time Exp(1) over its weight, which is the Gumbel top-k
+    of the log weights) with a weight in (0, 4]; a key a doc lacks is
+    missing (NaN). Learned-sparse expansions (ELSER) give each document
+    a few dozen weighted tokens."""
+    inv_w = (np.arange(1, n_keys + 1, dtype=np.float64) ** zipf).astype(
+        np.float32)
     values = np.full((n_keys, n_docs), np.nan, np.float64)
     for lo in range(0, n_docs, chunk):
         hi = min(n_docs, lo + chunk)
-        g = logw[None, :] - np.log(-np.log(rng.random((hi - lo, n_keys))))
-        keys = np.argpartition(-g, per_doc - 1, axis=1)[:, :per_doc]
+        race = rng.standard_exponential((hi - lo, n_keys), np.float32)
+        race *= inv_w
+        keys = np.argpartition(race, per_doc - 1, axis=1)[:, :per_doc]
         w = 4.0 * (1.0 - rng.random((hi - lo, per_doc)))   # (0, 4]
         rows = np.repeat(np.arange(lo, hi), per_doc)
         values[keys.reshape(-1), rows] = w.reshape(-1)

@@ -991,10 +991,18 @@ class DocumentMapper:
         annotations = []
         if isinstance(ft, AnnotatedTextFieldType):
             text, annotations = parse_annotated_text(text)
-        toks = parsed.text_tokens.setdefault(ft.name, [])
+        toks = parsed.text_tokens.get(ft.name)
+        if (toks is None and not annotations
+                and not isinstance(ft, SearchAsYouTypeFieldType)):
+            # the field's first value: its terms, no Token a term yet
+            parsed.text_tokens[ft.name] = self.analyzer.index_terms(text)
+            return
+        toks = parsed.text_tokens[ft.name] = list(toks or ())
         base = toks[-1].position + 100 if toks else 0
-        new_toks = [Token(t.term, base + t.position, t.start_offset,
-                          t.end_offset) for t in self.analyzer.analyze(text)]
+        new_toks = self.analyzer.analyze(text)
+        if base:
+            new_toks = [Token(t.term, base + t.position, t.start_offset,
+                              t.end_offset) for t in new_toks]
         toks.extend(new_toks)
         if annotations:
             n_ann = 0

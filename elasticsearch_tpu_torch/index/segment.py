@@ -42,6 +42,13 @@ live mask.
   suggester's weighted prefix index. Host only.
 - **Deletes as masks**: ``live[n_docs] bool``, replaced (never mutated)
   on delete, with ``live_version`` bumped so device caches can key on it.
+- **On disk** (``Segment.save``/``Segment.load``): a directory of
+  ``meta.json`` (the format version, the name, per-field statistics),
+  ``arrays.npz`` (every array above, keyed ``p~field~...``,
+  ``n~field~...``, ``k~``, ``v~``, ``s~``, ``c~``, ``stored~`` and
+  ``live``) and ``stored.bin`` (the ``_source`` bytes): the same files
+  as elasticsearch_tpu/index/segment.py writes, so each package opens
+  the other's segments.
 
 Docids are segment-local dense int32.
 """
@@ -50,12 +57,22 @@ from __future__ import annotations
 
 import bisect
 import heapq
+import itertools
+import json
+import operator
+import os
 from dataclasses import dataclass, field as dc_field
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from elasticsearch_tpu_torch.analysis.tokenizers import TermRun
+
 BLOCK_SIZE = 128
+
+# the on-disk segment format's generation (the reference's): a segment
+# written by a newer one is refused
+SEGMENT_FORMAT_VERSION = 1
 
 
 @dataclass
@@ -325,6 +342,176 @@ class Segment:
             return -1
         return d
 
+    @property
+    def live_doc_count(self) -> int:
+        return int(self.live.sum())
+
+    # ------------------------------------------------------------------ I/O
+    @staticmethod
+    def _encode_strings(strings: List[str]) -> Tuple[np.ndarray, np.ndarray]:
+        """Strings -> (utf-8 blob, offsets); newline-safe."""
+        encoded = [s.encode("utf-8") for s in strings]
+        offsets = np.zeros(len(encoded) + 1, np.int64)
+        np.cumsum([len(e) for e in encoded], out=offsets[1:])
+        blob = np.frombuffer(b"".join(encoded), dtype=np.uint8)
+        return blob, offsets
+
+    @staticmethod
+    def _decode_strings(blob: np.ndarray, offsets: np.ndarray) -> List[str]:
+        raw = blob.tobytes()
+        return [raw[offsets[i]:offsets[i + 1]].decode("utf-8")
+                for i in range(len(offsets) - 1)]
+
+    def save(self, directory: str) -> None:
+        """Write the segment's three files into ``directory``."""
+        os.makedirs(directory, exist_ok=True)
+        arrays: Dict[str, np.ndarray] = {"live": self.live}
+        meta: Dict[str, Any] = {
+            "format_version": SEGMENT_FORMAT_VERSION,
+            "name": self.name, "n_docs": self.n_docs,
+            "postings": {}, "numerics": [], "keywords": {}, "vectors": {},
+        }
+        for f, pf in self.postings.items():
+            key = f"p~{f}"
+            arrays[f"{key}~doc_freq"] = pf.doc_freq
+            arrays[f"{key}~ttf"] = pf.total_term_freq
+            arrays[f"{key}~tbs"] = pf.term_block_start
+            arrays[f"{key}~tbc"] = pf.term_block_count
+            arrays[f"{key}~bd"] = pf.block_docids
+            arrays[f"{key}~bt"] = pf.block_tfs
+            arrays[f"{key}~bmt"] = pf.block_max_tf
+            arrays[f"{key}~bml"] = pf.block_min_len
+            arrays[f"{key}~fl"] = pf.field_lengths
+            arrays[f"{key}~terms"], arrays[f"{key}~terms_off"] = \
+                self._encode_strings(pf.terms)
+            meta["postings"][f] = {
+                "sum_total_term_freq": int(pf.sum_total_term_freq),
+                "sum_doc_freq": int(pf.sum_doc_freq),
+                "doc_count": int(pf.doc_count),
+            }
+        for f, nv in self.numerics.items():
+            key = f"n~{f}"
+            arrays[f"{key}~v"] = nv.values
+            arrays[f"{key}~m"] = nv.missing
+            arrays[f"{key}~o"] = nv.offsets
+            arrays[f"{key}~av"] = nv.all_values
+            meta["numerics"].append(f)
+        for f, kv in self.keywords.items():
+            key = f"k~{f}"
+            arrays[f"{key}~ords"] = kv.ords
+            arrays[f"{key}~o"] = kv.offsets
+            arrays[f"{key}~ao"] = kv.all_ords
+            arrays[f"{key}~terms"], arrays[f"{key}~terms_off"] = \
+                self._encode_strings(kv.terms)
+            meta["keywords"][f] = {}
+        for f, vv in self.vectors.items():
+            key = f"v~{f}"
+            arrays[f"{key}~vec"] = vv.vectors
+            arrays[f"{key}~has"] = vv.has_value
+            meta["vectors"][f] = {"dims": int(vv.dims),
+                                  "similarity": vv.similarity}
+        meta["streams"] = []
+        for f, ts in self.streams.items():
+            key = f"s~{f}"
+            arrays[f"{key}~tok"] = ts.tokens
+            arrays[f"{key}~len"] = ts.lengths
+            meta["streams"].append(f)
+        meta["completions"] = {}
+        for f, cv in self.completions.items():
+            key = f"c~{f}"
+            arrays[f"{key}~in"], arrays[f"{key}~in_off"] = \
+                self._encode_strings(cv.inputs)
+            arrays[f"{key}~w"] = cv.weights
+            arrays[f"{key}~d"] = cv.doc_of
+            if cv.contexts is not None:
+                ctx_strs = ["\x1f".join(sorted(c)) for c in cv.contexts]
+                arrays[f"{key}~ctx"], arrays[f"{key}~ctx_off"] = \
+                    self._encode_strings(ctx_strs)
+            meta["completions"][f] = {
+                "has_contexts": cv.contexts is not None}
+        arrays["stored~offsets"] = self.stored.offsets
+        arrays["stored~ids"], arrays["stored~ids_off"] = \
+            self._encode_strings(self.stored.ids)
+        np.savez(os.path.join(directory, "arrays.npz"), **arrays)
+        with open(os.path.join(directory, "stored.bin"), "wb") as fh:
+            fh.write(self.stored.data)
+        with open(os.path.join(directory, "meta.json"), "w") as fh:
+            json.dump(meta, fh)
+
+    @classmethod
+    def load(cls, directory: str) -> "Segment":
+        """The segment ``save`` (of either package) wrote into
+        ``directory``; a newer format is an IOError."""
+        with open(os.path.join(directory, "meta.json")) as fh:
+            meta = json.load(fh)
+        fmt = int(meta.get("format_version", 1))
+        if fmt > SEGMENT_FORMAT_VERSION:
+            raise IOError(
+                f"segment [{directory}] was written by a NEWER build "
+                f"(format {fmt} > supported {SEGMENT_FORMAT_VERSION}); "
+                f"downgrades are not supported")
+        with open(os.path.join(directory, "stored.bin"), "rb") as fh:
+            data = fh.read()
+        with np.load(os.path.join(directory, "arrays.npz")) as npz:
+            z = {k: npz[k] for k in npz.files}
+        dec = cls._decode_strings
+        postings = {}
+        for f, m in meta["postings"].items():
+            key = f"p~{f}"
+            postings[f] = PostingsField(
+                field=f,
+                terms=dec(z[f"{key}~terms"], z[f"{key}~terms_off"]),
+                doc_freq=z[f"{key}~doc_freq"],
+                total_term_freq=z[f"{key}~ttf"],
+                term_block_start=z[f"{key}~tbs"],
+                term_block_count=z[f"{key}~tbc"],
+                block_docids=z[f"{key}~bd"], block_tfs=z[f"{key}~bt"],
+                block_max_tf=z[f"{key}~bmt"],
+                block_min_len=z[f"{key}~bml"],
+                field_lengths=z[f"{key}~fl"],
+                sum_total_term_freq=m["sum_total_term_freq"],
+                sum_doc_freq=m["sum_doc_freq"], doc_count=m["doc_count"])
+        numerics = {}
+        for f in meta["numerics"]:
+            key = f"n~{f}"
+            numerics[f] = NumericDocValues(
+                field=f, values=z[f"{key}~v"], missing=z[f"{key}~m"],
+                offsets=z[f"{key}~o"], all_values=z[f"{key}~av"])
+        keywords = {}
+        for f in meta["keywords"]:
+            key = f"k~{f}"
+            keywords[f] = KeywordDocValues(
+                field=f, terms=dec(z[f"{key}~terms"], z[f"{key}~terms_off"]),
+                ords=z[f"{key}~ords"], offsets=z[f"{key}~o"],
+                all_ords=z[f"{key}~ao"])
+        vectors = {}
+        for f, m in meta["vectors"].items():
+            key = f"v~{f}"
+            vectors[f] = VectorValues(
+                field=f, vectors=z[f"{key}~vec"], has_value=z[f"{key}~has"],
+                dims=m["dims"], similarity=m["similarity"])
+        streams = {}
+        for f in meta.get("streams", []):
+            key = f"s~{f}"
+            streams[f] = TokenStreams(f, z[f"{key}~tok"], z[f"{key}~len"])
+        completions = {}
+        for f, m in meta.get("completions", {}).items():
+            key = f"c~{f}"
+            ctxs = None
+            if m.get("has_contexts"):
+                ctxs = [frozenset(s.split("\x1f")) if s else frozenset()
+                        for s in dec(z[f"{key}~ctx"], z[f"{key}~ctx_off"])]
+            completions[f] = CompletionValues(
+                f, dec(z[f"{key}~in"], z[f"{key}~in_off"]), z[f"{key}~w"],
+                z[f"{key}~d"], ctxs)
+        stored = StoredFields(
+            offsets=z["stored~offsets"], data=data,
+            ids=dec(z["stored~ids"], z["stored~ids_off"]))
+        return cls(meta["name"], meta["n_docs"], postings, stored,
+                   live=z["live"].astype(bool), numerics=numerics,
+                   vectors=vectors, keywords=keywords, streams=streams,
+                   completions=completions)
+
 
 class SegmentWriter:
     """Accumulates parsed documents, then builds an immutable Segment."""
@@ -346,48 +533,38 @@ class SegmentWriter:
     def build(self, name: str) -> Segment:
         docs = self._docs
         n = len(docs)
-        # postings: text fields (tf = within-doc term count) and keyword
-        # fields (tf = 1 per distinct value, length = number of values)
-        field_term_docs: Dict[str, Dict[str, List[Tuple[int, float]]]] = {}
-        field_lengths: Dict[str, np.ndarray] = {}
-        for docid, d in enumerate(docs):
-            for f, toks in d.text_tokens.items():
-                per = field_term_docs.setdefault(f, {})
-                counts: Dict[str, int] = {}
-                for t in toks:
-                    counts[t.term] = counts.get(t.term, 0) + 1
-                for term, tf in counts.items():
-                    per.setdefault(term, []).append((docid, float(tf)))
-                field_lengths.setdefault(
-                    f, np.zeros(n, np.float32))[docid] = len(toks)
-            for f, terms in d.keyword_terms.items():
-                per = field_term_docs.setdefault(f, {})
-                for term in set(terms):
-                    per.setdefault(term, []).append((docid, 1.0))
-                field_lengths.setdefault(
-                    f, np.zeros(n, np.float32))[docid] = len(terms)
-        postings = {
-            f: _build_postings_field(f, term_docs, field_lengths[f], n)
-            for f, term_docs in field_term_docs.items()
-        }
-        streams = {f: _build_streams(f, docs, postings[f].term_index)
-                   for f in sorted({f for d in docs for f in d.text_tokens})}
+        # postings: text fields (tf = within-doc term count, with token
+        # streams) and keyword fields (tf = 1 per distinct value, length
+        # = number of values)
+        postings: Dict[str, PostingsField] = {}
+        streams: Dict[str, TokenStreams] = {}
+        for f in sorted({f for d in docs for f in d.text_tokens}):
+            postings[f], streams[f] = _build_text_field(f, docs)
+        for f in {f for d in docs for f in d.keyword_terms}:
+            postings[f] = _build_keyword_field(f, docs)
+        # the fields in the order the documents first name them
+        order = dict.fromkeys(f for d in docs for f in (
+            *d.text_tokens, *d.keyword_terms))
+        postings = {f: postings[f] for f in order}
+        streams = {f: streams[f] for f in sorted(streams)}
         # numeric doc values
         numerics = {}
         for f in {f for d in docs for f in d.numeric_values}:
-            values = np.full(n, np.nan, np.float64)
-            missing = np.ones(n, bool)
+            # each doc's values: the first as given, all of them sorted
+            per = [d.numeric_values.get(f) or () for d in docs]
+            counts = np.fromiter(map(len, per), np.int64, n)
             offsets = np.zeros(n + 1, np.int64)
-            all_vals: List[float] = []
-            for docid, d in enumerate(docs):
-                vs = d.numeric_values.get(f, [])
-                if vs:
-                    values[docid] = vs[0]
-                    missing[docid] = False
-                    all_vals.extend(sorted(vs))
-                offsets[docid + 1] = len(all_vals)
+            np.cumsum(counts, out=offsets[1:])
+            all_vals = np.fromiter(
+                itertools.chain.from_iterable(map(sorted, per)),
+                np.float64, int(offsets[-1]))
+            missing = counts == 0
+            values = np.full(n, np.nan, np.float64)
+            values[~missing] = np.fromiter(
+                (vs[0] for vs in per if vs), np.float64,
+                int((~missing).sum()))
             numerics[f] = NumericDocValues(f, values, missing, offsets,
-                                           np.asarray(all_vals, np.float64))
+                                           all_vals)
         # keyword ordinals: each doc's distinct values, ascending
         keywords = {}
         for f in {f for d in docs for f in d.keyword_terms}:
@@ -418,16 +595,12 @@ class SegmentWriter:
                     arr[docid] = v
                     has[docid] = True
             vectors[f] = VectorValues(f, arr, has, dims, sim)
+        chunks = [d.source for d in docs]
         offsets = np.zeros(n + 1, np.int64)
-        chunks = []
-        ids = []
-        total = 0
-        for docid, d in enumerate(docs):
-            chunks.append(d.source)
-            total += len(d.source)
-            offsets[docid + 1] = total
-            ids.append(d.doc_id)
-        stored = StoredFields(offsets, b"".join(chunks), ids)
+        np.cumsum(np.fromiter(map(len, chunks), np.int64, n),
+                  out=offsets[1:])
+        stored = StoredFields(offsets, b"".join(chunks),
+                              [d.doc_id for d in docs])
         completions = {
             f: _completions_of(f, [(i, w, docid, cx)
                                    for docid, d in enumerate(docs)
@@ -439,82 +612,114 @@ class SegmentWriter:
                        completions=completions)
 
 
-def _build_streams(f: str, docs, tindex: Dict[str, int]) -> TokenStreams:
-    """One text field's token streams: each token at its position, up to
-    ``MAX_STREAM_LEN``; on a shared position the first token written
-    keeps the slot."""
+def _build_text_field(f: str, docs) -> Tuple[PostingsField, TokenStreams]:
+    """One text field's postings and token streams from its tokens, in
+    array ops: terms sorted, docids ascending within a term, tf the
+    within-doc count; each token at its position up to
+    ``MAX_STREAM_LEN``, the first token written keeping a shared
+    position."""
     n = len(docs)
-    max_len = min(MAX_STREAM_LEN,
-                  max((ts[-1].position + 1 for d in docs
-                       if (ts := d.text_tokens.get(f))), default=0))
-    toks = np.full((n, max_len), -1, np.int32)
-    lengths = np.zeros(n, np.int32)
+    lengths = np.zeros(n, np.float32)
+    flat: List[str] = []
+    positions: List[int] = []
+    counts = np.zeros(n, np.int64)
+    term_of, pos_of = operator.itemgetter(0), operator.itemgetter(1)
     for docid, d in enumerate(docs):
-        length = 0
-        for t in d.text_tokens.get(f) or ():
-            if t.position >= max_len:
-                break
-            if toks[docid, t.position] < 0:
-                toks[docid, t.position] = tindex[t.term]
-            length = max(length, t.position + 1)
-        lengths[docid] = length
-    return TokenStreams(f, toks, lengths)
-
-
-def _build_postings_field(field: str, term_docs: Dict[str, Any],
-                          field_lengths: np.ndarray,
-                          n_docs: int) -> PostingsField:
-    """term_docs values are either a list of (docid, tf) tuples (writer
-    path) or a list of (docids_array, tfs_array) chunks (merge path) —
-    both docid-ascending."""
-    terms = sorted(term_docs)
-    num_terms = len(terms)
-    doc_freq = np.zeros(num_terms, np.int32)
-    ttf = np.zeros(num_terms, np.int64)
-    tbs = np.zeros(num_terms, np.int32)
-    tbc = np.zeros(num_terms, np.int32)
-
-    blocks_d: List[np.ndarray] = []
-    blocks_t: List[np.ndarray] = []
-    next_block = 0
-    for tid, term in enumerate(terms):
-        plist = term_docs[term]
-        if plist and isinstance(plist[0], tuple) and np.isscalar(plist[0][0]):
-            docids = np.asarray([p[0] for p in plist], np.int32)
-            tfs = np.asarray([p[1] for p in plist], np.float32)
+        toks = d.text_tokens.get(f)
+        if toks is None:
+            continue
+        lengths[docid] = counts[docid] = len(toks)
+        if isinstance(toks, TermRun):   # positions 0 .. n-1
+            flat.extend(toks.terms)
+            positions.extend(range(len(toks.terms)))
         else:
-            docids = np.concatenate([c[0] for c in plist]).astype(np.int32)
-            tfs = np.concatenate([c[1] for c in plist]).astype(np.float32)
-        doc_freq[tid] = len(docids)
-        ttf[tid] = int(tfs.sum())
-        nb = (len(docids) + BLOCK_SIZE - 1) // BLOCK_SIZE
-        tbs[tid] = next_block
-        tbc[tid] = nb
-        next_block += nb
-        pad = nb * BLOCK_SIZE - len(docids)
-        if pad:
-            # tf=0 padding scores exactly 0; docid 0 is a harmless target
-            docids = np.concatenate([docids, np.zeros(pad, np.int32)])
-            tfs = np.concatenate([tfs, np.zeros(pad, np.float32)])
-        blocks_d.append(docids.reshape(nb, BLOCK_SIZE))
-        blocks_t.append(tfs.reshape(nb, BLOCK_SIZE))
+            flat.extend(map(term_of, toks))
+            positions.extend(map(pos_of, toks))
+    terms = sorted(set(flat))
+    tindex = {t: i for i, t in enumerate(terms)}
+    tok_term = np.fromiter(map(tindex.__getitem__, flat), np.int64,
+                           len(flat))
+    tok_doc = np.repeat(np.arange(n, dtype=np.int64), counts)
+    keys, tf = np.unique(tok_term * n + tok_doc, return_counts=True)
+    pf = _postings_of(f, terms, keys // n, (keys % n).astype(np.int32),
+                      tf, lengths)
+    # the streams: a doc's last token's position bounds its row
+    pos = np.asarray(positions, np.int64)
+    last = np.zeros(n, np.int64)
+    has = counts > 0
+    last[has] = pos[np.cumsum(counts)[has] - 1] + 1
+    max_len = min(MAX_STREAM_LEN, int(last.max()) if n else 0)
+    keep = pos < max_len
+    slot = tok_doc[keep] * max_len + pos[keep]
+    slot, first = np.unique(slot, return_index=True)
+    tokens = np.full(n * max_len, -1, np.int32)
+    tokens[slot] = tok_term[keep][first]
+    row_len = np.zeros(n, np.int64)
+    np.maximum.at(row_len, tok_doc[keep], pos[keep] + 1)
+    return pf, TokenStreams(f, tokens.reshape(n, max_len),
+                            row_len.astype(np.int32))
 
-    if blocks_d:
-        block_docids = np.concatenate(blocks_d, axis=0)
-        block_tfs = np.concatenate(blocks_t, axis=0)
-    else:
-        block_docids = np.zeros((0, BLOCK_SIZE), np.int32)
-        block_tfs = np.zeros((0, BLOCK_SIZE), np.float32)
-    max_tf, min_len = block_max_meta(block_docids, block_tfs, field_lengths)
+
+def _postings_of(field: str, terms: List[str], term_of: np.ndarray,
+                 doc_of: np.ndarray, tf: np.ndarray,
+                 lengths: np.ndarray) -> PostingsField:
+    """A PostingsField from its postings sorted by (term id, docid):
+    ``term_of`` indexes the sorted ``terms``, ``doc_of`` int32, ``tf``
+    the within-doc counts; each term's blocks padded with tf 0 (which
+    scores exactly 0) and docid 0, so block gathers never mix terms."""
+    num_terms = len(terms)
+    doc_freq = np.bincount(term_of, minlength=num_terms).astype(np.int32)
+    ttf = np.bincount(term_of, weights=tf,
+                      minlength=num_terms).astype(np.int64)
+    nb = (doc_freq.astype(np.int64) + BLOCK_SIZE - 1) // BLOCK_SIZE
+    starts = np.zeros(num_terms + 1, np.int64)
+    np.cumsum(nb, out=starts[1:])
+    group = np.zeros(num_terms + 1, np.int64)
+    np.cumsum(doc_freq, out=group[1:])
+    dest = (starts[term_of] * BLOCK_SIZE
+            + np.arange(len(term_of), dtype=np.int64) - group[term_of])
+    total = int(starts[-1])
+    block_docids = np.zeros(total * BLOCK_SIZE, np.int32)
+    block_tfs = np.zeros(total * BLOCK_SIZE, np.float32)
+    block_docids[dest] = doc_of
+    block_tfs[dest] = tf
+    block_docids = block_docids.reshape(total, BLOCK_SIZE)
+    block_tfs = block_tfs.reshape(total, BLOCK_SIZE)
+    max_tf, min_len = block_max_meta(block_docids, block_tfs, lengths)
     return PostingsField(
         field=field, terms=terms, doc_freq=doc_freq, total_term_freq=ttf,
-        term_block_start=tbs, term_block_count=tbc,
+        term_block_start=starts[:-1].astype(np.int32),
+        term_block_count=nb.astype(np.int32),
         block_docids=block_docids, block_tfs=block_tfs,
-        block_max_tf=max_tf, block_min_len=min_len,
-        field_lengths=field_lengths,
+        block_max_tf=max_tf, block_min_len=min_len, field_lengths=lengths,
         sum_total_term_freq=int(ttf.sum()),
         sum_doc_freq=int(doc_freq.sum()),
-        doc_count=int((field_lengths > 0).sum()))
+        doc_count=int((lengths > 0).sum()))
+
+
+def _build_keyword_field(f: str, docs) -> PostingsField:
+    """One keyword field's postings: tf 1 for each distinct value of a
+    doc, the doc's length its number of values."""
+    n = len(docs)
+    lengths = np.zeros(n, np.float32)
+    flat: List[str] = []
+    counts = np.zeros(n, np.int64)
+    for docid, d in enumerate(docs):
+        terms = d.keyword_terms.get(f)
+        if terms is None:
+            continue
+        lengths[docid] = len(terms)
+        distinct = set(terms)
+        counts[docid] = len(distinct)
+        flat.extend(distinct)
+    names = sorted(set(flat))
+    tindex = {t: i for i, t in enumerate(names)}
+    term_of = np.fromiter(map(tindex.__getitem__, flat), np.int64, len(flat))
+    doc_of = np.repeat(np.arange(n, dtype=np.int64), counts)
+    order = np.lexsort((doc_of, term_of))
+    return _postings_of(f, names, term_of[order],
+                        doc_of[order].astype(np.int32),
+                        np.ones(len(flat), np.float32), lengths)
 
 
 def block_max_meta(block_docids: np.ndarray, block_tfs: np.ndarray,
@@ -550,28 +755,8 @@ def merge_segments(name: str, segments: List[Segment]) -> Segment:
         new_n += len(live_ids)
         maps.append(m)
 
-    postings: Dict[str, PostingsField] = {}
-    for f in sorted({f for s in segments for f in s.postings}):
-        term_docs: Dict[str, List[Tuple[np.ndarray, np.ndarray]]] = {}
-        field_lengths = np.zeros(new_n, np.float32)
-        for seg, m in zip(segments, maps):
-            pf = seg.postings.get(f)
-            if pf is None:
-                continue
-            keep = m >= 0
-            field_lengths[m[keep]] = pf.field_lengths[keep]
-            for tid, term in enumerate(pf.terms):
-                start = int(pf.term_block_start[tid])
-                count = int(pf.term_block_count[tid])
-                docids = pf.block_docids[start: start + count].reshape(-1)
-                tfs = pf.block_tfs[start: start + count].reshape(-1)
-                mask = (tfs > 0) & seg.live[docids]
-                if not mask.any():
-                    continue
-                term_docs.setdefault(term, []).append(
-                    (m[docids[mask]].astype(np.int64), tfs[mask]))
-        postings[f] = _build_postings_field(f, term_docs, field_lengths,
-                                            new_n)
+    postings = {f: _merge_postings(f, segments, maps, new_n)
+                for f in sorted({f for s in segments for f in s.postings})}
 
     numerics = {f: _merge_numerics(f, segments, maps, new_n)
                 for f in sorted({f for s in segments for f in s.numerics})}
@@ -596,18 +781,27 @@ def merge_segments(name: str, segments: List[Segment]) -> Segment:
                for f in sorted({f for s in segments for f in s.streams})
                if f in postings}
 
-    offsets = np.zeros(new_n + 1, np.int64)
-    chunks: List[bytes] = []
+    # the live docs' sources and ids in new-docid order (new ids ascend
+    # with segment order)
+    sizes: List[np.ndarray] = []
+    data: List[np.ndarray] = []
     ids: List[str] = []
-    total = 0
-    for seg, m in zip(segments, maps):
-        for old in np.nonzero(seg.live)[0]:
-            src = seg.stored.source(int(old))
-            chunks.append(src)
-            total += len(src)
-            offsets[int(m[old]) + 1] = total
-            ids.append(seg.stored.ids[int(old)])
-    stored = StoredFields(offsets, b"".join(chunks), ids)
+    for seg in segments:
+        old = np.nonzero(seg.live)[0]
+        lo = seg.stored.offsets[old]
+        lens = seg.stored.offsets[old + 1] - lo
+        run_start = np.cumsum(lens) - lens
+        raw = np.frombuffer(seg.stored.data, np.uint8)
+        data.append(raw[np.repeat(lo - run_start, lens)
+                        + np.arange(int(lens.sum()))])
+        sizes.append(lens)
+        seg_ids = seg.stored.ids
+        ids.extend(map(seg_ids.__getitem__, old.tolist()))
+    offsets = np.zeros(new_n + 1, np.int64)
+    if sizes:
+        np.cumsum(np.concatenate(sizes), out=offsets[1:])
+    stored = StoredFields(offsets, np.concatenate(data).tobytes()
+                          if data else b"", ids)
     # completions: the live docs' entries, remapped
     completions = {}
     for f in sorted({f for s in segments for f in s.completions}):
@@ -627,6 +821,52 @@ def merge_segments(name: str, segments: List[Segment]) -> Segment:
     return Segment(name, new_n, postings, stored, numerics=numerics,
                    vectors=vectors, keywords=keywords, streams=streams,
                    completions=completions)
+
+
+def _merge_postings(f: str, segments: List[Segment], maps: List[np.ndarray],
+                    new_n: int) -> PostingsField:
+    """One postings field of a merge: the live docs' postings with their
+    new docids, over the terms some live doc still holds, in the
+    field's block layout (a stable sort by term keeps each term's
+    docids ascending: new ids ascend with segment order)."""
+    lengths = np.zeros(new_n, np.float32)
+    parts = []
+    for seg, m in zip(segments, maps):
+        pf = seg.postings.get(f)
+        if pf is None:
+            continue
+        keep = m >= 0
+        lengths[m[keep]] = pf.field_lengths[keep]
+        docids = pf.block_docids.reshape(-1)
+        tfs = pf.block_tfs.reshape(-1)
+        # each block's term (-1 for a block no term owns)
+        count = pf.term_block_count.astype(np.int64)
+        first = np.cumsum(count) - count
+        block_term = np.full(pf.num_blocks, -1, np.int64)
+        block_term[np.repeat(pf.term_block_start.astype(np.int64) - first,
+                             count) + np.arange(int(count.sum()))] = \
+            np.repeat(np.arange(len(pf.terms), dtype=np.int64), count)
+        block_term = np.repeat(block_term, BLOCK_SIZE)
+        real = (tfs > 0) & seg.live[docids] & (block_term >= 0)
+        parts.append((pf.terms, block_term[real], m[docids[real]],
+                      tfs[real]))
+    used = set()
+    for terms, local, _, _ in parts:
+        used.update(map(terms.__getitem__, np.unique(local).tolist()))
+    new_terms = sorted(used)
+    tindex = {t: i for i, t in enumerate(new_terms)}
+    term_of = np.concatenate(
+        [np.fromiter(map(tindex.get, terms, itertools.repeat(-1)),
+                     np.int64, len(terms))[local]
+         for terms, local, _, _ in parts]) if parts else np.zeros(0, np.int64)
+    doc_of = (np.concatenate([d for _, _, d, _ in parts]) if parts
+              else np.zeros(0, np.int64))
+    tf = (np.concatenate([t for _, _, _, t in parts]) if parts
+          else np.zeros(0, np.float32))
+    order = np.argsort(term_of, kind="stable")
+    return _postings_of(f, new_terms, term_of[order],
+                        doc_of[order].astype(np.int32),
+                        tf[order].astype(np.float32), lengths)
 
 
 def _merge_streams(f: str, segments: List[Segment], maps: List[np.ndarray],

@@ -1,7 +1,14 @@
 """Index and indices services (counterpart of
-elasticsearch_tpu/index/service.py, reduced to what one node in memory
-needs): an index is N shard engines, and a node's indices resolve from
+elasticsearch_tpu/index/service.py): an index is N shard engines on a
+path, and the node's indices live under one data path and resolve from
 an index expression.
+
+An index's directory holds ``_meta.json`` (its flat settings, with
+``index.creation_date``, and its mappings; rewritten when a mapping
+update or dynamic mapping grows them) and one directory a shard
+(index/engine.py: the shard's segments, its commit point and its
+translog). ``IndicesService(data_path)`` reopens every index found
+under the path, the reference's data paths included.
 
 A document routes to shard ``abs(murmur3(routing or id)) % N`` (the
 reference's ``shard_for``, Elasticsearch's OperationRouting), where the
@@ -21,32 +28,53 @@ segments apart.
 from __future__ import annotations
 
 import fnmatch
+import json
+import os
+import re
+import shutil
+import time
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
-from elasticsearch_tpu_torch.common.errors import IndexNotFoundException
-from elasticsearch_tpu_torch.index.engine import Engine
+from elasticsearch_tpu_torch.common.errors import (IllegalArgumentException,
+                                                   IndexNotFoundException,
+                                                   InvalidIndexNameException)
+from elasticsearch_tpu_torch.common.settings import (flat_settings,
+                                                     parse_int_setting)
+from elasticsearch_tpu_torch.index.engine import Engine, GetResult
 from elasticsearch_tpu_torch.index.mapper import (DocumentMapper,
                                                   murmur3_hash)
 
 # the reference's index.number_of_shards bounds
 MAX_SHARDS = 1024
+# settings no update may change
+FINAL_SETTINGS = ("index.number_of_shards",)
 
 
 class IndexService:
-    """One index: its mapper, its similarity and its shard engines."""
+    """One index on ``path``: its flat settings, its mapper, its
+    similarity and its shard engines."""
 
-    def __init__(self, name: str, mapper: DocumentMapper,
-                 num_shards: int = 1, k1: float = 1.2, b: float = 0.75,
+    def __init__(self, name: str, path: str,
+                 settings: Optional[Dict[str, Any]] = None,
+                 mappings: Optional[Dict[str, Any]] = None,
                  on_retire: Optional[Callable[[Iterable[str]],
                                               None]] = None):
         self.name = name
-        self.mapper = mapper
-        self.num_shards = num_shards
-        self.k1 = k1
-        self.b = b
+        self.path = path
+        flat = flat_settings(settings)
+        flat.setdefault("index.creation_date", int(time.time() * 1000))
+        self.settings = flat
+        self.num_shards = parse_int_setting(flat, "index.number_of_shards",
+                                            1, 1, MAX_SHARDS)
+        self.k1 = float(flat.get("index.similarity.default.k1", 1.2))
+        self.b = float(flat.get("index.similarity.default.b", 0.75))
+        self.mapper = DocumentMapper(mappings)
+        os.makedirs(path, exist_ok=True)
         self.shards: List[Engine] = [
-            Engine(mapper, f"{name}[{i}]", on_retire=on_retire)
-            for i in range(num_shards)]
+            Engine(os.path.join(path, str(i)), self.mapper,
+                   name=f"{name}[{i}]", on_retire=on_retire)
+            for i in range(self.num_shards)]
+        self._persist_meta()
 
     @property
     def engine(self) -> Engine:
@@ -58,45 +86,188 @@ class IndexService:
                              f"shards: address one of them")
         return self.shards[0]
 
+    # ---------------------------------------------------------- metadata
+    def _persist_meta(self) -> None:
+        mappings = self.mapper.to_mapping()
+        if self.mapper.dynamic != "true":
+            # GET _mapping leaves it out, as the reference's; a reopened
+            # index keeps it
+            mappings["dynamic"] = self.mapper.dynamic
+        meta = {"settings": self.settings, "mappings": mappings}
+        tmp = os.path.join(self.path, "_meta.json.tmp")
+        with open(tmp, "w") as fh:
+            json.dump(meta, fh)
+        os.replace(tmp, os.path.join(self.path, "_meta.json"))
+
+    def update_mappings(self, mappings: Dict[str, Any]) -> None:
+        """Merge a mapping update; a field may not change its type."""
+        incoming = DocumentMapper(mappings)
+        for path, ft in incoming.fields.items():
+            existing = self.mapper.fields.get(path)
+            if existing is not None and existing.type_name != ft.type_name:
+                raise IllegalArgumentException(
+                    f"mapper [{path}] cannot be changed from type "
+                    f"[{existing.type_name}] to [{ft.type_name}]")
+        self.mapper.fields.update(incoming.fields)
+        self.mapper.nested_paths |= incoming.nested_paths
+        self._persist_meta()
+
+    def update_settings(self, updates: Dict[str, Any]) -> None:
+        """Merge setting updates; a final setting is refused."""
+        flat = flat_settings(updates)
+        for key in flat:
+            if key in FINAL_SETTINGS:
+                raise IllegalArgumentException(
+                    f"final {self.name} setting [{key}], not updateable")
+        self.settings = {**self.settings, **flat}
+        self._persist_meta()
+
+    def nested_settings(self) -> Dict[str, Any]:
+        """The ``index.*`` settings as a nested object (GET _settings)."""
+        root: Dict[str, Any] = {}
+        for key in sorted(self.settings):
+            if not key.startswith("index."):
+                continue
+            parts = key[len("index."):].split(".")
+            node = root
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = self.settings[key]
+        return root
+
     # ------------------------------------------------------------ routing
     def shard_for(self, doc_id: str, routing: Optional[str] = None) -> int:
+        if self.num_shards == 1:
+            return 0
         key = routing if routing is not None else doc_id
         return abs(murmur3_hash(key)) % self.num_shards
 
     # ------------------------------------------------------------- writes
     def index_doc(self, doc_id: Optional[str], source: Dict[str, Any],
-                  routing: Optional[str] = None, op_type: str = "index"):
-        """Index one document on its shard; returns (id, "created" |
-        "updated"). An id-less document gets its id before it routes."""
+                  routing: Optional[str] = None, **kwargs):
+        """Index one document on its shard (index/engine.py
+        ``Engine.index``'s keywords pass through); an id-less document
+        gets its id before it routes."""
         if doc_id is None:
             doc_id = Engine.new_id()
         if routing is None:
             routing = self.mapper.join_parent_routing(source)
-        return self.shards[self.shard_for(doc_id, routing)].index(
-            doc_id, source, op_type=op_type)
+        n_fields = len(self.mapper.fields)
+        result = self.shards[self.shard_for(doc_id, routing)].index(
+            doc_id, source, **kwargs)
+        if len(self.mapper.fields) != n_fields:
+            # dynamic mapping grew: keep _meta.json current
+            self._persist_meta()
+        return result
 
-    def delete_doc(self, doc_id: str, routing: Optional[str] = None) -> bool:
-        return self.shards[self.shard_for(doc_id, routing)].delete(doc_id)
+    def delete_doc(self, doc_id: str, routing: Optional[str] = None,
+                   **kwargs):
+        return self.shards[self.shard_for(doc_id, routing)].delete(
+            doc_id, **kwargs)
 
-    def get_doc(self, doc_id: str,
-                routing: Optional[str] = None) -> Optional[Dict[str, Any]]:
-        """The live document's ``_source`` on the shard its id (or
-        ``routing``) routes to, None when that shard has none."""
-        return self.shards[self.shard_for(doc_id, routing)].get_source(
-            doc_id)
+    def get_doc(self, doc_id: str, routing: Optional[str] = None
+                ) -> GetResult:
+        """The realtime GET on the shard the id (or ``routing``) routes
+        to."""
+        return self.shards[self.shard_for(doc_id, routing)].get(doc_id)
 
     def refresh(self) -> None:
         for shard in self.shards:
             shard.refresh()
 
+    def flush(self) -> None:
+        for shard in self.shards:
+            shard.flush()
+
     def force_merge(self, max_num_segments: int = 1) -> None:
         for shard in self.shards:
             shard.force_merge(max_num_segments)
 
+    def stats(self) -> Dict[str, Any]:
+        """Docs, deleted docs and segments summed over the shards, with
+        each shard's translog, seq_no and recovery (index/engine.py
+        ``Engine.recovery``: the seconds of its segment load, version
+        map and translog replay when the engine opened) sections."""
+        shard_stats = [shard.stats() for shard in self.shards]
+        return {
+            "docs": {"count": sum(s["docs"]["count"] for s in shard_stats),
+                     "deleted": sum(s["docs"]["deleted"]
+                                    for s in shard_stats)},
+            "segments": {"count": sum(s["segments"]["count"]
+                                      for s in shard_stats)},
+            "shards": self.num_shards,
+            "translog": [s["translog"] for s in shard_stats],
+            "seq_no": [s["seq_no"] for s in shard_stats],
+            "recovery": [shard.recovery for shard in self.shards],
+        }
+
+    def close(self) -> None:
+        for shard in self.shards:
+            shard.close()
+
+
+def read_meta(path: str) -> Optional[Dict[str, Any]]:
+    """The ``_meta.json`` of the index directory ``path``, or None."""
+    meta_path = os.path.join(path, "_meta.json")
+    if not os.path.exists(meta_path):
+        return None
+    with open(meta_path) as fh:
+        return json.load(fh)
+
+
+# Elasticsearch's index-name rule as the port applies it to every name
+# a client gives: lower case, a letter or digit first, then letters,
+# digits, ``_``, ``.`` and ``-`` (so never ``.``, ``..`` or a separator)
+INDEX_NAME = re.compile(r"^[a-z0-9][a-z0-9_.\-]*$")
+
 
 class IndicesService(dict):
-    """The node's indices by name, with the reference's index-expression
+    """The node's indices by name, under ``data_path``: every index found
+    there is reopened (``open_all``); the reference's index-expression
     resolution (aliases and data streams aside: the port has neither)."""
+
+    def __init__(self, data_path: str):
+        super().__init__()
+        self.data_path = data_path
+        os.makedirs(data_path, exist_ok=True)
+
+    def open_all(self, on_retire=None) -> None:
+        """Reopen every index directory under the data path (recovery of
+        each shard engine: commit, version map, translog replay)."""
+        for name in sorted(os.listdir(self.data_path)):
+            path = os.path.join(self.data_path, name)
+            meta = read_meta(path)
+            if meta is not None:
+                self[name] = IndexService(name, path, meta["settings"],
+                                          meta["mappings"],
+                                          on_retire=on_retire)
+
+    def index_path(self, name: str) -> str:
+        """The index's directory: a child of the data path, or an
+        InvalidIndexNameException (400) for a name outside the naming
+        rule (``.``, ``..``, a path separator, upper case...) or one that
+        resolves elsewhere (a symbolic link), so no client name reaches
+        a path outside the data path."""
+        if not INDEX_NAME.match(name):
+            raise InvalidIndexNameException(name)
+        root = os.path.realpath(self.data_path)
+        if os.path.dirname(os.path.realpath(os.path.join(root, name))) \
+                != root:
+            raise InvalidIndexNameException(name)
+        return os.path.join(self.data_path, name)
+
+    def delete_index(self, name: str) -> IndexService:
+        """Close the index, drop it and remove its files; returns it (the
+        caller evicts its segments from the device)."""
+        path = self.index_path(name)
+        svc = self.pop(name)
+        svc.close()
+        shutil.rmtree(path, ignore_errors=True)
+        return svc
+
+    def close(self) -> None:
+        for svc in self.values():
+            svc.close()
 
     def resolve(self, expression: str) -> List[str]:
         """The names an index expression selects, in order and each

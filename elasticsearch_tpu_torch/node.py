@@ -9,9 +9,22 @@ the dense executor.
     node = Node(device=None)              # CUDA unless device="cpu"
     node = Node(settings={"indices.breaker.hbm.limit": "40gb"})
     node = Node(device="cpu", devices=["cpu"] * 8)   # the mesh's grid
+    node = Node(data_path="/var/lib/estpu")          # durable indices
     port = node.start(0)                  # returns the bound port
     ...
     node.close()
+
+``data_path`` (else the ``path.data`` setting) is where the node keeps
+its indices (index/service.py): each index's ``_meta.json``, and a
+directory a shard with its segments, commit point and translog
+(index/engine.py). A node opened on a path reopens every index found
+there (a data path of the reference's too) and replays the translogs,
+so every acknowledged write survives a restart: ``close`` one node and
+open another on the same path. With neither given, the node keeps its
+indices in a temporary directory of its own and removes it at
+``close``. ``indexing_pressure.memory.limit`` (64mb by default) bounds
+the in-flight ``_bulk`` bytes (index/pressure.py): past it a bulk
+answers a retryable 429.
 
 ``settings`` (flat dotted keys, nested objects, or both) sets the
 circuit breakers: ``indices.breaker.{total,request,fielddata,hbm}.limit``
@@ -41,18 +54,21 @@ them to the fast path as arrays; every other request reaches
 
 from __future__ import annotations
 
+import shutil
+import tempfile
 import threading
 from typing import Any, Dict, Iterable, Optional
 
-from elasticsearch_tpu_torch.common.errors import CircuitBreakingException
-from elasticsearch_tpu_torch.common.settings import (flat_settings,
-                                                     parse_int_setting)
+from elasticsearch_tpu_torch.common.errors import (
+    CircuitBreakingException, ResourceAlreadyExistsException)
+from elasticsearch_tpu_torch.common.settings import flat_settings
 from elasticsearch_tpu_torch.device import (DeviceLike, resolve_device,
                                             resolve_devices)
 from elasticsearch_tpu_torch.utils.breaker import (CircuitBreaker,
                                                    build_breaker_service)
-from elasticsearch_tpu_torch.index.mapper import DocumentMapper, TextFieldType
-from elasticsearch_tpu_torch.index.service import (MAX_SHARDS, IndexService,
+from elasticsearch_tpu_torch.index.mapper import TextFieldType
+from elasticsearch_tpu_torch.index.pressure import IndexingPressure
+from elasticsearch_tpu_torch.index.service import (IndexService,
                                                    IndicesService)
 from elasticsearch_tpu_torch.rest.api import RestController
 from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
@@ -60,15 +76,13 @@ from elasticsearch_tpu_torch.search.fastpath import FastPathServer
 from elasticsearch_tpu_torch.search.service import SearchService
 from elasticsearch_tpu_torch.telemetry.flightrecorder import FlightRecorder
 
-VERSION = "8.0.0-torch-slice17"
+VERSION = "8.0.0-torch-slice18"
 
 
 class Node:
-    """Keeps its indices in memory: this slice has no translog and writes
-    no segment files."""
-
     def __init__(self, device: DeviceLike = None,
-                 settings: Optional[Dict[str, Any]] = None, devices=None):
+                 settings: Optional[Dict[str, Any]] = None, devices=None,
+                 data_path: Optional[str] = None):
         self.device = resolve_device(device)
         # the device list the mesh lays shards over (device.py
         # ``resolve_devices``): every visible card on CUDA, else the one
@@ -77,8 +91,15 @@ class Node:
         self.node_id = "node-0"
         self.settings: Dict[str, Any] = flat_settings(settings)
         self.breaker_service = build_breaker_service(self.settings.get)
+        self.indexing_pressure = IndexingPressure.from_settings(
+            self.settings.get)
         self.flight = FlightRecorder(node=self.node_id)
-        self.indices = IndicesService()
+        data_path = data_path or self.settings.get("path.data")
+        # a node given no path keeps its indices in a directory of its own
+        self._own_data_path = data_path is None
+        self.data_path = (tempfile.mkdtemp(prefix="estpu-node-")
+                          if data_path is None else str(data_path))
+        self.indices = IndicesService(self.data_path)
         self._indices_lock = threading.Lock()
         # one device copy of each segment, shared by both paths
         self.device_cache = DeviceSegmentCache(self.device)
@@ -92,6 +113,8 @@ class Node:
             self.device, self.device_cache, flight=self.flight,
             mesh_backend=self.search_service.mesh_executor)
         self.rest_controller = RestController(self)
+        # every index under the data path, recovered
+        self.indices.open_all(on_retire=self._retire)
         self._http = None     # the NativeHttpFront, once started
         self._fastpath_started = False
         # the segment the front's registration could not admit (it alone
@@ -111,22 +134,25 @@ class Node:
         reference reads it: a value that does not parse or lies out of
         bounds is a SettingsException (400). A bare ``number_of_shards``
         outside ``index`` is not that setting and leaves one shard, as
-        in the reference."""
-        settings = settings or {}
-        num_shards = parse_int_setting(flat_settings(settings),
-                                       "index.number_of_shards", 1, 1,
-                                       MAX_SHARDS)
-        sim = (settings.get("index", settings).get("similarity", {})
-               .get("default", {}))
-        svc = IndexService(name, DocumentMapper(mappings), num_shards,
-                           k1=float(sim.get("k1", 1.2)),
-                           b=float(sim.get("b", 0.75)),
-                           on_retire=self._retire)
+        in the reference. ``index.similarity.default.{k1,b}`` set the
+        BM25 similarity."""
         with self._indices_lock:
             if name in self.indices:
-                raise ValueError(f"index [{name}] already exists")
+                raise ResourceAlreadyExistsException(f"index [{name}]")
+            svc = IndexService(name, self.indices.index_path(name),
+                               settings, mappings, on_retire=self._retire)
             self.indices[name] = svc
         return svc
+
+    def delete_index(self, name: str) -> None:
+        """Remove the index and its files; its segments leave the device
+        and the fast path."""
+        with self._indices_lock:
+            svc = self.indices.delete_index(name)
+        segments = [s for shard in svc.shards for s in shard.segments]
+        for seg in segments:
+            seg.retired = True
+        self._retire([s.name for s in segments])
 
     def _retire(self, names: Iterable[str]):
         """Segments a merge or an install retired: no registration of the
@@ -218,6 +244,8 @@ class Node:
         return stats
 
     def close(self):
+        """Stop serving and close every engine (their translogs); a node
+        that made its own data directory removes it."""
         http, self._http = self._http, None
         if http is not None:
             http.stop()         # the front stops the fast path too
@@ -225,3 +253,6 @@ class Node:
             if self._fastpath_started:
                 self.fastpath.stop()
                 self._fastpath_started = False
+            self.indices.close()
+        if self._own_data_path:
+            shutil.rmtree(self.data_path, ignore_errors=True)

@@ -1,16 +1,44 @@
-"""REST routes of the `_search` BM25 slice (counterpart of
-elasticsearch_tpu/rest/api.py, reduced to the slice's routes):
+"""REST routes of the port (counterpart of elasticsearch_tpu/rest/api.py,
+reduced to the routes ported so far):
 
     GET  /
     PUT  /{index}                 {"settings": {"index": {"number_of_shards": N}}}
-    POST /{index}/_bulk           items routed by ``routing`` (or ?routing=)
-    POST /{index}/_refresh        ({index} may be an index expression)
-    POST /{index}/_forcemerge
+    GET|DELETE /{index}           ({index} may be an index expression)
+    GET|PUT /{index}/_mapping     GET|PUT /{index}/_settings
+    GET  /{index}/_stats          docs, segments, translog, seq_no
+    PUT|POST /{index}/_doc/{id}   POST /{index}/_doc (an id is made)
+    PUT|POST /{index}/_create/{id}
+    GET  /{index}/_doc/{id}       GET /{index}/_source/{id}
+    DELETE /{index}/_doc/{id}
+    POST /{index}/_update/{id}    {"doc": ...} | {"script": ...}, "upsert"
+    GET|POST /_mget, /{index}/_mget
+    POST|PUT /_bulk, /{index}/_bulk  index, create, update, delete items
+    POST /{index}/_refresh        POST /{index}/_flush
+    POST /{index}/_forcemerge     ?max_num_segments=n
     POST|GET /{index}/_search     {"query": ..., "size": k, "from": n, ...}
     POST|GET /_search             every index
     GET  /_kernels                the launch tracker's table
-    GET  /_nodes/stats            breakers, engine, flight recorder
+    GET  /_nodes/stats            breakers, pressure, engine, flight recorder
     GET  /_flight_recorder        the launch/readback ring, filtered
+
+The document routes are the reference's handlers, with its bodies,
+statuses and error types: a write answers ``_index``, ``_id``,
+``_version``, ``result``, ``_shards``, ``_seq_no`` and ``_primary_term``
+(201 when it created the document); ``refresh``, ``op_type``,
+``if_seq_no``/``if_primary_term`` (a 409 ``version_conflict_engine_
+exception`` when they do not match) and ``routing`` are read as the
+reference reads them, and the first write to a missing index creates
+it. A GET is realtime (index/engine.py); a search sees a write only
+after ``_refresh``. ``_update`` deep-merges ``doc`` (``noop`` when
+nothing changes, unless ``detect_noop`` is false), indexes ``upsert``
+when the document is missing, or runs ``script`` over ``ctx._source``
+(reindex/worker.py; ``ctx.op`` ``none`` or ``delete``). A `_bulk` charges
+its raw bytes to the node's indexing pressure before it parses
+(index/pressure.py: past the limit a retryable 429
+``es_rejected_execution_exception``) and releases them when the answer
+is decided; its items may name other indices, and each index or create
+item answers its ``_version`` and ``_seq_no``. A ``pipeline`` parameter
+(ingest) is a later slice: a typed 400.
 
 ``{index}`` of `_search`, `_refresh` and `_forcemerge` is an index
 expression (a comma list of names and ``*``/``?`` patterns, or
@@ -79,18 +107,24 @@ path when it fits, else the plan path.
 
 from __future__ import annotations
 
+import copy
 import json
 import logging
-import re
 import time
+import uuid
 from typing import Any, Optional, Tuple
 
 from elasticsearch_tpu_torch.common.errors import (
-    CircuitBreakingException, IllegalArgumentException,
-    IndexNotFoundException, QueryShardException, ScriptException,
-    SearchPhaseExecutionException, SettingsException)
+    CircuitBreakingException, DocumentMissingException,
+    IllegalArgumentException, IndexNotFoundException, QueryShardException,
+    ResourceAlreadyExistsException, ScriptException,
+    SearchPhaseExecutionException, SettingsException, WriteException,
+    error_type_of)
 from elasticsearch_tpu_torch.index.mapper import (MapperParsingException,
                                                   TextFieldType)
+from elasticsearch_tpu_torch.index.service import INDEX_NAME
+from elasticsearch_tpu_torch.index.translog import write_batch
+from elasticsearch_tpu_torch.reindex.worker import _Ctx, compile_update_script
 from elasticsearch_tpu_torch.search.fastpath import (MAX_FILTERS,
                                                      SliceUnsupported)
 from elasticsearch_tpu_torch.search.queries import ParsingException
@@ -99,9 +133,6 @@ from elasticsearch_tpu_torch.telemetry import engine as _engine
 from elasticsearch_tpu_torch.telemetry import flightrecorder as _flight
 
 logger = logging.getLogger("elasticsearch_tpu_torch.rest")
-
-_INDEX_NAME = re.compile(r"^[a-z0-9][a-z0-9_.\-]*$")
-
 
 # the `_search` URL parameters this slice serves (``_merge_search_params``)
 _SEARCH_PARAMS = ("q", "from", "size", "request_cache",
@@ -149,6 +180,60 @@ def _error(status: int, etype: str, reason: str, **extra):
     return status, {"error": {"root_cause": [err], **err}, "status": status}
 
 
+# the typed failures a `_bulk` item answers in its own entry (the
+# reference's ElasticsearchTpuException family)
+_ITEM_ERRORS = (WriteException, IndexNotFoundException,
+                CircuitBreakingException, SliceUnsupported,
+                MapperParsingException, ParsingException,
+                IllegalArgumentException, QueryShardException,
+                ScriptException, SettingsException)
+
+
+def _xcontent(e: BaseException) -> Tuple[int, dict]:
+    """(status, error object) of a typed failure, as the reference's
+    ``to_xcontent``: type, reason and the failure's metadata."""
+    if isinstance(e, WriteException):
+        return e.status, e.to_xcontent()
+    err = {"type": error_type_of(e), "reason": str(e)}
+    if isinstance(e, IndexNotFoundException):
+        err["index"] = e.index
+    if isinstance(e, CircuitBreakingException):
+        err.update(bytes_wanted=e.bytes_wanted, bytes_limit=e.bytes_limit)
+    return getattr(e, "status", 400), err
+
+
+def _write_response(index: str, result, word: str) -> dict:
+    return {"_index": index, "_id": result.doc_id,
+            "_version": result.version, "result": word,
+            "_shards": {"total": 1, "successful": 1, "failed": 0},
+            "_seq_no": result.seq_no,
+            "_primary_term": result.primary_term}
+
+
+def _deep_merge(base: dict, update: dict) -> dict:
+    out = dict(base)
+    for k, v in update.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def _refreshes(params: dict, wait_for: bool = True) -> bool:
+    """Whether a write's ``refresh`` parameter asks for a refresh (the
+    reference's values; a delete or an update does not take
+    ``wait_for``)."""
+    return params.get("refresh") in (("true", "wait_for", "")
+                                     if wait_for else ("true", ""))
+
+
+def _no_pipeline(params: dict) -> None:
+    if "pipeline" in params:
+        raise SliceUnsupported("ingest pipelines are a later slice of the "
+                               "port")
+
+
 class RestController:
     def __init__(self, node):
         self.node = node
@@ -162,12 +247,11 @@ class RestController:
             # node's flight recorder
             with _flight.activate(self.node.flight):
                 return self._route(method, path, parts, params, body)
-        except CircuitBreakingException as e:
-            return _error(429, e.error_type, str(e),
-                          bytes_wanted=e.bytes_wanted,
-                          bytes_limit=e.bytes_limit)
-        except IndexNotFoundException as e:
-            return _error(404, e.error_type, str(e), index=e.index)
+        except (CircuitBreakingException, IndexNotFoundException,
+                WriteException) as e:
+            status, err = _xcontent(e)
+            return status, {"error": {"root_cause": [err], **err},
+                            "status": status}
         except SearchPhaseExecutionException as e:
             return _error(e.status, e.error_type, str(e),
                           phase=e.phase_name, grouped=True,
@@ -182,6 +266,7 @@ class RestController:
             return _error(500, "exception", f"{type(e).__name__}: {e}")
 
     def _route(self, method: str, path: str, parts, params: dict, body):
+        n = len(parts)
         if not parts:
             if method in ("GET", "HEAD"):
                 return 200, self.node.info()
@@ -193,20 +278,51 @@ class RestController:
             return self._flight_recorder(params)
         elif parts == ["_search"] and method in ("POST", "GET"):
             return self._search("_all", params, body)
-        elif len(parts) == 1 and not parts[0].startswith("_"):
-            if method == "PUT":
-                return self._create_index(parts[0], body)
-        elif len(parts) == 2 and (not parts[0].startswith("_")
-                                  or parts[0] == "_all"):
+        elif parts == ["_bulk"] and method in ("POST", "PUT"):
+            return self._bulk(None, params, body)
+        elif parts == ["_mget"] and method in ("POST", "GET"):
+            return self._mget(None, params, body)
+        elif parts[0].startswith("_") and parts[0] != "_all":
+            pass
+        elif n == 1:
+            handler = {"PUT": self._create_index, "GET": self._get_index,
+                       "DELETE": self._delete_index}.get(method)
+            if handler is not None:
+                return handler(parts[0], params, body)
+        elif n == 2:
             index, action = parts
-            if action == "_bulk" and method in ("POST", "PUT"):
-                return self._bulk(index, params, body)
-            if action == "_refresh" and method in ("POST", "GET"):
-                return self._refresh(index)
-            if action == "_forcemerge" and method == "POST":
-                return self._forcemerge(index, params)
-            if action == "_search" and method in ("POST", "GET"):
-                return self._search(index, params, body)
+            handler = {
+                ("_bulk", "POST"): self._bulk, ("_bulk", "PUT"): self._bulk,
+                ("_refresh", "POST"): self._refresh,
+                ("_refresh", "GET"): self._refresh,
+                ("_flush", "POST"): self._flush,
+                ("_forcemerge", "POST"): self._forcemerge,
+                ("_search", "POST"): self._search,
+                ("_search", "GET"): self._search,
+                ("_mget", "POST"): self._mget, ("_mget", "GET"): self._mget,
+                ("_mapping", "GET"): self._get_mapping,
+                ("_mapping", "PUT"): self._put_mapping,
+                ("_settings", "GET"): self._get_settings,
+                ("_settings", "PUT"): self._put_settings,
+                ("_stats", "GET"): self._index_stats,
+                ("_doc", "POST"): self._index_auto_id,
+            }.get((action, method))
+            if handler is not None:
+                return handler(index, params, body)
+        elif n == 3:
+            index, action, doc_id = parts
+            handler = {
+                ("_doc", "PUT"): self._index_doc,
+                ("_doc", "POST"): self._index_doc,
+                ("_create", "PUT"): self._create_doc,
+                ("_create", "POST"): self._create_doc,
+                ("_doc", "GET"): self._get_doc,
+                ("_source", "GET"): self._get_source,
+                ("_doc", "DELETE"): self._delete_doc,
+                ("_update", "POST"): self._update_doc,
+            }.get((action, method))
+            if handler is not None:
+                return handler(index, doc_id, params, body)
         return _error(400, "unsupported_in_slice_exception",
                       f"{method} {path} is not a route of this slice of "
                       f"the port")
@@ -251,6 +367,7 @@ class RestController:
             "nodes": {self.node.node_id: {
                 "name": self.node.node_id,
                 "breakers": self.node.breaker_service.stats(),
+                "indexing_pressure": self.node.indexing_pressure.stats(),
                 "engine": self._engine_section(),
                 "mesh": self.node.search_service.mesh_executor.stats(),
                 "telemetry": {
@@ -277,15 +394,14 @@ class RestController:
                      "aggregates": fl.aggregates()}
 
     # ------------------------------------------------------------- indices
-    def _index_or_404(self, index: str):
+    def _svc(self, index: str):
         svc = self.node.indices.get(index)
         if svc is None:
-            return None, _error(404, "index_not_found_exception",
-                                f"no such index [{index}]", index=index)
-        return svc, None
+            raise IndexNotFoundException(index)
+        return svc
 
-    def _create_index(self, index: str, body):
-        if not _INDEX_NAME.match(index):
+    def _create_index(self, index: str, params: dict, body):
+        if not INDEX_NAME.match(index):
             return _error(400, "invalid_index_name_exception",
                           f"Invalid index name [{index}]", index=index)
         if index in self.node.indices:
@@ -298,66 +414,267 @@ class RestController:
         return 200, {"acknowledged": True, "shards_acknowledged": True,
                      "index": index}
 
-    def _bulk(self, index: str, params: dict, body):
-        svc, err = self._index_or_404(index)
-        if err:
-            return err
-        t0 = time.time()
-        lines = [ln for ln in (body or "").splitlines() if ln.strip()]
+    def _ensure_index(self, index: str):
+        """The index a write goes to, created on first write as the
+        reference's auto-create does."""
+        svc = self.node.indices.get(index)
+        if svc is None:
+            if not index or index.startswith(("_", "-")) \
+                    or index != index.lower():
+                raise IllegalArgumentException(
+                    f"Invalid index name [{index}], must be lowercase and "
+                    f"not start with '_' or '-'")
+            try:
+                svc = self.node.create_index(index)
+            except ResourceAlreadyExistsException:   # created meanwhile
+                svc = self._svc(index)
+        return svc
+
+    def _get_index(self, expression: str, params: dict, body):
+        return 200, {name: {
+            "mappings": self.node.indices[name].mapper.to_mapping(),
+            "settings": {"index": self.node.indices[name].nested_settings()}}
+            for name in self.node.indices.resolve(expression)}
+
+    def _delete_index(self, expression: str, params: dict, body):
+        for name in self.node.indices.resolve(expression):
+            self.node.delete_index(name)
+        return 200, {"acknowledged": True}
+
+    def _get_mapping(self, expression: str, params: dict, body):
+        return 200, {name: {"mappings":
+                            self.node.indices[name].mapper.to_mapping()}
+                     for name in self.node.indices.resolve(expression)}
+
+    def _put_mapping(self, expression: str, params: dict, body):
+        for name in self.node.indices.resolve(expression):
+            self.node.indices[name].update_mappings(body or {})
+        return 200, {"acknowledged": True}
+
+    def _get_settings(self, expression: str, params: dict, body):
+        return 200, {name: {"settings": {
+            "index": self.node.indices[name].nested_settings()}}
+            for name in self.node.indices.resolve(expression)}
+
+    def _put_settings(self, expression: str, params: dict, body):
+        body = body or {}
+        updates = body.get("settings", body)
+        for name in self.node.indices.resolve(expression):
+            self.node.indices[name].update_settings(updates)
+        return 200, {"acknowledged": True}
+
+    def _index_stats(self, expression: str, params: dict, body):
+        return 200, {"indices": {
+            name: self.node.indices[name].stats()
+            for name in self.node.indices.resolve(expression)}}
+
+    # ------------------------------------------------------------ documents
+    def _index_doc(self, index: str, doc_id: str, params: dict, body):
+        _no_pipeline(params)
+        svc = self._ensure_index(index)
+        kwargs = {}
+        if "if_seq_no" in params:
+            kwargs["if_seq_no"] = int(params["if_seq_no"])
+            kwargs["if_primary_term"] = int(params.get("if_primary_term", 1))
+        result = svc.index_doc(doc_id, body or {},
+                               routing=params.get("routing"),
+                               op_type=params.get("op_type", "index"),
+                               **kwargs)
+        if _refreshes(params):
+            svc.refresh()
+        return (201 if result.created else 200), _write_response(
+            index, result, "created" if result.created else "updated")
+
+    def _index_auto_id(self, index: str, params: dict, body):
+        return self._index_doc(index, uuid.uuid4().hex[:20], params, body)
+
+    def _create_doc(self, index: str, doc_id: str, params: dict, body):
+        return self._index_doc(index, doc_id, {**params,
+                                               "op_type": "create"}, body)
+
+    def _get_doc(self, index: str, doc_id: str, params: dict, body=None):
+        result = self._svc(index).get_doc(doc_id, params.get("routing"))
+        if not result.found:
+            return 404, {"_index": index, "_id": doc_id, "found": False}
+        return 200, {"_index": index, "_id": doc_id,
+                     "_version": result.version, "_seq_no": result.seq_no,
+                     "_primary_term": result.primary_term, "found": True,
+                     "_source": result.source}
+
+    def _get_source(self, index: str, doc_id: str, params: dict, body):
+        result = self._svc(index).get_doc(doc_id, params.get("routing"))
+        if not result.found:
+            raise DocumentMissingException(index, doc_id)
+        return 200, result.source
+
+    def _delete_doc(self, index: str, doc_id: str, params: dict, body):
+        svc = self._svc(index)
+        result = svc.delete_doc(doc_id, routing=params.get("routing"))
+        if _refreshes(params, wait_for=False):
+            svc.refresh()
+        if not result.found:
+            return 404, _write_response(index, result, "not_found")
+        return 200, _write_response(index, result, "deleted")
+
+    def _update_doc(self, index: str, doc_id: str, params: dict, body):
+        """The reference's get-merge-reindex: ``doc`` deep-merges,
+        ``upsert`` indexes a missing document, ``script`` runs over a
+        copy of ``_source`` (``ctx.op`` ``none`` or ``delete``)."""
+        svc = self._svc(index)
+        body = body or {}
+        routing = params.get("routing")
+        current = svc.get_doc(doc_id, routing)
+        if not current.found:
+            if "upsert" in body:
+                result = svc.index_doc(doc_id, body["upsert"],
+                                       routing=routing)
+                return 201, _write_response(index, result, "created")
+            raise DocumentMissingException(index, doc_id)
+        if "doc" in body:
+            merged = _deep_merge(current.source, body["doc"])
+            if merged == current.source and body.get("detect_noop", True):
+                return 200, _write_response(index, current, "noop")
+            result = svc.index_doc(doc_id, merged, routing=routing)
+            if _refreshes(params, wait_for=False):
+                svc.refresh()
+            return 200, _write_response(index, result, "updated")
+        if "script" in body:
+            script = compile_update_script(body["script"])
+            src = copy.deepcopy(current.source)
+            ctx = _Ctx(src, index, doc_id, current.version)
+            script.run(ctx)
+            if ctx.op in ("none", "noop"):
+                return 200, _write_response(index, current, "noop")
+            if ctx.op == "delete":
+                result = svc.delete_doc(doc_id, routing=routing)
+                word = "deleted"
+            else:
+                result = svc.index_doc(doc_id, src, routing=routing)
+                word = "updated"
+            if _refreshes(params, wait_for=False):
+                svc.refresh()
+            return 200, _write_response(index, result, word)
+        raise IllegalArgumentException(
+            "update requires [doc], [script], or [upsert]")
+
+    def _mget(self, index: Optional[str], params: dict, body):
+        body = body or {}
+        docs = []
+        for spec in body.get("docs", []):
+            target = spec["_index"] if index is None else spec.get(
+                "_index", index)
+            docs.append(self._get_doc(target, spec.get("_id"), params)[1])
+        if index is not None:
+            for doc_id in body.get("ids") or ():
+                docs.append(self._get_doc(index, doc_id, params)[1])
+        return 200, {"docs": docs}
+
+    # ----------------------------------------------------------------- bulk
+    def _bulk(self, index: Optional[str], params: dict, body):
+        """NDJSON bulk, item by item. The raw payload's bytes charge the
+        node's indexing pressure first (a retryable 429 past the limit,
+        before any parsing) and are released when the answer is
+        decided. Its translog ops reach the operating system together,
+        before the answer (``write_batch``)."""
+        nbytes = (len(body) if isinstance(body, (bytes, str))
+                  else len(json.dumps(body, default=str)))
+        release = self.node.indexing_pressure \
+            .mark_coordinating_operation_started(nbytes, "_bulk")
+        try:
+            with write_batch():
+                return self._bulk_inner(index, params, body)
+        finally:
+            release()
+
+    def _bulk_inner(self, index: Optional[str], params: dict, body):
+        _no_pipeline(params)
+        if isinstance(body, (bytes, str)):
+            text = body.decode() if isinstance(body, bytes) else body
+            try:
+                if text.lstrip().startswith("["):
+                    lines = json.loads(text)
+                else:
+                    rows = [ln for ln in text.splitlines() if ln.strip()]
+                    try:        # every line in one parse
+                        lines = json.loads("[" + ",".join(rows) + "]")
+                    except ValueError:
+                        # line by line: the failing line's own error
+                        lines = [json.loads(ln) for ln in rows]
+            except ValueError as e:
+                raise ParsingException(f"Failed to parse bulk body: {e}")
+        elif isinstance(body, list):
+            lines = body
+        else:
+            raise IllegalArgumentException("bulk body must be NDJSON")
+        if len(lines) == 1 and isinstance(lines[0], list):
+            lines = lines[0]
         items = []
         errors = False
+        touched = {}
+        start = time.monotonic()
         i = 0
         while i < len(lines):
-            try:
-                action = json.loads(lines[i])
-            except json.JSONDecodeError as e:
-                return _error(400, "parsing_exception",
-                              f"malformed bulk action line: {e}")
-            (op, meta), = action.items()
+            (action, meta), = lines[i].items()
             meta = meta or {}
             i += 1
-            if meta.get("_index", index) != index:
-                return _error(400, "unsupported_in_slice_exception",
-                              "bulk into another index than the path's is "
-                              "a later slice")
+            target = meta.get("_index", index)
             doc_id = meta.get("_id")
-            doc_id = None if doc_id is None else str(doc_id)
-            routing = meta.get("routing", params.get("routing"))
-            routing = None if routing is None else str(routing)
+            doc_id = uuid.uuid4().hex[:20] if not doc_id else str(doc_id)
+            # the source line first, so a failing item never shifts the
+            # action/source alternation of the next
+            source = None
+            if action in ("index", "create", "update"):
+                if i >= len(lines):
+                    raise IllegalArgumentException(
+                        "Malformed bulk request: missing source for last "
+                        "action")
+                source = lines[i]
+                i += 1
             try:
-                if op in ("index", "create"):
-                    source = json.loads(lines[i])
-                    i += 1
-                    doc_id, result = svc.index_doc(doc_id, source, routing,
-                                                   op_type=op)
-                    status = 201 if result == "created" else 200
-                    items.append({op: {"_index": index, "_id": doc_id,
-                                       "result": result, "status": status}})
-                elif op == "delete":
-                    found = svc.delete_doc(doc_id, routing)
-                    items.append({op: {
-                        "_index": index, "_id": doc_id,
-                        "result": "deleted" if found else "not_found",
-                        "status": 200 if found else 404}})
+                if target is None:
+                    raise IllegalArgumentException("bulk item missing _index")
+                if "pipeline" in meta:
+                    _no_pipeline(meta)
+                # the action line's routing, else the URL's
+                routing = meta.get("routing", params.get("routing"))
+                routing = None if routing is None else str(routing)
+                svc = self._ensure_index(target)
+                touched[target] = svc
+                if action in ("index", "create"):
+                    result = svc.index_doc(doc_id, source, routing=routing,
+                                           op_type=action)
+                    items.append({action: {
+                        "_index": target, "_id": result.doc_id,
+                        "_version": result.version,
+                        "result": ("created" if result.created
+                                   else "updated"),
+                        "_seq_no": result.seq_no,
+                        "status": 201 if result.created else 200}})
+                elif action == "delete":
+                    result = svc.delete_doc(doc_id, routing=routing)
+                    items.append({action: {
+                        "_index": target, "_id": doc_id,
+                        "result": "deleted" if result.found else "not_found",
+                        "status": 200 if result.found else 404}})
+                elif action == "update":
+                    code, resp = self._update_doc(target, doc_id,
+                                                  dict(params), source)
+                    items.append({action: {**resp, "status": code}})
                 else:
-                    raise SliceUnsupported(
-                        f"bulk action [{op}] is a later slice")
-            except (ValueError, SliceUnsupported) as e:
+                    raise IllegalArgumentException(
+                        f"Malformed action [{action}]")
+            except _ITEM_ERRORS as e:
                 errors = True
-                etype = ("version_conflict_engine_exception"
-                         if "version conflict" in str(e) else
-                         getattr(e, "error_type", "mapper_parsing_exception"))
-                items.append({op: {"_index": index, "_id": doc_id,
-                                   "status": 409 if etype.startswith(
-                                       "version") else 400,
-                                   "error": {"type": etype,
-                                             "reason": str(e)}}})
-        if str(params.get("refresh", "false")).lower() in ("true", "",
-                                                            "wait_for"):
-            svc.refresh()
-        return 200, {"took": int((time.time() - t0) * 1000),
+                status, err = _xcontent(e)
+                items.append({action: {"_index": target, "_id": doc_id,
+                                       "status": status, "error": err}})
+        if _refreshes(params):
+            for svc in touched.values():
+                svc.refresh()
+        return 200, {"took": int((time.monotonic() - start) * 1000),
                      "errors": errors, "items": items}
 
+    # -------------------------------------------------------- index actions
     def _shards_of(self, expression: str):
         """The indices an expression selects, and the ``_shards`` of an
         action on every shard of them."""
@@ -366,20 +683,23 @@ class RestController:
         n = sum(svc.num_shards for svc in svcs)
         return svcs, {"_shards": {"total": n, "successful": n, "failed": 0}}
 
-    def _refresh(self, expression: str):
+    def _refresh(self, expression: str, params: dict, body):
         svcs, out = self._shards_of(expression)
         for svc in svcs:
             svc.refresh()
         return 200, out
 
-    def _forcemerge(self, expression: str, params: dict):
-        n = int(params.get("max_num_segments", 1))
-        if n != 1:
-            raise SliceUnsupported("this slice force-merges to one segment "
-                                   "only (max_num_segments=1)")
+    def _flush(self, expression: str, params: dict, body):
         svcs, out = self._shards_of(expression)
         for svc in svcs:
-            svc.force_merge(1)
+            svc.flush()
+        return 200, out
+
+    def _forcemerge(self, expression: str, params: dict, body):
+        n = int(params.get("max_num_segments", 1))
+        svcs, out = self._shards_of(expression)
+        for svc in svcs:
+            svc.force_merge(n)
         return 200, out
 
     # -------------------------------------------------------------- search

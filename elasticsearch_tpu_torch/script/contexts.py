@@ -1,6 +1,6 @@
-"""Script contexts of the aggregations (counterpart of
-elasticsearch_tpu/script/contexts.py, reduced to the contexts the port
-serves: the ingest and update contexts wait with those APIs).
+"""Script contexts (counterpart of elasticsearch_tpu/script/contexts.py,
+reduced to the contexts the port serves: the aggregations' and the
+update context of ``_update``; the ingest context waits with ingest).
 
 Plain dicts and lists are the Map and List types inside the
 interpreter, so ``state``, ``states`` and ``params`` (of
@@ -15,7 +15,10 @@ doc shim.
 
 from __future__ import annotations
 
-from elasticsearch_tpu_torch.script.interp import ContextShim, PainlessError
+from typing import Any, Dict, Optional
+
+from elasticsearch_tpu_torch.script.interp import (ContextShim, PainlessError,
+                                                   compile_painless)
 
 
 class _Value(ContextShim):
@@ -63,3 +66,46 @@ class DocValues(ContextShim):
             return _Value(kv.terms[ords[0]] if len(ords) else None)
         return _Value(None)
 
+
+
+class UpdateCtx(ContextShim):
+    """``ctx`` of an update script (reindex/worker.py ``_Ctx``): the
+    ``_source`` map, ``_index``/``_id``/``_version``, and the mutable
+    ``op``."""
+
+    def __init__(self, ctx):
+        self._ctx = ctx
+
+    def pl_get(self, name):
+        if name == "_source":
+            return self._ctx._source._data
+        if name == "op":
+            return self._ctx.op
+        if name in ("_index", "_id", "_version"):
+            return getattr(self._ctx, name)
+        raise PainlessError(f"unknown ctx field [{name}]")
+
+    def pl_set(self, name, value):
+        if name == "op":
+            self._ctx.op = value
+            return
+        raise PainlessError(f"cannot write ctx.{name}")
+
+    def pl_index(self, key):
+        return self.pl_get(key)
+
+
+def run_update_script(source: str, ctx,
+                      params: Optional[Dict[str, Any]] = None) -> None:
+    script = compile_painless(source)
+    script.execute({"ctx": UpdateCtx(ctx), "params": dict(params or {})})
+
+
+def try_compile(source: str) -> bool:
+    """True when ``source`` compiles as Painless (the update script keeps
+    the legacy expression engine for what does not)."""
+    try:
+        compile_painless(source)
+        return True
+    except Exception:
+        return False

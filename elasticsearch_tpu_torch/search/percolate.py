@@ -145,7 +145,8 @@ def resolve_percolate_refs(query_spec: Any, indices) -> Any:
                 raise IndexNotFoundException(v["index"])
             routing = v.get("routing")
             source = svc.get_doc(str(v["id"]),
-                                 None if routing is None else str(routing))
+                                 None if routing is None else str(routing)
+                                 ).source
             if source is None:
                 raise IllegalArgumentException(
                     f"percolate document [{v['index']}/{v['id']}] not found")

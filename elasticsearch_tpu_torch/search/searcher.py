@@ -398,10 +398,14 @@ class ShardSearcher:
                     highlight: Optional[Dict[str, Any]] = None,
                     highlight_query=None,
                     script_fields: Optional[Dict[str, Any]] = None,
-                    fields: Optional[List[Any]] = None
+                    fields: Optional[List[Any]] = None,
+                    version: bool = False,
+                    seq_no_primary_term: bool = False
                     ) -> List[Dict[str, Any]]:
         """Each hit of the page: ``_id``, ``_score``, the sort values
-        under a sort, the ``_source`` as ``source_filter`` (true, false,
+        under a sort, ``_version`` and ``_seq_no``/``_primary_term`` when
+        asked (from the metadata columns; a doc without them has none),
+        the ``_source`` as ``source_filter`` (true, false,
         a field, a list or ``{includes, excludes}``) keeps it (a segment
         built without sources has none to show), then ``fields`` from
         ``docvalue_fields``, ``fields`` and ``script_fields``, and
@@ -416,6 +420,13 @@ class ShardSearcher:
                 "_score": d.score if d.score == d.score else None}
             if d.sort_values:
                 hit["sort"] = list(d.sort_values)
+            for meta in (("_version",) if version else ()) + (
+                    ("_seq_no", "_primary_term") if seq_no_primary_term
+                    else ()):
+                nv = seg.numerics.get(meta)
+                vs = nv.get(d.docid) if nv is not None else None
+                if vs:
+                    hit[meta] = int(vs[0])
             parsed: List[Any] = []
 
             def get_source(seg=seg, d=d, parsed=parsed):

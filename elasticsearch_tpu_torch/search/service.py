@@ -26,11 +26,9 @@ terminate_after goes to ``MeshSearchBackend.execute``, which runs one
 launch a shard on the node's device list and merges on the device, bit
 for bit the loop's answer, when there are as many devices as shards
 (else a typed ``fallback.<reason>`` and the loop serves; on one card a
-multi-shard body always falls back). A pure kNN body keeps the cohort
-launch on any device count (``fallback.knn_cohort``): it counts each
-shard's k nearest live docs, where the mesh answers the dense loop's
-KnnQuery, which cuts to k first; any other kNN body meets the mesh
-merged into its query, as in the reference.
+multi-shard body always falls back). A kNN body of several shards meets
+the mesh or the loop merged into its query, as in the reference: each
+shard's KnnQuery cuts to k, then drops the deleted docs.
 ``search_type=dfs_query_then_fetch`` scores every shard with one set
 of statistics over all of the request's shards (a per-request copy of
 each searcher; its bound plans are keyed apart from the default's), as
@@ -49,9 +47,11 @@ then ``from``/``size`` cut the page; not with ``sort``),
 ``aggs``/``aggregations`` (search/aggregations.py over the dense
 executor's match masks; the response carries ``aggregations``, on an
 empty index too), ``collapse``, ``terminate_after`` and ``suggest``
-(search/suggest.py, host only). Everything else (``version``,
-``seq_no_primary_term``, ``stored_fields``, ``explain``, ``pit``,
-``slice``, ``timeout``, ...) is a later slice and answers a typed 400.
+(search/suggest.py, host only), ``version`` and ``seq_no_primary_term``
+(each hit's ``_version``, ``_seq_no`` and ``_primary_term`` from the
+documents' metadata columns, index/engine.py). Everything else
+(``stored_fields``, ``explain``, ``pit``, ``slice``, ``timeout``, ...) is
+a later slice and answers a typed 400.
 
 ``collapse: {"field": f}`` keeps the first hit of each value of ``f``
 (its first doc value; a text field's dynamic ``.keyword``; docs without
@@ -70,13 +70,13 @@ Hybrid retrieval: top-level ``knn`` sections (one or a list). With
 branches, fused by reciprocal rank (score = the sum over branches of
 1 / (rank_constant + rank)); aggregations ride the query branch alone.
 Without it, a pure kNN body (one section, no query, ``_source: false``,
-nothing else that shapes the response) rides the KnnBatcher's cohort
-launch, one launch a shard, merged by the exact float32 score; any
-other body merges its knn sections into the query as ``bool.should``
-clauses (the score sum) and runs on the dense executor. A kNN branch
-served by the batcher needs shards of one segment each, no ``filter``
-and a candidate cut within its largest bucket (4096); otherwise the
-dense executor serves it.
+nothing else that shapes the response) on one shard rides the
+KnnBatcher's cohort launch; any other body merges its knn sections into
+the query as ``bool.should`` clauses (the score sum) and runs on the
+dense executor. A kNN branch (of a pure body or of ``rank.rrf``) is
+served by the batcher only where the reference serves it so: one shard
+of one segment, no ``filter`` and a candidate cut within its largest
+bucket (4096); otherwise the dense executor serves it.
 
 Under a ``sort`` each hit carries its ``sort`` values, the page is
 ordered by them (missing last), and ``max_score`` is null, as the
@@ -157,13 +157,15 @@ BODY_KEYS = {"query", "size", "from", "post_filter", "track_total_hits",
              "_source", "sort", "search_after", "min_score", "knn", "rank",
              "rescore", "aggs", "aggregations", "profile", "highlight",
              "docvalue_fields", "fields", "script_fields", "collapse",
-             "terminate_after", "suggest", "allow_partial_search_results"}
+             "terminate_after", "suggest", "allow_partial_search_results",
+             "version", "seq_no_primary_term"}
 # a body with any of these (truthy) asks more than the k nearest ids and
 # scores, so its kNN takes the dense executor, not the cohort launch
 _NOT_PURE_KNN = ("sort", "post_filter", "min_score", "search_after",
                  "track_total_hits", "rescore", "aggs", "aggregations",
                  "highlight", "fields", "suggest", "collapse",
-                 "docvalue_fields", "script_fields", "terminate_after")
+                 "docvalue_fields", "script_fields", "terminate_after",
+                 "version", "seq_no_primary_term")
 _RESCORE_MODES = ("total", "multiply", "avg", "max", "min")
 
 
@@ -391,10 +393,10 @@ class SearchService:
     them. ``indices`` (index/service.py IndicesService) holds the
     indices a search expression resolves over."""
 
-    def __init__(self, cache: DeviceSegmentCache,
-                 indices: Optional[IndicesService] = None, devices=None):
+    def __init__(self, cache: DeviceSegmentCache, indices: IndicesService,
+                 devices=None):
         self.cache = cache
-        self.indices = indices if indices is not None else IndicesService()
+        self.indices = indices
         self.plan_batcher = PlanBatcher()
         self.knn_batcher = KnnBatcher()
         # the mesh (parallel/mesh_executor.py) over the node's device
@@ -451,13 +453,10 @@ class SearchService:
                 return self._rrf_search(searchers, body)
             return self._rrf_profiled(searchers, body)
         if body.get("knn") is not None:
-            # a pure kNN body takes the cohort launch whatever the device
-            # count (each shard's k nearest LIVE docs); any other meets
-            # the mesh merged into its query, as the dense loop's KnnQuery
+            # a pure kNN body on one shard takes the cohort launch; any
+            # other meets the mesh merged into its query
             response = self._pure_knn_search(searchers, body, profiles)
             if response is not None:
-                if _mesh_shaped(searchers):
-                    self.mesh_executor._fallback("knn_cohort")
                 if profiles is not None:
                     response["profile"] = profiles.section()
                 return response
@@ -750,7 +749,8 @@ class SearchService:
                 docvalue_fields=docvalue_fields,
                 highlight=body.get("highlight"), highlight_query=query,
                 script_fields=body.get("script_fields"),
-                fields=body.get("fields"))
+                fields=body.get("fields"), version=body.get("version"),
+                seq_no_primary_term=body.get("seq_no_primary_term"))
             if profiles is not None:
                 profiles.fetch_ns[shard_idx] = time.monotonic_ns() - t0
             for (pos, d), h in zip(entries, fetched):
@@ -798,27 +798,22 @@ class SearchService:
             return None
         spec = clauses[0]["knn"]
         size = int(body.get("size", DEFAULT_SIZE))
-        # the candidate cut mirrors KnnQuery: k, else num_candidates, a
-        # shard; several shards fill the page from their cuts together
+        # the candidate cut mirrors KnnQuery: k, else num_candidates
         cut = spec.get("k") or spec.get("num_candidates")
-        window = (min(int(cut), size) if cut and len(searchers) == 1
-                  else size)
+        window = min(int(cut), size) if cut else size
         hits = self._knn_branch_hits(searchers, spec, window, profiles)
         if hits is None:
             return None
-        total = 0
-        for _, searcher in searchers:
-            seg = searcher.segments[0]
-            vv = seg.vectors.get(spec.get("field"))
-            # the version before the mask: a delete between the two
-            # reads is counted again at the next request, never kept
-            version = seg.live_version
-            n_match = 0 if vv is None else vv.live_count(seg.live, version)
-            total += min(int(cut), n_match) if cut else n_match
+        seg = searchers[0][1].segments[0]
+        vv = seg.vectors.get(spec.get("field"))
+        # the version before the mask: a delete between the two reads is
+        # counted again at the next request, never kept
+        version = seg.live_version
+        n_match = 0 if vv is None else vv.live_count(seg.live, version)
+        total = min(int(cut), n_match) if cut else n_match
         return {
             "timed_out": False,
-            "_shards": {"total": len(searchers),
-                        "successful": len(searchers), "skipped": 0,
+            "_shards": {"total": 1, "successful": 1, "skipped": 0,
                         "failed": 0},
             "hits": {"total": {"value": total, "relation": "eq"},
                      "max_score": (hits[0]["_score"] if hits else None),
@@ -828,62 +823,47 @@ class SearchService:
     def _knn_branch_hits(self, searchers, spec: Dict[str, Any], window: int,
                          profiles: Optional[_ShardProfiles] = None
                          ) -> Optional[List[Dict[str, Any]]]:
-        """A kNN branch (a knn clause) through the KnnBatcher, one
-        launch a shard: concurrent requests share each shard's product
-        and top-k launch. Its hit dicts (``_index``, ``_id``,
-        ``_score``), or None when the branch does not batch (a filter, a
-        shard of several segments, no such vector field, a cut beyond
-        the largest bucket): the dense executor serves it. One shard
-        answers its first ``window`` nominations; several each keep
-        their ``k`` (else ``num_candidates``) best within the window, as
-        the dense executor's KnnQuery does, merged by (-exact float32
-        score, shard, docid) and cut to the window."""
-        if spec.get("filter") is not None or not searchers or any(
-                len(s.segments) != 1 for _, s in searchers):
+        """A kNN branch (a knn clause) through the KnnBatcher: concurrent
+        requests share the shard's product and top-k launch. Its first
+        ``window`` hit dicts (``_index``, ``_id``, ``_score``), or None
+        where the reference does not batch it (several shards, a shard
+        of several segments, a filter, no such vector field, a cut
+        beyond the largest bucket): the dense executor serves it."""
+        if spec.get("filter") is not None or len(searchers) != 1:
             return None
+        index, searcher = searchers[0]
+        if len(searcher.segments) != 1:
+            return None
+        ctx = searcher._contexts()[0]
         field = spec.get("field")
+        dv = ctx.device.vectors.get(field) if field else None
+        if dv is None or dv.similarity not in ("cosine", "dot_product",
+                                               "l2_norm"):
+            return None
         qvec = np.asarray(spec.get("query_vector", ()), np.float32)
+        if qvec.shape != (dv.dims,):
+            return None
         k = spec.get("k")
         nc = spec.get("num_candidates")
-        launches = []
-        # every shard passes the gate before any launches
-        for index, searcher in searchers:
-            ctx = searcher._contexts()[0]
-            dv = ctx.device.vectors.get(field) if field else None
-            if dv is None or dv.similarity not in ("cosine", "dot_product",
-                                                   "l2_norm"):
-                return None
-            if qvec.shape != (dv.dims,):
-                return None
-            cut = min(int(k or nc or window), window)
-            if dv.vectors.dtype != torch.float32:
-                # quantized slab: nominate the full num_candidates
-                # before the exact re-rank, then trim to the window
-                cut = max(cut, min(int(nc or 3 * (k or 1000)),
-                                   ctx.n_docs_padded))
-            if cut > _CUT_BUCKETS[-1]:
-                return None
-            launches.append((index, ctx, cut))
-        keep = window if len(searchers) == 1 else min(window,
-                                                      int(k or nc or window))
-        rows = []
-        for shard_idx, (index, ctx, cut) in enumerate(launches):
-            scope = (profiles.shard(f"[{index}][{shard_idx}]")
-                     if profiles is not None else contextlib.nullcontext())
-            with scope:
-                _prof.note("collector", "KnnBatchTopDocsCollector")
-                with _prof.span("launch"):
-                    scores, ids = self.knn_batcher.topk(ctx, field, qvec,
-                                                        cut)
-            seg = ctx.segment
-            for s, i in zip(scores[:keep], ids[:keep]):
-                if i < 0 or i >= seg.n_docs or not np.isfinite(s):
-                    continue
-                rows.append((-float(s), shard_idx, int(i), index, seg))
-        if len(launches) > 1:
-            rows.sort(key=lambda r: r[:3])
-        return [{"_index": index, "_id": seg.stored.ids[i], "_score": -ns}
-                for ns, _, i, index, seg in rows[:window]]
+        cut = min(int(k or nc or window), window)
+        if dv.vectors.dtype != torch.float32:
+            # quantized slab: nominate the full num_candidates before the
+            # exact re-rank, then trim to the window
+            cut = max(cut, min(int(nc or 3 * (k or 1000)),
+                               ctx.n_docs_padded))
+        if cut > _CUT_BUCKETS[-1]:
+            return None
+        scope = (profiles.shard(f"[{index}][0]") if profiles is not None
+                 else contextlib.nullcontext())
+        with scope:
+            _prof.note("collector", "KnnBatchTopDocsCollector")
+            with _prof.span("launch"):
+                scores, ids = self.knn_batcher.topk(ctx, field, qvec, cut)
+        seg = ctx.segment
+        return [{"_index": index, "_id": seg.stored.ids[int(i)],
+                 "_score": float(s)}
+                for s, i in zip(scores[:window], ids[:window])
+                if 0 <= i < seg.n_docs and np.isfinite(s)]
 
     def _rrf_search(self, searchers, body: Dict[str, Any]) -> Dict[str, Any]:
         """Reciprocal rank fusion over the query and knn branches (the

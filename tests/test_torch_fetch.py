@@ -610,7 +610,7 @@ def test_fetch_bodies_miss_the_fast_grammar(nodes, body):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("version", True), ("seq_no_primary_term", True),
+    ("indices_boost", [{"idx": 2.0}]), ("stats", ["group"]),
     ("stored_fields", ["title"]), ("explain", True),
     ("pit", {"id": "x"}), ("slice", {"id": 0, "max": 2}),
     ("timeout", "1s")])

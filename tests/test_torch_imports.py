@@ -51,7 +51,9 @@ def test_importing_every_module_loads_no_jax():
                  "telemetry.flightrecorder", "telemetry.engine",
                  "search.phrase", "search.intervals", "ops.features",
                  "search.suggest", "parallel.sharded",
-                 "parallel.mesh_executor"):
+                 "parallel.mesh_executor", "index.engine", "index.seqno",
+                 "index.translog", "index.pressure", "index.service",
+                 "index.segment", "reindex.worker", "script.contexts"):
         assert f"elasticsearch_tpu_torch.{name}" in res["modules"]
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 

@@ -12,10 +12,9 @@ section and ``profile: true`` the ``[index][_mesh]`` entry.
 Compares as tests/test_torch_mesh_executor.py: the port's mesh against
 its own loop bit for bit, against the reference exact ids, order and
 totals with scores rtol 1e-6 (tie-aware rtol 1e-4 where the reference
-splits a tie). A kNN body meets the mesh merged into its query, whose
-loop is the dense executor's KnnQuery a shard in both packages; a pure
-kNN body (``_source: false``, ids and scores only) keeps the port's
-cohort launch on any device count (``fallback.knn_cohort``)."""
+splits a tie). A kNN body of several shards, pure (``_source: false``, ids
+and scores only) or not, meets the mesh merged into its query, whose
+loop is the dense executor's KnnQuery a shard in both packages."""
 
 import gc
 import logging
@@ -141,39 +140,39 @@ def test_per_shard_idf_semantics(nodes):
 
 
 def test_pure_knn_answers_alike_on_any_device_count(nodes, monkeypatch):
-    """A pure kNN body (ids and scores only) takes the cohort launch
-    whether or not the node has a device a shard: each shard's k nearest
-    LIVE docs, so with deletes its hits and total are the same on one
-    device and on eight (``fallback.knn_cohort`` counts it). The same
-    body asking for ``_source`` meets the mesh, which answers the dense
-    loop's KnnQuery bit for bit."""
+    """A pure kNN body (ids and scores only) on several shards takes the
+    cohort launch in neither package: it meets the mesh on eight devices
+    and the per-shard loop on one, each shard's KnnQuery cutting to k
+    before it drops the deleted docs, so with deletes both answer the
+    reference's ids, order and total (less than k a shard). The same
+    body asking for ``_source`` answers alike."""
     jax_node, node = nodes
     rng = seed(nodes, "kdel", n_shards=4, n_docs=90, seed_=31, vec=True)
     victims = [str(int(v)) for v in rng.choice(90, size=12, replace=False)]
     lines = "".join('{"delete": {"_id": "%s"}}\n' % v for v in victims)
-    r = do(node, "POST", "/kdel/_bulk", {"refresh": "true"}, lines)
-    assert not r["errors"]
+    for n in nodes:
+        r = do(n, "POST", "/kdel/_bulk", {"refresh": "true"}, lines)
+        assert not r["errors"]
     pure = {"knn": {"field": "vec",
                     "query_vector": rng.standard_normal(DIMS).tolist(),
                     "k": 15, "num_candidates": 40},
             "_source": False, "size": 15}
-    fb = counter(node, "fallback.knn_cohort")
-    many, engaged = searched(node, "kdel", pure)
-    assert engaged == 0
-    assert counter(node, "fallback.knn_cohort") == fb + 1
+    many = check_mesh(nodes, "kdel", pure)
     monkeypatch.setattr(type(mesh(node)), "available_devices",
                         staticmethod(lambda: 1))
-    one = search(node, "kdel", pure)
+    one, engaged = searched(node, "kdel", pure)
     monkeypatch.undo()
+    assert engaged == 0
     assert_bit_equal(many, one)
+    assert_parity(one, jax_node, "kdel", pure)
     live = [sum(1 for d in shard.segments[0].live if d)
             for shard in node.indices["kdel"].shards]
-    assert many["hits"]["total"]["value"] == sum(min(15, n) for n in live)
+    assert many["hits"]["total"]["value"] < sum(min(15, n) for n in live)
     assert not {h["_id"] for h in many["hits"]["hits"]} & set(victims)
     full = {k: v for k, v in pure.items() if k != "_source"}
-    got, engaged = searched(node, "kdel", full)
-    assert engaged == 1
-    assert_bit_equal(got, port_loop(node, "kdel", full))
+    got = check_mesh(nodes, "kdel", full)
+    assert hits_of(got) == hits_of(many)
+    assert got["hits"]["total"] == many["hits"]["total"]
 
 
 def test_mesh_copies_on_other_devices_are_charged():

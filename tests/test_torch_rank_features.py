@@ -344,7 +344,10 @@ def test_feature_columns_are_charged_doc_values(tmp_path):
         nd = dev.n_docs_padded
         by_class = dev.hbm_bytes_by_class()
         assert by_class["doc_values"] == len(seg.numerics) * nd * (4 + 1)
-        assert len(seg.numerics) == 4
+        # the four feature columns and the written docs' _seq_no,
+        # _primary_term and _version
+        assert len(seg.numerics) == 4 + 3
+        assert {"_seq_no", "_primary_term", "_version"} <= set(seg.numerics)
         br = node.breaker_service.get_breaker(CircuitBreaker.HBM)
         assert br.used == dev.hbm_bytes() == \
             cache.hbm_stats()["total_bytes"]

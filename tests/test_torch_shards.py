@@ -39,7 +39,6 @@ from elasticsearch_tpu.index.service import IndexService as JaxIndexService
 from elasticsearch_tpu.node import Node as JaxNode
 from elasticsearch_tpu.search import searcher as jax_searcher
 from elasticsearch_tpu_torch.index.service import IndexService
-from elasticsearch_tpu_torch.index.mapper import DocumentMapper
 from elasticsearch_tpu_torch.node import Node
 from elasticsearch_tpu_torch.rest.api import RestController
 from elasticsearch_tpu_torch.search import searcher as port_searcher
@@ -210,7 +209,8 @@ def test_shard_for_equals_the_reference(shards, tmp_path):
         rng.bytes(int(rng.integers(1, 9))).hex() for _ in range(250)]
     ref = JaxIndexService("r", str(tmp_path), Settings.from_dict(
         {"index.number_of_shards": shards}))
-    port = IndexService("p", DocumentMapper(None), shards)
+    port = IndexService("p", str(tmp_path / "p"),
+                        {"index.number_of_shards": shards})
     assert [port.shard_for(i) for i in ids] == [ref.shard_for(i) for i in ids]
     assert [port.shard_for("x", r) for r in ids[:200]] == \
         [ref.shard_for("x", r) for r in ids[:200]]
@@ -310,14 +310,14 @@ def test_bulk_routing_from_the_action_line_and_the_url(tmp_path):
         jsvc = jax_node.indices_service.get("rt")
         for i in range(40):
             sh = svc.shard_for(str(i), f"r{i % 4}")
-            assert svc.shards[sh].get_source(str(i)) == {"t": f"w{i}"}
+            assert svc.shards[sh].get(str(i)).source == {"t": f"w{i}"}
             assert jsvc.shards[sh].get(str(i)).found
         st, _ = node.rest_controller.dispatch(
             "POST", "/rt/_bulk", {"refresh": "true", "routing": "zz"},
             json.dumps({"index": {"_id": "u"}}) + "\n{\"t\": \"w1\"}\n")
         assert st == 200
-        assert svc.get_doc("u", "zz") == {"t": "w1"}
-        assert svc.shards[svc.shard_for("u", "zz")].get_source("u")
+        assert svc.get_doc("u", "zz").source == {"t": "w1"}
+        assert svc.shards[svc.shard_for("u", "zz")].get("u").found
     finally:
         node.close()
         jax_node.close()
@@ -385,11 +385,11 @@ BODIES = {
 
 def check_rrf(jax_node, node, index, body, got, ref):
     """A fused answer of several shards, branch by branch: the kNN
-    branch (the port's per-shard cohort launches) equal to the
-    reference's dense executor, which serves a multi-shard branch; the
-    BM25 branch tie-aware; the port's answer the fusion of its own
-    branches; and where the BM25 branches agree in order, the fused
-    answers equal."""
+    branch equal to the reference's (the dense executor serves a
+    multi-shard branch in both packages: the port's cohort launch takes
+    none); the BM25 branch tie-aware; the port's answer the fusion of
+    its own branches; and where the BM25 branches agree in order, the
+    fused answers equal."""
     rrf = body["rank"]["rrf"]
     window = rrf["window_size"]
     sub = {"size": window, "_source": False}
@@ -400,9 +400,12 @@ def check_rrf(jax_node, node, index, body, got, ref):
     _, rk = ask(jax_node, f"/{index}/_search",
                 dict(sub, query={"knn": body["knn"]}))
     psvc = node.search_service
-    pk = psvc._knn_branch_hits(
+    assert psvc._knn_branch_hits(
         [(index, s) for s in psvc._shard_searchers(node.indices[index])],
-        body["knn"], window)
+        body["knn"], window) is None
+    _, pk = ask(node, f"/{index}/_search",
+                dict(sub, query={"knn": body["knn"]}))
+    pk = pk["hits"]["hits"]
     assert [h["_id"] for h in pk] == [h["_id"] for h in rk["hits"]["hits"]]
     np.testing.assert_allclose([h["_score"] for h in pk],
                                [h["_score"] for h in rk["hits"]["hits"]],
