@@ -366,8 +366,8 @@ Phases (any failure exits non-zero; no exception is swallowed):
               card, the gather and merge ms
  16. durability  documents, versions and the translog, on a node of
               its own on a temporary data path (removed at the end;
-              its bytes on disk printed). (a) "docs": 100,000 docs
-              (corpus.py's text, seed 0, a keyword, a long) in 20
+              its bytes on disk printed). (a) "docs": 50,000 docs
+              (corpus.py's text, seed 0, a keyword, a long) in 10
               _bulk requests of 5,000 over HTTP, then 5,000 single-doc
               requests (updates by doc and by script, deletes, new
               docs, a _create conflict, a CAS that succeeds and one
@@ -388,13 +388,44 @@ Phases (any failure exits non-zero; no exception is swallowed):
               replay's ops/s, the seconds to recover split into
               segment load, version map and upload to the card, the
               bytes on disk, each part's launches
- 17. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
+ 17. contexts index metadata and the search contexts, on the node of
+              phases 2-15 (run before phase 16): (a) four single-term
+              bodies of the bench's queries (each at most 10,000
+              hits) scrolled in pages of 1000, the pages disjoint,
+              every page's total the float64 oracle's, the page after
+              the last empty, the pages together bit-equal to one
+              dense-executor page of 10,000, one contribution launch a
+              page; a keyword-sorted scroll of "kw" (two segments)
+              against phase 11's numpy oracle; (b) a sliced scroll
+              (max 4): disjoint slices whose union is the unsliced
+              scroll, each hit in slice abs(murmur3(id)) % 4, the hash
+              column's build seconds over 2M ids; (c) a PIT on a
+              200,000-doc index: later writes unseen, later deletes
+              seen, none open after close; (f) a filtered alias, a
+              template on an auto-created index, a data stream of
+              20,000 docs rolled over at max_docs 10,000 answering as
+              its backing indices, a write alias; (d) 32 _count
+              bodies against the oracle totals, a size-0 aggs body
+              answered again from the request cache with no launch,
+              a miss after a write; (e) one _msearch of 32 fast-lane
+              and 32 plan bodies, each equal to the body alone, its
+              cohorts and wall beside the 64 sent one by one; (g)
+              _clone, _split and _shrink of 50,000 docs of 2 shards,
+              their totals and _mget equal the source's, the breaker
+              equal to the resident bytes after the targets go; (h)
+              _explain of 64 hits against their scores, a stored
+              script by id against the inline one; (i) "bench" closed
+              (the front drops it, the reference's 400) and opened
+              (registered again); (j) a scroll and a PIT outliving a
+              force-merge release the merged-away segments when
+              cleared; {"contexts": ...}
+ 18. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
               script, aggs, accounting, fulltext, fetch, fields, shards,
-              aggs_deferred, mesh, durability, filters, plan and
-              kernels JSON lines (each kernel's launches per phase,
+              aggs_deferred, mesh, durability, contexts, filters, plan
+              and kernels JSON lines (each kernel's launches per phase,
               launches_aggs_deferred for phase 14, launches_mesh for
-              15, launches_durability for 16), the phases' wall
-              seconds
+              15, launches_durability for 16, launches_contexts for
+              17), the phases' wall seconds
               ({"phase_seconds": ...}), the card's
               name and power limit, and the last line {"ok": true,
               "device": {...}}
@@ -1292,9 +1323,10 @@ def loadgen_pass(node, port, bodies, lanes, conns, reps=1, warmup=0):
                     for b, lane in zip(bodies, lanes) if lane == "plan"}
     planned = []
 
-    def recorded(expression, body, search_type=None):
+    def recorded(expression, body, search_type=None, scroll=None):
         planned.append(json.dumps(body.get("query"), sort_keys=True))
-        return type(service).search(service, expression, body, search_type)
+        return type(service).search(service, expression, body, search_type,
+                                    scroll)
 
     total = len(bodies) * reps
     h0, t0, s0 = node.http_stats(), dict(fp.timing), dict(fp.stats)
@@ -8114,7 +8146,7 @@ def phase_mesh(node, port, corpus, queries, carry, seed, iters, counters,
 
 
 # ---------------------------------------------------------------- phase 16
-DUR_DOCS = 100_000        # phase 16 (a): the docs written through _bulk
+DUR_DOCS = 50_000         # phase 16 (a): the docs written through _bulk
 DUR_BULK = 5_000          # Rally's default bulk_size
 DUR_OPS = 5_000           # single-doc requests after the bulk
 DUR_TRANSLOG_OPS = 10_000  # (b): the ops only the translog holds
@@ -8626,6 +8658,725 @@ def phase_durability(corpus_seg, queries, seed, counters, hbm_log):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: index metadata and the search contexts
+# ---------------------------------------------------------------------------
+
+CTX_PAGE = 1000       # a scroll page of phase 17
+CTX_PAGES = 10        # its pages a body
+CTX_SLICES = 4        # the sliced scroll's max
+PIT_DOCS = 200_000    # the PIT index of phase 17
+DS_DOCS = 10_000      # a data stream's docs a generation
+RESIZE_DOCS = 50_000  # the resize source
+
+
+def ctx_terms(corpus, queries, n=4):
+    """``n`` terms of the bench's queries (else of its vocabulary) with
+    the most docs at most ``CTX_PAGE * CTX_PAGES``: a single-term match
+    of each scrolls in at most 10 pages."""
+    df = corpus["df"]
+    cap = CTX_PAGE * CTX_PAGES
+    seen = sorted({int(t) for q in queries for t in q if df[t] <= cap},
+                  key=lambda t: (-int(df[t]), t))
+    rest = [int(t) for t in np.argsort(-np.where(df <= cap, df, 0),
+                                       kind="stable")[:4 * n]
+            if t not in seen]
+    return (seen + rest)[:n]
+
+
+def scroll_all(port, path, body, keep="1m"):
+    """Every page of a scroll of ``body`` on ``path`` (the first page,
+    then ``_search/scroll`` until an empty page): (pages, scroll id)."""
+    st, r = http(port, "POST", f"{path}?scroll={keep}", body)
+    check(st == 200 and "_scroll_id" in r, f"scroll {path}: {str(r)[:300]}")
+    pages = [r]
+    while pages[-1]["hits"]["hits"]:
+        st, r = http(port, "POST", "/_search/scroll",
+                     {"scroll_id": pages[0]["_scroll_id"], "scroll": keep})
+        check(st == 200 and r["_shards"]["failed"] == 0,
+              f"scroll page of {path}: {str(r)[:300]}")
+        pages.append(r)
+    return pages, pages[0]["_scroll_id"]
+
+
+def same_answer(a, b, what, front=False):
+    """Two answers of one body: totals, ids and order equal, scores
+    equal; with ``front`` (one side answered by the C++ front, which
+    prints a score as ``%.6g``) equal in that print."""
+    check(a["hits"].get("total") == b["hits"].get("total"),
+          f"{what}: totals {a['hits'].get('total')} vs "
+          f"{b['hits'].get('total')}")
+    check([h["_id"] for h in a["hits"]["hits"]]
+          == [h["_id"] for h in b["hits"]["hits"]], f"{what}: ids")
+    sa = [h["_score"] for h in a["hits"]["hits"]]
+    sb = [h["_score"] for h in b["hits"]["hits"]]
+    if front:
+        sa = ["%.6g" % x for x in sa]
+        sb = ["%.6g" % x for x in sb]
+    check(sa == sb, f"{what}: scores")
+
+
+def phase_contexts(node, port, corpus, queries, oracles, logs, cols,
+                   kw_seed, seed, counters, hbm_log):
+    """Index metadata and the search contexts on one H100 (module
+    docstring, phase 17)."""
+    import math
+
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import (LOGS_T0_MS, bench_cat,
+                                                build_corpus, dense_scores,
+                                                exact_topk, make_queries,
+                                                segment_from_corpus,
+                                                term_name)
+    from elasticsearch_tpu_torch.index.mapper import murmur3_hash
+    from elasticsearch_tpu_torch.search.queries import slice_column
+    t_phase = time.time()
+    out = {}
+    steps = {}
+    t_step = [time.time()]
+
+    def lap(name):
+        now = time.time()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+    import gc
+
+    from elasticsearch_tpu_torch.search.service import SearchService
+    # the earlier phases leave tens of millions of the harness's objects
+    # (corpora, oracles, bodies) on the heap: frozen out of the
+    # collector's scans, so the collections this phase's bulk bodies
+    # trigger walk what the server allocates (on an H100 host, phase 17
+    # alone took 39.2 s; after phases 2-15 unfrozen, 57.7 s, its write
+    # steps 2-3x slower)
+    gc.freeze()
+    gc_s = [0.0, 0]
+
+    def gc_timer(phase, info, t=[0.0]):
+        if phase == "start":
+            t[0] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - t[0]
+            gc_s[1] += 1
+    gc.callbacks.append(gc_timer)
+    rng = np.random.default_rng(seed)
+    svc = node.search_service
+    svc.REQUEST_CACHE_MAX_ENTRIES = SearchService.REQUEST_CACHE_MAX_ENTRIES
+    contrib = counters["gather_bm25_contrib"]
+    for c in counters.values():
+        c.launches = 0
+    bench_seg = node.indices["bench"].engine.segments
+    check(len(bench_seg) == 1, "bench holds one segment")
+    bench_seg = bench_seg[0]
+
+    # ---- (a) scroll: four single-term BM25 bodies, pages of 1000
+    terms = ctx_terms(corpus, queries)
+    bodies = [{"query": {"match": {"title": term_name(t)}},
+               "size": CTX_PAGE, "_source": False} for t in terms]
+    scroll = []
+    unsliced = None
+    for t, body in zip(terms, bodies):
+        total = exact_topk(corpus, [t], 1)[2]
+        l0 = contrib.launches
+        t0 = time.perf_counter()
+        pages, sid = scroll_all(port, "/bench/_search", body)
+        wall = time.perf_counter() - t0
+        page_launches = contrib.launches - l0
+        n_pages = math.ceil(total / CTX_PAGE)
+        check(len(pages) == n_pages + 1 and not pages[-1]["hits"]["hits"],
+              f"(a) {term_name(t)}: {len(pages)} pages for {total} hits")
+        for p in pages:
+            check(p["hits"]["total"] == {"value": total, "relation": "eq"},
+                  f"(a) {term_name(t)}: every page's total is the float64 "
+                  f"oracle's {total}: {p['hits']['total']}")
+        hits = [h for p in pages for h in p["hits"]["hits"]]
+        ids = [h["_id"] for h in hits]
+        check(len(ids) == len(set(ids)) == total,
+              f"(a) {term_name(t)}: the pages are disjoint and hold every "
+              f"match")
+        check(page_launches == len(pages),
+              f"(a) {term_name(t)}: one contribution launch a page of the "
+              f"one segment: {page_launches} for {len(pages)} pages")
+        # one dense-executor page of every match (min_score keeps the
+        # plan path away): bit-equal ids, order and float32 scores
+        st, whole = http(port, "POST", "/bench/_search",
+                         dict(body, size=CTX_PAGE * CTX_PAGES,
+                              min_score=0.0))
+        check(st == 200, f"(a) the dense page: {str(whole)[:200]}")
+        same_answer({"hits": {"total": whole["hits"]["total"],
+                              "hits": hits}}, whole,
+                    f"(a) {term_name(t)}: the pages against one dense page")
+        st, r = http(port, "DELETE", "/_search/scroll", {"scroll_id": sid})
+        check(st == 200 and r["num_freed"] == 1, f"(a) clear: {r}")
+        if unsliced is None:
+            unsliced = (body, set(ids))
+        scroll.append(dict(term=term_name(t), total=total,
+                           pages=len(pages), wall_s=wall,
+                           ms_a_page=wall * 1e3 / len(pages),
+                           launches=page_launches))
+    out["scroll"] = scroll
+    lap("a_scroll")
+    # the keyword-sorted scroll over "kw" (two segments), against the
+    # numpy oracle of phase 11 (KeywordOracle): ids, order, sort values
+    n = len(corpus["lens"])
+    ords, kterms = bench_cat(n)
+    ords = ords.copy()
+    ords[::13] = -1
+    orc = KeywordOracle(ords, kterms, kw_extra_docs(len(corpus["df"]),
+                                                   kw_seed))
+    want_ids, want_vals, want_total = orc.page("asc", CTX_PAGE * CTX_PAGES)
+    st, r = http(port, "POST", "/kw/_search?scroll=1m",
+                 {"sort": [{"cat": "asc"}], "size": CTX_PAGE,
+                  "_source": False})
+    check(st == 200, f"(a) kw scroll: {str(r)[:200]}")
+    pages = [r]
+    t0 = time.perf_counter()
+    while len(pages) < CTX_PAGES:
+        st, r = http(port, "POST", "/_search/scroll",
+                     {"scroll_id": pages[0]["_scroll_id"]})
+        check(st == 200, f"(a) kw page: {str(r)[:200]}")
+        pages.append(r)
+    kw_wall = time.perf_counter() - t0
+    hits = [h for p in pages for h in p["hits"]["hits"]]
+    check(all(p["hits"]["total"] == {"value": want_total, "relation": "eq"}
+              for p in pages), "(a) kw: every page's total")
+    check([h["_id"] for h in hits] == want_ids,
+          "(a) kw: ten pages equal the oracle's first 10,000 by (term, "
+          "segment, docid)")
+    check([h["sort"] for h in hits] == [v[:1] for v in want_vals],
+          "(a) kw: sort values")
+    http(port, "DELETE", "/_search/scroll",
+         {"scroll_id": pages[0]["_scroll_id"]})
+    out["kw_scroll"] = dict(pages=len(pages), ms_a_page=kw_wall * 1e3
+                            / (len(pages) - 1), total=want_total)
+    lap("a_kw_scroll")
+
+    # ---- (b) sliced scroll, max 4, of the first body
+    body, whole_ids = unsliced
+    if hasattr(bench_seg, "_slice_column"):
+        del bench_seg._slice_column
+    padded = node.device_cache.get(bench_seg).n_docs_padded
+    t0 = time.perf_counter()
+    slice_column(bench_seg, CTX_SLICES, padded)
+    build_s = time.perf_counter() - t0
+    seen = []
+    t0 = time.perf_counter()
+    for sid in range(CTX_SLICES):
+        pages, scroll_id = scroll_all(
+            port, "/bench/_search",
+            dict(body, slice={"id": sid, "max": CTX_SLICES}))
+        ids = [h["_id"] for p in pages for h in p["hits"]["hits"]]
+        check(all(abs(murmur3_hash(i)) % CTX_SLICES == sid for i in ids),
+              f"(b) every hit of slice {sid} hashes to it")
+        seen.extend(ids)
+        http(port, "DELETE", "/_search/scroll", {"scroll_id": scroll_id})
+    slice_wall = time.perf_counter() - t0
+    check(len(seen) == len(set(seen)) and set(seen) == whole_ids,
+          "(b) the slices are disjoint and their union is the unsliced "
+          "scroll's ids")
+    out["sliced"] = dict(max=CTX_SLICES, docs=len(seen),
+                         hash_build_s=build_s, hash_ids=bench_seg.n_docs,
+                         wall_s=slice_wall)
+    lap("b_sliced")
+
+    # ---- (c) a point in time on an index of the phase's own
+    pc = build_corpus(np.random.default_rng(seed + 1), n_docs=PIT_DOCS,
+                      vocab=20_000)
+    pq = make_queries(np.random.default_rng(seed + 2), pc["df"],
+                      n_docs=PIT_DOCS, n_queries=4)
+    node.create_index("pit17", {"properties": {"title": {"type": "text"}}})
+    node.indices["pit17"].engine.install_segments(
+        [segment_from_corpus(pc, name="pit17_0")])
+    st, r = http(port, "POST", "/pit17/_pit?keep_alive=1m")
+    check(st == 200, f"(c) open PIT: {r}")
+    pit = r["id"]
+    pbodies = [{"query": {"match": {"title": " ".join(
+        term_name(t) for t in q)}}, "size": 100, "_source": False,
+        "pit": {"id": pit}} for q in pq]
+
+    def pit_answers():
+        got = []
+        for b in pbodies:
+            st, r = http(port, "POST", "/_search", b)
+            check(st == 200 and r.get("pit_id") == pit,
+                  f"(c) PIT search: {str(r)[:300]}")
+            got.append(r)
+        return got
+    lap("c_setup")
+    t0 = time.perf_counter()
+    first = pit_answers()
+    pit_ms = (time.perf_counter() - t0) * 1e3 / len(pbodies)
+    for q, r in zip(pq, first):
+        check(r["hits"]["total"]["value"] == exact_topk(pc, q, 1)[2],
+              "(c) PIT totals against the float64 oracle")
+    # new documents that match every body, written and refreshed
+    words = sorted({term_name(t) for q in pq for t in q})
+    lines = "".join(json.dumps(x) + "\n" for i in range(500) for x in (
+        {"index": {"_id": f"late{i}"}}, {"title": " ".join(words)}))
+    st, r = http(port, "POST", "/pit17/_bulk?refresh=true", lines,
+                 ndjson=True)
+    check(st == 200 and not r["errors"], "(c) the late writes")
+    t0 = time.perf_counter()
+    later = pit_answers()
+    pit_warm_ms = (time.perf_counter() - t0) * 1e3 / len(pbodies)
+    for a, b in zip(later, first):
+        same_answer(a, b, "(c) the PIT after later writes")
+    st, r = http(port, "POST", "/pit17/_search",
+                 {k: v for k, v in pbodies[0].items() if k != "pit"})
+    check(st == 200 and r["hits"]["total"]["value"]
+          == first[0]["hits"]["total"]["value"] + 500,
+          "(c) outside the PIT the late docs are seen")
+    lap("c_late_writes")
+    # deletes refreshed after the PIT opened are seen (the reference's
+    # PIT reads the pinned segments' live masks)
+    gone = {r["hits"]["hits"][0]["_id"] for r in first}
+    for i in gone:
+        check(http(port, "DELETE", f"/pit17/_doc/{i}")[0] == 200,
+              f"(c) delete {i}")
+    check(http(port, "POST", "/pit17/_refresh")[0] == 200, "(c) refresh")
+    for q, a, b in zip(pq, pit_answers(), first):
+        kept = [h["_id"] for h in b["hits"]["hits"] if h["_id"] not in gone]
+        matched = dense_scores(pc, q)
+        lost = sum(1 for i in gone if matched[int(i)] > 0)
+        check([h["_id"] for h in a["hits"]["hits"]][:len(kept)] == kept
+              and a["hits"]["total"]["value"]
+              == b["hits"]["total"]["value"] - lost,
+              "(c) the PIT sees the deletes refreshed after it opened")
+    st, r = http(port, "DELETE", "/_pit", {"id": pit})
+    check(st == 200 and r["succeeded"] and svc.open_pit_count() == 0,
+          f"(c) close: {r}, open {svc.open_pit_count()}")
+    out["pit"] = dict(docs=PIT_DOCS, bodies=len(pbodies),
+                      first_ms_a_search=pit_ms,
+                      warm_ms_a_search=pit_warm_ms, deleted=len(gone))
+    lap("c_pit")
+
+    # ---- (f) metadata (before (d) writes to "logs")
+    meta = {}
+    text = term_name(int(terms[0]))
+    st, r = http(port, "POST", "/_aliases", {"actions": [{"add": {
+        "index": "logs", "alias": "logs_5xx",
+        "filter": {"range": {"status": {"gte": 500}}}}}]})
+    check(st == 200, f"(f) alias: {r}")
+    lo, hi = int(logs["group_start"][terms[0]]), \
+        int(logs["group_start"][terms[0] + 1])
+    hit = np.zeros(len(logs["lens"]), bool)
+    hit[logs["doc_ids"][lo:hi]] = True
+    want = int((hit & (cols["status"]["values"] >= 500)).sum())
+    q = {"query": {"match": {"title": text}}, "size": 100,
+         "_source": False}
+    st, a = http(port, "POST", "/logs_5xx/_search", q)
+    st2, b = http(port, "POST", "/logs/_search", {
+        "query": {"bool": {"must": [q["query"]], "filter": [
+            {"range": {"status": {"gte": 500}}}]}}, "size": 100,
+        "_source": False})
+    check(st == st2 == 200, f"(f) filtered alias: {str(a)[:200]}")
+    same_answer(a, b, "(f) the filtered alias answers the filtered body")
+    check(a["hits"]["total"]["value"] == want,
+          f"(f) the filtered alias's total against numpy: "
+          f"{a['hits']['total']} vs {want}")
+    meta["filtered_alias_total"] = want
+    lap("f_alias")
+    st, r = http(port, "PUT", "/_index_template/auto17", {
+        "index_patterns": ["auto17-*"], "priority": 3, "template": {
+            "settings": {"index.number_of_shards": 2},
+            "mappings": {"properties": {"level": {"type": "keyword"}}}}})
+    check(st == 200, f"(f) template: {r}")
+    st, r = http(port, "PUT", "/auto17-a/_doc/1?refresh=true",
+                 {"level": "warn", "msg": "disk"})
+    check(st == 201, f"(f) auto-create: {r}")
+    st, m = http(port, "GET", "/auto17-a/_mapping")
+    check(m["auto17-a"]["mappings"]["properties"]["level"]
+          == {"type": "keyword"}
+          and node.indices["auto17-a"].num_shards == 2,
+          f"(f) the template mapped the auto-created index: {m}")
+    lap("f_template")
+    # a data stream: DS_DOCS by _bulk create, a rollover at max_docs, DS_DOCS
+    st, r = http(port, "PUT", "/_index_template/ds17", {
+        "index_patterns": ["ds17-*"], "data_stream": {}, "priority": 3,
+        "template": {"mappings": {"properties": {
+            "title": {"type": "text"}, "n": {"type": "long"}}}}})
+    check(st == 200, f"(f) stream template: {r}")
+    check(http(port, "PUT", "/_data_stream/ds17-logs")[0] == 200,
+          "(f) create the data stream")
+    vocab = [term_name(t) for t in range(50)]
+    picks = rng.integers(0, 50, (2 * DS_DOCS, 4))
+    t0 = time.perf_counter()
+    for gen in range(2):
+        for lo in range(gen * DS_DOCS, (gen + 1) * DS_DOCS, 5000):
+            lines = "".join(
+                json.dumps({"create": {}}) + "\n" + json.dumps({
+                    "@timestamp": LOGS_T0_MS + i * 1000,
+                    "title": " ".join(vocab[j] for j in picks[i]),
+                    "n": i}) + "\n" for i in range(lo, lo + 5000))
+            st, r = http(port, "POST", "/ds17-logs/_bulk", lines,
+                         ndjson=True)
+            check(st == 200 and not r["errors"], f"(f) stream bulk: "
+                  f"{str(r)[:200]}")
+        check(http(port, "POST", "/ds17-logs/_refresh")[0] == 200,
+              "(f) stream refresh")
+        if gen == 0:
+            st, r = http(port, "POST", "/ds17-logs/_rollover",
+                         {"conditions": {"max_docs": DS_DOCS}})
+            check(st == 200 and r["rolled_over"], f"(f) rollover: {r}")
+    ds_bulk_s = time.perf_counter() - t0
+    lap("f_stream_bulk")
+    st, r = http(port, "GET", "/_data_stream/ds17-logs")
+    backing = [i["index_name"] for i in r["data_streams"][0]["indices"]]
+    check(len(backing) == 2 and r["data_streams"][0]["generation"] == 2,
+          f"(f) two backing indices: {r}")
+    word = vocab[7]
+    sbody = {"query": {"match": {"title": word}}, "sort": [{"n": "asc"}],
+             "size": 200, "_source": False}
+    st, a = http(port, "POST", "/ds17-logs/_search", sbody)
+    st2, b = http(port, "POST", f"/{','.join(backing)}/_search", sbody)
+    check(st == st2 == 200, f"(f) stream search: {str(a)[:200]}")
+    same_answer(a, b, "(f) the stream answers the union of its backing "
+                      "indices")
+    want = int((picks == 7).any(axis=1).sum())
+    check(a["hits"]["total"]["value"] == want
+          and [h["sort"][0] for h in a["hits"]["hits"]]
+          == np.nonzero((picks == 7).any(axis=1))[0][:200].tolist(),
+          f"(f) the stream's hits against numpy: {a['hits']['total']}")
+    lap("f_stream_checks")
+    # a write alias
+    for name in ("wa17-1", "wa17-2"):
+        check(http(port, "PUT", f"/{name}", {})[0] == 200, "(f) create")
+    check(http(port, "POST", "/_aliases", {"actions": [
+        {"add": {"index": "wa17-1", "alias": "wa17",
+                 "is_write_index": True}},
+        {"add": {"index": "wa17-2", "alias": "wa17"}}]})[0] == 200,
+        "(f) write alias")
+    st, r = http(port, "PUT", "/wa17/_doc/w1", {"v": 1})
+    check(st == 201, f"(f) write through the alias: {r}")
+    check(http(port, "GET", "/wa17-1/_doc/w1")[0] == 200
+          and http(port, "GET", "/wa17-2/_doc/w1")[0] == 404,
+          "(f) the write landed in the write index")
+    meta.update(stream_docs=2 * DS_DOCS, stream_bulk_s=ds_bulk_s,
+                stream_docs_a_s=2 * DS_DOCS / ds_bulk_s, backing=backing)
+    out["metadata"] = meta
+    lap("f_write_alias")
+
+    # ---- (d) _count and the request cache
+    t0 = time.perf_counter()
+    for i, q in enumerate(queries[:32]):
+        st, r = http(port, "POST", "/bench/_count", {"query": {"match": {
+            "title": " ".join(term_name(t) for t in q)}}})
+        check(st == 200 and r["count"] == oracles[i][2],
+              f"(d) _count {i}: {r} vs {oracles[i][2]}")
+    count_ms = (time.perf_counter() - t0) * 1e3 / 32
+    abody = {"size": 0, "query": {"match": {"title": text}},
+             "aggs": {"status": {"terms": {"field": "status"}}}}
+    s0 = dict(svc.request_cache_stats)
+    st, a = http(port, "POST", "/logs/_search", abody)
+    launches0 = {k: c.launches for k, c in counters.items()}
+    t0 = time.perf_counter()
+    st2, b = http(port, "POST", "/logs/_search", abody)
+    hit_ms = (time.perf_counter() - t0) * 1e3
+    s1 = dict(svc.request_cache_stats)
+    a.pop("took"), b.pop("took")
+    check(st == st2 == 200 and a == b
+          and s1["hit_count"] == s0["hit_count"] + 1
+          and s1["miss_count"] == s0["miss_count"] + 1
+          and {k: c.launches for k, c in counters.items()} == launches0,
+          f"(d) the repeat is a cache hit, equal, with no launch: {s0} "
+          f"{s1}")
+    st, r = http(port, "PUT", "/logs/_doc/late17?refresh=true",
+                 {"title": text, "status": 503, "bytes": 1,
+                  "@timestamp": LOGS_T0_MS})
+    check(st == 201, f"(d) write: {r}")
+    st, c3 = http(port, "POST", "/logs/_search", abody)
+    s2 = dict(svc.request_cache_stats)
+    check(s2["miss_count"] == s1["miss_count"] + 1
+          and c3["hits"]["total"]["value"]
+          == a["hits"]["total"]["value"] + 1,
+          f"(d) after a write and a refresh, a miss and the new count: "
+          f"{s2}")
+    out["count"] = dict(bodies=32, ms_a_count=count_ms, cache_hit_ms=hit_ms,
+                        cache=s2)
+    lap("d_count_cache")
+
+    # ---- (e) _msearch: 32 fast-lane and 32 plan-path bodies on "bench"
+    fp = node.fastpath
+    batcher = svc.plan_batcher
+    # the plan bodies share a cohort signature: one term each, of one
+    # block tier (search/batching.py ``_nb_tier``)
+    from elasticsearch_tpu_torch.search.batching import _nb_tier
+    by_tier = {}
+    for t in sorted({int(t) for q in queries for t in q}
+                    | set(range(len(corpus["df"])))):
+        if corpus["df"][t] > 0:
+            by_tier.setdefault(_nb_tier(int(corpus["nb"][t])), []).append(t)
+    tier_terms = max(by_tier.values(), key=len)[:32]
+    mbodies = ([plan_body([t], 100) for t in tier_terms]
+               + [match_body(q, 100) for q in queries[:32]])
+    nd = "".join(json.dumps({"index": "bench"}) + "\n" + json.dumps(b)
+                 + "\n" for b in mbodies)
+    d0 = dict(fp.serving_stats()["dispatch"])
+    p0 = batcher.stats()
+    l0 = {k: c.launches for k, c in counters.items()}
+    t0 = time.perf_counter()
+    st, r = http(port, "POST", "/_msearch", nd, ndjson=True)
+    ms_wall = time.perf_counter() - t0
+    check(st == 200 and len(r["responses"]) == 64,
+          f"(e) _msearch: {str(r)[:300]}")
+    p1 = batcher.stats()
+    d1 = fp.serving_stats()["dispatch"]
+    ms_launch = {k: c.launches - l0[k] for k, c in counters.items()}
+    t0 = time.perf_counter()
+    alone = [http(port, "POST", "/bench/_search", b) for b in mbodies]
+    seq_wall = time.perf_counter() - t0
+    for i, (got, (st, want)) in enumerate(zip(r["responses"], alone)):
+        check(st == 200 and "hits" in got, f"(e) body {i}: {str(got)[:200]}")
+        same_answer(got, want, f"(e) body {i} in the _msearch and alone",
+                    front=i >= len(tier_terms))
+    hist = {k: p1["batch_hist"].get(k, 0) - p0["batch_hist"].get(k, 0)
+            for k in p1["batch_hist"]}
+    hist = {k: v for k, v in hist.items() if v}
+    check(any(int(k) > 1 for k in hist),
+          f"(e) the plan bodies met in shared cohorts: {hist}")
+    out["msearch"] = dict(
+        bodies=64, wall_s=ms_wall, sequential_s=seq_wall,
+        plan_cohorts=p1["launches"] - p0["launches"], cohort_widths=hist,
+        fast_dispatch={k: v - d0.get(k, 0) for k, v in d1.items()
+                       if v - d0.get(k, 0)},
+        launches=ms_launch)
+    lap("e_msearch")
+
+    # ---- (g) resize: 50,000 docs of 2 shards, clone, split, shrink
+    check(http(port, "PUT", "/rs17", {
+        "settings": {"index": {"number_of_shards": 2}},
+        "mappings": {"properties": {"title": {"type": "text"},
+                                    "n": {"type": "long"}}}})[0] == 200,
+          "(g) source")
+    picks = rng.integers(0, 50, (RESIZE_DOCS, 5))
+    t0 = time.perf_counter()
+    for lo in range(0, RESIZE_DOCS, 10000):
+        lines = "".join(
+            json.dumps({"index": {"_id": f"r{i}"}}) + "\n" + json.dumps({
+                "title": " ".join(vocab[j] for j in picks[i]), "n": i})
+            + "\n" for i in range(lo, lo + 10000))
+        st, r = http(port, "POST", "/rs17/_bulk", lines, ndjson=True)
+        check(st == 200 and not r["errors"], "(g) source bulk")
+    check(http(port, "POST", "/rs17/_refresh")[0] == 200, "(g) refresh")
+    src_bulk_s = time.perf_counter() - t0
+    lap("g_source")
+    rbodies = ([{"query": {"match": {"title": vocab[j]}}, "size": 0}
+                for j in range(6)]
+               + [{"query": {"range": {"n": {"gte": 1000, "lt": 30000}}},
+                   "size": 0}, {"size": 0}])
+    ids = [f"r{i}" for i in rng.choice(RESIZE_DOCS, 100, replace=False)]
+
+    def snapshot(index):
+        tots = [http(port, "POST", f"/{index}/_search", b)[1]["hits"][
+            "total"] for b in rbodies]
+        st, mg = http(port, "POST", f"/{index}/_mget", {"ids": ids})
+        check(st == 200, f"(g) mget {index}")
+        return tots, [{k: d.get(k) for k in ("_id", "found", "_source",
+                                             "_version")}
+                      for d in mg["docs"]]
+    want = snapshot("rs17")
+    lap("g_source_snapshot")
+    resize = {}
+    for action, target, shards in (("_clone", "rs17c", 2),
+                                   ("_split", "rs17s", 4),
+                                   ("_shrink", "rs17k", 1)):
+        t0 = time.perf_counter()
+        st, r = http(port, "PUT", f"/rs17/{action}/{target}",
+                     {"settings": {"index.number_of_shards": shards}})
+        resize[action[1:]] = time.perf_counter() - t0
+        check(st == 200 and node.indices[target].num_shards == shards,
+              f"(g) {action}: {r}")
+        got = snapshot(target)
+        check(got == want, f"(g) {target}: totals of 8 bodies and the _mget "
+                           f"of 100 ids equal the source's")
+        lap(f"g_{action[1:]}")
+    check(http(port, "DELETE", "/rs17c,rs17s,rs17k")[0] == 200,
+          "(g) delete the targets")
+    lap("g_delete")
+    hbm_agrees(node, "contexts resize", hbm_log)
+    out["resize"] = dict(docs=RESIZE_DOCS, source_bulk_s=src_bulk_s,
+                         seconds=resize)
+    lap("g_accounting")
+
+    # ---- (h) _explain and a stored script
+    t0 = time.perf_counter()
+    n_explain = 0
+    for q in queries[:4]:
+        body = match_body(q, 16)
+        st, r = http(port, "POST", "/bench/_search", body)
+        check(st == 200, f"(h) search: {str(r)[:200]}")
+        for h in r["hits"]["hits"]:
+            st, e = http(port, "POST", f"/bench/_explain/{h['_id']}",
+                         {"query": body["query"]})
+            n_explain += 1
+            check(st == 200 and e["matched"] and abs(
+                e["explanation"]["value"] - h["_score"])
+                <= 1e-6 * abs(h["_score"]),
+                f"(h) explain {h['_id']}: {e} vs {h['_score']}")
+    explain_ms = (time.perf_counter() - t0) * 1e3 / n_explain
+    scores0 = dense_scores(corpus, queries[0])
+    miss = int(np.nonzero(scores0 == 0.0)[0][0])
+    st, e = http(port, "POST", f"/bench/_explain/{miss}",
+                 {"query": match_body(queries[0], 1)["query"]})
+    check(st == 200 and e["matched"] is False,
+          f"(h) a doc that does not match: {e}")
+    st, r = http(port, "PUT", "/_scripts/s1", {"script": {
+        "lang": "painless", "source": SCRIPT_BENCH}})
+    check(st == 200, f"(h) PUT _scripts: {r}")
+    for q in queries[:2]:
+        text_q = " ".join(term_name(t) for t in q)
+        st, a = http(port, "POST", "/hybrid/_search",
+                     script_body(text_q, SCRIPT_BENCH, 100))
+        by_id = script_body(text_q, SCRIPT_BENCH, 100)
+        by_id["query"]["script_score"]["script"] = {"id": "s1"}
+        st2, b = http(port, "POST", "/hybrid/_search", by_id)
+        check(st == st2 == 200, f"(h) script by id: {str(b)[:200]}")
+        same_answer(a, b, "(h) the stored script answers as the inline")
+    out["explain"] = dict(explains=n_explain, ms_an_explain=explain_ms)
+    lap("h_explain_scripts")
+
+    # ---- (i) closing the registered index drops it from the front
+    ibodies = [match_body(q, 100) for q in queries[:8]]
+    before = [http(port, "POST", "/bench/_search", b)[1] for b in ibodies]
+    h0 = node.http_stats()
+    t0 = time.perf_counter()
+    check(http(port, "POST", "/bench/_close")[0] == 200, "(i) close")
+    close_s = time.perf_counter() - t0
+    for b in ibodies:
+        st, r = http(port, "POST", "/bench/_search", b)
+        check(st == 400 and r["error"]["type"] == "index_closed_exception"
+              and r["error"]["reason"] == "closed index [bench]"
+              and r["error"].get("index") == "bench",
+              f"(i) a closed index's search: {st} {str(r)[:300]}")
+    f1 = front_since(node, h0)
+    check(f1["fast"] == 0, f"(i) the front served none: {f1}")
+    t0 = time.perf_counter()
+    check(http(port, "POST", "/bench/_open")[0] == 200, "(i) open")
+    open_s = time.perf_counter() - t0
+    h1 = node.http_stats()
+    for b, want in zip(ibodies, before):
+        st, r = http(port, "POST", "/bench/_search", b)
+        check(st == 200, f"(i) after _open: {str(r)[:200]}")
+        same_answer(r, want, "(i) after _open as before", front=True)
+    f2 = front_since(node, h1)
+    check(f2["fast"] == len(ibodies)
+          and node.http_stats()["front_registrations"]
+          > h0["front_registrations"],
+          f"(i) registered again: {f2}")
+    out["closed"] = dict(close_s=close_s, open_s=open_s, front_closed=f1,
+                         front_open=f2)
+    lap("i_closed")
+
+    # ---- (j) a scroll and a PIT outlive a merge; then cleared
+    st, r = http(port, "POST", "/pit17/_search?scroll=1m",
+                 {k: v for k, v in pbodies[1].items() if k != "pit"})
+    check(st == 200, f"(j) scroll: {str(r)[:200]}")
+    sid = r["_scroll_id"]
+    st, p = http(port, "POST", "/pit17/_pit?keep_alive=1m")
+    old = node.indices["pit17"].segment_names()
+    check(len(old) >= 2, f"(j) pit17 holds several segments: {old}")
+    lap("j_open")
+    check(http(port, "POST", "/pit17/_forcemerge")[0] == 200, "(j) merge")
+    lap("j_merge")
+    check(not any(node.device_cache.resident(s) for s in old),
+          "(j) the merge evicted the old segments")
+    st, r1 = http(port, "POST", "/_search/scroll", {"scroll_id": sid})
+    st2, r2 = http(port, "POST", "/_search", dict(pbodies[1],
+                                                  pit={"id": p["id"]}))
+    check(st == st2 == 200 and all(node.device_cache.resident(s)
+                                    for s in old),
+          "(j) the contexts read the merged-away segments again")
+    held = sum(node.device_cache.resident(s).hbm_bytes() for s in old)
+    http(port, "DELETE", "/_search/scroll", {"scroll_id": sid})
+    http(port, "DELETE", "/_pit", {"id": p["id"]})
+    check(not any(node.device_cache.resident(s) for s in old)
+          and svc.open_scroll_count() == 0 and svc.open_pit_count() == 0,
+          "(j) clearing both released the merged-away segments")
+    hbm_agrees(node, "contexts", hbm_log)
+    out["accounting"] = dict(retired_segments=len(old),
+                             retired_bytes_held=held)
+    lap("j_accounting")
+
+    launches = {k: c.launches for k, c in counters.items()}
+    check(all(v > 0 for v in launches.values()),
+          f"phase 17: both kernels launched: {launches}")
+    out["launches"] = launches
+    out["steps_s"] = steps
+    gc.callbacks.remove(gc_timer)
+    out["gc"] = dict(pause_s=gc_s[0], collections=gc_s[1],
+                     frozen=gc.get_freeze_count())
+    out["phase_s"] = time.time() - t_phase
+    log(f"[contexts] {json.dumps(out)[:3000]}")
+    return out
+
+
+def contexts_alone(docs=2_000_000, vocab=100_000, seed=0):
+    """Phase 17 by itself on the card, on a node holding what it reads of
+    the earlier phases' indices: "bench" (registered with the front),
+    "logs", phase 11's "kw" and "hybrid" with its ``feat`` column:
+
+        python3 -c 'import chip_smoke as c; c.contexts_alone()'
+    """
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import (LOGS_MAPPINGS, bench_cat,
+                                                bench_feat, build_corpus,
+                                                exact_topk, keyword_postings,
+                                                logs_columns, make_queries,
+                                                segment_from_corpus,
+                                                with_incident_terms)
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops import _build
+    from elasticsearch_tpu_torch.ops.bm25_contrib import gather_bm25_contrib
+    from elasticsearch_tpu_torch.ops.merge import merge_sorted_slots
+    _build.build_all()
+    rng = np.random.default_rng(seed)
+    corpus = build_corpus(rng, n_docs=docs, vocab=vocab)
+    queries = make_queries(rng, corpus["df"], n_docs=docs, n_queries=256)
+    node = Node(device="cuda", settings={"indices.breaker.hbm.limit": int(
+        0.75 * torch.cuda.mem_get_info()[1])})
+    try:
+        node.create_index("bench", {"properties": {"title":
+                                                   {"type": "text"}}})
+        node.indices["bench"].engine.install_segments(
+            [segment_from_corpus(corpus)])
+        port = node.start(0)
+        oracles = [exact_topk(corpus, q, 10) for q in queries[:32]]
+        logs = with_incident_terms(corpus, np.random.default_rng(seed + 3))
+        cols = logs_columns(docs, np.random.default_rng(seed + 5))
+        node.create_index("logs", LOGS_MAPPINGS)
+        node.indices["logs"].engine.install_segments(
+            [segment_from_corpus(logs, name="logs0", numerics=cols)])
+        ords, terms = bench_cat(docs)
+        ords = ords.copy()
+        ords[::13] = -1
+        node.create_index("kw", {"properties": {
+            "title": {"type": "text"}, "cat": {"type": "keyword"}}})
+        node.indices["kw"].engine.install_segments([segment_from_corpus(
+            corpus, name="kw0", keywords={"cat": {"ords": ords,
+                                                  "terms": terms}},
+            fields={"cat": keyword_postings(ords, terms)})])
+        extra = kw_extra_docs(vocab, seed + 14)
+        st, r = http(port, "POST", "/kw/_bulk", "".join(
+            json.dumps({"index": {"_id": f"x{i}"}}) + "\n" + json.dumps(d)
+            + "\n" for i, d in enumerate(extra)), ndjson=True)
+        check(st == 200 and not r["errors"], "kw bulk")
+        check(http(port, "POST", "/kw/_refresh")[0] == 200, "kw refresh")
+        node.create_index("hybrid", {"properties": {
+            "title": {"type": "text"}, "feat": {"type": "double"}}})
+        node.indices["hybrid"].engine.install_segments([segment_from_corpus(
+            corpus, name="hybrid0",
+            numerics={"feat": {"values": bench_feat(docs)}})])
+        counters = {"gather_bm25_contrib": gather_bm25_contrib,
+                    "merge_sorted_slots": merge_sorted_slots}
+        out = phase_contexts(node, port, corpus, queries, oracles, logs,
+                             cols, seed + 14, seed + 18, counters, [])
+        print(json.dumps({"contexts": out}))
+        return out
+    finally:
+        node.close()
+
+
 class PhaseClock:
     """The wall seconds of each phase, one lap a phase
     (``{"phase_seconds": ...}``)."""
@@ -8733,6 +9484,10 @@ def main(argv=None) -> int:
         f"(0.75 of the card's {torch.cuda.mem_get_info()[1]} B)")
     node = Node(device="cuda",
                 settings={"indices.breaker.hbm.limit": hbm_limit})
+    # phases 2-15 count each request's launches and time them: none is
+    # answered from the request cache (search/service.py); phase 17
+    # gives it its 256 entries back
+    node.search_service.REQUEST_CACHE_MAX_ENTRIES = 0
     hbm_log = []
     try:
         node.create_index("bench", {"properties": {"title":
@@ -8935,6 +9690,14 @@ def main(argv=None) -> int:
                           args.seed + 16, args.iters, counters, hbm_log)
         del carry
         clock.lap("15_mesh")
+
+        # ---- 17. index metadata and the search contexts (on this
+        # node's "bench", "logs", "kw" and "hybrid"; before phase 16,
+        # which opens a node of its own)
+        contexts = phase_contexts(node, port, corpus, queries, oracles,
+                                  logs, cols, args.seed + 14,
+                                  args.seed + 18, counters, hbm_log)
+        clock.lap("17_contexts")
     finally:
         node.close()
 
@@ -8943,7 +9706,7 @@ def main(argv=None) -> int:
                                   hbm_log)
     clock.lap("16_durability")
 
-    # ---- 17. report
+    # ---- 18. report
     meta = {
         "gather_bm25_contrib": dict(
             source="elasticsearch_tpu_torch/csrc/bm25_contrib.cu",
@@ -8981,6 +9744,7 @@ def main(argv=None) -> int:
             launches_aggs_deferred=deferred["launches"][name],
             launches_mesh=mesh["launches"][name],
             launches_durability=durability["launches"][name],
+            launches_contexts=contexts["launches"][name],
             dense_shape=(dense["contrib_dense_shape"]
                          if name == "gather_bm25_contrib" else None)))
     print(json.dumps({"scale": scale}))
@@ -9001,6 +9765,7 @@ def main(argv=None) -> int:
     print(json.dumps({"aggs_deferred": deferred}))
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"durability": durability}))
+    print(json.dumps({"contexts": contexts}))
     print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))

@@ -117,12 +117,13 @@ def error_type_of(exc: BaseException) -> str:
         type(exc).__name__)
 
 
-# -------------------------------------------------------------- the write path
+# ------------------------------------ the write path, metadata and contexts
 # (the reference's types, statuses, messages and ``to_xcontent`` bodies)
 
 
 class WriteException(Exception):
-    """A write-path failure with the reference's wire form: ``status``,
+    """A failure with the reference's wire form (the write path's, the
+    metadata's and the search contexts'): ``status``,
     ``error_type`` and ``to_xcontent()`` (type, reason, then the
     exception's metadata)."""
 
@@ -202,3 +203,41 @@ class ResourceAlreadyExistsException(WriteException):
     def __init__(self, resource: str):
         super().__init__(f"resource [{resource}] already exists",
                          resource=resource)
+
+
+class ResourceNotFoundException(WriteException):
+    """A named resource that does not exist: a template, a data stream,
+    a stored script, an alias a ``must_exist`` removal names (a 404)."""
+
+    status = 404
+    error_type = "resource_not_found_exception"
+
+
+class ClusterBlockException(WriteException):
+    """An index block refused the operation: a write to an index with
+    ``index.blocks.write`` or ``index.blocks.read_only`` set, or to a
+    closed index (a 403)."""
+
+    status = 403
+    error_type = "cluster_block_exception"
+
+
+class IndexClosedException(WriteException):
+    """A read of an explicitly named closed index (a 400)."""
+
+    status = 400
+    error_type = "index_closed_exception"
+
+    def __init__(self, index: str):
+        super().__init__(f"closed index [{index}]", index=index)
+
+
+class SearchContextMissingException(WriteException):
+    """A scroll or point-in-time id that names no open context: never
+    opened, cleared, or expired (a 404)."""
+
+    status = 404
+    error_type = "search_context_missing_exception"
+
+    def __init__(self, context_id):
+        super().__init__(f"No search context found for id [{context_id}]")

@@ -346,6 +346,24 @@ class Segment:
     def live_doc_count(self) -> int:
         return int(self.live.sum())
 
+    def ram_bytes(self) -> int:
+        """The host bytes of the live mask, the stored fields, the
+        postings, the numeric columns and the vectors (the reference's
+        sum: a rollover's ``max_size`` reads it)."""
+        total = (self.live.nbytes + self.stored.offsets.nbytes
+                 + len(self.stored.data))
+        for pf in self.postings.values():
+            total += (pf.block_docids.nbytes + pf.block_tfs.nbytes
+                      + pf.block_max_tf.nbytes + pf.block_min_len.nbytes
+                      + pf.field_lengths.nbytes + pf.doc_freq.nbytes
+                      + pf.term_block_start.nbytes
+                      + pf.term_block_count.nbytes)
+        for nv in self.numerics.values():
+            total += nv.values.nbytes + nv.all_values.nbytes
+        for vv in self.vectors.values():
+            total += vv.vectors.nbytes
+        return total
+
     # ------------------------------------------------------------------ I/O
     @staticmethod
     def _encode_strings(strings: List[str]) -> Tuple[np.ndarray, np.ndarray]:

@@ -23,6 +23,19 @@ statistics of every shard of the request for that request.
 A shard engine names its segments ``{index}[{shard}]_{n}``, so the
 node's device cache, which keys on segment names, holds every shard's
 segments apart.
+
+Index state, as the reference keeps it in the index's settings:
+``index.state: close`` closes an index (it keeps its files; a write is
+a 403 ``cluster_block_exception``, a document read or a search that
+names it a 400 ``index_closed_exception``, and a wildcard skips it),
+and ``index.blocks.write`` or ``index.blocks.read_only`` refuse writes
+with the 403. ``index.blocks.read`` and ``index.blocks.metadata`` are
+recorded and, as in the reference, refuse nothing.
+
+``IndicesService`` resolves an expression through the metadata's hooks
+(index/metadata.py sets them): ``name_resolver`` maps an alias or a
+data stream to its indices, ``abstraction_lister`` lists them for
+wildcards, and every ``delete_listeners`` entry hears a deleted index.
 """
 
 from __future__ import annotations
@@ -35,9 +48,10 @@ import shutil
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
-from elasticsearch_tpu_torch.common.errors import (IllegalArgumentException,
-                                                   IndexNotFoundException,
-                                                   InvalidIndexNameException)
+from elasticsearch_tpu_torch.common.errors import (
+    ClusterBlockException, IllegalArgumentException, IndexClosedException,
+    IndexNotFoundException, InvalidIndexNameException,
+    ResourceAlreadyExistsException)
 from elasticsearch_tpu_torch.common.settings import (flat_settings,
                                                      parse_int_setting)
 from elasticsearch_tpu_torch.index.engine import Engine, GetResult
@@ -135,6 +149,31 @@ class IndexService:
             node[parts[-1]] = self.settings[key]
         return root
 
+    # ------------------------------------------------------- state blocks
+    @property
+    def is_closed(self) -> bool:
+        return str(self.settings.get("index.state", "open")) == "close"
+
+    @property
+    def write_blocked(self) -> bool:
+        return self.is_closed or any(
+            str(self.settings.get(key, "false")).lower() == "true"
+            for key in ("index.blocks.write", "index.blocks.read_only"))
+
+    @property
+    def read_blocked(self) -> bool:
+        return str(self.settings.get("index.blocks.read",
+                                     "false")).lower() == "true"
+
+    def check_write_block(self) -> None:
+        if self.write_blocked:
+            reason = "closed" if self.is_closed else "read-only"
+            raise ClusterBlockException(
+                f"index [{self.name}] blocked: {reason}")
+
+    def segment_names(self) -> List[str]:
+        return [seg.name for shard in self.shards for seg in shard.segments]
+
     # ------------------------------------------------------------ routing
     def shard_for(self, doc_id: str, routing: Optional[str] = None) -> int:
         if self.num_shards == 1:
@@ -147,7 +186,9 @@ class IndexService:
                   routing: Optional[str] = None, **kwargs):
         """Index one document on its shard (index/engine.py
         ``Engine.index``'s keywords pass through); an id-less document
-        gets its id before it routes."""
+        gets its id before it routes; a write block or a closed index
+        refuses it (ClusterBlockException, a 403)."""
+        self.check_write_block()
         if doc_id is None:
             doc_id = Engine.new_id()
         if routing is None:
@@ -162,13 +203,16 @@ class IndexService:
 
     def delete_doc(self, doc_id: str, routing: Optional[str] = None,
                    **kwargs):
+        self.check_write_block()
         return self.shards[self.shard_for(doc_id, routing)].delete(
             doc_id, **kwargs)
 
     def get_doc(self, doc_id: str, routing: Optional[str] = None
                 ) -> GetResult:
         """The realtime GET on the shard the id (or ``routing``) routes
-        to."""
+        to; a closed index answers IndexClosedException."""
+        if self.is_closed:
+            raise IndexClosedException(self.name)
         return self.shards[self.shard_for(doc_id, routing)].get(doc_id)
 
     def refresh(self) -> None:
@@ -217,21 +261,34 @@ def read_meta(path: str) -> Optional[Dict[str, Any]]:
 
 # Elasticsearch's index-name rule as the port applies it to every name
 # a client gives: lower case, a letter or digit first, then letters,
-# digits, ``_``, ``.`` and ``-`` (so never ``.``, ``..`` or a separator)
-INDEX_NAME = re.compile(r"^[a-z0-9][a-z0-9_.\-]*$")
+# digits, ``_``, ``.`` and ``-`` (so never ``.``, ``..`` or a separator);
+# a data stream's backing index (``.ds-<stream>-<date>-<generation>``,
+# index/metadata.py) is the one name that starts with a dot
+INDEX_NAME = re.compile(r"^(\.ds-)?[a-z0-9][a-z0-9_.\-]*$")
 
 
 class IndicesService(dict):
     """The node's indices by name, under ``data_path``: every index found
     there is reopened (``open_all``); the reference's index-expression
-    resolution (aliases and data streams aside: the port has neither)."""
+    resolution, over aliases and data streams through the metadata's
+    hooks. ``on_retire`` hears the segments of a deleted index."""
 
-    def __init__(self, data_path: str):
+    def __init__(self, data_path: str, on_retire=None):
         super().__init__()
         self.data_path = data_path
+        self.on_retire = on_retire
+        # alias and data-stream resolution (index/metadata.py sets them):
+        # name -> its indices, or None when it is neither
+        self.name_resolver: Optional[Callable[[str],
+                                              Optional[List[str]]]] = None
+        # () -> {alias or data stream: [indices]}, for wildcards
+        self.abstraction_lister: Optional[Callable[[], Dict[str,
+                                                        List[str]]]] = None
+        # called with the name of each deleted index
+        self.delete_listeners: List[Callable[[str], None]] = []
         os.makedirs(data_path, exist_ok=True)
 
-    def open_all(self, on_retire=None) -> None:
+    def open_all(self) -> None:
         """Reopen every index directory under the data path (recovery of
         each shard engine: commit, version map, translog replay)."""
         for name in sorted(os.listdir(self.data_path)):
@@ -240,7 +297,25 @@ class IndicesService(dict):
             if meta is not None:
                 self[name] = IndexService(name, path, meta["settings"],
                                           meta["mappings"],
-                                          on_retire=on_retire)
+                                          on_retire=self.on_retire)
+
+    def create_index(self, name: str, settings=None,
+                     mappings=None) -> IndexService:
+        """A new index under the data path (the caller holds the node's
+        index lock)."""
+        if name in self:
+            raise ResourceAlreadyExistsException(f"index [{name}]")
+        svc = IndexService(name, self.index_path(name), settings, mappings,
+                           on_retire=self.on_retire)
+        self[name] = svc
+        return svc
+
+    def require(self, name: str) -> IndexService:
+        """The index ``name``, or IndexNotFoundException (a 404)."""
+        svc = self.get(name)
+        if svc is None:
+            raise IndexNotFoundException(name)
+        return svc
 
     def index_path(self, name: str) -> str:
         """The index's directory: a child of the data path, or an
@@ -257,37 +332,64 @@ class IndicesService(dict):
         return os.path.join(self.data_path, name)
 
     def delete_index(self, name: str) -> IndexService:
-        """Close the index, drop it and remove its files; returns it (the
-        caller evicts its segments from the device)."""
+        """Close the index, drop it and remove its files; its segments
+        are retired (``on_retire``: no device copy or registration keeps
+        them) and every delete listener hears it."""
         path = self.index_path(name)
-        svc = self.pop(name)
+        svc = self.pop(name, None)
+        if svc is None:
+            raise IndexNotFoundException(name)
         svc.close()
         shutil.rmtree(path, ignore_errors=True)
+        segments = [s for shard in svc.shards for s in shard.segments]
+        for seg in segments:
+            seg.retired = True
+        if self.on_retire is not None:
+            self.on_retire([s.name for s in segments])
+        for listener in self.delete_listeners:
+            listener(name)
         return svc
 
     def close(self) -> None:
         for svc in self.values():
             svc.close()
 
-    def resolve(self, expression: str) -> List[str]:
+    def resolve(self, expression: str,
+                allow_closed: bool = False) -> List[str]:
         """The names an index expression selects, in order and each
-        once: ``_all``, ``*`` and the empty expression select every
-        index (sorted); otherwise a comma list whose wildcard parts
-        (``*``, ``?``) expand over the indices (sorted, possibly to
-        none) and whose concrete parts must name an index
-        (IndexNotFoundException, a 404)."""
+        once: ``_all``, ``*`` and the empty expression select every open
+        index (sorted); otherwise a comma list whose parts are an alias
+        or a data stream (its indices), a wildcard (``*``, ``?``:
+        expanded over the open indices and over the aliases' and data
+        streams' members, sorted, possibly to none) or a concrete index
+        name (IndexNotFoundException, a 404, when none; a closed one is
+        an IndexClosedException, a 400). ``allow_closed`` (the admin
+        routes) keeps closed indices."""
         if expression in ("_all", "*", ""):
-            return sorted(self)
+            return sorted(n for n in self
+                          if allow_closed or not self[n].is_closed)
         out: List[str] = []
         for part in expression.split(","):
             part = part.strip()
             if not part:
                 continue
+            if self.name_resolver is not None and "*" not in part:
+                resolved = self.name_resolver(part)
+                if resolved is not None:
+                    out.extend(resolved)
+                    continue
             if "*" in part or "?" in part:
-                out.extend(sorted(n for n in self
-                                  if fnmatch.fnmatch(n, part)))
+                matched = {n for n in self if fnmatch.fnmatch(n, part)
+                           and (allow_closed or not self[n].is_closed)}
+                if self.abstraction_lister is not None:
+                    for name, members in self.abstraction_lister().items():
+                        if fnmatch.fnmatch(name, part):
+                            matched.update(members)
+                out.extend(sorted(matched))
             else:
                 if part not in self:
                     raise IndexNotFoundException(part)
+                if self[part].is_closed and not allow_closed:
+                    raise IndexClosedException(part)
                 out.append(part)
         return list(dict.fromkeys(out))

@@ -50,33 +50,48 @@ charged to the same ``hbm`` breaker as the node's own.
 index the node registers with it (``refresh_front``) in C++ and hands
 them to the fast path as arrays; every other request reaches
 ``RestController.dispatch`` through the front's fallback workers.
+
+The node's metadata (index/metadata.py ``MetadataService``: aliases,
+templates, data streams; ``_metadata.json``) and stored scripts
+(search/script.py ``StoredScripts``; ``_scripts.json``) live under the
+data path beside the indices. ``close_index`` and ``open_index`` set
+``index.state``: a closed index keeps its files, and its segments leave
+the device and the front. ``_msearch`` runs its sub-searches on
+``search_pool``, Elasticsearch's search pool: ``3 * cores // 2 + 1``
+threads (at most 32) and a queue of 1000, past which a sub-search
+answers its own 429.
 """
 
 from __future__ import annotations
 
+import os
 import shutil
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterable, Optional
 
 from elasticsearch_tpu_torch.common.errors import (
-    CircuitBreakingException, ResourceAlreadyExistsException)
+    CircuitBreakingException, EsRejectedExecutionException)
 from elasticsearch_tpu_torch.common.settings import flat_settings
 from elasticsearch_tpu_torch.device import (DeviceLike, resolve_device,
                                             resolve_devices)
 from elasticsearch_tpu_torch.utils.breaker import (CircuitBreaker,
                                                    build_breaker_service)
 from elasticsearch_tpu_torch.index.mapper import TextFieldType
+from elasticsearch_tpu_torch.index.metadata import MetadataService
 from elasticsearch_tpu_torch.index.pressure import IndexingPressure
-from elasticsearch_tpu_torch.index.service import (IndexService,
-                                                   IndicesService)
+from elasticsearch_tpu_torch.index.service import IndicesService
 from elasticsearch_tpu_torch.rest.api import RestController
 from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
 from elasticsearch_tpu_torch.search.fastpath import FastPathServer
+from elasticsearch_tpu_torch.search.script import StoredScripts
 from elasticsearch_tpu_torch.search.service import SearchService
 from elasticsearch_tpu_torch.telemetry.flightrecorder import FlightRecorder
 
-VERSION = "8.0.0-torch-slice18"
+VERSION = "8.0.0-torch-slice19"
+# the search pool's queue (Elasticsearch's thread_pool.search.queue_size)
+SEARCH_QUEUE_SIZE = 1000
 
 
 class Node:
@@ -99,14 +114,22 @@ class Node:
         self._own_data_path = data_path is None
         self.data_path = (tempfile.mkdtemp(prefix="estpu-node-")
                           if data_path is None else str(data_path))
-        self.indices = IndicesService(self.data_path)
+        self.indices = IndicesService(self.data_path,
+                                      on_retire=self._retire)
         self._indices_lock = threading.Lock()
+        self.metadata_service = MetadataService(self.indices, self.data_path)
+        self.stored_scripts = StoredScripts(self.data_path)
         # one device copy of each segment, shared by both paths
         self.device_cache = DeviceSegmentCache(self.device)
         self.device_cache.set_breaker(
             self.breaker_service.get_breaker(CircuitBreaker.HBM))
         self.search_service = SearchService(self.device_cache, self.indices,
-                                            self.devices)
+                                            self.devices,
+                                            self.stored_scripts)
+        self.search_pool = ThreadPoolExecutor(
+            max_workers=min(32, 3 * (os.cpu_count() or 1) // 2 + 1),
+            thread_name_prefix="search")
+        self._search_queue = threading.BoundedSemaphore(SEARCH_QUEUE_SIZE)
         # v1 cohorts split their rows over the device list (below two
         # devices a registration binds no replica mesh)
         self.fastpath = FastPathServer(
@@ -114,7 +137,7 @@ class Node:
             mesh_backend=self.search_service.mesh_executor)
         self.rest_controller = RestController(self)
         # every index under the data path, recovered
-        self.indices.open_all(on_retire=self._retire)
+        self.indices.open_all()
         self._http = None     # the NativeHttpFront, once started
         self._fastpath_started = False
         # the segment the front's registration could not admit (it alone
@@ -135,24 +158,57 @@ class Node:
         bounds is a SettingsException (400). A bare ``number_of_shards``
         outside ``index`` is not that setting and leaves one shard, as
         in the reference. ``index.similarity.default.{k1,b}`` set the
-        BM25 similarity."""
+        BM25 similarity. No template applies (``PUT /{index}`` and a
+        first write apply them: index/metadata.py)."""
         with self._indices_lock:
-            if name in self.indices:
-                raise ResourceAlreadyExistsException(f"index [{name}]")
-            svc = IndexService(name, self.indices.index_path(name),
-                               settings, mappings, on_retire=self._retire)
-            self.indices[name] = svc
-        return svc
+            return self.indices.create_index(name, settings, mappings)
+
+    def create_index_from_template(self, name: str, body=None):
+        """``PUT /{index}`` and a write's auto-create: the matching index
+        template, then ``body`` on top (index/metadata.py)."""
+        with self._indices_lock:
+            return self.metadata_service.create_index_from_template(name,
+                                                                    body)
 
     def delete_index(self, name: str) -> None:
         """Remove the index and its files; its segments leave the device
-        and the fast path."""
+        and the fast path, and its aliases and data streams forget it."""
         with self._indices_lock:
-            svc = self.indices.delete_index(name)
-        segments = [s for shard in svc.shards for s in shard.segments]
-        for seg in segments:
-            seg.retired = True
-        self._retire([s.name for s in segments])
+            self.indices.delete_index(name)
+
+    def close_index(self, name: str) -> None:
+        """Close an index (``index.state: close``, persisted): its device
+        copies and fast-path registrations go, and the front serves it
+        no more."""
+        svc = self.indices.require(name)
+        svc.update_settings({"index.state": "close"})
+        names = svc.segment_names()
+        self.fastpath.retire(names)
+        self.device_cache.evict(names)
+        self.search_service.mesh_executor.evict(names)
+        if self._http is not None:
+            self.refresh_front()
+
+    def open_index(self, name: str) -> None:
+        """Open a closed index again; a started node registers it with
+        the front again when it is the one to serve."""
+        self.indices.require(name).update_settings({"index.state": "open"})
+        if self._http is not None:
+            self.refresh_front()
+
+    def submit_search(self, fn, *args):
+        """``fn(*args)`` on the search pool: its future, or an
+        EsRejectedExecutionException (a 429) when the queue is full."""
+        if not self._search_queue.acquire(blocking=False):
+            raise EsRejectedExecutionException(
+                "rejected execution of a search: the search queue is full")
+
+        def run():
+            try:
+                return fn(*args)
+            finally:
+                self._search_queue.release()
+        return self.search_pool.submit(run)
 
     def _retire(self, names: Iterable[str]):
         """Segments a merge or an install retired: no registration of the
@@ -196,17 +252,17 @@ class Node:
 
     def refresh_front(self) -> None:
         """Point the C++ front at the index it should serve fast: of the
-        indices of one shard with one segment and exactly one text field
-        in it, the one with the most documents (the first on a tie);
-        none when there is none, or when that segment alone passes the
-        hbm limit. An index of several shards is never registered (the
-        reference registers ``len(idx.shards) == 1`` only): the search
-        service serves it.
+        open indices without a read block, of one shard with one segment
+        and exactly one text field in it, the one with the most
+        documents (the first on a tie); none when there is none, or when
+        that segment alone passes the hbm limit. An index of several
+        shards is never registered (the reference registers
+        ``len(idx.shards) == 1`` only): the search service serves it.
         The fast path's drain calls it about once a second and before
         each batch the front hands over."""
         best = None
         for name, svc in list(self.indices.items()):
-            if svc.num_shards != 1:
+            if svc.num_shards != 1 or svc.is_closed or svc.read_blocked:
                 continue
             segs = svc.engine.segments
             if len(segs) != 1:
@@ -254,5 +310,6 @@ class Node:
                 self.fastpath.stop()
                 self._fastpath_started = False
             self.indices.close()
+        self.search_pool.shutdown(wait=False, cancel_futures=True)
         if self._own_data_path:
             shutil.rmtree(self.data_path, ignore_errors=True)

@@ -17,6 +17,19 @@ reduced to the routes ported so far):
     POST /{index}/_forcemerge     ?max_num_segments=n
     POST|GET /{index}/_search     {"query": ..., "size": k, "from": n, ...}
     POST|GET /_search             every index
+    POST|GET /_search/scroll      DELETE /_search/scroll
+    POST /{index}/_pit            DELETE /_pit
+    GET|POST /{index}/_count      GET|POST /{index}/_explain/{id}
+    POST /_msearch, /{index}/_msearch
+    PUT|POST|GET|DELETE /_scripts/{id}
+    POST /_aliases                GET /_alias[/{name}], /{index}/_alias[/{name}]
+    PUT|POST|DELETE /{index}/_alias/{name}   (and /_aliases/{name})
+    PUT|POST|GET|DELETE /_index_template[/{name}], /_component_template[/{name}]
+    PUT|GET|DELETE /_data_stream[/{name}]
+    POST /{index}/_rollover[/{new_index}]    ?dry_run
+    PUT|POST /{index}/_shrink/{target}, _split/{target}, _clone/{target}
+    POST /{index}/_close          POST /{index}/_open
+    PUT  /{index}/_block/{block}  write, read, read_only, metadata
     GET  /_kernels                the launch tracker's table
     GET  /_nodes/stats            breakers, pressure, engine, flight recorder
     GET  /_flight_recorder        the launch/readback ring, filtered
@@ -28,8 +41,12 @@ statuses and error types: a write answers ``_index``, ``_id``,
 ``if_seq_no``/``if_primary_term`` (a 409 ``version_conflict_engine_
 exception`` when they do not match) and ``routing`` are read as the
 reference reads them, and the first write to a missing index creates
-it. A GET is realtime (index/engine.py); a search sees a write only
-after ``_refresh``. ``_update`` deep-merges ``doc`` (``noop`` when
+it, with the matching index template (index/metadata.py). A write to
+an alias or a data stream lands in its write index (``write_target``),
+as the document reads, deletes and updates do; a closed index refuses
+writes with a 403 ``cluster_block_exception`` and reads with a 400
+``index_closed_exception``. A GET is realtime (index/engine.py); a
+search sees a write only after ``_refresh``. ``_update`` deep-merges ``doc`` (``noop`` when
 nothing changes, unless ``detect_noop`` is false), indexes ``upsert``
 when the document is missing, or runs ``script`` over ``ctx._source``
 (reindex/worker.py; ``ctx.op`` ``none`` or ``delete``). A `_bulk` charges
@@ -51,11 +68,14 @@ every shard and count them in ``_shards``.
 
 `_search` takes the URL parameters ``q``, ``from``, ``size``,
 ``request_cache``, ``allow_partial_search_results`` (merged into the
-body as the reference merges them; the port keeps no request cache, so
-``request_cache: false`` is served and ``true`` is a typed 400) and
-``search_type``
-(``query_then_fetch`` or ``dfs_query_then_fetch``, else a 400); any
-other is a typed 400. A device admission the ``hbm`` breaker refuses
+body as the reference merges them), ``search_type``
+(``query_then_fetch`` or ``dfs_query_then_fetch``, else a 400) and
+``scroll`` (a keep-alive: the search opens a scroll,
+search/service.py); any other is a typed 400. A search, a `_count`,
+an `_explain` and each `_msearch` body on a filtered alias get its
+filter as a bool ``filter`` (``_apply_alias_filter``). `_msearch` runs
+its bodies concurrently on the node's search pool, each answering in
+its own slot (an error as ``{"error", "status"}``). A device admission the ``hbm`` breaker refuses
 answers 429 ``circuit_breaking_exception`` with ``bytes_wanted`` and
 ``bytes_limit``; a search whose failed shards the body does not allow
 (``allow_partial_search_results: false``) answers 503
@@ -88,12 +108,16 @@ scripts ride the plan launch; vector functions, statement scripts and
 ``rescore``; ``script_fields`` and the ``aggs`` tree (every
 aggregation type of the reference) are computed over the matched docs.
 A script that fails to compile or run answers 400 ``script_exception``;
-a stored-script reference (``{"id": ...}``) and the ``_scripts`` routes
-are a later slice (a typed 400). Top-level ``knn`` and ``rank.rrf``
+a script given by ``{"id": ...}`` reads the node's stored scripts
+(``PUT /_scripts/{id}``). Top-level ``knn`` and ``rank.rrf``
 (hybrid retrieval over ``dense_vector`` fields, which ``PUT /{index}``
 maps and ``_bulk`` indexes) go to the search service too: the fast
 grammar and the C++ front refuse both keys. What none serves is answered
 with a typed 400, never on another device.
+
+A body with ``pit`` or ``slice``, or a request with ``scroll``, never
+takes the fast path: the PIT's pinned segments and the cursor belong to
+the search service.
 
 Behind the native front (rest/native_http.py) the hot bodies of its one
 registered index, with ``_source: false``, never reach this module: C++
@@ -116,10 +140,12 @@ from typing import Any, Optional, Tuple
 
 from elasticsearch_tpu_torch.common.errors import (
     CircuitBreakingException, DocumentMissingException,
-    IllegalArgumentException, IndexNotFoundException, QueryShardException,
-    ResourceAlreadyExistsException, ScriptException,
-    SearchPhaseExecutionException, SettingsException, WriteException,
-    error_type_of)
+    EsRejectedExecutionException, IllegalArgumentException,
+    IndexNotFoundException, QueryShardException,
+    ResourceAlreadyExistsException, ResourceNotFoundException,
+    ScriptException, SearchPhaseExecutionException, SettingsException,
+    WriteException, error_type_of)
+from elasticsearch_tpu_torch.index.metadata import resize_index
 from elasticsearch_tpu_torch.index.mapper import (MapperParsingException,
                                                   TextFieldType)
 from elasticsearch_tpu_torch.index.service import INDEX_NAME
@@ -136,7 +162,7 @@ logger = logging.getLogger("elasticsearch_tpu_torch.rest")
 
 # the `_search` URL parameters this slice serves (``_merge_search_params``)
 _SEARCH_PARAMS = ("q", "from", "size", "request_cache",
-                  "allow_partial_search_results", "search_type")
+                  "allow_partial_search_results", "search_type", "scroll")
 
 
 def _merge_search_params(body, params: dict) -> dict:
@@ -146,8 +172,8 @@ def _merge_search_params(body, params: dict) -> dict:
     body has no query; URL ``from``/``size`` override the body's;
     ``request_cache`` and ``allow_partial_search_results`` must be
     ``true`` or ``false`` and then go into the body (where the body keys
-    the slice serves decide); ``search_type`` is the caller's. Any
-    other parameter (``scroll``, ``timeout``, ...) is a later slice: a
+    the slice serves decide); ``search_type`` and ``scroll`` are the
+    caller's. Any other parameter (``timeout``, ...) is a later slice: a
     typed 400."""
     extra = sorted(set(params) - set(_SEARCH_PARAMS))
     if extra:
@@ -202,6 +228,34 @@ def _xcontent(e: BaseException) -> Tuple[int, dict]:
     return getattr(e, "status", 400), err
 
 
+# the typed failures a route answers with their own status and body
+_TYPED = (CircuitBreakingException, IndexNotFoundException, WriteException,
+          SearchPhaseExecutionException, SliceUnsupported,
+          MapperParsingException, ParsingException, IllegalArgumentException,
+          QueryShardException, ScriptException, SettingsException)
+# the node-level routes of the metadata (``RestController._meta_handler``)
+_META_ROUTES = ("_aliases", "_alias", "_scripts", "_index_template",
+                "_component_template", "_data_stream")
+
+
+def _typed_error(e: BaseException) -> Tuple[int, dict]:
+    """(status, error object) of one of the ``_TYPED`` failures."""
+    if isinstance(e, SearchPhaseExecutionException):
+        return e.status, {"type": e.error_type, "reason": str(e),
+                          "phase": e.phase_name, "grouped": True,
+                          "failed_shards": e.shard_failures}
+    if isinstance(e, (CircuitBreakingException, IndexNotFoundException,
+                      WriteException)):
+        return _xcontent(e)
+    return 400, {"type": getattr(e, "error_type",
+                                 "mapper_parsing_exception"),
+                 "reason": str(e)}
+
+
+def _ack(_=None):
+    return 200, {"acknowledged": True}
+
+
 def _write_response(index: str, result, word: str) -> dict:
     return {"_index": index, "_id": result.doc_id,
             "_version": result.version, "result": word,
@@ -247,20 +301,10 @@ class RestController:
             # node's flight recorder
             with _flight.activate(self.node.flight):
                 return self._route(method, path, parts, params, body)
-        except (CircuitBreakingException, IndexNotFoundException,
-                WriteException) as e:
-            status, err = _xcontent(e)
+        except _TYPED as e:
+            status, err = _typed_error(e)
             return status, {"error": {"root_cause": [err], **err},
                             "status": status}
-        except SearchPhaseExecutionException as e:
-            return _error(e.status, e.error_type, str(e),
-                          phase=e.phase_name, grouped=True,
-                          failed_shards=e.shard_failures)
-        except (SliceUnsupported, MapperParsingException, ParsingException,
-                IllegalArgumentException, QueryShardException,
-                ScriptException, SettingsException) as e:
-            etype = getattr(e, "error_type", "mapper_parsing_exception")
-            return _error(400, etype, str(e))
         except Exception as e:  # the boundary: report, keep serving
             logger.exception("request failed: %s %s", method, path)
             return _error(500, "exception", f"{type(e).__name__}: {e}")
@@ -278,10 +322,23 @@ class RestController:
             return self._flight_recorder(params)
         elif parts == ["_search"] and method in ("POST", "GET"):
             return self._search("_all", params, body)
+        elif parts == ["_search", "scroll"]:
+            if method in ("POST", "GET"):
+                return self._scroll(params, body)
+            if method == "DELETE":
+                return self._clear_scroll(params, body)
+        elif parts == ["_msearch"] and method in ("POST", "GET"):
+            return self._msearch(None, params, body)
+        elif parts == ["_pit"] and method == "DELETE":
+            return self._close_pit(params, body)
         elif parts == ["_bulk"] and method in ("POST", "PUT"):
             return self._bulk(None, params, body)
         elif parts == ["_mget"] and method in ("POST", "GET"):
             return self._mget(None, params, body)
+        elif parts[0] in _META_ROUTES:
+            handler = self._meta_handler(method, parts, body)
+            if handler is not None:
+                return handler()
         elif parts[0].startswith("_") and parts[0] != "_all":
             pass
         elif n == 1:
@@ -299,6 +356,11 @@ class RestController:
                 ("_forcemerge", "POST"): self._forcemerge,
                 ("_search", "POST"): self._search,
                 ("_search", "GET"): self._search,
+                ("_count", "POST"): self._count,
+                ("_count", "GET"): self._count,
+                ("_msearch", "POST"): self._msearch,
+                ("_msearch", "GET"): self._msearch,
+                ("_pit", "POST"): self._open_pit,
                 ("_mget", "POST"): self._mget, ("_mget", "GET"): self._mget,
                 ("_mapping", "GET"): self._get_mapping,
                 ("_mapping", "PUT"): self._put_mapping,
@@ -306,6 +368,10 @@ class RestController:
                 ("_settings", "PUT"): self._put_settings,
                 ("_stats", "GET"): self._index_stats,
                 ("_doc", "POST"): self._index_auto_id,
+                ("_alias", "GET"): self._get_index_alias,
+                ("_rollover", "POST"): self._rollover,
+                ("_close", "POST"): self._close,
+                ("_open", "POST"): self._open,
             }.get((action, method))
             if handler is not None:
                 return handler(index, params, body)
@@ -320,12 +386,70 @@ class RestController:
                 ("_source", "GET"): self._get_source,
                 ("_doc", "DELETE"): self._delete_doc,
                 ("_update", "POST"): self._update_doc,
+                ("_explain", "GET"): self._explain,
+                ("_explain", "POST"): self._explain,
+                ("_alias", "PUT"): self._put_alias,
+                ("_alias", "POST"): self._put_alias,
+                ("_aliases", "PUT"): self._put_alias,
+                ("_alias", "DELETE"): self._delete_alias,
+                ("_aliases", "DELETE"): self._delete_alias,
+                ("_alias", "GET"): self._get_index_alias,
+                ("_block", "PUT"): self._add_block,
+                ("_rollover", "POST"): self._rollover,
+                ("_shrink", "PUT"): self._shrink,
+                ("_shrink", "POST"): self._shrink,
+                ("_split", "PUT"): self._split,
+                ("_split", "POST"): self._split,
+                ("_clone", "PUT"): self._clone,
+                ("_clone", "POST"): self._clone,
             }.get((action, method))
             if handler is not None:
                 return handler(index, doc_id, params, body)
         return _error(400, "unsupported_in_slice_exception",
                       f"{method} {path} is not a route of this slice of "
                       f"the port")
+
+    def _meta_handler(self, method: str, parts, body):
+        """The handler of a node-level metadata route (``_aliases``,
+        ``_alias``, ``_scripts``, ``_index_template``,
+        ``_component_template``, ``_data_stream``), or None."""
+        md = self.node.metadata_service
+        root, rest = parts[0], parts[1:]
+        name = rest[0] if len(rest) == 1 else None
+        if len(rest) > 1:
+            return None
+        if root == "_aliases" and method == "POST" and name is None:
+            return lambda: self._update_aliases(body)
+        if root == "_alias" and method == "GET":
+            return lambda: self._alias_answer(None, name)
+        if root == "_scripts" and name is not None:
+            return {"PUT": lambda: self._put_script(name, body),
+                    "POST": lambda: self._put_script(name, body),
+                    "GET": lambda: self._get_script(name),
+                    "DELETE": lambda: self._delete_script(name)}.get(method)
+        if root in ("_index_template", "_component_template"):
+            key = root[1:]
+            store = (md.index_templates if key == "index_template"
+                     else md.component_templates)
+            put = (md.put_index_template if key == "index_template"
+                   else md.put_component_template)
+            drop = (md.delete_index_template if key == "index_template"
+                    else md.delete_component_template)
+            if method == "GET":
+                return lambda: self._get_templates(key, store, name)
+            if name is not None and method in ("PUT", "POST"):
+                return lambda: _ack(put(name, body or {}))
+            if name is not None and method == "DELETE":
+                return lambda: _ack(drop(name))
+        if root == "_data_stream":
+            if method == "GET":
+                return lambda: (200, {"data_streams":
+                                      md.get_data_streams(name)})
+            if name is not None and method == "PUT":
+                return lambda: _ack(md.create_data_stream(name))
+            if name is not None and method == "DELETE":
+                return lambda: _ack(md.delete_data_stream(name))
+        return None
 
     # ----------------------------------------------------- observability
     def _kernels(self):
@@ -394,13 +518,9 @@ class RestController:
                      "aggregates": fl.aggregates()}
 
     # ------------------------------------------------------------- indices
-    def _svc(self, index: str):
-        svc = self.node.indices.get(index)
-        if svc is None:
-            raise IndexNotFoundException(index)
-        return svc
-
     def _create_index(self, index: str, params: dict, body):
+        """``PUT /{index}``: the matching index template, then the body
+        (index/metadata.py ``create_index_from_template``)."""
         if not INDEX_NAME.match(index):
             return _error(400, "invalid_index_name_exception",
                           f"Invalid index name [{index}]", index=index)
@@ -408,15 +528,15 @@ class RestController:
             return _error(400, "resource_already_exists_exception",
                           f"resource [index [{index}]] already exists",
                           resource=f"index [{index}]")
-        body = body or {}
-        self.node.create_index(index, body.get("mappings"),
-                               body.get("settings"))
+        self.node.create_index_from_template(index, body or {})
         return 200, {"acknowledged": True, "shards_acknowledged": True,
                      "index": index}
 
     def _ensure_index(self, index: str):
-        """The index a write goes to, created on first write as the
-        reference's auto-create does."""
+        """The index a write to ``index`` goes to: an alias's or data
+        stream's write index, else ``index``, created on first write
+        with its template as the reference's auto-create does."""
+        index = self.node.metadata_service.write_target(index)
         svc = self.node.indices.get(index)
         if svc is None:
             if not index or index.startswith(("_", "-")) \
@@ -425,26 +545,32 @@ class RestController:
                     f"Invalid index name [{index}], must be lowercase and "
                     f"not start with '_' or '-'")
             try:
-                svc = self.node.create_index(index)
+                svc = self.node.create_index_from_template(index)
             except ResourceAlreadyExistsException:   # created meanwhile
-                svc = self._svc(index)
+                svc = self.node.indices.require(index)
         return svc
+
+    def _target(self, index: str):
+        """(the index a document route on ``index`` reads or changes: an
+        alias's or data stream's write index; its service)."""
+        index = self.node.metadata_service.write_target(index)
+        return index, self.node.indices.require(index)
 
     def _get_index(self, expression: str, params: dict, body):
         return 200, {name: {
             "mappings": self.node.indices[name].mapper.to_mapping(),
             "settings": {"index": self.node.indices[name].nested_settings()}}
-            for name in self.node.indices.resolve(expression)}
+            for name in self.node.indices.resolve(expression, True)}
 
     def _delete_index(self, expression: str, params: dict, body):
-        for name in self.node.indices.resolve(expression):
+        for name in self.node.indices.resolve(expression, True):
             self.node.delete_index(name)
         return 200, {"acknowledged": True}
 
     def _get_mapping(self, expression: str, params: dict, body):
         return 200, {name: {"mappings":
                             self.node.indices[name].mapper.to_mapping()}
-                     for name in self.node.indices.resolve(expression)}
+                     for name in self.node.indices.resolve(expression, True)}
 
     def _put_mapping(self, expression: str, params: dict, body):
         for name in self.node.indices.resolve(expression):
@@ -454,7 +580,7 @@ class RestController:
     def _get_settings(self, expression: str, params: dict, body):
         return 200, {name: {"settings": {
             "index": self.node.indices[name].nested_settings()}}
-            for name in self.node.indices.resolve(expression)}
+            for name in self.node.indices.resolve(expression, True)}
 
     def _put_settings(self, expression: str, params: dict, body):
         body = body or {}
@@ -493,7 +619,8 @@ class RestController:
                                                "op_type": "create"}, body)
 
     def _get_doc(self, index: str, doc_id: str, params: dict, body=None):
-        result = self._svc(index).get_doc(doc_id, params.get("routing"))
+        index, svc = self._target(index)
+        result = svc.get_doc(doc_id, params.get("routing"))
         if not result.found:
             return 404, {"_index": index, "_id": doc_id, "found": False}
         return 200, {"_index": index, "_id": doc_id,
@@ -502,13 +629,14 @@ class RestController:
                      "_source": result.source}
 
     def _get_source(self, index: str, doc_id: str, params: dict, body):
-        result = self._svc(index).get_doc(doc_id, params.get("routing"))
+        index, svc = self._target(index)
+        result = svc.get_doc(doc_id, params.get("routing"))
         if not result.found:
             raise DocumentMissingException(index, doc_id)
         return 200, result.source
 
     def _delete_doc(self, index: str, doc_id: str, params: dict, body):
-        svc = self._svc(index)
+        index, svc = self._target(index)
         result = svc.delete_doc(doc_id, routing=params.get("routing"))
         if _refreshes(params, wait_for=False):
             svc.refresh()
@@ -520,7 +648,7 @@ class RestController:
         """The reference's get-merge-reindex: ``doc`` deep-merges,
         ``upsert`` indexes a missing document, ``script`` runs over a
         copy of ``_source`` (``ctx.op`` ``none`` or ``delete``)."""
-        svc = self._svc(index)
+        index, svc = self._target(index)
         body = body or {}
         routing = params.get("routing")
         current = svc.get_doc(doc_id, routing)
@@ -774,21 +902,38 @@ class RestController:
             return None
         return segments[0], field, text, filters
 
+    def _apply_alias_filter(self, expression: str, body) -> dict:
+        """The body with a filtered alias's filter as a bool ``filter``
+        beside its query (the reference's AliasFilter), when
+        ``expression`` is one filtered alias."""
+        filt = self.node.metadata_service.alias_filter(expression)
+        body = dict(body or {})
+        if filt is None:
+            return body
+        query = body.get("query")
+        body["query"] = {"bool": {"must": [query] if query else [],
+                                  "filter": [filt]}}
+        return body
+
     def _search(self, expression: str, params: dict, body):
         """The fast path when the expression names one index of one
         shard and it serves the body (``_fast_body`` and
         ``FastPathServer.fits``), else the search service over every
-        shard the expression selects (search/service.py)."""
-        names = self.node.indices.resolve(expression)
-        t0 = time.time()
+        shard the expression selects (search/service.py); a ``scroll``
+        (or a ``pit`` or ``slice`` in the body) always the latter."""
+        names = (self.node.indices.resolve(expression)
+                 if (body or {}).get("pit") is None else [])
         body = _merge_search_params(body, params)
+        scroll = params.get("scroll")
+        body = self._apply_alias_filter(expression, body)
+        t0 = time.time()
         search_type = params.get("search_type")
         size = int(body.get("size", 10))
         index = names[0] if len(names) == 1 else None
         svc = self.node.indices[index] if index is not None else None
         route = (self._fast_body(svc, body)
                  if svc is not None and search_type in SEARCH_TYPES
-                 else None)
+                 and scroll is None else None)
         if route is not None:
             seg, field, text, filter_texts = route
             pf = seg.postings[field]
@@ -807,8 +952,8 @@ class RestController:
             if not fp.fits(reg, term_ids, size):
                 route = None
         if route is None:
-            return 200, self.node.search_service.search(expression, body,
-                                                        search_type)
+            return 200, self.node.search_service.search(
+                expression, body, search_type, scroll)
         scores, docids, total = fp.search(reg, term_ids, size,
                                           tuple(sorted(filt)))
         want_source = body.get("_source", True)
@@ -828,3 +973,185 @@ class RestController:
                      "max_score": hits[0]["_score"] if hits else None,
                      "hits": hits},
         }
+
+    # ------------------------------------------------- search contexts
+    def _count(self, expression: str, params: dict, body):
+        body = self._apply_alias_filter(expression, body)
+        return 200, self.node.search_service.count(expression, body)
+
+    def _explain(self, index: str, doc_id: str, params: dict, body):
+        body = body or {}
+        if "q" in params and "query" not in body:
+            body = _merge_search_params(body, {"q": params["q"]})
+        body = self._apply_alias_filter(index, body)
+        return 200, self.node.search_service.explain(index, doc_id, body)
+
+    def _scroll(self, params: dict, body):
+        body = body or {}
+        scroll_id = body.get("scroll_id") or params.get("scroll_id")
+        keep = body.get("scroll") or params.get("scroll")
+        return 200, self.node.search_service.scroll(scroll_id, keep)
+
+    def _clear_scroll(self, params: dict, body):
+        ids = (body or {}).get("scroll_id", ["_all"])
+        if isinstance(ids, str):
+            ids = [ids]
+        freed = self.node.search_service.clear_scroll(ids)
+        return 200, {"succeeded": True, "num_freed": freed}
+
+    def _open_pit(self, index: str, params: dict, body):
+        pit_id = self.node.search_service.open_pit(
+            index, params.get("keep_alive", "1m"))
+        return 200, {"id": pit_id}
+
+    def _close_pit(self, params: dict, body):
+        pit_id = (body or {}).get("id")
+        if not pit_id:
+            raise IllegalArgumentException("close PIT requires [id]")
+        ok = self.node.search_service.close_pit(pit_id)
+        return (200 if ok else 404), {"succeeded": ok,
+                                      "num_freed": 1 if ok else 0}
+
+    def _msearch(self, index: Optional[str], params: dict, body):
+        """NDJSON header/body pairs; each body is a `_search` of its
+        header's ``index`` (else the URL's, else ``_all``), its alias
+        filter applied, run concurrently on the node's search pool (so
+        concurrent bodies meet in shared cohorts). A typed failure
+        answers in its own slot; a full search queue rejects only the
+        bodies past it (429)."""
+        if isinstance(body, (bytes, str)):
+            text = body.decode() if isinstance(body, bytes) else body
+            lines = [json.loads(ln) for ln in text.splitlines()
+                     if ln.strip()]
+        else:
+            lines = body or []
+        searches = []
+        i = 0
+        while i + 1 < len(lines) or (i < len(lines) and index):
+            header = lines[i]
+            target = header.get("index", index) or "_all"
+            searches.append((target, lines[i + 1] if i + 1 < len(lines)
+                             else {}))
+            i += 2
+
+        def one(target, search_body):
+            with _flight.activate(self.node.flight):
+                try:
+                    return self._search(target, {}, search_body)[1]
+                except _TYPED as e:
+                    status, err = _typed_error(e)
+                    return {"error": err, "status": status}
+
+        if len(searches) <= 1:
+            return 200, {"responses": [one(t, b) for t, b in searches]}
+        slots = []
+        for t, b in searches:
+            try:
+                slots.append(self.node.submit_search(one, t, b))
+            except EsRejectedExecutionException as e:
+                slots.append({"error": {"type": e.error_type,
+                                        "reason": str(e)}, "status": 429})
+        return 200, {"responses": [f.result() if hasattr(f, "result")
+                                   else f for f in slots]}
+
+    # ------------------------------------------------------ stored scripts
+    def _put_script(self, script_id: str, body):
+        self.node.stored_scripts.put(script_id, (body or {}).get("script",
+                                                                  {}))
+        return 200, {"acknowledged": True}
+
+    def _get_script(self, script_id: str):
+        script = self.node.stored_scripts.get(script_id)
+        if script is None:
+            return 404, {"_id": script_id, "found": False}
+        return 200, {"_id": script_id, "found": True, "script": script}
+
+    def _delete_script(self, script_id: str):
+        if not self.node.stored_scripts.delete(script_id):
+            raise ResourceNotFoundException(
+                f"stored script [{script_id}] does not exist")
+        return 200, {"acknowledged": True}
+
+    # ------------------------------------------ aliases, templates, streams
+    def _update_aliases(self, body):
+        self.node.metadata_service.update_aliases(
+            (body or {}).get("actions", []))
+        return 200, {"acknowledged": True}
+
+    def _put_alias(self, index: str, name: str, params: dict, body):
+        spec = {"index": index, "alias": name}
+        spec.update(body or {})
+        self.node.metadata_service.update_aliases([{"add": spec}])
+        return 200, {"acknowledged": True}
+
+    def _delete_alias(self, index: str, name: str, params: dict, body):
+        self.node.metadata_service.update_aliases(
+            [{"remove": {"index": index, "alias": name}}])
+        return 200, {"acknowledged": True}
+
+    def _get_index_alias(self, index: str, *args):
+        name = args[0] if len(args) == 3 else None
+        return self._alias_answer(index, name)
+
+    def _alias_answer(self, index: Optional[str], name: Optional[str]):
+        out = self.node.metadata_service.get_aliases(index, name)
+        if name and not out:
+            return 404, {"error": f"alias [{name}] missing", "status": 404}
+        return 200, out
+
+    def _get_templates(self, key: str, store: dict, name: Optional[str]):
+        if name and name not in store:
+            raise ResourceNotFoundException(
+                f"{key.replace('_', ' ')} matching [{name}] not found")
+        wanted = [name] if name else sorted(store)
+        return 200, {f"{key}s": [{"name": n, key: store[n]}
+                                 for n in wanted]}
+
+    def _rollover(self, index: str, *args):
+        new_index = args[0] if len(args) == 3 else None
+        params, body = args[-2], args[-1]
+        if new_index is not None:
+            body = dict(body or {})
+            body["new_index"] = new_index
+        return 200, self.node.metadata_service.rollover(
+            index, body, dry_run=params.get("dry_run") in ("true", ""))
+
+    def _resize(self, index: str, target: str, body, mode: str):
+        resize_index(self.node.indices, index, target, body, mode)
+        return 200, {"acknowledged": True, "shards_acknowledged": True,
+                     "index": target}
+
+    def _shrink(self, index: str, target: str, params: dict, body):
+        return self._resize(index, target, body, "shrink")
+
+    def _split(self, index: str, target: str, params: dict, body):
+        return self._resize(index, target, body, "split")
+
+    def _clone(self, index: str, target: str, params: dict, body):
+        return self._resize(index, target, body, "clone")
+
+    # --------------------------------------------------------- index state
+    def _close(self, expression: str, params: dict, body):
+        for name in self.node.indices.resolve(expression, True):
+            self.node.close_index(name)
+        return 200, {"acknowledged": True, "shards_acknowledged": True}
+
+    def _open(self, expression: str, params: dict, body):
+        for name in self.node.indices.resolve(expression, True):
+            self.node.open_index(name)
+        return 200, {"acknowledged": True, "shards_acknowledged": True}
+
+    def _add_block(self, expression: str, block: str, params: dict, body):
+        """``index.blocks.{block}`` set and persisted on every index the
+        expression resolves (the reference's RestAddIndexBlockAction)."""
+        if block not in ("write", "read", "read_only", "metadata"):
+            raise IllegalArgumentException(f"invalid block [{block}]")
+        names = self.node.indices.resolve(expression)
+        for name in names:
+            self.node.indices[name].update_settings(
+                {f"index.blocks.{block}": True})
+        if self.node._http is not None:
+            self.node.refresh_front()
+        return 200, {"acknowledged": True, "shards_acknowledged": True,
+                     "indices": [{"name": n, "blocked": True}
+                                 for n in names]}

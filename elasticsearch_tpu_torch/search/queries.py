@@ -75,12 +75,21 @@ on the host (``_source_matches``); has_child, has_parent and parent_id
 against the shard in ``rewrite``. A distance_feature on a geo_point is
 a 400 (the reference fails on it). A name the reference does not know
 is a ``ParsingException``.
+
+A script given by ``{"id": ...}`` resolves through the stored scripts
+of the node serving the request (search/script.py ``StoredScripts``),
+which its search service makes ambient for the request
+(``stored_scripts``): two nodes in one process never read each other's
+store. ``SliceQuery`` (a body's ``slice``) keeps the docs whose
+``abs(murmur3(_id)) % max`` is the slice's id.
 """
 
 from __future__ import annotations
 
 import base64
 import bisect
+import contextlib
+import contextvars
 import fnmatch
 import ipaddress
 import json
@@ -100,7 +109,8 @@ from elasticsearch_tpu_torch.index.mapper import (ConstantKeywordFieldType,
                                                   RankFeatureFieldType,
                                                   ShingleSubFieldType,
                                                   TextFieldType,
-                                                  _RangeFieldType)
+                                                  _RangeFieldType,
+                                                  murmur3_hash_array)
 from elasticsearch_tpu_torch.ops import bm25 as bm25_ops
 from elasticsearch_tpu_torch.ops import vector as vec_ops
 from elasticsearch_tpu_torch.ops.device import readback
@@ -1981,6 +1991,55 @@ class RankFeatureQuery(QueryBuilder):
         return torch.where(mask, scores, 0.0), mask
 
 
+class SliceQuery(QueryBuilder):
+    """A sliced scroll's partition (the reference's SliceBuilder): the
+    inner query's docs whose ``abs(murmur3(_id)) % slice_max`` equals
+    ``slice_id``. The hash column is built once a segment and
+    ``slice_max`` (``murmur3_hash_array`` over the id column, cached on
+    the segment, padded with -1) and the mask is one comparison on the
+    device."""
+
+    name = "_slice"
+
+    def __init__(self, slice_id: int, slice_max: int, inner: QueryBuilder):
+        super().__init__()
+        if not 0 <= slice_id < slice_max:
+            raise ParsingException(
+                f"slice id [{slice_id}] must be in [0, {slice_max})")
+        self.slice_id = slice_id
+        self.slice_max = slice_max
+        self.inner = inner
+
+    def do_execute(self, ctx):
+        scores, mask = self.inner.execute(ctx)
+        col = torch.from_numpy(slice_column(
+            ctx.segment, self.slice_max, ctx.n_docs_padded)).to(mask.device)
+        mask = mask & (col == self.slice_id)
+        return torch.where(mask, scores, 0.0), mask
+
+    def rewrite(self, searcher):
+        inner = self.inner.rewrite(searcher)
+        if inner is self.inner:
+            return self
+        q = SliceQuery(self.slice_id, self.slice_max, inner)
+        q.boost = self.boost
+        return q
+
+
+def slice_column(segment, slice_max: int, n_padded: int) -> np.ndarray:
+    """``abs(murmur3(_id)) % slice_max`` of each doc of ``segment`` as
+    int32 [n_padded] (-1 past its docs), cached on the segment for the
+    last ``slice_max`` asked."""
+    cached = getattr(segment, "_slice_column", None)
+    if cached is None or cached[0] != slice_max or len(cached[1]) < n_padded:
+        h = np.abs(murmur3_hash_array(segment.stored.ids).astype(np.int64))
+        col = np.full(n_padded, -1, np.int32)
+        col[: segment.n_docs] = h % slice_max
+        cached = (slice_max, col)
+        segment._slice_column = cached
+    return cached[1][:n_padded]
+
+
 class TextExpansionQuery(QueryBuilder):
     """Learned-sparse retrieval over a rank_features field: a doc scores
     the sum over the query's tokens of the token's weight x the doc's
@@ -2428,15 +2487,39 @@ def _parse_knn(spec):
                     k=spec.get("k"))
 
 
+# the stored scripts of the node serving the current request (a
+# StoredScripts, or None outside a request)
+_STORED_SCRIPTS: contextvars.ContextVar = contextvars.ContextVar(
+    "stored_scripts", default=None)
+
+
+@contextlib.contextmanager
+def stored_scripts(store):
+    """Make ``store`` the stored scripts ``{"id": ...}`` references
+    resolve through, for the code run inside (one request)."""
+    token = _STORED_SCRIPTS.set(store)
+    try:
+        yield
+    finally:
+        _STORED_SCRIPTS.reset(token)
+
+
 def resolve_script_source(script):
-    """(source, params) of an inline script; a stored-script reference
-    (``{"id": ...}``) is a later slice of the port."""
+    """(source, params) of an inline or a stored (``{"id": ...}``)
+    script; a stored one is read from the request's node
+    (``stored_scripts``)."""
     if not isinstance(script, dict):
         return str(script), {}
     if "id" in script and "source" not in script:
-        raise SliceUnsupported(
-            f"stored script [{script['id']}]: stored scripts are a later "
-            f"slice of the port (send the script's source inline)")
+        store = _STORED_SCRIPTS.get()
+        if store is None:
+            raise ParsingException(
+                f"unable to resolve stored script [{script['id']}]")
+        stored = store.get(script["id"])
+        if stored is None:
+            raise ParsingException(
+                f"unable to find script [{script['id']}]")
+        return stored["source"], script.get("params", {})
     if "source" not in script:
         raise ParsingException(
             "script must specify either [source] or [id]")

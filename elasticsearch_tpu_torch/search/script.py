@@ -32,11 +32,18 @@ script runs the Painless interpreter (script/) per matched doc on the
 host, over at most ``SCRIPT_INTERP_MAX_DOCS`` docs: its score, mask and
 columns come back through the tracked readback funnel
 (ops/device.py ``readback``). Compilation is cached per source string.
+
+``StoredScripts`` is a node's ``PUT /_scripts/{id}`` store, kept in
+``_scripts.json`` under its data path (the reference's file, byte for
+byte); search/queries.py ``resolve_script_source`` reads the serving
+node's store for a script given by ``id``.
 """
 
 from __future__ import annotations
 
 import ast
+import json
+import os
 import re
 import threading
 from typing import Any, Callable, Dict, List, Optional
@@ -416,3 +423,44 @@ def _compile_painless_score(source: str):
 
     run.vectorized = False     # per-doc interpreter tier
     return run
+
+
+class StoredScripts:
+    """The node's stored scripts, ``{id: {"lang", "source"}}``,
+    persisted to ``_scripts.json`` under ``data_path`` on every change
+    (the reference's cluster-state ScriptMetadata)."""
+
+    def __init__(self, data_path: str):
+        self._path = os.path.join(data_path, "_scripts.json")
+        self._scripts: Dict[str, Dict[str, Any]] = {}
+        self._lock = threading.Lock()
+        if os.path.exists(self._path):
+            with open(self._path) as fh:
+                self._scripts = json.load(fh)
+
+    def _persist_locked(self) -> None:
+        tmp = self._path + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump(self._scripts, fh)
+        os.replace(tmp, self._path)
+
+    def put(self, script_id: str, script: Dict[str, Any]) -> None:
+        if not isinstance(script, dict) or "source" not in script:
+            raise ScriptException("stored script requires [script.source]")
+        with self._lock:
+            self._scripts[script_id] = {
+                "lang": script.get("lang", "painless"),
+                "source": script["source"]}
+            self._persist_locked()
+
+    def get(self, script_id: str) -> Optional[Dict[str, Any]]:
+        with self._lock:
+            return self._scripts.get(script_id)
+
+    def delete(self, script_id: str) -> bool:
+        with self._lock:
+            if script_id not in self._scripts:
+                return False
+            del self._scripts[script_id]
+            self._persist_locked()
+            return True

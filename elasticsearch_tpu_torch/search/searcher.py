@@ -149,6 +149,9 @@ class ShardSearcher:
         # set on a dfs_query_then_fetch copy whose ``stats`` span every
         # shard of the request: the key of those statistics
         self.dfs_key = None
+        # the engine epoch of ``segments`` (search/service.py sets it;
+        # the request cache files an answer under it)
+        self.epoch = -1
 
     def _contexts(self) -> List[SegmentContext]:
         return [SegmentContext(seg, self.cache.get(seg), self.mapper,
@@ -162,7 +165,8 @@ class ShardSearcher:
                     search_after: Optional[List[Any]] = None,
                     track_total_hits=True, allow_plan: bool = True,
                     cache_key: Optional[str] = None,
-                    collect_masks: bool = False) -> QueryResult:
+                    collect_masks: bool = False,
+                    after_key: Optional[Tuple] = None) -> QueryResult:
         """Exact top-``size`` (at most MAX_TOPK) and exact total.
         ``cache_key`` (the request's query JSON) lets repeats reuse their
         bound plans, which hold the uploaded selections' host arrays.
@@ -172,8 +176,12 @@ class ShardSearcher:
         exact, and when a segment pruned the total is a lower bound
         (``total_lower_bound``). ``allow_plan=False`` asks the dense
         executor for a query the plan path would take, as
-        ``collect_masks`` does (which also fills ``agg_masks``). The
-        query and post_filter are rewritten against this shard first
+        ``collect_masks`` does (which also fills ``agg_masks``), and as
+        a scroll's cursor ``after_key`` does: (key, segment, docid,
+        primary sort value) of the last doc a page emitted, the page
+        then holding the docs strictly after it in (key desc, segment
+        asc, docid asc) order (``_after_key_mask``). The query and
+        post_filter are rewritten against this shard first
         (``QueryBuilder.rewrite``)."""
         k = min(max(size, 1), MAX_TOPK)
         sort_spec = _parse_sort(sort)
@@ -190,7 +198,7 @@ class ShardSearcher:
             plan_after = float(search_after[0])
         plannable = (allow_plan and sort_spec is None and min_score is None
                      and (search_after is None or plan_after is not None)
-                     and not collect_masks)
+                     and after_key is None and not collect_masks)
         if plannable:
             with _prof.span("compile"):
                 plan = compile_plan(query, self, post_filter)
@@ -199,7 +207,8 @@ class ShardSearcher:
                                               plan_after, cache_key)
         return self._dense_query_phase(query, k, post_filter, min_score,
                                        sort_spec, search_after,
-                                       track_total_hits, collect_masks)
+                                       track_total_hits, collect_masks,
+                                       after_key)
 
     def _plan_query_phase(self, plan, k: int, track_total_hits,
                           after_score: Optional[float],
@@ -264,7 +273,8 @@ class ShardSearcher:
 
     def _dense_query_phase(self, query, k: int, post_filter, min_score,
                            sort_spec, search_after, track_total_hits,
-                           collect_masks: bool = False) -> QueryResult:
+                           collect_masks: bool = False,
+                           after_key: Optional[Tuple] = None) -> QueryResult:
         """The dense executor: per segment, dense (scores, mask) columns,
         the collector chain as mask algebra, the primary key's stable
         top-k, one readback of (keys, docids, scores, total, max); with
@@ -300,6 +310,9 @@ class ShardSearcher:
             if search_after is not None:
                 mask = mask & _search_after_mask(ctx, scores, sort_spec,
                                                  search_after)
+            if after_key is not None:
+                mask = mask & self._after_key_mask(ctx, seg_idx, key,
+                                                   sort_spec, after_key)
             with _prof.span("topk"):
                 vals, ids = masked_topk(key, mask,
                                         min(k, ctx.n_docs_padded))
@@ -323,6 +336,30 @@ class ShardSearcher:
         with _prof.span("merge"):
             docs = self._merge_dense(per_segment, k, sort_spec)
         return QueryResult(docs, total, max_score, agg_masks=agg_masks)
+
+    def _after_key_mask(self, ctx, seg_idx: int, key: torch.Tensor,
+                        sort_spec, after_key: Tuple) -> torch.Tensor:
+        """The docs of segment ``seg_idx`` strictly after a scroll's
+        cursor (key, segment, docid[, primary sort value]) in (key desc,
+        segment asc, docid asc) order: before the cursor's segment a key
+        below the cursor's, in it a lower key or an equal one at a
+        higher docid, after it a key at most the cursor's. A keyword
+        primary sort's keys are this segment's own ordinals, so the
+        cursor's term is ranked in the segment's term list
+        (``_keyword_after_masks``) instead."""
+        ck, cseg, cdoc = after_key[0], after_key[1], after_key[2]
+        if _primary_is_keyword(self.segments, sort_spec):
+            term = after_key[3] if len(after_key) > 3 else None
+            strictly, tied = _keyword_after_masks(
+                ctx, sort_spec[0].field, term, sort_spec[0].order)
+        else:
+            strictly, tied = key < ck, key == ck
+        if seg_idx < cseg:
+            return strictly
+        if seg_idx > cseg:
+            return strictly | tied
+        docids = torch.arange(ctx.n_docs_padded, device=key.device)
+        return strictly | (tied & (docids > cdoc))
 
     def _merge_dense(self, per_segment, k: int, sort_spec):
         """The per-segment winners merged by (-key, segment, docid), with

@@ -49,9 +49,51 @@ executor's match masks; the response carries ``aggregations``, on an
 empty index too), ``collapse``, ``terminate_after`` and ``suggest``
 (search/suggest.py, host only), ``version`` and ``seq_no_primary_term``
 (each hit's ``_version``, ``_seq_no`` and ``_primary_term`` from the
-documents' metadata columns, index/engine.py). Everything else
-(``stored_fields``, ``explain``, ``pit``, ``slice``, ``timeout``, ...) is
-a later slice and answers a typed 400.
+documents' metadata columns, index/engine.py), ``pit`` and ``slice``
+(below), and ``request_cache``. Everything else (``stored_fields``,
+``explain``, ``timeout``, ...) is a later slice and answers a typed 400.
+
+The search contexts (the reference's):
+
+- **Scroll.** ``search(..., scroll="1m")`` opens a ScrollContext over
+  the shard searchers of this request (their segment lists pinned) and
+  answers its first page with ``_scroll_id``; ``scroll(id)`` answers the
+  next ``size`` docs. Each shard keeps a cursor (key, segment, docid,
+  primary sort value) of the last doc a page emitted, keyed on the
+  shard's place in the searcher list (a failed shard keeps its cursor),
+  and its query phase masks the docs at or before it
+  (search/searcher.py ``_after_key_mask``). Every page runs on the
+  dense executor (``allow_plan=False``: a cursor taken on one executor
+  would re-emit or skip a boundary doc on the other), reports the first
+  page's total, carries no aggregations after the first, and may reach
+  past 10,000 docs. ``clear_scroll`` (``["_all"]`` clears every one)
+  and expiry (``_reap``, at each call) close a context.
+- **Sliced scroll.** ``slice: {"id", "max"}`` wraps the query in
+  search/queries.py ``SliceQuery``.
+- **Point in time.** ``open_pit(expression, keep_alive)`` pins the
+  shard searchers (their segment lists) of the indices it resolves; a
+  body with ``pit: {"id"}`` searches them (no index in the request:
+  ``[indices] cannot be used with point in time``) and answers
+  ``pit_id``. A pinned segment list shows no segment published after
+  the PIT opened, but a delete refreshed since flips the pinned
+  segment's live mask, so the PIT sees it, as the reference's does.
+- **Segments a context outlives.** A merge while a context is open
+  retires segments it still reads; its next page uploads them again
+  through the device cache (charged to the ``hbm`` breaker). When the
+  last context holding a retired segment closes or expires, its device
+  copy leaves the cache and the breaker (``_release``).
+- **Request cache.** A ``size: 0`` body (no scroll, no pit;
+  ``request_cache: false`` opts out) is answered from an LRU of 256
+  responses keyed on the index names, every shard's epoch (a refresh
+  that publishes a segment or applies a delete bumps it), each index's
+  ``index.creation_date``, the search type and the canonical body.
+  ``request_cache_stats`` counts hits and misses.
+- ``count`` is a size-0, exact-total search (so it meets the cache);
+  ``explain`` scores one doc with the query on the dense executor.
+
+Each request runs with the node's stored scripts ambient
+(search/queries.py ``stored_scripts``), so a script given by ``id``
+resolves in this node's store.
 
 ``collapse: {"field": f}`` keeps the first hit of each value of ``f``
 (its first doc value; a text field's dynamic ``.keyword``; docs without
@@ -120,15 +162,22 @@ import copy
 import functools
 import json
 import logging
+import threading
 import time
+import uuid
+from collections import OrderedDict
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.common.errors import (
-    IllegalArgumentException, SearchPhaseExecutionException, error_type_of)
+    IllegalArgumentException, SearchContextMissingException,
+    SearchPhaseExecutionException, error_type_of)
+from elasticsearch_tpu_torch.common.settings import parse_time_value
 from elasticsearch_tpu_torch.index.service import IndicesService
+from elasticsearch_tpu_torch.ops.device import readback
 from elasticsearch_tpu_torch.parallel.mesh_executor import MeshSearchBackend
 from elasticsearch_tpu_torch.search import profile as _prof
 from elasticsearch_tpu_torch.search.aggregations import compute_aggs
@@ -139,8 +188,9 @@ from elasticsearch_tpu_torch.search.context import (DeviceSegmentCache,
 from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
 from elasticsearch_tpu_torch.search.percolate import resolve_percolate_refs
 from elasticsearch_tpu_torch.search.queries import (MatchAllQuery,
-                                                    QueryBuilder,
-                                                    parse_query)
+                                                    QueryBuilder, SliceQuery,
+                                                    parse_query,
+                                                    stored_scripts)
 from elasticsearch_tpu_torch.search.searcher import (MAX_TOPK, DocAddress,
                                                      QueryResult,
                                                      ShardSearcher,
@@ -158,14 +208,14 @@ BODY_KEYS = {"query", "size", "from", "post_filter", "track_total_hits",
              "rescore", "aggs", "aggregations", "profile", "highlight",
              "docvalue_fields", "fields", "script_fields", "collapse",
              "terminate_after", "suggest", "allow_partial_search_results",
-             "version", "seq_no_primary_term"}
+             "version", "seq_no_primary_term", "pit", "slice"}
 # a body with any of these (truthy) asks more than the k nearest ids and
 # scores, so its kNN takes the dense executor, not the cohort launch
 _NOT_PURE_KNN = ("sort", "post_filter", "min_score", "search_after",
                  "track_total_hits", "rescore", "aggs", "aggregations",
                  "highlight", "fields", "suggest", "collapse",
                  "docvalue_fields", "script_fields", "terminate_after",
-                 "version", "seq_no_primary_term")
+                 "version", "seq_no_primary_term", "pit", "slice")
 _RESCORE_MODES = ("total", "multiply", "avg", "max", "min")
 
 
@@ -387,16 +437,49 @@ class _ShardProfiles:
         return {"shards": entries, "coordinator": coord}
 
 
+@dataclass
+class ScrollContext:
+    """An open scroll: the request's shard searchers (their segment lists
+    pinned), its body, and each shard's cursor (key, segment, docid,
+    primary sort value) by the shard's place in the list."""
+
+    scroll_id: str
+    index_names: List[str]
+    searchers: List[Tuple[str, ShardSearcher]]
+    body: Dict[str, Any]
+    keep_alive: float
+    expires_at: float
+    cursors: Dict[int, Tuple] = field(default_factory=dict)
+    # the first page's total, reported on every page
+    total_hits: int = 0
+
+
+@dataclass
+class PitContext:
+    """An open point in time: pinned shard searchers, no cursor."""
+
+    id: str
+    index_names: List[str]
+    searchers: List[Tuple[str, ShardSearcher]]
+    keep_alive: float
+    expires_at: float
+
+
 class SearchService:
     """Owns the node's PlanBatcher and KnnBatcher: every plan-path
     search and every batched kNN branch of the node launches through
     them. ``indices`` (index/service.py IndicesService) holds the
-    indices a search expression resolves over."""
+    indices a search expression resolves over; ``stored_scripts`` (the
+    node's search/script.py StoredScripts, or None) is where a script
+    given by ``id`` resolves."""
+
+    REQUEST_CACHE_MAX_ENTRIES = 256
 
     def __init__(self, cache: DeviceSegmentCache, indices: IndicesService,
-                 devices=None):
+                 devices=None, stored_scripts=None):
         self.cache = cache
         self.indices = indices
+        self.stored_scripts = stored_scripts
         self.plan_batcher = PlanBatcher()
         self.knn_batcher = KnnBatcher()
         # the mesh (parallel/mesh_executor.py) over the node's device
@@ -408,17 +491,56 @@ class SearchService:
         self.mesh_executor = MeshSearchBackend(
             devices if devices is not None else [cache.device], cache)
         self.plan_batcher.mesh = self.mesh_executor
+        self._scrolls: Dict[str, ScrollContext] = {}
+        self._pits: Dict[str, PitContext] = {}
+        self._lock = threading.Lock()
+        self._request_cache: "OrderedDict[tuple, Dict[str, Any]]" = \
+            OrderedDict()
+        self.request_cache_stats = {"hit_count": 0, "miss_count": 0}
 
+    # ------------------------------------------------------------- PIT
+    def open_pit(self, expression: str, keep_alive: str) -> str:
+        """Pin the shard searchers of the indices ``expression``
+        resolves; returns the PIT's id."""
+        names = self.indices.resolve(expression)
+        searchers = [(name, s) for name in names
+                     for s in self._shard_searchers(self.indices[name])]
+        ka = parse_time_value(keep_alive, "keep_alive")
+        pit = PitContext(uuid.uuid4().hex, names, searchers, ka,
+                         time.time() + ka)
+        with self._lock:
+            self._pits[pit.id] = pit
+        return pit.id
+
+    def close_pit(self, pit_id: str) -> bool:
+        with self._lock:
+            pit = self._pits.pop(pit_id, None)
+        if pit is not None:
+            self._release([pit])
+        return pit is not None
+
+    def open_pit_count(self) -> int:
+        with self._lock:
+            return len(self._pits)
+
+    # ---------------------------------------------------------- search
     def search(self, expression: str, body: Dict[str, Any],
-               search_type: Optional[str] = None) -> Dict[str, Any]:
+               search_type: Optional[str] = None,
+               scroll: Optional[str] = None) -> Dict[str, Any]:
         """``_search`` over every shard of the indices ``expression``
         selects (``IndicesService.resolve``), as ``search_type``
         (``query_then_fetch``, the default, or ``dfs_query_then_fetch``)
-        asks."""
+        asks; ``scroll`` (a keep-alive) opens a scroll context."""
+        with stored_scripts(self.stored_scripts):
+            return self._search_request(expression, body, search_type,
+                                        scroll)
+
+    def _search_request(self, expression: str, body: Dict[str, Any],
+                        search_type: Optional[str],
+                        scroll: Optional[str]) -> Dict[str, Any]:
         t0 = time.time()
-        if body.get("request_cache") is False:
-            # the port keeps no request cache: a body asking for none
-            # asks what it does (``true`` waits with the cache)
+        use_cache = body.get("request_cache")
+        if "request_cache" in body:
             body = {k: v for k, v in body.items() if k != "request_cache"}
         extra = sorted(set(body) - BODY_KEYS)
         if extra:
@@ -431,19 +553,224 @@ class SearchService:
         rank_spec = body.get("rank")
         if rank_spec is not None and not isinstance(rank_spec, dict):
             raise IllegalArgumentException("[rank] must be an object")
-        names = self.indices.resolve(expression)
+        pit_spec = body.get("pit")
+        cache_key = None
+        if pit_spec is not None:
+            if expression not in ("_all", "*", ""):
+                raise IllegalArgumentException(
+                    "[indices] cannot be used with point in time")
+            self._reap()
+            pit_id = (pit_spec or {}).get("id")
+            with self._lock:
+                pit = self._pits.get(pit_id)
+            if pit is None:
+                raise SearchContextMissingException(pit_id or "?")
+            if pit_spec.get("keep_alive"):
+                pit.keep_alive = parse_time_value(pit_spec["keep_alive"],
+                                                  "keep_alive")
+            pit.expires_at = time.time() + pit.keep_alive
+            names, searchers = pit.index_names, pit.searchers
+        else:
+            names = self.indices.resolve(expression)
+            if (scroll is None and use_cache is not False
+                    and int(body.get("size", DEFAULT_SIZE)) == 0):
+                cache_key = json.dumps(body, sort_keys=True, default=str)
+                epochs = tuple(engine.epoch for name in names
+                               for engine in self.indices[name].shards)
+                cached = self._cache_get((tuple(names), epochs,
+                                          self._cache_identity(names),
+                                          search_type, cache_key))
+                if cached is not None:
+                    cached["took"] = int((time.time() - t0) * 1000)
+                    return cached
+            searchers = [(name, s) for name in names
+                         for s in self._shard_searchers(self.indices[name])]
         body = dict(body)
         for key in ("query", "post_filter"):
             if body.get(key):
                 body[key] = resolve_percolate_refs(body[key], self.indices)
-        searchers = [(name, s) for name in names
-                     for s in self._shard_searchers(self.indices[name])]
         if search_type == "dfs_query_then_fetch" and len(searchers) > 1:
             searchers = _dfs_searchers(searchers)
+        scroll_ctx = None
+        if scroll is not None:
+            if rank_spec and rank_spec.get("rrf") is not None:
+                raise IllegalArgumentException(
+                    "[rank] cannot be used with [scroll]")
+            if body.get("knn") is not None:
+                body = _merge_knn_into_query(body)
+            keep_alive = parse_time_value(scroll, "scroll")
+            scroll_ctx = ScrollContext(uuid.uuid4().hex, names, searchers,
+                                       body, keep_alive,
+                                       time.time() + keep_alive)
+            with self._lock:
+                self._scrolls[scroll_ctx.scroll_id] = scroll_ctx
         profiles = (_ShardProfiles(self.cache, body) if body.get("profile")
                     else None)
-        response = self._search(searchers, body, profiles)
+        if scroll_ctx is not None:
+            response = self._execute(searchers, body, profiles, scroll_ctx)
+            response["_scroll_id"] = scroll_ctx.scroll_id
+        else:
+            response = self._search(searchers, body, profiles)
+        if pit_spec is not None:
+            response["pit_id"] = pit.id
+        response = {"took": int((time.time() - t0) * 1000), **response}
+        if cache_key is not None:
+            # filed under the epochs the searchers read, so a refresh
+            # between the probe and the read never files stale data
+            # under the fresh key
+            epochs = tuple(s.epoch for _, s in searchers)
+            self._cache_put((tuple(names), epochs,
+                             self._cache_identity(names), search_type,
+                             cache_key), response)
+        return response
+
+    # --------------------------------------------------- request cache
+    def _cache_identity(self, names: List[str]) -> tuple:
+        """Each index's creation date: a deleted and recreated index
+        restarts its epochs, and must never meet the old entries."""
+        return tuple(self.indices[n].settings.get("index.creation_date")
+                     if n in self.indices else None for n in names)
+
+    def _cache_get(self, key: tuple) -> Optional[Dict[str, Any]]:
+        with self._lock:
+            cached = self._request_cache.get(key)
+            if cached is None:
+                self.request_cache_stats["miss_count"] += 1
+                return None
+            self._request_cache.move_to_end(key)
+            self.request_cache_stats["hit_count"] += 1
+            return copy.deepcopy(cached)
+
+    def _cache_put(self, key: tuple, response: Dict[str, Any]) -> None:
+        with self._lock:
+            self._request_cache[key] = copy.deepcopy(response)
+            while len(self._request_cache) > self.REQUEST_CACHE_MAX_ENTRIES:
+                self._request_cache.popitem(last=False)
+
+    # ---------------------------------------------------------- scroll
+    def scroll(self, scroll_id: str,
+               scroll: Optional[str] = None) -> Dict[str, Any]:
+        """The next page of an open scroll (``scroll`` renews its
+        keep-alive)."""
+        t0 = time.time()
+        self._reap()
+        with self._lock:
+            ctx = self._scrolls.get(scroll_id)
+        if ctx is None:
+            raise SearchContextMissingException(scroll_id)
+        if scroll is not None:
+            ctx.keep_alive = parse_time_value(scroll, "scroll")
+        ctx.expires_at = time.time() + ctx.keep_alive
+        with stored_scripts(self.stored_scripts):
+            response = self._execute(ctx.searchers, ctx.body, None, ctx,
+                                     continuing=True)
+        response["_scroll_id"] = scroll_id
         return {"took": int((time.time() - t0) * 1000), **response}
+
+    def scan(self, expression: str, body: Dict[str, Any],
+             page: int = 1000):
+        """Every matching hit, paged by a scroll of ``page`` docs."""
+        body = dict(body or {})
+        body["size"] = page
+        r = self.search(expression, body, scroll="5m")
+        sid = r["_scroll_id"]
+        try:
+            while r["hits"]["hits"]:
+                yield from r["hits"]["hits"]
+                r = self.scroll(sid)
+        finally:
+            self.clear_scroll([sid])
+
+    def clear_scroll(self, scroll_ids: List[str]) -> int:
+        """Close the scrolls named (``["_all"]``: every one); returns how
+        many were open."""
+        with self._lock:
+            if scroll_ids == ["_all"]:
+                freed = list(self._scrolls.values())
+                self._scrolls.clear()
+            else:
+                freed = [c for c in (self._scrolls.pop(sid, None)
+                                     for sid in scroll_ids) if c is not None]
+        self._release(freed)
+        return len(freed)
+
+    def open_scroll_count(self) -> int:
+        with self._lock:
+            return len(self._scrolls)
+
+    def _reap(self) -> None:
+        """Close the scrolls and PITs whose keep-alive passed."""
+        now = time.time()
+        with self._lock:
+            gone = [self._scrolls.pop(sid) for sid, c in
+                    list(self._scrolls.items()) if c.expires_at < now]
+            gone += [self._pits.pop(pid) for pid, c in
+                     list(self._pits.items()) if c.expires_at < now]
+        self._release(gone)
+
+    def _release(self, contexts) -> None:
+        """The contexts closed: a retired segment (a merge or a delete
+        replaced it) that no open context still reads leaves the device
+        cache and the breaker."""
+        if not contexts:
+            return
+        with self._lock:
+            held = {seg.name for c in (list(self._scrolls.values())
+                                       + list(self._pits.values()))
+                    for _, s in c.searchers for seg in s.segments}
+        names = {seg.name for c in contexts for _, s in c.searchers
+                 for seg in s.segments if seg.retired} - held
+        if names:
+            self.cache.evict(names)
+            self.mesh_executor.evict(names)
+
+    # --------------------------------------------------- count, explain
+    def count(self, expression: str, body: Dict[str, Any]
+              ) -> Dict[str, Any]:
+        """``_count``: a size-0 search with an exact total."""
+        body = dict(body or {})
+        body["size"] = 0
+        body.pop("sort", None)
+        body["track_total_hits"] = True
+        response = self.search(expression, body)
+        return {"count": response["hits"]["total"]["value"],
+                "_shards": response["_shards"]}
+
+    def explain(self, expression: str, doc_id: str,
+                body: Dict[str, Any]) -> Dict[str, Any]:
+        """``_explain``: the query run on the dense executor over the
+        segment holding ``doc_id`` (the first index and shard that has
+        it live), and that doc's match and score."""
+        names = self.indices.resolve(expression)
+        with stored_scripts(self.stored_scripts):
+            query = (parse_query(body["query"]) if body.get("query")
+                     else MatchAllQuery())
+            for name in names:
+                for searcher in self._shard_searchers(self.indices[name]):
+                    q = query.rewrite(searcher)
+                    for seg_idx, seg in enumerate(searcher.segments):
+                        d = seg.docid_for(doc_id)
+                        if d < 0:
+                            continue
+                        scores, mask = q.execute(
+                            searcher._contexts()[seg_idx])
+                        m, sc = readback("search.service.explain",
+                                         mask[d:d + 1], scores[d:d + 1])
+                        matched = bool(m[0])
+                        return {"_index": name, "_id": doc_id,
+                                "matched": matched, "explanation": {
+                                    "value": float(sc[0]) if matched
+                                    else 0.0,
+                                    "description": (
+                                        "sum of BM25 term scores "
+                                        "(TPU dense kernel)" if matched
+                                        else "no matching term"),
+                                    "details": []}}
+        return {"_index": names[0] if names else expression, "_id": doc_id,
+                "matched": False,
+                "explanation": {"value": 0.0,
+                                "description": "document not found",
+                                "details": []}}
 
     def _search(self, searchers, body: Dict[str, Any],
                 profiles: Optional[_ShardProfiles]) -> Dict[str, Any]:
@@ -476,23 +803,30 @@ class SearchService:
         return response
 
     def _shard_searchers(self, svc) -> List[ShardSearcher]:
-        """One searcher a shard, each with the shard's own statistics."""
+        """One searcher a shard, each with the shard's own statistics and
+        the epoch of the segment list it reads (the request cache files
+        an answer under it)."""
         out = []
         for engine in svc.shards:
-            searcher = ShardSearcher(engine.segments, svc.mapper, self.cache,
+            snap = engine.acquire_searcher()
+            searcher = ShardSearcher(snap.segments, svc.mapper, self.cache,
                                      svc.k1, svc.b)
             searcher.batcher = self.plan_batcher
+            searcher.epoch = snap.epoch
             out.append(searcher)
         return out
 
     def _execute(self, searchers, body: Dict[str, Any],
-                 profiles: Optional[_ShardProfiles] = None
-                 ) -> Dict[str, Any]:
+                 profiles: Optional[_ShardProfiles] = None,
+                 scroll_ctx: Optional[ScrollContext] = None,
+                 continuing: bool = False) -> Dict[str, Any]:
         """The query phase on every shard (on the mesh when it takes the
         body: ``_mesh_query``), the merge, the fetch phase on the page's
         shards: the response without ``took``. ``knn`` has been merged
         into the query or served by the caller; ``rank`` is the
-        caller's."""
+        caller's. Under ``scroll_ctx`` the page is the next ``size``
+        docs after each shard's cursor (``continuing``: a page after the
+        first)."""
         track_total = body.get("track_total_hits", True)
         if not isinstance(track_total, int) or (
                 not isinstance(track_total, bool) and track_total < 0):
@@ -504,13 +838,17 @@ class SearchService:
         if size < 0 or from_ < 0:
             raise IllegalArgumentException(
                 "[size] and [from] must be non-negative")
-        if from_ + size > MAX_TOPK:
+        if from_ + size > MAX_TOPK and scroll_ctx is None:
             raise IllegalArgumentException(
                 f"Result window is too large, from + size must be less "
                 f"than or equal to: [{MAX_TOPK}]. Use the scroll API or "
                 f"search_after")
         query = (parse_query(body["query"]) if body.get("query")
                  else MatchAllQuery())
+        slice_spec = body.get("slice")
+        if slice_spec is not None:
+            query = SliceQuery(int(slice_spec.get("id", 0)),
+                               int(slice_spec.get("max", 1)), query)
         if searchers:
             # the coordinator's rewrite: doc-resolving queries (a
             # more_like_this like-doc) see every shard's segments
@@ -523,7 +861,7 @@ class SearchService:
         try:
             return self._execute_query(searchers, body, query, post_filter,
                                        nodes, track_total, size, from_,
-                                       profiles)
+                                       profiles, scroll_ctx, continuing)
         finally:
             for node in nodes:
                 if hasattr(node, "release"):
@@ -531,19 +869,26 @@ class SearchService:
 
     def _query_shards(self, searchers, body: Dict[str, Any], query,
                       post_filter, track_total, query_k: int,
-                      profiles: Optional[_ShardProfiles]):
+                      profiles: Optional[_ShardProfiles],
+                      scroll_ctx: Optional[ScrollContext] = None,
+                      continuing: bool = False):
         """The query phase on each shard in turn, behind the per-shard
         failure barrier (the reference's): a shard that raises becomes a
         ``_shards.failures`` entry and an empty result, unless every
         shard failed (the first failure is raised) or the body set
         ``allow_partial_search_results`` false (a
         SearchPhaseExecutionException). Returns the (index, searcher,
-        QueryResult) of every shard and the failures."""
+        QueryResult) of every shard and the failures. A scroll's pages
+        take the dense executor from each shard's cursor; a failed shard
+        keeps its cursor."""
         rescore = _rescore_specs(body)
         terminate_after = body.get("terminate_after")
         # repeats of the same query JSON reuse their bound plans
-        cache_key = json.dumps([body.get("query"), body.get("post_filter")],
-                               sort_keys=True, default=str)
+        cache_key = (json.dumps([body.get("query"), body.get("post_filter")],
+                                sort_keys=True, default=str)
+                     if scroll_ctx is None and body.get("slice") is None
+                     else None)
+        aggs = bool(body.get("aggs", body.get("aggregations")))
         results = []
         failures: List[Dict[str, Any]] = []
         first_failure: Optional[BaseException] = None
@@ -560,9 +905,13 @@ class SearchService:
                         min_score=body.get("min_score"),
                         sort=body.get("sort"),
                         search_after=body.get("search_after"),
-                        track_total_hits=track_total, cache_key=cache_key,
-                        collect_masks=bool(body.get(
-                            "aggs", body.get("aggregations"))))
+                        track_total_hits=(False if continuing
+                                          else track_total),
+                        cache_key=cache_key,
+                        collect_masks=aggs and not continuing,
+                        allow_plan=scroll_ctx is None,
+                        after_key=(scroll_ctx.cursors.get(shard_idx)
+                                   if continuing else None))
                     if terminate_after:
                         # the shard stops collecting after
                         # terminate_after docs
@@ -597,7 +946,7 @@ class SearchService:
         rescore, collapse or terminate_after) goes to
         ``MeshSearchBackend.execute``. Returns (merged docs in the
         loop's ``_merge_shards`` form, total) or None, and the loop
-        serves. A profiled body that the mesh serves gets one entry,
+        serves (as it does a scroll's pages and a sliced body). A profiled body that the mesh serves gets one entry,
         ``[index][_mesh]``. A mesh that raises counts
         ``fallback.error``, logs a warning and leaves the body to the
         loop, as the reference's; chip_smoke.py fails a run that counts
@@ -605,7 +954,7 @@ class SearchService:
         if (not _mesh_shaped(searchers) or post_filter is not None
                 or any(body.get(key) is not None for key in (
                     "sort", "min_score", "search_after", "rescore",
-                    "collapse", "terminate_after"))
+                    "collapse", "terminate_after", "slice"))
                 or body.get("aggs", body.get("aggregations"))):
             return None
         index = searchers[0][0]
@@ -635,7 +984,9 @@ class SearchService:
 
     def _execute_query(self, searchers, body: Dict[str, Any], query,
                        post_filter, nodes, track_total, size: int,
-                       from_: int, profiles: Optional[_ShardProfiles]):
+                       from_: int, profiles: Optional[_ShardProfiles],
+                       scroll_ctx: Optional[ScrollContext] = None,
+                       continuing: bool = False):
         sort = body.get("sort")
         search_after = body.get("search_after")
         if search_after is not None and not isinstance(search_after, list):
@@ -645,18 +996,21 @@ class SearchService:
         aggs_spec = body.get("aggs", body.get("aggregations"))
         collapse_field = (body.get("collapse") or {}).get("field")
         terminate_after = body.get("terminate_after")
-        # a rescorer's window may exceed the page
-        query_k = max([from_ + size] + [int(r.get("window_size", 10))
-                                        for r in rescore])
+        # a scroll's page is the next ``size`` docs; a rescorer's window
+        # may exceed the page
+        k = size if scroll_ctx is not None else from_ + size
+        query_k = max([k] + [int(r.get("window_size", 10))
+                             for r in rescore])
         if collapse_field:
             # over-collect so that enough groups survive the collapse
-            query_k = max(query_k, (from_ + size) * 5)
-        served = self._mesh_query(searchers, body, query, post_filter,
-                                  from_ + size, profiles)
+            query_k = max(query_k, k * 5)
+        served = (self._mesh_query(searchers, body, query, post_filter,
+                                   k, profiles)
+                  if scroll_ctx is None else None)
         if served is None:
             results, failures = self._query_shards(
                 searchers, body, query, post_filter, track_total, query_k,
-                profiles)
+                profiles, scroll_ctx, continuing)
         else:
             results, failures = [], []
         t0 = time.monotonic_ns()
@@ -672,7 +1026,16 @@ class SearchService:
                     seen.add(key)
                     kept.append(entry)
             merged = kept
-        page = merged[from_:from_ + size]
+        if scroll_ctx is None:
+            page = merged[from_:from_ + size]
+        else:
+            page = merged[:size]
+            for key, shard_idx, d, _, _ in page:
+                # the primary sort value rides along: a keyword key is a
+                # segment-local ordinal, so the next page ranks the term
+                scroll_ctx.cursors[shard_idx] = (
+                    key, d.segment_idx, d.docid,
+                    d.sort_values[0] if d.sort_values else None)
         if profiles is not None:
             profiles.merge_ns = time.monotonic_ns() - t0
         hits = self._fetch(page, body, query, collapse_field, profiles)
@@ -692,6 +1055,11 @@ class SearchService:
             total = served[1] if track_total else 0
             scores = [merged[0][0]] if merged else []
             relation = "eq"
+        if scroll_ctx is not None:
+            if continuing:
+                total = scroll_ctx.total_hits
+            else:
+                scroll_ctx.total_hits = total
         if not isinstance(track_total, bool) and total > track_total:
             total, relation = track_total, "gte"
         terminated_early = None
@@ -719,7 +1087,7 @@ class SearchService:
             del response["hits"]["total"]
         if terminated_early is not None:
             response["terminated_early"] = terminated_early
-        if aggs_spec and searchers:
+        if aggs_spec and searchers and not continuing:
             response["aggregations"] = self._aggregate(aggs_spec, results,
                                                        profiles)
         if body.get("suggest"):
@@ -973,3 +1341,56 @@ def _merge_shards(results, sort) -> List[Tuple[float, int, DocAddress,
         merged.sort(key=lambda e: (-e[0], e[1], e[2].segment_idx,
                                    e[2].docid))
     return merged
+
+
+def resumable_scroll_batches(search_service, expression: str,
+                             body: Dict[str, Any], batch_size: int,
+                             keep_alive: str = "5m", on_resume=None):
+    """Every hit of ``expression`` in batches of ``batch_size`` through
+    a scroll that survives a lost context (the reference's): a
+    ``search_context_missing_exception`` mid-drain re-opens the scroll,
+    at ``search_after`` = the last hit's sort values under a ``sort``,
+    else from the top skipping what was handed out (exact against an
+    unchanged index). ``on_resume`` is called at each recovery."""
+    base = dict(body or {})
+    base["size"] = int(batch_size)
+    has_sort = bool(base.get("sort"))
+    emitted = 0
+    last_sort = None
+    skip = 0
+
+    def reopen():
+        b = dict(base)
+        if has_sort and last_sort is not None:
+            b["search_after"] = list(last_sort)
+        return search_service.search(expression, b, scroll=keep_alive)
+
+    r = search_service.search(expression, dict(base), scroll=keep_alive)
+    scroll_id = r.get("_scroll_id")
+    try:
+        while True:
+            raw_hits = r["hits"]["hits"]
+            hits = raw_hits
+            if skip:
+                drop = min(skip, len(hits))
+                hits = hits[drop:]
+                skip -= drop
+            if hits:
+                emitted += len(hits)
+                if hits[-1].get("sort") is not None:
+                    last_sort = hits[-1]["sort"]
+                yield hits
+            if not raw_hits:
+                return
+            try:
+                r = search_service.scroll(scroll_id, keep_alive)
+                scroll_id = r.get("_scroll_id", scroll_id)
+            except SearchContextMissingException:
+                if on_resume is not None:
+                    on_resume()
+                skip = 0 if has_sort and last_sort is not None else emitted
+                r = reopen()
+                scroll_id = r.get("_scroll_id")
+    finally:
+        if scroll_id:
+            search_service.clear_scroll([scroll_id])

@@ -191,6 +191,8 @@ def test_url_parameters_over_http(cuda_device, corpus):
                                    [h["_score"] for h in b["hits"]["hits"]],
                                    rtol=1e-6)
         st, r = http(port, "POST", "/idx/_search?scroll=1m", {})
+        assert st == 200 and "_scroll_id" in r
+        st, r = http(port, "POST", "/idx/_search?timeout=1s", {})
         assert st == 400
         assert r["error"]["type"] == "unsupported_in_slice_exception"
         st, r = http(port, "POST", "/idx/_search?request_cache=maybe", {})

@@ -467,9 +467,9 @@ SHOP_QUERIES = [None, {"term": {"category": "fruit"}},
 
 def search_both(nodes, index, body):
     jax_node, node = nodes
-    st, got = node.rest_controller.dispatch("POST", f"/{index}/_search", {},
-                                            body)
-    # the reference caches size-0 responses: each gate computes afresh
+    # both packages cache size-0 responses: each gate computes afresh
+    st, got = node.rest_controller.dispatch(
+        "POST", f"/{index}/_search", {}, dict(body, request_cache=False))
     st2, ref = jax_node.rest_controller.dispatch(
         "POST", f"/{index}/_search", {}, dict(body, request_cache=False))
     assert st == st2 == 200, (got, ref)
@@ -713,7 +713,8 @@ def test_rrf_aggs_ride_the_query_branch(nodes, gate):
     assert_same_aggs(got["aggregations"], ref["aggregations"], gate)
     _, node = nodes
     _, alone = node.rest_controller.dispatch("POST", "/logs/_search", {}, {
-        "query": body["query"], "size": 0, "aggs": body["aggs"]})
+        "query": body["query"], "size": 0, "aggs": body["aggs"],
+        "request_cache": False})
     assert got["aggregations"] == alone["aggregations"]
 
 
@@ -826,7 +827,9 @@ def test_device_route_launches_each_collector(nodes, monkeypatch, name):
     c = node.rest_controller
     fn = getattr(agg_ops, name)
     site = COLLECTOR_SITES[name]
-    body = {"size": 0, "aggs": COLLECTOR_BODIES[name]}
+    # each gate computes afresh (a size-0 answer is otherwise cached)
+    body = {"size": 0, "aggs": COLLECTOR_BODIES[name],
+            "request_cache": False}
     l0, r0 = TRACKER.calls(fn.kernel_name), READBACKS[site]
     st, _ = c.dispatch("POST", "/logs/_search", {}, body)
     assert st == 200 and TRACKER.calls(fn.kernel_name) == l0 \
@@ -851,6 +854,6 @@ def test_a_collector_that_raises_fails_the_request(nodes, monkeypatch,
     monkeypatch.setattr(agg_ops, name, broken)
     st, r = node.rest_controller.dispatch(
         "POST", "/logs/_search", {},
-        {"size": 0, "aggs": COLLECTOR_BODIES[name]})
+        {"size": 0, "aggs": COLLECTOR_BODIES[name], "request_cache": False})
     assert st == 500, r
     assert "device collector failed" in r["error"]["reason"]

@@ -220,15 +220,16 @@ def test_reference_query_assertions_hold_on_the_port(qctx):
 
 def test_parse_errors():
     """As the reference's test_parse_errors; every query type of the
-    reference parses (nested since the field-type slice), and an option
-    of a later slice is a typed SliceUnsupported."""
+    reference parses (nested since the field-type slice), and a stored
+    script parsed outside a node's request has no store to resolve in:
+    a ParsingException, as the reference's without a node."""
     with pytest.raises(ParsingException):
         parse_query({"match": {"a": 1}, "term": {"b": 2}})
     with pytest.raises(ParsingException):
         parse_query({"made_up_query": {}})
     assert parse_query({"nested": {"path": "a", "query": {
         "match_all": {}}}}).name == "nested"
-    with pytest.raises(SliceUnsupported):
+    with pytest.raises(ParsingException, match="stored script"):
         parse_query({"script_score": {"query": {"match_all": {}},
                                       "script": {"id": "stored"}}})
 

@@ -233,6 +233,109 @@ def test_port_opens_a_reference_data_path(tmp_path):
         jax_node.close()
 
 
+def _metadata_state(node):
+    """Write, through REST, the metadata a data path carries: aliases
+    (one filtered), an index template, a data stream rolled over once, a
+    closed index and a stored script."""
+    ask(node, "PUT", "/ev", body={"mappings": {"properties": {
+        "team": {"type": "keyword"}, "n": {"type": "long"},
+        "t": {"type": "text"}}}})
+    ask(node, "POST", "/ev/_bulk", {"refresh": "true"}, ndjson(*[
+        x for i in range(12) for x in (
+            {"index": {"_id": str(i)}},
+            {"team": "red" if i % 3 else "blue", "n": i,
+             "t": f"amber dune {WORDS[i % len(WORDS)]}"})]))
+    ask(node, "POST", "/_aliases", body={"actions": [
+        {"add": {"index": "ev", "alias": "all_ev"}},
+        {"add": {"index": "ev", "alias": "red_ev",
+                 "filter": {"term": {"team": "red"}}}}]})
+    ask(node, "PUT", "/_index_template/metrics", body={
+        "index_patterns": ["metrics-*"], "data_stream": {}, "priority": 5,
+        "template": {"mappings": {"properties": {
+            "value": {"type": "double"}}}}})
+    ask(node, "PUT", "/_data_stream/metrics-cpu")
+    # (the reference's ``_bulk?refresh`` on a data stream refreshes the
+    # stream's name, not its write index, and answers 404: refresh apart)
+    ask(node, "POST", "/metrics-cpu/_bulk", {}, ndjson(
+        {"create": {"_id": "1"}}, {"@timestamp": "2026-01-01T00:00:00Z",
+                                   "value": 0.5}))
+    ask(node, "POST", "/metrics-cpu/_refresh")
+    ask(node, "POST", "/metrics-cpu/_rollover")
+    ask(node, "POST", "/metrics-cpu/_bulk", {}, ndjson(
+        {"create": {"_id": "2"}}, {"@timestamp": "2026-01-02T00:00:00Z",
+                                   "value": 0.7}))
+    ask(node, "POST", "/metrics-cpu/_refresh")
+    ask(node, "PUT", "/shut/_doc/1", {"refresh": "true"}, {"v": 1},
+        expect=201)
+    ask(node, "POST", "/shut/_close")
+    ask(node, "PUT", "/_scripts/boost", body={"script": {
+        "lang": "painless", "source": "doc['n'].value + _score"}})
+    for name in ("ev", "metrics-cpu"):
+        ask(node, "POST", f"/{name}/_flush")
+
+
+def test_port_opens_reference_metadata_and_scripts(tmp_path):
+    """The reference's Node writes aliases, a template, a rolled-over
+    data stream, a closed index and a stored script, and closes; the
+    port opens a copy of its data path and answers ``GET /_alias``,
+    ``GET /_data_stream``, searches through both aliases and the
+    stream, the closed index's error and a ``script_score`` by id as
+    the reference reopened on the original does."""
+    jpath, ppath = str(tmp_path / "jax"), str(tmp_path / "copy")
+    jax_node = JaxNode(Settings.EMPTY, data_path=jpath)
+    _metadata_state(jax_node)
+    jax_node.close()
+    shutil.copytree(jpath, ppath)
+    jax_node = JaxNode(Settings.EMPTY, data_path=jpath)
+    node = restart_port(ppath)
+    try:
+        def both(method, path, params=None, body=None):
+            out = []
+            for n in (jax_node, node):
+                st, r = n.rest_controller.dispatch(method, path,
+                                                   dict(params or {}), body)
+                if isinstance(r, dict):
+                    r.pop("took", None)
+                    r.pop("_headers", None)
+                out.append((st, r))
+            return out
+
+        for path in ("/_alias", "/_alias/red_ev", "/ev/_alias",
+                     "/_data_stream", "/_index_template/metrics",
+                     "/_scripts/boost"):
+            (jst, ref), (st, got) = both("GET", path)
+            assert (st, got) == (jst, ref), path
+        bodies = [
+            ("/red_ev/_search", {"sort": [{"n": "asc"}], "size": 20}),
+            ("/all_ev/_search", {"query": {"match": {"t": "amber"}},
+                                 "size": 20}),
+            ("/red_ev/_count", {}),
+            ("/metrics-cpu/_search", {"sort": [{"value": "asc"}]}),
+            ("/ev/_search", {"query": {"script_score": {
+                "query": {"match": {"t": "dune"}},
+                "script": {"id": "boost"}}}, "size": 20}),
+            ("/shut/_search", {}),
+        ]
+        for path, body in bodies:
+            (jst, ref), (st, got) = both("POST", path, {}, body)
+            assert st == jst, (path, got, ref)
+            if "hits" not in got:
+                assert got == ref, path
+                continue
+            # the tie-aware compare: the plan path may order a true
+            # tie apart
+            assert_same_hits(got, ref, len(ref["hits"]["hits"]))
+        (jst, ref), (st, got) = both("GET", "/shut/_doc/1")
+        assert (st, got) == (jst, ref) and st == 400
+        (jst, ref), (st, got) = both("POST", "/metrics-cpu/_doc", {},
+                                     {"@timestamp": "2026-01-03T00:00:00Z"})
+        assert st == jst == 201
+        assert got["_index"] == ref["_index"] == "metrics-cpu"
+    finally:
+        node.close()
+        jax_node.close()
+
+
 def test_own_temporary_data_path_is_removed_at_close():
     node = Node(device="cpu")
     path = node.data_path

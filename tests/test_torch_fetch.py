@@ -612,7 +612,7 @@ def test_fetch_bodies_miss_the_fast_grammar(nodes, body):
 @pytest.mark.parametrize("key,value", [
     ("indices_boost", [{"idx": 2.0}]), ("stats", ["group"]),
     ("stored_fields", ["title"]), ("explain", True),
-    ("pit", {"id": "x"}), ("slice", {"id": 0, "max": 2}),
+    ("runtime_mappings", {"r": {"type": "long"}}), ("ext", {"x": {}}),
     ("timeout", "1s")])
 def test_later_keys_stay_typed_400(nodes, key, value):
     _, node = nodes

@@ -917,7 +917,8 @@ def test_every_new_type_is_served_and_typed_400s_stay(nodes):
     """Each new type parses and answers 200 (no SliceUnsupported), the
     field-type queries too (an unmapped point field matches nothing, an
     unmapped nested path is the reference's query_shard_exception);
-    ``slice`` stays a typed 400, and distance_feature on a geo origin is
+    ``stored_fields`` stays a typed 400 (``slice`` is served since the
+    search-context slice), and distance_feature on a geo origin is
     a 400 illegal_argument_exception (the reference fails on it with a
     500). Every query type of the reference parses in the port."""
     jax_node, node = nodes
@@ -938,7 +939,7 @@ def test_every_new_type_is_served_and_typed_400s_stay(nodes):
             ({"query": {"nested": {"path": "x",
                                    "query": {"match_all": {}}}}},
              "query_shard_exception"),
-            ({"query": {"match_all": {}}, "slice": {"id": 0, "max": 2}},
+            ({"query": {"match_all": {}}, "stored_fields": ["title"]},
              "unsupported_in_slice_exception"),
             ({"query": {"distance_feature": {
                 "field": "loc", "origin": {"lat": 1, "lon": 2},

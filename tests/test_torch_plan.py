@@ -222,7 +222,7 @@ def test_rest_from_and_typed_400s(searchers):
                              rtol=RTOL)
             for h in got["hits"]["hits"]:
                 assert h["_source"]["title"]
-        for bad in ({"query": CASES[0], "slice": {"id": 0, "max": 2}},
+        for bad in ({"query": CASES[0], "timeout": "1s"},
                     {"query": CASES[0], "stored_fields": ["title"]}):
             st, r = c.dispatch("POST", "/p/_search", {}, bad)
             assert st == 400 and r["error"]["type"] == \

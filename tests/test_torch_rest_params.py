@@ -2,7 +2,7 @@
 reference answers them or refused with a typed 400, through both nodes'
 ``rest_controller.dispatch`` on the same documents: the `_search` URL
 parameters (``q``, ``from``, ``size``, ``request_cache``,
-``allow_partial_search_results``, ``search_type``; ``scroll``,
+``allow_partial_search_results``, ``search_type``, ``scroll``;
 ``timeout`` and the rest are a later slice), the mapping's ``dynamic``
 setting, ``copy_to`` and ``number_of_shards``; the result window's
 reason and a ``PUT`` of an index that exists."""
@@ -95,17 +95,17 @@ def test_boolean_url_parameters_refuse_other_values(nodes, key):
 
 
 def test_a_valid_boolean_parameter_meets_the_body_keys(nodes):
-    """``request_cache=true`` goes into the body, which the slice refuses
-    as it refuses the body key (the reference serves both);
-    ``allow_partial_search_results`` goes into the body too, which both
-    serve (the shard loop's failure barrier reads it)."""
-    _, (st, got) = both(nodes, "POST", "/p/_search",
-                        {"request_cache": "true"}, None)
-    _, (bst, bgot) = both(nodes, "POST", "/p/_search", {},
-                          {"request_cache": True})
-    assert st == bst == 400
-    assert got["error"]["type"] == bgot["error"]["type"] \
-        == "unsupported_in_slice_exception"
+    """``request_cache=true`` goes into the body, which both packages
+    serve (the request cache, for size-0 bodies), as they serve the body
+    key; ``allow_partial_search_results`` goes into the body too, which
+    both serve (the shard loop's failure barrier reads it)."""
+    (jst, ref), (st, got) = both(nodes, "POST", "/p/_search",
+                                 {"request_cache": "true"}, None)
+    (bjst, bref), (bst, bgot) = both(nodes, "POST", "/p/_search", {},
+                                     {"request_cache": True})
+    assert st == bst == jst == bjst == 200
+    assert_same_hits(ref, got)
+    assert_same_hits(bref, bgot)
     (jst, ref), (st, got) = both(nodes, "POST", "/p/_search",
                                  {"allow_partial_search_results": "false"},
                                  None)
@@ -113,7 +113,7 @@ def test_a_valid_boolean_parameter_meets_the_body_keys(nodes):
     assert_same_hits(ref, got)
 
 
-@pytest.mark.parametrize("params", [{"scroll": "1m"}, {"timeout": "1s"},
+@pytest.mark.parametrize("params", [{"routing": "r"}, {"timeout": "1s"},
                                     {"preference": "_local"},
                                     {"q": "t:red", "typed_keys": "true"}])
 def test_other_url_parameters_are_a_typed_400(nodes, params):
@@ -121,13 +121,21 @@ def test_other_url_parameters_are_a_typed_400(nodes, params):
     assert jst == 200
     assert st == 400
     assert got["error"]["type"] == "unsupported_in_slice_exception"
-    if "scroll" in params:
-        assert "_scroll_id" in ref
+
+
+def test_a_scroll_parameter_opens_a_scroll(nodes):
+    """``scroll`` is served: both answer the first page with a
+    ``_scroll_id`` and the same hits."""
+    (jst, ref), (st, got) = both(nodes, "POST", "/p/_search",
+                                 {"scroll": "1m", "size": "2"}, None)
+    assert jst == st == 200
+    assert "_scroll_id" in ref and "_scroll_id" in got
+    assert_same_hits(ref, got)
 
 
 def test_a_request_cache_false_body_is_served(nodes):
-    """The port keeps no request cache: a body asking for none is
-    answered as the reference answers it."""
+    """A body asking for no request cache is answered as the reference
+    answers it."""
     body = {"query": {"match": {"t": "red"}}, "request_cache": False}
     (jst, ref), (st, got) = both(nodes, "POST", "/p/_search", {}, body)
     assert jst == st == 200

@@ -67,7 +67,7 @@ from elasticsearch_tpu_torch.search.context import (DeviceSegmentCache,
                                                     ShardStats)
 from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
 from elasticsearch_tpu_torch.search.plan import compile_plan
-from elasticsearch_tpu_torch.search.queries import parse_query
+from elasticsearch_tpu_torch.search.queries import ParsingException, parse_query
 from elasticsearch_tpu_torch.search.searcher import ShardSearcher
 from test_torch_node import assert_same_hits, bulk_body, http
 from test_torch_plan import as_hits, both, searchers  # noqa: F401
@@ -466,10 +466,11 @@ def test_reference_query_assertions_hold_on_the_port(qctx):
 
 
 def test_typed_refusals():
-    """A stored-script reference and the function_score shapes this
-    slice does not serve are typed 400s; a script without source or id
-    is a parse error, as the reference's."""
-    with pytest.raises(SliceUnsupported, match="stored script"):
+    """The function_score shapes this slice does not serve are typed
+    400s; a stored-script reference parsed outside a node's request and
+    a script without source or id are parse errors, as the
+    reference's."""
+    with pytest.raises(ParsingException, match="stored script"):
         parse_query({"script_score": {"query": {"match_all": {}},
                                       "script": {"id": "s1"}}})
     with pytest.raises(SliceUnsupported):
@@ -914,11 +915,22 @@ def test_refusals_match_reference_node(rescore_nodes, body, etype):
 ])
 def test_later_slice_script_surfaces_are_typed_400s(rescore_nodes, body,
                                                     path):
-    _, port = rescore_nodes
+    """The stored-script surfaces, served since the search-context
+    slice: ``PUT /_scripts/{id}`` acknowledges on both nodes, and a
+    search naming a script the port's node does not hold is a 400
+    ``parsing_exception`` (``unable to find script``); the same script
+    given inline answers as the reference."""
+    jax_node, port = rescore_nodes
     method = "PUT" if path.startswith("/_scripts") else "POST"
     st, r = http(port, method, path, body)
-    assert st == 400 and r["error"]["type"] == \
-        "unsupported_in_slice_exception", r
+    if method == "PUT":
+        jst, ref = jax_node.rest_controller.dispatch(method, path, {}, body)
+        assert st == jst == 200 and r == ref == {"acknowledged": True}
+        st, r = http(port, "DELETE", path)
+        assert st == 200, r
+        return
+    assert st == 400 and r["error"]["type"] == "parsing_exception", r
+    assert "unable to find script [my-script]" in r["error"]["reason"]
 
 
 def test_statement_script_cap_answers_400(rescore_nodes, monkeypatch):
