@@ -419,13 +419,50 @@ Phases (any failure exits non-zero; no exception is swallowed):
               (registered again); (j) a scroll and a PIT outliving a
               force-merge release the merged-away segments when
               cleared; {"contexts": ...}
- 18. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
+ 18. analysis per-field and custom analyzers, `_analyze`, term vectors
+              and the by-query family, on the main node after phase
+              17: (a) "an18", 10,000 English-like docs (corpus.py
+              english_docs: inflected forms, stop words, HTML markup,
+              accented, hyphenated and camel-case words) in 2 _bulk
+              requests of 5,000, mapped title standard, body english
+              with a synonym search analyzer, body.exact a custom chain
+              (html_strip and mapping char filters, the pattern
+              tokenizer, lowercase, asciifolding, a stop list,
+              word_delimiter_graph, porter_stem), tags whitespace; the
+              bulk rate and each analyzer's host us a doc; (b) on each
+              field 32 match/bool bodies of size 1000 on the plan path
+              and again with min_score (the dense executor), and phrase
+              and highlight bodies: each against a float64 BM25 oracle
+              over the postings the segments hold (totals exact, the
+              recall rule, scores rtol 1e-5; a phrase's docs those
+              whose token streams hold it) and the port's CPU
+              execution (ids, order, totals, highlights equal, scores
+              rtol 1e-6); (c) 64 _analyze requests (named, by field,
+              ad hoc chains, explain), 32 _termvectors and one
+              _mtermvectors of 32, each equal to the CPU answer, the
+              term freqs the analyzer's tokens, the doc freqs the
+              postings'; (d) the seven HEAD requests over HTTP answer
+              the GET's status with no body; (e) after _forcemerge the
+              front does not register an18 (its bodies: fast +0);
+              "an18_std" (10,000 titles, one standard field): its
+              fast bodies launch the merge once a v2m cohort and equal
+              the plan path's; (f) _reindex into "an18_en" (body
+              english with a stop list), totals equal; _update_by_query
+              with a script over one term's docs and _delete_by_query
+              over another's, each with refresh: counts, the totals
+              and the _mget of the touched ids as the oracle says, a
+              search after them against the oracle and the CPU; (g)
+              the contribution kernel launched once a dense BM25
+              scoring, the merge once a v2m cohort, /_kernels agreeing,
+              the breaker equal to the resident bytes; {"analysis": ...}
+ 19. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
               script, aggs, accounting, fulltext, fetch, fields, shards,
-              aggs_deferred, mesh, durability, contexts, filters, plan
-              and kernels JSON lines (each kernel's launches per phase,
-              launches_aggs_deferred for phase 14, launches_mesh for
-              15, launches_durability for 16, launches_contexts for
-              17), the phases' wall seconds
+              aggs_deferred, mesh, durability, contexts, analysis,
+              filters, plan and kernels JSON lines (each kernel's
+              launches per phase, launches_aggs_deferred for phase 14,
+              launches_mesh for 15, launches_durability for 16,
+              launches_contexts for 17, launches_analysis for 18), the
+              phases' wall seconds
               ({"phase_seconds": ...}), the card's
               name and power limit, and the last line {"ok": true,
               "device": {...}}
@@ -9377,6 +9414,579 @@ def contexts_alone(docs=2_000_000, vocab=100_000, seed=0):
         node.close()
 
 
+# ---------------------------------------------------------------- phase 18
+AN_DOCS = 10_000       # the analyzed index (cut from 50,000: PERF.md 4)
+AN_BULK = 5_000        # Rally's bulk_size
+AN_STD_DOCS = 10_000   # "an18_std", the one standard field's index
+AN_BODIES = 32         # match/bool bodies a field, on each path
+AN_SIZE = 1000
+AN_PHRASES = 8         # phrase and highlight bodies a field
+AN_ANALYZE = 64
+AN_TV = 32
+AN_FAST = 16           # an18_std's fast bodies
+AN_FIELDS = ("title", "body", "body.exact", "tags")
+AN_HEADS = ("/an18", "/nope", "/an18/_doc/1", "/an18/_doc/999999",
+            "/an18/_source/1", "/_alias/an18_al", "/_index_template/none")
+
+
+class AnalyzedOracle:
+    """float64 BM25 and phrase matches over what the shard's segments hold
+    for one field (the postings' blocks, field lengths and token streams):
+    the statistics count every copy, live or deleted, as the shard's do;
+    only live copies match."""
+
+    def __init__(self, segments, field, k1=1.2, b=0.75):
+        self.segments = [s for s in segments if field in s.postings]
+        self.field, self.k1, self.b = field, k1, b
+        pfs = [s.postings[field] for s in self.segments]
+        self.doc_count = sum(pf.doc_count for pf in pfs)
+        self.avg = (sum(pf.sum_total_term_freq for pf in pfs)
+                    / max(1, self.doc_count))
+        self.ids = [np.asarray([int(i) for i in s.stored.ids], np.int64)
+                    for s in self.segments]
+
+    def df(self, term):
+        """The term's doc freq over the segments (every copy)."""
+        return sum(int(pf.doc_freq[tid]) for s in self.segments
+                   if (tid := (pf := s.postings[self.field]).term_id(term))
+                   >= 0)
+
+    def known(self, term):
+        return any(s.postings[self.field].term_id(term) >= 0
+                   for s in self.segments)
+
+    def _postings(self, pf, term):
+        tid = pf.term_id(term)
+        if tid < 0:
+            return np.zeros(0, np.int64), np.zeros(0, np.float64)
+        lo = int(pf.term_block_start[tid])
+        hi = lo + int(pf.term_block_count[tid])
+        d = np.asarray(pf.block_docids[lo:hi]).reshape(-1).astype(np.int64)
+        f = np.asarray(pf.block_tfs[lo:hi]).reshape(-1).astype(np.float64)
+        keep = f > 0
+        return d[keep], f[keep]
+
+    def scores(self, terms):
+        """[per segment float64 scores], every term counted as often as
+        the analyzer gave it."""
+        from elasticsearch_tpu_torch.ops.bm25 import idf
+        dfs = {t: self.df(t) for t in set(terms)}
+        out = []
+        for s in self.segments:
+            pf = s.postings[self.field]
+            sc = np.zeros(s.n_docs, np.float64)
+            lens = np.asarray(pf.field_lengths, np.float64)
+            for t in terms:
+                if not dfs[t]:
+                    continue
+                d, f = self._postings(pf, t)
+                norm = self.k1 * (1 - self.b + self.b * lens[d] / self.avg)
+                sc[d] += idf(dfs[t], self.doc_count) * f / (f + norm)
+            out.append(np.where(np.asarray(s.live, bool), sc, 0.0))
+        return out
+
+    def phrase_ids(self, positions):
+        """The live ids whose stream holds ``positions`` ({relative
+        position: term}) at some start."""
+        out = []
+        for s, ids in zip(self.segments, self.ids):
+            st = s.streams.get(self.field)
+            if st is None:
+                continue
+            toks = np.asarray(st.tokens)
+            pf = s.postings[self.field]
+            tids = {p: pf.term_id(t) for p, t in positions.items()}
+            if min(tids.values()) < 0:
+                continue
+            span = max(positions) + 1
+            n = toks.shape[1] - span + 1
+            if n <= 0:
+                continue
+            hit = np.ones((toks.shape[0], n), bool)
+            for p, tid in tids.items():
+                hit &= toks[:, p:p + n] == tid
+            found = hit.any(axis=1) & np.asarray(s.live, bool)
+            out.extend(ids[found].tolist())
+        return sorted(out)
+
+    @staticmethod
+    def topk(ids_scores, k):
+        """(ids, scores, total) of the top k of [(ids, scores)] pieces."""
+        ids = np.concatenate([i for i, _ in ids_scores])
+        sc = np.concatenate([s for _, s in ids_scores])
+        m = sc > 0
+        ids, sc = ids[m], sc[m]
+        order = np.lexsort((ids, -sc))[:k]
+        return ids[order], sc[order], int(m.sum())
+
+
+def an_check(r, oracle_top, what):
+    """An answer against the oracle's top k: the total exact ("eq"), the
+    recall rule of the plan path, each served score within rtol 1e-5."""
+    truth, scores, total = oracle_top
+    check_answer(r, (truth, scores, total), "plan", what)
+    by_id = dict(zip(truth.tolist(), scores.tolist()))
+    kth = scores[-1] if len(scores) else 0.0
+    for h in r["hits"]["hits"]:
+        want = by_id.get(int(h["_id"]))
+        check(want is not None or abs(h["_score"] - kth) <= 1e-5 * kth,
+              f"{what}: doc {h['_id']} outside the oracle's top k")
+        if want is not None:
+            check(abs(h["_score"] - want) <= 1e-5 * want,
+                  f"{what}: doc {h['_id']} scored {h['_score']} vs {want}")
+
+
+def same_as_cpu(r, c, what, rtol=1e-6):
+    """A card answer against the port's CPU execution of the body: ids,
+    order and totals equal, scores within ``rtol``, highlights equal."""
+    check(r["hits"]["total"] == c["hits"]["total"],
+          f"{what}: totals {r['hits']['total']} vs {c['hits']['total']}")
+    gh, ch = r["hits"]["hits"], c["hits"]["hits"]
+    check([h["_id"] for h in gh] == [h["_id"] for h in ch],
+          f"{what}: ids and order equal to the CPU execution")
+    gs = np.array([h["_score"] or 0.0 for h in gh], np.float64)
+    cs = np.array([h["_score"] or 0.0 for h in ch], np.float64)
+    check(np.allclose(gs, cs, rtol=rtol, atol=0),
+          f"{what}: scores within rtol {rtol} of the CPU execution")
+    check([h.get("highlight") for h in gh] == [h.get("highlight")
+                                               for h in ch],
+          f"{what}: highlights equal to the CPU execution")
+
+
+def an_term_pool(oracle, analyzer, docs, field, rng, n):
+    """``n`` query texts for ``field``: one to three words of the docs'
+    own text, each text's analyzed terms known to the segment."""
+    out = []
+    src = [d[field.split(".")[0]] for d in docs]
+    while len(out) < n:
+        words = src[int(rng.integers(len(src)))].split()
+        i = int(rng.integers(max(1, len(words) - 3)))
+        text = " ".join(words[i:i + int(rng.integers(1, 4))])
+        terms = analyzer.terms(text)
+        if terms and all(oracle.known(t) for t in terms):
+            out.append((text, terms))
+    return out
+
+
+def phase_analysis(node, port, seed, counters, cpu, hbm_log):
+    """Analysis, term vectors and the by-query family on one H100
+    (module docstring, phase 18), on the main node."""
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import (ANALYSIS_MAPPINGS,
+                                                ANALYSIS_SETTINGS,
+                                                english_docs)
+    from elasticsearch_tpu_torch.rest.api import (analyze_answer,
+                                                  termvectors_of)
+    from elasticsearch_tpu_torch.telemetry.engine import TRACKER
+    t_phase = time.time()
+    out = {}
+    steps = {}
+    t_step = [time.time()]
+
+    def lap(name):
+        now = time.time()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+
+    fp = node.fastpath
+    card = {"launches": {n: 0 for n in counters}, "scorings": 0,
+            "cohorts_v2m": 0, "cohorts": 0,
+            "kernels_calls": {n: 0 for n in counters}}
+
+    def kernel_calls():
+        _, k = http(port, "GET", "/_kernels")
+        return {n: k["kernels"].get(n, {}).get("calls", 0)
+                for n in counters}
+
+    @contextlib.contextmanager
+    def on_card():
+        """Counts the block's launches, dense scorings, fast cohorts and
+        /_kernels calls (the CPU twin's comparisons, whose calls the
+        tracker counts too, run outside such blocks)."""
+        k0 = kernel_calls()
+        l0 = {n: c.launches for n, c in counters.items()}
+        s0 = TRACKER.calls("bm25_dense_scores_sorted")
+        c0 = dict(fp.stats)
+        yield
+        for n, c in counters.items():
+            card["launches"][n] += c.launches - l0[n]
+        card["scorings"] += TRACKER.calls("bm25_dense_scores_sorted") - s0
+        card["cohorts_v2m"] += fp.stats["cohorts_v2m"] - c0["cohorts_v2m"]
+        card["cohorts"] += fp.stats["cohorts"] - c0["cohorts"]
+        k1 = kernel_calls()
+        for n in counters:
+            card["kernels_calls"][n] += k1[n] - k0[n]
+
+    for c in counters.values():
+        c.launches = 0
+    rng = np.random.default_rng(seed)
+    docs = english_docs(AN_DOCS, rng)
+    lap("a_corpus")
+
+    # ---- (a) the analyzed index through _bulk
+    st, r = http(port, "PUT", "/an18", {
+        "settings": {"index": dict(ANALYSIS_SETTINGS["index"],
+                                   number_of_shards=1)},
+        "mappings": ANALYSIS_MAPPINGS})
+    check(st == 200, f"(a) PUT /an18: {r}")
+    t0 = time.time()
+    for lo in range(0, AN_DOCS, AN_BULK):
+        lines = "".join(
+            json.dumps({"index": {"_id": str(i)}}) + "\n"
+            + json.dumps(docs[i]) + "\n" for i in range(lo, lo + AN_BULK))
+        st, r = http(port, "POST", "/an18/_bulk", lines, ndjson=True)
+        check(st == 200 and not r["errors"], f"(a) bulk at {lo}: "
+              f"{str(r)[:300]}")
+    bulk_s = time.time() - t0
+    check(http(port, "POST", "/an18/_refresh")[0] == 200, "(a) _refresh")
+    svc = node.indices["an18"]
+    mapper = svc.mapper
+    # the analyzers' host cost a doc, each field on the same sample
+    sample = docs[:2000]
+    us_doc = {}
+    for f in AN_FIELDS:
+        an = mapper.index_analyzer(mapper.field_type(f))
+        vals = [d[f.split(".")[0]] for d in sample]
+        t0 = time.perf_counter()
+        for v in vals:
+            an.analyze(v)
+        us_doc[f] = (time.perf_counter() - t0) * 1e6 / len(vals)
+    out["bulk"] = dict(docs=AN_DOCS, requests=AN_DOCS // AN_BULK,
+                       seconds=bulk_s, docs_per_s=AN_DOCS / bulk_s,
+                       analyzer_us_a_doc=us_doc,
+                       segments=len(svc.engine.segments))
+    log(f"[analysis] bulk {out['bulk']}")
+    lap("a_bulk")
+
+    # ---- (b) match/bool bodies on each field, plan path and dense
+    segs = svc.engine.segments
+    oracles = {f: AnalyzedOracle(segs, f) for f in AN_FIELDS}
+    kinds = {}
+    bodies, checks = [], []
+    for f in AN_FIELDS:
+        an = mapper.search_analyzer(mapper.field_type(f))
+        pool = an_term_pool(oracles[f], an, docs, f, rng, AN_BODIES + 8)
+        for j, (text, terms) in enumerate(pool[:AN_BODIES]):
+            if j % 2 == 0:
+                q = {"match": {f: text}}
+                sc = oracles[f].scores(terms)
+            else:
+                text2, terms2 = pool[AN_BODIES + (j // 2) % 8]
+                q = {"bool": {"must": [{"match": {f: text}}],
+                              "should": [{"match": {f: text2}}]}}
+                s1, s2 = oracles[f].scores(terms), oracles[f].scores(terms2)
+                sc = [np.where(a > 0, a + c, 0.0) for a, c in zip(s1, s2)]
+            top = AnalyzedOracle.topk(list(zip(oracles[f].ids, sc)),
+                                      AN_SIZE)
+            for path in ("plan", "dense"):
+                body = {"query": q, "size": AN_SIZE, "_source": False}
+                if path == "dense":
+                    body["min_score"] = 1e-12
+                kinds.setdefault(f"{path}_{'match' if j % 2 == 0 else 'bool'}",
+                                 []).append(len(bodies))
+                bodies.append(body)
+                checks.append(("bm25", top, f"{f} {path} body {j}"))
+        # phrases (two or three consecutive words) and highlights
+        for j in range(AN_PHRASES):
+            text, terms = pool[j]
+            if len(terms) >= 2:
+                # the analyzed terms at consecutive positions (the
+                # reference's phrase drops the query's position gaps; the
+                # streams keep the documents')
+                body = {"query": {"match_phrase": {f: text}},
+                        "size": AN_SIZE, "_source": False}
+                kinds.setdefault("phrase", []).append(len(bodies))
+                bodies.append(body)
+                checks.append(("phrase", oracles[f].phrase_ids(
+                    dict(enumerate(terms))), f"{f} phrase {j}"))
+            body = {"query": {"match": {f: text}}, "size": 20,
+                    "highlight": {"fields": {f: {}}}}
+            kinds.setdefault("highlight", []).append(len(bodies))
+            bodies.append(body)
+            checks.append(("bm25", AnalyzedOracle.topk(
+                list(zip(oracles[f].ids, oracles[f].scores(terms))), 20),
+                f"{f} highlight {j}"))
+    lap("b_bodies_and_oracles")
+    with on_card():
+        res, lat, wall = drive(port, bodies, 8, "an18")
+    lap("b_served")
+    for i, ((st, r), (kind, want, what)) in enumerate(zip(res, checks)):
+        check(st == 200, f"(b) {what}: {str(r)[:300]}")
+        if kind == "bm25":
+            an_check(r, want, f"(b) {what}")
+        else:
+            got = sorted(int(h["_id"]) for h in r["hits"]["hits"])
+            check(r["hits"]["total"] == {"value": len(want),
+                                         "relation": "eq"},
+                  f"(b) {what}: the phrase's total is the streams'")
+            check(len(want) > AN_SIZE or got == want,
+                  f"(b) {what}: the phrase's docs are the streams'")
+        same_as_cpu(r, cpu.search("an18", bodies[i]), f"(b) {what}")
+    out["bodies"] = {k: len(v) for k, v in kinds.items()}
+    out["query_ms"] = {k: float(np.median([lat[i] for i in v]) * 1e3)
+                       for k, v in kinds.items()}
+    out["load"] = dict(requests=len(bodies), wall_s=wall,
+                       qps=len(bodies) / wall, clients=8)
+    log(f"[analysis] bodies {out['bodies']} ms {out['query_ms']}")
+    lap("b_checked")
+
+    # ---- (c) _analyze and term vectors
+    names = ["standard", "simple", "whitespace", "stop", "keyword",
+             "english", "english_syn", "exact"]
+    reqs = []
+    for j in range(AN_ANALYZE):
+        text = docs[int(rng.integers(AN_DOCS))]["body"]
+        kind = j % 4
+        if kind == 0:
+            body = {"analyzer": names[j % len(names)], "text": text}
+        elif kind == 1:
+            body = {"field": AN_FIELDS[j % len(AN_FIELDS)], "text": text}
+        elif kind == 2:
+            body = {"tokenizer": ["standard", "whitespace", "pattern"][j % 3],
+                    "filter": ["lowercase", "few_stop",
+                               {"type": "shingle", "max_shingle_size": 3}],
+                    "char_filter": ["html_strip", "amp"],
+                    "text": [text, text[:40]]}
+        else:
+            body = {"analyzer": names[j % len(names)], "text": text,
+                    "explain": True}
+        reqs.append(("POST", "/an18/_analyze", body))
+    tv_ids = [str(int(x)) for x in rng.integers(0, AN_DOCS, AN_TV)]
+    reqs += [("GET", f"/an18/_termvectors/{i}?term_statistics=true", None)
+             for i in tv_ids]
+    reqs.append(("POST", "/an18/_mtermvectors",
+                 {"ids": tv_ids, "term_statistics": True}))
+    t0 = time.perf_counter()
+    answers = ask_many(port, reqs, 8)
+    tv_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in tv_ids[:8]:
+        http(port, "GET", f"/an18/_termvectors/{i}?term_statistics=true")
+    tv_ms = (time.perf_counter() - t0) * 1e3 / 8
+    for (method, path, body), (st, r) in zip(reqs, answers):
+        check(st == 200, f"(c) {path}: {str(r)[:200]}")
+        if path.endswith("_analyze"):
+            want = analyze_answer(svc.mapper.analysis, body, mapper)
+            if "analyzer" in body and not body.get("explain"):
+                an = mapper.analysis.get(body["analyzer"])
+                texts = body["text"] if isinstance(body["text"],
+                                                   list) else [body["text"]]
+                check([t["token"] for t in r["tokens"]]
+                      == [t for x in texts for t in an.terms(x)],
+                      f"(c) {body['analyzer']}: the analyzer's own terms")
+            check(r == want, f"(c) _analyze {str(body)[:100]}: the CPU "
+                             f"answer")
+        elif "_mtermvectors" in path:
+            check([d["found"] for d in r["docs"]] == [True] * AN_TV
+                  and r["docs"] == [termvectors_of(
+                      node, "an18", i, {"term_statistics": True})
+                      for i in tv_ids], "(c) _mtermvectors: the CPU answer")
+        else:
+            doc_id = path.split("/")[3].split("?")[0]
+            want = termvectors_of(node, "an18", doc_id,
+                                  {"term_statistics": True})
+            check(r == want, f"(c) _termvectors {doc_id}: the CPU answer")
+            src = docs[int(doc_id)]
+            for f, tv in r["term_vectors"].items():
+                an = mapper.index_analyzer(mapper.field_type(f))
+                toks = an.analyze(src[f.split(".")[0]])
+                check(sum(e["term_freq"] for e in tv["terms"].values())
+                      == len(toks)
+                      and all(e["doc_freq"] == oracles[f].df(t)
+                              for t, e in tv["terms"].items()),
+                      f"(c) _termvectors {doc_id} {f}: the tokens and the "
+                      f"postings' doc freqs")
+    out["analyze"] = dict(requests=AN_ANALYZE, termvectors=AN_TV,
+                          mtermvectors=1, wall_s=tv_wall,
+                          termvectors_ms=tv_ms)
+    lap("c_analyze_termvectors")
+
+    # ---- (d) HEAD answers the GET's status
+    check(http(port, "PUT", "/an18/_alias/an18_al")[0] == 200, "(d) alias")
+    import http.client as _hc
+    heads = {}
+    for path in AN_HEADS:
+        conn = _hc.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("HEAD", path)
+        resp = conn.getresponse()
+        body = resp.read()
+        conn.close()
+        gst = http(port, "GET", path)[0]
+        check(resp.status == gst and body == b"",
+              f"(d) HEAD {path}: {resp.status} vs GET {gst}")
+        heads[path] = resp.status
+    check(list(heads.values()) == [200, 404, 200, 404, 200, 200, 404],
+          f"(d) the statuses: {heads}")
+    out["head"] = heads
+    lap("d_head")
+
+    # ---- (e) the fast path: an18 never on the front; an18_std's fast
+    # bodies through the merge kernel, equal to the plan path's
+    check(http(port, "POST", "/an18/_forcemerge")[0] == 200, "(e) merge")
+    node.refresh_front()
+    reg = fp.front_registration()
+    check(reg is None or reg["index"] != "an18",
+          f"(e) an18 is not on the front: {reg and reg['index']}")
+    fast_bodies = [{"query": {"match": {"title": t}}, "size": 100,
+                    "_source": False}
+                   for t, _ in an_term_pool(
+                       AnalyzedOracle(svc.engine.segments, "title"),
+                       mapper.search_analyzer(mapper.field_type("title")),
+                       docs, "title", rng, AN_FAST)]
+    h0 = node.http_stats()
+    with on_card():
+        res, _, _ = drive(port, fast_bodies, 4, "an18")
+    f1 = front_since(node, h0)
+    check(all(st == 200 for st, _ in res) and f1["fast"] == 0,
+          f"(e) the front served none of an18's bodies: {f1}")
+    st, r = http(port, "PUT", "/an18_std", {
+        "settings": {"index": {"number_of_shards": 1}},
+        "mappings": {"properties": {"title": {"type": "text"}}}})
+    lines = "".join(json.dumps({"index": {"_id": str(i)}}) + "\n"
+                    + json.dumps({"title": docs[i]["title"]}) + "\n"
+                    for i in range(AN_STD_DOCS))
+    st, r = http(port, "POST", "/an18_std/_bulk?refresh=true", lines,
+                 ndjson=True)
+    check(st == 200 and not r["errors"], "(e) an18_std bulk")
+    check(http(port, "POST", "/an18_std/_forcemerge")[0] == 200,
+          "(e) an18_std merge")
+    std_svc = node.indices["an18_std"]
+    check(std_svc.mapper.standard_analyzed(
+        std_svc.mapper.field_type("title"))
+        and not mapper.standard_analyzed(mapper.field_type("body")),
+        "(e) the gate: title builtin standard, body not")
+    src_bodies = [dict(b, _source=True) for b in fast_bodies]
+    m0 = counters["merge_sorted_slots"].launches
+    c0 = fp.stats["cohorts_v2m"]
+    with on_card():
+        fast, _, _ = drive(port, src_bodies, 4, "an18_std")
+    merges = counters["merge_sorted_slots"].launches - m0
+    cohorts = fp.stats["cohorts_v2m"] - c0
+    check(merges == cohorts > 0, f"(e) an18_std's fast bodies launched "
+          f"the merge once a v2m cohort: {merges} vs {cohorts}")
+    plan_bodies = [{"query": {"match": {"title": {
+        "query": b["query"]["match"]["title"], "boost": 1.0}}},
+        "size": 100} for b in fast_bodies]
+    with on_card():
+        plan, _, _ = drive(port, plan_bodies, 4, "an18_std")
+    for j, ((st, a), (st2, p)) in enumerate(zip(fast, plan)):
+        check(st == st2 == 200, f"(e) an18_std body {j}")
+        same_hits(a, p, f"(e) an18_std fast body {j} against the plan "
+                        f"path")
+    out["fast"] = dict(front_an18=f1, merges=merges, v2m_cohorts=cohorts,
+                       registered=reg and reg["index"])
+    lap("e_fast")
+
+    # ---- (f) _reindex into another analyzer, then the by-query family
+    st, r = http(port, "PUT", "/an18_en", {
+        "settings": {"index": {"number_of_shards": 1, "analysis": {
+            "filter": {"more_stop": {"type": "stop",
+                                     "stopwords": ["run", "walk"]}},
+            "analyzer": {"en_stop": {
+                "type": "custom", "tokenizer": "standard",
+                "filter": ["lowercase", "stop", "more_stop",
+                           "porter_stem"]}}}}},
+        "mappings": {"properties": {
+            "title": {"type": "text"},
+            "body": {"type": "text", "analyzer": "en_stop"},
+            "tags": {"type": "text", "analyzer": "whitespace"}}}})
+    check(st == 200, f"(f) PUT an18_en: {r}")
+    t0 = time.time()
+    with on_card():
+        st, rr = http(port, "POST", "/_reindex?refresh=true", {
+            "source": {"index": "an18"}, "dest": {"index": "an18_en"}})
+    reindex_s = time.time() - t0
+    check(st == 200 and rr["created"] == rr["total"] == AN_DOCS
+          and not rr["failures"], f"(f) _reindex: {str(rr)[:300]}")
+    st, c1 = http(port, "GET", "/an18/_count")
+    st2, c2 = http(port, "GET", "/an18_en/_count")
+    check(c1["count"] == c2["count"] == AN_DOCS, f"(f) totals {c1} {c2}")
+    # one term's docs through a script, another term's deleted
+    # two terms of about 500 docs each
+    pf = svc.engine.segments[0].postings["body"]
+    near = np.argsort(np.abs(np.asarray(pf.doc_freq, np.int64) - 500),
+                      kind="stable")
+    t_upd, t_del = pf.terms[int(near[0])], pf.terms[int(near[1])]
+    ids_upd = AnalyzedOracle.topk(list(zip(
+        oracles["body"].ids, oracles["body"].scores([t_upd]))), AN_DOCS)[0]
+    ids_del = AnalyzedOracle.topk(list(zip(
+        oracles["body"].ids, oracles["body"].scores([t_del]))), AN_DOCS)[0]
+    with on_card():
+        st, ru = http(port, "POST", "/an18/_update_by_query?refresh=true", {
+            "query": {"term": {"body": t_upd}},
+            "script": {"source": "ctx._source.tags += ' touched18'"}})
+    check(st == 200 and ru["updated"] == ru["total"] == len(ids_upd),
+          f"(f) _update_by_query: {str(ru)[:300]} vs {len(ids_upd)}")
+    st, mg = http(port, "POST", "/an18/_mget",
+                  {"ids": [str(i) for i in ids_upd.tolist()]})
+    check(all(d["found"] and d["_source"]["tags"].endswith(" touched18")
+              for d in mg["docs"]), "(f) _mget of the updated ids")
+    with on_card():
+        st, rt = http(port, "POST", "/an18/_search", {
+            "query": {"match": {"tags": "touched18"}}, "size": 0,
+            "track_total_hits": True})
+        st, rd = http(port, "POST", "/an18/_delete_by_query?refresh=true",
+                      {"query": {"term": {"body": t_del}}})
+    check(rt["hits"]["total"]["value"] == len(ids_upd),
+          f"(f) the updated docs found by their new tag: {rt['hits']}")
+    check(st == 200 and rd["deleted"] == rd["total"] == len(ids_del),
+          f"(f) _delete_by_query: {str(rd)[:300]} vs {len(ids_del)}")
+    st, mg = http(port, "POST", "/an18/_mget",
+                  {"ids": [str(i) for i in ids_del.tolist()]})
+    check(not any(d["found"] for d in mg["docs"]),
+          "(f) _mget of the deleted ids")
+    with on_card():
+        st, c3 = http(port, "GET", "/an18/_count")
+    check(c3["count"] == AN_DOCS - len(ids_del),
+          f"(f) the total after the delete: {c3}")
+    # the oracle again over what the segments now hold
+    segs = node.indices["an18"].engine.segments
+    post = AnalyzedOracle(segs, "body")
+    q = {"query": {"match": {"body": f"{t_upd} {t_del}"}}, "size": AN_SIZE}
+    with on_card():
+        st, r = http(port, "POST", "/an18/_search", q)
+    an_check(r, AnalyzedOracle.topk(list(zip(post.ids, post.scores(
+        [t_upd, t_del]))), AN_SIZE), "(f) after the by-query writes")
+    same_as_cpu(r, cpu.search("an18", q), "(f) after the by-query writes")
+    out["reindex"] = dict(seconds=reindex_s, docs_per_s=AN_DOCS / reindex_s,
+                          batches=rr["batches"], updated=ru["updated"],
+                          update_s=ru["took"] / 1e3,
+                          deleted=rd["deleted"], delete_s=rd["took"] / 1e3)
+    log(f"[analysis] reindex {out['reindex']}")
+    lap("f_reindex")
+
+    # ---- (g) the kernels' counts, the breaker
+    for name in ("an18_en", "an18_std"):
+        check(http(port, "DELETE", f"/{name}")[0] == 200, f"(g) delete {name}")
+    hbm_agrees(node, "analysis", hbm_log)
+    calls = card["kernels_calls"]
+    launches = {n: c.launches for n, c in counters.items()}
+    check(card["launches"] == launches,
+          f"(g) every launch of the phase was on the card: {card} "
+          f"{launches}")
+    # every fast cohort here is a v2m cohort: one launch of each kernel
+    check(card["cohorts"] == card["cohorts_v2m"] > 0
+          and launches["gather_bm25_contrib"]
+          == card["scorings"] + card["cohorts"]
+          and card["scorings"] > 0
+          and launches["merge_sorted_slots"] == card["cohorts_v2m"]
+          and calls == launches,
+          f"(g) the contribution kernel once a dense BM25 scoring "
+          f"({card['scorings']}) and once a fast cohort, the merge once a "
+          f"v2m cohort ({card['cohorts_v2m']} of {card['cohorts']}), "
+          f"/_kernels agrees: {launches} vs {calls}")
+    out["launches"] = launches
+    out["kernels_calls"] = calls
+    out["dense_scorings"] = card["scorings"]
+    out["fast_cohorts"] = card["cohorts"]
+    out["steps_s"] = steps
+    out["phase_s"] = time.time() - t_phase
+    torch.cuda.synchronize()
+    log(f"[analysis] {json.dumps(out)[:3000]}")
+    return out
+
+
 class PhaseClock:
     """The wall seconds of each phase, one lap a phase
     (``{"phase_seconds": ...}``)."""
@@ -9698,6 +10308,11 @@ def main(argv=None) -> int:
                                   logs, cols, args.seed + 14,
                                   args.seed + 18, counters, hbm_log)
         clock.lap("17_contexts")
+
+        # ---- 18. analysis, term vectors and the by-query family
+        analysis = phase_analysis(node, port, args.seed + 19, counters,
+                                  cpu, hbm_log)
+        clock.lap("18_analysis")
     finally:
         node.close()
 
@@ -9706,7 +10321,7 @@ def main(argv=None) -> int:
                                   hbm_log)
     clock.lap("16_durability")
 
-    # ---- 18. report
+    # ---- 19. report
     meta = {
         "gather_bm25_contrib": dict(
             source="elasticsearch_tpu_torch/csrc/bm25_contrib.cu",
@@ -9745,6 +10360,7 @@ def main(argv=None) -> int:
             launches_mesh=mesh["launches"][name],
             launches_durability=durability["launches"][name],
             launches_contexts=contexts["launches"][name],
+            launches_analysis=analysis["launches"][name],
             dense_shape=(dense["contrib_dense_shape"]
                          if name == "gather_bm25_contrib" else None)))
     print(json.dumps({"scale": scale}))
@@ -9766,6 +10382,7 @@ def main(argv=None) -> int:
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"durability": durability}))
     print(json.dumps({"contexts": contexts}))
+    print(json.dumps({"analysis": analysis}))
     print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))

@@ -749,3 +749,162 @@ def qa_answer_objects(ans) -> List[Dict[str, Any]]:
                     "score": int(s),
                     "text": " ".join(qa_word(int(w)) for w in row[:ln])})
     return out
+
+
+# English-like text for the analysis slice: inflected forms of a stem
+# list (run, runs, running, runner, ...), the English stop words at about
+# their natural share of running text, and a few of each kind of word an
+# analysis chain treats apart: HTML markup, accented forms, hyphenated
+# and camel-case words. Every filter of ANALYSIS_SETTINGS changes some
+# token of it.
+EN_STEMS = (
+    "run walk jump talk play work read write build cook clean open close "
+    "start stop move turn help call look watch listen learn teach drive "
+    "ride swim climb paint draw sing dance travel visit plan test check "
+    "fix print load save send share store search sort count measure "
+    "connect report market manage process produce design develop deploy "
+    "control monitor balance charge change create deliver explore follow "
+    "gather govern hunt index judge keep launch limit mark mount need "
+    "order pack pass post press pull push rain rest roll rush seal shift "
+    "sign sink skip smell spark stack stand step stock stream strike "
+    "surf switch tag track trade train treat trust value view vote wash "
+    "wave wish yield zoom act add aim air ask back bank base bear beat "
+    "bend bill bind blow board boat bond book boot bound bowl brand break "
+    "bridge brush burn camp care carry cast catch cause cover crash cross "
+    "crowd cycle damage deal debate defend demand depend doubt dream dress "
+    "drill drop dump earn edit end enter escape expect export fail fall "
+    "fear feed fill film find fire fish flash float flow fold force form "
+    "frame fund garden glow grab grant grip ground grow guard guess guide "
+    "hand handle harm head heat hold hope host house hurt import increase "
+    "interest iron join kick kill kiss land last laugh lead lean lift "
+    "light link list live lock log love mail match mean meet mind mix "
+    "name nation note offer operate own park part pay pick place point "
+    "pour power price print profit protect prove quote race rate reach "
+    "record reduce relate remain rent repair repeat reply rescue respect "
+    "return review ring rock root rule sail scale score screen season "
+    "seat sense serve settle shape shine shock shop show sight sleep slide "
+    "smile smoke snow sound space spell spend spin spot spread spring "
+    "state station stay steer stick storm strain stress string study "
+    "style suit supply support surface survey swing table taste tax "
+    "tear tend term thank thread throw tie time tip title touch tour "
+    "trace train trap travel trick trip trouble turn type unit use vary "
+    "visit voice wait wake want warm warn waste water wear weigh whistle "
+    "wind wire wonder word wrap").split()
+EN_SUFFIXES = ("", "s", "ed", "ing", "er", "ers", "ly", "ness", "ful",
+               "ation", "ations", "ational", "ive", "ize", "izes", "ized",
+               "ment", "ments", "able", "ity")
+EN_STOP = ("a", "an", "and", "are", "as", "at", "be", "but", "by", "for",
+           "if", "in", "into", "is", "it", "no", "not", "of", "on", "or",
+           "such", "that", "the", "their", "then", "there", "these",
+           "they", "this", "to", "was", "will", "with")
+EN_ACCENTED = ("café", "naïve", "crème", "brûlée", "résumé", "façade",
+               "über", "jalapeño", "déjà", "coöperate", "fiancée",
+               "piñata", "garçon", "señor", "smörgåsbord", "Zürich",
+               "Ångström", "élan", "rôle", "soufflé")
+EN_HYPHENATED = ("state-of-the-art", "well-known", "long-term",
+                 "high-quality", "real-time", "open-source", "up-to-date",
+                 "end-to-end", "follow-up", "run-time", "e-mail",
+                 "check-in", "log-in", "start-up", "sign-off")
+EN_CAMEL = ("PowerShot", "iPhone", "XMLHttp", "WiFi500", "DataStream",
+            "PowerPoint", "JavaScript", "YouTube", "MacBook", "PlayStation",
+            "eBay", "SmartPhone", "OpenSearch", "HttpClient", "GPUs2024")
+EN_MARKUP = ("<b>{}</b>", "<i>{}</i>", "<em>{}</em>", "<p>{}</p>",
+             "{} &amp;", "&lt;{}&gt;")
+EN_STOP_SHARE = 0.30
+EN_SPECIAL_SHARE = 0.02      # each of accented, hyphenated, camel, markup
+
+
+def english_forms() -> List[str]:
+    """The inflected word forms: every stem with every suffix (a doubled
+    final e dropped), in a fixed order."""
+    out = []
+    seen = set()
+    for stem in EN_STEMS:
+        for suf in EN_SUFFIXES:
+            w = (stem[:-1] if stem.endswith("e") and suf[:1] in "aeiy"
+                 and suf else stem) + suf
+            if w not in seen:
+                seen.add(w)
+                out.append(w)
+    return out
+
+
+def english_text(rng: np.random.Generator, n_words: np.ndarray,
+                 forms: List[str]) -> List[str]:
+    """One text of ``n_words[i]`` words for each i: Zipf-drawn forms, stop
+    words at EN_STOP_SHARE, and each special kind at EN_SPECIAL_SHARE;
+    the first word of a text capitalized and a period at its end."""
+    total = int(n_words.sum())
+    ranks = rng.zipf(1.1, total) - 1
+    words = np.asarray(forms, dtype=object)[ranks % len(forms)]
+    kind = rng.random(total)
+    stop = kind < EN_STOP_SHARE
+    words[stop] = np.asarray(EN_STOP, dtype=object)[
+        rng.integers(0, len(EN_STOP), int(stop.sum()))]
+    lo = EN_STOP_SHARE
+    for pool in (EN_ACCENTED, EN_HYPHENATED, EN_CAMEL):
+        sel = (kind >= lo) & (kind < lo + EN_SPECIAL_SHARE)
+        words[sel] = np.asarray(pool, dtype=object)[
+            rng.integers(0, len(pool), int(sel.sum()))]
+        lo += EN_SPECIAL_SHARE
+    sel = np.nonzero((kind >= lo) & (kind < lo + EN_SPECIAL_SHARE))[0]
+    fmt = rng.integers(0, len(EN_MARKUP), len(sel))
+    for i, f in zip(sel.tolist(), fmt.tolist()):
+        words[i] = EN_MARKUP[f].format(words[i])
+    out = []
+    pos = 0
+    for n in n_words.tolist():
+        ws = words[pos:pos + n].tolist()
+        pos += n
+        if ws:
+            ws[0] = ws[0][:1].upper() + ws[0][1:]
+        out.append(" ".join(ws) + ".")
+    return out
+
+
+def english_docs(n_docs: int, rng: np.random.Generator,
+                 body_words: int = 24) -> List[Dict[str, str]]:
+    """``n_docs`` documents of ``title`` (3-8 words), ``body`` (lognormal
+    around ``body_words``, clipped to [4, 96]) and ``tags`` (1-4 forms
+    and camel-case words, space-separated)."""
+    forms = english_forms()
+    titles = english_text(rng, rng.integers(3, 9, n_docs), forms)
+    lens = np.clip(np.round(rng.lognormal(np.log(body_words), 0.5, n_docs)),
+                   4, 96).astype(np.int64)
+    bodies = english_text(rng, lens, forms)
+    tag_pool = np.asarray(forms[:200] + list(EN_CAMEL), dtype=object)
+    n_tags = rng.integers(1, 5, n_docs)
+    tag_words = tag_pool[rng.integers(0, len(tag_pool), int(n_tags.sum()))]
+    ends = np.cumsum(n_tags)
+    tags = [" ".join(tag_words[e - n:e].tolist())
+            for e, n in zip(ends.tolist(), n_tags.tolist())]
+    return [{"title": t, "body": b, "tags": g}
+            for t, b, g in zip(titles, bodies, tags)]
+
+
+# the analyzed index of the analysis slice: `title` standard, `body`
+# english with a synonym search analyzer, `body.exact` a custom chain of
+# every kind of component, `tags` whitespace
+ANALYSIS_SYNONYMS = ["run, jog", "quick, fast, rapid", "build, construct",
+                     "big, large", "search => find"]
+ANALYSIS_STOPWORDS = ["the", "a", "an", "of", "to", "in", "and", "is"]
+ANALYSIS_SETTINGS = {"index": {"analysis": {
+    "char_filter": {"amp": {"type": "mapping",
+                            "mappings": ["& => and", "ä => ae"]}},
+    "filter": {"en_syn": {"type": "synonym", "synonyms": ANALYSIS_SYNONYMS},
+               "few_stop": {"type": "stop",
+                            "stopwords": ANALYSIS_STOPWORDS}},
+    "analyzer": {
+        "english_syn": {"type": "custom", "tokenizer": "standard",
+                        "filter": ["lowercase", "stop", "en_syn",
+                                   "porter_stem"]},
+        "exact": {"type": "custom", "char_filter": ["html_strip", "amp"],
+                  "tokenizer": "pattern",
+                  "filter": ["lowercase", "asciifolding", "few_stop",
+                             "word_delimiter_graph", "porter_stem"]}}}}}
+ANALYSIS_MAPPINGS = {"properties": {
+    "title": {"type": "text"},
+    "body": {"type": "text", "analyzer": "english",
+             "search_analyzer": "english_syn",
+             "fields": {"exact": {"type": "text", "analyzer": "exact"}}},
+    "tags": {"type": "text", "analyzer": "whitespace"}}}

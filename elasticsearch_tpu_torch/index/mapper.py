@@ -5,7 +5,9 @@ numeric doc values (numbers, booleans and dates, as float64) and dense
 vectors (float32).
 
 Field types, with the reference's class names and ``parse``: ``text``
-(the standard analyzer only), ``keyword``, ``long``, ``integer``,
+(its ``analyzer`` and ``search_analyzer`` names resolved through the
+index's AnalysisRegistry: ``get(name)`` when the index has the name,
+else its ``default``), ``keyword``, ``long``, ``integer``,
 ``short``, ``byte``, ``double``, ``float``, ``half_float``, ``boolean``
 (1.0 / 0.0), ``date`` (epoch milliseconds, from
 ``strict_date_optional_time||epoch_millis``) and ``dense_vector`` (a
@@ -60,8 +62,9 @@ from urllib.parse import unquote
 
 import numpy as np
 
-from elasticsearch_tpu_torch.analysis.analyzers import (SUPPORTED,
-                                                        StandardAnalyzer)
+from elasticsearch_tpu_torch.analysis.analyzers import (AnalysisRegistry,
+                                                        Analyzer,
+                                                        is_builtin_standard)
 from elasticsearch_tpu_torch.analysis.tokenizers import Token
 
 
@@ -107,12 +110,11 @@ class TextFieldType(MappedFieldType):
 
     def __init__(self, name, params=None):
         super().__init__(name, params)
-        for key in ("analyzer", "search_analyzer"):
-            if self.params.get(key, "standard") not in SUPPORTED:
-                raise MapperParsingException(
-                    f"field [{name}] asks for analyzer "
-                    f"[{self.params[key]}]: this slice has the standard "
-                    f"analyzer only")
+        # resolved through the index's AnalysisRegistry when used (a
+        # name the index lacks falls to its default, as the reference's)
+        self.analyzer_name = self.params.get("analyzer", "standard")
+        self.search_analyzer_name = self.params.get("search_analyzer",
+                                                    self.analyzer_name)
 
     def parse(self, value):
         return str(value)
@@ -519,11 +521,7 @@ class TokenCountFieldType(MappedFieldType):
 
     def __init__(self, name, params=None):
         super().__init__(name, params)
-        if self.params.get("analyzer", "standard") not in SUPPORTED:
-            raise MapperParsingException(
-                f"field [{name}] asks for analyzer "
-                f"[{self.params['analyzer']}]: this slice has the standard "
-                f"analyzer only")
+        self.analyzer_name = self.params.get("analyzer", "standard")
 
     def parse(self, value):
         return str(value)
@@ -676,8 +674,9 @@ class SearchAsYouTypeFieldType(TextFieldType):
 
 class ShingleSubFieldType(TextFieldType):
     """A search_as_you_type ``._{n}gram`` subfield: queries analyze with
-    the standard analyzer, then shingle to width n. Not mappable and
-    left out of ``to_mapping``."""
+    the field's search analyzer (its own, the standard one by name),
+    then shingle to width n. Not mappable and left out of
+    ``to_mapping``."""
 
     type_name = "text"
 
@@ -797,11 +796,15 @@ class DocumentMapper:
     (the default) maps it from its first value, ``false`` leaves it
     unindexed (it stays in ``_source``), ``strict`` refuses the
     document. A field's ``copy_to`` indexes its values into the target
-    fields too. ``nested_paths`` holds the paths mapped ``nested``."""
+    fields too. ``nested_paths`` holds the paths mapped ``nested``.
+    ``analysis`` is the index's AnalysisRegistry: a text field indexes
+    with its ``analyzer`` and queries with its ``search_analyzer``
+    (``index_analyzer``, ``search_analyzer``)."""
 
-    def __init__(self, mappings: Optional[Dict[str, Any]] = None):
+    def __init__(self, mappings: Optional[Dict[str, Any]] = None,
+                 analysis: Optional[AnalysisRegistry] = None):
         self.fields: Dict[str, MappedFieldType] = {}
-        self.analyzer = StandardAnalyzer()
+        self.analysis = analysis or AnalysisRegistry()
         self.dynamic = "true"
         self.nested_paths: set = set()
         if mappings:
@@ -810,6 +813,27 @@ class DocumentMapper:
 
     def field_type(self, name: str) -> Optional[MappedFieldType]:
         return self.fields.get(name)
+
+    def index_analyzer(self, ft: Optional[MappedFieldType]) -> Analyzer:
+        """The analyzer ``ft`` indexes with (``standard`` by name for a
+        field without one)."""
+        return self.analysis.resolve(getattr(ft, "analyzer_name",
+                                             "standard"))
+
+    def search_analyzer(self, ft: Optional[MappedFieldType]) -> Analyzer:
+        """The analyzer a query on ``ft`` analyzes with: its
+        ``search_analyzer``, else its ``analyzer``, else ``standard``."""
+        return self.analysis.resolve(getattr(
+            ft, "search_analyzer_name",
+            getattr(ft, "analyzer_name", "standard")))
+
+    def standard_analyzed(self, ft: Optional[MappedFieldType]) -> bool:
+        """Whether ``ft`` indexes and searches with the builtin standard
+        analyzer itself, the one the fast path's C++ tokenizer mirrors
+        (an index whose ``analysis`` redefines ``standard`` or
+        ``default`` fails this for its fields)."""
+        return (is_builtin_standard(self.index_analyzer(ft))
+                and is_builtin_standard(self.search_analyzer(ft)))
 
     def _add_properties(self, prefix: str, props: Dict[str, Any]):
         for name, conf in props.items():
@@ -1038,15 +1062,17 @@ class DocumentMapper:
         annotations = []
         if isinstance(ft, AnnotatedTextFieldType):
             text, annotations = parse_annotated_text(text)
+        analyzer = self.index_analyzer(ft)
         toks = parsed.text_tokens.get(ft.name)
         if (toks is None and not annotations
                 and not isinstance(ft, SearchAsYouTypeFieldType)):
-            # the field's first value: its terms, no Token a term yet
-            parsed.text_tokens[ft.name] = self.analyzer.index_terms(text)
+            # the field's first value: the standard analyzer's ASCII
+            # terms alone (a TermRun), any other analyzer's Tokens
+            parsed.text_tokens[ft.name] = analyzer.index_terms(text)
             return
         toks = parsed.text_tokens[ft.name] = list(toks or ())
         base = toks[-1].position + 100 if toks else 0
-        new_toks = self.analyzer.analyze(text)
+        new_toks = analyzer.analyze(text)
         if base:
             new_toks = [Token(t.term, base + t.position, t.start_offset,
                               t.end_offset) for t in new_toks]
@@ -1103,7 +1129,7 @@ class DocumentMapper:
                         f"{ft.name}.{path}", []).append(term)
             elif kind == "token_count":
                 parsed.numeric_values.setdefault(ft.name, []).append(
-                    float(len(self.analyzer.analyze(typed))))
+                    float(len(self.index_analyzer(ft).analyze(typed))))
             elif kind == "geo":
                 lat, lon = typed
                 parsed.numeric_values.setdefault(f"{ft.name}.lat",

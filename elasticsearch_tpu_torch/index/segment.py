@@ -633,9 +633,10 @@ class SegmentWriter:
 def _build_text_field(f: str, docs) -> Tuple[PostingsField, TokenStreams]:
     """One text field's postings and token streams from its tokens, in
     array ops: terms sorted, docids ascending within a term, tf the
-    within-doc count; each token at its position up to
-    ``MAX_STREAM_LEN``, the first token written keeping a shared
-    position."""
+    within-doc count, the field length the count of tokens emitted;
+    each token at its own position (a stop word's stays a -1 hole) up
+    to ``MAX_STREAM_LEN``, the first token written keeping a shared
+    position (a synonym stacked on a word)."""
     n = len(docs)
     lengths = np.zeros(n, np.float32)
     flat: List[str] = []
@@ -668,6 +669,13 @@ def _build_text_field(f: str, docs) -> Tuple[PostingsField, TokenStreams]:
     last[has] = pos[np.cumsum(counts)[has] - 1] + 1
     max_len = min(MAX_STREAM_LEN, int(last.max()) if n else 0)
     keep = pos < max_len
+    if not keep.all():
+        # a doc's row stops at its first token past the row, as the
+        # reference's loop breaks there (a later token of a smaller
+        # position, a catenated word part, is not written either)
+        over = np.cumsum(~keep)
+        before = np.concatenate(([0], over))[np.cumsum(counts) - counts]
+        keep = over == np.repeat(before, counts)
     slot = tok_doc[keep] * max_len + pos[keep]
     slot, first = np.unique(slot, return_index=True)
     tokens = np.full(n * max_len, -1, np.int32)

@@ -24,6 +24,11 @@ A shard engine names its segments ``{index}[{shard}]_{n}``, so the
 node's device cache, which keys on segment names, holds every shard's
 segments apart.
 
+An index's analyzers come from its settings (analysis/analyzers.py
+``AnalysisRegistry``, built once when the index opens, as the
+reference's MapperService builds it): a mapping update keeps them, and a
+settings update reaches them when the index opens again.
+
 Index state, as the reference keeps it in the index's settings:
 ``index.state: close`` closes an index (it keeps its files; a write is
 a 403 ``cluster_block_exception``, a document read or a search that
@@ -48,6 +53,7 @@ import shutil
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
+from elasticsearch_tpu_torch.analysis.analyzers import AnalysisRegistry
 from elasticsearch_tpu_torch.common.errors import (
     ClusterBlockException, IllegalArgumentException, IndexClosedException,
     IndexNotFoundException, InvalidIndexNameException,
@@ -82,7 +88,9 @@ class IndexService:
                                             1, 1, MAX_SHARDS)
         self.k1 = float(flat.get("index.similarity.default.k1", 1.2))
         self.b = float(flat.get("index.similarity.default.b", 0.75))
-        self.mapper = DocumentMapper(mappings)
+        # the index's analyzers, from its ``analysis.*`` and
+        # ``index.analysis.*`` settings; a mapping update keeps them
+        self.mapper = DocumentMapper(mappings, AnalysisRegistry(flat))
         os.makedirs(path, exist_ok=True)
         self.shards: List[Engine] = [
             Engine(os.path.join(path, str(i)), self.mapper,
@@ -115,7 +123,7 @@ class IndexService:
 
     def update_mappings(self, mappings: Dict[str, Any]) -> None:
         """Merge a mapping update; a field may not change its type."""
-        incoming = DocumentMapper(mappings)
+        incoming = DocumentMapper(mappings, self.mapper.analysis)
         for path, ft in incoming.fields.items():
             existing = self.mapper.fields.get(path)
             if existing is not None and existing.type_name != ft.type_name:

@@ -253,7 +253,8 @@ class Node:
     def refresh_front(self) -> None:
         """Point the C++ front at the index it should serve fast: of the
         open indices without a read block, of one shard with one segment
-        and exactly one text field in it, the one with the most
+        and exactly one text field in it, that field indexing and
+        searching with the builtin standard analyzer, the one with the most
         documents (the first on a tie); none when there is none, or when
         that segment alone passes the hbm limit. An index of several
         shards is never registered (the reference registers
@@ -269,7 +270,12 @@ class Node:
                 continue
             text = [f for f in segs[0].postings
                     if isinstance(svc.mapper.field_type(f), TextFieldType)]
-            if len(text) != 1:
+            # the C++ tokenizer mirrors the builtin standard analyzer
+            # only: a field of another analyzer (a redefined standard or
+            # default included) is served by the plan path (the
+            # reference checks the search analyzer's name only)
+            if len(text) != 1 or not svc.mapper.standard_analyzed(
+                    svc.mapper.field_type(text[0])):
                 continue
             if best is None or segs[0].n_docs > best[1].n_docs:
                 best = (svc, segs[0], text[0])

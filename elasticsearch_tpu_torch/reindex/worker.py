@@ -1,19 +1,42 @@
-"""The update-script context of ``_update`` and the `_bulk` update item
-(the port's copy of elasticsearch_tpu/reindex/worker.py's update-script
-part: ``_SourceProxy``, ``_Ctx``, ``UpdateScript`` and
-``compile_update_script``). A script mutates ``ctx._source`` and may set
-``ctx.op`` to ``none`` (a noop) or ``delete``. The scroll and bulk
-worker behind `_reindex` and `_update_by_query` is a later slice.
+"""The scroll and bulk worker behind `_reindex`, `_update_by_query` and
+`_delete_by_query`, and the update-script context of ``_update`` and the
+`_bulk` update item (the port's copy of
+elasticsearch_tpu/reindex/worker.py).
+
+The worker reads its source through a scroll that survives a lost
+context (search/service.py ``resumable_scroll_batches``: every page a
+search of the search service, so a scored ``query`` runs on the device
+as any `_search` does), transforms each hit (a script, the destination's
+``op_type`` and ``version_type``), writes it through the index service,
+and counts created, updated, deleted, noops and version conflicts in a
+``BulkByScrollResponse``; ``conflicts: proceed`` counts a conflict where
+``abort`` stops at it; ``requests_per_second`` paces the batches
+(``_Throttle``); ``slices``/``slice_id`` keep the hits whose id hashes
+to the slice. Everything runs synchronously: a remote source,
+``wait_for_completion=false`` and ``_rethrottle`` need the task manager
+and the client of a later slice and answer a typed 400
+(``SliceUnsupported``), as does an ingest ``pipeline``.
+
+An update script mutates ``ctx._source`` and may set ``ctx.op`` to
+``none``/``noop`` (nothing is written) or ``delete``.
 """
 
 from __future__ import annotations
 
 import ast
-from typing import Any, Dict, Optional
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
 
-from elasticsearch_tpu_torch.common.errors import ScriptException
+from elasticsearch_tpu_torch.common.errors import (
+    IllegalArgumentException, ScriptException,
+    VersionConflictEngineException)
 from elasticsearch_tpu_torch.script import contexts as _plctx
 from elasticsearch_tpu_torch.script.interp import PainlessError
+from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
+
+_SCROLL_KEEPALIVE = "5m"
+_DEFAULT_BATCH = 1000
 
 
 _ALLOWED_STMT = (ast.Module, ast.Assign, ast.AugAssign, ast.Expr, ast.If,
@@ -190,3 +213,342 @@ def compile_update_script(spec: Any) -> Optional[UpdateScript]:
     if isinstance(spec, str):
         return UpdateScript(spec)
     return UpdateScript(spec.get("source", ""), spec.get("params"))
+
+
+# ----------------------------------------------------------------- the worker
+
+
+@dataclass
+class BulkByScrollResponse:
+    took_millis: int = 0
+    total: int = 0
+    created: int = 0
+    updated: int = 0
+    deleted: int = 0
+    noops: int = 0
+    batches: int = 0
+    version_conflicts: int = 0
+    throttled_millis: int = 0
+    requests_per_second: float = -1.0
+    failures: List[Dict[str, Any]] = field(default_factory=list)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "took": self.took_millis, "timed_out": False,
+            "total": self.total, "created": self.created,
+            "updated": self.updated, "deleted": self.deleted,
+            "batches": self.batches, "noops": self.noops,
+            "version_conflicts": self.version_conflicts,
+            "retries": {"bulk": 0, "search": 0},
+            "throttled_millis": self.throttled_millis,
+            "requests_per_second": self.requests_per_second,
+            "throttled_until_millis": 0,
+            "failures": self.failures,
+        }
+
+
+def needs_task_manager(what: str) -> SliceUnsupported:
+    return SliceUnsupported(
+        f"{what} needs the task manager (transport/tasks.py), a later "
+        f"slice of the port; this slice runs the reindex family "
+        f"synchronously")
+
+
+def _scroll_batches(node, index, search_body, batch_size):
+    """Lists of hits of ``index`` from a scroll snapshot, through the
+    resumable drain: a context lost mid-drain re-opens at the last
+    continuation point, so no batch is applied twice."""
+    from elasticsearch_tpu_torch.search.service import \
+        resumable_scroll_batches
+    yield from resumable_scroll_batches(
+        node.search_service, index, search_body, batch_size,
+        keep_alive=_SCROLL_KEEPALIVE)
+
+
+def _slice_filter(slices: int, slice_id: int, hit_id: str) -> bool:
+    if slices <= 1:
+        return True
+    from elasticsearch_tpu_torch.index.mapper import murmur3_hash
+    return abs(murmur3_hash(hit_id)) % slices == slice_id
+
+
+class _Throttle:
+    """``requests_per_second`` pacing: after a batch of ``n_ops``, sleep
+    what is left of ``n_ops / rps`` (at most a second a batch)."""
+
+    def __init__(self, rps: float):
+        self.rps = rps
+        self.throttled_ms = 0
+
+    def pause_after(self, n_ops: int, elapsed_s: float):
+        if self.rps is None or self.rps <= 0:
+            return
+        delay = n_ops / self.rps - elapsed_s
+        if delay > 0:
+            delay = min(delay, 1.0)
+            time.sleep(delay)
+            self.throttled_ms += int(delay * 1000)
+
+
+def _parse_rps(params: Dict[str, Any]) -> float:
+    raw = params.get("requests_per_second", "-1")
+    if raw in ("-1", -1, "", None, "unlimited"):
+        return -1.0
+    return float(raw)
+
+
+def _check_sync(params: Dict[str, Any]) -> None:
+    if params.get("wait_for_completion") == "false":
+        raise needs_task_manager("wait_for_completion=false")
+
+
+def reindex(node, body: Dict[str, Any],
+            params: Dict[str, Any]) -> BulkByScrollResponse:
+    """POST /_reindex from a local source."""
+    _check_sync(params)
+    body = body or {}
+    source = body.get("source") or {}
+    dest = body.get("dest") or {}
+    src_index = source.get("index")
+    dest_index = dest.get("index")
+    if not src_index or not dest_index:
+        raise IllegalArgumentException(
+            "_reindex requires source.index and dest.index")
+    if source.get("remote"):
+        raise SliceUnsupported(
+            "a remote source needs the client (client/), a later slice of "
+            "the port")
+    if dest.get("pipeline"):
+        raise SliceUnsupported("ingest pipelines are a later slice of the "
+                               "port")
+    if isinstance(src_index, list):
+        src_index = ",".join(src_index)
+    conflicts = body.get("conflicts", "abort")
+    max_docs = body.get("max_docs") or body.get("size")
+    op_type = dest.get("op_type", "index")
+    version_type = dest.get("version_type", "internal")
+    script = compile_update_script(body.get("script"))
+    slices = int(params.get("slices", 1) or 1)
+    slice_id = int(params.get("slice_id", 0))
+    rps = _parse_rps(params)
+    throttle = _Throttle(rps)
+
+    search_body: Dict[str, Any] = {}
+    if "query" in source:
+        search_body["query"] = source["query"]
+    if "_source" in source:
+        search_body["_source"] = source["_source"]
+    if version_type == "external":
+        search_body["version"] = True
+
+    resp = BulkByScrollResponse(requests_per_second=rps)
+    start = time.monotonic()
+    batch_size = min(int(source.get("size", _DEFAULT_BATCH)
+                         or _DEFAULT_BATCH), max_docs or 10 ** 9)
+    dest_idx = _ensure_dest(node, dest_index)
+    done = False
+    for hits in _scroll_batches(node, src_index, search_body, batch_size):
+        t_batch = time.monotonic()
+        resp.batches += 1
+        n_ops = 0
+        for hit in hits:
+            if not _slice_filter(slices, slice_id, hit["_id"]):
+                continue
+            if max_docs is not None and resp.total >= max_docs:
+                done = True
+                break
+            resp.total += 1
+            n_ops += 1
+            doc_id = hit["_id"]
+            src = dict(hit.get("_source") or {})
+            op = "index"
+            if script is not None:
+                ctx = _Ctx(src, dest_index, doc_id, hit.get("_version", 1))
+                script.run(ctx)
+                op = ctx.op
+                doc_id = ctx._id
+                src = ctx._source._data
+            if op == "noop":
+                resp.noops += 1
+                continue
+            if op == "delete":
+                r = dest_idx.delete_doc(doc_id)
+                if getattr(r, "found", False):
+                    resp.deleted += 1
+                else:
+                    resp.noops += 1
+                continue
+            try:
+                kwargs: Dict[str, Any] = {}
+                if op_type == "create":
+                    kwargs["op_type"] = "create"
+                if version_type == "external":
+                    # write only over an older destination document
+                    cur = dest_idx.get_doc(doc_id)
+                    if cur.found and cur.version >= hit.get("_version", 1):
+                        raise VersionConflictEngineException(
+                            doc_id,
+                            f"current version [{cur.version}] is higher or "
+                            f"equal to the one provided "
+                            f"[{hit.get('_version', 1)}]")
+                r = dest_idx.index_doc(doc_id, src, **kwargs)
+                if getattr(r, "created", True):
+                    resp.created += 1
+                else:
+                    resp.updated += 1
+            except VersionConflictEngineException as e:
+                resp.version_conflicts += 1
+                if conflicts != "proceed":
+                    resp.failures.append({"index": dest_index, "id": doc_id,
+                                          "cause": str(e), "status": 409})
+                    done = True
+                    break
+        throttle.pause_after(n_ops, time.monotonic() - t_batch)
+        if done:
+            break
+    if params.get("refresh") in ("true", True, ""):
+        dest_idx.refresh()
+    resp.throttled_millis = throttle.throttled_ms
+    resp.took_millis = int((time.monotonic() - start) * 1000)
+    return resp
+
+
+def _ensure_dest(node, index: str):
+    """The destination's index service: an alias's or data stream's
+    write index, created from its template when it does not exist."""
+    index = node.metadata_service.write_target(index)
+    svc = node.indices.get(index)
+    if svc is None:
+        svc = node.create_index_from_template(index)
+    return svc
+
+
+def update_by_query(node, index: str, body: Dict[str, Any],
+                    params: Dict[str, Any]) -> BulkByScrollResponse:
+    """POST /{index}/_update_by_query: each matched document's current
+    version through the script, written back under its seq_no and
+    primary term (a concurrent change is a version conflict)."""
+    _check_sync(params)
+    body = body or {}
+    conflicts = body.get("conflicts", "abort")
+    max_docs = body.get("max_docs")
+    script = compile_update_script(body.get("script"))
+    rps = _parse_rps(params)
+    throttle = _Throttle(rps)
+    resp = BulkByScrollResponse(requests_per_second=rps)
+    start = time.monotonic()
+    search_body: Dict[str, Any] = {}
+    if "query" in body:
+        search_body["query"] = body["query"]
+    idx_cache: Dict[str, Any] = {}
+
+    def idx_for(name):
+        if name not in idx_cache:
+            idx_cache[name] = node.indices.require(name)
+        return idx_cache[name]
+
+    done = False
+    for hits in _scroll_batches(node, index, search_body, _DEFAULT_BATCH):
+        t_batch = time.monotonic()
+        resp.batches += 1
+        n_ops = 0
+        for hit in hits:
+            if max_docs is not None and resp.total >= max_docs:
+                done = True
+                break
+            resp.total += 1
+            n_ops += 1
+            target = hit.get("_index", index)
+            idx = idx_for(target)
+            doc_id = hit["_id"]
+            current = idx.get_doc(doc_id)
+            if not current.found:
+                resp.version_conflicts += 1
+                if conflicts != "proceed":
+                    done = True
+                    break
+                continue
+            src = dict(current.source)
+            op = "index"
+            if script is not None:
+                ctx = _Ctx(src, target, doc_id, current.version)
+                script.run(ctx)
+                op = ctx.op
+                src = ctx._source._data
+            if op == "noop":
+                resp.noops += 1
+                continue
+            if op == "delete":
+                r = idx.delete_doc(doc_id)
+                if getattr(r, "found", False):
+                    resp.deleted += 1
+                continue
+            try:
+                idx.index_doc(doc_id, src, if_seq_no=current.seq_no,
+                              if_primary_term=current.primary_term)
+                resp.updated += 1
+            except VersionConflictEngineException as e:
+                resp.version_conflicts += 1
+                if conflicts != "proceed":
+                    resp.failures.append({"index": target, "id": doc_id,
+                                          "cause": str(e), "status": 409})
+                    done = True
+                    break
+        throttle.pause_after(n_ops, time.monotonic() - t_batch)
+        if done:
+            break
+    if params.get("refresh") in ("true", True, ""):
+        for idx in idx_cache.values():
+            idx.refresh()
+    resp.throttled_millis = throttle.throttled_ms
+    resp.took_millis = int((time.monotonic() - start) * 1000)
+    return resp
+
+
+def delete_by_query(node, index: str, body: Dict[str, Any],
+                    params: Dict[str, Any]) -> BulkByScrollResponse:
+    """POST /{index}/_delete_by_query: each matched document deleted (one
+    gone meanwhile is a version conflict)."""
+    _check_sync(params)
+    body = body or {}
+    if "query" not in body:
+        raise IllegalArgumentException("_delete_by_query requires a query")
+    conflicts = body.get("conflicts", "abort")
+    max_docs = body.get("max_docs")
+    rps = _parse_rps(params)
+    throttle = _Throttle(rps)
+    resp = BulkByScrollResponse(requests_per_second=rps)
+    start = time.monotonic()
+    search_body = {"query": body["query"]}
+    idx_cache: Dict[str, Any] = {}
+    done = False
+    for hits in _scroll_batches(node, index, search_body, _DEFAULT_BATCH):
+        t_batch = time.monotonic()
+        resp.batches += 1
+        n_ops = 0
+        for hit in hits:
+            if max_docs is not None and resp.total >= max_docs:
+                done = True
+                break
+            resp.total += 1
+            n_ops += 1
+            target = hit.get("_index", index)
+            if target not in idx_cache:
+                idx_cache[target] = node.indices.require(target)
+            r = idx_cache[target].delete_doc(hit["_id"])
+            if getattr(r, "found", False):
+                resp.deleted += 1
+            else:
+                resp.version_conflicts += 1
+                if conflicts != "proceed":
+                    done = True
+                    break
+        throttle.pause_after(n_ops, time.monotonic() - t_batch)
+        if done:
+            break
+    if params.get("refresh") in ("true", True, ""):
+        for idx in idx_cache.values():
+            idx.refresh()
+    resp.throttled_millis = throttle.throttled_ms
+    resp.took_millis = int((time.monotonic() - start) * 1000)
+    return resp

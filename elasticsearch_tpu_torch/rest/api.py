@@ -30,9 +30,25 @@ reduced to the routes ported so far):
     PUT|POST /{index}/_shrink/{target}, _split/{target}, _clone/{target}
     POST /{index}/_close          POST /{index}/_open
     PUT  /{index}/_block/{block}  write, read, read_only, metadata
+    GET|POST /_analyze, /{index}/_analyze
+    GET|POST /{index}/_termvectors/{id}   GET|POST /{index}/_mtermvectors
+    POST /_reindex                POST /{index}/_update_by_query
+    POST /{index}/_delete_by_query
     GET  /_kernels                the launch tracker's table
     GET  /_nodes/stats            breakers, pressure, engine, flight recorder
     GET  /_flight_recorder        the launch/readback ring, filtered
+
+A HEAD takes the GET route of its path and answers the GET's status
+with no body.
+
+`_analyze` runs a named analyzer, the analyzer of a ``field`` of the
+named index, or an ad hoc chain (``analyze_answer``); `_termvectors`
+analyzes a document's ``_source`` again with each text field's analyzer
+(``termvectors_of``). `_reindex` (from a local source),
+`_update_by_query` and `_delete_by_query` run synchronously through
+reindex/worker.py and answer its ``BulkByScrollResponse``; a remote
+source, ``wait_for_completion=false`` and ``_rethrottle`` need the task
+manager of a later slice: a typed 400.
 
 The document routes are the reference's handlers, with its bodies,
 statuses and error types: a write answers ``_index``, ``_id``,
@@ -95,7 +111,8 @@ largest bucket, ``size`` <= 1000):
                         "filter"?: MATCH1 | [MATCH1, ...up to 8]}}}
 
 with only ``size``, ``from`` 0, ``_source`` true or false and
-``track_total_hits`` true beside the query; FIELD is a text field, and
+``track_total_hits`` true beside the query; FIELD is a text field whose
+analyzer and search analyzer are the builtin standard one, and
 each MATCH1 is a match on the same field whose text is one token.
 Everything else goes to the plan path (search/service.py): other bool
 shapes, term, terms, constant_score, multi_match, dis_max,
@@ -138,6 +155,9 @@ import time
 import uuid
 from typing import Any, Optional, Tuple
 
+from elasticsearch_tpu_torch.analysis.analyzers import (
+    _CHAR_FILTERS, _TOKEN_FILTERS, _TOKENIZERS, AnalysisRegistry,
+    CustomAnalyzer)
 from elasticsearch_tpu_torch.common.errors import (
     CircuitBreakingException, DocumentMissingException,
     EsRejectedExecutionException, IllegalArgumentException,
@@ -150,9 +170,12 @@ from elasticsearch_tpu_torch.index.mapper import (MapperParsingException,
                                                   TextFieldType)
 from elasticsearch_tpu_torch.index.service import INDEX_NAME
 from elasticsearch_tpu_torch.index.translog import write_batch
-from elasticsearch_tpu_torch.reindex.worker import _Ctx, compile_update_script
+from elasticsearch_tpu_torch.reindex.worker import (
+    _Ctx, compile_update_script, delete_by_query, needs_task_manager,
+    reindex, update_by_query)
 from elasticsearch_tpu_torch.search.fastpath import (MAX_FILTERS,
                                                      SliceUnsupported)
+from elasticsearch_tpu_torch.search.context import ShardStats
 from elasticsearch_tpu_torch.search.queries import ParsingException
 from elasticsearch_tpu_torch.search.service import SEARCH_TYPES
 from elasticsearch_tpu_torch.telemetry import engine as _engine
@@ -288,12 +311,145 @@ def _no_pipeline(params: dict) -> None:
                                "port")
 
 
+def analyze_answer(registry: AnalysisRegistry, body: dict,
+                   mapper=None) -> dict:
+    """The `_analyze` answer (the reference's ``_analyze``): ``text`` (a
+    string or a list) through a named ``analyzer`` (``standard`` by
+    default), the index analyzer of ``field`` when the request names an
+    index (``mapper``) and no analyzer, or an ad hoc chain of
+    ``tokenizer``, ``filter`` and ``char_filter``, each a name (the
+    index's components first) or an inline definition; ``explain``
+    answers each stage's output."""
+    text = body.get("text", "")
+    texts = text if isinstance(text, list) else [text]
+    if "tokenizer" in body or "filter" in body or "char_filter" in body:
+        def build(spec, reg, named, kind):
+            if isinstance(spec, str):
+                built = named.get(spec)
+                if built is not None:
+                    return built
+                name, conf = spec, {}
+            else:
+                conf = dict(spec)
+                name = conf.get("type")
+            factory = reg.get(name)
+            if factory is None:
+                raise IllegalArgumentException(
+                    f"failed to find global {kind} under [{name}]")
+            return factory(conf)
+
+        tok = build(body.get("tokenizer", "standard"), _TOKENIZERS,
+                    registry.named_tokenizers, "tokenizer")
+        filters = [build(f, _TOKEN_FILTERS, registry.named_filters,
+                         "token filter") for f in body.get("filter", [])]
+        char_filters = [build(f, _CHAR_FILTERS, registry.named_char_filters,
+                              "char filter")
+                        for f in body.get("char_filter", [])]
+        analyzer = CustomAnalyzer("_adhoc_", tok, filters, char_filters)
+    elif "analyzer" not in body and "field" in body and mapper is not None:
+        analyzer = mapper.index_analyzer(mapper.field_type(body["field"]))
+    else:
+        analyzer = registry.get(body.get("analyzer", "standard"))
+
+    def rows(toks):
+        return [{"token": t.term, "start_offset": t.start_offset,
+                 "end_offset": t.end_offset, "position": t.position,
+                 "type": "<ALPHANUM>"} for t in toks]
+
+    if body.get("explain") in (True, "true"):
+        # each stage's output: the text after each char filter, the
+        # tokenizer's tokens, then the tokens after each token filter
+        staged = list(texts)
+        charfilters = []
+        for cf in analyzer.char_filters:
+            staged = [cf.apply(x) for x in staged]
+            charfilters.append({"name": cf.name,
+                                "filtered_text": list(staged)})
+        toks = [t for x in staged for t in analyzer.tokenizer.tokenize(x)]
+        detail = {"custom_analyzer": True, "charfilters": charfilters,
+                  "tokenizer": {"name": analyzer.tokenizer.name,
+                                "tokens": rows(toks)},
+                  "tokenfilters": []}
+        for f in analyzer.token_filters:
+            toks = f.filter(toks)
+            detail["tokenfilters"].append({"name": f.name,
+                                           "tokens": rows(toks)})
+        return {"detail": detail}
+    return {"tokens": [row for x in texts
+                       for row in rows(analyzer.analyze(x))]}
+
+
+def termvectors_of(node, index: str, doc_id: Optional[str], body: dict,
+                   routing: Optional[str] = None) -> dict:
+    """One document's term vectors (the reference's ``_termvectors_for``):
+    each text field of its ``_source`` (``fields`` selects) analyzed with
+    the field's analyzer, every term's ``term_freq`` and tokens
+    (position, offsets; the values of an array 100 positions apart),
+    ``doc_freq`` with ``term_statistics``, and the field's ``doc_count``,
+    over every shard's segments; ``index`` may be an alias or a data
+    stream, and ``routing`` finds the document's shard."""
+    if doc_id is None:
+        return {"_index": index, "_id": None, "found": False,
+                "error": {"type": "illegal_argument_exception",
+                          "reason": "[_id] is required"}}
+    index = node.metadata_service.write_target(index)
+    svc = node.indices.require(index)
+    result = svc.get_doc(doc_id, body.get("routing", routing))
+    if not result.found or result.source is None:
+        return {"_index": index, "_id": doc_id, "found": False}
+    source = result.source
+    fields = body.get("fields")
+    want_term_stats = bool(body.get("term_statistics", False))
+    stats = ShardStats([seg for shard in svc.shards
+                        for seg in shard.segments])
+    analysis = svc.mapper.analysis
+    tv = {}
+    for fname, ft in svc.mapper.fields.items():
+        if ft.type_name != "text" or (fields and fname not in fields):
+            continue
+        value = source.get(fname) if isinstance(source, dict) else None
+        if value is None:
+            continue
+        # an analyzer the index lacks falls to the builtin standard one
+        # here (the reference's choice), not to the index's default
+        name = getattr(ft, "analyzer_name", "standard")
+        analyzer = analysis.get(name if analysis.has(name) else "standard")
+        terms = {}
+        pos_base = 0
+        for v in (value if isinstance(value, list) else [value]):
+            max_pos = -1
+            for tok in analyzer.analyze(str(v)):
+                entry = terms.setdefault(tok.term, {"term_freq": 0,
+                                                    "tokens": []})
+                entry["term_freq"] += 1
+                entry["tokens"].append({
+                    "position": pos_base + tok.position,
+                    "start_offset": tok.start_offset,
+                    "end_offset": tok.end_offset})
+                max_pos = max(max_pos, pos_base + tok.position)
+            pos_base = max_pos + 100
+        if want_term_stats:
+            for term, entry in terms.items():
+                entry["doc_freq"] = stats.doc_freq(fname, term)
+        if terms:
+            tv[fname] = {"field_statistics": {
+                "doc_count": stats.field_stats(fname)[0]}, "terms": terms}
+    return {"_index": index, "_id": doc_id, "found": True,
+            "term_vectors": tv}
+
+
 class RestController:
     def __init__(self, node):
         self.node = node
 
     def dispatch(self, method: str, path: str, params: Optional[dict] = None,
                  body: Any = None) -> Tuple[int, Any]:
+        """(status, body) of one request. A HEAD takes the GET route and
+        answers its status with no body (the reference's router; the
+        existence checks of Elasticsearch's clients)."""
+        if method == "HEAD":
+            status, _ = self.dispatch("GET", path, params, body)
+            return status, None
         params = params or {}
         parts = [p for p in path.split("/") if p]
         try:
@@ -312,7 +468,7 @@ class RestController:
     def _route(self, method: str, path: str, parts, params: dict, body):
         n = len(parts)
         if not parts:
-            if method in ("GET", "HEAD"):
+            if method == "GET":
                 return 200, self.node.info()
         elif method == "GET" and parts == ["_kernels"]:
             return self._kernels()
@@ -335,6 +491,14 @@ class RestController:
             return self._bulk(None, params, body)
         elif parts == ["_mget"] and method in ("POST", "GET"):
             return self._mget(None, params, body)
+        elif parts == ["_analyze"] and method in ("POST", "GET"):
+            return 200, analyze_answer(AnalysisRegistry(), body or {})
+        elif parts == ["_reindex"] and method == "POST":
+            return 200, reindex(self.node, body, params).to_dict()
+        elif (n == 3 and parts[0] in ("_reindex", "_update_by_query",
+                                      "_delete_by_query")
+              and parts[2] == "_rethrottle" and method == "POST"):
+            raise needs_task_manager("_rethrottle")
         elif parts[0] in _META_ROUTES:
             handler = self._meta_handler(method, parts, body)
             if handler is not None:
@@ -372,6 +536,12 @@ class RestController:
                 ("_rollover", "POST"): self._rollover,
                 ("_close", "POST"): self._close,
                 ("_open", "POST"): self._open,
+                ("_analyze", "GET"): self._analyze,
+                ("_analyze", "POST"): self._analyze,
+                ("_mtermvectors", "GET"): self._mtermvectors,
+                ("_mtermvectors", "POST"): self._mtermvectors,
+                ("_update_by_query", "POST"): self._update_by_query,
+                ("_delete_by_query", "POST"): self._delete_by_query,
             }.get((action, method))
             if handler is not None:
                 return handler(index, params, body)
@@ -388,6 +558,8 @@ class RestController:
                 ("_update", "POST"): self._update_doc,
                 ("_explain", "GET"): self._explain,
                 ("_explain", "POST"): self._explain,
+                ("_termvectors", "GET"): self._termvectors,
+                ("_termvectors", "POST"): self._termvectors,
                 ("_alias", "PUT"): self._put_alias,
                 ("_alias", "POST"): self._put_alias,
                 ("_aliases", "PUT"): self._put_alias,
@@ -856,7 +1028,8 @@ class RestController:
     def _fast_body(cls, svc, body: dict):
         """(segment, field, text, filter texts) when the body is of the
         fast path's grammar (module docstring) on a text field of the
-        index's one segment (an index of one shard); else None."""
+        index's one segment (an index of one shard) that indexes and
+        searches with the builtin standard analyzer; else None."""
         if (svc.num_shards != 1
                 or set(body) - {"query", "size", "from", "_source",
                          "track_total_hits"}
@@ -896,7 +1069,9 @@ class RestController:
                 return None
         field, text = m
         segments = svc.engine.segments
-        if (not isinstance(svc.mapper.field_type(field), TextFieldType)
+        ft = svc.mapper.field_type(field)
+        if (not isinstance(ft, TextFieldType)
+                or not svc.mapper.standard_analyzed(ft)
                 or len(segments) != 1
                 or field not in segments[0].postings):
             return None
@@ -937,7 +1112,8 @@ class RestController:
         if route is not None:
             seg, field, text, filter_texts = route
             pf = seg.postings[field]
-            analyze = svc.mapper.analyzer.analyze
+            analyze = svc.mapper.search_analyzer(
+                svc.mapper.field_type(field)).analyze
             term_ids = [pf.term_id(t.term) for t in analyze(text)]
             filt = []
             for ft in filter_texts:
@@ -1155,3 +1331,42 @@ class RestController:
         return 200, {"acknowledged": True, "shards_acknowledged": True,
                      "indices": [{"name": n, "blocked": True}
                                  for n in names]}
+
+    # ------------------------------------------- analysis, term vectors
+    def _analyze(self, index: str, params: dict, body):
+        svc = self.node.indices.require(index)
+        return 200, analyze_answer(svc.mapper.analysis, body or {},
+                                   svc.mapper)
+
+    def _termvectors(self, index: str, doc_id: str, params: dict, body):
+        body = dict(body or {})
+        if "fields" in params and "fields" not in body:
+            body["fields"] = params["fields"].split(",")
+        if params.get("term_statistics") in ("true", ""):
+            body["term_statistics"] = True
+        return 200, termvectors_of(self.node, index, doc_id, body,
+                                   params.get("routing"))
+
+    def _mtermvectors(self, index: str, params: dict, body):
+        """Each document's term vectors in its own slot; a failure (a
+        missing index, say) is that slot's ``error``."""
+        body = body or {}
+
+        def one(target, doc_id, spec):
+            try:
+                return termvectors_of(self.node, target, doc_id, spec)
+            except _TYPED as e:
+                return {"_index": target, "_id": doc_id, "found": False,
+                        "error": _typed_error(e)[1]}
+
+        docs = [one(spec.get("_index", index), spec.get("_id"), spec)
+                for spec in body.get("docs", [])]
+        docs += [one(index, doc_id, body) for doc_id in body.get("ids", [])]
+        return 200, {"docs": docs}
+
+    # ----------------------------------------------------- by query
+    def _update_by_query(self, index: str, params: dict, body):
+        return 200, update_by_query(self.node, index, body, params).to_dict()
+
+    def _delete_by_query(self, index: str, params: dict, body):
+        return 200, delete_by_query(self.node, index, body, params).to_dict()

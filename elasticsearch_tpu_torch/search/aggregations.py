@@ -1674,7 +1674,7 @@ def _significant_terms(agg_type, body, sub, ctx, mapper):
 @_bucket_agg("significant_text")
 def _significant_text(agg_type, body, sub, ctx, mapper):
     """The text of the first ``shard_size`` matched docs of each segment,
-    analyzed again (the standard analyzer, the only one a field maps),
+    analyzed again with the field's index analyzer (the postings' terms),
     JLH-scored against the postings' doc frequencies. Sub-aggregations
     are refused, as in the reference."""
     if sub:
@@ -1685,7 +1685,8 @@ def _significant_text(agg_type, body, sub, ctx, mapper):
     min_doc_count = int(body.get("min_doc_count", 3))
     shard_size = int(body.get("shard_size", 200))
     filter_dup = bool(body.get("filter_duplicate_text", False))
-    analyzer = mapper.analyzer
+    analyzer = mapper.analysis.resolve(
+        getattr(mapper.field_type(field), "analyzer_name", None))
     fg_counts: Dict[str, int] = {}
     fg_total = 0
     bg_df: Dict[str, int] = {}

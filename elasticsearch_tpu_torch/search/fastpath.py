@@ -1038,6 +1038,7 @@ class FastPathServer:
                 *ins, dp.avg_len, k1, b, MAX_K, score_dtype=SCORE_DTYPE)
                 for ins in self._v1_inputs(reg, sel, ws, mask_ids)]
             packed = torch.cat([o.to(dev, non_blocking=True) for o in outs])
+            del outs
         else:
             packed = bm25_topk_total_batch(
                 *args, up(sel), up(ws), *tail, dp.avg_len, k1, b, MAX_K,
@@ -1046,6 +1047,9 @@ class FastPathServer:
             ev1.record()
         # ONE device->host copy per cohort, through the tracked funnel
         out = _readback(f"search.fastpath.{lane}_cohort", packed)
+        # the cohort's device buffers go before its answers: a caller
+        # woken by one finds none of them still held on the card
+        del packed, tail
         t2 = time.perf_counter()
         busy = ev0.elapsed_time(ev1) / 1e3 if dev.type == "cuda" else 0.0
         refire: List[_Pending] = []

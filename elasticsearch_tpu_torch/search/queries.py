@@ -215,22 +215,19 @@ class MatchNoneQuery(QueryBuilder):
 
 
 def _analyze_terms(ctx, field: str, text: str) -> List[str]:
-    """A text field's analyzed terms (a search_as_you_type shingle
-    subfield's shingles of them); on any other field the literal value
-    is the one term. ``ctx`` carries the index's ``mapper``."""
+    """A text field's terms through its search analyzer (a
+    search_as_you_type shingle subfield's shingles of them); on any
+    other field the literal value is the one term. ``ctx`` carries the
+    index's ``mapper``."""
     ft = ctx.mapper.field_type(field)
     if isinstance(ft, TextFieldType):
-        terms = _analyze(ctx.mapper, text)
+        terms = ctx.mapper.search_analyzer(ft).terms(text)
         if isinstance(ft, ShingleSubFieldType):
             n = ft.shingle_size
             return [" ".join(terms[i:i + n])
                     for i in range(len(terms) - n + 1)]
         return terms
     return [str(text)]
-
-
-def _analyze(mapper, text: str) -> List[str]:
-    return [t.term for t in mapper.analyzer.analyze(text)]
 
 
 def _text_fields(mapper) -> List[str]:
@@ -1374,19 +1371,23 @@ class MoreLikeThisQuery(QueryBuilder):
                             if isinstance(v, str):
                                 like_texts[f].append(v)
                         break
-        unlike_terms = set()
+        # like and unlike texts analyze with each field's index analyzer
+        analyzers = {f: mapper.index_analyzer(mapper.field_type(f))
+                     for f in fields}
+        unlike_terms: Dict[str, set] = {f: set() for f in fields}
         for ul in self.unlike:
             if isinstance(ul, str):
-                unlike_terms.update(_analyze(mapper, ul))
+                for f in fields:
+                    unlike_terms[f].update(analyzers[f].terms(ul))
         scored: List[Tuple[float, str, str]] = []   # (score, field, term)
         for f in fields:
             counts: Dict[str, int] = {}
             for text in like_texts[f]:
-                for t in _analyze(mapper, text):
+                for t in analyzers[f].terms(text):
                     counts[t] = counts.get(t, 0) + 1
             doc_count, _ = searcher.stats.field_stats(f)
             for t, tf in counts.items():
-                if tf < self.min_term_freq or t in unlike_terms:
+                if tf < self.min_term_freq or t in unlike_terms[f]:
                     continue
                 df = searcher.stats.doc_freq(f, t)
                 if df < self.min_doc_freq:

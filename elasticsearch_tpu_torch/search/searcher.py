@@ -554,10 +554,12 @@ class ShardSearcher:
         ``boundary_max_scan`` and merges the spans of ``matched_fields``.
         Per-field options (else the top level's): ``fragment_size``
         (100), ``number_of_fragments`` (5), ``no_match_size`` (0),
-        ``order`` ("score" or "none"), ``pre_tags``/``post_tags``. Every
-        field analyzes with the standard analyzer, the port's only one."""
+        ``order`` ("score" or "none"), ``pre_tags``/``post_tags``. A
+        field's value analyzes with its index analyzer; each of fvh's
+        ``matched_fields`` with its own search analyzer, over the same
+        value (the reference's choices)."""
         query_terms = _collect_terms(query, self.mapper) if query else {}
-        analyzer = self.mapper.analyzer
+        mapper = self.mapper
         out: Dict[str, List[str]] = {}
         for fname, fspec in (spec.get("fields", {}) or {}).items():
             fspec = fspec or {}
@@ -584,13 +586,15 @@ class ShardSearcher:
                 for m in matched:
                     mterms = query_terms.get(m, set())
                     if mterms:
+                        man = mapper.search_analyzer(mapper.field_type(m))
                         spans.extend((t.start_offset, t.end_offset, t.term)
-                                     for t in analyzer.analyze(value)
+                                     for t in man.analyze(value)
                                      if t.term in mterms)
                 spans.sort()
                 spans = spans[:int(opt("phrase_limit", 256))]
             else:
                 terms = query_terms.get(fname, set())
+                analyzer = mapper.index_analyzer(mapper.field_type(fname))
                 spans = [(t.start_offset, t.end_offset, t.term)
                          for t in analyzer.analyze(value)
                          if t.term in terms] if terms else []
@@ -942,8 +946,11 @@ def _collect_terms(query, mapper) -> Dict[str, set]:
         if node is None:
             return
         if isinstance(node, q.MatchQuery):
+            analyzer = mapper.analysis.resolve(getattr(
+                mapper.field_type(node.field), "search_analyzer_name",
+                "standard"))
             out.setdefault(node.field, set()).update(
-                t.term for t in mapper.analyzer.analyze(str(node.query)))
+                analyzer.terms(str(node.query)))
         elif isinstance(node, q.MultiMatchQuery):
             for f in node.fields:
                 visit(q.MatchQuery(f, node.query))

@@ -12,8 +12,8 @@ dictionary by doc frequency.
 
 Every candidate comes from the shard's term dictionaries on the host:
 suggesters are dictionary problems, not scoring problems, so nothing
-here touches the device. The port analyzes with the standard analyzer,
-its only one.
+here touches the device. The text analyzes with the field's search
+analyzer.
 """
 
 from __future__ import annotations
@@ -87,6 +87,11 @@ def compute_suggest(spec: Dict[str, Any], searchers) -> Dict[str, Any]:
     return out
 
 
+def _field_analyzer(mapper, field: str):
+    """The suggested field's search analyzer."""
+    return mapper.search_analyzer(mapper.field_type(field))
+
+
 def _term_suggest(text: str, cfg: Dict[str, Any], searchers, mapper):
     field = cfg["field"]
     size = int(cfg.get("size", 5))
@@ -96,7 +101,7 @@ def _term_suggest(text: str, cfg: Dict[str, Any], searchers, mapper):
     suggest_mode = cfg.get("suggest_mode", "missing")
     tdict = _TermDict(searchers, field)
     entries = []
-    for tok in mapper.analyzer.analyze(text):
+    for tok in _field_analyzer(mapper, field).analyze(text):
         existing_df = tdict.freqs.get(tok.term, 0)
         if suggest_mode == "missing" and existing_df > 0:
             options: List[Dict[str, Any]] = []
@@ -118,7 +123,7 @@ def _phrase_suggest(text: str, cfg: Dict[str, Any], searchers, mapper):
     size = int(cfg.get("size", 5))
     max_errors = float(cfg.get("max_errors", 1.0))
     tdict = _TermDict(searchers, field)
-    toks = mapper.analyzer.analyze(text)
+    toks = _field_analyzer(mapper, field).analyze(text)
     if not toks:
         return [{"text": text, "offset": 0, "length": len(text),
                  "options": []}]

@@ -13,12 +13,16 @@ CPU.
   same answer; the next repeat does not try the essential lane again.
 - An exception inside an essential launch fails its requests and is
   counted; nothing is refired.
+- The drain thread lets go of a cohort's launch output and uploads
+  before it answers the cohort's queries (v2m and the essential lane).
 - Deleting a doc replaces the registration and drops θ, but keeps the
   tables derived from the postings alone (term bounds, hot-term table).
 - A query beyond the largest bucket (the buckets are cut to 8/16/32
   blocks here so a small corpus has such queries) is no fast lane's:
   REST sends it to the plan path, which answers it exactly.
 """
+
+import weakref
 
 import numpy as np
 import pytest
@@ -163,6 +167,54 @@ def test_essential_launch_exception_fails_its_requests(server, corpus,
     counters = fp.serving_stats()["counters"]
     assert counters["cohorts_failed"] == 1 and counters["ess_refires"] == 0
     assert fp.serving_stats()["dispatch"] == {"v2m:1024": 1, "ess:256": 1}
+
+
+@pytest.mark.parametrize("lane", ["v2m", "ess"])
+def test_cohort_buffers_go_before_its_answers(server, corpus, lane,
+                                              monkeypatch):
+    """A caller woken by its answer finds none of its cohort's tensors
+    held: the launch's output and its uploads are gone by then. The
+    readback copies, as the card's device-to-host copy does (on the CPU
+    ``numpy()`` would share the output's memory)."""
+    c, queries = corpus
+    fp, reg, _ = server()
+    q = queries[0]
+    if lane == "ess":
+        fp.search(reg, q, 1000)
+    dp = reg["dp"]
+    kept = {id(t) for t in (dp.block_docids, dp.block_tfs, dp.doc_lens,
+                            reg["masks"], reg["dense_tf"])}
+    held = []
+
+    def watch(fn):
+        def launch(*args, **kw):
+            out = fn(*args, **kw)
+            held.extend(weakref.ref(t) for t in (*args, out)
+                        if isinstance(t, torch.Tensor) and id(t) not in kept)
+            return out
+        return launch
+
+    for name in ("bm25_topk_total_merge_batch",
+                 "bm25_essential_dense_topk_batch", "bm25_topk_total_batch"):
+        monkeypatch.setattr(srv, name, watch(getattr(srv, name)))
+    readback = srv._readback
+    monkeypatch.setattr(srv, "_readback",
+                        lambda site, t: readback(site, t).copy())
+    alive = []
+    answered = fp._answered
+
+    def answer(p):
+        alive.append(sum(r() is not None for r in held))
+        answered(p)
+
+    monkeypatch.setattr(fp, "_answered", answer)
+    d0 = dict(fp.serving_stats()["dispatch"])
+    got = fp.search(reg, q, 1000)
+    assert_oracle(c, q, got)
+    d1 = fp.serving_stats()["dispatch"]
+    assert [key.split(":")[0] for key in d1 if d1[key] != d0.get(key)] \
+        == [lane]
+    assert held and alive == [0]
 
 
 def test_delete_drops_theta(server, corpus):

@@ -116,14 +116,22 @@ def test_merge_segments_match():
 
 
 def test_mapper_refuses_other_field_types():
-    """A type the reference does not know is refused with its name, and
-    a non-standard analyzer; the types of later slices map since the
-    field-type slice (tests/test_torch_field_types.py)."""
+    """A type the reference does not know is refused with its name; the
+    types of later slices map since the field-type slice
+    (tests/test_torch_field_types.py), and a non-standard analyzer maps
+    since the analysis slice (tests/test_torch_analysis.py): the field
+    indexes with it, and a name the index lacks falls to its default,
+    as in the reference."""
     for ftype in ("ip", "geo_point", "integer_range", "constant_keyword"):
         m = DocumentMapper({"properties": {"n": {"type": ftype}}})
         assert m.field_type("n").type_name == ftype
     with pytest.raises(MapperParsingException, match="No handler"):
         DocumentMapper({"properties": {"n": {"type": "made_up"}}})
-    with pytest.raises(MapperParsingException):
-        DocumentMapper({"properties": {"t": {"type": "text",
-                                             "analyzer": "english"}}})
+    m = DocumentMapper({"properties": {
+        "t": {"type": "text", "analyzer": "english"},
+        "u": {"type": "text", "analyzer": "made_up"}}})
+    assert m.index_analyzer(m.field_type("t")).name == "english"
+    assert m.index_analyzer(m.field_type("u")) is m.analysis.default
+    p = m.parse("1", {"t": "Running dogs", "u": "Running dogs"})
+    assert [t.term for t in p.text_tokens["t"]] == ["run", "dog"]
+    assert [t.term for t in p.text_tokens["u"]] == ["running", "dogs"]
