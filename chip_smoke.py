@@ -455,14 +455,49 @@ Phases (any failure exits non-zero; no exception is swallowed):
               the contribution kernel launched once a dense BM25
               scoring, the merge once a v2m cohort, /_kernels agreeing,
               the breaker equal to the resident bytes; {"analysis": ...}
- 19. report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
+ 19. tasks    the task manager and the host search modules, on the
+              main node after phase 18: (a) 8 clients send 64 plan and
+              dense bodies to "bench" while `_tasks?detailed=true` is
+              read: never more search tasks than requests in flight,
+              each with its profile stage; none after, tasks.current 0;
+              (b) a dense body over "bench5" (one launch a shard) run
+              whole, then through `_async_search` with a 0 wait and
+              cancelled by `POST /_tasks/{id}/_cancel` once its first
+              launch shows (its task in its scoring stage): a 400
+              task_cancelled_exception, fewer launches, the breaker at
+              the resident bytes, no plan cohort in flight, asked again
+              equal to the whole answer; an `_msearch` of 64 whose
+              parent is cancelled after its first child answered: the
+              children the ban killed, each answered child equal to its
+              body alone; (c) 32 async plan and dense bodies (0 wait,
+              polled to the end) each equal to its `_search`, a DELETE
+              of a running one a 404 after; (d) `_reindex` of "an18"
+              (max_docs 5,000) with wait_for_completion=false and one
+              `_rethrottle`
+              while it runs, polled through `GET /_tasks/{id}`: counts,
+              `_count` and `_mget` equal a synchronous reindex's; (e)
+              64 `_search/template` bodies (a stored template's fast
+              match bodies, inline plan bodies) each equal to its
+              rendered `_search`, an `_msearch/template` of 32 each
+              slot equal; (f) `_rank_eval` of 16 requests rated from
+              the float64 oracle, once a metric type, each metric equal
+              to numpy's over the port's own `_search` ids; (g)
+              `_terms_enum` prefixes against numpy's sorted dictionary,
+              `_field_caps` of every index against its `_mapping`,
+              `_validate/query`, `_resolve/index` against the metadata,
+              `_cat` rows and `GET /_stats` against `_count` and the
+              segments, a 0ms slow-log threshold catching every search
+              of a burst with its slowest stage; the contribution
+              kernel once a dense scoring and once a fast cohort, the
+              merge once a v2m cohort, /_kernels agreeing; {"tasks": ...}
+ the report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
               script, aggs, accounting, fulltext, fetch, fields, shards,
               aggs_deferred, mesh, durability, contexts, analysis,
-              filters, plan and kernels JSON lines (each kernel's
+              tasks, filters, plan and kernels JSON lines (each kernel's
               launches per phase, launches_aggs_deferred for phase 14,
               launches_mesh for 15, launches_durability for 16,
-              launches_contexts for 17, launches_analysis for 18), the
-              phases' wall seconds
+              launches_contexts for 17, launches_analysis for 18,
+              launches_tasks for 19), the phases' wall seconds
               ({"phase_seconds": ...}), the card's
               name and power limit, and the last line {"ok": true,
               "device": {...}}
@@ -1360,10 +1395,11 @@ def loadgen_pass(node, port, bodies, lanes, conns, reps=1, warmup=0):
                     for b, lane in zip(bodies, lanes) if lane == "plan"}
     planned = []
 
-    def recorded(expression, body, search_type=None, scroll=None):
+    def recorded(expression, body, search_type=None, scroll=None,
+                 task=None):
         planned.append(json.dumps(body.get("query"), sort_keys=True))
         return type(service).search(service, expression, body, search_type,
-                                    scroll)
+                                    scroll, task)
 
     total = len(bodies) * reps
     h0, t0, s0 = node.http_stats(), dict(fp.timing), dict(fp.stats)
@@ -9987,6 +10023,760 @@ def phase_analysis(node, port, seed, counters, cpu, hbm_log):
     return out
 
 
+# ---------------------------------------------------------------- phase 19
+T19_CLIENTS = 8
+T19_LOAD = 64          # (a) bodies from the clients: plan and dense
+T19_MSEARCH = 64       # (b) the _msearch whose parent is cancelled
+T19_ASYNC = 32         # (c) async searches: plan and dense
+T19_TEMPLATES = 64     # (e) _search/template bodies: stored and inline
+T19_MTEMPLATES = 32    # (e) the _msearch/template
+T19_RANK = 16          # (f) rated requests
+T19_SIZE = 100
+T19_RPS = 1000         # (d) the background reindex's pace until rethrottled
+T19_BATCH = 1000       # (d) its scroll batch
+T19_REINDEX = 5000     # (d) its max_docs (an18 holds 10,000: PERF.md 4)
+T19_PREFIXES = 8       # (g) _terms_enum prefixes
+T19_BURST = 8          # (g) the slow log's burst
+T19_MGET = 200         # (d) ids read back from each destination
+RANK_METRICS = (
+    {"precision": {"k": 10}},
+    {"recall": {"k": 20, "relevant_rating_threshold": 2}},
+    {"mean_reciprocal_rank": {"k": 10}},
+    {"dcg": {"k": 20, "normalize": True}},
+    {"expected_reciprocal_rank": {"maximum_relevance": 3, "k": 20}},
+)
+# the fields that change between two answers of one search
+ANSWER_CLOCK = ("took",)
+
+
+def t19_dense_body(terms, k):
+    """A match with ``min_score``: the dense executor, one scoring (a
+    contribution-kernel launch) a shard segment."""
+    from elasticsearch_tpu_torch.corpus import term_name
+    return {"query": {"match": {"title": " ".join(
+        term_name(t) for t in terms)}}, "min_score": 1e-6, "size": k}
+
+
+def same_hits_exactly(a, b, what):
+    """Two answers of the port on the card: hits (ids, order, float32
+    scores) and totals equal."""
+    check(a["hits"]["total"] == b["hits"]["total"],
+          f"{what}: totals {a['hits']['total']} vs {b['hits']['total']}")
+    check([(h["_id"], h["_score"]) for h in a["hits"]["hits"]]
+          == [(h["_id"], h["_score"]) for h in b["hits"]["hits"]],
+          f"{what}: ids, order and scores equal")
+
+
+def np_rank_metric(spec, hits, ratings):
+    """The rank-eval metric ``spec`` over ``hits`` (ids in order) and
+    ``ratings`` ({id: rating}), in numpy (Elasticsearch's definitions)."""
+    (name, p), = spec.items()
+    k = p.get("k", 10)
+    top = list(hits[:k])
+    r = np.array([ratings.get(h, 0) for h in top], np.float64)
+    labelled = np.array([h in ratings for h in top], bool)
+    thr = p.get("relevant_rating_threshold", 1)
+    if name == "precision":
+        keep = labelled if p.get("ignore_unlabeled") else np.ones_like(
+            labelled)
+        n = int(keep.sum())
+        return float(((r >= thr) & keep).sum() / n) if n else 0.0
+    if name == "recall":
+        rel = sum(1 for v in ratings.values() if v >= thr)
+        return float((r >= thr).sum() / rel) if rel else 0.0
+    if name == "mean_reciprocal_rank":
+        at = np.nonzero(r >= thr)[0]
+        return float(1.0 / (at[0] + 1)) if len(at) else 0.0
+    disc = np.log2(np.arange(len(top)) + 2.0)
+    if name == "dcg":
+        dcg = float(((2.0 ** r - 1.0) / disc).sum())
+        if not p.get("normalize"):
+            return dcg
+        ideal = np.sort(np.array(list(ratings.values()), np.float64))[::-1][:k]
+        idcg = float(((2.0 ** ideal - 1.0)
+                      / np.log2(np.arange(len(ideal)) + 2.0)).sum())
+        return dcg / idcg if idcg > 0 else 0.0
+    if name == "expected_reciprocal_rank":
+        stop = (2.0 ** r - 1.0) / 2.0 ** p["maximum_relevance"]
+        go_on = np.concatenate([[1.0], np.cumprod(1.0 - stop)[:-1]])
+        return float((go_on * stop / np.arange(1, len(top) + 1)).sum())
+    raise ValueError(name)
+
+
+def mapping_fields(props, prefix="", out=None):
+    """{field path: type} of a ``_mapping``'s properties: every field
+    with a type, each multi-field under ``fields`` as ``path.sub``, an
+    object's (or a nested object's) properties under its path; the
+    objects themselves are paths, not fields."""
+    out = {} if out is None else out
+    for name, spec in (props or {}).items():
+        path = prefix + name
+        if spec.get("type") not in (None, "object", "nested"):
+            out[path] = spec["type"]
+        for sub, sspec in (spec.get("fields") or {}).items():
+            if "type" in sspec:
+                out[f"{path}.{sub}"] = sspec["type"]
+        if "properties" in spec:
+            mapping_fields(spec["properties"], path + ".", out)
+    return out
+
+
+def phase_tasks(node, port, queries, oracles, seed, counters, hbm_log):
+    """Tasks and the host search modules on one H100 (module docstring,
+    phase 19), on the main node after phase 18."""
+    import torch
+    from elasticsearch_tpu_torch.corpus import term_name
+    from elasticsearch_tpu_torch.search import queries as q_mod
+    from elasticsearch_tpu_torch.telemetry.engine import TRACKER
+    t_phase = time.time()
+    out = {}
+    steps = {}
+    t_step = [time.time()]
+    rng = np.random.default_rng(seed)
+
+    def lap(name):
+        now = time.time()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+
+    fp = node.fastpath
+    tm = node.task_manager
+    batcher = node.search_service.plan_batcher
+    contrib = counters["gather_bm25_contrib"]
+
+    def kernel_calls():
+        _, k = http(port, "GET", "/_kernels")
+        return {n: k["kernels"].get(n, {}).get("calls", 0)
+                for n in counters}
+
+    k_start = kernel_calls()
+    s_start = TRACKER.calls("bm25_dense_scores_sorted")
+    c_start = dict(fp.stats)
+    for c in counters.values():
+        c.launches = 0
+    svc = node.indices["bench"]
+    reg = fp.register("bench", svc.engine.segments[0], "title", svc.k1,
+                      svc.b)
+    v2m = [i for i, q in enumerate(queries)
+           if lane_of(fp, reg, q, T19_SIZE) == "v2m"]
+    check(len(v2m) >= 48, f"v2m queries at size {T19_SIZE}: {len(v2m)}")
+
+    def idle_batcher(what):
+        with batcher._lock:
+            pending = sum(len(q) for q in batcher._pending.values())
+        check(pending == 0 and batcher._lanes_in_flight == 0,
+              f"{what}: no plan cohort in flight ({pending} queued, "
+              f"{batcher._lanes_in_flight} lanes)")
+
+    def search_tasks():
+        st, r = http(port, "GET", "/_tasks?detailed=true")
+        check(st == 200, f"GET /_tasks: {r}")
+        return list(r["nodes"][node.node_id]["tasks"].values())
+
+    # ---- (a) tasks under load: 8 clients, plan and dense bodies
+    load = [plan_body(queries[i], T19_SIZE) if i % 2 == 0
+            else t19_dense_body(queries[i], T19_SIZE)
+            for i in range(T19_LOAD)]
+    started, finished = [0], [0]
+    lock = threading.Lock()
+    snaps = []
+    done_ev = threading.Event()
+
+    def poller():
+        while not done_ev.is_set():
+            with lock:
+                f0 = finished[0]
+            _, r = node.rest_controller.dispatch(
+                "GET", "/_tasks", {"detailed": "true",
+                                   "actions": "indices:data/read/search"},
+                None)
+            tasks = list(r["nodes"][node.node_id]["tasks"].values())
+            with lock:
+                s2 = started[0]
+            snaps.append((len(tasks), s2 - f0,
+                          [t.get("profile_stage") for t in tasks]))
+            done_ev.wait(0.002)
+
+    results = [None] * len(load)
+    nxt = [0]
+
+    def client():
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+                if i >= len(load):
+                    return
+                started[0] += 1
+            results[i] = http(port, "POST", "/bench/_search", load[i])
+            with lock:
+                finished[0] += 1
+
+    th_poll = threading.Thread(target=poller, daemon=True)
+    th_poll.start()
+    t0 = time.time()
+    clients = [threading.Thread(target=client, daemon=True)
+               for _ in range(T19_CLIENTS)]
+    for t in clients:
+        t.start()
+    for t in clients:
+        t.join(600)
+    load_s = time.time() - t0
+    done_ev.set()
+    th_poll.join(60)
+    for i, (st, r) in enumerate(results):
+        check(st == 200, f"(a) body {i}: {st} {str(r)[:300]}")
+        truth, scores, total = oracles[i]
+        check_answer(r, (truth[:T19_SIZE], scores[:T19_SIZE], total),
+                     "plan", f"(a) body {i}")
+    busy = [s for s in snaps if s[0]]
+    check(busy, f"(a) the search tasks were seen in flight ({len(snaps)} "
+          f"snapshots)")
+    check(all(n <= bound for n, bound, _ in snaps),
+          "(a) never more search tasks than requests in flight")
+    check(all(st is not None for _, _, stages in snaps for st in stages),
+          "(a) every listed search task has a profile stage")
+    check(search_tasks() == [], "(a) no task once the traffic stopped")
+    st, ns = http(port, "GET", "/_nodes/stats")
+    check(ns["nodes"][node.node_id]["tasks"]["current"] == 0,
+          f"(a) tasks.current 0: {ns['nodes'][node.node_id]['tasks']}")
+    stages = {}
+    for _, _, ss in snaps:
+        for s in ss:
+            stages[s] = stages.get(s, 0) + 1
+    out["load"] = dict(bodies=len(load), seconds=load_s,
+                       snapshots=len(snaps), busy_snapshots=len(busy),
+                       max_tasks=max(n for n, _, _ in snaps),
+                       stages_seen=stages)
+    log(f"[tasks] (a) {out['load']}")
+    lap("a_load")
+
+    # ---- (b) cancellation on the card: a dense body over bench5
+    body_b = t19_dense_body(queries[v2m[0]], T19_SIZE)
+    l0 = contrib.launches
+    st, whole = http(port, "POST", "/bench5/_search", body_b)
+    torch.cuda.synchronize()
+    big_l = contrib.launches - l0
+    check(st == 200 and big_l >= 2,
+          f"(b) the whole body: {st}, {big_l} launches")
+    orig_scoring = q_mod.bm25_dense_scores_sorted
+    first, go = threading.Event(), threading.Event()
+
+    def gated(*args, **kwargs):
+        result = orig_scoring(*args, **kwargs)
+        if threading.current_thread().name.startswith("async_search-") \
+                and not first.is_set():
+            first.set()
+            go.wait(120)
+        return result
+
+    q_mod.bm25_dense_scores_sorted = gated
+    try:
+        t0 = time.time()
+        l0 = contrib.launches
+        st, a = http(port, "POST",
+                     "/bench5/_async_search?wait_for_completion_timeout=0ms",
+                     body_b)
+        check(st == 200 and a["is_running"] is True,
+              f"(b) submitted, running: {st} {str(a)[:300]}")
+        check(first.wait(120), "(b) its first launch")
+        st, tl = http(port, "GET", "/_tasks?detailed=true&actions="
+                      "indices:data/read/async_search/submit")
+        (tid, task), = tl["nodes"][node.node_id]["tasks"].items()
+        check(str(task.get("profile_stage")).startswith("score"),
+              f"(b) its task in its scoring stage: {task}")
+        st, c = http(port, "POST", f"/_tasks/{tid}/_cancel")
+        check(st == 200 and c["nodes"][node.node_id]["tasks"][tid][
+            "cancelled"] is True, f"(b) cancel: {c}")
+    finally:
+        go.set()
+        q_mod.bm25_dense_scores_sorted = orig_scoring
+    st, done = http(port, "GET", f"/_async_search/{a['id']}"
+                    f"?wait_for_completion_timeout=120s")
+    torch.cuda.synchronize()
+    launched = contrib.launches - l0
+    cancel_ms = (time.time() - t0) * 1e3
+    check(st == 400 and done["error"]["type"] == "task_cancelled_exception"
+          and done["is_partial"] is True and "response" not in done,
+          f"(b) the cancelled search's answer: {st} {str(done)[:300]}")
+    check(1 <= launched < big_l,
+          f"(b) launches {launched} < the whole body's {big_l}")
+    hbm_agrees(node, "tasks (b) cancel", hbm_log)
+    idle_batcher("(b) cancel")
+    st, again = http(port, "POST", "/bench5/_search", body_b)
+    same_hits_exactly(again, whole, "(b) asked again")
+    # the _msearch of 64 whose parent is cancelled after its first child
+    # answered: the other children are held until the cancel went out
+    m_bodies = [plan_body(queries[i], T19_SIZE) for i in range(T19_MSEARCH)]
+    orig_search = node.search_service.search
+    entered = [0]
+    first_done, m_go = threading.Event(), threading.Event()
+
+    def held(*args, **kwargs):
+        if not threading.current_thread().name.startswith("search"):
+            return orig_search(*args, **kwargs)
+        with lock:
+            entered[0] += 1
+            mine = entered[0]
+        if mine == 1:
+            r = orig_search(*args, **kwargs)
+            first_done.set()
+            return r
+        m_go.wait(120)
+        return orig_search(*args, **kwargs)
+
+    lines = "".join(json.dumps({"index": "bench"}) + "\n" + json.dumps(b)
+                    + "\n" for b in m_bodies)
+    m_res = {}
+    node.search_service.search = held
+    try:
+        th = threading.Thread(target=lambda: m_res.setdefault(
+            "r", http(port, "POST", "/_msearch", lines, ndjson=True)),
+            daemon=True)
+        th.start()
+        check(first_done.wait(120), "(b) the first child answered")
+        st, pl = http(port, "GET", "/_tasks?detailed=true&actions="
+                      "indices:data/read/msearch")
+        (pid, parent), = pl["nodes"][node.node_id]["tasks"].items()
+        check(parent["description"] == f"requests[{T19_MSEARCH}]",
+              f"(b) the msearch parent: {parent}")
+        st, _ = http(port, "POST", f"/_tasks/{pid}/_cancel")
+        check(st == 200, "(b) cancel the msearch parent")
+    finally:
+        m_go.set()
+        th.join(300)
+        node.search_service.search = orig_search
+    st, mr = m_res["r"]
+    check(st == 200, f"(b) _msearch: {st}")
+    slots = mr["responses"]
+    answered = [i for i, s in enumerate(slots) if "error" not in s]
+    errors = [s for s in slots if "error" in s]
+    banned = sum("parent banned" in s["error"]["reason"] for s in errors)
+    check(len(answered) >= 1 and banned >= 1
+          and all(s["status"] == 400
+                  and s["error"]["type"] == "task_cancelled_exception"
+                  for s in errors),
+          f"(b) answered {len(answered)}, killed by the ban {banned}, "
+          f"every other a 400 task_cancelled_exception")
+    for i in answered:
+        st, alone = http(port, "POST", "/bench/_search", m_bodies[i])
+        same_hits_exactly(slots[i], alone, f"(b) msearch child {i} alone")
+    check(search_tasks() == [] and tm.ban_count() == 0,
+          "(b) no task and no ban left")
+    idle_batcher("(b) msearch")
+    out["cancel"] = dict(launches=launched, whole_launches=big_l,
+                         cancel_ms=cancel_ms,
+                         msearch=dict(bodies=T19_MSEARCH,
+                                      answered=len(answered),
+                                      killed_by_ban=banned,
+                                      cancelled_running=len(errors) - banned))
+    log(f"[tasks] (b) {out['cancel']}")
+    lap("b_cancel")
+
+    # ---- (c) async search: 32 bodies submitted with a 0 wait
+    a_bodies = [plan_body(queries[i], T19_SIZE) if i % 2 == 0
+                else t19_dense_body(queries[i], T19_SIZE)
+                for i in range(T19_ASYNC)]
+    t0 = time.time()
+    subs = [http(port, "POST",
+                 "/bench/_async_search?wait_for_completion_timeout=0ms", b)
+            for b in a_bodies]
+    check(all(st == 200 for st, _ in subs), "(c) submitted")
+    running = sum(1 for _, r in subs if r["is_running"])
+    polled = [http(port, "GET", f"/_async_search/{r['id']}"
+                   f"?wait_for_completion_timeout=120s") for _, r in subs]
+    async_s = time.time() - t0
+    for i, ((st, r), b) in enumerate(zip(polled, a_bodies)):
+        check(st == 200 and r["is_running"] is False
+              and r["is_partial"] is False, f"(c) async {i}: {st} "
+              f"{str(r)[:300]}")
+        st, sync = http(port, "POST", "/bench/_search", b)
+        same_hits_exactly(r["response"], sync, f"(c) async {i}")
+    # a DELETE of a running one: held in its search until it is gone
+    d_go = threading.Event()
+
+    def held_async(*args, **kwargs):
+        if threading.current_thread().name.startswith("async_search-"):
+            d_go.wait(120)
+        return orig_search(*args, **kwargs)
+
+    node.search_service.search = held_async
+    try:
+        st, a = http(port, "POST",
+                     "/bench/_async_search?wait_for_completion_timeout=0ms",
+                     a_bodies[0])
+        check(st == 200 and a["is_running"] is True, "(c) held, running")
+        st, _ = http(port, "DELETE", f"/_async_search/{a['id']}")
+        check(st == 200, "(c) DELETE a running async search")
+        st, g = http(port, "GET", f"/_async_search/{a['id']}")
+        check(st == 404, f"(c) a deleted search is a 404: {st}")
+    finally:
+        d_go.set()
+        node.search_service.search = orig_search
+    wait_ev = threading.Event()
+    for _ in range(12000):
+        if node.background_threads() == 0:
+            break
+        wait_ev.wait(0.01)
+    check(node.background_threads() == 0 and search_tasks() == [],
+          "(c) the deleted search's thread ended, no task left")
+    out["async"] = dict(bodies=T19_ASYNC, running_at_submit=running,
+                        seconds=async_s)
+    log(f"[tasks] (c) {out['async']}")
+    lap("c_async")
+
+    # ---- (d) background reindex of an18, rethrottled while it runs
+    src_n = min(T19_REINDEX, http(port, "GET", "/an18/_count")[1]["count"])
+    job = {"source": {"index": "an18", "size": T19_BATCH},
+           "max_docs": T19_REINDEX}
+    t0 = time.time()
+    st, r = http(port, "POST", f"/_reindex?wait_for_completion=false"
+                 f"&requests_per_second={T19_RPS}",
+                 dict(job, dest={"index": "an19_bg"}))
+    check(st == 200 and "task" in r, f"(d) background reindex: {r}")
+    rid = r["task"]
+    st, rt = http(port, "POST",
+                  f"/_reindex/{rid}/_rethrottle?requests_per_second=-1")
+    check(st == 200 and rid in rt["nodes"][node.node_id]["tasks"],
+          f"(d) _rethrottle of the running job: {st} {str(rt)[:300]}")
+    polls = 0
+    while True:
+        polls += 1
+        st, done = http(port, "GET", f"/_tasks/{rid}")
+        check(st == 200, f"(d) GET /_tasks/{rid}: {st} {done}")
+        if done["completed"]:
+            break
+        threading.Event().wait(0.05)
+    bg_s = time.time() - t0
+    t0 = time.time()
+    st, sync = http(port, "POST", "/_reindex",
+                    dict(job, dest={"index": "an19_fg"}))
+    fg_s = time.time() - t0
+    keys = ("total", "created", "updated", "deleted", "batches", "noops",
+            "version_conflicts", "failures")
+    got = done["response"]
+    check({k: got[k] for k in keys} == {k: sync[k] for k in keys}
+          and got["total"] == src_n,
+          f"(d) the background counts equal the synchronous ones: "
+          f"{ {k: got[k] for k in keys} } vs { {k: sync[k] for k in keys} }")
+    http(port, "POST", "/an19_bg,an19_fg/_refresh")
+    c_bg = http(port, "GET", "/an19_bg/_count")[1]["count"]
+    c_fg = http(port, "GET", "/an19_fg/_count")[1]["count"]
+    check(c_bg == c_fg == src_n, f"(d) _count {c_bg} {c_fg} vs {src_n}")
+    ids = [str(i) for i in rng.choice(
+        [int(x) for s in node.indices["an18"].engine.segments
+         for x, live in zip(s.stored.ids, s.live) if live],
+        size=T19_MGET, replace=False)]
+    mg = {name: http(port, "POST", f"/{name}/_mget", {"ids": ids})[1]
+          for name in ("an18", "an19_bg", "an19_fg")}
+    srcs = {name: [(d["found"], d.get("_source")) for d in m["docs"]]
+            for name, m in mg.items()}
+    copied = [s for s in srcs["an19_bg"] if s[0]]
+    check(srcs["an19_bg"] == srcs["an19_fg"] and copied
+          and all(f for f, _ in srcs["an18"])
+          and all(b == a for b, a in zip(srcs["an19_bg"], srcs["an18"])
+                  if b[0]),
+          "(d) _mget of the ids equal on both destinations, each copied "
+          "document equal to its source")
+    for name in ("an19_bg", "an19_fg"):
+        check(http(port, "DELETE", f"/{name}")[0] == 200, f"delete {name}")
+    out["reindex"] = dict(docs=src_n, background_s=bg_s, sync_s=fg_s,
+                          polls=polls, batches=got["batches"],
+                          mget_found=len(copied))
+    log(f"[tasks] (d) {out['reindex']}")
+    lap("d_reindex")
+
+    # ---- (e) search templates, stored and inline
+    st, _ = http(port, "PUT", "/_scripts/tpl19", {"script": {
+        "lang": "mustache",
+        "source": '{"query": {"match": {"title": "{{q}}"}}, '
+                  '"size": {{size}} }'}})
+    check(st == 200, "(e) the stored template")
+
+    def text(i):
+        return " ".join(term_name(t) for t in queries[i])
+
+    specs = []
+    for j in range(T19_TEMPLATES):
+        i = v2m[j % len(v2m)]
+        if j % 2 == 0:
+            specs.append({"id": "tpl19", "params": {"q": text(i),
+                                                     "size": T19_SIZE}})
+        else:
+            specs.append({"source": {"query": {"bool": {
+                "must": [{"match": {"title": "{{q}}"}}],
+                "should": [{"match": {"title": "{{s}}"}}]}},
+                "size": "{{size}}"},
+                "params": {"q": text(i), "s": text(v2m[j - 1]),
+                           "size": T19_SIZE}})
+    t0 = time.time()
+    tpl_answers = []
+    for j, spec in enumerate(specs):
+        st, t = http(port, "POST", "/bench/_search/template", spec)
+        check(st == 200, f"(e) template {j}: {st} {str(t)[:300]}")
+        st, rnd = http(port, "POST", "/_render/template", spec)
+        st, s = http(port, "POST", "/bench/_search", rnd["template_output"])
+        same_hits_exactly(t, s, f"(e) template {j} against its render")
+        tpl_answers.append(t)
+    tpl_s = time.time() - t0
+    lines = "".join(json.dumps({"index": "bench"}) + "\n" + json.dumps(sp)
+                    + "\n" for sp in specs[:T19_MTEMPLATES])
+    st, mt = http(port, "POST", "/_msearch/template", lines, ndjson=True)
+    check(st == 200 and len(mt["responses"]) == T19_MTEMPLATES,
+          f"(e) _msearch/template: {st}")
+    for j, r in enumerate(mt["responses"]):
+        same_hits_exactly(r, tpl_answers[j], f"(e) msearch template {j}")
+    http(port, "DELETE", "/_scripts/tpl19")
+    out["templates"] = dict(bodies=len(specs), seconds=tpl_s,
+                            msearch=T19_MTEMPLATES)
+    log(f"[tasks] (e) {out['templates']}")
+    lap("e_templates")
+
+    # ---- (f) _rank_eval: ratings from the float64 oracle
+    rated = []
+    for i in range(T19_RANK):
+        truth = oracles[i][0]
+        ratings = {str(int(d)): (3 if r < 10 else 2 if r < 30 else 1)
+                   for r, d in enumerate(truth[:100])}
+        rated.append((i, ratings))
+    requests = [{"id": f"q{i}", "request": plan_body(queries[i], T19_SIZE),
+                 "ratings": [{"_index": "bench", "_id": d, "rating": v}
+                             for d, v in ratings.items()]}
+                for i, ratings in rated]
+    own = {}
+    for i, _ in rated:
+        st, r = http(port, "POST", "/bench/_search",
+                     plan_body(queries[i], T19_SIZE))
+        own[f"q{i}"] = [h["_id"] for h in r["hits"]["hits"]]
+    t0 = time.time()
+    rank = {}
+    for spec in RANK_METRICS:
+        st, r = http(port, "POST", "/bench/_rank_eval",
+                     {"requests": requests, "metric": spec})
+        (name, _), = spec.items()
+        check(st == 200, f"(f) {name}: {st} {str(r)[:300]}")
+        per = []
+        for (i, ratings), req in zip(rated, requests):
+            d = r["details"][req["id"]]
+            check([h["hit"]["_id"] for h in d["hits"]] == own[req["id"]],
+                  f"(f) {name} {req['id']}: the hits of its _search")
+            want = np_rank_metric(spec, own[req["id"]], ratings)
+            check(np.isclose(d["metric_score"], want, rtol=1e-12, atol=0),
+                  f"(f) {name} {req['id']}: {d['metric_score']} vs {want}")
+            per.append(want)
+        check(np.isclose(r["metric_score"], np.mean(per), rtol=1e-12,
+                         atol=0), f"(f) {name}: {r['metric_score']} vs "
+              f"{np.mean(per)}")
+        rank[name] = r["metric_score"]
+    out["rank_eval"] = dict(requests=T19_RANK, metrics=rank,
+                            seconds=time.time() - t0)
+    log(f"[tasks] (f) {out['rank_eval']}")
+    lap("f_rank_eval")
+
+    # ---- (g) the utility routes, _cat, _stats, the slow log (every
+    # index refreshed first: `_count` sees what the segments hold)
+    check(http(port, "POST", "/_all/_refresh")[0] == 200, "(g) _refresh")
+    pf = node.indices["bench"].engine.segments[0].postings["title"]
+    dictionary = np.sort(np.asarray(pf.terms, dtype=object).astype(str))
+    prefixes = sorted({term_name(int(t))[:-2] for t in rng.choice(
+        len(pf.terms), size=T19_PREFIXES, replace=False)})
+    for p in prefixes:
+        want = dictionary[np.char.startswith(dictionary, p)][:50].tolist()
+        st, r = http(port, "POST", "/bench/_terms_enum",
+                     {"field": "title", "string": p, "size": 50})
+        check(st == 200 and r["terms"] == want,
+              f"(g) _terms_enum {p!r}: {r.get('terms', r)[:5]} vs "
+              f"{want[:5]}")
+    names = sorted(node.indices)
+    st, maps = http(port, "GET", "/_all/_mapping")
+    for name in names:
+        st, fc = http(port, "GET", f"/{name}/_field_caps?fields=*")
+        caps = {f: sorted(types) for f, types in fc["fields"].items()}
+        want = {f: [t] for f, t in mapping_fields(
+            maps[name]["mappings"].get("properties")).items()}
+        diff = sorted(set(caps) ^ set(want)) + sorted(
+            f for f in set(caps) & set(want) if caps[f] != want[f])
+        check(not diff, f"(g) _field_caps of {name} agrees with its "
+              f"_mapping: {[(f, caps.get(f), want.get(f)) for f in diff]}")
+    st, fc_all = http(port, "GET", "/_field_caps?fields=*")
+    check(st == 200 and fc_all["indices"] == sorted(
+        n for n in names if not node.indices[n].is_closed),
+        "(g) _field_caps over every index")
+    valid = [{"match": {"title": "a b"}}, {"bool": {"must": [
+        {"term": {"title": "x"}}], "filter": [{"range": {"v": {"gte": 1}}}]}},
+        {"match_all": {}}, {"range": {"v": {"lt": 3}}}]
+    invalid = [{"no_such_query": {}}, {"bool": {"must": [{"nope": {}}]}},
+               {"match": {}}]
+    for q in valid + invalid:
+        st, r = http(port, "POST", "/bench/_validate/query", {"query": q})
+        check(st == 200 and r["valid"] is (q in valid),
+              f"(g) _validate/query {q}: {r}")
+    md = node.metadata_service
+    st, res = http(port, "GET", "/_resolve/index/*")
+    check([i["name"] for i in res["indices"]] == names
+          and {a["name"]: a["indices"] for a in res["aliases"]}
+          == {a: sorted(m) for a, m in md.aliases.items()}
+          and [d["name"] for d in res["data_streams"]]
+          == sorted(md.data_streams),
+          "(g) _resolve/index agrees with the metadata")
+    st, cat_i = http(port, "GET", "/_cat/indices")
+    st, cat_s = http(port, "GET", "/_cat/segments")
+    st, cat_sh = http(port, "GET", "/_cat/shards")
+    st, cat_c = http(port, "GET", "/_cat/count")
+    st, stats = http(port, "GET", "/_stats")
+    rows = {ln.split()[2]: ln.split() for ln in cat_i["_cat"].splitlines()}
+    seg_rows = [ln.split() for ln in cat_s["_cat"].splitlines()]
+    total = 0
+    for name in names:
+        isvc = node.indices[name]
+        segs = [s for sh in isvc.shards for s in sh.segments]
+        deleted = sum(s.n_docs - int(np.asarray(s.live).sum()) for s in segs)
+        if isvc.is_closed:
+            count = isvc.stats()["docs"]["count"]
+        else:
+            st, c = http(port, "GET", f"/{name}/_count")
+            check(st == 200, f"(g) {name}/_count: {c}")
+            count = c["count"]
+        total += count
+        check(rows[name][5:] == [str(count), str(deleted)]
+              and rows[name][3] == str(isvc.num_shards),
+              f"(g) _cat/indices {name}: {rows[name]} vs {count} "
+              f"{deleted}")
+        check(stats["indices"][name]["docs"]["count"] == count,
+              f"(g) _stats {name}")
+        mine = [r for r in seg_rows if r[0] == name]
+        check([(r[4], int(r[5]), int(r[6])) for r in mine]
+              == [(s.name, s.n_docs, int(np.asarray(s.live).sum()))
+                  for s in segs], f"(g) _cat/segments {name}")
+    check(stats["_all"]["primaries"]["docs"]["count"] == total
+          and int(cat_c["_cat"].split()[1]) == total
+          and len(cat_sh["_cat"].splitlines())
+          == sum(node.indices[n].num_shards for n in names),
+          f"(g) _stats, _cat/count and _cat/shards over every index: "
+          f"{total}")
+    # the slow log: a 0ms threshold on bench, a burst of plan, dense and
+    # fast bodies through the REST layer
+    st, _ = http(port, "PUT", "/bench/_settings",
+                 {"index.search.slowlog.threshold.query.warn": "0ms"})
+    recent = node.search_service.slowlog_recent
+    n0 = len(recent)
+    burst = [plan_body(queries[v2m[i]], T19_SIZE) if i % 3 == 0
+             else t19_dense_body(queries[v2m[i]], T19_SIZE) if i % 3 == 1
+             else match_body(queries[v2m[i]], T19_SIZE, source=True)
+             for i in range(T19_BURST)]
+    for b in burst:
+        check(http(port, "POST", "/bench/_search", b)[0] == 200,
+              "(g) the burst")
+    http(port, "PUT", "/bench/_settings",
+         {"index.search.slowlog.threshold.query.warn": "-1"})
+    entries = recent[n0:]
+    check(len(entries) == T19_BURST
+          and all(e["index"] == "bench" and e.get("slowest_stage")
+                  and e.get("trace.id") for e in entries),
+          f"(g) every search of the burst in the slow log with its "
+          f"slowest stage: {entries[:2]}")
+    out["utility"] = dict(prefixes=len(prefixes), indices=len(names),
+                          docs=total, validate=len(valid) + len(invalid),
+                          slowlog=[e["slowest_stage"] for e in entries])
+    log(f"[tasks] (g) {str(out['utility'])[:2000]}")
+    lap("g_utility")
+
+    # ---- the kernels' counts, the breaker
+    hbm_agrees(node, "tasks", hbm_log)
+    idle_batcher("tasks")
+    check(search_tasks() == [] and node.background_threads() == 0,
+          "no task and no background thread left")
+    torch.cuda.synchronize()
+    k_end = kernel_calls()
+    calls = {n: k_end[n] - k_start[n] for n in counters}
+    launches = {n: c.launches for n, c in counters.items()}
+    scorings = TRACKER.calls("bm25_dense_scores_sorted") - s_start
+    cohorts = fp.stats["cohorts"] - c_start["cohorts"]
+    cohorts_v2m = fp.stats["cohorts_v2m"] - c_start["cohorts_v2m"]
+    check(cohorts == cohorts_v2m > 0 and scorings > 0
+          and launches["gather_bm25_contrib"] == scorings + cohorts
+          and launches["merge_sorted_slots"] == cohorts_v2m
+          and calls == launches,
+          f"the contribution kernel once a dense scoring ({scorings}) and "
+          f"once a fast cohort, the merge once a v2m cohort "
+          f"({cohorts_v2m} of {cohorts}), /_kernels agrees: {launches} vs "
+          f"{calls}")
+    out["launches"] = launches
+    out["kernels_calls"] = calls
+    out["dense_scorings"] = scorings
+    out["fast_cohorts"] = cohorts
+    out["steps_s"] = steps
+    out["phase_s"] = time.time() - t_phase
+    log(f"[tasks] {json.dumps(out)[:3000]}")
+    return out
+
+
+
+def tasks_alone(docs=2_000_000, vocab=100_000, seed=0):
+    """Phase 19 by itself on the card, on a node holding what it reads of
+    the earlier phases' indices: "bench" (registered with the front),
+    "bench5" (the corpus in 5 shards, one segment each) and "an18"
+    (10,000 English-like docs through `_bulk`):
+
+        python3 -c 'import chip_smoke as c; c.tasks_alone()'
+    """
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import (ANALYSIS_MAPPINGS,
+                                                ANALYSIS_SETTINGS,
+                                                build_corpus, english_docs,
+                                                exact_topk, make_queries,
+                                                segment_from_corpus,
+                                                shard_corpus)
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops import _build
+    from elasticsearch_tpu_torch.ops.bm25_contrib import gather_bm25_contrib
+    from elasticsearch_tpu_torch.ops.merge import merge_sorted_slots
+    _build.build_all()
+    rng = np.random.default_rng(seed)
+    corpus = build_corpus(rng, n_docs=docs, vocab=vocab)
+    queries = make_queries(rng, corpus["df"], n_docs=docs, n_queries=256)
+    # the phase reads the oracles of its first 64 queries
+    oracles = [exact_topk(corpus, q, 1000) for q in queries[:T19_LOAD]]
+    node = Node(device="cuda", settings={"indices.breaker.hbm.limit": int(
+        0.75 * torch.cuda.mem_get_info()[1])})
+    try:
+        node.create_index("bench", {"properties": {"title":
+                                                   {"type": "text"}}})
+        node.indices["bench"].engine.install_segments(
+            [segment_from_corpus(corpus)])
+        port = node.start(0)
+        svc = node.create_index(
+            "bench5", {"properties": {"title": {"type": "text"}}},
+            {"index": {"number_of_shards": SHARDS}})
+        assign = routing_oracle(docs, SHARDS)
+        for sh in range(SHARDS):
+            sub = shard_corpus(corpus, np.nonzero(assign == sh)[0])
+            svc.shards[sh].install_segments([segment_from_corpus(
+                sub, name=f"bench5[{sh}]_0", ids=sub["ids"])])
+        st, _ = http(port, "PUT", "/an18", {
+            "settings": {"index": dict(ANALYSIS_SETTINGS["index"],
+                                       number_of_shards=1)},
+            "mappings": ANALYSIS_MAPPINGS})
+        check(st == 200, "PUT /an18")
+        an = english_docs(AN_DOCS, np.random.default_rng(seed + 3))
+        for lo in range(0, AN_DOCS, AN_BULK):
+            st, r = http(port, "POST", "/an18/_bulk", "".join(
+                json.dumps({"index": {"_id": str(i)}}) + "\n"
+                + json.dumps(an[i]) + "\n"
+                for i in range(lo, lo + AN_BULK)), ndjson=True)
+            check(st == 200 and not r["errors"], "an18 bulk")
+        check(http(port, "POST", "/an18/_refresh")[0] == 200, "refresh")
+        counters = {"gather_bm25_contrib": gather_bm25_contrib,
+                    "merge_sorted_slots": merge_sorted_slots}
+        out = phase_tasks(node, port, queries, oracles, seed + 20,
+                          counters, [])
+        print(json.dumps({"tasks": out}))
+        return out
+    finally:
+        node.close()
+
+
 class PhaseClock:
     """The wall seconds of each phase, one lap a phase
     (``{"phase_seconds": ...}``)."""
@@ -10313,6 +11103,11 @@ def main(argv=None) -> int:
         analysis = phase_analysis(node, port, args.seed + 19, counters,
                                   cpu, hbm_log)
         clock.lap("18_analysis")
+
+        # ---- 19. tasks and the host search modules
+        tasks = phase_tasks(node, port, queries, oracles, args.seed + 20,
+                            counters, hbm_log)
+        clock.lap("19_tasks")
     finally:
         node.close()
 
@@ -10321,7 +11116,7 @@ def main(argv=None) -> int:
                                   hbm_log)
     clock.lap("16_durability")
 
-    # ---- 19. report
+    # ---- the report
     meta = {
         "gather_bm25_contrib": dict(
             source="elasticsearch_tpu_torch/csrc/bm25_contrib.cu",
@@ -10361,6 +11156,7 @@ def main(argv=None) -> int:
             launches_durability=durability["launches"][name],
             launches_contexts=contexts["launches"][name],
             launches_analysis=analysis["launches"][name],
+            launches_tasks=tasks["launches"][name],
             dense_shape=(dense["contrib_dense_shape"]
                          if name == "gather_bm25_contrib" else None)))
     print(json.dumps({"scale": scale}))
@@ -10383,6 +11179,7 @@ def main(argv=None) -> int:
     print(json.dumps({"durability": durability}))
     print(json.dumps({"contexts": contexts}))
     print(json.dumps({"analysis": analysis}))
+    print(json.dumps({"tasks": tasks}))
     print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))

@@ -241,3 +241,12 @@ class SearchContextMissingException(WriteException):
 
     def __init__(self, context_id):
         super().__init__(f"No search context found for id [{context_id}]")
+
+
+class TaskCancelledException(WriteException):
+    """Work whose task was cancelled (``POST /_tasks/{id}/_cancel``, a
+    parent's ban, a deleted or expired async search): a 400, never a
+    partial answer (transport/tasks.py)."""
+
+    status = 400
+    error_type = "task_cancelled_exception"

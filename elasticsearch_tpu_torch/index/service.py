@@ -37,6 +37,11 @@ and ``index.blocks.write`` or ``index.blocks.read_only`` refuse writes
 with the 403. ``index.blocks.read`` and ``index.blocks.metadata`` are
 recorded and, as in the reference, refuse nothing.
 
+The indexing slow log (the reference's IndexingSlowLog): a document
+write that takes at least an ``index.indexing.slowlog.threshold.index.
+{warn,info,debug,trace}`` lands in ``IndexService.
+indexing_slowlog_recent`` (search/slowlog.py).
+
 ``IndicesService`` resolves an expression through the metadata's hooks
 (index/metadata.py sets them): ``name_resolver`` maps an alias or a
 data stream to its indices, ``abstraction_lister`` lists them for
@@ -63,6 +68,8 @@ from elasticsearch_tpu_torch.common.settings import (flat_settings,
 from elasticsearch_tpu_torch.index.engine import Engine, GetResult
 from elasticsearch_tpu_torch.index.mapper import (DocumentMapper,
                                                   murmur3_hash)
+from elasticsearch_tpu_torch.search.slowlog import (indexing_thresholds,
+                                                    record_indexing_slowlog)
 
 # the reference's index.number_of_shards bounds
 MAX_SHARDS = 1024
@@ -96,6 +103,10 @@ class IndexService:
             Engine(os.path.join(path, str(i)), self.mapper,
                    name=f"{name}[{i}]", on_retire=on_retire)
             for i in range(self.num_shards)]
+        # the indexing slow log (search/slowlog.py): its thresholds parse
+        # once a settings change
+        self.indexing_slowlog_recent: List[Dict[str, Any]] = []
+        self._index_slowlog = indexing_thresholds(self.settings)
         self._persist_meta()
 
     @property
@@ -142,6 +153,7 @@ class IndexService:
                 raise IllegalArgumentException(
                     f"final {self.name} setting [{key}], not updateable")
         self.settings = {**self.settings, **flat}
+        self._index_slowlog = indexing_thresholds(self.settings)
         self._persist_meta()
 
     def nested_settings(self) -> Dict[str, Any]:
@@ -202,8 +214,13 @@ class IndexService:
         if routing is None:
             routing = self.mapper.join_parent_routing(source)
         n_fields = len(self.mapper.fields)
+        t0 = time.monotonic()
         result = self.shards[self.shard_for(doc_id, routing)].index(
             doc_id, source, **kwargs)
+        if self._index_slowlog:
+            record_indexing_slowlog(self._index_slowlog, self.name, doc_id,
+                                    time.monotonic() - t0,
+                                    self.indexing_slowlog_recent)
         if len(self.mapper.fields) != n_fields:
             # dynamic mapping grew: keep _meta.json current
             self._persist_meta()
@@ -273,6 +290,9 @@ def read_meta(path: str) -> Optional[Dict[str, Any]]:
 # a data stream's backing index (``.ds-<stream>-<date>-<generation>``,
 # index/metadata.py) is the one name that starts with a dot
 INDEX_NAME = re.compile(r"^(\.ds-)?[a-z0-9][a-z0-9_.\-]*$")
+# the node's own system indices, outside the client's rule: the results
+# of background tasks (node.py)
+SYSTEM_INDICES = (".tasks",)
 
 
 class IndicesService(dict):
@@ -331,7 +351,7 @@ class IndicesService(dict):
         rule (``.``, ``..``, a path separator, upper case...) or one that
         resolves elsewhere (a symbolic link), so no client name reaches
         a path outside the data path."""
-        if not INDEX_NAME.match(name):
+        if not INDEX_NAME.match(name) and name not in SYSTEM_INDICES:
             raise InvalidIndexNameException(name)
         root = os.path.realpath(self.data_path)
         if os.path.dirname(os.path.realpath(os.path.join(root, name))) \

@@ -60,6 +60,18 @@ the device and the front. ``_msearch`` runs its sub-searches on
 ``search_pool``, Elasticsearch's search pool: ``3 * cores // 2 + 1``
 threads (at most 32) and a queue of 1000, past which a sub-search
 answers its own 429.
+
+Tasks (transport/tasks.py): ``task_manager`` registers every `_search`,
+`_count`, scroll page, `_msearch` (a parent and a child a body), async
+search and reindex-family job the REST routes run; ``task_results``
+keeps the results of background jobs (``wait_for_completion=false``)
+and persists each in the ``.tasks`` index under the data path, so
+``GET /_tasks/{id}`` resolves it after a restart (the task numbering
+then starts past the stored ones). ``async_search_service`` runs
+``_async_search`` (search/async_search.py). Background work runs on
+daemon threads started by ``spawn``; ``close`` cancels every running
+task and async search and joins those threads before it closes the
+indices.
 """
 
 from __future__ import annotations
@@ -83,15 +95,27 @@ from elasticsearch_tpu_torch.index.metadata import MetadataService
 from elasticsearch_tpu_torch.index.pressure import IndexingPressure
 from elasticsearch_tpu_torch.index.service import IndicesService
 from elasticsearch_tpu_torch.rest.api import RestController
+from elasticsearch_tpu_torch.rest.api import error_answer
+from elasticsearch_tpu_torch.search.async_search import AsyncSearchService
 from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
 from elasticsearch_tpu_torch.search.fastpath import FastPathServer
 from elasticsearch_tpu_torch.search.script import StoredScripts
 from elasticsearch_tpu_torch.search.service import SearchService
 from elasticsearch_tpu_torch.telemetry.flightrecorder import FlightRecorder
+from elasticsearch_tpu_torch.transport.tasks import (CancellableTask,
+                                                     TaskManager,
+                                                     TaskResultStore)
 
-VERSION = "8.0.0-torch-slice19"
+VERSION = "8.0.0-torch-slice22"
 # the search pool's queue (Elasticsearch's thread_pool.search.queue_size)
 SEARCH_QUEUE_SIZE = 1000
+# the system index of background tasks' results (the reference's)
+TASKS_INDEX = ".tasks"
+TASKS_MAPPINGS = {"properties": {"completed": {"type": "boolean"},
+                                 "task_id": {"type": "keyword"},
+                                 "task_num": {"type": "long"}}}
+# how long ``close`` waits for each background thread after the cancel
+CLOSE_JOIN_S = 30.0
 
 
 class Node:
@@ -138,6 +162,18 @@ class Node:
         self.rest_controller = RestController(self)
         # every index under the data path, recovered
         self.indices.open_all()
+        # tasks: the live registry (its numbering past the results the
+        # .tasks index already holds), the background jobs' results, and
+        # the daemon threads of background work (``spawn``)
+        self.task_manager = TaskManager(self.node_id,
+                                        self._stored_task_max())
+        self.task_results = TaskResultStore(256, self._persist_task_result)
+        self._threads: list = []
+        self._threads_lock = threading.Lock()
+        self._closing = False
+        self.async_search_service = AsyncSearchService(
+            self.rest_controller.async_search_fn, self.task_manager,
+            spawn=self.spawn, error_of=error_answer)
         self._http = None     # the NativeHttpFront, once started
         self._fastpath_started = False
         # the segment the front's registration could not admit (it alone
@@ -209,6 +245,59 @@ class Node:
             finally:
                 self._search_queue.release()
         return self.search_pool.submit(run)
+
+    def spawn(self, name: str, fn) -> threading.Thread:
+        """Run ``fn`` on a daemon thread of the node's, which ``close``
+        joins; a closing node refuses (a 429)."""
+        with self._threads_lock:
+            if self._closing:
+                raise EsRejectedExecutionException(
+                    f"rejected execution of [{name}]: the node is closing")
+            self._threads = [t for t in self._threads if t.is_alive()]
+            t = threading.Thread(target=fn, name=name, daemon=True)
+            self._threads.append(t)
+            t.start()
+        return t
+
+    def background_threads(self) -> int:
+        """The background threads still running."""
+        with self._threads_lock:
+            return sum(t.is_alive() for t in self._threads)
+
+    def _stored_task_max(self) -> int:
+        """The largest task number the .tasks index holds (0: none), so
+        a restarted node numbers its tasks past the stored results."""
+        svc = self.indices.get(TASKS_INDEX)
+        if svc is None:
+            return 0
+        nums = [int(str(i).rpartition(":")[2]) for shard in svc.shards
+                for seg in shard.segments for i in seg.stored.ids
+                if str(i).rpartition(":")[2].isdigit()]
+        return max(nums, default=0)
+
+    def _persist_task_result(self, task_id: int, result) -> None:
+        """A background task's result into the .tasks index, flushed
+        (the reference's TaskResultsService): it survives a restart."""
+        with self._indices_lock:
+            svc = self.indices.get(TASKS_INDEX)
+            if svc is None:
+                svc = self.indices.create_index(TASKS_INDEX, None,
+                                                TASKS_MAPPINGS)
+        key = f"{self.node_id}:{task_id}"
+        svc.index_doc(key, {"completed": True, "task_id": key,
+                            "task_num": int(task_id), "response": result})
+        svc.flush()
+
+    def stored_task_result(self, task_num: int):
+        """The stored result of this node's task ``task_num`` in the
+        .tasks index, or None. The node's id survives a restart, so the
+        document id resolves a bare task number too (the reference,
+        whose node ids change, searches ``task_num`` for it)."""
+        svc = self.indices.get(TASKS_INDEX)
+        if svc is None or svc.is_closed:
+            return None
+        got = svc.get_doc(f"{self.node_id}:{task_num}")
+        return got.source.get("response") if got.found else None
 
     def _retire(self, names: Iterable[str]):
         """Segments a merge or an install retired: no registration of the
@@ -306,8 +395,19 @@ class Node:
         return stats
 
     def close(self):
-        """Stop serving and close every engine (their translogs); a node
-        that made its own data directory removes it."""
+        """Cancel every running task and async search and join the
+        background threads, stop serving and close every engine (their
+        translogs); a node that made its own data directory removes
+        it."""
+        with self._threads_lock:
+            self._closing = True
+            threads = list(self._threads)
+        self.async_search_service.close()
+        for task in self.task_manager.list_tasks():
+            if isinstance(task, CancellableTask):
+                self.task_manager.cancel(task, "node closed")
+        for t in threads:
+            t.join(CLOSE_JOIN_S)
         http, self._http = self._http, None
         if http is not None:
             http.stop()         # the front stops the fast path too

@@ -12,10 +12,13 @@ and counts created, updated, deleted, noops and version conflicts in a
 ``BulkByScrollResponse``; ``conflicts: proceed`` counts a conflict where
 ``abort`` stops at it; ``requests_per_second`` paces the batches
 (``_Throttle``); ``slices``/``slice_id`` keep the hits whose id hashes
-to the slice. Everything runs synchronously: a remote source,
-``wait_for_completion=false`` and ``_rethrottle`` need the task manager
-and the client of a later slice and answer a typed 400
-(``SliceUnsupported``), as does an ingest ``pipeline``.
+to the slice. A worker given the request's ``task`` (transport/
+tasks.py) polls it before each batch (every scroll page polls it too,
+search/service.py), so a cancel stops the job between batches, and
+hangs its ``_Throttle`` on it (``task.reindex_throttle``): ``_rethrottle``
+changes the pace of the running job and wakes a batch's pause. A remote
+source needs the client (client/) of a later slice and answers a typed
+400 (``SliceUnsupported``), as does an ingest ``pipeline``.
 
 An update script mutates ``ctx._source`` and may set ``ctx.op`` to
 ``none``/``noop`` (nothing is written) or ``delete``.
@@ -24,6 +27,7 @@ An update script mutates ``ctx._source`` and may set ``ctx.op`` to
 from __future__ import annotations
 
 import ast
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -247,22 +251,30 @@ class BulkByScrollResponse:
         }
 
 
-def needs_task_manager(what: str) -> SliceUnsupported:
-    return SliceUnsupported(
-        f"{what} needs the task manager (transport/tasks.py), a later "
-        f"slice of the port; this slice runs the reindex family "
-        f"synchronously")
-
-
-def _scroll_batches(node, index, search_body, batch_size):
+def _scroll_batches(node, index, search_body, batch_size, task=None):
     """Lists of hits of ``index`` from a scroll snapshot, through the
     resumable drain: a context lost mid-drain re-opens at the last
-    continuation point, so no batch is applied twice."""
+    continuation point, so no batch is applied twice. A cancelled
+    ``task`` stops the drain before the next batch."""
     from elasticsearch_tpu_torch.search.service import \
         resumable_scroll_batches
-    yield from resumable_scroll_batches(
-        node.search_service, index, search_body, batch_size,
-        keep_alive=_SCROLL_KEEPALIVE)
+    for hits in resumable_scroll_batches(
+            node.search_service, index, search_body, batch_size,
+            keep_alive=_SCROLL_KEEPALIVE, task=task):
+        if task is not None:
+            task.ensure_not_cancelled()
+        yield hits
+
+
+def _attach(task, throttle: "_Throttle") -> None:
+    """Hang the job's throttle on its task (``_rethrottle`` reaches it
+    there); a cancel wakes a paused batch."""
+    if task is None:
+        return
+    task.reindex_throttle = throttle
+    listen = getattr(task, "add_cancellation_listener", None)
+    if listen is not None:
+        listen(throttle.wake)
 
 
 def _slice_filter(slices: int, slice_id: int, hit_id: str) -> bool:
@@ -273,21 +285,32 @@ def _slice_filter(slices: int, slice_id: int, hit_id: str) -> bool:
 
 
 class _Throttle:
-    """``requests_per_second`` pacing: after a batch of ``n_ops``, sleep
-    what is left of ``n_ops / rps`` (at most a second a batch)."""
+    """``requests_per_second`` pacing: after a batch of ``n_ops``, wait
+    what is left of ``n_ops / rps`` (at most a second a batch). ``rps``
+    is read at each batch, so ``rethrottle`` changes a running job's
+    pace; it and a cancel (``wake``) end a pause early."""
 
     def __init__(self, rps: float):
         self.rps = rps
         self.throttled_ms = 0
+        self._wake = threading.Event()
 
     def pause_after(self, n_ops: int, elapsed_s: float):
         if self.rps is None or self.rps <= 0:
             return
         delay = n_ops / self.rps - elapsed_s
         if delay > 0:
-            delay = min(delay, 1.0)
-            time.sleep(delay)
-            self.throttled_ms += int(delay * 1000)
+            t0 = time.monotonic()
+            self._wake.wait(min(delay, 1.0))
+            self._wake.clear()
+            self.throttled_ms += int((time.monotonic() - t0) * 1000)
+
+    def rethrottle(self, rps: float) -> None:
+        self.rps = rps
+        self._wake.set()
+
+    def wake(self) -> None:
+        self._wake.set()
 
 
 def _parse_rps(params: Dict[str, Any]) -> float:
@@ -297,15 +320,9 @@ def _parse_rps(params: Dict[str, Any]) -> float:
     return float(raw)
 
 
-def _check_sync(params: Dict[str, Any]) -> None:
-    if params.get("wait_for_completion") == "false":
-        raise needs_task_manager("wait_for_completion=false")
-
-
-def reindex(node, body: Dict[str, Any],
-            params: Dict[str, Any]) -> BulkByScrollResponse:
+def reindex(node, body: Dict[str, Any], params: Dict[str, Any],
+            task=None) -> BulkByScrollResponse:
     """POST /_reindex from a local source."""
-    _check_sync(params)
     body = body or {}
     source = body.get("source") or {}
     dest = body.get("dest") or {}
@@ -332,6 +349,7 @@ def reindex(node, body: Dict[str, Any],
     slice_id = int(params.get("slice_id", 0))
     rps = _parse_rps(params)
     throttle = _Throttle(rps)
+    _attach(task, throttle)
 
     search_body: Dict[str, Any] = {}
     if "query" in source:
@@ -347,7 +365,8 @@ def reindex(node, body: Dict[str, Any],
                          or _DEFAULT_BATCH), max_docs or 10 ** 9)
     dest_idx = _ensure_dest(node, dest_index)
     done = False
-    for hits in _scroll_batches(node, src_index, search_body, batch_size):
+    for hits in _scroll_batches(node, src_index, search_body, batch_size,
+                                task):
         t_batch = time.monotonic()
         resp.batches += 1
         n_ops = 0
@@ -424,17 +443,18 @@ def _ensure_dest(node, index: str):
 
 
 def update_by_query(node, index: str, body: Dict[str, Any],
-                    params: Dict[str, Any]) -> BulkByScrollResponse:
+                    params: Dict[str, Any],
+                    task=None) -> BulkByScrollResponse:
     """POST /{index}/_update_by_query: each matched document's current
     version through the script, written back under its seq_no and
     primary term (a concurrent change is a version conflict)."""
-    _check_sync(params)
     body = body or {}
     conflicts = body.get("conflicts", "abort")
     max_docs = body.get("max_docs")
     script = compile_update_script(body.get("script"))
     rps = _parse_rps(params)
     throttle = _Throttle(rps)
+    _attach(task, throttle)
     resp = BulkByScrollResponse(requests_per_second=rps)
     start = time.monotonic()
     search_body: Dict[str, Any] = {}
@@ -448,7 +468,8 @@ def update_by_query(node, index: str, body: Dict[str, Any],
         return idx_cache[name]
 
     done = False
-    for hits in _scroll_batches(node, index, search_body, _DEFAULT_BATCH):
+    for hits in _scroll_batches(node, index, search_body, _DEFAULT_BATCH,
+                                task):
         t_batch = time.monotonic()
         resp.batches += 1
         n_ops = 0
@@ -506,10 +527,10 @@ def update_by_query(node, index: str, body: Dict[str, Any],
 
 
 def delete_by_query(node, index: str, body: Dict[str, Any],
-                    params: Dict[str, Any]) -> BulkByScrollResponse:
+                    params: Dict[str, Any],
+                    task=None) -> BulkByScrollResponse:
     """POST /{index}/_delete_by_query: each matched document deleted (one
     gone meanwhile is a version conflict)."""
-    _check_sync(params)
     body = body or {}
     if "query" not in body:
         raise IllegalArgumentException("_delete_by_query requires a query")
@@ -517,12 +538,14 @@ def delete_by_query(node, index: str, body: Dict[str, Any],
     max_docs = body.get("max_docs")
     rps = _parse_rps(params)
     throttle = _Throttle(rps)
+    _attach(task, throttle)
     resp = BulkByScrollResponse(requests_per_second=rps)
     start = time.monotonic()
     search_body = {"query": body["query"]}
     idx_cache: Dict[str, Any] = {}
     done = False
-    for hits in _scroll_batches(node, index, search_body, _DEFAULT_BATCH):
+    for hits in _scroll_batches(node, index, search_body, _DEFAULT_BATCH,
+                                task):
         t_batch = time.monotonic()
         resp.batches += 1
         n_ops = 0

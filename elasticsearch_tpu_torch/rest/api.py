@@ -33,9 +33,25 @@ reduced to the routes ported so far):
     GET|POST /_analyze, /{index}/_analyze
     GET|POST /{index}/_termvectors/{id}   GET|POST /{index}/_mtermvectors
     POST /_reindex                POST /{index}/_update_by_query
-    POST /{index}/_delete_by_query
+    POST /{index}/_delete_by_query        ?wait_for_completion=false
+    POST /_reindex|_update_by_query|_delete_by_query/{task_id}/_rethrottle
+    GET  /_tasks                  ?actions, detailed, parent_task_id, group_by
+    GET  /_tasks/{id}             POST /_tasks/{id}/_cancel, /_tasks/_cancel
+    GET  /_cat/tasks              GET /_nodes/hot_threads
+    POST /_async_search, /{index}/_async_search
+    GET|DELETE /_async_search/{id}
+    GET|POST /_render/template[/{id}]
+    GET|POST /_search/template, /{index}/_search/template
+    POST /_msearch/template, /{index}/_msearch/template
+    GET|POST /{index}/_rank_eval
+    GET|POST /_field_caps, /{index}/_field_caps
+    GET|POST /{index}/_validate/query     GET|POST /{index}/_terms_enum
+    GET  /_resolve/index/{expression}
+    GET  /_cat/indices, count, shards, aliases, templates, segments
+    GET  /_stats                  every index's stats, the docs of all
     GET  /_kernels                the launch tracker's table
-    GET  /_nodes/stats            breakers, pressure, engine, flight recorder
+    GET  /_nodes/stats            breakers, pressure, engine, tasks, flight
+                                  recorder
     GET  /_flight_recorder        the launch/readback ring, filtered
 
 A HEAD takes the GET route of its path and answers the GET's status
@@ -45,10 +61,29 @@ with no body.
 named index, or an ad hoc chain (``analyze_answer``); `_termvectors`
 analyzes a document's ``_source`` again with each text field's analyzer
 (``termvectors_of``). `_reindex` (from a local source),
-`_update_by_query` and `_delete_by_query` run synchronously through
-reindex/worker.py and answer its ``BulkByScrollResponse``; a remote
-source, ``wait_for_completion=false`` and ``_rethrottle`` need the task
-manager of a later slice: a typed 400.
+`_update_by_query` and `_delete_by_query` run through reindex/worker.py
+as a cancellable task and answer its ``BulkByScrollResponse``; with
+``wait_for_completion=false`` the job runs on a background thread and
+answers ``{"task": "<node>:<id>"}``, its result kept for
+``GET /_tasks/{id}`` (across a restart: the ``.tasks`` index), and
+``_rethrottle`` changes its pace. A remote source needs the client of a
+later slice: a typed 400.
+
+Tasks (transport/tasks.py): `_search`, `_count` and a scroll page run as
+a cancellable ``indices:data/read/search`` task (``_search_task``: its
+own trace, its stage from ``parse`` on); `_msearch` is a cancellable
+``indices:data/read/msearch`` parent whose bodies run as its children,
+so its ban cancels every child that starts after its cancel. A
+cancelled request answers 400 ``task_cancelled_exception``. The `_tasks`
+routes answer the reference's shapes: a malformed id is a 400, another
+node's id or a task that is not running (and stored no result) a 404.
+`_async_search` (search/async_search.py) runs `_search` on a background
+thread under its submit task. The search templates render through
+search/template.py (a stored script's ``source`` by ``id``), then run as
+`_search`; `_rank_eval` (search/rank_eval.py) searches each rated
+request as `_search`. `_field_caps`, `_validate/query`, `_terms_enum`,
+`_resolve/index`, `_cat` and `_stats` are the reference's handlers over
+the port's indices; a `_cat` route answers ``{"_cat": text}``.
 
 The document routes are the reference's handlers, with its bodies,
 statuses and error types: a write answers ``_index``, ``_id``,
@@ -148,7 +183,9 @@ path when it fits, else the plan path.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import fnmatch
 import json
 import logging
 import time
@@ -171,15 +208,21 @@ from elasticsearch_tpu_torch.index.mapper import (MapperParsingException,
 from elasticsearch_tpu_torch.index.service import INDEX_NAME
 from elasticsearch_tpu_torch.index.translog import write_batch
 from elasticsearch_tpu_torch.reindex.worker import (
-    _Ctx, compile_update_script, delete_by_query, needs_task_manager,
-    reindex, update_by_query)
+    _Ctx, compile_update_script, delete_by_query, reindex, update_by_query)
 from elasticsearch_tpu_torch.search.fastpath import (MAX_FILTERS,
                                                      SliceUnsupported)
 from elasticsearch_tpu_torch.search.context import ShardStats
-from elasticsearch_tpu_torch.search.queries import ParsingException
+from elasticsearch_tpu_torch.search.queries import (ParsingException,
+                                                    parse_query)
+from elasticsearch_tpu_torch.search.rank_eval import rank_eval
 from elasticsearch_tpu_torch.search.service import SEARCH_TYPES
+from elasticsearch_tpu_torch.search.template import render_template
+from elasticsearch_tpu_torch.telemetry import context as _telectx
 from elasticsearch_tpu_torch.telemetry import engine as _engine
 from elasticsearch_tpu_torch.telemetry import flightrecorder as _flight
+from elasticsearch_tpu_torch.transport.tasks import (
+    EMPTY_TASK_ID, CancellableTask, TaskId, build_tasks_response,
+    hot_threads_text, node_task_slice, parse_bool_param, render_cat_tasks)
 
 logger = logging.getLogger("elasticsearch_tpu_torch.rest")
 
@@ -259,6 +302,19 @@ _TYPED = (CircuitBreakingException, IndexNotFoundException, WriteException,
 # the node-level routes of the metadata (``RestController._meta_handler``)
 _META_ROUTES = ("_aliases", "_alias", "_scripts", "_index_template",
                 "_component_template", "_data_stream")
+# the index routes of three parts: (part 2, part 3, method) -> handler
+_INDEX_SUBROUTES = {
+    ("_search", "template", "POST"): "_search_template",
+    ("_search", "template", "GET"): "_search_template",
+    ("_msearch", "template", "POST"): "_msearch_template",
+    ("_validate", "query", "GET"): "_validate_query",
+    ("_validate", "query", "POST"): "_validate_query",
+}
+# the URL parameters of `_async_search` itself (the rest are `_search`'s)
+_ASYNC_PARAMS = ("wait_for_completion_timeout", "keep_alive",
+                 "keep_on_completion")
+SEARCH_ACTION = "indices:data/read/search"
+MSEARCH_ACTION = "indices:data/read/msearch"
 
 
 def _typed_error(e: BaseException) -> Tuple[int, dict]:
@@ -476,8 +532,39 @@ class RestController:
             return self._nodes_stats()
         elif method == "GET" and parts == ["_flight_recorder"]:
             return self._flight_recorder(params)
+        elif method == "GET" and parts == ["_nodes", "hot_threads"]:
+            return self._hot_threads(params)
+        elif method == "GET" and parts == ["_stats"]:
+            return self._all_stats()
+        elif parts[0] == "_tasks":
+            handler = self._task_handler(method, parts, params)
+            if handler is not None:
+                return handler()
+        elif parts[0] == "_cat" and n == 2 and method == "GET":
+            handler = self._CAT.get(parts[1])
+            if handler is not None:
+                return 200, {"_cat": handler(self, params)}
+        elif parts == ["_async_search"] and method == "POST":
+            return self._submit_async_search("_all", params, body)
+        elif parts[0] == "_async_search" and n == 2:
+            if method == "GET":
+                r = self.node.async_search_service.get(parts[1], params)
+                return r.pop("_http_status", 200), r
+            if method == "DELETE":
+                self.node.async_search_service.delete(parts[1])
+                return 200, {"acknowledged": True}
+        elif parts[:2] == ["_render", "template"] and n <= 3 \
+                and method in ("POST", "GET"):
+            return self._render_template(parts[2] if n == 3 else None, body)
+        elif parts == ["_field_caps"] and method in ("POST", "GET"):
+            return self._field_caps("_all", params, body)
+        elif parts[:2] == ["_resolve", "index"] and n == 3 \
+                and method == "GET":
+            return self._resolve_index(parts[2])
         elif parts == ["_search"] and method in ("POST", "GET"):
-            return self._search("_all", params, body)
+            return self._search_route("_all", params, body)
+        elif parts == ["_search", "template"] and method in ("POST", "GET"):
+            return self._search_template("_all", params, body)
         elif parts == ["_search", "scroll"]:
             if method in ("POST", "GET"):
                 return self._scroll(params, body)
@@ -485,6 +572,8 @@ class RestController:
                 return self._clear_scroll(params, body)
         elif parts == ["_msearch"] and method in ("POST", "GET"):
             return self._msearch(None, params, body)
+        elif parts == ["_msearch", "template"] and method == "POST":
+            return self._msearch_template(None, params, body)
         elif parts == ["_pit"] and method == "DELETE":
             return self._close_pit(params, body)
         elif parts == ["_bulk"] and method in ("POST", "PUT"):
@@ -494,17 +583,22 @@ class RestController:
         elif parts == ["_analyze"] and method in ("POST", "GET"):
             return 200, analyze_answer(AnalysisRegistry(), body or {})
         elif parts == ["_reindex"] and method == "POST":
-            return 200, reindex(self.node, body, params).to_dict()
+            return self._bulk_by_scroll(
+                params, "indices:data/write/reindex",
+                lambda task: reindex(self.node, body, params, task))
         elif (n == 3 and parts[0] in ("_reindex", "_update_by_query",
                                       "_delete_by_query")
               and parts[2] == "_rethrottle" and method == "POST"):
-            raise needs_task_manager("_rethrottle")
+            return self._rethrottle(parts[1], params)
         elif parts[0] in _META_ROUTES:
             handler = self._meta_handler(method, parts, body)
             if handler is not None:
                 return handler()
         elif parts[0].startswith("_") and parts[0] != "_all":
             pass
+        elif n == 3 and (parts[1], parts[2], method) in _INDEX_SUBROUTES:
+            return getattr(self, _INDEX_SUBROUTES[
+                (parts[1], parts[2], method)])(parts[0], params, body)
         elif n == 1:
             handler = {"PUT": self._create_index, "GET": self._get_index,
                        "DELETE": self._delete_index}.get(method)
@@ -518,8 +612,15 @@ class RestController:
                 ("_refresh", "GET"): self._refresh,
                 ("_flush", "POST"): self._flush,
                 ("_forcemerge", "POST"): self._forcemerge,
-                ("_search", "POST"): self._search,
-                ("_search", "GET"): self._search,
+                ("_search", "POST"): self._search_route,
+                ("_search", "GET"): self._search_route,
+                ("_async_search", "POST"): self._submit_async_search,
+                ("_field_caps", "GET"): self._field_caps,
+                ("_field_caps", "POST"): self._field_caps,
+                ("_terms_enum", "GET"): self._terms_enum,
+                ("_terms_enum", "POST"): self._terms_enum,
+                ("_rank_eval", "GET"): self._rank_eval,
+                ("_rank_eval", "POST"): self._rank_eval,
                 ("_count", "POST"): self._count,
                 ("_count", "GET"): self._count,
                 ("_msearch", "POST"): self._msearch,
@@ -654,9 +755,11 @@ class RestController:
         section (the launch tracker's totals; the device bytes by slab
         class, with the peak, admissions and breaker evictions; the
         device caches' counters, and the fast path's θ cache when it
-        runs) and ``telemetry.flight_recorder`` (the ring's aggregates).
-        The reference's other sections (indices, thread_pool, tasks,
-        recoveries, the metrics registry) come with the port's host-side
+        runs), ``tasks`` (transport/tasks.py ``TaskManager.stats``: live,
+        peak, started, completed, cancelled, bans) and
+        ``telemetry.flight_recorder`` (the ring's aggregates). The
+        reference's other sections (indices, thread_pool, recoveries,
+        the metrics registry) come with the port's host-side
         services."""
         return 200, {
             "cluster_name": "elasticsearch",
@@ -665,6 +768,7 @@ class RestController:
                 "breakers": self.node.breaker_service.stats(),
                 "indexing_pressure": self.node.indexing_pressure.stats(),
                 "engine": self._engine_section(),
+                "tasks": self.node.task_manager.stats(),
                 "mesh": self.node.search_service.mesh_executor.stats(),
                 "telemetry": {
                     "flight_recorder": self.node.flight.aggregates()},
@@ -1090,12 +1194,40 @@ class RestController:
                                   "filter": [filt]}}
         return body
 
-    def _search(self, expression: str, params: dict, body):
+    @contextlib.contextmanager
+    def _search_task(self, description: str, action: str = SEARCH_ACTION,
+                     parent=None):
+        """A search request's cancellable task (transport/tasks.py),
+        registered under a trace of its own (the flight recorder stamps
+        the request's launches with it) and in its ``parse`` stage until
+        the search publishes another."""
+        parent_id = (EMPTY_TASK_ID if parent is None
+                     else TaskId(self.node.node_id, parent.id))
+        with _telectx.activate(_telectx.TraceContext(uuid.uuid4().hex)), \
+                self.node.task_manager.task_scope(
+                    "transport", action, description, parent_id,
+                    cancellable=True) as task:
+            task.enter_stage("parse")
+            yield task
+
+    def _search_route(self, expression: str, params: dict, body):
+        """``_search`` as a cancellable task (the reference's
+        ``search_index``): ``POST /_tasks/{id}/_cancel`` stops it at its
+        next poll (search/service.py), and it answers 400
+        ``task_cancelled_exception``."""
+        with self._search_task(f"indices[{expression}]") as task:
+            return self._search(expression, params, body, task)
+
+    def _search(self, expression: str, params: dict, body, task=None):
         """The fast path when the expression names one index of one
         shard and it serves the body (``_fast_body`` and
         ``FastPathServer.fits``), else the search service over every
         shard the expression selects (search/service.py); a ``scroll``
-        (or a ``pit`` or ``slice`` in the body) always the latter."""
+        (or a ``pit`` or ``slice`` in the body) always the latter.
+        ``task`` is polled before the search and handed to the search
+        service."""
+        if task is not None:
+            task.ensure_not_cancelled()
         names = (self.node.indices.resolve(expression)
                  if (body or {}).get("pit") is None else [])
         body = _merge_search_params(body, params)
@@ -1129,7 +1261,9 @@ class RestController:
                 route = None
         if route is None:
             return 200, self.node.search_service.search(
-                expression, body, search_type, scroll)
+                expression, body, search_type, scroll, task)
+        if task is not None:
+            task.enter_stage("launch")
         scores, docids, total = fp.search(reg, term_ids, size,
                                           tuple(sorted(filt)))
         want_source = body.get("_source", True)
@@ -1140,7 +1274,7 @@ class RestController:
             if want_source and src:
                 hit["_source"] = json.loads(src)
             hits.append(hit)
-        return 200, {
+        response = {
             "took": int((time.time() - t0) * 1000),
             "timed_out": False,
             "_shards": {"total": 1, "successful": 1, "skipped": 0,
@@ -1149,11 +1283,16 @@ class RestController:
                      "max_score": hits[0]["_score"] if hits else None,
                      "hits": hits},
         }
+        self.node.search_service.record_slowlog(
+            [index], response["took"], body, response, task)
+        return 200, response
 
     # ------------------------------------------------- search contexts
     def _count(self, expression: str, params: dict, body):
         body = self._apply_alias_filter(expression, body)
-        return 200, self.node.search_service.count(expression, body)
+        with self._search_task(f"indices[{expression}]") as task:
+            return 200, self.node.search_service.count(expression, body,
+                                                       task)
 
     def _explain(self, index: str, doc_id: str, params: dict, body):
         body = body or {}
@@ -1166,7 +1305,9 @@ class RestController:
         body = body or {}
         scroll_id = body.get("scroll_id") or params.get("scroll_id")
         keep = body.get("scroll") or params.get("scroll")
-        return 200, self.node.search_service.scroll(scroll_id, keep)
+        with self._search_task("scroll") as task:
+            return 200, self.node.search_service.scroll(scroll_id, keep,
+                                                        task)
 
     def _clear_scroll(self, params: dict, body):
         ids = (body or {}).get("scroll_id", ["_all"])
@@ -1192,16 +1333,15 @@ class RestController:
         """NDJSON header/body pairs; each body is a `_search` of its
         header's ``index`` (else the URL's, else ``_all``), its alias
         filter applied, run concurrently on the node's search pool (so
-        concurrent bodies meet in shared cohorts). A typed failure
-        answers in its own slot; a full search queue rejects only the
-        bodies past it (429)."""
-        if isinstance(body, (bytes, str)):
-            text = body.decode() if isinstance(body, bytes) else body
-            lines = [json.loads(ln) for ln in text.splitlines()
-                     if ln.strip()]
-        else:
-            lines = body or []
+        concurrent bodies meet in shared cohorts). The request is a
+        cancellable parent task (``indices:data/read/msearch``) and each
+        body a child task registered when it starts: cancelling the
+        parent cancels the running children, and its ban cancels every
+        child that starts after it (a 400 ``task_cancelled_exception``
+        in that slot). A typed failure answers in its own slot; a full
+        search queue rejects only the bodies past it (429)."""
         searches = []
+        lines = _ndjson_lines(body)
         i = 0
         while i + 1 < len(lines) or (i < len(lines) and index):
             header = lines[i]
@@ -1209,26 +1349,32 @@ class RestController:
             searches.append((target, lines[i + 1] if i + 1 < len(lines)
                              else {}))
             i += 2
+        with self._search_task(f"requests[{len(searches)}]",
+                               MSEARCH_ACTION) as parent:
 
-        def one(target, search_body):
-            with _flight.activate(self.node.flight):
+            def one(target, search_body):
+                with _flight.activate(self.node.flight):
+                    try:
+                        with self._search_task(f"indices[{target}]",
+                                               parent=parent) as sub:
+                            return self._search(target, {}, search_body,
+                                                sub)[1]
+                    except _TYPED as e:
+                        status, err = _typed_error(e)
+                        return {"error": err, "status": status}
+
+            if len(searches) <= 1:
+                return 200, {"responses": [one(t, b) for t, b in searches]}
+            slots = []
+            for t, b in searches:
                 try:
-                    return self._search(target, {}, search_body)[1]
-                except _TYPED as e:
-                    status, err = _typed_error(e)
-                    return {"error": err, "status": status}
-
-        if len(searches) <= 1:
-            return 200, {"responses": [one(t, b) for t, b in searches]}
-        slots = []
-        for t, b in searches:
-            try:
-                slots.append(self.node.submit_search(one, t, b))
-            except EsRejectedExecutionException as e:
-                slots.append({"error": {"type": e.error_type,
-                                        "reason": str(e)}, "status": 429})
-        return 200, {"responses": [f.result() if hasattr(f, "result")
-                                   else f for f in slots]}
+                    slots.append(self.node.submit_search(one, t, b))
+                except EsRejectedExecutionException as e:
+                    slots.append({"error": {"type": e.error_type,
+                                            "reason": str(e)},
+                                  "status": 429})
+            return 200, {"responses": [f.result() if hasattr(f, "result")
+                                       else f for f in slots]}
 
     # ------------------------------------------------------ stored scripts
     def _put_script(self, script_id: str, body):
@@ -1366,7 +1512,435 @@ class RestController:
 
     # ----------------------------------------------------- by query
     def _update_by_query(self, index: str, params: dict, body):
-        return 200, update_by_query(self.node, index, body, params).to_dict()
+        return self._bulk_by_scroll(
+            params, "indices:data/write/update/byquery",
+            lambda task: update_by_query(self.node, index, body, params,
+                                         task))
 
     def _delete_by_query(self, index: str, params: dict, body):
-        return 200, delete_by_query(self.node, index, body, params).to_dict()
+        return self._bulk_by_scroll(
+            params, "indices:data/write/delete/byquery",
+            lambda task: delete_by_query(self.node, index, body, params,
+                                         task))
+
+    def _bulk_by_scroll(self, params: dict, action: str, run):
+        """A reindex-family job (reindex/worker.py) as a cancellable
+        task: with ``wait_for_completion=false`` on a background thread
+        of the node's (``Node.spawn``), answering ``{"task":
+        "<node>:<id>"}`` at once; its ``BulkByScrollResponse`` (or its
+        failure, as ``{"error": ...}``) is stored when it ends
+        (``Node.task_results``, persisted in the ``.tasks`` index) for
+        ``GET /_tasks/{id}``, before the task unregisters. Otherwise it
+        runs in this request."""
+        tm = self.node.task_manager
+        if params.get("wait_for_completion") != "false":
+            with tm.task_scope("transport", action, cancellable=True) as t:
+                return 200, run(t).to_dict()
+        task = tm.register("transport", action, cancellable=True)
+
+        def runner():
+            try:
+                with _flight.activate(self.node.flight):
+                    result = run(task).to_dict()
+            except Exception as e:   # a background failure is stored
+                result = {"error": error_answer(e)[1]}
+            try:
+                self.node.task_results.store(task.id, result)
+            finally:
+                tm.unregister(task)
+
+        try:
+            self.node.spawn(f"{action}[{task.id}]", runner)
+        except BaseException:
+            tm.unregister(task)
+            raise
+        return 200, {"task": f"{self.node.node_id}:{task.id}"}
+
+    def _rethrottle(self, task_id: str, params: dict):
+        """``POST /_reindex|_update_by_query|_delete_by_query/{task_id}/
+        _rethrottle``: the running job's ``requests_per_second``
+        (``-1`` or ``unlimited``: no pacing)."""
+        task = self._local_task(task_id)
+        throttle = getattr(task, "reindex_throttle", None)
+        if throttle is not None and "requests_per_second" in params:
+            raw = params["requests_per_second"]
+            throttle.rethrottle(-1.0 if raw in ("-1", "unlimited")
+                                else float(raw))
+        return 200, {"nodes": {self.node.node_id: {
+            "tasks": {task_id: task.to_dict(self.node.node_id)}}}}
+
+    # --------------------------------------------------------------- tasks
+    def _task_handler(self, method: str, parts, params: dict):
+        """The handler of a `_tasks` route, or None."""
+        n = len(parts)
+        if method == "GET" and n == 1:
+            return lambda: self._list_tasks(params)
+        if method == "POST" and parts[1:] == ["_cancel"]:
+            return lambda: self._cancel_tasks(params)
+        if method == "GET" and n == 2:
+            return lambda: self._get_task(parts[1], params)
+        if method == "POST" and n == 3 and parts[2] == "_cancel":
+            return lambda: self._cancel_task(parts[1], params)
+        return None
+
+    def _task_infos(self, actions=None, parent_task_id=None,
+                    detailed=True):
+        """This node's `_tasks` slice, keyed by its id."""
+        return {self.node.node_id: node_task_slice(
+            self.node.task_manager, self.node.node_id,
+            name=self.node.node_id, actions=actions,
+            parent_task_id=parent_task_id, detailed=detailed)}
+
+    def _list_tasks(self, params: dict):
+        """``GET /_tasks`` with ``actions``, ``detailed``,
+        ``parent_task_id`` and ``group_by=nodes|parents|none``."""
+        infos = self._task_infos(
+            actions=params.get("actions"),
+            parent_task_id=params.get("parent_task_id"),
+            detailed=parse_bool_param(params.get("detailed"), False))
+        return 200, build_tasks_response(
+            infos, group_by=params.get("group_by", "nodes"))
+
+    def _local_task(self, task_id: str):
+        """The live task ``task_id`` names: a malformed id is a 400, a
+        foreign node's id or a task not running a 404."""
+        tid = TaskId.parse(task_id)
+        if tid.node_id not in ("", self.node.node_id):
+            # a task id minted by another node must not alias a local one
+            raise ResourceNotFoundException(f"task [{task_id}] is not found")
+        task = self.node.task_manager.get_task(tid.id)
+        if task is None:
+            raise ResourceNotFoundException(
+                f"task [{task_id}] isn't running and hasn't stored its "
+                f"results")
+        return task
+
+    def _get_task(self, task_id: str, params: dict):
+        """``GET /_tasks/{id}``: a stored result (memory, then the
+        ``.tasks`` index), else the running task;
+        ``wait_for_completion=true`` waits for the result up to
+        ``timeout_s`` (30) seconds."""
+        tid = TaskId.parse(task_id)
+        node_id = self.node.node_id
+        local = tid.node_id in ("", node_id)
+        done = {"node": node_id, "id": tid.id}
+        stored = self.node.task_results.get(tid.id) if local else None
+        if stored is None and local:
+            stored = self.node.stored_task_result(tid.id)
+        if stored is not None:
+            return 200, {"completed": True, "response": stored,
+                         "task": done}
+        task = self._local_task(task_id)
+        if params.get("wait_for_completion") == "true":
+            deadline = time.monotonic() + float(params.get("timeout_s", 30))
+            while time.monotonic() < deadline:
+                stored = self.node.task_results.get(tid.id)
+                if stored is not None:
+                    return 200, {"completed": True, "response": stored,
+                                 "task": done}
+                if self.node.task_manager.get_task(tid.id) is None:
+                    # ended without a stored result (a search task)
+                    return 200, {"completed": True, "task": done}
+                time.sleep(0.02)
+        return 200, {"completed": False, "task": task.to_dict(node_id)}
+
+    def _cancel_task(self, task_id: str, params: dict):
+        task = self._local_task(task_id)
+        if not isinstance(task, CancellableTask):
+            raise IllegalArgumentException(
+                f"task [{task_id}] is not cancellable")
+        self.node.task_manager.cancel(task, params.get("reason",
+                                                       "by user request"))
+        return 200, {"nodes": {self.node.node_id: {
+            "tasks": {task_id: task.to_dict(self.node.node_id)}}}}
+
+    def _cancel_tasks(self, params: dict):
+        cancelled = {}
+        tm = self.node.task_manager
+        for t in tm.list_tasks(actions=params.get("actions")):
+            if isinstance(t, CancellableTask):
+                tm.cancel(t, "by user request")
+                cancelled[f"{self.node.node_id}:{t.id}"] = t.to_dict(
+                    self.node.node_id)
+        return 200, {"nodes": {self.node.node_id: {"tasks": cancelled}}}
+
+    def _hot_threads(self, params: dict):
+        """``GET /_nodes/hot_threads``: the top ``threads`` (3) running
+        tasks with their running time and current stage."""
+        return 200, {"_cat": hot_threads_text(
+            self.node.task_manager, self.node.node_id, self.node.node_id,
+            limit=int(params.get("threads", 3)))}
+
+    # ------------------------------------------------------- async search
+    def _submit_async_search(self, index: str, params: dict, body):
+        """``POST /_async_search``, ``/{index}/_async_search``
+        (search/async_search.py): the body with the `_search` URL
+        parameters merged, run as `_search` on a background thread."""
+        search_params = {k: v for k, v in params.items()
+                         if k not in _ASYNC_PARAMS}
+        body = _merge_search_params(body, search_params)
+        r = self.node.async_search_service.submit(index, body, params)
+        return r.pop("_http_status", 200), r
+
+    def async_search_fn(self, index: str, body, task):
+        """The async search's body (``AsyncSearchService.search_fn``):
+        `_search` under the task, on the background thread with the
+        node's flight recorder and a trace of its own."""
+        with _flight.activate(self.node.flight), _telectx.activate(
+                _telectx.TraceContext(uuid.uuid4().hex)):
+            return self._search(index, {}, body, task)[1]
+
+    # ---------------------------------------------------- search templates
+    def _resolve_template(self, body) -> dict:
+        """The search body a template request renders
+        (search/template.py): inline ``source`` or a stored script's by
+        ``id``, with ``params``."""
+        body = body or {}
+        source = body.get("source")
+        if source is None and body.get("id"):
+            stored = self.node.stored_scripts.get(body["id"])
+            if stored is None:
+                raise ResourceNotFoundException(
+                    f"stored script [{body['id']}] does not exist")
+            source = stored["source"]
+        if source is None:
+            raise IllegalArgumentException(
+                "search template requires [source] or [id]")
+        return render_template(source, body.get("params"))
+
+    def _render_template(self, template_id: Optional[str], body):
+        if template_id is not None:
+            body = dict(body or {})
+            body["id"] = template_id
+        return 200, {"template_output": self._resolve_template(body)}
+
+    def _search_template(self, index: str, params: dict, body):
+        return self._search_route(index, {}, self._resolve_template(body))
+
+    def _msearch_template(self, index: Optional[str], params: dict, body):
+        """Header/template pairs, each rendered and searched in turn; a
+        typed failure answers in its own slot."""
+        lines = _ndjson_lines(body)
+        responses = []
+        i = 0
+        while i + 1 < len(lines) or (i < len(lines) and index):
+            header = lines[i]
+            target = header.get("index", index) or "_all"
+            spec = lines[i + 1] if i + 1 < len(lines) else {}
+            i += 2
+            try:
+                responses.append(self._search_route(
+                    target, {}, self._resolve_template(spec))[1])
+            except _TYPED as e:
+                status, err = _typed_error(e)
+                responses.append({"error": err, "status": status})
+        if i < len(lines):
+            raise IllegalArgumentException(
+                "msearch template body has a trailing header with no body "
+                "line")
+        return 200, {"responses": responses}
+
+    # ------------------------------------------------------ search utilities
+    def _rank_eval(self, index: str, params: dict, body):
+        """``/{index}/_rank_eval`` (search/rank_eval.py): each rated
+        request searched as `_search`, its hit ids scored by the
+        metric."""
+        body = body or {}
+
+        def search_fn(request_body):
+            r = self._search_route(index, {}, request_body)[1]
+            return [h["_id"] for h in r["hits"]["hits"]]
+
+        return 200, rank_eval(search_fn, body.get("requests", []),
+                              body.get("metric", {"recall": {"k": 10}}))
+
+    def _field_caps(self, index: str, params: dict, body):
+        """The reference's ``field_caps``: each mapped field matching
+        ``fields`` (URL or body, wildcards) per type, with the indices
+        listed only where the types conflict."""
+        patterns = params.get("fields", "*").split(",")
+        if body and "fields" in body:
+            patterns = (body["fields"] if isinstance(body["fields"], list)
+                        else body["fields"].split(","))
+        names = self.node.indices.resolve(index)
+        out: dict = {}
+        for name in names:
+            mapper = self.node.indices[name].mapper
+            for fname in sorted(mapper.fields):
+                if not any(fnmatch.fnmatch(fname, p.strip())
+                           for p in patterns):
+                    continue
+                ft = mapper.field_type(fname)
+                t = ft.type_name
+                caps = out.setdefault(fname, {}).setdefault(t, {
+                    "type": t,
+                    "metadata_field": fname.startswith("_"),
+                    "searchable": getattr(ft, "searchable", True),
+                    "aggregatable": t not in ("text",),
+                    "_indices": []})
+                caps["_indices"].append(name)
+        fields = {}
+        for fname, types in out.items():
+            entry = {}
+            for t, caps in types.items():
+                c = dict(caps)
+                listed = c.pop("_indices")
+                if len(types) > 1:   # indices only where types conflict
+                    c["indices"] = sorted(listed)
+                entry[t] = c
+            fields[fname] = entry
+        return 200, {"indices": sorted(names), "fields": fields}
+
+    def _validate_query(self, index: str, params: dict, body):
+        """``/{index}/_validate/query``: whether the query parses (an
+        unknown index, too, answers ``valid: false``), with the parsed
+        query's ``explanation`` under ``explain``."""
+        q = (body or {}).get("query", {"match_all": {}})
+        try:
+            parsed = parse_query(q)
+            explanation = (repr(parsed) if params.get("explain")
+                           in ("true", "") else None)
+            exp = [{"index": n, "valid": True,
+                    **({"explanation": explanation} if explanation
+                       else {})}
+                   for n in self.node.indices.resolve(index)]
+            return 200, {"valid": True,
+                         "_shards": {"total": 1, "successful": 1,
+                                     "failed": 0},
+                         "explanations": exp if explanation else []}
+        except _TYPED as e:
+            return 200, {"valid": False, "error": str(e)}
+
+    def _terms_enum(self, index: str, params: dict, body):
+        """``/{index}/_terms_enum``: the sorted terms of ``field``'s
+        dictionaries (postings and keyword doc values of every segment)
+        that start with ``string`` (``case_insensitive``), the first
+        ``size`` (10)."""
+        body = body or {}
+        field = body.get("field") or params.get("field")
+        if not field:
+            raise IllegalArgumentException("terms_enum requires [field]")
+        prefix = body.get("string", params.get("string", ""))
+        size = int(body.get("size", params.get("size", 10)))
+        fold = bool(body.get("case_insensitive"))
+        want = prefix.lower() if fold else prefix
+        found = set()
+        for name in self.node.indices.resolve(index):
+            for shard in self.node.indices[name].shards:
+                for seg in shard.segments:
+                    for src in (seg.postings.get(field),
+                                seg.keywords.get(field)):
+                        if src is None:
+                            continue
+                        found.update(t for t in src.terms
+                                     if (t.lower() if fold else t)
+                                     .startswith(want))
+        return 200, {"terms": sorted(found)[:size], "complete": True,
+                     "_shards": {"total": 1, "successful": 1, "failed": 0}}
+
+    def _resolve_index(self, expression: str):
+        """``GET /_resolve/index/{expression}``: the indices, aliases and
+        data streams whose names match."""
+        md = self.node.metadata_service
+        index_names, alias_names, stream_names = set(), set(), set()
+        for part in expression.split(","):
+            if part == "_all":
+                part = "*"
+            index_names.update(n for n in self.node.indices
+                               if fnmatch.fnmatch(n, part))
+            alias_names.update(a for a in md.aliases
+                               if fnmatch.fnmatch(a, part))
+            stream_names.update(ds for ds in md.data_streams
+                                if fnmatch.fnmatch(ds, part))
+        return 200, {
+            "indices": [{"name": n, "attributes": ["open"]}
+                        for n in sorted(index_names)],
+            "aliases": [{"name": a, "indices": sorted(md.aliases[a])}
+                        for a in sorted(alias_names)],
+            "data_streams": [{"name": ds,
+                              "backing_indices":
+                                  md.data_streams[ds].get("indices", []),
+                              "timestamp_field": "@timestamp"}
+                             for ds in sorted(stream_names)],
+        }
+
+    # -------------------------------------------------------- _cat, _stats
+    def _all_stats(self):
+        """``GET /_stats``: every index's stats and the docs of all."""
+        out = {"indices": {name: svc.stats()
+                           for name, svc in self.node.indices.items()}}
+        total = sum(s["docs"]["count"] for s in out["indices"].values())
+        out["_all"] = {"primaries": {"docs": {"count": total}}}
+        return 200, out
+
+    def _cat_indices(self, params: dict) -> str:
+        lines = []
+        for name in sorted(self.node.indices):
+            svc = self.node.indices[name]
+            s = svc.stats()
+            lines.append(f"green open {name} {svc.num_shards} 0 "
+                         f"{s['docs']['count']} {s['docs']['deleted']}")
+        return "\n".join(lines)
+
+    def _cat_count(self, params: dict) -> str:
+        docs = sum(svc.stats()["docs"]["count"]
+                   for svc in self.node.indices.values())
+        return f"{int(time.time())} {docs}"
+
+    def _cat_shards(self, params: dict) -> str:
+        lines = []
+        for name in sorted(self.node.indices):
+            for i, shard in enumerate(self.node.indices[name].shards):
+                lines.append(f"{name} {i} p STARTED "
+                             f"{shard.stats()['docs']['count']} "
+                             f"{self.node.node_id}")
+        return "\n".join(lines)
+
+    def _cat_aliases(self, params: dict) -> str:
+        return "\n".join(
+            f"{a} {idx} - - - -"
+            for a, members in sorted(self.node.metadata_service
+                                     .aliases.items())
+            for idx in sorted(members))
+
+    def _cat_templates(self, params: dict) -> str:
+        return "\n".join(
+            f"{name} [{','.join(t.get('index_patterns', []))}] "
+            f"{t.get('priority', 0)}"
+            for name, t in self.node.metadata_service
+            .index_templates.items())
+
+    def _cat_segments(self, params: dict) -> str:
+        lines = []
+        for name in sorted(self.node.indices):
+            for si, shard in enumerate(self.node.indices[name].shards):
+                for seg in shard.segments:
+                    lines.append(f"{name} {si} p 127.0.0.1 {seg.name} "
+                                 f"{seg.n_docs} {int(seg.live.sum())}")
+        return "\n".join(lines)
+
+    def _cat_tasks(self, params: dict) -> str:
+        return render_cat_tasks(self._task_infos(
+            actions=params.get("actions")))
+
+    # ``GET /_cat/{name}``: each a text of rows, answered as {"_cat": text}
+    _CAT = {"indices": _cat_indices, "count": _cat_count,
+            "shards": _cat_shards, "aliases": _cat_aliases,
+            "templates": _cat_templates, "segments": _cat_segments,
+            "tasks": _cat_tasks}
+
+
+def _ndjson_lines(body) -> list:
+    """The objects of an NDJSON body (bytes or text), or the list given."""
+    if isinstance(body, (bytes, str)):
+        text = body.decode() if isinstance(body, bytes) else body
+        return [json.loads(ln) for ln in text.splitlines() if ln.strip()]
+    return body or []
+
+
+def error_answer(e: BaseException) -> Tuple[int, dict]:
+    """(status, error object) of any failure: a typed one's own, else a
+    500 ``exception``."""
+    if isinstance(e, _TYPED):
+        return _typed_error(e)
+    return 500, {"type": "exception", "reason": f"{type(e).__name__}: {e}"}

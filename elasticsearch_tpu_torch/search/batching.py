@@ -23,6 +23,16 @@ the corpus replicated onto each (a copy only onto another card), each
 slice launched with the unsplit launch's widths and ``max_run``, so
 every row is the unsplit launch's byte for byte.
 
+Cancellation: a member whose request's task is cancelled while it waits
+(its cancellation poll, search/profile.py) leaves the queue when the
+cohort has not launched, so its row never launches, or is dropped from
+the launched cohort's answers; a cancelled leader still launches the
+cohort of the others, without its own row. Either way the member
+answers its TaskCancelledException and the cohort answers every other
+member as it would have; the cohort's buffers and the segment's
+charged masks are the cohort's, and no member holds anything past its
+answer.
+
 Attribution: a leader launches under the flight recorder's cohort
 annotation (``annotate_launch``: the cohort, its Q bucket and the queue
 wait of its oldest member), and the cohort's one packed readback goes
@@ -63,6 +73,9 @@ MAX_LANES_IN_FLIGHT = 1 << 27
 # on a fast device a leader that sees other work pending holds the pop
 # this long so the cohort fills
 ADAPTIVE_FLUSH_S = 0.002
+# how often a follower whose request is cancellable polls its
+# cancellation while it waits for its cohort
+CANCEL_POLL_S = 0.002
 
 
 def _q_bucket(n: int) -> int:
@@ -89,13 +102,16 @@ def _nb_tier(n: int) -> int:
 
 class _Entry:
     __slots__ = ("bp", "event", "result", "error", "profiled", "t_enq",
-                 "t_fr", "meta")
+                 "t_fr", "meta", "abandoned")
 
     def __init__(self, bp: BoundPlan):
         self.bp = bp
         self.event = threading.Event()
         self.result = None
         self.error: Optional[BaseException] = None
+        # its request was cancelled while the cohort launched: the
+        # leader unpacks no row for it
+        self.abandoned = False
         _stamp(self)
 
 
@@ -187,6 +203,10 @@ class PlanBatcher:
         # (``_launch_split``), and counts here
         self.mesh = None
         self.mesh_cohorts = 0
+        # members whose request was cancelled before their cohort
+        # launched (no row launched) and while it launched (row dropped)
+        self.cancelled_queued = 0
+        self.cancelled_in_flight = 0
 
     @staticmethod
     def _eligible(bp: BoundPlan, after_score) -> bool:
@@ -226,7 +246,7 @@ class PlanBatcher:
             q.append(entry)
             leader = len(q) == 1
         if not leader:
-            entry.event.wait()
+            self._follow(entry, sig)
             if entry.error is not None:
                 raise entry.error
             if entry.profiled:
@@ -251,25 +271,60 @@ class PlanBatcher:
                 batch = self._pending.pop(sig, [])
             if not batch:
                 batch = [entry]
+            # a cancelled leader still launches the cohort of the others,
+            # without its own row, then answers its cancellation
+            cancelled = _prof.cancelled_error()
+            if cancelled is not None:
+                batch = [e for e in batch if e is not entry]
+                with self._lock:
+                    self.cancelled_queued += 1
             try:
-                step = self._chunk(batch)
-                for start in range(0, len(batch), step):
-                    chunk = batch[start:start + step]
-                    lanes = self._lanes(chunk)
-                    self._acquire_lanes(lanes)
-                    try:
-                        self._run(chunk, ctx, k, k1, b)
-                    finally:
-                        self._release_lanes(lanes)
+                # the cohort is everyone's: the leader's own poll must
+                # not abort it halfway
+                with _prof.cancellable(None):
+                    step = self._chunk(batch) if batch else 1
+                    for start in range(0, len(batch), step):
+                        chunk = batch[start:start + step]
+                        lanes = self._lanes(chunk)
+                        self._acquire_lanes(lanes)
+                        try:
+                            self._run(chunk, ctx, k, k1, b)
+                        finally:
+                            self._release_lanes(lanes)
             except BaseException as exc:
                 for e in batch:
                     if not e.event.is_set():
                         e.error = exc
                         e.event.set()
                 raise
+        if cancelled is not None:
+            raise cancelled
         if entry.profiled:
             _record_attribution(entry)
         return entry.result
+
+    def _follow(self, entry: _Entry, sig: tuple) -> None:
+        """A follower waits for its cohort. Under a cancellation poll
+        (search/profile.py ``cancellable``) it polls every CANCEL_POLL_S:
+        once cancelled it leaves the queue when its cohort has not
+        launched yet (its row never launches), else marks itself
+        abandoned (the leader unpacks no row for it), and raises."""
+        if not _prof.cancel_installed():
+            entry.event.wait()
+            return
+        while not entry.event.wait(CANCEL_POLL_S):
+            cancelled = _prof.cancelled_error()
+            if cancelled is None:
+                continue
+            with self._lock:
+                q = self._pending.get(sig)
+                if q is not None and entry in q:
+                    q.remove(entry)
+                    self.cancelled_queued += 1
+                else:
+                    entry.abandoned = True
+                    self.cancelled_in_flight += 1
+            raise cancelled
 
     @staticmethod
     def _row_lanes(batch: List[_Entry]) -> int:
@@ -418,7 +473,8 @@ class PlanBatcher:
                     "readback_ms": rb_ms,
                 }
         for i, e in enumerate(batch):
-            e.result = plan_ops.unpack_result(rows[i], k)
+            if not e.abandoned:
+                e.result = plan_ops.unpack_result(rows[i], k)
             e.event.set()
 
     def _launch_split(self, rmesh, args, kw, k1: float, b: float,
@@ -468,6 +524,8 @@ class PlanBatcher:
                 "peak_lanes_in_flight": self.peak_lanes_in_flight,
                 "admission_waits": self.admission_waits,
                 "mesh_cohorts": self.mesh_cohorts,
+                "cancelled_queued": self.cancelled_queued,
+                "cancelled_in_flight": self.cancelled_in_flight,
             }
 
 

@@ -217,6 +217,30 @@ def check_cancelled() -> None:
         cb()
 
 
+def checkpoint(stage: str) -> None:
+    """A boundary between phases that is no timed span: the installed
+    cancellation poll runs and the stage hook hears ``stage``."""
+    check_cancelled()
+    cb = getattr(_tls, "stage_cb", None)
+    if cb is not None:
+        cb(stage)
+
+
+def cancel_installed() -> bool:
+    """Whether a cancellation poll is installed on this thread."""
+    return getattr(_tls, "cancel", None) is not None
+
+
+def cancelled_error() -> Optional[BaseException]:
+    """The installed poll's TaskCancelledException when the work was
+    cancelled, else None (the poll without the raise)."""
+    try:
+        check_cancelled()
+    except Exception as e:
+        return e
+    return None
+
+
 @contextmanager
 def stage_hook(cb):
     """Install a per-span stage callback ``cb(stage)`` — the task layer

@@ -95,6 +95,22 @@ Each request runs with the node's stored scripts ambient
 (search/queries.py ``stored_scripts``), so a script given by ``id``
 resolves in this node's store.
 
+Tasks (transport/tasks.py): ``search``, ``scroll`` and ``count`` take
+the request's cancellable ``task``. The search polls it before each
+shard and between the query phase and the rest, and installs it as the
+profile's cancellation poll and stage hook for the whole request, so
+every ``profile.span`` entry (the device-launch boundaries: bind,
+launch, score, topk, readback, the kNN and mesh launches) raises
+TaskCancelledException once the task is cancelled, and ``_tasks``
+shows the stage the search is in. A cancelled search answers that
+400, never a partial answer: the per-shard failure barrier lets it
+through. A plan-path body cancelled while it waits in a PlanBatcher
+cohort leaves the cohort (search/batching.py).
+
+The slow log: every search checks each searched index's
+``index.search.slowlog.threshold.query.*`` against its took time
+(search/slowlog.py) into ``slowlog_recent``.
+
 ``collapse: {"field": f}`` keeps the first hit of each value of ``f``
 (its first doc value; a text field's dynamic ``.keyword``; docs without
 one form one null group) and stamps the value into the hit's
@@ -174,7 +190,7 @@ import torch
 
 from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentException, SearchContextMissingException,
-    SearchPhaseExecutionException, error_type_of)
+    SearchPhaseExecutionException, TaskCancelledException, error_type_of)
 from elasticsearch_tpu_torch.common.settings import parse_time_value
 from elasticsearch_tpu_torch.index.service import IndicesService
 from elasticsearch_tpu_torch.ops.device import readback
@@ -196,7 +212,11 @@ from elasticsearch_tpu_torch.search.searcher import (MAX_TOPK, DocAddress,
                                                      ShardSearcher,
                                                      _host_sort_cmp,
                                                      _parse_sort)
+from elasticsearch_tpu_torch.search.slowlog import (record_search_slowlog,
+                                                    slowest_stage_summary)
 from elasticsearch_tpu_torch.search.suggest import compute_suggest
+from elasticsearch_tpu_torch.telemetry import context as _telectx
+from elasticsearch_tpu_torch.telemetry import flightrecorder as _flight
 
 logger = logging.getLogger("elasticsearch_tpu_torch.search")
 
@@ -497,6 +517,8 @@ class SearchService:
         self._request_cache: "OrderedDict[tuple, Dict[str, Any]]" = \
             OrderedDict()
         self.request_cache_stats = {"hit_count": 0, "miss_count": 0}
+        # the search slow log's newest entries (search/slowlog.py)
+        self.slowlog_recent: List[Dict[str, Any]] = []
 
     # ------------------------------------------------------------- PIT
     def open_pit(self, expression: str, keep_alive: str) -> str:
@@ -526,18 +548,20 @@ class SearchService:
     # ---------------------------------------------------------- search
     def search(self, expression: str, body: Dict[str, Any],
                search_type: Optional[str] = None,
-               scroll: Optional[str] = None) -> Dict[str, Any]:
+               scroll: Optional[str] = None, task=None) -> Dict[str, Any]:
         """``_search`` over every shard of the indices ``expression``
         selects (``IndicesService.resolve``), as ``search_type``
         (``query_then_fetch``, the default, or ``dfs_query_then_fetch``)
-        asks; ``scroll`` (a keep-alive) opens a scroll context."""
-        with stored_scripts(self.stored_scripts):
+        asks; ``scroll`` (a keep-alive) opens a scroll context. Under a
+        cancellable ``task`` (transport/tasks.py) the search stops at
+        the next poll once it is cancelled (``_task_scope``)."""
+        with stored_scripts(self.stored_scripts), _task_scope(task):
             return self._search_request(expression, body, search_type,
-                                        scroll)
+                                        scroll, task)
 
     def _search_request(self, expression: str, body: Dict[str, Any],
                         search_type: Optional[str],
-                        scroll: Optional[str]) -> Dict[str, Any]:
+                        scroll: Optional[str], task=None) -> Dict[str, Any]:
         t0 = time.time()
         use_cache = body.get("request_cache")
         if "request_cache" in body:
@@ -582,6 +606,8 @@ class SearchService:
                                           search_type, cache_key))
                 if cached is not None:
                     cached["took"] = int((time.time() - t0) * 1000)
+                    self.record_slowlog(names, cached["took"], body,
+                                       cached, task)
                     return cached
             searchers = [(name, s) for name in names
                          for s in self._shard_searchers(self.indices[name])]
@@ -614,6 +640,7 @@ class SearchService:
         if pit_spec is not None:
             response["pit_id"] = pit.id
         response = {"took": int((time.time() - t0) * 1000), **response}
+        self.record_slowlog(names, response["took"], body, response, task)
         if cache_key is not None:
             # filed under the epochs the searchers read, so a refresh
             # between the probe and the read never files stale data
@@ -647,11 +674,32 @@ class SearchService:
             while len(self._request_cache) > self.REQUEST_CACHE_MAX_ENTRIES:
                 self._request_cache.popitem(last=False)
 
+    def record_slowlog(self, names: List[str], took_ms: int,
+                      body: Dict[str, Any], response: Dict[str, Any],
+                      task=None) -> None:
+        """The search slow log (search/slowlog.py): each searched index's
+        thresholds against the took time; the slowest stage from the
+        profile when the body asked one, else from the task's stage
+        timeline; the flight recorder's summary of the request's
+        trace."""
+        trace = _telectx.current()
+        trace_id = trace.trace_id if trace is not None else None
+        fr = _flight.current()
+        record_search_slowlog(
+            lambda n: self.indices[n].settings if n in self.indices
+            else None, names, took_ms, body, self.slowlog_recent,
+            trace_id=trace_id,
+            slowest_stage=(slowest_stage_summary(response)
+                           or (task.slowest_stage() if task is not None
+                               else None)),
+            flight=(fr.summary_for_trace(trace_id)
+                    if fr is not None and trace_id else None))
+
     # ---------------------------------------------------------- scroll
-    def scroll(self, scroll_id: str,
-               scroll: Optional[str] = None) -> Dict[str, Any]:
+    def scroll(self, scroll_id: str, scroll: Optional[str] = None,
+               task=None) -> Dict[str, Any]:
         """The next page of an open scroll (``scroll`` renews its
-        keep-alive)."""
+        keep-alive), polling ``task`` as ``search`` does."""
         t0 = time.time()
         self._reap()
         with self._lock:
@@ -661,7 +709,7 @@ class SearchService:
         if scroll is not None:
             ctx.keep_alive = parse_time_value(scroll, "scroll")
         ctx.expires_at = time.time() + ctx.keep_alive
-        with stored_scripts(self.stored_scripts):
+        with stored_scripts(self.stored_scripts), _task_scope(task):
             response = self._execute(ctx.searchers, ctx.body, None, ctx,
                                      continuing=True)
         response["_scroll_id"] = scroll_id
@@ -725,14 +773,14 @@ class SearchService:
             self.mesh_executor.evict(names)
 
     # --------------------------------------------------- count, explain
-    def count(self, expression: str, body: Dict[str, Any]
+    def count(self, expression: str, body: Dict[str, Any], task=None
               ) -> Dict[str, Any]:
         """``_count``: a size-0 search with an exact total."""
         body = dict(body or {})
         body["size"] = 0
         body.pop("sort", None)
         body["track_total_hits"] = True
-        response = self.search(expression, body)
+        response = self.search(expression, body, task=task)
         return {"count": response["hits"]["total"]["value"],
                 "_shards": response["_shards"]}
 
@@ -880,7 +928,10 @@ class SearchService:
         SearchPhaseExecutionException). Returns the (index, searcher,
         QueryResult) of every shard and the failures. A scroll's pages
         take the dense executor from each shard's cursor; a failed shard
-        keeps its cursor."""
+        keeps its cursor. A cancelled request (the poll ``search``
+        installs) stops the loop between shards: its
+        TaskCancelledException is the request's answer, never a shard
+        failure."""
         rescore = _rescore_specs(body)
         terminate_after = body.get("terminate_after")
         # repeats of the same query JSON reuse their bound plans
@@ -896,6 +947,8 @@ class SearchService:
         for shard_idx, (index, searcher) in enumerate(searchers):
             shard_ord = shard_ords.get(index, 0)
             shard_ords[index] = shard_ord + 1
+            # cooperative cancellation between shard executions
+            _prof.checkpoint("query")
             scope = (profiles.shard(f"[{index}][{shard_idx}]")
                      if profiles is not None else contextlib.nullcontext())
             try:
@@ -918,6 +971,8 @@ class SearchService:
                         result.docs = result.docs[:int(terminate_after)]
                     if rescore:
                         result.docs = searcher.rescore(result.docs, rescore)
+            except TaskCancelledException:
+                raise
             except Exception as e:  # the per-shard failure barrier
                 if first_failure is None:
                     first_failure = e
@@ -965,6 +1020,8 @@ class SearchService:
             with scope as rec:
                 served = self.mesh_executor.execute(
                     [s for _, s in searchers], query, k)
+        except TaskCancelledException:     # the request's answer
+            raise
         except Exception:  # the mesh is an optimization: the loop serves
             logger.warning("mesh serving failed; the per-shard loop "
                            "answers", exc_info=True)
@@ -1013,6 +1070,9 @@ class SearchService:
                 profiles, scroll_ctx, continuing)
         else:
             results, failures = [], []
+        # between the phases: a search cancelled after its query phase
+        # runs no merge, fetch or aggregation
+        _prof.checkpoint("fetch")
         t0 = time.monotonic_ns()
         merged = (_merge_shards(results, sort) if served is None
                   else served[0])
@@ -1088,6 +1148,7 @@ class SearchService:
         if terminated_early is not None:
             response["terminated_early"] = terminated_early
         if aggs_spec and searchers and not continuing:
+            _prof.checkpoint("aggs")
             response["aggregations"] = self._aggregate(aggs_spec, results,
                                                        profiles)
         if body.get("suggest"):
@@ -1316,6 +1377,24 @@ class SearchService:
         return out
 
 
+@contextlib.contextmanager
+def _task_scope(task):
+    """The search's cancellation poll and stage hook (search/profile.py):
+    every ``profile.span`` entry (the device-launch boundaries) and
+    every ``checkpoint`` (before each shard, between the phases) polls
+    ``task.ensure_not_cancelled`` and publishes its stage to the task
+    (``GET /_tasks?detailed=true``), so a cancelled search stops
+    launching between the launches of a multi-segment scan, not only
+    between shards. No task: nothing is installed."""
+    if task is None:
+        yield
+        return
+    check = getattr(task, "ensure_not_cancelled", None)
+    with _prof.cancellable(check), _prof.stage_hook(task.enter_stage):
+        _prof.checkpoint("parse")
+        yield
+
+
 def _mesh_shaped(searchers) -> bool:
     """Several shards of one index: what the mesh step looks at."""
     return len(searchers) > 1 and len({n for n, _ in searchers}) == 1
@@ -1345,13 +1424,15 @@ def _merge_shards(results, sort) -> List[Tuple[float, int, DocAddress,
 
 def resumable_scroll_batches(search_service, expression: str,
                              body: Dict[str, Any], batch_size: int,
-                             keep_alive: str = "5m", on_resume=None):
+                             keep_alive: str = "5m", on_resume=None,
+                             task=None):
     """Every hit of ``expression`` in batches of ``batch_size`` through
     a scroll that survives a lost context (the reference's): a
     ``search_context_missing_exception`` mid-drain re-opens the scroll,
     at ``search_after`` = the last hit's sort values under a ``sort``,
     else from the top skipping what was handed out (exact against an
-    unchanged index). ``on_resume`` is called at each recovery."""
+    unchanged index). ``on_resume`` is called at each recovery; every
+    page polls ``task`` (``search``)."""
     base = dict(body or {})
     base["size"] = int(batch_size)
     has_sort = bool(base.get("sort"))
@@ -1363,9 +1444,11 @@ def resumable_scroll_batches(search_service, expression: str,
         b = dict(base)
         if has_sort and last_sort is not None:
             b["search_after"] = list(last_sort)
-        return search_service.search(expression, b, scroll=keep_alive)
+        return search_service.search(expression, b, scroll=keep_alive,
+                                     task=task)
 
-    r = search_service.search(expression, dict(base), scroll=keep_alive)
+    r = search_service.search(expression, dict(base), scroll=keep_alive,
+                              task=task)
     scroll_id = r.get("_scroll_id")
     try:
         while True:
@@ -1383,7 +1466,7 @@ def resumable_scroll_batches(search_service, expression: str,
             if not raw_hits:
                 return
             try:
-                r = search_service.scroll(scroll_id, keep_alive)
+                r = search_service.scroll(scroll_id, keep_alive, task)
                 scroll_id = r.get("_scroll_id", scroll_id)
             except SearchContextMissingException:
                 if on_resume is not None:

@@ -4,11 +4,12 @@ reference, on the CPU.
 The reference's tests/test_reindex.py cases run on both nodes, each
 against the same seeded documents: the ``BulkByScrollResponse`` counts
 (total, created, updated, deleted, batches, noops, version conflicts,
-failures' ids and statuses) and the resulting documents equal. Its two
-cases that need the task manager or the client
-(``test_reindex_background_task``, ``test_reindex_from_remote``) assert
-the port's typed 400 instead, as do ``_rethrottle`` and a destination
-``pipeline``. Beyond them: a reindex that changes a field's analyzer
+failures' ids and statuses) and the resulting documents equal. A
+background job (``wait_for_completion=false``) answers its counts
+through ``GET /_tasks/{id}`` on both; ``_rethrottle`` of another node's
+task is the reference's 404. The case that needs the client
+(``test_reindex_from_remote``) asserts the port's typed 400 instead, as
+does a destination ``pipeline``. Beyond them: a reindex that changes a field's analyzer
 (corpus.py's analyzed index into one whose ``body`` is ``english`` with
 a stop list), searched after on both nodes; the by-query family over one
 term's documents of an analyzed index of 1 and 3 shards; slices,
@@ -242,32 +243,48 @@ def test_search_version_flag(pair):
 
 
 def test_reindex_background_task(pair):
-    """``wait_for_completion=false`` needs the task manager: a typed 400
-    that names it, and nothing is written."""
+    """``wait_for_completion=false`` runs the job as a background task:
+    both nodes answer its id at once, and ``GET /_tasks/{id}`` (waiting
+    for it) answers the completed job's counts, equal on both; the
+    by-query routes do the same."""
     seed(pair, n=12)
-    st, r = pair.port.rest_controller.dispatch(
-        "POST", "/_reindex", {"wait_for_completion": "false"},
-        {"source": {"index": "src"}, "dest": {"index": "dstbg"}})
-    assert st == 400
-    assert r["error"]["type"] == "unsupported_in_slice_exception"
-    assert "task manager" in r["error"]["reason"]
-    assert "dstbg" not in pair.port.indices
-    for path in ("/src/_update_by_query", "/src/_delete_by_query"):
-        st, r = pair.port.rest_controller.dispatch(
-            "POST", path, {"wait_for_completion": "false"},
-            {"query": {"match_all": {}}})
-        assert st == 400 and "task manager" in r["error"]["reason"]
+    for path, body in (
+            ("/_reindex", {"source": {"index": "src"},
+                           "dest": {"index": "dstbg"}}),
+            ("/src/_update_by_query", {"query": {"term": {"tag": "odd"}},
+                                       "script": {"source":
+                                                  "ctx._source.n += 100"}}),
+            ("/src/_delete_by_query", {"query": {"term": {"tag": "even"}}})):
+        j, p = pair.do("POST", path, {"wait_for_completion": "false"},
+                       body)
+        assert set(p) == set(j) == {"task"}
+        done = pair.port.rest_controller.dispatch(
+            "GET", f"/_tasks/{p['task']}", {"wait_for_completion": "true"},
+            None)
+        want = pair.jax.rest_controller.dispatch(
+            "GET", f"/_tasks/{j['task']}", {"wait_for_completion": "true"},
+            None)
+        assert done[0] == want[0] == 200
+        assert done[1]["completed"] is want[1]["completed"] is True
+        got, ref = done[1]["response"], want[1]["response"]
+        assert {k: got[k] for k in COUNTS} == {k: ref[k] for k in COUNTS}
+    pair.do("POST", "/dstbg/_refresh")
+    pair.do("POST", "/src/_refresh")
+    pair.same_docs("dstbg", range(12))
+    pair.same_docs("src", range(12))
 
 
 @pytest.mark.parametrize("path", ["/_reindex/n1:7/_rethrottle",
                                   "/_update_by_query/n1:7/_rethrottle",
                                   "/_delete_by_query/n1:7/_rethrottle"])
 def test_rethrottle_needs_the_task_manager(pair, path):
-    st, r = pair.port.rest_controller.dispatch(
-        "POST", path, {"requests_per_second": "10"}, None)
-    assert st == 400
-    assert r["error"]["type"] == "unsupported_in_slice_exception"
-    assert "task manager" in r["error"]["reason"]
+    """``_rethrottle`` reaches a running job through the task manager: a
+    task id of another node is the reference's 404 on both nodes."""
+    (jst, j), (st, r) = pair.both("POST", path,
+                                  {"requests_per_second": "10"}, None)
+    assert st == jst == 404
+    assert r["error"]["type"] == j["error"]["type"] \
+        == "resource_not_found_exception"
 
 
 def test_update_script_sandbox():

@@ -864,23 +864,14 @@ def run_yaml_cases(root, suite, names, stop_before=None):
     ("32_templates_scripts.yml",
      "index template applies mappings and settings on create"),
     ("32_templates_scripts.yml", "component templates compose"),
+    ("32_templates_scripts.yml", "inline search template renders"),
 ])
 def test_yaml_cases(tmp_path, suite, case):
     run_yaml_cases(tmp_path, suite, [case])
 
 
 def test_yaml_stored_script_case(tmp_path):
-    """32_templates_scripts.yml's stored-script case up to its templated
-    search (search templates are a later slice of the port: a typed
-    400)."""
+    """32_templates_scripts.yml's stored-script case through its
+    templated search (search/template.py), on both nodes."""
     run_yaml_cases(tmp_path, "32_templates_scripts.yml",
-                   ["stored script and templated search"],
-                   stop_before="_search/template")
-    node = Node(device="cpu", data_path=str(tmp_path / "t"))
-    try:
-        st, r = node.rest_controller.dispatch(
-            "POST", "/notes/_search/template", {}, {"id": "by-field"})
-        assert st == 400
-        assert r["error"]["type"] == "unsupported_in_slice_exception"
-    finally:
-        node.close()
+                   ["stored script and templated search"])
