@@ -366,9 +366,9 @@ Phases (any failure exits non-zero; no exception is swallowed):
               card, the gather and merge ms
  16. durability  documents, versions and the translog, on a node of
               its own on a temporary data path (removed at the end;
-              its bytes on disk printed). (a) "docs": 50,000 docs
-              (corpus.py's text, seed 0, a keyword, a long) in 10
-              _bulk requests of 5,000 over HTTP, then 5,000 single-doc
+              its bytes on disk printed). (a) "docs": 25,000 docs
+              (corpus.py's text, seed 0, a keyword, a long) in 5
+              _bulk requests of 5,000 over HTTP, then 2,500 single-doc
               requests (updates by doc and by script, deletes, new
               docs, a _create conflict, a CAS that succeeds and one
               that conflicts): before _refresh every search answers as
@@ -378,7 +378,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
               1e-5, the recall rule); after _forcemerge the fast bodies
               on v2m (both kernels launch); every acknowledged write
               read back through _mget with its _version and _seq_no.
-              (b) _flush, 10,000 ops by _bulk that only the translog
+              (b) _flush, 5,000 ops by _bulk that only the translog
               holds, close, a new Node on the path: the translog
               replays them, every acknowledged write reads back, and
               every page equals its answer before the restart. (c)
@@ -400,7 +400,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
               (max 4): disjoint slices whose union is the unsliced
               scroll, each hit in slice abs(murmur3(id)) % 4, the hash
               column's build seconds over 2M ids; (c) a PIT on a
-              200,000-doc index: later writes unseen, later deletes
+              100,000-doc index: later writes unseen, later deletes
               seen, none open after close; (f) a filtered alias, a
               template on an auto-created index, a data stream of
               20,000 docs rolled over at max_docs 10,000 answering as
@@ -410,7 +410,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
               a miss after a write; (e) one _msearch of 32 fast-lane
               and 32 plan bodies, each equal to the body alone, its
               cohorts and wall beside the 64 sent one by one; (g)
-              _clone, _split and _shrink of 50,000 docs of 2 shards,
+              _clone, _split and _shrink of 25,000 docs of 2 shards,
               their totals and _mget equal the source's, the breaker
               equal to the resident bytes after the targets go; (h)
               _explain of 64 hits against their scores, a stored
@@ -490,14 +490,52 @@ Phases (any failure exits non-zero; no exception is swallowed):
               of a burst with its slowest stage; the contribution
               kernel once a dense scoring and once a fast cohort, the
               merge once a v2m cohort, /_kernels agreeing; {"tasks": ...}
+ 20. telemetry node telemetry, on the main node after phase 19, over
+              HTTP through the fallback workers: (a) 3 tenants (one by
+              X-Tenant-Id, one by the body's tenant, one by "logs"'
+              index.tenant.default) x 16 plan, dense and `_source:
+              true` fast bodies each, 8 clients: each answer equal to
+              the body sent untagged; `_tenants/stats` (and
+              `_cat/tenants`) counts each tenant's searches, its cohort
+              slots equal its bodies that entered the PlanBatcher, and
+              the launch ms of every row (`_default` too) sum to the
+              flight recorder's over the load; (b) 32 plan and dense
+              bodies on "bench" and "bench5" with a trace.id header,
+              one at a time: the answer echoes it, `_traces/{id}` has
+              one rest.search root over its shard spans (5 on
+              "bench5") and its fetch span, the waterfall lists exactly
+              its launches and readbacks and its contribution-kernel
+              events equal that kernel's launches across it; a fast
+              cohort of 8 traced bodies, its attribution printed; (c)
+              X-Workload-Class against classification (interactive,
+              a header class, scroll, async, bulk): `_workload/stats`
+              counts as sent, the bulk class its bytes; (d) a plan, a
+              dense and a fast body in CBOR, answered in CBOR equal to
+              JSON, a bad CBOR body a 400; `_msearch` of 16 sent as
+              application/json equal to the same as x-ndjson; (e) a
+              node with http.ip_filter.deny 127.0.0.0/8, and one with
+              an allow list without it, refuse the connection; (f) a
+              node with a 200,000-doc index and
+              indices.breaker.request.limit below one segment's
+              aggregation mask: a match + terms agg answers 429
+              circuit_breaking_exception, breaker.tripped{breaker=
+              request} +1, the body without aggs its exact total; the
+              request breaker at 0 after every step; the host
+              microseconds of a span, an observe, a tenant + class
+              search record and a cohort slot, and the p50 of a dense
+              `_search` with the four headers against without; (g)
+              `_nodes/stats`: search.requests and search.latency grew
+              by the searches sent, ?history=true renders;
+              {"telemetry": ...}
  the report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
               script, aggs, accounting, fulltext, fetch, fields, shards,
               aggs_deferred, mesh, durability, contexts, analysis,
-              tasks, filters, plan and kernels JSON lines (each kernel's
-              launches per phase, launches_aggs_deferred for phase 14,
-              launches_mesh for 15, launches_durability for 16,
-              launches_contexts for 17, launches_analysis for 18,
-              launches_tasks for 19), the phases' wall seconds
+              tasks, telemetry, filters, plan and kernels JSON lines
+              (each kernel's launches per phase, launches_aggs_deferred
+              for phase 14, launches_mesh for 15, launches_durability
+              for 16, launches_contexts for 17, launches_analysis for
+              18, launches_tasks for 19, launches_telemetry for 20),
+              the phases' wall seconds
               ({"phase_seconds": ...}), the card's
               name and power limit, and the last line {"ok": true,
               "device": {...}}
@@ -8219,10 +8257,10 @@ def phase_mesh(node, port, corpus, queries, carry, seed, iters, counters,
 
 
 # ---------------------------------------------------------------- phase 16
-DUR_DOCS = 50_000         # phase 16 (a): the docs written through _bulk
+DUR_DOCS = 25_000         # phase 16 (a): the docs written through _bulk
 DUR_BULK = 5_000          # Rally's default bulk_size
-DUR_OPS = 5_000           # single-doc requests after the bulk
-DUR_TRANSLOG_OPS = 10_000  # (b): the ops only the translog holds
+DUR_OPS = 2_500           # single-doc requests after the bulk
+DUR_TRANSLOG_OPS = 5_000  # (b): the ops only the translog holds
 DUR_QUERIES = 8
 DUR_K = 100
 DUR_BENCH_BODIES = 64     # (c): phase 4's first match bodies
@@ -8450,13 +8488,14 @@ def phase_durability(corpus_seg, queries, seed, counters, hbm_log):
             check(st == 200, f"phase 16 (a): search {j}: {str(r)[:200]}")
             check_scored(r, oracle, qterms[j % DUR_QUERIES], DUR_K,
                          f"phase 16 (a) after the bulk, body {j}")
-        # 5,000 single-doc requests through the REST routes, 8 clients,
+        # DUR_OPS single-doc requests through the REST routes, 8 clients,
         # one request an id: updates by doc (half with a new body),
         # scripted updates, deletes, new docs; then, one at a time, a
         # _create conflict, a CAS that succeeds and one that conflicts,
         # and a search before _refresh
         perm = rng.permutation(DUR_DOCS)
-        n_doc, n_script, n_del = 2000, 1000, 1000
+        n_doc, n_script, n_del = (2 * DUR_OPS // 5, DUR_OPS // 5,
+                                  DUR_OPS // 5)
         n_new = DUR_OPS - n_doc - n_script - n_del - 4
         reqs, kinds = [], []
         for j, d in enumerate(perm[:n_doc]):
@@ -8738,9 +8777,9 @@ def phase_durability(corpus_seg, queries, seed, counters, hbm_log):
 CTX_PAGE = 1000       # a scroll page of phase 17
 CTX_PAGES = 10        # its pages a body
 CTX_SLICES = 4        # the sliced scroll's max
-PIT_DOCS = 200_000    # the PIT index of phase 17
+PIT_DOCS = 100_000    # the PIT index of phase 17
 DS_DOCS = 10_000      # a data stream's docs a generation
-RESIZE_DOCS = 50_000  # the resize source
+RESIZE_DOCS = 25_000  # the resize source
 
 
 def ctx_terms(corpus, queries, n=4):
@@ -9215,7 +9254,7 @@ def phase_contexts(node, port, corpus, queries, oracles, logs, cols,
         launches=ms_launch)
     lap("e_msearch")
 
-    # ---- (g) resize: 50,000 docs of 2 shards, clone, split, shrink
+    # ---- (g) resize: RESIZE_DOCS docs of 2 shards, clone, split, shrink
     check(http(port, "PUT", "/rs17", {
         "settings": {"index": {"number_of_shards": 2}},
         "mappings": {"properties": {"title": {"type": "text"},
@@ -9227,7 +9266,7 @@ def phase_contexts(node, port, corpus, queries, oracles, logs, cols,
         lines = "".join(
             json.dumps({"index": {"_id": f"r{i}"}}) + "\n" + json.dumps({
                 "title": " ".join(vocab[j] for j in picks[i]), "n": i})
-            + "\n" for i in range(lo, lo + 10000))
+            + "\n" for i in range(lo, min(lo + 10000, RESIZE_DOCS)))
         st, r = http(port, "POST", "/rs17/_bulk", lines, ndjson=True)
         check(st == 200 and not r["errors"], "(g) source bulk")
     check(http(port, "POST", "/rs17/_refresh")[0] == 200, "(g) refresh")
@@ -10619,13 +10658,14 @@ def phase_tasks(node, port, queries, oracles, seed, counters, hbm_log):
           and [d["name"] for d in res["data_streams"]]
           == sorted(md.data_streams),
           "(g) _resolve/index agrees with the metadata")
-    st, cat_i = http(port, "GET", "/_cat/indices")
-    st, cat_s = http(port, "GET", "/_cat/segments")
-    st, cat_sh = http(port, "GET", "/_cat/shards")
-    st, cat_c = http(port, "GET", "/_cat/count")
+    # the front answers `_cat` as text (http_h decodes it)
+    st, cat_i = http_h(port, "GET", "/_cat/indices")[::2]
+    st, cat_s = http_h(port, "GET", "/_cat/segments")[::2]
+    st, cat_sh = http_h(port, "GET", "/_cat/shards")[::2]
+    st, cat_c = http_h(port, "GET", "/_cat/count")[::2]
     st, stats = http(port, "GET", "/_stats")
-    rows = {ln.split()[2]: ln.split() for ln in cat_i["_cat"].splitlines()}
-    seg_rows = [ln.split() for ln in cat_s["_cat"].splitlines()]
+    rows = {ln.split()[2]: ln.split() for ln in cat_i.splitlines()}
+    seg_rows = [ln.split() for ln in cat_s.splitlines()]
     total = 0
     for name in names:
         isvc = node.indices[name]
@@ -10649,8 +10689,8 @@ def phase_tasks(node, port, queries, oracles, seed, counters, hbm_log):
               == [(s.name, s.n_docs, int(np.asarray(s.live).sum()))
                   for s in segs], f"(g) _cat/segments {name}")
     check(stats["_all"]["primaries"]["docs"]["count"] == total
-          and int(cat_c["_cat"].split()[1]) == total
-          and len(cat_sh["_cat"].splitlines())
+          and int(cat_c.split()[1]) == total
+          and len(cat_sh.splitlines())
           == sum(node.indices[n].num_shards for n in names),
           f"(g) _stats, _cat/count and _cat/shards over every index: "
           f"{total}")
@@ -10710,6 +10750,608 @@ def phase_tasks(node, port, queries, oracles, seed, counters, hbm_log):
     log(f"[tasks] {json.dumps(out)[:3000]}")
     return out
 
+
+
+# ---------------------------------------------------------------- phase 20
+T20_CLIENTS = 8
+T20_BODIES = 16        # (a) bodies of each kind a tenant sends
+T20_TRACED = 32        # (b) traced plan and dense bodies, one at a time
+T20_FAST_COHORT = 8    # (b) traced fast bodies sent together (printed)
+T20_CLASS = 8          # (c) requests of each class
+T20_MSEARCH = 16       # (d) bodies of the _msearch sent as JSON
+T20_LAT = 200          # (g) dense searches timed with and without headers
+T20_LAT_CLIENTS = 2    # ... from as many Python clients as fallback workers
+T20_MICRO = 5_000      # host micro-benchmarks: iterations of each
+T20_SIZE = 10
+T20_BREAKER_DOCS = 200_000   # (f) the second node's index
+T20_TENANTS = ("t20-header", "t20-body", "t20-logs")
+
+
+def http_h(port: int, method: str, path: str, body=None, headers=None,
+           data=None, ctype="application/json"):
+    """(status, response headers, payload) of one request with extra
+    ``headers``; ``data`` sends raw bytes as ``ctype``. The payload is
+    JSON, CBOR (``Content-Type: application/cbor``) or text."""
+    from elasticsearch_tpu_torch.common import cbor
+    hdrs = dict(headers or {})
+    if data is None and body is not None:
+        data = json.dumps(body).encode()
+    if data is not None:
+        hdrs.setdefault("Content-Type", ctype)
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data,
+                                 hdrs, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, rh, raw = r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        status, rh, raw = e.code, dict(e.headers), e.read()
+    kind = rh.get("Content-Type", "")
+    if kind.startswith("application/cbor"):
+        payload = cbor.loads(raw)
+    elif kind.startswith("text/plain"):
+        payload = raw.decode()
+    else:
+        payload = json.loads(raw) if raw else None
+    return status, rh, payload
+
+
+def tenant_rows(port):
+    st, r = http(port, "GET", "/_tenants/stats")
+    check(st == 200, f"GET /_tenants/stats: {r}")
+    return r["tenants"]
+
+
+def class_rows(port):
+    st, r = http(port, "GET", "/_workload/stats")
+    check(st == 200, f"GET /_workload/stats: {r}")
+    return r["classes"]
+
+
+def node_metrics(port, node_id, history=False):
+    st, r = http(port, "GET", "/_nodes/stats"
+                 + ("?history=true" if history else ""))
+    check(st == 200, f"GET /_nodes/stats: {str(r)[:300]}")
+    return r["nodes"][node_id]
+
+
+def request_breaker_used(node):
+    return node.breaker_service.get_breaker("request").used
+
+
+def micro_us(fn, n):
+    """Host microseconds a call of ``fn`` over ``n`` calls."""
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def phase_telemetry(node, port, corpus, queries, oracles, seed, counters,
+                    hbm_log):
+    """Node telemetry on one H100 (module docstring, phase 20), over HTTP
+    through the fallback workers, on the main node after phase 19.
+    ``corpus``: the "bench" corpus, whose first 200,000 docs make the
+    breaker node's index."""
+    import torch
+    from elasticsearch_tpu_torch.corpus import (bench_cat, exact_topk,
+                                                segment_from_corpus,
+                                                shard_corpus, term_name)
+    from elasticsearch_tpu_torch.common import cbor
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.search.batching import PlanBatcher
+    from elasticsearch_tpu_torch.telemetry import context as telectx
+    t_phase = time.time()
+    out = {}
+    steps = {}
+    t_step = [time.time()]
+
+    def lap(name):
+        now = time.time()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+
+    fp = node.fastpath
+    tele = node.telemetry
+    batcher = node.search_service.plan_batcher
+    contrib = counters["gather_bm25_contrib"]
+    c_start = dict(fp.stats)
+    for c in counters.values():
+        c.launches = 0
+    svc = node.indices["bench"]
+    reg = fp.register("bench", svc.engine.segments[0], "title", svc.k1,
+                      svc.b)
+    v2m = [i for i, q in enumerate(queries)
+           if lane_of(fp, reg, q, T20_SIZE) == "v2m"]
+    check(len(v2m) >= 3 * T20_BODIES,
+          f"v2m queries at size {T20_SIZE}: {len(v2m)}")
+    # (f)'s index, the bench corpus's first docs with their own
+    # statistics, cut and laid out while (a)-(e) wait on HTTP
+    n_b = T20_BREAKER_DOCS
+    brk = {}
+
+    def cut_breaker_index():
+        brk["corpus"] = shard_corpus(corpus, np.arange(n_b))
+        brk["segment"] = segment_from_corpus(
+            brk["corpus"], name="brk0",
+            keywords={"cat": dict(zip(("ords", "terms"), bench_cat(n_b)))})
+
+    th_brk = threading.Thread(target=cut_breaker_index, daemon=True)
+    th_brk.start()
+    # the registry `_nodes/stats` renders, read here at the start ((g)
+    # reads the route)
+    m0 = tele.metrics.to_dict()
+    searches0 = m0.get("search.requests", {"value": 0})["value"]
+    lat0 = m0.get("search.latency", {"count": 0})["count"]
+    sent = [0]          # searches sent to the main node in this phase
+
+    def breaker_zero(what):
+        check(request_breaker_used(node) == 0,
+              f"{what}: the request breaker back to 0 "
+              f"({request_breaker_used(node)} B)")
+
+    # ---- (a) three tenants x 16 bodies of each kind, 8 clients
+    kinds = []
+    for t_i, tenant in enumerate(T20_TENANTS):
+        for j in range(T20_BODIES):
+            q = queries[v2m[t_i * T20_BODIES + j]]
+            kinds += [(tenant, "plan", plan_body(q, T20_SIZE)),
+                      (tenant, "dense", t19_dense_body(q, T20_SIZE)),
+                      (tenant, "fast", match_body(q, T20_SIZE,
+                                                  source=True))]
+
+    def target(tenant):
+        return "logs" if tenant == "t20-logs" else "bench"
+
+    def tagged(tenant, body):
+        if tenant == "t20-body":
+            return dict(body, tenant=tenant), {}
+        if tenant == "t20-header":
+            return body, {"X-Tenant-Id": tenant}
+        return body, {}
+
+    def drive_all(reqs):
+        res = [None] * len(reqs)
+        nxt = [0]
+        lock = threading.Lock()
+
+        def client():
+            while True:
+                with lock:
+                    i = nxt[0]
+                    nxt[0] += 1
+                if i >= len(reqs):
+                    return
+                res[i] = http_h(port, "POST", *reqs[i])
+
+        ths = [threading.Thread(target=client, daemon=True)
+               for _ in range(T20_CLIENTS)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(600)
+        return res
+
+    # the untagged answers first ("logs" has no tenant default yet)
+    plain = drive_all([(f"/{target(t)}/_search", b, None)
+                       for t, _, b in kinds])
+    sent[0] += len(kinds)
+    lap("a_untagged")
+    st, r = http(port, "PUT", "/logs/_settings",
+                 {"index.tenant.default": "t20-logs"})
+    check(st == 200, f"PUT /logs/_settings index.tenant.default: {r}")
+    rows0 = tenant_rows(port)
+    entered = Counter()
+    entered_lock = threading.Lock()
+    orig_execute = batcher.execute
+
+    def counting_execute(bp, ctx, k, k1, b, after_score=None):
+        if not bp.empty and PlanBatcher._eligible(bp, after_score):
+            with entered_lock:
+                entered[telectx.current_tenant()] += 1
+        return orig_execute(bp, ctx, k, k1, b, after_score)
+
+    fr_total0 = tele.flight.aggregates()["ring"]["recorded_total"]
+    t0_ns = tele.flight._now_ns()
+    batcher.execute = counting_execute
+    try:
+        reqs = []
+        for t, _, b in kinds:
+            body, headers = tagged(t, b)
+            reqs.append((f"/{target(t)}/_search", body, headers))
+        t0 = time.time()
+        got = drive_all(reqs)
+        load_s = time.time() - t0
+    finally:
+        batcher.execute = orig_execute
+    sent[0] += len(kinds)
+    fr_total1 = tele.flight.aggregates()["ring"]["recorded_total"]
+    for i, ((st, _, r), (st0, _, r0)) in enumerate(zip(got, plain)):
+        check(st == 200 and st0 == 200,
+              f"(a) body {i} ({kinds[i][:2]}): {st} {str(r)[:200]}")
+        same_hits_exactly(r, r0, f"(a) body {i} {kinds[i][:2]} tagged vs "
+                                 f"untagged")
+    rows1 = tenant_rows(port)
+    per_tenant = {}
+    for tenant in T20_TENANTS:
+        row = rows1[tenant]
+        d0 = rows0.get(tenant, {}).get("search", {}).get("count", 0)
+        count = row["search"]["count"] - d0
+        slots = row["device"]["cohort_slots"] - rows0.get(tenant, {}).get(
+            "device", {}).get("cohort_slots", 0)
+        check(count == 3 * T20_BODIES,
+              f"(a) {tenant}: search count {count} = bodies sent "
+              f"{3 * T20_BODIES}")
+        check(slots == entered[tenant],
+              f"(a) {tenant}: cohort slots {slots} = its bodies that "
+              f"entered the PlanBatcher {entered[tenant]}")
+        per_tenant[tenant] = dict(searches=count, cohort_slots=slots,
+                                  plan_entries=entered[tenant],
+                                  launch_ms=row["device"]["launch_ms"],
+                                  p50_ms=row["search"]["latency"]["p50_ms"])
+    check(fr_total1 - fr_total0 <= tele.flight.capacity,
+          f"(a) the flight ring held the phase's events "
+          f"({fr_total1 - fr_total0})")
+    ring = tele.flight.events(kind="launch", since_ns=t0_ns, limit=1 << 20)
+    flight_ms = sum(e["dispatch_ns"] for e in ring) / 1e6
+    rows_ms = sum(rows1[t]["device"]["launch_ms"]
+                  - rows0.get(t, {}).get("device", {}).get("launch_ms", 0.0)
+                  for t in rows1)
+    check(abs(rows_ms - flight_ms) <= 1e-3 * (len(rows1) + 1) * 2,
+          f"(a) the tenant rows' launch ms ({rows_ms:.3f}) = the flight "
+          f"recorder's launch ms over the load ({flight_ms:.3f})")
+    st, cat = http_h(port, "GET", "/_cat/tenants")[::2]
+    cat_rows = {ln.split()[0]: ln.split() for ln in cat.splitlines()[1:]}
+    check(all(int(cat_rows[t][1]) == rows1[t]["search"]["count"]
+              for t in T20_TENANTS),
+          f"(a) _cat/tenants agrees with _tenants/stats: {cat[:400]}")
+    out["tenants"] = dict(bodies=len(kinds), clients=T20_CLIENTS,
+                          seconds=load_s, rows=per_tenant,
+                          launch_ms_rows=rows_ms,
+                          launch_ms_flight=flight_ms,
+                          default_launch_ms=rows1["_default"]["device"][
+                              "launch_ms"] - rows0.get("_default", {}).get(
+                              "device", {}).get("launch_ms", 0.0))
+    breaker_zero("(a)")
+    log(f"[telemetry] (a) {out['tenants']}")
+    lap("a_tenants")
+
+    # ---- (b) traced plan and dense bodies, one at a time
+    traced = []
+    for i in range(T20_TRACED):
+        q = queries[v2m[i]]
+        index = "bench" if i % 2 == 0 else "bench5"
+        body = plan_body(q, T20_SIZE) if i % 4 < 2 else \
+            t19_dense_body(q, T20_SIZE)
+        traced.append((index, body, f"t20-trace-{seed}-{i}"))
+    spans_seen = Counter()
+    events_seen = Counter()
+    for index, body, trace in traced:
+        l0 = contrib.launches
+        st, h, r = http_h(port, "POST", f"/{index}/_search", body,
+                          {"trace.id": trace})
+        torch.cuda.synchronize()
+        grew = contrib.launches - l0
+        check(st == 200 and h.get("trace.id") == trace,
+              f"(b) {index} echoes its trace.id: {st} {h.get('trace.id')}")
+        st, t = http(port, "GET", f"/_traces/{trace}")
+        check(st == 200, f"(b) GET /_traces/{trace}: {t}")
+        roots = [s for s in t["tree"]]
+        check([s["name"] for s in roots] == ["rest.search"],
+              f"(b) one rest.search root: {[s['name'] for s in roots]}")
+        children = [c["name"] for c in roots[0]["children"]]
+        shards = [c for c in children if c.startswith(f"shard[{index}]")]
+        check(len(shards) == (SHARDS if index == "bench5" else 1)
+              and children[-1] == "fetch" and len(children)
+              == len(shards) + 1,
+              f"(b) {index}: its shard spans and its fetch span under the "
+              f"root: {children}")
+        st, w = http(port, "GET", f"/_flight_recorder/waterfall/{trace}")
+        check(st == 200 and "unattached_events" not in w,
+              f"(b) the waterfall of {trace}")
+        evs = []
+
+        def walk(span):
+            evs.extend(span["events"])
+            for c in span["children"]:
+                walk(c)
+        for root in w["waterfall"]:
+            walk(root)
+        evs.sort(key=lambda e: (e["t_ns"], e["seq"]))
+        mine = tele.flight.events_for_trace(trace)
+        check(evs == mine and w["event_count"] == len(mine),
+              f"(b) the waterfall lists exactly the request's launches "
+              f"and readbacks ({len(evs)} vs {len(mine)})")
+        n_contrib = sum(e.get("kernel") == "gather_bm25_contrib"
+                        for e in evs)
+        check(n_contrib == grew,
+              f"(b) {trace}: its contribution-kernel events {n_contrib} = "
+              f"the kernel's launches across the request {grew}")
+        spans_seen[len(t["spans"])] += 1
+        events_seen[len(evs)] += 1
+    sent[0] += len(traced)
+    # a fast cohort of traced _source: true bodies sent together: its
+    # launches are recorded under the trace of its first caller (printed)
+    fast_traces = [f"t20-fast-{seed}-{i}" for i in range(T20_FAST_COHORT)]
+    fbodies = [match_body(queries[v2m[i]], T20_SIZE, source=True)
+               for i in range(T20_FAST_COHORT)]
+    c0 = fp.stats["cohorts"]
+    res = [None] * T20_FAST_COHORT
+    ths = [threading.Thread(target=lambda i=i: res.__setitem__(
+        i, http_h(port, "POST", "/bench/_search", fbodies[i],
+                  {"trace.id": fast_traces[i]}))) for i in
+        range(T20_FAST_COHORT)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(600)
+    sent[0] += T20_FAST_COHORT
+    check(all(r[0] == 200 and r[1].get("trace.id") == tr
+              for r, tr in zip(res, fast_traces)),
+          "(b) the fast bodies echo their trace ids")
+    fast_attr = {tr: [e.get("kernel") or e.get("site") for e in
+                      tele.flight.events_for_trace(tr)]
+                 for tr in fast_traces}
+    out["traces"] = dict(
+        bodies=len(traced), spans=dict(spans_seen),
+        events=dict(events_seen),
+        fast_cohorts=fp.stats["cohorts"] - c0,
+        fast_events_by_trace={k: len(v) for k, v in fast_attr.items()},
+        fast_attribution=("a fast cohort's launches and readback are "
+                          "recorded under its first Python caller's "
+                          "trace; the other callers' traces hold none"))
+    breaker_zero("(b)")
+    log(f"[telemetry] (b) {out['traces']}")
+    lap("b_traces")
+
+    # ---- (c) X-Workload-Class against classification
+    cls0 = class_rows(port)
+    http(port, "PUT", "/tele20", {"mappings": {"properties": {
+        "title": {"type": "text"}}}})
+    sent_cls = Counter()
+    for i in range(T20_CLASS):
+        q = queries[v2m[i]]
+        st, _, r = http_h(port, "POST", "/bench/_search",
+                          plan_body(q, 10))
+        check(st == 200, f"(c) interactive: {r}")
+        sent_cls["interactive"] += 1
+        st, _, r = http_h(port, "POST", "/bench/_search", plan_body(q, 10),
+                          {"X-Workload-Class": "t20-canary"})
+        check(st == 200, f"(c) canary: {r}")
+        sent_cls["t20-canary"] += 1
+        st, _, r = http_h(port, "POST", "/bench/_search?scroll=1m",
+                          plan_body(q, 10))
+        check(st == 200 and r.get("_scroll_id"), f"(c) scroll: {r}")
+        http(port, "DELETE", "/_search/scroll",
+             {"scroll_id": r["_scroll_id"]})
+        sent_cls["scroll"] += 1
+        st, _, r = http_h(port, "POST", "/bench/_async_search"
+                          "?wait_for_completion_timeout=60s",
+                          t19_dense_body(q, 10))
+        check(st == 200 and not r["is_running"]
+              and r["search.class"] == "async", f"(c) async: {r}")
+        sent_cls["async"] += 1
+    bulk = "".join(json.dumps({"index": {"_id": str(i)}}) + "\n"
+                   + json.dumps({"title": f"telemetry doc {i}"}) + "\n"
+                   for i in range(64))
+    st, r = http(port, "POST", "/tele20/_bulk?refresh=true", bulk,
+                 ndjson=True)
+    check(st == 200 and not r["errors"], f"(c) bulk: {str(r)[:200]}")
+    sent[0] += sum(sent_cls.values())
+    cls1 = class_rows(port)
+    got_cls = {c: cls1[c]["search"]["count"] - cls0.get(c, {}).get(
+        "search", {}).get("count", 0) for c in sent_cls}
+    check(got_cls == dict(sent_cls),
+          f"(c) _workload/stats counts as sent: {got_cls} vs "
+          f"{dict(sent_cls)}")
+    bulk_bytes = cls1["bulk"]["indexing"]["bytes"] - cls0.get(
+        "bulk", {}).get("indexing", {}).get("bytes", 0)
+    check(bulk_bytes == len(bulk.encode()),
+          f"(c) the bulk class charged the bulk's bytes: {bulk_bytes} vs "
+          f"{len(bulk.encode())}")
+    st, catw = http_h(port, "GET", "/_cat/workload")[::2]
+    check(st == 200 and "t20-canary" in catw, "(c) _cat/workload")
+    out["workload"] = dict(sent=dict(sent_cls), bulk_bytes=bulk_bytes)
+    breaker_zero("(c)")
+    log(f"[telemetry] (c) {out['workload']}")
+    lap("c_workload")
+
+    # ---- (d) CBOR both ways; _msearch sent as JSON
+    q = queries[v2m[0]]
+    one_each = [plan_body(q, T20_SIZE), t19_dense_body(q, T20_SIZE),
+                match_body(q, T20_SIZE, source=True)]
+    for body in one_each:
+        st, _, js = http_h(port, "POST", "/bench/_search", body)
+        st2, h2, cb = http_h(port, "POST", "/bench/_search",
+                             data=cbor.dumps(body),
+                             ctype="application/cbor",
+                             headers={"Accept": "application/cbor"})
+        check(st == st2 == 200
+              and h2.get("Content-Type", "").startswith("application/cbor"),
+              f"(d) CBOR {body}: {st} {st2} {h2.get('Content-Type')}")
+        js.pop("took")
+        cb.pop("took")
+        check(js == cb, f"(d) the CBOR answer decodes equal to the JSON "
+                        f"answer: {body}")
+    sent[0] += 2 * len(one_each)
+    st, _, bad = http_h(port, "POST", "/bench/_search",
+                        data=b"\xff\xfe\x00", ctype="application/cbor")
+    check(st == 400 and bad["error"]["type"] == "parsing_exception",
+          f"(d) a bad CBOR body: {st} {bad}")
+    lines = []
+    for i in range(T20_MSEARCH):
+        qq = queries[v2m[i]]
+        lines += [json.dumps({"index": "bench"}),
+                  json.dumps(plan_body(qq, 10) if i % 2 == 0
+                             else t19_dense_body(qq, 10))]
+    text = ("\n".join(lines) + "\n").encode()
+    answers = {}
+    for ctype in ("application/json", "application/x-ndjson"):
+        st, _, r = http_h(port, "POST", "/_msearch", data=text, ctype=ctype)
+        check(st == 200 and len(r["responses"]) == T20_MSEARCH,
+              f"(d) _msearch as {ctype}: {st} {str(r)[:300]}")
+        answers[ctype] = r["responses"]
+    for a, b in zip(answers["application/json"],
+                    answers["application/x-ndjson"]):
+        same_hits_exactly(a, b, "(d) _msearch as JSON vs as x-ndjson")
+    sent[0] += 2 * T20_MSEARCH
+    out["cbor_msearch"] = dict(cbor_bodies=len(one_each),
+                               msearch=T20_MSEARCH)
+    breaker_zero("(d)")
+    log(f"[telemetry] (d) {out['cbor_msearch']}")
+    lap("d_cbor_msearch")
+
+    # ---- (e) the ip filter on a second node
+    refused = {}
+    for rule in ({"deny": "127.0.0.0/8"}, {"allow": "10.7.0.0/16"}):
+        other = Node(device="cuda", settings={"http": {"ip_filter": rule}})
+        try:
+            p2 = other.start(0)
+            try:
+                http(p2, "GET", "/")
+                ok = False
+            except (urllib.error.URLError, ConnectionError):
+                ok = True
+            check(ok and other.http_stats()["ip_rejected"] >= 1,
+                  f"(e) {rule} refuses the connection")
+            refused[next(iter(rule))] = other.http_stats()["ip_rejected"]
+        finally:
+            other.close()
+    out["ip_filter"] = refused
+    lap("e_ip_filter")
+
+    # ---- (f) the request breaker below one segment's aggregation mask
+    th_brk.join(600)
+    check("segment" in brk, "(f) the breaker node's index was built")
+    bcorpus = brk["corpus"]
+    limit = n_b // 2            # bytes: below the [n_b] bool mask
+    other = Node(device="cuda", settings={
+        "indices.breaker.request.limit": limit})
+    try:
+        other.create_index("brk", {"properties": {
+            "title": {"type": "text"}, "cat": {"type": "keyword"}}})
+        other.indices["brk"].engine.install_segments([brk.pop("segment")])
+        p3 = other.start(0)
+        bq = queries[v2m[0]]
+        text_q = " ".join(term_name(t) for t in bq)
+        agg_body = {"query": {"match": {"title": text_q}}, "size": 10,
+                    "aggs": {"c": {"terms": {"field": "cat"}}}}
+        trips0 = other.telemetry.metrics.get_value(
+            "breaker.tripped", breaker="request") or 0
+        st, r = http(p3, "POST", "/brk/_search", agg_body)
+        check(st == 429
+              and r["error"]["type"] == "circuit_breaking_exception",
+              f"(f) match + terms agg over {n_b} docs with "
+              f"request.limit {limit} B: {st} {str(r)[:300]}")
+        trips = (other.telemetry.metrics.get_value(
+            "breaker.tripped", breaker="request") or 0) - trips0
+        check(trips == 1, f"(f) breaker.tripped{{breaker=request}} grew by "
+                          f"1: {trips}")
+        plain_body = {"query": {"match": {"title": text_q}}, "size": 10}
+        st, r = http(p3, "POST", "/brk/_search", plain_body)
+        want = exact_topk(bcorpus, bq, 10)[2]
+        check(st == 200 and r["hits"]["total"] == {"value": int(want),
+                                                   "relation": "eq"},
+              f"(f) the body without aggs answers its exact total {want}: "
+              f"{st} {str(r)[:200]}")
+        check(request_breaker_used(other) == 0,
+              "(f) the second node's request breaker back to 0")
+        # the body without aggs took that node's fast path: its v2m
+        # cohorts launched the merge too
+        other_v2m = other.fastpath.stats["cohorts_v2m"]
+        out["breaker"] = dict(docs=n_b, limit_bytes=limit,
+                              mask_bytes=n_b, trips=trips,
+                              total=int(want))
+    finally:
+        other.close()
+    breaker_zero("(f)")
+    log(f"[telemetry] (f) {out['breaker']}")
+    lap("f_breaker")
+
+    # ---- host costs: a span, an observe, a search record, a slot
+    tr = tele.tracer
+    out["host_us"] = dict(
+        span=micro_us(lambda: tr.start_span("t20.micro").finish(),
+                      T20_MICRO),
+        observe=micro_us(lambda: tele.metrics.observe("t20.micro", 1.5),
+                         T20_MICRO),
+        tenant_class_record=micro_us(
+            lambda: (tele.tenants.record_search("t20-micro", 1.5),
+                     tele.workload.record_search("t20-micro", 1.5)),
+            T20_MICRO),
+        cohort_slot=micro_us(
+            lambda: (tele.tenants.record_cohort("t20-micro"),
+                     tele.workload.record_cohort("t20-micro")),
+            T20_MICRO))
+    # p50 of a dense _search with the four headers against without, on
+    # "tele20" (64 docs): the headers' host cost, not 2M docs' scoring
+    lat = {}
+    body = {"query": {"match": {"title": "telemetry doc"}},
+            "min_score": 1e-6, "size": 10}
+    for mode in ("bare", "headers", "bare", "headers"):
+        hdrs = {} if mode == "bare" else {
+            "X-Opaque-Id": "t20", "X-Tenant-Id": "t20-lat",
+            "X-Workload-Class": "t20-lat", "trace.id": "t20-lat"}
+
+        def timed(mode=mode, hdrs=hdrs):
+            for _ in range(T20_LAT // (2 * T20_LAT_CLIENTS)):
+                t0 = time.perf_counter()
+                st, _, r = http_h(port, "POST", "/tele20/_search", body,
+                                  hdrs)
+                lat.setdefault(mode, []).append(time.perf_counter() - t0)
+                check(st == 200, f"latency {mode}: {str(r)[:200]}")
+
+        ths = [threading.Thread(target=timed, daemon=True)
+               for _ in range(T20_LAT_CLIENTS)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(600)
+    check(all(len(v) == T20_LAT for v in lat.values()),
+          f"latency: {T20_LAT} searches a mode")
+    sent[0] += 2 * T20_LAT
+    out["p50_ms"] = {m: float(np.percentile(np.asarray(v) * 1e3, 50))
+                     for m, v in lat.items()}
+    out["p99_ms"] = {m: float(np.percentile(np.asarray(v) * 1e3, 99))
+                     for m, v in lat.items()}
+    log(f"[telemetry] host µs {out['host_us']}, p50 ms {out['p50_ms']}")
+    lap("host_costs")
+
+    # ---- (g) _nodes/stats
+    ns = node_metrics(port, node.node_id, history=True)
+    m1 = ns["telemetry"]["metrics"]
+    grew = m1["search.requests"]["value"] - searches0
+    lat_grew = m1["search.latency"]["count"] - lat0
+    check(grew == sent[0] and lat_grew == sent[0],
+          f"(g) search.requests grew by the searches sent ({grew} vs "
+          f"{sent[0]}), search.latency counts them ({lat_grew})")
+    check("history" in ns["telemetry"] and ns["telemetry"]["history"],
+          "(g) ?history=true renders the history ring")
+    check(ns["telemetry"]["tenants"]["cardinality"]["live"] >= 3
+          and ns["recoveries"] and ns["indices"]["bench"],
+          "(g) the tenants, recoveries and indices sections")
+    out["nodes_stats"] = dict(searches=grew, latency_count=lat_grew,
+                              history_keys=sorted(ns["telemetry"][
+                                  "history"])[:8],
+                              traces=ns["telemetry"]["traces"])
+    lap("g_nodes_stats")
+
+    # ---- the kernels' counts, the breaker
+    hbm_agrees(node, "telemetry", hbm_log)
+    breaker_zero("the phase")
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    cohorts_v2m = fp.stats["cohorts_v2m"] - c_start["cohorts_v2m"]
+    check(launches["gather_bm25_contrib"] > 0 and cohorts_v2m > 0
+          and launches["merge_sorted_slots"] == cohorts_v2m + other_v2m,
+          f"both kernels launched in phase 20, the merge once a v2m "
+          f"cohort: {launches} ({cohorts_v2m} v2m cohorts, {other_v2m} "
+          f"on the breaker's node)")
+    out["launches"] = launches
+    out["searches_sent"] = sent[0]
+    out["steps_s"] = steps
+    out["phase_s"] = time.time() - t_phase
+    log(f"[telemetry] {json.dumps(out)[:3000]}")
+    return out
 
 
 def tasks_alone(docs=2_000_000, vocab=100_000, seed=0):
@@ -10772,6 +11414,63 @@ def tasks_alone(docs=2_000_000, vocab=100_000, seed=0):
         out = phase_tasks(node, port, queries, oracles, seed + 20,
                           counters, [])
         print(json.dumps({"tasks": out}))
+        return out
+    finally:
+        node.close()
+
+
+def telemetry_alone(docs=2_000_000, vocab=100_000, seed=0):
+    """Phase 20 by itself on the card, on a node holding what it reads of
+    the earlier phases' indices: "bench" (registered with the front),
+    "bench5" (the corpus in 5 shards, one segment each) and "logs" (the
+    incident corpus with its numeric columns):
+
+        python3 -c 'import chip_smoke as c; c.telemetry_alone()'
+    """
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import (LOGS_MAPPINGS, build_corpus,
+                                                exact_topk, logs_columns,
+                                                make_queries,
+                                                segment_from_corpus,
+                                                shard_corpus,
+                                                with_incident_terms)
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops import _build
+    from elasticsearch_tpu_torch.ops.bm25_contrib import gather_bm25_contrib
+    from elasticsearch_tpu_torch.ops.merge import merge_sorted_slots
+    _build.build_all()
+    rng = np.random.default_rng(seed)
+    corpus = build_corpus(rng, n_docs=docs, vocab=vocab)
+    queries = make_queries(rng, corpus["df"], n_docs=docs, n_queries=256)
+    oracles = [exact_topk(corpus, q, 1000) for q in queries[:T19_LOAD]]
+    node = Node(device="cuda", settings={"indices.breaker.hbm.limit": int(
+        0.75 * torch.cuda.mem_get_info()[1])})
+    try:
+        node.create_index("bench", {"properties": {"title":
+                                                   {"type": "text"}}})
+        node.indices["bench"].engine.install_segments(
+            [segment_from_corpus(corpus)])
+        port = node.start(0)
+        svc = node.create_index(
+            "bench5", {"properties": {"title": {"type": "text"}}},
+            {"index": {"number_of_shards": SHARDS}})
+        assign = routing_oracle(docs, SHARDS)
+        for sh in range(SHARDS):
+            sub = shard_corpus(corpus, np.nonzero(assign == sh)[0])
+            svc.shards[sh].install_segments([segment_from_corpus(
+                sub, name=f"bench5[{sh}]_0", ids=sub["ids"])])
+        logs = with_incident_terms(corpus, np.random.default_rng(seed + 3))
+        cols = logs_columns(docs, np.random.default_rng(seed + 5))
+        node.create_index("logs", LOGS_MAPPINGS)
+        node.indices["logs"].engine.install_segments(
+            [segment_from_corpus(logs, name="logs0", numerics=cols)])
+        node.refresh_front()
+        counters = {"gather_bm25_contrib": gather_bm25_contrib,
+                    "merge_sorted_slots": merge_sorted_slots}
+        out = phase_telemetry(node, port, corpus, queries, oracles,
+                              seed + 21, counters, [])
+        print(json.dumps({"telemetry": out}))
         return out
     finally:
         node.close()
@@ -11108,6 +11807,11 @@ def main(argv=None) -> int:
         tasks = phase_tasks(node, port, queries, oracles, args.seed + 20,
                             counters, hbm_log)
         clock.lap("19_tasks")
+
+        # ---- 20. node telemetry: tenants, classes, traces, the breaker
+        telemetry = phase_telemetry(node, port, corpus, queries, oracles,
+                                    args.seed + 21, counters, hbm_log)
+        clock.lap("20_telemetry")
     finally:
         node.close()
 
@@ -11157,6 +11861,7 @@ def main(argv=None) -> int:
             launches_contexts=contexts["launches"][name],
             launches_analysis=analysis["launches"][name],
             launches_tasks=tasks["launches"][name],
+            launches_telemetry=telemetry["launches"][name],
             dense_shape=(dense["contrib_dense_shape"]
                          if name == "gather_bm25_contrib" else None)))
     print(json.dumps({"scale": scale}))
@@ -11180,6 +11885,7 @@ def main(argv=None) -> int:
     print(json.dumps({"contexts": contexts}))
     print(json.dumps({"analysis": analysis}))
     print(json.dumps({"tasks": tasks}))
+    print(json.dumps({"telemetry": telemetry}))
     print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))

@@ -56,6 +56,13 @@ class IndexingPressure:
         self._total = {COORDINATING: 0, PRIMARY: 0, REPLICA: 0}
         self._rejections = {COORDINATING: 0, PRIMARY: 0, REPLICA: 0}
         self._peak_all = 0
+        # the node's MetricsRegistry (``indexing_pressure.rejections``),
+        # and its TenantAccounting and WorkloadAccounting: payload bytes
+        # charged to the ambient tenant and class at the coordinating
+        # stage only, rejections at every stage (set by the node)
+        self.metrics = None
+        self.tenants = None
+        self.workloads = None
 
     @property
     def replica_limit(self) -> int:
@@ -81,6 +88,11 @@ class IndexingPressure:
     def _mark(self, stage: str, n_bytes: int,
               label: str) -> Callable[[], None]:
         n_bytes = int(n_bytes)
+        tenant = wclass = None
+        if self.tenants is not None or self.workloads is not None:
+            from elasticsearch_tpu_torch.telemetry import context as _telectx
+            tenant = _telectx.current_tenant()
+            wclass = _telectx.current_workload_class()
         with self._lock:
             # coordinating + primary share the base budget; replica ops
             # get the 1.5x headroom. All stages' bytes count toward the
@@ -89,6 +101,13 @@ class IndexingPressure:
             would = sum(self._current.values()) + n_bytes
             if 0 <= limit < would:
                 self._rejections[stage] += 1
+                if self.metrics is not None:
+                    self.metrics.inc("indexing_pressure.rejections",
+                                     stage=stage)
+                if self.tenants is not None:
+                    self.tenants.record_rejection(tenant, stage)
+                if self.workloads is not None:
+                    self.workloads.record_rejection(wclass, stage)
                 raise EsRejectedExecutionException(
                     f"rejecting operation [{label}] at {stage} stage: "
                     f"in-flight indexing bytes [{would}] would exceed "
@@ -99,6 +118,10 @@ class IndexingPressure:
             self._total[stage] += n_bytes
             self._peak_all = max(self._peak_all,
                                  sum(self._current.values()))
+        if self.tenants is not None and stage == COORDINATING:
+            self.tenants.record_indexing(tenant, n_bytes)
+        if self.workloads is not None and stage == COORDINATING:
+            self.workloads.record_indexing(wclass, n_bytes)
         released = {"done": False}
 
         def release() -> None:

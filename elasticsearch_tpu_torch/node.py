@@ -27,15 +27,26 @@ the in-flight ``_bulk`` bytes (index/pressure.py): past it a bulk
 answers a retryable 429.
 
 ``settings`` (flat dotted keys, nested objects, or both) sets the
-circuit breakers: ``indices.breaker.{total,request,fielddata,hbm}.limit``
-(utils/breaker.py ``build_breaker_service``). The ``hbm`` child accounts
-the device memory of the resident segments (search/context.py
-``DeviceSegmentCache``); its default is the reference's, the host total
-of 4 GiB, which a deployment holding more on the card must raise. The
-node's flight recorder (telemetry/flightrecorder.py) is ambient on every
-thread that serves: each REST dispatch (the HTTP front's fallback workers
-included, and the batchers' leaders inside them) and the fast path's
-drain thread.
+circuit breakers: ``indices.breaker.{total,request,fielddata,
+in_flight_requests,hbm}.limit`` (utils/breaker.py
+``build_breaker_service``). The ``hbm`` child accounts the device memory
+of the resident segments (search/context.py ``DeviceSegmentCache``); its
+default is the reference's, the host total of 4 GiB, which a deployment
+holding more on the card must raise. The ``request`` child is charged by
+the dense path's host readbacks (search/searcher.py).
+
+``telemetry`` (telemetry/__init__.py) is the node's metrics registry,
+tracer (``telemetry.traces.max`` traces of at most
+``telemetry.traces.max_spans`` spans), history ring
+(``telemetry.history.interval`` / ``.retention`` seconds), flight
+recorder (``flight``) and tenant and workload-class accounting
+(``tenants.max``, ``workload.max`` and their SLO settings). The breakers,
+the indexing pressure, the task manager, the batchers and the mesh feed
+it. The flight recorder is ambient on every thread that serves: each
+REST dispatch (the HTTP front's fallback workers included, and the
+batchers' leaders inside them) and the fast path's drain thread.
+``http.ip_filter.allow`` / ``.deny`` (comma lists of IPv4 CIDRs) filter
+the connections the front accepts.
 
 ``devices`` is the node's device list, the grid of the mesh
 (parallel/): every visible CUDA card by default, the one device on the
@@ -101,12 +112,14 @@ from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
 from elasticsearch_tpu_torch.search.fastpath import FastPathServer
 from elasticsearch_tpu_torch.search.script import StoredScripts
 from elasticsearch_tpu_torch.search.service import SearchService
-from elasticsearch_tpu_torch.telemetry.flightrecorder import FlightRecorder
+from elasticsearch_tpu_torch.telemetry import Telemetry
+from elasticsearch_tpu_torch.telemetry import context as _telectx
+from elasticsearch_tpu_torch.utils.bigarrays import BigArrays
 from elasticsearch_tpu_torch.transport.tasks import (CancellableTask,
                                                      TaskManager,
                                                      TaskResultStore)
 
-VERSION = "8.0.0-torch-slice22"
+VERSION = "8.0.0-torch-slice23"
 # the search pool's queue (Elasticsearch's thread_pool.search.queue_size)
 SEARCH_QUEUE_SIZE = 1000
 # the system index of background tasks' results (the reference's)
@@ -132,7 +145,27 @@ class Node:
         self.breaker_service = build_breaker_service(self.settings.get)
         self.indexing_pressure = IndexingPressure.from_settings(
             self.settings.get)
-        self.flight = FlightRecorder(node=self.node_id)
+        # the node's telemetry (telemetry/__init__.py): metrics, the
+        # bounded trace ring, the history ring, the flight recorder and
+        # the tenant and workload-class accounting, on one clock
+        get = self.settings.get
+        self.telemetry = Telemetry(
+            node=self.node_id,
+            max_traces=int(get("telemetry.traces.max", 128)),
+            max_spans_per_trace=int(get("telemetry.traces.max_spans", 512)),
+            history_interval=float(get("telemetry.history.interval",
+                                       10.0)),
+            history_retention=float(get("telemetry.history.retention",
+                                        600.0)),
+            settings_get=get)
+        self.flight = self.telemetry.flight
+        # breaker trips and indexing-pressure rejections feed the
+        # registry and the ambient tenant's (and class's) rows
+        self.breaker_service.metrics = self.telemetry.metrics
+        self.breaker_service.tenants = self.telemetry.tenants
+        self.indexing_pressure.metrics = self.telemetry.metrics
+        self.indexing_pressure.tenants = self.telemetry.tenants
+        self.indexing_pressure.workloads = self.telemetry.workload
         data_path = data_path or self.settings.get("path.data")
         # a node given no path keeps its indices in a directory of its own
         self._own_data_path = data_path is None
@@ -147,9 +180,19 @@ class Node:
         self.device_cache = DeviceSegmentCache(self.device)
         self.device_cache.set_breaker(
             self.breaker_service.get_breaker(CircuitBreaker.HBM))
+        # the dense path's host readbacks charge the request breaker
+        self.device_cache.bigarrays = BigArrays(self.breaker_service)
         self.search_service = SearchService(self.device_cache, self.indices,
                                             self.devices,
                                             self.stored_scripts)
+        svc = self.search_service
+        svc.telemetry = self.telemetry
+        # each batcher entry charges one cohort slot to its tenant and
+        # class; the mesh's dispatches and fallbacks feed the registry
+        for batcher in (svc.plan_batcher, svc.knn_batcher):
+            batcher.tenants = self.telemetry.tenants
+            batcher.workloads = self.telemetry.workload
+        svc.mesh_executor.metrics = self.telemetry.metrics
         self.search_pool = ThreadPoolExecutor(
             max_workers=min(32, 3 * (os.cpu_count() or 1) // 2 + 1),
             thread_name_prefix="search")
@@ -166,7 +209,8 @@ class Node:
         # .tasks index already holds), the background jobs' results, and
         # the daemon threads of background work (``spawn``)
         self.task_manager = TaskManager(self.node_id,
-                                        self._stored_task_max())
+                                        self._stored_task_max(),
+                                        metrics=self.telemetry.metrics)
         self.task_results = TaskResultStore(256, self._persist_task_result)
         self._threads: list = []
         self._threads_lock = threading.Lock()
@@ -244,7 +288,9 @@ class Node:
                 return fn(*args)
             finally:
                 self._search_queue.release()
-        return self.search_pool.submit(run)
+        # the caller's ambient contexts (trace, client id, tenant, class,
+        # recorders) go with the work onto the pool's thread
+        return self.search_pool.submit(_telectx.bind(run))
 
     def spawn(self, name: str, fn) -> threading.Thread:
         """Run ``fn`` on a daemon thread of the node's, which ``close``
@@ -327,9 +373,13 @@ class Node:
         eligible index with the fast path (``refresh_front``) and starts
         the drain. A failed build or bind raises."""
         from elasticsearch_tpu_torch.rest.native_http import NativeHttpFront
+        allow = str(self.settings.get("http.ip_filter.allow", "") or "")
+        deny = str(self.settings.get("http.ip_filter.deny", "") or "")
         front = NativeHttpFront(self.rest_controller)
         bound = front.start(port)
         try:
+            if allow or deny:
+                front.set_ipfilter(allow, deny)
             self.fastpath.attach_front(front, self.refresh_front)
             self.refresh_front()
             self.serving_lane()

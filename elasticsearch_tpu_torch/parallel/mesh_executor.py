@@ -291,9 +291,9 @@ class MeshSearchBackend:
     Dispatches count under ``dispatch.<axis>`` (``shard``: a plan query
     over the shards, ``knn``: a kNN one, ``replica``: queries of cohorts
     split by the replica helpers); every refusal under
-    ``fallback.<reason>``, and the caller runs the per-shard loop. The
-    reference mirrors both into its node metrics registry, which the
-    port does not have yet."""
+    ``fallback.<reason>``, and the caller runs the per-shard loop; both
+    are mirrored into ``metrics``, the node's registry, as
+    ``search.mesh.dispatch{axis}`` and ``search.mesh.fallback{reason}``."""
 
     def __init__(self, devices=None,
                  cache: Optional[DeviceSegmentCache] = None):
@@ -306,6 +306,7 @@ class MeshSearchBackend:
         self.mesh_searches = 0   # queries served on the mesh
         self.counters: Dict[str, int] = {}
         self._count_lock = threading.Lock()
+        self.metrics = None      # the node's MetricsRegistry (set by Node)
         self._replica_meshes: Dict[int, Mesh] = {}
         self._replicated: "OrderedDict[tuple, _Replica]" = OrderedDict()
         # re-entrant: a source freed while the lock is held calls back
@@ -331,9 +332,13 @@ class MeshSearchBackend:
 
     def _dispatch(self, axis: str, n: int = 1) -> None:
         self._count(f"dispatch.{axis}", n)
+        if self.metrics is not None:
+            self.metrics.inc("search.mesh.dispatch", n, axis=axis)
 
     def _fallback(self, reason: str) -> None:
         self._count(f"fallback.{reason}")
+        if self.metrics is not None:
+            self.metrics.inc("search.mesh.fallback", reason=reason)
 
     # ----------------------------------------------------------- corpus
     def _owned_cache(self, dev: torch.device,

@@ -50,9 +50,22 @@ reduced to the routes ported so far):
     GET  /_cat/indices, count, shards, aliases, templates, segments
     GET  /_stats                  every index's stats, the docs of all
     GET  /_kernels                the launch tracker's table
-    GET  /_nodes/stats            breakers, pressure, engine, tasks, flight
-                                  recorder
+    GET  /_nodes/stats            indices, breakers, pressure, engine, tasks,
+                                  telemetry (?history=true), recoveries
     GET  /_flight_recorder        the launch/readback ring, filtered
+    GET  /_flight_recorder/waterfall/{trace_id}
+    GET  /_traces                 ?size, from, exemplar_for=<histogram>
+    GET  /_traces/{trace_id}
+    GET  /_tenants/stats, /_workload/stats, /_cat/tenants, /_cat/workload
+
+``dispatch`` takes the request's headers: ``X-Opaque-Id``,
+``X-Tenant-Id`` and ``X-Workload-Class`` become ambient for the
+handler (telemetry/context.py). Each `_search` is rooted in a
+``rest.search`` span and answers its trace id under ``_headers``
+(``trace.id``), which the front sends as a response header; a search
+is counted in the node's metrics and its tenant's and class's rows
+(search/service.py ``accounted``), and a `_bulk` charges the ``bulk``
+class unless the request named one.
 
 A HEAD takes the GET route of its path and answers the GET's status
 with no body.
@@ -188,6 +201,7 @@ import copy
 import fnmatch
 import json
 import logging
+import os
 import time
 import uuid
 from typing import Any, Optional, Tuple
@@ -220,6 +234,11 @@ from elasticsearch_tpu_torch.search.template import render_template
 from elasticsearch_tpu_torch.telemetry import context as _telectx
 from elasticsearch_tpu_torch.telemetry import engine as _engine
 from elasticsearch_tpu_torch.telemetry import flightrecorder as _flight
+from elasticsearch_tpu_torch.telemetry.flightrecorder import build_waterfall
+from elasticsearch_tpu_torch.telemetry.tenants import (merge_tenant_stats,
+                                                       render_cat_tenants)
+from elasticsearch_tpu_torch.telemetry.workload import (
+    merge_workload_stats, render_cat_workload)
 from elasticsearch_tpu_torch.transport.tasks import (
     EMPTY_TASK_ID, CancellableTask, TaskId, build_tasks_response,
     hot_threads_text, node_task_slice, parse_bool_param, render_cat_tasks)
@@ -313,6 +332,8 @@ _INDEX_SUBROUTES = {
 # the URL parameters of `_async_search` itself (the rest are `_search`'s)
 _ASYNC_PARAMS = ("wait_for_completion_timeout", "keep_alive",
                  "keep_on_completion")
+# the request headers ``dispatch`` makes ambient (lower case)
+_ATTRIBUTION_HEADERS = ("x-opaque-id", "x-tenant-id", "x-workload-class")
 SEARCH_ACTION = "indices:data/read/search"
 MSEARCH_ACTION = "indices:data/read/msearch"
 
@@ -499,19 +520,37 @@ class RestController:
         self.node = node
 
     def dispatch(self, method: str, path: str, params: Optional[dict] = None,
-                 body: Any = None) -> Tuple[int, Any]:
+                 body: Any = None, headers: Optional[dict] = None
+                 ) -> Tuple[int, Any]:
         """(status, body) of one request. A HEAD takes the GET route and
         answers its status with no body (the reference's router; the
-        existence checks of Elasticsearch's clients)."""
+        existence checks of Elasticsearch's clients). ``headers`` (the
+        HTTP request's, any case): ``X-Opaque-Id``, ``X-Tenant-Id`` and
+        ``X-Workload-Class`` become ambient for the handler
+        (telemetry/context.py), so its tasks, slowlog entries, batcher
+        slots, flight events and search records are attributed to
+        them."""
         if method == "HEAD":
-            status, _ = self.dispatch("GET", path, params, body)
+            status, _ = self.dispatch("GET", path, params, body, headers)
             return status, None
         params = params or {}
         parts = [p for p in path.split("/") if p]
+        tags = {k.lower(): str(v) for k, v in (headers or {}).items()
+                if k.lower() in _ATTRIBUTION_HEADERS}
         try:
             # every launch and readback under this request lands in the
             # node's flight recorder
-            with _flight.activate(self.node.flight):
+            with contextlib.ExitStack() as stack:
+                if tags.get("x-opaque-id"):
+                    stack.enter_context(
+                        _telectx.activate_opaque(tags["x-opaque-id"]))
+                if tags.get("x-tenant-id"):
+                    stack.enter_context(
+                        _telectx.activate_tenant(tags["x-tenant-id"]))
+                if tags.get("x-workload-class"):
+                    stack.enter_context(_telectx.activate_workload_class(
+                        tags["x-workload-class"]))
+                stack.enter_context(_flight.activate(self.node.flight))
                 return self._route(method, path, parts, params, body)
         except _TYPED as e:
             status, err = _typed_error(e)
@@ -529,9 +568,20 @@ class RestController:
         elif method == "GET" and parts == ["_kernels"]:
             return self._kernels()
         elif method == "GET" and parts == ["_nodes", "stats"]:
-            return self._nodes_stats()
+            return self._nodes_stats(params)
         elif method == "GET" and parts == ["_flight_recorder"]:
             return self._flight_recorder(params)
+        elif (method == "GET" and n == 3
+              and parts[:2] == ["_flight_recorder", "waterfall"]):
+            return self._flight_waterfall(parts[2])
+        elif method == "GET" and parts == ["_traces"]:
+            return self._traces(params)
+        elif method == "GET" and parts[0] == "_traces" and n == 2:
+            return self._trace(parts[1])
+        elif method == "GET" and parts == ["_tenants", "stats"]:
+            return 200, self._tenants_stats()
+        elif method == "GET" and parts == ["_workload", "stats"]:
+            return 200, self._workload_stats()
         elif method == "GET" and parts == ["_nodes", "hot_threads"]:
             return self._hot_threads(params)
         elif method == "GET" and parts == ["_stats"]:
@@ -749,31 +799,144 @@ class RestController:
             out["caches"]["theta"] = self.node.fastpath.engine_cache_stats()
         return out
 
-    def _nodes_stats(self):
-        """GET /_nodes/stats: this node's ``breakers``, its ``mesh``
-        stats (as in ``GET /_kernels``), its ``engine``
-        section (the launch tracker's totals; the device bytes by slab
-        class, with the peak, admissions and breaker evictions; the
-        device caches' counters, and the fast path's θ cache when it
-        runs), ``tasks`` (transport/tasks.py ``TaskManager.stats``: live,
-        peak, started, completed, cancelled, bans) and
-        ``telemetry.flight_recorder`` (the ring's aggregates). The
-        reference's other sections (indices, thread_pool, recoveries,
-        the metrics registry) come with the port's host-side
-        services."""
+    def _nodes_stats(self, params: dict):
+        """GET /_nodes/stats: this node's ``indices`` (each index's
+        stats), ``breakers``, ``indexing_pressure``, its ``mesh`` stats
+        (as in ``GET /_kernels``), its ``engine`` section (the launch
+        tracker's totals; the device bytes by slab class, with the peak,
+        admissions and breaker evictions; the device caches' counters,
+        and the fast path's θ cache when it runs), ``tasks``
+        (transport/tasks.py ``TaskManager.stats``), ``telemetry`` (the
+        metrics registry, the trace ring, the flight recorder's
+        aggregates, the busiest tenants and classes, and the slow log's
+        newest entries; ``?history=true`` adds the windowed history ring,
+        ``history_window`` its seconds) and ``recoveries`` (each shard's
+        recovery from its own store). The reference's ``thread_pool``
+        section comes with the port's thread pools."""
+        history_window = params.get("history_window")
+        telemetry = self.node.telemetry.to_dict(
+            history=params.get("history") == "true",
+            history_window=(float(history_window) if history_window
+                            else None))
+        telemetry["slowlog_recent"] = list(
+            self.node.search_service.slowlog_recent)[-16:]
         return 200, {
             "cluster_name": "elasticsearch",
             "nodes": {self.node.node_id: {
                 "name": self.node.node_id,
+                "indices": {name: svc.stats() for name, svc
+                            in list(self.node.indices.items())},
+                "request_cache":
+                    self.node.search_service.request_cache_stats,
                 "breakers": self.node.breaker_service.stats(),
                 "indexing_pressure": self.node.indexing_pressure.stats(),
                 "engine": self._engine_section(),
                 "tasks": self.node.task_manager.stats(),
                 "mesh": self.node.search_service.mesh_executor.stats(),
-                "telemetry": {
-                    "flight_recorder": self.node.flight.aggregates()},
+                "telemetry": telemetry,
+                "recoveries": self._recovery_entries(),
             }},
         }
+
+    def _recovery_entries(self) -> list:
+        """Each shard's recovery state, in the reference's shape: every
+        shard of a single node recovered from its own store at open
+        (``local_store``, stage DONE), with the bytes on disk, the ops
+        in its translog and the segments resident on the device."""
+        entries = []
+        for name in sorted(self.node.indices):
+            svc = self.node.indices[name]
+            for si, engine in enumerate(svc.shards):
+                # count the ops before sizing the directory
+                n_ops = len(engine.translog.read_ops(1))
+                nbytes = 0
+                for root, _dirs, fnames in os.walk(engine.path):
+                    for fname in fnames:
+                        try:
+                            nbytes += os.path.getsize(
+                                os.path.join(root, fname))
+                        except OSError:
+                            continue
+                resident = [self.node.device_cache.resident(seg.name)
+                            for seg in engine.segments]
+                resident = [d for d in resident if d is not None]
+                entries.append({
+                    "index": name, "shard_id": si, "allocation_id": None,
+                    "type": "local_store", "protocol": 0, "stage": "DONE",
+                    "source_node": self.node.node_id,
+                    "target_node": self.node.node_id,
+                    "index_files": {"total_bytes": nbytes,
+                                    "recovered_bytes": nbytes},
+                    "translog": {"ops_replayed": n_ops},
+                    "device": {"hbm_uploaded_bytes":
+                               sum(d.hbm_bytes() for d in resident),
+                               "hbm_segments": len(resident),
+                               "hbm_skipped_segments": 0},
+                    "start_time": None, "stop_time": None,
+                    "total_time_ms": None, "task_id": None,
+                    "failure": None,
+                })
+        return entries
+
+    def _traces(self, params: dict):
+        """GET /_traces: newest-first summaries of the trace ring
+        (``size``/``from`` page it); ``exemplar_for=<metric>`` answers
+        that histogram's exemplars instead (the last trace id and value
+        of each bucket), each resolved against the ring."""
+        tele = self.node.telemetry
+        metric = params.get("exemplar_for")
+        if metric:
+            exemplars = tele.metrics.exemplars_of(metric)
+            for ex in exemplars:
+                t = tele.tracer.trace(ex["trace_id"])
+                # resolvable False: the trace aged out of the ring
+                ex["resolvable"] = t is not None
+                if t is not None:
+                    roots = [sp for sp in t["spans"]
+                             if sp["parent_id"] is None]
+                    ex["root"] = roots[0]["name"] if roots else None
+                    ex["spans"] = len(t["spans"])
+            return 200, {"metric": metric, "exemplars": exemplars}
+        return 200, {"traces": tele.tracer.recent_traces(
+            int(params.get("size", 32)), int(params.get("from", 0)))}
+
+    def _trace(self, trace_id: str):
+        """GET /_traces/{trace_id}: the flat span list and the tree."""
+        t = self.node.telemetry.tracer.trace(trace_id)
+        if t is None:
+            raise ResourceNotFoundException(f"unknown trace [{trace_id}]")
+        return 200, t
+
+    def _flight_waterfall(self, trace_id: str):
+        """GET /_flight_recorder/waterfall/{trace_id}: the trace's span
+        tree with the launches and readbacks recorded under each span
+        and each span's self time (telemetry/flightrecorder.py
+        ``build_waterfall``)."""
+        tele = self.node.telemetry
+        t = tele.tracer.trace(trace_id)
+        events = tele.flight.events_for_trace(trace_id)
+        if t is None and not events:
+            raise ResourceNotFoundException(f"unknown trace [{trace_id}]")
+        return 200, build_waterfall(trace_id, [{
+            "node": self.node.node_id,
+            "spans": (t or {}).get("spans", []),
+            "events": events}])
+
+    def _tenants_stats(self) -> dict:
+        """GET /_tenants/stats: the tenant table through the merge the
+        reference's cluster fan-out uses (telemetry/tenants.py)."""
+        merged = merge_tenant_stats(
+            {self.node.node_id: self.node.telemetry.tenants.stats()})
+        merged["cluster_name"] = "elasticsearch"
+        return merged
+
+    def _workload_stats(self) -> dict:
+        """GET /_workload/stats: the workload-class table
+        (telemetry/workload.py), merged as ``_tenants_stats``."""
+        merged = merge_workload_stats(
+            {self.node.node_id: self.node.telemetry.workload.stats()})
+        merged["cluster_name"] = "elasticsearch"
+        return merged
 
     def _flight_recorder(self, params: dict):
         """GET /_flight_recorder: the node's flight ring, newest first
@@ -982,13 +1145,17 @@ class RestController:
         before the answer (``write_batch``)."""
         nbytes = (len(body) if isinstance(body, (bytes, str))
                   else len(json.dumps(body, default=str)))
-        release = self.node.indexing_pressure \
-            .mark_coordinating_operation_started(nbytes, "_bulk")
-        try:
-            with write_batch():
-                return self._bulk_inner(index, params, body)
-        finally:
-            release()
+        # the bulk's bytes charge its class (``bulk`` unless the request
+        # named one) and its tenant
+        with _telectx.activate_workload_class(
+                _telectx.current_workload_class() or "bulk"):
+            release = self.node.indexing_pressure \
+                .mark_coordinating_operation_started(nbytes, "_bulk")
+            try:
+                with write_batch():
+                    return self._bulk_inner(index, params, body)
+            finally:
+                release()
 
     def _bulk_inner(self, index: Optional[str], params: dict, body):
         _no_pipeline(params)
@@ -1136,7 +1303,7 @@ class RestController:
         searches with the builtin standard analyzer; else None."""
         if (svc.num_shards != 1
                 or set(body) - {"query", "size", "from", "_source",
-                         "track_total_hits"}
+                                "track_total_hits", "tenant"}
                 or body.get("from", 0) != 0
                 or body.get("track_total_hits", True) is not True
                 or not isinstance(body.get("_source", True), bool)):
@@ -1196,17 +1363,20 @@ class RestController:
 
     @contextlib.contextmanager
     def _search_task(self, description: str, action: str = SEARCH_ACTION,
-                     parent=None):
+                     parent=None, span=None):
         """A search request's cancellable task (transport/tasks.py),
-        registered under a trace of its own (the flight recorder stamps
-        the request's launches with it) and in its ``parse`` stage until
-        the search publishes another."""
+        registered under a trace (the flight recorder stamps the
+        request's launches with it) and in its ``parse`` stage until the
+        search publishes another. ``span`` (a live span of the node's
+        tracer) is that trace, else a trace id of its own."""
         parent_id = (EMPTY_TASK_ID if parent is None
                      else TaskId(self.node.node_id, parent.id))
-        with _telectx.activate(_telectx.TraceContext(uuid.uuid4().hex)), \
-                self.node.task_manager.task_scope(
-                    "transport", action, description, parent_id,
-                    cancellable=True) as task:
+        ctx = (_telectx.activate_span(span) if span is not None
+               else _telectx.activate(_telectx.TraceContext(
+                   uuid.uuid4().hex)))
+        with ctx, self.node.task_manager.task_scope(
+                "transport", action, description, parent_id,
+                cancellable=True) as task:
             task.enter_stage("parse")
             yield task
 
@@ -1214,9 +1384,21 @@ class RestController:
         """``_search`` as a cancellable task (the reference's
         ``search_index``): ``POST /_tasks/{id}/_cancel`` stops it at its
         next poll (search/service.py), and it answers 400
-        ``task_cancelled_exception``."""
-        with self._search_task(f"indices[{expression}]") as task:
-            return self._search(expression, params, body, task)
+        ``task_cancelled_exception``. It is rooted in a ``rest.search``
+        span (under the caller's ``trace.id`` when the request carried
+        one: rest/native_http.py), whose trace id the answer echoes in
+        its ``trace.id`` header."""
+        span = self.node.telemetry.tracer.start_span(
+            "rest.search", tags={"index": expression})
+        try:
+            with self._search_task(f"indices[{expression}]",
+                                   span=span) as task:
+                status, response = self._search(expression, params, body,
+                                                task)
+        finally:
+            span.finish()
+        response.setdefault("_headers", {})["trace.id"] = span.trace_id
+        return status, response
 
     def _search(self, expression: str, params: dict, body, task=None):
         """The fast path when the expression names one index of one
@@ -1262,6 +1444,14 @@ class RestController:
         if route is None:
             return 200, self.node.search_service.search(
                 expression, body, search_type, scroll, task)
+        return 200, self.node.search_service.accounted(
+            expression, body, scroll,
+            lambda: self._fast_search(fp, reg, seg, index, term_ids, filt,
+                                      size, body, t0, task))
+
+    def _fast_search(self, fp, reg, seg, index: str, term_ids, filt,
+                     size: int, body: dict, t0: float, task) -> dict:
+        """The fast path's answer to a body ``_search`` routed to it."""
         if task is not None:
             task.enter_stage("launch")
         scores, docids, total = fp.search(reg, term_ids, size,
@@ -1285,7 +1475,7 @@ class RestController:
         }
         self.node.search_service.record_slowlog(
             [index], response["took"], body, response, task)
-        return 200, response
+        return response
 
     # ------------------------------------------------- search contexts
     def _count(self, expression: str, params: dict, body):
@@ -1923,11 +2113,18 @@ class RestController:
         return render_cat_tasks(self._task_infos(
             actions=params.get("actions")))
 
+    def _cat_tenants(self, params: dict) -> str:
+        return render_cat_tenants(self._tenants_stats())
+
+    def _cat_workload(self, params: dict) -> str:
+        return render_cat_workload(self._workload_stats())
+
     # ``GET /_cat/{name}``: each a text of rows, answered as {"_cat": text}
     _CAT = {"indices": _cat_indices, "count": _cat_count,
             "shards": _cat_shards, "aliases": _cat_aliases,
             "templates": _cat_templates, "segments": _cat_segments,
-            "tasks": _cat_tasks}
+            "tasks": _cat_tasks, "tenants": _cat_tenants,
+            "workload": _cat_workload}
 
 
 def _ndjson_lines(body) -> list:

@@ -10,8 +10,11 @@ elasticsearch_tpu/rest/native_http.py): ctypes bindings for the port's
   (``es_fast_respond``);
 - every other request lands on the fallback queue, served by the worker
   threads below through ``RestController.dispatch`` (query parameters,
-  JSON bodies, NDJSON for ``_bulk``), and so does every request the fast
-  path bounces back (a stale registration, or more blocks than its
+  headers, JSON or CBOR bodies, NDJSON for ``_bulk`` and ``_msearch``;
+  a ``trace.id`` header joins the caller's trace; answers in JSON, in
+  CBOR on ``Accept: application/cbor``, with the payload's ``_headers``
+  as response headers), and so does every request the fast path
+  bounces back (a stale registration, or more blocks than its
   largest bucket). The registered index is always one of one shard
   (node.py ``refresh_front``), and C++ matches its path exactly, so a
   request for a multi-shard index, an index expression (``a,b``,
@@ -22,6 +25,8 @@ The library is built from the port's own sources with ``g++`` at first
 use into ``_build/<hash>/`` (the hash covers the sources and the flags),
 as ops/_build.py builds the CUDA kernels. A failed build raises, and so
 does a failed bind: there is no other HTTP server to fall back to.
+``set_ipfilter`` (``http.ip_filter.allow`` / ``.deny``, node.py) closes
+connections from filtered addresses at accept.
 """
 
 from __future__ import annotations
@@ -38,6 +43,9 @@ from typing import Dict, Optional
 from urllib.parse import parse_qsl, urlsplit
 
 import numpy as np
+
+from elasticsearch_tpu_torch.common import cbor
+from elasticsearch_tpu_torch.telemetry import context as _telectx
 
 logger = logging.getLogger("elasticsearch_tpu_torch.rest.native_http")
 
@@ -131,6 +139,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                c.c_char_p, c.c_int64, c.c_int, c.c_char_p]
     lib.es_http_stats.restype = None
     lib.es_http_stats.argtypes = [H, c.POINTER(c.c_longlong)]
+    lib.es_http_set_ipfilter.restype = c.c_int
+    lib.es_http_set_ipfilter.argtypes = [H, c.c_char_p, c.c_char_p]
     lib.es_loadgen.restype = c.c_longlong
     lib.es_loadgen.argtypes = [
         c.c_int, c.c_char_p, c.c_char_p, c.POINTER(c.c_int64),
@@ -264,6 +274,18 @@ class NativeHttpFront:
                             b"application/json; charset=UTF-8", data,
                             len(data), 0, b"")
 
+    def set_ipfilter(self, allow_csv: str, deny_csv: str) -> None:
+        """Filter the connections the front accepts by client address:
+        comma lists of IPv4 CIDRs (``http.ip_filter.allow`` /
+        ``.deny``); a denied address, or one outside a non-empty allow
+        list, is closed at accept and counted in ``ip_rejected``. A list
+        that does not parse raises ValueError (no filter is half
+        applied)."""
+        if self.lib.es_http_set_ipfilter(self.h, allow_csv.encode(),
+                                         deny_csv.encode()) < 0:
+            raise ValueError(f"http.ip_filter: cannot parse allow "
+                             f"[{allow_csv}] / deny [{deny_csv}]")
+
     def stats(self) -> dict:
         buf = (ctypes.c_longlong * 8)()
         self.lib.es_http_stats(self.h, buf)
@@ -298,39 +320,71 @@ class NativeHttpFront:
 
     def _serve_one(self, token: int, method: str, raw_path: bytes,
                    raw_headers: bytes, raw_body: bytes):
-        """One request: its query parameters and its body (NDJSON text
-        for ``_bulk`` or an x-ndjson content type, else JSON; a body that
-        does not parse is a 400) through ``RestController.dispatch``."""
+        """One request through ``RestController.dispatch`` with its query
+        parameters, its headers and its body: NDJSON text for a path
+        ending in ``_bulk`` or ``_msearch`` (whatever its content type)
+        or an x-ndjson content type, CBOR for a cbor content type, else
+        JSON (a body that does not parse is a 400 ``parsing_exception``).
+        A ``trace.id`` header (with its ``span.id``) joins the request's
+        spans to the caller's trace (telemetry/context.py ``incoming``);
+        ``Accept: application/cbor`` answers in CBOR."""
         url = urlsplit(raw_path.decode("utf-8", "replace"))
         params = dict(parse_qsl(url.query))
-        content_type = ""
+        headers = {}
         for line in raw_headers.decode("latin-1").split("\r\n"):
             name, sep, val = line.partition(":")
-            if sep and name.strip().lower() == "content-type":
-                content_type = val.strip().lower()
+            if sep:
+                headers[name.strip()] = val.strip()
+        lower = {k.lower(): v for k, v in headers.items()}
+        content_type = lower.get("content-type", "").lower()
         body = None
         if raw_body:
-            if "x-ndjson" in content_type or url.path.rstrip("/").endswith(
-                    "_bulk"):
-                body = raw_body.decode("utf-8")
-            else:
-                try:
+            try:
+                if ("x-ndjson" in content_type
+                        or url.path.rstrip("/").endswith(("_bulk",
+                                                          "_msearch"))):
+                    body = raw_body.decode("utf-8")
+                elif "cbor" in content_type:
+                    body = cbor.loads(raw_body)
+                else:
                     body = json.loads(raw_body)
-                except json.JSONDecodeError as e:
-                    self._send(token, 400, {"error": {
-                        "type": "parsing_exception",
-                        "reason": f"Failed to parse request body: {e}"},
-                        "status": 400}, method)
-                    return
-        status, payload = self.controller.dispatch(method, url.path, params,
-                                                   body)
-        self._send(token, status, payload, method)
+            except (ValueError, TypeError) as e:
+                self._send(token, 400, {"error": {
+                    "type": "parsing_exception",
+                    "reason": f"Failed to parse request body: {e}"},
+                    "status": 400}, method)
+                return
+        trace = ({"trace.id": lower["trace.id"],
+                  "span.id": lower.get("span.id")}
+                 if "trace.id" in lower else None)
+        with _telectx.incoming(trace):
+            status, payload = self.controller.dispatch(
+                method, url.path, params, body, headers=headers)
+        self._send(token, status, payload, method,
+                   cbor_ok="cbor" in lower.get("accept", "").lower())
 
-    def _send(self, token: int, status: int, payload, method: str):
-        data = json.dumps(payload).encode()
-        self.lib.es_respond(self.h, token, status,
-                            b"application/json; charset=UTF-8", data,
-                            len(data), 1 if method == "HEAD" else 0, b"")
+    def _send(self, token: int, status: int, payload, method: str,
+              cbor_ok: bool = False):
+        """The answer: a payload's ``_headers`` as response headers, a
+        ``{"_cat": text}`` as text, else CBOR when the request accepted
+        it, else JSON."""
+        extra = b""
+        if isinstance(payload, dict) and "_headers" in payload:
+            payload = dict(payload)
+            extra = "".join(f"{k}: {v}\r\n" for k, v in
+                            payload.pop("_headers").items()).encode()
+        if isinstance(payload, dict) and "_cat" in payload \
+                and len(payload) == 1:
+            data = (payload["_cat"] + "\n").encode()
+            ctype = b"text/plain; charset=UTF-8"
+        elif cbor_ok:
+            data = cbor.dumps(payload)
+            ctype = b"application/cbor"
+        else:
+            data = json.dumps(payload).encode()
+            ctype = b"application/json; charset=UTF-8"
+        self.lib.es_respond(self.h, token, status, ctype, data, len(data),
+                            1 if method == "HEAD" else 0, extra)
 
 
 def loadgen(port: int, path: str, bodies, n_conns: int, total: int,

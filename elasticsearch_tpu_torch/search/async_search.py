@@ -19,8 +19,10 @@ the node's `_search` (rest/api.py: the fast path or the search service,
 polling the task between shards and at every device launch), on a
 thread started by ``spawn(name, fn)`` (the node's, which ``Node.close``
 joins); ``error_of(exc)`` gives a failure's (status, error object).
-``close`` cancels every running search. The reference's tenant and
-workload stamps wait for the port's telemetry of them.
+``close`` cancels every running search. The submitter's tenant and
+workload class (``async`` unless the request named one) are captured
+before the thread boundary, re-entered by the background run and
+stamped on every render (``tenant``, ``search.class``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 from elasticsearch_tpu_torch.common.errors import (ResourceNotFoundException,
                                                    TaskCancelledException)
 from elasticsearch_tpu_torch.common.settings import parse_time_value
+from elasticsearch_tpu_torch.telemetry import context as _telectx
 
 SUBMIT_ACTION = "indices:data/read/async_search/submit"
 
@@ -41,8 +44,13 @@ SUBMIT_ACTION = "indices:data/read/async_search/submit"
 class _AsyncSearch:
     def __init__(self, search_id: str, index_expression: str,
                  body: Dict[str, Any], keep_alive: float,
-                 clock: Callable[[], float]):
+                 clock: Callable[[], float],
+                 tenant: Optional[str] = None,
+                 wclass: Optional[str] = None):
         self.clock = clock
+        # the submitter's attribution, re-entered by the background run
+        self.tenant = tenant
+        self.wclass = wclass
         self.id = search_id
         self.index_expression = index_expression
         self.body = body
@@ -80,8 +88,12 @@ class AsyncSearchService:
                                       "keep_alive")
         search_id = base64.urlsafe_b64encode(
             uuid.uuid4().bytes).decode().rstrip("=")
-        search = _AsyncSearch(search_id, index_expression, body or {},
-                              keep_alive, self.clock)
+        # captured before the thread boundary: thread-locals do not
+        # cross it
+        search = _AsyncSearch(
+            search_id, index_expression, body or {}, keep_alive,
+            self.clock, tenant=_telectx.current_tenant(),
+            wclass=_telectx.current_workload_class() or "async")
         task = self.task_manager.register(
             "transport", SUBMIT_ACTION,
             description=f"async_search indices[{index_expression}]",
@@ -93,8 +105,10 @@ class AsyncSearchService:
 
         def run():
             try:
-                search.response = self.search_fn(index_expression,
-                                                 search.body, task)
+                with _telectx.activate_tenant(search.tenant), \
+                        _telectx.activate_workload_class(search.wclass):
+                    search.response = self.search_fn(index_expression,
+                                                     search.body, task)
             except TaskCancelledException:
                 search.error = {"type": "task_cancelled_exception",
                                 "reason": "async search was cancelled"}
@@ -179,6 +193,10 @@ class AsyncSearchService:
             "start_time_in_millis": search.start_ms,
             "expiration_time_in_millis": int(search.expires_at * 1000),
         }
+        if search.tenant is not None:
+            out["tenant"] = search.tenant
+        if search.wclass is not None:
+            out["search.class"] = search.wclass
         if search.error is not None:
             out["error"] = search.error
             # the REST handler answers the stored failure's status

@@ -56,6 +56,7 @@ from elasticsearch_tpu_torch.ops.device import readback
 from elasticsearch_tpu_torch.search import profile as _prof
 from elasticsearch_tpu_torch.search.plan import (BoundPlan, empty_result,
                                                  execute_bound, launch_mask)
+from elasticsearch_tpu_torch.telemetry import context as _telectx
 from elasticsearch_tpu_torch.telemetry import flightrecorder as _flight
 
 _Q_BUCKETS = (1, 2, 4, 8, 16, 32)
@@ -102,7 +103,7 @@ def _nb_tier(n: int) -> int:
 
 class _Entry:
     __slots__ = ("bp", "event", "result", "error", "profiled", "t_enq",
-                 "t_fr", "meta", "abandoned")
+                 "t_fr", "meta", "abandoned", "tenant", "wclass")
 
     def __init__(self, bp: BoundPlan):
         self.bp = bp
@@ -117,13 +118,28 @@ class _Entry:
 
 def _stamp(entry) -> None:
     """An entry's enqueue stamps: on the profile clock when its request
-    is profiled (``meta`` is then filled by the launch), and on the
-    ambient flight recorder's clock (the cohort's queue wait)."""
+    is profiled (``meta`` is then filled by the launch), on the ambient
+    flight recorder's clock (the cohort's queue wait), and the
+    enqueuing request's ambient tenant and workload class, each charged
+    one cohort slot when the entry launches (``_charge_slots``)."""
     entry.profiled = _prof.recording()
     entry.t_enq = _prof.now_ns() if entry.profiled else 0
     fr = _flight.current()
     entry.t_fr = fr.clock() if fr is not None else 0.0
     entry.meta = None
+    entry.tenant = _telectx.current_tenant()
+    entry.wclass = _telectx.current_workload_class()
+
+
+def _charge_slots(batcher, entries) -> None:
+    """One cohort slot to each launched entry's tenant and class (the
+    batcher's ``tenants`` and ``workloads`` sinks, set by the node)."""
+    if batcher.tenants is not None:
+        for e in entries:
+            batcher.tenants.record_cohort(e.tenant)
+    if batcher.workloads is not None:
+        for e in entries:
+            batcher.workloads.record_cohort(e.wclass)
 
 
 def _queue_wait_ns(entries) -> int:
@@ -190,6 +206,10 @@ class PlanBatcher:
         self.peak_lanes_in_flight = 0
         self.admission_waits = 0   # launches that waited for lanes
         self._pending: Dict[tuple, List[_Entry]] = {}
+        # the node's TenantAccounting and WorkloadAccounting: each
+        # launched entry charges one cohort slot to its tenant and class
+        self.tenants = None
+        self.workloads = None
         self.launches = 0          # device launches
         self.batched_queries = 0   # queries served by them
         self.batch_hist: Dict[int, int] = {}   # Q bucket -> launches
@@ -445,6 +465,7 @@ class PlanBatcher:
             self.batch_hist[bucket] = self.batch_hist.get(bucket, 0) + 1
             if rmesh is not None:
                 self.mesh_cohorts += 1
+        _charge_slots(self, batch)
         if rmesh is not None:
             self.mesh._dispatch("replica", qn)
         if any_prof:
@@ -551,7 +572,7 @@ def _cut_bucket(n: int) -> int:
 
 class _KnnEntry:
     __slots__ = ("qvec", "cut", "event", "result", "error", "profiled",
-                 "t_enq", "t_fr", "meta")
+                 "t_enq", "t_fr", "meta", "tenant", "wclass")
 
     def __init__(self, qvec: np.ndarray, cut: int):
         self.qvec = qvec
@@ -579,6 +600,8 @@ class KnnBatcher:
         self._lock = threading.Lock()
         self._launch_slots = threading.BoundedSemaphore(MAX_CONCURRENT)
         self._pending: Dict[tuple, List[_KnnEntry]] = {}
+        self.tenants = None    # as PlanBatcher's
+        self.workloads = None
         self.launches = 0
         self.batched_queries = 0
         self._lat_ema = 0.0
@@ -674,6 +697,7 @@ class KnnBatcher:
                                      else 0.8 * self._lat_ema + 0.2 * dt)
                 self.launches += 1
                 self.batched_queries += qn
+            _charge_slots(self, chunk)
             if any_prof:
                 launch_ms = round((_prof.now_ns() - t0p) / 1e6, 3)
                 for e in chunk:

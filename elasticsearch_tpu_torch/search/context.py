@@ -144,6 +144,10 @@ class DeviceSegmentCache:
         self._lock = threading.Lock()
         # hbm child breaker (utils/breaker.py CircuitBreaker) or None
         self.breaker = breaker
+        # the request-breaker-accounted host allocator (utils/
+        # bigarrays.py, set by the node): the dense path charges its
+        # readbacks through it (search/searcher.py)
+        self.bigarrays = None
         # segment name -> bytes accounted for it (kept unwired too, so
         # set_breaker charges what is resident)
         self._charged: Dict[str, int] = {}

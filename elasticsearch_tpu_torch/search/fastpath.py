@@ -15,7 +15,11 @@ into (score desc, docid asc) and answers: through ``es_fast_respond``
 for the front's requests, through the waiting thread's event for the
 others. Continuous batching comes from backpressure: while a cohort
 runs on the device, new requests accumulate and drain as a wider
-cohort.
+cohort. The drain records a cohort's launches and readback in the
+node's flight recorder under the trace, tenant and workload class of
+its first request that came from a Python thread (a PlanBatcher cohort
+is recorded under its leader's); a cohort of the front's requests
+alone is recorded untagged (the ``_default`` tenant and class).
 
 Registration with the front (``register_front``): the node picks the
 index (node.py ``Node.refresh_front``), which the drain has it do about
@@ -90,6 +94,7 @@ from elasticsearch_tpu_torch.ops.fastpath import (
 from elasticsearch_tpu_torch.ops.plan import build_term_impacts
 from elasticsearch_tpu_torch.ops.plan import unpack_ids as _unpack_ids
 from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
+from elasticsearch_tpu_torch.telemetry import context as _telectx
 from elasticsearch_tpu_torch.telemetry import flightrecorder as _flight
 
 logger = logging.getLogger("elasticsearch_tpu_torch.fastpath")
@@ -139,7 +144,7 @@ class _Pending:
     (waiting on ``done``)."""
 
     __slots__ = ("reg", "term_ids", "filt", "k", "lane", "bucket", "ess",
-                 "done", "result", "error", "token", "t0")
+                 "done", "result", "error", "token", "t0", "attribution")
 
     def __init__(self, reg, term_ids, filt, k, lane, bucket, token=None,
                  t0=0.0):
@@ -155,6 +160,14 @@ class _Pending:
         self.done = threading.Event() if token is None else None
         self.result: Optional[Tuple[np.ndarray, np.ndarray, int]] = None
         self.error: Optional[BaseException] = None
+        # a Python caller's trace, tenant and workload class (the front's
+        # requests carry none): the cohort's launches are recorded under
+        # its first caller's, as a PlanBatcher cohort's under its leader's
+        self.attribution = None
+        if token is None:
+            self.attribution = (_telectx.current(),
+                                _telectx.current_tenant(),
+                                _telectx.current_workload_class())
 
 
 class PollBuffers:
@@ -923,8 +936,13 @@ class FastPathServer:
 
     # -------------------------------------------------------------- launch
     def _launch(self, lane, reg, bucket, items, rows):
+        lead = next((p.attribution for p in items
+                     if p.attribution is not None), (None, None, None))
         try:
-            self._launch_cohort(lane, reg, bucket, items, rows)
+            with _telectx.activate(lead[0]), \
+                    _telectx.activate_tenant(lead[1]), \
+                    _telectx.activate_workload_class(lead[2]):
+                self._launch_cohort(lane, reg, bucket, items, rows)
         except Exception as e:      # the drain thread must never die
             logger.exception("fastpath %s cohort failed", lane)
             self._count(cohorts_failed=1)

@@ -271,15 +271,42 @@ class ShardSearcher:
                                sort_key=float(all_vals[i])) for i in order]
         return QueryResult(docs, total, docs[0].score, lower_bound)
 
-    def _dense_query_phase(self, query, k: int, post_filter, min_score,
-                           sort_spec, search_after, track_total_hits,
-                           collect_masks: bool = False,
-                           after_key: Optional[Tuple] = None) -> QueryResult:
+    def _dense_query_phase(self, *args, **kwargs) -> QueryResult:
+        """The dense executor (``_dense_segments``), its host readbacks
+        charged to the ``request`` breaker while the shard's phase runs
+        (the cache's ``bigarrays``, utils/bigarrays.py, set by the node):
+        each segment's aggregation mask and its top-k rows, all released
+        when the phase ends. A charge past the limit raises a typed
+        CircuitBreakingException (a 429 when every shard failed). The
+        reference charges the [ND] score column it reads back; the port
+        gathers the winners' scores on the card and never reads that
+        column back, so a body whose column trips the reference's
+        breaker may answer here."""
+        charged: list = []
+        try:
+            return self._dense_segments(charged, *args, **kwargs)
+        finally:
+            for acc in charged:
+                acc.close()
+
+    def _charge(self, charged: list, label: str, *arrays) -> None:
+        """Charge host readbacks to the ``request`` breaker; the
+        accounted arrays go to ``charged`` (released by the caller)."""
+        bigarrays = getattr(self.cache, "bigarrays", None)
+        if bigarrays is None:
+            return
+        for a in arrays:
+            charged.append(bigarrays.adopt(a, label))
+
+    def _dense_segments(self, charged: list, query, k: int, post_filter,
+                        min_score, sort_spec, search_after, track_total_hits,
+                        collect_masks: bool = False,
+                        after_key: Optional[Tuple] = None) -> QueryResult:
         """The dense executor: per segment, dense (scores, mask) columns,
         the collector chain as mask algebra, the primary key's stable
         top-k, one readback of (keys, docids, scores, total, max); with
         ``collect_masks`` also each segment's aggregation mask, read
-        back on its own."""
+        back on its own. Each readback is charged into ``charged``."""
         per_segment = []
         total = 0
         max_score = None
@@ -297,9 +324,10 @@ class ShardSearcher:
             if min_score is not None:
                 mask = mask & (scores >= float(min_score))
             if collect_masks:
-                agg_masks.append((ctx.segment, readback(
-                    "search.searcher.agg_mask",
-                    mask[: ctx.segment.n_docs])))
+                host_mask = readback("search.searcher.agg_mask",
+                                     mask[: ctx.segment.n_docs])
+                self._charge(charged, "agg_mask_readback", host_mask)
+                agg_masks.append((ctx.segment, host_mask))
             if post_filter is not None:
                 _, pf_mask = post_filter.execute(ctx)
                 mask = mask & pf_mask
@@ -323,6 +351,7 @@ class ShardSearcher:
                 vals, ids, win, seg_total, seg_max = readback(
                     "search.searcher.dense_topk", vals, ids, win,
                     seg_total.reshape(1), seg_max.reshape(1))
+            self._charge(charged, "dense_topk_readback", vals, ids, win)
             if track_total_hits:
                 total += int(seg_total[0])
             if _needs_max_score(sort_spec) and np.isfinite(seg_max[0]):

@@ -109,7 +109,16 @@ cohort leaves the cohort (search/batching.py).
 
 The slow log: every search checks each searched index's
 ``index.search.slowlog.threshold.query.*`` against its took time
-(search/slowlog.py) into ``slowlog_recent``.
+(search/slowlog.py) into ``slowlog_recent``, with its client id, tenant
+and class.
+
+Telemetry (``telemetry``, the node's bundle): ``accounted`` resolves a
+search's tenant (header > body ``tenant`` > ``index.tenant.default``)
+and workload class, and counts it in ``search.requests``,
+``search.latency`` and the tenant's and class's rows; under the REST
+root span each shard's query phase is a ``shard[{index}][{n}]`` span and
+the fetch phase a ``fetch`` span, and a profiled answer names its
+``trace.id``.
 
 ``collapse: {"field": f}`` keeps the first hit of each value of ``f``
 (its first doc value; a text field's dynamic ``.keyword``; docs without
@@ -183,7 +192,7 @@ import time
 import uuid
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -217,6 +226,7 @@ from elasticsearch_tpu_torch.search.slowlog import (record_search_slowlog,
 from elasticsearch_tpu_torch.search.suggest import compute_suggest
 from elasticsearch_tpu_torch.telemetry import context as _telectx
 from elasticsearch_tpu_torch.telemetry import flightrecorder as _flight
+from elasticsearch_tpu_torch.telemetry.workload import classify_search_request
 
 logger = logging.getLogger("elasticsearch_tpu_torch.search")
 
@@ -228,7 +238,7 @@ BODY_KEYS = {"query", "size", "from", "post_filter", "track_total_hits",
              "rescore", "aggs", "aggregations", "profile", "highlight",
              "docvalue_fields", "fields", "script_fields", "collapse",
              "terminate_after", "suggest", "allow_partial_search_results",
-             "version", "seq_no_primary_term", "pit", "slice"}
+             "version", "seq_no_primary_term", "pit", "slice", "tenant"}
 # a body with any of these (truthy) asks more than the k nearest ids and
 # scores, so its kNN takes the dense executor, not the cohort launch
 _NOT_PURE_KNN = ("sort", "post_filter", "min_score", "search_after",
@@ -454,7 +464,12 @@ class _ShardProfiles:
         if self.aggs is not None:
             coord["phases"]["aggs_ns"] = self.aggs[1]
             coord["reduce_batches"] = 1
-        return {"shards": entries, "coordinator": coord}
+        out = {"shards": entries, "coordinator": coord}
+        ambient = _telectx.current()
+        if ambient is not None:
+            # the profiled request's trace resolves via GET /_traces/{id}
+            out["trace.id"] = ambient.trace_id
+        return out
 
 
 @dataclass
@@ -519,6 +534,9 @@ class SearchService:
         self.request_cache_stats = {"hit_count": 0, "miss_count": 0}
         # the search slow log's newest entries (search/slowlog.py)
         self.slowlog_recent: List[Dict[str, Any]] = []
+        # the node's Telemetry (telemetry/__init__.py), or None: search
+        # metrics, tenant and class records, shard and fetch spans
+        self.telemetry = None
 
     # ------------------------------------------------------------- PIT
     def open_pit(self, expression: str, keep_alive: str) -> str:
@@ -556,16 +574,88 @@ class SearchService:
         cancellable ``task`` (transport/tasks.py) the search stops at
         the next poll once it is cancelled (``_task_scope``)."""
         with stored_scripts(self.stored_scripts), _task_scope(task):
-            return self._search_request(expression, body, search_type,
-                                        scroll, task)
+            return self.accounted(
+                expression, body, scroll,
+                lambda: self._search_request(expression, body, search_type,
+                                             scroll, task))
+
+    def _default_tenant(self, expression: str) -> Optional[str]:
+        """The ``index.tenant.default`` setting of a concretely named
+        index (None for a pattern or an unknown name)."""
+        if expression in self.indices:
+            return self.indices[expression].settings.get(
+                "index.tenant.default")
+        return None
+
+    def accounted(self, expression: str, body: Dict[str, Any],
+                  scroll: Optional[str], run: Callable[[], Dict[str, Any]]
+                  ) -> Dict[str, Any]:
+        """``run()`` (one `_search`: the service's, or the fast path's in
+        rest/api.py) under its tenant and workload class, counted in the
+        node's metrics (``search.requests``, ``search.failed``,
+        ``search.latency``, ``search.partial_results``) and in the
+        tenant's and the class's search records, with the stage sink
+        (``search.stage.*``) installed. The tenant is the ambient one
+        (the ``X-Tenant-Id`` header), else the body's ``tenant``, else
+        the index's ``index.tenant.default``; the class the ambient one
+        (``X-Workload-Class``), else the request's shape
+        (telemetry/workload.py ``classify_search_request``). Both are
+        made ambient, so batcher entries, flight events, breaker trips,
+        tasks, profile trees and slowlog entries see them."""
+        tenant = _telectx.current_tenant()
+        if tenant is None:
+            resolved = ((body or {}).get("tenant")
+                        or self._default_tenant(expression))
+            if resolved is not None:
+                with _telectx.activate_tenant(str(resolved)):
+                    return self.accounted(expression, body, scroll, run)
+        wclass = _telectx.current_workload_class()
+        if wclass is None:
+            with _telectx.activate_workload_class(
+                    classify_search_request(body, scroll)):
+                return self.accounted(expression, body, scroll, run)
+        tele = self.telemetry
+        if tele is None:
+            return run()
+        # every outcome counts: cache hits, failures and answers
+        tele.metrics.inc("search.requests")
+        t0 = tele.metrics.clock()
+        try:
+            with _prof.stage_sink(tele.stage_sink()):
+                response = run()
+        except Exception:
+            took = (tele.metrics.clock() - t0) * 1000.0
+            tele.metrics.inc("search.failed")
+            tele.metrics.observe("search.latency", took)
+            tele.tenants.record_search(tenant, took, failed=True)
+            tele.workload.record_search(wclass, took, failed=True)
+            raise
+        took = (tele.metrics.clock() - t0) * 1000.0
+        tele.metrics.observe("search.latency", took)
+        tele.tenants.record_search(
+            tenant, took, shards=response.get("_shards", {}).get("total", 0))
+        tele.workload.record_search(wclass, took)
+        if response.get("timed_out") or \
+                response.get("_shards", {}).get("failed"):
+            tele.metrics.inc("search.partial_results")
+        return response
+
+    def span(self, name: str, tags: Dict[str, Any]):
+        """A span of the node's tracer under the ambient trace (the
+        REST root span), or None when there is neither."""
+        if self.telemetry is None or _telectx.current() is None:
+            return None
+        return self.telemetry.tracer.start_span(name, tags=tags)
 
     def _search_request(self, expression: str, body: Dict[str, Any],
                         search_type: Optional[str],
                         scroll: Optional[str], task=None) -> Dict[str, Any]:
         t0 = time.time()
         use_cache = body.get("request_cache")
-        if "request_cache" in body:
-            body = {k: v for k, v in body.items() if k != "request_cache"}
+        if "request_cache" in body or "tenant" in body:
+            # the tenant was resolved by ``accounted``
+            body = {k: v for k, v in body.items()
+                    if k not in ("request_cache", "tenant")}
         extra = sorted(set(body) - BODY_KEYS)
         if extra:
             raise SliceUnsupported(
@@ -693,7 +783,10 @@ class SearchService:
                            or (task.slowest_stage() if task is not None
                                else None)),
             flight=(fr.summary_for_trace(trace_id)
-                    if fr is not None and trace_id else None))
+                    if fr is not None and trace_id else None),
+            opaque_id=_telectx.current_opaque_id(),
+            tenant=_telectx.current_tenant(),
+            workload_class=_telectx.current_workload_class())
 
     # ---------------------------------------------------------- scroll
     def scroll(self, scroll_id: str, scroll: Optional[str] = None,
@@ -951,6 +1044,9 @@ class SearchService:
             _prof.checkpoint("query")
             scope = (profiles.shard(f"[{index}][{shard_idx}]")
                      if profiles is not None else contextlib.nullcontext())
+            # parented to the REST root span through the ambient context
+            shard_span = self.span(f"shard[{index}][{shard_ord}]",
+                                   {"phase": "query", "outcome": "ok"})
             try:
                 with scope:
                     result = searcher.query_phase(
@@ -972,8 +1068,13 @@ class SearchService:
                     if rescore:
                         result.docs = searcher.rescore(result.docs, rescore)
             except TaskCancelledException:
+                if shard_span is not None:
+                    shard_span.finish(outcome="cancelled")
                 raise
             except Exception as e:  # the per-shard failure barrier
+                if shard_span is not None:
+                    shard_span.tag("outcome", "failed")
+                    shard_span.tag("error_type", error_type_of(e))
                 if first_failure is None:
                     first_failure = e
                 failures.append({
@@ -981,6 +1082,8 @@ class SearchService:
                     "reason": {"type": error_type_of(e), "reason": str(e),
                                "phase": "query"}})
                 result = QueryResult([], 0, None)
+            if shard_span is not None:
+                shard_span.finish()
             results.append((index, searcher, result))
         if failures:
             if len(failures) == len(results):
@@ -1169,6 +1272,23 @@ class SearchService:
         docvalue_fields = [f if isinstance(f, str) else f.get("field")
                            for f in body.get("docvalue_fields", [])]
         hits: Dict[int, Dict[str, Any]] = {}
+        fetch_span = (self.span("fetch", {"shards": len(by_shard)})
+                      if by_shard else None)
+        try:
+            self._fetch_shards(by_shard, shard_of, body, query,
+                               collapse_field, profiles, docvalue_fields,
+                               hits)
+        finally:
+            if fetch_span is not None:
+                fetch_span.finish()
+        return [hits[i] for i in sorted(hits)]
+
+    def _fetch_shards(self, by_shard, shard_of, body: Dict[str, Any], query,
+                      collapse_field, profiles: Optional[_ShardProfiles],
+                      docvalue_fields, hits: Dict[int, Dict[str, Any]]
+                      ) -> None:
+        """Each shard's fetch of its hits, filed in ``hits`` by page
+        position."""
         for shard_idx, entries in by_shard.items():
             index, searcher = shard_of[shard_idx]
             docs = [d for _, d in entries]
@@ -1188,7 +1308,6 @@ class SearchService:
                     h.setdefault("fields", {})[collapse_field] = [
                         _doc_field_value(searcher, d, collapse_field)]
                 hits[pos] = h
-        return [hits[i] for i in sorted(hits)]
 
     def _aggregate(self, aggs_spec, results,
                    profiles: Optional[_ShardProfiles]) -> Dict[str, Any]:

@@ -7,8 +7,8 @@ disables a level. The search service (search/service.py) keeps a
 bounded ``slowlog_recent`` list of entries::
 
     {"index": name, "took_ms": int, "level": "warn", "source": "...",
-     "trace.id"?, "slowest_stage"?, "cohort_fill_pct"?, "readbacks"?,
-     "regime"?}
+     "trace.id"?, "slowest_stage"?, "x_opaque_id"?, "tenant"?,
+     "search.class"?, "cohort_fill_pct"?, "readbacks"?, "regime"?}
 
 ``slowest_stage`` is the profile's slowest stage when the body asked
 ``profile: true`` (``slowest_stage_summary``), else the search task's
@@ -80,11 +80,17 @@ def record_search_slowlog(
         recent: List[Dict[str, Any]],
         trace_id: Optional[str] = None,
         slowest_stage: Optional[str] = None,
-        flight: Optional[Dict[str, Any]] = None) -> List[Dict[str, Any]]:
+        flight: Optional[Dict[str, Any]] = None,
+        opaque_id: Optional[str] = None,
+        tenant: Optional[str] = None,
+        workload_class: Optional[str] = None) -> List[Dict[str, Any]]:
     """Check every searched index's thresholds against the search's took
     time; append the matches (the highest matching level an index) to
     ``recent`` and return the new entries. ``settings_of(name)`` yields
-    a ``.get``-able settings view, or None for an unknown index."""
+    a ``.get``-able settings view, or None for an unknown index.
+    ``opaque_id`` (the ``X-Opaque-Id`` header), ``tenant`` and
+    ``workload_class`` attribute the entry (``x_opaque_id``, ``tenant``,
+    ``search.class``)."""
     new_entries: List[Dict[str, Any]] = []
     for name in index_names:
         settings = settings_of(name)
@@ -107,6 +113,12 @@ def record_search_slowlog(
                     entry["trace.id"] = trace_id
                 if slowest_stage is not None:
                     entry["slowest_stage"] = slowest_stage
+                if opaque_id is not None:
+                    entry["x_opaque_id"] = opaque_id
+                if tenant is not None:
+                    entry["tenant"] = tenant
+                if workload_class is not None:
+                    entry["search.class"] = workload_class
                 if flight:
                     entry["cohort_fill_pct"] = flight.get(
                         "cohort_fill_pct")

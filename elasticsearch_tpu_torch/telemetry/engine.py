@@ -40,6 +40,7 @@ import functools
 import inspect
 import threading
 import time
+import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
 from elasticsearch_tpu_torch.search import profile as _profile
@@ -157,6 +158,13 @@ class CompileTracker:
     def __init__(self):
         self._lock = threading.Lock()
         self._kernels: Dict[str, _Kernel] = {}
+        # node registries (telemetry/metrics.py) that receive
+        # ``engine.compile.count`` / ``engine.compile.ms``; weak, so a
+        # closed node drops out on its own
+        self._sinks: "weakref.WeakSet" = weakref.WeakSet()
+
+    def add_sink(self, metrics) -> None:
+        self._sinks.add(metrics)
 
     # -- record path (called by tracked_kernel wrappers) -------------------
 
@@ -196,6 +204,10 @@ class CompileTracker:
             k.compiles += 1
             k.cum_ms += ms
             k.last_key, k.last_ms, k.last_trigger = key, ms, trigger
+            sinks = list(self._sinks)
+        for m in sinks:
+            m.inc("engine.compile.count")
+            m.inc("engine.compile.ms", ms)
         return "compile"
 
     # -- read path ---------------------------------------------------------

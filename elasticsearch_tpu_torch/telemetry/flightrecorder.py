@@ -22,9 +22,11 @@ classifier tags each event ``fast|degraded`` from an EMA of observed
 dispatch+readback latency (hysteresis: enter above
 ``degraded_enter_ms``, exit below ``degraded_exit_ms``).
 
-Surfaces: ``GET /_flight_recorder`` (the filtered ring) and the
-``telemetry.flight_recorder`` block of ``GET /_nodes/stats``. The
-request waterfall (``build_waterfall``) waits for the port's tracer.
+Surfaces: ``GET /_flight_recorder`` (the filtered ring),
+``GET /_flight_recorder/waterfall/{trace_id}`` (``build_waterfall``: the
+trace's spans with the events that ran under each), the
+``telemetry.flight_recorder`` block of ``GET /_nodes/stats``, and the
+slowlog entries (the per-trace summary).
 """
 
 from __future__ import annotations
@@ -108,6 +110,7 @@ class FlightRecorder:
         self.clock = clock or _time.monotonic
         self.capacity = int(capacity)
         self.metrics = metrics
+        self._counters = (None, {})     # (registry, name -> Counter)
         self.degraded_enter_ms = float(degraded_enter_ms)
         self.degraded_exit_ms = float(degraded_exit_ms)
         self._lock = threading.Lock()
@@ -185,6 +188,18 @@ class FlightRecorder:
         out[self.regime] += max(0.0, self.clock() - self._regime_since)
         return {k: round(v, 3) for k, v in out.items()}
 
+    def _counter(self, name: str):
+        """The registry's unlabeled counter ``name``, looked up once per
+        registry: every event increments a few, and the lookup (a key
+        built and sorted, a dict probe) costs more than the add."""
+        cached = self._counters
+        if cached[0] is not self.metrics:
+            cached = self._counters = (self.metrics, {})
+        c = cached[1].get(name)
+        if c is None:
+            c = cached[1][name] = self.metrics.counter(name)
+        return c
+
     def _sync_regime_metrics(self) -> None:
         """Publish regime-seconds into the metrics registry as counters
         (set via inc-by-delta so scalar_snapshot sees monotonic
@@ -193,7 +208,7 @@ class FlightRecorder:
             return
         secs = self.regime_seconds()
         for regime, total in secs.items():
-            c = self.metrics.counter(f"flight.regime_seconds.{regime}")
+            c = self._counter(f"flight.regime_seconds.{regime}")
             delta = total - c.value
             if delta > 0:
                 c.inc(delta)
@@ -249,9 +264,9 @@ class FlightRecorder:
                     self._fill_hist[b] += 1
                     break
         if self.metrics is not None:
-            self.metrics.inc("flight.launches")
-            self.metrics.inc("flight.launch.slots", capacity)
-            self.metrics.inc("flight.launch.filled", cohort)
+            self._counter("flight.launches").inc()
+            self._counter("flight.launch.slots").inc(capacity)
+            self._counter("flight.launch.filled").inc(cohort)
             self._sync_regime_metrics()
         if self.tenants is not None:
             self.tenants.record_launch(ev.get("tenant"), dispatch_ms)
@@ -281,8 +296,8 @@ class FlightRecorder:
             slot["count"] += 1
             slot["bytes"] += int(nbytes)
         if self.metrics is not None:
-            self.metrics.inc("flight.readbacks")
-            self.metrics.inc("flight.readback.bytes", nbytes)
+            self._counter("flight.readbacks").inc()
+            self._counter("flight.readback.bytes").inc(nbytes)
             self._sync_regime_metrics()
         if self.tenants is not None:
             self.tenants.record_readback(ev.get("tenant"), nbytes)
@@ -392,3 +407,67 @@ class FlightRecorder:
                     break
             out[key] = val
         return out
+
+
+# -- waterfall stitching ------------------------------------------------
+
+def build_waterfall(trace_id: str,
+                    node_slices: List[Dict[str, Any]]
+                    ) -> Optional[Dict[str, Any]]:
+    """Merge per-node (spans, flight events) slices of one trace into a
+    single waterfall: the span tree of ``tracing.Tracer.trace`` with
+    each span carrying the launch/readback ``events`` it paid for and
+    per-hop nanos (REST parse → batcher wait → launch → readback →
+    merge → fetch).
+
+    ``node_slices``: ``[{"node": id, "spans": [...], "events": [...]},
+    ...]`` — the coordinator's own slice plus each data node's
+    ``FLIGHT_TRACE_ACTION`` response. Span ids are node-prefixed
+    counters, so cross-node merge is collision-free; all ordering keys
+    ((start_ms, span_id) for spans, (t_ns, seq, node) for events) are
+    deterministic under seed replay. Returns None when no node held any
+    span of the trace."""
+    spans: List[Dict[str, Any]] = []
+    events: List[Dict[str, Any]] = []
+    nodes: List[str] = []
+    for sl in node_slices:
+        if sl.get("spans") or sl.get("events"):
+            nodes.append(sl.get("node", ""))
+        spans.extend(dict(s) for s in sl.get("spans") or [])
+        events.extend(dict(e) for e in sl.get("events") or [])
+    if not spans and not events:
+        return None
+    spans.sort(key=lambda s: (s["start_ms"], s["span_id"]))
+    events.sort(key=lambda e: (e["t_ns"], e["seq"], e.get("node", "")))
+    by_id = {s["span_id"]: {**s, "events": [], "children": []}
+             for s in spans}
+    unattached: List[Dict[str, Any]] = []
+    for ev in events:
+        slot = by_id.get(ev.get("span_id"))
+        if slot is not None:
+            slot["events"].append(ev)
+        else:
+            unattached.append(ev)
+    roots = []
+    for s in spans:
+        node = by_id[s["span_id"]]
+        parent = by_id.get(s["parent_id"]) if s["parent_id"] else None
+        if parent is not None:
+            parent["children"].append(node)
+        else:
+            roots.append(node)
+    for node in by_id.values():
+        # per-hop self time: the span's duration minus its children's —
+        # what THIS hop (parse, batcher wait, merge, ...) cost on top
+        # of what it delegated
+        child_ms = sum(c["duration_ms"] for c in node["children"])
+        node["self_ns"] = int(max(0.0, node["duration_ms"] - child_ms)
+                              * 1e6)
+    out = {"trace_id": trace_id, "nodes": sorted(set(nodes)),
+           "span_count": len(spans), "event_count": len(events),
+           "waterfall": roots}
+    if unattached:
+        # events recorded under the trace but outside any span the ring
+        # still holds (aged-out span, span-less caller) stay visible
+        out["unattached_events"] = unattached
+    return out

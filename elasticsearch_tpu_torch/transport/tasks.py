@@ -18,8 +18,10 @@ from which the slow log names a search's slowest stage.
 
 What waits for the cluster layer: bans sent to other nodes and the
 registration of a remote caller's children (the reference's
-``register_child_of_incoming``); tenant and workload stamps wait for
-the port's telemetry of them.
+``register_child_of_incoming``). A task also records the client's
+``X-Opaque-Id``, its tenant and its workload class (``search.class``),
+and the manager feeds ``tasks.started``/``completed``/``cancelled``
+(by action) and the ``tasks.current`` gauge into the node's metrics.
 """
 
 from __future__ import annotations
@@ -117,6 +119,10 @@ class Task:
         self._stage_t0: Optional[int] = None
         ctx = _telectx.current()
         self.trace_id: Optional[str] = ctx.trace_id if ctx else None
+        self.opaque_id: Optional[str] = _telectx.current_opaque_id()
+        self.tenant: Optional[str] = _telectx.current_tenant()
+        self.workload_class: Optional[str] = \
+            _telectx.current_workload_class()
 
     def running_time_nanos(self) -> int:
         return int((time.monotonic() - self._start) * 1e9)
@@ -157,6 +163,12 @@ class Task:
         }
         if self.trace_id is not None:
             d["trace.id"] = self.trace_id
+        if self.opaque_id is not None:
+            d["headers"] = {"X-Opaque-Id": self.opaque_id}
+        if self.tenant is not None:
+            d["tenant"] = self.tenant
+        if self.workload_class is not None:
+            d["search.class"] = self.workload_class
         if self.profile_stage is not None:
             d["profile_stage"] = self.profile_stage
         if self.parent_task_id is not EMPTY_TASK_ID and \
@@ -213,10 +225,15 @@ class CancellableTask(Task):
 
 class TaskManager:
     """The node's live-task registry and its cancellation bans (ref:
-    TaskManager.register / cancelTaskAndDescendants / setBan)."""
+    TaskManager.register / cancelTaskAndDescendants / setBan).
 
-    def __init__(self, node_id: str, first_id: int = 0):
+    ``metrics`` (the node's MetricsRegistry, optional) receives
+    ``tasks.started``/``tasks.completed``/``tasks.cancelled`` counters
+    labeled by action and the live ``tasks.current`` gauge."""
+
+    def __init__(self, node_id: str, first_id: int = 0, metrics=None):
         self.node_id = node_id
+        self.metrics = metrics
         # the last id handed out (a restarted node starts past the task
         # results it stored)
         self._seq = first_id
@@ -243,7 +260,11 @@ class TaskManager:
             self.started_total += 1
             self.peak_concurrent = max(self.peak_concurrent,
                                        len(self._tasks))
+            live = len(self._tasks)
             ban_reason = self._bans.get(parent_task_id)
+        if self.metrics is not None:
+            self.metrics.inc("tasks.started", action=action)
+            self.metrics.set_gauge("tasks.current", live)
         if ban_reason is not None and isinstance(task, CancellableTask):
             self._count_cancelled(task)
             task.cancel(f"parent banned [{ban_reason}]")
@@ -254,8 +275,12 @@ class TaskManager:
             removed = self._tasks.pop(task.id, None)
             if removed is not None:
                 self.completed_total += 1
+            live = len(self._tasks)
             # the ban (if any) dies with the task
             self._bans.pop(TaskId(self.node_id, task.id), None)
+        if removed is not None and self.metrics is not None:
+            self.metrics.inc("tasks.completed", action=task.action)
+            self.metrics.set_gauge("tasks.current", live)
 
     def get_task(self, task_id: int) -> Optional[Task]:
         with self._lock:
@@ -289,6 +314,8 @@ class TaskManager:
             if task.is_cancelled():
                 return      # an idempotent cancel counts once
             self.cancelled_total += 1
+        if self.metrics is not None:
+            self.metrics.inc("tasks.cancelled", action=task.action)
 
     def ban_count(self) -> int:
         with self._lock:

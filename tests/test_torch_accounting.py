@@ -50,7 +50,6 @@ from elasticsearch_tpu_torch.ops.device import (HBM_SLAB_CLASSES,
                                                 DevicePostings,
                                                 DeviceSegment, DeviceVectors)
 from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
-from elasticsearch_tpu_torch.search.fastpath import SliceUnsupported
 from elasticsearch_tpu_torch.search.plan import BoundPlan
 from elasticsearch_tpu_torch.search.queries import parse_query
 from elasticsearch_tpu_torch.search.searcher import ShardSearcher
@@ -601,12 +600,25 @@ def test_breaker_settings_parse_as_the_reference():
 @pytest.mark.parametrize("child", ["request", "fielddata",
                                    "in_flight_requests"])
 def test_host_breaker_limits_are_a_typed_400(child):
-    """Nothing in the port charges the host children yet: setting their
-    limit is refused, not accepted and ignored."""
+    """The host children's limit settings are served now: the dense path
+    charges ``request`` (its host readbacks, test_torch_traces.py), and
+    ``fielddata`` and ``in_flight_requests``, which nothing on a single
+    node charges, are accepted as the reference accepts them. No limit
+    is a typed 400 any more; ``_nodes/stats`` reports the breakers as the
+    reference's service does (the reference reads no
+    ``in_flight_requests`` limit: that child keeps the total)."""
+    from elasticsearch_tpu.utils.breaker import \
+        build_breaker_service as jax_build
     key = f"indices.breaker.{child}.limit"
-    with pytest.raises(SliceUnsupported, match=key.replace(".", r"\.")):
-        Node(device="cpu", settings={key: "1mb"})
-    assert SliceUnsupported.error_type == "unsupported_in_slice_exception"
+    node = Node(device="cpu", settings={key: "1mb"})
+    try:
+        st, stats = node.rest_controller.dispatch("GET", "/_nodes/stats")
+        got = stats["nodes"]["node-0"]["breakers"]
+        assert got == jax_build({key: "1mb"}.get).stats()
+        if child != "in_flight_requests":
+            assert got[child]["limit_size_in_bytes"] == 1 << 20
+    finally:
+        node.close()
 
 
 def test_a_limit_below_one_segment_answers_429_as_the_reference(tmp_path):

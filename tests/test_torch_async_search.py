@@ -5,9 +5,8 @@ packages' nodes over the same seeded documents: statuses, ``is_running``
 and ``is_partial``, the error types and the answers' hits equal, with
 the fields that differ by construction masked: the search ``id``, the
 epochs (``start_time_in_millis``, ``expiration_time_in_millis``,
-``completion_time_in_millis``) and ``took``; and the reference's
-``search.class`` stamp (the port's workload telemetry is a later
-slice). A running search is held by a ``threading.Event`` in the node's
+``completion_time_in_millis``) and ``took``. The ``search.class``
+stamp (``async``) and the submitter's ``tenant`` are held equal. A running search is held by a ``threading.Event`` in the node's
 search service (both packages' `_search` reach it for these bodies),
 and keep-alive expiry is driven by each service's injected clock, so no
 test waits on the wall clock.
@@ -27,10 +26,7 @@ from test_torch_tasks import Pair, background_threads
 
 # the answer fields that differ between the packages by construction
 MASKED = ("id", "start_time_in_millis", "expiration_time_in_millis",
-          "completion_time_in_millis",
-          # the reference's workload stamp, which waits for the port's
-          # telemetry of it
-          "search.class")
+          "completion_time_in_millis")
 
 
 @pytest.fixture(autouse=True)

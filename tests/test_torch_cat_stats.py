@@ -235,7 +235,9 @@ def test_every_search_of_a_burst_lands_with_its_slowest_stage(tmp_path):
             stage, ms, where = entry["slowest_stage"].split()
             assert ms.endswith("ms") and float(ms[:-2]) >= 0
             assert where == ("[b][0]" if body.get("profile") else "task")
-            assert len(entry["trace.id"]) == 32
+            # the request's trace, which the tracer's ring resolves
+            st, trace = d("GET", f"/_traces/{entry['trace.id']}")
+            assert st == 200 and trace["spans"][0]["name"] == "rest.search"
             assert entry["regime"] in ("fast", "degraded")
             assert entry["readbacks"] >= 0
     finally:

@@ -208,6 +208,8 @@ def test_fallback_bodies_take_no_fast_path(nodes, bi):
     assert st == st_want
     got.pop("took", None)
     want.pop("took", None)
+    # the dispatch's trace id, which the front sends as a header
+    assert set(want.pop("_headers")) == {"trace.id"}
     assert got == want
 
 
@@ -426,3 +428,183 @@ def test_close_leaves_no_thread(monkeypatch):
     assert [t for t in threading.enumerate()
             if t not in before and t.is_alive()] == []
     assert node._http is None
+
+
+# ------------------------------------------- headers, CBOR, _msearch, ip
+
+def raw(port, method, path, data=None, headers=None):
+    """(status, response headers, body bytes) of one request."""
+    r = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                               method=method, headers=headers or {})
+    try:
+        with urllib.request.urlopen(r, timeout=60) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+MSEARCH = [({}, {"query": {"match": {"title": "fox gamma"}}, "size": 7}),
+           ({"index": "books"}, {"query": {"bool": {"should": [
+               {"match": {"title": "dog"}}, {"match": {"title": "lion"}}]}},
+               "size": 5}),
+           ({}, {"query": {"match": {"title": "zeta"}}, "size": 3,
+                 "_source": False})]
+
+
+@pytest.mark.parametrize("path", ["/_msearch", "/books/_msearch"])
+def test_msearch_sent_as_json_answers_the_references_answer(nodes, path):
+    """An NDJSON `_msearch` body sent as ``application/json`` is read as
+    NDJSON (the reference's front does so for any path ending in
+    ``_msearch``): 200 with the reference's ids, order and totals
+    (``assert_parity``), and the same answers as the body sent as
+    ``x-ndjson``. Before the repair the port answered 400
+    ``parsing_exception`` ("Extra data")."""
+    (_, ref_port), (_, port) = nodes
+    lines = []
+    for header, body in MSEARCH:
+        header = dict(header) if path == "/_msearch" else {}
+        if path == "/_msearch":
+            header.setdefault("index", "books")
+        lines += [json.dumps(header), json.dumps(body)]
+    text = "\n".join(lines) + "\n"
+    got = {}
+    for name, p in (("ref", ref_port), ("port", port)):
+        for ctype in ("application/json", "application/x-ndjson"):
+            st, _, data = raw(p, "POST", path, text.encode(),
+                              {"Content-Type": ctype})
+            assert st == 200, (name, ctype, data[:300])
+            got[name, ctype] = json.loads(data)["responses"]
+    for ctype in ("application/json", "application/x-ndjson"):
+        ref, mine = got["ref", ctype], got["port", ctype]
+        assert len(ref) == len(mine) == len(MSEARCH)
+        for r, m in zip(ref, mine):
+            # RTOL: the reference's plan path sums float32 contributions
+            # (3.4e-6 apart on these bodies), the port's in float64
+            assert_parity(m, r)
+    for a, b in zip(got["port", "application/json"],
+                    got["port", "application/x-ndjson"]):
+        a.pop("took", None)
+        b.pop("took", None)
+        assert a == b
+
+
+def test_msearch_template_stays_json(nodes):
+    body = {"index": "books", "source": {
+        "query": {"match": {"title": "{{w}}"}}, "size": 3},
+        "params": {"w": "fox"}}
+    text = json.dumps({"index": "books"}) + "\n" + json.dumps(
+        {"source": body["source"], "params": body["params"]}) + "\n"
+    answers = []
+    for (_, p) in nodes:
+        st, _, data = raw(p, "POST", "/_msearch/template", text.encode(),
+                          {"Content-Type": "application/x-ndjson"})
+        assert st == 200, data[:300]
+        answers.append([h["_id"] for r in json.loads(data)["responses"]
+                        for h in r["hits"]["hits"]])
+    assert answers[0] == answers[1] and answers[0]
+
+
+def test_headers_reach_dispatch_and_trace_id_echoes(nodes):
+    """``X-Opaque-Id``, ``X-Tenant-Id``, ``X-Workload-Class`` and
+    ``trace.id`` reach the handler through the fallback workers on both
+    fronts: the answer's ``trace.id`` header echoes the caller's, whose
+    trace holds one ``rest.search`` root (parented to the caller's
+    ``span.id``) over its shard and fetch spans; the tenant and class
+    count the search."""
+    body = json.dumps({"query": {"bool": {"should": [
+        {"match": {"title": "fox"}}, {"match": {"title": "owl"}}]}},
+        "size": 3}).encode()
+    for (_, p), tag in zip(nodes, ("ref", "port")):
+        trace = f"trace-{tag}-1"
+        st, headers, data = raw(p, "POST", "/books/_search", body, {
+            "Content-Type": "application/json", "X-Opaque-Id": "op-1",
+            "X-Tenant-Id": f"tenant-{tag}", "X-Workload-Class": "canary",
+            "trace.id": trace, "span.id": "caller-span"})
+        assert st == 200, data[:300]
+        assert headers.get("trace.id") == trace
+        assert "_headers" not in json.loads(data)
+        st, _, t = raw(p, "GET", f"/_traces/{trace}")
+        assert st == 200
+        spans = json.loads(t)["spans"]
+        roots = [s for s in spans if s["name"] == "rest.search"]
+        assert [s["parent_id"] for s in roots] == ["caller-span"]
+        assert {s["name"] for s in spans} >= {"rest.search", "fetch",
+                                              "shard[books][0]"}
+        st, _, ten = raw(p, "GET", "/_tenants/stats")
+        assert json.loads(ten)["tenants"][f"tenant-{tag}"]["search"][
+            "count"] == 1
+        st, _, wl = raw(p, "GET", "/_workload/stats")
+        assert json.loads(wl)["classes"]["canary"]["search"]["count"] >= 1
+        st, _, cat = raw(p, "GET", "/_cat/tenants")
+        assert st == 200 and f"tenant-{tag}".encode() in cat
+
+
+def test_cbor_both_ways(nodes):
+    """A CBOR request body answers as its JSON twin; ``Accept:
+    application/cbor`` answers in CBOR, decoded equal to the JSON
+    answer; a body that is not CBOR is a 400 ``parsing_exception``, on
+    both fronts."""
+    from elasticsearch_tpu_torch.common import cbor
+    bodies = [{"query": {"match": {"title": "fox"}}, "size": 4},
+              {"query": {"bool": {"should": [{"match": {"title": "dog"}}]}},
+               "size": 4, "min_score": 0.0},
+              {"query": {"match": {"title": "cat"}}, "size": 0,
+               "aggs": {"n": {"value_count": {"field": "_id"}}}}]
+    for (_, p) in nodes:
+        for body in bodies:
+            st, _, js = raw(p, "POST", "/books/_search",
+                            json.dumps(body).encode(),
+                            {"Content-Type": "application/json"})
+            st2, h2, cb = raw(p, "POST", "/books/_search", cbor.dumps(body),
+                              {"Content-Type": "application/cbor",
+                               "Accept": "application/cbor"})
+            assert st == 200 and st2 == 200, (js[:200], cb[:200])
+            assert h2["Content-Type"].startswith("application/cbor")
+            a, b = json.loads(js), cbor.loads(cb)
+            a.pop("took")
+            b.pop("took")
+            assert a == b
+        st, _, bad = raw(p, "POST", "/books/_search", b"\xff\xfe\x00",
+                         {"Content-Type": "application/cbor"})
+        assert st == 400
+        assert json.loads(bad)["error"]["type"] == "parsing_exception"
+
+
+def test_cbor_codec_equals_the_reference():
+    from elasticsearch_tpu.common import cbor as ref_cbor
+    from elasticsearch_tpu_torch.common import cbor
+    rng = np.random.default_rng(4)
+    docs = [{"a": int(v), "b": float(v) / 7, "c": [str(v), None, True],
+             "d": {"e": -int(v) * 10 ** 12, "f": b"\x00\x01"}}
+            for v in rng.integers(-1000, 1000, 50)]
+    for d in docs:
+        assert cbor.dumps(d) == ref_cbor.dumps(d)
+        assert cbor.loads(ref_cbor.dumps(d)) == ref_cbor.loads(
+            ref_cbor.dumps(d))
+
+
+@pytest.mark.parametrize("rule", [{"deny": "127.0.0.0/8"},
+                                  {"allow": "10.7.0.0/16"}])
+def test_ip_filter_refuses_the_connection(rule):
+    """``http.ip_filter.deny`` covering the client, or an ``allow`` list
+    that does not (x-pack IPFilter semantics: allow-only denies the
+    rest), closes the connection at accept; ``ip_rejected`` counts it."""
+    node = Node(device="cpu", settings={"http": {"ip_filter": rule}})
+    port = node.start(0)
+    try:
+        with pytest.raises((urllib.error.URLError, ConnectionError)):
+            req(port, "GET", "/")
+        assert node.http_stats()["ip_rejected"] >= 1
+    finally:
+        node.close()
+
+
+def test_a_bad_ip_filter_refuses_to_start():
+    node = Node(device="cpu",
+                settings={"http.ip_filter.deny": "not-a-cidr"})
+    try:
+        with pytest.raises(ValueError, match="ip_filter"):
+            node.start(0)
+        assert node._http is None
+    finally:
+        node.close()
