@@ -15,7 +15,8 @@ Phases (any failure exits non-zero; no exception is swallowed):
               and the C++ front from elasticsearch_tpu_torch/native/src
   2. kernels  each kernel against its plain PyTorch twin at main-path shapes
               (a 32-query cohort at NB=4096, 16 slots, on the corpus), timed;
-              the merge also at NB=1024 and 2048 and on a tie-heavy cohort.
+              the merge also at NB=1024 and 2048 and on a tie-heavy cohort;
+              the card's launch floor (a one-element add timed the same way).
               One v1 cohort and one cohort of the v2 op (ported, serving
               nothing) at that shape (half of each reading a filter row)
               equal to the same launch on the CPU twins; each cohort (v2m,
@@ -235,7 +236,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
               and p50/p99 from 16 clients, and the cohorts the batcher
               forms with their lanes and device ms, on and off
  12. fields   the remaining field types: "geopoint" (Rally's geopoint
-              track, cut to an eighth: 7,605,551 points clustered like
+              track, cut to a sixteenth: 3,802,776 points clustered like
               populated places, corpus.py geo_points, in 4 segments of a
               location
               geo_point) with geo_distance at 1, 50 and 1000 km, the
@@ -248,7 +249,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
               relation; "logs_ip" (phase 5's logs with clientip as ip,
               Zipf over /16 networks, and a session date_range) with a
               term, CIDR /24 and /16, an ip range and each range
-              relation; "qa" (50,000 questions with 0-5 nested
+              relation; "qa" (25,000 questions with 0-5 nested
               answers, Rally's nested track) with a nested bool of a
               term and a range, a score_mode over a match and
               inner_hits, and its join twin "qa_join" with has_child
@@ -368,7 +369,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
               its own on a temporary data path (removed at the end;
               its bytes on disk printed). (a) "docs": 25,000 docs
               (corpus.py's text, seed 0, a keyword, a long) in 5
-              _bulk requests of 5,000 over HTTP, then 2,500 single-doc
+              _bulk requests of 5,000 over HTTP, then 1,250 single-doc
               requests (updates by doc and by script, deletes, new
               docs, a _create conflict, a CAS that succeeds and one
               that conflicts): before _refresh every search answers as
@@ -378,11 +379,12 @@ Phases (any failure exits non-zero; no exception is swallowed):
               1e-5, the recall rule); after _forcemerge the fast bodies
               on v2m (both kernels launch); every acknowledged write
               read back through _mget with its _version and _seq_no.
-              (b) _flush, 5,000 ops by _bulk that only the translog
+              (b) _flush, 2,500 ops by _bulk that only the translog
               holds, close, a new Node on the path: the translog
               replays them, every acknowledged write reads back, and
               every page equals its answer before the restart. (c)
-              "bench", the 2M-doc corpus, installed, flushed, closed
+              "bench", the 2M-doc corpus (the segment as built, before
+              phase 21's delete), installed, flushed, closed
               and reopened: phase 4's first 64 match bodies answer
               bit-equal before and after. Printed: the bulk rate, the
               replay's ops/s, the seconds to recover split into
@@ -527,14 +529,46 @@ Phases (any failure exits non-zero; no exception is swallowed):
               `_nodes/stats`: search.requests and search.latency grew
               by the searches sent, ?history=true renders;
               {"telemetry": ...}
+ 21. ops      the node's operational layer, on the main node after
+              phase 20: (a) an `_msearch` of 64 "bench" bodies (plan
+              and `_source: true` fast), each equal to itself asked
+              alone, thread_pool.search.completed +64 and rejected +0,
+              `_cat/thread_pool` equal to `_nodes/stats`; (b) "bench5"
+              frozen: 16 plan and dense bodies and a 3-page scroll
+              equal to their unfrozen answers (ids, order, float32
+              scores, totals), none of its segments on the card and
+              the hbm breaker at the resident bytes after each,
+              search_throttled.completed +16, a write 403, each
+              search's upload ms; (c) "bench" snapshotted into an fs
+              repository and restored as "bench_r": fresh segment
+              names, 32 bench-mix bodies equal to "bench"'s, its fast
+              bodies on the v2m lane, a second snapshot of 0 new
+              bytes, a delete in "bench" leaving "bench_r"'s total; the
+              snapshot's seconds and bytes, the restore's seconds, the
+              first search's upload ms; (d) the snapshot mounted as
+              "bench_m": no segment file before its first search, then
+              equal answers, a write 403, a second mount served from
+              the blob cache; (e) an SLM policy executed twice, its
+              max_count 1 keeping the newest; (f) `_health_report`:
+              device_engine's hbm_used_ratio the breaker's used /
+              limit, device_regime's launches and fill the history
+              ring's over the window, repository_integrity green and
+              then red naming a truncated snap-{name}.json,
+              `_cluster/health` green with every shard active,
+              `_health_report/nope` a 400; the contribution kernel once
+              a dense scoring and once a fast cohort, the merge once a
+              v2m cohort; {"ops": ...}
  the report   the scale, lanes, theta_warm, prune, dense, knn, hybrid,
               script, aggs, accounting, fulltext, fetch, fields, shards,
               aggs_deferred, mesh, durability, contexts, analysis,
-              tasks, telemetry, filters, plan and kernels JSON lines
-              (each kernel's launches per phase, launches_aggs_deferred
-              for phase 14, launches_mesh for 15, launches_durability
-              for 16, launches_contexts for 17, launches_analysis for
-              18, launches_tasks for 19, launches_telemetry for 20),
+              tasks, telemetry, ops, filters, plan and kernels JSON
+              lines (each kernel's launches per phase,
+              launches_aggs_deferred for phase 14, launches_mesh for
+              15, launches_durability for 16, launches_contexts for 17,
+              launches_analysis for 18, launches_tasks for 19,
+              launches_telemetry for 20, launches_ops for 21, and the
+              card's launch floor, launch_floor_ms: the device ms of a
+              one-element add timed as every kernel is),
               the phases' wall seconds
               ({"phase_seconds": ...}), the card's
               name and power limit, and the last line {"ok": true,
@@ -547,6 +581,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import fnmatch
 import logging
 import os
@@ -634,6 +669,9 @@ def http(port: int, method: str, path: str, body=None, ndjson=False):
 
 
 # ---------------------------------------------------------------- phase 2
+LAUNCH_FLOOR_N = 1000    # one-element launches timed for the floor
+
+
 def tie_heavy_keys(q, n_slots, length, dev, seed):
     """[q, n_slots, length] int32 slots of keys drawn from 64 values,
     ascending, each filled to a random length and padded with the
@@ -793,6 +831,15 @@ def phase_kernels(node, seg, queries, iters):
         log(f"[kernels] {name}: kernel {r['ms']:.4f} ms (host "
             f"{r['host_ms']:.4f} ms per call), twin {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms")
+
+    # ---- the card's floor for one timed launch: a one-element op, as
+    # cuda_ms times every kernel above (a launch that cannot be faster)
+    one = torch.zeros(1, device="cuda")
+    floor_ms, floor_host_ms = cuda_ms(lambda: one.add_(1.0), LAUNCH_FLOOR_N)
+    out["launch_floor"] = dict(ms=floor_ms, host_ms=floor_host_ms,
+                               calls=LAUNCH_FLOOR_N)
+    log(f"[kernels] launch floor: {floor_ms:.5f} ms a one-element add "
+        f"(host {floor_host_ms:.5f} ms a call)")
 
     # ---- one whole cohort launch, traced: device time by kernel
     from elasticsearch_tpu_torch.ops.fastpath import \
@@ -2722,8 +2769,9 @@ def phase_dense(node, port, logs, cols, n_base, queries, clients, seed,
             g = f32_gap(oracle, kind, body,
                         [int(h["_id"]) for h in r["hits"]["hits"]])
             gaps.setdefault(kind, []).append(g)
-    # timed: three rounds of the whole mix from the clients
-    rounds = 3
+    # timed: two rounds of the whole mix from the clients (PERF.md
+    # section 4: the cut)
+    rounds = 2
     t_bodies = all_bodies * rounds
     res2, lat, wall = drive(port, t_bodies, clients, "logs")
     for i, (st, r) in enumerate(res2):
@@ -5725,11 +5773,11 @@ def phase_fetch(node, port, corpus, queries, cols, seed, conns, counters,
 
 # ---------------------------------------------------------------- phase 12
 FIELDS_SIZE = 100
-# a quarter of Rally geopoint's 60,844,404 documents (PERF.md section 4:
-# the cut)
-GEO_POINTS = 7_605_551
+# a sixteenth of Rally geopoint's 60,844,404 documents (PERF.md section
+# 4: the cut)
+GEO_POINTS = 3_802_776
 GEO_SEGMENTS = 4          # a segment's padded docids stay below 2^24
-QA_QUESTIONS = 50_000     # the nested questions (PERF.md section 4: the cut)
+QA_QUESTIONS = 25_000     # the nested questions (PERF.md section 4: the cut)
 ALERTS = 1_000            # the percolator index's stored queries (the cut)
 # the stored queries of "alerts_small" (the first ones of "alerts"),
 # which the percolations of ten documents and of a document by reference
@@ -8259,8 +8307,8 @@ def phase_mesh(node, port, corpus, queries, carry, seed, iters, counters,
 # ---------------------------------------------------------------- phase 16
 DUR_DOCS = 25_000         # phase 16 (a): the docs written through _bulk
 DUR_BULK = 5_000          # Rally's default bulk_size
-DUR_OPS = 2_500           # single-doc requests after the bulk
-DUR_TRANSLOG_OPS = 5_000  # (b): the ops only the translog holds
+DUR_OPS = 1_250           # single-doc requests after the bulk
+DUR_TRANSLOG_OPS = 2_500  # (b): the ops only the translog holds
 DUR_QUERIES = 8
 DUR_K = 100
 DUR_BENCH_BODIES = 64     # (c): phase 4's first match bodies
@@ -10352,7 +10400,9 @@ def phase_tasks(node, port, queries, oracles, seed, counters, hbm_log):
     first_done, m_go = threading.Event(), threading.Event()
 
     def held(*args, **kwargs):
-        if not threading.current_thread().name.startswith("search"):
+        # the node's search pool threads (common/threadpool.py)
+        if not threading.current_thread().name.startswith(
+                "estpu[search]"):
             return orig_search(*args, **kwargs)
         with lock:
             entered[0] += 1
@@ -10759,7 +10809,7 @@ T20_TRACED = 32        # (b) traced plan and dense bodies, one at a time
 T20_FAST_COHORT = 8    # (b) traced fast bodies sent together (printed)
 T20_CLASS = 8          # (c) requests of each class
 T20_MSEARCH = 16       # (d) bodies of the _msearch sent as JSON
-T20_LAT = 200          # (g) dense searches timed with and without headers
+T20_LAT = 100          # (g) dense searches timed with and without headers
 T20_LAT_CLIENTS = 2    # ... from as many Python clients as fallback workers
 T20_MICRO = 5_000      # host micro-benchmarks: iterations of each
 T20_SIZE = 10
@@ -11476,6 +11526,506 @@ def telemetry_alone(docs=2_000_000, vocab=100_000, seed=0):
         node.close()
 
 
+# ---------------------------------------------------------------- phase 21
+T21_SIZE = 100
+T21_MSEARCH = 64       # (a) the _msearch's bench bodies
+T21_FROZEN = 16        # (b) plan and dense bodies on frozen "bench5"
+T21_SCROLL_PAGES = 3   # (b) the scroll walk's pages
+T21_RESTORED = 32      # (c) bench-mix bodies on "bench_r"
+T21_SLM_DOCS = 200     # (e) the policy's index
+
+
+def resident_of(node, index):
+    """The segments of ``index`` that are resident on the card."""
+    return [n for n in node.indices[index].segment_names()
+            if node.device_cache.resident(n) is not None]
+
+
+def breaker_is_resident(node, what):
+    """The hbm breaker holds exactly the resident segments' bytes."""
+    import torch
+    torch.cuda.synchronize()
+    used = node.breaker_service.get_breaker("hbm").used
+    total = node.device_cache.hbm_stats()["total_bytes"]
+    check(used == total, f"{what}: breaker.used {used} == the resident "
+          f"bytes {total}")
+    return used
+
+
+def scroll_walk(port, path, body, pages, after=None):
+    """The first ``pages`` pages of a scroll of ``body`` on ``path``
+    (``after(i)`` runs after page i), then the scroll cleared."""
+    st, r = http(port, "POST", f"{path}?scroll=1m", body)
+    check(st == 200 and "_scroll_id" in r, f"scroll {path}: {str(r)[:300]}")
+    out = [r]
+    if after is not None:
+        after(0)
+    while len(out) < pages:
+        st, r = http(port, "POST", "/_search/scroll",
+                     {"scroll_id": out[0]["_scroll_id"], "scroll": "1m"})
+        check(st == 200 and r["_shards"]["failed"] == 0,
+              f"scroll page {len(out)} of {path}: {str(r)[:300]}")
+        out.append(r)
+        if after is not None:
+            after(len(out) - 1)
+    st, _ = http(port, "DELETE", "/_search/scroll",
+                 {"scroll_id": out[0]["_scroll_id"]})
+    check(st == 200, "clear the scroll")
+    return out
+
+
+def arrays_files(node, index):
+    import glob
+    return glob.glob(os.path.join(node.data_path, index, "*", "*",
+                                  "arrays.npz"))
+
+
+def phase_operations(node, port, queries, seed, counters, hbm_log):
+    """The node's operational layer on one H100 (module docstring, phase
+    21), on the main node after phase 20, over "bench" and "bench5"."""
+    import shutil
+    import tempfile
+
+    import torch
+    from elasticsearch_tpu_torch.health.indicators import \
+        HEALTH_RATE_WINDOW_S
+    from elasticsearch_tpu_torch.ops.device import DeviceSegment
+    from elasticsearch_tpu_torch.telemetry.engine import TRACKER
+    t_phase = time.time()
+    out = {}
+    steps = {}
+    t_step = [time.time()]
+
+    def lap(name):
+        now = time.time()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+
+    fp = node.fastpath
+    s_start = TRACKER.calls("bm25_dense_scores_sorted")
+    c_start = dict(fp.stats)
+    for c in counters.values():
+        c.launches = 0
+    svc = node.indices["bench"]
+    reg = fp.register("bench", svc.engine.segments[0], "title", svc.k1,
+                      svc.b)
+    v2m = [i for i, q in enumerate(queries)
+           if lane_of(fp, reg, q, T21_SIZE) == "v2m"]
+    check(len(v2m) >= T21_MSEARCH, f"v2m queries at size {T21_SIZE}: "
+          f"{len(v2m)}")
+    # a sample of the history ring at the phase's start: (f)'s window
+    # then holds the phase's launches
+    check(http(port, "GET", "/_nodes/stats?history=true")[0] == 200,
+          "the history ring sampled")
+    # every DeviceSegment build (a segment's upload) timed on the card
+    uploads = []
+    orig_init = DeviceSegment.__init__
+
+    def timed_init(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig_init(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        uploads.append((self.name, (time.perf_counter() - t0) * 1e3))
+
+    def upload_ms(since):
+        return sum(ms for _, ms in uploads[since:])
+
+    tmp = tempfile.mkdtemp(prefix="estpu-ops21-")
+    DeviceSegment.__init__ = timed_init
+    try:
+        # ---- (a) the search pool: an _msearch of 64 bench bodies
+        bodies = [plan_body(queries[v2m[i]], T21_SIZE) if i % 2 == 0
+                  else match_body(queries[v2m[i]], T21_SIZE, source=True)
+                  for i in range(T21_MSEARCH)]
+        alone = [http(port, "POST", "/bench/_search", b) for b in bodies]
+        tp0 = node_metrics(port, node.node_id)["thread_pool"]["search"]
+        nd = "".join(json.dumps({"index": "bench"}) + "\n" + json.dumps(b)
+                     + "\n" for b in bodies)
+        t0 = time.perf_counter()
+        st, r = http(port, "POST", "/_msearch", nd, ndjson=True)
+        ms_wall = time.perf_counter() - t0
+        check(st == 200 and len(r["responses"]) == T21_MSEARCH,
+              f"(a) _msearch: {str(r)[:300]}")
+        for i, (got, (st, want)) in enumerate(zip(r["responses"], alone)):
+            check(st == 200 and "hits" in got,
+                  f"(a) body {i}: {str(got)[:200]}")
+            same_hits_exactly(got, want, f"(a) body {i} in the _msearch "
+                              f"and alone")
+        ns = node_metrics(port, node.node_id)
+        tp1 = ns["thread_pool"]["search"]
+        check(tp1["completed"] - tp0["completed"] == T21_MSEARCH
+              and tp1["rejected"] == tp0["rejected"],
+              f"(a) thread_pool.search: completed +{T21_MSEARCH}, "
+              f"rejected +0 ({tp0} -> {tp1})")
+        st, _, cat = http_h(port, "GET", "/_cat/thread_pool")
+        check(st == 200, f"(a) _cat/thread_pool: {cat}")
+        pools = ns["thread_pool"]
+        rows = {ln.split()[1]: [int(x) for x in ln.split()[2:]]
+                for ln in cat.splitlines()}
+        check(rows == {n: [p["active"], p["queue"], p["rejected"]]
+                       for n, p in pools.items()},
+              f"(a) _cat/thread_pool agrees with _nodes/stats: {rows} vs "
+              f"{pools}")
+        out["thread_pool"] = dict(bodies=T21_MSEARCH, wall_s=ms_wall,
+                                  search=tp1, pools=sorted(pools))
+        log(f"[ops] (a) {out['thread_pool']}")
+        lap("a_thread_pool")
+
+        # ---- (b) "bench5" frozen
+        names5 = node.indices["bench5"].segment_names()
+        fbodies = [plan_body(queries[v2m[i]], T21_SIZE) if i % 2 == 0
+                   else t19_dense_body(queries[v2m[i]], T21_SIZE)
+                   for i in range(T21_FROZEN)]
+        warm = [http(port, "POST", "/bench5/_search", b) for b in fbodies]
+        for i, (st, w) in enumerate(warm):
+            check(st == 200, f"(b) unfrozen body {i}: {str(w)[:200]}")
+        walk_body = t19_dense_body(queries[v2m[0]], T21_SIZE)
+        walk = scroll_walk(port, "/bench5/_search", walk_body,
+                           T21_SCROLL_PAGES)
+        st, r = http(port, "POST", "/bench5/_freeze")
+        check(st == 200 and r["acknowledged"], f"(b) _freeze: {r}")
+
+        def frozen_clean(what):
+            check(resident_of(node, "bench5") == [],
+                  f"{what}: no bench5 segment on the card")
+            check(node.device_cache.hbm_stats(set(names5))[
+                "total_bytes"] == 0, f"{what}: no bench5 bytes")
+            breaker_is_resident(node, what)
+
+        frozen_clean("(b) after _freeze")
+        throttled = node.threadpool.executor("search_throttled")
+        thr0 = throttled.stats()["completed"]
+        frozen_up = []
+        for i, b in enumerate(fbodies):
+            n_up = len(uploads)
+            st, r = http(port, "POST", "/bench5/_search", b)
+            check(st == 200, f"(b) frozen body {i}: {str(r)[:200]}")
+            same_hits_exactly(r, warm[i][1], f"(b) frozen body {i} and "
+                              f"unfrozen")
+            frozen_clean(f"(b) after frozen body {i}")
+            frozen_up.append(upload_ms(n_up))
+        check(throttled.stats()["completed"] - thr0 == T21_FROZEN,
+              f"(b) search_throttled.completed +{T21_FROZEN}")
+        st, r = http(port, "PUT", "/bench5/_doc/t21", {"title": "frozen"})
+        check(st == 403 and r["error"]["type"] == "cluster_block_exception",
+              f"(b) a write to the frozen index: {st} {r}")
+        fwalk = scroll_walk(
+            port, "/bench5/_search", walk_body, T21_SCROLL_PAGES,
+            after=lambda i: frozen_clean(f"(b) after frozen scroll page "
+                                         f"{i}"))
+        for i, (a, b) in enumerate(zip(fwalk, walk)):
+            same_hits_exactly(a, b, f"(b) scroll page {i} frozen and "
+                              f"unfrozen")
+        check(len(fwalk[-1]["hits"]["hits"]) == T21_SIZE,
+              "(b) the walk's third page is full")
+        st, r = http(port, "POST", "/bench5/_unfreeze")
+        check(st == 200, f"(b) _unfreeze: {r}")
+        out["frozen"] = dict(
+            bodies=T21_FROZEN, upload_ms=frozen_up,
+            upload_ms_mean=float(np.mean(frozen_up)),
+            scroll_pages=len(fwalk),
+            throttled=throttled.stats())
+        log(f"[ops] (b) {out['frozen']}")
+        lap("b_frozen")
+
+        # ---- (c) snapshot "bench", restore it as "bench_r"
+        repo_dir = os.path.join(tmp, "repo")
+        st, r = http(port, "PUT", "/_snapshot/ops21", {
+            "type": "fs", "settings": {"location": repo_dir}})
+        check(st == 200, f"(c) register the repository: {r}")
+        t0 = time.time()
+        st, r = http(port, "PUT", "/_snapshot/ops21/snap1",
+                     {"indices": "bench"})
+        snap_s = time.time() - t0
+        check(st == 200 and r["snapshot"]["state"] == "SUCCESS",
+              f"(c) snapshot: {str(r)[:300]}")
+        st, r = http(port, "GET", "/_snapshot/ops21/snap1/_status")
+        snap_stats = r["snapshots"][0]["stats"]
+        check(st == 200 and snap_stats["uploaded_bytes"]
+              == snap_stats["total_bytes"] > 0,
+              f"(c) the first snapshot uploads every byte: {snap_stats}")
+        t0 = time.time()
+        st, r = http(port, "POST", "/_snapshot/ops21/snap1/_restore", {
+            "indices": "bench", "rename_pattern": "bench",
+            "rename_replacement": "bench_r"})
+        restore_s = time.time() - t0
+        check(st == 200 and r["snapshot"]["indices"] == ["bench_r"],
+              f"(c) restore: {r}")
+        src_names = set(node.indices["bench"].segment_names())
+        r_names = set(node.indices["bench_r"].segment_names())
+        check(r_names and not (src_names & r_names),
+              f"(c) fresh segment names: {src_names} vs {r_names}")
+        mix = [(plan_body if i % 3 == 0 else t19_dense_body if i % 3 == 1
+                else (lambda q, k: match_body(q, k, source=True)))(
+                    queries[v2m[i]], T21_SIZE) for i in range(T21_RESTORED)]
+        want = []
+        for i, b in enumerate(mix):
+            st, w = http(port, "POST", "/bench/_search", b)
+            check(st == 200, f"(c) bench body {i}: {str(w)[:200]}")
+            want.append(w)
+        n_up = len(uploads)
+        st, first = http(port, "POST", "/bench_r/_search", mix[1])
+        first_up = upload_ms(n_up)
+        check(st == 200 and any(n in r_names for n, _ in uploads[n_up:]),
+              f"(c) the first bench_r search uploads its segment: {st}")
+        d0 = fp.stats["cohorts_v2m"]
+        q0 = dict(fp.serving_stats()["dispatch"])
+        for i, b in enumerate(mix):
+            st, g = http(port, "POST", "/bench_r/_search", b)
+            check(st == 200, f"(c) bench_r body {i}: {str(g)[:200]}")
+            same_hits_exactly(g, want[i], f"(c) body {i} on bench_r and "
+                              f"bench")
+        n_fast = sum(1 for i in range(T21_RESTORED) if i % 3 == 2)
+        q1 = fp.serving_stats()["dispatch"]
+        fast_v2m = sum(v - q0.get(k, 0) for k, v in q1.items()
+                       if k.startswith("v2m"))
+        check(fp.stats["cohorts_v2m"] > d0 and fast_v2m == n_fast,
+              f"(c) bench_r's {n_fast} fast-grammar bodies on the v2m "
+              f"lane: {fast_v2m} ({q0} -> {q1})")
+        front = (fp._front_reg or {}).get("index")
+        breaker_is_resident(node, "(c) bench and bench_r resident")
+        st, r = http(port, "PUT", "/_snapshot/ops21/snap2",
+                     {"indices": "bench"})
+        check(st == 200, f"(c) the second snapshot: {r}")
+        st, r = http(port, "GET", "/_snapshot/ops21/snap2/_status")
+        snap2 = r["snapshots"][0]["stats"]
+        check(snap2["uploaded_bytes"] == 0
+              and snap2["skipped_bytes"] == snap2["total_bytes"] > 0,
+              f"(c) the second snapshot uploads no new blob bytes: {snap2}")
+        victim = want[1]["hits"]["hits"][0]["_id"]
+        st, _ = http(port, "DELETE", f"/bench/_doc/{victim}")
+        check(st == 200, f"(c) delete {victim} from bench")
+        check(http(port, "POST", "/bench/_refresh")[0] == 200, "refresh")
+        st, g = http(port, "POST", "/bench_r/_search", mix[1])
+        check(g["hits"]["total"] == want[1]["hits"]["total"]
+              and g["hits"]["hits"][0]["_id"] == victim,
+              f"(c) bench_r keeps the doc deleted in bench: "
+              f"{g['hits']['total']}")
+        st, s = http(port, "POST", "/bench/_search", mix[1])
+        check(s["hits"]["total"]["value"]
+              == want[1]["hits"]["total"]["value"] - 1,
+              f"(c) bench lost it: {s['hits']['total']}")
+        out["snapshot"] = dict(
+            snapshot_s=snap_s, bytes=snap_stats["total_bytes"],
+            files=snap_stats["file_count"], restore_s=restore_s,
+            first_search_upload_ms=first_up, second_snapshot=snap2,
+            bodies=T21_RESTORED, fast_bodies_v2m=fast_v2m, front=front)
+        log(f"[ops] (c) {out['snapshot']}")
+        lap("c_snapshot_restore")
+
+        # ---- (d) mount the snapshot as "bench_m"
+        st, r = http(port, "POST", "/_snapshot/ops21/snap1/_mount"
+                     "?storage=shared_cache",
+                     {"index": "bench", "renamed_index": "bench_m"})
+        check(st == 200, f"(d) mount: {r}")
+        check(arrays_files(node, "bench_m") == [],
+              "(d) no segment file before the first search")
+        st, ss0 = http(port, "GET", "/_searchable_snapshots/stats")
+        n_up = len(uploads)
+        t0 = time.time()
+        st, g = http(port, "POST", "/bench_m/_search", mix[1])
+        mount_first_s = time.time() - t0
+        mount_up = upload_ms(n_up)
+        check(st == 200 and arrays_files(node, "bench_m") != [],
+              f"(d) the first search materializes the segments: {st}")
+        same_hits_exactly(g, want[1], "(d) bench_m's first answer and "
+                          "bench's")
+        for i, b in enumerate(mix[:8]):
+            st, g = http(port, "POST", "/bench_m/_search", b)
+            same_hits_exactly(g, want[i], f"(d) body {i} on bench_m and "
+                              f"bench")
+        st, r = http(port, "PUT", "/bench_m/_doc/t21", {"title": "mounted"})
+        check(st == 403, f"(d) a write to the mount: {st} {r}")
+        breaker_is_resident(node, "(d) bench, bench_r and bench_m resident")
+        st, ss1 = http(port, "GET", "/_searchable_snapshots/stats")
+        st, r = http(port, "POST", "/_snapshot/ops21/snap1/_mount"
+                     "?storage=shared_cache",
+                     {"index": "bench", "renamed_index": "bench_m2"})
+        check(st == 200, f"(d) the second mount: {r}")
+        st, c = http(port, "POST", "/bench_m2/_count", {})
+        check(st == 200, f"(d) _count on the second mount: {c}")
+        st, ss2 = http(port, "GET", "/_searchable_snapshots/stats")
+        cache0, cache1, cache2 = (x["shared_cache"] for x in (ss0, ss1, ss2))
+        check(cache1["misses"] > cache0["misses"]
+              and cache2["hits"] > cache1["hits"]
+              and cache2["misses"] == cache1["misses"],
+              f"(d) the second mount is served from the cache: {cache0} -> "
+              f"{cache1} -> {cache2}")
+        check(http(port, "DELETE", "/bench_m2")[0] == 200,
+              "delete bench_m2")
+        out["mount"] = dict(first_search_s=mount_first_s,
+                            first_search_upload_ms=mount_up,
+                            cache=cache2, indices=ss2["total"])
+        log(f"[ops] (d) {out['mount']}")
+        lap("d_mount")
+
+        # ---- (e) SLM: a policy executed twice, max_count 1
+        lines = "".join(
+            json.dumps({"index": {"_index": "ops21", "_id": str(i)}}) + "\n"
+            + json.dumps({"title": f"slm doc {i}"}) + "\n"
+            for i in range(T21_SLM_DOCS))
+        st, r = http(port, "POST", "/_bulk?refresh=true", lines, ndjson=True)
+        check(st == 200 and not r["errors"], "(e) the policy's index")
+        st, r = http(port, "PUT", "/_slm/policy/p21", {
+            "name": "<ops21-{now/d}>", "repository": "ops21",
+            "config": {"indices": "ops21"},
+            "retention": {"max_count": 1}})
+        check(st == 200, f"(e) put the policy: {r}")
+        names = []
+        for _ in range(2):
+            st, r = http(port, "POST", "/_slm/policy/p21/_execute")
+            check(st == 200, f"(e) execute: {r}")
+            names.append(r["snapshot_name"])
+        st, r = http(port, "GET", "/_snapshot/ops21/_all")
+        mine = [s["snapshot"] for s in r["snapshots"]
+                if s.get("metadata", {}).get("policy") == "p21"]
+        check(names[0] != names[1] and mine == [names[1]],
+              f"(e) retention kept the newest of {names}: {mine}")
+        st, p = http(port, "GET", "/_slm/policy/p21")
+        check(p["p21"]["last_success"]["snapshot_name"] == names[1],
+              f"(e) the policy's last success: {p}")
+        out["slm"] = dict(executed=names, kept=mine)
+        lap("e_slm")
+
+        # ---- (f) health
+        st, rep = http(port, "GET", "/_health_report")
+        br = node.breaker_service.get_breaker("hbm")
+        hist = node.telemetry.history
+        check(st == 200, f"(f) _health_report: {str(rep)[:300]}")
+        nid = node.node_id
+        eng = rep["indicators"]["device_engine"]["details"]["nodes"][nid]
+        check(eng["hbm_used_ratio"] == round(br.used / br.limit, 4),
+              f"(f) device_engine's hbm_used_ratio {eng['hbm_used_ratio']} "
+              f"== breaker {br.used} / {br.limit}")
+        reg_d = rep["indicators"]["device_regime"]["details"]["nodes"][nid]
+        slots = hist.delta_total("flight.launch.slots", HEALTH_RATE_WINDOW_S)
+        filled = hist.delta_total("flight.launch.filled",
+                                  HEALTH_RATE_WINDOW_S)
+        launches_w = hist.delta_total("flight.launches",
+                                      HEALTH_RATE_WINDOW_S)
+        check(launches_w > 0 and reg_d["launches_in_window"] == launches_w
+              and reg_d["fill_ratio_in_window"]
+              == (filled / slots if slots else None),
+              f"(f) device_regime's fill {reg_d} == the flight ring's "
+              f"({launches_w} launches, {filled}/{slots})")
+        integ = rep["indicators"]["repository_integrity"]
+        check(integ["status"] == "green"
+              and integ["details"]["nodes"][nid]["repositories"] == [
+                  "ops21"], f"(f) repository_integrity green: {integ}")
+        blob = os.path.join(repo_dir, "snap-snap1.json")
+        with open(blob, "r+b") as fh:
+            fh.truncate(os.path.getsize(blob) // 2)
+        st, r = http(port, "GET", "/_health_report/repository_integrity")
+        integ_red = r["indicators"]["repository_integrity"]
+        check(integ_red["status"] == "red"
+              and integ_red["diagnosis"][0]["affected_resources"]
+              == ["ops21:snap-snap1.json"],
+              f"(f) repository_integrity red, naming the truncated blob: "
+              f"{integ_red}")
+        st, h = http(port, "GET", "/_cluster/health")
+        shards = sum(s.num_shards for s in node.indices.values())
+        check(st == 200 and h["status"] == "green"
+              and h["active_shards"] == shards,
+              f"(f) _cluster/health green with {shards} active shards: {h}")
+        st, r = http(port, "GET", "/_health_report/nope")
+        check(st == 400 and r["error"]["type"]
+              == "illegal_argument_exception",
+              f"(f) an unknown indicator: {st} {r}")
+        out["health"] = dict(
+            status=rep["status"],
+            indicators={k: v["status"] for k, v in
+                        rep["indicators"].items()},
+            hbm_used_ratio=eng["hbm_used_ratio"],
+            fill_ratio_in_window=reg_d["fill_ratio_in_window"],
+            launches_in_window=launches_w, truncated="snap-snap1.json",
+            active_shards=h["active_shards"])
+        log(f"[ops] (f) {out['health']}")
+        lap("f_health")
+
+        # ---- cleanup
+        for index in ("bench_r", "bench_m", "ops21"):
+            check(http(port, "DELETE", f"/{index}")[0] == 200,
+                  f"delete {index}")
+        check(http(port, "DELETE", "/_slm/policy/p21")[0] == 200,
+              "delete the policy")
+        check(http(port, "DELETE", "/_snapshot/ops21")[0] == 200,
+              "delete the repository")
+        check(node.background_threads() == 0, "no background thread left")
+        hbm_agrees(node, "operations", hbm_log)
+        lap("cleanup")
+    finally:
+        DeviceSegment.__init__ = orig_init
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- the kernels' counts
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    scorings = TRACKER.calls("bm25_dense_scores_sorted") - s_start
+    cohorts = fp.stats["cohorts"] - c_start["cohorts"]
+    cohorts_v2m = fp.stats["cohorts_v2m"] - c_start["cohorts_v2m"]
+    check(cohorts_v2m > 0 and scorings > 0
+          and launches["gather_bm25_contrib"] == scorings + cohorts
+          and launches["merge_sorted_slots"] == cohorts_v2m,
+          f"the contribution kernel once a dense scoring ({scorings}) and "
+          f"once a fast cohort ({cohorts}), the merge once a v2m cohort "
+          f"({cohorts_v2m}): {launches}")
+    out["launches"] = launches
+    out["dense_scorings"] = scorings
+    out["fast_cohorts"] = cohorts
+    out["uploads"] = len(uploads)
+    out["steps_s"] = steps
+    out["phase_s"] = time.time() - t_phase
+    log(f"[ops] {json.dumps(out)[:3000]}")
+    return out
+
+
+def operations_alone(docs=2_000_000, vocab=100_000, seed=0):
+    """Phase 21 by itself on the card, on a node holding what it reads of
+    the earlier phases' indices: "bench" (registered with the front) and
+    "bench5" (the corpus in 5 shards, one segment each):
+
+        python3 -c 'import chip_smoke as c; c.operations_alone()'
+    """
+    import torch
+
+    from elasticsearch_tpu_torch.corpus import (build_corpus, make_queries,
+                                                segment_from_corpus,
+                                                shard_corpus)
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops import _build
+    from elasticsearch_tpu_torch.ops.bm25_contrib import gather_bm25_contrib
+    from elasticsearch_tpu_torch.ops.merge import merge_sorted_slots
+    _build.build_all()
+    rng = np.random.default_rng(seed)
+    corpus = build_corpus(rng, n_docs=docs, vocab=vocab)
+    queries = make_queries(rng, corpus["df"], n_docs=docs, n_queries=256)
+    node = Node(device="cuda", settings={"indices.breaker.hbm.limit": int(
+        0.75 * torch.cuda.mem_get_info()[1])})
+    try:
+        node.create_index("bench", {"properties": {"title":
+                                                   {"type": "text"}}})
+        node.indices["bench"].engine.install_segments(
+            [segment_from_corpus(corpus)])
+        port = node.start(0)
+        svc = node.create_index(
+            "bench5", {"properties": {"title": {"type": "text"}}},
+            {"index": {"number_of_shards": SHARDS}})
+        assign = routing_oracle(docs, SHARDS)
+        for sh in range(SHARDS):
+            sub = shard_corpus(corpus, np.nonzero(assign == sh)[0])
+            svc.shards[sh].install_segments([segment_from_corpus(
+                sub, name=f"bench5[{sh}]_0", ids=sub["ids"])])
+        node.refresh_front()
+        counters = {"gather_bm25_contrib": gather_bm25_contrib,
+                    "merge_sorted_slots": merge_sorted_slots}
+        out = phase_operations(node, port, queries, seed + 22, counters, [])
+        print(json.dumps({"ops": out}))
+        return out
+    finally:
+        node.close()
+
+
 class PhaseClock:
     """The wall seconds of each phase, one lap a phase
     (``{"phase_seconds": ...}``)."""
@@ -11812,11 +12362,22 @@ def main(argv=None) -> int:
         telemetry = phase_telemetry(node, port, corpus, queries, oracles,
                                     args.seed + 21, counters, hbm_log)
         clock.lap("20_telemetry")
+
+        # ---- 21. the operational layer: thread pools, a frozen index,
+        # snapshots, a mount, SLM, health (deletes a doc of "bench")
+        seg_live = seg.live
+        operations = phase_operations(node, port, queries, args.seed + 22,
+                                      counters, hbm_log)
+        clock.lap("21_operations")
     finally:
         node.close()
 
-    # ---- 16. durability, on a node of its own on a temporary data path
-    durability = phase_durability(seg, queries, args.seed + 17, counters,
+    # ---- 16. durability, on a node of its own on a temporary data path,
+    # over the corpus segment as it was built (phase 21's delete in
+    # "bench" replaced the live mask of the main node's copy)
+    seg16 = copy.copy(seg)
+    seg16.live, seg16.live_version, seg16.retired = seg_live, 0, False
+    durability = phase_durability(seg16, queries, args.seed + 17, counters,
                                   hbm_log)
     clock.lap("16_durability")
 
@@ -11831,7 +12392,7 @@ def main(argv=None) -> int:
     }
     rows = []
     for name, r in kern.items():
-        if name == "cohort":
+        if name in ("cohort", "launch_floor"):
             continue
         rows.append(dict(
             name=name, route="cuda", **meta[name],
@@ -11862,6 +12423,8 @@ def main(argv=None) -> int:
             launches_analysis=analysis["launches"][name],
             launches_tasks=tasks["launches"][name],
             launches_telemetry=telemetry["launches"][name],
+            launches_ops=operations["launches"][name],
+            launch_floor_ms=kern["launch_floor"]["ms"],
             dense_shape=(dense["contrib_dense_shape"]
                          if name == "gather_bm25_contrib" else None)))
     print(json.dumps({"scale": scale}))
@@ -11886,6 +12449,7 @@ def main(argv=None) -> int:
     print(json.dumps({"analysis": analysis}))
     print(json.dumps({"tasks": tasks}))
     print(json.dumps({"telemetry": telemetry}))
+    print(json.dumps({"ops": operations}))
     print(json.dumps({"filters": filters}))
     print(json.dumps({"plan": dict(plan_trace, burst=plan_burst,
                                    small=plan_small)}))

@@ -33,6 +33,14 @@ Elasticsearch's InternalEngine).
   version map reads their metadata columns through, and replays the
   translog from the commit's generation.
 
+**Mounted shards.** A shard whose directory holds a searchable
+snapshot's manifest (``snapshot_store.json``, xpack/searchable_snapshots.py)
+defers each committed segment whose files are missing: its files are
+fetched from the repository, through the materializer the node
+registers for its data path in ``LAZY_MATERIALIZERS``, at the first
+``acquire_searcher``, and only then loaded. A flush keeps the
+still-deferred names in the commit point.
+
 Segment names are ``{name}_{n}``, ``name`` being ``{index}[{shard}]``
 (index/service.py), unique across the node's indices and shards because
 the node's device cache and the fast path key on them; a segment loaded
@@ -67,6 +75,24 @@ from elasticsearch_tpu_torch.index.translog import Translog, TranslogOp
 
 # the metadata columns every written document carries
 META_COLUMNS = ("_seq_no", "_primary_term", "_version")
+# the files of a saved segment (index/segment.py ``Segment.save``)
+SEGMENT_FILES = ("meta.json", "arrays.npz", "stored.bin")
+# the manifest of a mounted shard (xpack/searchable_snapshots.py)
+LAZY_MANIFEST = "snapshot_store.json"
+
+# data path -> fn(shard_path, segment name) -> bool: fetches a deferred
+# segment's files into its directory (the node registers its own and
+# drops it at close)
+LAZY_MATERIALIZERS: Dict[str, Any] = {}
+
+
+def _find_materializer(shard_path: str):
+    for prefix, fn in list(LAZY_MATERIALIZERS.items()):
+        # prefix + separator: "/data/node1" must not claim
+        # "/data/node10/..." shards
+        if shard_path.startswith(prefix.rstrip(os.sep) + os.sep):
+            return fn
+    return None
 
 
 @dataclass(slots=True)
@@ -142,6 +168,9 @@ class Engine:
         self._pending_tombstones: Dict[Tuple[str, int],
                                        Tuple[Segment, int]] = {}
         self._segments: List[Segment] = []
+        # committed segments of a mounted shard whose files are still in
+        # the repository (fetched at the first search)
+        self._deferred_segments: List[str] = []
         self._dirty_segments: set = set()    # names needing a (re)save
         self._epoch = 0
         self._seg_counter = 0
@@ -161,8 +190,18 @@ class Engine:
         if os.path.exists(self._commit_path()):
             with open(self._commit_path()) as fh:
                 commit = json.load(fh)
-            self._segments = [Segment.load(os.path.join(self.path, n))
-                              for n in commit["segments"]]
+            lazy = os.path.exists(os.path.join(self.path, LAZY_MANIFEST))
+            for name in commit["segments"]:
+                seg_dir = os.path.join(self.path, name)
+                complete = all(os.path.exists(os.path.join(seg_dir, f))
+                               for f in SEGMENT_FILES)
+                if lazy and not complete:
+                    # a mounted shard: its files stream in at the first
+                    # search; a partial directory (a fetch cut short)
+                    # is fetched again
+                    self._deferred_segments.append(name)
+                else:
+                    self._segments.append(Segment.load(seg_dir))
             commit_gen = commit["translog_generation"]
             self.primary_term = commit.get("primary_term", 1)
             self._seg_counter = commit.get("seg_counter",
@@ -359,8 +398,33 @@ class Engine:
             return GetResult(False, doc_id)
 
     def acquire_searcher(self) -> SearcherSnapshot:
+        if self._deferred_segments:
+            self._materialize_deferred()
         with self._lock:
             return SearcherSnapshot(self._segments, self._epoch)
+
+    def _materialize_deferred(self) -> None:
+        """Fetch the deferred segments' files through the node's
+        materializer and publish them (the lazy-load moment of a mounted
+        shard); an IOError when no materializer covers the shard."""
+        fn = _find_materializer(self.path)
+        with self._lock:
+            names = list(self._deferred_segments)
+        if not names:
+            return
+        loaded = []
+        for name in names:
+            if fn is None or not fn(self.path, name):
+                raise IOError(
+                    f"segment [{name}] is snapshot-backed but no "
+                    f"repository materializer is registered")
+            loaded.append(Segment.load(os.path.join(self.path, name)))
+        with self._lock:
+            if self._deferred_segments:
+                self._segments = self._segments + loaded
+                self._deferred_segments = []
+                self._epoch += 1
+
 
     @property
     def segments(self) -> List[Segment]:
@@ -479,7 +543,11 @@ class Engine:
             self.translog.sync()
             new_gen = self.translog.roll_generation()
             commit = {
-                "segments": [s.name for s in self._segments],
+                # still-deferred segments MUST stay in the commit:
+                # dropping them would lose the mounted data at the next
+                # open
+                "segments": ([s.name for s in self._segments]
+                             + list(self._deferred_segments)),
                 "translog_generation": new_gen,
                 "max_seq_no": self.tracker.max_seq_no,
                 "local_checkpoint": self.tracker.checkpoint,

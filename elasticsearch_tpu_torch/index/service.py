@@ -34,7 +34,11 @@ Index state, as the reference keeps it in the index's settings:
 a 403 ``cluster_block_exception``, a document read or a search that
 names it a 400 ``index_closed_exception``, and a wildcard skips it),
 and ``index.blocks.write`` or ``index.blocks.read_only`` refuse writes
-with the 403. ``index.blocks.read`` and ``index.blocks.metadata`` are
+with the 403. ``index.frozen`` (``POST /{index}/_freeze``, which also
+sets the write block) keeps the index searchable with no device state
+between searches: the search service evicts its segments after every
+search (search/service.py), and searches that target only frozen
+indices run one at a time on the ``search_throttled`` pool. ``index.blocks.read`` and ``index.blocks.metadata`` are
 recorded and, as in the reference, refuse nothing.
 
 The indexing slow log (the reference's IndexingSlowLog): a document
@@ -120,13 +124,18 @@ class IndexService:
         return self.shards[0]
 
     # ---------------------------------------------------------- metadata
-    def _persist_meta(self) -> None:
+    def meta_dict(self) -> Dict[str, Any]:
+        """``{"settings", "mappings"}`` as ``_meta.json`` holds them (a
+        snapshot stores the same)."""
         mappings = self.mapper.to_mapping()
         if self.mapper.dynamic != "true":
             # GET _mapping leaves it out, as the reference's; a reopened
             # index keeps it
             mappings["dynamic"] = self.mapper.dynamic
-        meta = {"settings": self.settings, "mappings": mappings}
+        return {"settings": dict(self.settings), "mappings": mappings}
+
+    def _persist_meta(self) -> None:
+        meta = self.meta_dict()
         tmp = os.path.join(self.path, "_meta.json.tmp")
         with open(tmp, "w") as fh:
             json.dump(meta, fh)
@@ -173,6 +182,13 @@ class IndexService:
     @property
     def is_closed(self) -> bool:
         return str(self.settings.get("index.state", "open")) == "close"
+
+    @property
+    def is_frozen(self) -> bool:
+        """Frozen: searchable, with no device-resident state between
+        searches (x-pack frozen indices' per-search reader)."""
+        return str(self.settings.get("index.frozen",
+                                     "false")).lower() == "true"
 
     @property
     def write_blocked(self) -> bool:
@@ -336,6 +352,19 @@ class IndicesService(dict):
         svc = IndexService(name, self.index_path(name), settings, mappings,
                            on_retire=self.on_retire)
         self[name] = svc
+        return svc
+
+    def open_index(self, name: str) -> IndexService:
+        """Open an index whose files were placed under the data path out
+        of band (a snapshot's restore or mount)."""
+        if name in self:
+            raise ResourceAlreadyExistsException(f"index [{name}]")
+        meta = read_meta(self.index_path(name))
+        if meta is None:
+            raise IndexNotFoundException(name)
+        svc = self[name] = IndexService(name, self.index_path(name),
+                                        meta["settings"], meta["mappings"],
+                                        on_retire=self.on_retire)
         return svc
 
     def require(self, name: str) -> IndexService:

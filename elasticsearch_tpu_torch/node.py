@@ -67,10 +67,32 @@ templates, data streams; ``_metadata.json``) and stored scripts
 (search/script.py ``StoredScripts``; ``_scripts.json``) live under the
 data path beside the indices. ``close_index`` and ``open_index`` set
 ``index.state``: a closed index keeps its files, and its segments leave
-the device and the front. ``_msearch`` runs its sub-searches on
-``search_pool``, Elasticsearch's search pool: ``3 * cores // 2 + 1``
-threads (at most 32) and a queue of 1000, past which a sub-search
-answers its own 429.
+the device and the front.
+
+``threadpool`` (common/threadpool.py) holds the node's named pools:
+``_msearch`` runs its bodies on ``search`` (``3 * cores // 2 + 1``
+threads, a queue of 1000, past which a body answers its own 429), and a
+search that targets only frozen indices runs on ``search_throttled``
+(one thread). ``freeze_index`` sets ``index.frozen`` and the write
+block and drops the index's device state, which the search service then
+drops after every search of it (search/service.py ``evict_frozen``);
+``unfreeze_index`` clears both.
+
+Snapshots (repositories/, snapshots/, xpack/searchable_snapshots.py):
+``repositories_service`` keeps the registered repositories
+(``_repositories.json`` under the data path), ``slm_service`` the
+snapshot lifecycle policies, and the node registers the materializer
+of its mounted shards' deferred segments for its data path
+(index/engine.py ``LAZY_MATERIALIZERS``), dropped at ``close``; the
+files they fetch go through the data path's shared blob cache (1 GiB,
+the reference's). A restored or mounted index gets fresh segment
+names.
+
+``health`` (health/) renders ``GET /_health_report`` from the node's
+signals (``health_context``): the breakers, the indexing pressure, the
+task manager and its stalled-progress watchdog (swept at each report,
+on the metrics clock), the launch tracker and the mesh, the flight
+recorder, the tenant and class accounting, and the repositories.
 
 Tasks (transport/tasks.py): ``task_manager`` registers every `_search`,
 `_count`, scroll page, `_msearch` (a parent and a child a body), async
@@ -87,24 +109,28 @@ indices.
 
 from __future__ import annotations
 
-import os
 import shutil
 import tempfile
 import threading
-from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterable, Optional
 
 from elasticsearch_tpu_torch.common.errors import (
     CircuitBreakingException, EsRejectedExecutionException)
 from elasticsearch_tpu_torch.common.settings import flat_settings
+from elasticsearch_tpu_torch.common.threadpool import ThreadPool
 from elasticsearch_tpu_torch.device import (DeviceLike, resolve_device,
                                             resolve_devices)
 from elasticsearch_tpu_torch.utils.breaker import (CircuitBreaker,
                                                    build_breaker_service)
+from elasticsearch_tpu_torch.health import (HealthContext, HealthService,
+                                            StalledProgressWatchdog)
+from elasticsearch_tpu_torch.health import watchdog as _watchdog
+from elasticsearch_tpu_torch.index import engine as _engine_mod
 from elasticsearch_tpu_torch.index.mapper import TextFieldType
 from elasticsearch_tpu_torch.index.metadata import MetadataService
 from elasticsearch_tpu_torch.index.pressure import IndexingPressure
 from elasticsearch_tpu_torch.index.service import IndicesService
+from elasticsearch_tpu_torch.repositories.blobstore import RepositoriesService
 from elasticsearch_tpu_torch.rest.api import RestController
 from elasticsearch_tpu_torch.rest.api import error_answer
 from elasticsearch_tpu_torch.search.async_search import AsyncSearchService
@@ -112,16 +138,16 @@ from elasticsearch_tpu_torch.search.context import DeviceSegmentCache
 from elasticsearch_tpu_torch.search.fastpath import FastPathServer
 from elasticsearch_tpu_torch.search.script import StoredScripts
 from elasticsearch_tpu_torch.search.service import SearchService
+from elasticsearch_tpu_torch.snapshots.slm import SnapshotLifecycleService
 from elasticsearch_tpu_torch.telemetry import Telemetry
-from elasticsearch_tpu_torch.telemetry import context as _telectx
+from elasticsearch_tpu_torch.telemetry import engine as _tracker
 from elasticsearch_tpu_torch.utils.bigarrays import BigArrays
 from elasticsearch_tpu_torch.transport.tasks import (CancellableTask,
                                                      TaskManager,
                                                      TaskResultStore)
+from elasticsearch_tpu_torch.xpack import searchable_snapshots as _ss
 
-VERSION = "8.0.0-torch-slice23"
-# the search pool's queue (Elasticsearch's thread_pool.search.queue_size)
-SEARCH_QUEUE_SIZE = 1000
+VERSION = "8.0.0-torch-slice24"
 # the system index of background tasks' results (the reference's)
 TASKS_INDEX = ".tasks"
 TASKS_MAPPINGS = {"properties": {"completed": {"type": "boolean"},
@@ -142,6 +168,9 @@ class Node:
         self.devices = resolve_devices(devices, self.device)
         self.node_id = "node-0"
         self.settings: Dict[str, Any] = flat_settings(settings)
+        # the named executors (Elasticsearch's ThreadPool), wired ahead
+        # of every service
+        self.threadpool = ThreadPool()
         self.breaker_service = build_breaker_service(self.settings.get)
         self.indexing_pressure = IndexingPressure.from_settings(
             self.settings.get)
@@ -193,10 +222,9 @@ class Node:
             batcher.tenants = self.telemetry.tenants
             batcher.workloads = self.telemetry.workload
         svc.mesh_executor.metrics = self.telemetry.metrics
-        self.search_pool = ThreadPoolExecutor(
-            max_workers=min(32, 3 * (os.cpu_count() or 1) // 2 + 1),
-            thread_name_prefix="search")
-        self._search_queue = threading.BoundedSemaphore(SEARCH_QUEUE_SIZE)
+        # a frozen index's segments leave the device after each search,
+        # the fast path's registrations of them too
+        svc.evict_segments = self._retire
         # v1 cohorts split their rows over the device list (below two
         # devices a registration binds no replica mesh)
         self.fastpath = FastPathServer(
@@ -218,6 +246,26 @@ class Node:
         self.async_search_service = AsyncSearchService(
             self.rest_controller.async_search_fn, self.task_manager,
             spawn=self.spawn, error_of=error_answer)
+        # snapshots: the repositories, the materializer of mounted
+        # shards' deferred segments, the lifecycle policies
+        self.repositories_service = RepositoriesService(self.data_path)
+        self._materializer = (
+            lambda shard_path, seg: _ss.materialize_segment(
+                shard_path, seg, self.repositories_service, self.data_path))
+        _engine_mod.LAZY_MATERIALIZERS[self.data_path] = self._materializer
+        self.slm_service = SnapshotLifecycleService(
+            self.repositories_service, self.indices, self.data_path)
+        # health: the indicators over the node's signals, the watchdog
+        # swept lazily by each report (no scheduler on this node)
+        self.health_watchdog = StalledProgressWatchdog(
+            clock=self.telemetry.metrics.clock,
+            metrics=self.telemetry.metrics,
+            tasks_fn=self.task_manager.list_tasks,
+            stall_after_s=float(get("health.watchdog.stall_after",
+                                    _watchdog.DEFAULT_STALL_AFTER_S)),
+            task_deadline_s=float(get("health.watchdog.task_deadline",
+                                      _watchdog.DEFAULT_TASK_DEADLINE_S)))
+        self.health = HealthService(context_fn=self.health_context)
         self._http = None     # the NativeHttpFront, once started
         self._fastpath_started = False
         # the segment the front's registration could not admit (it alone
@@ -276,21 +324,43 @@ class Node:
         if self._http is not None:
             self.refresh_front()
 
-    def submit_search(self, fn, *args):
-        """``fn(*args)`` on the search pool: its future, or an
-        EsRejectedExecutionException (a 429) when the queue is full."""
-        if not self._search_queue.acquire(blocking=False):
-            raise EsRejectedExecutionException(
-                "rejected execution of a search: the search queue is full")
+    def freeze_index(self, name: str) -> None:
+        """Freeze an index (``index.frozen`` and the write block,
+        persisted): searchable, with no device state between searches;
+        its device copies and fast-path registrations go now."""
+        svc = self.indices.require(name)
+        svc.update_settings({"index.frozen": True,
+                             "index.blocks.write": True})
+        self._retire(svc.segment_names())
 
-        def run():
-            try:
-                return fn(*args)
-            finally:
-                self._search_queue.release()
-        # the caller's ambient contexts (trace, client id, tenant, class,
-        # recorders) go with the work onto the pool's thread
-        return self.search_pool.submit(_telectx.bind(run))
+    def unfreeze_index(self, name: str) -> None:
+        self.indices.require(name).update_settings(
+            {"index.frozen": False, "index.blocks.write": False})
+
+    def health_context(self) -> HealthContext:
+        """The signals an indicator reads, fresh for each report. One
+        node has no cluster state: no routing table, no shutdown
+        markers, no recoveries in flight."""
+        return HealthContext(
+            node_id=self.node_id,
+            now=self.telemetry.metrics.clock,
+            metrics=self.telemetry.metrics,
+            history=self.telemetry.history,
+            breaker_service=self.breaker_service,
+            indexing_pressure=self.indexing_pressure,
+            task_manager=self.task_manager,
+            engine_totals=_tracker.TRACKER.totals(),
+            mesh_stats=self.search_service.mesh_executor.stats(),
+            watchdog=self.health_watchdog,
+            flight=self.telemetry.flight,
+            tenants=self.telemetry.tenants,
+            workload=self.telemetry.workload,
+            repositories=self.repositories_service)
+
+    def shard_count(self) -> int:
+        """The shards of the node's indices (all started: one node holds
+        every shard of its indices and no replica)."""
+        return sum(svc.num_shards for svc in list(self.indices.values()))
 
     def spawn(self, name: str, fn) -> threading.Thread:
         """Run ``fn`` on a daemon thread of the node's, which ``close``
@@ -346,8 +416,9 @@ class Node:
         return got.source.get("response") if got.found else None
 
     def _retire(self, names: Iterable[str]):
-        """Segments a merge or an install retired: no registration of the
-        fast path and no device copy may keep them."""
+        """Segments a merge or an install retired (or a frozen index's
+        after a search): no registration of the fast path and no device
+        copy may keep them."""
         names = list(names)
         self.fastpath.retire(names)
         self.device_cache.evict(names)
@@ -466,6 +537,9 @@ class Node:
                 self.fastpath.stop()
                 self._fastpath_started = False
             self.indices.close()
-        self.search_pool.shutdown(wait=False, cancel_futures=True)
+        self.threadpool.shutdown(CLOSE_JOIN_S)
+        if _engine_mod.LAZY_MATERIALIZERS.get(self.data_path) \
+                is self._materializer:
+            del _engine_mod.LAZY_MATERIALIZERS[self.data_path]
         if self._own_data_path:
             shutil.rmtree(self.data_path, ignore_errors=True)

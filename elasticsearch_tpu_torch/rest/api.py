@@ -57,6 +57,11 @@ reduced to the routes ported so far):
     GET  /_traces                 ?size, from, exemplar_for=<histogram>
     GET  /_traces/{trace_id}
     GET  /_tenants/stats, /_workload/stats, /_cat/tenants, /_cat/workload
+    GET  /_cluster/health, /_health_report[/{indicator}], /_cat/health
+    GET  /_cat/thread_pool        POST /{index}/_freeze, /{index}/_unfreeze
+    GET  /_migration/deprecations
+    /_snapshot, /_slm/policy, /_searchable_snapshots/stats, /_cat/snapshots,
+    /_cat/repositories            (rest/operations.py)
 
 ``dispatch`` takes the request's headers: ``X-Opaque-Id``,
 ``X-Tenant-Id`` and ``X-Workload-Class`` become ambient for the
@@ -138,8 +143,12 @@ body as the reference merges them), ``search_type``
 search/service.py); any other is a typed 400. A search, a `_count`,
 an `_explain` and each `_msearch` body on a filtered alias get its
 filter as a bool ``filter`` (``_apply_alias_filter``). `_msearch` runs
-its bodies concurrently on the node's search pool, each answering in
-its own slot (an error as ``{"error", "status"}``). A device admission the ``hbm`` breaker refuses
+its bodies concurrently on the node's ``search`` pool (common/
+threadpool.py), each answering in its own slot (an error as
+``{"error", "status"}``); a search that targets only frozen indices
+runs on the ``search_throttled`` pool, one at a time, and never takes
+the fast path (the search service drops a frozen index's device state
+after each search). A device admission the ``hbm`` breaker refuses
 answers 429 ``circuit_breaking_exception`` with ``bytes_wanted`` and
 ``bytes_limit``; a search whose failed shards the body does not allow
 (``allow_partial_search_results: false``) answers 503
@@ -221,6 +230,8 @@ from elasticsearch_tpu_torch.index.mapper import (MapperParsingException,
                                                   TextFieldType)
 from elasticsearch_tpu_torch.index.service import INDEX_NAME
 from elasticsearch_tpu_torch.index.translog import write_batch
+from elasticsearch_tpu_torch.rest.operations import (OPS_ROOTS,
+                                                     OperationsRoutes)
 from elasticsearch_tpu_torch.reindex.worker import (
     _Ctx, compile_update_script, delete_by_query, reindex, update_by_query)
 from elasticsearch_tpu_torch.search.fastpath import (MAX_FILTERS,
@@ -515,7 +526,7 @@ def termvectors_of(node, index: str, doc_id: Optional[str], body: dict,
             "term_vectors": tv}
 
 
-class RestController:
+class RestController(OperationsRoutes):
     def __init__(self, node):
         self.node = node
 
@@ -594,6 +605,13 @@ class RestController:
             handler = self._CAT.get(parts[1])
             if handler is not None:
                 return 200, {"_cat": handler(self, params)}
+        elif parts[:2] == ["_cat", "snapshots"] and n == 3 \
+                and method == "GET":
+            return 200, {"_cat": self._cat_snapshots(parts[2])}
+        elif parts[0] in OPS_ROOTS:
+            handler = self._ops_handler(method, parts, params, body)
+            if handler is not None:
+                return handler()
         elif parts == ["_async_search"] and method == "POST":
             return self._submit_async_search("_all", params, body)
         elif parts[0] == "_async_search" and n == 2:
@@ -687,6 +705,8 @@ class RestController:
                 ("_rollover", "POST"): self._rollover,
                 ("_close", "POST"): self._close,
                 ("_open", "POST"): self._open,
+                ("_freeze", "POST"): self._freeze,
+                ("_unfreeze", "POST"): self._unfreeze,
                 ("_analyze", "GET"): self._analyze,
                 ("_analyze", "POST"): self._analyze,
                 ("_mtermvectors", "GET"): self._mtermvectors,
@@ -811,8 +831,9 @@ class RestController:
         aggregates, the busiest tenants and classes, and the slow log's
         newest entries; ``?history=true`` adds the windowed history ring,
         ``history_window`` its seconds) and ``recoveries`` (each shard's
-        recovery from its own store). The reference's ``thread_pool``
-        section comes with the port's thread pools."""
+        recovery from its own store) and ``thread_pool`` (each named
+        pool's threads, queue, active, completed, rejected and EWMA task
+        ms: common/threadpool.py)."""
         history_window = params.get("history_window")
         telemetry = self.node.telemetry.to_dict(
             history=params.get("history") == "true",
@@ -830,6 +851,7 @@ class RestController:
                     self.node.search_service.request_cache_stats,
                 "breakers": self.node.breaker_service.stats(),
                 "indexing_pressure": self.node.indexing_pressure.stats(),
+                "thread_pool": self.node.threadpool.stats(),
                 "engine": self._engine_section(),
                 "tasks": self.node.task_manager.stats(),
                 "mesh": self.node.search_service.mesh_executor.stats(),
@@ -1393,8 +1415,16 @@ class RestController:
         try:
             with self._search_task(f"indices[{expression}]",
                                    span=span) as task:
-                status, response = self._search(expression, params, body,
-                                                task)
+                if self._targets_only_frozen(expression):
+                    # frozen searches one at a time on search_throttled,
+                    # with the ambient contexts carried across
+                    status, response = self.node.threadpool.executor(
+                        "search_throttled").submit(_telectx.bind(
+                            lambda: self._search(expression, params, body,
+                                                 task))).result(timeout=300)
+                else:
+                    status, response = self._search(expression, params,
+                                                    body, task)
         finally:
             span.finish()
         response.setdefault("_headers", {})["trace.id"] = span.trace_id
@@ -1422,7 +1452,7 @@ class RestController:
         svc = self.node.indices[index] if index is not None else None
         route = (self._fast_body(svc, body)
                  if svc is not None and search_type in SEARCH_TYPES
-                 and scroll is None else None)
+                 and scroll is None and not svc.is_frozen else None)
         if route is not None:
             seg, field, text, filter_texts = route
             pf = seg.postings[field]
@@ -1555,10 +1585,14 @@ class RestController:
 
             if len(searches) <= 1:
                 return 200, {"responses": [one(t, b) for t, b in searches]}
+            pool = self.node.threadpool.executor("search")
             slots = []
             for t, b in searches:
                 try:
-                    slots.append(self.node.submit_search(one, t, b))
+                    # the caller's ambient contexts (trace, client id,
+                    # tenant, class, recorders) go with the body
+                    slots.append(pool.submit(_telectx.bind(
+                        lambda t=t, b=b: one(t, b))))
                 except EsRejectedExecutionException as e:
                     slots.append({"error": {"type": e.error_type,
                                             "reason": str(e)},
@@ -2124,7 +2158,10 @@ class RestController:
             "shards": _cat_shards, "aliases": _cat_aliases,
             "templates": _cat_templates, "segments": _cat_segments,
             "tasks": _cat_tasks, "tenants": _cat_tenants,
-            "workload": _cat_workload}
+            "workload": _cat_workload,
+            "health": OperationsRoutes._cat_health,
+            "thread_pool": OperationsRoutes._cat_thread_pool,
+            "repositories": OperationsRoutes._cat_repositories}
 
 
 def _ndjson_lines(body) -> list:

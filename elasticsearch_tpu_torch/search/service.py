@@ -537,6 +537,10 @@ class SearchService:
         # the node's Telemetry (telemetry/__init__.py), or None: search
         # metrics, tenant and class records, shard and fetch spans
         self.telemetry = None
+        # drops segments' device state: their copies in the cache and the
+        # mesh (the node also drops the fast path's registrations)
+        self.evict_segments: Callable[[List[str]], None] = \
+            self._evict_device_copies
 
     # ------------------------------------------------------------- PIT
     def open_pit(self, expression: str, keep_alive: str) -> str:
@@ -573,11 +577,37 @@ class SearchService:
         asks; ``scroll`` (a keep-alive) opens a scroll context. Under a
         cancellable ``task`` (transport/tasks.py) the search stops at
         the next poll once it is cancelled (``_task_scope``)."""
-        with stored_scripts(self.stored_scripts), _task_scope(task):
-            return self.accounted(
-                expression, body, scroll,
-                lambda: self._search_request(expression, body, search_type,
-                                             scroll, task))
+        touched: List[Tuple[str, str]] = []
+        try:
+            with stored_scripts(self.stored_scripts), _task_scope(task):
+                return self.accounted(
+                    expression, body, scroll,
+                    lambda: self._search_request(expression, body,
+                                                 search_type, scroll, task,
+                                                 touched))
+        finally:
+            self.evict_frozen(touched)
+
+    def _evict_device_copies(self, names: List[str]) -> None:
+        self.cache.evict(names)
+        self.mesh_executor.evict(names)
+
+    def evict_frozen(self, touched) -> None:
+        """After a search: the segments it read, ``touched`` as (index,
+        segment name) pairs, keep no device state when their index is
+        frozen (x-pack frozen indices' per-search reader). An open
+        scroll or PIT keeps its host segments and uploads them again at
+        its next page; their bytes leave the breaker now."""
+        names = sorted({seg for index, seg in touched
+                        if index in self.indices
+                        and self.indices[index].is_frozen})
+        if names:
+            self.evict_segments(names)
+
+    @staticmethod
+    def _segments_of(searchers) -> List[Tuple[str, str]]:
+        return [(index, seg.name) for index, s in searchers
+                for seg in s.segments]
 
     def _default_tenant(self, expression: str) -> Optional[str]:
         """The ``index.tenant.default`` setting of a concretely named
@@ -649,7 +679,9 @@ class SearchService:
 
     def _search_request(self, expression: str, body: Dict[str, Any],
                         search_type: Optional[str],
-                        scroll: Optional[str], task=None) -> Dict[str, Any]:
+                        scroll: Optional[str], task=None,
+                        touched: Optional[List[Tuple[str, str]]] = None
+                        ) -> Dict[str, Any]:
         t0 = time.time()
         use_cache = body.get("request_cache")
         if "request_cache" in body or "tenant" in body:
@@ -705,6 +737,8 @@ class SearchService:
         for key in ("query", "post_filter"):
             if body.get(key):
                 body[key] = resolve_percolate_refs(body[key], self.indices)
+        if touched is not None:
+            touched.extend(self._segments_of(searchers))
         if search_type == "dfs_query_then_fetch" and len(searchers) > 1:
             searchers = _dfs_searchers(searchers)
         scroll_ctx = None
@@ -802,9 +836,12 @@ class SearchService:
         if scroll is not None:
             ctx.keep_alive = parse_time_value(scroll, "scroll")
         ctx.expires_at = time.time() + ctx.keep_alive
-        with stored_scripts(self.stored_scripts), _task_scope(task):
-            response = self._execute(ctx.searchers, ctx.body, None, ctx,
-                                     continuing=True)
+        try:
+            with stored_scripts(self.stored_scripts), _task_scope(task):
+                response = self._execute(ctx.searchers, ctx.body, None, ctx,
+                                         continuing=True)
+        finally:
+            self.evict_frozen(self._segments_of(ctx.searchers))
         response["_scroll_id"] = scroll_id
         return {"took": int((time.time() - t0) * 1000), **response}
 
@@ -883,11 +920,21 @@ class SearchService:
         segment holding ``doc_id`` (the first index and shard that has
         it live), and that doc's match and score."""
         names = self.indices.resolve(expression)
+        touched: List[Tuple[str, str]] = []
+        try:
+            return self._explain(names, expression, doc_id, body, touched)
+        finally:
+            self.evict_frozen(touched)
+
+    def _explain(self, names, expression: str, doc_id: str,
+                 body: Dict[str, Any], touched) -> Dict[str, Any]:
         with stored_scripts(self.stored_scripts):
             query = (parse_query(body["query"]) if body.get("query")
                      else MatchAllQuery())
             for name in names:
                 for searcher in self._shard_searchers(self.indices[name]):
+                    touched.extend((name, seg.name)
+                                   for seg in searcher.segments)
                     q = query.rewrite(searcher)
                     for seg_idx, seg in enumerate(searcher.segments):
                         d = seg.docid_for(doc_id)

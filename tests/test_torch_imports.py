@@ -53,7 +53,11 @@ def test_importing_every_module_loads_no_jax():
                  "search.suggest", "parallel.sharded",
                  "parallel.mesh_executor", "index.engine", "index.seqno",
                  "index.translog", "index.pressure", "index.service",
-                 "index.segment", "reindex.worker", "script.contexts"):
+                 "index.segment", "reindex.worker", "script.contexts",
+                 "common.threadpool", "health.indicator",
+                 "health.indicators", "health.service", "health.watchdog",
+                 "repositories.blobstore", "snapshots.slm",
+                 "xpack.searchable_snapshots", "rest.operations"):
         assert f"elasticsearch_tpu_torch.{name}" in res["modules"]
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 

@@ -752,10 +752,10 @@ def test_msearch_parent_cancel_kills_queued_children(tmp_path):
     answered as its body alone; the held one (running) and the four not
     started (banned on arrival) answer 400 ``task_cancelled_exception``;
     the ban dies with the parent."""
-    from concurrent.futures import ThreadPoolExecutor
+    from elasticsearch_tpu_torch.common.threadpool import TaskTrackingPool
     node = Node(device="cpu", data_path=str(tmp_path / "m"))
-    node.search_pool.shutdown()
-    node.search_pool = ThreadPoolExecutor(max_workers=1)
+    node.threadpool.pools["search"].shutdown()
+    node.threadpool.pools["search"] = TaskTrackingPool("search", 1)
     try:
         three_segment_index(node)
         bodies = [{"query": {"term": {"t": f"w{i}"}}, "size": 5,
